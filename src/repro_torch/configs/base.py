@@ -1,0 +1,233 @@
+"""Config system of the PyTorch port: its own copy of the JAX package's
+``configs/base.py``, cut down to what the dense family reads.
+
+Plain dataclasses, no framework imports.  Field names, defaults and the
+projection-site resolution are the reference's, so a config built here
+compares field by field with its counterpart there (the tests check
+that for chatglm3-6b).  Fields that only other families read (MoE, SSM,
+encoder-decoder, vision, pipeline, FSDP, training knobs) are left out
+until the slice that ports those families.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+import warnings
+from dataclasses import dataclass, field
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class PhantomConfig:
+    """The paper's technique: the legacy per-family selection surface
+    (``apply_ffn`` / ``apply_attn_proj``) and the phantom knobs.  New
+    configs set ``ModelConfig.projections`` instead."""
+    k: int = 64                     # ghost neurons per phantom layer
+    apply_ffn: bool = True          # factorize the MLP projections
+    apply_attn_proj: bool = False   # factorize QKV/O projections
+    include_self_term: bool = False
+    variant: str = "fused"          # faithful | fused | ring
+    kernel_backend: str = "xla"     # xla | pallas | auto
+
+
+@dataclass(frozen=True)
+class ProjectionSpec:
+    """Selects and parameterizes one projection strategy at one site.
+
+    ``kind`` is a key of the ``parallel.strategies`` registry, or the
+    pseudo-kind ``tensor`` (the site's natural dense sharding).
+    ``kernel_backend`` selects the executing kernel at sites that have
+    one: ``"xla"`` runs plain torch ops, ``"pallas"`` and ``"auto"`` run
+    the hand-written CUDA kernel on a CUDA tensor and its plain version
+    on a CPU tensor (``kernels/ops.py``)."""
+    kind: str = "tensor"
+    k: int = 64
+    variant: str = "fused"
+    include_self_term: bool = False
+    kernel_backend: str = "xla"
+
+
+# every projection site, with its natural dense strategy
+PROJECTION_SITES = {
+    "ffn_layer": "tensor_col",
+    "ffn_gate": "tensor_col",
+    "ffn_up": "tensor_col",
+    "ffn_down": "tensor_row",
+    "attn_q": "tensor_col",
+    "attn_k": "tensor_col",
+    "attn_v": "tensor_col",
+    "attn_o": "tensor_row",
+    "ssm_in": "tensor_col",
+    "ssm_out": "tensor_row",
+    "moe_experts": "tensor_col",
+}
+
+_FFN_SITES = ("ffn_gate", "ffn_up", "ffn_down")
+_PROJ_LEGACY_ATTN_SITES = ("attn_q", "attn_k", "attn_v", "attn_o",
+                           "ssm_in", "ssm_out")
+
+PHANTOM_KINDS = ("phantom", "lowrank_distill")
+
+
+@dataclass(frozen=True)
+class ProjectionMap:
+    """Per-site ProjectionSpec overrides; ``default`` covers any site
+    without an entry, ``None`` everywhere falls back to the legacy
+    ``ffn_impl`` / ``PhantomConfig.apply_*`` shim."""
+    default: Optional[ProjectionSpec] = None
+    ffn_layer: Optional[ProjectionSpec] = None
+    ffn_gate: Optional[ProjectionSpec] = None
+    ffn_up: Optional[ProjectionSpec] = None
+    ffn_down: Optional[ProjectionSpec] = None
+    attn_q: Optional[ProjectionSpec] = None
+    attn_k: Optional[ProjectionSpec] = None
+    attn_v: Optional[ProjectionSpec] = None
+    attn_o: Optional[ProjectionSpec] = None
+    ssm_in: Optional[ProjectionSpec] = None
+    ssm_out: Optional[ProjectionSpec] = None
+    moe_experts: Optional[ProjectionSpec] = None
+
+    def get(self, site: str) -> Optional[ProjectionSpec]:
+        return getattr(self, site) or self.default
+
+
+def phantom_projection_map(k: int, *, variant: str = "fused",
+                           include_self_term: bool = False,
+                           ffn: bool = False, attn: bool = False,
+                           ffn_layer: bool = False,
+                           kernel_backend: str = "xla") -> ProjectionMap:
+    """Phantom at the selected site families, the natural dense strategy
+    everywhere else (``default="tensor"`` shadows the legacy shim)."""
+    ph = ProjectionSpec(kind="phantom", k=k, variant=variant,
+                        include_self_term=include_self_term,
+                        kernel_backend=kernel_backend)
+    entries: dict = {"default": ProjectionSpec(kind="tensor")}
+    if ffn_layer:
+        entries["ffn_layer"] = ph
+    if ffn:
+        entries.update({s: ph for s in _FFN_SITES})
+    if attn:
+        entries.update({s: ph for s in _PROJ_LEGACY_ATTN_SITES})
+    return ProjectionMap(**entries)
+
+
+def with_kernel_backend(cfg: "ModelConfig",
+                        backend: str) -> "ModelConfig":
+    """Config with ``kernel_backend`` set on every explicit projection
+    entry and on the legacy phantom sub-config (the launcher's
+    ``--kernel-backend``)."""
+    entries = {}
+    for f in dataclasses.fields(ProjectionMap):
+        spec = getattr(cfg.projections, f.name)
+        entries[f.name] = (None if spec is None else
+                           dataclasses.replace(spec,
+                                               kernel_backend=backend))
+    return cfg.replace(
+        projections=ProjectionMap(**entries),
+        phantom=dataclasses.replace(cfg.phantom, kernel_backend=backend))
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                     # only "dense" is ported
+    num_layers: int
+    d_model: int
+    num_heads: int = 0
+    num_kv_heads: int = 0
+    d_ff: int = 0
+    vocab_size: int = 0
+    head_dim: int = 0               # 0 -> d_model // num_heads
+
+    norm: str = "rmsnorm"           # rmsnorm | layernorm
+    mlp: str = "swiglu"             # swiglu | gelu | relu
+    qkv_bias: bool = False
+    norm_eps: float = 1e-5
+
+    rope: str = "full"              # full | partial | none (mrope: later)
+    rope_fraction: float = 1.0      # chatglm3 "2d rope" == 0.5
+    rope_theta: float = 10000.0
+
+    ffn_impl: str = "dense"         # legacy shim, see projection_spec
+    phantom: PhantomConfig = field(default_factory=PhantomConfig)
+    projections: ProjectionMap = field(default_factory=ProjectionMap)
+    attn_shard: str = "auto"        # auto | head (ring: later)
+
+    dtype: str = "bfloat16"         # compute dtype
+    param_dtype: str = "float32"    # stored parameter dtype
+    attn_bf16_scores: bool = False  # bf16 score blocks in the plain core
+    attn_kv_chunk: int = 0          # 0 = default chunking; -1 = one block
+
+    def projection_spec(self, site: str) -> ProjectionSpec:
+        """The spec governing one site: explicit entry > ``default`` >
+        legacy shim > natural dense strategy; ``tensor`` resolves to the
+        site's col/row strategy."""
+        if site not in PROJECTION_SITES:
+            raise KeyError(f"unknown projection site {site!r}; "
+                           f"known: {sorted(PROJECTION_SITES)}")
+        spec = self.projections.get(site)
+        if spec is None:
+            spec = self._legacy_projection_spec(site)
+        if spec.kind == "tensor":
+            spec = dataclasses.replace(spec, kind=PROJECTION_SITES[site])
+        return spec
+
+    def _legacy_projection_spec(self, site: str) -> ProjectionSpec:
+        pp = self.phantom
+
+        def ph() -> ProjectionSpec:
+            warnings.warn(
+                f"config {self.name!r} selects phantom at site {site!r} "
+                f"through the deprecated ffn_impl/PhantomConfig.apply_* "
+                f"shim; set ModelConfig.projections instead",
+                DeprecationWarning, stacklevel=4)
+            return ProjectionSpec(kind="phantom", k=pp.k,
+                                  variant=pp.variant,
+                                  include_self_term=pp.include_self_term,
+                                  kernel_backend=pp.kernel_backend)
+
+        if site == "ffn_layer":
+            return ph() if self.ffn_impl == "phantom" else ProjectionSpec()
+        if site in _FFN_SITES and pp.apply_ffn \
+                and self.ffn_impl != "dense_force":
+            return ph()
+        if site in _PROJ_LEGACY_ATTN_SITES and pp.apply_attn_proj:
+            return ph()
+        return ProjectionSpec()
+
+    def resolved_head_dim(self) -> int:
+        if self.head_dim:
+            return self.head_dim
+        if self.num_heads:
+            return self.d_model // self.num_heads
+        return 0
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+# architectures ported so far (``--arch``); the rest arrive with the
+# slices that port their families
+_MODULES = {
+    "chatglm3-6b": "chatglm3_6b",
+}
+
+
+def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
+    """Load an architecture config by id (``--arch`` flag)."""
+    if arch not in _MODULES:
+        raise KeyError(f"arch {arch!r} is not ported; "
+                       f"ported: {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    cfg = (mod.smoke_config if smoke else mod.config)()
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    return cfg

@@ -1,0 +1,250 @@
+"""GQA attention, head mode, on one device.
+
+Prefill runs one of two cores, chosen as in the reference:
+
+  * the flash kernel (``kernels/ops.py``) when all four q/k/v/o site
+    specs resolve to the ``"pallas"`` backend and
+    ``flash_attention_supported`` accepts the shape: the hand-written
+    CUDA kernel on a CUDA tensor, its plain version on a CPU tensor;
+  * otherwise the plain blockwise core ``attn_block_update`` /
+    ``finalize_acc`` (kv-chunked online softmax, torch ops).
+
+Decode attends the new token against the KV cache with the plain core
+and writes the token's K/V into the cache in place (the reference
+returns a new, donated cache instead).  The reference's sequence-sharded
+cache merges per-rank partials with a log-sum-exp psum; with one rank
+that merge is the identity.  Ring mode (sequence-sharded prefill) waits
+for the collectives slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.kernels.ops import (flash_attention,
+                                     flash_attention_supported,
+                                     resolve_kernel_backend)
+from repro_torch.models import rope as ropemod
+from repro_torch.models.layers import dtype_of
+from repro_torch.parallel.axes import MULTI_DEVICE_TODO, MeshAxes
+from repro_torch.parallel.strategies import site_strategy
+
+NEG_INF = -1e30
+
+_ATTN_SITES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v",
+               "wo": "attn_o"}
+
+
+def _kv_chunk(cfg, full: int, default: int) -> int:
+    """-1 = one block, 0 = the default blockwise size, else explicit."""
+    if cfg.attn_kv_chunk == -1:
+        return full
+    return cfg.attn_kv_chunk or default
+
+
+def resolve_attn_mode(cfg, axes: MeshAxes) -> str:
+    mode = cfg.attn_shard
+    if mode == "auto":
+        mode = "head" if cfg.num_heads % axes.tp == 0 else "ring"
+    if mode != "head":
+        raise NotImplementedError(
+            f"attention mode {mode!r}: see {MULTI_DEVICE_TODO}")
+    return mode
+
+
+def attn_site_strategies(cfg, axes: MeshAxes):
+    """Per-site ProjectionStrategy for the four attention projections."""
+    d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim()
+    p = axes.tp
+    ok = (resolve_attn_mode(cfg, axes) == "head"
+          and H % p == 0 and kv % p == 0 and d % p == 0)
+    dims = {"wq": (d, H * hd), "wk": (d, kv * hd), "wv": (d, kv * hd),
+            "wo": (H * hd, d)}
+    return {name: site_strategy(cfg, _ATTN_SITES[name], ni, no, p,
+                                dp=axes.dp,
+                                bias=cfg.qkv_bias and name != "wo",
+                                allow_phantom=ok)
+            for name, (ni, no) in dims.items()}
+
+
+def _attn_kernel_backend(sts) -> str:
+    """The flash kernel runs only when ALL four q/k/v/o specs resolve to
+    the pallas backend (one core, one switch)."""
+    backends = {resolve_kernel_backend(st.spec.kernel_backend)
+                for st in sts.values()}
+    return "pallas" if backends == {"pallas"} else "xla"
+
+
+def attn_decls(cfg, axes: MeshAxes):
+    return {name: st.decls()
+            for name, st in attn_site_strategies(cfg, axes).items()}
+
+
+# ---------------------------------------------------------------------------
+# blockwise online-softmax attention core (the plain path)
+# ---------------------------------------------------------------------------
+
+class AttnAcc(NamedTuple):
+    num: torch.Tensor    # [B, Sq, KV, Hg, hd] fp32 running numerator
+    m: torch.Tensor      # [B, Sq, KV, Hg] running max
+    l: torch.Tensor      # [B, Sq, KV, Hg] running denominator
+
+
+def init_acc(B, Sq, KV, Hg, hd, device=None):
+    return AttnAcc(
+        torch.zeros((B, Sq, KV, Hg, hd), dtype=torch.float32, device=device),
+        torch.full((B, Sq, KV, Hg), NEG_INF, dtype=torch.float32,
+                   device=device),
+        torch.zeros((B, Sq, KV, Hg), dtype=torch.float32, device=device))
+
+
+def attn_block_update(acc: AttnAcc, q, k, v, q_pos, kv_pos0: int, *,
+                      causal: bool, kv_limit=None, kv_chunk: int = 512,
+                      scores_dtype=torch.float32) -> AttnAcc:
+    """Accumulate attention of q [B, Sq, KV, Hg, hd] against
+    k, v [B, Skv, KV, hd], kv-chunked.  q_pos [B, Sq] are global query
+    positions, kv_pos0 the position of k[:, 0]; kv_limit [B] masks kv
+    positions >= kv_limit[b] (unwritten cache rows)."""
+    B, Skv = k.shape[0], k.shape[1]
+    kv_chunk = min(kv_chunk, Skv)
+    if Skv % kv_chunk:
+        raise ValueError(f"kv length {Skv} does not tile into chunks of "
+                         f"{kv_chunk}")
+    scale = q.shape[-1] ** -0.5
+    num, m, l = acc
+    qs = q.to(scores_dtype)
+    for i in range(Skv // kv_chunk):
+        sl = slice(i * kv_chunk, (i + 1) * kv_chunk)
+        ks, vs = k[:, sl].to(scores_dtype), v[:, sl].to(scores_dtype)
+        s = torch.einsum("bqkgh,bckh->bqkgc", qs, ks) * scale
+        kv_pos = kv_pos0 + i * kv_chunk + torch.arange(kv_chunk,
+                                                       device=q.device)
+        mask = torch.ones((B, q.shape[1], kv_chunk), dtype=torch.bool,
+                          device=q.device)
+        if causal:
+            mask = mask & (kv_pos[None, None, :] <= q_pos[:, :, None])
+        if kv_limit is not None:
+            mask = mask & (kv_pos[None, None, :] < kv_limit[:, None, None])
+        s = s.masked_fill(~mask[:, :, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1).to(torch.float32))
+        # fully masked rows keep m at NEG_INF; their exp underflows to 0
+        p_ = torch.exp(s - m_new[..., None].to(scores_dtype)).float()
+        corr = torch.exp(m - m_new)
+        num = num * corr[..., None] + torch.einsum(
+            "bqkgc,bckh->bqkgh", p_, vs.float())
+        l = l * corr + p_.sum(-1)
+        m = m_new
+    return AttnAcc(num, m, l)
+
+
+def finalize_acc(acc: AttnAcc, dtype):
+    out = acc.num / acc.l.clamp_min(1e-30)[..., None]
+    B, Sq, KV, Hg, hd = out.shape
+    return out.reshape(B, Sq, KV * Hg, hd).to(dtype)
+
+
+def _gqa_q(q, KV):
+    """[B, S, H, hd] -> [B, S, KV, H/KV, hd]."""
+    B, S, H, hd = q.shape
+    return q.reshape(B, S, KV, H // KV, hd)
+
+
+# ---------------------------------------------------------------------------
+# main entry
+# ---------------------------------------------------------------------------
+
+def attention(cfg, params, x, positions, axes: MeshAxes, *,
+              kind: str = "prefill", causal: bool = True, cache=None,
+              pos=None, return_kv: bool = False):
+    """Returns (out [B, S, d], new_kv or None).  kind: prefill | decode.
+    Decode writes into ``cache`` ({k, v} [B, Smax, kv, hd]) in place."""
+    resolve_attn_mode(cfg, axes)
+    if kind == "decode":
+        return _attention_decode(cfg, params, x, axes, cache=cache, pos=pos)
+    return _attention_head(cfg, params, x, positions, axes, causal=causal,
+                           return_kv=return_kv)
+
+
+def _project(st, params, x, nheads, hd, dtype):
+    y = st.apply(params, x, compute_dtype=dtype)
+    return y.reshape(*y.shape[:-1], nheads, hd)
+
+
+def _attention_head(cfg, params, x, positions, axes, *, causal,
+                    return_kv=False):
+    H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    dtype = dtype_of(cfg.dtype)
+    sts = attn_site_strategies(cfg, axes)
+    q = _project(sts["wq"], params["wq"], x, H, hd, dtype)
+    k = _project(sts["wk"], params["wk"], x, kv, hd, dtype)
+    v = _project(sts["wv"], params["wv"], x, kv, hd, dtype)
+    if cfg.rope != "none":
+        q = ropemod.rope_for(cfg, q, positions)
+        k = ropemod.rope_for(cfg, k, positions)
+
+    B, S = q.shape[0], q.shape[1]
+    use_flash = (_attn_kernel_backend(sts) == "pallas"
+                 and flash_attention_supported(S, k.shape[1], H, kv))
+    if use_flash:
+        out = flash_attention(q, k, v, causal=causal).to(dtype)
+    else:
+        acc = init_acc(B, S, kv, H // kv, hd, device=x.device)
+        q_pos = torch.arange(S, device=x.device).expand(B, S)
+        sdt = torch.bfloat16 if cfg.attn_bf16_scores else torch.float32
+        acc = attn_block_update(acc, _gqa_q(q, kv), k, v, q_pos, 0,
+                                causal=causal, scores_dtype=sdt,
+                                kv_chunk=_kv_chunk(cfg, k.shape[1], 512))
+        out = finalize_acc(acc, dtype)
+    out = out.reshape(B, S, -1)
+    # tensor_row partial sums are already reduced at tp = 1; wo carries
+    # no bias in head mode, as in the reference
+    res = sts["wo"].apply(params["wo"], out, compute_dtype=dtype)
+    new_kv = _emit_cache_head_mode(k, v) if return_kv else None
+    return res, new_kv
+
+
+def _emit_cache_head_mode(k, v):
+    """Prefill-layout KV -> the decode cache layout [B, S, kv, hd]; the
+    reference's all-to-all onto sequence shards is the identity at
+    p = 1."""
+    return {"k": k, "v": v}
+
+
+def _attention_decode(cfg, params, x, axes, *, cache, pos):
+    H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    dtype = dtype_of(cfg.dtype)
+    sts = attn_site_strategies(cfg, axes)
+    B = x.shape[0]
+    q = _project(sts["wq"], params["wq"], x, H, hd, dtype)     # [B,1,H,hd]
+    kn = _project(sts["wk"], params["wk"], x, kv, hd, dtype)
+    vn = _project(sts["wv"], params["wv"], x, kv, hd, dtype)
+
+    pos = pos.reshape(B).to(torch.long)
+    if cfg.rope != "none":
+        q = ropemod.rope_for(cfg, q, pos[:, None])
+        kn = ropemod.rope_for(cfg, kn, pos[:, None])
+
+    # --- cache update, in place: each row writes its new kv at pos ------
+    ck, cv = cache["k"], cache["v"]
+    chunk = ck.shape[1]
+    in_range = ((pos >= 0) & (pos < chunk))[:, None, None]
+    widx = pos.clamp(0, chunk - 1)
+    rows = torch.arange(B, device=x.device)
+    ck[rows, widx] = torch.where(in_range, kn[:, 0].to(ck.dtype),
+                                 ck[rows, widx])
+    cv[rows, widx] = torch.where(in_range, vn[:, 0].to(cv.dtype),
+                                 cv[rows, widx])
+
+    # --- attention over the cache (one rank: the LSE merge is identity)
+    acc = init_acc(B, 1, kv, H // kv, hd, device=x.device)
+    acc = attn_block_update(
+        acc, _gqa_q(q, kv), ck, cv, pos[:, None], 0, causal=True,
+        kv_limit=pos + 1, kv_chunk=_kv_chunk(cfg, chunk, min(1024, chunk)),
+        scores_dtype=(torch.bfloat16 if cfg.attn_bf16_scores
+                      else torch.float32))
+    out = (acc.num / acc.l.clamp_min(1e-30)[..., None])
+    out = out.reshape(B, 1, H * hd).to(dtype)
+    res = sts["wo"].apply(params["wo"], out, compute_dtype=dtype)
+    return res, cache

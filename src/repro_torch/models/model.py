@@ -1,0 +1,105 @@
+"""Model assembly for the dense family: decls, prefill and decode.
+
+Parameters are the reference's tree (layers stacked on axis 0); the
+forward passes loop over the stack in Python where the reference scans.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.blocks import block_apply, block_decls
+from repro_torch.models.layers import (dtype_of, embed_apply, embed_decls,
+                                       head_decls, head_logits, norm_apply,
+                                       norm_decls)
+from repro_torch.parallel.axes import MeshAxes
+from repro_torch.parallel.params import (TensorSpec, param_count, stack,
+                                         tree_leaves, tree_map,
+                                         tree_unflatten)
+
+
+def _require_dense(cfg: ModelConfig):
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported; only 'dense' "
+            f"(ROADMAP.md queue 1 lists the families still to port)")
+
+
+def model_decls(cfg: ModelConfig, axes: MeshAxes):
+    _require_dense(cfg)
+    d = {"embed": embed_decls(cfg),
+         "final_norm": norm_decls(cfg, cfg.d_model),
+         "head": head_decls(cfg),
+         "layers": stack(block_decls(cfg, axes), cfg.num_layers)}
+    pdt = dtype_of(cfg.param_dtype)
+    if pdt != torch.float32:
+        d = tree_map(lambda x: dataclasses.replace(x, dtype=pdt), d)
+    return d
+
+
+def count_params(cfg: ModelConfig, tp: int = 1) -> int:
+    return param_count(model_decls(cfg, MeshAxes(tp=tp)))
+
+
+def serving_params(cfg: ModelConfig, params, device=None):
+    """Move params to ``device`` and cast, once, every leaf that the
+    reference casts to the compute dtype on each call: all but the norm
+    scales and the logit head, which it computes in float32.  The
+    numbers are identical, and the card holds the projection weights in
+    bf16 instead of fp32 (12.5 GB instead of 25 GB for chatglm3-6b)."""
+    dt = dtype_of(cfg.dtype)
+    flat = {}
+    for path, t in tree_leaves(params):
+        keep_fp32 = path.startswith("head/") or "norm" in path
+        flat[path] = t.to(device=device,
+                          dtype=t.dtype if keep_fp32 else dt)
+    return tree_unflatten(params, flat)
+
+
+def _layer(params, i: int):
+    return tree_map(lambda t: t[i], params["layers"])
+
+
+def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
+    """batch {"tokens": [B, S]} -> (last-token logits [B, 1, V_pad] fp32,
+    cache {"k", "v"}: [L, B, S, kv, hd])."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = embed_apply(cfg, params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        h, kv = block_apply(cfg, _layer(params, i), h, positions, axes,
+                            kind="prefill", return_kv=True)
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+    h = norm_apply(cfg, params["final_norm"], h)
+    logits = head_logits(cfg, params["head"], h[:, -1:, :])
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def forward_decode(cfg: ModelConfig, axes: MeshAxes, params, cache,
+                   tokens, pos):
+    """tokens [B, 1]; pos [B] per-row positions.  Writes the new K/V into
+    ``cache`` in place; returns (logits [B, 1, V_pad], cache)."""
+    _require_dense(cfg)
+    h = embed_apply(cfg, params["embed"], tokens)
+    for i in range(cfg.num_layers):
+        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
+        h, _ = block_apply(cfg, _layer(params, i), h, None, axes,
+                           kind="decode", cache=layer_cache, pos=pos)
+    h = norm_apply(cfg, params["final_norm"], h)
+    return head_logits(cfg, params["head"], h), cache
+
+
+def cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
+                max_len: int):
+    """Global shapes of the decode cache, layer-stacked like the params."""
+    _require_dense(cfg)
+    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+             cfg.resolved_head_dim())
+    return {"k": TensorSpec(shape, torch.bfloat16),
+            "v": TensorSpec(shape, torch.bfloat16)}

@@ -1,0 +1,117 @@
+"""Parameter declaration trees.
+
+A model is a nested dict of ``ParamDecl`` (global shape + logical
+sharding spec + init recipe), with the same keys and shapes as the JAX
+package's decl tree, layers stacked on axis 0.  From one decl tree:
+
+  * ``materialize(decls, generator, device)`` -> tensors, drawn from an
+    explicit ``torch.Generator`` (torch cannot reproduce ``jax.random``
+    streams, so parity tests build parameters with the reference and
+    hand them over through ``from_jax_params``);
+  * ``param_count(decls)``;
+  * ``stack(decls, n)`` -> per-layer decls with a leading layer axis.
+
+``spec`` keeps the reference's sharded-dim names as plain strings
+(``"tp"``, ``"dp"`` or ``None`` per dim); at dp = tp = 1 they are
+documentation for the multi-device slice.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor not yet allocated (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: tuple
+    dtype: torch.dtype
+
+
+@dataclass(frozen=True)
+class ParamDecl:
+    shape: tuple
+    spec: tuple = ()
+    init: str = "normal"            # normal | zeros | ones | embed
+    scale: Optional[float] = None   # normal stddev; default 1/sqrt(fan_in)
+    dtype: torch.dtype = torch.float32
+
+    def fan_in_scale(self) -> float:
+        if self.scale is not None:
+            return self.scale
+        fan_in = self.shape[-2] if len(self.shape) >= 2 else self.shape[-1]
+        return fan_in ** -0.5
+
+
+def tree_map(fn, tree):
+    """Map ``fn`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_leaves(tree, prefix: str = ""):
+    """``(path, leaf)`` pairs of a nested dict, in sorted key order."""
+    if isinstance(tree, dict):
+        out = []
+        for k in sorted(tree):
+            out += tree_leaves(tree[k], f"{prefix}/{k}" if prefix else k)
+        return out
+    return [(prefix, tree)]
+
+
+def stack(decls, n: int):
+    """Add a leading layer axis."""
+    return tree_map(lambda d: replace(d, shape=(n,) + tuple(d.shape),
+                                      spec=(None,) + tuple(d.spec)), decls)
+
+
+def materialize(decls, generator: torch.Generator, device=None):
+    """Real parameter tensors (global shapes) on ``device``, drawn from
+    ``generator`` leaf by leaf in sorted path order.  ``generator`` must
+    live on ``device`` (``torch.Generator(device=...)``)."""
+    device = torch.device(device) if device is not None else \
+        generator.device
+    flat = {}
+    for path, d in tree_leaves(decls):
+        if d.init == "zeros":
+            t = torch.zeros(d.shape, dtype=d.dtype, device=device)
+        elif d.init == "ones":
+            t = torch.ones(d.shape, dtype=d.dtype, device=device)
+        else:
+            std = 0.02 if d.init == "embed" else d.fan_in_scale()
+            t = torch.randn(d.shape, generator=generator, dtype=d.dtype,
+                            device=device).mul_(std)
+        flat[path] = t
+    return tree_unflatten(decls, flat)
+
+
+def tree_unflatten(tree, flat, prefix: str = ""):
+    """Nested dict shaped like ``tree`` with leaves taken from ``flat``
+    (path -> leaf, paths as ``tree_leaves`` names them)."""
+    if isinstance(tree, dict):
+        return {k: tree_unflatten(v, flat, f"{prefix}/{k}" if prefix else k)
+                for k, v in tree.items()}
+    return flat[prefix]
+
+
+def param_count(decls) -> int:
+    return sum(int(np.prod(d.shape)) for _, d in tree_leaves(decls))
+
+
+def from_jax_params(numpy_tree, device=None):
+    """The reference's parameter tree, as numpy arrays (layer-stacked on
+    axis 0, same keys), -> the port's parameter tree of tensors.  The
+    values are copied unchanged (the tensors own their memory); bf16
+    arrays (``ml_dtypes``) pass through float32, which holds every bf16
+    value exactly."""
+    def conv(a):
+        a = np.array(a)
+        if a.dtype.name == "bfloat16":
+            return torch.from_numpy(a.astype(np.float32)).to(
+                device=device, dtype=torch.bfloat16)
+        return torch.from_numpy(a).to(device)
+    return tree_map(conv, numpy_tree)

@@ -1,0 +1,80 @@
+"""ProjectionStrategy: one object per projection site that declares the
+site's parameters and computes its projection.
+
+The reference's strategies also predict their own cost (``flops``,
+``comm_events``, ``param_count``) for the energy ledger, and declare
+which feature layout they consume and produce; those arrive with the
+ledger and collectives slices.  At tp = 1 every ``apply`` reads and
+writes full features.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, List, Optional, Type
+
+from repro_torch.configs.base import (PHANTOM_KINDS, PROJECTION_SITES,
+                                      ProjectionSpec)
+
+
+class ProjectionStrategy:
+    """Base class; concrete strategies register themselves by ``kind``."""
+
+    kind: str = "?"
+
+    def __init__(self, n_in: int, n_out: int, tp: int, *, dp: int = 1,
+                 bias: bool = True,
+                 spec: Optional[ProjectionSpec] = None):
+        self.n_in, self.n_out, self.tp, self.dp = n_in, n_out, tp, dp
+        self.bias = bias
+        self.spec = spec or ProjectionSpec(kind=self.kind)
+
+    def decls(self) -> Dict:
+        raise NotImplementedError
+
+    def apply(self, params, x, *, compute_dtype=None):
+        raise NotImplementedError
+
+    def __repr__(self):
+        return (f"{type(self).__name__}({self.n_in}x{self.n_out}, "
+                f"tp={self.tp}, kind={self.kind})")
+
+
+_REGISTRY: Dict[str, Type[ProjectionStrategy]] = {}
+
+
+def register(kind: str) -> Callable[[type], type]:
+    def deco(cls):
+        cls.kind = kind
+        _REGISTRY[kind] = cls
+        return cls
+    return deco
+
+
+def available_strategies() -> List[str]:
+    return sorted(_REGISTRY)
+
+
+def get_strategy_cls(kind: str) -> Type[ProjectionStrategy]:
+    if kind not in _REGISTRY:
+        raise KeyError(f"unknown projection strategy {kind!r}; "
+                       f"registered: {available_strategies()}")
+    return _REGISTRY[kind]
+
+
+def make_strategy(spec: ProjectionSpec, n_in: int, n_out: int, tp: int, *,
+                  dp: int = 1, bias: bool = True) -> ProjectionStrategy:
+    """Instantiate the strategy a ProjectionSpec selects for one site."""
+    return get_strategy_cls(spec.kind)(n_in, n_out, tp, dp=dp, bias=bias,
+                                       spec=spec)
+
+
+def site_strategy(cfg, site: str, n_in: int, n_out: int, tp: int, *,
+                  dp: int = 1, bias: bool = True,
+                  allow_phantom: bool = True) -> ProjectionStrategy:
+    """Resolve cfg's spec for ``site`` and instantiate it;
+    ``allow_phantom=False`` (or a width the model axis does not divide)
+    forces the site's natural dense strategy."""
+    spec = cfg.projection_spec(site)
+    if spec.kind in PHANTOM_KINDS and (
+            not allow_phantom or n_in % tp or n_out % tp):
+        spec = ProjectionSpec(kind=PROJECTION_SITES[site])
+    return make_strategy(spec, n_in, n_out, tp, dp=dp, bias=bias)

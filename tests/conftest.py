@@ -87,3 +87,9 @@ def compiled_step_cache():
             return self[key]
 
     return _Cache()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (the port's CUDA kernels); "
+                   "skips on a machine without one")

@@ -1,0 +1,185 @@
+"""Flash attention in the PyTorch port against the JAX reference.
+
+The port's plain version (``repro_torch.kernels.ref``), its wrapper's
+CPU dispatch and its blockwise core are held to the reference's oracle
+``repro.kernels.ref.flash_attention_ref`` and to its XLA blockwise core
+(``repro.models.attention.attn_block_update``).  The reference's Pallas
+kernel cannot be the oracle here: it calls ``pl.load``, which the
+installed jax no longer has.  Inputs come from numpy seeds and go to
+both sides unchanged.
+
+Tolerances: float32 rtol 2e-3 / atol 2e-4, bf16 3e-2, as the reference's
+own kernel tests use (the two sides sum in different orders; bf16 rounds
+each output once).  The CUDA kernel itself runs only on a card
+(``cuda`` marker).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.ref import flash_attention_ref as jax_flash_ref
+from repro.models import attention as jax_attn
+from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_supported)
+from repro_torch.kernels.ref import flash_attention_ref
+from repro_torch.models import attention as torch_attn
+
+TOL = {"float32": dict(rtol=2e-3, atol=2e-4),
+       "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+# (B, S, H, KV, hd): GQA groups Hg = H/KV of 1, 2 and 16; hd 16 and 128;
+# S 16, 48 and 128
+SHAPES = [
+    (2, 16, 4, 4, 16),
+    (1, 48, 4, 2, 16),
+    (1, 128, 4, 2, 16),
+    (2, 16, 32, 2, 128),
+    (1, 48, 32, 2, 128),
+    (1, 128, 16, 1, 128),
+]
+
+
+def _inputs(B, S, H, KV, hd, seed=0):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(*shape) * 0.5).astype(np.float32)
+            for shape in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+
+
+def _jax(arrs, dtype):
+    return [jnp.asarray(a).astype(getattr(jnp, dtype)) for a in arrs]
+
+
+def _torch(arrs, dtype):
+    return [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+def _jax_blockwise(q, k, v, causal, kv_chunk=512):
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    acc = jax_attn.init_acc(B, S, KV, H // KV, hd)
+    q_pos = jnp.broadcast_to(jnp.arange(S), (B, S))
+    acc = jax_attn.attn_block_update(acc, jax_attn._gqa_q(q, KV), k, v,
+                                     q_pos, 0, causal=causal,
+                                     kv_chunk=kv_chunk)
+    return jax_attn.finalize_acc(acc, q.dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd", SHAPES)
+def test_flash_plain_and_cpu_dispatch_match_reference(B, S, H, KV, hd,
+                                                      causal, dtype):
+    arrs = _inputs(B, S, H, KV, hd, seed=S + H + hd)
+    want = _np(jax_flash_ref(*_jax(arrs, dtype), causal=causal))
+    want_xla = _np(_jax_blockwise(*_jax(arrs, dtype), causal))
+    q, k, v = _torch(arrs, dtype)
+    plain = flash_attention_ref(q, k, v, causal=causal)
+    dispatched = flash_attention(q, k, v, causal=causal)
+    assert plain.dtype == q.dtype and plain.shape == q.shape
+    for got in (plain, dispatched):
+        np.testing.assert_allclose(_np(got), want, **TOL[dtype])
+        np.testing.assert_allclose(_np(got), want_xla, **TOL[dtype])
+
+
+@pytest.mark.parametrize("kv_chunk", [16, 48])
+@pytest.mark.parametrize("causal", [True, False])
+def test_blockwise_core_matches_reference(causal, kv_chunk):
+    """The port's plain core (the ``xla`` backend) against the
+    reference's, with several kv chunks, in float32."""
+    arrs = _inputs(2, 48, 8, 2, 16, seed=7)
+    want = _np(_jax_blockwise(*_jax(arrs, "float32"), causal,
+                              kv_chunk=kv_chunk))
+    q, k, v = _torch(arrs, "float32")
+    acc = torch_attn.init_acc(2, 48, 2, 4, 16)
+    q_pos = torch.arange(48).expand(2, 48)
+    acc = torch_attn.attn_block_update(acc, torch_attn._gqa_q(q, 2), k, v,
+                                       q_pos, 0, causal=causal,
+                                       kv_chunk=kv_chunk)
+    got = torch_attn.finalize_acc(acc, torch.float32)
+    np.testing.assert_allclose(_np(got), want, **TOL["float32"])
+
+
+def test_blockwise_core_decode_kv_limit_matches_reference():
+    """One query per row at per-row positions against a cache whose rows
+    past ``pos`` are masked (the decode path)."""
+    rng = np.random.RandomState(3)
+    q = rng.randn(3, 1, 2, 4, 16).astype(np.float32)
+    k = rng.randn(3, 32, 2, 16).astype(np.float32)
+    v = rng.randn(3, 32, 2, 16).astype(np.float32)
+    pos = np.array([0, 9, 31], np.int32)
+    kw = dict(causal=True, kv_chunk=16)
+    ja = jax_attn.attn_block_update(
+        jax_attn.init_acc(3, 1, 2, 4, 16), jnp.asarray(q), jnp.asarray(k),
+        jnp.asarray(v), jnp.asarray(pos)[:, None], 0,
+        kv_limit=jnp.asarray(pos) + 1, **kw)
+    tp = torch.from_numpy(pos).long()
+    ta = torch_attn.attn_block_update(
+        torch_attn.init_acc(3, 1, 2, 4, 16), torch.from_numpy(q),
+        torch.from_numpy(k), torch.from_numpy(v), tp[:, None], 0,
+        kv_limit=tp + 1, **kw)
+    np.testing.assert_allclose(_np(torch_attn.finalize_acc(ta,
+                                                           torch.float32)),
+                               _np(jax_attn.finalize_acc(ja, jnp.float32)),
+                               **TOL["float32"])
+
+
+@pytest.mark.parametrize("s_q,s_kv,h,kv", [
+    (16, 16, 32, 2), (48, 48, 4, 2), (144, 144, 4, 2), (256, 256, 8, 2),
+    (16, 32, 4, 2), (16, 16, 6, 4), (16, 16, 4, 0)])
+def test_supported_gate_matches_reference(s_q, s_kv, h, kv):
+    from repro.kernels.flash_attention import \
+        flash_attention_supported as jax_supported
+    assert flash_attention_supported(s_q, s_kv, h, kv) == \
+        jax_supported(s_q, s_kv, h, kv)
+
+
+def test_backend_table():
+    """"xla" is the plain core; "pallas" and "auto" are the kernel path
+    (which the wrapper runs as the plain version on CPU tensors)."""
+    assert ops.resolve_kernel_backend("xla") == "xla"
+    assert ops.resolve_kernel_backend("pallas") == "pallas"
+    assert ops.resolve_kernel_backend("auto") == "pallas"
+    with pytest.raises(ValueError):
+        ops.resolve_kernel_backend("triton")
+
+
+def test_wrapper_refuses_other_devices_and_counts_nothing_on_cpu():
+    before = flash_attention.launches
+    q, k, v = _torch(_inputs(1, 16, 4, 2, 16), "float32")
+    flash_attention(q, k, v)
+    assert flash_attention.launches == before
+    with pytest.raises(ValueError):
+        flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90) to run the CUDA kernel")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd", SHAPES + [(1, 100, 8, 2, 64),
+                                                  (2, 70, 4, 1, 32)])
+def test_cuda_kernel_matches_plain(cuda_device, B, S, H, KV, hd, causal,
+                                   dtype):
+    q, k, v = [t.to(cuda_device) for t in _torch(
+        _inputs(B, S, H, KV, hd, seed=S + hd), dtype)]
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_ref(q, k, v, causal=causal)
+    np.testing.assert_allclose(_np(got.cpu()), _np(want.cpu()),
+                               **TOL[dtype])
