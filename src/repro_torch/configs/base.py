@@ -1,12 +1,13 @@
 """Config system of the PyTorch port: its own copy of the JAX package's
-``configs/base.py``, cut down to what the dense family reads.
+``configs/base.py``, cut down to what the dense and paper-FFN families
+read.
 
 Plain dataclasses, no framework imports.  Field names, defaults and the
 projection-site resolution are the reference's, so a config built here
 compares field by field with its counterpart there (the tests check
-that for chatglm3-6b).  Fields that only other families read (MoE, SSM,
-encoder-decoder, vision, pipeline, FSDP, training knobs) are left out
-until the slice that ports those families.
+that for chatglm3-6b and the paper-FFN sizes).  Fields that only other
+families read (MoE, SSM, encoder-decoder, vision, FSDP, training knobs)
+are left out until the slice that ports those families.
 """
 from __future__ import annotations
 
@@ -28,6 +29,27 @@ class PhantomConfig:
     include_self_term: bool = False
     variant: str = "fused"          # faithful | fused | ring
     kernel_backend: str = "xla"     # xla | pallas | auto
+
+
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Layer-to-stage partitioning.  The port runs ``stages == 1`` only;
+    the paper-FFN step raises on more (``core/ffn.py``)."""
+    stages: int = 1
+    stage_specs: tuple = ()          # per-stage ProjectionSpec overrides
+
+    def __post_init__(self):
+        if self.stages < 1:
+            raise ValueError(f"pipeline stages must be >= 1, "
+                             f"got {self.stages}")
+        if self.stage_specs and len(self.stage_specs) != self.stages:
+            raise ValueError(
+                f"stage_specs has {len(self.stage_specs)} entries for "
+                f"{self.stages} stages")
+        if self.stages == 1 and self.stage_specs:
+            raise ValueError(
+                "stage_specs requires stages > 1 — a single-stage config "
+                "takes its strategy from the projection site spec")
 
 
 @dataclass(frozen=True)
@@ -91,6 +113,11 @@ class ProjectionMap:
         return getattr(self, site) or self.default
 
 
+def dense_projection_map() -> ProjectionMap:
+    """Every site at its natural dense (Megatron-TP) strategy."""
+    return ProjectionMap(default=ProjectionSpec(kind="tensor"))
+
+
 def phantom_projection_map(k: int, *, variant: str = "fused",
                            include_self_term: bool = False,
                            ffn: bool = False, attn: bool = False,
@@ -130,7 +157,7 @@ def with_kernel_backend(cfg: "ModelConfig",
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # only "dense" is ported
+    family: str                     # "dense" | "ffn" are ported
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -157,6 +184,11 @@ class ModelConfig:
     param_dtype: str = "float32"    # stored parameter dtype
     attn_bf16_scores: bool = False  # bf16 score blocks in the plain core
     attn_kv_chunk: int = 0          # 0 = default chunking; -1 = one block
+    pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+
+    # paper-FFN-specific (family == "ffn")
+    ffn_width: int = 0
+    ffn_depth: int = 0
 
     def projection_spec(self, site: str) -> ProjectionSpec:
         """The spec governing one site: explicit entry > ``default`` >
@@ -218,6 +250,12 @@ class ShapeConfig:
 # slices that port their families
 _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
+    # the paper's own FFN models
+    "paper-ffn-4k": "paper_ffn",
+    "paper-ffn-16k": "paper_ffn",
+    "paper-ffn-64k": "paper_ffn",
+    "paper-ffn-131k": "paper_ffn",
+    "paper-ffn-262k": "paper_ffn",
 }
 
 
@@ -227,7 +265,10 @@ def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
         raise KeyError(f"arch {arch!r} is not ported; "
                        f"ported: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
-    cfg = (mod.smoke_config if smoke else mod.config)()
+    if arch.startswith("paper-ffn"):
+        cfg = (mod.smoke_config if smoke else mod.config)(arch)
+    else:
+        cfg = (mod.smoke_config if smoke else mod.config)()
     if overrides:
         cfg = cfg.replace(**overrides)
     return cfg

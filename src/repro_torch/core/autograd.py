@@ -1,0 +1,76 @@
+"""Collectives with their gradients — the paper's Algorithm 1 ("Custom
+AllGather Autograd Function"), which the paper itself wrote as a
+``torch.autograd.Function``.
+
+The forward pass all-gathers the k-wide ghost activations over the model
+axis; the backward pass reduce-scatters the ghost gradients back to the
+ranks they came from.  ``psum_scatter_tiled`` is its transpose pair.
+Both run over ``axes.tp_comm`` (``parallel/axes.py: Group``); with one
+rank on the axis they are the identity.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.parallel.axes import Group
+
+
+class _AllGatherGhosts(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, group: Group):
+        ctx.group = group
+        return group.all_gather(g)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        # Algorithm 1, BACKWARD: each source rank receives the sum of the
+        # gradients every rank computed for its ghosts
+        return ctx.group.reduce_scatter(grad_out), None
+
+
+def all_gather_ghosts(g: torch.Tensor, axes) -> torch.Tensor:
+    """Paper Algorithm 1: local ghosts ``[..., k]`` -> ``[p, ..., k]``
+    stacked by source rank; the gradient is reduce-scattered."""
+    return _AllGatherGhosts.apply(g, axes.tp_comm)
+
+
+class _PsumScatterTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: Group, dim: int):
+        ctx.group, ctx.dim = group, dim
+        p = group.size
+        if x.shape[dim] % p:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"split over {p} ranks")
+        parts = torch.stack(x.chunk(p, dim=dim))     # [p, ..., n/p, ...]
+        return group.reduce_scatter(parts)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        full = ctx.group.all_gather(grad_out)        # [p, ..., n/p, ...]
+        return torch.cat(full.unbind(0), dim=ctx.dim), None, None
+
+
+def psum_scatter_tiled(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """Reduce-scatter along ``dim`` over the model axis (each rank keeps
+    its contiguous ``1/p`` of the summed tensor); the gradient is the
+    tiled all-gather."""
+    return _PsumScatterTiled.apply(x, axes.tp_comm, dim % x.dim())
+
+
+class _AllGatherTiled(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: Group, dim: int):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(group.all_gather(x).unbind(0), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        parts = torch.stack(grad_out.chunk(ctx.group.size, dim=ctx.dim))
+        return ctx.group.reduce_scatter(parts), None, None
+
+
+def all_gather_tiled(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """All-gather along ``dim`` over the model axis, rank blocks in rank
+    order; the gradient is the tiled reduce-scatter."""
+    return _AllGatherTiled.apply(x, axes.tp_comm, dim % x.dim())

@@ -1,10 +1,18 @@
 """Conventional tensor parallelism, the paper's baseline: Megatron-style
-column/row projections.  At tp = 1 the feature gathers and scatters of
-the reference are the identity, so only the projections remain."""
+column/row projections with explicit collectives, so the communication
+is exactly the paper's Table II schedule:
+
+  TP per layer:  All-Gather of the n/p activation shard forward,
+                 Reduce-Scatter of the activation gradients backward.
+
+The projections run on the rank's local weight shard; the gathers and
+scatters run over ``axes.tp_comm`` and are the identity at tp = 1.
+"""
 from __future__ import annotations
 
 from typing import Dict
 
+from repro_torch.core.autograd import all_gather_tiled, psum_scatter_tiled
 from repro_torch.parallel.params import ParamDecl
 
 
@@ -27,7 +35,7 @@ def row_linear_decls(n_in: int, n_out: int, tp: int, bias: bool = True
 
 
 def col_linear_apply(params, x_full, compute_dtype=None):
-    """x_full: [..., n_in] -> [..., n_out] (the whole shard at tp = 1)."""
+    """x_full: [..., n_in] (replicated features) -> [..., n_out/p]."""
     w = params["w"]
     if compute_dtype is not None:
         x_full, w = x_full.to(compute_dtype), w.to(compute_dtype)
@@ -38,9 +46,19 @@ def col_linear_apply(params, x_full, compute_dtype=None):
 
 
 def row_linear_apply(params, x_shard, compute_dtype=None):
-    """x_shard: [..., n_in] -> partial [..., n_out]; the caller adds the
-    bias after the (identity) reduction."""
+    """x_shard: [..., n_in/p] -> partial [..., n_out]; the caller
+    reduces and then adds the bias."""
     w = params["w"]
     if compute_dtype is not None:
         x_shard, w = x_shard.to(compute_dtype), w.to(compute_dtype)
     return x_shard @ w
+
+
+def gather_features(x_shard, axes):
+    """[..., n/p] feature shard -> [..., n] full (fwd AG, bwd RS)."""
+    return all_gather_tiled(x_shard, axes, -1)
+
+
+def scatter_features(z_partial, axes):
+    """partial [..., n] -> reduced [..., n/p] (fwd RS, bwd AG)."""
+    return psum_scatter_tiled(z_partial, axes, -1)

@@ -15,11 +15,21 @@ The name "pallas" is the reference's; in the port it selects the
 hand-written Hopper kernel.  The wrapper decides between kernel and plain
 version from the tensor's device alone, and never falls back on a CUDA
 tensor.
+
+``phantom_fused_linear`` binds the three phantom kernels into one
+differentiable op, as the reference's ``custom_vjp`` does: the forward is
+the fused (local + ghost-decompress) GEMM, the backward one dgrad and one
+wgrad launch.  Collectives stay outside the op.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.kernels.flash_attention import (  # noqa: F401
     flash_attention, flash_attention_supported)
+from repro_torch.kernels.phantom_fused import (  # noqa: F401
+    KernelConfigError, phantom_fused_dgrad, phantom_fused_matmul,
+    phantom_fused_wgrad)
 
 KERNEL_BACKENDS = ("xla", "pallas", "auto")
 
@@ -31,3 +41,33 @@ def resolve_kernel_backend(backend: str) -> str:
         raise ValueError(f"unknown kernel_backend {backend!r}; "
                          f"known: {KERNEL_BACKENDS}")
     return "xla" if backend == "xla" else "pallas"
+
+
+class _FusedLinear(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, L, g, D):
+        ctx.save_for_backward(x, L, g, D)
+        return phantom_fused_matmul(x, L, g, D)
+
+    @staticmethod
+    def backward(ctx, dz):
+        x, L, g, D = ctx.saved_tensors
+        dz = dz.to(x.dtype).contiguous()
+        dx, dg = phantom_fused_dgrad(dz, L, D)
+        dL, dD = phantom_fused_wgrad(x, g, dz)
+        return (dx.to(x.dtype), dL.to(L.dtype), dg.to(g.dtype),
+                dD.to(D.dtype))
+
+
+def phantom_fused_linear(x, L, g, D):
+    """z = x @ L + g @ D with the fused kernels forward AND backward.
+
+    x [..., K] local activation shard, L [K, N] diagonal block,
+    g [..., PK] gathered ghosts, D [PK, N] concatenated decompressors
+    -> z [..., N].  Leading batch dims are flattened around the 2-D
+    kernels."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    g2 = g.reshape(-1, g.shape[-1]).contiguous()
+    z = _FusedLinear.apply(x2, L.contiguous(), g2, D.contiguous())
+    return z.reshape(*lead, L.shape[1])

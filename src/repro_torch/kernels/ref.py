@@ -20,3 +20,21 @@ def flash_attention_ref(q, k, v, *, causal: bool = True):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bqkgc,bckh->bqkgh", p, v.to(torch.float32))
     return o.reshape(B, S, H, hd).to(q.dtype)
+
+
+def phantom_fused_ref(x, L, g, D):
+    """z = x @ L + g @ D with float32 accumulation, in x's dtype (the
+    reference's ``kernels/ref.py: phantom_fused_ref``)."""
+    f = torch.float32
+    z = x.to(f) @ L.to(f) + g.to(f) @ D.to(f)
+    return z.to(x.dtype)
+
+
+def matmul_nt_ref(a, b):
+    """c[M, J] = a[M, N] @ b[J, N]^T, float32 accumulation, a's dtype."""
+    return (a.to(torch.float32) @ b.to(torch.float32).T).to(a.dtype)
+
+
+def matmul_tn_ref(a, b):
+    """c[I, N] = a[M, I]^T @ b[M, N], float32 accumulation, a's dtype."""
+    return (a.to(torch.float32).T @ b.to(torch.float32)).to(a.dtype)

@@ -1,0 +1,153 @@
+"""Ranks and their process groups: the port's counterpart of the
+reference's ``launch/mesh.py``.
+
+The reference runs one SPMD program over a ``(data, model)`` JAX mesh.
+The port starts one process per rank with ``spawn`` and, inside each,
+``make_local_mesh`` builds the rank's ``MeshAxes``: its coordinates and
+the tp, dp and world process groups, rank ``r = d * tp + t``.
+
+Backend: NCCL when every rank has a card of its own
+(``torch.cuda.device_count() >= dp * tp``), gloo on the CPU or when
+ranks share a card (NCCL refuses two ranks on one device).  Gloo's
+groups copy card tensors through the host (``parallel/axes.py: Group``),
+so collective times on a shared card measure the host, not NVLink.
+"""
+from __future__ import annotations
+
+import datetime
+import queue
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Sequence
+
+import torch
+
+from repro_torch.parallel.axes import Group, MeshAxes, resolve_device
+
+
+def backend_for(device_type: str, world: int) -> str:
+    """NCCL when each of ``world`` ranks has its own card, else gloo."""
+    if device_type == "cuda" and torch.cuda.device_count() >= world:
+        return "nccl"
+    return "gloo"
+
+
+def make_local_mesh(dp: int, tp: int) -> MeshAxes:
+    """This rank's ``MeshAxes`` on an initialised ``dp * tp`` world.
+    Every rank makes every group, in the same order, as
+    ``torch.distributed.new_group`` requires."""
+    import torch.distributed as dist
+    world = dist.get_world_size()
+    if world != dp * tp:
+        raise ValueError(f"world size {world} != dp {dp} x tp {tp}")
+    rank = dist.get_rank()
+    d, t = divmod(rank, tp)
+    backend = dist.get_backend()
+    via_host = backend == "gloo"
+
+    def group(ranks: Sequence[int], handle) -> Group:
+        return Group(size=len(ranks), rank=list(ranks).index(rank),
+                     handle=handle, backend=backend, via_host=via_host)
+
+    tp_group = dp_group = Group()
+    if tp > 1:
+        for dd in range(dp):
+            ranks = [dd * tp + tt for tt in range(tp)]
+            h = dist.new_group(ranks)
+            if dd == d:
+                tp_group = group(ranks, h)
+    if dp > 1:
+        for tt in range(tp):
+            ranks = [dd * tp + tt for dd in range(dp)]
+            h = dist.new_group(ranks)
+            if tt == t:
+                dp_group = group(ranks, h)
+    world_group = (group(range(world), None) if world > 1 else Group())
+    return MeshAxes(tp=tp, dp=dp, tp_rank=t, dp_rank=d, tp_group=tp_group,
+                    dp_group=dp_group, world_group=world_group)
+
+
+def _rank_main(rank: int, dp: int, tp: int, device_type: str,
+               init_file: str, fn: Callable, args: tuple,
+               timeout_s: float, results) -> None:
+    import torch.distributed as dist
+    try:
+        world = dp * tp
+        backend = backend_for(device_type, world)
+        if device_type == "cuda":
+            device = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(device)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        else:
+            torch.set_num_threads(1)
+            device = torch.device("cpu")
+        dist.init_process_group(
+            backend, init_method=f"file://{init_file}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
+        out = fn(make_local_mesh(dp, tp), device, *args)
+        results.put((rank, True, out))
+    except Exception:
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn(fn: Callable, dp: int, tp: int, device=None, args: tuple = (),
+          timeout_s: float = 600.0) -> List[Any]:
+    """Run ``fn(axes, device, *args)`` on ``dp * tp`` ranks and return
+    their results, ordered by rank.
+
+    ``fn`` must be importable (a module-level function) and return
+    picklable values (numpy arrays, not tensors).  ``device`` is the
+    card unless the caller asks for the CPU.  The ranks start with the
+    ``spawn`` method, never fork (the caller may hold CUDA or JAX
+    state).  ``init_process_group`` and the wait for results share one
+    timeout: past it, or on the first rank that fails, every rank is
+    killed and the call raises, so a mismatched collective fails within
+    the timeout instead of hanging."""
+    import torch.multiprocessing as mp
+    dev = resolve_device(device)
+    world = dp * tp
+    ctx = mp.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, dp, tp, dev.type, f"{tmp}/init", fn, args,
+                               timeout_s, results))
+             for r in range(world)]
+    out = {}
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            p.start()
+        while len(out) < world:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"{world - len(out)} of {world} ranks gave no result "
+                    f"within {timeout_s:.0f} s")
+            try:
+                rank, ok, payload = results.get(timeout=min(left, 1.0))
+            except queue.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in out]
+                if dead:
+                    raise RuntimeError(f"rank {dead[0]} exited with code "
+                                       f"{procs[dead[0]].exitcode}")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} failed:\n{payload}")
+            out[rank] = payload
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return [out[r] for r in range(world)]

@@ -27,7 +27,7 @@ from repro_torch.kernels.ops import (flash_attention,
                                      resolve_kernel_backend)
 from repro_torch.models import rope as ropemod
 from repro_torch.models.layers import dtype_of
-from repro_torch.parallel.axes import MULTI_DEVICE_TODO, MeshAxes
+from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.strategies import site_strategy
 
 NEG_INF = -1e30
@@ -44,12 +44,15 @@ def _kv_chunk(cfg, full: int, default: int) -> int:
 
 
 def resolve_attn_mode(cfg, axes: MeshAxes) -> str:
+    if axes.tp > 1:
+        raise NotImplementedError(
+            f"attention at tp={axes.tp}: see {SERVE_TP_TODO}")
     mode = cfg.attn_shard
     if mode == "auto":
         mode = "head" if cfg.num_heads % axes.tp == 0 else "ring"
     if mode != "head":
         raise NotImplementedError(
-            f"attention mode {mode!r}: see {MULTI_DEVICE_TODO}")
+            f"attention mode {mode!r}: see {SERVE_TP_TODO}")
     return mode
 
 

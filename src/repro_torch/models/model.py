@@ -14,7 +14,7 @@ from repro_torch.models.blocks import block_apply, block_decls
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_decls,
                                        head_decls, head_logits, norm_apply,
                                        norm_decls)
-from repro_torch.parallel.axes import MeshAxes
+from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import (TensorSpec, param_count, stack,
                                          tree_leaves, tree_map,
                                          tree_unflatten)
@@ -29,6 +29,9 @@ def _require_dense(cfg: ModelConfig):
 
 def model_decls(cfg: ModelConfig, axes: MeshAxes):
     _require_dense(cfg)
+    if axes.tp > 1:
+        raise NotImplementedError(
+            f"the dense model at tp={axes.tp}: see {SERVE_TP_TODO}")
     d = {"embed": embed_decls(cfg),
          "final_norm": norm_decls(cfg, cfg.d_model),
          "head": head_decls(cfg),

@@ -9,11 +9,13 @@ package's decl tree, layers stacked on axis 0.  From one decl tree:
     streams, so parity tests build parameters with the reference and
     hand them over through ``from_jax_params``);
   * ``param_count(decls)``;
-  * ``stack(decls, n)`` -> per-layer decls with a leading layer axis.
+  * ``stack(decls, n)`` -> per-layer decls with a leading layer axis;
+  * ``shard_params(tree, decls, axes)`` -> one rank's local views, cut as
+    ``shard_map``'s ``in_specs`` cut them; ``gather_params`` is its
+    inverse over all ranks' local trees.
 
 ``spec`` keeps the reference's sharded-dim names as plain strings
-(``"tp"``, ``"dp"`` or ``None`` per dim); at dp = tp = 1 they are
-documentation for the multi-device slice.
+(``"tp"``, ``"dp"`` or ``None`` per dim).
 """
 from __future__ import annotations
 
@@ -115,3 +117,54 @@ def from_jax_params(numpy_tree, device=None):
                 device=device, dtype=torch.bfloat16)
         return torch.from_numpy(a).to(device)
     return tree_map(conv, numpy_tree)
+
+
+def _block(spec, d: int, t: int, dp: int, tp: int, shape):
+    """Index of rank (d, t)'s block of a tensor of global ``shape``."""
+    idx = []
+    for dim, size in enumerate(shape):
+        entry = spec[dim] if dim < len(spec) else None
+        ways, at = {"tp": (tp, t), "dp": (dp, d), None: (1, 0)}[entry]
+        if size % ways:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"over {ways} ({entry})")
+        n = size // ways
+        idx.append(slice(at * n, (at + 1) * n))
+    return tuple(idx)
+
+
+def shard_params(global_tree, decls, axes):
+    """This rank's local copies of a GLOBAL parameter tree: each leaf cut
+    along the dims its decl's spec names (``"tp"`` by the rank's model
+    coordinate, ``"dp"`` by its data coordinate), replicated elsewhere."""
+    flat = {}
+    dflat = dict(tree_leaves(decls))
+    for path, t in tree_leaves(global_tree):
+        d = dflat[path]
+        sl = _block(d.spec, axes.dp_rank, axes.tp_rank, axes.dp, axes.tp,
+                    t.shape)
+        flat[path] = t[sl].clone()
+    return tree_unflatten(global_tree, flat)
+
+
+def gather_params(local_trees, decls, dp: int, tp: int):
+    """The GLOBAL tree from every rank's local tree (``local_trees[r]``
+    for rank ``r = d * tp + t``, numpy or torch leaves): the inverse of
+    ``shard_params``.  Replicated dims take the block of the last rank
+    that holds them."""
+    dflat = dict(tree_leaves(decls))
+    flat = {}
+    for path, _ in tree_leaves(local_trees[0]):
+        d = dflat[path]
+        leaves = [dict(tree_leaves(tr))[path] for tr in local_trees]
+        local = np.asarray(leaves[0])
+        shape = tuple(
+            n * {"tp": tp, "dp": dp, None: 1}[
+                d.spec[i] if i < len(d.spec) else None]
+            for i, n in enumerate(local.shape))
+        out = np.empty(shape, local.dtype)
+        for r, leaf in enumerate(leaves):
+            dd, tt = divmod(r, tp)
+            out[_block(d.spec, dd, tt, dp, tp, shape)] = np.asarray(leaf)
+        flat[path] = out
+    return tree_unflatten(local_trees[0], flat)

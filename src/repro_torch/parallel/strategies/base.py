@@ -1,11 +1,14 @@
 """ProjectionStrategy: one object per projection site that declares the
-site's parameters and computes its projection.
+site's parameters and computes its sharded projection.
 
-The reference's strategies also predict their own cost (``flops``,
-``comm_events``, ``param_count``) for the energy ledger, and declare
-which feature layout they consume and produce; those arrive with the
-ledger and collectives slices.  At tp = 1 every ``apply`` reads and
-writes full features.
+``apply()`` computes the projection in the strategy's own feature
+layout: tensor_col takes full features and returns the rank's output
+shard, tensor_row takes an input shard and returns partial sums, phantom
+takes and returns feature shards.  ``apply_shard()`` is the uniform
+feature-shard -> feature-shard form that the paper-FFN stack composes
+(tensor_col and phantom).  ``param_count()`` and ``dense_equivalent()``
+are ported; the reference's cost predictions (``flops``,
+``comm_events``) arrive with ROADMAP queue 1 item 2.
 """
 from __future__ import annotations
 
@@ -30,7 +33,20 @@ class ProjectionStrategy:
     def decls(self) -> Dict:
         raise NotImplementedError
 
-    def apply(self, params, x, *, compute_dtype=None):
+    def apply(self, params, x, *, axes=None, compute_dtype=None):
+        """The projection in the strategy's own feature layout."""
+        raise NotImplementedError
+
+    def apply_shard(self, params, x_shard, axes, compute_dtype=None):
+        """Uniform feature-shard [..., n_in/p] -> [..., n_out/p]."""
+        raise NotImplementedError
+
+    def param_count(self) -> int:
+        raise NotImplementedError
+
+    def dense_equivalent(self, params):
+        """GLOBAL (unsharded) params -> (W [n_in, n_out], b or None): the
+        dense matrix this strategy computes."""
         raise NotImplementedError
 
     def __repr__(self):

@@ -1,9 +1,12 @@
-"""Phantom-parallel projection strategy (the paper's contribution), at
-tp = 1 where the ghost collectives are empty."""
+"""Phantom-parallel projection strategy (the paper's contribution):
+feature shard in, feature shard out, k-wide ghost collectives."""
 from __future__ import annotations
 
 from repro_torch.configs.base import PhantomConfig
-from repro_torch.core.phantom import phantom_apply, phantom_decls
+from repro_torch.core.phantom import (phantom_apply, phantom_decls,
+                                      phantom_dense_equivalent,
+                                      phantom_param_count)
+from repro_torch.parallel.axes import MeshAxes
 from repro_torch.parallel.strategies.base import ProjectionStrategy, register
 
 
@@ -23,6 +26,18 @@ class PhantomStrategy(ProjectionStrategy):
         return phantom_decls(self.n_in, self.n_out, self.k, self.tp,
                              bias=self.bias)
 
-    def apply(self, params, x, *, compute_dtype=None):
-        return phantom_apply(self.pp, params, x, self.tp,
+    def apply_shard(self, params, x_shard, axes=None, compute_dtype=None):
+        return phantom_apply(self.pp, params, x_shard, axes or MeshAxes(),
                              compute_dtype=compute_dtype)
+
+    # the feature shard is phantom's own layout: one entry point
+    apply = apply_shard
+
+    def param_count(self):
+        return phantom_param_count(self.n_in, self.n_out, self.k, self.tp,
+                                   bias=self.bias)
+
+    def dense_equivalent(self, params):
+        W = phantom_dense_equivalent(
+            params, include_self_term=self.pp.include_self_term)
+        return W, params.get("b")

@@ -35,7 +35,8 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.specs import cache_specs, input_specs
 from repro_torch.models.model import (forward_decode, forward_prefill,
                                       serving_params)
-from repro_torch.parallel.axes import MeshAxes, resolve_device
+from repro_torch.parallel.axes import (SERVE_TP_TODO, MeshAxes,
+                                      resolve_device)
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.sampling import Sampler, SamplingParams
 from repro_torch.serve.scheduler import Scheduler
@@ -75,6 +76,10 @@ class ServeEngine:
                  axes: Optional[MeshAxes] = None, device=None):
         self.cfg = cfg
         self.axes = axes or MeshAxes()
+        if self.axes.tp * self.axes.dp > 1:
+            raise NotImplementedError(
+                f"ServeEngine on dp={self.axes.dp} tp={self.axes.tp}: it "
+                f"serves on one device; see {SERVE_TP_TODO}")
         self.device = resolve_device(device)
         self.params = serving_params(cfg, params, self.device)
         self.slots = slots

@@ -101,10 +101,44 @@ def test_serve_engine_targets_the_card_by_default():
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("kw", [dict(tp=2), dict(dp=4), dict(pp=2)])
-def test_multi_device_mesh_names_the_roadmap_item(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        MeshAxes(**kw)
+PAPER_FFN = ["paper-ffn-4k", "paper-ffn-16k", "paper-ffn-64k",
+             "paper-ffn-131k", "paper-ffn-262k"]
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", PAPER_FFN)
+def test_paper_ffn_config_equals_reference(arch, smoke):
+    names = [f.name for f in dataclasses.fields(ModelConfig)]
+    ours = get_config(arch, smoke=smoke)
+    theirs = jax_get_config(arch, smoke=smoke)
+    assert _fields(ours, names) == _fields(theirs, names)
+    assert dataclasses.asdict(ours.projection_spec("ffn_layer")) == \
+        dataclasses.asdict(theirs.projection_spec("ffn_layer"))
+
+
+@pytest.mark.parametrize("case", ["tp_dp_accepted", "pipeline",
+                                  "serving_tp"])
+def test_multi_device_mesh_names_the_roadmap_item(case):
+    """Model and data axes above 1 are meshes of the port; the pipeline
+    and serving at tp > 1 are not ported and name their ROADMAP items."""
+    if case == "tp_dp_accepted":
+        axes = MeshAxes(tp=2, dp=4, tp_rank=1, dp_rank=3)
+        assert (axes.tp, axes.dp, axes.rank) == (2, 4, 7)
+        with pytest.raises(RuntimeError, match="make_local_mesh"):
+            axes.tp_comm
+    elif case == "pipeline":
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP.md queue 1, item 5"):
+            MeshAxes(pp=2)
+    else:
+        cfg = get_config("chatglm3-6b", smoke=True)
+        params = materialize(model_decls(cfg, MeshAxes()),
+                             torch.Generator().manual_seed(0), "cpu")
+        axes = MeshAxes(tp=2)
+        with pytest.raises(NotImplementedError, match="serving at tp > 1"):
+            model_decls(cfg, axes)
+        with pytest.raises(NotImplementedError, match="serving at tp > 1"):
+            ServeEngine(cfg, params, axes=axes, device="cpu")
 
 
 def test_unported_arch_and_family_raise():
