@@ -30,9 +30,13 @@ Phases (any failure exits non-zero):
    Per case and kernel: max error, device time, bound (bytes over
    3.35 TB/s or operations over 67 TFLOP/s fp32 / 989 TFLOP/s bf16),
    the plain version's time and ``torch.mm`` on operands concatenated
-   and transposed outside the timing (the port never calls it).  Then
-   the gradients of ``phantom_fused_linear`` against autograd through
-   the plain version, at 2e-3 (fp32) and 6e-2 (bf16).
+   and transposed outside the timing (the port never calls it).  For
+   the forward and the dgrad also the launch plan (splits, 16-byte or
+   masked copies; the sweep must run both variants) and a second launch
+   held bitwise equal to the first.  At the main shape both are also
+   timed with a cold L2 (``_phantom_cold``).  Then the gradients of
+   ``phantom_fused_linear`` against autograd through the plain version,
+   at 2e-3 (fp32) and 6e-2 (bf16).
 4. serve: chatglm3-6b at full width and depth (28 layers), random
    weights from a seeded generator, ``kernel_backend="pallas"``,
    through ``ServeEngine`` (4 slots, max_len 128, page 16): 8
@@ -119,17 +123,20 @@ def time_ms(fn, reps=20, trials=5):
     replayed ``trials`` times between CUDA events (the median), so that
     the host's launch rate does not bound kernels of a few microseconds.
     Inputs stay resident in L2 across calls, as they are in serving,
-    where the projection that made them ran just before."""
+    where the projection that made them ran just before.  ``fn`` may be a
+    list of calls on different operands, taken in turn (``cold_ms``)."""
     import torch
+    fns = fn if isinstance(fn, list) else [fn]
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()
+        for f in fns:
+            f()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
+        for i in range(reps):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -451,10 +458,15 @@ def _held(got, want, tol):
 
 def _phantom_case(M, K, N, PK, dtype, gen):
     """The three phantom kernels on one (M, K, N, PK): the forward
-    z = x.L + g.D, the dgrad dz.[L;D]^T and the wgrad [x|g]^T.dz."""
+    z = x.L + g.D, the dgrad dz.[L;D]^T and the wgrad [x|g]^T.dz.  For
+    the forward and the dgrad also their launch plan (splits per output
+    tile, 16-byte or masked copies) and whether a second launch on the
+    same inputs gives the same bits."""
     import torch
-    from repro_torch.kernels.phantom_fused import (matmul_nt, matmul_tn,
-                                                   phantom_fused_matmul)
+    from repro_torch.kernels.phantom_fused import (dgrad_plan, forward_plan,
+                                                   matmul_nt, matmul_tn,
+                                                   phantom_fused_matmul,
+                                                   resident_table)
     from repro_torch.kernels.ref import (matmul_nt_ref, matmul_tn_ref,
                                          phantom_fused_ref)
     dt = getattr(torch, dtype)
@@ -483,17 +495,61 @@ def _phantom_case(M, K, N, PK, dtype, gen):
             lambda: matmul_tn_ref(torch.cat([x, g], 1), dz),
             lambda: torch.mm(xgt, dz), (M * J + M * N + J * N) * es),
     }
+    plans = {"phantom_fused_matmul": forward_plan(x, L, g, D),
+             "matmul_nt": dgrad_plan(dz, L, D)}
     out = []
     for name, (kern, plain, lib, nbytes) in calls.items():
         got = kern()
         torch.cuda.synchronize()
         err, ok = _held(got, plain(), PHANTOM_TOL[dtype])
         bound, bound_by = _gemm_bound_ms(nbytes, flops, dtype)
-        out.append({"kernel": name, "M": M, "K": K, "N": N, "PK": PK,
-                    "dtype": dtype, "max_abs_err": err, "ok": ok,
-                    "ms": time_ms(kern), "plain_ms": time_ms(plain),
-                    "library_ms": time_ms(lib), "bound_ms": bound,
-                    "bound_by": bound_by})
+        r = {"kernel": name, "M": M, "K": K, "N": N, "PK": PK,
+             "dtype": dtype, "max_abs_err": err, "ok": ok,
+             "ms": time_ms(kern), "plain_ms": time_ms(plain),
+             "library_ms": time_ms(lib), "bound_ms": bound,
+             "bound_by": bound_by}
+        if name in plans:
+            plan = plans[name]
+            r.update(splits=plan.splits, variant=plan.variant,
+                     clusters=plan.grid[0] * plan.grid[1] // plan.splits,
+                     resident_clusters=resident_table(
+                         0, plan.dgrad, plan.esize)[plan.splits],
+                     bitwise=bool(torch.equal(got, kern())))
+            r["ok"] = ok and r["bitwise"]
+        out.append(r)
+    return out
+
+
+def _phantom_cold(M, K, N, PK, gen, sets=4):
+    """Forward and dgrad at one shape with a cold L2: ``sets`` operand
+    sets taken in turn, so each call finds its operands evicted by the
+    others' (4 x 16.8 MB of L in float32 against the 50 MB L2).  The
+    library call gets the same treatment."""
+    import torch
+    from repro_torch.kernels.phantom_fused import (matmul_nt,
+                                                   phantom_fused_matmul)
+
+    def r(*shape):
+        return torch.randn(*shape, device="cuda", generator=gen) * 0.3
+    ops = [(r(M, K), r(K, N), r(M, PK), r(PK, N), r(M, N))
+           for _ in range(sets)]
+    cat = [(torch.cat([x, g], 1), torch.cat([L, D]), dz)
+           for x, L, g, D, dz in ops]
+    out = {
+        "phantom_fused_matmul": {
+            "cold_ms": time_ms([lambda o=o: phantom_fused_matmul(*o[:4])
+                                for o in ops]),
+            "library_cold_ms": time_ms([lambda c=c: torch.mm(c[0], c[1])
+                                        for c in cat])},
+        "matmul_nt": {
+            "cold_ms": time_ms([lambda o=o: matmul_nt(o[4], o[1], o[3])
+                                for o in ops]),
+            "library_cold_ms": time_ms([lambda c=c: torch.mm(c[2], c[1].t())
+                                        for c in cat])}}
+    for name, t in out.items():
+        print(f"{name} M={M} K={K} N={N} PK={PK} float32, cold L2 "
+              f"({sets} operand sets in turn): ms={t['cold_ms']:.4f} "
+              f"library_ms={t['library_cold_ms']:.4f}", flush=True)
     return out
 
 
@@ -533,23 +589,39 @@ def _phantom_grads(gen):
 
 def phase_phantom_kernels():
     import torch
+    from repro_torch.kernels.phantom_fused import resident_table
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
     for dtype in ("float32", "bfloat16"):
         for shape in PHANTOM_SHAPES + [PHANTOM_MAIN]:
             for r in _phantom_case(*shape, dtype, gen):
                 results.append(r)
+                plan = (f" splits={r['splits']} {r['variant']} clusters="
+                        f"{r['clusters']} (resident at once: "
+                        f"{r['resident_clusters']}) bitwise={r['bitwise']}"
+                        if "splits" in r else "")
                 print(f"{r['kernel']} M={r['M']} K={r['K']} N={r['N']} "
                       f"PK={r['PK']} {dtype}: max_abs_err="
-                      f"{r['max_abs_err']:.3e} ok={r['ok']} "
+                      f"{r['max_abs_err']:.3e} ok={r['ok']}{plan} "
                       f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                       f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
                       f"library_ms={r['library_ms']:.4f}", flush=True)
     grads = _phantom_grads(gen)
     bad = [r for r in results + grads if not r["ok"]]
-    check(not bad, f"phantom kernels disagree with their plain versions in "
-                   f"{len(bad)} case(s): {bad}")
-    return {"sweep": results, "grads": grads}
+    check(not bad, f"phantom kernels disagree with their plain versions or "
+                   f"with themselves in {len(bad)} case(s): {bad}")
+    for name in ("phantom_fused_matmul", "matmul_nt"):
+        seen = {r["variant"] for r in results if r["kernel"] == name}
+        check(seen == {"vec16", "masked"},
+              f"{name}: the sweep ran variants {seen}, not both")
+    cold = _phantom_cold(*PHANTOM_MAIN, gen)
+    resident = {f"{k}_{es}": resident_table(0, k == "dgrad", es)
+                for k in ("forward", "dgrad") for es in (4, 2)}
+    print(f"split-contraction kernel, clusters of S blocks resident at "
+          f"once, by S (forward/dgrad, float32 = 4, bfloat16 = 2): "
+          f"{resident}", flush=True)
+    return {"sweep": results, "grads": grads, "cold": cold,
+            "resident_clusters": resident}
 
 
 def _adamw_step1(params, grads, lr, eps):

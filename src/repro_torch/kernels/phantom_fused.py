@@ -9,6 +9,10 @@ Replaces the JAX package's Pallas TPU kernels of the same names in
 ``src/repro/kernels/phantom_fused.py``.  The source's header says how the
 design maps them onto Hopper and what bounds them on the card.
 
+The forward and the dgrad run through one split-contraction kernel whose
+launch ``gemm_plan`` sets (splits per output tile, 16-byte or masked
+copies); the wgrad through a tiled GEMM of 32 x 32 tiles.
+
 Each wrapper checks shapes first (``KernelConfigError``, the reference's
 messages), then takes the plain version (``kernels/ref.py``) only for
 tensors that lie on the CPU.  A CUDA tensor launches the kernel or
@@ -19,6 +23,9 @@ wrapper counts its kernel's launches.
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
 
@@ -26,7 +33,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import (matmul_nt_ref, matmul_tn_ref,
                                      phantom_fused_ref)
 
-TILE = 32                    # BM = BN = BK of csrc/phantom_fused.cu
+# splitk_kernel of csrc/phantom_fused.cu (the forward and the dgrad); the
+# values must equal its namespace sk's constants
+BM, BN, BK = 64, 64, 32      # output tile rows and columns, contraction slab
+STAGES = 4                   # slabs in the cp.async ring
+MAX_SPLITS = 8               # blocks in a cluster (the portable limit)
+# Clusters of S blocks an H100 SXM (132 SMs, 700 W) holds at once, two
+# blocks of the kernel on an SM (cudaOccupancyMaxActiveClusters, as
+# chip_smoke.py prints it): the CPU's stand-in for resident_table().
+H100_RESIDENT_CLUSTERS = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32,
+                          8: 30}
 SMEM_BUDGET_BYTES = 232_448  # shared memory one H100 block may use (227 KB)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -36,25 +52,118 @@ class KernelConfigError(ValueError):
     configuration whose shared memory exceeds one block's."""
 
 
-def kernel_smem_bytes(bm: int, bn: int, bk: int) -> int:
-    """Shared memory of one block: the A slab ``[bk][bm + 1]`` and the B
-    slab ``[bk][bn + 4]``, both float32 whatever the input dtype (inputs
-    are converted on load).  The ghost slabs reuse the same buffers."""
-    return 4 * (bk * (bm + 1) + bk * (bn + 4))
+def kernel_smem_bytes(b_kfast: bool, esize: int, bm: int = BM, bn: int = BN,
+                      bk: int = BK, stages: int = STAGES) -> int:
+    """Dynamic shared memory of one ``splitk_kernel`` block: a ring of
+    ``stages`` slabs in the input dtype (``esize`` bytes), A as ``bm`` rows
+    of ``bk`` and B as ``bn`` rows of ``bk`` (``b_kfast``, the dgrad) or
+    ``bk`` rows of ``bn`` (the forward), every row padded by 16 bytes; the
+    fp32 ``[bm][bn]`` partial tile reuses the ring."""
+    pad = 16 // esize
+    a = bm * (bk + pad)
+    b = bn * (bk + pad) if b_kfast else bk * (bn + pad)
+    return max(stages * (a + b) * esize, 4 * bm * bn)
 
 
-def check_kernel_fits(bm: int, bn: int, bk: int,
+def check_kernel_fits(b_kfast: bool, esize: int, bm: int = BM, bn: int = BN,
+                      bk: int = BK, stages: int = STAGES,
                       budget: int = SMEM_BUDGET_BYTES) -> int:
-    need = kernel_smem_bytes(bm, bn, bk)
+    need = kernel_smem_bytes(b_kfast, esize, bm, bn, bk, stages)
     if need > budget:
         raise KernelConfigError(
-            f"phantom-kernel tiles bm={bm} bn={bn} bk={bk} need {need} B "
-            f"of shared memory per block, over the {budget} B an H100 "
-            f"block may use; shrink the tiles")
+            f"phantom-kernel tiles bm={bm} bn={bn} bk={bk} x {stages} "
+            f"stages need {need} B of shared memory per block, over the "
+            f"{budget} B an H100 block may use; shrink the tiles")
     return need
 
 
-SMEM_BYTES = check_kernel_fits(TILE, TILE, TILE)   # the built tiles' need
+# the built layouts' need, per (dgrad?, element size)
+SMEM_BYTES = {(kf, es): check_kernel_fits(kf, es)
+              for kf in (False, True) for es in (4, 2)}
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """How ``splitk_kernel`` runs one product: ``splits`` blocks (one
+    cluster) share each ``bm x bn`` output tile, each walking one range of
+    the ``slabs`` ``bk``-wide slabs of the contraction (``ranges``)."""
+    bm: int
+    bn: int
+    bk: int
+    stages: int
+    splits: int
+    grid: Tuple[int, int]      # (column tiles x splits, row tiles)
+    cluster: Tuple[int, int, int]
+    variant: str               # "vec16" (16-byte cp.async) or "masked"
+    smem_bytes: int
+    slabs: int
+    dgrad: bool                # B k-contiguous ([L;D] rows) or k-major (L)
+    esize: int                 # bytes per input element
+
+    def ranges(self) -> List[Tuple[int, int]]:
+        """[first, end) slabs of each block rank, as the kernel splits
+        them: near-equal, the first ``slabs % splits`` one longer."""
+        base, rem = divmod(self.slabs, self.splits)
+        out, first = [], 0
+        for r in range(self.splits):
+            n = base + (r < rem)
+            out.append((first, first + n))
+            first += n
+        return out
+
+
+def gemm_plan(M: int, N: int, seg_lens: Sequence[int], b_kfast: bool,
+              esize: int, vec16: bool,
+              resident: Mapping[int, int] = H100_RESIDENT_CLUSTERS
+              ) -> GemmPlan:
+    """The plan of C[M, N] = sum of A.B over contraction segments of
+    ``seg_lens``: the most splits (up to ``MAX_SPLITS``) whose clusters,
+    one per output tile, the card holds at once (``resident``: clusters
+    of S blocks resident at once, by S) and that leave every block at
+    least two slabs.  A grid of more clusters runs in a second wave,
+    which costs more than the extra splits gain (PERF.md); short
+    contractions and grids past one wave get ``splits = 1``."""
+    tiles_m, tiles_n = -(-M // BM), -(-N // BN)
+    slabs = sum(-(-k // BK) for k in seg_lens)
+    splits = 1
+    for s in range(MAX_SPLITS, 1, -1):
+        if slabs >= 2 * s and tiles_m * tiles_n <= resident[s]:
+            splits = s
+            break
+    return GemmPlan(BM, BN, BK, STAGES, splits, (tiles_n * splits, tiles_m),
+                    (splits, 1, 1), "vec16" if vec16 else "masked",
+                    SMEM_BYTES[(b_kfast, esize)], slabs, b_kfast, esize)
+
+
+def takes_16b(*ts) -> bool:
+    """Whether every operand can be copied in 16-byte pieces: base, row
+    pitch and contiguous width all multiples of 16 bytes."""
+    return all(t.data_ptr() % 16 == 0
+               and (t.stride(0) * t.element_size()) % 16 == 0
+               and (t.shape[1] * t.element_size()) % 16 == 0 for t in ts)
+
+
+def _resident(dgrad: bool, t) -> Mapping[int, int]:
+    """Clusters resident at once, by S, for the kernel that ``t`` (the
+    first operand) launches: queried on its card, the H100 table on the
+    CPU."""
+    if t.device.type != "cuda":
+        return H100_RESIDENT_CLUSTERS
+    return resident_table(t.device.index if t.device.index is not None
+                          else torch.cuda.current_device(), dgrad,
+                          t.element_size())
+
+
+def forward_plan(x, L, g, D) -> GemmPlan:
+    vec16 = takes_16b(x, L, g, D)
+    return gemm_plan(x.shape[0], L.shape[1], (x.shape[1], g.shape[1]),
+                     False, x.element_size(), vec16, _resident(False, x))
+
+
+def dgrad_plan(a, *bs) -> GemmPlan:
+    return gemm_plan(a.shape[0], sum(b.shape[0] for b in bs), (a.shape[1],),
+                     True, a.element_size(), takes_16b(a, *bs),
+                     _resident(True, a))
 
 
 def _library() -> ctypes.CDLL:
@@ -62,13 +171,35 @@ def _library() -> ctypes.CDLL:
     if lib.repro_phantom_fused_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.repro_phantom_fused_fwd.argtypes = (
-            [p] * 5 + [i] * 4 + [ll] * 5 + [i, p])
-        lib.repro_matmul_nt.argtypes = [p] * 4 + [i] * 4 + [ll] * 4 + [i, p]
+            [p] * 5 + [i] * 4 + [ll] * 5 + [i] * 4 + [p])
+        lib.repro_matmul_nt.argtypes = (
+            [p] * 4 + [i] * 4 + [ll] * 4 + [i] * 4 + [p])
         lib.repro_matmul_tn.argtypes = [p] * 4 + [i] * 4 + [ll] * 4 + [i, p]
+        lib.repro_splitk_max_clusters.argtypes = [i] * 4 + [p]
         for fn in (lib.repro_phantom_fused_fwd, lib.repro_matmul_nt,
-                   lib.repro_matmul_tn):
+                   lib.repro_matmul_tn, lib.repro_splitk_max_clusters):
             fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def resident_table(index: int, dgrad: bool, esize: int) -> Dict[int, int]:
+    """Clusters of S blocks (S = 1..``MAX_SPLITS``) that card ``index``
+    holds at once (``cudaOccupancyMaxActiveClusters``) for the forward's
+    or the dgrad's kernel at ``esize``-byte inputs; a grid of more
+    clusters runs in more than one wave.  Both variants use the same
+    shared memory and two blocks per SM."""
+    lib, out = _library(), {}
+    with torch.cuda.device(index):
+        for s in range(1, MAX_SPLITS + 1):
+            n = ctypes.c_int(0)
+            err = lib.repro_splitk_max_clusters(
+                {4: 0, 2: 1}[esize], int(dgrad), 1, s, ctypes.byref(n))
+            if err != 0:
+                raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
+                                   f"cudaError {err} for {s} blocks")
+            out[s] = n.value
+    return out
 
 
 def _check_cuda(*ts):
@@ -83,14 +214,24 @@ def _check_cuda(*ts):
             raise ValueError(f"the kernels take 2-D operands with a "
                              f"contiguous last dim; got shape "
                              f"{tuple(t.shape)} stride {t.stride()}")
-    if torch.cuda.get_device_capability(dev) != (9, 0):
+    _check_sm90(dev.index if dev.index is not None
+                else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _check_sm90(index: int) -> None:
+    if torch.cuda.get_device_capability(index) != (9, 0):
         raise RuntimeError(
-            f"{torch.cuda.get_device_name(dev)} is not sm_90; the phantom "
+            f"{torch.cuda.get_device_name(index)} is not sm_90; the phantom "
             f"kernels are built for Hopper (sm_90a) only")
 
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _plan_args(plan: GemmPlan):
+    return plan.splits, int(plan.variant == "vec16"), plan.smem_bytes
 
 
 def _raised(err: int, what: str, *ts):
@@ -126,11 +267,13 @@ def phantom_fused_matmul(x, L, g, D):
     if _on_cpu(x, L, g, D):
         return phantom_fused_ref(x, L, g, D)
     _check_cuda(x, L, g, D)
+    plan = forward_plan(x, L, g, D)
     z = torch.empty((M, N), dtype=x.dtype, device=x.device)
     err = _library().repro_phantom_fused_fwd(
         x.data_ptr(), L.data_ptr(), g.data_ptr(), D.data_ptr(), z.data_ptr(),
         M, K, N, PK, x.stride(0), L.stride(0), g.stride(0), D.stride(0),
-        z.stride(0), _DTYPE_CODES[x.dtype], _stream(x.device))
+        z.stride(0), _DTYPE_CODES[x.dtype], *_plan_args(plan),
+        _stream(x.device))
     _raised(err, "phantom_fused_matmul", x, L, g, D)
     phantom_fused_matmul.launches += 1
     return z
@@ -148,13 +291,14 @@ def matmul_nt(a, b, b2=None):
     if _on_cpu(a, *parts):
         return matmul_nt_ref(a, b if b2 is None else torch.cat(parts))
     _check_cuda(a, *parts)
+    plan = dgrad_plan(a, *parts)
     J0, J1 = b.shape[0], 0 if b2 is None else b2.shape[0]
     c = torch.empty((M, J0 + J1), dtype=a.dtype, device=a.device)
     err = _library().repro_matmul_nt(
         a.data_ptr(), b.data_ptr(), 0 if b2 is None else b2.data_ptr(),
         c.data_ptr(), M, N, J0, J1, a.stride(0), b.stride(0),
         b.stride(0) if b2 is None else b2.stride(0), c.stride(0),
-        _DTYPE_CODES[a.dtype], _stream(a.device))
+        _DTYPE_CODES[a.dtype], *_plan_args(plan), _stream(a.device))
     _raised(err, "matmul_nt", a, *parts)
     matmul_nt.launches += 1
     return c

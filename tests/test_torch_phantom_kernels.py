@@ -12,6 +12,10 @@ Tolerances are the reference's: float32 rtol/atol 2e-4, bf16 2e-2 for
 the kernels, 2e-3 / 6e-2 for the gradients of ``phantom_fused_linear``.
 The CUDA kernels themselves run only on a card (``cuda`` marker).
 """
+import functools
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -155,12 +159,117 @@ def test_typed_errors_match_the_reference(case):
 
 def test_shared_memory_check():
     """The shared-memory counterpart of the reference's VMEM check: the
-    kernels' tiles fit one H100 block; tiles past 227 KB raise."""
-    need = pf.check_kernel_fits(pf.TILE, pf.TILE, pf.TILE)
-    assert need == pf.SMEM_BYTES == pf.kernel_smem_bytes(
-        pf.TILE, pf.TILE, pf.TILE) < pf.SMEM_BUDGET_BYTES
+    split-contraction kernel's ring (forward and dgrad layouts, float32
+    and bfloat16) fits one H100 block; tiles past 227 KB raise."""
+    for (b_kfast, esize), need in pf.SMEM_BYTES.items():
+        assert need == pf.check_kernel_fits(b_kfast, esize) == \
+            pf.kernel_smem_bytes(b_kfast, esize) < pf.SMEM_BUDGET_BYTES
+        # over 48 KB in float32: dynamic shared memory, set per kernel
+        assert need > 48 * 1024 or esize == 2
+    # the partial tile [BM][BN] fp32 reuses the ring: the ring is larger
+    assert min(pf.SMEM_BYTES.values()) >= 4 * pf.BM * pf.BN
     with pytest.raises(KernelConfigError, match="shared memory"):
-        pf.check_kernel_fits(256, 256, 128)
+        pf.check_kernel_fits(False, 4, bm=256, bn=256, bk=128)
+
+
+def test_kernel_constants_match_the_source():
+    """``gemm_plan`` prices the ring from Python constants; they must be
+    the CUDA source's (``namespace sk``)."""
+    src = (Path(pf.__file__).parent / "csrc" / "phantom_fused.cu").read_text()
+    for name in ("BM", "BN", "BK", "STAGES", "MAX_SPLITS"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(pf, name), name
+
+
+def _ceil(a, b):
+    return -(-a // b)
+
+
+def _plan_operands(shape, kind, dtype=torch.float32):
+    M, K, N, PK = shape
+    e = functools.partial(torch.empty, dtype=dtype)
+    if kind == "forward":
+        ops = (e(M, K), e(K, N), e(M, PK), e(PK, N))
+        return pf.forward_plan(*ops), ops, M, N, _ceil(K, 32) + _ceil(PK, 32)
+    ops = (e(M, N), e(K, N), e(PK, N))
+    return pf.dgrad_plan(*ops), ops, M, K + PK, _ceil(N, 32)
+
+
+@pytest.mark.parametrize("kind", ["forward", "dgrad"])
+@pytest.mark.parametrize("shape", SHAPES + [(64, 128, 128, 64),
+                                            (64, 2048, 2048, 128)])
+def test_gemm_plan(shape, kind):
+    """The launch plan of the split-contraction kernel on the sweep, the
+    Table I mini-run and the paper-ffn-16k per-rank shapes (CPU operands:
+    the H100's residency table): the block ranges cover the contraction
+    exactly, every block of a split gets at least two slabs, the cluster
+    is at most 8 and fits the card in one wave, shared memory fits, and
+    the main shape keeps at least 1.5 blocks per SM busy."""
+    resident = pf.H100_RESIDENT_CLUSTERS
+    for dtype in (torch.float32, torch.bfloat16):
+        plan, ops, rows, cols, slabs = _plan_operands(shape, kind, dtype)
+        assert plan.slabs == slabs
+        S = plan.splits
+        assert 1 <= S <= pf.MAX_SPLITS
+        assert plan.cluster == (S, 1, 1)
+        assert plan.grid == (_ceil(cols, pf.BN) * S, _ceil(rows, pf.BM))
+        tiles = _ceil(cols, pf.BN) * _ceil(rows, pf.BM)
+        ranges = plan.ranges()
+        assert len(ranges) == S and ranges[0][0] == 0 and \
+            ranges[-1][1] == slabs
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        if S > 1:
+            assert min(b - a for a, b in ranges) >= 2
+            assert tiles <= resident[S]             # one wave
+        if S < pf.MAX_SPLITS:                       # and no larger S fits
+            assert slabs < 2 * (S + 1) or tiles > resident[S + 1]
+        assert plan.smem_bytes == pf.kernel_smem_bytes(
+            kind == "dgrad", ops[0].element_size()) <= pf.SMEM_BUDGET_BYTES
+        v = 16 // ops[0].element_size()
+        aligned = all(t.shape[1] % v == 0 for t in ops)
+        assert plan.variant == ("vec16" if aligned else "masked")
+        if shape == (64, 2048, 2048, 128):
+            assert plan.variant == "vec16"
+            assert S == {"forward": 7, "dgrad": 6}[kind]
+            assert plan.grid[0] * plan.grid[1] >= 1.5 * 132
+        if shape == (130, 257, 129, 65):
+            assert plan.variant == "masked"
+
+
+_H100 = pf.H100_RESIDENT_CLUSTERS
+
+
+@pytest.mark.parametrize("table,splits", [
+    (_H100, 7),
+    ({s: 264 for s in range(1, 9)}, 8),
+    ({**_H100, 7: 30}, 6),
+    ({**_H100, 7: 31, 6: 31}, 5),
+    ({s: 16 for s in range(1, 9)}, 1),
+])
+def test_gemm_plan_follows_the_residency_table(table, splits):
+    """The forward at the main shape (32 output tiles, 68 slabs) on cards
+    that hold ``table[S]`` clusters of S blocks at once: the largest S
+    whose 32 clusters run in one wave, else 1."""
+    plan = pf.gemm_plan(64, 2048, (2048, 128), False, 4, True, table)
+    assert plan.splits == splits
+
+
+def test_gemm_plan_variant_of_column_views():
+    """A column view whose base or row pitch is not a multiple of 16
+    bytes takes the masked variant; one whose pitch and base are aligned
+    keeps the 16-byte copies."""
+    wide = torch.empty(64, 2048 + 8)
+    L, g, D = torch.empty(2048, 2048), torch.empty(64, 128), \
+        torch.empty(128, 2048)
+    assert pf.forward_plan(wide[:, :2048], L, g, D).variant == "vec16"
+    assert pf.forward_plan(wide[:, 4:2052], L, g, D).variant == "vec16"
+    assert pf.forward_plan(wide[:, 1:2049], L, g, D).variant == "masked"
+    odd = torch.empty(64, 2048 + 1)[:, :2048]   # pitch 2049 floats
+    assert pf.forward_plan(odd, L, g, D).variant == "masked"
+    dz = torch.empty(64, 2048 + 4)[:, 4:]
+    assert pf.dgrad_plan(dz, L, D).variant == "vec16"
+    assert pf.dgrad_plan(dz.bfloat16()[:, 2:], L.bfloat16(),
+                         D.bfloat16()).variant == "masked"
 
 
 def test_non_cpu_tensors_never_take_the_plain_version():
@@ -222,13 +331,21 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype", _cases()
-                         + [((64, 2048, 2048, 128), "float32")])
-def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
-    """Each kernel launches once and agrees with its plain version."""
+@pytest.mark.parametrize("shape,dtype,offset", [c + (0,) for c in _cases()]
+                         + [((64, 2048, 2048, 128), "float32", 0),
+                            ((64, 256, 192, 32), "float32", 1)])
+def test_cuda_kernels_match_plain(cuda_device, shape, dtype, offset):
+    """Each kernel launches once, agrees with its plain version and gives
+    the same bits on a second launch.  ``offset`` 1: every operand is a
+    column view one element into a wider tensor (unaligned: the masked
+    variant)."""
     M, K, N, PK = shape
-    x, L, g, D, dz = [t.to(cuda_device) for t in _torch(_arrays(
-        M + N, (M, K), (K, N), (M, PK), (PK, N), (M, N)), dtype)]
+    x, L, g, D, dz = [t.to(cuda_device)[:, offset:] for t in _torch(_arrays(
+        M + N, (M, K + offset), (K, N + offset), (M, PK + offset),
+        (PK, N + offset), (M, N + offset)), dtype)]
+    if offset:
+        assert pf.forward_plan(x, L, g, D).variant == "masked"
+        assert pf.dgrad_plan(dz, L, D).variant == "masked"
     before = (pf.phantom_fused_matmul.launches, pf.matmul_nt.launches,
               pf.matmul_tn.launches)
     got = (pf.phantom_fused_matmul(x, L, g, D), pf.matmul_nt(dz, L, D),
@@ -241,3 +358,6 @@ def test_cuda_kernels_match_plain(cuda_device, shape, dtype):
             matmul_tn_ref(torch.cat([x, g], 1), dz))
     for name, a, b in zip(("forward", "dgrad", "wgrad"), got, want):
         _close(a.cpu(), b.cpu(), TOL[dtype], name)
+    again = (pf.phantom_fused_matmul(x, L, g, D), pf.matmul_nt(dz, L, D))
+    for name, a, b in zip(("forward", "dgrad"), got, again):
+        assert torch.equal(a, b), f"{name}: two launches differ"
