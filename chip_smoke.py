@@ -10,17 +10,25 @@ Phases (any failure exits non-zero):
 1. device: the card's name and power limit; build every kernel of the
    port from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
    parallel) and report the build time and the compiler's register
-   report; TF32 off for matmuls and convolutions.
+   report; check with ``cuobjdump -sass`` that every instantiation of
+   the bf16 flash kernel multiplies on the tensor cores (HMMA); TF32 off
+   for matmuls and convolutions.
 2. kernels against their plain versions at chatglm3-6b's prefill
    geometry (H=32, KV=2, hd=128; B in {1, 4}; S in {16, 32, 48, 128,
    512}; causal and full; bf16 and fp32) plus one smoke-geometry case
-   (hd=16).  Tolerances: fp32 rtol 2e-3 / atol 2e-4, bf16 3e-2 (the
-   reference's kernel tests).  Per case: max error, the kernel's device
+   (hd=16), with peaked scores (std 2: an output is not a near-uniform
+   mean of V).  Tolerances: fp32 rtol 2e-3 / atol 2e-4 (the reference's
+   kernel tests); bf16 against the float32 plain version on the same
+   inputs, each output within 1e-2 of sum_j p_j |v_j|, the size of its
+   weighted sum (bf16 P and the rounded output each err by at most 2^-8
+   of it).  Per case: max error, the kernel's device
    time (``time_ms``), its bound (the larger of bytes over 3.35 TB/s
    and FLOPs over the peak of the input type: 989 TFLOP/s bf16 tensor,
    67 TFLOP/s fp32 non-tensor), the plain version's time and the time of
    ``torch.nn.functional.scaled_dot_product_attention`` on the same
-   inputs as a yardstick (the port never calls it).
+   inputs as a yardstick (the port never calls it).  Then, at the
+   serving geometry in bf16 (B=4, S in {48, 512}, causal), the kernel's
+   time with a cold L2 (``_flash_cold``).
 3. phantom kernels against their plain versions (``_phantom_case``):
    ``phantom_fused_matmul``, ``matmul_nt`` (dgrad, ``[L;D]`` read through
    two pointers) and ``matmul_tn`` (wgrad, ``[x|g]`` through two) on the
@@ -31,9 +39,10 @@ Phases (any failure exits non-zero):
    3.35 TB/s or operations over 67 TFLOP/s fp32 / 989 TFLOP/s bf16),
    the plain version's time and ``torch.mm`` on operands concatenated
    and transposed outside the timing (the port never calls it).  For
-   the forward and the dgrad also the launch plan (splits, 16-byte or
-   masked copies; the sweep must run both variants) and a second launch
-   held bitwise equal to the first.  At the main shape both are also
+   each kernel also the launch plan (forward and dgrad: splits; wgrad:
+   persistent grid and rounds of tiles; all: 16-byte or masked copies,
+   and the sweep must run both variants) and a second launch held
+   bitwise equal to the first.  At the main shape all three are also
    timed with a cold L2 (``_phantom_cold``).  Then the gradients of
    ``phantom_fused_linear`` against autograd through the plain version,
    at 2e-3 (fp32) and 6e-2 (bf16).
@@ -124,9 +133,11 @@ def time_ms(fn, reps=20, trials=5):
     the host's launch rate does not bound kernels of a few microseconds.
     Inputs stay resident in L2 across calls, as they are in serving,
     where the projection that made them ran just before.  ``fn`` may be a
-    list of calls on different operands, taken in turn (``cold_ms``)."""
+    list of calls on different operands, taken in turn, each at least
+    once (``cold_ms``)."""
     import torch
     fns = fn if isinstance(fn, list) else [fn]
+    reps = max(reps, len(fns))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -149,6 +160,14 @@ def time_ms(fn, reps=20, trials=5):
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def cold_ms(make, nbytes):
+    """Device time per call with a cold L2: ``make()`` returns a call on
+    fresh operands of ``nbytes`` input bytes; enough of them, taken in
+    turn, that each call's inputs were evicted (twice the 50 MB L2)."""
+    sets = max(4, -(-100_000_000 // nbytes))
+    return time_ms([make() for _ in range(sets)])
 
 
 def attention_bound_ms(B, S, H, KV, hd, causal, dtype):
@@ -186,7 +205,64 @@ def phase_device():
         for line in logs.get(name, "").splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
-    return {"nvidia_smi": smi, "build_s": build_s}
+    hmma = {f"hd={name.split('ILi')[1].split('E')[0]}": n for name, n in
+            _sass_count("flash_attention", "flash_mma_kernel",
+                        "HMMA").items()}
+    print(f"flash_mma_kernel HMMA instructions (cuobjdump -sass), by head "
+          f"dim: {hmma}", flush=True)
+    check(len(hmma) == 4 and all(hmma.values()),
+          f"the bf16 flash kernel is not on the tensor cores: {hmma}")
+    return {"nvidia_smi": smi, "build_s": build_s, "flash_hmma": hmma}
+
+
+def _sass_count(kernel, function, opcode):
+    """Instructions whose text holds ``opcode`` in each function of the
+    built ``kernel`` library whose name holds ``function``, from
+    ``cuobjdump -sass``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    from repro_torch.kernels import build
+    sass = subprocess.run(
+        [str(Path(CUDA_HOME) / "bin" / "cuobjdump"), "-sass",
+         str(build.library_path(kernel))], capture_output=True, text=True,
+        check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if function in name:
+                counts[name] = 0
+        elif name in counts and opcode in line:
+            counts[name] += 1
+    return counts
+
+
+def _flash_inputs(S, gen, B=4, H=32, KV=2, hd=128, dtype="bfloat16"):
+    """q, k, v on the card with scores q.k / sqrt(hd) of std 2."""
+    import torch
+    return [(torch.randn(B, S, n, hd, device="cuda", generator=gen) * scale
+             ).to(getattr(torch, dtype))
+            for n, scale in ((H, 2.0), (KV, 1.0), (KV, 0.5))]
+
+
+def _flash_held(got, q, k, v, causal):
+    """The kernel's output against the plain version: fp32 within rtol
+    2e-3 / atol 2e-4; bf16 against the float32 plain version on the same
+    inputs, within 1e-2 of sum_j p_j |v_j|.  Returns the largest absolute
+    error, the largest relative to that sum (bf16; None for fp32) and
+    the verdict."""
+    import torch
+    from repro_torch.kernels.ref import flash_attention_ref
+    if q.dtype == torch.float32:
+        want = flash_attention_ref(q, k, v, causal=causal)
+        diff = (got - want).abs()
+        return (diff.max().item(), None,
+                bool((diff <= 2e-4 + 2e-3 * want.abs()).all()))
+    q, k, v = (t.float() for t in (q, k, v))
+    want = flash_attention_ref(q, k, v, causal=causal)
+    size = flash_attention_ref(q, k, v.abs(), causal=causal)
+    diff = (got.float() - want).abs()
+    rel = (diff / size).max().item()
+    return diff.max().item(), rel, rel <= 1e-2
 
 
 def _case(B, S, H, KV, hd, causal, dtype, gen):
@@ -194,27 +270,18 @@ def _case(B, S, H, KV, hd, causal, dtype, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ref import flash_attention_ref
-    dt = getattr(torch, dtype)
-    q = (torch.randn(B, S, H, hd, device="cuda", generator=gen) * 0.5).to(dt)
-    k = (torch.randn(B, S, KV, hd, device="cuda", generator=gen) * 0.5
-         ).to(dt)
-    v = (torch.randn(B, S, KV, hd, device="cuda", generator=gen) * 0.5
-         ).to(dt)
+    q, k, v = _flash_inputs(S, gen, B, H, KV, hd, dtype)
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    want = flash_attention_ref(q, k, v, causal=causal)
-    rtol, atol = (2e-3, 2e-4) if dtype == "float32" else (3e-2, 3e-2)
-    diff = (got.float() - want.float()).abs()
-    err = diff.max().item()
-    ok = bool((diff <= atol + rtol * want.float().abs()).all())
+    err, rel, ok = _flash_held(got, q, k, v, causal)
     # SDPA takes [B, H, S, hd]; K/V expanded to H heads outside the timing
     qs = q.transpose(1, 2)
     ks = k.repeat_interleave(H // KV, dim=2).transpose(1, 2)
     vs = v.repeat_interleave(H // KV, dim=2).transpose(1, 2)
-    bound, bound_by = attention_bound_ms(B, S, H, KV, hd, causal, dt)
+    bound, bound_by = attention_bound_ms(B, S, H, KV, hd, causal, q.dtype)
     return {
         "B": B, "S": S, "H": H, "KV": KV, "hd": hd, "causal": causal,
-        "dtype": dtype, "max_abs_err": err, "ok": ok,
+        "dtype": dtype, "max_abs_err": err, "max_rel_err": rel, "ok": ok,
         "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal)),
         "plain_ms": time_ms(
             lambda: flash_attention_ref(q, k, v, causal=causal)),
@@ -238,14 +305,44 @@ def phase_kernels():
         print(f"flash_attention B={r['B']} S={r['S']} H={r['H']} "
               f"KV={r['KV']} hd={r['hd']} {r['dtype']} "
               f"{'causal' if r['causal'] else 'full'}: "
-              f"max_abs_err={r['max_abs_err']:.3e} ok={r['ok']} "
+              f"max_abs_err={r['max_abs_err']:.3e}"
+              + ("" if r["max_rel_err"] is None else
+                 f" (of sum p|v|: {r['max_rel_err']:.3e})")
+              + f" ok={r['ok']} "
               f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
               f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
               f"library_ms={r['library_ms']:.4f}", flush=True)
     bad = [r for r in results if not r["ok"]]
     check(not bad, f"flash_attention disagrees with its plain version in "
                    f"{len(bad)} case(s): {bad}")
-    return results
+    return {"sweep": results, "cold": _flash_cold(gen)}
+
+
+def _flash_cold(gen):
+    """The bf16 kernel and SDPA at the serving geometry with a cold L2."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    out = {}
+    for S in (48, 512):
+        nbytes = sum(t.numel() * 2 for t in _flash_inputs(S, gen))
+
+        def kern():
+            q, k, v = _flash_inputs(S, gen)
+            return lambda: flash_attention(q, k, v, causal=True)
+
+        def lib():
+            q, k, v = _flash_inputs(S, gen)
+            qs = q.transpose(1, 2)
+            ks, vs = (t.repeat_interleave(16, dim=2).transpose(1, 2)
+                      for t in (k, v))
+            return lambda: F.scaled_dot_product_attention(qs, ks, vs,
+                                                          is_causal=True)
+        out[S] = {"cold_ms": cold_ms(kern, nbytes),
+                  "library_cold_ms": cold_ms(lib, nbytes)}
+        print(f"flash_attention bf16 B=4 S={S} causal, cold L2: ms="
+              f"{out[S]['cold_ms']:.4f} library_ms="
+              f"{out[S]['library_cold_ms']:.4f}", flush=True)
+    return out
 
 
 def phase_serve():
@@ -458,15 +555,16 @@ def _held(got, want, tol):
 
 def _phantom_case(M, K, N, PK, dtype, gen):
     """The three phantom kernels on one (M, K, N, PK): the forward
-    z = x.L + g.D, the dgrad dz.[L;D]^T and the wgrad [x|g]^T.dz.  For
-    the forward and the dgrad also their launch plan (splits per output
-    tile, 16-byte or masked copies) and whether a second launch on the
-    same inputs gives the same bits."""
+    z = x.L + g.D, the dgrad dz.[L;D]^T and the wgrad [x|g]^T.dz, each
+    with its launch plan (forward and dgrad: splits per output tile;
+    wgrad: persistent grid and rounds of tiles; 16-byte or masked
+    copies) and whether a second launch on the same inputs gives the
+    same bits."""
     import torch
     from repro_torch.kernels.phantom_fused import (dgrad_plan, forward_plan,
                                                    matmul_nt, matmul_tn,
                                                    phantom_fused_matmul,
-                                                   resident_table)
+                                                   resident_table, tn_plan)
     from repro_torch.kernels.ref import (matmul_nt_ref, matmul_tn_ref,
                                          phantom_fused_ref)
     dt = getattr(torch, dtype)
@@ -496,7 +594,8 @@ def _phantom_case(M, K, N, PK, dtype, gen):
             lambda: torch.mm(xgt, dz), (M * J + M * N + J * N) * es),
     }
     plans = {"phantom_fused_matmul": forward_plan(x, L, g, D),
-             "matmul_nt": dgrad_plan(dz, L, D)}
+             "matmul_nt": dgrad_plan(dz, L, D),
+             "matmul_tn": tn_plan(x, dz, g)}
     out = []
     for name, (kern, plain, lib, nbytes) in calls.items():
         got = kern()
@@ -508,48 +607,59 @@ def _phantom_case(M, K, N, PK, dtype, gen):
              "ms": time_ms(kern), "plain_ms": time_ms(plain),
              "library_ms": time_ms(lib), "bound_ms": bound,
              "bound_by": bound_by}
-        if name in plans:
-            plan = plans[name]
-            r.update(splits=plan.splits, variant=plan.variant,
+        plan = plans[name]
+        if name == "matmul_tn":
+            r.update(tiles=plan.tiles, grid=plan.grid, rounds=plan.rounds,
+                     resident_blocks=plan.resident)
+        else:
+            r.update(splits=plan.splits,
                      clusters=plan.grid[0] * plan.grid[1] // plan.splits,
                      resident_clusters=resident_table(
-                         0, plan.dgrad, plan.esize)[plan.splits],
-                     bitwise=bool(torch.equal(got, kern())))
-            r["ok"] = ok and r["bitwise"]
+                         0, plan.dgrad, plan.esize)[plan.splits])
+        r.update(variant=plan.variant, bitwise=bool(torch.equal(got, kern())))
+        r["ok"] = ok and r["bitwise"]
         out.append(r)
     return out
 
 
-def _phantom_cold(M, K, N, PK, gen, sets=4):
-    """Forward and dgrad at one shape with a cold L2: ``sets`` operand
-    sets taken in turn, so each call finds its operands evicted by the
-    others' (4 x 16.8 MB of L in float32 against the 50 MB L2).  The
-    library call gets the same treatment."""
+def _phantom_cold(M, K, N, PK, gen):
+    """The three kernels and their library calls at one shape, float32,
+    with a cold L2 (``cold_ms``: enough operand sets in turn that each
+    call finds its inputs evicted)."""
     import torch
-    from repro_torch.kernels.phantom_fused import (matmul_nt,
+    from repro_torch.kernels.phantom_fused import (matmul_nt, matmul_tn,
                                                    phantom_fused_matmul)
 
     def r(*shape):
         return torch.randn(*shape, device="cuda", generator=gen) * 0.3
-    ops = [(r(M, K), r(K, N), r(M, PK), r(PK, N), r(M, N))
-           for _ in range(sets)]
-    cat = [(torch.cat([x, g], 1), torch.cat([L, D]), dz)
-           for x, L, g, D, dz in ops]
-    out = {
-        "phantom_fused_matmul": {
-            "cold_ms": time_ms([lambda o=o: phantom_fused_matmul(*o[:4])
-                                for o in ops]),
-            "library_cold_ms": time_ms([lambda c=c: torch.mm(c[0], c[1])
-                                        for c in cat])},
-        "matmul_nt": {
-            "cold_ms": time_ms([lambda o=o: matmul_nt(o[4], o[1], o[3])
-                                for o in ops]),
-            "library_cold_ms": time_ms([lambda c=c: torch.mm(c[2], c[1].t())
-                                        for c in cat])}}
-    for name, t in out.items():
-        print(f"{name} M={M} K={K} N={N} PK={PK} float32, cold L2 "
-              f"({sets} operand sets in turn): ms={t['cold_ms']:.4f} "
-              f"library_ms={t['library_cold_ms']:.4f}", flush=True)
+
+    def ops():
+        return r(M, K), r(K, N), r(M, PK), r(PK, N), r(M, N)
+    calls = {   # kernel, library, input bytes
+        "phantom_fused_matmul": (
+            lambda x, L, g, D, dz: lambda: phantom_fused_matmul(x, L, g, D),
+            lambda x, L, g, D, dz: (lambda a, b: lambda: torch.mm(a, b))(
+                torch.cat([x, g], 1), torch.cat([L, D])),
+            4 * (M * (K + PK) + (K + PK) * N)),
+        "matmul_nt": (
+            lambda x, L, g, D, dz: lambda: matmul_nt(dz, L, D),
+            lambda x, L, g, D, dz: (lambda b: lambda: torch.mm(dz, b.t()))(
+                torch.cat([L, D])),
+            4 * (M * N + (K + PK) * N)),
+        "matmul_tn": (
+            lambda x, L, g, D, dz: lambda: matmul_tn(x, dz, g),
+            lambda x, L, g, D, dz: (lambda a: lambda: torch.mm(a.t(), dz))(
+                torch.cat([x, g], 1)),
+            4 * (M * (K + PK) + M * N)),
+    }
+    out = {}
+    for name, (kern, lib, nbytes) in calls.items():
+        out[name] = {
+            "cold_ms": cold_ms(lambda: kern(*ops()), nbytes),
+            "library_cold_ms": cold_ms(lambda: lib(*ops()), nbytes)}
+        print(f"{name} M={M} K={K} N={N} PK={PK} float32, cold L2: "
+              f"ms={out[name]['cold_ms']:.4f} "
+              f"library_ms={out[name]['library_cold_ms']:.4f}", flush=True)
     return out
 
 
@@ -589,17 +699,21 @@ def _phantom_grads(gen):
 
 def phase_phantom_kernels():
     import torch
-    from repro_torch.kernels.phantom_fused import resident_table
+    from repro_torch.kernels.phantom_fused import (resident_table,
+                                                   wgrad_resident)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
     for dtype in ("float32", "bfloat16"):
         for shape in PHANTOM_SHAPES + [PHANTOM_MAIN]:
             for r in _phantom_case(*shape, dtype, gen):
                 results.append(r)
-                plan = (f" splits={r['splits']} {r['variant']} clusters="
-                        f"{r['clusters']} (resident at once: "
-                        f"{r['resident_clusters']}) bitwise={r['bitwise']}"
-                        if "splits" in r else "")
+                plan = (f" splits={r['splits']} clusters={r['clusters']} "
+                        f"(resident at once: {r['resident_clusters']})"
+                        if "splits" in r else
+                        f" tiles={r['tiles']} grid={r['grid']} rounds="
+                        f"{r['rounds']} (resident at once: "
+                        f"{r['resident_blocks']})")
+                plan += f" {r['variant']} bitwise={r['bitwise']}"
                 print(f"{r['kernel']} M={r['M']} K={r['K']} N={r['N']} "
                       f"PK={r['PK']} {dtype}: max_abs_err="
                       f"{r['max_abs_err']:.3e} ok={r['ok']}{plan} "
@@ -610,7 +724,7 @@ def phase_phantom_kernels():
     bad = [r for r in results + grads if not r["ok"]]
     check(not bad, f"phantom kernels disagree with their plain versions or "
                    f"with themselves in {len(bad)} case(s): {bad}")
-    for name in ("phantom_fused_matmul", "matmul_nt"):
+    for name in ("phantom_fused_matmul", "matmul_nt", "matmul_tn"):
         seen = {r["variant"] for r in results if r["kernel"] == name}
         check(seen == {"vec16", "masked"},
               f"{name}: the sweep ran variants {seen}, not both")
@@ -620,8 +734,12 @@ def phase_phantom_kernels():
     print(f"split-contraction kernel, clusters of S blocks resident at "
           f"once, by S (forward/dgrad, float32 = 4, bfloat16 = 2): "
           f"{resident}", flush=True)
+    wgrad = {f"{es}_{v}": wgrad_resident(0, es, v)
+             for es in (4, 2) for v in ("vec16", "masked")}
+    print(f"wgrad kernel, blocks resident at once (element size_variant): "
+          f"{wgrad}", flush=True)
     return {"sweep": results, "grads": grads, "cold": cold,
-            "resident_clusters": resident}
+            "resident_clusters": resident, "wgrad_resident_blocks": wgrad}
 
 
 def _adamw_step1(params, grads, lr, eps):
@@ -893,23 +1011,27 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     device = phase_device()
-    sweep = phase_kernels()
+    flash = phase_kernels()
     phantom = phase_phantom_kernels()
     serve = phase_serve()
     train = phase_train()
 
-    main_case = next(r for r in sweep
-                     if all(r[k] == v for k, v in MAIN_SHAPE.items()))
+    sweep = flash["sweep"]
+    at = {S: next(r for r in sweep if all(
+        r[k] == v for k, v in {**MAIN_SHAPE, "S": S}.items()))
+        for S in (48, 512)}
     kernels = [{
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:96",
         "launches": serve["launches"],
         "max_abs_err": max(r["max_abs_err"] for r in sweep),
-        "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"]}]
+        **{key: at[48][key] for key in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+        "cold_ms": flash["cold"][48]["cold_ms"],
+        "s512": {**{key: at[512][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "cold_ms": flash["cold"][512]["cold_ms"]}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -923,11 +1045,12 @@ def main() -> int:
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_r["ms"], "plain_ms": main_r["plain_ms"],
             "bound_ms": main_r["bound_ms"], "bound_by": main_r["bound_by"],
-            "library_ms": main_r["library_ms"]})
+            "library_ms": main_r["library_ms"],
+            "cold_ms": phantom["cold"][name]["cold_ms"]})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
-        {"device": device, "sweep": sweep, "phantom": phantom,
+        {"device": device, "flash": flash, "phantom": phantom,
          "serve": serve, "train": train, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

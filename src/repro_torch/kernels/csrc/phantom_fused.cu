@@ -64,23 +64,40 @@
 // dgrad reads [L;D] through two pointers; ragged edges are masked (zero
 // fill), nothing is padded or concatenated in device memory.
 //
-// The wgrad ([x|g]^T.dz, output [2176, 2048], contraction 64) has 4352
-// output tiles and runs through gemm_kernel: one block of 128 threads per
-// 32x32 tile, 2x4 outputs a thread, 32-wide slabs staged k-major in shared
-// memory (pitches 33 and 36), the next slab fetched into registers while
-// the current one is multiplied; [x | g] is read through two pointers.
+// The wgrad ([x|g]^T.dz, output [2176, 2048], contraction 64: 285 M FMAs,
+// 8.5 us at 67 TFLOP/s; the output alone is 17.8 MB in fp32, 5.3 us at
+// 3.35 TB/s) runs through tn_kernel.  A one-block-per-32x32-tile GEMM held
+// it at 4.8x the bound: 4352 blocks that each lived for two slabs, 2.7
+// FMAs per shared load, element-wise slab fetches through registers and
+// scalar 4-byte stores.  This design:
+//   * both operands are k-major in device memory ([k][i], [k][n]), so
+//     16-byte cp.async.cg copies put 16-deep slabs straight into the layout
+//     the outer product reads, in a ring of 4 slabs in dynamic shared
+//     memory (32 KB fp32): at M = 64 the whole contraction of a tile is in
+//     flight at once;
+//   * 64x64 output tiles per block of 256 threads, a 4x4 fp32 register tile
+//     per thread: per step of k a thread reads 4 A and 4 B values as two
+//     vectors (fp32 float4, bf16 8 bytes converted on the read) for 16 FMAs;
+//   * stores are 16 bytes a thread (bf16: 8), row-contiguous, 256 bytes
+//     per 16 threads and row;
+//   * a persistent grid of one block per block the card holds at once
+//     (wgrad_plan in the wrapper, from the card's
+//     cudaOccupancyMaxActiveBlocksPerMultiprocessor: 528 on the H100 for
+//     the 16-byte variant), tiles round-robin.  The main shape's 1088
+//     tiles take two full rounds and a third of 32 tiles.  128x128 tiles
+//     with an 8x8 thread tile, whose 272 tiles filled one round of 264
+//     with the 8 left over cut into strips, were 1.5% faster in fp32 (12%
+//     in bf16) on the H100 (PERF.md, PR 14), within the spread of either
+//     over repeated runs, so the one small tile stays.
+// [x | g] is read through two pointers; the contraction is never split, so
+// every launch gives the same bits.  Unaligned operands take the masked
+// variant (element-wise loads and stores), as for splitk_kernel.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int TILE = 32;        // BM = BN = BK
-constexpr int NT = 128;         // threads: 16 row groups x 8 column groups
-constexpr int PER_THREAD = TILE * TILE / NT;   // slab elements each loads
-constexpr int AP = TILE + 1;    // pitch of the k-major A slab
-constexpr int BP = TILE + 4;    // pitch of the k-major B slab
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -119,125 +136,97 @@ struct Plan {
   int nseg;
 };
 
-struct __align__(16) Slab {
-  float a[TILE][AP];  // a[k][r]
-  float b[TILE][BP];  // b[k][c]
-};
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int n = valid ? 16 : 0;   // 0: no read, the 16 bytes are zero-filled
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(n));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
-// Global -> registers: this thread's PER_THREAD elements of the slab at
-// (r0, k0).  Consecutive threads walk the contiguous axis of the source.
-template <typename T, bool KFAST>
-__device__ __forceinline__ void fetch(const Operand<T>& op, int r0, int k0,
-                                      int kn, int tid, float v[PER_THREAD]) {
+// Four consecutive elements of shared memory as fp32.
+__device__ __forceinline__ void load4(const float* p, float v[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&q.y));
+  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
+}
+
+// One operand's part of a slab into shared memory, copied by THREADS
+// threads: R rows (of C's rows or columns) by BK of the contraction,
+// starting at (r0, k0).  KFAST: the contraction is contiguous in device
+// memory and in `dst` (dst[r * P + k]); else the rows are (dst[k * P + r]).
+// Outside rows < op.rows, k < kn the slab is zero.  VEC: 16-byte cp.async
+// copies (the wrapper checked that every row pitch, contiguous width and
+// base is a multiple of 16 bytes); else element-wise: 4-byte cp.async for
+// fp32, loads through registers for bf16 (cp.async has no 2-byte copy).
+template <typename T, bool KFAST, bool VEC, int R, int P, int BK,
+          int THREADS>
+__device__ __forceinline__ void load_part(const Operand<T>& op, int r0,
+                                          int k0, int kn, T* dst, int tid) {
+  constexpr int OUTER = KFAST ? R : BK;   // rows of the slab in `dst`
+  constexpr int INNER = KFAST ? BK : R;   // contiguous elements of each
+  if constexpr (VEC) {
+    constexpr int V = 16 / sizeof(T), CH = INNER / V, NC = OUTER * CH;
+    static_assert(NC % THREADS == 0 || NC < THREADS, "copies per thread");
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int e = tid + NT * i;
-    const int r = KFAST ? e / TILE : e % TILE;
-    const int k = KFAST ? e % TILE : e / TILE;
-    const int gr = r0 + r, gk = k0 + k;
-    float x = 0.f;
-    if (gr < op.rows && gk < kn) {
-      const T* p = gr < op.split ? op.p0 : op.p1;
-      const long long ld = gr < op.split ? op.ld0 : op.ld1;
-      const long long rr = gr < op.split ? gr : gr - op.split;
-      x = to_float(KFAST ? p[rr * ld + gk] : p[(long long)gk * ld + rr]);
+    for (int t = 0; t < (NC + THREADS - 1) / THREADS; ++t) {
+      const int c = tid + THREADS * t, o = c / CH, i = (c % CH) * V;
+      if (NC < THREADS && c >= NC) break;
+      const int r = r0 + (KFAST ? o : i), k = k0 + (KFAST ? i : o);
+      const bool ok = r < op.rows && k < kn;
+      const T* src = op.p0;
+      if (ok) {
+        const bool lo = r < op.split;
+        const T* p = lo ? op.p0 : op.p1;
+        const long long ld = lo ? op.ld0 : op.ld1;
+        const long long rr = lo ? r : r - op.split;
+        src = KFAST ? p + rr * ld + k : p + (long long)k * ld + rr;
+      }
+      cp_async16(dst + o * P + i, src, ok);
     }
-    v[i] = x;
-  }
-}
-
-// Registers -> shared memory, k-major, in fetch's element order.
-template <bool KFAST>
-__device__ __forceinline__ void put(float* base, int pitch, int tid,
-                                    const float v[PER_THREAD]) {
+  } else {
+    constexpr int NE = OUTER * INNER;
+    static_assert(NE % THREADS == 0 || NE < THREADS, "elements per thread");
 #pragma unroll
-  for (int i = 0; i < PER_THREAD; ++i) {
-    const int e = tid + NT * i;
-    const int r = KFAST ? e / TILE : e % TILE;
-    const int k = KFAST ? e % TILE : e / TILE;
-    base[k * pitch + r] = v[i];
-  }
-}
-
-template <typename T, bool A_KFAST, bool B_KFAST>
-__device__ __forceinline__ void fetch_slab(const Segment<T>& s, int r0,
-                                           int c0, int k0, int tid,
-                                           float va[PER_THREAD],
-                                           float vb[PER_THREAD]) {
-  fetch<T, A_KFAST>(s.a, r0, k0, s.kn, tid, va);
-  fetch<T, B_KFAST>(s.b, c0, k0, s.kn, tid, vb);
-}
-
-template <typename T>
-__device__ __forceinline__ void skip_done(const Plan<T>& plan, int& seg,
-                                          int& k0) {
-  while (seg < plan.nseg && k0 >= plan.seg[seg].kn) {
-    ++seg;
-    k0 = 0;
-  }
-}
-
-// C[M, N] (row-major, ldc) = sum over the plan's segments of A . B.
-template <typename T, bool A_KFAST, bool B_KFAST>
-__global__ void __launch_bounds__(NT)
-gemm_kernel(const Plan<T> plan, T* __restrict__ c, long long ldc, int M,
-            int N) {
-  __shared__ Slab s;
-  const int tid = threadIdx.x, ty = tid / 8, tx = tid % 8;
-  const int r0 = blockIdx.y * TILE, c0 = blockIdx.x * TILE;
-  float acc[2][4] = {};
-  float va[PER_THREAD], vb[PER_THREAD];
-
-  int seg = 0, k0 = 0;
-  skip_done(plan, seg, k0);
-  if (seg < plan.nseg)
-    fetch_slab<T, A_KFAST, B_KFAST>(plan.seg[seg], r0, c0, k0, tid, va, vb);
-  while (seg < plan.nseg) {
-    put<A_KFAST>(&s.a[0][0], AP, tid, va);
-    put<B_KFAST>(&s.b[0][0], BP, tid, vb);
-    __syncthreads();
-    k0 += TILE;
-    skip_done(plan, seg, k0);
-    if (seg < plan.nseg)   // the next slab's loads overlap this slab's FMAs
-      fetch_slab<T, A_KFAST, B_KFAST>(plan.seg[seg], r0, c0, k0, tid, va,
-                                      vb);
-#pragma unroll 8
-    for (int k = 0; k < TILE; ++k) {
-      const float a0 = s.a[k][ty * 2], a1 = s.a[k][ty * 2 + 1];
-      const float4 b = *reinterpret_cast<const float4*>(&s.b[k][tx * 4]);
-      acc[0][0] = fmaf(a0, b.x, acc[0][0]);
-      acc[0][1] = fmaf(a0, b.y, acc[0][1]);
-      acc[0][2] = fmaf(a0, b.z, acc[0][2]);
-      acc[0][3] = fmaf(a0, b.w, acc[0][3]);
-      acc[1][0] = fmaf(a1, b.x, acc[1][0]);
-      acc[1][1] = fmaf(a1, b.y, acc[1][1]);
-      acc[1][2] = fmaf(a1, b.z, acc[1][2]);
-      acc[1][3] = fmaf(a1, b.w, acc[1][3]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + ty * 2 + i;
-    if (row >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = c0 + tx * 4 + j;
-      if (col < N) c[(long long)row * ldc + col] = from_float<T>(acc[i][j]);
+    for (int t = 0; t < (NE + THREADS - 1) / THREADS; ++t) {
+      const int e = tid + THREADS * t, o = e / INNER, i = e % INNER;
+      if (NE < THREADS && e >= NE) break;
+      const int r = r0 + (KFAST ? o : i), k = k0 + (KFAST ? i : o);
+      const bool ok = r < op.rows && k < kn;
+      const T* src = op.p0;
+      if (ok) {
+        const bool lo = r < op.split;
+        const T* p = lo ? op.p0 : op.p1;
+        const long long ld = lo ? op.ld0 : op.ld1;
+        const long long rr = lo ? r : r - op.split;
+        src = KFAST ? p + rr * ld + k : p + (long long)k * ld + rr;
+      }
+      if constexpr (sizeof(T) == 4)
+        cp_async4(dst + o * P + i, src, ok);   // in flight like the rest
+      else
+        dst[o * P + i] = ok ? *src : from_float<T>(0.f);
     }
   }
-}
-
-template <typename T, bool A_KFAST, bool B_KFAST>
-cudaError_t launch(const Plan<T>& plan, void* c, long long ldc, int M, int N,
-                   cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || (M + TILE - 1) / TILE > 65535)
-    return cudaErrorInvalidValue;
-  const dim3 grid((N + TILE - 1) / TILE, (M + TILE - 1) / TILE);
-  gemm_kernel<T, A_KFAST, B_KFAST>
-      <<<grid, NT, 0, stream>>>(plan, static_cast<T*>(c), ldc, M, N);
-  return cudaGetLastError();
 }
 
 // ---- splitk_kernel: the forward and the dgrad --------------------------
@@ -272,35 +261,6 @@ struct Layout {
       RING_BYTES > PARTIAL_BYTES ? RING_BYTES : PARTIAL_BYTES;
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? 16 : 0;   // 0: no read, the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Four consecutive elements of shared memory as fp32.
-__device__ __forceinline__ void load4(const float* p, float v[4]) {
-  const float4 q = *reinterpret_cast<const float4*>(p);
-  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float v[4]) {
-  const uint2 q = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&q.x));
-  const float2 hi = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&q.y));
-  v[0] = lo.x; v[1] = lo.y; v[2] = hi.x; v[3] = hi.y;
-}
-
 // Column j of thread column group tx.  B_KFAST: tx + CG j, so a
 // quarter-warp reads 8 rows of pitch BK + 4 words on disjoint banks; else
 // runs of 4 (one 16-byte read each), tx * 4 + 4 CG (j / 4) + j % 4.
@@ -309,63 +269,15 @@ __device__ __forceinline__ int col_of(int tx, int j) {
   return B_KFAST ? tx + CG * j : tx * 4 + 4 * CG * (j / 4) + j % 4;
 }
 
-// One operand's part of a slab into shared memory: R rows (of C's rows or
-// columns) by BK of the contraction, starting at (r0, k0).  KFAST: the
-// contraction is contiguous in device memory and in `dst` (dst[r * P + k]);
-// else the rows are (dst[k * P + r]).  Outside rows < op.rows, k < kn the
-// slab is zero.  VEC: 16-byte cp.async copies (the wrapper checked that
-// every row pitch, contiguous width and base is a multiple of 16 bytes);
-// else element-wise loads through registers.
-template <typename T, bool KFAST, bool VEC, int R, int P>
-__device__ __forceinline__ void load_part(const Operand<T>& op, int r0,
-                                          int k0, int kn, T* dst, int tid) {
-  constexpr int OUTER = KFAST ? R : BK;   // rows of the slab in `dst`
-  constexpr int INNER = KFAST ? BK : R;   // contiguous elements of each
-  if constexpr (VEC) {
-    constexpr int V = 16 / sizeof(T), CH = INNER / V;
-    static_assert(OUTER * CH % THREADS == 0, "copies per thread");
-#pragma unroll
-    for (int t = 0; t < OUTER * CH / THREADS; ++t) {
-      const int c = tid + THREADS * t, o = c / CH, i = (c % CH) * V;
-      const int r = r0 + (KFAST ? o : i), k = k0 + (KFAST ? i : o);
-      const bool ok = r < op.rows && k < kn;
-      const T* src = op.p0;
-      if (ok) {
-        const bool lo = r < op.split;
-        const T* p = lo ? op.p0 : op.p1;
-        const long long ld = lo ? op.ld0 : op.ld1;
-        const long long rr = lo ? r : r - op.split;
-        src = KFAST ? p + rr * ld + k : p + (long long)k * ld + rr;
-      }
-      cp_async16(dst + o * P + i, src, ok);
-    }
-  } else {
-    static_assert(OUTER * INNER % THREADS == 0, "elements per thread");
-#pragma unroll
-    for (int t = 0; t < OUTER * INNER / THREADS; ++t) {
-      const int e = tid + THREADS * t, o = e / INNER, i = e % INNER;
-      const int r = r0 + (KFAST ? o : i), k = k0 + (KFAST ? i : o);
-      T v = from_float<T>(0.f);
-      if (r < op.rows && k < kn) {
-        const bool lo = r < op.split;
-        const T* p = lo ? op.p0 : op.p1;
-        const long long ld = lo ? op.ld0 : op.ld1;
-        const long long rr = lo ? r : r - op.split;
-        v = KFAST ? p[rr * ld + k] : p[(long long)k * ld + rr];
-      }
-      dst[o * P + i] = v;
-    }
-  }
-}
-
 template <typename T, bool B_KFAST, bool VEC>
 __device__ __forceinline__ void load_slab(const Segment<T>& sg, int r0,
                                           int c0, int k0, T* stage,
                                           int tid) {
   using L = Layout<T, B_KFAST>;
-  load_part<T, true, VEC, BM, L::PA>(sg.a, r0, k0, sg.kn, stage, tid);
-  load_part<T, B_KFAST, VEC, BN, L::PB>(sg.b, c0, k0, sg.kn,
-                                        stage + L::A_ELEMS, tid);
+  load_part<T, true, VEC, BM, L::PA, BK, THREADS>(sg.a, r0, k0, sg.kn,
+                                                  stage, tid);
+  load_part<T, B_KFAST, VEC, BN, L::PB, BK, THREADS>(
+      sg.b, c0, k0, sg.kn, stage + L::A_ELEMS, tid);
 }
 
 // C[M, N] (row-major, ldc) = sum over the plan's segments of A . B, A with
@@ -532,6 +444,147 @@ cudaError_t launch_splitk(const Plan<T>& plan, void* c, long long ldc, int M,
 
 }  // namespace sk
 
+// ---- tn_kernel: the wgrad -----------------------------------------------
+
+namespace tn {
+
+constexpr int BM = 64;          // output rows (i) of a tile
+constexpr int BN = 64;          // output columns (n) of a tile
+constexpr int BK = 16;          // contraction slab
+constexpr int STAGES = 4;       // slabs in the cp.async ring
+constexpr int THREADS = 256;    // 16 x 16 threads, a 4 x 4 tile each
+
+// Shared memory of one block, in T: a ring of STAGES slabs, each A as BK
+// rows of BM (a[k][i]) and B as BK rows of BN (b[k][n]), unpadded: a warp
+// reads A as broadcasts and B as 128 (bf16: 64) contiguous bytes.
+template <typename T>
+struct Layout {
+  static constexpr int A_ELEMS = BK * BM;
+  static constexpr int STAGE_ELEMS = BK * (BM + BN);
+  static constexpr int SMEM_BYTES = STAGES * STAGE_ELEMS * (int)sizeof(T);
+};
+
+// 4 consecutive outputs as one store: fp32 16 bytes, bf16 8 bytes.
+__device__ __forceinline__ void store4(float* p, const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float* v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&lo),
+                 *reinterpret_cast<const unsigned*>(&hi));
+}
+
+// C[M, N] (row-major, ldc) = A^T . B over one contraction, A and B k-major,
+// in BM x BN tiles.  Persistent: block p takes tiles p, p + gridDim.x, ...
+// (row-major over tiles_n columns of tiles).  Per tile, the contraction
+// goes through the ring: slab i + STAGES - 1 is copied while slab i is
+// multiplied; thread (ty, tx) owns rows 4 ty .. 4 ty + 3 and columns
+// 4 tx .. 4 tx + 3 of the tile.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(THREADS, 2)
+tn_kernel(const Segment<T> sg, T* __restrict__ c, long long ldc, int M,
+          int N, int tiles, int tiles_n) {
+  using L = Layout<T>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int ns = (sg.kn + BK - 1) / BK;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int r0 = (t / tiles_n) * BM, c0 = (t % tiles_n) * BN;
+    auto load = [&](int i) {
+      T* stage = ring + (i % STAGES) * L::STAGE_ELEMS;
+      load_part<T, false, VEC, BM, BM, BK, THREADS>(sg.a, r0, i * BK, sg.kn,
+                                                    stage, tid);
+      load_part<T, false, VEC, BN, BN, BK, THREADS>(sg.b, c0, i * BK, sg.kn,
+                                                    stage + L::A_ELEMS, tid);
+    };
+    float acc[4][4] = {};
+#pragma unroll
+    for (int i = 0; i < STAGES - 1; ++i) {
+      if (i < ns) load(i);
+      cp_async_commit();
+    }
+    for (int i = 0; i < ns; ++i) {
+      cp_async_wait<STAGES - 2>();
+      __syncthreads();   // slab i landed for every thread; i - 1 is free
+      if (i + STAGES - 1 < ns) load(i + STAGES - 1);
+      cp_async_commit();
+      const T* As = ring + (i % STAGES) * L::STAGE_ELEMS;
+      const T* Bs = As + L::A_ELEMS;
+#pragma unroll
+      for (int k = 0; k < BK; ++k) {
+        float a[4], b[4];
+        load4(As + k * BM + ty * 4, a);
+        load4(Bs + k * BN + tx * 4, b);
+#pragma unroll
+        for (int y = 0; y < 4; ++y)
+#pragma unroll
+          for (int x = 0; x < 4; ++x) acc[y][x] = fmaf(a[y], b[x], acc[y][x]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // every thread past its reads: the ring is free
+
+    const int col = c0 + tx * 4;
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const int row = r0 + ty * 4 + y;
+      if (row >= M) continue;
+      T* out = c + (long long)row * ldc + col;
+      if constexpr (VEC) {
+        if (col < N) store4(out, acc[y]);   // N % 4 == 0: all or none
+      } else {
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          if (col + x < N) out[x] = from_float<T>(acc[y][x]);
+      }
+    }
+  }
+}
+
+template <typename T, bool VEC>
+cudaError_t prepare() {
+  return cudaFuncSetAttribute(tn_kernel<T, VEC>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Layout<T>::SMEM_BYTES);
+}
+
+// The wrapper's plan (phantom_fused.py: wgrad_plan) chose the grid and the
+// variant; its shared-memory bytes must be this layout's.
+template <typename T>
+cudaError_t launch_tn(const Segment<T>& sg, void* c, long long ldc, int M,
+                      int N, int grid, int vec16, int smem,
+                      cudaStream_t stream) {
+  const int tiles_n = (N + BN - 1) / BN;
+  const long long tiles = (long long)((M + BM - 1) / BM) * tiles_n;
+  if (M <= 0 || N <= 0 || tiles > 0x7fffffff || grid < 1 ||
+      smem != Layout<T>::SMEM_BYTES)
+    return cudaErrorInvalidValue;
+  T* out = static_cast<T*>(c);
+  cudaError_t err = vec16 ? prepare<T, true>() : prepare<T, false>();
+  if (err != cudaSuccess) return err;
+  if (vec16)
+    tn_kernel<T, true><<<grid, THREADS, smem, stream>>>(sg, out, ldc, M, N,
+                                                        (int)tiles, tiles_n);
+  else
+    tn_kernel<T, false><<<grid, THREADS, smem, stream>>>(sg, out, ldc, M, N,
+                                                         (int)tiles, tiles_n);
+  return cudaGetLastError();
+}
+
+// Blocks of the kernel one SM holds at once.
+template <typename T, bool VEC>
+cudaError_t blocks_per_sm(int* out) {
+  cudaError_t err = prepare<T, VEC>();
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      out, tn_kernel<T, VEC>, THREADS, Layout<T>::SMEM_BYTES);
+}
+
+}  // namespace tn
+
 template <typename T>
 Operand<T> one(const void* p, long long ld, int rows) {
   const T* q = static_cast<const T*>(p);
@@ -577,15 +630,14 @@ cudaError_t nt(const void* a, const void* b0, const void* b1, void* c, int M,
 }
 
 template <typename T>
-cudaError_t tn(const void* a0, const void* a1, const void* b, void* c, int M,
-               int I0, int I1, int N, long long lda0, long long lda1,
-               long long ldb, long long ldc, cudaStream_t stream) {
-  Plan<T> plan{};
+cudaError_t tn_host(const void* a0, const void* a1, const void* b, void* c,
+                    int M, int I0, int I1, int N, long long lda0,
+                    long long lda1, long long ldb, long long ldc, int grid,
+                    int vec16, int smem, cudaStream_t stream) {
   // A rows i = columns of [a0 | a1] [M, I] (i contiguous); B = b [M, N]
-  plan.seg[0] = Segment<T>{two<T>(a0, lda0, I0, a1, lda1, I1),
-                           one<T>(b, ldb, N), M};
-  plan.nseg = 1;
-  return launch<T, false, false>(plan, c, ldc, I0 + I1, N, stream);
+  const Segment<T> sg{two<T>(a0, lda0, I0, a1, lda1, I1), one<T>(b, ldb, N),
+                      M};
+  return tn::launch_tn<T>(sg, c, ldc, I0 + I1, N, grid, vec16, smem, stream);
 }
 
 }  // namespace
@@ -649,16 +701,32 @@ extern "C" int repro_matmul_nt(const void* a, const void* b0, const void* b1,
   return cudaErrorInvalidValue;
 }
 
-// c[I0 + I1, N] = [a0 | a1]^T . b[M, N]  (a0 [M, I0], a1 [M, I1] or null)
+// c[I0 + I1, N] = [a0 | a1]^T . b[M, N]  (a0 [M, I0], a1 [M, I1] or null),
+// on the wrapper's plan: `grid` persistent blocks.
 extern "C" int repro_matmul_tn(const void* a0, const void* a1, const void* b,
                                void* c, int M, int I0, int I1, int N,
                                long long lda0, long long lda1, long long ldb,
-                               long long ldc, int dtype, void* stream) {
+                               long long ldc, int dtype, int grid, int vec16,
+                               int smem, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return tn<float>(a0, a1, b, c, M, I0, I1, N, lda0, lda1, ldb, ldc, st);
+    return tn_host<float>(a0, a1, b, c, M, I0, I1, N, lda0, lda1, ldb, ldc,
+                          grid, vec16, smem, st);
   if (dtype == 1)
-    return tn<__nv_bfloat16>(a0, a1, b, c, M, I0, I1, N, lda0, lda1, ldb,
-                             ldc, st);
+    return tn_host<__nv_bfloat16>(a0, a1, b, c, M, I0, I1, N, lda0, lda1,
+                                  ldb, ldc, grid, vec16, smem, st);
+  return cudaErrorInvalidValue;
+}
+
+// Blocks of the wgrad kernel one SM holds at once
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor) on the current card.
+extern "C" int repro_matmul_tn_blocks_per_sm(int dtype, int vec16,
+                                             int* out) {
+  if (dtype == 0)
+    return vec16 ? tn::blocks_per_sm<float, true>(out)
+                 : tn::blocks_per_sm<float, false>(out);
+  if (dtype == 1)
+    return vec16 ? tn::blocks_per_sm<__nv_bfloat16, true>(out)
+                 : tn::blocks_per_sm<__nv_bfloat16, false>(out);
   return cudaErrorInvalidValue;
 }

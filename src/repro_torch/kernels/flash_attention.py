@@ -4,7 +4,8 @@
 Replaces the JAX package's Pallas TPU kernel
 ``src/repro/kernels/flash_attention.py: flash_attention`` (body
 ``_kernel``).  The source's header says how the design maps the TPU
-kernel onto Hopper and what bounds it on the card.
+kernel onto Hopper and what bounds it on the card: bf16 runs on the
+tensor cores (``mma.sync``), float32 on the CUDA cores.
 
 The wrapper takes the plain version (``kernels/ref.py``) only for tensors
 that lie on the CPU.  A CUDA tensor launches the kernel or raises: a
@@ -14,6 +15,7 @@ never a switch to the plain version.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,6 +47,14 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _check_sm90(index: int) -> None:
+    if torch.cuda.get_device_capability(index) != (9, 0):
+        raise RuntimeError(
+            f"{torch.cuda.get_device_name(index)} is not sm_90; the "
+            f"kernel is built for Hopper (sm_90a) only")
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"want q [B,S,H,hd], k/v [B,S,KV,hd]; got "
@@ -68,14 +78,16 @@ def _check(q, k, v):
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the kernel takes contiguous [B,S,heads,hd] "
                          "tensors")
-    if torch.cuda.get_device_capability(q.device) != (9, 0):
-        raise RuntimeError(
-            f"{torch.cuda.get_device_name(q.device)} is not sm_90; the "
-            f"kernel is built for Hopper (sm_90a) only")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % 16
+                                         for t in (q, k, v)):
+        raise ValueError("the bf16 kernel copies 16-byte pieces: q, k and "
+                         "v must start on 16-byte boundaries")
+    _check_sm90(q.device.index if q.device.index is not None
+                else torch.cuda.current_device())
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise NotImplementedError("the flash kernel has no backward yet "
-                                  "(ROADMAP.md queue 2)")
+                                  "(ROADMAP.md queue 1, item 6)")
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

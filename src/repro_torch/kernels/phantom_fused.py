@@ -11,7 +11,8 @@ design maps them onto Hopper and what bounds them on the card.
 
 The forward and the dgrad run through one split-contraction kernel whose
 launch ``gemm_plan`` sets (splits per output tile, 16-byte or masked
-copies); the wgrad through a tiled GEMM of 32 x 32 tiles.
+copies); the wgrad through a persistent GEMM of 64 x 64 tiles whose grid
+``wgrad_plan`` sets (one block per block the card holds at once).
 
 Each wrapper checks shapes first (``KernelConfigError``, the reference's
 messages), then takes the plain version (``kernels/ref.py``) only for
@@ -44,6 +45,16 @@ MAX_SPLITS = 8               # blocks in a cluster (the portable limit)
 H100_RESIDENT_CLUSTERS = {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32,
                           8: 30}
 SMEM_BUDGET_BYTES = 232_448  # shared memory one H100 block may use (227 KB)
+# tn_kernel (the wgrad); the values must equal its namespace tn's constants
+WGRAD_BM, WGRAD_BN, WGRAD_BK = 64, 64, 16     # output tile, contraction slab
+WGRAD_STAGES = 4             # slabs in the cp.async ring
+# Blocks of tn_kernel one SM of an H100 SXM (132 SMs, 700 W) holds at
+# once, by (element size, variant)
+# (cudaOccupancyMaxActiveBlocksPerMultiprocessor, as chip_smoke.py prints
+# it): the CPU's stand-in for wgrad_resident().
+H100_SMS = 132
+H100_WGRAD_BLOCKS_PER_SM = {(4, "vec16"): 4, (4, "masked"): 2,
+                            (2, "vec16"): 4, (2, "masked"): 4}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -135,6 +146,45 @@ def gemm_plan(M: int, N: int, seg_lens: Sequence[int], b_kfast: bool,
                     SMEM_BYTES[(b_kfast, esize)], slabs, b_kfast, esize)
 
 
+def wgrad_smem_bytes(esize: int) -> int:
+    """Dynamic shared memory of one ``tn_kernel`` block: a ring of
+    ``WGRAD_STAGES`` slabs of A and B (``WGRAD_BK`` rows of a tile side
+    each) in the input dtype, unpadded."""
+    return WGRAD_STAGES * WGRAD_BK * (WGRAD_BM + WGRAD_BN) * esize
+
+
+@dataclass(frozen=True)
+class WgradPlan:
+    """How ``tn_kernel`` runs c[I, N] = [a | a2]^T . b: ``grid``
+    persistent blocks take its ``tiles_m x tiles_n`` tiles in turn."""
+    tiles_m: int
+    tiles_n: int
+    resident: int              # blocks the card holds at once
+    grid: int
+    variant: str               # "vec16" (16-byte copies) or "masked"
+    smem_bytes: int
+
+    @property
+    def tiles(self) -> int:
+        return self.tiles_m * self.tiles_n
+
+    @property
+    def rounds(self) -> int:
+        return -(-self.tiles // self.grid)
+
+
+def wgrad_plan(I: int, N: int, esize: int, vec16: bool,
+               resident: int) -> WgradPlan:
+    """The plan of the wgrad c[I, N] on a card that holds ``resident``
+    blocks of the kernel at once: one block per resident block (fewer if
+    there are fewer tiles), so every block the card runs is resident from
+    the start and no launch waits for a free SM."""
+    tiles_m, tiles_n = -(-I // WGRAD_BM), -(-N // WGRAD_BN)
+    return WgradPlan(tiles_m, tiles_n, resident,
+                     min(tiles_m * tiles_n, resident),
+                     "vec16" if vec16 else "masked", wgrad_smem_bytes(esize))
+
+
 def takes_16b(*ts) -> bool:
     """Whether every operand can be copied in 16-byte pieces: base, row
     pitch and contiguous width all multiples of 16 bytes."""
@@ -154,6 +204,17 @@ def _resident(dgrad: bool, t) -> Mapping[int, int]:
                           t.element_size())
 
 
+def _wgrad_resident(t, variant: str) -> int:
+    """Blocks of the wgrad kernel that ``t``'s card holds at once: queried
+    on the card, the H100's on the CPU."""
+    if t.device.type != "cuda":
+        return H100_SMS * H100_WGRAD_BLOCKS_PER_SM[(t.element_size(),
+                                                    variant)]
+    return wgrad_resident(t.device.index if t.device.index is not None
+                          else torch.cuda.current_device(),
+                          t.element_size(), variant)
+
+
 def forward_plan(x, L, g, D) -> GemmPlan:
     vec16 = takes_16b(x, L, g, D)
     return gemm_plan(x.shape[0], L.shape[1], (x.shape[1], g.shape[1]),
@@ -166,6 +227,15 @@ def dgrad_plan(a, *bs) -> GemmPlan:
                      _resident(True, a))
 
 
+def tn_plan(a, b, a2=None) -> WgradPlan:
+    """The wgrad's plan for ``matmul_tn(a, b, a2)``."""
+    parts = [a] if a2 is None else [a, a2]
+    variant = "vec16" if takes_16b(b, *parts) else "masked"
+    return wgrad_plan(sum(t.shape[1] for t in parts), b.shape[1],
+                      a.element_size(), variant == "vec16",
+                      _wgrad_resident(a, variant))
+
+
 def _library() -> ctypes.CDLL:
     lib = build.load("phantom_fused")
     if lib.repro_phantom_fused_fwd.argtypes is None:
@@ -174,10 +244,13 @@ def _library() -> ctypes.CDLL:
             [p] * 5 + [i] * 4 + [ll] * 5 + [i] * 4 + [p])
         lib.repro_matmul_nt.argtypes = (
             [p] * 4 + [i] * 4 + [ll] * 4 + [i] * 4 + [p])
-        lib.repro_matmul_tn.argtypes = [p] * 4 + [i] * 4 + [ll] * 4 + [i, p]
+        lib.repro_matmul_tn.argtypes = (
+            [p] * 4 + [i] * 4 + [ll] * 4 + [i] * 4 + [p])
         lib.repro_splitk_max_clusters.argtypes = [i] * 4 + [p]
+        lib.repro_matmul_tn_blocks_per_sm.argtypes = [i] * 2 + [p]
         for fn in (lib.repro_phantom_fused_fwd, lib.repro_matmul_nt,
-                   lib.repro_matmul_tn, lib.repro_splitk_max_clusters):
+                   lib.repro_matmul_tn, lib.repro_splitk_max_clusters,
+                   lib.repro_matmul_tn_blocks_per_sm):
             fn.restype = ctypes.c_int
     return lib
 
@@ -200,6 +273,23 @@ def resident_table(index: int, dgrad: bool, esize: int) -> Dict[int, int]:
                                    f"cudaError {err} for {s} blocks")
             out[s] = n.value
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def wgrad_resident(index: int, esize: int, variant: str) -> int:
+    """Blocks of the wgrad kernel that card ``index`` holds at once: its
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at ``esize``-byte
+    inputs, times its SMs."""
+    lib, n = _library(), ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = lib.repro_matmul_tn_blocks_per_sm(
+            {4: 0, 2: 1}[esize], int(variant == "vec16"), ctypes.byref(n))
+    if err != 0 or n.value < 1:
+        raise RuntimeError(f"cudaOccupancyMaxActiveBlocksPerMultiprocessor "
+                           f"failed for the wgrad kernel: cudaError {err}, "
+                           f"{n.value} blocks")
+    return n.value * torch.cuda.get_device_properties(
+        index).multi_processor_count
 
 
 def _check_cuda(*ts):
@@ -316,13 +406,15 @@ def matmul_tn(a, b, a2=None):
     if _on_cpu(b, *parts):
         return matmul_tn_ref(a if a2 is None else torch.cat(parts, 1), b)
     _check_cuda(b, *parts)
+    plan = tn_plan(a, b, a2)
     I0, I1 = a.shape[1], 0 if a2 is None else a2.shape[1]
     c = torch.empty((I0 + I1, N), dtype=a.dtype, device=a.device)
     err = _library().repro_matmul_tn(
         a.data_ptr(), 0 if a2 is None else a2.data_ptr(), b.data_ptr(),
         c.data_ptr(), M, I0, I1, N, a.stride(0),
         a.stride(0) if a2 is None else a2.stride(0), b.stride(0),
-        c.stride(0), _DTYPE_CODES[a.dtype], _stream(a.device))
+        c.stride(0), _DTYPE_CODES[a.dtype], plan.grid,
+        int(plan.variant == "vec16"), plan.smem_bytes, _stream(a.device))
     _raised(err, "matmul_tn", b, *parts)
     matmul_tn.launches += 1
     return c

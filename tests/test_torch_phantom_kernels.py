@@ -10,7 +10,8 @@ the concatenation it builds itself.
 
 Tolerances are the reference's: float32 rtol/atol 2e-4, bf16 2e-2 for
 the kernels, 2e-3 / 6e-2 for the gradients of ``phantom_fused_linear``.
-The CUDA kernels themselves run only on a card (``cuda`` marker).
+The CUDA kernels themselves are tested on the card by
+``tests/test_torch_cuda_kernels.py``, which imports no JAX.
 """
 import functools
 import re
@@ -172,13 +173,25 @@ def test_shared_memory_check():
         pf.check_kernel_fits(False, 4, bm=256, bn=256, bk=128)
 
 
+def _constants(src, namespace):
+    """The ``constexpr int`` values of one namespace of a CUDA source."""
+    body = src[src.index(f"namespace {namespace} {{"):
+               src.index(f"}}  // namespace {namespace}")]
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", body)}
+
+
 def test_kernel_constants_match_the_source():
-    """``gemm_plan`` prices the ring from Python constants; they must be
-    the CUDA source's (``namespace sk``)."""
-    src = (Path(pf.__file__).parent / "csrc" / "phantom_fused.cu").read_text()
+    """The plans price tiles, rings and grids from Python constants; they
+    must be the CUDA source's: ``namespace sk`` (forward and dgrad) and
+    ``namespace tn`` (wgrad) of ``phantom_fused.cu``."""
+    csrc = Path(pf.__file__).parent / "csrc"
+    src = (csrc / "phantom_fused.cu").read_text()
+    sk, tn = _constants(src, "sk"), _constants(src, "tn")
     for name in ("BM", "BN", "BK", "STAGES", "MAX_SPLITS"):
-        m = re.search(rf"constexpr int {name} = (\d+);", src)
-        assert m and int(m.group(1)) == getattr(pf, name), name
+        assert sk[name] == getattr(pf, name), name
+    for name in ("BM", "BN", "BK", "STAGES"):
+        assert tn[name] == getattr(pf, "WGRAD_" + name), name
 
 
 def _ceil(a, b):
@@ -254,6 +267,57 @@ def test_gemm_plan_follows_the_residency_table(table, splits):
     assert plan.splits == splits
 
 
+@pytest.mark.parametrize("shape", SHAPES + [(64, 128, 128, 64),
+                                            (64, 2048, 2048, 128)])
+def test_wgrad_plan(shape):
+    """The wgrad's persistent grid on the sweep, the Table I mini-run and
+    the paper-ffn-16k per-rank shapes, with the H100's residency (CPU
+    operands): never more blocks than the card holds at once nor than
+    there are tiles, and shared memory for the blocks an SM holds.  At
+    the main shape 1088 tiles on 528 blocks: two full rounds and a third
+    of 32 tiles (a design of 128-tiles that filled whole rounds measured
+    within the spread between runs of it, PERF.md)."""
+    M, K, N, PK = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        x, g, dz = (torch.empty(M, K, dtype=dtype),
+                    torch.empty(M, PK, dtype=dtype),
+                    torch.empty(M, N, dtype=dtype))
+        es = x.element_size()
+        plan = pf.tn_plan(x, dz, g)
+        per_sm = pf.H100_WGRAD_BLOCKS_PER_SM[(es, plan.variant)]
+        tiles = _ceil(K + PK, pf.WGRAD_BM) * _ceil(N, pf.WGRAD_BN)
+        assert plan.tiles == tiles
+        assert plan.resident == pf.H100_SMS * per_sm
+        assert plan.grid == min(tiles, plan.resident)
+        assert (plan.rounds - 1) * plan.grid < tiles <= \
+            plan.rounds * plan.grid
+        assert per_sm * plan.smem_bytes <= 228 * 1024
+        assert plan.smem_bytes == pf.WGRAD_STAGES * pf.WGRAD_BK * \
+            (pf.WGRAD_BM + pf.WGRAD_BN) * es
+        if shape == (64, 2048, 2048, 128):
+            assert (plan.tiles_m, plan.tiles_n) == (34, 32)
+            assert (plan.resident, plan.grid, plan.rounds) == (528, 528, 3)
+            assert plan.tiles - 2 * plan.grid == 32
+            assert plan.variant == "vec16"
+        else:    # the sweep's and the mini-run's outputs are small
+            assert plan.rounds == 1
+
+
+@pytest.mark.parametrize("resident,grid,rounds", [
+    (528, 528, 3),     # the H100: two full rounds, a third of 32 tiles
+    (264, 264, 5),     # two blocks an SM
+    (544, 544, 2),     # whole rounds
+    (2000, 1088, 1),   # every tile in one round
+    (1, 1, 1088),      # one block walks every tile
+    (100, 100, 11),
+])
+def test_wgrad_plan_follows_the_residency(resident, grid, rounds):
+    """The main shape's 1088 tiles on cards that hold ``resident`` blocks
+    of the kernel at once."""
+    plan = pf.wgrad_plan(2176, 2048, 4, True, resident)
+    assert (plan.grid, plan.rounds) == (grid, rounds)
+
+
 def test_gemm_plan_variant_of_column_views():
     """A column view whose base or row pitch is not a multiple of 16
     bytes takes the masked variant; one whose pitch and base are aligned
@@ -321,43 +385,3 @@ def test_fused_linear_leading_batch_dims():
     _close(got.reshape(-1, N),
            phantom_fused_ref(x.reshape(-1, K), L, g.reshape(-1, PK), D),
            2e-4)
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU (sm_90) to run the CUDA kernels")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,dtype,offset", [c + (0,) for c in _cases()]
-                         + [((64, 2048, 2048, 128), "float32", 0),
-                            ((64, 256, 192, 32), "float32", 1)])
-def test_cuda_kernels_match_plain(cuda_device, shape, dtype, offset):
-    """Each kernel launches once, agrees with its plain version and gives
-    the same bits on a second launch.  ``offset`` 1: every operand is a
-    column view one element into a wider tensor (unaligned: the masked
-    variant)."""
-    M, K, N, PK = shape
-    x, L, g, D, dz = [t.to(cuda_device)[:, offset:] for t in _torch(_arrays(
-        M + N, (M, K + offset), (K, N + offset), (M, PK + offset),
-        (PK, N + offset), (M, N + offset)), dtype)]
-    if offset:
-        assert pf.forward_plan(x, L, g, D).variant == "masked"
-        assert pf.dgrad_plan(dz, L, D).variant == "masked"
-    before = (pf.phantom_fused_matmul.launches, pf.matmul_nt.launches,
-              pf.matmul_tn.launches)
-    got = (pf.phantom_fused_matmul(x, L, g, D), pf.matmul_nt(dz, L, D),
-           pf.matmul_tn(x, dz, g))
-    torch.cuda.synchronize()
-    assert (pf.phantom_fused_matmul.launches, pf.matmul_nt.launches,
-            pf.matmul_tn.launches) == tuple(b + 1 for b in before)
-    want = (phantom_fused_ref(x, L, g, D),
-            matmul_nt_ref(dz, torch.cat([L, D])),
-            matmul_tn_ref(torch.cat([x, g], 1), dz))
-    for name, a, b in zip(("forward", "dgrad", "wgrad"), got, want):
-        _close(a.cpu(), b.cpu(), TOL[dtype], name)
-    again = (pf.phantom_fused_matmul(x, L, g, D), pf.matmul_nt(dz, L, D))
-    for name, a, b in zip(("forward", "dgrad"), got, again):
-        assert torch.equal(a, b), f"{name}: two launches differ"
