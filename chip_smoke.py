@@ -72,6 +72,21 @@ Phases (any failure exits non-zero):
    20 steps with ``tensor_col``; then the Table I mini-run (n=1024, L=2,
    target 0.175, at most 500 steps) for TP and phantom k in {4, 8, 16},
    whose iteration counts are printed beside the reference's, not held.
+6. energy: in the same 8 ranks, the measured-vs-predicted ledger of the
+   paper-ffn-16k step (``telemetry/probe.py: measure_ffn_step``, input
+   grads kept): ``tensor_col`` and phantom through the kernels, each
+   counted once (flops by ``FlopCounterMode``, the phantom kernels by
+   their operators' formulas; wire bytes from the collective log) and
+   run 5 metered steps, and the phantom step through plain torch,
+   counted once.  Held on every rank: wire-byte and message-float
+   ratios within 2% of 1.00, flops within the reference's pins (5%
+   tensor_col, 25% phantom, measured >= 0.99 predicted), the kernel
+   path's flops equal to the plain path's, each kernel launched twice
+   per probe step.  Then the Table I iteration counts of phase 5 priced
+   by ``repro_torch.benchmarks.table1_energy`` (E_tp, E_pp, saving per
+   p).  The energies are the paper's model (Frontier A/B, alpha at the
+   H100's float32 peak), not power read from the card.  The ledger goes
+   to ``build/chip_smoke_ledger.json``.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
@@ -115,6 +130,9 @@ STEP1_TOL = dict(rtol=1e-4, atol=1e-5)
 ADAM_NEAR_ZERO = 1e-7     # 10 x AdamW eps: see _step1_diff
 TABLE1 = dict(n=1024, L=2, target=0.175, max_steps=500)
 TABLE1_REFERENCE = {"tensor": 168, 4: 154, 8: 154, 16: 180}
+ENERGY_STEPS = 5
+# measured/predicted flops pins of the reference (tests/test_telemetry.py)
+FLOPS_PIN = {"tensor_col": 0.05, "phantom": 0.25}
 PEAK = {"float32": 67e12, "bfloat16": 989e12}
 
 
@@ -826,26 +844,13 @@ def _step1_diff(res, part, lr, eps):
     return out
 
 
-def _table1_config(impl, k):
-    from repro_torch.configs.base import (ModelConfig, PhantomConfig,
-                                          dense_projection_map,
-                                          phantom_projection_map)
-    n, L = TABLE1["n"], TABLE1["L"]
-    proj = (phantom_projection_map(k, ffn_layer=True,
-                                   kernel_backend="pallas")
-            if impl == "phantom" else dense_projection_map())
-    return ModelConfig(name=f"table1-{impl}-k{k}", family="ffn",
-                       num_layers=L, d_model=n, ffn_width=n, ffn_depth=L,
-                       mlp="relu", phantom=PhantomConfig(k=k),
-                       projections=proj)
-
-
 def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
     """The train phase inside one rank (``launch/mesh.py: spawn``).
     ``smoke`` takes the configs' CPU geometry, for a rehearsal with
     ``device="cpu"``."""
     import gc
     import torch
+    from repro_torch.benchmarks.table1_energy import table1_config
     from repro_torch.core.ffn import ffn_loss_and_grads, init_ffn, local_batch
     from repro_torch.data.synthetic import TeacherDataset
     from repro_torch.kernels import phantom_fused as pf
@@ -897,9 +902,45 @@ def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
     out["table1"] = {}
     for impl, k in (("tensor", 4), ("phantom", 4), ("phantom", 8),
                     ("phantom", 16)):
-        run = train_rank(axes, device, _table1_config(impl, k),
+        run = train_rank(axes, device, table1_config(impl, k),
                          table1_steps, TABLE1["target"])
         out["table1"]["tensor" if impl == "tensor" else k] = run["losses"]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["energy"] = _energy_rank(axes, device, smoke)
+    out["energy_s"] = time.perf_counter() - t0
+    return out
+
+
+def _energy_rank(axes, device, smoke=False):
+    """The energy phase inside one rank: the ledger probe of the train
+    config for ``tensor_col`` and phantom through the kernels
+    (``ENERGY_STEPS`` metered steps each) and for phantom through plain
+    torch (counted only).  Each run's kernel counts start at 0 and are
+    read right after it."""
+    import gc
+    import torch
+    from repro_torch.kernels import phantom_fused as pf
+    from repro_torch.launch.train_ffn import BATCH, SEED, train_config
+    from repro_torch.telemetry import measure_ffn_step
+
+    kernels = (pf.phantom_fused_matmul, pf.matmul_nt, pf.matmul_tn)
+    out = {}
+    for name, impl, backend, steps in (
+            ("tensor_col", "tensor", "pallas", ENERGY_STEPS),
+            ("phantom", "phantom", "pallas", ENERGY_STEPS),
+            ("phantom_plain", "phantom", "xla", 0)):
+        cfg = train_config(TRAIN_ARCH, smoke=smoke, impl=impl,
+                           kernel_backend=backend)
+        for k in kernels:
+            k.launches = 0
+        measured, predicted = measure_ffn_step(cfg, axes, BATCH, steps=steps,
+                                               seed=SEED, device=device)
+        out[name] = {"measured": measured, "predicted": predicted,
+                     "steps": steps,
+                     "launches": {k.__name__: k.launches for k in kernels}}
+        gc.collect()
+        torch.cuda.empty_cache()
     return out
 
 
@@ -995,6 +1036,103 @@ def phase_train(device="cuda", smoke=False,
             "backend": backend}
 
 
+RATIO_KEYS = ("flops_per_device", "collective_wire_bytes_per_device",
+              "collective_m_floats", "energy_j_per_iter")
+
+
+def phase_energy(train, smi):
+    """Hold and print the ranks' ledger probes (``_energy_rank``), price
+    the Table I run's iteration counts, write the ledger."""
+    from repro_torch.benchmarks import table1_energy
+    from repro_torch.benchmarks.common import write_report
+    from repro_torch.telemetry import Ledger, LedgerEntry
+    ranks = train["ranks"]
+    probe_steps = 1 + 1 + ENERGY_STEPS     # counted, warm-up, metered
+    for r in ranks:
+        rk, e = r["rank"], r["energy"]
+        for name, pin in FLOPS_PIN.items():
+            m, pr = e[name]["measured"], e[name]["predicted"]
+            for key in ("collective_wire_bytes_per_device",
+                        "collective_m_floats"):
+                check(abs(m[key] / pr[key] - 1) <= 0.02,
+                      f"rank {rk}: {name} {key} measured {m[key]} vs "
+                      f"predicted {pr[key]}: ratio outside 1.00 +- 2%")
+            ratio = m["flops_per_device"] / pr["flops_per_device"]
+            check(abs(ratio - 1) <= pin and ratio >= 0.99,
+                  f"rank {rk}: {name} flops ratio {ratio:.4f} outside "
+                  f"[0.99, {1 + pin}]")
+        kernel, plain = (e[n]["measured"] for n in ("phantom",
+                                                    "phantom_plain"))
+        check(kernel["flops_per_device"] == plain["flops_per_device"],
+              f"rank {rk}: the kernel path counts "
+              f"{kernel['flops_per_device']} flops, the plain path "
+              f"{plain['flops_per_device']}")
+        for name, launches in e["phantom"]["launches"].items():
+            check(launches == 2 * probe_steps,
+                  f"rank {rk}: {name} launched {launches} times in "
+                  f"{probe_steps} probe steps (want 2 per step)")
+        for name in ("tensor_col", "phantom_plain"):
+            check(not any(e[name]["launches"].values()),
+                  f"rank {rk}: {name} launched a phantom kernel: "
+                  f"{e[name]['launches']}")
+
+    ledger = Ledger(run="chip_smoke", meta={"card": smi,
+                                           "arch": TRAIN_ARCH})
+    e0 = ranks[0]["energy"]
+    for name in ("tensor_col", "phantom", "phantom_plain"):
+        m, pr = e0[name]["measured"], e0[name]["predicted"]
+        entry = ledger.record(LedgerEntry(
+            name=f"chip_smoke_energy_{name}", suite="chip_smoke",
+            kind="train", arch=TRAIN_ARCH, impl=pr["strategy"], p=TRAIN_TP,
+            measured=m, predicted=pr,
+            extra={"dp": TRAIN_DP, "tp": TRAIN_TP,
+                   "kernel_backend": "xla" if name == "phantom_plain"
+                   else "pallas", "metered_steps": e0[name]["steps"],
+                   "launches": e0[name]["launches"],
+                   "wall_us_median_by_rank": [
+                       r["energy"][name]["measured"].get("wall_us_median")
+                       for r in ranks]}))
+        ratios = entry.ratios()
+        print(f"energy: {TRAIN_ARCH} {name} (rank 0), measured / predicted "
+              f"/ ratio: " + "; ".join(
+                  f"{k} {m[k]:.6g} / {pr[k]:.6g} / {ratios[k]:.6f}"
+                  for k in RATIO_KEYS), flush=True)
+        print(f"energy: {name} alpha_s {m['alpha_s']:.6g} (predicted "
+              f"{pr['alpha_s']:.6g}), beta_s {m['beta_s']:.6g} (predicted "
+              f"{pr['beta_s']:.6g}); collectives " + "; ".join(
+                  f"{op} x{rec['count']} issued as {rec['issued_as']}"
+                  for op, rec in m["collectives"].items()))
+        if e0[name]["steps"]:
+            print(f"energy: {name} probe step wall median per rank "
+                  f"(8 ranks time-sharing one card, gloo through the host) "
+                  + ", ".join(f"{w / 1e3:.2f}" for w in
+                              entry.extra["wall_us_median_by_rank"])
+                  + " ms", flush=True)
+    print(f"energy: phantom launches per rank in {probe_steps} probe steps: "
+          f"{e0['phantom']['launches']}; kernel path flops == plain path "
+          f"flops on all ranks")
+    pe, pt = (e0[n]["predicted"]["energy_j_per_iter"]
+              for n in ("phantom", "tensor_col"))
+    me, mt = (e0[n]["measured"]["energy_j_per_iter"]
+              for n in ("phantom", "tensor_col"))
+    print(f"energy: phantom / tensor_col energy per iteration, predicted "
+          f"{pe / pt:.4f}, measured {me / mt:.4f} (paper's model, Frontier "
+          f"A/B, alpha at the H100 fp32 peak; not power read from the card)")
+
+    iters = {("tensor" if key == "tensor" else int(key)): len(losses)
+             for key, losses in ranks[0]["table1"].items()}
+    rows = table1_energy.run(ledger, iters)
+    for row in rows:
+        print(f"energy: Table I priced, p={row['p']} k={row['k']}: E_tp "
+              f"{row['energy_j_tp']:.1f} J, E_pp {row['energy_j_pp']:.1f} J, "
+              f"saving {row['saving_fraction'] * 100:.1f}% (iterations "
+              f"{iters})", flush=True)
+    path = write_report(ledger, ROOT / "build" / "chip_smoke_ledger.json")
+    print(f"energy: ledger written to {path}; the probes took "
+          f"{max(r['energy_s'] for r in ranks):.1f} s in the ranks")
+    return ledger.report()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1015,6 +1153,7 @@ def main() -> int:
     phantom = phase_phantom_kernels()
     serve = phase_serve()
     train = phase_train()
+    ledger = phase_energy(train, device["nvidia_smi"])
 
     sweep = flash["sweep"]
     at = {S: next(r for r in sweep if all(
@@ -1042,6 +1181,8 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/phantom_fused.cu",
             "replaces": f"src/repro/kernels/phantom_fused.py:{line}",
             "launches": train["ranks"][0]["launches"][name],
+            "probe_launches":
+                train["ranks"][0]["energy"]["phantom"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_r["ms"], "plain_ms": main_r["plain_ms"],
             "bound_ms": main_r["bound_ms"], "bound_by": main_r["bound_by"],
@@ -1051,7 +1192,8 @@ def main() -> int:
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "flash": flash, "phantom": phantom,
-         "serve": serve, "train": train, "kernels": kernels}, indent=1))
+         "serve": serve, "train": train, "ledger": ledger,
+         "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

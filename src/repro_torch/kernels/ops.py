@@ -19,7 +19,9 @@ tensor.
 ``phantom_fused_linear`` binds the three phantom kernels into one
 differentiable op, as the reference's ``custom_vjp`` does: the forward is
 the fused (local + ghost-decompress) GEMM, the backward one dgrad and one
-wgrad launch.  Collectives stay outside the op.
+wgrad launch, each through its dispatcher operator
+(``torch.ops.repro_torch.*``), so ``FlopCounterMode`` counts them.
+Collectives stay outside the op.
 """
 from __future__ import annotations
 
@@ -47,7 +49,7 @@ class _FusedLinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, L, g, D):
         ctx.save_for_backward(x, L, g, D)
-        return phantom_fused_matmul(x, L, g, D)
+        return torch.ops.repro_torch.phantom_fused_matmul(x, L, g, D)
 
     @staticmethod
     def backward(ctx, dz):

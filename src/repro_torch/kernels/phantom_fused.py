@@ -20,6 +20,15 @@ tensors that lie on the CPU.  A CUDA tensor launches the kernel or
 raises: a failed build, a card other than sm_90 or a refused launch is
 an error, never a switch to the plain version.  ``.launches`` on each
 wrapper counts its kernel's launches.
+
+The three are also dispatcher operators, ``torch.ops.repro_torch.
+{phantom_fused_matmul, matmul_nt, matmul_tn}``, each with a fake
+(shape-only) version and a flop formula (2·M·N·(K+PK), 2·M·J·N and
+2·I·N·M).  ``FlopCounterMode`` is a dispatch mode and sees nothing of a
+``ctypes`` launch; through the operators it counts the kernels by their
+formulas (``telemetry/counted.py``).  ``kernels/ops.py`` calls the
+operators; their CUDA implementation is the kernel, their CPU one the
+plain version, both through the wrappers here.
 """
 from __future__ import annotations
 
@@ -29,6 +38,7 @@ from dataclasses import dataclass
 from typing import Dict, List, Mapping, Sequence, Tuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (matmul_nt_ref, matmul_tn_ref,
@@ -420,22 +430,86 @@ def matmul_tn(a, b, a2=None):
     return c
 
 
+phantom_fused_matmul.launches = 0
+matmul_nt.launches = 0
+matmul_tn.launches = 0
+
+
+# --- the kernels as dispatcher operators ------------------------------------
+
+_DEVICES = ("cpu", "cuda")
+
+
+@torch.library.custom_op(
+    "repro_torch::phantom_fused_matmul", mutates_args=(),
+    device_types=_DEVICES,
+    schema="(Tensor x, Tensor L, Tensor g, Tensor D) -> Tensor")
+def _phantom_fused_matmul_op(x, L, g, D):
+    return phantom_fused_matmul(x, L, g, D)
+
+
+@_phantom_fused_matmul_op.register_fake
+def _(x, L, g, D):
+    return x.new_empty((x.shape[0], L.shape[1]))
+
+
+@torch.library.custom_op(
+    "repro_torch::matmul_nt", mutates_args=(), device_types=_DEVICES,
+    schema="(Tensor a, Tensor b, Tensor? b2=None) -> Tensor")
+def _matmul_nt_op(a, b, b2=None):
+    return matmul_nt(a, b, b2)
+
+
+@_matmul_nt_op.register_fake
+def _(a, b, b2=None):
+    return a.new_empty((a.shape[0],
+                        b.shape[0] + (0 if b2 is None else b2.shape[0])))
+
+
+@torch.library.custom_op(
+    "repro_torch::matmul_tn", mutates_args=(), device_types=_DEVICES,
+    schema="(Tensor a, Tensor b, Tensor? a2=None) -> Tensor")
+def _matmul_tn_op(a, b, a2=None):
+    return matmul_tn(a, b, a2)
+
+
+@_matmul_tn_op.register_fake
+def _(a, b, a2=None):
+    return a.new_empty((a.shape[1] + (0 if a2 is None else a2.shape[1]),
+                        b.shape[1]))
+
+
+@register_flop_formula(torch.ops.repro_torch.phantom_fused_matmul)
+def _phantom_fused_matmul_flops(x, L, g, D, *args, out_shape=None, **kw):
+    """2·M·N·(K + PK): the local and the ghost product."""
+    return 2 * x[0] * L[1] * (x[1] + g[1])
+
+
+@register_flop_formula(torch.ops.repro_torch.matmul_nt)
+def _matmul_nt_flops(a, b, b2=None, *args, out_shape=None, **kw):
+    """2·M·J·N for c[M, J] = a[M, N] @ [b ; b2]^T."""
+    return 2 * a[0] * (b[0] + (0 if b2 is None else b2[0])) * a[1]
+
+
+@register_flop_formula(torch.ops.repro_torch.matmul_tn)
+def _matmul_tn_flops(a, b, a2=None, *args, out_shape=None, **kw):
+    """2·I·N·M for c[I, N] = [a | a2]^T @ b[M, N]."""
+    return 2 * (a[1] + (0 if a2 is None else a2[1])) * b[1] * b[0]
+
+
 def phantom_fused_dgrad(dz, L, D):
     """dx [M, K], dg [M, PK] = dz @ [L ; D]^T in one ``matmul_nt``
-    launch; both are column views of its one output."""
+    launch (through its operator); both are column views of its one
+    output."""
     K = L.shape[0]
-    din = matmul_nt(dz, L, D)
+    din = torch.ops.repro_torch.matmul_nt(dz, L, D)
     return din[:, :K], din[:, K:]
 
 
 def phantom_fused_wgrad(x, g, dz):
     """dL [K, N], dD [PK, N] = [x | g]^T @ dz in one ``matmul_tn``
-    launch; both are row views of its one output."""
+    launch (through its operator); both are row views of its one
+    output."""
     K = x.shape[1]
-    dW = matmul_tn(x, dz, g)
+    dW = torch.ops.repro_torch.matmul_tn(x, dz, g)
     return dW[:K], dW[K:]
-
-
-phantom_fused_matmul.launches = 0
-matmul_nt.launches = 0
-matmul_tn.launches = 0

@@ -10,8 +10,10 @@ shards on the Gaussian-teacher data at the paper's Table I settings
 (batch 64, AdamW at 3e-3 with weight decay 0, seed 0), and prints each
 step's loss and the model's parameter count.  The ranks run
 on the card unless ``--device cpu`` is given; ``--smoke`` takes the
-config's CPU-sized geometry.  The energy model (``core/energy.py``) is
-not ported yet.
+config's CPU-sized geometry.  ``--ledger-out PATH`` then counts and
+meters the run's step once more (``telemetry/probe.py:
+measure_ffn_step``: flops, collective wire bytes, energy, measured
+against predicted) and writes that ledger entry's report to PATH.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import time
 
 import torch
 
+from repro_torch.benchmarks.common import write_report
 from repro_torch.configs.base import (PhantomConfig, dense_projection_map,
                                       get_config, phantom_projection_map)
 from repro_torch.core.ffn import (ffn_model_params, init_ffn, local_batch,
@@ -32,8 +35,10 @@ from repro_torch.kernels.ops import KERNEL_BACKENDS, resolve_kernel_backend
 from repro_torch.launch.mesh import spawn
 from repro_torch.optim import AdamW
 from repro_torch.parallel.axes import resolve_device
+from repro_torch.telemetry import Ledger, LedgerEntry, measure_ffn_step
 
 BATCH, LR, SEED = 64, 3e-3, 0     # the paper's Table I run
+PROBE_STEPS = 5                   # metered probe steps for --ledger-out
 TIMEOUT_S = 1800.0                # the whole run, before the ranks are killed
 
 
@@ -55,6 +60,9 @@ def build_parser():
                     help="cuda (default) or cpu")
     ap.add_argument("--kernel-backend", default="pallas",
                     choices=KERNEL_BACKENDS)
+    ap.add_argument("--ledger-out", default=None, metavar="PATH",
+                    help="after training, write a measured-vs-predicted "
+                         "ledger report of the run's step to PATH")
     return ap
 
 
@@ -92,6 +100,17 @@ def train_rank(axes, device, cfg, steps: int, target=None):
     return {"losses": losses, "step_s": step_s}
 
 
+def train_and_probe_rank(axes, device, cfg, steps: int, target=None,
+                         probe: bool = False):
+    """``train_rank``, then, with ``probe``, the step's
+    ``(measured, predicted)`` pair from ``measure_ffn_step``."""
+    out = train_rank(axes, device, cfg, steps, target)
+    if probe:
+        out["probe"] = measure_ffn_step(cfg, axes, BATCH, steps=PROBE_STEPS,
+                                        seed=SEED, device=device)
+    return out
+
+
 def needs_kernels(cfg, device: torch.device) -> bool:
     spec = cfg.projection_spec("ffn_layer")
     return (device.type == "cuda" and spec.kind == "phantom"
@@ -105,8 +124,9 @@ def main(argv=None) -> int:
                        k=args.k, kernel_backend=args.kernel_backend)
     if needs_kernels(cfg, device):
         build.build(["phantom_fused"])   # once, before the ranks load it
-    out = spawn(train_rank, args.dp, args.tp, device,
-                args=(cfg, args.steps, args.target), timeout_s=TIMEOUT_S)
+    out = spawn(train_and_probe_rank, args.dp, args.tp, device,
+                args=(cfg, args.steps, args.target, bool(args.ledger_out)),
+                timeout_s=TIMEOUT_S)
     res = out[0]
     print(f"# {cfg.name} impl={args.impl} k={cfg.phantom.k} "
           f"dp={args.dp} tp={args.tp} on {device} "
@@ -120,6 +140,20 @@ def main(argv=None) -> int:
         hit = res["losses"][-1] <= args.target
         print(f"target {args.target}: "
               f"{'reached at step ' + str(len(res['losses'])) if hit else 'not reached'}")
+    if args.ledger_out:
+        measured, predicted = res["probe"]
+        ledger = Ledger(run="train_ffn", meta={"device": str(device)})
+        entry = ledger.record(LedgerEntry(
+            name=f"train_ffn_{cfg.name}_{predicted['strategy']}",
+            suite="train_ffn", kind="train", arch=cfg.name,
+            impl=predicted["strategy"], p=args.tp, measured=measured,
+            predicted=predicted,
+            extra={"dp": args.dp, "tp": args.tp, "batch": BATCH,
+                   "kernel_backend": args.kernel_backend,
+                   "train_steps": len(res["losses"])}))
+        print("ledger ratios: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in entry.ratios().items()))
+        print(f"wrote {write_report(ledger, args.ledger_out)}")
     return 0
 
 

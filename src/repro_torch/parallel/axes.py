@@ -12,11 +12,17 @@ major, model minor, the order of the reference's ``(data, model)`` mesh.
 collective is the identity.  Sizes above 1 without groups are allowed
 for declarations and parameter counts; a collective over such an axis
 raises.  ``pp > 1`` raises: the pipeline is not ported.
+
+``record_collectives()`` logs every collective a ``Group`` issues while
+it is open: the measured half of the energy ledger's wire bytes
+(``telemetry/counted.py``), as the reference reads them from the HLO.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from dataclasses import dataclass, field
-from typing import Any, Optional
+from typing import Any, Iterator, List, Optional
 
 import torch
 
@@ -26,6 +32,53 @@ SERVE_TP_TODO = ("ROADMAP.md queue 1, item 1 (serving at tp > 1: the "
                  "sequence-sharded decode cache, ring attention and the "
                  "residual layouts)")
 RING_TODO = "ROADMAP.md queue 1, item 1 (the phantom ring variant)"
+
+
+@dataclass(frozen=True)
+class IssuedCollective:
+    """One collective a ``Group`` sent to torch.distributed."""
+    collective: str   # the logical collective the Group method stands for
+    m_floats: float   # per-rank message in 4-byte floats (CommEvent's unit)
+    group: int        # ranks in the group
+    issued_as: str    # the torch.distributed call that ran it
+
+
+class CollectiveLog:
+    """The collectives issued while one ``record_collectives()`` block
+    was open, in order (``events``)."""
+
+    def __init__(self):
+        self.events: List[IssuedCollective] = []
+
+
+# the logs of the open record_collectives() blocks; the autograd engine
+# runs a card's backward on a thread of its own, so the list is shared
+# by the process's threads (one rank per process) and guarded
+_RECORDING: List[CollectiveLog] = []
+_RECORDING_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[CollectiveLog]:
+    """Log every collective any ``Group`` issues inside the block,
+    backward passes included.  A group of one rank issues none."""
+    log = CollectiveLog()
+    with _RECORDING_LOCK:
+        _RECORDING.append(log)
+    try:
+        yield log
+    finally:
+        with _RECORDING_LOCK:
+            _RECORDING[:] = [g for g in _RECORDING if g is not log]
+
+
+def _issued(collective: str, t: torch.Tensor, size: int, issued_as: str):
+    """Record one issued collective; ``t`` holds the per-rank message."""
+    ev = IssuedCollective(collective, t.numel() * t.element_size() / 4.0,
+                          size, issued_as)
+    with _RECORDING_LOCK:
+        for log in _RECORDING:
+            log.events.append(ev)
 
 
 @dataclass(frozen=True)
@@ -57,9 +110,11 @@ class Group:
 
         def op(x):
             if self.backend == "nccl":
+                _issued("all_gather", x, self.size, "all_gather_into_tensor")
                 out = x.new_empty((self.size,) + tuple(x.shape))
                 dist.all_gather_into_tensor(out, x, group=self.handle)
                 return out
+            _issued("all_gather", x, self.size, "all_gather")
             parts = [torch.empty_like(x) for _ in range(self.size)]
             dist.all_gather(parts, x, group=self.handle)
             return torch.stack(parts)
@@ -79,9 +134,12 @@ class Group:
 
         def op(x):
             if self.backend == "nccl":
+                _issued("reduce_scatter", x[0], self.size,
+                        "reduce_scatter_tensor")
                 out = x.new_empty(tuple(x.shape[1:]))
                 dist.reduce_scatter_tensor(out, x, group=self.handle)
                 return out
+            _issued("reduce_scatter", x[0], self.size, "all_reduce")
             x = x.clone()
             dist.all_reduce(x, group=self.handle)
             return x[self.rank].contiguous()
@@ -94,6 +152,7 @@ class Group:
         import torch.distributed as dist
 
         def op(x):
+            _issued("all_reduce", x, self.size, "all_reduce")
             x = x.clone()
             dist.all_reduce(x, group=self.handle)
             return x

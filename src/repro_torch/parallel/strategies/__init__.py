@@ -1,6 +1,15 @@
 """Projection-strategy registry; importing the package registers the
-ported strategies."""
+ported strategies.
+
+    st = site_strategy(cfg, "ffn_layer", n, n, axes.tp)
+    decls = st.decls()                          # ParamDecl tree
+    y = st.apply_shard(params, x, axes)         # sharded forward
+    st.flops(batch), st.comm_events(batch)      # Table II accounting
+"""
 from repro_torch.parallel.strategies.base import (  # noqa: F401
-    ProjectionStrategy, available_strategies, get_strategy_cls,
+    CommEvent, ProjectionStrategy, available_strategies, get_strategy_cls,
     make_strategy, register, site_strategy)
-from repro_torch.parallel.strategies import phantom, tensor  # noqa: F401
+from repro_torch.parallel.strategies.phantom import (  # noqa: F401
+    LowrankDistillStrategy, PhantomStrategy)
+from repro_torch.parallel.strategies.tensor import (  # noqa: F401
+    TensorColStrategy, TensorRowStrategy)

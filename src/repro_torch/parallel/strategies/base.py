@@ -1,27 +1,41 @@
 """ProjectionStrategy: one object per projection site that declares the
-site's parameters and computes its sharded projection.
+site's parameters, computes its sharded projection AND predicts its cost.
 
 ``apply()`` computes the projection in the strategy's own feature
-layout: tensor_col takes full features and returns the rank's output
-shard, tensor_row takes an input shard and returns partial sums, phantom
-takes and returns feature shards.  ``apply_shard()`` is the uniform
-feature-shard -> feature-shard form that the paper-FFN stack composes
-(tensor_col and phantom).  ``param_count()`` and ``dense_equivalent()``
-are ported; the reference's cost predictions (``flops``,
-``comm_events``) arrive with ROADMAP queue 1 item 2.
+layout (``in_layout`` -> ``out_layout``): tensor_col takes full features
+and returns the rank's output shard, tensor_row takes an input shard and
+returns partial sums, phantom takes and returns feature shards.
+``apply_shard()`` is the uniform feature-shard -> feature-shard form
+that the paper-FFN stack composes (tensor_col and phantom).
+
+``flops()``, ``comm_events()`` and ``param_count()`` are the same
+object's per-operator account: the energy model (``core/energy.py``)
+and the ledger's predictions (``telemetry/predict.py``) sum them, so the
+paper's Table II schedule falls out of the operators that execute.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Type
 
 from repro_torch.configs.base import (PHANTOM_KINDS, PROJECTION_SITES,
                                       ProjectionSpec)
 
 
+@dataclass(frozen=True)
+class CommEvent:
+    """One collective issued by a strategy, in paper Eqn. 26 units."""
+    collective: str        # all_gather | reduce_scatter | all_reduce
+    m_floats: float        # per-rank message size, floats
+    phase: str = "fwd"     # fwd | bwd
+
+
 class ProjectionStrategy:
     """Base class; concrete strategies register themselves by ``kind``."""
 
     kind: str = "?"
+    in_layout: str = "full"        # "full" | "shard"
+    out_layout: str = "shard"      # "shard" | "partial"
 
     def __init__(self, n_in: int, n_out: int, tp: int, *, dp: int = 1,
                  bias: bool = True,
@@ -42,6 +56,15 @@ class ProjectionStrategy:
         raise NotImplementedError
 
     def param_count(self) -> int:
+        raise NotImplementedError
+
+    def flops(self, batch: int) -> float:
+        """Per-rank FORWARD flops for ``batch`` rows (2 * MACs).  Training
+        cost models multiply by 3 (fwd + bwd-input + bwd-weight)."""
+        raise NotImplementedError
+
+    def comm_events(self, batch: int) -> List[CommEvent]:
+        """Collectives this strategy issues per fwd+bwd pass."""
         raise NotImplementedError
 
     def dense_equivalent(self, params):

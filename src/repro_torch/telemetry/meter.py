@@ -6,13 +6,15 @@ summary.  On the card a call is timed with CUDA events around it on the
 current stream, synchronised at the end, so asynchronous launches cannot
 hide the device work; on the CPU with ``time.perf_counter``.
 
-The reference's ledger export (``record_to``) arrives with the ledger
-slice.
+``measure(fn, *args)`` is the one-shot variant the benchmarks use: the
+median of ``iters`` timed calls after ``warmup`` untimed ones.  The
+reference's ``record_to`` (the serving engine's ledger export) comes
+with the serving ledger.
 """
 from __future__ import annotations
 
 import time
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -71,3 +73,16 @@ class StepMeter:
     def __repr__(self):
         return (f"StepMeter({self.name!r}, calls={self.calls}, "
                 f"median={self.median_us():.1f}us)")
+
+
+def measure(fn: Callable, *args, warmup: int = 2, iters: int = 5,
+            device=None, meter: Optional[StepMeter] = None) -> float:
+    """Median time per call in microseconds, each call waited for on the
+    card (CUDA events) or timed on the host clock on the CPU; optionally
+    records every timed call into ``meter`` as well."""
+    timer = StepMeter("measure", warmup=warmup, device=device)
+    for _ in range(warmup + iters):
+        timer.call(fn, *args)
+    if meter is not None:
+        meter.times_us.extend(timer.steady)
+    return timer.median_us()

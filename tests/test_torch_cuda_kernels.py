@@ -24,6 +24,7 @@ import subprocess
 import numpy as np
 import pytest
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.kernels import build
 from repro_torch.kernels import phantom_fused as pf
@@ -123,6 +124,40 @@ def test_cuda_kernels_match_plain(cuda_device, shape, dtype, offset):
              pf.matmul_tn(x, dz, g))
     for name, a, b in zip(("forward", "dgrad", "wgrad"), got, again):
         assert torch.equal(a, b), f"{name}: two launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,offset", [(s, 0) for s in PHANTOM_SHAPES]
+                         + [(PHANTOM_MAIN, 0), ((64, 256, 192, 32), 1),
+                            ((130, 257, 129, 65), 1)])
+def test_cuda_kernels_counted_by_formula(cuda_device, shape, offset):
+    """``FlopCounterMode`` counts each kernel, called through its
+    dispatcher operator, by its formula (2MN(K+PK), 2MJN, 2INM), while
+    the kernel itself launches (once each) and agrees with its plain
+    version.  ``offset`` 1: unaligned column views (the masked
+    variants)."""
+    M, K, N, PK = shape
+    x, L, g, D, dz = [t[:, offset:] for t in _on(_arrays(
+        M + N + 1, (M, K + offset), (K, N + offset), (M, PK + offset),
+        (PK, N + offset), (M, N + offset)), "float32", cuda_device)]
+    ops = torch.ops.repro_torch
+    kernels = (pf.phantom_fused_matmul, pf.matmul_nt, pf.matmul_tn)
+    before = [k.launches for k in kernels]
+    with FlopCounterMode(display=False) as counter:
+        got = (ops.phantom_fused_matmul(x, L, g, D), ops.matmul_nt(dz, L, D),
+               ops.matmul_tn(x, dz, g))
+    torch.cuda.synchronize()
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    counts = {str(op): n for op, n in
+              counter.get_flop_counts()["Global"].items()}
+    assert counts == {"repro_torch.phantom_fused_matmul": 2 * M * N * (K + PK),
+                      "repro_torch.matmul_nt": 2 * M * (K + PK) * N,
+                      "repro_torch.matmul_tn": 2 * (K + PK) * N * M}
+    want = (phantom_fused_ref(x, L, g, D),
+            matmul_nt_ref(dz, torch.cat([L, D])),
+            matmul_tn_ref(torch.cat([x, g], 1), dz))
+    for name, a, b in zip(("forward", "dgrad", "wgrad"), got, want):
+        _close(a, b, PHANTOM_TOL["float32"], name)
 
 
 @pytest.mark.cuda

@@ -68,6 +68,13 @@ def test_source_imports_no_jax_and_no_reference(path):
         assert root not in ("jax", "jaxlib", "repro"), (path, name)
 
 
+def test_energy_model_carries_no_tpu_constant():
+    """The port prices the card: no TPU constant in its energy model."""
+    from repro_torch.core import energy
+    assert not [n for n in vars(energy) if n.upper().startswith("TPU")]
+    assert "TPU_" not in Path(energy.__file__).read_text()
+
+
 def _fields(cfg, names):
     d = dataclasses.asdict(cfg)
     return {n: d[n] for n in names}

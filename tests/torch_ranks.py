@@ -124,3 +124,21 @@ def failing_body(axes, device):
     if axes.rank == 1:
         raise ValueError("rank 1 raises on purpose")
     return axes.rank
+
+
+def telemetry_body(axes, device, steps):
+    """The train_smoke probe (tensor_col, and phantom through the kernel
+    backend) and the same phantom step through plain torch ops: each
+    strategy's (measured, predicted) pair from ``measure_ffn_step``."""
+    from repro_torch.benchmarks.train_smoke import (BATCH, K, probe_rank,
+                                                    smoke_config)
+    from repro_torch.configs.base import phantom_projection_map
+    from repro_torch.telemetry import measure_ffn_step
+
+    out = probe_rank(axes, device, steps)
+    plain = smoke_config("phantom").replace(
+        projections=phantom_projection_map(K, ffn_layer=True,
+                                           kernel_backend="xla"))
+    out["phantom_plain"] = measure_ffn_step(plain, axes, BATCH, steps=0,
+                                            device=device)
+    return out
