@@ -873,12 +873,12 @@ def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
     x, y = local_batch(x, axes), local_batch(y, axes)
     res = {}
     for name, cfg in (("kernel", kcfg), ("plain", xcfg)):
-        loss, grads = ffn_loss_and_grads(cfg, axes, params, x, y, BATCH)
+        loss, grads, _ = ffn_loss_and_grads(cfg, axes, params, x, y, BATCH)
         new_params, _ = opt.update(grads, state, params, 0)
         res[name] = {"loss": loss, "grads": grads, "params": new_params}
     p64 = tree_map(lambda t: t.double(), params)
-    loss, grads = ffn_loss_and_grads(xcfg, axes, p64, x.double(),
-                                     y.double(), BATCH)
+    loss, grads, _ = ffn_loss_and_grads(xcfg, axes, p64, x.double(),
+                                        y.double(), BATCH)
     res["float64"] = {"loss": loss, "grads": grads,
                       "params": _adamw_step1(p64, grads, LR, opt.eps)}
     out["step1"] = {part: _step1_diff(res, part, LR, opt.eps)
@@ -1044,7 +1044,6 @@ def phase_energy(train, smi):
     """Hold and print the ranks' ledger probes (``_energy_rank``), price
     the Table I run's iteration counts, write the ledger."""
     from repro_torch.benchmarks import table1_energy
-    from repro_torch.benchmarks.common import write_report
     from repro_torch.telemetry import Ledger, LedgerEntry
     ranks = train["ranks"]
     probe_steps = 1 + 1 + ENERGY_STEPS     # counted, warm-up, metered
@@ -1127,7 +1126,7 @@ def phase_energy(train, smi):
               f"{row['energy_j_tp']:.1f} J, E_pp {row['energy_j_pp']:.1f} J, "
               f"saving {row['saving_fraction'] * 100:.1f}% (iterations "
               f"{iters})", flush=True)
-    path = write_report(ledger, ROOT / "build" / "chip_smoke_ledger.json")
+    path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
     print(f"energy: ledger written to {path}; the probes took "
           f"{max(r['energy_s'] for r in ranks):.1f} s in the ranks")
     return ledger.report()
@@ -1181,8 +1180,6 @@ def main() -> int:
             "source": "src/repro_torch/kernels/csrc/phantom_fused.cu",
             "replaces": f"src/repro/kernels/phantom_fused.py:{line}",
             "launches": train["ranks"][0]["launches"][name],
-            "probe_launches":
-                train["ranks"][0]["energy"]["phantom"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in cases),
             "ms": main_r["ms"], "plain_ms": main_r["plain_ms"],
             "bound_ms": main_r["bound_ms"], "bound_by": main_r["bound_by"],

@@ -2,20 +2,14 @@
 package's ``benchmarks/common.py``).
 
 ``emit`` prints the reference's ``name,us,derived`` CSV line and records
-a ``LedgerEntry`` into the ledger its caller gives; ``write_report``
-writes that ledger's report to the caller's path.  The port's reports go
-under ``build/`` at the root of the checkout (``REPORT_DIR``), never to
-the repo-root ``BENCH_report.json``, which belongs to the JAX package.
+a ``LedgerEntry`` into the ledger its caller gives.  The port's reports
+go under ``build/`` at the root of the checkout (``telemetry/ledger.py:
+REPORT_DIR``), never to the repo-root ``BENCH_report.json``, which
+belongs to the JAX package (``Ledger.write_report`` refuses it).
 """
 from __future__ import annotations
 
-from pathlib import Path
-
 from repro_torch.telemetry import Ledger, LedgerEntry
-
-ROOT = Path(__file__).resolve().parents[3]
-REPORT_DIR = ROOT / "build"
-REFERENCE_REPORT = ROOT / "BENCH_report.json"
 
 
 def emit(ledger: Ledger, name: str, us: float, derived: str = "", *,
@@ -38,13 +32,3 @@ def emit(ledger: Ledger, name: str, us: float, derived: str = "", *,
         measured=m or None, predicted=dict(predicted) if predicted
         else None, extra=ex))
 
-
-def write_report(ledger: Ledger, path) -> str:
-    """Write ``ledger``'s report to ``path`` (its directory made first);
-    the JAX package's repo-root report is refused."""
-    path = Path(path).resolve()
-    if path == REFERENCE_REPORT.resolve():
-        raise ValueError(f"{path} is the JAX package's report; the port "
-                         f"writes its own under {REPORT_DIR}")
-    path.parent.mkdir(parents=True, exist_ok=True)
-    return ledger.write_report(str(path))

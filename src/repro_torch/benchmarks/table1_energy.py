@@ -20,7 +20,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from repro_torch.benchmarks.common import REPORT_DIR, emit, write_report
+from repro_torch.benchmarks.common import emit
 from repro_torch.configs.base import (ModelConfig, PhantomConfig,
                                       dense_projection_map,
                                       phantom_projection_map)
@@ -29,6 +29,7 @@ from repro_torch.core.energy import (FRONTIER_A_W, FRONTIER_B_W,
                                      phantom_costs, tp_costs)
 from repro_torch.core.ffn import ffn_model_params
 from repro_torch.telemetry import Ledger
+from repro_torch.telemetry.ledger import REPORT_DIR
 
 TABLE1 = dict(n=1024, L=2, batch=64, p=8, target=0.175)
 PAPER = dict(n=16_384, L=2, batch=64, tp_iterations=453)
@@ -37,12 +38,11 @@ PROJECTION = ((8, 16), (16, 6), (32, 4), (64, 2), (128, 2), (256, 4))
 SUITE = "table1_energy"
 
 
-def table1_config(impl: str, k: int,
-                  kernel_backend: str = "pallas") -> ModelConfig:
+def table1_config(impl: str, k: int) -> ModelConfig:
     """The mini-run's FFN: tensor-parallel, or phantom of ghost width k."""
     n, L = TABLE1["n"], TABLE1["L"]
     proj = (phantom_projection_map(k, ffn_layer=True,
-                                   kernel_backend=kernel_backend)
+                                   kernel_backend="pallas")
             if impl == "phantom" else dense_projection_map())
     return ModelConfig(name=f"table1-{impl}-k{k}", family="ffn",
                        num_layers=L, d_model=n, ffn_width=n, ffn_depth=L,
@@ -50,8 +50,7 @@ def table1_config(impl: str, k: int,
                        projections=proj)
 
 
-def run(ledger: Ledger, iterations: dict,
-        peak_flops: float = H100_PEAK_FLOPS_FP32) -> list:
+def run(ledger: Ledger, iterations: dict) -> list:
     """``iterations``: {"tensor": nu_tp, k: nu_pp, ...}, the mini-run's
     iterations to the target (or its step budget where not reached); k = 4
     must be among them.  Returns the projection rows."""
@@ -81,8 +80,8 @@ def run(ledger: Ledger, iterations: dict,
     nu_tp_paper = PAPER["tp_iterations"]
     rows = []
     for p, k in PROJECTION:
-        a_t, b_t = tp_costs(n, p, L, batch, peak_flops)
-        a_p, b_p = phantom_costs(n, p, L, k, batch, peak_flops)
+        a_t, b_t = tp_costs(n, p, L, batch, H100_PEAK_FLOPS_FP32)
+        a_p, b_p = phantom_costs(n, p, L, k, batch, H100_PEAK_FLOPS_FP32)
         E_tp = energy_to_loss(a_t, b_t, p, nu_tp_paper, FRONTIER_A_W,
                               FRONTIER_B_W)
         E_pp = energy_to_loss(a_p, b_p, p, int(nu_tp_paper * nu_ratio),
@@ -98,7 +97,7 @@ def run(ledger: Ledger, iterations: dict,
              kind="analytic", p=p,
              predicted={key: v for key, v in row.items()
                         if key not in ("p", "k")},
-             extra={"n": n, "L": L, "k": k, "peak_flops": peak_flops,
+             extra={"n": n, "L": L, "k": k, "peak_flops": H100_PEAK_FLOPS_FP32,
                     "iters_ratio_measured": nu_ratio})
     return rows
 
@@ -121,7 +120,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     ledger = Ledger(run=SUITE)
     run(ledger, args.iterations)
-    print(f"wrote {write_report(ledger, args.report_out)}")
+    print(f"wrote {ledger.write_report(args.report_out)}")
     return 0
 
 

@@ -18,7 +18,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from repro_torch.benchmarks.common import REPORT_DIR, emit, write_report
+from repro_torch.benchmarks.common import emit
 from repro_torch.configs.base import (ModelConfig, PhantomConfig,
                                       dense_projection_map,
                                       phantom_projection_map)
@@ -26,6 +26,7 @@ from repro_torch.kernels import build
 from repro_torch.launch.mesh import spawn
 from repro_torch.parallel.axes import resolve_device
 from repro_torch.telemetry import Ledger, measure_ffn_step
+from repro_torch.telemetry.ledger import REPORT_DIR
 
 N, LAYERS, K, BATCH, DP, TP = 512, 2, 8, 32, 1, 8
 SUITE = "train_smoke"
@@ -81,7 +82,7 @@ def main(argv=None) -> int:
     ledger = Ledger(run=SUITE, meta={"device": str(resolve_device(
         args.device))})
     run(ledger, args.steps, args.device)
-    print(f"wrote {write_report(ledger, args.report_out)}")
+    print(f"wrote {ledger.write_report(args.report_out)}")
     return 0
 
 

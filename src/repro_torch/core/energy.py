@@ -49,23 +49,26 @@ H100_PEAK_FLOPS_BF16 = 989e12    # FLOP/s, dense tensor cores
 H100_HBM_BW = 3.35e12            # bytes/s
 # NVIDIA H100 SXM5 80GB datasheet, 700 W; until calibrated.
 H100_NVLINK_BW = 450e9           # bytes/s per direction, all to all
+# assumed per-log2(p)-hop latency of an NVLink collective, until calibrated
+H100_HOP_LATENCY_US = 1.0
 
 
-def h100_collective_fits(hop_latency_us: float = 1.0) -> dict:
+def h100_collective_fits() -> dict:
     """H100 analogues of the paper's Table III (c1, c2) constants,
     derived from the NVLink rate rather than fitted: c2 is the wire time
     per float (4 bytes over one direction of NVLink; doubled for
     all-reduce's reduce-scatter and all-gather phases), c1 the
-    per-log2(p)-hop latency.  Pass the result as ``fits=`` to
-    ``comm_time_us`` to price Eqn. 26 on the card's links instead of
-    Frontier's."""
+    per-log2(p)-hop latency (``H100_HOP_LATENCY_US``).  Pass the result
+    as ``fits=`` to ``comm_time_us`` to price Eqn. 26 on the card's
+    links instead of Frontier's."""
+    c1 = H100_HOP_LATENCY_US
     c2 = 4.0 / H100_NVLINK_BW * 1e6                  # us per float
     return {
-        "broadcast":      (hop_latency_us, c2),
-        "all_gather":     (hop_latency_us, c2),
-        "reduce_scatter": (hop_latency_us, c2),
-        "all_reduce":     (hop_latency_us, 2.0 * c2),
-        "collective_permute": (hop_latency_us, c2),
+        "broadcast":      (c1, c2),
+        "all_gather":     (c1, c2),
+        "reduce_scatter": (c1, c2),
+        "all_reduce":     (c1, 2.0 * c2),
+        "collective_permute": (c1, c2),
     }
 
 

@@ -71,9 +71,11 @@ def ffn_apply(cfg: ModelConfig, axes: MeshAxes, params, x):
 
 def ffn_loss_and_grads(cfg: ModelConfig, axes: MeshAxes, params, x, y,
                        global_batch: int):
-    """(loss, grads) of one rank: ``loss`` is the global MSE (summed over
-    all ranks, equal on every rank), ``grads`` the rank's local parameter
-    gradients, summed over the data axis."""
+    """(loss, grads, x_grad) of one rank: ``loss`` is the global MSE
+    (summed over all ranks, equal on every rank), ``grads`` the rank's
+    local parameter gradients, summed over the data axis.  ``x_grad`` is
+    the gradient w.r.t. the input when ``x.requires_grad`` (the energy
+    probe's step, ``telemetry/probe.py``), else None."""
     flat = tree_leaves(params)
     leaves = [t.detach().requires_grad_(True) for _, t in flat]
     p = tree_unflatten(params, {path: t for (path, _), t in
@@ -84,13 +86,15 @@ def ffn_loss_and_grads(cfg: ModelConfig, axes: MeshAxes, params, x, y,
     # contribution; the cross-rank sums follow explicitly
     sse_local = torch.sum(torch.square(out - y)) / (global_batch
                                                     * cfg.ffn_width)
-    grads = torch.autograd.grad(sse_local, leaves, allow_unused=True)
+    wrt = leaves + ([x] if x.requires_grad else [])
+    grads = list(torch.autograd.grad(sse_local, wrt, allow_unused=True))
+    x_grad = grads.pop() if x.requires_grad else None
     loss = axes.world_comm.all_reduce(sse_local)
     grads = [axes.dp_comm.all_reduce(torch.zeros_like(t) if g is None
                                      else g)
              for t, g in zip(leaves, grads)]
     return loss, tree_unflatten(params, {path: g for (path, _), g in
-                                         zip(flat, grads)})
+                                         zip(flat, grads)}), x_grad
 
 
 def make_ffn_train_step(cfg: ModelConfig, axes: MeshAxes, optimizer,
@@ -107,8 +111,8 @@ def make_ffn_train_step(cfg: ModelConfig, axes: MeshAxes, optimizer,
     opt_decls = optimizer.state_decls(decls)
 
     def step_fn(params, opt_state, step, x, y):
-        loss, grads = ffn_loss_and_grads(cfg, axes, params, x, y,
-                                         global_batch)
+        loss, grads, _ = ffn_loss_and_grads(cfg, axes, params, x, y,
+                                            global_batch)
         params, opt_state = optimizer.update(grads, opt_state, params,
                                              int(step))
         return params, opt_state, loss

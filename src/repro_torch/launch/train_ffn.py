@@ -24,7 +24,6 @@ import time
 
 import torch
 
-from repro_torch.benchmarks.common import write_report
 from repro_torch.configs.base import (PhantomConfig, dense_projection_map,
                                       get_config, phantom_projection_map)
 from repro_torch.core.ffn import (ffn_model_params, init_ffn, local_batch,
@@ -153,7 +152,7 @@ def main(argv=None) -> int:
                    "train_steps": len(res["losses"])}))
         print("ledger ratios: " + ", ".join(
             f"{k} {v:.4f}" for k, v in entry.ratios().items()))
-        print(f"wrote {write_report(ledger, args.ledger_out)}")
+        print(f"wrote {ledger.write_report(args.ledger_out)}")
     return 0
 
 

@@ -73,7 +73,10 @@ def record_collectives() -> Iterator[CollectiveLog]:
 
 
 def _issued(collective: str, t: torch.Tensor, size: int, issued_as: str):
-    """Record one issued collective; ``t`` holds the per-rank message."""
+    """Record one issued collective; ``t`` holds the per-rank message.
+    Free while no ``record_collectives()`` block is open."""
+    if not _RECORDING:    # read without the lock: nothing to record
+        return
     ev = IssuedCollective(collective, t.numel() * t.element_size() / 4.0,
                           size, issued_as)
     with _RECORDING_LOCK:
@@ -107,14 +110,15 @@ class Group:
         if self.size == 1:
             return t.detach().unsqueeze(0).clone()
         import torch.distributed as dist
+        nccl = self.backend == "nccl"
+        _issued("all_gather", t, self.size,
+                "all_gather_into_tensor" if nccl else "all_gather")
 
         def op(x):
-            if self.backend == "nccl":
-                _issued("all_gather", x, self.size, "all_gather_into_tensor")
+            if nccl:
                 out = x.new_empty((self.size,) + tuple(x.shape))
                 dist.all_gather_into_tensor(out, x, group=self.handle)
                 return out
-            _issued("all_gather", x, self.size, "all_gather")
             parts = [torch.empty_like(x) for _ in range(self.size)]
             dist.all_gather(parts, x, group=self.handle)
             return torch.stack(parts)
@@ -131,15 +135,15 @@ class Group:
         if self.size == 1:
             return t.detach()[0].clone()
         import torch.distributed as dist
+        nccl = self.backend == "nccl"
+        _issued("reduce_scatter", t[0], self.size,
+                "reduce_scatter_tensor" if nccl else "all_reduce")
 
         def op(x):
-            if self.backend == "nccl":
-                _issued("reduce_scatter", x[0], self.size,
-                        "reduce_scatter_tensor")
+            if nccl:
                 out = x.new_empty(tuple(x.shape[1:]))
                 dist.reduce_scatter_tensor(out, x, group=self.handle)
                 return out
-            _issued("reduce_scatter", x[0], self.size, "all_reduce")
             x = x.clone()
             dist.all_reduce(x, group=self.handle)
             return x[self.rank].contiguous()
@@ -150,9 +154,9 @@ class Group:
         if self.size == 1:
             return t.detach().clone()
         import torch.distributed as dist
+        _issued("all_reduce", t, self.size, "all_reduce")
 
         def op(x):
-            _issued("all_reduce", x, self.size, "all_reduce")
             x = x.clone()
             dist.all_reduce(x, group=self.handle)
             return x

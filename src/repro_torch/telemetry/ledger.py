@@ -18,7 +18,8 @@ three views of the same computation:
 
 ``Ledger`` collects entries (optionally streaming each to a JSONL file
 as it is recorded) and writes the aggregate report to the path its
-caller gives (the port's benchmarks write under ``build/``).
+caller gives: the port's reports go under ``build/`` (``REPORT_DIR``),
+and the repo-root ``BENCH_report.json``, the JAX package's, is refused.
 """
 from __future__ import annotations
 
@@ -29,9 +30,14 @@ import os
 import time
 import weakref
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import List, Optional
 
 SCHEMA = "bench-ledger/v1"
+
+_ROOT = Path(__file__).resolve().parents[3]    # the checkout
+REPORT_DIR = _ROOT / "build"
+_REFERENCE_REPORT = _ROOT / "BENCH_report.json"
 
 # all live ledgers, flushed once at interpreter exit so JSONL tails
 # (and a configured report) survive crashes/interrupts — the same
@@ -194,10 +200,17 @@ class Ledger:
             "entries": entries,
         }
 
-    def write_report(self, path: str) -> str:
+    def write_report(self, path) -> str:
+        """Write the report to ``path`` (its directory made first); the
+        JAX package's repo-root report is refused."""
+        path = Path(path).resolve()
+        if path == _REFERENCE_REPORT:
+            raise ValueError(f"{path} is the JAX package's report; the port "
+                             f"writes its own under {REPORT_DIR}")
+        path.parent.mkdir(parents=True, exist_ok=True)
         with open(path, "w") as f:
             json.dump(self.report(), f, indent=1)
-        return path
+        return str(path)
 
     def __len__(self):
         return len(self.entries)

@@ -3,8 +3,8 @@ of the JAX package's ``telemetry/probe.py`` at pp = 1.
 
 ``make_ffn_probe_step`` builds a pure fwd+bwd step (loss + grads w.r.t.
 the parameters AND the input, no optimizer) for the strategy ``cfg``
-selects, with the operator schedule of ``core/ffn.py:
-make_ffn_train_step``.  Input gradients are requested on purpose: the
+selects: the train step's own ``core/ffn.py: ffn_loss_and_grads``, with
+the input differentiated too.  Input gradients are requested on purpose: the
 analytic Table II schedule charges every layer an all-gather forward and
 a reduce-scatter backward, but the first layer's backward collective
 (and its input-grad GEMM) would not run for a constant input —
@@ -19,15 +19,13 @@ pipeline slice (ROADMAP.md queue 1, item 5).
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
-from repro_torch.core.energy import H100_PEAK_FLOPS_FP32
-from repro_torch.core.ffn import ffn_apply, ffn_decls, local_batch
+from repro_torch.core.ffn import ffn_decls, ffn_loss_and_grads, local_batch
 from repro_torch.parallel.axes import MeshAxes
-from repro_torch.parallel.params import (materialize, shard_params,
-                                         tree_leaves, tree_unflatten)
+from repro_torch.parallel.params import materialize, shard_params
 from repro_torch.telemetry.counted import count_step
 from repro_torch.telemetry.meter import StepMeter
 from repro_torch.telemetry.predict import (ffn_step_prediction,
@@ -36,35 +34,22 @@ from repro_torch.telemetry.predict import (ffn_step_prediction,
 
 def make_ffn_probe_step(cfg, axes: MeshAxes, global_batch: int):
     """Returns ``(probe_fn, decls)``: ``probe_fn(params, x, y) -> (loss,
-    (param_grads, input_grad))`` on this rank's shards, ``loss`` the
+    (param_grads, input_grad))`` on this rank's shards, the train step's
+    ``ffn_loss_and_grads`` with the input differentiated too: ``loss`` the
     global loss, the parameter gradients summed over the data axis."""
     decls = ffn_decls(cfg, axes)
-    n = cfg.ffn_width
 
     def probe(params, x, y):
-        flat = tree_leaves(params)
-        leaves = [t.detach().requires_grad_(True) for _, t in flat]
-        x = x.detach().requires_grad_(True)
-        p = tree_unflatten(params, {path: t for (path, _), t in
-                                    zip(flat, leaves)})
-        out = ffn_apply(cfg, axes, p, x)
-        sse_local = torch.sum(torch.square(out - y)) / (global_batch * n)
-        *gp, gx = torch.autograd.grad(sse_local, leaves + [x])
-        # dp grad sync (the train step's reduction) so the returned
-        # parameter grads are global; no collective at dp = 1
-        if axes.dp > 1:
-            gp = [axes.dp_comm.all_reduce(g) for g in gp]
-        loss = axes.world_comm.all_reduce(sse_local)
-        return loss, (tree_unflatten(params, {path: g for (path, _), g in
-                                              zip(flat, gp)}), gx)
+        loss, grads, x_grad = ffn_loss_and_grads(
+            cfg, axes, params, x.detach().requires_grad_(True), y,
+            global_batch)
+        return loss, (grads, x_grad)
     return probe, decls
 
 
 def measure_ffn_step(cfg, axes: MeshAxes, global_batch: int, *,
-                     steps: int = 0, seed: int = 0, device=None,
-                     meter: Optional[StepMeter] = None,
-                     peak_flops: float = H100_PEAK_FLOPS_FP32
-                     ) -> Tuple[dict, dict]:
+                     steps: int = 0, seed: int = 0,
+                     device=None) -> Tuple[dict, dict]:
     """Count one probe step, then run ``steps`` metered ones.
 
     Returns ``(measured, predicted)`` ready for a ``LedgerEntry``:
@@ -72,8 +57,9 @@ def measure_ffn_step(cfg, axes: MeshAxes, global_batch: int, *,
     message floats (per collective in ``collectives``, with the calls
     that ran them), the same account priced by the energy model, and
     wall stats when ``steps > 0``; predicted is ``ffn_step_prediction``
-    summed from the same strategy objects.  Parameters and the global
-    batch come from a generator seeded ``seed`` on ``device``.
+    summed from the same strategy objects, both priced at the H100's
+    float32 peak.  Parameters and the global batch come from a generator
+    seeded ``seed`` on ``device``.
     """
     dev = torch.device(device or "cpu")
     p = axes.tp
@@ -85,17 +71,15 @@ def measure_ffn_step(cfg, axes: MeshAxes, global_batch: int, *,
             for _ in range(2))
 
     costs, _ = count_step(probe, params, x, y, device=dev)
-    measured = measured_energy_fields(costs, p, peak_flops=peak_flops)
+    measured = measured_energy_fields(costs, p)
     measured["collectives"] = costs.collectives
     if costs.memory:
         measured["memory"] = costs.memory
     if steps > 0:
-        meter = meter or StepMeter(f"ffn_probe_{cfg.name}", warmup=1,
-                                   device=dev)
+        meter = StepMeter(f"ffn_probe_{cfg.name}", warmup=1, device=dev)
         for _ in range(steps + meter.warmup):
             meter.call(probe, params, x, y)
         measured.update({k: v for k, v in meter.summary().items()
                          if k != "name"})
-    predicted = ffn_step_prediction(cfg, p, global_batch, training=True,
-                                    peak_flops=peak_flops)
+    predicted = ffn_step_prediction(cfg, p, global_batch, training=True)
     return measured, predicted

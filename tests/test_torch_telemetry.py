@@ -18,6 +18,7 @@
   flops of the plain-torch step.
 """
 import json
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -293,6 +294,17 @@ def test_ledger_reports_interchange(tmp_path):
     assert loaded[0]["counts"] == {"entries": 2, "joined": 1}
 
 
+def test_ledger_refuses_the_reference_report():
+    """The repo-root BENCH_report.json is the JAX package's: the port's
+    Ledger refuses to write it, before opening it."""
+    root_report = Path(__file__).resolve().parents[1] / "BENCH_report.json"
+    before = root_report.read_bytes() if root_report.exists() else None
+    with pytest.raises(ValueError, match="JAX package's report"):
+        Ledger(run="t").write_report(root_report)
+    after = root_report.read_bytes() if root_report.exists() else None
+    assert after == before
+
+
 # ---------------------------------------------------------------------------
 # the counted side
 # ---------------------------------------------------------------------------
@@ -412,3 +424,28 @@ def test_table1_energy_prices_the_reference_rows():
             jenergy.energy_to_loss(a_p, b_p, r["p"], int(453 * 154 / 168)),
             rel=REL)
     assert len(led) == 4 + len(rows)
+
+
+@pytest.mark.parametrize("impl,strategy", [("phantom", "phantom"),
+                                           ("tensor", "tensor_col")])
+def test_train_ffn_ledger_out(tmp_path, impl, strategy):
+    """``train_ffn --ledger-out``: two training steps of the smoke FFN on
+    4 gloo CPU ranks, then the run's own step probed; the report holds
+    the reference's pins and names the run."""
+    from repro_torch.launch import train_ffn
+    path = tmp_path / "sub" / "ledger.json"
+    assert train_ffn.main(["--smoke", "--device", "cpu", "--tp", "4",
+                           "--impl", impl, "--steps", "2",
+                           "--ledger-out", str(path)]) == 0
+    rep = load_report(str(path))
+    assert rep["run"] == "train_ffn" and rep["counts"] == {"entries": 1,
+                                                           "joined": 1}
+    (entry,) = rep["entries"]
+    assert entry["impl"] == strategy and entry["p"] == 4
+    assert entry["extra"]["train_steps"] == 2
+    # the metered probe steps and the meter's one warm-up call
+    assert entry["measured"]["calls"] == train_ffn.PROBE_STEPS + 1
+    ratios = entry["ratios"]
+    for key in ("collective_wire_bytes_per_device", "collective_m_floats"):
+        assert ratios[key] == pytest.approx(1.0, rel=0.02)
+    assert 0.99 <= ratios["flops_per_device"] <= 1 + PINS[strategy]
