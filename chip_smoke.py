@@ -33,8 +33,10 @@ Phases (any failure exits non-zero):
    ``phantom_fused_matmul``, ``matmul_nt`` (dgrad, ``[L;D]`` read through
    two pointers) and ``matmul_tn`` (wgrad, ``[x|g]`` through two) on the
    reference's sweeps (``tests/test_kernels.py``), the paper-ffn-16k
-   per-rank shapes (M=64, K=N=2048, PK=128) and the Table I mini-run's
-   (M=64, K=N=128, PK in {32, 64, 128}); float32 at 2e-4, bf16 at 2e-2.
+   per-rank shapes (M=64, K=N=2048, PK=128), a pipeline stage's 8-row
+   microbatch of it at pipe 2 x dp 2 x tp 2 (M=8, K=N=8192, PK=32) and
+   the Table I mini-run's (M=64, K=N=128, PK in {32, 64, 128}); float32
+   at 2e-4, bf16 at 2e-2.
    Per case and kernel: max error, device time, bound (bytes over
    3.35 TB/s or operations over 67 TFLOP/s fp32 / 989 TFLOP/s bf16),
    the plain version's time and ``torch.mm`` on operands concatenated
@@ -85,10 +87,27 @@ Phases (any failure exits non-zero):
    per probe step.  Then the Table I iteration counts of phase 5 priced
    by ``repro_torch.benchmarks.table1_energy`` (E_tp, E_pp, saving per
    p).  The energies are the paper's model (Frontier A/B, alpha at the
-   H100's float32 peak), not power read from the card.  The ledger goes
-   to ``build/chip_smoke_ledger.json``.
+   H100's float32 peak), not power read from the card.
+7. pipeline: in the same 8 ranks, on new groups, paper-ffn-16k cut into
+   2 stages of one layer on pipe 2 x dp 2 x tp 2, 1F1B over M = 4
+   microbatches of 8 rows (``_pipeline_rank``).  Step 1 of phantom
+   through the kernels held to the plain path as in phase 5, and the
+   pipelined probe held to the same config's stages run in sequence on
+   pipe 1 x dp 4 x tp 2 from the same global weights and batch (loss
+   rtol 2e-4; parameter and input gradients rtol 5e-4 / atol 1e-6: the
+   reference's oracle, ``tests/helpers.py``); 20 pipelined AdamW steps of
+   phantom (each kernel launched M x L_loc = 4 times per step on every
+   rank) and of ``tensor_col`` (losses finite and falling; each rank's
+   step median printed beside phase 5's, with the host draw's time and
+   the ranks' peak host memory); the pipelined probe's ledger
+   (``measure_ffn_pipeline_step``) against ``executed=False``: flops
+   within the pins of phase 6, layer wire bytes within 2%, each rank's
+   boundary bytes equal to its stage's sends, bubble fraction 0.2.  The
+   ledger of phases 6 and 7 goes to ``build/chip_smoke_ledger.json``.
 
-The line before the last is the kernel table as JSON; the last line is
+The line before the last is the kernel table as JSON (the phantom
+kernels' 8-row shape and its launches under ``pipe_rows8``); the last
+line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
@@ -121,6 +140,9 @@ PHANTOM_SHAPES = (
      (96, 40, 160, 32), (96, 128, 112, 32)]
     + [(64, 128, 128, pk) for pk in (32, 64, 128)])
 PHANTOM_MAIN = (64, 2048, 2048, 128)
+# a pipeline stage's microbatch of paper-ffn-16k at pipe 2 x dp 2 x tp 2
+# and M = 4: 64 / (2 x 4) rows, n / tp = 8192, k x tp = 32
+PHANTOM_PIPE = (8, 8192, 8192, 32)
 PHANTOM_TOL = {"float32": 2e-4, "bfloat16": 2e-2}
 GRAD_TOL = {"float32": 2e-3, "bfloat16": 6e-2}
 GRAD_SHAPES = [(128, 128, 128, 16, 4), (192, 96, 80, 8, 2),
@@ -128,9 +150,13 @@ GRAD_SHAPES = [(128, 128, 128, 16, 4), (192, 96, 80, 8, 2),
 TRAIN_ARCH, TRAIN_DP, TRAIN_TP, TRAIN_STEPS = "paper-ffn-16k", 1, 8, 20
 STEP1_TOL = dict(rtol=1e-4, atol=1e-5)
 ADAM_NEAR_ZERO = 1e-7     # 10 x AdamW eps: see _step1_diff
+STEP1_CHUNK = 1 << 23     # elements of a leaf compared at once
 TABLE1 = dict(n=1024, L=2, target=0.175, max_steps=500)
 TABLE1_REFERENCE = {"tensor": 168, 4: 154, 8: 154, 16: 180}
 ENERGY_STEPS = 5
+PIPE_PP, PIPE_DP, PIPE_TP, PIPE_M = 2, 2, 2, 4
+# the reference's pipeline oracle (tests/helpers.py:77-104)
+EQUIV_LOSS_RTOL, EQUIV_TOL = 2e-4, dict(rtol=5e-4, atol=1e-6)
 # measured/predicted flops pins of the reference (tests/test_telemetry.py)
 FLOPS_PIN = {"tensor_col": 0.05, "phantom": 0.25}
 PEAK = {"float32": 67e12, "bfloat16": 989e12}
@@ -722,7 +748,7 @@ def phase_phantom_kernels():
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
     for dtype in ("float32", "bfloat16"):
-        for shape in PHANTOM_SHAPES + [PHANTOM_MAIN]:
+        for shape in PHANTOM_SHAPES + [PHANTOM_MAIN, PHANTOM_PIPE]:
             for r in _phantom_case(*shape, dtype, gen):
                 results.append(r)
                 plan = (f" splits={r['splits']} clusters={r['clusters']} "
@@ -812,61 +838,67 @@ def _step1_diff(res, part, lr, eps):
                    max_implied_near_zero_grad=0.0,
                    kernel_vs_f64_near_zero_grad=0.0,
                    plain_vs_f64_near_zero_grad=0.0)
-    for path, t in kern.items():
-        u, w = plain[path].double(), f64[path]
-        d = (t.double() - u).abs()
-        tol = STEP1_TOL["atol"] + STEP1_TOL["rtol"] * u.abs()
-        ek, ep = (t.double() - w).abs(), (u - w).abs()
-        if part == "grads":
-            out["zero_in_one_path"] += int(
-                ((t == 0) != (plain[path] == 0)).sum())
-        if part == "params":
-            a, b = gk[path].double(), gp[path].double()
-            near = (a.abs() < ADAM_NEAR_ZERO) | (b.abs() < ADAM_NEAR_ZERO)
-            implied = lr * (a / (a.abs() + eps) - b / (b.abs() + eps)).abs()
-            tol = tol + implied * near
-            out["near_zero_grad"] += int(near.sum())
-            for key, v in (("max_abs_err", d), ("max_implied", implied),
-                           ("kernel_vs_f64", ek), ("plain_vs_f64", ep)):
-                key += "_near_zero_grad"
-                out[key] = max(out[key], worst(v, near))
-            d = d * ~near
-        out["outside"] += int((d > tol).sum())
-        out["elements"] += d.numel()
-        out["max_abs_err"] = max(out["max_abs_err"], worst(d))
-        out["max_scaled_err"] = max(out["max_scaled_err"], worst(d) / max(
-            u.abs().max().item(), 1e-30))
-        out["kernel_vs_f64"] = max(out["kernel_vs_f64"], worst(ek))
-        out["kernel_vs_f64_scaled"] = max(
-            out["kernel_vs_f64_scaled"],
-            worst(ek) / max(w.abs().max().item(), 1e-30))
-        out["plain_vs_f64"] = max(out["plain_vs_f64"], worst(ep))
+    for path, leaf in kern.items():
+        # a leaf in chunks of STEP1_CHUNK elements, so that the float64
+        # temporaries stay small beside a stage's 8192 x 8192 weight
+        top = {"d": 0.0, "u": 0.0, "ek": 0.0, "w": 0.0}
+        for lo in range(0, max(leaf.numel(), 1), STEP1_CHUNK):
+            def cut(x):
+                return x.reshape(-1)[lo:lo + STEP1_CHUNK]
+            t, u, w = cut(leaf), cut(plain[path]).double(), cut(f64[path])
+            d = (t.double() - u).abs()
+            tol = STEP1_TOL["atol"] + STEP1_TOL["rtol"] * u.abs()
+            ek, ep = (t.double() - w).abs(), (u - w).abs()
+            if part == "grads":
+                out["zero_in_one_path"] += int(
+                    ((t == 0) != (cut(plain[path]) == 0)).sum())
+            if part == "params":
+                a, b = cut(gk[path]).double(), cut(gp[path]).double()
+                near = ((a.abs() < ADAM_NEAR_ZERO)
+                        | (b.abs() < ADAM_NEAR_ZERO))
+                implied = lr * (a / (a.abs() + eps)
+                                - b / (b.abs() + eps)).abs()
+                tol = tol + implied * near
+                out["near_zero_grad"] += int(near.sum())
+                for key, v in (("max_abs_err", d), ("max_implied", implied),
+                               ("kernel_vs_f64", ek), ("plain_vs_f64", ep)):
+                    key += "_near_zero_grad"
+                    out[key] = max(out[key], worst(v, near))
+                d = d * ~near
+            out["outside"] += int((d > tol).sum())
+            out["elements"] += d.numel()
+            for key, v in (("d", d), ("u", u.abs()), ("ek", ek),
+                           ("w", w.abs())):
+                top[key] = max(top[key], worst(v))
+            out["plain_vs_f64"] = max(out["plain_vs_f64"], worst(ep))
+        out["max_abs_err"] = max(out["max_abs_err"], top["d"])
+        out["max_scaled_err"] = max(out["max_scaled_err"],
+                                    top["d"] / max(top["u"], 1e-30))
+        out["kernel_vs_f64"] = max(out["kernel_vs_f64"], top["ek"])
+        out["kernel_vs_f64_scaled"] = max(out["kernel_vs_f64_scaled"],
+                                          top["ek"] / max(top["w"], 1e-30))
     return out
 
 
-def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
-    """The train phase inside one rank (``launch/mesh.py: spawn``).
-    ``smoke`` takes the configs' CPU geometry, for a rehearsal with
-    ``device="cpu"``."""
+def _peak_rss_gib():
+    """The process's peak resident host memory so far (``ru_maxrss``)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+def _step1(axes, device, kcfg, xcfg):
+    """Step 1 through the kernels (``kcfg``), through plain torch
+    (``xcfg``) and through plain torch in float64, from the same shards
+    and batch: the kernel path against the other two, part by part
+    (``_step1_diff``)."""
     import gc
     import torch
-    from repro_torch.benchmarks.table1_energy import table1_config
     from repro_torch.core.ffn import ffn_loss_and_grads, init_ffn, local_batch
     from repro_torch.data.synthetic import TeacherDataset
-    from repro_torch.kernels import phantom_fused as pf
-    from repro_torch.launch.train_ffn import (BATCH, LR, SEED, train_config,
-                                              train_rank)
+    from repro_torch.launch.train_ffn import BATCH, LR, SEED
     from repro_torch.optim import AdamW
     from repro_torch.parallel.params import tree_map
 
-    comm = axes.world_comm
-    out = {"rank": axes.rank, "backend": comm.backend,
-           "via_host": comm.via_host}
-    kcfg, xcfg = (train_config(TRAIN_ARCH, smoke=smoke, impl="phantom",
-                               kernel_backend=b) for b in ("pallas", "xla"))
-
-    # step 1 through the kernels, through plain torch and through plain
-    # torch in float64, from the same shards and batch
     opt = AdamW(LR, weight_decay=0.0)
     params, state = init_ffn(kcfg, axes, opt, SEED, device)
     x, y = TeacherDataset(kcfg.ffn_width, BATCH, SEED, device)(0)
@@ -877,15 +909,38 @@ def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
         new_params, _ = opt.update(grads, state, params, 0)
         res[name] = {"loss": loss, "grads": grads, "params": new_params}
     p64 = tree_map(lambda t: t.double(), params)
+    del params, state
     loss, grads, _ = ffn_loss_and_grads(xcfg, axes, p64, x.double(),
                                         y.double(), BATCH)
     res["float64"] = {"loss": loss, "grads": grads,
                       "params": _adamw_step1(p64, grads, LR, opt.eps)}
-    out["step1"] = {part: _step1_diff(res, part, LR, opt.eps)
-                    for part in ("loss", "grads", "params")}
-    del res, params, p64, state, x, y
+    del p64, grads
+    gc.collect()
+    out = {part: _step1_diff(res, part, LR, opt.eps)
+           for part in ("loss", "grads", "params")}
+    del res, x, y
     gc.collect()
     torch.cuda.empty_cache()
+    return out
+
+
+def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
+    """The train phase inside one rank (``launch/mesh.py: spawn``).
+    ``smoke`` takes the configs' CPU geometry, for a rehearsal with
+    ``device="cpu"``."""
+    import torch
+    from repro_torch.benchmarks.table1_energy import table1_config
+    from repro_torch.kernels import phantom_fused as pf
+    from repro_torch.launch.train_ffn import train_config, train_rank
+
+    comm = axes.world_comm
+    out = {"rank": axes.rank, "backend": comm.backend,
+           "via_host": comm.via_host}
+    kcfg, xcfg = (train_config(TRAIN_ARCH, smoke=smoke, impl="phantom",
+                               kernel_backend=b) for b in ("pallas", "xla"))
+    out["step1"] = _step1(axes, device, kcfg, xcfg)
+    # the peak host memory after each part, for the host draws' share
+    out["peak_rss_gib"] = {"step1": _peak_rss_gib()}
 
     # --- the main path: counts from zero, read right after -------------
     kernels = (pf.phantom_fused_matmul, pf.matmul_nt, pf.matmul_tn)
@@ -894,10 +949,12 @@ def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
     out["phantom"] = train_rank(axes, device, kcfg, TRAIN_STEPS)
     out["launches"] = {k.__name__: k.launches for k in kernels}
     torch.cuda.empty_cache()
+    out["peak_rss_gib"]["phantom"] = _peak_rss_gib()
     out["tensor"] = train_rank(
         axes, device, train_config(TRAIN_ARCH, smoke=smoke, impl="tensor"),
         TRAIN_STEPS)
     torch.cuda.empty_cache()
+    out["peak_rss_gib"]["tensor"] = _peak_rss_gib()
 
     out["table1"] = {}
     for impl, k in (("tensor", 4), ("phantom", 4), ("phantom", 8),
@@ -909,6 +966,115 @@ def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
     t0 = time.perf_counter()
     out["energy"] = _energy_rank(axes, device, smoke)
     out["energy_s"] = time.perf_counter() - t0
+    out["peak_rss_gib"]["table1_and_energy"] = _peak_rss_gib()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["pipeline"] = _pipeline_rank(device, smoke)
+    out["pipeline_s"] = time.perf_counter() - t0
+    out["peak_rss_gib"].update(out["pipeline"].pop("peak_rss_gib"))
+    return out
+
+
+def _pipe_equivalence(pipe, flat, device, cfg):
+    """The pipelined probe on ``pipe`` against the same config's stages
+    run in sequence on ``flat`` (pipe 1) by the same 8 ranks, from the
+    same global weights and batch (``probe_inputs``: drawn on the host):
+    the loss, this rank's stage of the parameter gradients (the flat
+    run's stack holds every stage; both are cut by the same model
+    coordinate) and the global input gradient, each against the
+    reference's pipeline oracle."""
+    import gc
+    import torch
+    from repro_torch.launch.train_ffn import BATCH, SEED
+    from repro_torch.parallel.params import tree_leaves
+    from repro_torch.telemetry.probe import (make_ffn_pipeline_probe_step,
+                                             probe_inputs)
+    res = {}
+    for name, axes in (("pipe", pipe), ("flat", flat)):
+        fn, decls = make_ffn_pipeline_probe_step(cfg, axes, BATCH)
+        params, x, y = probe_inputs(cfg, axes, decls, BATCH, SEED, device)
+        loss, (grads, x_grad) = fn(params, x, y)
+        b, f = x.shape
+        full = torch.zeros((BATCH, cfg.ffn_width), device=x.device)
+        full[axes.dp_rank * b:(axes.dp_rank + 1) * b,
+             axes.tp_rank * f:(axes.tp_rank + 1) * f] = x_grad
+        res[name] = (float(loss), dict(tree_leaves(grads)),
+                     axes.world_comm.all_reduce(full))
+        del params, x, y, grads, x_grad
+        gc.collect()
+        torch.cuda.empty_cache()
+    (lp, gp, xp), (lf, gf, xf) = res["pipe"], res["flat"]
+
+    def held(a, b):
+        diff = (a - b).abs()
+        tol = EQUIV_TOL["atol"] + EQUIV_TOL["rtol"] * b.abs()
+        return diff.max().item(), int((diff > tol).sum()), diff.numel()
+    s = pipe.pp_rank
+    grads = [held(g[0], gf[path][s]) for path, g in gp.items()]
+    x_err = held(xp, xf)
+    return {"loss_pipe": lp, "loss_flat": lf,
+            "loss_rel": abs(lp - lf) / abs(lf),
+            "grads_max_abs": max(g[0] for g in grads),
+            "grads_outside": sum(g[1] for g in grads),
+            "grads_elements": sum(g[2] for g in grads),
+            "x_grad_max_abs": x_err[0], "x_grad_outside": x_err[1],
+            "x_grad_elements": x_err[2]}
+
+
+def _pipeline_rank(device, smoke=False):
+    """The pipeline phase inside one rank: paper-ffn-16k cut into
+    ``PIPE_PP`` stages on a pipe x dp x tp mesh of the same 8 ranks (new
+    groups), and the same config on pipe 1 x dp 4 x tp 2 as the
+    sequential reference.  Step 1 (``_step1``) and the equivalence
+    (``_pipe_equivalence``) first, then the main path: 20 pipelined
+    AdamW steps each of phantom through the kernels (counts from zero,
+    read right after) and of ``tensor_col``; then the pipelined probe's
+    ledger of both, its launches counted from zero."""
+    import gc
+    import torch
+    from repro_torch.kernels import phantom_fused as pf
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train_ffn import (BATCH, SEED, train_config,
+                                              train_rank)
+    from repro_torch.telemetry import measure_ffn_pipeline_step
+
+    pipe = make_local_mesh(PIPE_DP, PIPE_TP, PIPE_PP)
+    flat = make_local_mesh(PIPE_PP * PIPE_DP, PIPE_TP)
+    kcfg, xcfg, tcfg = (
+        train_config(TRAIN_ARCH, smoke=smoke, impl=impl, kernel_backend=b,
+                     pp=PIPE_PP, microbatches=PIPE_M)
+        for impl, b in (("phantom", "pallas"), ("phantom", "xla"),
+                        ("tensor", "pallas")))
+    out = {"rank": pipe.rank, "stage": pipe.pp_rank,
+           "step1": _step1(pipe, device, kcfg, xcfg),
+           "equivalence": _pipe_equivalence(pipe, flat, device, kcfg)}
+    rss = out["peak_rss_gib"] = {"pipe_step1_equivalence": _peak_rss_gib()}
+
+    # --- the main path: counts from zero, read right after -------------
+    kernels = (pf.phantom_fused_matmul, pf.matmul_nt, pf.matmul_tn)
+    for k in kernels:
+        k.launches = 0
+    out["phantom"] = train_rank(pipe, device, kcfg, TRAIN_STEPS)
+    out["launches"] = {k.__name__: k.launches for k in kernels}
+    gc.collect()
+    torch.cuda.empty_cache()
+    rss["pipe_phantom"] = _peak_rss_gib()
+    out["tensor"] = train_rank(pipe, device, tcfg, TRAIN_STEPS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rss["pipe_tensor"] = _peak_rss_gib()
+    out["ledger"] = {}
+    for name, cfg in (("tensor_col", tcfg), ("phantom", kcfg)):
+        for k in kernels:
+            k.launches = 0
+        measured, predicted = measure_ffn_pipeline_step(
+            cfg, pipe, BATCH, steps=ENERGY_STEPS, seed=SEED, device=device)
+        out["ledger"][name] = {
+            "measured": measured, "predicted": predicted,
+            "launches": {k.__name__: k.launches for k in kernels}}
+        gc.collect()
+        torch.cuda.empty_cache()
+    rss["pipe_ledger"] = _peak_rss_gib()
     return out
 
 
@@ -1126,10 +1292,158 @@ def phase_energy(train, smi):
               f"{row['energy_j_tp']:.1f} J, E_pp {row['energy_j_pp']:.1f} J, "
               f"saving {row['saving_fraction'] * 100:.1f}% (iterations "
               f"{iters})", flush=True)
-    path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
-    print(f"energy: ledger written to {path}; the probes took "
+    print(f"energy: the probes took "
           f"{max(r['energy_s'] for r in ranks):.1f} s in the ranks")
-    return ledger.report()
+    return ledger
+
+
+def phase_pipeline(train, ledger, smoke=False):
+    """Hold and print the ranks' pipeline phase (``_pipeline_rank``):
+    step 1 against the plain path and the sequential reference, the 20
+    pipelined steps and their launches, the pipelined probe's ledger
+    (recorded into ``ledger``).  ``smoke``: the ranks ran the configs'
+    CPU geometry."""
+    import math
+    from repro_torch.benchmarks.pipeline_smoke import boundary_bytes
+    from repro_torch.launch.train_ffn import BATCH, train_config
+    from repro_torch.telemetry import LedgerEntry
+    ranks = [r["pipeline"] for r in train["ranks"]]
+    cfg = train_config(TRAIN_ARCH, smoke=smoke, pp=PIPE_PP,
+                       microbatches=PIPE_M)
+    L_loc = cfg.num_layers // PIPE_PP
+    probe_steps = 1 + 1 + ENERGY_STEPS     # counted, warm-up, metered
+    for r in ranks:
+        rk, s = r["rank"], r["stage"]
+        for part, diff in r["step1"].items():
+            check(diff["outside"] == 0,
+                  f"pipeline rank {rk}: step-1 {part} of the kernel path "
+                  f"differ from the plain path in {diff['outside']} of "
+                  f"{diff['elements']} elements: {diff}")
+        for key in ("max_scaled_err", "kernel_vs_f64_scaled"):
+            check(r["step1"]["grads"][key] <= STEP1_TOL["rtol"],
+                  f"pipeline rank {rk}: step-1 gradients of the kernel "
+                  f"path differ by more than 1e-4 of the largest one "
+                  f"({key}): {r['step1']['grads']}")
+        eq = r["equivalence"]
+        check(eq["loss_rel"] <= EQUIV_LOSS_RTOL and eq["grads_outside"] == 0
+              and eq["x_grad_outside"] == 0,
+              f"pipeline rank {rk}: the pipelined probe differs from the "
+              f"stages run in sequence (loss rtol 2e-4, gradients rtol "
+              f"5e-4 / atol 1e-6): {eq}")
+        for name in ("phantom", "tensor"):
+            losses = r[name]["losses"]
+            check(all(math.isfinite(v) for v in losses),
+                  f"pipeline rank {rk}: non-finite {name} loss")
+            check(losses[-1] < losses[0],
+                  f"pipeline rank {rk}: {name} loss did not fall: {losses}")
+        for name, n in r["launches"].items():
+            check(n == PIPE_M * L_loc * TRAIN_STEPS,
+                  f"pipeline rank {rk}: {name} launched {n} times in "
+                  f"{TRAIN_STEPS} steps (want M x L_loc = "
+                  f"{PIPE_M * L_loc} per step)")
+        for name, pin in FLOPS_PIN.items():
+            e = r["ledger"][name]
+            m, pr = e["measured"], e["predicted"]
+            want = boundary_bytes(cfg, PIPE_PP, PIPE_DP, PIPE_TP, s, BATCH)
+            check(m["stage"] == s and
+                  m["boundary_wire_bytes_per_device"] == want,
+                  f"pipeline rank {rk} (stage {s}): {name} boundary bytes "
+                  f"{m['boundary_wire_bytes_per_device']}, its stage sends "
+                  f"{want}")
+            ratio = m["flops_per_device"] / pr["flops_per_device"]
+            check(abs(ratio - 1) <= pin and ratio >= 0.99,
+                  f"pipeline rank {rk}: {name} flops ratio {ratio:.4f} "
+                  f"outside [0.99, {1 + pin}] of executed=False")
+            layer = (m["collective_wire_bytes_per_device"]
+                     - m["boundary_wire_bytes_per_device"])
+            layer_pr = (pr["collective_wire_bytes_per_device"]
+                        - pr["boundary_wire_bytes_per_device"])
+            check(abs(layer / layer_pr - 1) <= 0.02,
+                  f"pipeline rank {rk}: {name} layer wire bytes {layer} vs "
+                  f"executed=False {layer_pr}: outside 1.00 +- 2%")
+            check(pr["executed"] is False and
+                  abs(pr["bubble_fraction"] - (PIPE_PP - 1)
+                      / (PIPE_M + PIPE_PP - 1)) < 1e-12,
+                  f"pipeline: prediction {pr['executed']} "
+                  f"{pr['bubble_fraction']}")
+        for name, launches in r["ledger"]["phantom"]["launches"].items():
+            check(launches == PIPE_M * L_loc * probe_steps,
+                  f"pipeline rank {rk}: {name} launched {launches} times in "
+                  f"{probe_steps} probe steps (want {PIPE_M * L_loc} each)")
+        check(not any(r["ledger"]["tensor_col"]["launches"].values()),
+              f"pipeline rank {rk}: tensor_col launched a phantom kernel")
+
+    def worst(part, key):
+        return max(r["step1"][part][key] for r in ranks)
+    print(f"pipeline: {TRAIN_ARCH} pipe {PIPE_PP} x dp {PIPE_DP} x tp "
+          f"{PIPE_TP}, M = {PIPE_M}, phantom step 1 kernel vs plain, worst "
+          f"over ranks (rtol 1e-4 / atol 1e-5): loss "
+          f"{worst('loss', 'max_abs_err'):.3e}, grads "
+          f"{worst('grads', 'max_abs_err'):.3e} "
+          f"({worst('grads', 'max_scaled_err'):.3e} of the largest), params "
+          f"{worst('params', 'max_abs_err'):.3e} (gradients within 10 eps "
+          f"of zero: {worst('params', 'near_zero_grad')} params per rank at "
+          f"most); kernel path vs float64: grads "
+          f"{worst('grads', 'kernel_vs_f64_scaled'):.3e} of the largest",
+          flush=True)
+    eqs = [r["equivalence"] for r in ranks]
+    print(f"pipeline: pipelined probe vs the stages in sequence on pipe 1 x "
+          f"dp 4 x tp 2, same global weights: loss {eqs[0]['loss_pipe']:.8f}"
+          f" vs {eqs[0]['loss_flat']:.8f} (rel {eqs[0]['loss_rel']:.3e}); "
+          f"worst over ranks grads {max(e['grads_max_abs'] for e in eqs):.3e}"
+          f", input grads {max(e['x_grad_max_abs'] for e in eqs):.3e}; "
+          f"outside rtol 5e-4 / atol 1e-6: "
+          f"{sum(e['grads_outside'] + e['x_grad_outside'] for e in eqs)}",
+          flush=True)
+    pp1 = train["ranks"]
+    for name in ("phantom", "tensor"):
+        med = [statistics.median(r[name]["step_s"]) * 1e3 for r in ranks]
+        flat = [statistics.median(r[name]["step_s"]) * 1e3 for r in pp1]
+        losses = ranks[0][name]["losses"]
+        print(f"pipeline: {name} {TRAIN_STEPS} pipelined steps, loss "
+              f"{losses[0]:.6f} -> {losses[-1]:.6f}; per-rank step median "
+              f"{', '.join(f'{m:.2f}' for m in med)} ms (pp = 1, dp 1 x tp "
+              f"8: {', '.join(f'{m:.2f}' for m in flat)} ms); initial draw "
+              f"on the host {max(r[name]['init_s'] for r in ranks):.2f} s "
+              f"(pp = 1: {max(r[name]['init_s'] for r in pp1):.2f} s) at "
+              f"most", flush=True)
+    print(f"pipeline: launches per rank over {TRAIN_STEPS} steps: "
+          f"{ranks[0]['launches']} (all ranks equal: "
+          f"{all(r['launches'] == ranks[0]['launches'] for r in ranks)})")
+    rss = {part: max(r["peak_rss_gib"][part] for r in train["ranks"])
+           for part in train["ranks"][0]["peak_rss_gib"]}
+    print("train and pipeline: peak host memory of a rank (ru_maxrss, the "
+          "largest over ranks) after each part, GiB: " + ", ".join(
+              f"{part} {v:.2f}" for part, v in rss.items()), flush=True)
+    for name in ("tensor_col", "phantom"):
+        by_stage = {}
+        for r in ranks:
+            by_stage.setdefault(r["stage"], r)
+        for s, r in sorted(by_stage.items()):
+            m, pr = (r["ledger"][name][k] for k in ("measured", "predicted"))
+            entry = ledger.record(LedgerEntry(
+                name=f"chip_smoke_pipeline_{name}_stage{s}",
+                suite="chip_smoke", kind="train", arch=TRAIN_ARCH,
+                impl=pr["strategy"], p=PIPE_TP, measured=m, predicted=pr,
+                extra={"pp": PIPE_PP, "dp": PIPE_DP, "tp": PIPE_TP,
+                       "microbatches": PIPE_M, "stage": s,
+                       "metered_steps": ENERGY_STEPS,
+                       "launches": r["ledger"][name]["launches"]}))
+            ratios = entry.ratios()
+            print(f"pipeline ledger: {name} stage {s} (rank {r['rank']}), "
+                  f"measured / executed=False / ratio: " + "; ".join(
+                      f"{k} {m[k]:.6g} / {pr[k]:.6g} / {ratios[k]:.6f}"
+                      for k in ("flops_per_device",
+                                "collective_wire_bytes_per_device",
+                                "boundary_wire_bytes_per_device",
+                                "collective_m_floats"))
+                  + f"; probe step wall median "
+                  f"{m['wall_us_median'] / 1e3:.2f} ms; bubble fraction "
+                  f"{pr['bubble_fraction']:.3f}", flush=True)
+    took = max(r["pipeline_s"] for r in train["ranks"])
+    print(f"pipeline: the phase took {took:.1f} s in the ranks")
+    return {"ranks": ranks, "peak_rss_gib": rss,
+            "launches": ranks[0]["launches"]}
 
 
 def _leaves(tree):
@@ -1153,6 +1467,10 @@ def main() -> int:
     serve = phase_serve()
     train = phase_train()
     ledger = phase_energy(train, device["nvidia_smi"])
+    pipeline = phase_pipeline(train, ledger)
+    path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
+    print(f"ledger written to {path}")
+    ledger = ledger.report()
 
     sweep = flash["sweep"]
     at = {S: next(r for r in sweep if all(
@@ -1173,8 +1491,10 @@ def main() -> int:
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
-        main_r = next(r for r in cases if r["dtype"] == "float32" and
-                      (r["M"], r["K"], r["N"], r["PK"]) == PHANTOM_MAIN)
+        main_r, pipe_r = (next(
+            r for r in cases if r["dtype"] == "float32" and
+            (r["M"], r["K"], r["N"], r["PK"]) == shape)
+            for shape in (PHANTOM_MAIN, PHANTOM_PIPE))
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/phantom_fused.cu",
@@ -1184,12 +1504,19 @@ def main() -> int:
             "ms": main_r["ms"], "plain_ms": main_r["plain_ms"],
             "bound_ms": main_r["bound_ms"], "bound_by": main_r["bound_by"],
             "library_ms": main_r["library_ms"],
-            "cold_ms": phantom["cold"][name]["cold_ms"]})
+            "cold_ms": phantom["cold"][name]["cold_ms"],
+            "pipe_rows8": {
+                "shape": list(PHANTOM_PIPE),
+                "launches": pipeline["launches"][name],
+                **{key: pipe_r[key] for key in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}}})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "flash": flash, "phantom": phantom,
-         "serve": serve, "train": train, "ledger": ledger,
+         "serve": serve, "train": train, "pipeline": pipeline,
+         "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

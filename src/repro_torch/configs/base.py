@@ -33,8 +33,9 @@ class PhantomConfig:
 
 @dataclass(frozen=True)
 class PipelineConfig:
-    """Layer-to-stage partitioning.  The port runs ``stages == 1`` only;
-    the paper-FFN step raises on more (``core/ffn.py``)."""
+    """Layer-to-stage partitioning (the pipe mesh axis): ``stages``
+    contiguous stages, each with its own strategy when ``stage_specs`` is
+    set (``core/ffn.py``)."""
     stages: int = 1
     stage_specs: tuple = ()          # per-stage ProjectionSpec overrides
 
@@ -50,6 +51,12 @@ class PipelineConfig:
             raise ValueError(
                 "stage_specs requires stages > 1 — a single-stage config "
                 "takes its strategy from the projection site spec")
+
+    @property
+    def mixed(self) -> bool:
+        """True when stages run DIFFERENT strategies (per-stage param
+        subtrees + runtime dispatch instead of one pipe-sharded stack)."""
+        return bool(self.stage_specs) and len(set(self.stage_specs)) > 1
 
 
 @dataclass(frozen=True)
@@ -185,6 +192,7 @@ class ModelConfig:
     attn_bf16_scores: bool = False  # bf16 score blocks in the plain core
     attn_kv_chunk: int = 0          # 0 = default chunking; -1 = one block
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
+    microbatches: int = 1           # the pipeline's microbatches (pp > 1)
 
     # paper-FFN-specific (family == "ffn")
     ffn_width: int = 0
@@ -226,6 +234,18 @@ class ModelConfig:
         if site in _PROJ_LEGACY_ATTN_SITES and pp.apply_attn_proj:
             return ph()
         return ProjectionSpec()
+
+    def stage_projection_spec(self, stage: int,
+                              site: str = "ffn_layer") -> ProjectionSpec:
+        """The ProjectionSpec governing `site` on pipeline stage `stage`
+        (per-stage override when ``pipeline.stage_specs`` is set, else the
+        site's spec)."""
+        if self.pipeline.stage_specs:
+            spec = self.pipeline.stage_specs[stage]
+            if spec.kind == "tensor":
+                spec = dataclasses.replace(spec, kind=PROJECTION_SITES[site])
+            return spec
+        return self.projection_spec(site)
 
     def resolved_head_dim(self) -> int:
         if self.head_dim:

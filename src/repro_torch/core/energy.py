@@ -143,6 +143,17 @@ def phantom_costs(n: int, p: int, L: int, k: int, batch: int,
     return costs_from_strategies([st], p, L, batch, peak_flops, fits)
 
 
+def pipeline_p2p_time_us(schedule, m_floats: float, fits=None, *,
+                         executed: bool = False) -> float:
+    """Per-device microseconds of stage-boundary p2p traffic for one
+    iteration of a ``PipelineSchedule`` — each event priced as a single
+    ``collective_permute`` hop of ``m_floats`` (the carried activation /
+    activation-grad shard)."""
+    return sum(comm_time_us(ev.collective, ev.m_floats, schedule.stages,
+                            fits)
+               for ev in schedule.p2p_events(m_floats, executed=executed))
+
+
 def energy_per_iteration(alpha_s: float, beta_s: float, p: int,
                          A: float = FRONTIER_A_W,
                          B: float = FRONTIER_B_W) -> float:

@@ -1,13 +1,15 @@
 """Ranks and their process groups: the port's counterpart of the
 reference's ``launch/mesh.py``.
 
-The reference runs one SPMD program over a ``(data, model)`` JAX mesh.
-The port starts one process per rank with ``spawn`` and, inside each,
-``make_local_mesh`` builds the rank's ``MeshAxes``: its coordinates and
-the tp, dp and world process groups, rank ``r = d * tp + t``.
+The reference runs one SPMD program over a ``(pipe, data, model)`` JAX
+mesh (``(data, model)`` at pp = 1).  The port starts one process per
+rank with ``spawn`` and, inside each, ``make_local_mesh`` builds the
+rank's ``MeshAxes``: its coordinates and the tp, dp, pp and world
+process groups, rank ``r = (s * dp + d) * tp + t``.  A pp group joins
+the ranks of equal ``(d, t)``, one per stage.
 
 Backend: NCCL when every rank has a card of its own
-(``torch.cuda.device_count() >= dp * tp``), gloo on the CPU or when
+(``torch.cuda.device_count() >= pp * dp * tp``), gloo on the CPU or when
 ranks share a card (NCCL refuses two ranks on one device).  Gloo's
 groups copy card tensors through the host (``parallel/axes.py: Group``),
 so collective times on a shared card measure the host, not NVLink.
@@ -34,47 +36,59 @@ def backend_for(device_type: str, world: int) -> str:
     return "gloo"
 
 
-def make_local_mesh(dp: int, tp: int) -> MeshAxes:
-    """This rank's ``MeshAxes`` on an initialised ``dp * tp`` world.
+def make_local_mesh(dp: int, tp: int, pp: int = 1) -> MeshAxes:
+    """This rank's ``MeshAxes`` on an initialised ``pp * dp * tp`` world.
     Every rank makes every group, in the same order, as
-    ``torch.distributed.new_group`` requires."""
+    ``torch.distributed.new_group`` requires; a world may hold the groups
+    of several meshes of its size, made one after another."""
     import torch.distributed as dist
     world = dist.get_world_size()
-    if world != dp * tp:
-        raise ValueError(f"world size {world} != dp {dp} x tp {tp}")
+    if world != pp * dp * tp:
+        raise ValueError(f"world size {world} != pp {pp} x dp {dp} "
+                         f"x tp {tp}")
     rank = dist.get_rank()
-    d, t = divmod(rank, tp)
+    s, rest = divmod(rank, dp * tp)
+    d, t = divmod(rest, tp)
     backend = dist.get_backend()
     via_host = backend == "gloo"
 
+    def at(ss, dd, tt):
+        return (ss * dp + dd) * tp + tt
+
     def group(ranks: Sequence[int], handle) -> Group:
         return Group(size=len(ranks), rank=list(ranks).index(rank),
-                     handle=handle, backend=backend, via_host=via_host)
+                     handle=handle, backend=backend, via_host=via_host,
+                     ranks=tuple(ranks))
 
-    tp_group = dp_group = Group()
-    if tp > 1:
-        for dd in range(dp):
-            ranks = [dd * tp + tt for tt in range(tp)]
-            h = dist.new_group(ranks)
-            if dd == d:
-                tp_group = group(ranks, h)
-    if dp > 1:
-        for tt in range(tp):
-            ranks = [dd * tp + tt for dd in range(dp)]
-            h = dist.new_group(ranks)
-            if tt == t:
-                dp_group = group(ranks, h)
+    def axis_group(size, members):
+        """This rank's group along an axis of ``size``; ``members`` lists
+        the axis's groups, one per coordinate of the other two axes."""
+        mine = Group()
+        if size > 1:
+            for others in members:
+                h = dist.new_group(others)
+                if rank in others:
+                    mine = group(others, h)
+        return mine
+
+    tp_group = axis_group(tp, [[at(ss, dd, tt) for tt in range(tp)]
+                               for ss in range(pp) for dd in range(dp)])
+    dp_group = axis_group(dp, [[at(ss, dd, tt) for dd in range(dp)]
+                               for ss in range(pp) for tt in range(tp)])
+    pp_group = axis_group(pp, [[at(ss, dd, tt) for ss in range(pp)]
+                               for dd in range(dp) for tt in range(tp)])
     world_group = (group(range(world), None) if world > 1 else Group())
-    return MeshAxes(tp=tp, dp=dp, tp_rank=t, dp_rank=d, tp_group=tp_group,
-                    dp_group=dp_group, world_group=world_group)
+    return MeshAxes(tp=tp, dp=dp, pp=pp, tp_rank=t, dp_rank=d, pp_rank=s,
+                    tp_group=tp_group, dp_group=dp_group, pp_group=pp_group,
+                    world_group=world_group)
 
 
-def _rank_main(rank: int, dp: int, tp: int, device_type: str,
+def _rank_main(rank: int, pp: int, dp: int, tp: int, device_type: str,
                init_file: str, fn: Callable, args: tuple,
                timeout_s: float, results) -> None:
     import torch.distributed as dist
     try:
-        world = dp * tp
+        world = pp * dp * tp
         backend = backend_for(device_type, world)
         if device_type == "cuda":
             device = torch.device("cuda", rank % torch.cuda.device_count())
@@ -87,7 +101,7 @@ def _rank_main(rank: int, dp: int, tp: int, device_type: str,
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
-        out = fn(make_local_mesh(dp, tp), device, *args)
+        out = fn(make_local_mesh(dp, tp, pp), device, *args)
         results.put((rank, True, out))
     except Exception:
         results.put((rank, False, traceback.format_exc()))
@@ -97,9 +111,9 @@ def _rank_main(rank: int, dp: int, tp: int, device_type: str,
 
 
 def spawn(fn: Callable, dp: int, tp: int, device=None, args: tuple = (),
-          timeout_s: float = 600.0) -> List[Any]:
-    """Run ``fn(axes, device, *args)`` on ``dp * tp`` ranks and return
-    their results, ordered by rank.
+          timeout_s: float = 600.0, pp: int = 1) -> List[Any]:
+    """Run ``fn(axes, device, *args)`` on ``pp * dp * tp`` ranks and
+    return their results, ordered by rank.
 
     ``fn`` must be importable (a module-level function) and return
     picklable values (numpy arrays, not tensors).  ``device`` is the
@@ -111,13 +125,13 @@ def spawn(fn: Callable, dp: int, tp: int, device=None, args: tuple = (),
     the timeout instead of hanging."""
     import torch.multiprocessing as mp
     dev = resolve_device(device)
-    world = dp * tp
+    world = pp * dp * tp
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, dp, tp, dev.type, f"{tmp}/init", fn, args,
-                               timeout_s, results))
+                         args=(r, pp, dp, tp, dev.type, f"{tmp}/init", fn,
+                               args, timeout_s, results))
              for r in range(world)]
     out = {}
     deadline = time.monotonic() + timeout_s

@@ -5,17 +5,20 @@ The reference binds logical axes (``dp``, ``tp``, ``pp``) to a JAX mesh
 and runs every step inside ``shard_map``: one program over all devices.
 The port runs one process per rank (``launch/mesh.py: spawn``).  A
 rank's ``MeshAxes`` carries the axis sizes, its own coordinates and the
-``Group``s that its collectives run over.  Rank ``r = d * tp + t``: data
-major, model minor, the order of the reference's ``(data, model)`` mesh.
+``Group``s that its collectives run over.  Rank
+``r = (s * dp + d) * tp + t``: pipe outermost, model innermost, the
+order of the reference's ``(pipe, data, model)`` mesh.
 
-``MeshAxes()`` (dp = tp = 1, no groups) is the one-device case: every
-collective is the identity.  Sizes above 1 without groups are allowed
-for declarations and parameter counts; a collective over such an axis
-raises.  ``pp > 1`` raises: the pipeline is not ported.
+``MeshAxes()`` (pp = dp = tp = 1, no groups) is the one-device case:
+every collective is the identity.  Sizes above 1 without groups are
+allowed for declarations and parameter counts; a collective over such
+an axis raises.
 
 ``record_collectives()`` logs every collective a ``Group`` issues while
 it is open: the measured half of the energy ledger's wire bytes
 (``telemetry/counted.py``), as the reference reads them from the HLO.
+A pipeline stage's send to its neighbour is logged as the reference's
+``collective_permute``, on the sending rank.
 """
 from __future__ import annotations
 
@@ -26,8 +29,6 @@ from typing import Any, Iterator, List, Optional
 
 import torch
 
-PIPELINE_TODO = ("ROADMAP.md queue 1, item 5 (pipeline: 1F1B over "
-                 "isend/irecv)")
 SERVE_TP_TODO = ("ROADMAP.md queue 1, item 1 (serving at tp > 1: the "
                  "sequence-sharded decode cache, ring attention and the "
                  "residual layouts)")
@@ -86,7 +87,9 @@ def _issued(collective: str, t: torch.Tensor, size: int, issued_as: str):
 
 @dataclass(frozen=True)
 class Group:
-    """One process group of ``size`` ranks, this rank at ``rank``.
+    """One process group of ``size`` ranks, this rank at ``rank``;
+    ``ranks`` are the members' global ranks, in group order (empty for
+    the one-rank group that needs no process group).
 
     ``via_host`` is fixed when the group is made, from its backend: gloo
     cannot run every collective on CUDA tensors, so with gloo a card
@@ -98,6 +101,7 @@ class Group:
     handle: Any = field(default=None, compare=False, repr=False)
     backend: str = "none"
     via_host: bool = False
+    ranks: tuple = ()
 
     def _run(self, t: torch.Tensor, op):
         src = t.detach().contiguous()
@@ -162,6 +166,38 @@ class Group:
             return x
         return self._run(t, op)
 
+    def send(self, t: torch.Tensor, dst: int) -> "Sent":
+        """Start sending ``t`` to group rank ``dst`` and return at once;
+        the returned ``Sent.wait()`` ends the send.  A send never blocks,
+        so two neighbours that both send first cannot deadlock.  Logged
+        as ``collective_permute`` (one hop) on this, the sending, rank."""
+        import torch.distributed as dist
+        _issued("collective_permute", t, self.size, "isend")
+        buf = t.detach().contiguous()
+        if self.via_host:
+            buf = buf.cpu()
+        return Sent(dist.isend(buf, self.ranks[dst], group=self.handle), buf)
+
+    def recv(self, like: torch.Tensor, src: int) -> torch.Tensor:
+        """Receive a tensor shaped and typed like ``like`` from group rank
+        ``src``, on ``like``'s device; blocks until it has arrived."""
+        import torch.distributed as dist
+        buf = torch.empty(like.shape, dtype=like.dtype,
+                          device="cpu" if self.via_host else like.device)
+        dist.recv(buf, self.ranks[src], group=self.handle)
+        return buf.to(like.device)
+
+
+@dataclass
+class Sent:
+    """A send under way: ``wait()`` ends it.  Holds the buffer being sent
+    (a host copy under gloo) until then."""
+    work: Any
+    buf: torch.Tensor
+
+    def wait(self) -> None:
+        self.work.wait()
+
 
 @dataclass(frozen=True)
 class MeshAxes:
@@ -169,21 +205,21 @@ class MeshAxes:
     dp: int = 1                      # data-parallel ways
     pp: int = 1                      # pipeline stages
     tp_rank: int = 0                 # this rank's coordinate on the model axis
-    dp_rank: int = 0                 # ... and on the data axis
+    dp_rank: int = 0                 # ... on the data axis
+    pp_rank: int = 0                 # ... and its pipeline stage
     tp_group: Optional[Group] = field(default=None, compare=False)
     dp_group: Optional[Group] = field(default=None, compare=False)
+    pp_group: Optional[Group] = field(default=None, compare=False)
     world_group: Optional[Group] = field(default=None, compare=False)
 
     def __post_init__(self):
-        if self.pp != 1:
-            raise NotImplementedError(
-                f"mesh pp={self.pp}: see {PIPELINE_TODO}")
-        if min(self.tp, self.dp) < 1:
-            raise ValueError(f"mesh dp={self.dp} tp={self.tp}")
+        if min(self.tp, self.dp, self.pp) < 1:
+            raise ValueError(f"mesh pp={self.pp} dp={self.dp} tp={self.tp}")
 
     @property
     def rank(self) -> int:
-        return self.dp_rank * self.tp + self.tp_rank
+        return ((self.pp_rank * self.dp + self.dp_rank) * self.tp
+                + self.tp_rank)
 
     def _group(self, g: Optional[Group], size: int, name: str) -> Group:
         if g is not None:
@@ -203,8 +239,13 @@ class MeshAxes:
         return self._group(self.dp_group, self.dp, "dp")
 
     @property
+    def pp_comm(self) -> Group:
+        return self._group(self.pp_group, self.pp, "pp")
+
+    @property
     def world_comm(self) -> Group:
-        return self._group(self.world_group, self.tp * self.dp, "dp*tp")
+        return self._group(self.world_group, self.tp * self.dp * self.pp,
+                           "pp*dp*tp")
 
 
 def resolve_device(device=None) -> torch.device:

@@ -8,6 +8,10 @@ package's decl tree, layers stacked on axis 0.  From one decl tree:
     explicit ``torch.Generator`` (torch cannot reproduce ``jax.random``
     streams, so parity tests build parameters with the reference and
     hand them over through ``from_jax_params``);
+  * ``materialize_shards(decls, axes, seed, device)`` -> one rank's
+    shards of the global tree ``materialize`` draws from a CPU generator
+    seeded ``seed``: the same numbers whatever the device, since torch's
+    CUDA generator draws others than its CPU one for the same seed;
   * ``param_count(decls)``;
   * ``stack(decls, n)`` -> per-layer decls with a leading layer axis;
   * ``shard_params(tree, decls, axes)`` -> one rank's local views, cut as
@@ -15,7 +19,7 @@ package's decl tree, layers stacked on axis 0.  From one decl tree:
     inverse over all ranks' local trees.
 
 ``spec`` keeps the reference's sharded-dim names as plain strings
-(``"tp"``, ``"dp"`` or ``None`` per dim).
+(``"tp"``, ``"dp"``, ``"pp"`` or ``None`` per dim).
 """
 from __future__ import annotations
 
@@ -91,6 +95,21 @@ def materialize(decls, generator: torch.Generator, device=None):
     return tree_unflatten(decls, flat)
 
 
+def materialize_shards(decls, axes, seed: int, device):
+    """This rank's shards of the global parameters that
+    ``materialize(decls, torch.Generator().manual_seed(seed))`` draws:
+    each leaf drawn on the host in the same sorted path order, cut to
+    the rank's shard (``shard_params``), and only the shard moved to
+    ``device``.  The host holds one global leaf at a time."""
+    gen = torch.Generator().manual_seed(seed)
+    flat = {}
+    for path, d in tree_leaves(decls):
+        leaf = materialize(d, gen, "cpu")
+        flat[path] = shard_params(leaf, d, axes).to(device)
+        del leaf
+    return tree_unflatten(decls, flat)
+
+
 def tree_unflatten(tree, flat, prefix: str = ""):
     """Nested dict shaped like ``tree`` with leaves taken from ``flat``
     (path -> leaf, paths as ``tree_leaves`` names them)."""
@@ -119,12 +138,14 @@ def from_jax_params(numpy_tree, device=None):
     return tree_map(conv, numpy_tree)
 
 
-def _block(spec, d: int, t: int, dp: int, tp: int, shape):
-    """Index of rank (d, t)'s block of a tensor of global ``shape``."""
+def _block(spec, coords: dict, shape):
+    """Index of a rank's block of a tensor of global ``shape``;
+    ``coords`` maps each axis name to (its size, the rank's coordinate
+    on it)."""
     idx = []
     for dim, size in enumerate(shape):
         entry = spec[dim] if dim < len(spec) else None
-        ways, at = {"tp": (tp, t), "dp": (dp, d), None: (1, 0)}[entry]
+        ways, at = coords.get(entry, (1, 0))
         if size % ways:
             raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
                              f"over {ways} ({entry})")
@@ -133,25 +154,29 @@ def _block(spec, d: int, t: int, dp: int, tp: int, shape):
     return tuple(idx)
 
 
+def _coords(s: int, d: int, t: int, pp: int, dp: int, tp: int) -> dict:
+    return {"tp": (tp, t), "dp": (dp, d), "pp": (pp, s)}
+
+
 def shard_params(global_tree, decls, axes):
     """This rank's local copies of a GLOBAL parameter tree: each leaf cut
     along the dims its decl's spec names (``"tp"`` by the rank's model
-    coordinate, ``"dp"`` by its data coordinate), replicated elsewhere."""
+    coordinate, ``"dp"`` by its data coordinate, ``"pp"`` by its pipeline
+    stage), replicated elsewhere."""
+    coords = _coords(axes.pp_rank, axes.dp_rank, axes.tp_rank, axes.pp,
+                     axes.dp, axes.tp)
     flat = {}
     dflat = dict(tree_leaves(decls))
     for path, t in tree_leaves(global_tree):
-        d = dflat[path]
-        sl = _block(d.spec, axes.dp_rank, axes.tp_rank, axes.dp, axes.tp,
-                    t.shape)
-        flat[path] = t[sl].clone()
+        flat[path] = t[_block(dflat[path].spec, coords, t.shape)].clone()
     return tree_unflatten(global_tree, flat)
 
 
-def gather_params(local_trees, decls, dp: int, tp: int):
+def gather_params(local_trees, decls, dp: int, tp: int, pp: int = 1):
     """The GLOBAL tree from every rank's local tree (``local_trees[r]``
-    for rank ``r = d * tp + t``, numpy or torch leaves): the inverse of
-    ``shard_params``.  Replicated dims take the block of the last rank
-    that holds them."""
+    for rank ``r = (s * dp + d) * tp + t``, numpy or torch leaves): the
+    inverse of ``shard_params``.  Replicated dims take the block of the
+    last rank that holds them."""
     dflat = dict(tree_leaves(decls))
     flat = {}
     for path, _ in tree_leaves(local_trees[0]):
@@ -159,12 +184,13 @@ def gather_params(local_trees, decls, dp: int, tp: int):
         leaves = [dict(tree_leaves(tr))[path] for tr in local_trees]
         local = np.asarray(leaves[0])
         shape = tuple(
-            n * {"tp": tp, "dp": dp, None: 1}[
-                d.spec[i] if i < len(d.spec) else None]
+            n * {"tp": tp, "dp": dp, "pp": pp}.get(
+                d.spec[i] if i < len(d.spec) else None, 1)
             for i, n in enumerate(local.shape))
         out = np.empty(shape, local.dtype)
         for r, leaf in enumerate(leaves):
-            dd, tt = divmod(r, tp)
-            out[_block(d.spec, dd, tt, dp, tp, shape)] = np.asarray(leaf)
+            s, rest = divmod(r, dp * tp)
+            coords = _coords(s, *divmod(rest, tp), pp, dp, tp)
+            out[_block(d.spec, coords, shape)] = np.asarray(leaf)
         flat[path] = out
     return tree_unflatten(local_trees[0], flat)

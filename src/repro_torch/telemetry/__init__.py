@@ -12,8 +12,9 @@ Three pieces, one join:
     energy model
 
 ``Ledger`` records entries joining the views and writes the report to
-the path its caller gives.  Serving, pipeline, KV-transfer and recovery
-predictions are not ported yet (ROADMAP.md queue 1, item 4).
+the path its caller gives.  The pipelined step has its probe and
+prediction too; serving, KV-transfer and recovery predictions are not
+ported yet (ROADMAP.md queue 1, item 4).
 """
 from repro_torch.telemetry.counted import MeasuredCosts, count_step
 from repro_torch.telemetry.ledger import (SCHEMA, Ledger, LedgerEntry,
@@ -24,14 +25,21 @@ from repro_torch.telemetry.predict import (event_wire_bytes, events_for,
                                            fused_ffn_step_prediction,
                                            fused_kernel_step_events,
                                            measured_energy_fields,
+                                           pipeline_ffn_step_events,
+                                           pipeline_ffn_step_prediction,
                                            strategy_prediction)
-from repro_torch.telemetry.probe import make_ffn_probe_step, measure_ffn_step
+from repro_torch.telemetry.probe import (make_ffn_pipeline_probe_step,
+                                         make_ffn_probe_step,
+                                         measure_ffn_pipeline_step,
+                                         measure_ffn_step)
 
 __all__ = [
     "MeasuredCosts", "count_step", "SCHEMA", "Ledger",
     "LedgerEntry", "load_report", "StepMeter", "measure",
     "event_wire_bytes", "events_for", "ffn_step_prediction",
     "fused_ffn_step_prediction", "fused_kernel_step_events",
-    "measured_energy_fields", "strategy_prediction",
-    "make_ffn_probe_step", "measure_ffn_step",
+    "measured_energy_fields", "pipeline_ffn_step_events",
+    "pipeline_ffn_step_prediction", "strategy_prediction",
+    "make_ffn_pipeline_probe_step", "make_ffn_probe_step",
+    "measure_ffn_pipeline_step", "measure_ffn_step",
 ]

@@ -16,6 +16,8 @@ counts what it does:
     (``telemetry/predict.py: event_wire_bytes``).  A logical collective
     that the backend runs as another (gloo's reduce-scatter is an
     all-reduce) keeps its logical wire bytes; ``issued_as`` says what ran.
+    A pipeline stage's send to its neighbour is a ``collective_permute``
+    of one hop: its message's bytes, counted on the sending rank.
 
 XLA's HBM bytes (``hbm_bytes_per_device``) have no torch counterpart, so
 the measured fields leave that key out; the prediction has no such key
@@ -29,7 +31,7 @@ from typing import Callable, Tuple
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from repro_torch.parallel.axes import record_collectives
+from repro_torch.parallel.axes import record_collectives, resolve_device
 from repro_torch.parallel.strategies.base import CommEvent
 from repro_torch.telemetry.predict import event_wire_bytes
 
@@ -73,9 +75,10 @@ def collective_costs(events) -> dict:
 def count_step(fn: Callable, *args,
                device=None) -> Tuple[MeasuredCosts, object]:
     """Run ``fn(*args)`` once, counting its flops and its collectives;
-    returns ``(MeasuredCosts, fn's result)``.  With ``device`` the card,
+    returns ``(MeasuredCosts, fn's result)``.  ``device`` is where ``fn``
+    runs: the card unless the caller asks for the CPU; on the card,
     ``memory`` holds the peak bytes allocated during the step."""
-    on_card = torch.device(device or "cpu").type == "cuda"
+    on_card = resolve_device(device).type == "cuda"
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

@@ -4,7 +4,8 @@
 samples; the first ``warmup`` calls are recorded but left out of the
 summary.  On the card a call is timed with CUDA events around it on the
 current stream, synchronised at the end, so asynchronous launches cannot
-hide the device work; on the CPU with ``time.perf_counter``.
+hide the device work; on the CPU, when the caller asks for it, with
+``time.perf_counter``.
 
 ``measure(fn, *args)`` is the one-shot variant the benchmarks use: the
 median of ``iters`` timed calls after ``warmup`` untimed ones.  The
@@ -19,14 +20,17 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch.parallel.axes import resolve_device
+
 
 class StepMeter:
-    """Records per-call time (microseconds) for one step function."""
+    """Records per-call time (microseconds) for one step function that
+    runs on ``device``: the card unless the caller asks for the CPU."""
 
     def __init__(self, name: str, warmup: int = 1, device=None):
         self.name = name
         self.warmup = warmup
-        self.device = torch.device(device or "cpu")
+        self.device = resolve_device(device)
         self.times_us: list[float] = []
 
     def call(self, fn: Callable, *args, **kwargs):

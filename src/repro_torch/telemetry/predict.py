@@ -16,8 +16,10 @@ collectives the ranks issued (``telemetry/counted.py``):
 
 with ``m`` the per-rank message in floats (the ``CommEvent`` unit).
 
-Serving, pipeline, KV-transfer and recovery predictions are not ported:
-they come with the slices that port those paths (ROADMAP.md queue 1).
+The pipelined step's account (``pipeline_ffn_step_events`` /
+``pipeline_ffn_step_prediction``) is the reference's, both accounts.
+Serving, KV-transfer and recovery predictions are not ported: they come
+with the slices that port those paths (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -190,3 +192,109 @@ def fused_ffn_step_prediction(cfg, p: int, global_batch: int, *,
     pred["hbm_bytes_saved_per_device"] = (2.0 * z_bytes * passes
                                           * cfg.num_layers)
     return pred
+
+
+def pipeline_ffn_step_events(cfg, pp: int, tp: int, dp: int,
+                             global_batch: int, *,
+                             executed: bool = True) -> dict:
+    """The per-step collective account of the pipelined paper-FFN step
+    as ``(CommEvent, group, repeats)`` triples, with the schedule /
+    strategy context the prediction needs.  ``group`` is the mesh-axis
+    size each event runs over (permute -> pp, gradient all-reduce ->
+    dp, layer collectives -> tp)."""
+    from repro_torch.core.ffn import ffn_stage_strategies
+    from repro_torch.train.pipeline import PipelineSchedule
+
+    if cfg.pipeline.mixed:
+        raise ValueError("per-device prediction needs homogeneous stages "
+                         "(mixed stages run different per-rank programs)")
+    M = max(cfg.microbatches, 1)
+    sched = PipelineSchedule(stages=pp, microbatches=M)
+    st = ffn_stage_strategies(cfg, tp)[0]
+    L_loc = cfg.num_layers // max(pp, 1)
+    rows_mb = global_batch / max(dp, 1) / M
+    reps = sched.num_ticks if executed else M
+
+    layer_events = [(ev, reps * L_loc) for ev in st.comm_events(rows_mb)]
+    m_boundary = rows_mb * cfg.ffn_width / max(tp, 1)
+    p2p = sched.p2p_events(m_boundary, executed=executed)
+    events = layer_events + [(ev, 1) for ev in p2p]
+    if dp > 1:
+        # dp gradient sync of this device's stage-local (tp-sharded)
+        # param grads — once per step, after the pipeline
+        m_grads = L_loc * st.param_count() / max(tp, 1)
+        events.append((CommEvent("all_reduce", m_grads, "bwd"), 1))
+
+    def group(ev):
+        if ev.collective in ("collective_permute", "p2p"):
+            return pp
+        return dp if ev.collective == "all_reduce" else tp
+
+    return {
+        "events": [(ev, group(ev), n) for ev, n in events],
+        "p2p": p2p,
+        "schedule": sched,
+        "strategy": st,
+        "rows_mb": rows_mb,
+        "L_loc": L_loc,
+        "reps": reps,
+    }
+
+
+def pipeline_ffn_step_prediction(cfg, pp: int, tp: int, dp: int,
+                                 global_batch: int, *,
+                                 executed: bool = True,
+                                 peak_flops: float = H100_PEAK_FLOPS_FP32,
+                                 fits=None, A: float = FRONTIER_A_W,
+                                 B: float = FRONTIER_B_W,
+                                 itemsize: float = FLOAT_BYTES) -> dict:
+    """The ledger's ``predicted`` block for one PIPELINED paper-FFN step
+    on a pp×dp×tp mesh (homogeneous stages).
+
+    ``executed=True`` predicts the reference's SPMD 1F1B emulation —
+    every rank applies its stage at every wavefront tick (bubbles
+    compute on masked garbage) and ppermutes at every tick but the last,
+    forward and transposed-backward alike.  ``executed=False`` is the
+    ideal deployment account (bubbles idle; M sends per boundary per
+    direction): the port's pipeline executes it (``telemetry/probe.py``
+    says how a rank's boundary sends differ by stage).
+
+    The stage-boundary message is the carried feature shard:
+    ``rows_mb * n / tp`` floats per device per hop.
+    """
+    acct = pipeline_ffn_step_events(cfg, pp, tp, dp, global_batch,
+                                    executed=executed)
+    sched, st = acct["schedule"], acct["strategy"]
+    M = sched.microbatches
+
+    alpha_s = (3.0 * acct["reps"] * acct["L_loc"]
+               * st.flops(acct["rows_mb"])) / peak_flops
+    events = acct["events"]
+    wire = sum(event_wire_bytes(ev, g, itemsize) * nrep
+               for ev, g, nrep in events)
+    boundary_wire = sum(event_wire_bytes(ev, pp, itemsize)
+                        for ev in acct["p2p"])
+    m_floats = sum(ev.m_floats * nrep for ev, _, nrep in events)
+    comm_us = sum(comm_time_us(ev.collective, ev.m_floats, g, fits)
+                  * nrep for ev, g, nrep in events)
+    beta_s = comm_us * 1e-6
+    devices = pp * dp * tp
+    return {
+        "flops_per_device": alpha_s * peak_flops,
+        "collective_wire_bytes_per_device": wire,
+        "boundary_wire_bytes_per_device": boundary_wire,
+        "collective_m_floats": m_floats,
+        "comm_us": comm_us,
+        "alpha_s": alpha_s,
+        "beta_s": beta_s,
+        "energy_j_per_iter": energy_per_iteration(alpha_s, beta_s,
+                                                  devices, A, B),
+        "training": True,
+        "model": "E = nu*p*(A*alpha + B*beta), 1F1B pipeline",
+        "A_w": A, "B_w": B, "peak_flops": peak_flops,
+        "pp": pp, "tp": tp, "dp": dp, "microbatches": M,
+        "ticks": sched.num_ticks,
+        "bubble_fraction": sched.bubble_fraction,
+        "executed": executed,
+        "strategy": st.kind,
+    }

@@ -37,17 +37,23 @@ FLASH_TOL_F32 = dict(rtol=2e-3, atol=2e-4)
 FLASH_TOL_BF16 = 1e-2      # of sum_j p_j |v_j|
 
 # (M, K, N, PK): the reference's sweeps (tests/test_kernels.py:13-19 and
-# :108-114) and the Table I mini-run's per-rank shapes (n=1024, p=8)
+# :108-114), the Table I mini-run's per-rank shapes (n=1024, p=8) and
+# 8-row microbatches of a pipeline stage
 PHANTOM_SHAPES = [
     (128, 128, 128, 64), (256, 128, 128, 128), (128, 256, 384, 32),
     (512, 128, 256, 256), (128, 512, 128, 16),
     (192, 128, 128, 64), (192, 192, 192, 48), (100, 72, 56, 24),
     (130, 257, 129, 65), (128, 128, 300, 64),
     (64, 128, 128, 32), (64, 128, 128, 128),
+    (8, 128, 128, 32), (8, 256, 192, 16),
 ]
 PHANTOM_BF16_SHAPES = [(128, 128, 128, 64), (100, 72, 56, 24),
-                       (130, 257, 129, 65), (64, 128, 128, 32)]
+                       (130, 257, 129, 65), (64, 128, 128, 32),
+                       (8, 128, 128, 32)]
 PHANTOM_MAIN = (64, 2048, 2048, 128)
+# a stage's microbatch of paper-ffn-16k at pipe 2 x dp 2 x tp 2, M = 4:
+# 64 / (2 * 4) rows, n / tp = 8192, k * tp = 32
+PHANTOM_PIPE = (8, 8192, 8192, 32)
 
 # (B, S, H, KV, hd): GQA groups of 1, 2 and 16; hd 16 to 128
 FLASH_SHAPES = [
@@ -94,7 +100,9 @@ def _phantom_cases():
 @pytest.mark.parametrize("shape,dtype,offset",
                          [c + (0,) for c in _phantom_cases()]
                          + [(PHANTOM_MAIN, "float32", 0),
-                            ((64, 256, 192, 32), "float32", 1)])
+                            (PHANTOM_PIPE, "float32", 0),
+                            ((64, 256, 192, 32), "float32", 1),
+                            ((8, 256, 192, 32), "float32", 1)])
 def test_cuda_kernels_match_plain(cuda_device, shape, dtype, offset):
     """Each phantom kernel launches once, agrees with its plain version
     and gives the same bits on a second launch.  ``offset`` 1: every
@@ -128,7 +136,8 @@ def test_cuda_kernels_match_plain(cuda_device, shape, dtype, offset):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,offset", [(s, 0) for s in PHANTOM_SHAPES]
-                         + [(PHANTOM_MAIN, 0), ((64, 256, 192, 32), 1),
+                         + [(PHANTOM_MAIN, 0), (PHANTOM_PIPE, 0),
+                            ((64, 256, 192, 32), 1),
                             ((130, 257, 129, 65), 1)])
 def test_cuda_kernels_counted_by_formula(cuda_device, shape, offset):
     """``FlopCounterMode`` counts each kernel, called through its
@@ -194,6 +203,35 @@ def test_wgrad_grid_and_variants(cuda_device, monkeypatch, M, I0, I1, N,
     assert pf.matmul_tn.launches == before + 1
     _close(got, matmul_tn_ref(torch.cat([x, g], 1), dz), PHANTOM_TOL[dtype])
     assert torch.equal(got, pf.matmul_tn(x, dz, g)), "two launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pp", [1, 2])
+def test_card_shards_equal_the_host_draw(cuda_device, pp):
+    """The parameters and probe batch a rank draws for a card run are
+    its CPU run's bit for bit: both are cut from one draw on the host."""
+    from repro_torch.configs.base import PipelineConfig, get_config
+    from repro_torch.core.ffn import ffn_decls, init_ffn
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import tree_leaves
+    from repro_torch.telemetry.probe import probe_inputs
+    cfg = get_config("paper-ffn-16k", smoke=True).replace(
+        pipeline=PipelineConfig(stages=pp), microbatches=2)
+    axes = MeshAxes(pp=pp, dp=2, tp=2, pp_rank=pp - 1, dp_rank=1, tp_rank=1)
+    decls = ffn_decls(cfg, axes)
+    runs = {dev: (init_ffn(cfg, axes, AdamW(1e-3), 5, dev)[0],
+                  probe_inputs(cfg, axes, decls, 16, 5, dev))
+            for dev in ("cpu", cuda_device)}
+    (p_cpu, (q_cpu, x_cpu, y_cpu)), (p_card, (q_card, x_card, y_card)) = \
+        runs["cpu"], runs[cuda_device]
+    for tree_cpu, tree_card in ((p_cpu, p_card), (q_cpu, q_card)):
+        for (path, a), (_, b) in zip(tree_leaves(tree_cpu),
+                                     tree_leaves(tree_card)):
+            assert b.device.type == "cuda"
+            assert torch.equal(a, b.cpu()), path
+    assert torch.equal(x_cpu, x_card.cpu()) and torch.equal(y_cpu,
+                                                            y_card.cpu())
 
 
 def _flash_inputs(B, S, H, KV, hd, dtype, device, seed=0):

@@ -10,9 +10,8 @@
   rtol 1e-5, final parameters to rtol 1e-4 / atol 1e-5.
 * SGD and AdamW updates and the schedules, against the reference's.
 * ``gaussian_teacher`` bit for bit; ``ffn_model_params`` exactly.
+* ``init_ffn``: each rank's shard of one global draw on the host.
 """
-import dataclasses
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,7 +34,7 @@ from repro.parallel.params import materialize as jax_materialize
 from repro_torch.configs.base import (ModelConfig, PhantomConfig,
                                       PipelineConfig, dense_projection_map,
                                       get_config, phantom_projection_map)
-from repro_torch.core.ffn import (ffn_decls, ffn_model_params,
+from repro_torch.core.ffn import (ffn_decls, ffn_model_params, init_ffn,
                                   make_ffn_forward, make_ffn_train_step)
 from repro_torch.data.synthetic import (TeacherDataset, gaussian_teacher,
                                         teacher_batch)
@@ -43,7 +42,9 @@ from repro_torch.launch.mesh import spawn
 from repro_torch.optim import SGD, AdamW
 from repro_torch.optim import schedules
 from repro_torch.parallel.axes import MeshAxes
-from repro_torch.parallel.params import from_jax_params, gather_params
+from repro_torch.parallel.params import (from_jax_params, gather_params,
+                                         materialize, shard_params,
+                                         tree_leaves)
 
 import torch_ranks
 
@@ -236,9 +237,34 @@ def test_forward_on_one_rank_matches_jax(impl):
                                rtol=1e-5, atol=1e-6)
 
 
-def test_pipelined_config_names_the_roadmap_item():
-    _, cfg = _configs("phantom", "pallas")
-    cfg = cfg.replace(pipeline=dataclasses.replace(PipelineConfig(),
-                                                   stages=2))
-    with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-        make_ffn_train_step(cfg, MeshAxes(), AdamW(1e-3), BATCH)
+# (pp, dp, tp) meshes of the host-draw check: flat, and a pipeline whose
+# stage stack is cut over the pipe axis
+DRAW_MESHES = [(1, 2, 4), (2, 2, 2)]
+
+
+@pytest.mark.parametrize("impl", ["phantom", "tensor"])
+@pytest.mark.parametrize("pp,dp,tp", DRAW_MESHES)
+def test_init_ffn_shards_one_host_draw(pp, dp, tp, impl):
+    """On the CPU, every rank's ``init_ffn`` parameters are exactly its
+    shard of ONE global draw from a CPU generator seeded ``seed``
+    (``materialize`` in sorted path order), and the ranks' shards
+    together give that draw back."""
+    _, cfg = _configs(impl, "pallas")
+    cfg = cfg.replace(pipeline=PipelineConfig(stages=pp), microbatches=2)
+    decls = ffn_decls(cfg, MeshAxes(pp=pp, dp=dp, tp=tp))
+    want = materialize(decls, torch.Generator().manual_seed(7), "cpu")
+    ranks = []
+    for r in range(pp * dp * tp):
+        s, rest = divmod(r, dp * tp)
+        axes = MeshAxes(pp=pp, dp=dp, tp=tp, pp_rank=s, dp_rank=rest // tp,
+                        tp_rank=rest % tp)
+        params, _ = init_ffn(cfg, axes, AdamW(LR), seed=7, device="cpu")
+        local = shard_params(want, decls, axes)
+        for (path, got), (_, w) in zip(tree_leaves(params),
+                                       tree_leaves(local)):
+            assert got.device.type == "cpu"
+            assert torch.equal(got, w), path
+        ranks.append(params)
+    back = gather_params(ranks, decls, dp, tp, pp)
+    for (path, got), (_, w) in zip(tree_leaves(back), tree_leaves(want)):
+        assert np.array_equal(got, w.numpy()), path

@@ -123,20 +123,23 @@ def test_paper_ffn_config_equals_reference(arch, smoke):
         dataclasses.asdict(theirs.projection_spec("ffn_layer"))
 
 
-@pytest.mark.parametrize("case", ["tp_dp_accepted", "pipeline",
+@pytest.mark.parametrize("case", ["tp_dp_accepted", "pp_accepted",
                                   "serving_tp"])
 def test_multi_device_mesh_names_the_roadmap_item(case):
-    """Model and data axes above 1 are meshes of the port; the pipeline
-    and serving at tp > 1 are not ported and name their ROADMAP items."""
+    """Model, data and pipe axes above 1 are meshes of the port (rank
+    ``(s * dp + d) * tp + t``, the reference's (pipe, data, model)
+    order); serving at tp > 1 is not ported and names its ROADMAP
+    item."""
     if case == "tp_dp_accepted":
         axes = MeshAxes(tp=2, dp=4, tp_rank=1, dp_rank=3)
         assert (axes.tp, axes.dp, axes.rank) == (2, 4, 7)
         with pytest.raises(RuntimeError, match="make_local_mesh"):
             axes.tp_comm
-    elif case == "pipeline":
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1, item 5"):
-            MeshAxes(pp=2)
+    elif case == "pp_accepted":
+        axes = MeshAxes(pp=2, tp=2, dp=2, pp_rank=1, dp_rank=0, tp_rank=1)
+        assert (axes.pp, axes.rank) == (2, 5)
+        with pytest.raises(RuntimeError, match="make_local_mesh"):
+            axes.pp_comm
     else:
         cfg = get_config("chatglm3-6b", smoke=True)
         params = materialize(model_decls(cfg, MeshAxes()),
@@ -146,6 +149,45 @@ def test_multi_device_mesh_names_the_roadmap_item(case):
             model_decls(cfg, axes)
         with pytest.raises(NotImplementedError, match="serving at tp > 1"):
             ServeEngine(cfg, params, axes=axes, device="cpu")
+
+
+@pytest.mark.parametrize("kind,stages", [("tensor", 2), ("phantom", 2),
+                                         ("mixed", 2), ("mixed", 4)])
+def test_pipeline_config_equals_reference(kind, stages):
+    """The reference's pipelined test config and its port twin agree
+    field by field, on ``pipeline.mixed`` and on every stage's
+    ``stage_projection_spec``."""
+    from helpers import pipeline_cfg
+    from torch_ranks import port_pipeline_cfg
+    names = [f.name for f in dataclasses.fields(ModelConfig)]
+    theirs = pipeline_cfg(kind, 4, 2, stages)
+    ours = port_pipeline_cfg(kind, 4, 2, stages)
+    assert _fields(ours, names) == _fields(theirs, names)
+    assert ours.pipeline.mixed == theirs.pipeline.mixed == (kind == "mixed")
+    for s in range(stages):
+        assert dataclasses.asdict(ours.stage_projection_spec(s)) == \
+            dataclasses.asdict(theirs.stage_projection_spec(s))
+
+
+@pytest.mark.parametrize("entry", ["init_ffn", "measure_ffn_step",
+                                   "count_step", "StepMeter"])
+def test_library_functions_target_the_card_by_default(entry):
+    """``device=None`` means the card: on a machine without one these
+    raise instead of running on the CPU."""
+    from repro_torch.core.ffn import init_ffn
+    from repro_torch.optim import AdamW
+    from repro_torch.telemetry import StepMeter, count_step, measure_ffn_step
+    cfg = get_config("paper-ffn-16k", smoke=True)
+    calls = {
+        "init_ffn": lambda: init_ffn(cfg, MeshAxes(), AdamW(1e-3)),
+        "measure_ffn_step": lambda: measure_ffn_step(cfg, MeshAxes(), 8),
+        "count_step": lambda: count_step(lambda: None),
+        "StepMeter": lambda: StepMeter("step").device,
+    }
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: device=None runs there")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
 
 
 def test_unported_arch_and_family_raise():

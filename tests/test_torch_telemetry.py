@@ -449,3 +449,88 @@ def test_train_ffn_ledger_out(tmp_path, impl, strategy):
     for key in ("collective_wire_bytes_per_device", "collective_m_floats"):
         assert ratios[key] == pytest.approx(1.0, rel=0.02)
     assert 0.99 <= ratios["flops_per_device"] <= 1 + PINS[strategy]
+
+
+@pytest.mark.parametrize("pp,dp,tp", [(1, 2, 4), (2, 2, 2)])
+def test_probe_inputs_shard_one_host_draw(pp, dp, tp):
+    """On the CPU, every rank's probe parameters are exactly its shard of
+    ONE global draw from a CPU generator seeded ``seed``, and its batch
+    its block of one global pair drawn from a CPU generator seeded
+    ``seed + 1`` (the reference's ``PRNGKey(seed + 1)``)."""
+    from repro_torch.configs.base import PipelineConfig
+    from repro_torch.core.ffn import ffn_decls, local_batch
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import (materialize, shard_params,
+                                             tree_leaves)
+    from repro_torch.telemetry.probe import probe_inputs
+    cfg = train_smoke.smoke_config("phantom").replace(
+        pipeline=PipelineConfig(stages=pp), microbatches=2)
+    decls = ffn_decls(cfg, MeshAxes(pp=pp, dp=dp, tp=tp))
+    want = materialize(decls, torch.Generator().manual_seed(3), "cpu")
+    gen = torch.Generator().manual_seed(4)
+    xy = [torch.randn((16, cfg.ffn_width), generator=gen) for _ in range(2)]
+    for r in range(pp * dp * tp):
+        s, rest = divmod(r, dp * tp)
+        axes = MeshAxes(pp=pp, dp=dp, tp=tp, pp_rank=s, dp_rank=rest // tp,
+                        tp_rank=rest % tp)
+        params, x, y = probe_inputs(cfg, axes, decls, 16, 3, "cpu")
+        for (path, got), (_, w) in zip(
+                tree_leaves(params),
+                tree_leaves(shard_params(want, decls, axes))):
+            assert torch.equal(got, w), path
+        assert torch.equal(x, local_batch(xy[0], axes))
+        assert torch.equal(y, local_batch(xy[1], axes))
+
+
+def test_train_ffn_pipelined_ledger_out(tmp_path, capsys):
+    """``train_ffn --pp 2 --dp 2 --tp 2 --microbatches 4 --ledger-out``
+    on 8 gloo CPU ranks: the launcher prints the schedule, and rank 0's
+    (stage 0's) probe sends M activations forward and nothing back —
+    half the ``executed=False`` boundary bytes — while its flops and
+    layer wire bytes follow that account."""
+    from repro_torch.launch import train_ffn
+    path = tmp_path / "ledger.json"
+    assert train_ffn.main(["--smoke", "--device", "cpu", "--pp", "2",
+                           "--dp", "2", "--tp", "2", "--microbatches", "4",
+                           "--steps", "2", "--ledger-out", str(path)]) == 0
+    assert ("1F1B over 2 stages x 4 microbatches, bubble fraction 0.200"
+            in capsys.readouterr().out)
+    (entry,) = load_report(str(path))["entries"]
+    measured, predicted = entry["measured"], entry["predicted"]
+    assert measured["stage"] == 0 and predicted["executed"] is False
+    assert predicted["bubble_fraction"] == pytest.approx(0.2)
+    cfg = train_ffn.train_config("paper-ffn-16k", smoke=True)
+    m = train_ffn.BATCH / (2 * 4) * cfg.ffn_width / 2
+    assert measured["boundary_wire_bytes_per_device"] == 4 * m * 4
+    assert entry["ratios"]["boundary_wire_bytes_per_device"] == 0.5
+    assert 0.99 <= entry["ratios"]["flops_per_device"] <= 1 + PINS["phantom"]
+    layer = (measured["collective_wire_bytes_per_device"]
+             - measured["boundary_wire_bytes_per_device"])
+    want = (predicted["collective_wire_bytes_per_device"]
+            - predicted["boundary_wire_bytes_per_device"])
+    assert layer / want == pytest.approx(1.0, rel=0.02)
+
+
+@pytest.mark.parametrize("suite", ["pipeline_smoke", "kernel_bench"])
+def test_benchmark_suite_runs_on_the_cpu(tmp_path, suite):
+    """The port's ``pipeline_smoke`` (pipe 2 x dp 2 x tp 2: each rank's
+    boundary bytes its stage's sends, held inside the suite) and
+    ``kernel_bench`` (wire ratio 1.00 under both kernel backends, held
+    inside the suite) on gloo CPU ranks, one metered step each."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.benchmarks.{suite}")
+    path = tmp_path / "report.json"
+    assert mod.main(["--device", "cpu", "--steps", "1",
+                     "--report-out", str(path)]) == 0
+    rep = load_report(str(path))
+    assert rep["counts"] == {"entries": 2, "joined": 2}
+    for entry in rep["entries"]:
+        ratios = entry["ratios"]
+        if suite == "pipeline_smoke":
+            assert ratios["boundary_wire_bytes_per_device"] == 0.5
+            assert entry["extra"]["bubble_fraction"] == pytest.approx(0.2)
+        else:
+            assert ratios["collective_wire_bytes_per_device"] == \
+                pytest.approx(1.0, abs=mod.WIRE_TOL)
+        assert 0.99 <= ratios["flops_per_device"] <= 1 + PINS[
+            "tensor_col" if entry["impl"] == "tensor_col" else "phantom"]

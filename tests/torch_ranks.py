@@ -89,6 +89,30 @@ def collectives_body(axes, device, inputs):
     return out
 
 
+def port_pipeline_cfg(kind: str, k: int, M: int, stages: int, n: int = 32,
+                      layers=None, backend: str = "xla"):
+    """The port's twin of the reference's ``tests/helpers.py:
+    pipeline_cfg``: a paper-FFN config cut into ``stages`` pipeline
+    stages, homogeneous tensor/phantom or mixed (alternating per-stage
+    specs), its phantom sites on ``backend``."""
+    from repro_torch.configs.base import (ModelConfig, PipelineConfig,
+                                          ProjectionSpec)
+    if kind == "mixed":
+        pipe = PipelineConfig(stages=stages, stage_specs=tuple(
+            ProjectionSpec(kind="phantom", k=k, kernel_backend=backend)
+            if s % 2 else ProjectionSpec(kind="tensor")
+            for s in range(stages)))
+    else:
+        pipe = PipelineConfig(stages=stages)
+    L = layers or stages
+    return ModelConfig(
+        name=f"pipe-{kind}-k{k}-m{M}-s{stages}-n{n}-L{L}", family="ffn",
+        num_layers=L, d_model=n, ffn_width=n, ffn_depth=L,
+        ffn_impl="phantom" if kind == "phantom" else "dense", mlp="relu",
+        phantom=PhantomConfig(k=k, kernel_backend=backend), pipeline=pipe,
+        microbatches=M)
+
+
 def ffn_body(axes, device, inputs):
     """Three AdamW steps of the port's FFN train step per case, from the
     reference's initial parameters and the given batches; returns each
@@ -141,4 +165,38 @@ def telemetry_body(axes, device, steps):
                                            kernel_backend="xla"))
     out["phantom_plain"] = measure_ffn_step(plain, axes, BATCH, steps=0,
                                             device=device)
+    return out
+
+
+def pipeline_body(axes, device, inputs):
+    """The pipelined paper-FFN step on this rank of a pp x dp x tp mesh:
+    the mesh's coordinates and groups, the probe (loss, local parameter
+    gradients, local input gradient) per case from the reference's
+    global parameters and batch, three AdamW steps per train case
+    (``ffn_body``), and the ledger join of the pipelined probe."""
+    from repro_torch.core.ffn import local_batch
+    from repro_torch.parallel.params import from_jax_params
+    from repro_torch.telemetry import (make_ffn_pipeline_probe_step,
+                                       measure_ffn_pipeline_step)
+
+    out = {"coords": (axes.pp_rank, axes.dp_rank, axes.tp_rank, axes.rank),
+           "groups": {name: g.ranks for name, g in (
+               ("pp", axes.pp_comm), ("dp", axes.dp_comm),
+               ("tp", axes.tp_comm))},
+           "probe": {}}
+    for name, case in inputs["probe"].items():
+        fn, decls = make_ffn_pipeline_probe_step(case["cfg"], axes,
+                                                 case["batch"])
+        params = shard_params(from_jax_params(case["params"]), decls, axes)
+        x, y = (local_batch(torch.from_numpy(a), axes)
+                for a in (case["x"], case["y"]))
+        loss, (grads, x_grad) = fn(params, x, y)
+        out["probe"][name] = {"loss": float(loss),
+                              "grads": tree_map(_np, grads),
+                              "x_grad": _np(x_grad)}
+    out["train"] = ffn_body(axes, device, inputs["train"])
+    out["ledger"] = {
+        name: measure_ffn_pipeline_step(cfg, axes, inputs["ledger_batch"],
+                                        device=device)
+        for name, cfg in inputs["ledger"].items()}
     return out
