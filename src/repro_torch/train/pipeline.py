@@ -147,7 +147,9 @@ def pipeline_run(stage_fn: Callable[[torch.Tensor], torch.Tensor],
     activation (under pp = 1 it applies ALL stages in turn); its
     parameters are leaves that require grad, and their ``.grad``
     accumulates over the microbatches.  ``x_mb`` is ``[M, ...]`` of
-    stage-0 inputs (local shards; only stage 0 reads them).
+    stage-0 inputs (local shards; only stage 0 reads them); every
+    stage's input and output are shaped and typed like ``x_mb[i]`` (the
+    FFN's feature shard), which is what a receive expects.
     ``loss_fn(z, i)`` is microbatch ``i``'s loss from the last stage's
     output.
 
