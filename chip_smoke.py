@@ -105,9 +105,29 @@ Phases (any failure exits non-zero):
    boundary bytes equal to its stage's sends, bubble fraction 0.2.  The
    ledger of phases 6 and 7 goes to ``build/chip_smoke_ledger.json``.
 
+8. LM training: phi3-mini (``configs/phi3_mini.py``, full width) through
+   the port's trainer (``phase_lm_train``).  (a) The flash kernel at the
+   training shape, B=4, S=512, H=KV=32, causal, at hd=96 (phi3-mini) and
+   hd=80 (stablelm-3b), bf16 and fp32, against its plain version with
+   phase 2's tolerances, timed as there (and hd=96 bf16 with a cold L2).
+   (b) Step 1 at full width and 2 layers from one draw cloned: the kernel
+   path (``kernel_backend="auto"``) against the plain one (``"xla"``) in
+   float32 -- loss, clipped gradients and parameters after one AdamW step
+   held as in phase 5 (rtol 1e-4 / atol 1e-5, near-zero gradients with
+   what they imply, gradients to 1e-4 of their leaf's largest) -- and the
+   bf16 loss of both within ``LM_BF16_LOSS_RTOL``.  (c) The slice:
+   ``launch/train.py``'s trainer (``make_trainer``) on phi3-mini at all
+   32 layers, batch 4 x seq 512, ``remat="full"``, bf16 compute, fp32
+   parameters and AdamW state updated in place, ``LM_STEPS`` steps:
+   every loss finite, the flash kernel launched twice per layer per step
+   (forward and recompute), the median step time, tokens/s and the peak
+   card memory printed; then one more step under ``torch.profiler``
+   (device busy share, the flash kernel's share, the top kernels).
+
 The line before the last is the kernel table as JSON (the phantom
-kernels' 8-row shape and its launches under ``pipe_rows8``); the last
-line is
+kernels' 8-row shape and its launches under ``pipe_rows8``; the flash
+kernel's training launches and its hd=96 training shape under
+``train_launches`` and ``hd96``); the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
@@ -160,6 +180,15 @@ EQUIV_LOSS_RTOL, EQUIV_TOL = 2e-4, dict(rtol=5e-4, atol=1e-6)
 # measured/predicted flops pins of the reference (tests/test_telemetry.py)
 FLOPS_PIN = {"tensor_col": 0.05, "phantom": 0.25}
 PEAK = {"float32": 67e12, "bfloat16": 989e12}
+LM_ARCH, LM_BATCH, LM_SEQ, LM_STEPS = "phi3-mini-3.8b", 4, 512, 6
+LM_PARITY_LAYERS = 2
+# the bf16 step-1 loss of the kernel path against the plain path: both
+# run bf16 projections; the kernel rounds P and its output to bf16 where
+# the plain core keeps float32 (phase 2's 1e-2 of sum p|v| per output)
+LM_BF16_LOSS_RTOL = 5e-3
+# (B, S, H, KV, hd) of the training shape: phi3-mini (hd 96) and
+# stablelm-3b (hd 80), causal
+LM_FLASH_SHAPES = ((4, 512, 32, 32, 96), (4, 512, 32, 32, 80))
 
 
 class SmokeFailure(RuntimeError):
@@ -231,6 +260,7 @@ def attention_bound_ms(B, S, H, KV, hd, causal, dtype):
 def phase_device():
     import torch
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -254,8 +284,9 @@ def phase_device():
                         "HMMA").items()}
     print(f"flash_mma_kernel HMMA instructions (cuobjdump -sass), by head "
           f"dim: {hmma}", flush=True)
-    check(len(hmma) == 4 and all(hmma.values()),
-          f"the bf16 flash kernel is not on the tensor cores: {hmma}")
+    check(len(hmma) == len(HEAD_DIMS) and all(hmma.values()),
+          f"the bf16 flash kernel is not on the tensor cores at every head "
+          f"dim of {HEAD_DIMS}: {hmma}")
     return {"nvidia_smi": smi, "build_s": build_s, "flash_hmma": hmma}
 
 
@@ -802,7 +833,8 @@ def _step1_diff(res, part, lr, eps):
     difference over its leaf's largest magnitude, the elements outside
     rtol 1e-4 / atol 1e-5, and each path's worst difference from the
     plain path run in float64 (``*_vs_f64``; ``kernel_vs_f64_scaled``
-    over the leaf's largest float64 magnitude).
+    over the leaf's largest float64 magnitude), where ``res`` has that
+    run.
 
     AdamW's first step moves a parameter by ``lr * f(g)`` with
     ``f(g) = g / (|g| + eps)``, whose slope ``eps / (|g| + eps)^2``
@@ -825,8 +857,9 @@ def _step1_diff(res, part, lr, eps):
     def worst(t, mask=None):
         t = t if mask is None else t[mask]
         return t.max().item() if t.numel() else 0.0
-    kern, plain, f64 = (flat(res[run][part])
-                        for run in ("kernel", "plain", "float64"))
+    kern, plain = (flat(res[run][part]) for run in ("kernel", "plain"))
+    # without a float64 run the *_vs_f64 entries are left out
+    f64 = flat(res["float64"][part]) if "float64" in res else plain
     gk, gp = flat(res["kernel"]["grads"]), flat(res["plain"]["grads"])
     out = {"max_abs_err": 0.0, "max_scaled_err": 0.0, "outside": 0,
            "elements": 0, "kernel_vs_f64": 0.0,
@@ -877,6 +910,8 @@ def _step1_diff(res, part, lr, eps):
         out["kernel_vs_f64"] = max(out["kernel_vs_f64"], top["ek"])
         out["kernel_vs_f64_scaled"] = max(out["kernel_vs_f64_scaled"],
                                           top["ek"] / max(top["w"], 1e-30))
+    if "float64" not in res:
+        out = {k: v for k, v in out.items() if "f64" not in k}
     return out
 
 
@@ -905,9 +940,12 @@ def _step1(axes, device, kcfg, xcfg):
     x, y = local_batch(x, axes), local_batch(y, axes)
     res = {}
     for name, cfg in (("kernel", kcfg), ("plain", xcfg)):
-        loss, grads, _ = ffn_loss_and_grads(cfg, axes, params, x, y, BATCH)
-        new_params, _ = opt.update(grads, state, params, 0)
+        # each run from its own copy: the optimizer updates in place
+        p, s = tree_map(torch.clone, params), tree_map(torch.clone, state)
+        loss, grads, _ = ffn_loss_and_grads(cfg, axes, p, x, y, BATCH)
+        new_params, _ = opt.update(grads, s, p, 0)
         res[name] = {"loss": loss, "grads": grads, "params": new_params}
+        del p, s
     p64 = tree_map(lambda t: t.double(), params)
     del params, state
     loss, grads, _ = ffn_loss_and_grads(xcfg, axes, p64, x.double(),
@@ -1446,6 +1484,271 @@ def phase_pipeline(train, ledger, smoke=False):
             "launches": ranks[0]["launches"]}
 
 
+def _lm_flash(gen):
+    """(a): the flash kernel at the training shapes against its plain
+    version, timed as in phase 2; hd=96 bf16 also with a cold L2."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    results = []
+    for B, S, H, KV, hd in LM_FLASH_SHAPES:
+        for dtype in ("bfloat16", "float32"):
+            r = _case(B, S, H, KV, hd, True, dtype, gen)
+            results.append(r)
+            print(f"lm_train: flash_attention B={B} S={S} H={H} KV={KV} "
+                  f"hd={hd} {dtype} causal: max_abs_err="
+                  f"{r['max_abs_err']:.3e}"
+                  + ("" if r["max_rel_err"] is None else
+                     f" (of sum p|v|: {r['max_rel_err']:.3e})")
+                  + f" ok={r['ok']} ms={r['ms']:.4f} bound_ms="
+                  f"{r['bound_ms']:.5f} ({r['bound_by']}) plain_ms="
+                  f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f}",
+                  flush=True)
+    bad = [r for r in results if not r["ok"]]
+    check(not bad, f"flash_attention disagrees with its plain version at "
+                   f"the training shapes: {bad}")
+    B, S, H, KV, hd = LM_FLASH_SHAPES[0]
+    nbytes = sum(t.numel() * 2 for t in _flash_inputs(S, gen, B, H, KV, hd))
+
+    def kern():
+        q, k, v = _flash_inputs(S, gen, B, H, KV, hd)
+        return lambda: flash_attention(q, k, v, causal=True)
+
+    def lib():
+        q, k, v = (t.transpose(1, 2) for t in _flash_inputs(S, gen, B, H,
+                                                            KV, hd))
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)
+    cold = {"cold_ms": cold_ms(kern, nbytes),
+            "library_cold_ms": cold_ms(lib, nbytes)}
+    print(f"lm_train: flash_attention bf16 hd={hd} training shape, cold "
+          f"L2: ms={cold['cold_ms']:.4f} library_ms="
+          f"{cold['library_cold_ms']:.4f}", flush=True)
+    return {"sweep": results, "cold": cold}
+
+
+def _lm_step1(base):
+    """(b): step 1 of ``base`` cut to ``LM_PARITY_LAYERS`` layers, kernel
+    path against plain path from one draw cloned, in float32 (loss,
+    clipped gradients, parameters: ``_step1_diff``), and the bf16 loss of
+    both paths."""
+    import gc
+    import torch
+    from repro_torch.configs.base import with_kernel_backend
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import forward_train, model_decls
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize, tree_map
+    from repro_torch.train.trainer import make_train_step
+
+    cut = base.replace(num_layers=LM_PARITY_LAYERS)
+    axes = MeshAxes()
+    params = materialize(model_decls(cut, axes), torch.Generator(
+        device="cuda").manual_seed(SEED), "cuda")
+    batch = LMDataset(cut.vocab_size, LM_BATCH, LM_SEQ + 1,
+                      device="cuda")(0)
+    sched = warmup_cosine(3e-4, 20, LM_STEPS)
+    res, launches = {}, {}
+    for name, backend in (("kernel", "auto"), ("plain", "xla")):
+        cfg = with_kernel_backend(cut.replace(dtype="float32"), backend)
+        opt = make_optimizer(cfg.optimizer, sched, weight_decay=0.1)
+        seen = []
+        update = opt.update
+
+        def recording(g, s, p, step, update=update, seen=seen):
+            seen.append(g)
+            return update(g, s, p, step)
+        opt.update = recording
+        step_fn, _, _ = make_train_step(cfg, axes, opt, device="cuda")
+        p = tree_map(torch.clone, params)
+        flash_attention.launches = 0
+        p, _, m = step_fn(p, opt.init(p), 0, batch)
+        torch.cuda.synchronize()
+        launches[name] = flash_attention.launches
+        res[name] = {"loss": m["loss"], "grads": seen[0], "params": p,
+                     "grad_norm": float(m["grad_norm"])}
+    out = {part: _step1_diff(res, part, sched(0), opt.eps)
+           for part in ("loss", "grads", "params")}
+    out.update(launches=launches,
+               loss={**out["loss"], "kernel": float(res["kernel"]["loss"]),
+                     "plain": float(res["plain"]["loss"])},
+               grad_norm={n: res[n]["grad_norm"] for n in res})
+    del res
+    gc.collect()
+    bf16 = {}
+    with torch.no_grad():
+        for name, backend in (("kernel", "auto"), ("plain", "xla")):
+            flash_attention.launches = 0
+            sl, nv, _ = forward_train(with_kernel_backend(cut, backend),
+                                      axes, params, batch)
+            bf16[name] = float(sl / nv)
+            launches[f"{name}_bf16_forward"] = flash_attention.launches
+    bf16["rel"] = abs(bf16["kernel"] - bf16["plain"]) / abs(bf16["plain"])
+    out["bf16_loss"] = bf16
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _profile_train_step(trainer, state):
+    """One more step of the trainer under ``torch.profiler``: the wall
+    time, the device time of its kernels and copies (busy share), the
+    flash kernel's part and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state = trainer.run(state, state.step + 1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA")]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+
+    def kind(key):
+        k = key.lower()
+        if "flash_mma_kernel" in k:
+            return "flash"
+        if any(w in k for w in ("gemm", "nvjet", "cutlass", "xmma")):
+            return "gemm"
+        return "other"
+    by_kind = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in events:
+        by_kind[kind(e.key)] += e.self_device_time_total / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    return state, {
+        "wall_ms": wall_ms, "device_ms": device_ms or None,
+        "device_busy_share": device_ms / wall_ms if device_ms else None,
+        "device_ms_by_kind": by_kind if device_ms else None,
+        "flash_share_of_device": (by_kind["flash"] / device_ms
+                                  if device_ms else None),
+        "device_ops": sum(e.count for e in events),
+        "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                          for e in top}}
+
+
+def _time_optimizer(trainer, state):
+    """Device ms of one ``optimizer.update`` of the whole model (the
+    in-place AdamW) on zero gradients, after the main path."""
+    import torch
+    from repro_torch.parallel.params import tree_map
+    grads = tree_map(torch.zeros_like, state.params)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    trainer.optimizer.update(grads, state.opt_state, state.params,
+                             state.step)
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_lm_train():
+    import gc
+    import math
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.train import (build_parser, make_trainer,
+                                          train_config)
+    from repro_torch.parallel.axes import MeshAxes
+    gc.collect()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    flash = _lm_flash(gen)
+    args = build_parser().parse_args([
+        "--arch", LM_ARCH, "--full", "--kernel-backend", "auto", "--steps",
+        str(LM_STEPS), "--batch", str(LM_BATCH), "--seq", str(LM_SEQ),
+        "--seed", str(SEED)])
+    cfg = train_config(args)
+    check(cfg.remat == "full" and cfg.dtype == "bfloat16",
+          f"{cfg.name}: remat {cfg.remat}, dtype {cfg.dtype}")
+
+    step1 = _lm_step1(cfg)
+    print(f"lm_train: {cfg.name} at {LM_PARITY_LAYERS} layers, step 1 "
+          f"kernel vs plain in float32 (rtol 1e-4 / atol 1e-5): {step1}",
+          flush=True)
+    for part in ("loss", "grads", "params"):
+        check(step1[part]["outside"] == 0,
+              f"lm_train: step-1 {part} of the kernel path differ from the "
+              f"plain path: {step1[part]}")
+    check(step1["grads"]["max_scaled_err"] <= STEP1_TOL["rtol"],
+          f"lm_train: step-1 gradients differ by more than 1e-4 of the "
+          f"largest: {step1['grads']}")
+    check(step1["launches"] == {
+        "kernel": 2 * LM_PARITY_LAYERS, "plain": 0,
+        "kernel_bf16_forward": LM_PARITY_LAYERS, "plain_bf16_forward": 0},
+        f"lm_train: step-1 flash launches {step1['launches']}")
+    check(step1["bf16_loss"]["rel"] <= LM_BF16_LOSS_RTOL,
+          f"lm_train: bf16 step-1 loss, kernel vs plain: "
+          f"{step1['bf16_loss']} (rtol {LM_BF16_LOSS_RTOL})")
+
+    # --- the main path: counts from zero, read right after -------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    trainer = make_trainer(MeshAxes(), torch.device("cuda"), cfg, args)
+    t0 = time.perf_counter()
+    state = trainer.init_state(args.seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    flash_attention.launches = 0
+    state = trainer.run(state, LM_STEPS)
+    launches = flash_attention.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    total_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+
+    losses = [h["loss"] for h in trainer.history]
+    gnorms = [h["grad_norm"] for h in trainer.history]
+    step_ms = [t / 1e3 for t in trainer.meter.times_us]
+    med_ms = statistics.median(step_ms[1:])
+    tokens = LM_BATCH * LM_SEQ
+    n_params = sum(t.numel() for t in _leaves(state.params))
+    check(all(math.isfinite(v) for v in losses + gnorms),
+          f"lm_train: non-finite loss or gradient norm: {losses} {gnorms}")
+    check(launches == 2 * cfg.num_layers * LM_STEPS,
+          f"lm_train: flash kernel launched {launches} times in {LM_STEPS} "
+          f"steps of {cfg.num_layers} layers (want forward + recompute)")
+    print(f"lm_train: {cfg.name} d={cfg.d_model} layers={cfg.num_layers} "
+          f"params={n_params:,} batch {LM_BATCH} x seq {LM_SEQ} "
+          f"remat={cfg.remat}: losses {[round(v, 4) for v in losses]}, "
+          f"grad norms {[round(v, 3) for v in gnorms]}", flush=True)
+    print(f"lm_train: step ms {[round(v, 2) for v in step_ms]}; median "
+          f"after the first {med_ms:.2f} ms, {tokens / med_ms * 1e3:.0f} "
+          f"tokens/s; flash launches {launches} ({launches // LM_STEPS} per "
+          f"step); initial draw on the card {init_s:.2f} s; card memory: "
+          f"parameters and AdamW state {state_gb:.2f} GB, peak "
+          f"{peak_gb:.2f} GB of {total_gb:.2f} GB", flush=True)
+    state, prof = _profile_train_step(trainer, state)
+    print(f"lm_train: profiled step: wall {prof['wall_ms']:.2f} ms, device "
+          f"{prof['device_ms']} ms, busy share {prof['device_busy_share']}, "
+          f"device ms by kind {prof['device_ms_by_kind']} (flash "
+          f"{prof['flash_share_of_device']} of the device time), "
+          f"{prof['device_ops']} device ops; top: "
+          f"{ {k: round(v, 3) for k, v in prof['top_device_ms'].items()} }",
+          flush=True)
+    prof["optimizer_ms"] = _time_optimizer(trainer, state)
+    print(f"lm_train: one in-place AdamW update of the {n_params:,} "
+          f"parameters: {prof['optimizer_ms']:.2f} ms", flush=True)
+    del trainer, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash": flash, "step1": step1, "arch": cfg.name,
+            "layers": cfg.num_layers, "params": n_params,
+            "batch": LM_BATCH, "seq": LM_SEQ, "losses": losses,
+            "grad_norms": gnorms, "step_ms": step_ms,
+            "median_step_ms": med_ms,
+            "tokens_per_s": tokens / med_ms * 1e3, "launches": launches,
+            "init_s": init_s, "state_memory_gb": state_gb,
+            "peak_memory_gb": peak_gb, "card_memory_gb": total_gb,
+            "profile": prof}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1468,6 +1771,7 @@ def main() -> int:
     train = phase_train()
     ledger = phase_energy(train, device["nvidia_smi"])
     pipeline = phase_pipeline(train, ledger)
+    lm = phase_lm_train()
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
     print(f"ledger written to {path}")
     ledger = ledger.report()
@@ -1487,7 +1791,11 @@ def main() -> int:
         "cold_ms": flash["cold"][48]["cold_ms"],
         "s512": {**{key: at[512][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-            "cold_ms": flash["cold"][512]["cold_ms"]}}]
+            "cold_ms": flash["cold"][512]["cold_ms"]},
+        "train_launches": lm["launches"],
+        "hd96": {**{key: lm["flash"]["sweep"][0][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")}, "cold_ms": lm["flash"]["cold"]["cold_ms"]}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -1516,7 +1824,7 @@ def main() -> int:
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "flash": flash, "phantom": phantom,
          "serve": serve, "train": train, "pipeline": pipeline,
-         "ledger": ledger,
+         "lm_train": lm, "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

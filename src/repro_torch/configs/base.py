@@ -5,9 +5,9 @@ read.
 Plain dataclasses, no framework imports.  Field names, defaults and the
 projection-site resolution are the reference's, so a config built here
 compares field by field with its counterpart there (the tests check
-that for chatglm3-6b and the paper-FFN sizes).  Fields that only other
-families read (MoE, SSM, encoder-decoder, vision, FSDP, training knobs)
-are left out until the slice that ports those families.
+that for every ported config).  Fields that only other families or
+unported features read (MoE, SSM, encoder-decoder, vision, FSDP, the KV
+cache's quantisation) are left out until the slice that ports them.
 """
 from __future__ import annotations
 
@@ -189,10 +189,13 @@ class ModelConfig:
 
     dtype: str = "bfloat16"         # compute dtype
     param_dtype: str = "float32"    # stored parameter dtype
+    remat: str = "full"             # full | none (recompute each block)
+    optimizer: str = "adamw"        # adamw | sgd (adafactor: later)
+    loss_chunk: int = 2048          # sequence chunk of the cross-entropy
     attn_bf16_scores: bool = False  # bf16 score blocks in the plain core
     attn_kv_chunk: int = 0          # 0 = default chunking; -1 = one block
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
-    microbatches: int = 1           # the pipeline's microbatches (pp > 1)
+    microbatches: int = 1           # microbatches: pipeline or accumulation
 
     # paper-FFN-specific (family == "ffn")
     ffn_width: int = 0
@@ -247,6 +250,12 @@ class ModelConfig:
             return spec
         return self.projection_spec(site)
 
+    def uses_phantom_sites(self) -> bool:
+        """True if any projection site resolves to a phantom-family
+        strategy."""
+        return any(self.projection_spec(s).kind in PHANTOM_KINDS
+                   for s in PROJECTION_SITES)
+
     def resolved_head_dim(self) -> int:
         if self.head_dim:
             return self.head_dim
@@ -270,6 +279,8 @@ class ShapeConfig:
 # slices that port their families
 _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
+    "phi3-mini-3.8b": "phi3_mini",
+    "stablelm-3b": "stablelm_3b",
     # the paper's own FFN models
     "paper-ffn-4k": "paper_ffn",
     "paper-ffn-16k": "paper_ffn",

@@ -47,6 +47,15 @@
 //   * Output: each warp stages its normalised 16 rows in its own rows of
 //     the Q tile and stores them as 16-byte row-contiguous pieces.
 //
+// Head dims: 16, 32, 64, 80, 96 and 128 (the configs' widths: 80 is
+// stablelm-3b's, 96 phi3-mini's).  Both kernels take any multiple of 16:
+// the fp32 one gives each thread HD / 16 accumulator columns, the bf16 one
+// walks HD / 16 mma k-steps and HD / 8 output n-tiles in pairs (one
+// ldmatrix.x4.trans each), copies HD / 8 16-byte pieces a row, and keeps
+// its 4 x 16-row warp layout whatever HD is.  A padded row of HD + 8
+// elements is an odd number of 16-byte pieces at every such HD (11 at 80,
+// 13 at 96), so ldmatrix's 8 rows still fall on disjoint banks.
+//
 // fp32: flash_fwd_kernel, the CUDA-core kernel of the first port, kept for
 // float32 because TF32 tensor cores would not hold the fp32 sweep's 2e-3.
 //   * one block per (q tile of BQ=64 rows, query head, batch row); an inner
@@ -87,6 +96,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  int group,
                  Strides sq, Strides sk, Strides sv, Strides so, int causal,
                  float scale) {
+  static_assert(HD % 16 == 0, "16 accumulator column groups");
   constexpr int QP = HD + 1;      // padded pitch of the Q and K tiles
   constexpr int PP = BK + 1;      // padded pitch of the P tile
   constexpr int NC = HD / 16;     // accumulator columns per thread
@@ -248,6 +258,12 @@ cudaError_t dispatch_fp32(int hd, const void* q, const void* k,
     case 64:
       return launch_fp32<64>(q, k, v, o, B, S, H, KV, sq, sk, sv, so, causal,
                              scale, stream);
+    case 80:
+      return launch_fp32<80>(q, k, v, o, B, S, H, KV, sq, sk, sv, so, causal,
+                             scale, stream);
+    case 96:
+      return launch_fp32<96>(q, k, v, o, B, S, H, KV, sq, sk, sv, so, causal,
+                             scale, stream);
     case 128:
       return launch_fp32<128>(q, k, v, o, B, S, H, KV, sq, sk, sv, so,
                               causal, scale, stream);
@@ -339,6 +355,7 @@ flash_mma_kernel(const __nv_bfloat16* __restrict__ q,
                  __nv_bfloat16* __restrict__ o, int S, int KV, int group,
                  Strides sq, Strides sk, Strides sv, Strides so, int causal,
                  float scale_log2) {
+  static_assert(HD % 16 == 0, "whole mma k-steps and n-tile pairs");
   using L = Layout<HD>;
   constexpr int P = L::P;
   constexpr int CH = HD / 8;      // 16-byte chunks of a row
@@ -557,6 +574,12 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
                         scale, stream);
     case 64:
       return launch<64>(q, k, v, o, B, S, H, KV, sq, sk, sv, so, causal,
+                        scale, stream);
+    case 80:
+      return launch<80>(q, k, v, o, B, S, H, KV, sq, sk, sv, so, causal,
+                        scale, stream);
+    case 96:
+      return launch<96>(q, k, v, o, B, S, H, KV, sq, sk, sv, so, causal,
                         scale, stream);
     case 128:
       return launch<128>(q, k, v, o, B, S, H, KV, sq, sk, sv, so, causal,

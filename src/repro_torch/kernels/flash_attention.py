@@ -22,7 +22,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -86,8 +86,9 @@ def _check(q, k, v):
                 else torch.cuda.current_device())
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
-        raise NotImplementedError("the flash kernel has no backward yet "
-                                  "(ROADMAP.md queue 1, item 6)")
+        raise NotImplementedError(
+            "the flash kernel has no backward of its own: differentiate "
+            "through kernels/ops.py: flash_attention_vjp")
 
 
 def flash_attention(q, k, v, *, causal: bool = True):

@@ -16,6 +16,13 @@ hand-written Hopper kernel.  The wrapper decides between kernel and plain
 version from the tensor's device alone, and never falls back on a CUDA
 tensor.
 
+``flash_attention_vjp`` is the attention core the model calls, the
+counterpart of the reference's ``custom_vjp``: its forward is the flash
+kernel (the plain version on a CPU tensor), its backward autograd
+through the plain version ``kernels/ref.py: flash_attention_ref``, as the
+reference's backward is ``jax.vjp`` of its dense oracle.  A fused
+backward kernel would go beyond the reference.
+
 ``phantom_fused_linear`` binds the three phantom kernels into one
 differentiable op, as the reference's ``custom_vjp`` does: the forward is
 the fused (local + ghost-decompress) GEMM, the backward one dgrad and one
@@ -32,6 +39,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: F401
 from repro_torch.kernels.phantom_fused import (  # noqa: F401
     KernelConfigError, phantom_fused_dgrad, phantom_fused_matmul,
     phantom_fused_wgrad)
+from repro_torch.kernels.ref import flash_attention_ref
 
 KERNEL_BACKENDS = ("xla", "pallas", "auto")
 
@@ -43,6 +51,32 @@ def resolve_kernel_backend(backend: str) -> str:
         raise ValueError(f"unknown kernel_backend {backend!r}; "
                          f"known: {KERNEL_BACKENDS}")
     return "xla" if backend == "xla" else "pallas"
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        # the dense oracle's gradients: materialises the [B, S, KV, Hg, S]
+        # float32 scores, as the reference's backward does
+        q, k, v = (t.detach().requires_grad_(True)
+                   for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_attention_ref(q, k, v, causal=ctx.causal)
+            dq, dk, dv = torch.autograd.grad(out, (q, k, v), do)
+        return dq, dk, dv, None
+
+
+def flash_attention_vjp(q, k, v, *, causal: bool = True):
+    """``flash_attention`` forward with a differentiable backward (autograd
+    through the plain version): what the attention core calls, so that a
+    gradient never reaches the kernel's wrapper, which has none."""
+    return _FlashAttention.apply(q, k, v, bool(causal))
 
 
 class _FusedLinear(torch.autograd.Function):

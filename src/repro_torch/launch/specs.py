@@ -12,15 +12,16 @@ from repro_torch.parallel.params import TensorSpec
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig, axes: MeshAxes):
-    """prefill: tokens [B, S]; decode: tokens [B, 1] (positions and the
-    cache are passed separately)."""
+    """train: tokens and labels [B, S]; prefill: tokens [B, S]; decode:
+    tokens [B, 1] (positions and the cache are passed separately)."""
     B = shape.global_batch
-    S = shape.seq_len if shape.kind == "prefill" else 1
-    if shape.kind not in ("prefill", "decode"):
-        raise NotImplementedError(
-            f"shape kind {shape.kind!r}: training arrives with the "
-            f"trainer slice (ROADMAP.md queue 1)")
-    return {"tokens": TensorSpec((B, S), torch.int64)}
+    if shape.kind not in ("train", "prefill", "decode"):
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
+    S = 1 if shape.kind == "decode" else shape.seq_len
+    specs = {"tokens": TensorSpec((B, S), torch.int64)}
+    if shape.kind == "train":
+        specs["labels"] = TensorSpec((B, S), torch.int64)
+    return specs
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, axes: MeshAxes):

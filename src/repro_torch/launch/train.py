@@ -1,0 +1,123 @@
+"""Train an LM of the dense family: the port's counterpart of the
+reference's ``python -m repro.launch.train`` (its non-elastic path
+without a plan).
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
+        --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch phi3-mini-3.8b --full --kernel-backend auto --steps 5 \\
+        --batch 4 --seq 512                 # on the card
+
+builds ``Trainer(cfg, axes, make_optimizer(cfg.optimizer,
+warmup_cosine(3e-4, 20, steps), weight_decay=0.1), LMDataset(...))``
+and runs ``--steps`` steps on ``--batch`` sequences of ``--seq``
+tokens, logging the ``[trainer]`` line.  Weights are random, drawn on
+the device from ``--seed``.  ``--dp`` above 1 spawns that many ranks
+(``launch/mesh.py: spawn``), each on its rows of the batch;
+``--tp`` and ``--pp`` are 1 until the slices that train the dense model
+at tp > 1 and pipeline it (ROADMAP.md queue 1, item 6).  The run is on
+the card unless ``--device cpu`` is given; ``--smoke`` (the default)
+takes the config's reduced geometry, ``--full`` the published one.
+``--plan``, ``--elastic`` and ``--ckpt-dir`` are ROADMAP.md queue 1,
+item 8.
+"""
+from __future__ import annotations
+
+import argparse
+import sys
+
+from repro_torch.configs.base import (dense_projection_map, get_config,
+                                      with_kernel_backend)
+from repro_torch.data.synthetic import LMDataset
+from repro_torch.kernels import build
+from repro_torch.kernels.ops import KERNEL_BACKENDS, resolve_kernel_backend
+from repro_torch.launch.mesh import spawn
+from repro_torch.models.model import count_params
+from repro_torch.optim import make_optimizer
+from repro_torch.optim.schedules import warmup_cosine
+from repro_torch.parallel.axes import MeshAxes, resolve_device
+from repro_torch.parallel.grads import LM_PIPELINE_TODO, LM_TP_TODO
+from repro_torch.train.trainer import Trainer
+
+TIMEOUT_S = 3600.0     # a multi-rank run, before its ranks are killed
+
+
+def build_parser():
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.train",
+                                 description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="phi3-mini-3.8b")
+    ap.add_argument("--impl", default="phantom",
+                    choices=["dense", "phantom"])
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8, help="global batch")
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--smoke", action="store_true", default=True)
+    ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1, help="1 for now")
+    ap.add_argument("--pp", type=int, default=1, help="1 for now")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--kernel-backend", default=None,
+                    choices=KERNEL_BACKENDS,
+                    help="the attention core's backend (default: the "
+                         "config's per-site specs)")
+    ap.add_argument("--seed", type=int, default=0, help="weight seed")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    return ap
+
+
+def train_config(args):
+    """The arch's config as the flags select it."""
+    cfg = get_config(args.arch, smoke=args.smoke)
+    if args.impl == "dense":
+        cfg = cfg.replace(projections=dense_projection_map())
+    if args.kernel_backend:
+        cfg = with_kernel_backend(cfg, args.kernel_backend)
+    return cfg
+
+
+def make_trainer(axes, device, cfg, args) -> Trainer:
+    """One rank's ``Trainer``: the reference's optimizer and schedule,
+    ``LMDataset`` batches of ``--seq`` tokens, the log on rank 0."""
+    opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 20, args.steps),
+                         weight_decay=0.1)
+    ds = LMDataset(cfg.vocab_size, args.batch, args.seq + 1, device=device)
+    return Trainer(cfg, axes, opt, ds, microbatches=args.microbatches,
+                   log_every=min(10, args.steps),
+                   log_fn=print if axes.rank == 0 else (lambda _m: None),
+                   device=device)
+
+
+def train_rank(axes, device, cfg, args):
+    """One rank's run; returns the per-step metrics and step times."""
+    trainer = make_trainer(axes, device, cfg, args)
+    trainer.run(trainer.init_state(args.seed), args.steps)
+    return {"history": trainer.history, "step_us": trainer.meter.times_us}
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.tp != 1:
+        raise NotImplementedError(f"--tp {args.tp}: see {LM_TP_TODO}")
+    if args.pp != 1:
+        raise NotImplementedError(f"--pp {args.pp}: see {LM_PIPELINE_TODO}")
+    device = resolve_device(args.device)
+    cfg = train_config(args)
+    print(f"# {cfg.name} impl={args.impl} dp={args.dp} on {device} "
+          f"(kernel_backend={args.kernel_backend or 'config'}): "
+          f"{count_params(cfg):,} params, batch {args.batch} x seq "
+          f"{args.seq}", flush=True)
+    if device.type == "cuda" and resolve_kernel_backend(
+            cfg.projection_spec("attn_q").kernel_backend) == "pallas":
+        build.build(["flash_attention"])   # once, before any rank loads it
+    if args.dp == 1:
+        train_rank(MeshAxes(), device, cfg, args)
+    else:
+        spawn(train_rank, args.dp, 1, device, args=(cfg, args),
+              timeout_s=TIMEOUT_S)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,12 @@
 """GQA attention, head mode, on one device.
 
-Prefill runs one of two cores, chosen as in the reference:
+Training and prefill run one of two cores, chosen as in the reference:
 
-  * the flash kernel (``kernels/ops.py``) when all four q/k/v/o site
-    specs resolve to the ``"pallas"`` backend and
-    ``flash_attention_supported`` accepts the shape: the hand-written
-    CUDA kernel on a CUDA tensor, its plain version on a CPU tensor;
+  * the flash kernel through ``kernels/ops.py: flash_attention_vjp``
+    when all four q/k/v/o site specs resolve to the ``"pallas"`` backend
+    and ``flash_attention_supported`` accepts the shape: the hand-written
+    CUDA kernel on a CUDA tensor, its plain version on a CPU tensor, and
+    in the backward pass autograd through the plain version;
   * otherwise the plain blockwise core ``attn_block_update`` /
     ``finalize_acc`` (kv-chunked online softmax, torch ops).
 
@@ -22,8 +23,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.ops import (flash_attention,
-                                     flash_attention_supported,
+from repro_torch.kernels.ops import (flash_attention_supported,
+                                     flash_attention_vjp,
                                      resolve_kernel_backend)
 from repro_torch.models import rope as ropemod
 from repro_torch.models.layers import dtype_of
@@ -161,7 +162,8 @@ def _gqa_q(q, KV):
 def attention(cfg, params, x, positions, axes: MeshAxes, *,
               kind: str = "prefill", causal: bool = True, cache=None,
               pos=None, return_kv: bool = False):
-    """Returns (out [B, S, d], new_kv or None).  kind: prefill | decode.
+    """Returns (out [B, S, d], new_kv or None).  kind: train | prefill |
+    decode.
     Decode writes into ``cache`` ({k, v} [B, Smax, kv, hd]) in place."""
     resolve_attn_mode(cfg, axes)
     if kind == "decode":
@@ -191,7 +193,7 @@ def _attention_head(cfg, params, x, positions, axes, *, causal,
     use_flash = (_attn_kernel_backend(sts) == "pallas"
                  and flash_attention_supported(S, k.shape[1], H, kv))
     if use_flash:
-        out = flash_attention(q, k, v, causal=causal).to(dtype)
+        out = flash_attention_vjp(q, k, v, causal=causal).to(dtype)
     else:
         acc = init_acc(B, S, kv, H // kv, hd, device=x.device)
         q_pos = torch.arange(S, device=x.device).expand(B, S)

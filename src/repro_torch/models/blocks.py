@@ -2,6 +2,8 @@
 Mamba, MoE and cross-attention blocks arrive with their families."""
 from __future__ import annotations
 
+from torch.utils.checkpoint import checkpoint
+
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (mlp_apply, mlp_decls, norm_apply,
                                        norm_decls)
@@ -17,7 +19,7 @@ def block_decls(cfg, axes: MeshAxes):
 
 def block_apply(cfg, params, x, positions, axes: MeshAxes, *, kind: str,
                 cache=None, pos=None, return_kv: bool = False):
-    """Returns (x, new_kv)."""
+    """Returns (x, new_kv).  kind: train | prefill | decode."""
     h = norm_apply(cfg, params["norm1"], x)
     out, new_kv = attn.attention(cfg, params["mixer"], h, positions, axes,
                                  kind=kind, cache=cache, pos=pos,
@@ -26,3 +28,22 @@ def block_apply(cfg, params, x, positions, axes: MeshAxes, *, kind: str,
     h2 = norm_apply(cfg, params["norm2"], x)
     x = x + mlp_apply(cfg, params["ffn"], h2, axes).to(x.dtype)
     return x, new_kv
+
+
+def _train_block(cfg, params, x, positions, axes):
+    return block_apply(cfg, params, x, positions, axes, kind="train")[0]
+
+
+def block_train(cfg, params, x, positions, axes: MeshAxes):
+    """One block of the training forward.  ``cfg.remat == "full"`` keeps
+    only the block's input and recomputes the rest in the backward pass
+    (the reference's ``jax.checkpoint`` of its layer-scan body), so the
+    flash kernel runs there a second time; ``"none"`` saves every
+    activation."""
+    if cfg.remat == "none":
+        return _train_block(cfg, params, x, positions, axes)
+    if cfg.remat != "full":
+        raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
+                                  f"'full' and 'none'")
+    return checkpoint(_train_block, cfg, params, x, positions, axes,
+                      use_reentrant=False)

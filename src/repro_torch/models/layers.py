@@ -1,5 +1,5 @@
 """Shared layers: norms, embedding, MLP (dense-TP or phantom per site),
-logit head.
+logit head and the sequence-chunked cross-entropy.
 
 At dp = tp = 1 the reference's residual layouts (``sp``, ``fp``,
 ``rep``) are all the full ``[B, S, d]`` tensor and its feature gathers,
@@ -31,24 +31,35 @@ def dtype_of(name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 def _require(cfg):
-    """The dense family as chatglm3-6b uses it; the reference's other
-    norm and MLP kinds arrive with the configs that use them."""
-    if cfg.norm != "rmsnorm" or cfg.mlp != "swiglu":
+    """The norm and MLP kinds of the ported dense configs; the
+    reference's gelu and relu MLPs arrive with the configs that use
+    them."""
+    if cfg.norm not in ("rmsnorm", "layernorm") or cfg.mlp != "swiglu":
         raise NotImplementedError(
-            f"norm={cfg.norm!r} mlp={cfg.mlp!r}: only rmsnorm + swiglu "
-            f"are ported (ROADMAP.md queue 1, item 6)")
+            f"norm={cfg.norm!r} mlp={cfg.mlp!r}: only rmsnorm or layernorm "
+            f"with swiglu are ported (ROADMAP.md queue 1, item 6)")
 
 
 def norm_decls(cfg, d: int):
     _require(cfg)
-    return {"scale": ParamDecl((d,), ("tp",), init="ones")}
+    decl = {"scale": ParamDecl((d,), ("tp",), init="ones")}
+    if cfg.norm == "layernorm":
+        decl["bias"] = ParamDecl((d,), ("tp",), init="zeros")
+    return decl
 
 
 def norm_apply(cfg, params, x):
-    """RMSNorm over the feature dim, in float32."""
+    """RMSNorm or LayerNorm (mean and variance form) over the feature
+    dim, in float32."""
     xf = x.to(torch.float32)
-    ms = (xf * xf).mean(-1, keepdim=True)
-    y = xf * torch.rsqrt(ms + cfg.norm_eps) * params["scale"]
+    if cfg.norm == "layernorm":
+        xc = xf - xf.mean(-1, keepdim=True)
+        var = (xc * xc).mean(-1, keepdim=True)
+        y = xc * torch.rsqrt(var + cfg.norm_eps) * params["scale"] \
+            + params["bias"]
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        y = xf * torch.rsqrt(ms + cfg.norm_eps) * params["scale"]
     return y.to(x.dtype)
 
 
@@ -120,3 +131,41 @@ def head_logits(cfg, params, h_last):
     logits = h_last.to(torch.float32) @ w.to(torch.float32)
     col_ok = torch.arange(w.shape[1], device=w.device) < cfg.vocab_size
     return logits.masked_fill(~col_ok, NEG_INF)
+
+
+def _xent_chunk(cfg, w, h, labels):
+    """Summed token loss of one sequence chunk: float32 logits with the
+    padded vocab columns masked, log-sum-exp shifted by a detached max
+    (the shift is a constant: exact without its gradient)."""
+    logits = h.to(torch.float32) @ w.to(torch.float32)
+    col_ok = torch.arange(w.shape[1], device=w.device) < cfg.vocab_size
+    logits = logits.masked_fill(~col_ok, NEG_INF)
+    m = logits.detach().amax(-1)
+    lse = torch.log(torch.exp(logits - m[..., None]).sum(-1)) + m
+    true_logit = logits.gather(-1, labels[..., None])[..., 0]
+    return (lse - true_logit).sum()
+
+
+def xent_loss(cfg, params, h, labels):
+    """h [B, S, d], labels [B, S] -> (sum_loss, n_valid): the summed
+    cross-entropy of the tokens and their count, every token valid (the
+    caller normalises and sums over dp).  Never holds [B, S, V] at once:
+    the sequence goes in chunks of ``cfg.loss_chunk``, and with more than
+    one chunk each is recomputed in the backward pass instead of saved
+    (the reference scans the chunks)."""
+    from torch.utils.checkpoint import checkpoint
+    B, S, _ = h.shape
+    chunk = min(cfg.loss_chunk, S)
+    if S % chunk:
+        raise ValueError(f"sequence {S} does not tile into loss chunks "
+                         f"of {chunk}")
+    labels = labels.long()
+    w = params["w"]
+    sum_loss = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(0, S, chunk):
+        args = (cfg, w, h[:, c:c + chunk], labels[:, c:c + chunk])
+        sum_loss = sum_loss + (
+            checkpoint(_xent_chunk, *args, use_reentrant=False)
+            if chunk < S else _xent_chunk(*args))
+    return sum_loss, torch.tensor(labels.numel(), dtype=torch.int32,
+                                  device=h.device)

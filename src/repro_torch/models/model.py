@@ -1,7 +1,11 @@
-"""Model assembly for the dense family: decls, prefill and decode.
+"""Model assembly for the dense family: decls, and the training, prefill
+and decode forwards.
 
 Parameters are the reference's tree (layers stacked on axis 0); the
 forward passes loop over the stack in Python where the reference scans.
+The training forward also takes ``params["layers"]`` as a list of
+per-layer trees (``train/trainer.py`` makes each layer's slice a leaf
+of its own).
 """
 from __future__ import annotations
 
@@ -10,10 +14,10 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import block_apply, block_decls
+from repro_torch.models.blocks import block_apply, block_decls, block_train
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_decls,
                                        head_decls, head_logits, norm_apply,
-                                       norm_decls)
+                                       norm_decls, xent_loss)
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import (TensorSpec, param_count, stack,
                                          tree_leaves, tree_map,
@@ -62,7 +66,27 @@ def serving_params(cfg: ModelConfig, params, device=None):
 
 
 def _layer(params, i: int):
-    return tree_map(lambda t: t[i], params["layers"])
+    layers = params["layers"]
+    if isinstance(layers, list):
+        return layers[i]
+    return tree_map(lambda t: t[i], layers)
+
+
+def forward_train(cfg: ModelConfig, axes: MeshAxes, params, batch):
+    """batch {"tokens", "labels"}: [B, S] -> (sum_loss, n_valid, aux),
+    this rank's contributions before the sums over dp; aux (the MoE
+    balance loss) is 0 for the dense family.  Each block runs under
+    ``block_train``'s recompute policy (``cfg.remat``)."""
+    _require_dense(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = embed_apply(cfg, params["embed"], tokens)
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    for i in range(cfg.num_layers):
+        h = block_train(cfg, _layer(params, i), h, positions, axes)
+    h = norm_apply(cfg, params["final_norm"], h)
+    sum_loss, n_valid = xent_loss(cfg, params["head"], h, batch["labels"])
+    return sum_loss, n_valid, torch.zeros((), device=h.device)
 
 
 def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):

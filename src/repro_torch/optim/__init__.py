@@ -1,1 +1,2 @@
-from repro_torch.optim.optimizers import AdamW, Optimizer, SGD  # noqa: F401
+from repro_torch.optim.optimizers import (  # noqa: F401
+    SGD, AdamW, Optimizer, make_optimizer)

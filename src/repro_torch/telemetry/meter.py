@@ -74,6 +74,13 @@ class StepMeter:
                         "wall_us_max": float(np.max(s))})
         return out
 
+    def reset(self, warm: bool = False):
+        """Drop the samples; ``warm=True`` also zeroes the warmup count
+        (the next window's first call is already steady)."""
+        self.times_us = []
+        if warm:
+            self.warmup = 0
+
     def __repr__(self):
         return (f"StepMeter({self.name!r}, calls={self.calls}, "
                 f"median={self.median_us():.1f}us)")

@@ -1,0 +1,244 @@
+"""Training step builder and training loop for the LM families: the
+port's counterpart of the reference's ``train/trainer.py``, for the
+dense family at tp = 1 on any number of dp ranks.
+
+``make_train_step`` builds one rank's step: forward and backward
+(``models/model.py: forward_train``), gradient accumulation over
+microbatches, the spec-aware gradient sums (``parallel/grads.py``), the
+global gradient norm, clipping and the optimizer, as the reference's
+``shard_map``'d step does with explicit collectives.
+
+Memory.  The reference donates parameters and optimizer state, so XLA
+updates them in place; here the optimizer updates them in place
+(``optim/optimizers.py``).  The gradients go into one buffer per
+parameter, allocated once a step: each layer's slice of a stacked
+parameter is a leaf of its own whose ``.grad`` is the same slice of the
+buffer, so autograd adds each layer's gradient into it in place.
+Differentiating the stacked tensor instead would scatter every layer's
+gradient into a zero tensor of the whole stack.
+
+``Trainer`` is the loop around the step: data, a ``StepMeter`` on every
+step, the ``[trainer]`` log line, and ``record_to(ledger)``, which
+records the metered steps as a ledger entry.
+Checkpoints, the straggler detector, restart policies and the
+energy-drift watchdog are ROADMAP.md queue 1, item 8; the tracer and
+metric calls wait for ``obs/`` (the same item).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import forward_train, model_decls
+from repro_torch.parallel.axes import MeshAxes, resolve_device
+from repro_torch.parallel.grads import (LM_PIPELINE_TODO, _spec_axes,
+                                        reduce_grads)
+from repro_torch.parallel.params import materialize, tree_leaves, tree_map
+from repro_torch.telemetry import LedgerEntry, StepMeter
+from repro_torch.train.pipeline import split_batch_microbatches
+
+AUX_LOSS_WEIGHT = 0.01
+OPERATIONS_TODO = "ROADMAP.md queue 1, item 8"
+
+
+def _global_norm(grads, decls, axes: MeshAxes):
+    """The global gradient norm: each leaf's sum of squares weighted so
+    that every element counts once over the ranks that hold it, summed
+    over all ranks."""
+    dflat = dict(tree_leaves(decls))
+    total = None
+    for path, g in tree_leaves(grads):
+        ax = _spec_axes(dflat[path].spec)
+        repl = 1
+        for name, size in (("dp", axes.dp), ("tp", axes.tp),
+                           ("pp", axes.pp)):
+            if name not in ax:
+                repl *= size
+        gf = g.reshape(-1).float()
+        sq = torch.dot(gf, gf) / repl
+        total = sq if total is None else total + sq
+    return torch.sqrt(axes.world_comm.all_reduce(total))
+
+
+def local_rows(batch, axes: MeshAxes):
+    """This rank's rows of a global batch (the reference's
+    ``P("dp", None)`` batch spec)."""
+    def cut(x):
+        b = x.shape[0] // axes.dp
+        return x[axes.dp_rank * b:(axes.dp_rank + 1) * b]
+    return tree_map(cut, batch)
+
+
+def _grad_leaves(params, grads):
+    """A tree like ``params`` whose leaves are fresh autograd leaves over
+    the same storage, each with ``.grad`` preset to its part of
+    ``grads``; ``params["layers"]`` becomes a list of per-layer trees."""
+    def leaf(t, g):
+        x = t.detach().requires_grad_(True)
+        x.grad = g
+        return x
+
+    def zip_map(fn, a, b):
+        if isinstance(a, dict):
+            return {k: zip_map(fn, a[k], b[k]) for k in a}
+        return fn(a, b)
+
+    out = {k: zip_map(leaf, params[k], grads[k]) for k in params
+           if k != "layers"}
+    n = tree_leaves(params["layers"])[0][1].shape[0]
+    out["layers"] = [zip_map(lambda t, g, i=i: leaf(t[i], g[i]),
+                             params["layers"], grads["layers"])
+                     for i in range(n)]
+    return out
+
+
+def make_train_step(cfg: ModelConfig, axes: MeshAxes, optimizer, *,
+                    microbatches: int = 1, grad_clip: float = 1.0,
+                    device=None):
+    """Returns (step_fn, decls, opt_decls), called inside a rank.
+
+    step_fn(params, opt_state, step, batch) -> (params, opt_state,
+    {"loss", "grad_norm"}) on this rank's parameters and its rows of the
+    batch ({"tokens", "labels"} [B/dp, S], moved to ``device``, the card
+    unless the caller asks for the CPU).  The objective is the
+    reference's: the rank's summed token loss over the valid tokens of
+    all dp ranks, divided by tp; ``loss`` is the cross-entropy summed
+    over dp over the same count.  With ``microbatches`` > 1 the
+    gradients (and the reported loss) are the mean over the microbatches
+    of the batch rows, each normalised by its own token count.  The
+    parameters and the optimizer state are updated in place."""
+    if axes.pp > 1:
+        raise NotImplementedError(
+            f"training the model on a pipe axis: see {LM_PIPELINE_TODO}")
+    dev = resolve_device(device)
+    decls = model_decls(cfg, axes)
+    opt_decls = optimizer.state_decls(decls)
+    M = max(microbatches, 1)
+
+    def loss_fn(p, batch):
+        sum_loss, n_valid, aux = forward_train(cfg, axes, p, batch)
+        nv_g = axes.dp_comm.all_reduce(n_valid).float().clamp_min(1.0)
+        obj = (sum_loss / nv_g + AUX_LOSS_WEIGHT * aux / axes.dp) / axes.tp
+        ce = axes.dp_comm.all_reduce(sum_loss) / nv_g
+        return obj, ce
+
+    def step_fn(params, opt_state, step, batch):
+        batch = tree_map(lambda x: x.to(dev), batch)
+        grads = tree_map(torch.zeros_like, params)
+        leaves = _grad_leaves(params, grads)
+        if M == 1:
+            obj, ce = loss_fn(leaves, batch)
+            obj.backward()
+        else:
+            mb = split_batch_microbatches(batch, M)
+            ce = 0.0
+            for i in range(M):
+                obj, ce_i = loss_fn(leaves, tree_map(lambda x: x[i], mb))
+                obj.backward()
+                ce = ce + ce_i
+            for _, g in tree_leaves(grads):
+                g.div_(M)
+            ce = ce / M
+        del leaves, obj
+        grads = reduce_grads(grads, decls, axes)
+        gnorm = _global_norm(grads, decls, axes)
+        if grad_clip > 0:
+            scale = torch.clamp(grad_clip / gnorm.clamp_min(1e-9), max=1.0)
+            for _, g in tree_leaves(grads):
+                g.mul_(scale)
+        params, opt_state = optimizer.update(grads, opt_state, params,
+                                             int(step))
+        return params, opt_state, {"loss": ce, "grad_norm": gnorm}
+
+    return step_fn, decls, opt_decls
+
+
+# ---------------------------------------------------------------------------
+# the training loop
+# ---------------------------------------------------------------------------
+
+@dataclass
+class TrainState:
+    params: object
+    opt_state: object
+    step: int
+
+
+class Trainer:
+    """The training loop of one rank: data, step, meter, log, ledger."""
+
+    def __init__(self, cfg: ModelConfig, axes: MeshAxes, optimizer,
+                 dataset, *, microbatches: int = 1, grad_clip: float = 1.0,
+                 checkpoint_dir: Optional[str] = None, log_every: int = 10,
+                 log_fn: Callable = print, straggler=None,
+                 restart_policy=None, watchdog=None, device=None):
+        for name, value in (("checkpoint_dir", checkpoint_dir),
+                            ("straggler", straggler),
+                            ("restart_policy", restart_policy),
+                            ("watchdog", watchdog)):
+            if value is not None:
+                raise NotImplementedError(
+                    f"Trainer({name}=...): checkpoints and fault tolerance "
+                    f"are not ported yet ({OPERATIONS_TODO})")
+        self.cfg, self.axes, self.optimizer = cfg, axes, optimizer
+        self.dataset = dataset
+        self.log_every, self.log_fn = log_every, log_fn
+        self.device = resolve_device(device)
+        self.meter = StepMeter(f"train_{cfg.name}", warmup=1,
+                               device=self.device)
+        self.history: list = []      # {"loss", "grad_norm"} of every step
+        self._ledger_window = 0
+        self.step_fn, self.decls, self.opt_decls = make_train_step(
+            cfg, axes, optimizer, microbatches=microbatches,
+            grad_clip=grad_clip, device=self.device)
+
+    def init_state(self, seed: int = 0) -> TrainState:
+        """Random parameters drawn on the trainer's device from a
+        generator seeded ``seed`` (a host draw of phi3-mini's 15 GB would
+        add minutes to every run); the optimizer's zero state."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        params = materialize(self.decls, gen, self.device)
+        return TrainState(params, self.optimizer.init(params), 0)
+
+    def run(self, state: TrainState, num_steps: int) -> TrainState:
+        """Steps from ``state.step`` up to ``num_steps``."""
+        params, opt_state, step = state.params, state.opt_state, state.step
+        window = []
+        while step < num_steps:
+            batch = local_rows(self.dataset(step), self.axes)
+            params, opt_state, metrics = self.meter.call(
+                self.step_fn, params, opt_state, step, batch)
+            step += 1
+            m = {k: float(v) for k, v in metrics.items()}
+            self.history.append(m)
+            window.append(m)
+            if step % self.log_every == 0:
+                recent = self.meter.times_us[-self.log_every:]
+                dt_ms = sum(recent) / len(recent) / 1e3
+                loss = sum(w["loss"] for w in window) / len(window)
+                gnorm = sum(w["grad_norm"] for w in window) / len(window)
+                self.log_fn(f"[trainer] step {step} loss {loss:.4f} "
+                            f"gnorm {gnorm:.3f} {dt_ms:.0f} ms/it")
+                window = []
+        return TrainState(params, opt_state, step)
+
+    def record_to(self, ledger, predicted=None, name=None,
+                  measured_extra=None) -> LedgerEntry:
+        """Record this trainer's metered steps in ``ledger`` and reset the
+        meter, so repeated ``run()`` calls record disjoint windows."""
+        measured = self.meter.summary()
+        if measured_extra:
+            measured.update(measured_extra)
+        impl = "phantom" if self.cfg.uses_phantom_sites() else "dense"
+        entry = ledger.record(LedgerEntry(
+            name=name or f"train_{self.cfg.name}", suite="trainer",
+            kind="train", arch=self.cfg.name, impl=impl, p=self.axes.tp,
+            measured=measured, predicted=predicted,
+            extra={"window": self._ledger_window, "pp": self.axes.pp,
+                   "dp": self.axes.dp}))
+        self.meter.reset(warm=True)
+        self._ledger_window += 1
+        return entry

@@ -55,9 +55,14 @@ PHANTOM_MAIN = (64, 2048, 2048, 128)
 # 64 / (2 * 4) rows, n / tp = 8192, k * tp = 32
 PHANTOM_PIPE = (8, 8192, 8192, 32)
 
-# (B, S, H, KV, hd): GQA groups of 1, 2 and 16; hd 16 to 128
+# (B, S, H, KV, hd): GQA groups of 1, 2 and 16; hd 16 to 128, among them
+# stablelm-3b's 80 and phi3-mini's 96 (MHA, up to its training length)
 FLASH_SHAPES = [
     (2, 16, 4, 4, 16),
+    (2, 128, 4, 4, 80),
+    (1, 100, 8, 4, 80),
+    (2, 70, 4, 4, 96),
+    (1, 512, 8, 8, 96),
     (1, 48, 4, 2, 16),
     (1, 128, 4, 2, 16),
     (2, 16, 32, 2, 128),
@@ -346,3 +351,84 @@ def test_bf16_flash_check_sees_a_planted_fault(cuda_device, faulty_libraries,
     torch.cuda.synchronize()
     ok, err = _flash_close(got, q, k, v, True)
     assert not ok, f"{fault}: the check passed (max error {err} of sum p|v|)"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [80, 96])
+def test_flash_attention_vjp_on_the_card(cuda_device, hd, dtype):
+    """``flash_attention_vjp`` on card tensors: the forward launches the
+    kernel once (within the kernel's tolerance of the plain version);
+    the backward is autograd through the plain version, so the gradients
+    are those of the plain path on the same inputs (rtol 1e-5 / atol
+    1e-6 in float32; bf16 at one rounding, 1e-2)."""
+    from repro_torch.kernels.ops import flash_attention_vjp
+    q, k, v = _flash_inputs(2, 128, 4, 4, hd, dtype, cuda_device,
+                            seed=hd)
+    do = _on(_arrays(3, (2, 128, 4, hd)), dtype, cuda_device)[0]
+    grads = {}
+    for name, fn in (("kernel", flash_attention_vjp),
+                     ("plain", flash_attention_ref)):
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        before = flash_attention.launches
+        out = fn(*ins, causal=True)
+        out.backward(do)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + (name == "kernel")
+        grads[name] = (out.detach(), [t.grad for t in ins])
+    ok, err = _flash_close(grads["kernel"][0], q, k, v, True)
+    assert ok, f"forward max error {err}"
+    tol = 1e-5 if dtype == "float32" else 1e-2
+    for a, b in zip(grads["kernel"][1], grads["plain"][1]):
+        assert a.dtype == b.dtype == q.dtype
+        torch.testing.assert_close(a, b, rtol=tol, atol=tol / 10)
+
+
+@pytest.mark.cuda
+def test_trainer_step_kernel_path_matches_plain(cuda_device):
+    """One float32 AdamW step of phi3-smoke (2 layers, d = 64) through
+    ``train/trainer.py`` on the card, the kernel path against the plain
+    path from one draw: loss and gradient norm rtol 1e-5; parameters
+    rtol 1e-4 / atol 1e-5, where a gradient within 10 eps of zero is
+    also allowed what the two gradients imply for AdamW's first step,
+    ``lr |g_k / (|g_k| + eps) - g_p / (|g_p| + eps)|``."""
+    from repro_torch.configs.base import get_config, with_kernel_backend
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import (materialize, tree_leaves,
+                                             tree_map)
+    from repro_torch.train.trainer import make_train_step
+    base = get_config("phi3-mini-3.8b", smoke=True, dtype="float32")
+    params = materialize(model_decls(base, MeshAxes()),
+                         torch.Generator().manual_seed(0), "cpu")
+    batch = LMDataset(base.vocab_size, 4, 129, device=cuda_device)(0)
+    lr, out = 1e-3, {}
+    for name, backend in (("kernel", "auto"), ("plain", "xla")):
+        opt = AdamW(lr, weight_decay=0.1)
+        seen, update = [], opt.update
+        opt.update = lambda g, s, p, t: (seen.append(
+            tree_map(torch.clone, g)), update(g, s, p, t))[1]
+        step_fn, _, _ = make_train_step(with_kernel_backend(base, backend),
+                                        MeshAxes(), opt, device=cuda_device)
+        p = tree_map(lambda t: t.to(cuda_device), params)
+        before = flash_attention.launches
+        p, _, m = step_fn(p, opt.init(p), 0, batch)
+        torch.cuda.synchronize()
+        assert flash_attention.launches - before == (
+            2 * base.num_layers if name == "kernel" else 0)
+        out[name] = (m, dict(tree_leaves(seen[0])), dict(tree_leaves(p)))
+    (mk, gk, pk), (mp, gp, pp) = out["kernel"], out["plain"]
+    for key in ("loss", "grad_norm"):
+        torch.testing.assert_close(mk[key], mp[key], rtol=1e-5, atol=0)
+
+    def f(g):
+        return g.double() / (g.double().abs() + opt.eps)
+    for path, want in pp.items():
+        near = (gk[path].abs() < 10 * opt.eps) | (gp[path].abs()
+                                                  < 10 * opt.eps)
+        implied = lr * (f(gk[path]) - f(gp[path])).abs() * near
+        tol = 1e-5 + 1e-4 * want.double().abs() + implied
+        diff = (pk[path].double() - want.double()).abs()
+        assert bool((diff <= tol).all()), (path, diff.max().item())

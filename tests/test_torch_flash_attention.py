@@ -10,12 +10,16 @@ both sides unchanged.
 
 Tolerances: float32 rtol 2e-3 / atol 2e-4, bf16 3e-2, as the reference's
 own kernel tests use (the two sides sum in different orders; bf16 rounds
-each output once).  The CUDA kernel itself is tested on the card by
+each output once).  ``flash_attention_vjp``'s gradients are held to
+``jax.vjp`` of the same oracle at float32 rtol 1e-4 / atol 1e-5 (one
+dense float32 computation on each side) and at the bf16 tolerance.
+The CUDA kernel itself is tested on the card by
 ``tests/test_torch_cuda_kernels.py``, which imports no JAX.
 """
 import re
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,7 +159,7 @@ def _tc_constants():
             re.findall(r"constexpr int (\w+) = (\d+);", body)}
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", [16, 32, 64, 80, 96, 128])
 def test_bf16_kernel_fits_two_blocks_an_sm(hd):
     """The bf16 kernel's tiles, from its source: 16 rows a warp, and Q
     plus double-buffered K and V (rows padded by 16 bytes) in the shared
@@ -185,3 +189,45 @@ def test_wrapper_refuses_other_devices_and_counts_nothing_on_cpu():
     assert flash_attention.launches == before
     with pytest.raises(ValueError):
         flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# (B, S, H, KV, hd): MHA at hd 96 (phi3-mini) and 80 (stablelm-3b), GQA
+VJP_SHAPES = [(2, 32, 4, 4, 96), (1, 48, 4, 4, 80), (2, 16, 4, 2, 16)]
+VJP_TOL = {"float32": dict(rtol=1e-4, atol=1e-5),
+           "bfloat16": TOL["bfloat16"]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,KV,hd", VJP_SHAPES)
+def test_flash_attention_vjp_matches_jax_vjp(B, S, H, KV, hd, causal,
+                                             dtype):
+    """Forward and the gradients of q, k and v for one cotangent, against
+    ``jax.vjp`` of the reference's oracle (its ``custom_vjp`` backward)."""
+    arrs = _inputs(B, S, H, KV, hd, seed=hd + S)
+    do = np.random.RandomState(1).randn(B, S, H, hd).astype(np.float32)
+    jq, jk, jv = _jax(arrs, dtype)
+    want, vjp = jax.vjp(
+        lambda q, k, v: jax_flash_ref(q, k, v, causal=causal), jq, jk, jv)
+    want_grads = vjp(jnp.asarray(do).astype(getattr(jnp, dtype)))
+    q, k, v = (t.requires_grad_(True) for t in _torch(arrs, dtype))
+    out = ops.flash_attention_vjp(q, k, v, causal=causal)
+    out.backward(torch.from_numpy(do).to(getattr(torch, dtype)))
+    assert out.dtype == q.grad.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(_np(out.detach()), _np(want),
+                               **VJP_TOL[dtype])
+    for got, w, name in zip((q.grad, k.grad, v.grad), want_grads, "qkv"):
+        np.testing.assert_allclose(_np(got), _np(w), err_msg=name,
+                                   **VJP_TOL[dtype])
+
+
+def test_head_dims_cover_the_dense_configs():
+    """Every dense config's head dim, full and smoke, is one the kernel
+    takes: the gate checks none, so a missing one would raise on the
+    card where the reference runs its kernel."""
+    from repro_torch.configs.base import _MODULES, get_config
+    from repro_torch.kernels.flash_attention import HEAD_DIMS
+    dims = {get_config(a, smoke=s).resolved_head_dim()
+            for a in _MODULES if not a.startswith("paper-ffn")
+            for s in (False, True)}
+    assert dims == {16, 80, 96, 128} and dims <= set(HEAD_DIMS)

@@ -94,6 +94,46 @@ def test_chatglm3_config_equals_reference(smoke):
             dataclasses.asdict(theirs.projection_spec(site))
 
 
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "stablelm-3b"])
+def test_trained_dense_config_equals_reference(arch, smoke):
+    """The dense configs the trainer runs: every field the port keeps
+    (the training knobs ``remat``, ``optimizer``, ``loss_chunk`` among
+    them), every site's projection spec, and the full-size parameter
+    count."""
+    from repro.models.model import count_params as jax_count_params
+    from repro_torch.models.model import count_params
+    names = [f.name for f in dataclasses.fields(ModelConfig)]
+    ours = get_config(arch, smoke=smoke)
+    theirs = jax_get_config(arch, smoke=smoke)
+    assert _fields(ours, names) == _fields(theirs, names)
+    for site in ("ffn_gate", "ffn_up", "ffn_down", "attn_q", "attn_k",
+                 "attn_v", "attn_o"):
+        assert dataclasses.asdict(ours.projection_spec(site)) == \
+            dataclasses.asdict(theirs.projection_spec(site))
+    assert ours.uses_phantom_sites() == theirs.uses_phantom_sites()
+    assert count_params(ours) == jax_count_params(theirs, tp=1)
+
+
+@pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
+def test_input_specs_match_reference(kind):
+    from repro.configs.base import ShapeConfig as JShapeConfig
+    from repro.launch.specs import input_specs as jax_input_specs
+    from repro.launch.mesh import make_local_mesh
+    from repro.parallel.axes import MeshAxes as JMeshAxes
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.specs import input_specs
+    ours = input_specs(get_config("phi3-mini-3.8b", smoke=True),
+                       ShapeConfig("c", 64, 4, kind), MeshAxes())
+    theirs, _ = jax_input_specs(
+        jax_get_config("phi3-mini-3.8b", smoke=True),
+        JShapeConfig("c", 64, 4, kind),
+        JMeshAxes.from_mesh(make_local_mesh(1, 1)))
+    assert {k: tuple(v.shape) for k, v in ours.items()} == \
+        {k: tuple(v.shape) for k, v in theirs.items()}
+    assert all(v.dtype == torch.int64 for v in ours.values())
+
+
 def test_serve_engine_targets_the_card_by_default():
     """No ``device`` argument means the card; without one the engine
     raises instead of running on the CPU."""
@@ -170,19 +210,25 @@ def test_pipeline_config_equals_reference(kind, stages):
 
 
 @pytest.mark.parametrize("entry", ["init_ffn", "measure_ffn_step",
-                                   "count_step", "StepMeter"])
+                                   "count_step", "StepMeter",
+                                   "make_train_step", "Trainer"])
 def test_library_functions_target_the_card_by_default(entry):
     """``device=None`` means the card: on a machine without one these
     raise instead of running on the CPU."""
     from repro_torch.core.ffn import init_ffn
     from repro_torch.optim import AdamW
     from repro_torch.telemetry import StepMeter, count_step, measure_ffn_step
+    from repro_torch.train.trainer import Trainer, make_train_step
     cfg = get_config("paper-ffn-16k", smoke=True)
+    lm = get_config("phi3-mini-3.8b", smoke=True)
     calls = {
         "init_ffn": lambda: init_ffn(cfg, MeshAxes(), AdamW(1e-3)),
         "measure_ffn_step": lambda: measure_ffn_step(cfg, MeshAxes(), 8),
         "count_step": lambda: count_step(lambda: None),
         "StepMeter": lambda: StepMeter("step").device,
+        "make_train_step": lambda: make_train_step(lm, MeshAxes(),
+                                                   AdamW(1e-3)),
+        "Trainer": lambda: Trainer(lm, MeshAxes(), AdamW(1e-3), None),
     }
     if torch.cuda.is_available():
         pytest.skip("a card is present: device=None runs there")
@@ -196,3 +242,34 @@ def test_unported_arch_and_family_raise():
     cfg = get_config("chatglm3-6b", smoke=True).replace(family="moe")
     with pytest.raises(NotImplementedError):
         model_decls(cfg, MeshAxes())
+
+
+@pytest.mark.parametrize("what", ["model_tp", "train_pp", "norm",
+                                  "remat", "trainer_ops"])
+def test_unported_training_paths_raise(what):
+    """What the trainer does not run yet raises and names its ROADMAP
+    item: the dense model at tp > 1, the full-model pipeline, an MLP kind
+    no ported config uses, remat policies other than full and none,
+    checkpoints and fault tolerance."""
+    from repro_torch.models.layers import norm_decls
+    from repro_torch.models.blocks import block_train
+    from repro_torch.optim import AdamW
+    from repro_torch.train.trainer import Trainer, make_train_step
+    cfg = get_config("phi3-mini-3.8b", smoke=True)
+    if what == "model_tp":
+        with pytest.raises(NotImplementedError, match="tp=2"):
+            make_train_step(cfg, MeshAxes(tp=2), AdamW(1e-3), device="cpu")
+    elif what == "train_pp":
+        with pytest.raises(NotImplementedError, match="pipeline"):
+            make_train_step(cfg, MeshAxes(pp=2), AdamW(1e-3), device="cpu")
+    elif what == "norm":
+        with pytest.raises(NotImplementedError, match="item 6"):
+            norm_decls(cfg.replace(mlp="gelu"), 64)
+    elif what == "remat":
+        with pytest.raises(NotImplementedError, match="remat"):
+            block_train(cfg.replace(remat="dots"), {}, None, None,
+                        MeshAxes())
+    else:
+        with pytest.raises(NotImplementedError, match="item 8"):
+            Trainer(cfg, MeshAxes(), AdamW(1e-3), None,
+                    checkpoint_dir="ckpt", device="cpu")

@@ -200,3 +200,39 @@ def pipeline_body(axes, device, inputs):
                                         device=device)
         for name, cfg in inputs["ledger"].items()}
     return out
+
+
+def trainer_body(axes, device, inputs):
+    """Three AdamW steps of the port's LM train step per case, from the
+    reference's initial parameters and its token batches (each rank on
+    its rows); returns each step's loss, gradient norm and clipped
+    gradients (as the optimizer got them) and the final parameters."""
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel.params import from_jax_params
+    from repro_torch.train.trainer import local_rows, make_train_step
+
+    out = {}
+    for name, case in inputs.items():
+        opt = make_optimizer("adamw", case["lr"],
+                             weight_decay=case["weight_decay"])
+        step_fn, _, _ = make_train_step(case["cfg"], axes, opt,
+                                        microbatches=case["microbatches"],
+                                        device=device)
+        grads = []
+        update = opt.update
+
+        def recording(g, state, params, step, update=update, grads=grads):
+            grads.append(tree_map(_np, g))
+            return update(g, state, params, step)
+        opt.update = recording
+        params = from_jax_params(case["params"])
+        state = opt.init(params)
+        losses, gnorms = [], []
+        for s, batch in enumerate(case["batches"]):
+            batch = local_rows(tree_map(torch.from_numpy, batch), axes)
+            params, state, m = step_fn(params, state, s, batch)
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        out[name] = {"losses": losses, "grad_norms": gnorms,
+                     "grads": grads, "params": tree_map(_np, params)}
+    return out
