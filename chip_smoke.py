@@ -189,6 +189,19 @@ LM_BF16_LOSS_RTOL = 5e-3
 # (B, S, H, KV, hd) of the training shape: phi3-mini (hd 96) and
 # stablelm-3b (hd 80), causal
 LM_FLASH_SHAPES = ((4, 512, 32, 32, 96), (4, 512, 32, 32, 80))
+# phase 9: phi3-mini on LM_TP ranks; (d) runs LM_TP_COMPARE = (layers,
+# steps) of phantom and of dense; a CPU rehearsal takes seq 64
+LM_TP, LM_TP_COMPARE, LM_TP_SMOKE_SEQ = 4, (8, 3), 64
+# the per-rank shapes of phi3-mini at tp = 4, batch 4 x seq 512: the
+# phantom kernels' (M, K, N, PK) at gate/up and at down (k = 12, PK = 48),
+# and flash's (B, S, H, KV, hd) at H / tp local heads
+LM_TP_PHANTOM_SHAPES = ((2048, 768, 2048, 48), (2048, 2048, 768, 48))
+LM_TP_FLASH_SHAPE = (4, 512, 8, 8, 96)
+
+
+# a kernel's measured keys in the kernels line
+TIMED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+         "library_ms")
 
 
 class SmokeFailure(RuntimeError):
@@ -569,29 +582,32 @@ def _compare_cores(cfg, axes, params, toks):
     from repro_torch.configs.base import with_kernel_backend
     from repro_torch.models.blocks import block_apply
     from repro_torch.models.layers import (embed_apply, head_logits,
-                                           norm_apply)
+                                           norm_apply, residual_layout)
     from repro_torch.models.model import forward_prefill
     from repro_torch.parallel.params import tree_map
     plain = with_kernel_backend(cfg, "xla")
     V = cfg.vocab_size
+    lay = residual_layout(cfg, "prefill")
     errs = {}
     with torch.no_grad():
         B, S = toks.shape
         pos = torch.arange(S, device=toks.device).expand(B, S)
-        h = embed_apply(cfg, params["embed"], toks)
+        h = embed_apply(cfg, lay, params["embed"], toks, axes)
         worst = 0.0
         for i in range(cfg.num_layers):
             lp = tree_map(lambda t: t[i], params["layers"])
-            h_k, _ = block_apply(cfg, lp, h, pos, axes, kind="prefill")
-            h_x, _ = block_apply(plain, lp, h, pos, axes, kind="prefill")
+            h_k, _ = block_apply(cfg, lay, lp, h, pos, axes, kind="prefill")
+            h_x, _ = block_apply(plain, lay, lp, h, pos, axes,
+                                 kind="prefill")
             worst = max(worst, (h_k.float() - h_x.float()).abs().max().item())
             check(_close(h_k, h_x), f"layer {i}: kernel and plain core "
                                     f"outputs disagree")
             h = h_k
 
         def logits(x):
-            return head_logits(cfg, params["head"], norm_apply(
-                cfg, params["final_norm"], x)[:, -1:])[..., :V]
+            return head_logits(cfg, lay, params["head"], norm_apply(
+                cfg, lay, params["final_norm"], x, axes)[:, -1:],
+                axes)[..., :V]
         lg_k, lg_x = logits(h_k), logits(h_x)
         check(bool(torch.isfinite(lg_k).all()), "non-finite logits")
         check(_close(lg_k, lg_x), "per-layer logits disagree")
@@ -1749,6 +1765,340 @@ def phase_lm_train():
             "profile": prof}
 
 
+def _lm_args(extra, smoke=False):
+    """``launch/train.py``'s flags for phi3-mini at ``LM_TP`` ranks,
+    batch ``LM_BATCH`` x seq ``LM_SEQ`` (``smoke``: its CPU geometry)."""
+    from repro_torch.launch.train import build_parser
+    return build_parser().parse_args(
+        ["--arch", LM_ARCH, "--smoke" if smoke else "--full",
+         "--kernel-backend", "auto", "--batch", str(LM_BATCH), "--seq",
+         str(LM_TP_SMOKE_SEQ if smoke else LM_SEQ), "--seed", str(SEED),
+         "--tp", str(LM_TP)] + extra)
+
+
+def _kernel_counts(reset=False):
+    """The launch counts of the flash kernel and the three phantom
+    kernels (``reset``: set them to 0 first)."""
+    from repro_torch.kernels import phantom_fused as pf
+    from repro_torch.kernels.flash_attention import flash_attention
+    kernels = (flash_attention, pf.phantom_fused_matmul, pf.matmul_nt,
+               pf.matmul_tn)
+    if reset:
+        for k in kernels:
+            k.launches = 0
+    return {k.__name__: k.launches for k in kernels}
+
+
+def _tp_step1(cfg, axes, device, params, batch, sched):
+    """One AdamW step of ``cfg`` on ``axes`` from a clone of ``params``
+    (the optimizer updates in place): the loss, the clipped gradients the
+    optimizer got, the updated parameters and the launches."""
+    import torch
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel.params import tree_map
+    from repro_torch.train.trainer import make_train_step
+    opt = make_optimizer(cfg.optimizer, sched, weight_decay=0.1)
+    seen = []
+    update = opt.update
+
+    def recording(g, s, p, step):
+        seen.append(g)
+        return update(g, s, p, step)
+    opt.update = recording
+    step_fn, _, _ = make_train_step(cfg, axes, opt, device=device)
+    p = tree_map(torch.clone, params)
+    _kernel_counts(reset=True)
+    p, _, m = step_fn(p, opt.init(p), 0, batch)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    return ({"loss": m["loss"], "grads": seen[0], "params": p},
+            _kernel_counts(), opt.eps)
+
+
+def _free(device):
+    import gc
+    import torch
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _lm_tp_train(axes, device, cfg, args, steps):
+    """``launch/train.py``'s trainer on this rank for ``steps`` steps,
+    kernel counts from 0 just before the run and read just after, the
+    collectives logged: step times, losses, launches, wire bytes per
+    step by collective, and (on the card) the rank's peak memory and
+    the card's used memory."""
+    import torch
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.parallel.axes import record_collectives
+    from repro_torch.telemetry.counted import collective_costs
+    on_card = device.type == "cuda"
+    trainer = make_trainer(axes, device, cfg, args)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(args.seed)
+    _kernel_counts(reset=True)
+    with record_collectives() as log:
+        state = trainer.run(state, steps)
+    launches = _kernel_counts()
+    per_op = collective_costs(log.events)
+    out = {"step_ms": [t / 1e3 for t in trainer.meter.times_us],
+           "losses": [h["loss"] for h in trainer.history],
+           "grad_norms": [h["grad_norm"] for h in trainer.history],
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "wire_bytes_per_step": sum(r["wire_bytes"]
+                                      for r in per_op.values()) / steps,
+           "collectives_per_step": {
+               k: {"count": r["count"] / steps,
+                   "wire_bytes": r["wire_bytes"] / steps}
+               for k, r in per_op.items()},
+           "params_local": sum(t.numel() for t in _leaves(state.params))}
+    if on_card:
+        free, total = torch.cuda.mem_get_info()
+        out.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   card_used_gb=(total - free) / 1e9)
+    del trainer, state
+    _free(device)
+    return out
+
+
+def _lm_tp_rank(axes, device, smoke=False):
+    """``phase_lm_train_tp`` inside one of the ``LM_TP`` ranks sharing
+    the card: (a) step 1 kernels against plain at tp = 4, phantom, fp32,
+    ``LM_PARITY_LAYERS`` layers; (b) dense (``sp``) at tp = 4 against
+    tp = 1 from the same seed, each rank holding its shard of the tp = 1
+    run; (c) phantom at all layers, bf16, ``LM_STEPS`` steps, the main
+    path; (d) phantom and dense at ``LM_TP_COMPARE[0]`` layers,
+    ``LM_TP_COMPARE[1]`` steps each.  ``smoke`` takes phi3's CPU
+    geometry, for a rehearsal with ``device="cpu"``."""
+    from repro_torch.configs.base import (dense_projection_map,
+                                          with_kernel_backend)
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize_shards, shard_params
+
+    out = {"rank": axes.rank, "backend": axes.world_comm.backend}
+    args = _lm_args(["--steps", str(LM_STEPS)], smoke)
+    base = train_config(args)
+    cut = base.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
+    batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
+                      device=device)(0)
+    sched = warmup_cosine(3e-4, 20, LM_STEPS)
+
+    # (a) kernels against plain, phantom sites at tp = 4, float32
+    params = materialize_shards(model_decls(cut, axes), axes, SEED, device,
+                                draw_on=device)
+    res, launches = {}, {}
+    for name, backend in (("kernel", "auto"), ("plain", "xla")):
+        res[name], launches[name], eps = _tp_step1(
+            with_kernel_backend(cut, backend), axes, device, params, batch,
+            sched)
+    out["kernel_vs_plain"] = {
+        part: _step1_diff(res, part, sched(0), eps)
+        for part in ("loss", "grads", "params")}
+    out["kernel_vs_plain"]["launches"] = launches
+    out["kernel_vs_plain"]["loss_values"] = {
+        n: float(r["loss"]) for n, r in res.items()}
+    del params, res
+    _free(device)
+
+    # (b) the sp layout at tp = 4 against tp = 1, dense sites, float32
+    dense = with_kernel_backend(cut.replace(
+        projections=dense_projection_map()), "auto")
+    decls = model_decls(dense, axes)
+    params = materialize_shards(decls, axes, SEED, device, draw_on=device)
+    res = {"kernel": _tp_step1(dense, axes, device, params, batch, sched)[0]}
+    del params
+    _free(device)
+    one = MeshAxes()
+    params = materialize_shards(model_decls(dense, one), one, SEED, device,
+                                draw_on=device)
+    full = _tp_step1(dense, one, device, params, batch, sched)[0]
+    del params
+    res["plain"] = {"loss": full["loss"],
+                    "grads": shard_params(full["grads"], decls, axes),
+                    "params": shard_params(full["params"], decls, axes)}
+    del full
+    out["tp4_vs_tp1"] = {part: _step1_diff(res, part, sched(0), eps)
+                         for part in ("loss", "grads", "params")}
+    out["tp4_vs_tp1"]["loss_values"] = {
+        n: float(r["loss"]) for n, r in res.items()}
+    del res
+    _free(device)
+
+    # (c) the slice: phantom phi3-mini at every layer, bf16 -------------
+    out["main"] = _lm_tp_train(axes, device, base, args, LM_STEPS)
+
+    # (d) phantom against tensor in the transformer ---------------------
+    layers, steps = LM_TP_COMPARE
+    out["compare"] = {}
+    for impl in ("phantom", "dense"):
+        a = _lm_args(["--steps", str(steps), "--impl", impl], smoke)
+        out["compare"][impl] = _lm_tp_train(
+            axes, device, train_config(a).replace(num_layers=layers), a,
+            steps)
+    return out
+
+
+def _lm_tp_kernels(gen):
+    """The flash kernel and the three phantom kernels at the per-rank
+    shapes of phi3-mini at tp = 4 (bf16), against their plain versions
+    and timed as in phases 2 and 3."""
+    flash = _case(*LM_TP_FLASH_SHAPE, True, "bfloat16", gen)
+    print(f"lm_train_tp: flash_attention B={flash['B']} S={flash['S']} "
+          f"H={flash['H']} KV={flash['KV']} hd={flash['hd']} bfloat16 "
+          f"causal: max_abs_err={flash['max_abs_err']:.3e} (of sum p|v|: "
+          f"{flash['max_rel_err']:.3e}) ok={flash['ok']} ms="
+          f"{flash['ms']:.4f} bound_ms={flash['bound_ms']:.5f} "
+          f"({flash['bound_by']}) plain_ms={flash['plain_ms']:.4f} "
+          f"library_ms={flash['library_ms']:.4f}", flush=True)
+    phantom = []
+    for shape in LM_TP_PHANTOM_SHAPES:
+        for r in _phantom_case(*shape, "bfloat16", gen):
+            phantom.append(r)
+            print(f"lm_train_tp: {r['kernel']} M={r['M']} K={r['K']} "
+                  f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
+                  f"{r['max_abs_err']:.3e} ok={r['ok']} {r['variant']} "
+                  f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']:.4f}", flush=True)
+    bad = [r for r in [flash] + phantom if not r["ok"]]
+    check(not bad, f"lm_train_tp: kernels disagree with their plain "
+                   f"versions at the tp = 4 shapes: {bad}")
+    return {"flash": flash, "phantom": phantom}
+
+
+def _lm_tp_held(ranks, layers, on_card):
+    """Hold every rank's (a) and (b), its step-1 launches (on the card:
+    on CPU tensors the wrappers run the plain versions and count
+    nothing) and its losses; returns the worst of (a) and (b) over the
+    ranks."""
+    import math
+    want_a = {"kernel": {"flash_attention": 2 * layers,
+                         "phantom_fused_matmul": 6 * layers,
+                         "matmul_nt": 3 * layers, "matmul_tn": 3 * layers},
+              "plain": {"flash_attention": 0, "phantom_fused_matmul": 0,
+                        "matmul_nt": 0, "matmul_tn": 0}}
+    worst = {}
+    for r in ranks:
+        rk = r["rank"]
+        for key in ("kernel_vs_plain", "tp4_vs_tp1"):
+            for part in ("loss", "grads", "params"):
+                diff = r[key][part]
+                check(diff["outside"] == 0,
+                      f"lm_train_tp rank {rk}: {key} {part} differ in "
+                      f"{diff['outside']} of {diff['elements']} elements: "
+                      f"{diff}")
+                w = worst.setdefault(key, {}).setdefault(part, {})
+                for k, v in diff.items():
+                    w[k] = max(w.get(k, 0), v)
+            check(r[key]["grads"]["max_scaled_err"] <= STEP1_TOL["rtol"],
+                  f"lm_train_tp rank {rk}: {key} gradients differ by more "
+                  f"than 1e-4 of the largest: {r[key]['grads']}")
+        check(not on_card or r["kernel_vs_plain"]["launches"] == want_a,
+              f"lm_train_tp rank {rk}: step-1 launches "
+              f"{r['kernel_vs_plain']['launches']}, want {want_a}")
+        for name, run in [("main", r["main"])] + list(
+                r["compare"].items()):
+            check(all(math.isfinite(v) for v in run["losses"]
+                      + run["grad_norms"]),
+                  f"lm_train_tp rank {rk}: non-finite {name} loss or "
+                  f"gradient norm: {run['losses']} {run['grad_norms']}")
+    return worst
+
+
+def phase_lm_train_tp(device="cuda", smoke=False):
+    """phi3-mini with phantom MLP sites on ``LM_TP`` ranks sharing the
+    card (gloo, card tensors through the host)."""
+    import statistics as st
+    import torch
+    from repro_torch.launch.mesh import backend_for, spawn
+    from repro_torch.launch.train import train_config
+    dev = torch.device(device)
+    _free(dev)
+    kernels = _lm_tp_kernels(torch.Generator(device="cuda").manual_seed(
+        SEED)) if dev.type == "cuda" else None
+    print(f"lm_train_tp: {LM_TP} ranks on {torch.cuda.device_count()} "
+          f"card(s); backend {backend_for(dev.type, LM_TP)}", flush=True)
+    t0 = time.perf_counter()
+    ranks = spawn(_lm_tp_rank, 1, LM_TP, device, args=(smoke,),
+                  timeout_s=900)
+    wall = time.perf_counter() - t0
+    cfg = train_config(_lm_args([], smoke))
+    on_card = dev.type == "cuda"
+    worst = _lm_tp_held(ranks, LM_PARITY_LAYERS, on_card)
+    for key, what in (("kernel_vs_plain", "kernels vs plain, phantom"),
+                      ("tp4_vs_tp1", "dense sp at tp=4 vs tp=1")):
+        w = worst[key]
+        print(f"lm_train_tp: ({'a' if key == 'kernel_vs_plain' else 'b'}) "
+              f"{cfg.name} at {LM_PARITY_LAYERS} layers, step 1 {what}, "
+              f"float32, worst over ranks (held to rtol 1e-4 / atol 1e-5): "
+              f"loss {w['loss']['max_abs_err']:.3e} (values "
+              f"{ranks[0][key]['loss_values']}), grads "
+              f"{w['grads']['max_abs_err']:.3e} "
+              f"({w['grads']['max_scaled_err']:.3e} of the largest), "
+              f"params {w['params']['max_abs_err']:.3e}; near-zero "
+              f"gradients {w['params']['near_zero_grad']} per rank at "
+              f"most, differing by up to "
+              f"{w['params']['max_abs_err_near_zero_grad']:.3e} (implied "
+              f"{w['params']['max_implied_near_zero_grad']:.3e}); elements "
+              f"outside 0 of {w['params']['elements']} per rank at most",
+              flush=True)
+    tokens = LM_BATCH * (LM_TP_SMOKE_SEQ if smoke else LM_SEQ)
+    main = [r["main"] for r in ranks]
+    med = [st.median(m["step_ms"][1:]) for m in main]
+    launches = main[0]["launches_per_step"]
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L, "phantom_fused_matmul": 6 * L,
+            "matmul_nt": 3 * L, "matmul_tn": 3 * L}
+    for r in ranks:
+        check(not on_card or r["main"]["launches_per_step"] == want,
+              f"lm_train_tp rank {r['rank']}: launches per step "
+              f"{r['main']['launches_per_step']}, want {want} (forward and "
+              f"recompute of {L} layers; the phantom forward at 3 sites)")
+    print(f"lm_train_tp: (c) {cfg.name} phantom, tp={LM_TP}, layers={L}, "
+          f"batch {LM_BATCH} x seq {tokens // LM_BATCH}, bf16, "
+          f"remat={cfg.remat}: losses {[round(v, 4) for v in main[0]['losses']]}"
+          f"; per-rank step ms, median of steps 2-{LM_STEPS}: "
+          f"{[round(m, 2) for m in med]}; {tokens / max(med) * 1e3:.1f} "
+          f"tokens/s (slowest rank); launches per step per rank "
+          f"{launches}; local parameters per rank "
+          f"{main[0]['params_local']:,}", flush=True)
+    print(f"lm_train_tp: (c) wire bytes per step per rank "
+          f"{[round(m['wire_bytes_per_step']) for m in main]}; by "
+          f"collective (rank 0): {main[0]['collectives_per_step']}",
+          flush=True)
+    if on_card:
+        print(f"lm_train_tp: (c) peak memory per rank (GB) "
+              f"{[round(m['peak_memory_gb'], 2) for m in main]}; card used "
+              f"(GB, as each rank read it after its run) "
+              f"{[round(m['card_used_gb'], 2) for m in main]}", flush=True)
+    compare = {}
+    for impl in ("phantom", "dense"):
+        runs = [r["compare"][impl] for r in ranks]
+        compare[impl] = {
+            "median_step_ms": [st.median(x["step_ms"][1:]) for x in runs],
+            "wire_bytes_per_step": [x["wire_bytes_per_step"] for x in runs],
+            "losses": runs[0]["losses"]}
+        print(f"lm_train_tp: (d) {impl} at {LM_TP_COMPARE[0]} layers, "
+              f"{LM_TP_COMPARE[1]} steps: per-rank step ms (median after "
+              f"the first) {[round(v, 2) for v in compare[impl]['median_step_ms']]}"
+              f", wire bytes per step per rank "
+              f"{[round(v) for v in compare[impl]['wire_bytes_per_step']]}, "
+              f"losses {[round(v, 4) for v in runs[0]['losses']]}",
+              flush=True)
+    print(f"lm_train_tp: the phase took {wall:.1f} s in the ranks",
+          flush=True)
+    return {"kernels": kernels, "ranks": ranks, "worst": worst,
+            "median_step_ms": med, "tokens_per_s": tokens / max(med) * 1e3,
+            "launches_per_step": launches, "compare": compare,
+            "wall_s": wall}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1772,6 +2122,7 @@ def main() -> int:
     ledger = phase_energy(train, device["nvidia_smi"])
     pipeline = phase_pipeline(train, ledger)
     lm = phase_lm_train()
+    lm_tp = phase_lm_train_tp()
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
     print(f"ledger written to {path}")
     ledger = ledger.report()
@@ -1795,7 +2146,11 @@ def main() -> int:
         "train_launches": lm["launches"],
         "hd96": {**{key: lm["flash"]["sweep"][0][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err")}, "cold_ms": lm["flash"]["cold"]["cold_ms"]}}]
+            "max_abs_err")}, "cold_ms": lm["flash"]["cold"]["cold_ms"]},
+        "lm_tp4": {"shape": list(LM_TP_FLASH_SHAPE),
+                   "launches_per_step_per_rank":
+                       lm_tp["launches_per_step"]["flash_attention"],
+                   **{key: lm_tp["kernels"]["flash"][key] for key in TIMED}}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -1818,13 +2173,20 @@ def main() -> int:
                 "launches": pipeline["launches"][name],
                 **{key: pipe_r[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")}}})
+                    "bound_by", "library_ms")}},
+            "lm_tp4": {
+                "launches_per_step_per_rank":
+                    lm_tp["launches_per_step"][name],
+                "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
+                            **{key: r[key] for key in TIMED}}
+                           for r in lm_tp["kernels"]["phantom"]
+                           if r["kernel"] == name]}})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "flash": flash, "phantom": phantom,
          "serve": serve, "train": train, "pipeline": pipeline,
-         "lm_train": lm, "ledger": ledger,
+         "lm_train": lm, "lm_train_tp": lm_tp, "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,6 +7,11 @@ axis; the backward pass reduce-scatters the ghost gradients back to the
 ranks they came from.  ``psum_scatter_tiled`` is its transpose pair.
 Both run over ``axes.tp_comm`` (``parallel/axes.py: Group``); with one
 rank on the axis they are the identity.
+
+``psum`` is the model axis's all-reduce with the gradient JAX gives
+``lax.psum`` inside ``shard_map``: the cotangents are all-reduced too.
+The norm moments and the loss's log-sum-exp go through it.  ``pmax``
+(the loss's detached shift) has no gradient, as ``lax.pmax`` has none.
 """
 from __future__ import annotations
 
@@ -74,3 +79,35 @@ def all_gather_tiled(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     """All-gather along ``dim`` over the model axis, rank blocks in rank
     order; the gradient is the tiled reduce-scatter."""
     return _AllGatherTiled.apply(x, axes.tp_comm, dim % x.dim())
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: Group):
+        ctx.group = group
+        return group.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        # psum's transpose under shard_map is psum: every rank's output
+        # depends on every rank's input
+        return ctx.group.all_reduce(grad_out), None
+
+
+def psum(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum over the model axis, differentiable: the gradient is the
+    all-reduce of the cotangents.  The identity at tp = 1."""
+    if axes.tp == 1:
+        return x
+    return _Psum.apply(x, axes.tp_comm)
+
+
+def pmax(x: torch.Tensor, axes) -> torch.Tensor:
+    """The elementwise max over the model axis of a tensor that carries
+    no gradient (the reference takes ``lax.pmax`` after
+    ``stop_gradient``).  The identity at tp = 1."""
+    if x.requires_grad:
+        raise ValueError("pmax has no gradient: detach its input")
+    if axes.tp == 1:
+        return x
+    return axes.tp_comm.all_reduce(x, op="max")

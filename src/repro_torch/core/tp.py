@@ -6,7 +6,9 @@ is exactly the paper's Table II schedule:
                  Reduce-Scatter of the activation gradients backward.
 
 The projections run on the rank's local weight shard; the gathers and
-scatters run over ``axes.tp_comm`` and are the identity at tp = 1.
+scatters (over features, or over the sequence for the residual stream's
+sequence-parallel layout) run over ``axes.tp_comm`` and are the
+identity at tp = 1.
 """
 from __future__ import annotations
 
@@ -62,3 +64,14 @@ def gather_features(x_shard, axes):
 def scatter_features(z_partial, axes):
     """partial [..., n] -> reduced [..., n/p] (fwd RS, bwd AG)."""
     return psum_scatter_tiled(z_partial, axes, -1)
+
+
+def gather_seq(x, axes, axis=1):
+    """Sequence-parallel gather: [B, S/p, d] -> [B, S, d] (fwd AG, bwd
+    RS)."""
+    return all_gather_tiled(x, axes, axis)
+
+
+def scatter_seq(z, axes, axis=1):
+    """partial [B, S, d] -> reduced [B, S/p, d] (fwd RS, bwd AG)."""
+    return psum_scatter_tiled(z, axes, axis)

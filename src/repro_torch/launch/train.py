@@ -4,18 +4,23 @@ without a plan).
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
         --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
+        --device cpu --tp 2                 # 2 gloo ranks
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --arch phi3-mini-3.8b --full --kernel-backend auto --steps 5 \\
-        --batch 4 --seq 512                 # on the card
+        --arch phi3-mini-3.8b --full --kernel-backend auto --tp 4 \\
+        --batch 4 --seq 512 --steps 5       # on the card
 
 builds ``Trainer(cfg, axes, make_optimizer(cfg.optimizer,
 warmup_cosine(3e-4, 20, steps), weight_decay=0.1), LMDataset(...))``
 and runs ``--steps`` steps on ``--batch`` sequences of ``--seq``
 tokens, logging the ``[trainer]`` line.  Weights are random, drawn on
-the device from ``--seed``.  ``--dp`` above 1 spawns that many ranks
-(``launch/mesh.py: spawn``), each on its rows of the batch;
-``--tp`` and ``--pp`` are 1 until the slices that train the dense model
-at tp > 1 and pipeline it (ROADMAP.md queue 1, item 6).  The run is on
+the device from ``--seed``, each rank keeping its shards.  ``--dp`` x
+``--tp`` above 1 spawns that many ranks (``launch/mesh.py: spawn``,
+rank ``d * tp + t``), each on its rows of the batch and its shards of
+the model: ``--impl phantom`` (the default) keeps the residual stream
+feature-sharded (``fp``), ``--impl dense`` runs the Megatron
+sequence-parallel baseline (``sp``).  ``--pp`` is 1 until the slice that
+pipelines the full model (ROADMAP.md queue 1, item 6).  The run is on
 the card unless ``--device cpu`` is given; ``--smoke`` (the default)
 takes the config's reduced geometry, ``--full`` the published one.
 ``--plan``, ``--elastic`` and ``--ckpt-dir`` are ROADMAP.md queue 1,
@@ -26,7 +31,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from repro_torch.configs.base import (dense_projection_map, get_config,
+from repro_torch.configs.base import (PHANTOM_KINDS, PROJECTION_SITES,
+                                      dense_projection_map, get_config,
                                       with_kernel_backend)
 from repro_torch.data.synthetic import LMDataset
 from repro_torch.kernels import build
@@ -36,7 +42,7 @@ from repro_torch.models.model import count_params
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.parallel.axes import MeshAxes, resolve_device
-from repro_torch.parallel.grads import LM_PIPELINE_TODO, LM_TP_TODO
+from repro_torch.parallel.grads import LM_PIPELINE_TODO
 from repro_torch.train.trainer import Trainer
 
 TIMEOUT_S = 3600.0     # a multi-rank run, before its ranks are killed
@@ -54,7 +60,7 @@ def build_parser():
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("--tp", type=int, default=1, help="1 for now")
+    ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--pp", type=int, default=1, help="1 for now")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--kernel-backend", default=None,
@@ -75,6 +81,22 @@ def train_config(args):
     if args.kernel_backend:
         cfg = with_kernel_backend(cfg, args.kernel_backend)
     return cfg
+
+
+def kernels_used(cfg, tp: int) -> list:
+    """The kernel libraries a run of ``cfg`` at ``tp`` launches: the
+    flash kernel when the attention sites resolve to the kernel path,
+    the phantom kernels when a fused phantom site does at tp > 1."""
+    sites = [cfg.projection_spec(s) for s in PROJECTION_SITES]
+    out = []
+    if resolve_kernel_backend(
+            cfg.projection_spec("attn_q").kernel_backend) == "pallas":
+        out.append("flash_attention")
+    if tp > 1 and any(s.kind in PHANTOM_KINDS and s.variant == "fused"
+                      and resolve_kernel_backend(s.kernel_backend)
+                      == "pallas" for s in sites):
+        out.append("phantom_fused")
+    return out
 
 
 def make_trainer(axes, device, cfg, args) -> Trainer:
@@ -98,23 +120,22 @@ def train_rank(axes, device, cfg, args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.tp != 1:
-        raise NotImplementedError(f"--tp {args.tp}: see {LM_TP_TODO}")
     if args.pp != 1:
         raise NotImplementedError(f"--pp {args.pp}: see {LM_PIPELINE_TODO}")
     device = resolve_device(args.device)
     cfg = train_config(args)
     print(f"# {cfg.name} impl={args.impl} dp={args.dp} on {device} "
-          f"(kernel_backend={args.kernel_backend or 'config'}): "
-          f"{count_params(cfg):,} params, batch {args.batch} x seq "
-          f"{args.seq}", flush=True)
-    if device.type == "cuda" and resolve_kernel_backend(
-            cfg.projection_spec("attn_q").kernel_backend) == "pallas":
-        build.build(["flash_attention"])   # once, before any rank loads it
-    if args.dp == 1:
+          f"(tp={args.tp}, kernel_backend={args.kernel_backend or 'config'}): "
+          f"{count_params(cfg, args.tp):,} params, batch {args.batch} x "
+          f"seq {args.seq}", flush=True)
+    if device.type == "cuda":
+        kernels = kernels_used(cfg, args.tp)
+        if kernels:
+            build.build(kernels)     # once, before any rank loads them
+    if args.dp * args.tp == 1:
         train_rank(MeshAxes(), device, cfg, args)
     else:
-        spawn(train_rank, args.dp, 1, device, args=(cfg, args),
+        spawn(train_rank, args.dp, args.tp, device, args=(cfg, args),
               timeout_s=TIMEOUT_S)
     return 0
 

@@ -1,21 +1,31 @@
-"""GQA attention, head mode, on one device.
+"""GQA attention, head mode: the query heads (and the KV heads when the
+model axis divides them) column-sharded over the model axis.
 
 Training and prefill run one of two cores, chosen as in the reference:
 
   * the flash kernel through ``kernels/ops.py: flash_attention_vjp``
     when all four q/k/v/o site specs resolve to the ``"pallas"`` backend
-    and ``flash_attention_supported`` accepts the shape: the hand-written
-    CUDA kernel on a CUDA tensor, its plain version on a CPU tensor, and
-    in the backward pass autograd through the plain version;
+    and ``flash_attention_supported`` accepts the rank's local heads:
+    the hand-written CUDA kernel on a CUDA tensor, its plain version on
+    a CPU tensor, and in the backward pass autograd through the plain
+    version;
   * otherwise the plain blockwise core ``attn_block_update`` /
     ``finalize_acc`` (kv-chunked online softmax, torch ops).
+
+At tp > 1 (training only) each rank holds H/p query heads: a phantom
+site reads the residual's feature shard, a tensor site the gathered
+features; with kv % p != 0 the KV projection is replicated and each
+rank slices its GQA group's head.  ``wo`` is phantom (its output stays
+feature-sharded) or a row projection whose partial sums are reduced
+into the residual layout.
 
 Decode attends the new token against the KV cache with the plain core
 and writes the token's K/V into the cache in place (the reference
 returns a new, donated cache instead).  The reference's sequence-sharded
 cache merges per-rank partials with a log-sum-exp psum; with one rank
-that merge is the identity.  Ring mode (sequence-sharded prefill) waits
-for the collectives slice.
+that merge is the identity.  Prefill and decode at tp > 1 are serving's
+(``SERVE_TP_TODO``); ring mode (sequence-sharded attention for head
+counts the model axis does not divide) is ``RING_ATTN_TODO``.
 """
 from __future__ import annotations
 
@@ -27,11 +37,15 @@ from repro_torch.kernels.ops import (flash_attention_supported,
                                      flash_attention_vjp,
                                      resolve_kernel_backend)
 from repro_torch.models import rope as ropemod
-from repro_torch.models.layers import dtype_of
+from repro_torch.configs.base import PHANTOM_KINDS
+from repro_torch.models.layers import dtype_of, from_partial, to_full
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
+from repro_torch.parallel.params import ParamDecl
 from repro_torch.parallel.strategies import site_strategy
 
 NEG_INF = -1e30
+RING_ATTN_TODO = ("ROADMAP.md queue 1, item 6 (qwen2.5-14b and its ring "
+                  "attention)")
 
 _ATTN_SITES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v",
                "wo": "attn_o"}
@@ -45,20 +59,25 @@ def _kv_chunk(cfg, full: int, default: int) -> int:
 
 
 def resolve_attn_mode(cfg, axes: MeshAxes) -> str:
-    if axes.tp > 1:
-        raise NotImplementedError(
-            f"attention at tp={axes.tp}: see {SERVE_TP_TODO}")
     mode = cfg.attn_shard
     if mode == "auto":
         mode = "head" if cfg.num_heads % axes.tp == 0 else "ring"
     if mode != "head":
         raise NotImplementedError(
-            f"attention mode {mode!r}: see {SERVE_TP_TODO}")
+            f"attention mode {mode!r}: see {RING_ATTN_TODO}")
+    if cfg.num_heads % axes.tp:
+        raise NotImplementedError(
+            f"head mode at tp={axes.tp}: {cfg.num_heads} heads do not "
+            f"split over the model axis, which takes ring attention; see "
+            f"{RING_ATTN_TODO}")
     return mode
 
 
 def attn_site_strategies(cfg, axes: MeshAxes):
-    """Per-site ProjectionStrategy for the four attention projections."""
+    """Per-site ProjectionStrategy for the four attention projections.
+    A phantom-family spec takes effect only where the factorisation's
+    layout allows it (head mode, heads, KV heads and features divisible
+    by tp); a site failing the guard takes its dense strategy."""
     d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim()
     p = axes.tp
@@ -73,6 +92,10 @@ def attn_site_strategies(cfg, axes: MeshAxes):
             for name, (ni, no) in dims.items()}
 
 
+def _is_phantom(st) -> bool:
+    return st.kind in PHANTOM_KINDS
+
+
 def _attn_kernel_backend(sts) -> str:
     """The flash kernel runs only when ALL four q/k/v/o specs resolve to
     the pallas backend (one core, one switch)."""
@@ -82,8 +105,17 @@ def _attn_kernel_backend(sts) -> str:
 
 
 def attn_decls(cfg, axes: MeshAxes):
-    return {name: st.decls()
-            for name, st in attn_site_strategies(cfg, axes).items()}
+    """The sites' decls; with kv % tp != 0 the KV projections are
+    replicated (each rank slices its GQA group's head)."""
+    sts = attn_site_strategies(cfg, axes)
+    dec = {name: st.decls() for name, st in sts.items()}
+    if cfg.num_kv_heads % axes.tp:
+        n = cfg.num_kv_heads * cfg.resolved_head_dim()
+        for name in ("wk", "wv"):
+            dec[name] = {"w": ParamDecl((cfg.d_model, n), ())}
+            if cfg.qkv_bias:
+                dec[name]["b"] = ParamDecl((n,), (), init="zeros")
+    return dec
 
 
 # ---------------------------------------------------------------------------
@@ -159,17 +191,21 @@ def _gqa_q(q, KV):
 # main entry
 # ---------------------------------------------------------------------------
 
-def attention(cfg, params, x, positions, axes: MeshAxes, *,
+def attention(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
               kind: str = "prefill", causal: bool = True, cache=None,
               pos=None, return_kv: bool = False):
-    """Returns (out [B, S, d], new_kv or None).  kind: train | prefill |
-    decode.
-    Decode writes into ``cache`` ({k, v} [B, Smax, kv, hd]) in place."""
+    """Returns (out, new_kv or None): ``out`` the residual shard in
+    ``layout``.  kind: train | prefill | decode (prefill and decode at
+    tp = 1 only).  Decode writes into ``cache`` ({k, v}
+    [B, Smax, kv, hd]) in place."""
     resolve_attn_mode(cfg, axes)
+    if kind != "train" and axes.tp > 1:
+        raise NotImplementedError(
+            f"{kind} attention at tp={axes.tp}: see {SERVE_TP_TODO}")
     if kind == "decode":
         return _attention_decode(cfg, params, x, axes, cache=cache, pos=pos)
-    return _attention_head(cfg, params, x, positions, axes, causal=causal,
-                           return_kv=return_kv)
+    return _attention_head(cfg, layout, params, x, positions, axes,
+                           causal=causal, return_kv=return_kv)
 
 
 def _project(st, params, x, nheads, hd, dtype):
@@ -177,35 +213,81 @@ def _project(st, params, x, nheads, hd, dtype):
     return y.reshape(*y.shape[:-1], nheads, hd)
 
 
-def _attention_head(cfg, params, x, positions, axes, *, causal,
+def _site_proj(st, params, x_full, x_shard, nheads, hd, axes, dtype):
+    """One head-mode projection through its strategy: phantom reads the
+    feature shard, tensor_col the gathered features; both give the
+    rank's [..., nheads, hd] heads."""
+    if _is_phantom(st):
+        y = st.apply(params, x_shard, axes=axes, compute_dtype=dtype)
+    else:
+        y = st.apply(params, x_full, compute_dtype=dtype)
+    return y.reshape(*y.shape[:-1], nheads, hd)
+
+
+def _replicated_proj(params, x, nheads, hd, dtype):
+    """The replicated KV projection (no strategy governs it)."""
+    y = x.to(dtype) @ params["w"].to(dtype)
+    if "b" in params:
+        y = y + params["b"].to(dtype)
+    return y.reshape(*y.shape[:-1], nheads, hd)
+
+
+def _attention_head(cfg, layout, params, x, positions, axes, *, causal,
                     return_kv=False):
     H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    p = axes.tp
     dtype = dtype_of(cfg.dtype)
     sts = attn_site_strategies(cfg, axes)
-    q = _project(sts["wq"], params["wq"], x, H, hd, dtype)
-    k = _project(sts["wk"], params["wk"], x, kv, hd, dtype)
-    v = _project(sts["wv"], params["wv"], x, kv, hd, dtype)
+    kv_sharded = kv % p == 0
+    # phantom sites read the fp feature shard as it is; the gathered
+    # features are made only when a site needs them
+    need_full = (not kv_sharded
+                 or any(not _is_phantom(sts[n]) for n in ("wq", "wk", "wv")))
+    x_shard = x if layout == "fp" else None
+    x_full = to_full(x, layout, axes) if need_full else None
+    q = _site_proj(sts["wq"], params["wq"], x_full, x_shard, H // p, hd,
+                   axes, dtype)
+    if kv_sharded:
+        k, v = (_site_proj(sts[n], params[n], x_full, x_shard, kv // p, hd,
+                           axes, dtype) for n in ("wk", "wv"))
+    else:
+        k, v = (_replicated_proj(params[n], x_full, kv, hd, dtype)
+                for n in ("wk", "wv"))
     if cfg.rope != "none":
         q = ropemod.rope_for(cfg, q, positions)
         k = ropemod.rope_for(cfg, k, positions)
 
     B, S = q.shape[0], q.shape[1]
-    use_flash = (_attn_kernel_backend(sts) == "pallas"
-                 and flash_attention_supported(S, k.shape[1], H, kv))
-    if use_flash:
-        out = flash_attention_vjp(q, k, v, causal=causal).to(dtype)
+    if kv_sharded:
+        k_use, v_use, kv_loc = k, v, kv // p
     else:
-        acc = init_acc(B, S, kv, H // kv, hd, device=x.device)
+        # replicated KV: this rank's query heads share one GQA group
+        grp = (axes.tp_rank * kv) // p
+        k_use, v_use = (t[:, :, grp:grp + 1].contiguous() for t in (k, v))
+        kv_loc = 1
+    h_loc = H // p
+    use_flash = (_attn_kernel_backend(sts) == "pallas"
+                 and flash_attention_supported(S, k_use.shape[1], h_loc,
+                                               kv_loc))
+    if use_flash:
+        out = flash_attention_vjp(q, k_use, v_use, causal=causal).to(dtype)
+    else:
+        acc = init_acc(B, S, kv_loc, h_loc // kv_loc, hd, device=x.device)
         q_pos = torch.arange(S, device=x.device).expand(B, S)
         sdt = torch.bfloat16 if cfg.attn_bf16_scores else torch.float32
-        acc = attn_block_update(acc, _gqa_q(q, kv), k, v, q_pos, 0,
-                                causal=causal, scores_dtype=sdt,
-                                kv_chunk=_kv_chunk(cfg, k.shape[1], 512))
+        acc = attn_block_update(acc, _gqa_q(q, kv_loc), k_use, v_use, q_pos,
+                                0, causal=causal, scores_dtype=sdt,
+                                kv_chunk=_kv_chunk(cfg, k_use.shape[1], 512))
         out = finalize_acc(acc, dtype)
     out = out.reshape(B, S, -1)
-    # tensor_row partial sums are already reduced at tp = 1; wo carries
-    # no bias in head mode, as in the reference
-    res = sts["wo"].apply(params["wo"], out, compute_dtype=dtype)
+    # wo carries no bias in head mode, as in the reference
+    if _is_phantom(sts["wo"]):
+        res = sts["wo"].apply(params["wo"], out, axes=axes,
+                              compute_dtype=dtype)
+    else:
+        res = from_partial(sts["wo"].apply(params["wo"], out,
+                                           compute_dtype=dtype),
+                           layout, axes)
     new_kv = _emit_cache_head_mode(k, v) if return_kv else None
     return res, new_kv
 

@@ -1,17 +1,26 @@
 """Shared layers: norms, embedding, MLP (dense-TP or phantom per site),
 logit head and the sequence-chunked cross-entropy.
 
-At dp = tp = 1 the reference's residual layouts (``sp``, ``fp``,
-``rep``) are all the full ``[B, S, d]`` tensor and its feature gathers,
-scatters and psums are the identity, so the functions here take no
-layout argument.
+Residual-stream layouts, as in the reference (each rank sees its local
+shard):
+
+  * ``sp``  -- sequence-parallel  [B, S/p, d]   (the dense TP baseline)
+  * ``fp``  -- feature-parallel   [B, S, d/p]   (phantom: activations
+               stay feature-sharded end to end, the paper's layout)
+  * ``rep`` -- replicated         [B, S, d]     (dense decode)
+
+At tp = 1 all three are the full ``[B, S, d]`` tensor, and the gathers,
+scatters and psums between them are the identity: they are skipped.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.axes import MeshAxes
+from repro_torch.configs.base import PHANTOM_KINDS
+from repro_torch.core import tp as tpmod
+from repro_torch.core.autograd import pmax, psum, psum_scatter_tiled
+from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import ParamDecl
 from repro_torch.parallel.strategies import site_strategy
 
@@ -24,6 +33,39 @@ def dtype_of(name: str) -> torch.dtype:
     if not isinstance(dt, torch.dtype):
         raise ValueError(f"unknown dtype {name!r}")
     return dt
+
+
+# ---------------------------------------------------------------------------
+# layout helpers
+# ---------------------------------------------------------------------------
+
+def residual_layout(cfg, kind: str) -> str:
+    """The residual stream's layout for a config and step kind: any
+    phantom-family site keeps it feature-sharded end to end."""
+    if cfg.uses_phantom_sites():
+        return "fp"
+    return "rep" if kind == "decode" else "sp"
+
+
+def to_full(x, layout: str, axes: MeshAxes):
+    """Local residual shard -> full [B, S, d] (fwd AG, bwd RS)."""
+    if axes.tp == 1 or layout == "rep":
+        return x
+    if layout == "sp":
+        return tpmod.gather_seq(x, axes, axis=1)
+    return tpmod.gather_features(x, axes)
+
+
+def from_partial(z, layout: str, axes: MeshAxes):
+    """Partial-sum full [B, S, d] -> reduced local shard (fwd RS, bwd
+    AG)."""
+    if axes.tp == 1:
+        return z
+    if layout == "sp":
+        return tpmod.scatter_seq(z, axes, axis=1)
+    if layout == "fp":
+        return tpmod.scatter_features(z, axes)
+    return psum(z, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -40,18 +82,34 @@ def _require(cfg):
             f"with swiglu are ported (ROADMAP.md queue 1, item 6)")
 
 
-def norm_decls(cfg, d: int):
+def norm_decls(cfg, layout: str, d: int):
+    """Scale (and LayerNorm's bias): feature-sharded in ``fp``,
+    replicated in ``sp`` and ``rep``."""
     _require(cfg)
-    decl = {"scale": ParamDecl((d,), ("tp",), init="ones")}
+    spec = ("tp",) if layout == "fp" else ()
+    decl = {"scale": ParamDecl((d,), spec, init="ones")}
     if cfg.norm == "layernorm":
-        decl["bias"] = ParamDecl((d,), ("tp",), init="zeros")
+        decl["bias"] = ParamDecl((d,), spec, init="zeros")
     return decl
 
 
-def norm_apply(cfg, params, x):
+def norm_apply(cfg, layout: str, params, x, axes: MeshAxes):
     """RMSNorm or LayerNorm (mean and variance form) over the feature
-    dim, in float32."""
+    dim, in float32; in ``fp`` at tp > 1 the partial moments of the
+    feature shard are summed over the model axis."""
     xf = x.to(torch.float32)
+    if layout == "fp" and axes.tp > 1:
+        d = x.shape[-1] * axes.tp
+        if cfg.norm == "layernorm":
+            mean = psum(xf.sum(-1, keepdim=True), axes) / d
+            xc = xf - mean
+            var = psum((xc * xc).sum(-1, keepdim=True), axes) / d
+            y = xc * torch.rsqrt(var + cfg.norm_eps) * params["scale"] \
+                + params["bias"]
+        else:
+            ms = psum((xf * xf).sum(-1, keepdim=True), axes) / d
+            y = xf * torch.rsqrt(ms + cfg.norm_eps) * params["scale"]
+        return y.to(x.dtype)
     if cfg.norm == "layernorm":
         xc = xf - xf.mean(-1, keepdim=True)
         var = (xc * xc).mean(-1, keepdim=True)
@@ -78,9 +136,25 @@ def embed_decls(cfg):
                                ("tp", None), init="embed")}
 
 
-def embed_apply(cfg, params, tokens):
-    """tokens [B, S] -> [B, S, d] in the compute dtype."""
-    return params["table"][tokens].to(dtype_of(cfg.dtype))
+def embed_apply(cfg, layout: str, params, tokens, axes: MeshAxes):
+    """tokens [B, S] -> the residual shard in ``layout``, in the compute
+    dtype.  At tp > 1 each rank looks up its vocab shard (tokens outside
+    it give 0) and one reduce-scatter sums the shards into the layout
+    (an all-reduce for ``rep``)."""
+    table = params["table"]
+    dt = dtype_of(cfg.dtype)
+    if axes.tp == 1:
+        return table[tokens].to(dt)
+    vshard = table.shape[0]
+    local = tokens - axes.tp_rank * vshard
+    ok = (local >= 0) & (local < vshard)
+    h = table[local.clamp(0, vshard - 1)]
+    h = torch.where(ok[..., None], h, 0).to(dt)           # [B, S, d]
+    if layout == "sp":
+        return psum_scatter_tiled(h, axes, 1)
+    if layout == "fp":
+        return psum_scatter_tiled(h, axes, -1)
+    return psum(h, axes)
 
 
 # ---------------------------------------------------------------------------
@@ -102,17 +176,40 @@ def mlp_decls(cfg, axes: MeshAxes, d: int, ff: int):
             for name, st in mlp_strategies(cfg, axes, d, ff).items()}
 
 
-def mlp_apply(cfg, params, x, axes: MeshAxes):
-    """SwiGLU, x [B, S, d] -> [B, S, d].  At tp = 1 the reference's
-    all-phantom, all-tensor and mixed branches compute the same sequence:
-    silu(gate) * up, then down (the row strategy's reduction is the
-    identity, and no site has a bias)."""
+def mlp_apply(cfg, layout: str, params, x, axes: MeshAxes):
+    """SwiGLU, residual shard -> residual shard (same layout).
+
+    all-phantom: stays feature-sharded; only the k-wide ghosts cross
+                 ranks.
+    all-tensor:  gather -> col -> act -> row -> reduce-scatter
+                 (Megatron-SP; one gather shared by gate and up).
+    mixed:       each site shard -> shard in ``fp``."""
     dt = dtype_of(cfg.dtype)
-    sts = mlp_strategies(cfg, axes, x.shape[-1], cfg.d_ff)
-    g = sts["gate"].apply(params["gate"], x, compute_dtype=dt)
-    u = sts["up"].apply(params["up"], x, compute_dtype=dt)
-    return sts["down"].apply(params["down"], F.silu(g) * u,
-                             compute_dtype=dt)
+    d = x.shape[-1] * (axes.tp if layout == "fp" else 1)
+    sts = mlp_strategies(cfg, axes, d, cfg.d_ff)
+    kinds = {st.kind for st in sts.values()}
+    if kinds <= set(PHANTOM_KINDS):
+        g = sts["gate"].apply(params["gate"], x, axes=axes, compute_dtype=dt)
+        u = sts["up"].apply(params["up"], x, axes=axes, compute_dtype=dt)
+        return sts["down"].apply(params["down"], F.silu(g) * u, axes=axes,
+                                 compute_dtype=dt)
+    if kinds <= {"tensor_col", "tensor_row"}:
+        x_full = to_full(x, layout, axes)
+        g = sts["gate"].apply(params["gate"], x_full, compute_dtype=dt)
+        u = sts["up"].apply(params["up"], x_full, compute_dtype=dt)
+        z = sts["down"].apply(params["down"], F.silu(g) * u,
+                              compute_dtype=dt)
+        z = from_partial(z, layout, axes)
+        return sts["down"].add_bias(z, params["down"], axes,
+                                    sharded=layout == "fp")
+    # mixed strategies: residual_layout is fp whenever a site is phantom
+    if layout != "fp":
+        raise ValueError(f"mixed MLP strategies {kinds} in layout "
+                         f"{layout!r}")
+    g = sts["gate"].apply_shard(params["gate"], x, axes, compute_dtype=dt)
+    u = sts["up"].apply_shard(params["up"], x, axes, compute_dtype=dt)
+    return sts["down"].apply_shard(params["down"], F.silu(g) * u, axes,
+                                   compute_dtype=dt)
 
 
 # ---------------------------------------------------------------------------
@@ -124,36 +221,50 @@ def head_decls(cfg):
                            scale=cfg.d_model ** -0.5)}
 
 
-def head_logits(cfg, params, h_last):
+def head_logits(cfg, layout: str, params, h_last, axes: MeshAxes):
     """h_last [B, 1, d] -> float32 logits [B, 1, V_pad], padded columns
-    masked to -1e30."""
+    masked to -1e30.  Serving only: at tp > 1 it raises."""
+    if axes.tp > 1:
+        raise NotImplementedError(
+            f"logits of the vocab-sharded head at tp={axes.tp}: see "
+            f"{SERVE_TP_TODO}")
     w = params["w"]
     logits = h_last.to(torch.float32) @ w.to(torch.float32)
     col_ok = torch.arange(w.shape[1], device=w.device) < cfg.vocab_size
     return logits.masked_fill(~col_ok, NEG_INF)
 
 
-def _xent_chunk(cfg, w, h, labels):
-    """Summed token loss of one sequence chunk: float32 logits with the
-    padded vocab columns masked, log-sum-exp shifted by a detached max
-    (the shift is a constant: exact without its gradient)."""
-    logits = h.to(torch.float32) @ w.to(torch.float32)
-    col_ok = torch.arange(w.shape[1], device=w.device) < cfg.vocab_size
+def _xent_chunk(cfg, w, h, labels, axes):
+    """Summed token loss of one sequence chunk against this rank's vocab
+    shard ``w``: float32 logits with the padded vocab columns masked, a
+    global log-sum-exp shifted by a detached max over the model axis
+    (the shift is a constant: exact without its gradient), the true
+    logit summed from the rank that holds its column."""
+    logits = h.to(torch.float32) @ w.to(torch.float32)     # [B, c, V/p]
+    vshard = w.shape[1]
+    vstart = axes.tp_rank * vshard
+    col_ok = vstart + torch.arange(vshard, device=w.device) < cfg.vocab_size
     logits = logits.masked_fill(~col_ok, NEG_INF)
-    m = logits.detach().amax(-1)
-    lse = torch.log(torch.exp(logits - m[..., None]).sum(-1)) + m
-    true_logit = logits.gather(-1, labels[..., None])[..., 0]
+    m = pmax(logits.detach().amax(-1), axes)
+    lse = torch.log(psum(torch.exp(logits - m[..., None]).sum(-1),
+                         axes)) + m
+    loc = labels - vstart
+    ok = (loc >= 0) & (loc < vshard)
+    true_logit = logits.gather(-1, loc.clamp(0, vshard - 1)[..., None])
+    true_logit = psum(torch.where(ok, true_logit[..., 0], 0.0), axes)
     return (lse - true_logit).sum()
 
 
-def xent_loss(cfg, params, h, labels):
-    """h [B, S, d], labels [B, S] -> (sum_loss, n_valid): the summed
-    cross-entropy of the tokens and their count, every token valid (the
-    caller normalises and sums over dp).  Never holds [B, S, V] at once:
-    the sequence goes in chunks of ``cfg.loss_chunk``, and with more than
-    one chunk each is recomputed in the backward pass instead of saved
-    (the reference scans the chunks)."""
+def xent_loss(cfg, layout: str, params, h, labels, axes: MeshAxes):
+    """h: residual shard, labels [B, S] -> (sum_loss, n_valid): the
+    summed cross-entropy of the tokens and their count, every token
+    valid (the caller normalises and sums over dp; the model axis is
+    reduced here).  Never holds [B, S, V] at once: the gathered sequence
+    goes in chunks of ``cfg.loss_chunk`` against the rank's vocab shard,
+    and with more than one chunk each is recomputed in the backward pass
+    instead of saved (the reference scans the chunks)."""
     from torch.utils.checkpoint import checkpoint
+    h = to_full(h, layout, axes)                          # [B, S, d]
     B, S, _ = h.shape
     chunk = min(cfg.loss_chunk, S)
     if S % chunk:
@@ -163,7 +274,7 @@ def xent_loss(cfg, params, h, labels):
     w = params["w"]
     sum_loss = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, S, chunk):
-        args = (cfg, w, h[:, c:c + chunk], labels[:, c:c + chunk])
+        args = (cfg, w, h[:, c:c + chunk], labels[:, c:c + chunk], axes)
         sum_loss = sum_loss + (
             checkpoint(_xent_chunk, *args, use_reentrant=False)
             if chunk < S else _xent_chunk(*args))

@@ -5,7 +5,10 @@ Parameters are the reference's tree (layers stacked on axis 0); the
 forward passes loop over the stack in Python where the reference scans.
 The training forward also takes ``params["layers"]`` as a list of
 per-layer trees (``train/trainer.py`` makes each layer's slice a leaf
-of its own).
+of its own).  The residual stream keeps the reference's layout
+(``models/layers.py: residual_layout``): feature-sharded where a site is
+phantom, sequence-sharded otherwise.  Training runs at any tp; prefill
+and decode (serving) at tp = 1.
 """
 from __future__ import annotations
 
@@ -17,7 +20,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import block_apply, block_decls, block_train
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_decls,
                                        head_decls, head_logits, norm_apply,
-                                       norm_decls, xent_loss)
+                                       norm_decls, residual_layout,
+                                       xent_loss)
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import (TensorSpec, param_count, stack,
                                          tree_leaves, tree_map,
@@ -33,17 +37,21 @@ def _require_dense(cfg: ModelConfig):
 
 def model_decls(cfg: ModelConfig, axes: MeshAxes):
     _require_dense(cfg)
-    if axes.tp > 1:
-        raise NotImplementedError(
-            f"the dense model at tp={axes.tp}: see {SERVE_TP_TODO}")
+    layout = residual_layout(cfg, "train")
     d = {"embed": embed_decls(cfg),
-         "final_norm": norm_decls(cfg, cfg.d_model),
+         "final_norm": norm_decls(cfg, layout, cfg.d_model),
          "head": head_decls(cfg),
-         "layers": stack(block_decls(cfg, axes), cfg.num_layers)}
+         "layers": stack(block_decls(cfg, axes, layout), cfg.num_layers)}
     pdt = dtype_of(cfg.param_dtype)
     if pdt != torch.float32:
         d = tree_map(lambda x: dataclasses.replace(x, dtype=pdt), d)
     return d
+
+
+def _require_one_rank(axes: MeshAxes, what: str):
+    if axes.tp > 1:
+        raise NotImplementedError(f"{what} at tp={axes.tp}: see "
+                                  f"{SERVE_TP_TODO}")
 
 
 def count_params(cfg: ModelConfig, tp: int = 1) -> int:
@@ -74,18 +82,21 @@ def _layer(params, i: int):
 
 def forward_train(cfg: ModelConfig, axes: MeshAxes, params, batch):
     """batch {"tokens", "labels"}: [B, S] -> (sum_loss, n_valid, aux),
-    this rank's contributions before the sums over dp; aux (the MoE
-    balance loss) is 0 for the dense family.  Each block runs under
-    ``block_train``'s recompute policy (``cfg.remat``)."""
+    this rank's contributions before the sums over dp (the model axis is
+    reduced inside the loss); aux (the MoE balance loss) is 0 for the
+    dense family.  Each block runs under ``block_train``'s recompute
+    policy (``cfg.remat``)."""
     _require_dense(cfg)
+    layout = residual_layout(cfg, "train")
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = embed_apply(cfg, params["embed"], tokens)
+    h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     for i in range(cfg.num_layers):
-        h = block_train(cfg, _layer(params, i), h, positions, axes)
-    h = norm_apply(cfg, params["final_norm"], h)
-    sum_loss, n_valid = xent_loss(cfg, params["head"], h, batch["labels"])
+        h = block_train(cfg, layout, _layer(params, i), h, positions, axes)
+    h = norm_apply(cfg, layout, params["final_norm"], h, axes)
+    sum_loss, n_valid = xent_loss(cfg, layout, params["head"], h,
+                                  batch["labels"], axes)
     return sum_loss, n_valid, torch.zeros((), device=h.device)
 
 
@@ -93,18 +104,20 @@ def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
     """batch {"tokens": [B, S]} -> (last-token logits [B, 1, V_pad] fp32,
     cache {"k", "v"}: [L, B, S, kv, hd])."""
     _require_dense(cfg)
+    _require_one_rank(axes, "prefill")
+    layout = residual_layout(cfg, "prefill")
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = embed_apply(cfg, params["embed"], tokens)
+    h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        h, kv = block_apply(cfg, _layer(params, i), h, positions, axes,
-                            kind="prefill", return_kv=True)
+        h, kv = block_apply(cfg, layout, _layer(params, i), h, positions,
+                            axes, kind="prefill", return_kv=True)
         ks.append(kv["k"])
         vs.append(kv["v"])
-    h = norm_apply(cfg, params["final_norm"], h)
-    logits = head_logits(cfg, params["head"], h[:, -1:, :])
+    h = norm_apply(cfg, layout, params["final_norm"], h, axes)
+    logits = head_logits(cfg, layout, params["head"], h[:, -1:, :], axes)
     return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -113,13 +126,15 @@ def forward_decode(cfg: ModelConfig, axes: MeshAxes, params, cache,
     """tokens [B, 1]; pos [B] per-row positions.  Writes the new K/V into
     ``cache`` in place; returns (logits [B, 1, V_pad], cache)."""
     _require_dense(cfg)
-    h = embed_apply(cfg, params["embed"], tokens)
+    _require_one_rank(axes, "decode")
+    layout = residual_layout(cfg, "decode")
+    h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     for i in range(cfg.num_layers):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        h, _ = block_apply(cfg, _layer(params, i), h, None, axes,
+        h, _ = block_apply(cfg, layout, _layer(params, i), h, None, axes,
                            kind="decode", cache=layer_cache, pos=pos)
-    h = norm_apply(cfg, params["final_norm"], h)
-    return head_logits(cfg, params["head"], h), cache
+    h = norm_apply(cfg, layout, params["final_norm"], h, axes)
+    return head_logits(cfg, layout, params["head"], h, axes), cache
 
 
 def cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,

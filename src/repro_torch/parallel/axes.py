@@ -153,18 +153,20 @@ class Group:
             return x[self.rank].contiguous()
         return self._run(t, op)
 
-    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum over ranks, as a new tensor."""
+    def all_reduce(self, t: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """The sum (``op="max"``: the largest element) over ranks, as a
+        new tensor."""
         if self.size == 1:
             return t.detach().clone()
         import torch.distributed as dist
         _issued("all_reduce", t, self.size, "all_reduce")
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
-        def op(x):
+        def run(x):
             x = x.clone()
-            dist.all_reduce(x, group=self.handle)
+            dist.all_reduce(x, op=red, group=self.handle)
             return x
-        return self._run(t, op)
+        return self._run(t, run)
 
     def send(self, t: torch.Tensor, dst: int) -> "Sent":
         """Start sending ``t`` to group rank ``dst`` and return at once;

@@ -7,23 +7,20 @@ axis that does NOT shard it:
 
   * not sharded over dp (every parameter but FSDP's)  -> all-reduce over
     the dp group (classic data parallelism);
-  * not sharded over tp, at tp > 1 (replicated norm scales, replicated
-    KV projections)                                   -> over tp too;
+  * not sharded over tp, at tp > 1 (the norm scales of the ``sp``
+    layout, replicated KV projections)                -> over tp too;
   * at pp > 1, not sharded over pp (embedding, head, norms) -> over the
     pipe axis too.
 
-The tp and pp branches raise until the slices that train the dense
-model at tp > 1 and pipeline the full model (ROADMAP.md queue 1,
-item 6) bring them.  The sums run over the rank's ``Group``s
-(``parallel/axes.py``), so ``record_collectives`` logs them.
+The pp branch raises until the slice that pipelines the full model
+(ROADMAP.md queue 1, item 6) brings it.  The sums run over the rank's
+``Group``s (``parallel/axes.py``), so ``record_collectives`` logs them.
 """
 from __future__ import annotations
 
 from repro_torch.parallel.axes import MeshAxes
 from repro_torch.parallel.params import tree_leaves, tree_unflatten
 
-LM_TP_TODO = ("ROADMAP.md queue 1, item 6 (dense training at tp > 1 with "
-              "phantom MLP sites)")
 LM_PIPELINE_TODO = "ROADMAP.md queue 1, item 6 (the full-model pipeline)"
 
 
@@ -47,10 +44,9 @@ def reduce_grads(grads, decls, axes: MeshAxes):
         if axes.pp > 1 and "pp" not in ax:
             raise NotImplementedError(
                 f"gradient sums over the pipe axis: see {LM_PIPELINE_TODO}")
-        if axes.tp > 1 and "tp" not in ax:
-            raise NotImplementedError(
-                f"gradient sums over the model axis: see {LM_TP_TODO}")
         if axes.dp > 1 and "dp" not in ax:
             g = axes.dp_comm.all_reduce(g)
+        if axes.tp > 1 and "tp" not in ax:
+            g = axes.tp_comm.all_reduce(g)
         out[path] = g
     return tree_unflatten(grads, out)

@@ -9,9 +9,12 @@ package's decl tree, layers stacked on axis 0.  From one decl tree:
     streams, so parity tests build parameters with the reference and
     hand them over through ``from_jax_params``);
   * ``materialize_shards(decls, axes, seed, device)`` -> one rank's
-    shards of the global tree ``materialize`` draws from a CPU generator
-    seeded ``seed``: the same numbers whatever the device, since torch's
-    CUDA generator draws others than its CPU one for the same seed;
+    shards of the global tree ``materialize`` draws from a generator
+    seeded ``seed``, on the host by default: the same numbers whatever
+    the device, since torch's CUDA generator draws others than its CPU
+    one for the same seed.  ``draw_on=device`` draws on the rank's
+    device instead: the same numbers on every rank of one card type,
+    for a model too large to draw on the host;
   * ``param_count(decls)``;
   * ``stack(decls, n)`` -> per-layer decls with a leading layer axis;
   * ``shard_params(tree, decls, axes)`` -> one rank's local views, cut as
@@ -95,16 +98,18 @@ def materialize(decls, generator: torch.Generator, device=None):
     return tree_unflatten(decls, flat)
 
 
-def materialize_shards(decls, axes, seed: int, device):
+def materialize_shards(decls, axes, seed: int, device, draw_on="cpu"):
     """This rank's shards of the global parameters that
-    ``materialize(decls, torch.Generator().manual_seed(seed))`` draws:
-    each leaf drawn on the host in the same sorted path order, cut to
-    the rank's shard (``shard_params``), and only the shard moved to
-    ``device``.  The host holds one global leaf at a time."""
-    gen = torch.Generator().manual_seed(seed)
+    ``materialize(decls, torch.Generator(draw_on).manual_seed(seed))``
+    draws: each leaf drawn on ``draw_on`` in the same sorted path order,
+    cut to the rank's shard (``shard_params``), and only the shard kept,
+    on ``device``.  ``draw_on`` holds one global leaf at a time beside
+    the shards, so the same seed gives the same global parameters at
+    any tp."""
+    gen = torch.Generator(device=draw_on).manual_seed(seed)
     flat = {}
     for path, d in tree_leaves(decls):
-        leaf = materialize(d, gen, "cpu")
+        leaf = materialize(d, gen, draw_on)
         flat[path] = shard_params(leaf, d, axes).to(device)
         del leaf
     return tree_unflatten(decls, flat)

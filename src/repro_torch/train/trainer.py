@@ -1,6 +1,6 @@
 """Training step builder and training loop for the LM families: the
 port's counterpart of the reference's ``train/trainer.py``, for the
-dense family at tp = 1 on any number of dp ranks.
+dense family on any dp x tp mesh of ranks.
 
 ``make_train_step`` builds one rank's step: forward and backward
 (``models/model.py: forward_train``), gradient accumulation over
@@ -36,7 +36,8 @@ from repro_torch.models.model import forward_train, model_decls
 from repro_torch.parallel.axes import MeshAxes, resolve_device
 from repro_torch.parallel.grads import (LM_PIPELINE_TODO, _spec_axes,
                                         reduce_grads)
-from repro_torch.parallel.params import materialize, tree_leaves, tree_map
+from repro_torch.parallel.params import (materialize_shards, tree_leaves,
+                                         tree_map)
 from repro_torch.telemetry import LedgerEntry, StepMeter
 from repro_torch.train.pipeline import split_batch_microbatches
 
@@ -196,11 +197,14 @@ class Trainer:
             grad_clip=grad_clip, device=self.device)
 
     def init_state(self, seed: int = 0) -> TrainState:
-        """Random parameters drawn on the trainer's device from a
-        generator seeded ``seed`` (a host draw of phi3-mini's 15 GB would
-        add minutes to every run); the optimizer's zero state."""
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = materialize(self.decls, gen, self.device)
+        """This rank's shards of random global parameters, drawn leaf by
+        leaf on the trainer's device from a generator seeded ``seed`` on
+        every rank (a host draw of phi3-mini's 15 GB would add minutes to
+        every run): the same global weights at any tp on one card type,
+        one global leaf at a time beside the shards.  The optimizer's
+        zero state."""
+        params = materialize_shards(self.decls, self.axes, seed,
+                                    self.device, draw_on=self.device)
         return TrainState(params, self.optimizer.init(params), 0)
 
     def run(self, state: TrainState, num_steps: int) -> TrainState:

@@ -164,12 +164,13 @@ def test_paper_ffn_config_equals_reference(arch, smoke):
 
 
 @pytest.mark.parametrize("case", ["tp_dp_accepted", "pp_accepted",
-                                  "serving_tp"])
+                                  "serving_tp", "ring"])
 def test_multi_device_mesh_names_the_roadmap_item(case):
     """Model, data and pipe axes above 1 are meshes of the port (rank
     ``(s * dp + d) * tp + t``, the reference's (pipe, data, model)
-    order); serving at tp > 1 is not ported and names its ROADMAP
-    item."""
+    order), and the model declares itself at tp > 1; serving at tp > 1
+    (the engine, prefill, decode) and ring attention are not ported and
+    name their ROADMAP items."""
     if case == "tp_dp_accepted":
         axes = MeshAxes(tp=2, dp=4, tp_rank=1, dp_rank=3)
         assert (axes.tp, axes.dp, axes.rank) == (2, 4, 7)
@@ -180,15 +181,26 @@ def test_multi_device_mesh_names_the_roadmap_item(case):
         assert (axes.pp, axes.rank) == (2, 5)
         with pytest.raises(RuntimeError, match="make_local_mesh"):
             axes.pp_comm
-    else:
+    elif case == "serving_tp":
+        from repro_torch.models.model import forward_decode, forward_prefill
         cfg = get_config("chatglm3-6b", smoke=True)
-        params = materialize(model_decls(cfg, MeshAxes()),
-                             torch.Generator().manual_seed(0), "cpu")
         axes = MeshAxes(tp=2)
-        with pytest.raises(NotImplementedError, match="serving at tp > 1"):
-            model_decls(cfg, axes)
+        params = materialize(model_decls(cfg, axes),
+                             torch.Generator().manual_seed(0), "cpu")
+        toks = torch.zeros((1, 16), dtype=torch.long)
         with pytest.raises(NotImplementedError, match="serving at tp > 1"):
             ServeEngine(cfg, params, axes=axes, device="cpu")
+        with pytest.raises(NotImplementedError, match="serving at tp > 1"):
+            forward_prefill(cfg, axes, params, {"tokens": toks})
+        with pytest.raises(NotImplementedError, match="serving at tp > 1"):
+            forward_decode(cfg, axes, params, None, toks[:, :1],
+                           torch.zeros(1, dtype=torch.long))
+    else:
+        cfg = get_config("chatglm3-6b", smoke=True)
+        for c, tp in ((cfg.replace(attn_shard="ring"), 2), (cfg, 3)):
+            with pytest.raises(NotImplementedError,
+                               match="queue 1, item 6 .qwen2.5-14b"):
+                model_decls(c, MeshAxes(tp=tp))
 
 
 @pytest.mark.parametrize("kind,stages", [("tensor", 2), ("phantom", 2),
@@ -248,26 +260,33 @@ def test_unported_arch_and_family_raise():
                                   "remat", "trainer_ops"])
 def test_unported_training_paths_raise(what):
     """What the trainer does not run yet raises and names its ROADMAP
-    item: the dense model at tp > 1, the full-model pipeline, an MLP kind
-    no ported config uses, remat policies other than full and none,
-    checkpoints and fault tolerance."""
+    item: the dense model's serving forwards at tp > 1 (it trains there),
+    the full-model pipeline, an MLP kind no ported config uses, remat
+    policies other than full and none, checkpoints and fault
+    tolerance."""
     from repro_torch.models.layers import norm_decls
     from repro_torch.models.blocks import block_train
     from repro_torch.optim import AdamW
     from repro_torch.train.trainer import Trainer, make_train_step
     cfg = get_config("phi3-mini-3.8b", smoke=True)
     if what == "model_tp":
-        with pytest.raises(NotImplementedError, match="tp=2"):
-            make_train_step(cfg, MeshAxes(tp=2), AdamW(1e-3), device="cpu")
+        from repro_torch.models.layers import head_logits
+        from repro_torch.models.model import forward_prefill
+        axes = MeshAxes(tp=2)
+        make_train_step(cfg, axes, AdamW(1e-3), device="cpu")
+        with pytest.raises(NotImplementedError, match="tp=2.*item 1"):
+            forward_prefill(cfg, axes, {}, {"tokens": None})
+        with pytest.raises(NotImplementedError, match="tp=2.*item 1"):
+            head_logits(cfg, "fp", {}, None, axes)
     elif what == "train_pp":
         with pytest.raises(NotImplementedError, match="pipeline"):
             make_train_step(cfg, MeshAxes(pp=2), AdamW(1e-3), device="cpu")
     elif what == "norm":
         with pytest.raises(NotImplementedError, match="item 6"):
-            norm_decls(cfg.replace(mlp="gelu"), 64)
+            norm_decls(cfg.replace(mlp="gelu"), "fp", 64)
     elif what == "remat":
         with pytest.raises(NotImplementedError, match="remat"):
-            block_train(cfg.replace(remat="dots"), {}, None, None,
+            block_train(cfg.replace(remat="dots"), "fp", {}, None, None,
                         MeshAxes())
     else:
         with pytest.raises(NotImplementedError, match="item 8"):

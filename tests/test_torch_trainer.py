@@ -228,8 +228,8 @@ def test_xent_loss_matches_reference(loss_chunk):
                                               jnp.asarray(w),
                                               jnp.asarray(labels))
     th, tw = (torch.from_numpy(a).requires_grad_(True) for a in (h, w))
-    loss, n = layers.xent_loss(cfg, {"w": tw}, th,
-                               torch.from_numpy(labels))
+    loss, n = layers.xent_loss(cfg, "sp", {"w": tw}, th,
+                               torch.from_numpy(labels), MeshAxes())
     loss.backward()
     loss = loss.detach()
     assert int(n) == want_n == 2 * 64
@@ -248,14 +248,14 @@ def test_layernorm_matches_reference(dtype, tol):
     bias = (0.1 * rng.randn(64)).astype(np.float32)
     jcfg = jax_get_config("stablelm-3b", smoke=True)
     cfg = get_config("stablelm-3b", smoke=True)
-    assert set(layers.norm_decls(cfg, 64)) == {"scale", "bias"}
+    assert set(layers.norm_decls(cfg, "sp", 64)) == {"scale", "bias"}
     want = jax_layers.norm_apply(
         jcfg, "sp", {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)},
         jnp.asarray(x).astype(getattr(jnp, dtype)), None)
     got = layers.norm_apply(
-        cfg, {"scale": torch.from_numpy(scale),
-              "bias": torch.from_numpy(bias)},
-        torch.from_numpy(x).to(getattr(torch, dtype)))
+        cfg, "sp", {"scale": torch.from_numpy(scale),
+                    "bias": torch.from_numpy(bias)},
+        torch.from_numpy(x).to(getattr(torch, dtype)), MeshAxes())
     assert got.dtype == getattr(torch, dtype)
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want.astype(jnp.float32)),
@@ -407,5 +407,9 @@ def test_launch_train_runs_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag", ["--tp", "--pp"])
 def test_launch_train_names_the_roadmap_item(flag):
+    """``--pp`` above 1 (the full-model pipeline) and a ``--tp`` that
+    does not divide the heads (ring attention, qwen2.5-14b's) raise in
+    the launcher, before any rank starts, and name their item."""
+    value = {"--tp": "3", "--pp": "2"}[flag]
     with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        launch_train.main(["--smoke", "--device", "cpu", flag, "2"])
+        launch_train.main(["--smoke", "--device", "cpu", flag, value])

@@ -204,9 +204,10 @@ def pipeline_body(axes, device, inputs):
 
 def trainer_body(axes, device, inputs):
     """Three AdamW steps of the port's LM train step per case, from the
-    reference's initial parameters and its token batches (each rank on
-    its rows); returns each step's loss, gradient norm and clipped
-    gradients (as the optimizer got them) and the final parameters."""
+    reference's initial parameters (each rank's shards) and its token
+    batches (each rank on its rows); returns each step's loss, gradient
+    norm and clipped local gradients (as the optimizer got them) and the
+    final local parameters."""
     from repro_torch.optim import make_optimizer
     from repro_torch.parallel.params import from_jax_params
     from repro_torch.train.trainer import local_rows, make_train_step
@@ -215,9 +216,9 @@ def trainer_body(axes, device, inputs):
     for name, case in inputs.items():
         opt = make_optimizer("adamw", case["lr"],
                              weight_decay=case["weight_decay"])
-        step_fn, _, _ = make_train_step(case["cfg"], axes, opt,
-                                        microbatches=case["microbatches"],
-                                        device=device)
+        step_fn, decls, _ = make_train_step(
+            case["cfg"], axes, opt, microbatches=case["microbatches"],
+            device=device)
         grads = []
         update = opt.update
 
@@ -225,7 +226,7 @@ def trainer_body(axes, device, inputs):
             grads.append(tree_map(_np, g))
             return update(g, state, params, step)
         opt.update = recording
-        params = from_jax_params(case["params"])
+        params = shard_params(from_jax_params(case["params"]), decls, axes)
         state = opt.init(params)
         losses, gnorms = [], []
         for s, batch in enumerate(case["batches"]):
@@ -236,3 +237,95 @@ def trainer_body(axes, device, inputs):
         out[name] = {"losses": losses, "grad_norms": gnorms,
                      "grads": grads, "params": tree_map(_np, params)}
     return out
+
+
+def _shard(a: np.ndarray, axes, dim: int) -> np.ndarray:
+    """This model rank's block of ``a`` along ``dim``."""
+    n = a.shape[dim] // axes.tp
+    idx = [slice(None)] * a.ndim
+    idx[dim] = slice(axes.tp_rank * n, (axes.tp_rank + 1) * n)
+    return a[tuple(idx)]
+
+
+def _in_layout(a: np.ndarray, layout: str, axes) -> np.ndarray:
+    """A [B, S, d] array cut to the residual layout's local shard."""
+    return _shard(a, axes, {"sp": 1, "fp": 2}[layout])
+
+
+def _tp_summed(grads, decls, axes):
+    """Local gradients summed over the model axis where the decl does
+    not shard them (``reduce_grads``' tp branch, without its dp sum)."""
+    from repro_torch.parallel.grads import _spec_axes
+    from repro_torch.parallel.params import tree_leaves, tree_unflatten
+    dflat = dict(tree_leaves(decls))
+    return tree_unflatten(grads, {
+        path: (g if "tp" in _spec_axes(dflat[path].spec)
+               else axes.tp_comm.all_reduce(g))
+        for path, g in tree_leaves(grads)})
+
+
+def layers_tp_body(axes, device, cases):
+    """The layers at this rank's tp on the reference's global inputs,
+    each cut to the rank's shard: ``xent_loss`` (sequence-sharded h,
+    vocab-sharded head; the objective divided by tp as the trainer's),
+    ``norm_apply``, ``embed_apply`` and head-mode ``attention`` (the
+    objective sum(out * r)).  Returns local outputs and gradients,
+    parameter gradients summed over tp where replicated."""
+    from repro_torch.models import attention, layers
+    from repro_torch.parallel.params import from_jax_params
+
+    out = {}
+    for name, case in cases.items():
+        cfg, kind = case["cfg"], case["kind"]
+        lay = case.get("layout")
+        if kind == "xent":
+            h = _leaf(_shard(case["h"], axes, 1))
+            w = _leaf(_shard(case["w"], axes, 1))
+            loss, n = layers.xent_loss(cfg, "sp", {"w": w}, h,
+                                       torch.from_numpy(case["labels"]),
+                                       axes)
+            (loss / axes.tp).backward()
+            out[name] = {"loss": float(loss), "n": int(n),
+                         "h": _np(h.grad), "w": _np(w.grad)}
+            continue
+        r = torch.from_numpy(_in_layout(case["r"], lay, axes).copy())
+        if kind == "norm":
+            x = _leaf(_in_layout(case["x"], lay, axes))
+            params = {k: _leaf(_shard(v, axes, 0) if lay == "fp" else v)
+                      for k, v in case["params"].items()}
+            y = layers.norm_apply(cfg, lay, params, x, axes)
+            decls = layers.norm_decls(cfg, lay, case["x"].shape[-1])
+        elif kind == "embed":
+            x = None
+            params = {"table": _leaf(_shard(case["table"], axes, 0))}
+            y = layers.embed_apply(cfg, lay, params,
+                                   torch.from_numpy(case["tokens"]), axes)
+            decls = layers.embed_decls(cfg)
+        else:
+            x = _leaf(_in_layout(case["x"], lay, axes))
+            decls = attention.attn_decls(cfg, axes)
+            params = tree_map(lambda t: t.requires_grad_(True), shard_params(
+                from_jax_params(case["params"]), decls, axes))
+            B, S = case["x"].shape[:2]
+            pos = torch.arange(S).expand(B, S)
+            y, _ = attention.attention(cfg, lay, params, x, pos, axes,
+                                       kind="train")
+        (y * r).sum().backward()
+        grads = _tp_summed(tree_map(lambda t: t.grad, params), decls, axes)
+        out[name] = {"y": _np(y), "params": tree_map(_np, grads),
+                     "x": None if x is None else _np(x.grad)}
+    return out
+
+
+def trainer_tp_body(axes, device, inputs):
+    """One mesh of ``tests/test_torch_trainer_tp.py``: the trainer cases
+    (``trainer_body``), the layer cases (``layers_tp_body``) and this
+    rank's shards of ``Trainer.init_state(seed)``."""
+    from repro_torch.optim import AdamW
+    from repro_torch.train.trainer import Trainer
+    trainer = Trainer(inputs["draw_cfg"], axes, AdamW(1e-3), None,
+                      device=device)
+    return {"train": trainer_body(axes, device, inputs["train"]),
+            "layers": layers_tp_body(axes, device, inputs["layers"]),
+            "draw": tree_map(_np, trainer.init_state(
+                inputs["seed"]).params)}
