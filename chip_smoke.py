@@ -124,13 +124,38 @@ Phases (any failure exits non-zero):
    card memory printed; then one more step under ``torch.profiler``
    (device busy share, the flash kernel's share, the top kernels).
 
+9. LM training at tp = 4 (``phase_lm_train_tp``): first, in the parent,
+   the flash kernel at phi3-mini's per-rank shape (B=4, S=512, H=KV=8,
+   hd=96, bf16, causal) and the three phantom kernels at its gate/up and
+   down shapes (M=2048; K=768, N=2048 and K=2048, N=768; PK=48; bf16),
+   held and timed as in phases 2 and 3.  Then 4 ranks spawned on the
+   card (gloo, card tensors through the host), each running
+   ``_lm_tp_rank``: (a) step 1 of phi3-mini with phantom MLP sites at
+   full width and ``LM_PARITY_LAYERS`` layers, fp32, through the kernels
+   (``"auto"``) against plain torch (``"xla"``) from one draw cloned:
+   loss, clipped gradients and parameters held on every rank's shards
+   as in phase 5, every kernel launched as the layers imply; (b) the
+   same with dense sites (the ``sp`` layout) at tp = 4 against tp = 1
+   from the same seed (each rank holds its shards against the same cut
+   of the tp = 1 run); (c) the main path: ``launch/train.py``'s trainer
+   on phi3-mini at all 32 layers, phantom, bf16, batch 4 x seq 512,
+   ``LM_STEPS`` steps with the collectives logged -- every loss finite,
+   each rank's launches per step exactly the flash kernel 2 x 32 and the
+   phantom forward, dgrad and wgrad 6 x 32, 3 x 32 and 3 x 32; each
+   rank's step time, wire bytes per step, peak memory and the card's
+   used memory printed; (d) phantom (``fp``) and dense (``sp``) at
+   ``LM_TP_COMPARE`` (8 layers, 3 steps each): step times and wire
+   bytes per rank side by side.
+
 The line before the last is the kernel table as JSON (the phantom
 kernels' 8-row shape and its launches under ``pipe_rows8``; the flash
 kernel's training launches and its hd=96 training shape under
-``train_launches`` and ``hd96``); the last line is
+``train_launches`` and ``hd96``; every kernel's tp = 4 shapes and its
+launches per step and rank under ``lm_tp4``); the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1630,10 +1655,15 @@ def _profile_train_step(trainer, state):
         k = key.lower()
         if "flash_mma_kernel" in k:
             return "flash"
+        if "splitk_kernel" in k or "tn_kernel" in k:
+            return "phantom"
+        if "memcpy" in k:
+            return "copies"
         if any(w in k for w in ("gemm", "nvjet", "cutlass", "xmma")):
             return "gemm"
         return "other"
-    by_kind = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    by_kind = {"flash": 0.0, "phantom": 0.0, "gemm": 0.0, "copies": 0.0,
+               "other": 0.0}
     for e in events:
         by_kind[kind(e.key)] += e.self_device_time_total / 1e3
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
@@ -1823,12 +1853,63 @@ def _free(device):
         torch.cuda.empty_cache()
 
 
-def _lm_tp_train(axes, device, cfg, args, steps):
+@contextlib.contextmanager
+def _collective_clock():
+    """Time every collective a ``Group`` runs inside the block: the wait
+    for the card's queued work (a ``synchronize`` first, so that the
+    wait is not charged to the collective) and the collective itself
+    (gloo's copy to the host, the exchange, the copy back).  Yields the
+    running sums."""
+    import torch
+    from repro_torch.parallel import axes as ax
+    orig = ax.Group._run
+    acc = {"calls": 0, "device_wait_ms": 0.0, "collective_ms": 0.0}
+
+    def run(self, t, op):
+        t0 = time.perf_counter()
+        if t.device.type == "cuda":
+            torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = orig(self, t, op)
+        if out.device.type == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        acc["calls"] += 1
+        acc["device_wait_ms"] += (t1 - t0) * 1e3
+        acc["collective_ms"] += (t2 - t1) * 1e3
+        return out
+    ax.Group._run = run
+    try:
+        yield acc
+    finally:
+        ax.Group._run = orig
+
+
+def _lm_tp_profile(trainer, state, axes):
+    """One more step on every rank with its collectives timed
+    (``_collective_clock``); rank 0 also under ``torch.profiler``
+    (``_profile_train_step``: device time by kind)."""
+    import torch
+    with _collective_clock() as clock:
+        if axes.rank == 0:
+            state, prof = _profile_train_step(trainer, state)
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = trainer.run(state, state.step + 1)
+            torch.cuda.synchronize()
+            prof = {"wall_ms": (time.perf_counter() - t0) * 1e3}
+    prof.update(clock)
+    return state, prof
+
+
+def _lm_tp_train(axes, device, cfg, args, steps, profile=False):
     """``launch/train.py``'s trainer on this rank for ``steps`` steps,
     kernel counts from 0 just before the run and read just after, the
     collectives logged: step times, losses, launches, wire bytes per
     step by collective, and (on the card) the rank's peak memory and
-    the card's used memory."""
+    the card's used memory; ``profile`` adds one step of
+    ``_lm_tp_profile`` after the run."""
     import torch
     from repro_torch.launch.train import make_trainer
     from repro_torch.parallel.axes import record_collectives
@@ -1858,6 +1939,8 @@ def _lm_tp_train(axes, device, cfg, args, steps):
         free, total = torch.cuda.mem_get_info()
         out.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                    card_used_gb=(total - free) / 1e9)
+        if profile:
+            state, out["profile"] = _lm_tp_profile(trainer, state, axes)
     del trainer, state
     _free(device)
     return out
@@ -1931,7 +2014,8 @@ def _lm_tp_rank(axes, device, smoke=False):
     _free(device)
 
     # (c) the slice: phantom phi3-mini at every layer, bf16 -------------
-    out["main"] = _lm_tp_train(axes, device, base, args, LM_STEPS)
+    out["main"] = _lm_tp_train(axes, device, base, args, LM_STEPS,
+                               profile=True)
 
     # (d) phantom against tensor in the transformer ---------------------
     layers, steps = LM_TP_COMPARE
@@ -2077,6 +2161,19 @@ def phase_lm_train_tp(device="cuda", smoke=False):
               f"{[round(m['peak_memory_gb'], 2) for m in main]}; card used "
               f"(GB, as each rank read it after its run) "
               f"{[round(m['card_used_gb'], 2) for m in main]}", flush=True)
+        prof = [m["profile"] for m in main]
+        print(f"lm_train_tp: (c) one more step, collectives timed on every "
+              f"rank (rank 0 also profiled): wall ms "
+              f"{[round(p['wall_ms'], 1) for p in prof]}, in collectives "
+              f"(copies and gloo) "
+              f"{[round(p['collective_ms'], 1) for p in prof]} over "
+              f"{prof[0]['calls']} calls, waiting for the card before them "
+              f"{[round(p['device_wait_ms'], 1) for p in prof]}; rank 0's "
+              f"device {prof[0]['device_ms']} ms, by kind "
+              f"{prof[0]['device_ms_by_kind']}, {prof[0]['device_ops']} "
+              f"device ops; top: "
+              f"{ {k: round(v, 3) for k, v in prof[0]['top_device_ms'].items()} }",
+              flush=True)
     compare = {}
     for impl in ("phantom", "dense"):
         runs = [r["compare"][impl] for r in ranks]

@@ -199,9 +199,7 @@ def mlp_apply(cfg, layout: str, params, x, axes: MeshAxes):
         u = sts["up"].apply(params["up"], x_full, compute_dtype=dt)
         z = sts["down"].apply(params["down"], F.silu(g) * u,
                               compute_dtype=dt)
-        z = from_partial(z, layout, axes)
-        return sts["down"].add_bias(z, params["down"], axes,
-                                    sharded=layout == "fp")
+        return from_partial(z, layout, axes)     # no site has a bias
     # mixed strategies: residual_layout is fp whenever a site is phantom
     if layout != "fp":
         raise ValueError(f"mixed MLP strategies {kinds} in layout "

@@ -60,25 +60,14 @@ class TensorRowStrategy(ProjectionStrategy):
 
     def apply(self, params, x, *, axes=None, compute_dtype=None):
         """Partial sums over the sharded contraction dim, without the
-        bias: it would be summed p times in the reduction, so callers
-        add it after reducing (``add_bias``)."""
+        bias (the reference adds it after the reduction; no ported site
+        has one)."""
         return tpmod.row_linear_apply(params, x, compute_dtype)
 
-    def add_bias(self, z_reduced, params, axes=None, sharded=False):
-        """Add the replicated bias to the REDUCED output (full features,
-        or the rank's feature shard when ``sharded``)."""
-        if "b" not in params:
-            return z_reduced
-        b = params["b"]
-        if sharded:
-            n = self.n_out // self.tp
-            b = b[axes.tp_rank * n:(axes.tp_rank + 1) * n]
-        return z_reduced + b.to(z_reduced.dtype)
-
     def apply_shard(self, params, x_shard, axes, compute_dtype=None):
-        z = tpmod.row_linear_apply(params, x_shard, compute_dtype)
-        z = tpmod.scatter_features(z, axes)
-        return self.add_bias(z, params, axes, sharded=True)
+        """The partial sums reduce-scattered onto the feature shard."""
+        return tpmod.scatter_features(
+            tpmod.row_linear_apply(params, x_shard, compute_dtype), axes)
 
     def param_count(self):
         return self.n_in * self.n_out + (self.n_out if self.bias else 0)

@@ -432,3 +432,41 @@ def test_trainer_step_kernel_path_matches_plain(cuda_device):
         tol = 1e-5 + 1e-4 * want.double().abs() + implied
         diff = (pk[path].double() - want.double()).abs()
         assert bool((diff <= tol).all()), (path, diff.max().item())
+
+
+@pytest.mark.cuda
+def test_trainer_step_at_tp2_kernel_path_matches_plain(cuda_device):
+    """One float32 AdamW step of phi3-smoke with phantom MLP sites on 2
+    gloo ranks sharing the card (the ``fp`` layout at tp = 2), the kernel
+    path against the plain path from one draw, on every rank: each of
+    the four kernels launched as the 2 layers imply (forward and
+    recompute), loss and gradient norm rtol 1e-5, local parameters held
+    as in ``test_trainer_step_kernel_path_matches_plain``."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel.params import tree_leaves
+    import torch_ranks
+    build.build(["flash_attention", "phantom_fused"])
+    ranks = spawn(torch_ranks.card_tp_step_body, 1, 2, cuda_device,
+                  timeout_s=300)
+    lr = 1e-3
+    for r in ranks:
+        k, p = r["kernel"], r["plain"]
+        assert k["launches"] == {"flash_attention": 4,
+                                 "phantom_fused_matmul": 12,
+                                 "matmul_nt": 6, "matmul_tn": 6}
+        assert set(p["launches"].values()) == {0}
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose(k[key], p[key], rtol=1e-5)
+        gk, gp = dict(tree_leaves(k["grads"])), dict(tree_leaves(p["grads"]))
+
+        def f(g):
+            g = np.float64(g)
+            return g / (np.abs(g) + r["eps"])
+        for path, want in tree_leaves(p["params"]):
+            near = ((np.abs(gk[path]) < 10 * r["eps"])
+                    | (np.abs(gp[path]) < 10 * r["eps"]))
+            implied = lr * np.abs(f(gk[path]) - f(gp[path])) * near
+            tol = 1e-5 + 1e-4 * np.abs(np.float64(want)) + implied
+            diff = np.abs(np.float64(dict(tree_leaves(k["params"]))[path])
+                          - want)
+            assert (diff <= tol).all(), (path, diff.max())

@@ -23,8 +23,9 @@
 * The layers at tp = 2 against the reference's inside ``shard_map`` on a
   1 x 2 mesh, gradients taken inside as the trainer takes them:
   ``xent_loss`` vocab-sharded over 1 and 2 chunks; ``norm_apply`` and
-  ``embed_apply`` in ``fp`` and ``sp``; head-mode attention, dense,
-  with replicated KV, and phantom.  float32, the two sides summing in
+  ``embed_apply`` in ``fp`` and ``sp``; ``mlp_apply`` with mixed sites
+  (phantom gate and up, tensor_row down: each site shard to shard);
+  head-mode attention, dense, with replicated KV, and phantom.  float32, the two sides summing in
   different orders: values rtol 1e-5 and atol 1e-6 of the array's
   largest magnitude; gradients rtol 1e-4 and atol 1e-5 of it.
 * One seed gives the same gathered global parameters at tp = 1, 2 and 4
@@ -36,7 +37,9 @@
 One spawn per mesh (1 x 4 and 2 x 2); the 2 x 2 mesh's two dp groups
 each run the layer cases, and dp group 0's ranks are compared.
 """
+import dataclasses
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import jax
 import jax.numpy as jnp
@@ -241,6 +244,33 @@ def _layer_cases(rng):
                                                      {"table": g}))(
                     *fn(*a)))))
 
+    # the MLP with mixed sites: phantom gate and up, tensor_row down
+    jcfg, cfg = _configs("phi3", "config", {})
+    jcfg = jcfg.replace(projections=dataclasses.replace(
+        jcfg.projections, ffn_down=None))
+    cfg = cfg.replace(projections=dataclasses.replace(
+        cfg.projections, ffn_down=None))
+    decls = jax_layers.mlp_decls(jcfg, axes, 64, jcfg.d_ff)
+    params = jax.tree.map(np.asarray, jax_materialize(decls, seed=6))
+    x = rng.randn(2, 16, 64).astype(np.float32)
+    r = rng.randn(2, 16, 64).astype(np.float32)
+
+    def body(params, x, r, jcfg=jcfg, decls=decls):
+        def obj(params, x):
+            out = jax_layers.mlp_apply(jcfg, "fp", params, x, axes)
+            return jnp.sum(out * r), out
+        (_, out), (gp, gx) = jax.value_and_grad(
+            obj, argnums=(0, 1), has_aux=True)(params, x)
+        return out, gx, _tp_psum(gp, decls, axes)
+    pspec = jax.tree.map(lambda s: resolve_spec(s, axes), jax_specs(decls))
+    fn = _jax_fn(body, (pspec, LAYOUT_SPEC["fp"], LAYOUT_SPEC["fp"]),
+                 (LAYOUT_SPEC["fp"], LAYOUT_SPEC["fp"], pspec))
+    cases["mlp_mixed"] = (
+        {"kind": "mlp", "cfg": cfg, "layout": "fp", "x": x, "r": r,
+         "params": params},
+        lambda fn=fn, a=(params, x, r): dict(zip(("y", "x", "params"),
+                                                 fn(*a))))
+
     for name, proj, over in (("dense", "dense", {}),
                              ("replicated_kv", "dense", {"num_kv_heads": 1}),
                              ("phantom", "attn", {})):
@@ -304,8 +334,10 @@ def runs():
     threads = [threading.Thread(target=ranks, args=m) for m in MESHES]
     for t in threads:
         t.start()
-    for run in todo:
-        run()
+    # XLA compiles outside the interpreter lock: the runs overlap
+    with ThreadPoolExecutor(len(todo)) as pool:
+        for f in [pool.submit(run) for run in todo]:
+            f.result()
     out["layers"] = {k: (c, want()) for k, (c, want) in layers.items()}
     for t in threads:
         t.join()
@@ -366,14 +398,15 @@ def _assemble(parts, layout_dim):
 
 LAYER_NAMES = ["xent_chunks1", "xent_chunks2", "norm_rmsnorm_fp",
                "norm_rmsnorm_sp", "norm_layernorm_fp", "norm_layernorm_sp",
-               "embed_fp", "embed_sp", "attention_dense",
+               "embed_fp", "embed_sp", "mlp_mixed", "attention_dense",
                "attention_replicated_kv", "attention_phantom"]
 
 
 @pytest.mark.parametrize("name", LAYER_NAMES)
 def test_layer_at_tp2_matches_reference(runs, name):
     from repro_torch.models.attention import attn_decls
-    from repro_torch.models.layers import embed_decls, norm_decls
+    from repro_torch.models.layers import (embed_decls, mlp_decls,
+                                           norm_decls)
     case, want = runs["layers"][name]
     ranks = [r["layers"][name] for r in runs[(2, 2)][:2]]  # dp group 0
     if case["kind"] == "xent":
@@ -392,6 +425,7 @@ def test_layer_at_tp2_matches_reference(runs, name):
     cfg, lay = case["cfg"], case["layout"]
     decls = {"norm": lambda: norm_decls(cfg, lay, 64),
              "embed": lambda: embed_decls(cfg),
+             "mlp": lambda: mlp_decls(cfg, MeshAxes(tp=2), 64, cfg.d_ff),
              "attention": lambda: attn_decls(cfg, MeshAxes(tp=2))}[
         case["kind"]]()
     got = dict(tree_leaves(gather_params([r["params"] for r in ranks],

@@ -268,8 +268,8 @@ def layers_tp_body(axes, device, cases):
     """The layers at this rank's tp on the reference's global inputs,
     each cut to the rank's shard: ``xent_loss`` (sequence-sharded h,
     vocab-sharded head; the objective divided by tp as the trainer's),
-    ``norm_apply``, ``embed_apply`` and head-mode ``attention`` (the
-    objective sum(out * r)).  Returns local outputs and gradients,
+    ``norm_apply``, ``embed_apply``, ``mlp_apply`` and head-mode
+    ``attention`` (the objective sum(out * r)).  Returns local outputs and gradients,
     parameter gradients summed over tp where replicated."""
     from repro_torch.models import attention, layers
     from repro_torch.parallel.params import from_jax_params
@@ -295,6 +295,13 @@ def layers_tp_body(axes, device, cases):
                       for k, v in case["params"].items()}
             y = layers.norm_apply(cfg, lay, params, x, axes)
             decls = layers.norm_decls(cfg, lay, case["x"].shape[-1])
+        elif kind == "mlp":
+            x = _leaf(_in_layout(case["x"], lay, axes))
+            d, ff = case["x"].shape[-1], cfg.d_ff
+            decls = layers.mlp_decls(cfg, axes, d, ff)
+            params = tree_map(lambda t: t.requires_grad_(True), shard_params(
+                from_jax_params(case["params"]), decls, axes))
+            y = layers.mlp_apply(cfg, lay, params, x, axes)
         elif kind == "embed":
             x = None
             params = {"table": _leaf(_shard(case["table"], axes, 0))}
@@ -329,3 +336,44 @@ def trainer_tp_body(axes, device, inputs):
             "layers": layers_tp_body(axes, device, inputs["layers"]),
             "draw": tree_map(_np, trainer.init_state(
                 inputs["seed"]).params)}
+
+
+def card_tp_step_body(axes, device):
+    """One float32 AdamW step of phi3-smoke (phantom MLP sites) on this
+    rank of a tp mesh, through the kernels (``"auto"``) and through plain
+    torch (``"xla"``) from one host draw: each run's loss, gradient
+    norm, clipped local gradients, updated local parameters and kernel
+    launches."""
+    from repro_torch.configs.base import get_config, with_kernel_backend
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.kernels import phantom_fused as pf
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.params import materialize_shards
+    from repro_torch.train.trainer import make_train_step
+
+    base = get_config("phi3-mini-3.8b", smoke=True, dtype="float32")
+    params = materialize_shards(model_decls(base, axes), axes, 0, device)
+    batch = LMDataset(base.vocab_size, 4, 129, device=device)(0)
+    kernels = (flash_attention, pf.phantom_fused_matmul, pf.matmul_nt,
+               pf.matmul_tn)
+    out = {}
+    for name, backend in (("kernel", "auto"), ("plain", "xla")):
+        opt = AdamW(1e-3, weight_decay=0.1)
+        seen, update = [], opt.update
+        opt.update = lambda g, s, p, t, seen=seen, update=update: (
+            seen.append(tree_map(_np, g)), update(g, s, p, t))[1]
+        step_fn, _, _ = make_train_step(with_kernel_backend(base, backend),
+                                        axes, opt, device=device)
+        p = tree_map(torch.clone, params)
+        for k in kernels:
+            k.launches = 0
+        p, _, m = step_fn(p, opt.init(p), 0, batch)
+        torch.cuda.synchronize()
+        out[name] = {"loss": float(m["loss"]),
+                     "grad_norm": float(m["grad_norm"]), "grads": seen[0],
+                     "params": tree_map(_np, p),
+                     "launches": {k.__name__: k.launches for k in kernels}}
+    out["eps"] = opt.eps
+    return out
