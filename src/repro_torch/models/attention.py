@@ -33,11 +33,11 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.configs.base import PHANTOM_KINDS
 from repro_torch.kernels.ops import (flash_attention_supported,
                                      flash_attention_vjp,
                                      resolve_kernel_backend)
 from repro_torch.models import rope as ropemod
-from repro_torch.configs.base import PHANTOM_KINDS
 from repro_torch.models.layers import dtype_of, from_partial, to_full
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import ParamDecl
@@ -59,18 +59,14 @@ def _kv_chunk(cfg, full: int, default: int) -> int:
 
 
 def resolve_attn_mode(cfg, axes: MeshAxes) -> str:
-    mode = cfg.attn_shard
-    if mode == "auto":
-        mode = "head" if cfg.num_heads % axes.tp == 0 else "ring"
-    if mode != "head":
+    """``"head"``, the ported mode.  Ring mode, asked for or needed
+    because the model axis does not divide the heads, raises."""
+    if cfg.attn_shard == "ring" or cfg.num_heads % axes.tp:
         raise NotImplementedError(
-            f"attention mode {mode!r}: see {RING_ATTN_TODO}")
-    if cfg.num_heads % axes.tp:
-        raise NotImplementedError(
-            f"head mode at tp={axes.tp}: {cfg.num_heads} heads do not "
-            f"split over the model axis, which takes ring attention; see "
+            f"attention over {cfg.num_heads} heads at tp={axes.tp} "
+            f"(attn_shard={cfg.attn_shard!r}) takes ring attention: see "
             f"{RING_ATTN_TODO}")
-    return mode
+    return "head"
 
 
 def attn_site_strategies(cfg, axes: MeshAxes):
