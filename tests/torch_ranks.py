@@ -19,7 +19,7 @@ from repro_torch.parallel.params import shard_params, tree_map
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to(torch.float32).numpy()
+    return t.detach().to("cpu", torch.float32).numpy()
 
 
 def _rows(a: np.ndarray, axes) -> np.ndarray:
