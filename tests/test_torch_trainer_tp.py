@@ -45,7 +45,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from jax import lax
 from jax.sharding import PartitionSpec as P
 
