@@ -143,7 +143,9 @@ Phases (any failure exits non-zero):
    each rank's launches per step exactly the flash kernel 2 x 32 and the
    phantom forward, dgrad and wgrad 6 x 32, 3 x 32 and 3 x 32; each
    rank's step time, wire bytes per step, peak memory and the card's
-   used memory printed; (d) phantom (``fp``) and dense (``sp``) at
+   used memory printed; then one more step with its collectives timed
+   (``record_collectives(timed=True)``), rank 0's under
+   ``torch.profiler``; (d) phantom (``fp``) and dense (``sp``) at
    ``LM_TP_COMPARE`` (8 layers, 3 steps each): step times and wire
    bytes per rank side by side.
 
@@ -155,7 +157,6 @@ launches per step and rank under ``lm_tp4``); the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
-import contextlib
 import json
 import statistics
 import subprocess
@@ -172,7 +173,6 @@ SWEEP_B, SWEEP_S = (1, 4), (16, 32, 48, 128, 512)
 MAIN_SHAPE = dict(B=SLOTS, S=48, H=32, KV=2, hd=128, causal=True,
                   dtype="bfloat16")
 LOGIT_TOL = 5e-2
-KERNELS = ("flash_attention", "phantom_fused")
 # (M, K, N, PK): the reference's sweeps (tests/test_kernels.py:13-19,
 # 108-114; its backward check at :165-173 as a dgrad and a wgrad case),
 # the paper-ffn-16k per-rank shapes at p=8 and batch 64, and the Table I
@@ -215,8 +215,8 @@ LM_BF16_LOSS_RTOL = 5e-3
 # stablelm-3b (hd 80), causal
 LM_FLASH_SHAPES = ((4, 512, 32, 32, 96), (4, 512, 32, 32, 80))
 # phase 9: phi3-mini on LM_TP ranks; (d) runs LM_TP_COMPARE = (layers,
-# steps) of phantom and of dense; a CPU rehearsal takes seq 64
-LM_TP, LM_TP_COMPARE, LM_TP_SMOKE_SEQ = 4, (8, 3), 64
+# steps) of phantom and of dense
+LM_TP, LM_TP_COMPARE = 4, (8, 3)
 # the per-rank shapes of phi3-mini at tp = 4, batch 4 x seq 512: the
 # phantom kernels' (M, K, N, PK) at gate/up and at down (k = 12, PK = 48),
 # and flash's (B, S, H, KV, hd) at H / tp local heads
@@ -310,10 +310,10 @@ def phase_device():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    logs = build.build(KERNELS)
+    logs = build.build(build.KERNELS)
     build_s = time.perf_counter() - t0
-    print(f"kernel build: {build_s:.2f} s ({', '.join(KERNELS)})")
-    for name in KERNELS:
+    print(f"kernel build: {build_s:.2f} s ({', '.join(build.KERNELS)})")
+    for name in build.KERNELS:
         for line in logs.get(name, "").splitlines():
             if "Used" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
@@ -1795,15 +1795,14 @@ def phase_lm_train():
             "profile": prof}
 
 
-def _lm_args(extra, smoke=False):
+def _lm_args(extra):
     """``launch/train.py``'s flags for phi3-mini at ``LM_TP`` ranks,
-    batch ``LM_BATCH`` x seq ``LM_SEQ`` (``smoke``: its CPU geometry)."""
+    batch ``LM_BATCH`` x seq ``LM_SEQ``."""
     from repro_torch.launch.train import build_parser
     return build_parser().parse_args(
-        ["--arch", LM_ARCH, "--smoke" if smoke else "--full",
-         "--kernel-backend", "auto", "--batch", str(LM_BATCH), "--seq",
-         str(LM_TP_SMOKE_SEQ if smoke else LM_SEQ), "--seed", str(SEED),
-         "--tp", str(LM_TP)] + extra)
+        ["--arch", LM_ARCH, "--full", "--kernel-backend", "auto",
+         "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--seed",
+         str(SEED), "--tp", str(LM_TP)] + extra)
 
 
 def _kernel_counts(reset=False):
@@ -1839,58 +1838,26 @@ def _tp_step1(cfg, axes, device, params, batch, sched):
     p = tree_map(torch.clone, params)
     _kernel_counts(reset=True)
     p, _, m = step_fn(p, opt.init(p), 0, batch)
-    if device.type == "cuda":
-        torch.cuda.synchronize()
+    torch.cuda.synchronize()
     return ({"loss": m["loss"], "grads": seen[0], "params": p},
             _kernel_counts(), opt.eps)
 
 
-def _free(device):
+def _free():
     import gc
     import torch
     gc.collect()
-    if device.type == "cuda":
-        torch.cuda.empty_cache()
-
-
-@contextlib.contextmanager
-def _collective_clock():
-    """Time every collective a ``Group`` runs inside the block: the wait
-    for the card's queued work (a ``synchronize`` first, so that the
-    wait is not charged to the collective) and the collective itself
-    (gloo's copy to the host, the exchange, the copy back).  Yields the
-    running sums."""
-    import torch
-    from repro_torch.parallel import axes as ax
-    orig = ax.Group._run
-    acc = {"calls": 0, "device_wait_ms": 0.0, "collective_ms": 0.0}
-
-    def run(self, t, op):
-        t0 = time.perf_counter()
-        if t.device.type == "cuda":
-            torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        out = orig(self, t, op)
-        if out.device.type == "cuda":
-            torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        acc["calls"] += 1
-        acc["device_wait_ms"] += (t1 - t0) * 1e3
-        acc["collective_ms"] += (t2 - t1) * 1e3
-        return out
-    ax.Group._run = run
-    try:
-        yield acc
-    finally:
-        ax.Group._run = orig
+    torch.cuda.empty_cache()
 
 
 def _lm_tp_profile(trainer, state, axes):
     """One more step on every rank with its collectives timed
-    (``_collective_clock``); rank 0 also under ``torch.profiler``
+    (``record_collectives(timed=True)``: the host ms in each and in the
+    wait for the card before it); rank 0 also under ``torch.profiler``
     (``_profile_train_step``: device time by kind)."""
     import torch
-    with _collective_clock() as clock:
+    from repro_torch.parallel.axes import record_collectives
+    with record_collectives(timed=True) as clock:
         if axes.rank == 0:
             state, prof = _profile_train_step(trainer, state)
         else:
@@ -1899,7 +1866,8 @@ def _lm_tp_profile(trainer, state, axes):
             state = trainer.run(state, state.step + 1)
             torch.cuda.synchronize()
             prof = {"wall_ms": (time.perf_counter() - t0) * 1e3}
-    prof.update(clock)
+    prof.update(calls=clock.calls, device_wait_ms=clock.device_wait_ms,
+                collective_ms=clock.collective_ms)
     return state, prof
 
 
@@ -1907,17 +1875,15 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False):
     """``launch/train.py``'s trainer on this rank for ``steps`` steps,
     kernel counts from 0 just before the run and read just after, the
     collectives logged: step times, losses, launches, wire bytes per
-    step by collective, and (on the card) the rank's peak memory and
-    the card's used memory; ``profile`` adds one step of
-    ``_lm_tp_profile`` after the run."""
+    step by collective, the rank's peak memory and the card's used
+    memory; ``profile`` adds one step of ``_lm_tp_profile`` after the
+    run."""
     import torch
     from repro_torch.launch.train import make_trainer
     from repro_torch.parallel.axes import record_collectives
     from repro_torch.telemetry.counted import collective_costs
-    on_card = device.type == "cuda"
     trainer = make_trainer(axes, device, cfg, args)
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state(args.seed)
     _kernel_counts(reset=True)
     with record_collectives() as log:
@@ -1935,26 +1901,24 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False):
                    "wire_bytes": r["wire_bytes"] / steps}
                for k, r in per_op.items()},
            "params_local": sum(t.numel() for t in _leaves(state.params))}
-    if on_card:
-        free, total = torch.cuda.mem_get_info()
-        out.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
-                   card_used_gb=(total - free) / 1e9)
-        if profile:
-            state, out["profile"] = _lm_tp_profile(trainer, state, axes)
+    free, total = torch.cuda.mem_get_info()
+    out.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               card_used_gb=(total - free) / 1e9)
+    if profile:
+        state, out["profile"] = _lm_tp_profile(trainer, state, axes)
     del trainer, state
-    _free(device)
+    _free()
     return out
 
 
-def _lm_tp_rank(axes, device, smoke=False):
+def _lm_tp_rank(axes, device):
     """``phase_lm_train_tp`` inside one of the ``LM_TP`` ranks sharing
     the card: (a) step 1 kernels against plain at tp = 4, phantom, fp32,
     ``LM_PARITY_LAYERS`` layers; (b) dense (``sp``) at tp = 4 against
     tp = 1 from the same seed, each rank holding its shard of the tp = 1
     run; (c) phantom at all layers, bf16, ``LM_STEPS`` steps, the main
     path; (d) phantom and dense at ``LM_TP_COMPARE[0]`` layers,
-    ``LM_TP_COMPARE[1]`` steps each.  ``smoke`` takes phi3's CPU
-    geometry, for a rehearsal with ``device="cpu"``."""
+    ``LM_TP_COMPARE[1]`` steps each."""
     from repro_torch.configs.base import (dense_projection_map,
                                           with_kernel_backend)
     from repro_torch.data.synthetic import LMDataset
@@ -1965,7 +1929,7 @@ def _lm_tp_rank(axes, device, smoke=False):
     from repro_torch.parallel.params import materialize_shards, shard_params
 
     out = {"rank": axes.rank, "backend": axes.world_comm.backend}
-    args = _lm_args(["--steps", str(LM_STEPS)], smoke)
+    args = _lm_args(["--steps", str(LM_STEPS)])
     base = train_config(args)
     cut = base.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
     batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
@@ -1987,7 +1951,7 @@ def _lm_tp_rank(axes, device, smoke=False):
     out["kernel_vs_plain"]["loss_values"] = {
         n: float(r["loss"]) for n, r in res.items()}
     del params, res
-    _free(device)
+    _free()
 
     # (b) the sp layout at tp = 4 against tp = 1, dense sites, float32
     dense = with_kernel_backend(cut.replace(
@@ -1996,7 +1960,7 @@ def _lm_tp_rank(axes, device, smoke=False):
     params = materialize_shards(decls, axes, SEED, device, draw_on=device)
     res = {"kernel": _tp_step1(dense, axes, device, params, batch, sched)[0]}
     del params
-    _free(device)
+    _free()
     one = MeshAxes()
     params = materialize_shards(model_decls(dense, one), one, SEED, device,
                                 draw_on=device)
@@ -2011,7 +1975,7 @@ def _lm_tp_rank(axes, device, smoke=False):
     out["tp4_vs_tp1"]["loss_values"] = {
         n: float(r["loss"]) for n, r in res.items()}
     del res
-    _free(device)
+    _free()
 
     # (c) the slice: phantom phi3-mini at every layer, bf16 -------------
     out["main"] = _lm_tp_train(axes, device, base, args, LM_STEPS,
@@ -2021,7 +1985,7 @@ def _lm_tp_rank(axes, device, smoke=False):
     layers, steps = LM_TP_COMPARE
     out["compare"] = {}
     for impl in ("phantom", "dense"):
-        a = _lm_args(["--steps", str(steps), "--impl", impl], smoke)
+        a = _lm_args(["--steps", str(steps), "--impl", impl])
         out["compare"][impl] = _lm_tp_train(
             axes, device, train_config(a).replace(num_layers=layers), a,
             steps)
@@ -2056,11 +2020,9 @@ def _lm_tp_kernels(gen):
     return {"flash": flash, "phantom": phantom}
 
 
-def _lm_tp_held(ranks, layers, on_card):
-    """Hold every rank's (a) and (b), its step-1 launches (on the card:
-    on CPU tensors the wrappers run the plain versions and count
-    nothing) and its losses; returns the worst of (a) and (b) over the
-    ranks."""
+def _lm_tp_held(ranks, layers):
+    """Hold every rank's (a) and (b), its step-1 launches and its
+    losses; returns the worst of (a) and (b) over the ranks."""
     import math
     want_a = {"kernel": {"flash_attention": 2 * layers,
                          "phantom_fused_matmul": 6 * layers,
@@ -2083,7 +2045,7 @@ def _lm_tp_held(ranks, layers, on_card):
             check(r[key]["grads"]["max_scaled_err"] <= STEP1_TOL["rtol"],
                   f"lm_train_tp rank {rk}: {key} gradients differ by more "
                   f"than 1e-4 of the largest: {r[key]['grads']}")
-        check(not on_card or r["kernel_vs_plain"]["launches"] == want_a,
+        check(r["kernel_vs_plain"]["launches"] == want_a,
               f"lm_train_tp rank {rk}: step-1 launches "
               f"{r['kernel_vs_plain']['launches']}, want {want_a}")
         for name, run in [("main", r["main"])] + list(
@@ -2095,26 +2057,23 @@ def _lm_tp_held(ranks, layers, on_card):
     return worst
 
 
-def phase_lm_train_tp(device="cuda", smoke=False):
+def phase_lm_train_tp():
     """phi3-mini with phantom MLP sites on ``LM_TP`` ranks sharing the
     card (gloo, card tensors through the host)."""
     import statistics as st
     import torch
     from repro_torch.launch.mesh import backend_for, spawn
     from repro_torch.launch.train import train_config
-    dev = torch.device(device)
-    _free(dev)
+    _free()
     kernels = _lm_tp_kernels(torch.Generator(device="cuda").manual_seed(
-        SEED)) if dev.type == "cuda" else None
+        SEED))
     print(f"lm_train_tp: {LM_TP} ranks on {torch.cuda.device_count()} "
-          f"card(s); backend {backend_for(dev.type, LM_TP)}", flush=True)
+          f"card(s); backend {backend_for('cuda', LM_TP)}", flush=True)
     t0 = time.perf_counter()
-    ranks = spawn(_lm_tp_rank, 1, LM_TP, device, args=(smoke,),
-                  timeout_s=900)
+    ranks = spawn(_lm_tp_rank, 1, LM_TP, "cuda", timeout_s=900)
     wall = time.perf_counter() - t0
-    cfg = train_config(_lm_args([], smoke))
-    on_card = dev.type == "cuda"
-    worst = _lm_tp_held(ranks, LM_PARITY_LAYERS, on_card)
+    cfg = train_config(_lm_args([]))
+    worst = _lm_tp_held(ranks, LM_PARITY_LAYERS)
     for key, what in (("kernel_vs_plain", "kernels vs plain, phantom"),
                       ("tp4_vs_tp1", "dense sp at tp=4 vs tp=1")):
         w = worst[key]
@@ -2132,7 +2091,7 @@ def phase_lm_train_tp(device="cuda", smoke=False):
               f"{w['params']['max_implied_near_zero_grad']:.3e}); elements "
               f"outside 0 of {w['params']['elements']} per rank at most",
               flush=True)
-    tokens = LM_BATCH * (LM_TP_SMOKE_SEQ if smoke else LM_SEQ)
+    tokens = LM_BATCH * LM_SEQ
     main = [r["main"] for r in ranks]
     med = [st.median(m["step_ms"][1:]) for m in main]
     launches = main[0]["launches_per_step"]
@@ -2140,12 +2099,12 @@ def phase_lm_train_tp(device="cuda", smoke=False):
     want = {"flash_attention": 2 * L, "phantom_fused_matmul": 6 * L,
             "matmul_nt": 3 * L, "matmul_tn": 3 * L}
     for r in ranks:
-        check(not on_card or r["main"]["launches_per_step"] == want,
+        check(r["main"]["launches_per_step"] == want,
               f"lm_train_tp rank {r['rank']}: launches per step "
               f"{r['main']['launches_per_step']}, want {want} (forward and "
               f"recompute of {L} layers; the phantom forward at 3 sites)")
     print(f"lm_train_tp: (c) {cfg.name} phantom, tp={LM_TP}, layers={L}, "
-          f"batch {LM_BATCH} x seq {tokens // LM_BATCH}, bf16, "
+          f"batch {LM_BATCH} x seq {LM_SEQ}, bf16, "
           f"remat={cfg.remat}: losses {[round(v, 4) for v in main[0]['losses']]}"
           f"; per-rank step ms, median of steps 2-{LM_STEPS}: "
           f"{[round(m, 2) for m in med]}; {tokens / max(med) * 1e3:.1f} "
@@ -2156,24 +2115,23 @@ def phase_lm_train_tp(device="cuda", smoke=False):
           f"{[round(m['wire_bytes_per_step']) for m in main]}; by "
           f"collective (rank 0): {main[0]['collectives_per_step']}",
           flush=True)
-    if on_card:
-        print(f"lm_train_tp: (c) peak memory per rank (GB) "
-              f"{[round(m['peak_memory_gb'], 2) for m in main]}; card used "
-              f"(GB, as each rank read it after its run) "
-              f"{[round(m['card_used_gb'], 2) for m in main]}", flush=True)
-        prof = [m["profile"] for m in main]
-        print(f"lm_train_tp: (c) one more step, collectives timed on every "
-              f"rank (rank 0 also profiled): wall ms "
-              f"{[round(p['wall_ms'], 1) for p in prof]}, in collectives "
-              f"(copies and gloo) "
-              f"{[round(p['collective_ms'], 1) for p in prof]} over "
-              f"{prof[0]['calls']} calls, waiting for the card before them "
-              f"{[round(p['device_wait_ms'], 1) for p in prof]}; rank 0's "
-              f"device {prof[0]['device_ms']} ms, by kind "
-              f"{prof[0]['device_ms_by_kind']}, {prof[0]['device_ops']} "
-              f"device ops; top: "
-              f"{ {k: round(v, 3) for k, v in prof[0]['top_device_ms'].items()} }",
-              flush=True)
+    print(f"lm_train_tp: (c) peak memory per rank (GB) "
+          f"{[round(m['peak_memory_gb'], 2) for m in main]}; card used "
+          f"(GB, as each rank read it after its run) "
+          f"{[round(m['card_used_gb'], 2) for m in main]}", flush=True)
+    prof = [m["profile"] for m in main]
+    print(f"lm_train_tp: (c) one more step, collectives timed on every "
+          f"rank (rank 0 also profiled): wall ms "
+          f"{[round(p['wall_ms'], 1) for p in prof]}, in collectives "
+          f"(copies and gloo) "
+          f"{[round(p['collective_ms'], 1) for p in prof]} over "
+          f"{prof[0]['calls']} calls, waiting for the card before them "
+          f"{[round(p['device_wait_ms'], 1) for p in prof]}; rank 0's "
+          f"device {prof[0]['device_ms']} ms, by kind "
+          f"{prof[0]['device_ms_by_kind']}, {prof[0]['device_ops']} "
+          f"device ops; top: "
+          f"{ {k: round(v, 3) for k, v in prof[0]['top_device_ms'].items()} }",
+          flush=True)
     compare = {}
     for impl in ("phantom", "dense"):
         runs = [r["compare"][impl] for r in ranks]

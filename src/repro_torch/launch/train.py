@@ -31,9 +31,8 @@ from __future__ import annotations
 import argparse
 import sys
 
-from repro_torch.configs.base import (PHANTOM_KINDS, PROJECTION_SITES,
-                                      dense_projection_map, get_config,
-                                      with_kernel_backend)
+from repro_torch.configs.base import (PROJECTION_SITES, dense_projection_map,
+                                      get_config, with_kernel_backend)
 from repro_torch.data.synthetic import LMDataset
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import KERNEL_BACKENDS, resolve_kernel_backend
@@ -83,22 +82,6 @@ def train_config(args):
     return cfg
 
 
-def kernels_used(cfg, tp: int) -> list:
-    """The kernel libraries a run of ``cfg`` at ``tp`` launches: the
-    flash kernel when the attention sites resolve to the kernel path,
-    the phantom kernels when a fused phantom site does at tp > 1."""
-    sites = [cfg.projection_spec(s) for s in PROJECTION_SITES]
-    out = []
-    if resolve_kernel_backend(
-            cfg.projection_spec("attn_q").kernel_backend) == "pallas":
-        out.append("flash_attention")
-    if tp > 1 and any(s.kind in PHANTOM_KINDS and s.variant == "fused"
-                      and resolve_kernel_backend(s.kernel_backend)
-                      == "pallas" for s in sites):
-        out.append("phantom_fused")
-    return out
-
-
 def make_trainer(axes, device, cfg, args) -> Trainer:
     """One rank's ``Trainer``: the reference's optimizer and schedule,
     ``LMDataset`` batches of ``--seq`` tokens, the log on rank 0."""
@@ -128,10 +111,10 @@ def main(argv=None) -> int:
           f"(tp={args.tp}, kernel_backend={args.kernel_backend or 'config'}): "
           f"{count_params(cfg, args.tp):,} params, batch {args.batch} x "
           f"seq {args.seq}", flush=True)
-    if device.type == "cuda":
-        kernels = kernels_used(cfg, args.tp)
-        if kernels:
-            build.build(kernels)     # once, before any rank loads them
+    if device.type == "cuda" and any(
+            resolve_kernel_backend(cfg.projection_spec(s).kernel_backend)
+            == "pallas" for s in PROJECTION_SITES):
+        build.build(build.KERNELS)   # once, before any rank loads them
     if args.dp * args.tp == 1:
         train_rank(MeshAxes(), device, cfg, args)
     else:

@@ -18,12 +18,15 @@ an axis raises.
 it is open: the measured half of the energy ledger's wire bytes
 (``telemetry/counted.py``), as the reference reads them from the HLO.
 A pipeline stage's send to its neighbour is logged as the reference's
-``collective_permute``, on the sending rank.
+``collective_permute``, on the sending rank.  ``record_collectives(
+timed=True)`` also sums the host time of each all-gather, reduce-scatter
+and all-reduce.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
+import time
 from dataclasses import dataclass, field
 from typing import Any, Iterator, List, Optional
 
@@ -46,10 +49,19 @@ class IssuedCollective:
 
 class CollectiveLog:
     """The collectives issued while one ``record_collectives()`` block
-    was open, in order (``events``)."""
+    was open, in order (``events``).  A ``timed`` log also sums, over
+    the all-gathers, reduce-scatters and all-reduces (``calls``), the
+    host ms spent waiting for the card's queued work before each
+    (``device_wait_ms``) and the host ms of the collective itself
+    (``collective_ms``: under gloo the copy to the host, the exchange and
+    the copy back)."""
 
-    def __init__(self):
+    def __init__(self, timed: bool = False):
         self.events: List[IssuedCollective] = []
+        self.timed = timed
+        self.calls = 0
+        self.device_wait_ms = 0.0
+        self.collective_ms = 0.0
 
 
 # the logs of the open record_collectives() blocks; the autograd engine
@@ -60,10 +72,15 @@ _RECORDING_LOCK = threading.Lock()
 
 
 @contextlib.contextmanager
-def record_collectives() -> Iterator[CollectiveLog]:
+def record_collectives(timed: bool = False) -> Iterator[CollectiveLog]:
     """Log every collective any ``Group`` issues inside the block,
-    backward passes included.  A group of one rank issues none."""
-    log = CollectiveLog()
+    backward passes included.  A group of one rank issues none.
+    ``timed``: time them too (``CollectiveLog``); each timed collective
+    on a card tensor synchronizes the card before and after it, so that
+    its time holds neither the queued work nor a later kernel.  The
+    synchronizes take away the overlap of host and card: time a step
+    that is measured for where its time goes, not for its speed."""
+    log = CollectiveLog(timed)
     with _RECORDING_LOCK:
         _RECORDING.append(log)
     try:
@@ -85,6 +102,14 @@ def _issued(collective: str, t: torch.Tensor, size: int, issued_as: str):
             log.events.append(ev)
 
 
+def _clocks() -> List[CollectiveLog]:
+    """The open timed logs; free while no block is open."""
+    if not _RECORDING:    # read without the lock: nothing to time
+        return []
+    with _RECORDING_LOCK:
+        return [log for log in _RECORDING if log.timed]
+
+
 @dataclass(frozen=True)
 class Group:
     """One process group of ``size`` ranks, this rank at ``rank``;
@@ -104,6 +129,26 @@ class Group:
     ranks: tuple = ()
 
     def _run(self, t: torch.Tensor, op):
+        clocks = _clocks()
+        if not clocks:
+            return self._exchange(t, op)
+        card = t.device.type == "cuda"
+        t0 = time.perf_counter()
+        if card:
+            torch.cuda.synchronize(t.device)
+        t1 = time.perf_counter()
+        out = self._exchange(t, op)
+        if card:
+            torch.cuda.synchronize(t.device)
+        t2 = time.perf_counter()
+        with _RECORDING_LOCK:
+            for log in clocks:
+                log.calls += 1
+                log.device_wait_ms += (t1 - t0) * 1e3
+                log.collective_ms += (t2 - t1) * 1e3
+        return out
+
+    def _exchange(self, t: torch.Tensor, op):
         src = t.detach().contiguous()
         if self.via_host and src.device.type != "cpu":
             return op(src.cpu()).to(src.device)

@@ -148,6 +148,21 @@ def test_scatter_features_matches_jax(run):
                                np.asarray(grad), **OUT_TOL)
 
 
+def test_timed_record_times_every_collective(run):
+    """``record_collectives(timed=True)`` counts and times each
+    collective the feature gather and scatter run, forward and backward,
+    and logs the same ones as an untimed log open beside it, which times
+    none."""
+    want = ["all_gather", "reduce_scatter", "reduce_scatter", "all_gather"]
+    for r in run["ranks"]:
+        untimed, timed = r["timed"]["untimed"], r["timed"]["timed"]
+        assert untimed["collectives"] == timed["collectives"] == want
+        assert timed["calls"] == len(want)
+        assert timed["collective_ms"] > 0.0
+        assert untimed["calls"] == 0
+        assert untimed["collective_ms"] == untimed["device_wait_ms"] == 0.0
+
+
 @pytest.mark.parametrize("variant", list(VARIANTS))
 def test_phantom_apply_matches_jax(run, variant):
     """Each variant's per-rank output and dp-summed parameter gradients

@@ -75,6 +75,14 @@ def test_energy_model_carries_no_tpu_constant():
     assert "TPU_" not in Path(energy.__file__).read_text()
 
 
+def test_build_names_every_kernel_source():
+    """``build.KERNELS`` names every CUDA source: the launchers build
+    them all before spawning ranks, so no rank builds one itself."""
+    from repro_torch.kernels import build
+    assert sorted(build.KERNELS) == sorted(
+        p.stem for p in build.CSRC.glob("*.cu"))
+
+
 def _fields(cfg, names):
     d = dataclasses.asdict(cfg)
     return {n: d[n] for n in names}

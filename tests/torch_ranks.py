@@ -15,6 +15,7 @@ from repro_torch.configs.base import PhantomConfig
 from repro_torch.core.autograd import all_gather_ghosts
 from repro_torch.core.phantom import phantom_apply, phantom_decls
 from repro_torch.core.tp import gather_features, scatter_features
+from repro_torch.parallel.axes import record_collectives
 from repro_torch.parallel.params import shard_params, tree_map
 
 
@@ -51,19 +52,26 @@ def collectives_body(axes, device, inputs):
     out["ghosts_fwd"] = _np(g_all)
     out["ghosts_grad"] = _np(g.grad)
 
-    # gather_features: [B/dp, n/tp] -> [B/dp, n]; loss scaled by 1 + t
-    x = _leaf(_cols(_rows(inputs["features"], axes), axes))
-    full = gather_features(x, axes)
-    (full * full * (1.0 + t)).sum().backward()
-    out["gather_fwd"] = _np(full)
-    out["gather_grad"] = _np(x.grad)
+    # the feature gather and scatter below, logged twice: untimed and timed
+    with record_collectives() as log, record_collectives(timed=True) as clock:
+        # gather_features: [B/dp, n/tp] -> [B/dp, n]; loss scaled by 1 + t
+        x = _leaf(_cols(_rows(inputs["features"], axes), axes))
+        full = gather_features(x, axes)
+        (full * full * (1.0 + t)).sum().backward()
+        out["gather_fwd"] = _np(full)
+        out["gather_grad"] = _np(x.grad)
 
-    # scatter_features: partial [B/dp, n] per rank -> reduced [B/dp, n/tp]
-    zp = _leaf(_cols(_rows(inputs["partials"], axes), axes))
-    z = scatter_features(zp, axes)
-    (z * z * (1.0 + t)).sum().backward()
-    out["scatter_fwd"] = _np(z)
-    out["scatter_grad"] = _np(zp.grad)
+        # scatter_features: partial [B/dp, n] per rank -> [B/dp, n/tp]
+        zp = _leaf(_cols(_rows(inputs["partials"], axes), axes))
+        z = scatter_features(zp, axes)
+        (z * z * (1.0 + t)).sum().backward()
+        out["scatter_fwd"] = _np(z)
+        out["scatter_grad"] = _np(zp.grad)
+    out["timed"] = {
+        name: {"collectives": [e.collective for e in lg.events],
+               "calls": lg.calls, "collective_ms": lg.collective_ms,
+               "device_wait_ms": lg.device_wait_ms}
+        for name, lg in (("untimed", log), ("timed", clock))}
 
     # phantom_apply: local output and dp-summed parameter gradients
     x_g, y_g = inputs["phantom_x"], inputs["phantom_y"]
