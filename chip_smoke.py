@@ -149,11 +149,32 @@ Phases (any failure exits non-zero):
    ``LM_TP_COMPARE`` (8 layers, 3 steps each): step times and wire
    bytes per rank side by side.
 
+10. qwen2.5-14b at tp = 4 (``phase_qwen_train_tp``): ring attention
+   (``attn_shard="ring"``) and phantom MLP sites (k = 16).  First, in the
+   parent, the three phantom kernels at its gate/up and down shapes a
+   rank (M=2048; K=1280, N=3456 and K=3456, N=1280; PK=64; bf16), held
+   and timed as in phase 3, and with a cold L2.  Then 4 ranks on the
+   card, each running ``_qwen_rank`` at full width: (a) step 1 at
+   ``LM_PARITY_LAYERS`` layers, fp32, phantom, through the kernels
+   against plain torch; (c) the phantom ``ring`` variant (ppermute hops)
+   against (a)'s plain ``fused`` run; (b) dense sites (``sp``) at tp = 4
+   against tp = 1 from the same seed, loss and clipped gradients, one
+   rank at a time holding the 2.1 B-parameter tp = 1 model; all held as
+   in phase 9, with every kernel's launches (ring attention never runs
+   the flash kernel).  (d) The main path: ``launch/train.py``'s trainer at
+   ``QWEN_LAYERS`` layers, bf16, batch 4 x seq 512, ``QWEN_STEPS`` steps:
+   losses finite, launches per step and rank exactly 6, 3 and 3 per layer
+   for the phantom forward, dgrad and wgrad and none of flash, wire bytes
+   per step equal to ``ring_wire_bytes``; step times, tokens/s and peak
+   memory printed; then one more step with its collectives timed, rank
+   0's under ``torch.profiler``.
+
 The line before the last is the kernel table as JSON (the phantom
 kernels' 8-row shape and its launches under ``pipe_rows8``; the flash
 kernel's training launches and its hd=96 training shape under
 ``train_launches`` and ``hd96``; every kernel's tp = 4 shapes and its
-launches per step and rank under ``lm_tp4``); the last line is
+launches per step and rank under ``lm_tp4``, and qwen2.5-14b's under
+``qwen_tp4``); the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
@@ -222,6 +243,12 @@ LM_TP, LM_TP_COMPARE = 4, (8, 3)
 # and flash's (B, S, H, KV, hd) at H / tp local heads
 LM_TP_PHANTOM_SHAPES = ((2048, 768, 2048, 48), (2048, 2048, 768, 48))
 LM_TP_FLASH_SHAPE = (4, 512, 8, 8, 96)
+# phase 10: qwen2.5-14b on LM_TP ranks at full width and QWEN_LAYERS of its
+# 48 layers (4 ranks' fp32 AdamW state at 48 layers, 116 GB, exceed the
+# card), QWEN_STEPS steps; the phantom kernels' (M, K, N, PK) a rank at
+# gate/up and at down (k = 16, PK = 64)
+QWEN_ARCH, QWEN_LAYERS, QWEN_STEPS = "qwen2.5-14b", 8, 3
+QWEN_PHANTOM_SHAPES = ((2048, 1280, 3456, 64), (2048, 3456, 1280, 64))
 
 
 # a kernel's measured keys in the kernels line
@@ -738,16 +765,19 @@ def _phantom_case(M, K, N, PK, dtype, gen):
     return out
 
 
-def _phantom_cold(M, K, N, PK, gen):
-    """The three kernels and their library calls at one shape, float32,
-    with a cold L2 (``cold_ms``: enough operand sets in turn that each
-    call finds its inputs evicted)."""
+def _phantom_cold(M, K, N, PK, gen, dtype="float32"):
+    """The three kernels and their library calls at one shape with a cold
+    L2 (``cold_ms``: enough operand sets in turn that each call finds its
+    inputs evicted)."""
     import torch
     from repro_torch.kernels.phantom_fused import (matmul_nt, matmul_tn,
                                                    phantom_fused_matmul)
+    dt = getattr(torch, dtype)
+    es = dt.itemsize
 
     def r(*shape):
-        return torch.randn(*shape, device="cuda", generator=gen) * 0.3
+        return (torch.randn(*shape, device="cuda", generator=gen) * 0.3
+                ).to(dt)
 
     def ops():
         return r(M, K), r(K, N), r(M, PK), r(PK, N), r(M, N)
@@ -756,24 +786,24 @@ def _phantom_cold(M, K, N, PK, gen):
             lambda x, L, g, D, dz: lambda: phantom_fused_matmul(x, L, g, D),
             lambda x, L, g, D, dz: (lambda a, b: lambda: torch.mm(a, b))(
                 torch.cat([x, g], 1), torch.cat([L, D])),
-            4 * (M * (K + PK) + (K + PK) * N)),
+            es * (M * (K + PK) + (K + PK) * N)),
         "matmul_nt": (
             lambda x, L, g, D, dz: lambda: matmul_nt(dz, L, D),
             lambda x, L, g, D, dz: (lambda b: lambda: torch.mm(dz, b.t()))(
                 torch.cat([L, D])),
-            4 * (M * N + (K + PK) * N)),
+            es * (M * N + (K + PK) * N)),
         "matmul_tn": (
             lambda x, L, g, D, dz: lambda: matmul_tn(x, dz, g),
             lambda x, L, g, D, dz: (lambda a: lambda: torch.mm(a.t(), dz))(
                 torch.cat([x, g], 1)),
-            4 * (M * (K + PK) + M * N)),
+            es * (M * (K + PK) + M * N)),
     }
     out = {}
     for name, (kern, lib, nbytes) in calls.items():
         out[name] = {
             "cold_ms": cold_ms(lambda: kern(*ops()), nbytes),
             "library_cold_ms": cold_ms(lambda: lib(*ops()), nbytes)}
-        print(f"{name} M={M} K={K} N={N} PK={PK} float32, cold L2: "
+        print(f"{name} M={M} K={K} N={N} PK={PK} {dtype}, cold L2: "
               f"ms={out[name]['cold_ms']:.4f} "
               f"library_ms={out[name]['library_cold_ms']:.4f}", flush=True)
     return out
@@ -1795,12 +1825,12 @@ def phase_lm_train():
             "profile": prof}
 
 
-def _lm_args(extra):
-    """``launch/train.py``'s flags for phi3-mini at ``LM_TP`` ranks,
-    batch ``LM_BATCH`` x seq ``LM_SEQ``."""
+def _lm_args(extra, arch=LM_ARCH):
+    """``launch/train.py``'s flags for ``arch`` (phi3-mini) at ``LM_TP``
+    ranks, batch ``LM_BATCH`` x seq ``LM_SEQ``."""
     from repro_torch.launch.train import build_parser
     return build_parser().parse_args(
-        ["--arch", LM_ARCH, "--full", "--kernel-backend", "auto",
+        ["--arch", arch, "--full", "--kernel-backend", "auto",
          "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--seed",
          str(SEED), "--tp", str(LM_TP)] + extra)
 
@@ -2154,6 +2184,335 @@ def phase_lm_train_tp():
             "wall_s": wall}
 
 
+def ring_wire_bytes(cfg, batch, seq, p):
+    """The logical wire bytes one rank issues in one training step of a
+    ring-attention model with phantom MLP sites in the ``fp`` layout at
+    tp = ``p``, dp = 1, priced as ``record_collectives`` prices them
+    (``telemetry/predict.py: event_wire_bytes``: a rank's message of m
+    bytes costs m (p - 1) gathered or reduce-scattered, 2 m (p - 1) / p
+    all-reduced, m (p - 1) / p all-to-all'd, m a ppermute hop).  Per
+    block and pass: two norm psums, the feature gather of the rank's
+    chunk, the four weights gathered on use in fp32, p - 1 hops of K and
+    of V, the all-to-all back to ``fp`` and three ghost gathers; a
+    backward pass issues the same bytes, and ``remat="full"`` repeats
+    the forward: three passes.  Around the blocks: the embedding's
+    reduce-scatter, the final norm, the loss's feature gather and its
+    vocab psums (a chunk's true-logit psum is not recomputed:
+    ``torch.utils.checkpoint`` stops at the last tensor the backward
+    needs), the tp sums of the replicated biases and the global norm."""
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, k = cfg.resolved_head_dim(), cfg.projection_spec("ffn_gate").k
+    T, C = batch * seq, seq // p
+
+    def gather(m):
+        return m * (p - 1)
+
+    def reduce(m):
+        return 2 * m * (p - 1) / p
+    block = (2 * reduce(T * 4)
+             + gather(T * d // p * act)
+             + sum(gather(n_in * n_out // p * 4) for n_in, n_out in (
+                 (d, H * hd), (d, kv * hd), (d, kv * hd), (H * hd, d)))
+             + 2 * (p - 1) * batch * C * kv * hd * act
+             + batch * C * d * act * (p - 1) / p
+             + 3 * gather(T * k * act))
+    chunk = min(cfg.loss_chunk, seq)
+    n_chunks = seq // chunk
+    per_chunk = reduce(batch * chunk * 4) * (5 + 2 * (n_chunks > 1))
+    bias = (reduce(H * hd * 4) + 2 * reduce(kv * hd * 4)
+            if cfg.qkv_bias else 0)
+    return (3 * cfg.num_layers * block
+            + 2 * gather(T * d // p * act)        # embedding, fwd + bwd
+            + 2 * reduce(T * 4)                   # final norm
+            + 2 * gather(T * d // p * act)        # the loss's gather
+            + n_chunks * per_chunk
+            + cfg.num_layers * bias + reduce(4))
+
+
+class _KeepGrads:
+    """An optimizer that keeps the clipped gradients it is handed and
+    leaves the parameters as they are: step 1's loss and gradients with
+    no optimizer state beside a model that fills much of the card."""
+    eps = 0.0
+
+    def state_decls(self, decls):
+        return {}
+
+    def init(self, params):
+        return {}
+
+    def update(self, grads, state, params, step):
+        self.grads = grads
+        return params, state
+
+
+def _grads_step1(cfg, axes, device, params, batch):
+    """The loss and clipped gradients of one step of ``cfg`` on ``axes``
+    (``make_train_step`` with ``_KeepGrads``)."""
+    import torch
+    from repro_torch.train.trainer import make_train_step
+    opt = _KeepGrads()
+    step_fn, _, _ = make_train_step(cfg, axes, opt, device=device)
+    _, _, m = step_fn(params, {}, 0, batch)
+    torch.cuda.synchronize()
+    return {"loss": m["loss"], "grads": opt.grads}
+
+
+def _qwen_rank(axes, device):
+    """``phase_qwen_train_tp`` inside one of the ``LM_TP`` ranks sharing
+    the card, qwen2.5-14b at full width: (a) step 1 through the kernels
+    against plain torch, phantom MLP sites, fp32, ``LM_PARITY_LAYERS``
+    layers; (c) the phantom ``ring`` variant against (a)'s plain
+    ``fused`` run; (b) dense (``sp``) at tp = 4 against tp = 1 from the
+    same seed, loss and gradients: one rank at a time holds the tp = 1
+    model and holds its shard of the result; (d) the main path, phantom,
+    bf16, ``QWEN_LAYERS`` layers, ``QWEN_STEPS`` steps and one more
+    profiled (``_lm_tp_train``)."""
+    import torch
+    from repro_torch.configs.base import (dense_projection_map,
+                                          phantom_projection_map,
+                                          with_kernel_backend)
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize_shards, shard_params
+
+    out = {"rank": axes.rank}
+    args = _lm_args(["--steps", str(QWEN_STEPS)], arch=QWEN_ARCH)
+    base = train_config(args).replace(num_layers=QWEN_LAYERS)
+    cut = base.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
+    batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
+                      device=device)(0)
+    sched = warmup_cosine(3e-4, 20, QWEN_STEPS)
+
+    # (a) kernels against plain, phantom sites, float32
+    params = materialize_shards(model_decls(cut, axes), axes, SEED, device,
+                                draw_on=device)
+    res, launches = {}, {}
+    for name, backend in (("kernel", "auto"), ("plain", "xla")):
+        res[name], launches[name], eps = _tp_step1(
+            with_kernel_backend(cut, backend), axes, device, params, batch,
+            sched)
+    out["kernel_vs_plain"] = {
+        part: _step1_diff(res, part, sched(0), eps)
+        for part in ("loss", "grads", "params")}
+    out["kernel_vs_plain"].update(
+        launches=launches,
+        loss_values={n: float(r["loss"]) for n, r in res.items()})
+    del res["kernel"]
+    _free()
+
+    # (c) the phantom ring variant against (a)'s plain fused run
+    ring = cut.replace(projections=phantom_projection_map(
+        cut.projection_spec("ffn_gate").k, ffn=True, variant="ring"))
+    res["kernel"], ring_launches, _ = _tp_step1(
+        with_kernel_backend(ring, "auto"), axes, device, params, batch,
+        sched)
+    out["ring_vs_fused"] = {part: _step1_diff(res, part, sched(0), eps)
+                            for part in ("loss", "grads", "params")}
+    out["ring_vs_fused"].update(
+        launches=ring_launches,
+        loss_values={"ring": float(res["kernel"]["loss"]),
+                     "fused": float(res["plain"]["loss"])})
+    del params, res
+    _free()
+
+    # (b) ring attention, dense sites (sp): tp = 4 against tp = 1
+    dense = with_kernel_backend(cut.replace(
+        projections=dense_projection_map()), "auto")
+    decls = model_decls(dense, axes)
+    params = materialize_shards(decls, axes, SEED, device, draw_on=device)
+    mine = _grads_step1(dense, axes, device, params, batch)
+    del params
+    _free()
+    one = MeshAxes()
+    for turn in range(axes.tp):
+        if turn == axes.tp_rank:
+            params = materialize_shards(model_decls(dense, one), one, SEED,
+                                        device, draw_on=device)
+            full = _grads_step1(dense, one, device, params, batch)
+            del params
+            res = {"kernel": mine, "plain": {
+                "loss": full["loss"],
+                "grads": shard_params(full["grads"], decls, axes)}}
+            del full
+            out["tp4_vs_tp1"] = {part: _step1_diff(res, part, 0.0, eps)
+                                 for part in ("loss", "grads")}
+            out["tp4_vs_tp1"]["loss_values"] = {
+                "tp4": float(res["kernel"]["loss"]),
+                "tp1": float(res["plain"]["loss"])}
+            out["tp4_vs_tp1"]["peak_memory_gb"] = \
+                torch.cuda.max_memory_allocated() / 1e9
+            del res
+            _free()
+        # one rank at a time holds the tp = 1 model
+        axes.tp_comm.all_reduce(torch.zeros(1, device=device))
+    del mine
+    _free()
+
+    # (d) the main path --------------------------------------------------
+    out["main"] = _lm_tp_train(axes, device, base, args, QWEN_STEPS,
+                               profile=True)
+    return out
+
+
+def _qwen_kernels(gen):
+    """The three phantom kernels at qwen2.5-14b's per-rank shapes at tp = 4
+    (bf16): held and timed as in phase 3, and with a cold L2."""
+    out = {"cases": [], "cold": {}}
+    for shape in QWEN_PHANTOM_SHAPES:
+        for r in _phantom_case(*shape, "bfloat16", gen):
+            out["cases"].append(r)
+            print(f"qwen_train_tp: {r['kernel']} M={r['M']} K={r['K']} "
+                  f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
+                  f"{r['max_abs_err']:.3e} ok={r['ok']} {r['variant']} "
+                  f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']:.4f}", flush=True)
+        out["cold"][str(list(shape))] = _phantom_cold(*shape, gen,
+                                                      dtype="bfloat16")
+    bad = [r for r in out["cases"] if not r["ok"]]
+    check(not bad, f"qwen_train_tp: phantom kernels disagree with their "
+                   f"plain versions at qwen2.5-14b's shapes: {bad}")
+    return out
+
+
+def _qwen_held(ranks, cfg):
+    """Hold every rank's (a), (b), (c), the launches of (a), (c) and of
+    the main path, its losses and its wire bytes against
+    ``ring_wire_bytes``; returns the worst of (a), (b), (c) over the
+    ranks."""
+    import math
+    L = LM_PARITY_LAYERS
+    none = {"flash_attention": 0, "phantom_fused_matmul": 0, "matmul_nt": 0,
+            "matmul_tn": 0}
+    want = {"kernel_vs_plain": {
+                "kernel": {**none, "phantom_fused_matmul": 6 * L,
+                           "matmul_nt": 3 * L, "matmul_tn": 3 * L},
+                "plain": none},
+            "ring_vs_fused": none}
+    n = cfg.num_layers
+    main_want = {**none, "phantom_fused_matmul": 6 * n, "matmul_nt": 3 * n,
+                 "matmul_tn": 3 * n}
+    wire = ring_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP)
+    worst = {}
+    for r in ranks:
+        rk = r["rank"]
+        for key in ("kernel_vs_plain", "ring_vs_fused", "tp4_vs_tp1"):
+            parts = ("loss", "grads") + (("params",) if key != "tp4_vs_tp1"
+                                         else ())
+            for part in parts:
+                diff = r[key][part]
+                check(diff["outside"] == 0,
+                      f"qwen_train_tp rank {rk}: {key} {part} differ in "
+                      f"{diff['outside']} of {diff['elements']} elements: "
+                      f"{diff}")
+                w = worst.setdefault(key, {}).setdefault(part, {})
+                for k, v in diff.items():
+                    w[k] = max(w.get(k, 0), v)
+            check(r[key]["grads"]["max_scaled_err"] <= STEP1_TOL["rtol"],
+                  f"qwen_train_tp rank {rk}: {key} gradients differ by more "
+                  f"than 1e-4 of the largest: {r[key]['grads']}")
+            if key in want:
+                check(r[key]["launches"] == want[key],
+                      f"qwen_train_tp rank {rk}: {key} launches "
+                      f"{r[key]['launches']}, want {want[key]}")
+        m = r["main"]
+        check(all(math.isfinite(v) for v in m["losses"] + m["grad_norms"]),
+              f"qwen_train_tp rank {rk}: non-finite loss or gradient norm: "
+              f"{m['losses']} {m['grad_norms']}")
+        check(m["launches_per_step"] == main_want,
+              f"qwen_train_tp rank {rk}: launches per step "
+              f"{m['launches_per_step']}, want {main_want} (the phantom "
+              f"forward at 3 sites, forward and recompute; ring attention "
+              f"never runs the flash kernel)")
+        check(m["wire_bytes_per_step"] == wire,
+              f"qwen_train_tp rank {rk}: {m['wire_bytes_per_step']:.0f} "
+              f"wire bytes a step, predicted {wire:.0f}")
+    return worst
+
+
+def phase_qwen_train_tp():
+    """qwen2.5-14b, ring attention and phantom MLP sites, on ``LM_TP``
+    ranks sharing the card (gloo, card tensors through the host)."""
+    import statistics as st
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import train_config
+    _free()
+    kernels = _qwen_kernels(torch.Generator(device="cuda").manual_seed(SEED))
+    t0 = time.perf_counter()
+    ranks = spawn(_qwen_rank, 1, LM_TP, "cuda", timeout_s=900)
+    wall = time.perf_counter() - t0
+    cfg = train_config(_lm_args([], arch=QWEN_ARCH)).replace(
+        num_layers=QWEN_LAYERS)
+    worst = _qwen_held(ranks, cfg)
+    for key, what in (("kernel_vs_plain", "(a) kernels vs plain, phantom"),
+                      ("ring_vs_fused", "(c) phantom ring vs fused"),
+                      ("tp4_vs_tp1", "(b) ring, dense sp at tp=4 vs tp=1")):
+        w = worst[key]
+        print(f"qwen_train_tp: {what}, {cfg.name} at {LM_PARITY_LAYERS} "
+              f"layers, step 1, float32, worst over ranks (rtol 1e-4 / "
+              f"atol 1e-5): loss {w['loss']['max_abs_err']:.3e} (values "
+              f"{ranks[0][key]['loss_values']}), grads "
+              f"{w['grads']['max_abs_err']:.3e} "
+              f"({w['grads']['max_scaled_err']:.3e} of the largest)"
+              + (f", params {w['params']['max_abs_err']:.3e}; near-zero "
+                 f"gradients {w['params']['near_zero_grad']} per rank at "
+                 f"most, differing by up to "
+                 f"{w['params']['max_abs_err_near_zero_grad']:.3e} (implied "
+                 f"{w['params']['max_implied_near_zero_grad']:.3e})"
+                 if "params" in w else "")
+              + f"; elements outside 0 of {w['grads']['elements']} per rank "
+              f"at most", flush=True)
+    print(f"qwen_train_tp: (b) the tp = 1 side's peak memory (GB) "
+          f"{[round(r['tp4_vs_tp1']['peak_memory_gb'], 2) for r in ranks]}",
+          flush=True)
+    main = [r["main"] for r in ranks]
+    med = [st.median(m["step_ms"][1:]) for m in main]
+    tokens = LM_BATCH * LM_SEQ
+    wire = ring_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP)
+    print(f"qwen_train_tp: (d) {cfg.name} phantom, ring attention, tp="
+          f"{LM_TP}, layers={cfg.num_layers}, batch {LM_BATCH} x seq "
+          f"{LM_SEQ}, bf16, remat={cfg.remat}: losses "
+          f"{[round(v, 4) for v in main[0]['losses']]}; per-rank step ms "
+          f"{[[round(v, 1) for v in m['step_ms']] for m in main]}, median "
+          f"of steps 2-{QWEN_STEPS} {[round(v, 1) for v in med]}; "
+          f"{tokens / max(med) * 1e3:.1f} tokens/s (slowest rank); launches "
+          f"per step per rank {main[0]['launches_per_step']}; local "
+          f"parameters per rank {main[0]['params_local']:,}", flush=True)
+    print(f"qwen_train_tp: (d) wire bytes per step per rank "
+          f"{[round(m['wire_bytes_per_step']) for m in main]}, predicted "
+          f"{wire:.0f} (ring_wire_bytes); by collective (rank 0): "
+          f"{main[0]['collectives_per_step']}", flush=True)
+    print(f"qwen_train_tp: (d) peak memory per rank (GB) "
+          f"{[round(m['peak_memory_gb'], 2) for m in main]}; card used "
+          f"(GB, as each rank read it after its run) "
+          f"{[round(m['card_used_gb'], 2) for m in main]}", flush=True)
+    prof = [m["profile"] for m in main]
+    print(f"qwen_train_tp: (d) one more step, collectives timed on every "
+          f"rank (rank 0 also profiled): wall ms "
+          f"{[round(p['wall_ms'], 1) for p in prof]}, in collectives "
+          f"(copies and gloo) "
+          f"{[round(p['collective_ms'], 1) for p in prof]} over "
+          f"{prof[0]['calls']} calls, waiting for the card before them "
+          f"{[round(p['device_wait_ms'], 1) for p in prof]}; rank 0's "
+          f"device {prof[0]['device_ms']} ms, by kind "
+          f"{prof[0]['device_ms_by_kind']}, {prof[0]['device_ops']} "
+          f"device ops; top: "
+          f"{ {k: round(v, 3) for k, v in prof[0]['top_device_ms'].items()} }",
+          flush=True)
+    print(f"qwen_train_tp: the phase took {wall:.1f} s in the ranks",
+          flush=True)
+    return {"kernels": kernels, "ranks": ranks, "worst": worst,
+            "median_step_ms": med, "tokens_per_s": tokens / max(med) * 1e3,
+            "launches_per_step": main[0]["launches_per_step"],
+            "wire_bytes_predicted": wire, "wall_s": wall}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2178,6 +2537,7 @@ def main() -> int:
     pipeline = phase_pipeline(train, ledger)
     lm = phase_lm_train()
     lm_tp = phase_lm_train_tp()
+    qwen = phase_qwen_train_tp()
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
     print(f"ledger written to {path}")
     ledger = ledger.report()
@@ -2205,7 +2565,9 @@ def main() -> int:
         "lm_tp4": {"shape": list(LM_TP_FLASH_SHAPE),
                    "launches_per_step_per_rank":
                        lm_tp["launches_per_step"]["flash_attention"],
-                   **{key: lm_tp["kernels"]["flash"][key] for key in TIMED}}}]
+                   **{key: lm_tp["kernels"]["flash"][key] for key in TIMED}},
+        "qwen_tp4": {"launches_per_step_per_rank":
+                     qwen["launches_per_step"]["flash_attention"]}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -2235,13 +2597,24 @@ def main() -> int:
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
                             **{key: r[key] for key in TIMED}}
                            for r in lm_tp["kernels"]["phantom"]
+                           if r["kernel"] == name]},
+            "qwen_tp4": {
+                "launches_per_step_per_rank":
+                    qwen["launches_per_step"][name],
+                "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
+                            **{key: r[key] for key in TIMED},
+                            "cold_ms": qwen["kernels"]["cold"][str(
+                                [r["M"], r["K"], r["N"], r["PK"]])][name][
+                                "cold_ms"]}
+                           for r in qwen["kernels"]["cases"]
                            if r["kernel"] == name]}})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "flash": flash, "phantom": phantom,
          "serve": serve, "train": train, "pipeline": pipeline,
-         "lm_train": lm, "lm_train_tp": lm_tp, "ledger": ledger,
+         "lm_train": lm, "lm_train_tp": lm_tp, "qwen_train_tp": qwen,
+         "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

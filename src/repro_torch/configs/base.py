@@ -185,7 +185,7 @@ class ModelConfig:
     ffn_impl: str = "dense"         # legacy shim, see projection_spec
     phantom: PhantomConfig = field(default_factory=PhantomConfig)
     projections: ProjectionMap = field(default_factory=ProjectionMap)
-    attn_shard: str = "auto"        # auto | head (ring: later)
+    attn_shard: str = "auto"        # auto | head | ring
 
     dtype: str = "bfloat16"         # compute dtype
     param_dtype: str = "float32"    # stored parameter dtype
@@ -194,6 +194,8 @@ class ModelConfig:
     loss_chunk: int = 2048          # sequence chunk of the cross-entropy
     attn_bf16_scores: bool = False  # bf16 score blocks in the plain core
     attn_kv_chunk: int = 0          # 0 = default chunking; -1 = one block
+    attn_ring_gather_kv: bool = False  # ring mode: one all-gather of K/V
+                                       # instead of p ppermute hops
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
     microbatches: int = 1           # microbatches: pipeline or accumulation
 
@@ -280,6 +282,7 @@ class ShapeConfig:
 _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "phi3-mini-3.8b": "phi3_mini",
+    "qwen2.5-14b": "qwen2_5_14b",
     "stablelm-3b": "stablelm_3b",
     # the paper's own FFN models
     "paper-ffn-4k": "paper_ffn",

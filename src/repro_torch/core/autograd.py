@@ -12,6 +12,11 @@ rank on the axis they are the identity.
 ``lax.psum`` inside ``shard_map``: the cotangents are all-reduced too.
 The norm moments and the loss's log-sum-exp go through it.  ``pmax``
 (the loss's detached shift) has no gradient, as ``lax.pmax`` has none.
+
+``ppermute`` and ``all_to_all`` carry the gradients JAX gives their
+``lax`` namesakes: the ppermute by the inverse permutation, the
+all-to-all with its split and concat dims swapped.  Ring attention and
+the phantom ``ring`` variant run on them.
 """
 from __future__ import annotations
 
@@ -111,3 +116,49 @@ def pmax(x: torch.Tensor, axes) -> torch.Tensor:
     if axes.tp == 1:
         return x
     return axes.tp_comm.all_reduce(x, op="max")
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: Group, perm):
+        ctx.group, ctx.perm = group, perm
+        return group.ppermute(x, perm)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        inverse = [(d, s) for s, d in ctx.perm]
+        return ctx.group.ppermute(grad_out, inverse), None, None
+
+
+def ppermute(x: torch.Tensor, axes, perm) -> torch.Tensor:
+    """``lax.ppermute`` over the model axis (``Group.ppermute``),
+    differentiable: the gradient is the ppermute by the inverse
+    permutation.  The identity at tp = 1."""
+    if axes.tp == 1:
+        return x
+    return _Ppermute.apply(x, axes.tp_comm, tuple(perm))
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group: Group, split_dim: int, concat_dim: int):
+        ctx.group, ctx.dims = group, (split_dim, concat_dim)
+        return group.all_to_all(x, split_dim, concat_dim)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        split_dim, concat_dim = ctx.dims
+        return (ctx.group.all_to_all(grad_out, concat_dim, split_dim),
+                None, None, None)
+
+
+def all_to_all(x: torch.Tensor, axes, split_dim: int,
+               concat_dim: int) -> torch.Tensor:
+    """``lax.all_to_all(tiled=True)`` over the model axis
+    (``Group.all_to_all``), differentiable: the gradient is the
+    all-to-all with ``split_dim`` and ``concat_dim`` swapped.  The
+    identity at tp = 1."""
+    if axes.tp == 1:
+        return x
+    return _AllToAll.apply(x, axes.tp_comm, split_dim % x.dim(),
+                           concat_dim % x.dim())

@@ -19,7 +19,9 @@ Variants (the reference's names):
   * ``fused``    — one concatenated decompress GEMM ``g_cat @ D_cat``,
     run as the fused phantom kernel when the site's kernel backend
     selects it (``kernels/ops.py: phantom_fused_linear``);
-  * ``ring``     — not ported yet (``RING_TODO``).
+  * ``ring``     — a ppermute ring: hop s brings the ghosts of rank
+    (j - s) mod p and adds their decompress GEMM, in plain torch ops
+    (the reference's kernel path is ``fused`` only).
 
 ``phantom_apply`` runs inside one rank and sees that rank's local
 parameter shards (layout in ``phantom_decls``).
@@ -31,10 +33,9 @@ from typing import Dict
 import torch
 
 from repro_torch.configs.base import PhantomConfig
-from repro_torch.core.autograd import all_gather_ghosts
+from repro_torch.core.autograd import all_gather_ghosts, ppermute
 from repro_torch.kernels.ops import (phantom_fused_linear,
                                      resolve_kernel_backend)
-from repro_torch.parallel.axes import RING_TODO
 from repro_torch.parallel.params import ParamDecl
 
 
@@ -89,14 +90,21 @@ def phantom_apply(pp: PhantomConfig, params, x, axes, compute_dtype=None):
 
     use_kernel = (p > 1 and pp.variant == "fused"
                   and resolve_kernel_backend(pp.kernel_backend) == "pallas")
-    if pp.variant == "ring" and p > 1:
-        raise NotImplementedError(f"phantom variant 'ring': see {RING_TODO}")
 
     # --- local update --- (on the kernel path it fuses with decompress)
     if not use_kernel:
         z = x @ L
 
-    if pp.variant == "faithful" and p > 1:
+    if pp.variant == "ring" and p > 1:
+        # ppermute ring: hop s brings the ghosts of rank (j - s) mod p
+        perm = [(s, (s + 1) % p) for s in range(p)]
+        g_rot = g
+        for s in range(1, p):
+            g_rot = ppermute(g_rot, axes, perm)
+            z = z + g_rot @ D[(j - s) % p]
+        if pp.include_self_term:
+            z = z + g @ D[j]
+    elif pp.variant == "faithful" and p > 1:
         # paper-faithful: Algorithm 1 all-gather and p-1 separate skinny
         # decompress GEMMs D^(i,j) g^(i) (the self block only when asked)
         g_all = all_gather_ghosts(g, axes)          # [p, ..., k]

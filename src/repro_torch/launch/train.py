@@ -9,6 +9,8 @@ without a plan).
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch phi3-mini-3.8b --full --kernel-backend auto --tp 4 \\
         --batch 4 --seq 512 --steps 5       # on the card
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen2.5-14b --device cpu --tp 2   # ring attention
 
 builds ``Trainer(cfg, axes, make_optimizer(cfg.optimizer,
 warmup_cosine(3e-4, 20, steps), weight_decay=0.1), LMDataset(...))``
@@ -19,7 +21,9 @@ the device from ``--seed``, each rank keeping its shards.  ``--dp`` x
 rank ``d * tp + t``), each on its rows of the batch and its shards of
 the model: ``--impl phantom`` (the default) keeps the residual stream
 feature-sharded (``fp``), ``--impl dense`` runs the Megatron
-sequence-parallel baseline (``sp``).  ``--pp`` is 1 until the slice that
+sequence-parallel baseline (``sp``).  A config with ``attn_shard="ring"``
+(qwen2.5-14b), or a ``--tp`` that does not divide the heads, runs ring
+attention.  ``--pp`` is 1 until the slice that
 pipelines the full model (ROADMAP.md queue 1, item 6).  The run is on
 the card unless ``--device cpu`` is given; ``--smoke`` (the default)
 takes the config's reduced geometry, ``--full`` the published one.

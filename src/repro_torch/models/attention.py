@@ -1,31 +1,32 @@
-"""GQA attention, head mode: the query heads (and the KV heads when the
-model axis divides them) column-sharded over the model axis.
+"""GQA attention in the reference's two training modes, chosen by
+``resolve_attn_mode``:
 
-Training and prefill run one of two cores, chosen as in the reference:
-
-  * the flash kernel through ``kernels/ops.py: flash_attention_vjp``
-    when all four q/k/v/o site specs resolve to the ``"pallas"`` backend
-    and ``flash_attention_supported`` accepts the rank's local heads:
-    the hand-written CUDA kernel on a CUDA tensor, its plain version on
-    a CPU tensor, and in the backward pass autograd through the plain
-    version;
-  * otherwise the plain blockwise core ``attn_block_update`` /
-    ``finalize_acc`` (kv-chunked online softmax, torch ops).
-
-At tp > 1 (training only) each rank holds H/p query heads: a phantom
-site reads the residual's feature shard, a tensor site the gathered
-features; with kv % p != 0 the KV projection is replicated and each
-rank slices its GQA group's head.  ``wo`` is phantom (its output stays
-feature-sharded) or a row projection whose partial sums are reduced
-into the residual layout.
+* ``head``: the query heads (and the KV heads when the model axis
+  divides them) column-sharded over the model axis.  A phantom site
+  reads the residual's feature shard, a tensor site the gathered
+  features; with kv % p != 0 the KV projection is replicated and each
+  rank slices its GQA group's head.  ``wo`` is phantom (its output stays
+  feature-sharded) or a row projection whose partial sums are reduced
+  into the residual layout.  The core is the flash kernel through
+  ``kernels/ops.py: flash_attention_vjp`` when all four q/k/v/o site
+  specs resolve to the ``"pallas"`` backend and
+  ``flash_attention_supported`` accepts the rank's local heads (the
+  hand-written CUDA kernel on a CUDA tensor, its plain version on a CPU
+  tensor, autograd through the plain version backward), else the plain
+  blockwise core ``attn_block_update`` / ``finalize_acc``.
+* ``ring``: sequence-sharded, for head counts the model axis does not
+  divide (qwen2.5-14b): each rank holds a sequence chunk with every
+  head, the projection weights are sharded on their input dim and
+  gathered on use, and K/V rotate over ``p`` ppermute hops (or one
+  all-gather, ``attn_ring_gather_kv``) into the plain blockwise core.
+  As in the reference, ring mode never runs the flash kernel.
 
 Decode attends the new token against the KV cache with the plain core
 and writes the token's K/V into the cache in place (the reference
 returns a new, donated cache instead).  The reference's sequence-sharded
 cache merges per-rank partials with a log-sum-exp psum; with one rank
 that merge is the identity.  Prefill and decode at tp > 1 are serving's
-(``SERVE_TP_TODO``); ring mode (sequence-sharded attention for head
-counts the model axis does not divide) is ``RING_ATTN_TODO``.
+(``SERVE_TP_TODO``).
 """
 from __future__ import annotations
 
@@ -34,18 +35,19 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import PHANTOM_KINDS
+from repro_torch.core.autograd import all_gather_tiled, ppermute
 from repro_torch.kernels.ops import (flash_attention_supported,
                                      flash_attention_vjp,
                                      resolve_kernel_backend)
 from repro_torch.models import rope as ropemod
-from repro_torch.models.layers import dtype_of, from_partial, to_full
+from repro_torch.models.layers import (dtype_of, from_partial,
+                                       gather_on_use, seq_to_feature,
+                                       to_full)
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import ParamDecl
 from repro_torch.parallel.strategies import site_strategy
 
 NEG_INF = -1e30
-RING_ATTN_TODO = ("ROADMAP.md queue 1, item 6 (qwen2.5-14b and its ring "
-                  "attention)")
 
 _ATTN_SITES = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v",
                "wo": "attn_o"}
@@ -59,14 +61,11 @@ def _kv_chunk(cfg, full: int, default: int) -> int:
 
 
 def resolve_attn_mode(cfg, axes: MeshAxes) -> str:
-    """``"head"``, the ported mode.  Ring mode, asked for or needed
-    because the model axis does not divide the heads, raises."""
-    if cfg.attn_shard == "ring" or cfg.num_heads % axes.tp:
-        raise NotImplementedError(
-            f"attention over {cfg.num_heads} heads at tp={axes.tp} "
-            f"(attn_shard={cfg.attn_shard!r}) takes ring attention: see "
-            f"{RING_ATTN_TODO}")
-    return "head"
+    """``cfg.attn_shard`` when it names a mode; ``"auto"`` is head mode
+    where the model axis divides the heads and ring mode elsewhere."""
+    if cfg.attn_shard in ("head", "ring"):
+        return cfg.attn_shard
+    return "head" if cfg.num_heads % axes.tp == 0 else "ring"
 
 
 def attn_site_strategies(cfg, axes: MeshAxes):
@@ -101,8 +100,21 @@ def _attn_kernel_backend(sts) -> str:
 
 
 def attn_decls(cfg, axes: MeshAxes):
-    """The sites' decls; with kv % tp != 0 the KV projections are
-    replicated (each rank slices its GQA group's head)."""
+    """Ring mode: every weight sharded on its input dim (gathered on
+    use), the biases replicated.  Head mode: the sites' decls; with
+    kv % tp != 0 the KV projections are replicated (each rank slices its
+    GQA group's head)."""
+    if resolve_attn_mode(cfg, axes) == "ring":
+        d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+        hd = cfg.resolved_head_dim()
+        dec = {name: {"w": ParamDecl(shape, ("tp", None))} for name, shape
+               in (("wq", (d, H * hd)), ("wk", (d, kv * hd)),
+                   ("wv", (d, kv * hd)), ("wo", (H * hd, d)))}
+        if cfg.qkv_bias:
+            for name, n in (("wq", H * hd), ("wk", kv * hd),
+                            ("wv", kv * hd)):
+                dec[name]["b"] = ParamDecl((n,), (), init="zeros")
+        return dec
     sts = attn_site_strategies(cfg, axes)
     dec = {name: st.decls() for name, st in sts.items()}
     if cfg.num_kv_heads % axes.tp:
@@ -194,12 +206,14 @@ def attention(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
     ``layout``.  kind: train | prefill | decode (prefill and decode at
     tp = 1 only).  Decode writes into ``cache`` ({k, v}
     [B, Smax, kv, hd]) in place."""
-    resolve_attn_mode(cfg, axes)
     if kind != "train" and axes.tp > 1:
         raise NotImplementedError(
             f"{kind} attention at tp={axes.tp}: see {SERVE_TP_TODO}")
     if kind == "decode":
         return _attention_decode(cfg, params, x, axes, cache=cache, pos=pos)
+    if resolve_attn_mode(cfg, axes) == "ring":
+        return _attention_ring(cfg, layout, params, x, axes, causal=causal,
+                               return_kv=return_kv)
     return _attention_head(cfg, layout, params, x, positions, axes,
                            causal=causal, return_kv=return_kv)
 
@@ -293,6 +307,67 @@ def _emit_cache_head_mode(k, v):
     reference's all-to-all onto sequence shards is the identity at
     p = 1."""
     return {"k": k, "v": v}
+
+
+def _attention_ring(cfg, layout, params, x, axes, *, causal,
+                    return_kv=False):
+    """Sequence-sharded attention: rank j attends its chunk of C = S/p
+    queries, with every head, against the K/V of every chunk."""
+    H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    p, j = axes.tp, axes.tp_rank
+    dtype = dtype_of(cfg.dtype)
+    # this rank's sequence chunk with every feature
+    if layout == "sp":
+        xc = x
+    else:
+        x_full = to_full(x, layout, axes)
+        C = x_full.shape[1] // p
+        xc = x_full[:, j * C:(j + 1) * C]
+    B, C = xc.shape[0], xc.shape[1]
+    wq, wk, wv, wo = (gather_on_use(params[n]["w"], axes)
+                      for n in ("wq", "wk", "wv", "wo"))
+
+    def proj(w, b, nheads):
+        y = xc.to(dtype) @ w.to(dtype)
+        if b is not None:
+            y = y + b.to(dtype)
+        return y.reshape(B, C, nheads, hd)
+
+    q = proj(wq, params["wq"].get("b"), H)
+    k = proj(wk, params["wk"].get("b"), kv)
+    v = proj(wv, params["wv"].get("b"), kv)
+    chunk_pos = (j * C + torch.arange(C, device=x.device)).expand(B, C)
+    if cfg.rope != "none":
+        q = ropemod.rope_for(cfg, q, chunk_pos)
+        k = ropemod.rope_for(cfg, k, chunk_pos)
+
+    qg = _gqa_q(q, kv)
+    acc = init_acc(B, C, kv, H // kv, hd, device=x.device)
+    sdt = torch.bfloat16 if cfg.attn_bf16_scores else torch.float32
+    if cfg.attn_ring_gather_kv:
+        # one all-gather of K and V, stacked by rank: global sequence
+        # order, since rank j holds chunk j
+        k_all, v_all = (all_gather_tiled(t, axes, 1) for t in (k, v))
+        acc = attn_block_update(acc, qg, k_all, v_all, chunk_pos, 0,
+                                causal=causal, scores_dtype=sdt,
+                                kv_chunk=_kv_chunk(cfg, p * C, 512))
+    else:
+        # hop s holds the K/V chunk of rank (j - s) mod p
+        perm = [(s, (s + 1) % p) for s in range(p)]
+        k_rot, v_rot = k, v
+        for s in range(p):
+            acc = attn_block_update(acc, qg, k_rot, v_rot, chunk_pos,
+                                    ((j - s) % p) * C, causal=causal,
+                                    scores_dtype=sdt,
+                                    kv_chunk=_kv_chunk(cfg, C, 512))
+            if s < p - 1:
+                k_rot = ppermute(k_rot, axes, perm)
+                v_rot = ppermute(v_rot, axes, perm)
+    out = finalize_acc(acc, dtype).reshape(B, C, H * hd)
+    z = out @ wo.to(dtype)                                  # [B, C, d]
+    res = z if layout == "sp" else seq_to_feature(z, axes)
+    # K/V are sequence-sharded already: the decode cache's layout
+    return res, ({"k": k, "v": v} if return_kv else None)
 
 
 def _attention_decode(cfg, params, x, axes, *, cache, pos):

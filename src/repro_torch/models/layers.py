@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import PHANTOM_KINDS
 from repro_torch.core import tp as tpmod
-from repro_torch.core.autograd import pmax, psum, psum_scatter_tiled
+from repro_torch.core.autograd import (all_gather_tiled, all_to_all, pmax,
+                                       psum, psum_scatter_tiled)
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import ParamDecl
 from repro_torch.parallel.strategies import site_strategy
@@ -66,6 +67,25 @@ def from_partial(z, layout: str, axes: MeshAxes):
     if layout == "fp":
         return tpmod.scatter_features(z, axes)
     return psum(z, axes)
+
+
+def seq_to_feature(x, axes: MeshAxes):
+    """[B, S/p, d] -> [B, S, d/p] (one all-to-all)."""
+    return all_to_all(x, axes, 2, 1)
+
+
+def feature_to_seq(x, axes: MeshAxes):
+    """[B, S, d/p] -> [B, S/p, d] (one all-to-all)."""
+    return all_to_all(x, axes, 1, 2)
+
+
+def gather_on_use(w, axes: MeshAxes, dim: int = 0):
+    """A weight sharded over the model axis and gathered where it is used
+    (ring attention's projections): forward all-gather, the gradient
+    reduce-scattered."""
+    if axes.tp == 1:
+        return w
+    return all_gather_tiled(w, axes, dim)
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,10 @@ an axis raises.
 ``record_collectives()`` logs every collective a ``Group`` issues while
 it is open: the measured half of the energy ledger's wire bytes
 (``telemetry/counted.py``), as the reference reads them from the HLO.
-A pipeline stage's send to its neighbour is logged as the reference's
-``collective_permute``, on the sending rank.  ``record_collectives(
-timed=True)`` also sums the host time of each all-gather, reduce-scatter
-and all-reduce.
+A pipeline stage's send to its neighbour and a ``ppermute`` hop are
+logged as the reference's ``collective_permute``, on the sending rank.
+``record_collectives(timed=True)`` also sums the host time of each
+all-gather, reduce-scatter, all-reduce, all-to-all and ppermute.
 """
 from __future__ import annotations
 
@@ -35,7 +35,6 @@ import torch
 SERVE_TP_TODO = ("ROADMAP.md queue 1, item 1 (serving at tp > 1: the "
                  "sequence-sharded decode cache, ring attention and the "
                  "residual layouts)")
-RING_TODO = "ROADMAP.md queue 1, item 1 (the phantom ring variant)"
 
 
 @dataclass(frozen=True)
@@ -50,11 +49,11 @@ class IssuedCollective:
 class CollectiveLog:
     """The collectives issued while one ``record_collectives()`` block
     was open, in order (``events``).  A ``timed`` log also sums, over
-    the all-gathers, reduce-scatters and all-reduces (``calls``), the
-    host ms spent waiting for the card's queued work before each
-    (``device_wait_ms``) and the host ms of the collective itself
-    (``collective_ms``: under gloo the copy to the host, the exchange and
-    the copy back)."""
+    the collectives (``calls``; a pipeline's ``send`` and ``recv`` are
+    not timed), the host ms spent waiting for the card's queued work
+    before each (``device_wait_ms``) and the host ms of the collective
+    itself (``collective_ms``: under gloo the copy to the host, the
+    exchange and the copy back)."""
 
     def __init__(self, timed: bool = False):
         self.events: List[IssuedCollective] = []
@@ -212,6 +211,58 @@ class Group:
             dist.all_reduce(x, op=red, group=self.handle)
             return x
         return self._run(t, run)
+
+    def ppermute(self, t: torch.Tensor, perm) -> torch.Tensor:
+        """The reference's ``lax.ppermute``: ``perm`` lists ``(src, dst)``
+        pairs of group ranks, no rank twice as a source or twice as a
+        destination; this rank sends ``t`` to its destination and returns
+        what its source sent, zeros where no pair sends to it.  The send
+        and the receive are started together and waited on both, so ring
+        neighbours cannot deadlock.  Logged as ``collective_permute``
+        (one hop) on a sending rank."""
+        dst = [d for s, d in perm if s == self.rank]
+        src = [s for s, d in perm if d == self.rank]
+        if self.size == 1 or dst == src == [self.rank]:
+            return (t.detach().clone() if src
+                    else torch.zeros_like(t.detach()))
+        import torch.distributed as dist
+        if dst:
+            _issued("collective_permute", t, self.size, "isend")
+
+        def op(x):
+            out = torch.zeros_like(x)
+            ops = ([dist.P2POp(dist.isend, x, self.ranks[dst[0]],
+                               group=self.handle)] if dst else []) + \
+                ([dist.P2POp(dist.irecv, out, self.ranks[src[0]],
+                             group=self.handle)] if src else [])
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            return out
+        return self._run(t, op)
+
+    def all_to_all(self, t: torch.Tensor, split_dim: int,
+                   concat_dim: int) -> torch.Tensor:
+        """The reference's ``lax.all_to_all(..., tiled=True)``: ``t`` cut
+        into ``size`` blocks along ``split_dim``, block ``i`` sent to
+        group rank ``i``, and the blocks received joined along
+        ``concat_dim`` in rank order.  Run as one
+        ``all_to_all_single`` over the blocks stacked on a new leading
+        dim."""
+        split_dim, concat_dim = split_dim % t.dim(), concat_dim % t.dim()
+        if t.shape[split_dim] % self.size:
+            raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does "
+                             f"not split over {self.size} ranks")
+        if self.size == 1:
+            return t.detach().clone()
+        import torch.distributed as dist
+        _issued("all_to_all", t, self.size, "all_to_all_single")
+
+        def op(x):
+            parts = torch.stack(x.chunk(self.size, dim=split_dim))
+            out = torch.empty_like(parts)
+            dist.all_to_all_single(out, parts, group=self.handle)
+            return torch.cat(out.unbind(0), dim=concat_dim)
+        return self._run(t, op)
 
     def send(self, t: torch.Tensor, dst: int) -> "Sent":
         """Start sending ``t`` to group rank ``dst`` and return at once;

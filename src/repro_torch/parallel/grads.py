@@ -8,7 +8,8 @@ axis that does NOT shard it:
   * not sharded over dp (every parameter but FSDP's)  -> all-reduce over
     the dp group (classic data parallelism);
   * not sharded over tp, at tp > 1 (the norm scales of the ``sp``
-    layout, replicated KV projections)                -> over tp too;
+    layout, replicated KV projections, ring attention's biases, which
+    each rank applies to its own sequence chunk)      -> over tp too;
   * at pp > 1, not sharded over pp (embedding, head, norms) -> over the
     pipe axis too.
 

@@ -8,7 +8,9 @@ The JAX side runs as the reference's own tests run it (``tests/
 test_phantom.py``): ``shard_map`` over the 8 virtual CPU devices, XLA
 backend.  The port's ``fused`` variant runs both ways: through
 ``phantom_fused_linear`` (the kernel backend, whose CPU path is the
-kernels' plain versions) and through plain torch ops.
+kernels' plain versions) and through plain torch ops; the ``ring``
+variant (ppermute hops) through plain torch ops, as the reference runs
+it.
 
 Tolerances: outputs rtol 1e-5 / atol 1e-6 (float32, sums in another
 order), parameter gradients rtol 1e-4 / atol 1e-5 (the reference's pin
@@ -46,6 +48,8 @@ VARIANTS = {
     "fused_plain": ("fused", False, "xla"),
     "faithful": ("faithful", False, "xla"),
     "faithful_self": ("faithful", True, "xla"),
+    "ring": ("ring", False, "xla"),
+    "ring_self": ("ring", True, "xla"),
 }
 N_IN, N_OUT, K, B = 32, 48, 3, 8
 OUT_TOL = dict(rtol=1e-5, atol=1e-6)
@@ -214,7 +218,7 @@ def test_failing_rank_is_reported():
 
 # ---------------------------------------------------------------------------
 # one-process checks of the phantom layer: accounting, the dense matrix it
-# computes, and the variant still to port
+# computes, and the ring variant at tp = 1
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("kind", ["phantom", "phantom_self", "tensor_col",
@@ -253,14 +257,20 @@ def test_phantom_param_count_matches_jax():
 
 
 def test_ring_variant_names_the_roadmap_item():
+    """The ring variant, which raised and named its ROADMAP item until it
+    was ported, runs; at tp = 1 it makes no hop and equals the fused
+    variant, with and without the self term."""
     import torch
     from repro_torch.configs.base import PhantomConfig
     from repro_torch.core.phantom import phantom_apply
     from repro_torch.parallel.axes import MeshAxes
-    axes = MeshAxes(tp=2)
-    params = {"L": torch.zeros(1, 4, 4), "C": torch.zeros(4, 2),
-              "D": torch.zeros(2, 2, 4)}
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 1"):
-        phantom_apply(PhantomConfig(k=2, variant="ring"), params,
-                      torch.zeros(3, 4), axes)
+    gen = torch.Generator().manual_seed(0)
+    params = {"L": torch.randn(1, 4, 6, generator=gen),
+              "C": torch.randn(4, 2, generator=gen),
+              "D": torch.randn(1, 2, 6, generator=gen)}
+    x = torch.randn(3, 4, generator=gen)
+    for self_term in (False, True):
+        ring, fused = (phantom_apply(PhantomConfig(
+            k=2, variant=v, include_self_term=self_term), params, x,
+            MeshAxes()) for v in ("ring", "fused"))
+        torch.testing.assert_close(ring, fused, rtol=0, atol=0)

@@ -103,7 +103,8 @@ def test_chatglm3_config_equals_reference(smoke):
 
 
 @pytest.mark.parametrize("smoke", [False, True])
-@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "stablelm-3b"])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "stablelm-3b",
+                                  "qwen2.5-14b"])
 def test_trained_dense_config_equals_reference(arch, smoke):
     """The dense configs the trainer runs: every field the port keeps
     (the training knobs ``remat``, ``optimizer``, ``loss_chunk`` among
@@ -177,8 +178,10 @@ def test_multi_device_mesh_names_the_roadmap_item(case):
     """Model, data and pipe axes above 1 are meshes of the port (rank
     ``(s * dp + d) * tp + t``, the reference's (pipe, data, model)
     order), and the model declares itself at tp > 1; serving at tp > 1
-    (the engine, prefill, decode) and ring attention are not ported and
-    name their ROADMAP items."""
+    (the engine, prefill, decode) is not ported and names its ROADMAP
+    item.  Ring attention, which named item 6 here until it was ported,
+    now declares its weights sharded on their input dim and its biases
+    replicated, asked for or where tp does not divide the heads."""
     if case == "tp_dp_accepted":
         axes = MeshAxes(tp=2, dp=4, tp_rank=1, dp_rank=3)
         assert (axes.tp, axes.dp, axes.rank) == (2, 4, 7)
@@ -205,10 +208,12 @@ def test_multi_device_mesh_names_the_roadmap_item(case):
                            torch.zeros(1, dtype=torch.long))
     else:
         cfg = get_config("chatglm3-6b", smoke=True)
-        for c, tp in ((cfg.replace(attn_shard="ring"), 2), (cfg, 3)):
-            with pytest.raises(NotImplementedError,
-                               match="queue 1, item 6 .qwen2.5-14b"):
-                model_decls(c, MeshAxes(tp=tp))
+        for c, tp in ((cfg.replace(attn_shard="ring"), 2),
+                      (cfg.replace(attn_shard="auto"), 3)):
+            mixer = model_decls(c, MeshAxes(tp=tp))["layers"]["mixer"]
+            assert {n: mixer[n]["w"].spec for n in mixer} == {
+                n: (None, "tp", None) for n in ("wq", "wk", "wv", "wo")}
+            assert mixer["wq"]["b"].spec == (None,)
 
 
 @pytest.mark.parametrize("kind,stages", [("tensor", 2), ("phantom", 2),

@@ -44,6 +44,8 @@ SHAPES = [
 ]
 BF16_SHAPES = [(128, 128, 128, 64), (100, 72, 56, 24), (130, 257, 129, 65),
                (64, 128, 128, 32)]
+# qwen2.5-14b a rank at tp = 4, batch 4 x seq 512: gate/up and down (k 16)
+QWEN_TP4_SHAPES = [(2048, 1280, 3456, 64), (2048, 3456, 1280, 64)]
 
 
 def _arrays(seed, *shapes, scale=0.3):
@@ -210,14 +212,17 @@ def _plan_operands(shape, kind, dtype=torch.float32):
 
 @pytest.mark.parametrize("kind", ["forward", "dgrad"])
 @pytest.mark.parametrize("shape", SHAPES + [(64, 128, 128, 64),
-                                            (64, 2048, 2048, 128)])
+                                            (64, 2048, 2048, 128)]
+                         + QWEN_TP4_SHAPES)
 def test_gemm_plan(shape, kind):
     """The launch plan of the split-contraction kernel on the sweep, the
-    Table I mini-run and the paper-ffn-16k per-rank shapes (CPU operands:
-    the H100's residency table): the block ranges cover the contraction
-    exactly, every block of a split gets at least two slabs, the cluster
-    is at most 8 and fits the card in one wave, shared memory fits, and
-    the main shape keeps at least 1.5 blocks per SM busy."""
+    Table I mini-run, the paper-ffn-16k per-rank shapes and qwen2.5-14b's
+    at tp = 4 (CPU operands: the H100's residency table): the block
+    ranges cover the contraction exactly, every block of a split gets at
+    least two slabs, the cluster is at most 8 and fits the card in one
+    wave, shared memory fits, and the main shape keeps at least 1.5
+    blocks per SM busy.  qwen's 640 to 1,760 tiles fill more than one
+    wave without a split, on 16-byte copies."""
     resident = pf.H100_RESIDENT_CLUSTERS
     for dtype in (torch.float32, torch.bfloat16):
         plan, ops, rows, cols, slabs = _plan_operands(shape, kind, dtype)
@@ -247,6 +252,9 @@ def test_gemm_plan(shape, kind):
             assert plan.grid[0] * plan.grid[1] >= 1.5 * 132
         if shape == (130, 257, 129, 65):
             assert plan.variant == "masked"
+        if shape in QWEN_TP4_SHAPES:
+            assert plan.variant == "vec16" and S == 1
+            assert tiles > resident[2]
 
 
 _H100 = pf.H100_RESIDENT_CLUSTERS
@@ -268,15 +276,17 @@ def test_gemm_plan_follows_the_residency_table(table, splits):
 
 
 @pytest.mark.parametrize("shape", SHAPES + [(64, 128, 128, 64),
-                                            (64, 2048, 2048, 128)])
+                                            (64, 2048, 2048, 128)]
+                         + QWEN_TP4_SHAPES)
 def test_wgrad_plan(shape):
-    """The wgrad's persistent grid on the sweep, the Table I mini-run and
-    the paper-ffn-16k per-rank shapes, with the H100's residency (CPU
-    operands): never more blocks than the card holds at once nor than
-    there are tiles, and shared memory for the blocks an SM holds.  At
-    the main shape 1088 tiles on 528 blocks: two full rounds and a third
-    of 32 tiles (a design of 128-tiles that filled whole rounds measured
-    within the spread between runs of it, PERF.md)."""
+    """The wgrad's persistent grid on the sweep, the Table I mini-run, the
+    paper-ffn-16k per-rank shapes and qwen2.5-14b's at tp = 4, with the
+    H100's residency (CPU operands): never more blocks than the card
+    holds at once nor than there are tiles, and shared memory for the
+    blocks an SM holds.  At the main shape 1088 tiles on 528 blocks: two
+    full rounds and a third of 32 tiles (a design of 128-tiles that
+    filled whole rounds measured within the spread between runs of it,
+    PERF.md); at qwen's, 1,134 and 1,100 tiles in three rounds."""
     M, K, N, PK = shape
     for dtype in (torch.float32, torch.bfloat16):
         x, g, dz = (torch.empty(M, K, dtype=dtype),
@@ -298,6 +308,10 @@ def test_wgrad_plan(shape):
             assert (plan.tiles_m, plan.tiles_n) == (34, 32)
             assert (plan.resident, plan.grid, plan.rounds) == (528, 528, 3)
             assert plan.tiles - 2 * plan.grid == 32
+            assert plan.variant == "vec16"
+        elif shape in QWEN_TP4_SHAPES:
+            assert plan.tiles in (21 * 54, 55 * 20)
+            assert (plan.grid, plan.rounds) == (528, 3)
             assert plan.variant == "vec16"
         else:    # the sweep's and the mini-run's outputs are small
             assert plan.rounds == 1

@@ -353,9 +353,15 @@ def _gathered(ranks, key, cfg, dp, tp):
 @pytest.mark.parametrize("name", list(RUNS))
 def test_train_step_at_tp_matches_jax(runs, name):
     arch, proj, over, dp, tp = RUNS[name]
-    cfg = _configs(arch, proj, over)[1]
-    want = runs["ref"][name]
-    ranks = [r["train"][name] for r in runs[(dp, tp)]]
+    hold_train_steps(name, _configs(arch, proj, over)[1], runs["ref"][name],
+                     [r["train"][name] for r in runs[(dp, tp)]], dp, tp)
+
+
+def hold_train_steps(name, cfg, want, ranks, dp, tp):
+    """Every rank's losses and gradient norms, and the gathered clipped
+    gradients of each step and final parameters, against the
+    reference's (``_jax_run``); AdamW's near-eps elements held to what
+    their gradients imply."""
     for rank in ranks:
         np.testing.assert_allclose(rank["losses"], want["losses"],
                                    rtol=1e-5, err_msg=name)

@@ -385,3 +385,38 @@ def card_tp_step_body(axes, device):
                      "launches": {k.__name__: k.launches for k in kernels}}
     out["eps"] = opt.eps
     return out
+
+
+def ring_collectives_body(axes, cases):
+    """``ppermute``, ``seq_to_feature`` and ``feature_to_seq`` over the
+    model axis on this rank's block ``x[t]`` of each case, the objective
+    sum(y * r[t]): outputs, input gradients and each case's collective
+    log (collective, message floats, the call that ran it)."""
+    from repro_torch.core.autograd import ppermute
+    from repro_torch.models.layers import feature_to_seq, seq_to_feature
+    out = {}
+    t = axes.tp_rank
+    for name, case in cases.items():
+        x = _leaf(case["x"][t])
+        with record_collectives() as log:
+            if case["kind"] == "ppermute":
+                y = ppermute(x, axes, case["perm"])
+            elif case["kind"] == "seq_to_feature":
+                y = seq_to_feature(x, axes)
+            else:
+                y = feature_to_seq(x, axes)
+            (y * torch.from_numpy(case["r"][t])).sum().backward()
+        out[name] = {"y": _np(y), "x": _np(x.grad),
+                     "log": [(e.collective, e.m_floats, e.issued_as)
+                             for e in log.events]}
+    return out
+
+
+def ring_body(axes, device, inputs):
+    """One mesh of ``tests/test_torch_ring.py``: the collective cases
+    (``ring_collectives_body``), the attention layer cases
+    (``layers_tp_body``) and the trainer cases (``trainer_body``)."""
+    return {"collectives": ring_collectives_body(axes,
+                                                 inputs["collectives"]),
+            "layers": layers_tp_body(axes, device, inputs["layers"]),
+            "train": trainer_body(axes, device, inputs["train"])}
