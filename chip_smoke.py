@@ -169,12 +169,35 @@ Phases (any failure exits non-zero):
    memory printed; then one more step with its collectives timed, rank
    0's under ``torch.profiler``.
 
+11. phi3-mini on a pipe axis (``phase_lm_train_pp``): pp 2 x tp 2,
+   phantom MLP sites, the 1F1B pipeline over the batch's microbatches.
+   First, in the parent, the flash kernel (B=1, S=512, H=KV=16, hd=96)
+   and the three phantom kernels at a one-row microbatch's shapes a rank
+   (M=512; K=1536, N=4096 and K=4096, N=1536; PK=24), bf16, held and
+   timed as in phases 2 and 3, and with a cold L2.  Then 4 ranks on the
+   card, each running ``_lm_pp_rank``: (a) step 1 at
+   ``LM_PARITY_LAYERS`` layers (one a stage) over ``LM_PP_PARITY_M``
+   microbatches, fp32, through the kernels against plain torch, AdamW;
+   (a') the same with Adafactor; (b) (a)'s kernel run against pp 1 x tp
+   2 from the same seed (each stage's two ranks run the whole model on
+   their own group, and each rank holds its stage's cut); all held as
+   in phase 9, with every kernel's launches.  (c) The main path:
+   ``launch/train.py``'s trainer at all 32 layers, bf16, batch 4 x seq
+   512 in ``LM_PP_M`` microbatches, ``LM_PP_STEPS`` steps: losses
+   finite, launches per step and rank exactly 2, 6, 3 and 3 per layer
+   and microbatch of the stage for flash and the phantom forward, dgrad
+   and wgrad, boundary bytes per step equal to the schedule's
+   ``executed=False`` account (``lm_pp_boundary_bytes``); step times,
+   tokens/s, wire bytes and peak memory printed; then one more step with
+   its collectives timed, rank 0's under ``torch.profiler``.
+
 The line before the last is the kernel table as JSON (the phantom
 kernels' 8-row shape and its launches under ``pipe_rows8``; the flash
 kernel's training launches and its hd=96 training shape under
 ``train_launches`` and ``hd96``; every kernel's tp = 4 shapes and its
-launches per step and rank under ``lm_tp4``, and qwen2.5-14b's under
-``qwen_tp4``); the last line is
+launches per step and rank under ``lm_tp4``, qwen2.5-14b's under
+``qwen_tp4``, and the pp 2 x tp 2 microbatch's under ``lm_pp``); the
+last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
@@ -249,6 +272,15 @@ LM_TP_FLASH_SHAPE = (4, 512, 8, 8, 96)
 # gate/up and at down (k = 16, PK = 64)
 QWEN_ARCH, QWEN_LAYERS, QWEN_STEPS = "qwen2.5-14b", 8, 3
 QWEN_PHANTOM_SHAPES = ((2048, 1280, 3456, 64), (2048, 3456, 1280, 64))
+# phase 11: phi3-mini on LM_PP stages x LM_PP_TP model ranks, the batch in
+# LM_PP_M microbatches of one row, LM_PP_STEPS steps; (a) and (b) at
+# LM_PARITY_LAYERS layers (one a stage) in LM_PP_PARITY_M microbatches.
+# The per-rank shapes of a microbatch (1 x 512 tokens): the phantom
+# kernels' (M, K, N, PK) at gate/up and at down (k = 12, PK = 24), and
+# flash's (B, S, H, KV, hd) at H / tp local heads
+LM_PP, LM_PP_TP, LM_PP_M, LM_PP_STEPS, LM_PP_PARITY_M = 2, 2, 4, 3, 2
+LM_PP_PHANTOM_SHAPES = ((512, 1536, 4096, 24), (512, 4096, 1536, 24))
+LM_PP_FLASH_SHAPE = (1, 512, 16, 16, 96)
 
 
 # a kernel's measured keys in the kernels line
@@ -1667,7 +1699,10 @@ def _lm_step1(base):
 def _profile_train_step(trainer, state):
     """One more step of the trainer under ``torch.profiler``: the wall
     time, the device time of its kernels and copies (busy share), the
-    flash kernel's part and the top kernels."""
+    flash kernel's part and the top kernels.  The profiler files the
+    time a gloo ``isend`` waits for its receiver (``gloo:send``, a
+    pipeline's boundary sends) under the card; it is host time, and is
+    reported apart (``gloo_send_ms``), outside the device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1679,6 +1714,9 @@ def _profile_train_step(trainer, state):
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages()
               if str(e.device_type).endswith("CUDA")]
+    gloo_send_ms = sum(e.self_device_time_total for e in events
+                       if e.key.startswith("gloo:")) / 1e3
+    events = [e for e in events if not e.key.startswith("gloo:")]
     device_ms = sum(e.self_device_time_total for e in events) / 1e3
 
     def kind(key):
@@ -1704,6 +1742,7 @@ def _profile_train_step(trainer, state):
         "flash_share_of_device": (by_kind["flash"] / device_ms
                                   if device_ms else None),
         "device_ops": sum(e.count for e in events),
+        "gloo_send_ms": gloo_send_ms,
         "top_device_ms": {e.key[:60]: e.self_device_time_total / 1e3
                           for e in top}}
 
@@ -1848,10 +1887,11 @@ def _kernel_counts(reset=False):
     return {k.__name__: k.launches for k in kernels}
 
 
-def _tp_step1(cfg, axes, device, params, batch, sched):
-    """One AdamW step of ``cfg`` on ``axes`` from a clone of ``params``
-    (the optimizer updates in place): the loss, the clipped gradients the
-    optimizer got, the updated parameters and the launches."""
+def _tp_step1(cfg, axes, device, params, batch, sched, microbatches=1):
+    """One step of ``cfg`` on ``axes`` from a clone of ``params`` with
+    ``cfg.optimizer`` (AdamW or Adafactor, in place): the loss, the
+    clipped gradients the optimizer got, the updated parameters, the
+    launches and the optimizer's eps."""
     import torch
     from repro_torch.optim import make_optimizer
     from repro_torch.parallel.params import tree_map
@@ -1864,7 +1904,8 @@ def _tp_step1(cfg, axes, device, params, batch, sched):
         seen.append(g)
         return update(g, s, p, step)
     opt.update = recording
-    step_fn, _, _ = make_train_step(cfg, axes, opt, device=device)
+    step_fn, _, _ = make_train_step(cfg, axes, opt, device=device,
+                                    microbatches=microbatches)
     p = tree_map(torch.clone, params)
     _kernel_counts(reset=True)
     p, _, m = step_fn(p, opt.init(p), 0, batch)
@@ -2513,6 +2554,295 @@ def phase_qwen_train_tp():
             "wire_bytes_predicted": wire, "wall_s": wall}
 
 
+def _lm_pp_args():
+    """``launch/train.py``'s flags for phi3-mini at pp ``LM_PP`` x tp
+    ``LM_PP_TP``, ``LM_PP_M`` microbatches, ``LM_PP_STEPS`` steps."""
+    return _lm_args(["--steps", str(LM_PP_STEPS), "--tp", str(LM_PP_TP),
+                     "--pp", str(LM_PP), "--microbatches", str(LM_PP_M)])
+
+
+def _stage_cut(tree, axes, pp):
+    """A pp = 1 rank's tree cut to what stage ``axes.pp_rank`` of ``pp``
+    holds: each layer stack ``[G, ...]`` as ``[pp, G/pp, ...]``, the
+    stage's ``[1, G/pp, ...]`` slice kept."""
+    from repro_torch.parallel.params import tree_map
+    s = axes.pp_rank
+    return {**tree, "layers": tree_map(
+        lambda t: t.reshape((pp, t.shape[0] // pp) + t.shape[1:])[s:s + 1],
+        tree["layers"])}
+
+
+def _lm_pp_rank(axes, device):
+    """``phase_lm_train_pp`` inside one of the ``LM_PP`` x ``LM_PP_TP``
+    ranks sharing the card, phi3-mini with phantom MLP sites: (a) step 1
+    through the kernels against plain torch, fp32, ``LM_PARITY_LAYERS``
+    layers (one a stage), ``LM_PP_PARITY_M`` microbatches, AdamW; (a')
+    the same with Adafactor; (b) (a)'s kernel run against pp 1 x tp
+    ``LM_PP_TP`` from the same seed: each stage's model ranks run the
+    whole 2-layer model over their own group, and each rank holds its
+    stage's cut of it; (c) the main path, bf16, every layer,
+    ``LM_PP_STEPS`` steps and one more profiled (``_lm_tp_train``)."""
+    from repro_torch.configs.base import with_kernel_backend
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize_shards
+
+    out = {"rank": axes.rank, "stage": axes.pp_rank}
+    args = _lm_pp_args()
+    base = train_config(args)
+    cut = base.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
+    batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
+                      device=device)(0)
+    sched = warmup_cosine(3e-4, 20, LM_PP_STEPS)
+    M = LM_PP_PARITY_M
+
+    # (a) and (a'): kernels against plain, AdamW and Adafactor, float32
+    params = materialize_shards(model_decls(cut, axes), axes, SEED, device,
+                                draw_on=device)
+    for key, opt in (("kernel_vs_plain", "adamw"),
+                     ("adafactor", "adafactor")):
+        res, launches = {}, {}
+        for name, backend in (("kernel", "auto"), ("plain", "xla")):
+            res[name], launches[name], eps = _tp_step1(
+                with_kernel_backend(cut.replace(optimizer=opt), backend),
+                axes, device, params, batch, sched, microbatches=M)
+        out[key] = {part: _step1_diff(res, part, sched(0), eps)
+                    for part in ("loss", "grads", "params")}
+        out[key].update(launches=launches, loss_values={
+            n: float(r["loss"]) for n, r in res.items()})
+        if opt == "adamw":
+            mine, adam_eps = res["kernel"], eps
+        del res
+        _free()
+    del params
+    _free()
+
+    # (b) pp = 2 against pp = 1 at the same tp, the kernel path, AdamW
+    one = MeshAxes(tp=axes.tp, tp_rank=axes.tp_rank,
+                   tp_group=axes.tp_group, world_group=axes.tp_group)
+    kcfg = with_kernel_backend(cut, "auto")
+    params = materialize_shards(model_decls(kcfg, one), one, SEED, device,
+                                draw_on=device)
+    full = _tp_step1(kcfg, one, device, params, batch, sched,
+                     microbatches=M)[0]
+    del params
+    res = {"kernel": mine, "plain": {
+        "loss": full["loss"], "grads": _stage_cut(full["grads"], axes, LM_PP),
+        "params": _stage_cut(full["params"], axes, LM_PP)}}
+    del full, mine
+    out["pp2_vs_pp1"] = {part: _step1_diff(res, part, sched(0), adam_eps)
+                         for part in ("loss", "grads", "params")}
+    out["pp2_vs_pp1"]["loss_values"] = {
+        "pp2": float(res["kernel"]["loss"]),
+        "pp1": float(res["plain"]["loss"])}
+    del res
+    _free()
+
+    # (c) the main path ---------------------------------------------------
+    out["main"] = _lm_tp_train(axes, device, base, args, LM_PP_STEPS,
+                               profile=True)
+    return out
+
+
+def _lm_pp_kernels(gen):
+    """The flash kernel and the three phantom kernels at a microbatch's
+    per-rank shapes of phi3-mini at pp 2 x tp 2 (bf16): held to their
+    plain versions and timed as in phases 2 and 3, and with a cold L2."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    B, S, H, KV, hd = LM_PP_FLASH_SHAPE
+    flash = _case(B, S, H, KV, hd, True, "bfloat16", gen)
+
+    def kern():
+        q, k, v = _flash_inputs(S, gen, B, H, KV, hd)
+        return lambda: flash_attention(q, k, v, causal=True)
+
+    def lib():
+        q, k, v = (t.transpose(1, 2) for t in _flash_inputs(S, gen, B, H,
+                                                            KV, hd))
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=True)
+    nbytes = sum(t.numel() * 2 for t in _flash_inputs(S, gen, B, H, KV, hd))
+    flash.update(cold_ms=cold_ms(kern, nbytes),
+                 library_cold_ms=cold_ms(lib, nbytes))
+    print(f"lm_train_pp: flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+          f"bfloat16 causal: max_abs_err={flash['max_abs_err']:.3e} (of "
+          f"sum p|v|: {flash['max_rel_err']:.3e}) ok={flash['ok']} ms="
+          f"{flash['ms']:.4f} cold_ms={flash['cold_ms']:.4f} bound_ms="
+          f"{flash['bound_ms']:.5f} ({flash['bound_by']}) plain_ms="
+          f"{flash['plain_ms']:.4f} library_ms={flash['library_ms']:.4f} "
+          f"(cold {flash['library_cold_ms']:.4f})", flush=True)
+    out = {"flash": flash, "cases": [], "cold": {}}
+    for shape in LM_PP_PHANTOM_SHAPES:
+        for r in _phantom_case(*shape, "bfloat16", gen):
+            out["cases"].append(r)
+            print(f"lm_train_pp: {r['kernel']} M={r['M']} K={r['K']} "
+                  f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
+                  f"{r['max_abs_err']:.3e} ok={r['ok']} {r['variant']} "
+                  f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
+                  f"library_ms={r['library_ms']:.4f}", flush=True)
+        out["cold"][str(list(shape))] = _phantom_cold(*shape, gen,
+                                                      dtype="bfloat16")
+    bad = [r for r in [flash] + out["cases"] if not r["ok"]]
+    check(not bad, f"lm_train_pp: kernels disagree with their plain "
+                   f"versions at a microbatch's pp 2 x tp 2 shapes: {bad}")
+    return out
+
+
+def lm_pp_boundary_bytes(cfg, stage):
+    """The bytes stage ``stage`` sends to its neighbours in one step: the
+    schedule's ``executed=False`` account (``PipelineSchedule.p2p_events``:
+    each microbatch's activation once forward and its gradient once
+    backward, a message the stream's local shard of one microbatch in
+    bf16), less the direction an end stage has no neighbour in."""
+    from repro_torch.train.pipeline import PipelineSchedule
+    m_bytes = (LM_BATCH // LM_PP_M) * LM_SEQ * cfg.d_model // LM_PP_TP * 2
+    return sum(
+        ev.m_floats * 4
+        for ev in PipelineSchedule(LM_PP, LM_PP_M).p2p_events(m_bytes / 4)
+        if (ev.phase == "fwd" and stage < LM_PP - 1)
+        or (ev.phase == "bwd" and stage > 0))
+
+
+def _lm_pp_held(ranks, cfg):
+    """Hold every rank's (a), (a'), (b), their launches, the main path's
+    losses, launches per step and boundary bytes; returns the worst of
+    (a), (a') and (b) over the ranks."""
+    import math
+    per = LM_PARITY_LAYERS // LM_PP * LM_PP_PARITY_M
+    none = {"flash_attention": 0, "phantom_fused_matmul": 0, "matmul_nt": 0,
+            "matmul_tn": 0}
+    want_a = {"kernel": {"flash_attention": 2 * per,
+                         "phantom_fused_matmul": 6 * per,
+                         "matmul_nt": 3 * per, "matmul_tn": 3 * per},
+              "plain": none}
+    n = cfg.num_layers // LM_PP * LM_PP_M
+    want_main = {"flash_attention": 2 * n, "phantom_fused_matmul": 6 * n,
+                 "matmul_nt": 3 * n, "matmul_tn": 3 * n}
+    worst = {}
+    for r in ranks:
+        rk = r["rank"]
+        for key in ("kernel_vs_plain", "adafactor", "pp2_vs_pp1"):
+            for part in ("loss", "grads", "params"):
+                diff = r[key][part]
+                check(diff["outside"] == 0,
+                      f"lm_train_pp rank {rk}: {key} {part} differ in "
+                      f"{diff['outside']} of {diff['elements']} elements: "
+                      f"{diff}")
+                w = worst.setdefault(key, {}).setdefault(part, {})
+                for k, v in diff.items():
+                    w[k] = max(w.get(k, 0), v)
+            check(r[key]["grads"]["max_scaled_err"] <= STEP1_TOL["rtol"],
+                  f"lm_train_pp rank {rk}: {key} gradients differ by more "
+                  f"than 1e-4 of the largest: {r[key]['grads']}")
+        for key in ("kernel_vs_plain", "adafactor"):
+            check(r[key]["launches"] == want_a,
+                  f"lm_train_pp rank {rk}: {key} launches "
+                  f"{r[key]['launches']}, want {want_a}")
+        m = r["main"]
+        check(all(math.isfinite(v) for v in m["losses"] + m["grad_norms"]),
+              f"lm_train_pp rank {rk}: non-finite loss or gradient norm: "
+              f"{m['losses']} {m['grad_norms']}")
+        check(m["launches_per_step"] == want_main,
+              f"lm_train_pp rank {rk}: launches per step "
+              f"{m['launches_per_step']}, want {want_main} ({n} layers and "
+              f"microbatches a stage, forward and recompute; the phantom "
+              f"forward at 3 sites)")
+        sent = m["collectives_per_step"].get("collective_permute", {}).get(
+            "wire_bytes", 0)
+        want = lm_pp_boundary_bytes(cfg, r["stage"])
+        check(sent == want,
+              f"lm_train_pp rank {rk}: {sent:.0f} boundary bytes a step, "
+              f"the schedule's account {want:.0f}")
+    return worst
+
+
+def phase_lm_train_pp():
+    """phi3-mini with phantom MLP sites on pp ``LM_PP`` x tp ``LM_PP_TP``
+    ranks sharing the card (gloo, card tensors through the host), the
+    1F1B pipeline over ``LM_PP_M`` microbatches."""
+    import statistics as st
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import train_config
+    _free()
+    kernels = _lm_pp_kernels(torch.Generator(device="cuda").manual_seed(SEED))
+    t0 = time.perf_counter()
+    ranks = spawn(_lm_pp_rank, 1, LM_PP_TP, "cuda", pp=LM_PP, timeout_s=900)
+    wall = time.perf_counter() - t0
+    cfg = train_config(_lm_pp_args())
+    worst = _lm_pp_held(ranks, cfg)
+    for key, what in (("kernel_vs_plain", "(a) kernels vs plain, AdamW"),
+                      ("adafactor", "(a') kernels vs plain, Adafactor"),
+                      ("pp2_vs_pp1", "(b) pp=2 vs pp=1, kernels, AdamW")):
+        w = worst[key]
+        print(f"lm_train_pp: {what}, {cfg.name} at {LM_PARITY_LAYERS} "
+              f"layers, M={LM_PP_PARITY_M}, step 1, float32, worst over "
+              f"ranks (held to rtol 1e-4 / atol 1e-5): loss "
+              f"{w['loss']['max_abs_err']:.3e} (values "
+              f"{ranks[-1][key]['loss_values']}), grads "
+              f"{w['grads']['max_abs_err']:.3e} "
+              f"({w['grads']['max_scaled_err']:.3e} of the largest), "
+              f"params {w['params']['max_abs_err']:.3e}; near-zero "
+              f"gradients {w['params']['near_zero_grad']} per rank at "
+              f"most, differing by up to "
+              f"{w['params']['max_abs_err_near_zero_grad']:.3e} (implied "
+              f"{w['params']['max_implied_near_zero_grad']:.3e}); elements "
+              f"outside 0 of {w['params']['elements']} per rank at most",
+              flush=True)
+    main = [r["main"] for r in ranks]
+    med = [st.median(m["step_ms"][1:]) for m in main]
+    tokens = LM_BATCH * LM_SEQ
+    print(f"lm_train_pp: (c) {cfg.name} phantom, pp={LM_PP} x tp="
+          f"{LM_PP_TP}, layers={cfg.num_layers}, batch {LM_BATCH} x seq "
+          f"{LM_SEQ} in {LM_PP_M} microbatches, bf16, remat={cfg.remat}: "
+          f"losses {[round(v, 4) for v in main[0]['losses']]}; per-rank "
+          f"step ms {[[round(v, 1) for v in m['step_ms']] for m in main]}, "
+          f"median of steps 2-{LM_PP_STEPS} {[round(v, 1) for v in med]}; "
+          f"{tokens / max(med) * 1e3:.1f} tokens/s (slowest rank); "
+          f"launches per step per rank {main[0]['launches_per_step']}; "
+          f"local parameters per rank "
+          f"{[m['params_local'] for m in main]}", flush=True)
+    sent = [m["collectives_per_step"].get("collective_permute", {}).get(
+        "wire_bytes", 0) for m in main]
+    print(f"lm_train_pp: (c) boundary bytes per step per rank {sent} "
+          f"(the schedule's account "
+          f"{[lm_pp_boundary_bytes(cfg, r['stage']) for r in ranks]}); "
+          f"wire bytes per step per rank "
+          f"{[round(m['wire_bytes_per_step']) for m in main]}; by "
+          f"collective (rank 0): {main[0]['collectives_per_step']}",
+          flush=True)
+    print(f"lm_train_pp: (c) peak memory per rank (GB) "
+          f"{[round(m['peak_memory_gb'], 2) for m in main]}; card used "
+          f"(GB, as each rank read it after its run) "
+          f"{[round(m['card_used_gb'], 2) for m in main]}", flush=True)
+    prof = [m["profile"] for m in main]
+    print(f"lm_train_pp: (c) one more step, collectives timed on every "
+          f"rank (rank 0 also profiled): wall ms "
+          f"{[round(p['wall_ms'], 1) for p in prof]}, in collectives "
+          f"(copies and gloo) "
+          f"{[round(p['collective_ms'], 1) for p in prof]} over "
+          f"{[p['calls'] for p in prof]} calls, waiting for the card before "
+          f"them {[round(p['device_wait_ms'], 1) for p in prof]}; rank 0's "
+          f"device {prof[0]['device_ms']} ms (busy "
+          f"{prof[0]['device_busy_share']}), by kind "
+          f"{prof[0]['device_ms_by_kind']}, {prof[0]['device_ops']} "
+          f"device ops, its boundary isends pending "
+          f"{prof[0]['gloo_send_ms']:.1f} ms (host); top: "
+          f"{ {k: round(v, 3) for k, v in prof[0]['top_device_ms'].items()} }",
+          flush=True)
+    print(f"lm_train_pp: the phase took {wall:.1f} s in the ranks",
+          flush=True)
+    return {"kernels": kernels, "ranks": ranks, "worst": worst,
+            "median_step_ms": med, "tokens_per_s": tokens / max(med) * 1e3,
+            "launches_per_step": main[0]["launches_per_step"],
+            "wall_s": wall}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2538,6 +2868,7 @@ def main() -> int:
     lm = phase_lm_train()
     lm_tp = phase_lm_train_tp()
     qwen = phase_qwen_train_tp()
+    lm_pp = phase_lm_train_pp()
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
     print(f"ledger written to {path}")
     ledger = ledger.report()
@@ -2567,7 +2898,12 @@ def main() -> int:
                        lm_tp["launches_per_step"]["flash_attention"],
                    **{key: lm_tp["kernels"]["flash"][key] for key in TIMED}},
         "qwen_tp4": {"launches_per_step_per_rank":
-                     qwen["launches_per_step"]["flash_attention"]}}]
+                     qwen["launches_per_step"]["flash_attention"]},
+        "lm_pp": {"shape": list(LM_PP_FLASH_SHAPE),
+                  "launches_per_step_per_rank":
+                      lm_pp["launches_per_step"]["flash_attention"],
+                  **{key: lm_pp["kernels"]["flash"][key]
+                     for key in TIMED + ("cold_ms",)}}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -2607,6 +2943,16 @@ def main() -> int:
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
                            for r in qwen["kernels"]["cases"]
+                           if r["kernel"] == name]},
+            "lm_pp": {
+                "launches_per_step_per_rank":
+                    lm_pp["launches_per_step"][name],
+                "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
+                            **{key: r[key] for key in TIMED},
+                            "cold_ms": lm_pp["kernels"]["cold"][str(
+                                [r["M"], r["K"], r["N"], r["PK"]])][name][
+                                "cold_ms"]}
+                           for r in lm_pp["kernels"]["cases"]
                            if r["kernel"] == name]}})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -2614,6 +2960,7 @@ def main() -> int:
         {"device": device, "flash": flash, "phantom": phantom,
          "serve": serve, "train": train, "pipeline": pipeline,
          "lm_train": lm, "lm_train_tp": lm_tp, "qwen_train_tp": qwen,
+         "lm_train_pp": lm_pp,
          "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -11,22 +11,25 @@ without a plan).
         --batch 4 --seq 512 --steps 5       # on the card
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch qwen2.5-14b --device cpu --tp 2   # ring attention
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
+        --device cpu --pp 2 --tp 2 --microbatches 2   # 1F1B, 4 ranks
 
 builds ``Trainer(cfg, axes, make_optimizer(cfg.optimizer,
 warmup_cosine(3e-4, 20, steps), weight_decay=0.1), LMDataset(...))``
 and runs ``--steps`` steps on ``--batch`` sequences of ``--seq``
 tokens, logging the ``[trainer]`` line.  Weights are random, drawn on
-the device from ``--seed``, each rank keeping its shards.  ``--dp`` x
-``--tp`` above 1 spawns that many ranks (``launch/mesh.py: spawn``,
-rank ``d * tp + t``), each on its rows of the batch and its shards of
-the model: ``--impl phantom`` (the default) keeps the residual stream
-feature-sharded (``fp``), ``--impl dense`` runs the Megatron
-sequence-parallel baseline (``sp``).  A config with ``attn_shard="ring"``
-(qwen2.5-14b), or a ``--tp`` that does not divide the heads, runs ring
-attention.  ``--pp`` is 1 until the slice that
-pipelines the full model (ROADMAP.md queue 1, item 6).  The run is on
-the card unless ``--device cpu`` is given; ``--smoke`` (the default)
-takes the config's reduced geometry, ``--full`` the published one.
+the device from ``--seed``, each rank keeping its shards.  ``--pp`` x
+``--dp`` x ``--tp`` above 1 spawns that many ranks (``launch/mesh.py:
+spawn``, rank ``(s * dp + d) * tp + t``), each on its rows of the batch
+and its shards of the model: ``--impl phantom`` (the default) keeps the
+residual stream feature-sharded (``fp``), ``--impl dense`` runs the
+Megatron sequence-parallel baseline (``sp``).  A config with
+``attn_shard="ring"`` (qwen2.5-14b), or a ``--tp`` that does not divide
+the heads, runs ring attention.  ``--pp`` above 1 cuts the layers into
+that many stages and runs the 1F1B pipeline over ``--microbatches``
+microbatches.  The run is on the card unless ``--device cpu`` is given;
+``--smoke`` (the default) takes the config's reduced geometry,
+``--full`` the published one.
 ``--plan``, ``--elastic`` and ``--ckpt-dir`` are ROADMAP.md queue 1,
 item 8.
 """
@@ -45,7 +48,6 @@ from repro_torch.models.model import count_params
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.parallel.axes import MeshAxes, resolve_device
-from repro_torch.parallel.grads import LM_PIPELINE_TODO
 from repro_torch.train.trainer import Trainer
 
 TIMEOUT_S = 3600.0     # a multi-rank run, before its ranks are killed
@@ -64,7 +66,8 @@ def build_parser():
     ap.add_argument("--full", dest="smoke", action="store_false")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
-    ap.add_argument("--pp", type=int, default=1, help="1 for now")
+    ap.add_argument("--pp", type=int, default=1,
+                    help="pipeline stages")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--kernel-backend", default=None,
                     choices=KERNEL_BACKENDS,
@@ -107,23 +110,25 @@ def train_rank(axes, device, cfg, args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.pp != 1:
-        raise NotImplementedError(f"--pp {args.pp}: see {LM_PIPELINE_TODO}")
     device = resolve_device(args.device)
     cfg = train_config(args)
     print(f"# {cfg.name} impl={args.impl} dp={args.dp} on {device} "
           f"(tp={args.tp}, kernel_backend={args.kernel_backend or 'config'}): "
           f"{count_params(cfg, args.tp):,} params, batch {args.batch} x "
           f"seq {args.seq}", flush=True)
+    if args.pp > 1:
+        print(f"[train] 1F1B pipeline: pp={args.pp} stages x dp={args.dp} "
+              f"x tp={args.tp}, {args.microbatches} microbatch(es)",
+              flush=True)
     if device.type == "cuda" and any(
             resolve_kernel_backend(cfg.projection_spec(s).kernel_backend)
             == "pallas" for s in PROJECTION_SITES):
         build.build(build.KERNELS)   # once, before any rank loads them
-    if args.dp * args.tp == 1:
+    if args.pp * args.dp * args.tp == 1:
         train_rank(MeshAxes(), device, cfg, args)
     else:
         spawn(train_rank, args.dp, args.tp, device, args=(cfg, args),
-              timeout_s=TIMEOUT_S)
+              timeout_s=TIMEOUT_S, pp=args.pp)
     return 0
 
 

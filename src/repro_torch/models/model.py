@@ -1,14 +1,16 @@
 """Model assembly for the dense family: decls, and the training, prefill
 and decode forwards.
 
-Parameters are the reference's tree (layers stacked on axis 0); the
+Parameters are the reference's tree (layers stacked on axis 0; on a
+pipe axis ``[pp, G/pp, ...]``, each stage's slice of the stack); the
 forward passes loop over the stack in Python where the reference scans.
-The training forward also takes ``params["layers"]`` as a list of
+The training forwards also take ``params["layers"]`` as a list of
 per-layer trees (``train/trainer.py`` makes each layer's slice a leaf
 of its own).  The residual stream keeps the reference's layout
 (``models/layers.py: residual_layout``): feature-sharded where a site is
-phantom, sequence-sharded otherwise.  Training runs at any tp; prefill
-and decode (serving) at tp = 1.
+phantom, sequence-sharded otherwise.  Training runs at any pp x dp x tp
+(``forward_train_pipeline`` at pp > 1); prefill and decode (serving) at
+tp = 1.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import (TensorSpec, param_count, stack,
                                          tree_leaves, tree_map,
                                          tree_unflatten)
+from repro_torch.train.pipeline import (pipeline_run,
+                                        split_batch_microbatches)
 
 
 def _require_dense(cfg: ModelConfig):
@@ -42,10 +46,28 @@ def model_decls(cfg: ModelConfig, axes: MeshAxes):
          "final_norm": norm_decls(cfg, layout, cfg.d_model),
          "head": head_decls(cfg),
          "layers": stack(block_decls(cfg, axes, layout), cfg.num_layers)}
+    if axes.pp > 1:
+        d["layers"] = _pp_shard_layer_decls(d["layers"], axes.pp)
     pdt = dtype_of(cfg.param_dtype)
     if pdt != torch.float32:
         d = tree_map(lambda x: dataclasses.replace(x, dtype=pdt), d)
     return d
+
+
+def _pp_shard_layer_decls(layers, pp: int):
+    """[G, ...] stacked layer decls -> [pp, G/pp, ...], the stage axis
+    sharded over the pipe axis: each stage holds its contiguous slice of
+    the layers.  The reshape keeps the layer order and ``materialize``
+    draws the same values for either shape, so a seed gives the same
+    model at any pp."""
+    def reshape(d):
+        G = d.shape[0]
+        if G % pp:
+            raise ValueError(f"{G} layers do not divide into {pp} "
+                             f"pipeline stages")
+        return dataclasses.replace(d, shape=(pp, G // pp) + d.shape[1:],
+                                   spec=("pp",) + tuple(d.spec))
+    return tree_map(reshape, layers)
 
 
 def _require_one_rank(axes: MeshAxes, what: str):
@@ -73,10 +95,15 @@ def serving_params(cfg: ModelConfig, params, device=None):
     return tree_unflatten(params, flat)
 
 
-def _layer(params, i: int):
+def _layer(params, i: int, pp: int = 1):
+    """Layer ``i`` of this rank's stack: an entry of the trainer's list of
+    per-layer trees, or a slice of the stacked tensors, ``[G, ...]`` or,
+    pipe-sharded at ``pp`` > 1, the stage's local ``[1, G/pp, ...]``."""
     layers = params["layers"]
     if isinstance(layers, list):
         return layers[i]
+    if pp > 1:
+        return tree_map(lambda t: t[0, i], layers)
     return tree_map(lambda t: t[i], layers)
 
 
@@ -98,6 +125,74 @@ def forward_train(cfg: ModelConfig, axes: MeshAxes, params, batch):
     sum_loss, n_valid = xent_loss(cfg, layout, params["head"], h,
                                   batch["labels"], axes)
     return sum_loss, n_valid, torch.zeros((), device=h.device)
+
+
+def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
+                           microbatches: int, objective):
+    """The training pass of this rank's pipeline stage, forward AND
+    backward: the port's ``pipeline_run`` interleaves the two in the 1F1B
+    order, where the reference differentiates its wavefront afterwards.
+
+    Stage 0 embeds every microbatch up front and back-propagates the
+    engine's input gradient into the embedding; each stage runs its own
+    ``G/pp`` layers (``block_train``: the recompute policy of
+    ``cfg.remat``); the last stage applies the final norm, the head and
+    the loss, and back-propagates ``objective(sum_loss_i)``, microbatch
+    ``i``'s share of the objective (a scalar), from its summed token
+    loss.  The stream crosses stage boundaries in its layout's local
+    shape, in the compute dtype.  The parameters' ``.grad`` accumulate
+    over the microbatches.
+
+    Returns the summed token loss of the rank's microbatches on the last
+    stage, 0 on the others (the dense family has no auxiliary loss).
+    The caller counts the valid tokens from the labels before the
+    schedule starts: the objective divides by the global count before
+    the first backward."""
+    _require_dense(cfg)
+    if cfg.rope == "mrope":
+        raise NotImplementedError(
+            "mrope positions vary per microbatch; the pipeline carries "
+            "activations only")
+    layout = residual_layout(cfg, "train")
+    M = max(microbatches, 1)
+    mb = split_batch_microbatches(batch, M)
+    tokens, labels = mb["tokens"], mb["labels"]           # [M, B/M, S]
+    _, B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    first, last = axes.pp_rank == 0, axes.pp_rank == axes.pp - 1
+
+    def stage_fn(h):
+        for i in range(cfg.num_layers // axes.pp):
+            h = block_train(cfg, layout, _layer(params, i, axes.pp), h,
+                            positions, axes)
+        return h
+
+    sums = []
+
+    def loss_fn(h, i):
+        h = norm_apply(cfg, layout, params["final_norm"], h, axes)
+        sl, _ = xent_loss(cfg, layout, params["head"], h, labels[i], axes)
+        sums.append(sl.detach())
+        return objective(sl)
+
+    if first:
+        h0 = torch.stack([embed_apply(cfg, layout, params["embed"],
+                                      tokens[i], axes) for i in range(M)])
+        x_mb = h0.detach()
+    else:    # only the shape and dtype of a stage input are read: the
+        # stream's local shard, feature- (fp) or sequence-sharded (sp)
+        shape = ((B, S, cfg.d_model // axes.tp) if layout == "fp"
+                 else (B, S // axes.tp, cfg.d_model))
+        x_mb = torch.empty(shape, dtype=dtype_of(cfg.dtype),
+                           device=tokens.device).expand(M, -1, -1, -1)
+    _, x_grad = pipeline_run(stage_fn, x_mb, axes, loss_fn,
+                             input_grad=first)
+    if first:
+        torch.autograd.backward(h0, x_grad)
+    sum_loss = torch.zeros((), device=tokens.device)
+    for sl in sums:
+        sum_loss = sum_loss + sl
+    return sum_loss
 
 
 def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):

@@ -1,2 +1,2 @@
 from repro_torch.optim.optimizers import (  # noqa: F401
-    SGD, AdamW, Optimizer, make_optimizer)
+    SGD, Adafactor, AdamW, Optimizer, make_optimizer)

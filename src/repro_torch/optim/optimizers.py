@@ -1,11 +1,12 @@
 """Optimizers on nested dicts of tensors: the port's copy of the
-reference's ``optim/optimizers.py`` (SGD and AdamW; Adafactor is still
-to port).
+reference's ``optim/optimizers.py`` (SGD, AdamW and Adafactor).
 
 ``update(grads, state, params, step)`` returns the parameter and state
 trees, as the reference's does, but updates their tensors in place, leaf
-by leaf and in chunks of ``CHUNK`` elements: the reference donates both
-to XLA, which updates them in place too.  At phi3-mini's 3.83 B
+by leaf and, for SGD and AdamW, in chunks of ``CHUNK`` elements: the
+reference donates both to XLA, which updates them in place too.
+Adafactor's row and column means and its RMS clip need the whole leaf,
+so it updates a leaf at a time.  At phi3-mini's 3.83 B
 parameters new trees of the parameters and both moments would add 46 GB
 beside the 61 GB of parameters, gradients and moments, more than the
 card holds; the chunks keep the temporaries at a few hundred MB.  The
@@ -140,15 +141,102 @@ class AdamW(Optimizer):
         return params, state
 
 
+def _drop_axis(d: ParamDecl, axis: int) -> ParamDecl:
+    """The float32 zero decl of ``d`` without dim ``axis`` (shape and
+    spec; no trailing ``None`` left in the spec)."""
+    axis %= len(d.shape)
+    spec = list(d.spec) + [None] * (len(d.shape) - len(d.spec))
+    del spec[axis]
+    while spec and spec[-1] is None:
+        spec.pop()
+    return ParamDecl(d.shape[:axis] + d.shape[axis + 1:], tuple(spec),
+                     init="zeros", dtype=torch.float32)
+
+
+class Adafactor(Optimizer):
+    """Factored second moments (Shazeer & Stern 2018), no momentum.
+
+    A leaf whose last two dims both exceed 1 keeps its second moment as
+    a row vector ``vr`` (the mean over the last axis) and a column vector
+    ``vc`` (the mean over the second-to-last); any other leaf keeps a
+    full ``vr`` and a ``(1,)`` ``vc``.  Every mean, and the RMS of the
+    update that the clip reads, is over the rank's local leaf, as the
+    reference's ``shard_map`` computes them: no collective."""
+
+    def __init__(self, lr: LR, decay: float = 0.8, eps: float = 1e-30,
+                 clip_rms: float = 1.0, weight_decay: float = 0.0):
+        super().__init__(lr)
+        self.decay, self.eps = decay, eps
+        self.clip_rms, self.weight_decay = clip_rms, weight_decay
+
+    @staticmethod
+    def _factored(shape) -> bool:
+        return len(shape) >= 2 and shape[-1] > 1 and shape[-2] > 1
+
+    def state_decls(self, param_decls):
+        def vr(d):
+            return (_drop_axis(d, -1) if self._factored(d.shape)
+                    else _zeros_decl(d))
+
+        def vc(d):
+            return (_drop_axis(d, -2) if self._factored(d.shape)
+                    else ParamDecl((1,), (), init="zeros",
+                                   dtype=torch.float32))
+        return {"vr": tree_map(vr, param_decls),
+                "vc": tree_map(vc, param_decls)}
+
+    def init(self, params):
+        def vr(p):
+            return (p.new_zeros(p.shape[:-1], dtype=torch.float32)
+                    if self._factored(p.shape) else _zeros_f32(p))
+
+        def vc(p):
+            return (p.new_zeros(p.shape[:-2] + p.shape[-1:],
+                                dtype=torch.float32)
+                    if self._factored(p.shape)
+                    else p.new_zeros((1,), dtype=torch.float32))
+        return {"vr": tree_map(vr, params), "vc": tree_map(vc, params)}
+
+    @torch.no_grad()
+    def update(self, grads, state, params, step: int):
+        # beta2 in float32, as the reference computes it from its int32 step
+        t = torch.tensor(step + 1.0, dtype=torch.float32)
+        beta2 = float(1.0 - t ** -self.decay)
+        lr = self.lr(step)
+        gflat = dict(tree_leaves(grads))
+        vrs, vcs = dict(tree_leaves(state["vr"])), dict(tree_leaves(
+            state["vc"]))
+        for path, p in tree_leaves(params):
+            g = gflat[path].float()
+            g2 = g.square().add_(self.eps)
+            vr = vrs[path]
+            if self._factored(p.shape):
+                vc = vcs[path]
+                vr.mul_(beta2).add_(g2.mean(-1).mul_(1 - beta2))
+                vc.mul_(beta2).add_(g2.mean(-2).mul_(1 - beta2))
+                del g2
+                r = vr / vr.mean(-1, keepdim=True)
+                denom = r[..., None] * vc[..., None, :]
+                del r
+            else:
+                vr.mul_(beta2).add_(g2.mul_(1 - beta2))
+                denom = vr.clone()
+            u = denom.add_(self.eps).rsqrt_().mul_(g)
+            del denom
+            rms = torch.sqrt(u.square().mean() + 1e-12)
+            u.div_(torch.clamp(rms / self.clip_rms, min=1.0))
+            _decay_step(p, u, lr, self.weight_decay)
+        return params, state
+
+
 def make_optimizer(name: str, lr: LR, weight_decay: float = 0.0,
                    **kw) -> Optimizer:
     """The optimizer a config names (``cfg.optimizer``)."""
     if name == "adamw":
         return AdamW(lr, weight_decay=weight_decay, **kw)
+    if name == "adafactor":
+        return Adafactor(lr, weight_decay=weight_decay, **kw)
     if name == "sgd":
         return SGD(lr, weight_decay=weight_decay, **kw)
-    if name == "adafactor":
-        raise NotImplementedError(
-            "Adafactor is not ported yet (ROADMAP.md queue 1, item 6.4)")
     raise KeyError(name)
 

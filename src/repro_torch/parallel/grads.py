@@ -10,19 +10,19 @@ axis that does NOT shard it:
   * not sharded over tp, at tp > 1 (the norm scales of the ``sp``
     layout, replicated KV projections, ring attention's biases, which
     each rank applies to its own sequence chunk)      -> over tp too;
-  * at pp > 1, not sharded over pp (embedding, head, norms) -> over the
-    pipe axis too.
+  * at pp > 1, not sharded over pp (embedding, head, final norm)
+    -> over the pipe axis too: only one stage computes a gradient for
+    them (the others hold zeros), and the sum gives it to every stage.
+    The pipe-sharded layer stacks keep their stage's gradients.
 
-The pp branch raises until the slice that pipelines the full model
-(ROADMAP.md queue 1, item 6) brings it.  The sums run over the rank's
-``Group``s (``parallel/axes.py``), so ``record_collectives`` logs them.
+The sums run over the rank's ``Group``s (``parallel/axes.py``), so
+``record_collectives`` logs them.  Every rank issues them in the same
+leaf order.
 """
 from __future__ import annotations
 
 from repro_torch.parallel.axes import MeshAxes
 from repro_torch.parallel.params import tree_leaves, tree_unflatten
-
-LM_PIPELINE_TODO = "ROADMAP.md queue 1, item 6 (the full-model pipeline)"
 
 
 def _spec_axes(spec) -> set:
@@ -43,8 +43,7 @@ def reduce_grads(grads, decls, axes: MeshAxes):
     for path, g in tree_leaves(grads):
         ax = _spec_axes(dflat[path].spec)
         if axes.pp > 1 and "pp" not in ax:
-            raise NotImplementedError(
-                f"gradient sums over the pipe axis: see {LM_PIPELINE_TODO}")
+            g = axes.pp_comm.all_reduce(g)
         if axes.dp > 1 and "dp" not in ax:
             g = axes.dp_comm.all_reduce(g)
         if axes.tp > 1 and "tp" not in ax:

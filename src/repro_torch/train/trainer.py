@@ -1,12 +1,14 @@
 """Training step builder and training loop for the LM families: the
 port's counterpart of the reference's ``train/trainer.py``, for the
-dense family on any dp x tp mesh of ranks.
+dense family on any pp x dp x tp mesh of ranks.
 
 ``make_train_step`` builds one rank's step: forward and backward
-(``models/model.py: forward_train``), gradient accumulation over
-microbatches, the spec-aware gradient sums (``parallel/grads.py``), the
-global gradient norm, clipping and the optimizer, as the reference's
-``shard_map``'d step does with explicit collectives.
+(``models/model.py: forward_train``, gradient accumulation over
+microbatches; at pp > 1 ``forward_train_pipeline``, the 1F1B pipeline
+over the microbatches), the spec-aware gradient sums
+(``parallel/grads.py``), the global gradient norm, clipping and the
+optimizer, as the reference's ``shard_map``'d step does with explicit
+collectives.
 
 Memory.  The reference donates parameters and optimizer state, so XLA
 updates them in place; here the optimizer updates them in place
@@ -32,10 +34,10 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import forward_train, model_decls
+from repro_torch.models.model import (forward_train, forward_train_pipeline,
+                                      model_decls)
 from repro_torch.parallel.axes import MeshAxes, resolve_device
-from repro_torch.parallel.grads import (LM_PIPELINE_TODO, _spec_axes,
-                                        reduce_grads)
+from repro_torch.parallel.grads import _spec_axes, reduce_grads
 from repro_torch.parallel.params import (materialize_shards, tree_leaves,
                                          tree_map)
 from repro_torch.telemetry import LedgerEntry, StepMeter
@@ -73,10 +75,12 @@ def local_rows(batch, axes: MeshAxes):
     return tree_map(cut, batch)
 
 
-def _grad_leaves(params, grads):
+def _grad_leaves(params, grads, pp: int = 1):
     """A tree like ``params`` whose leaves are fresh autograd leaves over
     the same storage, each with ``.grad`` preset to its part of
-    ``grads``; ``params["layers"]`` becomes a list of per-layer trees."""
+    ``grads``; ``params["layers"]`` becomes a list of per-layer trees
+    (at ``pp`` > 1 the layers of the stage's local ``[1, G/pp, ...]``
+    stack)."""
     def leaf(t, g):
         x = t.detach().requires_grad_(True)
         x.grad = g
@@ -89,9 +93,13 @@ def _grad_leaves(params, grads):
 
     out = {k: zip_map(leaf, params[k], grads[k]) for k in params
            if k != "layers"}
-    n = tree_leaves(params["layers"])[0][1].shape[0]
+    layers_p, layers_g = params["layers"], grads["layers"]
+    if pp > 1:
+        layers_p, layers_g = (tree_map(lambda t: t[0], x)
+                              for x in (layers_p, layers_g))
+    n = tree_leaves(layers_p)[0][1].shape[0]
     out["layers"] = [zip_map(lambda t, g, i=i: leaf(t[i], g[i]),
-                             params["layers"], grads["layers"])
+                             layers_p, layers_g)
                      for i in range(n)]
     return out
 
@@ -109,15 +117,17 @@ def make_train_step(cfg: ModelConfig, axes: MeshAxes, optimizer, *,
     all dp ranks, divided by tp; ``loss`` is the cross-entropy summed
     over dp over the same count.  With ``microbatches`` > 1 the
     gradients (and the reported loss) are the mean over the microbatches
-    of the batch rows, each normalised by its own token count.  The
+    of the batch rows, each normalised by its own token count.  At
+    pp > 1 the step is the reference's pipelined one instead: the
+    ``microbatches`` feed the 1F1B schedule, and each one's summed token
+    loss is divided by the global count of valid tokens over all of
+    them and all dp ranks (the objective of ``microbatches`` = 1).  The
     parameters and the optimizer state are updated in place."""
-    if axes.pp > 1:
-        raise NotImplementedError(
-            f"training the model on a pipe axis: see {LM_PIPELINE_TODO}")
     dev = resolve_device(device)
     decls = model_decls(cfg, axes)
     opt_decls = optimizer.state_decls(decls)
     M = max(microbatches, 1)
+    pipelined = axes.pp > 1
 
     def loss_fn(p, batch):
         sum_loss, n_valid, aux = forward_train(cfg, axes, p, batch)
@@ -126,11 +136,26 @@ def make_train_step(cfg: ModelConfig, axes: MeshAxes, optimizer, *,
         ce = axes.dp_comm.all_reduce(sum_loss) / nv_g
         return obj, ce
 
+    def pipeline_loss(p, batch):
+        """The reference's ``loss_fn_pipeline``, forward and backward;
+        returns the reported cross-entropy.  The valid tokens (every
+        token is valid) are counted from the labels before the schedule
+        starts.  The dense family has no auxiliary loss (the reference
+        divides it by dp x M)."""
+        n_valid = torch.tensor(batch["labels"].numel(), device=dev)
+        nv_g = axes.dp_comm.all_reduce(n_valid).float().clamp_min(1.0)
+        sum_loss = forward_train_pipeline(
+            cfg, axes, p, batch, M, lambda sl: sl / nv_g / axes.tp)
+        return axes.pp_comm.all_reduce(
+            axes.dp_comm.all_reduce(sum_loss)) / nv_g
+
     def step_fn(params, opt_state, step, batch):
         batch = tree_map(lambda x: x.to(dev), batch)
         grads = tree_map(torch.zeros_like, params)
-        leaves = _grad_leaves(params, grads)
-        if M == 1:
+        leaves = _grad_leaves(params, grads, axes.pp)
+        if pipelined:
+            ce = pipeline_loss(leaves, batch)
+        elif M == 1:
             obj, ce = loss_fn(leaves, batch)
             obj.backward()
         else:
@@ -143,7 +168,7 @@ def make_train_step(cfg: ModelConfig, axes: MeshAxes, optimizer, *,
             for _, g in tree_leaves(grads):
                 g.div_(M)
             ce = ce / M
-        del leaves, obj
+        del leaves
         grads = reduce_grads(grads, decls, axes)
         gnorm = _global_norm(grads, decls, axes)
         if grad_clip > 0:
@@ -200,9 +225,10 @@ class Trainer:
         """This rank's shards of random global parameters, drawn leaf by
         leaf on the trainer's device from a generator seeded ``seed`` on
         every rank (a host draw of phi3-mini's 15 GB would add minutes to
-        every run): the same global weights at any tp on one card type,
-        one global leaf at a time beside the shards.  The optimizer's
-        zero state."""
+        every run): the same global weights at any pp x tp on one card
+        type (a pipe-sharded stack draws the values of the unsharded
+        one), one global leaf at a time beside the shards.  The
+        optimizer's zero state."""
         params = materialize_shards(self.decls, self.axes, seed,
                                     self.device, draw_on=self.device)
         return TrainState(params, self.optimizer.init(params), 0)

@@ -442,18 +442,36 @@ def test_trainer_step_at_tp2_kernel_path_matches_plain(cuda_device):
     the four kernels launched as the 2 layers imply (forward and
     recompute), loss and gradient norm rtol 1e-5, local parameters held
     as in ``test_trainer_step_kernel_path_matches_plain``."""
+    _hold_card_step_ranks(cuda_device, pp=1, microbatches=1)
+
+
+@pytest.mark.cuda
+def test_trainer_step_at_pp2_tp2_kernel_path_matches_plain(cuda_device):
+    """The same on 4 gloo ranks sharing the card, pp 2 x tp 2: one layer
+    a stage, the 1F1B pipeline over 2 microbatches, each kernel launched
+    as a stage's layer and 2 microbatches imply."""
+    _hold_card_step_ranks(cuda_device, pp=2, microbatches=2)
+
+
+def _hold_card_step_ranks(cuda_device, pp, microbatches):
+    """``torch_ranks.card_tp_step_body`` on pp x 2 ranks, held on every
+    rank: the kernel path's launches (forward and recompute of the
+    stage's layers, once a microbatch), none on the plain path, loss and
+    gradient norm rtol 1e-5, and the local parameters rtol 1e-4 / atol
+    1e-5 plus what AdamW's first step implies near zero gradients."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.parallel.params import tree_leaves
     import torch_ranks
     build.build(["flash_attention", "phantom_fused"])
     ranks = spawn(torch_ranks.card_tp_step_body, 1, 2, cuda_device,
-                  timeout_s=300)
+                  timeout_s=300, pp=pp, args=(microbatches,))
+    n = 2 // pp * microbatches       # the phi3-smoke stage's layer passes
     lr = 1e-3
     for r in ranks:
         k, p = r["kernel"], r["plain"]
-        assert k["launches"] == {"flash_attention": 4,
-                                 "phantom_fused_matmul": 12,
-                                 "matmul_nt": 6, "matmul_tn": 6}
+        assert k["launches"] == {"flash_attention": 2 * n,
+                                 "phantom_fused_matmul": 6 * n,
+                                 "matmul_nt": 3 * n, "matmul_tn": 3 * n}
         assert set(p["launches"].values()) == {0}
         for key in ("loss", "grad_norm"):
             np.testing.assert_allclose(k[key], p[key], rtol=1e-5)

@@ -17,7 +17,7 @@ from repro.configs.base import get_config as jax_get_config
 from repro_torch.configs.base import ModelConfig, get_config
 from repro_torch.models.model import model_decls
 from repro_torch.parallel.axes import MeshAxes, resolve_device
-from repro_torch.parallel.params import materialize
+from repro_torch.parallel.params import materialize, tree_leaves
 from repro_torch.serve.engine import ServeEngine
 
 PKG_DIR = Path(repro_torch.__file__).resolve().parent
@@ -274,9 +274,10 @@ def test_unported_arch_and_family_raise():
 def test_unported_training_paths_raise(what):
     """What the trainer does not run yet raises and names its ROADMAP
     item: the dense model's serving forwards at tp > 1 (it trains there),
-    the full-model pipeline, an MLP kind no ported config uses, remat
-    policies other than full and none, checkpoints and fault
-    tolerance."""
+    an MLP kind no ported config uses, remat policies other than full
+    and none, checkpoints and fault tolerance.  The full-model pipeline,
+    which raised until it was ported, builds: its layer stacks are
+    pipe-sharded ``[pp, G/pp, ...]``."""
     from repro_torch.models.layers import norm_decls
     from repro_torch.models.blocks import block_train
     from repro_torch.optim import AdamW
@@ -292,8 +293,11 @@ def test_unported_training_paths_raise(what):
         with pytest.raises(NotImplementedError, match="tp=2.*item 1"):
             head_logits(cfg, "fp", {}, None, axes)
     elif what == "train_pp":
-        with pytest.raises(NotImplementedError, match="pipeline"):
-            make_train_step(cfg, MeshAxes(pp=2), AdamW(1e-3), device="cpu")
+        _, decls, _ = make_train_step(cfg, MeshAxes(pp=2), AdamW(1e-3),
+                                      device="cpu")
+        for _, d in tree_leaves(decls["layers"]):
+            assert d.shape[:2] == (2, cfg.num_layers // 2)
+            assert d.spec[0] == "pp"
     elif what == "norm":
         with pytest.raises(NotImplementedError, match="item 6"):
             norm_decls(cfg.replace(mlp="gelu"), "fp", 64)

@@ -50,7 +50,7 @@ from repro_torch.data.synthetic import LMDataset, lm_token_batch
 from repro_torch.launch import train as launch_train
 from repro_torch.launch.mesh import spawn
 from repro_torch.models import layers
-from repro_torch.optim import SGD, AdamW, make_optimizer
+from repro_torch.optim import SGD, Adafactor, AdamW, make_optimizer
 from repro_torch.optim import optimizers
 from repro_torch.parallel.axes import MeshAxes
 from repro_torch.parallel.params import tree_leaves
@@ -342,8 +342,8 @@ def test_make_optimizer_matches_reference_names():
                       AdamW)
     sgd = make_optimizer("sgd", 1e-3, momentum=0.9)
     assert isinstance(sgd, SGD) and sgd.momentum == 0.9
-    with pytest.raises(NotImplementedError, match="item 6.4"):
-        make_optimizer("adafactor", 1e-3)
+    ada = make_optimizer("adafactor", 1e-3, weight_decay=0.1)
+    assert isinstance(ada, Adafactor) and ada.weight_decay == 0.1
     with pytest.raises(KeyError):
         make_optimizer("lion", 1e-3)
 
@@ -407,15 +407,22 @@ def test_launch_train_runs_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("flag", ["--tp", "--pp"])
 def test_launch_train_names_the_roadmap_item(flag, capfd):
-    """``--pp`` above 1 (the full-model pipeline) raises in the launcher,
-    before any rank starts, and names its item.  ``--tp`` over ring
-    attention (qwen2.5-14b's), which raised here and named item 6 until
-    ring attention was ported, now trains."""
+    """``--tp`` over ring attention (qwen2.5-14b's) and ``--pp`` above 1
+    (the full-model pipeline), which raised here and named item 6 until
+    their slices were ported, now train: ``--pp 2 --tp 2`` on 4 gloo
+    ranks, 1F1B over 2 microbatches, printing the reference's pipeline
+    line."""
     if flag == "--tp":
         assert launch_train.main(["--arch", "qwen2.5-14b", "--device",
                                   "cpu", "--tp", "4", "--steps", "1",
                                   "--batch", "2", "--seq", "16"]) == 0
         assert "[trainer] step 1 loss " in capfd.readouterr().out
         return
-    with pytest.raises(NotImplementedError, match="queue 1, item 6"):
-        launch_train.main(["--smoke", "--device", "cpu", flag, "2"])
+    assert launch_train.main(["--smoke", "--device", "cpu", flag, "2",
+                              "--tp", "2", "--microbatches", "2",
+                              "--steps", "2", "--batch", "4",
+                              "--seq", "32"]) == 0
+    out = capfd.readouterr().out
+    assert ("[train] 1F1B pipeline: pp=2 stages x dp=1 x tp=2, 2 "
+            "microbatch(es)") in out
+    assert "[trainer] step 2 loss " in out and " ms/it" in out

@@ -346,12 +346,59 @@ def trainer_tp_body(axes, device, inputs):
                 inputs["seed"]).params)}
 
 
-def card_tp_step_body(axes, device):
+def lm_pipeline_body(axes, device, inputs):
+    """One mesh of ``tests/test_torch_lm_pipeline.py``.  Per trainer case,
+    each of the reference's steps from the reference's parameters (this
+    rank's shards) and this rank's optimizer state before it, on its
+    batch (the rank's rows): each step's loss, gradient norm, clipped
+    local gradients (as the optimizer got them) and updated local
+    parameters.
+    Given a ``draw_cfg``, also this rank's shards of
+    ``Trainer.init_state(seed)``."""
+    from repro_torch.optim import AdamW, make_optimizer
+    from repro_torch.parallel.params import from_jax_params
+    from repro_torch.train.trainer import (Trainer, local_rows,
+                                           make_train_step)
+    out = {"train": {}}
+    for name, case in inputs["train"].items():
+        opt = make_optimizer(case["optimizer"], case["lr"],
+                             weight_decay=case["weight_decay"])
+        step_fn, decls, _ = make_train_step(
+            case["cfg"], axes, opt, microbatches=case["microbatches"],
+            device=device)
+        res = {"losses": [], "grad_norms": [], "grads": [], "params": []}
+        update = opt.update
+
+        def recording(g, state, params, step, update=update, res=res):
+            res["grads"].append(tree_map(_np, g))
+            return update(g, state, params, step)
+        opt.update = recording
+        for s, (start, batch) in enumerate(zip(case["starts"],
+                                               case["batches"])):
+            params = shard_params(from_jax_params(start["params"]), decls,
+                                  axes)
+            state = (opt.init(params) if start["local_state"] is None
+                     else from_jax_params(start["local_state"][axes.rank]))
+            batch = local_rows(tree_map(torch.from_numpy, batch), axes)
+            params, state, m = step_fn(params, state, s, batch)
+            res["losses"].append(float(m["loss"]))
+            res["grad_norms"].append(float(m["grad_norm"]))
+            res["params"].append(tree_map(_np, params))
+        out["train"][name] = res
+    if inputs["draw_cfg"] is not None:
+        trainer = Trainer(inputs["draw_cfg"], axes, AdamW(1e-3), None,
+                          device=device)
+        out["draw"] = tree_map(_np, trainer.init_state(
+            inputs["seed"]).params)
+    return out
+
+
+def card_tp_step_body(axes, device, microbatches=1):
     """One float32 AdamW step of phi3-smoke (phantom MLP sites) on this
-    rank of a tp mesh, through the kernels (``"auto"``) and through plain
-    torch (``"xla"``) from one host draw: each run's loss, gradient
-    norm, clipped local gradients, updated local parameters and kernel
-    launches."""
+    rank of a pp x tp mesh over ``microbatches`` microbatches, through
+    the kernels (``"auto"``) and through plain torch (``"xla"``) from
+    one host draw: each run's loss, gradient norm, clipped local
+    gradients, updated local parameters and kernel launches."""
     from repro_torch.configs.base import get_config, with_kernel_backend
     from repro_torch.data.synthetic import LMDataset
     from repro_torch.kernels import phantom_fused as pf
@@ -373,7 +420,8 @@ def card_tp_step_body(axes, device):
         opt.update = lambda g, s, p, t, seen=seen, update=update: (
             seen.append(tree_map(_np, g)), update(g, s, p, t))[1]
         step_fn, _, _ = make_train_step(with_kernel_backend(base, backend),
-                                        axes, opt, device=device)
+                                        axes, opt, device=device,
+                                        microbatches=microbatches)
         p = tree_map(torch.clone, params)
         for k in kernels:
             k.launches = 0
