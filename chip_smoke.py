@@ -191,13 +191,43 @@ Phases (any failure exits non-zero):
    tokens/s, wire bytes and peak memory printed; then one more step with
    its collectives timed, rank 0's under ``torch.profiler``.
 
+12. the MoE family (``phase_moe``).  First, in the parent, the flash
+   kernel at olmoe-1b-7b's serving shape (B=4, S=48, H=KV=16, hd=128)
+   and a rank's at tp = 4 training (B=4, S=512, H=KV=4), and the three
+   phantom kernels at its q/k/v/o sites a rank at tp = 4 (M=2048,
+   K=N=512, PK=32), bf16, held and timed as in phases 2 and 3, and with
+   a cold L2.  (a) ``_moe_serve``: olmoe-1b-7b at full size (16 layers,
+   64 experts top-8, 6.92 B parameters, random weights from the seed)
+   through ``ServeEngine`` with phase 4's traffic; every request's 16
+   tokens, the flash kernel launched once per layer of every prefill
+   group, the routers kept in fp32; a profiled decode window; the first
+   8 requests' greedy streams on the plain backend from the same
+   weights: in float32 activations all equal to the kernel path's, in
+   bf16 as served their first tokens (the rest printed: bf16 rounding
+   moves a random model's flat logits and discrete expert choices).
+   Then 4 ranks on the card, each running ``_moe_rank``: step 1
+   at ``LM_PARITY_LAYERS`` layers, fp32, of olmoe through the kernels
+   against plain torch (phantom q/k/v/o sites, the experts behind the
+   ``fp`` all-to-alls, the aux loss printed) and at tp = 4 against
+   tp = 1 (dense sites, the ``fp`` layout), and of granite-moe-3b-a800m
+   (ring attention, tensor-partitioned experts) at tp = 4 against
+   tp = 1, held as in phase 9; then the main path: ``launch/train.py``'s
+   trainer on olmoe at full width and ``MOE_LAYERS`` layers, bf16,
+   batch 4 x seq 512, ``MOE_STEPS`` steps: losses finite, launches per
+   step and rank exactly 2, 8, 4 and 4 per layer (flash, the phantom
+   forward at 4 sites, forward and recompute; dgrad; wgrad), wire bytes
+   per step equal to ``moe_wire_bytes``; step times, tokens/s and peak
+   memory printed; then one more step with its collectives timed, rank
+   0's under ``torch.profiler``.
+
 The line before the last is the kernel table as JSON (the phantom
 kernels' 8-row shape and its launches under ``pipe_rows8``; the flash
 kernel's training launches and its hd=96 training shape under
 ``train_launches`` and ``hd96``; every kernel's tp = 4 shapes and its
 launches per step and rank under ``lm_tp4``, qwen2.5-14b's under
-``qwen_tp4``, and the pp 2 x tp 2 microbatch's under ``lm_pp``); the
-last line is
+``qwen_tp4``, the pp 2 x tp 2 microbatch's under ``lm_pp``, and
+olmoe-1b-7b's tp = 4 training under ``moe_tp4``, with flash's serving
+shape and launches under ``moe_serve``); the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
@@ -281,6 +311,19 @@ QWEN_PHANTOM_SHAPES = ((2048, 1280, 3456, 64), (2048, 3456, 1280, 64))
 LM_PP, LM_PP_TP, LM_PP_M, LM_PP_STEPS, LM_PP_PARITY_M = 2, 2, 4, 3, 2
 LM_PP_PHANTOM_SHAPES = ((512, 1536, 4096, 24), (512, 4096, 1536, 24))
 LM_PP_FLASH_SHAPE = (1, 512, 16, 16, 96)
+# phase 12: the MoE family.  olmoe-1b-7b served at full size (tp 1), and
+# trained at full width and MOE_LAYERS of its 16 layers on LM_TP ranks
+# (16 layers' fp32 AdamW state, 111 GB, exceed the card), MOE_STEPS
+# steps; granite-moe-3b-a800m's tensor partition at LM_PARITY_LAYERS
+# layers.  The kernels' shapes: flash's (B, S, H, KV, hd) at serving
+# (SLOTS x the longest mixed prompt, 16 heads of 128) and a rank's at tp 4
+# (16 / 4 heads); the phantom kernels' (M, K, N, PK) at the q/k/v/o sites
+# a rank at tp 4 (d / tp = 512, k = 8, PK = 32)
+MOE_ARCH, MOE_LAYERS, MOE_STEPS = "olmoe-1b-7b", 4, 3
+GRANITE_ARCH = "granite-moe-3b-a800m"
+MOE_SERVE_FLASH_SHAPE = (SLOTS, 48, 16, 16, 128)
+MOE_TP_FLASH_SHAPE = (LM_BATCH, LM_SEQ, 4, 4, 128)
+MOE_PHANTOM_SHAPE = (LM_BATCH * LM_SEQ, 512, 512, 32)
 
 
 # a kernel's measured keys in the kernels line
@@ -680,9 +723,10 @@ def _compare_cores(cfg, axes, params, toks):
         worst = 0.0
         for i in range(cfg.num_layers):
             lp = tree_map(lambda t: t[i], params["layers"])
-            h_k, _ = block_apply(cfg, lay, lp, h, pos, axes, kind="prefill")
-            h_x, _ = block_apply(plain, lay, lp, h, pos, axes,
-                                 kind="prefill")
+            h_k, _, _ = block_apply(cfg, lay, lp, h, pos, axes,
+                                    kind="prefill", ffn="mlp")
+            h_x, _, _ = block_apply(plain, lay, lp, h, pos, axes,
+                                    kind="prefill", ffn="mlp")
             worst = max(worst, (h_k.float() - h_x.float()).abs().max().item())
             check(_close(h_k, h_x), f"layer {i}: kernel and plain core "
                                     f"outputs disagree")
@@ -2225,22 +2269,48 @@ def phase_lm_train_tp():
             "wall_s": wall}
 
 
+def _outer_wire_bytes(cfg, batch, seq, p):
+    """The logical wire bytes one rank issues in one training step outside
+    the blocks of an LM whose stream is feature-sharded (``fp``) at tp =
+    ``p``, dp = 1, priced as ``record_collectives`` prices them
+    (``telemetry/predict.py: event_wire_bytes``: a rank's message of m
+    bytes costs m (p - 1) gathered or reduce-scattered, 2 m (p - 1) / p
+    all-reduced, m (p - 1) / p all-to-all'd, m a ppermute hop): the
+    embedding's reduce-scatter, the final norm, the loss's feature gather
+    and its vocab psums (a chunk's true-logit psum is not recomputed:
+    ``torch.utils.checkpoint`` stops at the last tensor the backward
+    needs), the tp sums of replicated biases and the global norm, each
+    forward and backward."""
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, T = cfg.resolved_head_dim(), batch * seq
+
+    def gather(m):
+        return m * (p - 1)
+
+    def reduce(m):
+        return 2 * m * (p - 1) / p
+    chunk = min(cfg.loss_chunk, seq)
+    n_chunks = seq // chunk
+    per_chunk = reduce(batch * chunk * 4) * (5 + 2 * (n_chunks > 1))
+    bias = (reduce(H * hd * 4) + 2 * reduce(kv * hd * 4)
+            if cfg.qkv_bias else 0)
+    return (2 * gather(T * d // p * act)        # embedding, fwd + bwd
+            + 2 * reduce(T * 4)                 # final norm
+            + 2 * gather(T * d // p * act)      # the loss's gather
+            + n_chunks * per_chunk
+            + cfg.num_layers * bias + reduce(4))
+
+
 def ring_wire_bytes(cfg, batch, seq, p):
     """The logical wire bytes one rank issues in one training step of a
     ring-attention model with phantom MLP sites in the ``fp`` layout at
-    tp = ``p``, dp = 1, priced as ``record_collectives`` prices them
-    (``telemetry/predict.py: event_wire_bytes``: a rank's message of m
-    bytes costs m (p - 1) gathered or reduce-scattered, 2 m (p - 1) / p
-    all-reduced, m (p - 1) / p all-to-all'd, m a ppermute hop).  Per
-    block and pass: two norm psums, the feature gather of the rank's
-    chunk, the four weights gathered on use in fp32, p - 1 hops of K and
-    of V, the all-to-all back to ``fp`` and three ghost gathers; a
-    backward pass issues the same bytes, and ``remat="full"`` repeats
-    the forward: three passes.  Around the blocks: the embedding's
-    reduce-scatter, the final norm, the loss's feature gather and its
-    vocab psums (a chunk's true-logit psum is not recomputed:
-    ``torch.utils.checkpoint`` stops at the last tensor the backward
-    needs), the tp sums of the replicated biases and the global norm."""
+    tp = ``p``, dp = 1 (``_outer_wire_bytes``' pricing).  Per block and
+    pass: two norm psums, the feature gather of the rank's chunk, the
+    four weights gathered on use in fp32, p - 1 hops of K and of V, the
+    all-to-all back to ``fp`` and three ghost gathers; a backward pass
+    issues the same bytes, and ``remat="full"`` repeats the forward:
+    three passes.  Around the blocks: ``_outer_wire_bytes``."""
     act = 2 if cfg.dtype == "bfloat16" else 4
     d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd, k = cfg.resolved_head_dim(), cfg.projection_spec("ffn_gate").k
@@ -2258,17 +2328,36 @@ def ring_wire_bytes(cfg, batch, seq, p):
              + 2 * (p - 1) * batch * C * kv * hd * act
              + batch * C * d * act * (p - 1) / p
              + 3 * gather(T * k * act))
-    chunk = min(cfg.loss_chunk, seq)
-    n_chunks = seq // chunk
-    per_chunk = reduce(batch * chunk * 4) * (5 + 2 * (n_chunks > 1))
-    bias = (reduce(H * hd * 4) + 2 * reduce(kv * hd * 4)
-            if cfg.qkv_bias else 0)
-    return (3 * cfg.num_layers * block
-            + 2 * gather(T * d // p * act)        # embedding, fwd + bwd
-            + 2 * reduce(T * 4)                   # final norm
-            + 2 * gather(T * d // p * act)        # the loss's gather
-            + n_chunks * per_chunk
-            + cfg.num_layers * bias + reduce(4))
+    return 3 * cfg.num_layers * block + _outer_wire_bytes(cfg, batch, seq, p)
+
+
+def moe_wire_bytes(cfg, batch, seq, p):
+    """The logical wire bytes one rank issues in one training step of an
+    expert-partitioned MoE model with phantom q/k/v/o sites in the ``fp``
+    layout at tp = ``p``, dp = 1 (``_outer_wire_bytes``' pricing).  Per
+    block and pass: two norm psums, four ghost gathers (the attention
+    reads the feature shard; its output stays one), the psum of the
+    router's partial logits [T, E] in fp32, and the two all-to-alls of
+    the capacity slots [E, C, d / p] in the compute dtype (C =
+    ``moe_capacity(T, E, top_k, cf)``); a backward pass issues the same
+    bytes, and ``remat="full"`` repeats the forward: three passes.
+    Around the blocks: ``_outer_wire_bytes``."""
+    from repro_torch.models.moe import moe_capacity
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    m = cfg.moe
+    d, k, T = cfg.d_model, cfg.projection_spec("attn_q").k, batch * seq
+    C = moe_capacity(T, m.num_experts, m.top_k, m.capacity_factor)
+
+    def gather(n):
+        return n * (p - 1)
+
+    def reduce(n):
+        return 2 * n * (p - 1) / p
+    block = (2 * reduce(T * 4)
+             + 4 * gather(T * k * act)
+             + reduce(T * m.num_experts * 4)
+             + 2 * m.num_experts * C * d // p * act * (p - 1) / p)
+    return 3 * cfg.num_layers * block + _outer_wire_bytes(cfg, batch, seq, p)
 
 
 class _KeepGrads:
@@ -2400,14 +2489,44 @@ def _qwen_rank(axes, device):
     return out
 
 
-def _qwen_kernels(gen):
-    """The three phantom kernels at qwen2.5-14b's per-rank shapes at tp = 4
-    (bf16): held and timed as in phase 3, and with a cold L2."""
-    out = {"cases": [], "cold": {}}
-    for shape in QWEN_PHANTOM_SHAPES:
+def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=()):
+    """The flash kernel at each (B, S, H, KV, hd), causal, and the three
+    phantom kernels at each (M, K, N, PK), all bf16: held to their plain
+    versions and timed as in phases 2 and 3, and with a cold L2.
+    Returns {"flash": [cases], "cases": [phantom cases], "cold":
+    {str([M, K, N, PK]): the phantom kernels' cold-L2 times}}."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import flash_attention
+    out = {"flash": [], "cases": [], "cold": {}}
+    for B, S, H, KV, hd in flash_shapes:
+        flash = _case(B, S, H, KV, hd, True, "bfloat16", gen)
+
+        def kern():
+            q, k, v = _flash_inputs(S, gen, B, H, KV, hd)
+            return lambda: flash_attention(q, k, v, causal=True)
+
+        def lib():
+            q, k, v = (t.transpose(1, 2) for t in _flash_inputs(
+                S, gen, B, H, KV, hd))
+            return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                          is_causal=True)
+        nbytes = sum(t.numel() * 2
+                     for t in _flash_inputs(S, gen, B, H, KV, hd))
+        flash.update(cold_ms=cold_ms(kern, nbytes),
+                     library_cold_ms=cold_ms(lib, nbytes))
+        out["flash"].append(flash)
+        print(f"{tag}: flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
+              f"bfloat16 causal: max_abs_err={flash['max_abs_err']:.3e} "
+              f"(of sum p|v|: {flash['max_rel_err']:.3e}) ok={flash['ok']} "
+              f"ms={flash['ms']:.4f} cold_ms={flash['cold_ms']:.4f} "
+              f"bound_ms={flash['bound_ms']:.5f} ({flash['bound_by']}) "
+              f"plain_ms={flash['plain_ms']:.4f} library_ms="
+              f"{flash['library_ms']:.4f} (cold "
+              f"{flash['library_cold_ms']:.4f})", flush=True)
+    for shape in phantom_shapes:
         for r in _phantom_case(*shape, "bfloat16", gen):
             out["cases"].append(r)
-            print(f"qwen_train_tp: {r['kernel']} M={r['M']} K={r['K']} "
+            print(f"{tag}: {r['kernel']} M={r['M']} K={r['K']} "
                   f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
                   f"{r['max_abs_err']:.3e} ok={r['ok']} {r['variant']} "
                   f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
@@ -2415,9 +2534,9 @@ def _qwen_kernels(gen):
                   f"library_ms={r['library_ms']:.4f}", flush=True)
         out["cold"][str(list(shape))] = _phantom_cold(*shape, gen,
                                                       dtype="bfloat16")
-    bad = [r for r in out["cases"] if not r["ok"]]
-    check(not bad, f"qwen_train_tp: phantom kernels disagree with their "
-                   f"plain versions at qwen2.5-14b's shapes: {bad}")
+    bad = [r for r in out["flash"] + out["cases"] if not r["ok"]]
+    check(not bad, f"{tag}: kernels disagree with their plain versions: "
+                   f"{bad}")
     return out
 
 
@@ -2484,7 +2603,9 @@ def phase_qwen_train_tp():
     from repro_torch.launch.mesh import spawn
     from repro_torch.launch.train import train_config
     _free()
-    kernels = _qwen_kernels(torch.Generator(device="cuda").manual_seed(SEED))
+    kernels = _timed_kernels(
+        "qwen_train_tp", torch.Generator(device="cuda").manual_seed(SEED),
+        phantom_shapes=QWEN_PHANTOM_SHAPES)
     t0 = time.perf_counter()
     ranks = spawn(_qwen_rank, 1, LM_TP, "cuda", timeout_s=900)
     wall = time.perf_counter() - t0
@@ -2647,52 +2768,6 @@ def _lm_pp_rank(axes, device):
     return out
 
 
-def _lm_pp_kernels(gen):
-    """The flash kernel and the three phantom kernels at a microbatch's
-    per-rank shapes of phi3-mini at pp 2 x tp 2 (bf16): held to their
-    plain versions and timed as in phases 2 and 3, and with a cold L2."""
-    import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import flash_attention
-    B, S, H, KV, hd = LM_PP_FLASH_SHAPE
-    flash = _case(B, S, H, KV, hd, True, "bfloat16", gen)
-
-    def kern():
-        q, k, v = _flash_inputs(S, gen, B, H, KV, hd)
-        return lambda: flash_attention(q, k, v, causal=True)
-
-    def lib():
-        q, k, v = (t.transpose(1, 2) for t in _flash_inputs(S, gen, B, H,
-                                                            KV, hd))
-        return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                      is_causal=True)
-    nbytes = sum(t.numel() * 2 for t in _flash_inputs(S, gen, B, H, KV, hd))
-    flash.update(cold_ms=cold_ms(kern, nbytes),
-                 library_cold_ms=cold_ms(lib, nbytes))
-    print(f"lm_train_pp: flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
-          f"bfloat16 causal: max_abs_err={flash['max_abs_err']:.3e} (of "
-          f"sum p|v|: {flash['max_rel_err']:.3e}) ok={flash['ok']} ms="
-          f"{flash['ms']:.4f} cold_ms={flash['cold_ms']:.4f} bound_ms="
-          f"{flash['bound_ms']:.5f} ({flash['bound_by']}) plain_ms="
-          f"{flash['plain_ms']:.4f} library_ms={flash['library_ms']:.4f} "
-          f"(cold {flash['library_cold_ms']:.4f})", flush=True)
-    out = {"flash": flash, "cases": [], "cold": {}}
-    for shape in LM_PP_PHANTOM_SHAPES:
-        for r in _phantom_case(*shape, "bfloat16", gen):
-            out["cases"].append(r)
-            print(f"lm_train_pp: {r['kernel']} M={r['M']} K={r['K']} "
-                  f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
-                  f"{r['max_abs_err']:.3e} ok={r['ok']} {r['variant']} "
-                  f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-                  f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
-                  f"library_ms={r['library_ms']:.4f}", flush=True)
-        out["cold"][str(list(shape))] = _phantom_cold(*shape, gen,
-                                                      dtype="bfloat16")
-    bad = [r for r in [flash] + out["cases"] if not r["ok"]]
-    check(not bad, f"lm_train_pp: kernels disagree with their plain "
-                   f"versions at a microbatch's pp 2 x tp 2 shapes: {bad}")
-    return out
-
-
 def lm_pp_boundary_bytes(cfg, stage):
     """The bytes stage ``stage`` sends to its neighbours in one step: the
     schedule's ``executed=False`` account (``PipelineSchedule.p2p_events``:
@@ -2770,7 +2845,9 @@ def phase_lm_train_pp():
     from repro_torch.launch.mesh import spawn
     from repro_torch.launch.train import train_config
     _free()
-    kernels = _lm_pp_kernels(torch.Generator(device="cuda").manual_seed(SEED))
+    kernels = _timed_kernels(
+        "lm_train_pp", torch.Generator(device="cuda").manual_seed(SEED),
+        (LM_PP_FLASH_SHAPE,), LM_PP_PHANTOM_SHAPES)
     t0 = time.perf_counter()
     ranks = spawn(_lm_pp_rank, 1, LM_PP_TP, "cuda", pp=LM_PP, timeout_s=900)
     wall = time.perf_counter() - t0
@@ -2843,6 +2920,398 @@ def phase_lm_train_pp():
             "wall_s": wall}
 
 
+def _moe_streams(cfg, weights, requests):
+    """Greedy token streams of ``requests`` (fresh copies) through a new
+    ``ServeEngine`` of ``cfg`` on ``weights``: the traffic of phase 4's
+    closed batch on an engine that served nothing before."""
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(cfg, weights, slots=SLOTS, max_len=MAX_LEN,
+                      page_size=PAGE, device="cuda")
+    reqs = [Request(prompt=r.prompt.copy(), max_new_tokens=NEW_TOKENS,
+                    req_id=r.req_id) for r in requests]
+    eng.run(reqs)
+    return [list(r.out_tokens) for r in reqs]
+
+
+def _agreement(a, b):
+    """Streams equal, and each pair's tokens before the first that
+    differs."""
+    def same(x, y):
+        n = 0
+        while n < min(len(x), len(y)) and x[n] == y[n]:
+            n += 1
+        return n
+    return {"equal_streams": sum(x == y for x, y in zip(a, b)),
+            "of": len(a), "tokens_before_first_difference":
+            [same(x, y) for x, y in zip(a, b)]}
+
+
+def _moe_serve():
+    """(a): olmoe-1b-7b at full size and tp = 1 through ``ServeEngine``,
+    phase 4's traffic, ``kernel_backend="pallas"``; the flash launches
+    held to the prefill groups x layers; a profiled decode window; the
+    first 8 requests' greedy streams on the plain path (``"xla"``) from
+    the same weights, in bf16 as served and in float32 activations."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config, with_kernel_backend
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import closed_batch, slo_report
+    from repro_torch.models.model import count_params, model_decls
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import bucket_of
+
+    cfg = with_kernel_backend(get_config(MOE_ARCH), "pallas")
+    t0 = time.perf_counter()
+    # float32 draw, kept for the float32 streams; the engine casts a copy
+    params = materialize(model_decls(cfg, MeshAxes()), torch.Generator(
+        device="cuda").manual_seed(SEED), "cuda")
+    eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                      page_size=PAGE, device="cuda")
+    torch.cuda.synchronize()
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     _leaves(eng.params)) / 1e9
+    router = eng.params["layers"]["ffn"]["router"]["w"]
+    check(router.dtype == torch.float32,
+          f"moe serve: the router is served in {router.dtype}")
+    n_params = count_params(cfg)
+    print(f"moe serve: {cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
+          f"experts={cfg.moe.num_experts} top-{cfg.moe.top_k} params="
+          f"{n_params:,} (active {count_params(cfg, active_only=True):,}); "
+          f"weights on card {weights_gb:.2f} GB (routers and head fp32), "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+
+    closed = closed_batch(cfg.vocab_size, 8, 16, NEW_TOKENS, SEED)
+    rng = np.random.RandomState(SEED + 1)
+    mixed = [Request(prompt=rng.randint(0, cfg.vocab_size, n)
+                     .astype(np.int32), max_new_tokens=NEW_TOKENS,
+                     req_id=100 + i) for i, n in enumerate(MIXED_LENS)]
+    eng.warmup(sorted({bucket_of(n, PAGE) for n in MIXED_LENS + (16,)}))
+
+    # --- the main path: counts from zero, read right after ---------------
+    torch.cuda.reset_peak_memory_stats()
+    groups0 = eng.prefill_meter.calls
+    flash_attention.launches = 0
+    eng.run(closed)
+    rep_closed = slo_report(closed)
+    for r in mixed:
+        r.arrival_s = eng.now_s
+    eng.run(mixed)
+    launches = flash_attention.launches
+    groups = eng.prefill_meter.calls - groups0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rep_mixed = slo_report(mixed)
+    for r in closed + mixed:
+        check(r.done and len(r.out_tokens) == NEW_TOKENS,
+              f"moe serve: request {r.req_id} ended with "
+              f"{len(r.out_tokens)} tokens")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"moe serve: request {r.req_id} sampled out-of-vocab tokens")
+    check(launches == groups * cfg.num_layers,
+          f"moe serve: flash kernel launched {launches} times for {groups} "
+          f"prefill groups x {cfg.num_layers} layers")
+    for name, rep in (("closed", rep_closed), ("mixed", rep_mixed)):
+        print(f"moe serve {name}: requests={rep['requests']} "
+              f"tokens={rep['generated_tokens']} "
+              f"TTFT p50={rep['ttft_ms']['p50']:.3f} ms "
+              f"TPOT p50={rep['tpot_ms']['p50']:.3f} ms "
+              f"tokens/s={rep['tokens_per_s']:.1f}", flush=True)
+    print(f"moe serve: prefill groups={groups} flash launches={launches}; "
+          f"peak memory {peak_gb:.2f} GB (the float32 draw held beside the "
+          f"engine); prefill step median "
+          f"{eng.prefill_meter.median_us() / 1e3:.3f} ms, decode "
+          f"{eng.decode_meter.median_us() / 1e3:.3f} ms", flush=True)
+    profile = _profile_decode(eng, cfg)
+
+    # --- the backends on the same weights, outside the main path --------
+    plain = with_kernel_backend(cfg, "xla")
+    main = [list(r.out_tokens) for r in closed]
+    bf16 = _agreement(main, _moe_streams(plain, eng.params, closed))
+    del eng
+    _free()
+    fp32 = _agreement(
+        _moe_streams(cfg.replace(dtype="float32"), params, closed),
+        _moe_streams(plain.replace(dtype="float32"), params, closed))
+    print(f"moe serve: greedy streams of the first 8 requests, kernel vs "
+          f"plain backend on the same weights: bf16 as served {bf16}; "
+          f"float32 activations {fp32}", flush=True)
+    # float32: the same function, the same tokens.  bf16: the kernel
+    # rounds P and its output where the plain core keeps float32, and 16
+    # layers of it move a random model's flat logits and its discrete
+    # expert choices; the prefill's first token is held, the rest printed
+    check(fp32["equal_streams"] == fp32["of"],
+          f"moe serve: float32 greedy streams differ between the kernel "
+          f"and the plain backend: {fp32}")
+    check(min(bf16["tokens_before_first_difference"]) >= 1,
+          f"moe serve: bf16 first tokens differ between the kernel and the "
+          f"plain backend: {bf16}")
+    del params
+    _free()
+    return {"launches": launches, "prefill_groups": groups,
+            "params": n_params, "weights_gb": weights_gb,
+            "peak_memory_gb": peak_gb, "closed": rep_closed,
+            "mixed": rep_mixed, "decode_profile": profile,
+            "streams_bf16": bf16, "streams_float32": fp32}
+
+
+def _moe_rank(axes, device):
+    """``phase_moe`` inside one of the ``LM_TP`` ranks sharing the card:
+    (a) olmoe-1b-7b's step 1 at full width and ``LM_PARITY_LAYERS``
+    layers, fp32, through the kernels against plain torch (phantom
+    q/k/v/o sites, ``fp``), and each path's aux loss; (b) tp = 4 against
+    tp = 1, loss and gradients, with its attention sites dense and the
+    stream still feature-sharded (``phantom_projection_map(k,
+    ffn=True)``: olmoe has no MLP site, so every projection is dense and
+    every rank routes every token, the function of tp = 1; phantom
+    factors differ with tp), one rank at a time holding the tp = 1
+    model; (c) granite-moe-3b-a800m (ring attention, tensor-partitioned
+    experts, ``sp``) at ``LM_PARITY_LAYERS`` layers, fp32, one AdamW
+    step at tp = 4 against tp = 1; (d) the main path, olmoe-1b-7b at
+    ``MOE_LAYERS`` layers, bf16, ``MOE_STEPS`` steps and one more
+    profiled (``_lm_tp_train``)."""
+    import torch
+    from repro_torch.configs.base import (phantom_projection_map,
+                                          with_kernel_backend)
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.model import forward_train, model_decls
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize_shards, shard_params
+
+    out = {"rank": axes.rank}
+    one = MeshAxes()
+    args = _lm_args(["--steps", str(MOE_STEPS)], arch=MOE_ARCH)
+    base = train_config(args).replace(num_layers=MOE_LAYERS)
+    cut = base.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
+    batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
+                      device=device)(0)
+    sched = warmup_cosine(3e-4, 20, MOE_STEPS)
+
+    # (a) kernels against plain, phantom q/k/v/o sites, float32
+    params = materialize_shards(model_decls(cut, axes), axes, SEED, device,
+                                draw_on=device)
+    res, launches, aux = {}, {}, {}
+    for name, backend in (("kernel", "auto"), ("plain", "xla")):
+        c = with_kernel_backend(cut, backend)
+        res[name], launches[name], eps = _tp_step1(c, axes, device, params,
+                                                   batch, sched)
+        with torch.no_grad():
+            aux[name] = float(forward_train(c, axes, params, batch)[2])
+    out["kernel_vs_plain"] = {
+        part: _step1_diff(res, part, sched(0), eps)
+        for part in ("loss", "grads", "params")}
+    out["kernel_vs_plain"].update(
+        launches=launches, aux_values=aux,
+        loss_values={n: float(r["loss"]) for n, r in res.items()})
+    del params, res
+    _free()
+
+    # (b) tp = 4 against tp = 1, the fp layout with dense sites
+    fp_dense = with_kernel_backend(cut.replace(
+        projections=phantom_projection_map(cut.projection_spec(
+            "attn_q").k, ffn=True)), "auto")
+    decls = model_decls(fp_dense, axes)
+    params = materialize_shards(decls, axes, SEED, device, draw_on=device)
+    mine = _grads_step1(fp_dense, axes, device, params, batch)
+    del params
+    _free()
+    for turn in range(axes.tp):
+        if turn == axes.tp_rank:
+            params = materialize_shards(model_decls(fp_dense, one), one,
+                                        SEED, device, draw_on=device)
+            full = _grads_step1(fp_dense, one, device, params, batch)
+            del params
+            res = {"kernel": mine, "plain": {
+                "loss": full["loss"],
+                "grads": shard_params(full["grads"], decls, axes)}}
+            del full
+            out["tp4_vs_tp1"] = {part: _step1_diff(res, part, 0.0, eps)
+                                 for part in ("loss", "grads")}
+            out["tp4_vs_tp1"]["loss_values"] = {
+                "tp4": float(res["kernel"]["loss"]),
+                "tp1": float(res["plain"]["loss"])}
+            del res
+            _free()
+        # one rank at a time holds the tp = 1 model
+        axes.tp_comm.all_reduce(torch.zeros(1, device=device))
+    del mine
+    _free()
+
+    # (c) granite-moe-3b: the tensor partition, tp = 4 against tp = 1
+    gargs = _lm_args([], arch=GRANITE_ARCH)
+    granite = train_config(gargs).replace(num_layers=LM_PARITY_LAYERS,
+                                          dtype="float32")
+    gbatch = LMDataset(granite.vocab_size, gargs.batch, gargs.seq + 1,
+                       device=device)(0)
+    gdecls = model_decls(granite, axes)
+    params = materialize_shards(gdecls, axes, SEED, device, draw_on=device)
+    res = {}
+    res["kernel"], glaunch, _ = _tp_step1(granite, axes, device, params,
+                                          gbatch, sched)
+    del params
+    params = materialize_shards(model_decls(granite, one), one, SEED,
+                                device, draw_on=device)
+    full, _, _ = _tp_step1(granite, one, device, params, gbatch, sched)
+    del params
+    res["plain"] = {key: full[key] if key == "loss" else
+                    shard_params(full[key], gdecls, axes)
+                    for key in ("loss", "grads", "params")}
+    del full
+    out["granite_tp4_vs_tp1"] = {
+        part: _step1_diff(res, part, sched(0), eps)
+        for part in ("loss", "grads", "params")}
+    out["granite_tp4_vs_tp1"].update(
+        launches=glaunch,
+        loss_values={"tp4": float(res["kernel"]["loss"]),
+                     "tp1": float(res["plain"]["loss"])})
+    del res
+    _free()
+
+    # (d) the main path --------------------------------------------------
+    out["main"] = _lm_tp_train(axes, device, base, args, MOE_STEPS,
+                               profile=True)
+    return out
+
+
+def _moe_held(ranks, cfg):
+    """Hold every rank's (a), (b), (c), the launches of (a), (c) and of the
+    main path, its losses and its wire bytes against ``moe_wire_bytes``;
+    returns the worst of (a), (b), (c) over the ranks."""
+    import math
+    L, n = LM_PARITY_LAYERS, cfg.num_layers
+    none = {"flash_attention": 0, "phantom_fused_matmul": 0, "matmul_nt": 0,
+            "matmul_tn": 0}
+
+    def path(layers):   # four phantom sites and flash, fwd and recompute
+        return {"flash_attention": 2 * layers,
+                "phantom_fused_matmul": 8 * layers,
+                "matmul_nt": 4 * layers, "matmul_tn": 4 * layers}
+    want = {"kernel_vs_plain": {"kernel": path(L), "plain": none},
+            "granite_tp4_vs_tp1": none}
+    wire = moe_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP)
+    worst = {}
+    for r in ranks:
+        rk = r["rank"]
+        for key in ("kernel_vs_plain", "tp4_vs_tp1", "granite_tp4_vs_tp1"):
+            parts = ("loss", "grads") + (("params",) if key != "tp4_vs_tp1"
+                                         else ())
+            for part in parts:
+                diff = r[key][part]
+                check(diff["outside"] == 0,
+                      f"moe rank {rk}: {key} {part} differ in "
+                      f"{diff['outside']} of {diff['elements']} elements: "
+                      f"{diff}")
+                w = worst.setdefault(key, {}).setdefault(part, {})
+                for k, v in diff.items():
+                    w[k] = max(w.get(k, 0), v)
+            check(r[key]["grads"]["max_scaled_err"] <= STEP1_TOL["rtol"],
+                  f"moe rank {rk}: {key} gradients differ by more than 1e-4 "
+                  f"of the largest: {r[key]['grads']}")
+            if key in want:
+                check(r[key]["launches"] == want[key],
+                      f"moe rank {rk}: {key} launches "
+                      f"{r[key]['launches']}, want {want[key]}")
+        m = r["main"]
+        check(all(math.isfinite(v) for v in m["losses"] + m["grad_norms"]),
+              f"moe rank {rk}: non-finite loss or gradient norm: "
+              f"{m['losses']} {m['grad_norms']}")
+        check(m["launches_per_step"] == path(n),
+              f"moe rank {rk}: launches per step {m['launches_per_step']}, "
+              f"want {path(n)} (flash and the phantom forward at 4 sites, "
+              f"forward and recompute)")
+        check(m["wire_bytes_per_step"] == wire,
+              f"moe rank {rk}: {m['wire_bytes_per_step']:.0f} wire bytes a "
+              f"step, predicted {wire:.0f}")
+    return worst
+
+
+def phase_moe():
+    """The MoE family: the kernels at olmoe-1b-7b's shapes, its serving at
+    full size (``_moe_serve``), then ``LM_TP`` ranks sharing the card
+    (gloo, card tensors through the host) running ``_moe_rank``."""
+    import statistics as st
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import train_config
+    _free()
+    kernels = _timed_kernels(
+        "moe", torch.Generator(device="cuda").manual_seed(SEED),
+        (MOE_SERVE_FLASH_SHAPE, MOE_TP_FLASH_SHAPE), (MOE_PHANTOM_SHAPE,))
+    serve = _moe_serve()
+    t0 = time.perf_counter()
+    ranks = spawn(_moe_rank, 1, LM_TP, "cuda", timeout_s=900)
+    wall = time.perf_counter() - t0
+    cfg = train_config(_lm_args([], arch=MOE_ARCH)).replace(
+        num_layers=MOE_LAYERS)
+    worst = _moe_held(ranks, cfg)
+    for key, what in (
+            ("kernel_vs_plain", f"(a) {cfg.name}, kernels vs plain"),
+            ("tp4_vs_tp1", f"(b) {cfg.name}, fp dense sites, tp=4 vs tp=1"),
+            ("granite_tp4_vs_tp1",
+             f"(c) {GRANITE_ARCH}, tensor partition, tp=4 vs tp=1")):
+        w = worst[key]
+        print(f"moe: {what} at {LM_PARITY_LAYERS} layers, step 1, float32, "
+              f"worst over ranks (rtol 1e-4 / atol 1e-5): loss "
+              f"{w['loss']['max_abs_err']:.3e} (values "
+              f"{ranks[0][key]['loss_values']}), grads "
+              f"{w['grads']['max_abs_err']:.3e} "
+              f"({w['grads']['max_scaled_err']:.3e} of the largest)"
+              + (f", params {w['params']['max_abs_err']:.3e}; near-zero "
+                 f"gradients {w['params']['near_zero_grad']} per rank at "
+                 f"most, differing by up to "
+                 f"{w['params']['max_abs_err_near_zero_grad']:.3e} (implied "
+                 f"{w['params']['max_implied_near_zero_grad']:.3e})"
+                 if "params" in w else "")
+              + f"; elements outside 0 of {w['grads']['elements']} per rank "
+              f"at most", flush=True)
+    print(f"moe: (a) aux loss (summed over the layers; the objective adds "
+          f"0.01 x aux / dp) {ranks[0]['kernel_vs_plain']['aux_values']}",
+          flush=True)
+    main = [r["main"] for r in ranks]
+    med = [st.median(m["step_ms"][1:]) for m in main]
+    tokens = LM_BATCH * LM_SEQ
+    wire = moe_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP)
+    print(f"moe: (d) {cfg.name} phantom q/k/v/o, experts over all-to-all, "
+          f"tp={LM_TP}, layers={cfg.num_layers}, batch {LM_BATCH} x seq "
+          f"{LM_SEQ}, bf16, remat={cfg.remat}: losses "
+          f"{[round(v, 4) for v in main[0]['losses']]}; per-rank step ms "
+          f"{[[round(v, 1) for v in m['step_ms']] for m in main]}, median "
+          f"of steps 2-{MOE_STEPS} {[round(v, 1) for v in med]}; "
+          f"{tokens / max(med) * 1e3:.1f} tokens/s (slowest rank); launches "
+          f"per step per rank {main[0]['launches_per_step']}; local "
+          f"parameters per rank {main[0]['params_local']:,}", flush=True)
+    print(f"moe: (d) wire bytes per step per rank "
+          f"{[round(m['wire_bytes_per_step']) for m in main]}, predicted "
+          f"{wire:.0f} (moe_wire_bytes); by collective (rank 0): "
+          f"{main[0]['collectives_per_step']}", flush=True)
+    print(f"moe: (d) peak memory per rank (GB) "
+          f"{[round(m['peak_memory_gb'], 2) for m in main]}; card used "
+          f"(GB, as each rank read it after its run) "
+          f"{[round(m['card_used_gb'], 2) for m in main]}", flush=True)
+    prof = [m["profile"] for m in main]
+    print(f"moe: (d) one more step, collectives timed on every rank (rank 0 "
+          f"also profiled): wall ms {[round(p['wall_ms'], 1) for p in prof]}"
+          f", in collectives (copies and gloo) "
+          f"{[round(p['collective_ms'], 1) for p in prof]} over "
+          f"{prof[0]['calls']} calls, waiting for the card before them "
+          f"{[round(p['device_wait_ms'], 1) for p in prof]}; rank 0's "
+          f"device {prof[0]['device_ms']} ms (busy "
+          f"{prof[0]['device_busy_share']}), by kind "
+          f"{prof[0]['device_ms_by_kind']}, {prof[0]['device_ops']} device "
+          f"ops; top: "
+          f"{ {k: round(v, 3) for k, v in prof[0]['top_device_ms'].items()} }",
+          flush=True)
+    print(f"moe: the ranks took {wall:.1f} s", flush=True)
+    return {"kernels": kernels, "serve": serve, "ranks": ranks,
+            "worst": worst, "median_step_ms": med,
+            "tokens_per_s": tokens / max(med) * 1e3,
+            "launches_per_step": main[0]["launches_per_step"],
+            "wire_bytes_predicted": wire, "wall_s": wall}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2869,6 +3338,7 @@ def main() -> int:
     lm_tp = phase_lm_train_tp()
     qwen = phase_qwen_train_tp()
     lm_pp = phase_lm_train_pp()
+    moe = phase_moe()
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
     print(f"ledger written to {path}")
     ledger = ledger.report()
@@ -2902,8 +3372,17 @@ def main() -> int:
         "lm_pp": {"shape": list(LM_PP_FLASH_SHAPE),
                   "launches_per_step_per_rank":
                       lm_pp["launches_per_step"]["flash_attention"],
-                  **{key: lm_pp["kernels"]["flash"][key]
-                     for key in TIMED + ("cold_ms",)}}}]
+                  **{key: lm_pp["kernels"]["flash"][0][key]
+                     for key in TIMED + ("cold_ms",)}},
+        "moe_serve": {"shape": list(MOE_SERVE_FLASH_SHAPE),
+                      "launches": moe["serve"]["launches"],
+                      **{key: moe["kernels"]["flash"][0][key]
+                         for key in TIMED + ("cold_ms",)}},
+        "moe_tp4": {"shape": list(MOE_TP_FLASH_SHAPE),
+                    "launches_per_step_per_rank":
+                        moe["launches_per_step"]["flash_attention"],
+                    **{key: moe["kernels"]["flash"][1][key]
+                       for key in TIMED + ("cold_ms",)}}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -2953,6 +3432,16 @@ def main() -> int:
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
                            for r in lm_pp["kernels"]["cases"]
+                           if r["kernel"] == name]},
+            "moe_tp4": {
+                "launches_per_step_per_rank":
+                    moe["launches_per_step"][name],
+                "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
+                            **{key: r[key] for key in TIMED},
+                            "cold_ms": moe["kernels"]["cold"][str(
+                                [r["M"], r["K"], r["N"], r["PK"]])][name][
+                                "cold_ms"]}
+                           for r in moe["kernels"]["cases"]
                            if r["kernel"] == name]}})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -2960,7 +3449,7 @@ def main() -> int:
         {"device": device, "flash": flash, "phantom": phantom,
          "serve": serve, "train": train, "pipeline": pipeline,
          "lm_train": lm, "lm_train_tp": lm_tp, "qwen_train_tp": qwen,
-         "lm_train_pp": lm_pp,
+         "lm_train_pp": lm_pp, "moe": moe,
          "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,13 +1,14 @@
 """Config system of the PyTorch port: its own copy of the JAX package's
-``configs/base.py``, cut down to what the dense and paper-FFN families
-read.
+``configs/base.py``, cut down to what the dense, MoE and paper-FFN
+families read.
 
 Plain dataclasses, no framework imports.  Field names, defaults and the
 projection-site resolution are the reference's, so a config built here
 compares field by field with its counterpart there (the tests check
 that for every ported config).  Fields that only other families or
-unported features read (MoE, SSM, encoder-decoder, vision, FSDP, the KV
-cache's quantisation) are left out until the slice that ports them.
+unported features read (SSM, encoder-decoder, vision, FSDP, the KV
+cache's quantisation) are left out until the slice that ports them; the
+tests hold every ported config to the reference's default for each.
 """
 from __future__ import annotations
 
@@ -16,6 +17,21 @@ import importlib
 import warnings
 from dataclasses import dataclass, field
 from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int
+    top_k: int
+    d_ff_expert: int
+    # MoE on the layers where (layer_idx % every_n) == offset
+    every_n: int = 1
+    offset: int = 0
+    # "expert": the expert dim sharded over the model axis (E % tp == 0);
+    # "tensor": each expert's d_ff sharded over the model axis
+    partition: str = "expert"
+    capacity_factor: float = 1.25
+    router_jitter: float = 0.0
 
 
 @dataclass(frozen=True)
@@ -164,7 +180,7 @@ def with_kernel_backend(cfg: "ModelConfig",
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # "dense" | "ffn" are ported
+    family: str                     # "dense" | "moe" | "ffn" are ported
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -181,6 +197,8 @@ class ModelConfig:
     rope: str = "full"              # full | partial | none (mrope: later)
     rope_fraction: float = 1.0      # chatglm3 "2d rope" == 0.5
     rope_theta: float = 10000.0
+
+    moe: Optional[MoEConfig] = None
 
     ffn_impl: str = "dense"         # legacy shim, see projection_spec
     phantom: PhantomConfig = field(default_factory=PhantomConfig)
@@ -281,6 +299,8 @@ class ShapeConfig:
 # slices that port their families
 _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
+    "granite-moe-3b-a800m": "granite_moe_3b",
+    "olmoe-1b-7b": "olmoe_1b_7b",
     "phi3-mini-3.8b": "phi3_mini",
     "qwen2.5-14b": "qwen2_5_14b",
     "stablelm-3b": "stablelm_3b",

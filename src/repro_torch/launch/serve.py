@@ -4,6 +4,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
       --requests 8                        # on the card, full size
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
+      --requests 8                        # MoE, on the card, full size
 
 Weights are random, drawn from ``--seed``.  ``--dp``/``--tp`` above 1
 raise until the collectives slice; the reference's ``--route auto``,

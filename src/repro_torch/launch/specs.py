@@ -1,6 +1,6 @@
 """Shapes and dtypes of the model's inputs and of its decode cache for
 one (arch x shape) cell, without allocating (the reference's
-``input_specs`` / ``cache_specs``, for the dense family)."""
+``input_specs`` / ``cache_specs``, for the dense and MoE families)."""
 from __future__ import annotations
 
 import torch

@@ -1,4 +1,4 @@
-"""Train an LM of the dense family: the port's counterpart of the
+"""Train an LM of the dense or MoE family: the port's counterpart of the
 reference's ``python -m repro.launch.train`` (its non-elastic path
 without a plan).
 
@@ -13,6 +13,8 @@ without a plan).
         --arch qwen2.5-14b --device cpu --tp 2   # ring attention
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
         --device cpu --pp 2 --tp 2 --microbatches 2   # 1F1B, 4 ranks
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch olmoe-1b-7b --device cpu --tp 2 --steps 2   # MoE
 
 builds ``Trainer(cfg, axes, make_optimizer(cfg.optimizer,
 warmup_cosine(3e-4, 20, steps), weight_decay=0.1), LMDataset(...))``
@@ -24,12 +26,15 @@ spawn``, rank ``(s * dp + d) * tp + t``), each on its rows of the batch
 and its shards of the model: ``--impl phantom`` (the default) keeps the
 residual stream feature-sharded (``fp``), ``--impl dense`` runs the
 Megatron sequence-parallel baseline (``sp``).  A config with
-``attn_shard="ring"`` (qwen2.5-14b), or a ``--tp`` that does not divide
-the heads, runs ring attention.  ``--pp`` above 1 cuts the layers into
-that many stages and runs the 1F1B pipeline over ``--microbatches``
-microbatches.  The run is on the card unless ``--device cpu`` is given;
+``attn_shard="ring"`` (qwen2.5-14b, granite-moe-3b-a800m), or a ``--tp``
+that does not divide the heads, runs ring attention.  The MoE configs
+(olmoe-1b-7b: experts over all-to-all; granite-moe-3b-a800m: each
+expert's d_ff sharded) add their balance loss to the objective.
+``--pp`` above 1 cuts the layers into that many stages and runs the
+1F1B pipeline over ``--microbatches`` microbatches.  The run is on the card unless ``--device cpu`` is given;
 ``--smoke`` (the default) takes the config's reduced geometry,
-``--full`` the published one.
+``--full`` the published one; ``--layers`` cuts its depth (olmoe-1b-7b's
+16 layers of fp32 AdamW state, 111 GB, exceed one card).
 ``--plan``, ``--elastic`` and ``--ckpt-dir`` are ROADMAP.md queue 1,
 item 8.
 """
@@ -64,6 +69,8 @@ def build_parser():
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--pp", type=int, default=1,
@@ -82,6 +89,8 @@ def build_parser():
 def train_config(args):
     """The arch's config as the flags select it."""
     cfg = get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        cfg = cfg.replace(num_layers=args.layers)
     if args.impl == "dense":
         cfg = cfg.replace(projections=dense_projection_map())
     if args.kernel_backend:

@@ -93,13 +93,14 @@ def gather_on_use(w, axes: MeshAxes, dim: int = 0):
 # ---------------------------------------------------------------------------
 
 def _require(cfg):
-    """The norm and MLP kinds of the ported dense configs; the
-    reference's gelu and relu MLPs arrive with the configs that use
-    them."""
+    """The norm and MLP kinds of the ported dense and MoE configs (the
+    MoE experts are SwiGLU too); the reference's gelu and relu MLPs
+    arrive with the configs that use them."""
     if cfg.norm not in ("rmsnorm", "layernorm") or cfg.mlp != "swiglu":
         raise NotImplementedError(
             f"norm={cfg.norm!r} mlp={cfg.mlp!r}: only rmsnorm or layernorm "
-            f"with swiglu are ported (ROADMAP.md queue 1, item 6)")
+            f"with swiglu MLPs and experts are ported (ROADMAP.md queue 1, "
+            f"item 6)")
 
 
 def norm_decls(cfg, layout: str, d: int):

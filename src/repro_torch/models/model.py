@@ -1,5 +1,5 @@
-"""Model assembly for the dense family: decls, and the training, prefill
-and decode forwards.
+"""Model assembly for the dense and MoE families: decls, and the
+training, prefill and decode forwards.
 
 Parameters are the reference's tree (layers stacked on axis 0; on a
 pipe axis ``[pp, G/pp, ...]``, each stage's slice of the stack); the
@@ -10,7 +10,8 @@ of its own).  The residual stream keeps the reference's layout
 (``models/layers.py: residual_layout``): feature-sharded where a site is
 phantom, sequence-sharded otherwise.  Training runs at any pp x dp x tp
 (``forward_train_pipeline`` at pp > 1); prefill and decode (serving) at
-tp = 1.
+tp = 1.  An MoE block adds its balance loss to the training forward's
+``aux`` (the reference's scan carry).
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.blocks import block_apply, block_decls, block_train
+from repro_torch.models.blocks import (block_apply, block_decls,
+                                       block_train, layer_plan)
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_decls,
                                        head_decls, head_logits, norm_apply,
                                        norm_decls, residual_layout,
@@ -32,20 +34,33 @@ from repro_torch.train.pipeline import (pipeline_run,
                                         split_batch_microbatches)
 
 
-def _require_dense(cfg: ModelConfig):
-    if cfg.family != "dense":
+PORTED_FAMILIES = ("dense", "moe")
+
+
+def _layer_ffn(cfg: ModelConfig) -> str:
+    """The FFN kind of every layer ("mlp" or "moe"): the port's families
+    repeat one block, which the reference scans as a period of 1; the
+    superblocks of its hybrid stacks arrive with the hybrid family."""
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; only 'dense' "
+            f"family {cfg.family!r} is not ported; only {PORTED_FAMILIES} "
             f"(ROADMAP.md queue 1 lists the families still to port)")
+    kinds = {ffn for _, ffn in layer_plan(cfg)}
+    if len(kinds) != 1 or not kinds <= {"mlp", "moe"}:
+        raise NotImplementedError(
+            f"layer plan with FFNs {sorted(map(str, kinds))}: the port "
+            f"repeats one block (ROADMAP.md queue 1, item 6)")
+    return kinds.pop()
 
 
 def model_decls(cfg: ModelConfig, axes: MeshAxes):
-    _require_dense(cfg)
+    ffn = _layer_ffn(cfg)
     layout = residual_layout(cfg, "train")
     d = {"embed": embed_decls(cfg),
          "final_norm": norm_decls(cfg, layout, cfg.d_model),
          "head": head_decls(cfg),
-         "layers": stack(block_decls(cfg, axes, layout), cfg.num_layers)}
+         "layers": stack(block_decls(cfg, axes, layout, ffn),
+                         cfg.num_layers)}
     if axes.pp > 1:
         d["layers"] = _pp_shard_layer_decls(d["layers"], axes.pp)
     pdt = dtype_of(cfg.param_dtype)
@@ -76,20 +91,32 @@ def _require_one_rank(axes: MeshAxes, what: str):
                                   f"{SERVE_TP_TODO}")
 
 
-def count_params(cfg: ModelConfig, tp: int = 1) -> int:
-    return param_count(model_decls(cfg, MeshAxes(tp=tp)))
+def count_params(cfg: ModelConfig, tp: int = 1,
+                 active_only: bool = False) -> int:
+    """Parameters of the decls at ``tp``; ``active_only`` leaves out the
+    experts a token does not reach (all but top_k of E, on every MoE
+    layer), as the reference counts them."""
+    total = param_count(model_decls(cfg, MeshAxes(tp=tp)))
+    if active_only and cfg.moe is not None:
+        m = cfg.moe
+        n_moe = sum(1 for _, ffn in layer_plan(cfg) if ffn == "moe")
+        per_layer = m.num_experts * cfg.d_model * m.d_ff_expert * 3
+        total -= int(per_layer * (1 - m.top_k / m.num_experts) * n_moe)
+    return total
 
 
 def serving_params(cfg: ModelConfig, params, device=None):
     """Move params to ``device`` and cast, once, every leaf that the
     reference casts to the compute dtype on each call: all but the norm
-    scales and the logit head, which it computes in float32.  The
+    scales, the logit head and the MoE routers, which it computes in
+    float32 (a router rounded to bf16 would pick other experts).  The
     numbers are identical, and the card holds the projection weights in
     bf16 instead of fp32 (12.5 GB instead of 25 GB for chatglm3-6b)."""
     dt = dtype_of(cfg.dtype)
     flat = {}
     for path, t in tree_leaves(params):
-        keep_fp32 = path.startswith("head/") or "norm" in path
+        keep_fp32 = (path.startswith("head/") or "norm" in path
+                     or path.endswith("ffn/router/w"))
         flat[path] = t.to(device=device,
                           dtype=t.dtype if keep_fp32 else dt)
     return tree_unflatten(params, flat)
@@ -110,25 +137,30 @@ def _layer(params, i: int, pp: int = 1):
 def forward_train(cfg: ModelConfig, axes: MeshAxes, params, batch):
     """batch {"tokens", "labels"}: [B, S] -> (sum_loss, n_valid, aux),
     this rank's contributions before the sums over dp (the model axis is
-    reduced inside the loss); aux (the MoE balance loss) is 0 for the
-    dense family.  Each block runs under ``block_train``'s recompute
-    policy (``cfg.remat``)."""
-    _require_dense(cfg)
+    reduced inside the loss); aux is the MoE layers' summed balance loss
+    (0 for the dense family).  Each block runs under ``block_train``'s
+    recompute policy (``cfg.remat``)."""
+    ffn = _layer_ffn(cfg)
     layout = residual_layout(cfg, "train")
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
+    aux = torch.zeros((), device=h.device)
     for i in range(cfg.num_layers):
-        h = block_train(cfg, layout, _layer(params, i), h, positions, axes)
+        h, a = block_train(cfg, layout, _layer(params, i), h, positions,
+                           axes, ffn)
+        if a is not None:
+            aux = aux + a
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
     sum_loss, n_valid = xent_loss(cfg, layout, params["head"], h,
                                   batch["labels"], axes)
-    return sum_loss, n_valid, torch.zeros((), device=h.device)
+    return sum_loss, n_valid, aux
 
 
 def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
-                           microbatches: int, objective):
+                           microbatches: int, objective,
+                           aux_weight: float = 0.0):
     """The training pass of this rank's pipeline stage, forward AND
     backward: the port's ``pipeline_run`` interleaves the two in the 1F1B
     order, where the reference differentiates its wavefront afterwards.
@@ -139,16 +171,19 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
     ``cfg.remat``); the last stage applies the final norm, the head and
     the loss, and back-propagates ``objective(sum_loss_i)``, microbatch
     ``i``'s share of the objective (a scalar), from its summed token
-    loss.  The stream crosses stage boundaries in its layout's local
-    shape, in the compute dtype.  The parameters' ``.grad`` accumulate
-    over the microbatches.
+    loss.  Each stage also back-propagates ``aux_weight`` times the
+    balance loss of its own MoE layers on each microbatch (the
+    reference's ``AUX_LOSS_WEIGHT / (dp M tp)``).  The stream crosses
+    stage boundaries in its layout's local shape, in the compute dtype.
+    The parameters' ``.grad`` accumulate over the microbatches.
 
-    Returns the summed token loss of the rank's microbatches on the last
-    stage, 0 on the others (the dense family has no auxiliary loss).
-    The caller counts the valid tokens from the labels before the
-    schedule starts: the objective divides by the global count before
-    the first backward."""
-    _require_dense(cfg)
+    Returns (sum_loss, aux): the summed token loss of the rank's
+    microbatches on the last stage, 0 on the others, and the balance
+    loss of the stage's layers summed over the microbatches (0 for the
+    dense family).  The caller counts the valid tokens from the labels
+    before the schedule starts: the objective divides by the global
+    count before the first backward."""
+    ffn = _layer_ffn(cfg)
     if cfg.rope == "mrope":
         raise NotImplementedError(
             "mrope positions vary per microbatch; the pipeline carries "
@@ -161,11 +196,19 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     first, last = axes.pp_rank == 0, axes.pp_rank == axes.pp - 1
 
+    auxes = []
+
     def stage_fn(h):
+        aux = None
         for i in range(cfg.num_layers // axes.pp):
-            h = block_train(cfg, layout, _layer(params, i, axes.pp), h,
-                            positions, axes)
-        return h
+            h, a = block_train(cfg, layout, _layer(params, i, axes.pp), h,
+                               positions, axes, ffn)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        if aux is None:
+            return h
+        auxes.append(aux.detach())
+        return h, aux_weight * aux
 
     sums = []
 
@@ -192,13 +235,16 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
     sum_loss = torch.zeros((), device=tokens.device)
     for sl in sums:
         sum_loss = sum_loss + sl
-    return sum_loss
+    aux = torch.zeros((), device=tokens.device)
+    for a in auxes:
+        aux = aux + a
+    return sum_loss, aux
 
 
 def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
     """batch {"tokens": [B, S]} -> (last-token logits [B, 1, V_pad] fp32,
     cache {"k", "v"}: [L, B, S, kv, hd])."""
-    _require_dense(cfg)
+    ffn = _layer_ffn(cfg)
     _require_one_rank(axes, "prefill")
     layout = residual_layout(cfg, "prefill")
     tokens = batch["tokens"]
@@ -207,8 +253,9 @@ def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     ks, vs = [], []
     for i in range(cfg.num_layers):
-        h, kv = block_apply(cfg, layout, _layer(params, i), h, positions,
-                            axes, kind="prefill", return_kv=True)
+        h, kv, _ = block_apply(cfg, layout, _layer(params, i), h,
+                               positions, axes, kind="prefill", ffn=ffn,
+                               return_kv=True)
         ks.append(kv["k"])
         vs.append(kv["v"])
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
@@ -220,14 +267,15 @@ def forward_decode(cfg: ModelConfig, axes: MeshAxes, params, cache,
                    tokens, pos):
     """tokens [B, 1]; pos [B] per-row positions.  Writes the new K/V into
     ``cache`` in place; returns (logits [B, 1, V_pad], cache)."""
-    _require_dense(cfg)
+    ffn = _layer_ffn(cfg)
     _require_one_rank(axes, "decode")
     layout = residual_layout(cfg, "decode")
     h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     for i in range(cfg.num_layers):
         layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        h, _ = block_apply(cfg, layout, _layer(params, i), h, None, axes,
-                           kind="decode", cache=layer_cache, pos=pos)
+        h, _, _ = block_apply(cfg, layout, _layer(params, i), h, None, axes,
+                              kind="decode", ffn=ffn, cache=layer_cache,
+                              pos=pos)
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
     return head_logits(cfg, layout, params["head"], h, axes), cache
 
@@ -235,7 +283,7 @@ def forward_decode(cfg: ModelConfig, axes: MeshAxes, params, cache,
 def cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
                 max_len: int):
     """Global shapes of the decode cache, layer-stacked like the params."""
-    _require_dense(cfg)
+    _layer_ffn(cfg)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
              cfg.resolved_head_dim())
     return {"k": TensorSpec(shape, torch.bfloat16),

@@ -185,10 +185,11 @@ class ServeEngine:
             toks[i, :len(req.prompt)] = req.prompt
         logits, fresh = self._timed(self.prefill_meter, self.prefill_fn,
                                     self._tensor(toks))
-        # splice the group's rows into the max_len cache, zero past S
+        # splice the group's rows into the max_len cache (bf16 whatever
+        # the compute dtype, as the reference's), zero past S
         idx = torch.tensor(slot_ids, device=self.device)
         for name, c in self.cache.items():
-            c[:, idx, :S] = fresh[name][:, idx]
+            c[:, idx, :S] = fresh[name][:, idx].to(c.dtype)
             c[:, idx, S:] = 0
         logits = logits.float().cpu().numpy()
         for i, req in zip(slot_ids, group):

@@ -146,7 +146,9 @@ def pipeline_run(stage_fn: Callable[[torch.Tensor], torch.Tensor],
     ``stage_fn(x) -> z`` applies THIS rank's stage to one microbatch
     activation (under pp = 1 it applies ALL stages in turn); its
     parameters are leaves that require grad, and their ``.grad``
-    accumulates over the microbatches.  ``x_mb`` is ``[M, ...]`` of
+    accumulates over the microbatches.  A stage with a loss of its own
+    (the MoE balance loss) returns ``(z, aux)`` instead: the scalar
+    ``aux`` is back-propagated with the stage's output.  ``x_mb`` is ``[M, ...]`` of
     stage-0 inputs (local shards; only stage 0 reads their values, the
     other stages only their shape and dtype); every stage's input and
     output are shaped and typed like ``x_mb[i]`` (the FFN's feature
@@ -171,16 +173,20 @@ def pipeline_run(stage_fn: Callable[[torch.Tensor], torch.Tensor],
             x = x_mb[i] if first else pipe.recv(x_mb[i], s - 1)
             x = x.detach().requires_grad_(not first or input_grad)
             z = stage_fn(x)
+            z, aux = z if isinstance(z, tuple) else (z, None)
             if last:
                 z = loss_fn(z, i)
                 loss = loss + z.detach()
             else:
                 sends.append(pipe.send(z, s + 1))
-            held[i] = (x, z)
+            held[i] = (x, z, aux)
         else:
-            x, z = held.pop(i)
+            x, z, aux = held.pop(i)
             dz = None if last else pipe.recv(z, s + 1)
-            torch.autograd.backward(z, dz)
+            if aux is not None and aux.requires_grad:
+                torch.autograd.backward([z, aux], [dz, None])
+            else:
+                torch.autograd.backward(z, dz)
             if not first:
                 sends.append(pipe.send(x.grad, s - 1))
             elif x_grad is not None:

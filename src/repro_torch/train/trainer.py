@@ -1,6 +1,6 @@
 """Training step builder and training loop for the LM families: the
 port's counterpart of the reference's ``train/trainer.py``, for the
-dense family on any pp x dp x tp mesh of ranks.
+dense and MoE families on any pp x dp x tp mesh of ranks.
 
 ``make_train_step`` builds one rank's step: forward and backward
 (``models/model.py: forward_train``, gradient accumulation over
@@ -140,12 +140,13 @@ def make_train_step(cfg: ModelConfig, axes: MeshAxes, optimizer, *,
         """The reference's ``loss_fn_pipeline``, forward and backward;
         returns the reported cross-entropy.  The valid tokens (every
         token is valid) are counted from the labels before the schedule
-        starts.  The dense family has no auxiliary loss (the reference
-        divides it by dp x M)."""
+        starts.  Each stage's MoE balance loss, summed over the M
+        microbatches, enters divided by dp x M, as in the reference."""
         n_valid = torch.tensor(batch["labels"].numel(), device=dev)
         nv_g = axes.dp_comm.all_reduce(n_valid).float().clamp_min(1.0)
-        sum_loss = forward_train_pipeline(
-            cfg, axes, p, batch, M, lambda sl: sl / nv_g / axes.tp)
+        sum_loss, _ = forward_train_pipeline(
+            cfg, axes, p, batch, M, lambda sl: sl / nv_g / axes.tp,
+            aux_weight=AUX_LOSS_WEIGHT / (axes.dp * M * axes.tp))
         return axes.pp_comm.all_reduce(
             axes.dp_comm.all_reduce(sum_loss)) / nv_g
 

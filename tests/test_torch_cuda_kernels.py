@@ -453,25 +453,40 @@ def test_trainer_step_at_pp2_tp2_kernel_path_matches_plain(cuda_device):
     _hold_card_step_ranks(cuda_device, pp=2, microbatches=2)
 
 
-def _hold_card_step_ranks(cuda_device, pp, microbatches):
+@pytest.mark.cuda
+def test_moe_trainer_step_at_tp2_kernel_path_matches_plain(cuda_device):
+    """One float32 AdamW step of olmoe-smoke on 2 gloo ranks sharing the
+    card: phantom q/k/v/o sites (the ``fp`` layout), the experts behind
+    the all-to-alls, the kernel path against the plain path from one
+    draw; a layer launches flash twice, the phantom forward at its four
+    sites twice (forward and recompute), the dgrad and wgrad once each
+    a site."""
+    _hold_card_step_ranks(cuda_device, pp=1, microbatches=1,
+                          arch="olmoe-1b-7b", sites=4)
+
+
+def _hold_card_step_ranks(cuda_device, pp, microbatches,
+                          arch="phi3-mini-3.8b", sites=3):
     """``torch_ranks.card_tp_step_body`` on pp x 2 ranks, held on every
     rank: the kernel path's launches (forward and recompute of the
-    stage's layers, once a microbatch), none on the plain path, loss and
-    gradient norm rtol 1e-5, and the local parameters rtol 1e-4 / atol
-    1e-5 plus what AdamW's first step implies near zero gradients."""
+    stage's 2 / pp layers, once a microbatch, ``sites`` phantom sites a
+    layer), none on the plain path, loss and gradient norm rtol 1e-5,
+    and the local parameters rtol 1e-4 / atol 1e-5 plus what AdamW's
+    first step implies near zero gradients."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.parallel.params import tree_leaves
     import torch_ranks
     build.build(["flash_attention", "phantom_fused"])
     ranks = spawn(torch_ranks.card_tp_step_body, 1, 2, cuda_device,
-                  timeout_s=300, pp=pp, args=(microbatches,))
-    n = 2 // pp * microbatches       # the phi3-smoke stage's layer passes
+                  timeout_s=300, pp=pp, args=(microbatches, arch))
+    n = 2 // pp * microbatches       # the smoke stage's layer passes
     lr = 1e-3
     for r in ranks:
         k, p = r["kernel"], r["plain"]
         assert k["launches"] == {"flash_attention": 2 * n,
-                                 "phantom_fused_matmul": 6 * n,
-                                 "matmul_nt": 3 * n, "matmul_tn": 3 * n}
+                                 "phantom_fused_matmul": 2 * sites * n,
+                                 "matmul_nt": sites * n,
+                                 "matmul_tn": sites * n}
         assert set(p["launches"].values()) == {0}
         for key in ("loss", "grad_norm"):
             np.testing.assert_allclose(k[key], p[key], rtol=1e-5)

@@ -262,9 +262,16 @@ def test_pipelined_train_step_matches_jax(runs, name):
     the gathered clipped gradients and updated parameters, against the
     reference's."""
     arch, proj, over, pp, dp, tp, _, opt = RUNS[name]
-    cfg = _configs(arch, proj, over)[1]
-    want = runs["ref"][name]
-    ranks = [r["train"][name] for r in runs[(pp, dp, tp)]]
+    hold_pipelined_steps(name, _configs(arch, proj, over)[1],
+                         runs["ref"][name],
+                         [r["train"][name] for r in runs[(pp, dp, tp)]],
+                         pp, dp, tp, opt)
+
+
+def hold_pipelined_steps(name, cfg, want, ranks, pp, dp, tp, opt):
+    """``test_pipelined_train_step_matches_jax``'s checks of one case:
+    ``want`` is ``_jax_run``'s result, ``ranks`` every rank's
+    ``lm_pipeline_body`` result for the case."""
     for rank in ranks:
         np.testing.assert_allclose(rank["losses"], want["losses"],
                                    rtol=1e-5, err_msg=name)

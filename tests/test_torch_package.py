@@ -124,6 +124,71 @@ def test_trained_dense_config_equals_reference(arch, smoke):
     assert count_params(ours) == jax_count_params(theirs, tp=1)
 
 
+PORTED_ARCHS = ["chatglm3-6b", "phi3-mini-3.8b", "stablelm-3b",
+                "qwen2.5-14b", "olmoe-1b-7b", "granite-moe-3b-a800m",
+                "paper-ffn-4k", "paper-ffn-16k", "paper-ffn-64k",
+                "paper-ffn-131k", "paper-ffn-262k"]
+
+
+def _default(f):
+    return (f.default_factory() if f.default_factory is not
+            dataclasses.MISSING else f.default)
+
+
+def test_every_arch_of_the_port_is_held_to_the_reference():
+    from repro_torch.configs.base import _MODULES
+    assert sorted(_MODULES) == sorted(PORTED_ARCHS)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", PORTED_ARCHS)
+def test_reference_fields_hold_in_every_ported_config(arch, smoke):
+    """Read from the REFERENCE's ``ModelConfig``: every field the port
+    keeps has the reference's value, and every field the port left out
+    holds its default there (the port behaves as that default), nested
+    configs included.  The port has no field the reference lacks."""
+    from repro.configs.base import ModelConfig as JModelConfig
+    ours = get_config(arch, smoke=smoke)
+    theirs = jax_get_config(arch, smoke=smoke)
+    kept = {f.name for f in dataclasses.fields(ModelConfig)}
+    ref_fields = dataclasses.fields(JModelConfig)
+    assert kept <= {f.name for f in ref_fields}
+    for f in ref_fields:
+        value = getattr(theirs, f.name)
+        if f.name in kept:
+            mine = getattr(ours, f.name)
+            if dataclasses.is_dataclass(value):
+                value, mine = (dataclasses.asdict(value),
+                               dataclasses.asdict(mine))
+            assert mine == value, f.name
+        else:
+            assert value == _default(f), (
+                f"{arch}: the reference sets {f.name}={value!r}, which the "
+                f"port does not carry")
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b", "granite-moe-3b-a800m"])
+def test_moe_config_equals_reference(arch, smoke):
+    """The MoE configs field by field, ``MoEConfig`` read from the
+    reference's fields with its defaults, and every site's spec, the
+    ``moe_experts`` site among them."""
+    from repro.configs.base import MoEConfig as JMoEConfig
+    from repro_torch.configs.base import MoEConfig
+    names = [f.name for f in dataclasses.fields(ModelConfig)]
+    ours = get_config(arch, smoke=smoke)
+    theirs = jax_get_config(arch, smoke=smoke)
+    assert _fields(ours, names) == _fields(theirs, names)
+    assert [(f.name, _default(f)) for f in dataclasses.fields(MoEConfig)] \
+        == [(f.name, _default(f)) for f in dataclasses.fields(JMoEConfig)]
+    assert dataclasses.asdict(ours.moe) == dataclasses.asdict(theirs.moe)
+    for site in ("ffn_gate", "ffn_up", "ffn_down", "attn_q", "attn_k",
+                 "attn_v", "attn_o", "moe_experts"):
+        assert dataclasses.asdict(ours.projection_spec(site)) == \
+            dataclasses.asdict(theirs.projection_spec(site))
+    assert ours.uses_phantom_sites() == theirs.uses_phantom_sites()
+
+
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
 def test_input_specs_match_reference(kind):
     from repro.configs.base import ShapeConfig as JShapeConfig
@@ -262,11 +327,20 @@ def test_library_functions_target_the_card_by_default(entry):
 
 
 def test_unported_arch_and_family_raise():
+    """An unported arch, an unported family (the MoE family, which
+    raised here until it was ported, builds), and a layer plan that
+    mixes MoE and MLP layers (the reference's superblock scan) raise."""
+    from repro_torch.configs.base import MoEConfig
     with pytest.raises(KeyError, match="not ported"):
         get_config("mamba2-370m")
-    cfg = get_config("chatglm3-6b", smoke=True).replace(family="moe")
-    with pytest.raises(NotImplementedError):
+    cfg = get_config("chatglm3-6b", smoke=True).replace(family="ssm")
+    with pytest.raises(NotImplementedError, match="family 'ssm'"):
         model_decls(cfg, MeshAxes())
+    model_decls(get_config("olmoe-1b-7b", smoke=True), MeshAxes())
+    mixed = get_config("olmoe-1b-7b", smoke=True).replace(
+        moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=32, every_n=2))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        model_decls(mixed, MeshAxes())
 
 
 @pytest.mark.parametrize("what", ["model_tp", "train_pp", "norm",
@@ -304,7 +378,7 @@ def test_unported_training_paths_raise(what):
     elif what == "remat":
         with pytest.raises(NotImplementedError, match="remat"):
             block_train(cfg.replace(remat="dots"), "fp", {}, None, None,
-                        MeshAxes())
+                        MeshAxes(), "mlp")
     else:
         with pytest.raises(NotImplementedError, match="item 8"):
             Trainer(cfg, MeshAxes(), AdamW(1e-3), None,

@@ -256,7 +256,10 @@ def _shard(a: np.ndarray, axes, dim: int) -> np.ndarray:
 
 
 def _in_layout(a: np.ndarray, layout: str, axes) -> np.ndarray:
-    """A [B, S, d] array cut to the residual layout's local shard."""
+    """A [B, S, d] array cut to the residual layout's local shard (all
+    of it in ``rep``)."""
+    if layout == "rep":
+        return a
     return _shard(a, axes, {"sp": 1, "fp": 2}[layout])
 
 
@@ -393,12 +396,14 @@ def lm_pipeline_body(axes, device, inputs):
     return out
 
 
-def card_tp_step_body(axes, device, microbatches=1):
-    """One float32 AdamW step of phi3-smoke (phantom MLP sites) on this
-    rank of a pp x tp mesh over ``microbatches`` microbatches, through
-    the kernels (``"auto"``) and through plain torch (``"xla"``) from
-    one host draw: each run's loss, gradient norm, clipped local
-    gradients, updated local parameters and kernel launches."""
+def card_tp_step_body(axes, device, microbatches=1, arch="phi3-mini-3.8b"):
+    """One float32 AdamW step of ``arch``'s smoke config (phi3-smoke:
+    phantom MLP sites; olmoe-smoke: phantom attention sites and the
+    experts' all-to-alls) on this rank of a pp x tp mesh over
+    ``microbatches`` microbatches, through the kernels (``"auto"``) and
+    through plain torch (``"xla"``) from one host draw: each run's loss,
+    gradient norm, clipped local gradients, updated local parameters and
+    kernel launches."""
     from repro_torch.configs.base import get_config, with_kernel_backend
     from repro_torch.data.synthetic import LMDataset
     from repro_torch.kernels import phantom_fused as pf
@@ -408,7 +413,7 @@ def card_tp_step_body(axes, device, microbatches=1):
     from repro_torch.parallel.params import materialize_shards
     from repro_torch.train.trainer import make_train_step
 
-    base = get_config("phi3-mini-3.8b", smoke=True, dtype="float32")
+    base = get_config(arch, smoke=True, dtype="float32")
     params = materialize_shards(model_decls(base, axes), axes, 0, device)
     batch = LMDataset(base.vocab_size, 4, 129, device=device)(0)
     kernels = (flash_attention, pf.phantom_fused_matmul, pf.matmul_nt,
@@ -467,4 +472,34 @@ def ring_body(axes, device, inputs):
     return {"collectives": ring_collectives_body(axes,
                                                  inputs["collectives"]),
             "layers": layers_tp_body(axes, device, inputs["layers"]),
+            "train": trainer_body(axes, device, inputs["train"])}
+
+
+def moe_layers_body(axes, device, cases):
+    """``models/moe.py: moe_apply`` on this rank's shard of each case's
+    global input and parameters, the objective sum(y * r) + aux: the
+    local output, the aux loss, the input gradient and the parameter
+    gradients (summed over tp where the decl replicates them)."""
+    from repro_torch.models import moe
+    from repro_torch.parallel.params import from_jax_params
+    out = {}
+    for name, case in cases.items():
+        cfg, lay = case["cfg"], case["layout"]
+        decls = moe.moe_decls(cfg, axes)
+        params = tree_map(lambda t: t.requires_grad_(True), shard_params(
+            from_jax_params(case["params"]), decls, axes))
+        x = _leaf(_in_layout(case["x"], lay, axes))
+        r = torch.from_numpy(_in_layout(case["r"], lay, axes).copy())
+        y, aux = moe.moe_apply(cfg, lay, params, x, axes)
+        ((y * r).sum() + aux).backward()
+        grads = _tp_summed(tree_map(lambda t: t.grad, params), decls, axes)
+        out[name] = {"y": _np(y), "aux": float(aux), "x": _np(x.grad),
+                     "params": tree_map(_np, grads)}
+    return out
+
+
+def moe_body(axes, device, inputs):
+    """One mesh of ``tests/test_torch_moe.py``: the MoE layer cases
+    (``moe_layers_body``) and the trainer cases (``trainer_body``)."""
+    return {"layers": moe_layers_body(axes, device, inputs["layers"]),
             "train": trainer_body(axes, device, inputs["train"])}
