@@ -201,10 +201,14 @@ Phases (any failure exits non-zero):
    through ``ServeEngine`` with phase 4's traffic; every request's 16
    tokens, the flash kernel launched once per layer of every prefill
    group, the routers kept in fp32; a profiled decode window; the first
-   8 requests' greedy streams on the plain backend from the same
-   weights: in float32 activations all equal to the kernel path's, in
-   bf16 as served their first tokens (the rest printed: bf16 rounding
-   moves a random model's flat logits and discrete expert choices).
+   group through the kernel path against the plain core, as in phase 4
+   (``_compare_cores``: per layer in bf16, each layer's router logits
+   held and the tokens whose kept experts differ between the cores
+   counted and left out of that layer's hold; end to end in float32);
+   the first 8 requests' greedy streams on the plain backend from the
+   same weights: in float32 activations all equal to the kernel path's,
+   in bf16 as served their first tokens (the rest printed: a rounding
+   that swaps an expert at a near tie moves the rest of the stream).
    Then 4 ranks on the card, each running ``_moe_rank``: step 1
    at ``LM_PARITY_LAYERS`` layers, fp32, of olmoe through the kernels
    against plain torch (phantom q/k/v/o sites, the experts behind the
@@ -231,6 +235,7 @@ shape and launches under ``moe_serve``); the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
+import contextlib
 import json
 import statistics
 import subprocess
@@ -279,7 +284,8 @@ EQUIV_LOSS_RTOL, EQUIV_TOL = 2e-4, dict(rtol=5e-4, atol=1e-6)
 # measured/predicted flops pins of the reference (tests/test_telemetry.py)
 FLOPS_PIN = {"tensor_col": 0.05, "phantom": 0.25}
 PEAK = {"float32": 67e12, "bfloat16": 989e12}
-LM_ARCH, LM_BATCH, LM_SEQ, LM_STEPS = "phi3-mini-3.8b", 4, 512, 6
+# 4 steps: the script's later phases need its time (the limit is 1200 s)
+LM_ARCH, LM_BATCH, LM_SEQ, LM_STEPS = "phi3-mini-3.8b", 4, 512, 4
 LM_PARITY_LAYERS = 2
 # the bf16 step-1 loss of the kernel path against the plain path: both
 # run bf16 projections; the kernel rounds P and its output to bf16 where
@@ -298,9 +304,10 @@ LM_TP_PHANTOM_SHAPES = ((2048, 768, 2048, 48), (2048, 2048, 768, 48))
 LM_TP_FLASH_SHAPE = (4, 512, 8, 8, 96)
 # phase 10: qwen2.5-14b on LM_TP ranks at full width and QWEN_LAYERS of its
 # 48 layers (4 ranks' fp32 AdamW state at 48 layers, 116 GB, exceed the
-# card), QWEN_STEPS steps; the phantom kernels' (M, K, N, PK) a rank at
-# gate/up and at down (k = 16, PK = 64)
-QWEN_ARCH, QWEN_LAYERS, QWEN_STEPS = "qwen2.5-14b", 8, 3
+# card; 4 rather than 8 leaves the later phases the script's time),
+# QWEN_STEPS steps; the phantom kernels' (M, K, N, PK) a rank at gate/up
+# and at down (k = 16, PK = 64)
+QWEN_ARCH, QWEN_LAYERS, QWEN_STEPS = "qwen2.5-14b", 4, 3
 QWEN_PHANTOM_SHAPES = ((2048, 1280, 3456, 64), (2048, 3456, 1280, 64))
 # phase 11: phi3-mini on LM_PP stages x LM_PP_TP model ranks, the batch in
 # LM_PP_M microbatches of one row, LM_PP_STEPS steps; (a) and (b) at
@@ -695,14 +702,18 @@ def _close(a, b):
                                atol=LOGIT_TOL))
 
 
-def _compare_cores(cfg, axes, params, toks):
+def _compare_cores(cfg, axes, params, toks, tag="serve"):
     """Prefill of the first group through the kernel path and through the
     plain blockwise core, on the same weights:
 
     * per layer, bf16 as served: both cores get the kernel path's input,
       so each layer's output and the final logits are held to 5e-2 without
-      the drift of 28 chaotic random layers compounding one-ulp bf16
-      differences;
+      the drift of many chaotic random layers compounding one-ulp bf16
+      differences.  The layer's FFN is the config's (``_layer_ffn``).  In
+      an MoE layer both cores' router logits are held as well, and a token
+      whose kept experts differ between the cores (``_routing_flips``) is
+      left out of that layer's check and counted, at most half the layer's
+      tokens: a discrete choice that a rounding moved, not a wrong sum;
     * end to end in float32 activations (fp32 kernel): held to 5e-2;
     * end to end in bf16: printed, not held (the drift above)."""
     import torch
@@ -710,12 +721,13 @@ def _compare_cores(cfg, axes, params, toks):
     from repro_torch.models.blocks import block_apply
     from repro_torch.models.layers import (embed_apply, head_logits,
                                            norm_apply, residual_layout)
-    from repro_torch.models.model import forward_prefill
+    from repro_torch.models.model import _layer_ffn, forward_prefill
     from repro_torch.parallel.params import tree_map
     plain = with_kernel_backend(cfg, "xla")
+    ffn = _layer_ffn(cfg)
     V = cfg.vocab_size
     lay = residual_layout(cfg, "prefill")
-    errs = {}
+    errs, flips = {}, []
     with torch.no_grad():
         B, S = toks.shape
         pos = torch.arange(S, device=toks.device).expand(B, S)
@@ -723,22 +735,38 @@ def _compare_cores(cfg, axes, params, toks):
         worst = 0.0
         for i in range(cfg.num_layers):
             lp = tree_map(lambda t: t[i], params["layers"])
-            h_k, _, _ = block_apply(cfg, lay, lp, h, pos, axes,
-                                    kind="prefill", ffn="mlp")
-            h_x, _, _ = block_apply(plain, lay, lp, h, pos, axes,
-                                    kind="prefill", ffn="mlp")
-            worst = max(worst, (h_k.float() - h_x.float()).abs().max().item())
-            check(_close(h_k, h_x), f"layer {i}: kernel and plain core "
-                                    f"outputs disagree")
+            outs = []
+            for c in (cfg, plain):
+                routes = []
+                with _recording_routes(routes):
+                    h_c, _, _ = block_apply(c, lay, lp, h, pos, axes,
+                                            kind="prefill", ffn=ffn)
+                outs.append((h_c, routes))
+            (h_k, r_k), (h_x, r_x) = outs
+            same = torch.ones(B, S, dtype=torch.bool, device=h.device)
+            if ffn == "moe":
+                same, layer_flips = _routing_flips(cfg, r_k[0], r_x[0])
+                same = same.reshape(B, S)
+                flips += [{"layer": i, **f} for f in layer_flips]
+                check(len(layer_flips) <= B * S // 2,
+                      f"{tag}: layer {i}: {len(layer_flips)} of {B * S} "
+                      f"tokens kept other experts on the two cores")
+            worst = max(worst, (h_k[same].float() - h_x[same].float())
+                        .abs().max().item())
+            check(_close(h_k[same], h_x[same]),
+                  f"{tag}: layer {i}: kernel and plain core outputs "
+                  f"disagree")
             h = h_k
 
         def logits(x):
             return head_logits(cfg, lay, params["head"], norm_apply(
                 cfg, lay, params["final_norm"], x, axes)[:, -1:],
                 axes)[..., :V]
-        lg_k, lg_x = logits(h_k), logits(h_x)
-        check(bool(torch.isfinite(lg_k).all()), "non-finite logits")
-        check(_close(lg_k, lg_x), "per-layer logits disagree")
+        # the last layer's tokens that kept the same experts on both cores
+        rows = same[:, -1]
+        lg_k, lg_x = logits(h_k)[rows], logits(h_x)[rows]
+        check(bool(torch.isfinite(lg_k).all()), f"{tag}: non-finite logits")
+        check(_close(lg_k, lg_x), f"{tag}: per-layer logits disagree")
         errs["per_layer_bf16_hidden"] = worst
         errs["per_layer_bf16_logits"] = (lg_k - lg_x).abs().max().item()
 
@@ -751,11 +779,66 @@ def _compare_cores(cfg, axes, params, toks):
             errs[name] = (lg_k[..., :V] - lg_x[..., :V]).abs().max().item()
             if dt == "float32":
                 check(_close(lg_k[..., :V], lg_x[..., :V]),
-                      "fp32 end-to-end logits disagree")
+                      f"{tag}: fp32 end-to-end logits disagree")
     for name, e in errs.items():
-        print(f"serve: kernel vs plain core, {name}: max_abs_err={e:.3e}"
+        print(f"{tag}: kernel vs plain core, {name}: max_abs_err={e:.3e}"
               f"{'' if name == 'end_to_end_bf16' else ' (held to 5e-2)'}")
+    if ffn == "moe":
+        shown = [{k: round(v, 5) if isinstance(v, float) else v
+                  for k, v in f.items()} for f in flips]
+        print(f"{tag}: tokens that kept other experts on the two cores, "
+              f"left out of their layer's check: {len(flips)} of "
+              f"{B * S * cfg.num_layers} token-layers; each with its "
+              f"router's top-k margin (plain core) and the cores' largest "
+              f"router-logit difference: {shown}", flush=True)
+        errs["routing_flips"] = flips
     return errs
+
+
+@contextlib.contextmanager
+def _recording_routes(log):
+    """Within it, every ``models/moe.py: route`` call appends its
+    (logits, capacity, combine_slot) to ``log``."""
+    from repro_torch.models import moe
+    route = moe.route
+
+    def recording(logits, top_k, capacity):
+        out = route(logits, top_k, capacity)
+        log.append((logits, capacity, out[3]))
+        return out
+    moe.route = recording
+    try:
+        yield
+    finally:
+        moe.route = route
+
+
+def _routing_flips(cfg, kern, plain):
+    """Two cores' routing of one MoE layer, each (logits [T, E], capacity,
+    combine_slot [T, K]): their router logits held to 5e-2; returns (a
+    [T] mask of the tokens that kept the same experts on both, and for
+    each other token its top-k margin on the plain core's logits, the
+    cores' largest logit difference on it, and whether its top-k set
+    moved or only a capacity drop did)."""
+    import torch
+    (lg_k, C, slot_k), (lg_x, _, slot_x) = kern, plain
+    check(_close(lg_k, lg_x), "router logits of the two cores disagree")
+    K = cfg.moe.top_k
+
+    def kept(slot):
+        return torch.where(slot >= 0, slot // C, -1).sort(-1).values
+
+    def chosen(lg):
+        return torch.topk(lg, K, dim=-1).indices.sort(-1).values
+    same = (kept(slot_k) == kept(slot_x)).all(-1)
+    moved = (chosen(lg_k) != chosen(lg_x)).any(-1)
+    top = torch.topk(lg_x, K + 1, dim=-1).values
+    margin = top[:, K - 1] - top[:, K]
+    delta = (lg_k - lg_x).abs().max(-1).values
+    flips = [{"token": t, "top_k_moved": bool(moved[t]),
+              "margin": margin[t].item(), "logit_diff": delta[t].item()}
+             for t in (~same).nonzero().flatten().tolist()]
+    return same, flips
 
 
 def _gemm_bound_ms(nbytes, flops, dtype):
@@ -2269,6 +2352,17 @@ def phase_lm_train_tp():
             "wall_s": wall}
 
 
+def _gathered(p, m):
+    """Wire bytes of a rank's m-byte message all-gathered or
+    reduce-scattered over p ranks, as ``record_collectives`` prices it."""
+    return m * (p - 1)
+
+
+def _all_reduced(p, m):
+    """Wire bytes of a rank's m-byte message all-reduced over p ranks."""
+    return 2 * m * (p - 1) / p
+
+
 def _outer_wire_bytes(cfg, batch, seq, p):
     """The logical wire bytes one rank issues in one training step outside
     the blocks of an LM whose stream is feature-sharded (``fp``) at tp =
@@ -2284,22 +2378,17 @@ def _outer_wire_bytes(cfg, batch, seq, p):
     act = 2 if cfg.dtype == "bfloat16" else 4
     d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd, T = cfg.resolved_head_dim(), batch * seq
-
-    def gather(m):
-        return m * (p - 1)
-
-    def reduce(m):
-        return 2 * m * (p - 1) / p
     chunk = min(cfg.loss_chunk, seq)
     n_chunks = seq // chunk
-    per_chunk = reduce(batch * chunk * 4) * (5 + 2 * (n_chunks > 1))
-    bias = (reduce(H * hd * 4) + 2 * reduce(kv * hd * 4)
+    per_chunk = (_all_reduced(p, batch * chunk * 4)
+                 * (5 + 2 * (n_chunks > 1)))
+    bias = (_all_reduced(p, H * hd * 4) + 2 * _all_reduced(p, kv * hd * 4)
             if cfg.qkv_bias else 0)
-    return (2 * gather(T * d // p * act)        # embedding, fwd + bwd
-            + 2 * reduce(T * 4)                 # final norm
-            + 2 * gather(T * d // p * act)      # the loss's gather
+    return (2 * _gathered(p, T * d // p * act)    # embedding, fwd + bwd
+            + 2 * _all_reduced(p, T * 4)          # final norm
+            + 2 * _gathered(p, T * d // p * act)  # the loss's gather
             + n_chunks * per_chunk
-            + cfg.num_layers * bias + reduce(4))
+            + cfg.num_layers * bias + _all_reduced(p, 4))
 
 
 def ring_wire_bytes(cfg, batch, seq, p):
@@ -2315,19 +2404,13 @@ def ring_wire_bytes(cfg, batch, seq, p):
     d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd, k = cfg.resolved_head_dim(), cfg.projection_spec("ffn_gate").k
     T, C = batch * seq, seq // p
-
-    def gather(m):
-        return m * (p - 1)
-
-    def reduce(m):
-        return 2 * m * (p - 1) / p
-    block = (2 * reduce(T * 4)
-             + gather(T * d // p * act)
-             + sum(gather(n_in * n_out // p * 4) for n_in, n_out in (
+    block = (2 * _all_reduced(p, T * 4)
+             + _gathered(p, T * d // p * act)
+             + sum(_gathered(p, n_in * n_out // p * 4) for n_in, n_out in (
                  (d, H * hd), (d, kv * hd), (d, kv * hd), (H * hd, d)))
              + 2 * (p - 1) * batch * C * kv * hd * act
              + batch * C * d * act * (p - 1) / p
-             + 3 * gather(T * k * act))
+             + 3 * _gathered(p, T * k * act))
     return 3 * cfg.num_layers * block + _outer_wire_bytes(cfg, batch, seq, p)
 
 
@@ -2347,15 +2430,9 @@ def moe_wire_bytes(cfg, batch, seq, p):
     m = cfg.moe
     d, k, T = cfg.d_model, cfg.projection_spec("attn_q").k, batch * seq
     C = moe_capacity(T, m.num_experts, m.top_k, m.capacity_factor)
-
-    def gather(n):
-        return n * (p - 1)
-
-    def reduce(n):
-        return 2 * n * (p - 1) / p
-    block = (2 * reduce(T * 4)
-             + 4 * gather(T * k * act)
-             + reduce(T * m.num_experts * 4)
+    block = (2 * _all_reduced(p, T * 4)
+             + 4 * _gathered(p, T * k * act)
+             + _all_reduced(p, T * m.num_experts * 4)
              + 2 * m.num_experts * C * d // p * act * (p - 1) / p)
     return 3 * cfg.num_layers * block + _outer_wire_bytes(cfg, batch, seq, p)
 
@@ -2950,8 +3027,9 @@ def _moe_serve():
     """(a): olmoe-1b-7b at full size and tp = 1 through ``ServeEngine``,
     phase 4's traffic, ``kernel_backend="pallas"``; the flash launches
     held to the prefill groups x layers; a profiled decode window; the
-    first 8 requests' greedy streams on the plain path (``"xla"``) from
-    the same weights, in bf16 as served and in float32 activations."""
+    first group's prefill on both cores (``_compare_cores``); the first 8
+    requests' greedy streams on the plain path (``"xla"``) from the same
+    weights, in bf16 as served and in float32 activations."""
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config, with_kernel_backend
@@ -3026,6 +3104,9 @@ def _moe_serve():
     profile = _profile_decode(eng, cfg)
 
     # --- the backends on the same weights, outside the main path --------
+    toks = torch.from_numpy(np.stack([r.prompt for r in closed[:SLOTS]])
+                            ).long().cuda()
+    cores = _compare_cores(cfg, MeshAxes(), eng.params, toks, "moe serve")
     plain = with_kernel_backend(cfg, "xla")
     main = [list(r.out_tokens) for r in closed]
     bf16 = _agreement(main, _moe_streams(plain, eng.params, closed))
@@ -3038,9 +3119,10 @@ def _moe_serve():
           f"plain backend on the same weights: bf16 as served {bf16}; "
           f"float32 activations {fp32}", flush=True)
     # float32: the same function, the same tokens.  bf16: the kernel
-    # rounds P and its output where the plain core keeps float32, and 16
-    # layers of it move a random model's flat logits and its discrete
-    # expert choices; the prefill's first token is held, the rest printed
+    # rounds P and its output where the plain core keeps float32, and
+    # where that swaps an expert at a near tie (``_compare_cores`` counts
+    # them) the stream parts; the prefill's first token is held, the
+    # rest printed
     check(fp32["equal_streams"] == fp32["of"],
           f"moe serve: float32 greedy streams differ between the kernel "
           f"and the plain backend: {fp32}")
@@ -3053,7 +3135,7 @@ def _moe_serve():
             "params": n_params, "weights_gb": weights_gb,
             "peak_memory_gb": peak_gb, "closed": rep_closed,
             "mixed": rep_mixed, "decode_profile": profile,
-            "streams_bf16": bf16, "streams_float32": fp32}
+            "cores": cores, "streams_bf16": bf16, "streams_float32": fp32}
 
 
 def _moe_rank(axes, device):

@@ -31,10 +31,9 @@ that does not divide the heads, runs ring attention.  The MoE configs
 (olmoe-1b-7b: experts over all-to-all; granite-moe-3b-a800m: each
 expert's d_ff sharded) add their balance loss to the objective.
 ``--pp`` above 1 cuts the layers into that many stages and runs the
-1F1B pipeline over ``--microbatches`` microbatches.  The run is on the card unless ``--device cpu`` is given;
-``--smoke`` (the default) takes the config's reduced geometry,
-``--full`` the published one; ``--layers`` cuts its depth (olmoe-1b-7b's
-16 layers of fp32 AdamW state, 111 GB, exceed one card).
+1F1B pipeline over ``--microbatches`` microbatches.  The run is on the
+card unless ``--device cpu`` is given; ``--smoke`` (the default) takes
+the config's reduced geometry, ``--full`` the published one.
 ``--plan``, ``--elastic`` and ``--ckpt-dir`` are ROADMAP.md queue 1,
 item 8.
 """
@@ -69,8 +68,6 @@ def build_parser():
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
-    ap.add_argument("--layers", type=int, default=None,
-                    help="cut the config's depth to this many layers")
     ap.add_argument("--dp", type=int, default=1)
     ap.add_argument("--tp", type=int, default=1)
     ap.add_argument("--pp", type=int, default=1,
@@ -89,8 +86,6 @@ def build_parser():
 def train_config(args):
     """The arch's config as the flags select it."""
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.layers:
-        cfg = cfg.replace(num_layers=args.layers)
     if args.impl == "dense":
         cfg = cfg.replace(projections=dense_projection_map())
     if args.kernel_backend:

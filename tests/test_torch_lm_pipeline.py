@@ -135,9 +135,9 @@ def _configs(arch, proj, overrides):
     return jcfg, with_kernel_backend(cfg, "auto")
 
 
-def _jax_run(jcfg, pp, dp, tp, M, optimizer):
+def _jax_run(jcfg, pp, dp, tp, M, optimizer, steps=STEPS):
     """The reference's initial parameters and batches, and a call that
-    runs its three steps on them (compiling the step)."""
+    runs its ``steps`` steps on them (compiling the step)."""
     mesh = jax_local_mesh(dp, tp, pp)
     assert dict(mesh.shape) == ({"pipe": pp, "data": dp, "model": tp}
                                 if pp > 1 else {"data": dp, "model": tp})
@@ -148,7 +148,7 @@ def _jax_run(jcfg, pp, dp, tp, M, optimizer):
     params = jax_materialize(decls, seed=3)
     ds = JLMDataset(jcfg.vocab_size, B, S + 1, seed=1)
     out = {"start": jax.tree.map(np.array, params),
-           "batches": [jax.tree.map(np.array, ds(s)) for s in range(STEPS)]}
+           "batches": [jax.tree.map(np.array, ds(s)) for s in range(steps)]}
 
     def run():
         p, state = params, opt.init(params)
@@ -158,7 +158,7 @@ def _jax_run(jcfg, pp, dp, tp, M, optimizer):
             out["grad_norms"].append(float(m["grad_norm"]))
             out["grads"].append(jax.tree.map(np.array, state["g"]))
             out["params"].append(jax.tree.map(np.array, p))
-            if s + 1 < STEPS:
+            if s + 1 < steps:
                 out["starts"].append(_start(p, state, mesh))
     out.update(starts=[_start(params, opt.init(params))], losses=[],
                grad_norms=[], grads=[], params=[])
@@ -283,7 +283,7 @@ def hold_pipelined_steps(name, cfg, want, ranks, pp, dp, tp, opt):
         return dict(tree_leaves(gather_params([r[key][s] for r in ranks],
                                               decls, dp, tp, pp)))
     n_near = n_all = 0
-    for s in range(STEPS):
+    for s in range(len(want["params"])):
         grads = gathered("grads", s)
         for path, w in tree_leaves(want["grads"][s]):
             assert grads[path].shape == w.shape, (name, path)

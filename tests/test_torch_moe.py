@@ -14,10 +14,10 @@
 * Three AdamW steps of olmoe-smoke at tp 1 and tp 2 and of
   granite-smoke (ring attention, tensor-partitioned experts) at tp 2
   against the reference's trainer (``tests/test_torch_trainer_tp.py:
-  hold_train_steps``); one pp 2 x tp 2 run of olmoe-smoke over 2
-  microbatches, each of three steps from the reference's state before
-  it (``tests/test_torch_lm_pipeline.py: hold_pipelined_steps``), the
-  aux loss entering over dp x M.
+  hold_train_steps``); one AdamW step of olmoe-smoke at pp 2 x tp 2
+  over 2 microbatches, from the reference's initial parameters
+  (``tests/test_torch_lm_pipeline.py: hold_pipelined_steps``), the aux
+  loss entering over dp x M.
 * Greedy token streams of the two ``ServeEngine``s on olmoe-smoke and
   granite-smoke, prompts of mixed lengths (bucket pads are tokens too:
   routed, taking capacity), both kernel backends.
@@ -230,24 +230,29 @@ def _train_cfgs(arch):
 
 @pytest.fixture(scope="module")
 def runs():
-    """The reference's layer cases, trainer runs and pipelined run (in
-    threads: XLA compiles outside the interpreter lock), beside one
-    spawn per mesh in threads of their own; tp = 1 in this process."""
-    rng = np.random.RandomState(7)
-    ref, todo = {}, []
+    """The reference's set-ups, layer cases, trainer runs and pipelined
+    run (in threads: XLA compiles outside the interpreter lock), beside
+    one spawn per mesh in threads of their own; tp = 1 in this
+    process."""
+    pname, parch, pp, dp, tp, M = PIPE
+    with ThreadPoolExecutor(8) as pool:
+        made = {name: pool.submit(_jax_run, _train_cfgs(arch)[0], 1, tp_)
+                for name, (arch, tp_) in TRAIN.items()}
+        made[pname] = pool.submit(
+            lm_pipeline._jax_run, _train_cfgs(parch)[0], pp, dp, tp, M,
+            "adamw", steps=1)
+        made_layers = pool.submit(_layer_cases, np.random.RandomState(7))
+        ref, todo = {}, []
+        for name, f in made.items():
+            ref[name], run = f.result()
+            todo.append(run)
+        layers = made_layers.result()
     train = {1: {}, 2: {}}
-    for name, (arch, tp) in TRAIN.items():
-        ref[name], run = _jax_run(_train_cfgs(arch)[0], 1, tp)
-        todo.append(run)
-        train[tp][name] = dict(
+    for name, (arch, tp_) in TRAIN.items():
+        train[tp_][name] = dict(
             cfg=_train_cfgs(arch)[1], params=ref[name]["start"],
             batches=ref[name]["batches"], lr=LR, weight_decay=WD,
             microbatches=1)
-    pname, parch, pp, dp, tp, M = PIPE
-    ref[pname], run = lm_pipeline._jax_run(_train_cfgs(parch)[0], pp, dp,
-                                           tp, M, "adamw")
-    todo.append(run)
-    layers = _layer_cases(rng)
     out = {"ref": ref}
     errors = []
 
@@ -257,9 +262,11 @@ def runs():
                              args=(inputs,))
         except Exception as e:       # re-raised below, in the test
             errors.append(e)
+    # one step, from the reference's initial parameters and state
     pipe_case = dict(cfg=_train_cfgs(parch)[1], lr=lm_pipeline.LR,
                      weight_decay=lm_pipeline.WD, microbatches=M,
-                     optimizer="adamw")
+                     optimizer="adamw", starts=ref[pname]["starts"],
+                     batches=ref[pname]["batches"])
     threads = [
         threading.Thread(target=ranks, args=(
             "layers", torch_ranks.moe_body,
@@ -271,21 +278,17 @@ def runs():
         threading.Thread(target=ranks, args=(
             "pipe", torch_ranks.lm_pipeline_body,
             {"train": {pname: pipe_case}, "draw_cfg": None}, dp, tp, pp))]
-    with ThreadPoolExecutor(len(todo)) as pool:
+    with ThreadPoolExecutor(len(todo) + len(layers)) as pool:
         futures = [pool.submit(run) for run in todo]
-        for t in threads[:2]:
+        wants = {k: pool.submit(want) for k, (_, want) in layers.items()}
+        for t in threads:
             t.start()
-        # each pipelined step starts from the reference's state before
-        # it: that run goes first
-        futures[-1].result()
-        pipe_case.update(starts=ref[pname]["starts"],
-                         batches=ref[pname]["batches"])
-        threads[2].start()
         out["tp1"] = [{"train": torch_ranks.trainer_body(
             MeshAxes(), torch.device("cpu"), train[1])}]
         for f in futures:
             f.result()
-    out["layers_ref"] = {k: (c, want()) for k, (c, want) in layers.items()}
+        out["layers_ref"] = {k: (layers[k][0], f.result())
+                             for k, f in wants.items()}
     for t in threads:
         t.join()
     if errors:
@@ -447,16 +450,12 @@ def test_moe_decls_and_counts_match_reference(arch, smoke):
 
 @pytest.mark.parametrize("arch", list(ARCHS))
 def test_launch_train_at_tp2_runs_on_the_cpu(arch, capfd):
-    """Both MoE configs train on 2 gloo ranks; ``--layers`` cuts olmoe's
-    depth (the card runs it at 4 of its 16 layers)."""
-    layers = ["--layers", "1"] if arch == "olmoe" else []
+    """Both MoE configs' smoke geometry trains on 2 gloo ranks."""
     assert launch_train.main(["--arch", ARCHS[arch], "--tp", "2",
                               "--device", "cpu", "--steps", "2",
-                              "--batch", "4", "--seq", "32"] + layers) == 0
+                              "--batch", "4", "--seq", "32"]) == 0
     out = capfd.readouterr().out
     cfg = get_config(ARCHS[arch], smoke=True)
-    if layers:
-        cfg = cfg.replace(num_layers=1)
     assert (f"impl=phantom dp=1 on cpu (tp=2, kernel_backend=config): "
             f"{count_params(cfg, 2):,} params") in out
     assert "[trainer] step 2 loss " in out
