@@ -224,6 +224,42 @@ Phases (any failure exits non-zero):
    memory printed; then one more step with its collectives timed, rank
    0's under ``torch.profiler``.
 
+13. the SSM family and FSDP (``phase_ssm_fsdp``).  First, in the
+   parent, the three phantom kernels at mamba2-370m's in and out sites a
+   rank at tp = 4 (M=2048; K=256, N=512 and K=512, N=256; PK=32) and at
+   phi3-mini's gate/up and down a rank at dp 2 x tp 2 (M=1024; K=1536,
+   N=4096 and the transpose; PK=24), and flash at the latter's shape
+   (B=2, S=512, H=KV=16, hd=96), bf16, held and timed as in phases 2 and
+   3, and with a cold L2.  (a) ``_mamba_serve``: mamba2-370m at full size
+   (48 layers, d 1024) through ``ServeEngine`` with phase 4's traffic,
+   every prompt its own exact-length group (page size 1); every
+   request's 16 tokens; TTFT, TPOT, a profiled decode window and the
+   state cache's bytes; then, in float32 on the closed batch's first
+   group, layer by layer from the same input, the prefill's final
+   ``{"conv", "ssm"}`` state, its outputs and the last logits held to
+   token-by-token decode from a zero state within ``RECURRENCE_TOL`` of
+   the largest (``_recurrence_check``; the end-to-end gap is printed).
+   No kernel runs there.  Then 4
+   ranks on the card, each running ``_ssm_fsdp_rank``: (b) mamba2-370m,
+   step 1 at ``LM_PARITY_LAYERS`` layers, fp32, phantom in/out sites
+   through the kernels against plain torch, and dense sites at tp = 4
+   against tp = 1; the main path at ``MAMBA_LAYERS`` layers, bf16,
+   ``MAMBA_STEPS`` steps: every loss finite, launches per step and rank
+   exactly 6, 3 and 3 a layer for the phantom forward, dgrad and wgrad
+   and no flash, wire bytes per step equal to ``ssm_wire_bytes``; a
+   profiled step.  (c) On new groups over the same ranks, dp 2 x tp 2
+   (``_fsdp_rank``): phi3-mini's step 1 at ``LM_PARITY_LAYERS`` layers,
+   fp32, through the kernels, ``fsdp=True`` against ``fsdp=False`` on
+   the same weights (AdamW: loss, gradients, parameters; Adafactor: loss
+   and gradients, its moments being per shard); the main path at
+   ``FSDP_LAYERS`` layers, bf16, ``FSDP_STEPS`` steps with FSDP and
+   without: launches 2, 6, 3 and 3 a layer, wire bytes per step equal to
+   ``fsdp_wire_bytes``, each rank's parameter and optimizer bytes and
+   peak; mamba2's step 1 with and without FSDP.  Every step-1 check: 0
+   elements outside rtol 1e-4 / atol 1e-5.
+
+Each phase's wall seconds are printed on a line of their own.
+
 The line before the last is the kernel table as JSON (the phantom
 kernels' 8-row shape and its launches under ``pipe_rows8``; the flash
 kernel's training launches and its hd=96 training shape under
@@ -231,7 +267,9 @@ kernel's training launches and its hd=96 training shape under
 launches per step and rank under ``lm_tp4``, qwen2.5-14b's under
 ``qwen_tp4``, the pp 2 x tp 2 microbatch's under ``lm_pp``, and
 olmoe-1b-7b's tp = 4 training under ``moe_tp4``, with flash's serving
-shape and launches under ``moe_serve``); the last line is
+shape and launches under ``moe_serve``, mamba2-370m's tp = 4 training
+under ``ssm_tp4`` and phi3-mini's under FSDP under ``fsdp_dp2_tp2``);
+the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
@@ -331,6 +369,24 @@ GRANITE_ARCH = "granite-moe-3b-a800m"
 MOE_SERVE_FLASH_SHAPE = (SLOTS, 48, 16, 16, 128)
 MOE_TP_FLASH_SHAPE = (LM_BATCH, LM_SEQ, 4, 4, 128)
 MOE_PHANTOM_SHAPE = (LM_BATCH * LM_SEQ, 512, 512, 32)
+# phase 13: mamba2-370m served at full size (tp 1, every prompt its own
+# exact-length group: page size 1) and trained at full width and
+# MAMBA_LAYERS of its 48 layers on LM_TP ranks, MAMBA_STEPS steps; then
+# FSDP on a dp FSDP_DP x tp FSDP_TP mesh of the same ranks: phi3-mini at
+# FSDP_LAYERS layers, FSDP_STEPS steps.  The kernels' shapes a rank:
+# mamba2's phantom in (wz, wx) and out sites at tp 4 (d / tp = 256,
+# d_inner / tp = 512, k = 8, PK = 32); phi3-mini's gate/up and down at
+# dp 2 x tp 2 (B / dp x S = 1024 rows, k = 12, PK = 24) and its flash
+# (B / dp = 2, 32 / tp = 16 heads of 96)
+MAMBA_ARCH, MAMBA_LAYERS, MAMBA_STEPS, MAMBA_PAGE = "mamba2-370m", 48, 3, 1
+MAMBA_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 256, 512, 32),
+                        (LM_BATCH * LM_SEQ, 512, 256, 32))
+FSDP_DP, FSDP_TP, FSDP_LAYERS, FSDP_STEPS = 2, 2, 4, 3
+FSDP_PHANTOM_SHAPES = ((1024, 1536, 4096, 24), (1024, 4096, 1536, 24))
+FSDP_FLASH_SHAPE = (LM_BATCH // FSDP_DP, LM_SEQ, 16, 16, 96)
+# the recurrence check of phase 13 (a): prefill against token-by-token
+# decode in float32, each within this share of its largest magnitude
+RECURRENCE_TOL = 1e-4
 
 
 # a kernel's measured keys in the kernels line
@@ -709,7 +765,7 @@ def _compare_cores(cfg, axes, params, toks, tag="serve"):
     * per layer, bf16 as served: both cores get the kernel path's input,
       so each layer's output and the final logits are held to 5e-2 without
       the drift of many chaotic random layers compounding one-ulp bf16
-      differences.  The layer's FFN is the config's (``_layer_ffn``).  In
+      differences.  The layer's FFN is the config's (``_layer_kind``).  In
       an MoE layer both cores' router logits are held as well, and a token
       whose kept experts differ between the cores (``_routing_flips``) is
       left out of that layer's check and counted, at most half the layer's
@@ -721,10 +777,10 @@ def _compare_cores(cfg, axes, params, toks, tag="serve"):
     from repro_torch.models.blocks import block_apply
     from repro_torch.models.layers import (embed_apply, head_logits,
                                            norm_apply, residual_layout)
-    from repro_torch.models.model import _layer_ffn, forward_prefill
+    from repro_torch.models.model import _layer_kind, forward_prefill
     from repro_torch.parallel.params import tree_map
     plain = with_kernel_backend(cfg, "xla")
-    ffn = _layer_ffn(cfg)
+    _, ffn = _layer_kind(cfg)
     V = cfg.vocab_size
     lay = residual_layout(cfg, "prefill")
     errs, flips = {}, []
@@ -2098,7 +2154,10 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False):
                k: {"count": r["count"] / steps,
                    "wire_bytes": r["wire_bytes"] / steps}
                for k, r in per_op.items()},
-           "params_local": sum(t.numel() for t in _leaves(state.params))}
+           "params_local": sum(t.numel() for t in _leaves(state.params)),
+           "state_bytes": sum(t.numel() * t.element_size() for t in
+                              list(_leaves(state.params))
+                              + list(_leaves(state.opt_state)))}
     free, total = torch.cuda.mem_get_info()
     out.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                card_used_gb=(total - free) / 1e9)
@@ -2363,32 +2422,65 @@ def _all_reduced(p, m):
     return 2 * m * (p - 1) / p
 
 
-def _outer_wire_bytes(cfg, batch, seq, p):
+def _local_bytes(d, p, dp):
+    """Bytes of one rank's shard of a decl at tp = ``p``, dp = ``dp``."""
+    import math
+    ways = {"tp": p, "dp": dp}
+    n = math.prod(size // ways.get(e, 1) for size, e in
+                  zip(d.shape, tuple(d.spec) + (None,) * len(d.shape)))
+    return n * d.dtype.itemsize
+
+
+def _param_wire_bytes(cfg, p, dp):
+    """The wire bytes one rank's parameters cost in a step at tp = ``p``,
+    dp = ``dp``: the dp all-reduce of every gradient the decls do not
+    shard over dp (``parallel/grads.py: reduce_grads``), the tp
+    all-reduce of every one they replicate over tp, and for a leaf that
+    FSDP shards over dp its gathers (once for the embedding and the
+    head, twice in a block under ``remat="full"``: the forward and the
+    recompute) and the one reduce-scatter of its gradient."""
+    from repro_torch.models.model import model_decls
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import tree_leaves
+    total = 0.0
+    for path, d in tree_leaves(model_decls(cfg, MeshAxes(tp=p, dp=dp))):
+        m = _local_bytes(d, p, dp)
+        if "dp" in d.spec:
+            gathers = 2 if path.startswith("layers/") else 1
+            total += (gathers + 1) * _gathered(dp, m)
+        else:
+            total += _all_reduced(dp, m)
+        if "tp" not in d.spec:
+            total += _all_reduced(p, m)
+    return total
+
+
+def _outer_wire_bytes(cfg, batch, seq, p, dp=1):
     """The logical wire bytes one rank issues in one training step outside
     the blocks of an LM whose stream is feature-sharded (``fp``) at tp =
-    ``p``, dp = 1, priced as ``record_collectives`` prices them
+    ``p``, dp = ``dp``, priced as ``record_collectives`` prices them
     (``telemetry/predict.py: event_wire_bytes``: a rank's message of m
     bytes costs m (p - 1) gathered or reduce-scattered, 2 m (p - 1) / p
     all-reduced, m (p - 1) / p all-to-all'd, m a ppermute hop): the
     embedding's reduce-scatter, the final norm, the loss's feature gather
     and its vocab psums (a chunk's true-logit psum is not recomputed:
     ``torch.utils.checkpoint`` stops at the last tensor the backward
-    needs), the tp sums of replicated biases and the global norm, each
-    forward and backward."""
+    needs), each forward and backward; the loss's two dp sums (the token
+    count and the summed loss), the global norm, and the parameters'
+    (``_param_wire_bytes``)."""
     act = 2 if cfg.dtype == "bfloat16" else 4
-    d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    hd, T = cfg.resolved_head_dim(), batch * seq
+    d, b = cfg.d_model, batch // dp
+    T = b * seq
     chunk = min(cfg.loss_chunk, seq)
     n_chunks = seq // chunk
-    per_chunk = (_all_reduced(p, batch * chunk * 4)
+    per_chunk = (_all_reduced(p, b * chunk * 4)
                  * (5 + 2 * (n_chunks > 1)))
-    bias = (_all_reduced(p, H * hd * 4) + 2 * _all_reduced(p, kv * hd * 4)
-            if cfg.qkv_bias else 0)
     return (2 * _gathered(p, T * d // p * act)    # embedding, fwd + bwd
             + 2 * _all_reduced(p, T * 4)          # final norm
             + 2 * _gathered(p, T * d // p * act)  # the loss's gather
             + n_chunks * per_chunk
-            + cfg.num_layers * bias + _all_reduced(p, 4))
+            + 2 * _all_reduced(dp, 4) + _all_reduced(p * dp, 4)
+            + _param_wire_bytes(cfg, p, dp))
 
 
 def ring_wire_bytes(cfg, batch, seq, p):
@@ -2435,6 +2527,44 @@ def moe_wire_bytes(cfg, batch, seq, p):
              + _all_reduced(p, T * m.num_experts * 4)
              + 2 * m.num_experts * C * d // p * act * (p - 1) / p)
     return 3 * cfg.num_layers * block + _outer_wire_bytes(cfg, batch, seq, p)
+
+
+def ssm_wire_bytes(cfg, batch, seq, p):
+    """The logical wire bytes one rank issues in one training step of an
+    SSM model (mamba2) with phantom in and out projections in the ``fp``
+    layout at tp = ``p``, dp = 1 (``_outer_wire_bytes``' pricing).  Per
+    block and pass: the norm's psum, the feature gather for the B/C and
+    dt projections, the ghost gathers of ``wz``, ``wx`` and ``out``, and
+    the gated RMSNorm's psum; a backward pass issues the same bytes, and
+    ``remat="full"`` repeats the forward: three passes.  Around the
+    blocks: ``_outer_wire_bytes`` (the replicated B/C projection's
+    gradient all-reduced over tp among the parameters')."""
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    d, k, T = cfg.d_model, cfg.projection_spec("ssm_in").k, batch * seq
+    block = (2 * _all_reduced(p, T * 4)
+             + _gathered(p, T * d // p * act)
+             + 3 * _gathered(p, T * k * act))
+    return 3 * cfg.num_layers * block + _outer_wire_bytes(cfg, batch, seq, p)
+
+
+def fsdp_wire_bytes(cfg, batch, seq, p, dp):
+    """The logical wire bytes one rank issues in one training step of a
+    dense LM with phantom MLP sites and dense head-mode attention in the
+    ``fp`` layout (phi3-mini) at tp = ``p``, dp = ``dp``, with or without
+    FSDP (``_outer_wire_bytes``' pricing).  Per block and pass: two norm
+    psums, the attention's feature gather and the reduce-scatter of
+    ``wo``'s partial sums, and the ghost gathers of gate, up and down;
+    three passes.  Under FSDP ``_param_wire_bytes`` replaces each
+    dp-sharded leaf's gradient all-reduce by its gathers (the forward's
+    and the recompute's in a block) and one reduce-scatter."""
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    d, k = cfg.d_model, cfg.projection_spec("ffn_gate").k
+    T = batch // dp * seq
+    block = (2 * _all_reduced(p, T * 4)
+             + 2 * _gathered(p, T * d // p * act)
+             + 3 * _gathered(p, T * k * act))
+    return (3 * cfg.num_layers * block
+            + _outer_wire_bytes(cfg, batch, seq, p, dp))
 
 
 class _KeepGrads:
@@ -3268,9 +3398,7 @@ def _moe_held(ranks, cfg):
             "matmul_tn": 0}
 
     def path(layers):   # four phantom sites and flash, fwd and recompute
-        return {"flash_attention": 2 * layers,
-                "phantom_fused_matmul": 8 * layers,
-                "matmul_nt": 4 * layers, "matmul_tn": 4 * layers}
+        return _path_launches(layers, 4)
     want = {"kernel_vs_plain": {"kernel": path(L), "plain": none},
             "granite_tp4_vs_tp1": none}
     wire = moe_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP)
@@ -3394,6 +3522,504 @@ def phase_moe():
             "wire_bytes_predicted": wire, "wall_s": wall}
 
 
+def _mamba_serve():
+    """(a): mamba2-370m at full size and tp = 1 through ``ServeEngine``,
+    phase 4's traffic, every prompt its own exact-length group (the
+    recurrent families cannot be right-padded; page size 1 admits every
+    length).  Every request's 16 tokens, TTFT and TPOT, a profiled decode
+    window, the state cache's bytes; then the recurrence check on the
+    closed batch's first group (``_recurrence_check``).  No kernel runs
+    here: the SSD scan is plain torch, as the reference's is XLA, and
+    phantom needs tp > 1."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config, with_kernel_backend
+    from repro_torch.launch.serve import closed_batch, slo_report
+    from repro_torch.models.model import count_params, model_decls
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = with_kernel_backend(get_config(MAMBA_ARCH), "pallas")
+    t0 = time.perf_counter()
+    # float32 draw, kept for the recurrence check; the engine casts a copy
+    params = materialize(model_decls(cfg, MeshAxes()), torch.Generator(
+        device="cuda").manual_seed(SEED), "cuda")
+    eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                      page_size=MAMBA_PAGE, device="cuda")
+    torch.cuda.synchronize()
+    n_params = count_params(cfg)
+    state_bytes = sum(c.numel() * c.element_size()
+                      for c in eng.cache.values())
+    shapes = {k: (list(c.shape), str(c.dtype)) for k, c in eng.cache.items()}
+    print(f"mamba serve: {cfg.name} layers={cfg.num_layers} d={cfg.d_model} "
+          f"d_state={cfg.ssm.d_state} params={n_params:,}; state cache "
+          f"{state_bytes / 1e6:.2f} MB for {SLOTS} slots ({shapes}), set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    closed = closed_batch(cfg.vocab_size, 8, 16, NEW_TOKENS, SEED)
+    rng = np.random.RandomState(SEED + 1)
+    mixed = [Request(prompt=rng.randint(0, cfg.vocab_size, n)
+                     .astype(np.int32), max_new_tokens=NEW_TOKENS,
+                     req_id=100 + i) for i, n in enumerate(MIXED_LENS)]
+    eng.warmup(sorted(set(MIXED_LENS + (16,))))
+    torch.cuda.reset_peak_memory_stats()
+    groups0 = eng.prefill_meter.calls
+    eng.run(closed)
+    rep_closed = slo_report(closed)
+    for r in mixed:
+        r.arrival_s = eng.now_s
+    eng.run(mixed)
+    rep_mixed = slo_report(mixed)
+    groups = eng.prefill_meter.calls - groups0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for r in closed + mixed:
+        check(r.done and r.error is None and len(r.out_tokens) == NEW_TOKENS,
+              f"mamba serve: request {r.req_id} ended with "
+              f"{len(r.out_tokens)} tokens ({r.error})")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"mamba serve: request {r.req_id} sampled out-of-vocab tokens")
+    # 8 closed prompts of 16 in groups of SLOTS; each mixed length alone
+    check(groups == 8 // SLOTS + len(MIXED_LENS),
+          f"mamba serve: {groups} prefill groups")
+    for name, rep in (("closed", rep_closed), ("mixed", rep_mixed)):
+        print(f"mamba serve {name}: requests={rep['requests']} "
+              f"tokens={rep['generated_tokens']} "
+              f"TTFT p50={rep['ttft_ms']['p50']:.3f} ms "
+              f"TPOT p50={rep['tpot_ms']['p50']:.3f} ms "
+              f"tokens/s={rep['tokens_per_s']:.1f}", flush=True)
+    print(f"mamba serve: prefill groups={groups} (exact-length); peak "
+          f"memory {peak_gb:.2f} GB (the float32 draw held beside the "
+          f"engine); prefill step median "
+          f"{eng.prefill_meter.median_us() / 1e3:.3f} ms, decode "
+          f"{eng.decode_meter.median_us() / 1e3:.3f} ms", flush=True)
+    profile = _profile_decode(eng, cfg)
+    del eng
+    _free()
+
+    # --- the recurrence check, float32, outside the main path -----------
+    recurrence, end_to_end = _recurrence_check(cfg.replace(dtype="float32"),
+                                               params, closed[:SLOTS])
+    del params
+    _free()
+    return {"params": n_params, "state_bytes": state_bytes,
+            "prefill_groups": groups, "peak_memory_gb": peak_gb,
+            "closed": rep_closed, "mixed": rep_mixed,
+            "decode_profile": profile, "recurrence": recurrence,
+            "recurrence_end_to_end": end_to_end}
+
+
+def _recurrence_check(cfg, params, requests):
+    """The chunked scan against the recurrence, in float32 on the
+    requests' prompts (one group): layer by layer from the same input,
+    the prefill's final ``{"conv", "ssm"}`` state and every position's
+    output against decoding the prompt token by token from a zero state,
+    and the last logits of both from the last layer's outputs, each
+    within ``RECURRENCE_TOL`` of its largest magnitude.  Held per layer
+    because 48 random layers amplify one-ulp differences; the end-to-end
+    gap (``forward_prefill`` against ``forward_decode``) is printed."""
+    import numpy as np
+    import torch
+    from repro_torch.models.blocks import block_apply
+    from repro_torch.models.layers import (embed_apply, head_logits,
+                                           norm_apply, residual_layout)
+    from repro_torch.models.model import (cache_decls, forward_decode,
+                                          forward_prefill)
+    from repro_torch.models.ssm import ssm_cache_shape
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import tree_map
+    one = MeshAxes()
+    toks = torch.from_numpy(np.stack([r.prompt for r in requests])
+                            ).long().cuda()
+    B, S = toks.shape
+    lay = residual_layout(cfg, "prefill")
+    worst = {}
+
+    def held(name, got, want, layer):
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        w = worst.setdefault(name, {"max_abs_err": 0.0, "max_scaled_err": 0.0})
+        w["max_abs_err"] = max(w["max_abs_err"], err)
+        w["max_scaled_err"] = max(w["max_scaled_err"], err / scale)
+        check(bool(torch.isfinite(got).all()) and err <= RECURRENCE_TOL
+              * scale, f"mamba serve: recurrence check, layer {layer} "
+                       f"{name}: prefill and token-by-token decode differ "
+                       f"by {err:.3e} (largest {scale:.3e})")
+
+    V = cfg.vocab_size      # the padded columns are masked to -1e30
+
+    def logits(h):
+        return head_logits(cfg, lay, params["head"], norm_apply(
+            cfg, lay, params["final_norm"], h, one)[:, -1:], one)[..., :V]
+    with torch.no_grad():
+        h = embed_apply(cfg, lay, params["embed"], toks, one)
+        for i in range(cfg.num_layers):
+            lp = tree_map(lambda t: t[i], params["layers"])
+            h_pre, state, _ = block_apply(cfg, lay, lp, h, None, one,
+                                          kind="prefill", ffn=None,
+                                          mixer="mamba")
+            cache = {k: torch.zeros(shape, device="cuda") for k, (shape, _)
+                     in ssm_cache_shape(cfg, one, B).items()}
+            outs = []
+            for t in range(S):
+                o, cache, _ = block_apply(cfg, lay, lp, h[:, t:t + 1], None,
+                                          one, kind="decode", ffn=None,
+                                          mixer="mamba", cache=cache)
+                outs.append(o)
+            held("outputs", torch.cat(outs, 1), h_pre, i)
+            held("conv", cache["conv"], state["conv"], i)
+            held("ssm", cache["ssm"], state["ssm"], i)
+            h = h_pre
+        held("logits", logits(outs[-1]), logits(h_pre), cfg.num_layers)
+        lg_pre, _ = forward_prefill(cfg, one, params, {"tokens": toks})
+        cache = {k: torch.zeros(sp.shape, device="cuda")
+                 for k, sp in cache_decls(cfg, one, B, S).items()}
+        for t in range(S):
+            lg_dec, cache = forward_decode(cfg, one, params, cache,
+                                           toks[:, t:t + 1],
+                                           torch.full((B,), t, device="cuda"))
+    lg_dec, lg_pre = lg_dec[..., :V], lg_pre[..., :V]
+    end_to_end = ((lg_dec - lg_pre).abs().max()
+                  / lg_pre.abs().max()).item()
+    shown = ", ".join(f"{k} {v['max_scaled_err']:.3e}"
+                      for k, v in worst.items())
+    print(f"mamba serve: recurrence check (float32, {B} x {S} tokens, "
+          f"{cfg.num_layers} layers, each from the prefill's input to it): "
+          f"prefill against token-by-token decode from a zero state, worst "
+          f"over the layers as a share of the largest: {shown} (held to "
+          f"{RECURRENCE_TOL}); end to end (printed, not held: random layers "
+          f"amplify rounding) the last logits differ by {end_to_end:.3e} of "
+          f"the largest", flush=True)
+    return worst, end_to_end
+
+
+def _dp_cut(tree, decls, axes):
+    """This rank's block of every dp-sharded dim of a tree that is
+    replicated over dp (the same run without FSDP), so that it compares
+    leaf by leaf with the FSDP run's shards."""
+    from repro_torch.parallel.params import tree_leaves, tree_unflatten
+    dflat = dict(tree_leaves(decls))
+    flat = {}
+    for path, t in tree_leaves(tree):
+        for dim, e in enumerate(dflat[path].spec):
+            if e == "dp":
+                n = t.shape[dim] // axes.dp
+                t = t.narrow(dim, axes.dp_rank * n, n)
+        flat[path] = t
+    return tree_unflatten(tree, flat)
+
+
+def _fsdp_step1(base, axes, device, batch, sched, parts):
+    """Step 1 of ``base`` with ``fsdp=True`` ("kernel" in
+    ``_step1_diff``'s terms) against ``fsdp=False`` ("plain") on the same
+    mesh, the same global weights and the same kernels: the parts
+    compared, the launches of each run."""
+    from repro_torch.models.model import model_decls
+    from repro_torch.parallel.params import materialize_shards
+    res, launches = {}, {}
+    fdecls = model_decls(base.replace(fsdp=True), axes)
+    for name, on in (("kernel", True), ("plain", False)):
+        c = base.replace(fsdp=on)
+        params = materialize_shards(model_decls(c, axes), axes, SEED,
+                                    device, draw_on=device)
+        r, launches[name], eps = _tp_step1(c, axes, device, params, batch,
+                                           sched)
+        del params
+        if not on:
+            r = {"loss": r["loss"], "grads": _dp_cut(r["grads"], fdecls,
+                                                     axes),
+                 "params": _dp_cut(r["params"], fdecls, axes)}
+        res[name] = r
+    out = {part: _step1_diff(res, part, sched(0), eps) for part in parts}
+    out.update(launches=launches, loss_values={
+        n: float(r["loss"]) for n, r in res.items()})
+    del res
+    _free()
+    return out
+
+
+def _fsdp_rank(axes, device):
+    """Phase 13 (c) inside one rank of a dp ``FSDP_DP`` x tp ``FSDP_TP``
+    mesh: phi3-mini at full width, phantom MLP sites.  Step 1 at
+    ``LM_PARITY_LAYERS`` layers, fp32, through the kernels, with
+    ``fsdp=True`` against ``fsdp=False`` (AdamW: loss, gradients and
+    parameters; Adafactor: loss and gradients, its factored moments being
+    per shard); then the main path at ``FSDP_LAYERS`` layers, bf16,
+    ``FSDP_STEPS`` steps with FSDP and one more profiled, and the same
+    steps without it; then mamba2's step 1 with and without FSDP."""
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.launch.train import train_config
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.train.trainer import local_rows
+    out = {"rank": axes.rank}
+    args = _lm_args(["--steps", str(FSDP_STEPS), "--dp", str(FSDP_DP),
+                     "--tp", str(FSDP_TP)])
+    base = train_config(args).replace(num_layers=FSDP_LAYERS)
+    cut = base.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
+    batch = local_rows(LMDataset(cut.vocab_size, args.batch, args.seq + 1,
+                                 device=device)(0), axes)
+    sched = warmup_cosine(3e-4, 20, FSDP_STEPS)
+    out["phi3_adamw"] = _fsdp_step1(cut, axes, device, batch, sched,
+                                    ("loss", "grads", "params"))
+    out["phi3_adafactor"] = _fsdp_step1(cut.replace(optimizer="adafactor"),
+                                        axes, device, batch, sched,
+                                        ("loss", "grads"))
+    out["main"] = _lm_tp_train(axes, device, base.replace(fsdp=True), args,
+                               FSDP_STEPS, profile=True)
+    out["main_unsharded"] = _lm_tp_train(axes, device, base, args,
+                                         FSDP_STEPS)
+    margs = _lm_args([], arch=MAMBA_ARCH)
+    mcut = train_config(margs).replace(num_layers=LM_PARITY_LAYERS,
+                                       dtype="float32")
+    mbatch = local_rows(LMDataset(mcut.vocab_size, margs.batch,
+                                  margs.seq + 1, device=device)(0), axes)
+    out["mamba_adamw"] = _fsdp_step1(mcut, axes, device, mbatch, sched,
+                                     ("loss", "grads", "params"))
+    return out
+
+
+def _ssm_fsdp_rank(axes, device):
+    """``phase_ssm_fsdp`` inside one of the ``LM_TP`` ranks sharing the
+    card: (b) mamba2-370m at full width: step 1 at ``LM_PARITY_LAYERS``
+    layers, fp32, phantom in/out sites through the kernels against plain
+    torch, and dense sites (``sp``) at tp = 4 against tp = 1; then the
+    main path at ``MAMBA_LAYERS`` layers, bf16, ``MAMBA_STEPS`` steps and
+    one more profiled (``_lm_tp_train``).  (c) FSDP on a dp x tp mesh of
+    the same ranks (``_fsdp_rank``)."""
+    from repro_torch.configs.base import (dense_projection_map,
+                                          with_kernel_backend)
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize_shards, shard_params
+
+    out = {"rank": axes.rank}
+    one = MeshAxes()
+    args = _lm_args(["--steps", str(MAMBA_STEPS)], arch=MAMBA_ARCH)
+    base = train_config(args).replace(num_layers=MAMBA_LAYERS)
+    cut = base.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
+    batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
+                      device=device)(0)
+    sched = warmup_cosine(3e-4, 20, MAMBA_STEPS)
+
+    # (b) kernels against plain, phantom in/out sites, float32
+    params = materialize_shards(model_decls(cut, axes), axes, SEED, device,
+                                draw_on=device)
+    res, launches = {}, {}
+    for name, backend in (("kernel", "auto"), ("plain", "xla")):
+        res[name], launches[name], eps = _tp_step1(
+            with_kernel_backend(cut, backend), axes, device, params, batch,
+            sched)
+    out["kernel_vs_plain"] = {
+        part: _step1_diff(res, part, sched(0), eps)
+        for part in ("loss", "grads", "params")}
+    out["kernel_vs_plain"].update(
+        launches=launches,
+        loss_values={n: float(r["loss"]) for n, r in res.items()})
+    del params, res
+    _free()
+
+    # (b) dense sites (sp), tp = 4 against tp = 1 from the same seed
+    dense = with_kernel_backend(cut.replace(
+        projections=dense_projection_map()), "auto")
+    decls = model_decls(dense, axes)
+    params = materialize_shards(decls, axes, SEED, device, draw_on=device)
+    mine = _grads_step1(dense, axes, device, params, batch)
+    del params
+    params = materialize_shards(model_decls(dense, one), one, SEED, device,
+                                draw_on=device)
+    full = _grads_step1(dense, one, device, params, batch)
+    del params
+    res = {"kernel": mine, "plain": {
+        "loss": full["loss"],
+        "grads": shard_params(full["grads"], decls, axes)}}
+    out["tp4_vs_tp1"] = {part: _step1_diff(res, part, 0.0, eps)
+                         for part in ("loss", "grads")}
+    out["tp4_vs_tp1"]["loss_values"] = {"tp4": float(mine["loss"]),
+                                        "tp1": float(full["loss"])}
+    del res, mine, full
+    _free()
+
+    # (b) the main path --------------------------------------------------
+    out["main"] = _lm_tp_train(axes, device, base, args, MAMBA_STEPS,
+                               profile=True)
+    # (c) FSDP, new groups over the same ranks ----------------------------
+    out["fsdp"] = _fsdp_rank(make_local_mesh(FSDP_DP, FSDP_TP), device)
+    return out
+
+
+def _path_launches(layers, sites, flash=True):
+    """Launches a step a rank of ``layers`` blocks with ``sites`` phantom
+    sites each under ``remat="full"``: flash and the phantom forward in
+    the forward pass and the recompute, the dgrad and wgrad once."""
+    return {"flash_attention": 2 * layers * flash,
+            "phantom_fused_matmul": 2 * sites * layers,
+            "matmul_nt": sites * layers, "matmul_tn": sites * layers}
+
+
+def _ssm_fsdp_held(ranks, mcfg, fcfg):
+    """Hold every rank's (b) and (c): step 1's parts with 0 elements
+    outside and the launches they imply; the main paths' losses finite
+    at every step, their launches per step and their wire bytes against
+    ``ssm_wire_bytes`` and ``fsdp_wire_bytes``.  Returns the worst
+    step-1 differences over the ranks."""
+    import math
+    L = LM_PARITY_LAYERS
+    none = _path_launches(0, 0)
+    worst = {}
+
+    def hold(rk, key, res, launches=None):
+        for part in ("loss", "grads", "params"):
+            if part not in res:
+                continue
+            diff = res[part]
+            check(diff["outside"] == 0,
+                  f"ssm_fsdp rank {rk}: {key} {part} differ in "
+                  f"{diff['outside']} of {diff['elements']} elements: "
+                  f"{diff}")
+            w = worst.setdefault(key, {}).setdefault(part, {})
+            for k, v in diff.items():
+                w[k] = max(w.get(k, 0), v)
+        check(res["grads"]["max_scaled_err"] <= STEP1_TOL["rtol"],
+              f"ssm_fsdp rank {rk}: {key} gradients differ by more than "
+              f"1e-4 of the largest: {res['grads']}")
+        if launches is not None:
+            check(res["launches"] == launches,
+                  f"ssm_fsdp rank {rk}: {key} launches {res['launches']}, "
+                  f"want {launches}")
+
+    def hold_main(rk, key, m, launches, wire):
+        check(all(math.isfinite(v) for v in m["losses"] + m["grad_norms"]),
+              f"ssm_fsdp rank {rk}: {key}: non-finite loss or gradient "
+              f"norm: {m['losses']} {m['grad_norms']}")
+        check(m["launches_per_step"] == launches,
+              f"ssm_fsdp rank {rk}: {key}: launches per step "
+              f"{m['launches_per_step']}, want {launches}")
+        check(m["wire_bytes_per_step"] == wire,
+              f"ssm_fsdp rank {rk}: {key}: {m['wire_bytes_per_step']:.0f} "
+              f"wire bytes a step, counted {wire:.0f}")
+
+    mwire = ssm_wire_bytes(mcfg, LM_BATCH, LM_SEQ, LM_TP)
+    fwire = {on: fsdp_wire_bytes(fcfg.replace(fsdp=on), LM_BATCH, LM_SEQ,
+                                 FSDP_TP, FSDP_DP) for on in (True, False)}
+    phi3 = _path_launches(L, 3)
+    for r in ranks:
+        rk, f = r["rank"], r["fsdp"]
+        hold(rk, "mamba_kernel_vs_plain", r["kernel_vs_plain"],
+             {"kernel": _path_launches(L, 3, flash=False), "plain": none})
+        hold(rk, "mamba_tp4_vs_tp1", r["tp4_vs_tp1"])
+        hold_main(rk, "mamba main", r["main"],
+                  _path_launches(mcfg.num_layers, 3, flash=False), mwire)
+        hold(rk, "phi3_fsdp_vs_not_adamw", f["phi3_adamw"],
+             {"kernel": phi3, "plain": phi3})
+        hold(rk, "phi3_fsdp_vs_not_adafactor", f["phi3_adafactor"],
+             {"kernel": phi3, "plain": phi3})
+        mamba = _path_launches(L, 3, flash=False)
+        hold(rk, "mamba_fsdp_vs_not_adamw", f["mamba_adamw"],
+             {"kernel": mamba, "plain": mamba})
+        launches = _path_launches(fcfg.num_layers, 3)
+        hold_main(rk, "phi3 fsdp main", f["main"], launches, fwire[True])
+        hold_main(rk, "phi3 unsharded", f["main_unsharded"], launches,
+                  fwire[False])
+    return worst, mwire, fwire
+
+
+def phase_ssm_fsdp():
+    """The SSM family and FSDP: the kernels at mamba2-370m's tp = 4
+    shapes and phi3-mini's dp 2 x tp 2 ones, mamba2's serving at full
+    size (``_mamba_serve``), then ``LM_TP`` ranks sharing the card (gloo,
+    card tensors through the host) running ``_ssm_fsdp_rank``."""
+    import statistics as st
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import train_config
+    _free()
+    t0 = time.perf_counter()
+    kernels = _timed_kernels(
+        "ssm_fsdp", torch.Generator(device="cuda").manual_seed(SEED),
+        (FSDP_FLASH_SHAPE,), MAMBA_PHANTOM_SHAPES + FSDP_PHANTOM_SHAPES)
+    serve = _mamba_serve()
+    t1 = time.perf_counter()
+    ranks = spawn(_ssm_fsdp_rank, 1, LM_TP, "cuda", timeout_s=900)
+    wall = time.perf_counter() - t1
+    mcfg = train_config(_lm_args([], arch=MAMBA_ARCH)).replace(
+        num_layers=MAMBA_LAYERS)
+    fcfg = train_config(_lm_args(["--dp", str(FSDP_DP), "--tp",
+                                  str(FSDP_TP)])).replace(
+        num_layers=FSDP_LAYERS)
+    worst, mwire, fwire = _ssm_fsdp_held(ranks, mcfg, fcfg)
+    for key, w in worst.items():
+        print(f"ssm_fsdp: {key} at {LM_PARITY_LAYERS} layers, step 1, "
+              f"float32, worst over ranks (rtol 1e-4 / atol 1e-5): "
+              + "; ".join(f"{part} {v['max_abs_err']:.3e} ("
+                          f"{v.get('max_scaled_err', 0):.3e} of the "
+                          f"largest), {v['outside']} of {v['elements']} "
+                          f"outside" for part, v in w.items()), flush=True)
+    tokens = LM_BATCH * LM_SEQ
+    main = [r["main"] for r in ranks]
+    med = [st.median(m["step_ms"][1:]) for m in main]
+    print(f"ssm_fsdp: (b) {mcfg.name} phantom in/out sites, tp={LM_TP}, "
+          f"layers={mcfg.num_layers}, batch {LM_BATCH} x seq {LM_SEQ}, bf16, "
+          f"remat={mcfg.remat}: losses "
+          f"{[round(v, 4) for v in main[0]['losses']]}; per-rank step ms "
+          f"{[[round(v, 1) for v in m['step_ms']] for m in main]}, median "
+          f"of steps 2-{MAMBA_STEPS} {[round(v, 1) for v in med]}; "
+          f"{tokens / max(med) * 1e3:.1f} tokens/s (slowest rank); launches "
+          f"per step per rank {main[0]['launches_per_step']}; wire bytes "
+          f"per step per rank {[round(m['wire_bytes_per_step']) for m in main]}"
+          f", counted {mwire:.0f} (ssm_wire_bytes); peak memory per rank "
+          f"(GB) {[round(m['peak_memory_gb'], 2) for m in main]}",
+          flush=True)
+    prof = [m["profile"] for m in main]
+    print(f"ssm_fsdp: (b) one more step, collectives timed on every rank "
+          f"(rank 0 also profiled): wall ms "
+          f"{[round(p['wall_ms'], 1) for p in prof]}, in collectives "
+          f"{[round(p['collective_ms'], 1) for p in prof]} over "
+          f"{prof[0]['calls']} calls; rank 0's device "
+          f"{prof[0]['device_ms']} ms (busy {prof[0]['device_busy_share']}),"
+          f" by kind {prof[0]['device_ms_by_kind']}, "
+          f"{prof[0]['device_ops']} device ops; top: "
+          f"{ {k: round(v, 3) for k, v in prof[0]['top_device_ms'].items()} }",
+          flush=True)
+    fs = [r["fsdp"] for r in ranks]
+    for key, what in (("main", "fsdp=True"),
+                      ("main_unsharded", "fsdp=False")):
+        ms = [f[key] for f in fs]
+        fmed = [st.median(m["step_ms"][1:]) for m in ms]
+        print(f"ssm_fsdp: (c) {fcfg.name} {what}, dp={FSDP_DP} x "
+              f"tp={FSDP_TP}, layers={fcfg.num_layers}, bf16: losses "
+              f"{[round(v, 4) for v in ms[0]['losses']]}; median step ms "
+              f"{[round(v, 1) for v in fmed]}; "
+              f"{tokens / max(fmed) * 1e3:.1f} tokens/s; launches per step "
+              f"per rank {ms[0]['launches_per_step']}; wire bytes per step "
+              f"per rank {[round(m['wire_bytes_per_step']) for m in ms]}, "
+              f"counted {fwire[key == 'main']:.0f} (fsdp_wire_bytes); by "
+              f"collective (rank 0) {ms[0]['collectives_per_step']}; "
+              f"parameters + optimizer state per rank (GB) "
+              f"{[round(m['state_bytes'] / 1e9, 3) for m in ms]}; peak "
+              f"memory per rank (GB) "
+              f"{[round(m['peak_memory_gb'], 2) for m in ms]}", flush=True)
+    fprof = [f["main"]["profile"] for f in fs]
+    print(f"ssm_fsdp: (c) one more fsdp step, collectives timed: wall ms "
+          f"{[round(p['wall_ms'], 1) for p in fprof]}, in collectives "
+          f"{[round(p['collective_ms'], 1) for p in fprof]}; rank 0's "
+          f"device {fprof[0]['device_ms']} ms (busy "
+          f"{fprof[0]['device_busy_share']}), by kind "
+          f"{fprof[0]['device_ms_by_kind']}", flush=True)
+    print(f"ssm_fsdp: the ranks took {wall:.1f} s; the phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"kernels": kernels, "serve": serve, "ranks": ranks,
+            "worst": worst, "median_step_ms": med,
+            "tokens_per_s": tokens / max(med) * 1e3,
+            "launches_per_step": main[0]["launches_per_step"],
+            "fsdp_launches_per_step": fs[0]["main"]["launches_per_step"],
+            "wire_bytes_counted": {"mamba": mwire, "fsdp": fwire[True],
+                                   "unsharded": fwire[False]},
+            "wall_s": wall}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3409,18 +4035,30 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
-    device = phase_device()
-    flash = phase_kernels()
-    phantom = phase_phantom_kernels()
-    serve = phase_serve()
-    train = phase_train()
-    ledger = phase_energy(train, device["nvidia_smi"])
-    pipeline = phase_pipeline(train, ledger)
-    lm = phase_lm_train()
-    lm_tp = phase_lm_train_tp()
-    qwen = phase_qwen_train_tp()
-    lm_pp = phase_lm_train_pp()
-    moe = phase_moe()
+    walls = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = time.perf_counter() - t0
+        print(f"phase {name}: {walls[name]:.1f} s wall", flush=True)
+        return out
+    t_start = time.perf_counter()
+    device = timed("device", phase_device)
+    flash = timed("kernels", phase_kernels)
+    phantom = timed("phantom_kernels", phase_phantom_kernels)
+    serve = timed("serve", phase_serve)
+    train = timed("train", phase_train)
+    ledger = timed("energy", phase_energy, train, device["nvidia_smi"])
+    pipeline = timed("pipeline", phase_pipeline, train, ledger)
+    lm = timed("lm_train", phase_lm_train)
+    lm_tp = timed("lm_train_tp", phase_lm_train_tp)
+    qwen = timed("qwen_train_tp", phase_qwen_train_tp)
+    lm_pp = timed("lm_train_pp", phase_lm_train_pp)
+    moe = timed("moe", phase_moe)
+    ssm = timed("ssm_fsdp", phase_ssm_fsdp)
+    print(f"phases: {time.perf_counter() - t_start:.1f} s wall in all",
+          flush=True)
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
     print(f"ledger written to {path}")
     ledger = ledger.report()
@@ -3464,7 +4102,14 @@ def main() -> int:
                     "launches_per_step_per_rank":
                         moe["launches_per_step"]["flash_attention"],
                     **{key: moe["kernels"]["flash"][1][key]
-                       for key in TIMED + ("cold_ms",)}}}]
+                       for key in TIMED + ("cold_ms",)}},
+        "ssm_tp4": {"launches_per_step_per_rank":
+                    ssm["launches_per_step"]["flash_attention"]},
+        "fsdp_dp2_tp2": {"shape": list(FSDP_FLASH_SHAPE),
+                         "launches_per_step_per_rank":
+                             ssm["fsdp_launches_per_step"]["flash_attention"],
+                         **{key: ssm["kernels"]["flash"][0][key]
+                            for key in TIMED + ("cold_ms",)}}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -3524,15 +4169,29 @@ def main() -> int:
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
                            for r in moe["kernels"]["cases"]
-                           if r["kernel"] == name]}})
+                           if r["kernel"] == name]},
+            **{tag: {
+                "launches_per_step_per_rank": ssm[lkey][name],
+                "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
+                            **{key: r[key] for key in TIMED},
+                            "cold_ms": ssm["kernels"]["cold"][str(
+                                [r["M"], r["K"], r["N"], r["PK"]])][name][
+                                "cold_ms"]}
+                           for r in ssm["kernels"]["cases"]
+                           if r["kernel"] == name
+                           and (r["M"], r["K"], r["N"], r["PK"]) in shapes]}
+               for tag, lkey, shapes in (
+                   ("ssm_tp4", "launches_per_step", MAMBA_PHANTOM_SHAPES),
+                   ("fsdp_dp2_tp2", "fsdp_launches_per_step",
+                    FSDP_PHANTOM_SHAPES))}})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
         {"device": device, "flash": flash, "phantom": phantom,
          "serve": serve, "train": train, "pipeline": pipeline,
          "lm_train": lm, "lm_train_tp": lm_tp, "qwen_train_tp": qwen,
-         "lm_train_pp": lm_pp, "moe": moe,
-         "ledger": ledger,
+         "lm_train_pp": lm_pp, "moe": moe, "ssm_fsdp": ssm,
+         "phase_wall_s": walls, "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

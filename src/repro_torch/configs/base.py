@@ -1,14 +1,15 @@
 """Config system of the PyTorch port: its own copy of the JAX package's
-``configs/base.py``, cut down to what the dense, MoE and paper-FFN
+``configs/base.py``, cut down to what the dense, MoE, SSM and paper-FFN
 families read.
 
 Plain dataclasses, no framework imports.  Field names, defaults and the
 projection-site resolution are the reference's, so a config built here
 compares field by field with its counterpart there (the tests check
-that for every ported config).  Fields that only other families or
-unported features read (SSM, encoder-decoder, vision, FSDP, the KV
-cache's quantisation) are left out until the slice that ports them; the
-tests hold every ported config to the reference's default for each.
+that for every ported config).  Fields that only unported features read
+(the encoder-decoder and vision families, tied embeddings, the
+reference's python-loop layer stack) are left out until the slice that
+ports them; the tests hold every ported config to the reference's
+default for each.
 """
 from __future__ import annotations
 
@@ -32,6 +33,16 @@ class MoEConfig:
     partition: str = "expert"
     capacity_factor: float = 1.25
     router_jitter: float = 0.0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    d_state: int = 128
+    head_dim: int = 64
+    expand: int = 2
+    conv_width: int = 4
+    chunk: int = 128          # SSD chunk length
+    ngroups: int = 1
 
 
 @dataclass(frozen=True)
@@ -180,7 +191,7 @@ def with_kernel_backend(cfg: "ModelConfig",
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # "dense" | "moe" | "ffn" are ported
+    family: str                     # dense | moe | ssm | ffn (ported)
     num_layers: int
     d_model: int
     num_heads: int = 0
@@ -198,7 +209,12 @@ class ModelConfig:
     rope_fraction: float = 1.0      # chatglm3 "2d rope" == 0.5
     rope_theta: float = 10000.0
 
+    # one attention layer per ``attn_period`` layers (0: every layer is
+    # attention, -1: attention-free)
+    attn_period: int = 0
+
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
 
     ffn_impl: str = "dense"         # legacy shim, see projection_spec
     phantom: PhantomConfig = field(default_factory=PhantomConfig)
@@ -208,10 +224,13 @@ class ModelConfig:
     dtype: str = "bfloat16"         # compute dtype
     param_dtype: str = "float32"    # stored parameter dtype
     remat: str = "full"             # full | none (recompute each block)
-    optimizer: str = "adamw"        # adamw | sgd (adafactor: later)
+    optimizer: str = "adamw"        # adamw | adafactor | sgd
+    fsdp: bool = False              # also shard parameters over dp
     loss_chunk: int = 2048          # sequence chunk of the cross-entropy
     attn_bf16_scores: bool = False  # bf16 score blocks in the plain core
+    kv_cache_quant: bool = False    # the SSD decode state in bf16
     attn_kv_chunk: int = 0          # 0 = default chunking; -1 = one block
+    fsdp_gather_quant: bool = False  # int8 FSDP gathers (gather_fsdp)
     attn_ring_gather_kv: bool = False  # ring mode: one all-gather of K/V
                                        # instead of p ppermute hops
     pipeline: PipelineConfig = field(default_factory=PipelineConfig)
@@ -300,6 +319,7 @@ class ShapeConfig:
 _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "granite-moe-3b-a800m": "granite_moe_3b",
+    "mamba2-370m": "mamba2_370m",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "phi3-mini-3.8b": "phi3_mini",
     "qwen2.5-14b": "qwen2_5_14b",

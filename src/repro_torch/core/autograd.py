@@ -6,7 +6,8 @@ The forward pass all-gathers the k-wide ghost activations over the model
 axis; the backward pass reduce-scatters the ghost gradients back to the
 ranks they came from.  ``psum_scatter_tiled`` is its transpose pair.
 Both run over ``axes.tp_comm`` (``parallel/axes.py: Group``); with one
-rank on the axis they are the identity.
+rank on the axis they are the identity.  ``all_gather_dp`` is the tiled
+all-gather over the data axis, FSDP's gather on use.
 
 ``psum`` is the model axis's all-reduce with the gradient JAX gives
 ``lax.psum`` inside ``shard_map``: the cotangents are all-reduced too.
@@ -84,6 +85,16 @@ def all_gather_tiled(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     """All-gather along ``dim`` over the model axis, rank blocks in rank
     order; the gradient is the tiled reduce-scatter."""
     return _AllGatherTiled.apply(x, axes.tp_comm, dim % x.dim())
+
+
+def all_gather_dp(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """``all_gather_tiled`` over the data axis (FSDP's gather on use:
+    ``lax.all_gather`` over the dp mesh axes, whose gradient is the
+    reduce-scatter that sums every dp rank's gradient of the shard).
+    The identity at dp = 1."""
+    if axes.dp == 1:
+        return x
+    return _AllGatherTiled.apply(x, axes.dp_comm, dim % x.dim())
 
 
 class _Psum(torch.autograd.Function):

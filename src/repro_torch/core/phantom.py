@@ -40,18 +40,28 @@ from repro_torch.parallel.params import ParamDecl
 
 
 def phantom_decls(n_in: int, n_out: int, k: int, tp: int,
-                  bias: bool = True) -> Dict[str, ParamDecl]:
+                  bias: bool = True, fsdp: bool = False,
+                  dp: int = 1) -> Dict[str, ParamDecl]:
     """Global shapes (local views in brackets):
       L [tp, n_in/tp, n_out/tp]  sharded on dim0   ([1, n_in/tp, n_out/tp])
       C [n_in, k]                sharded on dim0   ([n_in/tp, k])
       D [tp, k, n_out]           sharded on dim2   ([tp, k, n_out/tp])
       b [n_out]                  sharded           ([n_out/tp])
-    """
+
+    Under FSDP only L is also sharded over dp, on the first of its local
+    dims that dp divides (C and D are k wide: small, and a k-sized dim
+    need not divide dp)."""
     if n_in % tp or n_out % tp:
         raise ValueError(f"phantom widths {n_in}x{n_out} do not divide "
                          f"tp={tp}")
+    l_spec = ("tp", None, None)
+    if fsdp:
+        if (n_in // tp) % max(dp, 1) == 0:
+            l_spec = ("tp", "dp", None)
+        elif (n_out // tp) % max(dp, 1) == 0:
+            l_spec = ("tp", None, "dp")
     d = {
-        "L": ParamDecl((tp, n_in // tp, n_out // tp), ("tp", None, None),
+        "L": ParamDecl((tp, n_in // tp, n_out // tp), l_spec,
                        scale=(n_in // tp) ** -0.5),
         "C": ParamDecl((n_in, k), ("tp", None), scale=(n_in // tp) ** -0.5),
         "D": ParamDecl((tp, k, n_out), (None, None, "tp"),

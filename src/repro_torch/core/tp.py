@@ -18,19 +18,21 @@ from repro_torch.core.autograd import all_gather_tiled, psum_scatter_tiled
 from repro_torch.parallel.params import ParamDecl
 
 
-def col_linear_decls(n_in: int, n_out: int, tp: int, bias: bool = True
-                     ) -> Dict[str, ParamDecl]:
-    """Column-parallel: W [n_in, n_out] sharded on n_out."""
-    d = {"w": ParamDecl((n_in, n_out), (None, "tp"))}
+def col_linear_decls(n_in: int, n_out: int, tp: int, bias: bool = True,
+                     fsdp: bool = False) -> Dict[str, ParamDecl]:
+    """Column-parallel: W [n_in, n_out] sharded on n_out (and on n_in
+    over dp under FSDP)."""
+    d = {"w": ParamDecl((n_in, n_out), ("dp" if fsdp else None, "tp"))}
     if bias:
         d["b"] = ParamDecl((n_out,), ("tp",), init="zeros")
     return d
 
 
-def row_linear_decls(n_in: int, n_out: int, tp: int, bias: bool = True
-                     ) -> Dict[str, ParamDecl]:
-    """Row-parallel: W [n_in, n_out] sharded on n_in."""
-    d = {"w": ParamDecl((n_in, n_out), ("tp", None))}
+def row_linear_decls(n_in: int, n_out: int, tp: int, bias: bool = True,
+                     fsdp: bool = False) -> Dict[str, ParamDecl]:
+    """Row-parallel: W [n_in, n_out] sharded on n_in (and on n_out over
+    dp under FSDP)."""
+    d = {"w": ParamDecl((n_in, n_out), ("tp", "dp" if fsdp else None))}
     if bias:
         d["b"] = ParamDecl((n_out,), (), init="zeros")
     return d

@@ -6,6 +6,8 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch olmoe-1b-7b \
       --requests 8                        # MoE, on the card, full size
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
+      --requests 8                        # SSM, exact-length groups
 
 Weights are random, drawn from ``--seed``.  ``--dp``/``--tp`` above 1
 raise until the collectives slice; the reference's ``--route auto``,

@@ -1,6 +1,7 @@
 """Shapes and dtypes of the model's inputs and of its decode cache for
 one (arch x shape) cell, without allocating (the reference's
-``input_specs`` / ``cache_specs``, for the dense and MoE families)."""
+``input_specs`` / ``cache_specs``, for the dense, MoE and SSM
+families)."""
 from __future__ import annotations
 
 import torch
@@ -25,5 +26,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, axes: MeshAxes):
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, axes: MeshAxes):
-    """The decode KV cache of this cell: {k, v} [L, B, S, kv, hd]."""
+    """The decode cache of this cell: {k, v} [L, B, S, kv, hd], or the SSM
+    family's state {conv, ssm} (``models/model.py: cache_decls``)."""
     return cache_decls(cfg, axes, shape.global_batch, shape.seq_len)

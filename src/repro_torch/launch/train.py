@@ -1,5 +1,5 @@
-"""Train an LM of the dense or MoE family: the port's counterpart of the
-reference's ``python -m repro.launch.train`` (its non-elastic path
+"""Train an LM of the dense, MoE or SSM family: the port's counterpart of
+the reference's ``python -m repro.launch.train`` (its non-elastic path
 without a plan).
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
@@ -15,6 +15,8 @@ without a plan).
         --device cpu --pp 2 --tp 2 --microbatches 2   # 1F1B, 4 ranks
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch olmoe-1b-7b --device cpu --tp 2 --steps 2   # MoE
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch mamba2-370m --device cpu --tp 2 --steps 2   # SSM
 
 builds ``Trainer(cfg, axes, make_optimizer(cfg.optimizer,
 warmup_cosine(3e-4, 20, steps), weight_decay=0.1), LMDataset(...))``
@@ -29,7 +31,10 @@ Megatron sequence-parallel baseline (``sp``).  A config with
 ``attn_shard="ring"`` (qwen2.5-14b, granite-moe-3b-a800m), or a ``--tp``
 that does not divide the heads, runs ring attention.  The MoE configs
 (olmoe-1b-7b: experts over all-to-all; granite-moe-3b-a800m: each
-expert's d_ff sharded) add their balance loss to the objective.
+expert's d_ff sharded) add their balance loss to the objective;
+mamba2-370m runs its SSD blocks, their in and out projections phantom
+(``fp``) or dense (``sp``).  FSDP has no flag, as in the reference: a
+config that sets ``fsdp=True`` brings it.
 ``--pp`` above 1 cuts the layers into that many stages and runs the
 1F1B pipeline over ``--microbatches`` microbatches.  The run is on the
 card unless ``--device cpu`` is given; ``--smoke`` (the default) takes

@@ -40,7 +40,7 @@ from repro_torch.kernels.ops import (flash_attention_supported,
                                      flash_attention_vjp,
                                      resolve_kernel_backend)
 from repro_torch.models import rope as ropemod
-from repro_torch.models.layers import (dtype_of, from_partial,
+from repro_torch.models.layers import (_fs, dtype_of, from_partial,
                                        gather_on_use, seq_to_feature,
                                        to_full)
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
@@ -83,7 +83,7 @@ def attn_site_strategies(cfg, axes: MeshAxes):
     return {name: site_strategy(cfg, _ATTN_SITES[name], ni, no, p,
                                 dp=axes.dp,
                                 bias=cfg.qkv_bias and name != "wo",
-                                allow_phantom=ok)
+                                fsdp=cfg.fsdp, allow_phantom=ok)
             for name, (ni, no) in dims.items()}
 
 
@@ -101,9 +101,10 @@ def _attn_kernel_backend(sts) -> str:
 
 def attn_decls(cfg, axes: MeshAxes):
     """Ring mode: every weight sharded on its input dim (gathered on
-    use), the biases replicated.  Head mode: the sites' decls; with
-    kv % tp != 0 the KV projections are replicated (each rank slices its
-    GQA group's head)."""
+    use), the biases replicated, none sharded over dp under FSDP (as in
+    the reference).  Head mode: the sites' decls (FSDP shards their
+    weights over dp too); with kv % tp != 0 the KV projections are
+    replicated (each rank slices its GQA group's head)."""
     if resolve_attn_mode(cfg, axes) == "ring":
         d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
         hd = cfg.resolved_head_dim()
@@ -201,14 +202,21 @@ def _gqa_q(q, KV):
 
 def attention(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
               kind: str = "prefill", causal: bool = True, cache=None,
-              pos=None, return_kv: bool = False):
+              pos=None, return_kv: bool = False, decls=None):
     """Returns (out, new_kv or None): ``out`` the residual shard in
     ``layout``.  kind: train | prefill | decode (prefill and decode at
     tp = 1 only).  Decode writes into ``cache`` ({k, v}
-    [B, Smax, kv, hd]) in place."""
+    [B, Smax, kv, hd]) in place.  ``decls`` (FSDP): the projections'
+    dp-sharded weights are gathered first, as the reference's ``_g``
+    gathers them (int8 only for the decode's ``wq`` under
+    ``fsdp_gather_quant``)."""
     if kind != "train" and axes.tp > 1:
         raise NotImplementedError(
             f"{kind} attention at tp={axes.tp}: see {SERVE_TP_TODO}")
+    params = {name: _fs(params, decls, name, axes,
+                        cfg.fsdp_gather_quant and kind == "decode"
+                        and name == "wq")
+              for name in params}
     if kind == "decode":
         return _attention_decode(cfg, params, x, axes, cache=cache, pos=pos)
     if resolve_attn_mode(cfg, axes) == "ring":

@@ -1,83 +1,122 @@
-"""Composable blocks: (attention + FFN) residual layers, on the residual
-stream's layout (``models/layers.py``).  The FFN is the MLP (dense or
-phantom per site) or the MoE (``models/moe.py``); the reference's
-Mamba and cross-attention blocks arrive with their families."""
+"""Composable blocks: (mixer + FFN) residual layers, on the residual
+stream's layout (``models/layers.py``).
+
+mixer: ``"attn"`` (GQA in head or ring mode) or ``"mamba"`` (SSD,
+``models/ssm.py``); FFN: the MLP (dense or phantom per site), the MoE
+(``models/moe.py``) or None (mamba2 has none).  The reference's hybrid
+superblocks (``attn_period`` > 0) and cross-attention blocks arrive with
+their families.
+
+Under FSDP each module gathers its dp-sharded weights where it uses
+them, from the block's decls (``block_decls``)."""
 from __future__ import annotations
+
+from functools import lru_cache
 
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moemod
+from repro_torch.models import ssm as ssmmod
 from repro_torch.models.layers import (mlp_apply, mlp_decls, norm_apply,
                                        norm_decls)
 from repro_torch.parallel.axes import MeshAxes
 
 
 def layer_plan(cfg):
-    """[(mixer, ffn)] for each layer: attention everywhere (the port's
-    families), the MoE on the layers its ``every_n`` / ``offset`` pick,
-    the MLP elsewhere."""
+    """[(mixer, ffn)] for each layer: SSD mixers everywhere at
+    ``attn_period == -1``, attention elsewhere (``attn_period`` > 0,
+    the hybrid interleave, is planned as in the reference); no FFN for
+    the SSM family, the MoE on the layers its ``every_n`` / ``offset``
+    pick, the MLP elsewhere."""
     plan = []
     for l in range(cfg.num_layers):
-        if cfg.moe is not None and l % cfg.moe.every_n == cfg.moe.offset:
+        if cfg.attn_period == -1:
+            mixer = "mamba"
+        elif cfg.attn_period > 0:
+            mixer = "attn" if l % cfg.attn_period == 0 else "mamba"
+        else:
+            mixer = "attn"
+        if cfg.family == "ssm":
+            ffn = None
+        elif cfg.moe is not None and l % cfg.moe.every_n == cfg.moe.offset:
             ffn = "moe"
         elif cfg.d_ff > 0:
             ffn = "mlp"
         else:
             ffn = None
-        plan.append(("attn", ffn))
+        plan.append((mixer, ffn))
     return plan
 
 
-def block_decls(cfg, axes: MeshAxes, layout: str, ffn: str):
+def block_decls(cfg, axes: MeshAxes, layout: str, ffn, mixer: str = "attn"):
     d = {"norm1": norm_decls(cfg, layout, cfg.d_model),
-         "mixer": attn.attn_decls(cfg, axes),
-         "norm2": norm_decls(cfg, layout, cfg.d_model)}
-    if ffn == "moe":
-        d["ffn"] = moemod.moe_decls(cfg, axes)
-    else:
-        d["ffn"] = mlp_decls(cfg, axes, cfg.d_model, cfg.d_ff)
+         "mixer": (ssmmod.ssm_decls(cfg, axes) if mixer == "mamba"
+                   else attn.attn_decls(cfg, axes))}
+    if ffn is not None:
+        d["norm2"] = norm_decls(cfg, layout, cfg.d_model)
+        d["ffn"] = (moemod.moe_decls(cfg, axes) if ffn == "moe"
+                    else mlp_decls(cfg, axes, cfg.d_model, cfg.d_ff))
     return d
 
 
+@lru_cache(maxsize=64)
+def _fsdp_decls(cfg, tp: int, dp: int, layout: str, ffn, mixer: str):
+    return block_decls(cfg, MeshAxes(tp=tp, dp=dp), layout, ffn, mixer)
+
+
 def block_apply(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
-                kind: str, ffn: str, cache=None, pos=None,
+                kind: str, ffn, mixer: str = "attn", cache=None, pos=None,
                 return_kv: bool = False):
-    """Returns (x, new_kv, aux): ``aux`` the MoE's balance loss, None for
-    an MLP block.  kind: train | prefill | decode."""
+    """Returns (x, new_cache, aux): ``aux`` the MoE's balance loss, None
+    for any other block.  kind: train | prefill | decode; the cache is
+    the attention's {k, v} or the SSD's {conv, ssm}."""
+    decls = (_fsdp_decls(cfg, axes.tp, axes.dp, layout, ffn, mixer)
+             if cfg.fsdp else {})
     h = norm_apply(cfg, layout, params["norm1"], x, axes)
-    out, new_kv = attn.attention(cfg, layout, params["mixer"], h, positions,
-                                 axes, kind=kind, cache=cache, pos=pos,
-                                 return_kv=return_kv)
+    if mixer == "mamba":
+        out, new_kv = ssmmod.ssm_apply(cfg, layout, params["mixer"], h,
+                                       axes, decls.get("mixer"), kind=kind,
+                                       cache=cache)
+    else:
+        out, new_kv = attn.attention(cfg, layout, params["mixer"], h,
+                                     positions, axes, kind=kind, cache=cache,
+                                     pos=pos, return_kv=return_kv,
+                                     decls=decls.get("mixer"))
     x = x + out.to(x.dtype)
+    if ffn is None:
+        return x, new_kv, None
     h2 = norm_apply(cfg, layout, params["norm2"], x, axes)
     aux = None
     if ffn == "moe":
-        f, aux = moemod.moe_apply(cfg, layout, params["ffn"], h2, axes)
+        f, aux = moemod.moe_apply(cfg, layout, params["ffn"], h2, axes,
+                                  decls.get("ffn"))
     else:
-        f = mlp_apply(cfg, layout, params["ffn"], h2, axes)
+        f = mlp_apply(cfg, layout, params["ffn"], h2, axes, decls.get("ffn"))
     return x + f.to(x.dtype), new_kv, aux
 
 
-def _train_block(cfg, layout, params, x, positions, axes, ffn):
+def _train_block(cfg, layout, params, x, positions, axes, ffn, mixer):
     x, _, aux = block_apply(cfg, layout, params, x, positions, axes,
-                            kind="train", ffn=ffn)
+                            kind="train", ffn=ffn, mixer=mixer)
     return x, aux
 
 
 def block_train(cfg, layout: str, params, x, positions, axes: MeshAxes,
-                ffn: str):
+                ffn, mixer: str = "attn"):
     """One block of the training forward -> (x, aux or None).
     ``cfg.remat == "full"`` keeps only the block's input and recomputes
     the rest in the backward pass (the reference's ``jax.checkpoint`` of
     its layer-scan body), so the flash kernel, the phantom forward
-    kernel, the block's collectives and the MoE's router and all-to-alls
-    run there a second time (the router picks the same experts from the
-    same input); ``"none"`` saves every activation."""
+    kernel, the block's collectives (FSDP's gathers among them) and the
+    MoE's router and all-to-alls run there a second time (the router
+    picks the same experts from the same input); ``"none"`` saves every
+    activation."""
     if cfg.remat == "none":
-        return _train_block(cfg, layout, params, x, positions, axes, ffn)
+        return _train_block(cfg, layout, params, x, positions, axes, ffn,
+                            mixer)
     if cfg.remat != "full":
         raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
                                   f"'full' and 'none'")
     return checkpoint(_train_block, cfg, layout, params, x, positions, axes,
-                      ffn, use_reentrant=False)
+                      ffn, mixer, use_reentrant=False)

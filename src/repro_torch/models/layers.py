@@ -11,6 +11,12 @@ shard):
 
 At tp = 1 all three are the full ``[B, S, d]`` tensor, and the gathers,
 scatters and psums between them are the identity: they are skipped.
+
+FSDP (``cfg.fsdp``): the decls also shard one dim of each large weight
+over dp (``"dp"`` in the spec), and each module gathers them where it
+uses them (``gather_fsdp``); the gather's gradient is the reduce-scatter
+over dp.  Inside a block under ``remat="full"`` the gathers run again in
+the recompute, as the reference's do inside its checkpointed layer.
 """
 from __future__ import annotations
 
@@ -19,8 +25,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import PHANTOM_KINDS
 from repro_torch.core import tp as tpmod
-from repro_torch.core.autograd import (all_gather_tiled, all_to_all, pmax,
-                                       psum, psum_scatter_tiled)
+from repro_torch.core.autograd import (all_gather_dp, all_gather_tiled,
+                                       all_to_all, pmax, psum,
+                                       psum_scatter_tiled)
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import ParamDecl
 from repro_torch.parallel.strategies import site_strategy
@@ -154,7 +161,8 @@ def padded_vocab(cfg) -> int:
 
 def embed_decls(cfg):
     return {"table": ParamDecl((padded_vocab(cfg), cfg.d_model),
-                               ("tp", None), init="embed")}
+                               ("tp", "dp" if cfg.fsdp else None),
+                               init="embed")}
 
 
 def embed_apply(cfg, layout: str, params, tokens, axes: MeshAxes):
@@ -163,6 +171,9 @@ def embed_apply(cfg, layout: str, params, tokens, axes: MeshAxes):
     it give 0) and one reduce-scatter sums the shards into the layout
     (an all-reduce for ``rep``)."""
     table = params["table"]
+    if cfg.fsdp:
+        table = gather_fsdp(table, ("tp", "dp"), axes,
+                            quant=cfg.fsdp_gather_quant)
     dt = dtype_of(cfg.dtype)
     if axes.tp == 1:
         return table[tokens].to(dt)
@@ -179,6 +190,62 @@ def embed_apply(cfg, layout: str, params, tokens, axes: MeshAxes):
 
 
 # ---------------------------------------------------------------------------
+# FSDP: gather on use
+# ---------------------------------------------------------------------------
+
+def gather_fsdp(w, spec, axes: MeshAxes, quant: bool = False):
+    """All-gather the dims of ``w`` that ``spec`` shards over ``"dp"``
+    (FSDP's gather on use; the gradient is reduce-scattered over dp).
+
+    ``quant``: the reference's int8 gather.  The local shard is
+    quantised symmetrically per column of the gathered dim (scale
+    ``max|w| / 127``), the int8 values and the scales are gathered, and
+    the product is bf16.  As in the reference, the rounding carries no
+    gradient, so only each column's largest-magnitude element receives
+    one, through the scale; with quantisation the weight is quantised
+    even at dp = 1, where the gather itself is the identity."""
+    for dim, entry in enumerate(spec):
+        if entry != "dp":
+            continue
+        if quant and w.is_floating_point():
+            scale = (w.abs().amax(dim, keepdim=True) / 127.0) \
+                .clamp_min(1e-12)
+            wq = all_gather_dp(torch.round(w.detach() / scale.detach())
+                               .to(torch.int8), axes, dim)
+            sc = all_gather_dp(scale, axes, dim)
+            w = (wq.to(torch.bfloat16)
+                 * _expand_scales(sc, wq.shape, dim).to(torch.bfloat16))
+        else:
+            w = all_gather_dp(w, axes, dim)
+    return w
+
+
+def _expand_scales(sc, target_shape, dim: int):
+    """Per-shard scales gathered along ``dim`` -> broadcast to the
+    gathered weight's shape."""
+    reps = target_shape[dim] // sc.shape[dim]
+    return sc.repeat_interleave(reps, dim=dim)
+
+
+def gather_tree_fsdp(params, decls, axes: MeshAxes, quant: bool = False):
+    """``gather_fsdp`` over a parameter subtree and its decls (``decls``
+    None: the tree as it is)."""
+    if decls is None:
+        return params
+    if isinstance(params, dict):
+        return {k: gather_tree_fsdp(v, decls[k], axes, quant)
+                for k, v in params.items()}
+    return gather_fsdp(params, decls.spec, axes, quant)
+
+
+def _fs(params, decls, key, axes: MeshAxes, quant: bool = False):
+    """The subtree ``params[key]`` gathered on use."""
+    return gather_tree_fsdp(params[key],
+                            None if decls is None else decls[key],
+                            axes, quant)
+
+
+# ---------------------------------------------------------------------------
 # MLP (dense TP and phantom, per site)
 # ---------------------------------------------------------------------------
 
@@ -188,7 +255,8 @@ def mlp_strategies(cfg, axes: MeshAxes, d: int, ff: int):
     _require(cfg)
     return {name: site_strategy(cfg, f"ffn_{name}",
                                 *((ff, d) if name == "down" else (d, ff)),
-                                axes.tp, dp=axes.dp, bias=False)
+                                axes.tp, dp=axes.dp, bias=False,
+                                fsdp=cfg.fsdp)
             for name in ("gate", "up", "down")}
 
 
@@ -197,14 +265,16 @@ def mlp_decls(cfg, axes: MeshAxes, d: int, ff: int):
             for name, st in mlp_strategies(cfg, axes, d, ff).items()}
 
 
-def mlp_apply(cfg, layout: str, params, x, axes: MeshAxes):
+def mlp_apply(cfg, layout: str, params, x, axes: MeshAxes, decls=None):
     """SwiGLU, residual shard -> residual shard (same layout).
 
     all-phantom: stays feature-sharded; only the k-wide ghosts cross
                  ranks.
     all-tensor:  gather -> col -> act -> row -> reduce-scatter
                  (Megatron-SP; one gather shared by gate and up).
-    mixed:       each site shard -> shard in ``fp``."""
+    mixed:       each site shard -> shard in ``fp``.
+    ``decls`` (FSDP): the sites' weights are gathered over dp first."""
+    params = gather_tree_fsdp(params, decls, axes, cfg.fsdp_gather_quant)
     dt = dtype_of(cfg.dtype)
     d = x.shape[-1] * (axes.tp if layout == "fp" else 1)
     sts = mlp_strategies(cfg, axes, d, cfg.d_ff)
@@ -236,8 +306,16 @@ def mlp_apply(cfg, layout: str, params, x, axes: MeshAxes):
 # ---------------------------------------------------------------------------
 
 def head_decls(cfg):
-    return {"w": ParamDecl((cfg.d_model, padded_vocab(cfg)), (None, "tp"),
+    return {"w": ParamDecl((cfg.d_model, padded_vocab(cfg)),
+                           ("dp" if cfg.fsdp else None, "tp"),
                            scale=cfg.d_model ** -0.5)}
+
+
+def _head_w(cfg, params, axes):
+    w = params["w"]
+    if cfg.fsdp:
+        w = gather_fsdp(w, ("dp", "tp"), axes, quant=cfg.fsdp_gather_quant)
+    return w
 
 
 def head_logits(cfg, layout: str, params, h_last, axes: MeshAxes):
@@ -247,7 +325,7 @@ def head_logits(cfg, layout: str, params, h_last, axes: MeshAxes):
         raise NotImplementedError(
             f"logits of the vocab-sharded head at tp={axes.tp}: see "
             f"{SERVE_TP_TODO}")
-    w = params["w"]
+    w = _head_w(cfg, params, axes)
     logits = h_last.to(torch.float32) @ w.to(torch.float32)
     col_ok = torch.arange(w.shape[1], device=w.device) < cfg.vocab_size
     return logits.masked_fill(~col_ok, NEG_INF)
@@ -290,7 +368,7 @@ def xent_loss(cfg, layout: str, params, h, labels, axes: MeshAxes):
         raise ValueError(f"sequence {S} does not tile into loss chunks "
                          f"of {chunk}")
     labels = labels.long()
-    w = params["w"]
+    w = _head_w(cfg, params, axes)
     sum_loss = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(0, S, chunk):
         args = (cfg, w, h[:, c:c + chunk], labels[:, c:c + chunk], axes)

@@ -1,4 +1,4 @@
-"""Model assembly for the dense and MoE families: decls, and the
+"""Model assembly for the dense, MoE and SSM families: decls, and the
 training, prefill and decode forwards.
 
 Parameters are the reference's tree (layers stacked on axis 0; on a
@@ -11,7 +11,11 @@ of its own).  The residual stream keeps the reference's layout
 phantom, sequence-sharded otherwise.  Training runs at any pp x dp x tp
 (``forward_train_pipeline`` at pp > 1); prefill and decode (serving) at
 tp = 1.  An MoE block adds its balance loss to the training forward's
-``aux`` (the reference's scan carry).
+``aux`` (the reference's scan carry).  The SSM family's decode cache is
+the SSD state, ``{"conv", "ssm"}`` per layer, with no sequence dim.
+Under FSDP (``cfg.fsdp``) the embedding and the head gather their
+dp-sharded dims where they are used, and each block its own
+(``models/blocks.py``).
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from repro_torch.models.layers import (dtype_of, embed_apply, embed_decls,
                                        head_decls, head_logits, norm_apply,
                                        norm_decls, residual_layout,
                                        xent_loss)
+from repro_torch.models.ssm import ssm_cache_shape
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
 from repro_torch.parallel.params import (TensorSpec, param_count, stack,
                                          tree_leaves, tree_map,
@@ -34,32 +39,34 @@ from repro_torch.train.pipeline import (pipeline_run,
                                         split_batch_microbatches)
 
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
-def _layer_ffn(cfg: ModelConfig) -> str:
-    """The FFN kind of every layer ("mlp" or "moe"): the port's families
-    repeat one block, which the reference scans as a period of 1; the
-    superblocks of its hybrid stacks arrive with the hybrid family."""
+def _layer_kind(cfg: ModelConfig):
+    """The (mixer, ffn) of every layer: ("attn", "mlp" or "moe") or
+    ("mamba", None).  The port's families repeat one block, which the
+    reference scans as a period of 1; the superblocks of its hybrid
+    stacks arrive with the hybrid family."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; only {PORTED_FAMILIES} "
             f"(ROADMAP.md queue 1 lists the families still to port)")
-    kinds = {ffn for _, ffn in layer_plan(cfg)}
-    if len(kinds) != 1 or not kinds <= {"mlp", "moe"}:
+    kinds = set(layer_plan(cfg))
+    if len(kinds) != 1 or not kinds <= {("attn", "mlp"), ("attn", "moe"),
+                                        ("mamba", None)}:
         raise NotImplementedError(
-            f"layer plan with FFNs {sorted(map(str, kinds))}: the port "
+            f"layer plan with blocks {sorted(map(str, kinds))}: the port "
             f"repeats one block (ROADMAP.md queue 1, item 6)")
     return kinds.pop()
 
 
 def model_decls(cfg: ModelConfig, axes: MeshAxes):
-    ffn = _layer_ffn(cfg)
+    mixer, ffn = _layer_kind(cfg)
     layout = residual_layout(cfg, "train")
     d = {"embed": embed_decls(cfg),
          "final_norm": norm_decls(cfg, layout, cfg.d_model),
          "head": head_decls(cfg),
-         "layers": stack(block_decls(cfg, axes, layout, ffn),
+         "layers": stack(block_decls(cfg, axes, layout, ffn, mixer),
                          cfg.num_layers)}
     if axes.pp > 1:
         d["layers"] = _pp_shard_layer_decls(d["layers"], axes.pp)
@@ -105,18 +112,26 @@ def count_params(cfg: ModelConfig, tp: int = 1,
     return total
 
 
+# the SSD block's leaves that the reference computes in float32 (its
+# norm scale among the "norm" leaves): the conv taps, the decay, the
+# skip, dt's bias
+_SSM_FP32 = ("mixer/conv_w", "mixer/A_log", "mixer/Dskip", "mixer/wdt/b")
+
+
 def serving_params(cfg: ModelConfig, params, device=None):
     """Move params to ``device`` and cast, once, every leaf that the
     reference casts to the compute dtype on each call: all but the norm
-    scales, the logit head and the MoE routers, which it computes in
-    float32 (a router rounded to bf16 would pick other experts).  The
-    numbers are identical, and the card holds the projection weights in
-    bf16 instead of fp32 (12.5 GB instead of 25 GB for chatglm3-6b)."""
+    scales, the logit head, the MoE routers and the SSD block's float32
+    leaves, which it computes in float32 (a router rounded to bf16 would
+    pick other experts).  The numbers are identical, and the card holds
+    the projection weights in bf16 instead of fp32 (12.5 GB instead of
+    25 GB for chatglm3-6b)."""
     dt = dtype_of(cfg.dtype)
     flat = {}
     for path, t in tree_leaves(params):
         keep_fp32 = (path.startswith("head/") or "norm" in path
-                     or path.endswith("ffn/router/w"))
+                     or path.endswith("ffn/router/w")
+                     or path.endswith(_SSM_FP32))
         flat[path] = t.to(device=device,
                           dtype=t.dtype if keep_fp32 else dt)
     return tree_unflatten(params, flat)
@@ -138,9 +153,9 @@ def forward_train(cfg: ModelConfig, axes: MeshAxes, params, batch):
     """batch {"tokens", "labels"}: [B, S] -> (sum_loss, n_valid, aux),
     this rank's contributions before the sums over dp (the model axis is
     reduced inside the loss); aux is the MoE layers' summed balance loss
-    (0 for the dense family).  Each block runs under ``block_train``'s
-    recompute policy (``cfg.remat``)."""
-    ffn = _layer_ffn(cfg)
+    (0 for the dense and SSM families).  Each block runs under
+    ``block_train``'s recompute policy (``cfg.remat``)."""
+    mixer, ffn = _layer_kind(cfg)
     layout = residual_layout(cfg, "train")
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -149,7 +164,7 @@ def forward_train(cfg: ModelConfig, axes: MeshAxes, params, batch):
     aux = torch.zeros((), device=h.device)
     for i in range(cfg.num_layers):
         h, a = block_train(cfg, layout, _layer(params, i), h, positions,
-                           axes, ffn)
+                           axes, ffn, mixer)
         if a is not None:
             aux = aux + a
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
@@ -183,7 +198,7 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
     dense family).  The caller counts the valid tokens from the labels
     before the schedule starts: the objective divides by the global
     count before the first backward."""
-    ffn = _layer_ffn(cfg)
+    mixer, ffn = _layer_kind(cfg)
     if cfg.rope == "mrope":
         raise NotImplementedError(
             "mrope positions vary per microbatch; the pipeline carries "
@@ -202,7 +217,7 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
         aux = None
         for i in range(cfg.num_layers // axes.pp):
             h, a = block_train(cfg, layout, _layer(params, i, axes.pp), h,
-                               positions, axes, ffn)
+                               positions, axes, ffn, mixer)
             if a is not None:
                 aux = a if aux is None else aux + a
         if aux is None:
@@ -243,48 +258,60 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
 
 def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
     """batch {"tokens": [B, S]} -> (last-token logits [B, 1, V_pad] fp32,
-    cache {"k", "v"}: [L, B, S, kv, hd])."""
-    ffn = _layer_ffn(cfg)
+    cache: {"k", "v"} [L, B, S, kv, hd], or for the SSM family {"conv"
+    [L, B, cw - 1, d_inner], "ssm" [L, B, H, hd, N]})."""
+    mixer, ffn = _layer_kind(cfg)
     _require_one_rank(axes, "prefill")
     layout = residual_layout(cfg, "prefill")
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
-    ks, vs = [], []
+    caches = []
     for i in range(cfg.num_layers):
-        h, kv, _ = block_apply(cfg, layout, _layer(params, i), h,
-                               positions, axes, kind="prefill", ffn=ffn,
-                               return_kv=True)
-        ks.append(kv["k"])
-        vs.append(kv["v"])
+        h, c, _ = block_apply(cfg, layout, _layer(params, i), h, positions,
+                              axes, kind="prefill", ffn=ffn, mixer=mixer,
+                              return_kv=True)
+        caches.append(c)
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
     logits = head_logits(cfg, layout, params["head"], h[:, -1:, :], axes)
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, {name: torch.stack([c[name] for c in caches])
+                    for name in caches[0]}
 
 
 def forward_decode(cfg: ModelConfig, axes: MeshAxes, params, cache,
                    tokens, pos):
-    """tokens [B, 1]; pos [B] per-row positions.  Writes the new K/V into
+    """tokens [B, 1]; pos [B] per-row positions (the SSM family reads
+    none).  Writes the new K/V rows, or the new SSD state, into
     ``cache`` in place; returns (logits [B, 1, V_pad], cache)."""
-    ffn = _layer_ffn(cfg)
+    mixer, ffn = _layer_kind(cfg)
     _require_one_rank(axes, "decode")
     layout = residual_layout(cfg, "decode")
     h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     for i in range(cfg.num_layers):
-        layer_cache = {"k": cache["k"][i], "v": cache["v"][i]}
-        h, _, _ = block_apply(cfg, layout, _layer(params, i), h, None, axes,
-                              kind="decode", ffn=ffn, cache=layer_cache,
-                              pos=pos)
+        layer_cache = {name: c[i] for name, c in cache.items()}
+        h, new, _ = block_apply(cfg, layout, _layer(params, i), h, None,
+                                axes, kind="decode", ffn=ffn, mixer=mixer,
+                                cache=layer_cache, pos=pos)
+        if mixer == "mamba":
+            for name, c in cache.items():
+                c[i] = new[name]
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
     return head_logits(cfg, layout, params["head"], h, axes), cache
 
 
 def cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
                 max_len: int):
-    """Global shapes of the decode cache, layer-stacked like the params."""
-    _layer_ffn(cfg)
-    shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
-             cfg.resolved_head_dim())
+    """Global shapes of the decode cache, layer-stacked like the params:
+    the attention's bf16 K/V, or the SSD's state (the conv rows in bf16,
+    the state in fp32, bf16 under ``kv_cache_quant``)."""
+    mixer, _ = _layer_kind(cfg)
+    L = cfg.num_layers
+    if mixer == "mamba":
+        shapes = ssm_cache_shape(cfg, axes, batch)
+        sdt = torch.bfloat16 if cfg.kv_cache_quant else torch.float32
+        return {"conv": TensorSpec((L,) + shapes["conv"][0], torch.bfloat16),
+                "ssm": TensorSpec((L,) + shapes["ssm"][0], sdt)}
+    shape = (L, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim())
     return {"k": TensorSpec(shape, torch.bfloat16),
             "v": TensorSpec(shape, torch.bfloat16)}

@@ -35,7 +35,8 @@ from repro_torch.configs.base import PHANTOM_KINDS, PhantomConfig
 from repro_torch.core.autograd import all_to_all, psum
 from repro_torch.core.phantom import phantom_apply, phantom_decls
 from repro_torch.models.layers import (_require, dtype_of, from_partial,
-                                       residual_layout, to_full)
+                                       gather_tree_fsdp, residual_layout,
+                                       to_full)
 from repro_torch.parallel.axes import MeshAxes
 from repro_torch.parallel.params import ParamDecl, stack
 
@@ -48,12 +49,13 @@ def moe_expert_spec(cfg, axes: MeshAxes):
     """The ``moe_experts`` site's ProjectionSpec where the experts are
     phantom-factorised, else None (dense experts).  Phantom experts need
     the tensor partition (each expert's d_ff sharded over the model
-    axis) and widths the model axis divides."""
+    axis), widths the model axis divides, and no FSDP (the stacked
+    phantom decls carry no dp-sharded dim)."""
     m = cfg.moe
     spec = cfg.projection_spec("moe_experts")
     if (spec.kind in PHANTOM_KINDS and m.partition == "tensor"
             and cfg.d_model % axes.tp == 0
-            and m.d_ff_expert % axes.tp == 0):
+            and m.d_ff_expert % axes.tp == 0 and not cfg.fsdp):
         return spec
     return None
 
@@ -65,10 +67,11 @@ def moe_decls(cfg, axes: MeshAxes):
     logits summed) and replicated otherwise.  Tensor partition: each
     expert's d_ff sharded, the router replicated.  Phantom experts: each
     projection the E-stacked phantom decls (``stack(phantom_decls(...),
-    E)``)."""
+    E)``).  FSDP also shards each dense expert weight's d over dp."""
     _require(cfg)
     m = cfg.moe
     d, E, ff = cfg.d_model, m.num_experts, m.d_ff_expert
+    fs = "dp" if cfg.fsdp else None
     pspec = moe_expert_spec(cfg, axes)
     router = ParamDecl((d, E), (), scale=d ** -0.5)
     if pspec is not None:
@@ -83,9 +86,9 @@ def moe_decls(cfg, axes: MeshAxes):
                              f"{axes.tp}: use partition='tensor'")
         if residual_layout(cfg, "train") == "fp":
             router = ParamDecl((d, E), ("tp", None), scale=d ** -0.5)
-        spec_in = spec_out = ("tp", None, None)
+        spec_in, spec_out = ("tp", fs, None), ("tp", None, fs)
     else:
-        spec_in, spec_out = (None, None, "tp"), (None, "tp", None)
+        spec_in, spec_out = (None, fs, "tp"), (None, "tp", fs)
     return {"router": {"w": router},
             "w_up": {"w": ParamDecl((E, d, ff), spec_in)},
             "w_down": {"w": ParamDecl((E, ff, d), spec_out)},
@@ -137,8 +140,11 @@ def moe_capacity(tokens: int, E: int, top_k: int, cf: float) -> int:
 # apply
 # ---------------------------------------------------------------------------
 
-def moe_apply(cfg, layout: str, params, x, axes: MeshAxes):
-    """Residual shard -> (residual shard in the same layout, aux loss)."""
+def moe_apply(cfg, layout: str, params, x, axes: MeshAxes, decls=None):
+    """Residual shard -> (residual shard in the same layout, aux loss).
+    ``decls`` (FSDP): the experts' dp-sharded weights are gathered
+    first (the router is never dp-sharded)."""
+    params = gather_tree_fsdp(params, decls, axes, cfg.fsdp_gather_quant)
     if cfg.moe.partition == "expert":
         return _moe_expert_partition(cfg, layout, params, x, axes)
     return _moe_tensor_partition(cfg, layout, params, x, axes)

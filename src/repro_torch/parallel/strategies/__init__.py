@@ -1,7 +1,8 @@
 """Projection-strategy registry; importing the package registers the
 ported strategies.
 
-    st = site_strategy(cfg, "ffn_layer", n, n, axes.tp)
+    st = site_strategy(cfg, "ffn_up", d, ff, axes.tp, dp=axes.dp,
+                       bias=False, fsdp=cfg.fsdp)
     decls = st.decls()                          # ParamDecl tree
     y = st.apply_shard(params, x, axes)         # sharded forward
     st.flops(batch), st.comm_events(batch)      # Table II accounting

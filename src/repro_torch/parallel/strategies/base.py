@@ -38,10 +38,10 @@ class ProjectionStrategy:
     out_layout: str = "shard"      # "shard" | "partial"
 
     def __init__(self, n_in: int, n_out: int, tp: int, *, dp: int = 1,
-                 bias: bool = True,
+                 bias: bool = True, fsdp: bool = False,
                  spec: Optional[ProjectionSpec] = None):
         self.n_in, self.n_out, self.tp, self.dp = n_in, n_out, tp, dp
-        self.bias = bias
+        self.bias, self.fsdp = bias, fsdp
         self.spec = spec or ProjectionSpec(kind=self.kind)
 
     def decls(self) -> Dict:
@@ -100,14 +100,15 @@ def get_strategy_cls(kind: str) -> Type[ProjectionStrategy]:
 
 
 def make_strategy(spec: ProjectionSpec, n_in: int, n_out: int, tp: int, *,
-                  dp: int = 1, bias: bool = True) -> ProjectionStrategy:
+                  dp: int = 1, bias: bool = True,
+                  fsdp: bool = False) -> ProjectionStrategy:
     """Instantiate the strategy a ProjectionSpec selects for one site."""
     return get_strategy_cls(spec.kind)(n_in, n_out, tp, dp=dp, bias=bias,
-                                       spec=spec)
+                                       fsdp=fsdp, spec=spec)
 
 
 def site_strategy(cfg, site: str, n_in: int, n_out: int, tp: int, *,
-                  dp: int = 1, bias: bool = True,
+                  dp: int = 1, bias: bool = True, fsdp: bool = False,
                   allow_phantom: bool = True) -> ProjectionStrategy:
     """Resolve cfg's spec for ``site`` and instantiate it;
     ``allow_phantom=False`` (or a width the model axis does not divide)
@@ -116,4 +117,5 @@ def site_strategy(cfg, site: str, n_in: int, n_out: int, tp: int, *,
     if spec.kind in PHANTOM_KINDS and (
             not allow_phantom or n_in % tp or n_out % tp):
         spec = ProjectionSpec(kind=PROJECTION_SITES[site])
-    return make_strategy(spec, n_in, n_out, tp, dp=dp, bias=bias)
+    return make_strategy(spec, n_in, n_out, tp, dp=dp, bias=bias,
+                         fsdp=fsdp)

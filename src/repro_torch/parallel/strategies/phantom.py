@@ -32,8 +32,10 @@ class PhantomStrategy(ProjectionStrategy):
     in_layout = "shard"
     out_layout = "shard"
 
-    def __init__(self, n_in, n_out, tp, *, dp=1, bias=True, spec=None):
-        super().__init__(n_in, n_out, tp, dp=dp, bias=bias, spec=spec)
+    def __init__(self, n_in, n_out, tp, *, dp=1, bias=True, fsdp=False,
+                 spec=None):
+        super().__init__(n_in, n_out, tp, dp=dp, bias=bias, fsdp=fsdp,
+                         spec=spec)
         s = self.spec
         self.k = s.k
         self.pp = PhantomConfig(k=s.k, variant=s.variant,
@@ -42,7 +44,7 @@ class PhantomStrategy(ProjectionStrategy):
 
     def decls(self):
         return phantom_decls(self.n_in, self.n_out, self.k, self.tp,
-                             bias=self.bias)
+                             bias=self.bias, fsdp=self.fsdp, dp=self.dp)
 
     def apply_shard(self, params, x_shard, axes=None, compute_dtype=None):
         return phantom_apply(self.pp, params, x_shard, axes or MeshAxes(),

@@ -23,7 +23,7 @@ class TensorColStrategy(ProjectionStrategy):
 
     def decls(self):
         return tpmod.col_linear_decls(self.n_in, self.n_out, self.tp,
-                                      bias=self.bias)
+                                      bias=self.bias, fsdp=self.fsdp)
 
     def apply(self, params, x, *, axes=None, compute_dtype=None):
         return tpmod.col_linear_apply(params, x, compute_dtype)
@@ -56,7 +56,7 @@ class TensorRowStrategy(ProjectionStrategy):
 
     def decls(self):
         return tpmod.row_linear_decls(self.n_in, self.n_out, self.tp,
-                                      bias=self.bias)
+                                      bias=self.bias, fsdp=self.fsdp)
 
     def apply(self, params, x, *, axes=None, compute_dtype=None):
         """Partial sums over the sharded contraction dim, without the

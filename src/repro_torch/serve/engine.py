@@ -18,9 +18,17 @@ the first decode input (recomputing exactly the row prefill wrote at
 Every later write lands at the current ``pos``, overwriting each pad
 row before it ever becomes attendable.
 
+Families whose prefill folds the tokens into a recurrent state
+(``RECURRENT_FAMILIES``; the SSM family is ported) cannot be
+right-padded: their refill groups are exact-length (the scheduler's
+``mixed_lengths=False``, so a prompt's length must be a multiple of the
+page size), every first output token is the prefill's own sample, and
+the state rows (``{"conv", "ssm"}``, no sequence dim) are spliced whole.
+
 Where the reference donates the decode cache to a jitted step that
-returns a new one, the port's decode step writes the new K/V rows into
-the cache in place, and refills splice prefill rows into it in place.
+returns a new one, the port's decode step writes the new K/V rows (or
+the new state) into the cache in place, and refills splice prefill rows
+into it in place.
 """
 from __future__ import annotations
 
@@ -41,6 +49,10 @@ from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.sampling import Sampler, SamplingParams
 from repro_torch.serve.scheduler import Scheduler
 from repro_torch.telemetry.meter import StepMeter
+
+# model families whose prefill folds the tokens into a recurrent state:
+# their refill groups are exact-length (the reference's tuple)
+RECURRENT_FAMILIES = ("ssm", "hybrid", "encdec")
 
 
 @dataclass
@@ -90,7 +102,9 @@ class ServeEngine:
                                       device=self.device)
         self.pages = PagedKVCache(slots, max_len, page_size)
         # dense prompts can be right-padded: mixed-length bucketed groups
-        self.scheduler = Scheduler(bucket=page_size, pages=self.pages)
+        self.recurrent = cfg.family in RECURRENT_FAMILIES
+        self.scheduler = Scheduler(bucket=page_size, pages=self.pages,
+                                   mixed_lengths=not self.recurrent)
         # virtual clock: wall seconds of executed steps
         self.now_s = 0.0
         self._cache_shape = ShapeConfig("serve", max_len, slots, "decode")
@@ -186,9 +200,13 @@ class ServeEngine:
         logits, fresh = self._timed(self.prefill_meter, self.prefill_fn,
                                     self._tensor(toks))
         # splice the group's rows into the max_len cache (bf16 whatever
-        # the compute dtype, as the reference's), zero past S
+        # the compute dtype, as the reference's), zero past S; a
+        # recurrent state has no sequence dim and is spliced whole
         idx = torch.tensor(slot_ids, device=self.device)
         for name, c in self.cache.items():
+            if self.recurrent:
+                c[:, idx] = fresh[name][:, idx].to(c.dtype)
+                continue
             c[:, idx, :S] = fresh[name][:, idx].to(c.dtype)
             c[:, idx, S:] = 0
         logits = logits.float().cpu().numpy()

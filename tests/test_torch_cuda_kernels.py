@@ -465,25 +465,49 @@ def test_moe_trainer_step_at_tp2_kernel_path_matches_plain(cuda_device):
                           arch="olmoe-1b-7b", sites=4)
 
 
+@pytest.mark.cuda
+def test_ssm_trainer_step_at_tp2_kernel_path_matches_plain(cuda_device):
+    """One float32 AdamW step of mamba2-smoke on 2 gloo ranks sharing the
+    card: phantom in and out sites (``wz``, ``wx``, ``out``), the kernel
+    path against the plain path from one draw; a layer launches the
+    phantom forward at its three sites twice (forward and recompute),
+    the dgrad and wgrad once each a site, and no flash (no attention)."""
+    _hold_card_step_ranks(cuda_device, pp=1, microbatches=1,
+                          arch="mamba2-370m", sites=3, flash=False)
+
+
+@pytest.mark.cuda
+def test_fsdp_trainer_step_at_dp2_tp2_kernel_path_matches_plain(
+        cuda_device):
+    """One float32 AdamW step of phi3-smoke with ``fsdp=True`` on 4 gloo
+    ranks sharing the card, dp 2 x tp 2: the weights gathered over dp
+    before the flash and phantom kernels run on them, the kernel path
+    against the plain path, every kernel's launches counted."""
+    _hold_card_step_ranks(cuda_device, pp=1, microbatches=1, dp=2,
+                          overrides={"fsdp": True})
+
+
 def _hold_card_step_ranks(cuda_device, pp, microbatches,
-                          arch="phi3-mini-3.8b", sites=3):
-    """``torch_ranks.card_tp_step_body`` on pp x 2 ranks, held on every
-    rank: the kernel path's launches (forward and recompute of the
+                          arch="phi3-mini-3.8b", sites=3, flash=True, dp=1,
+                          overrides=None):
+    """``torch_ranks.card_tp_step_body`` on pp x dp x 2 ranks, held on
+    every rank: the kernel path's launches (forward and recompute of the
     stage's 2 / pp layers, once a microbatch, ``sites`` phantom sites a
-    layer), none on the plain path, loss and gradient norm rtol 1e-5,
-    and the local parameters rtol 1e-4 / atol 1e-5 plus what AdamW's
-    first step implies near zero gradients."""
+    layer, and flash unless the model has no attention), none on the
+    plain path, loss and gradient norm rtol 1e-5, and the local
+    parameters rtol 1e-4 / atol 1e-5 plus what AdamW's first step
+    implies near zero gradients."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.parallel.params import tree_leaves
     import torch_ranks
     build.build(["flash_attention", "phantom_fused"])
-    ranks = spawn(torch_ranks.card_tp_step_body, 1, 2, cuda_device,
-                  timeout_s=300, pp=pp, args=(microbatches, arch))
+    ranks = spawn(torch_ranks.card_tp_step_body, dp, 2, cuda_device,
+                  timeout_s=300, pp=pp, args=(microbatches, arch, overrides))
     n = 2 // pp * microbatches       # the smoke stage's layer passes
     lr = 1e-3
     for r in ranks:
         k, p = r["kernel"], r["plain"]
-        assert k["launches"] == {"flash_attention": 2 * n,
+        assert k["launches"] == {"flash_attention": 2 * n * flash,
                                  "phantom_fused_matmul": 2 * sites * n,
                                  "matmul_nt": sites * n,
                                  "matmul_tn": sites * n}

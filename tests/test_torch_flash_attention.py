@@ -224,12 +224,14 @@ def test_flash_attention_vjp_matches_jax_vjp(B, S, H, KV, hd, causal,
 def test_head_dims_cover_the_dense_configs():
     """Every LM config's head dim, full and smoke, is one the kernel
     takes where its attention can reach the kernel (head mode; ring
-    attention, granite-moe-3b's hd 64 among it, never runs it): the gate
-    checks none, so a missing one would raise on the card where the
-    reference runs its kernel."""
+    attention, granite-moe-3b's hd 64 among it, never runs it; an
+    attention-free config, mamba2-370m, has none): the gate checks none,
+    so a missing one would raise on the card where the reference runs
+    its kernel."""
     from repro_torch.configs.base import _MODULES, get_config
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     cfgs = [get_config(a, smoke=s) for a in _MODULES
             if not a.startswith("paper-ffn") for s in (False, True)]
-    dims = {c.resolved_head_dim() for c in cfgs if c.attn_shard != "ring"}
+    dims = {c.resolved_head_dim() for c in cfgs
+            if c.attn_shard != "ring" and c.attn_period != -1}
     assert dims == {16, 80, 96, 128} and dims <= set(HEAD_DIMS)

@@ -30,8 +30,10 @@ def _modules():
 
 
 def test_every_module_imports_without_jax_or_repro():
-    """With ``jax`` made unimportable, every module of the port imports,
-    and no module of the JAX package is loaded afterwards."""
+    """With ``jax`` made unimportable, every module of the port imports
+    (the SSM family's ``models/ssm.py`` among them), and no module of the
+    JAX package is loaded afterwards."""
+    assert "repro_torch.models.ssm" in _modules()
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -126,7 +128,7 @@ def test_trained_dense_config_equals_reference(arch, smoke):
 
 PORTED_ARCHS = ["chatglm3-6b", "phi3-mini-3.8b", "stablelm-3b",
                 "qwen2.5-14b", "olmoe-1b-7b", "granite-moe-3b-a800m",
-                "paper-ffn-4k", "paper-ffn-16k", "paper-ffn-64k",
+                "mamba2-370m", "paper-ffn-4k", "paper-ffn-16k", "paper-ffn-64k",
                 "paper-ffn-131k", "paper-ffn-262k"]
 
 
@@ -138,6 +140,42 @@ def _default(f):
 def test_every_arch_of_the_port_is_held_to_the_reference():
     from repro_torch.configs.base import _MODULES
     assert sorted(_MODULES) == sorted(PORTED_ARCHS)
+
+
+def test_reference_fields_the_port_lacks():
+    """The port carries every field of the reference's ``ModelConfig``
+    but those of the families and features still to port: the
+    encoder-decoder's depth, the vision and audio frontends, the
+    python-loop layer stack, tied embeddings."""
+    from repro.configs.base import ModelConfig as JModelConfig
+    ours = {f.name for f in dataclasses.fields(ModelConfig)}
+    theirs = {f.name for f in dataclasses.fields(JModelConfig)}
+    assert ours <= theirs
+    assert theirs - ours == {"encoder_layers", "frontend", "scan_layers",
+                             "tie_embeddings"}
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_mamba2_config_equals_reference(smoke):
+    """mamba2-370m field by field, ``SSMConfig`` read from the
+    reference's fields with its defaults, every site's spec (the SSM's
+    in and out sites among them) and the parameter count at tp 4."""
+    from repro.configs.base import SSMConfig as JSSMConfig
+    from repro.models.model import count_params as jax_count_params
+    from repro_torch.configs.base import SSMConfig
+    from repro_torch.models.model import count_params
+    names = [f.name for f in dataclasses.fields(ModelConfig)]
+    ours = get_config("mamba2-370m", smoke=smoke)
+    theirs = jax_get_config("mamba2-370m", smoke=smoke)
+    assert _fields(ours, names) == _fields(theirs, names)
+    assert [(f.name, _default(f)) for f in dataclasses.fields(SSMConfig)] \
+        == [(f.name, _default(f)) for f in dataclasses.fields(JSSMConfig)]
+    assert dataclasses.asdict(ours.ssm) == dataclasses.asdict(theirs.ssm)
+    for site in ("ssm_in", "ssm_out", "attn_q", "ffn_gate"):
+        assert dataclasses.asdict(ours.projection_spec(site)) == \
+            dataclasses.asdict(theirs.projection_spec(site))
+    assert ours.uses_phantom_sites() == theirs.uses_phantom_sites()
+    assert count_params(ours, 4) == jax_count_params(theirs, tp=4)
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -327,16 +365,18 @@ def test_library_functions_target_the_card_by_default(entry):
 
 
 def test_unported_arch_and_family_raise():
-    """An unported arch, an unported family (the MoE family, which
-    raised here until it was ported, builds), and a layer plan that
-    mixes MoE and MLP layers (the reference's superblock scan) raise."""
+    """An unported arch, an unported family (the MoE and SSM families,
+    which raised here until they were ported, build), and a layer plan
+    that mixes MoE and MLP layers (the reference's superblock scan)
+    raise."""
     from repro_torch.configs.base import MoEConfig
     with pytest.raises(KeyError, match="not ported"):
-        get_config("mamba2-370m")
-    cfg = get_config("chatglm3-6b", smoke=True).replace(family="ssm")
-    with pytest.raises(NotImplementedError, match="family 'ssm'"):
+        get_config("jamba-1.5-large-398b")
+    cfg = get_config("chatglm3-6b", smoke=True).replace(family="hybrid")
+    with pytest.raises(NotImplementedError, match="family 'hybrid'"):
         model_decls(cfg, MeshAxes())
     model_decls(get_config("olmoe-1b-7b", smoke=True), MeshAxes())
+    model_decls(get_config("mamba2-370m", smoke=True), MeshAxes())
     mixed = get_config("olmoe-1b-7b", smoke=True).replace(
         moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=32, every_n=2))
     with pytest.raises(NotImplementedError, match="item 6"):

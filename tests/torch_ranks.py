@@ -19,6 +19,19 @@ from repro_torch.parallel.axes import record_collectives
 from repro_torch.parallel.params import shard_params, tree_map
 
 
+def load_chip_smoke():
+    """The repo root's ``chip_smoke.py`` as a module, without putting the
+    root on ``sys.path`` (it imports nothing at the top but the standard
+    library)."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32).numpy()
 
@@ -396,14 +409,17 @@ def lm_pipeline_body(axes, device, inputs):
     return out
 
 
-def card_tp_step_body(axes, device, microbatches=1, arch="phi3-mini-3.8b"):
+def card_tp_step_body(axes, device, microbatches=1, arch="phi3-mini-3.8b",
+                      overrides=None):
     """One float32 AdamW step of ``arch``'s smoke config (phi3-smoke:
     phantom MLP sites; olmoe-smoke: phantom attention sites and the
-    experts' all-to-alls) on this rank of a pp x tp mesh over
-    ``microbatches`` microbatches, through the kernels (``"auto"``) and
-    through plain torch (``"xla"``) from one host draw: each run's loss,
-    gradient norm, clipped local gradients, updated local parameters and
-    kernel launches."""
+    experts' all-to-alls; mamba2-smoke: phantom in and out sites), with
+    the config ``overrides`` (``{"fsdp": True}``), on this rank of a
+    pp x dp x tp mesh, on its rows of the batch, over ``microbatches``
+    microbatches, through the kernels (``"auto"``) and through plain
+    torch (``"xla"``) from one host draw: each run's loss, gradient norm,
+    clipped local gradients, updated local parameters and kernel
+    launches."""
     from repro_torch.configs.base import get_config, with_kernel_backend
     from repro_torch.data.synthetic import LMDataset
     from repro_torch.kernels import phantom_fused as pf
@@ -411,11 +427,13 @@ def card_tp_step_body(axes, device, microbatches=1, arch="phi3-mini-3.8b"):
     from repro_torch.models.model import model_decls
     from repro_torch.optim import AdamW
     from repro_torch.parallel.params import materialize_shards
-    from repro_torch.train.trainer import make_train_step
+    from repro_torch.train.trainer import local_rows, make_train_step
 
-    base = get_config(arch, smoke=True, dtype="float32")
+    base = get_config(arch, smoke=True, dtype="float32",
+                      **(overrides or {}))
     params = materialize_shards(model_decls(base, axes), axes, 0, device)
-    batch = LMDataset(base.vocab_size, 4, 129, device=device)(0)
+    batch = local_rows(LMDataset(base.vocab_size, 4, 129, device=device)(0),
+                       axes)
     kernels = (flash_attention, pf.phantom_fused_matmul, pf.matmul_nt,
                pf.matmul_tn)
     out = {}
@@ -503,3 +521,117 @@ def moe_body(axes, device, inputs):
     (``moe_layers_body``) and the trainer cases (``trainer_body``)."""
     return {"layers": moe_layers_body(axes, device, inputs["layers"]),
             "train": trainer_body(axes, device, inputs["train"])}
+
+
+def ssm_layers_body(axes, device, cases):
+    """``models/ssm.py: ssm_apply`` on this rank's shard of each case's
+    global input, parameters and (decode) cache.  train: the objective
+    sum(y * r), the local output, input gradient and parameter gradients
+    (summed over tp where the decl replicates them); prefill: the output
+    and the new cache; decode: the same, from the case's cache."""
+    from repro_torch.models import ssm
+    from repro_torch.parallel.params import from_jax_params
+    out = {}
+    for name, case in cases.items():
+        cfg, lay, kind = case["cfg"], case["layout"], case["kind"]
+        decls = ssm.ssm_decls(cfg, axes)
+        params = tree_map(lambda t: t.requires_grad_(True), shard_params(
+            from_jax_params(case["params"]), decls, axes))
+        x = _leaf(_in_layout(case["x"], lay, axes))
+        if kind == "train":
+            y, _ = ssm.ssm_apply(cfg, lay, params, x, axes, kind="train")
+            r = torch.from_numpy(_in_layout(case["r"], lay, axes).copy())
+            (y * r).sum().backward()
+            # at tp = 1 a phantom site never reads C or D: their gradient
+            # is zero, as the reference's
+            grads = _tp_summed(tree_map(
+                lambda t: torch.zeros_like(t) if t.grad is None else t.grad,
+                params), decls, axes)
+            out[name] = {"y": _np(y), "x": _np(x.grad),
+                         "params": tree_map(_np, grads)}
+            continue
+        cache = None
+        if kind == "decode":
+            cache = {"conv": torch.from_numpy(
+                _shard(case["cache"]["conv"], axes, 2).copy()),
+                "ssm": torch.from_numpy(
+                    _shard(case["cache"]["ssm"], axes, 1).copy())}
+        with torch.no_grad():
+            y, new = ssm.ssm_apply(cfg, lay, params, x, axes, kind=kind,
+                                   cache=cache)
+        out[name] = {"y": _np(y), "cache": tree_map(_np, new)}
+    return out
+
+
+def wire_bytes_body(axes, device, cases):
+    """One training step of each case's config on this rank (the weights
+    from one seed, one ``LMDataset`` batch) with its collectives logged:
+    the rank's wire bytes, priced as ``telemetry/counted.py:
+    collective_costs`` prices them, and their split by collective."""
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim import AdamW
+    from repro_torch.parallel.params import materialize_shards
+    from repro_torch.telemetry.counted import collective_costs
+    from repro_torch.train.trainer import local_rows, make_train_step
+    out = {}
+    for name, case in cases.items():
+        cfg = case["cfg"]
+        params = materialize_shards(model_decls(cfg, axes), axes, 0, device)
+        batch = local_rows(LMDataset(cfg.vocab_size, case["batch"],
+                                     case["seq"] + 1, device=device)(0),
+                           axes)
+        opt = AdamW(1e-3)
+        step_fn, _, _ = make_train_step(cfg, axes, opt, device=device)
+        with record_collectives() as log:
+            step_fn(params, opt.init(params), 0, batch)
+        per_op = collective_costs(log.events)
+        out[name] = {"wire_bytes": sum(r["wire_bytes"]
+                                       for r in per_op.values()),
+                     "by_collective": {k: r["wire_bytes"]
+                                       for k, r in per_op.items()}}
+    return out
+
+
+def ssm_body(axes, device, inputs):
+    """One mesh of ``tests/test_torch_ssm.py``: the SSM layer cases
+    (``ssm_layers_body``), the trainer cases (``lm_pipeline_body``: each
+    step from the reference's state before it) and the wire-byte cases
+    (``wire_bytes_body``)."""
+    return {"layers": ssm_layers_body(axes, device, inputs["layers"]),
+            "train": lm_pipeline_body(axes, device, {
+                "train": inputs["train"], "draw_cfg": None})["train"],
+            "wire": wire_bytes_body(axes, device, inputs["wire"])}
+
+
+def fsdp_gather_body(axes, device, cases):
+    """``models/layers.py: gather_fsdp`` on this rank's shard of each
+    case's global weight (plain or int8): the gathered weight (float32)
+    and the gradient of sum(gathered * r) at the local shard."""
+    from repro_torch.models.layers import gather_fsdp
+    from repro_torch.parallel.params import ParamDecl
+    out = {}
+    for name, case in cases.items():
+        decl = ParamDecl(case["w"].shape, case["spec"])
+        w = _leaf(shard_params(torch.from_numpy(case["w"]), decl,
+                               axes).numpy())
+        full = gather_fsdp(w, case["spec"], axes, quant=case["quant"])
+        r = torch.from_numpy(_shard(case["r"], axes, case["tp_dim"]).copy()
+                             if case["tp_dim"] is not None else case["r"])
+        (full.float() * r).sum().backward()
+        out[name] = {"w": _np(full), "dtype": str(full.dtype),
+                     "grad": _np(w.grad)}
+    return out
+
+
+def fsdp_body(axes, device, inputs):
+    """The mesh of ``tests/test_torch_fsdp.py``: the gather cases
+    (``fsdp_gather_body``), the AdamW trainer cases (``trainer_body``),
+    the one-step Adafactor cases (``lm_pipeline_body``) and the wire-byte
+    cases (``wire_bytes_body``)."""
+    return {"gather": fsdp_gather_body(axes, device, inputs["gather"]),
+            "train": trainer_body(axes, device, inputs["train"]),
+            "adafactor": lm_pipeline_body(
+                axes, device, {"train": inputs["adafactor"],
+                               "draw_cfg": None})["train"],
+            "wire": wire_bytes_body(axes, device, inputs["wire"])}
