@@ -74,6 +74,14 @@ Phases (any failure exits non-zero):
    20 steps with ``tensor_col``; then the Table I mini-run (n=1024, L=2,
    target 0.175, at most 500 steps) for TP and phantom k in {4, 8, 16},
    whose iteration counts are printed beside the reference's, not held.
+   At the phase's end, in the same ranks on new groups, PowerSGD
+   (``_compress_rank``): paper-ffn-16k phantom through the kernels at
+   dp 2 x tp 4, ``COMPRESS_STEPS`` SGD steps whose gradients cross dp
+   through ``optim/compress.py: compressed_dp_psum`` at rank 2 with
+   error feedback (each stacked leaf cut into its matrices); losses
+   finite and falling, each step's dp all-reduces exactly rank n and
+   rank m floats per matrix and a vector's own size; the compressed
+   step's time beside the exact dp mean's.
 6. energy: in the same 8 ranks, the measured-vs-predicted ledger of the
    paper-ffn-16k step (``telemetry/probe.py: measure_ffn_step``, input
    grads kept): ``tensor_col`` and phantom through the kernels, each
@@ -138,10 +146,11 @@ Phases (any failure exits non-zero):
    same with dense sites (the ``sp`` layout) at tp = 4 against tp = 1
    from the same seed (each rank holds its shards against the same cut
    of the tp = 1 run); (c) the main path: ``launch/train.py``'s trainer
-   on phi3-mini at all 32 layers, phantom, bf16, batch 4 x seq 512,
+   on phi3-mini at ``LM_TP_LAYERS`` (8) of its 32 layers, phantom, bf16,
+   batch 4 x seq 512,
    ``LM_STEPS`` steps with the collectives logged -- every loss finite,
-   each rank's launches per step exactly the flash kernel 2 x 32 and the
-   phantom forward, dgrad and wgrad 6 x 32, 3 x 32 and 3 x 32; each
+   each rank's launches per step exactly the flash kernel 2 and the
+   phantom forward, dgrad and wgrad 6, 3 and 3 a layer; each
    rank's step time, wire bytes per step, peak memory and the card's
    used memory printed; then one more step with its collectives timed
    (``record_collectives(timed=True)``), rank 0's under
@@ -182,7 +191,8 @@ Phases (any failure exits non-zero):
    2 from the same seed (each stage's two ranks run the whole model on
    their own group, and each rank holds its stage's cut); all held as
    in phase 9, with every kernel's launches.  (c) The main path:
-   ``launch/train.py``'s trainer at all 32 layers, bf16, batch 4 x seq
+   ``launch/train.py``'s trainer at ``LM_PP_LAYERS`` (8) of the 32 layers,
+   bf16, batch 4 x seq
    512 in ``LM_PP_M`` microbatches, ``LM_PP_STEPS`` steps: losses
    finite, launches per step and rank exactly 2, 6, 3 and 3 per layer
    and microbatch of the stage for flash and the phantom forward, dgrad
@@ -258,6 +268,29 @@ Phases (any failure exits non-zero):
    peak; mamba2's step 1 with and without FSDP.  Every step-1 check: 0
    elements outside rtol 1e-4 / atol 1e-5.
 
+14. the hybrid family (``phase_hybrid``).  First, in the parent, the
+   flash kernel at jamba-1.5-large's serving shape (B=4, S=48, H=64,
+   KV=8, hd=128) and a rank's at tp = 4 (B=4, S=512, H=16, KV=2), and the
+   three phantom kernels at its gate/up and down sites a rank at tp = 4
+   (M=2048; K=2048, N=6144 and K=6144, N=2048; PK=128), bf16, held and
+   timed as in phases 2 and 3, and with a cold L2.  (a) ``_jamba_serve``:
+   jamba at full width and ``JAMBA_SERVE_LAYERS`` layers (its three
+   block kinds), bf16 parameters, through ``ServeEngine`` with phase 4's
+   traffic, every prompt its own exact-length group; every request's 16
+   tokens, flash once per prefill group; then the recurrence check of
+   phase 13 over the attention and SSD layers.  Then 4 ranks on the card,
+   each running ``_hybrid_rank``: (b) step 1 at ``JAMBA_LAYERS`` layers in
+   float32 with ``JAMBA_PARITY_EXPERTS`` experts, Adafactor, kernels
+   against plain torch, held as in phase 9; (c) the main path:
+   ``launch/train.py``'s trainer at full width, ``JAMBA_LAYERS`` layers,
+   bf16 parameters, Adafactor, ``fsdp=True`` at dp 1, ``JAMBA_STEPS``
+   steps: losses finite, launches per step and rank 2, 6, 3 and 3 (flash;
+   the phantom forward, dgrad and wgrad at the MLP layer's three sites),
+   wire bytes per step equal to ``hybrid_wire_bytes``; step times,
+   tokens/s, peak memory against the reckoning
+   (``jamba_reckoned_bytes``); one more step with its collectives timed,
+   rank 0's under ``torch.profiler``.
+
 Each phase's wall seconds are printed on a line of their own.
 
 The line before the last is the kernel table as JSON (the phantom
@@ -268,7 +301,9 @@ launches per step and rank under ``lm_tp4``, qwen2.5-14b's under
 ``qwen_tp4``, the pp 2 x tp 2 microbatch's under ``lm_pp``, and
 olmoe-1b-7b's tp = 4 training under ``moe_tp4``, with flash's serving
 shape and launches under ``moe_serve``, mamba2-370m's tp = 4 training
-under ``ssm_tp4`` and phi3-mini's under FSDP under ``fsdp_dp2_tp2``);
+under ``ssm_tp4``, phi3-mini's under FSDP under ``fsdp_dp2_tp2``, and
+jamba-1.5-large's serving shape and launches under ``jamba_serve`` and
+its tp = 4 training under ``jamba_tp4``);
 the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
@@ -316,6 +351,13 @@ STEP1_CHUNK = 1 << 23     # elements of a leaf compared at once
 TABLE1 = dict(n=1024, L=2, target=0.175, max_steps=500)
 TABLE1_REFERENCE = {"tensor": 168, 4: 154, 8: 154, 16: 180}
 ENERGY_STEPS = 5
+# phase 5's PowerSGD run (``_compress_rank``): the paper FFN on dp x tp of
+# the same 8 ranks, its gradients over dp at this rank, SGD.  The
+# reference's test trains n = 64 at lr 0.3; at n = 16384 that step
+# diverges within 10 steps (the update of a unit's output grows with the
+# width), and 0.03 falls steadily
+COMPRESS_DP, COMPRESS_TP, COMPRESS_RANK = 2, 4, 2
+COMPRESS_STEPS, COMPRESS_PLAIN_STEPS, COMPRESS_LR = 20, 5, 0.03
 PIPE_PP, PIPE_DP, PIPE_TP, PIPE_M = 2, 2, 2, 4
 # the reference's pipeline oracle (tests/helpers.py:77-104)
 EQUIV_LOSS_RTOL, EQUIV_TOL = 2e-4, dict(rtol=5e-4, atol=1e-6)
@@ -335,6 +377,9 @@ LM_FLASH_SHAPES = ((4, 512, 32, 32, 96), (4, 512, 32, 32, 80))
 # phase 9: phi3-mini on LM_TP ranks; (d) runs LM_TP_COMPARE = (layers,
 # steps) of phantom and of dense
 LM_TP, LM_TP_COMPARE = 4, (8, 3)
+# (c)'s depth: 8 of phi3-mini's 32 layers, so that phase 14 fits the
+# script's time
+LM_TP_LAYERS = 8
 # the per-rank shapes of phi3-mini at tp = 4, batch 4 x seq 512: the
 # phantom kernels' (M, K, N, PK) at gate/up and at down (k = 12, PK = 48),
 # and flash's (B, S, H, KV, hd) at H / tp local heads
@@ -354,6 +399,7 @@ QWEN_PHANTOM_SHAPES = ((2048, 1280, 3456, 64), (2048, 3456, 1280, 64))
 # kernels' (M, K, N, PK) at gate/up and at down (k = 12, PK = 24), and
 # flash's (B, S, H, KV, hd) at H / tp local heads
 LM_PP, LM_PP_TP, LM_PP_M, LM_PP_STEPS, LM_PP_PARITY_M = 2, 2, 4, 3, 2
+LM_PP_LAYERS = 8     # (c)'s depth, 4 a stage, for phase 14's time
 LM_PP_PHANTOM_SHAPES = ((512, 1536, 4096, 24), (512, 4096, 1536, 24))
 LM_PP_FLASH_SHAPE = (1, 512, 16, 16, 96)
 # phase 12: the MoE family.  olmoe-1b-7b served at full size (tp 1), and
@@ -378,12 +424,28 @@ MOE_PHANTOM_SHAPE = (LM_BATCH * LM_SEQ, 512, 512, 32)
 # d_inner / tp = 512, k = 8, PK = 32); phi3-mini's gate/up and down at
 # dp 2 x tp 2 (B / dp x S = 1024 rows, k = 12, PK = 24) and its flash
 # (B / dp = 2, 32 / tp = 16 heads of 96)
-MAMBA_ARCH, MAMBA_LAYERS, MAMBA_STEPS, MAMBA_PAGE = "mamba2-370m", 48, 3, 1
+# (16 of the 48 layers, for phase 14's time)
+MAMBA_ARCH, MAMBA_LAYERS, MAMBA_STEPS, MAMBA_PAGE = "mamba2-370m", 16, 3, 1
 MAMBA_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 256, 512, 32),
                         (LM_BATCH * LM_SEQ, 512, 256, 32))
 FSDP_DP, FSDP_TP, FSDP_LAYERS, FSDP_STEPS = 2, 2, 4, 3
 FSDP_PHANTOM_SHAPES = ((1024, 1536, 4096, 24), (1024, 4096, 1536, 24))
 FSDP_FLASH_SHAPE = (LM_BATCH // FSDP_DP, LM_SEQ, 16, 16, 96)
+# phase 14: jamba-1.5-large at full width: served at JAMBA_SERVE_LAYERS of
+# its 72 layers (its three block kinds; one MoE layer's 16 experts are
+# 19.3 GB in bf16), trained on LM_TP ranks at JAMBA_LAYERS (attention +
+# MLP, SSD + MoE: 45.8 GB of bf16 weights and gradients over the ranks),
+# JAMBA_STEPS steps; step 1 in float32 with JAMBA_PARITY_EXPERTS experts.
+# The kernels' shapes: flash's (B, S, H, KV, hd) at serving (SLOTS x the
+# longest mixed prompt, 64 heads, KV 8, hd 128) and a rank's at tp 4
+# (16 heads, KV 2); the phantom kernels' (M, K, N, PK) at gate/up and at
+# down a rank at tp 4 (d / tp = 2048, d_ff / tp = 6144, k = 32, PK = 128)
+JAMBA_ARCH, JAMBA_SERVE_LAYERS, JAMBA_LAYERS = "jamba-1.5-large-398b", 3, 2
+JAMBA_STEPS, JAMBA_PARITY_EXPERTS = LM_STEPS, 4
+JAMBA_SERVE_FLASH_SHAPE = (SLOTS, 48, 64, 8, 128)
+JAMBA_TP_FLASH_SHAPE = (LM_BATCH, LM_SEQ, 16, 2, 128)
+JAMBA_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 2048, 6144, 128),
+                        (LM_BATCH * LM_SEQ, 6144, 2048, 128))
 # the recurrence check of phase 13 (a): prefill against token-by-token
 # decode in float32, each within this share of its largest magnitude
 RECURRENCE_TOL = 1e-4
@@ -765,7 +827,7 @@ def _compare_cores(cfg, axes, params, toks, tag="serve"):
     * per layer, bf16 as served: both cores get the kernel path's input,
       so each layer's output and the final logits are held to 5e-2 without
       the drift of many chaotic random layers compounding one-ulp bf16
-      differences.  The layer's FFN is the config's (``_layer_kind``).  In
+      differences.  The layer's FFN is the config's (``layer_plan``).  In
       an MoE layer both cores' router logits are held as well, and a token
       whose kept experts differ between the cores (``_routing_flips``) is
       left out of that layer's check and counted, at most half the layer's
@@ -774,13 +836,13 @@ def _compare_cores(cfg, axes, params, toks, tag="serve"):
     * end to end in bf16: printed, not held (the drift above)."""
     import torch
     from repro_torch.configs.base import with_kernel_backend
-    from repro_torch.models.blocks import block_apply
+    from repro_torch.models.blocks import block_apply, layer_plan
     from repro_torch.models.layers import (embed_apply, head_logits,
                                            norm_apply, residual_layout)
-    from repro_torch.models.model import _layer_kind, forward_prefill
+    from repro_torch.models.model import forward_prefill
     from repro_torch.parallel.params import tree_map
     plain = with_kernel_backend(cfg, "xla")
-    _, ffn = _layer_kind(cfg)
+    _, ffn = layer_plan(cfg)[0]     # one block kind: chatglm3, olmoe
     V = cfg.vocab_size
     lay = residual_layout(cfg, "prefill")
     errs, flips = {}, []
@@ -1161,9 +1223,10 @@ def _step1_diff(res, part, lr, eps):
         # a leaf in chunks of STEP1_CHUNK elements, so that the float64
         # temporaries stay small beside a stage's 8192 x 8192 weight
         top = {"d": 0.0, "u": 0.0, "ek": 0.0, "w": 0.0}
+        dev = plain[path].device     # a run's result may sit on the host
         for lo in range(0, max(leaf.numel(), 1), STEP1_CHUNK):
             def cut(x):
-                return x.reshape(-1)[lo:lo + STEP1_CHUNK]
+                return x.reshape(-1)[lo:lo + STEP1_CHUNK].to(dev)
             t, u, w = cut(leaf), cut(plain[path]).double(), cut(f64[path])
             d = (t.double() - u).abs()
             tol = STEP1_TOL["atol"] + STEP1_TOL["rtol"] * u.abs()
@@ -1296,6 +1359,10 @@ def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
     out["pipeline"] = _pipeline_rank(device, smoke)
     out["pipeline_s"] = time.perf_counter() - t0
     out["peak_rss_gib"].update(out["pipeline"].pop("peak_rss_gib"))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["compress"] = _compress_rank(device, smoke)
+    out["compress_s"] = time.perf_counter() - t0
     return out
 
 
@@ -1434,6 +1501,147 @@ def _energy_rank(axes, device, smoke=False):
     return out
 
 
+def _matrices(tree):
+    """Each leaf of a parameter or gradient tree as the matrices of its
+    last two dims (views, named ``path/i``), a vector as itself: the
+    paper FFN stacks its layers (and phantom's L its blocks), so no leaf
+    of it is a matrix that PowerSGD would compress as it stands."""
+    from repro_torch.parallel.params import tree_leaves
+    out = {}
+    for path, t in tree_leaves(tree):
+        if t.dim() <= 2:
+            out[path] = t
+            continue
+        for i, m in enumerate(t.reshape(-1, *t.shape[-2:]).unbind(0)):
+            out[f"{path}/{i}"] = m
+    return out
+
+
+def _compress_wire(grads, rank):
+    """What one ``compressed_dp_psum`` issues a rank: per matrix of both
+    dims at least 2 rank, all-reduces of rank n and rank m floats; per
+    other leaf, one of its own size; all over the dp group."""
+    out = []
+    for _, g in sorted(grads.items()):
+        if g.dim() == 2 and min(g.shape) >= 2 * rank:
+            out += [rank * g.shape[0], rank * g.shape[1]]
+        else:
+            out.append(g.numel())
+    return [float(n) for n in out]
+
+
+def _compress_rank(device, smoke=False):
+    """PowerSGD in phase 5's ranks, on new groups: paper-ffn-16k phantom
+    through the kernels at dp ``COMPRESS_DP`` x tp ``COMPRESS_TP``,
+    ``COMPRESS_STEPS`` SGD steps (lr ``COMPRESS_LR``) whose gradients
+    reach the other data rank through ``optim/compress.py:
+    compressed_dp_psum`` at rank ``COMPRESS_RANK`` with error feedback,
+    as ``tests/test_ffn_pipeline.py: test_compressed_dp_training_converges``
+    trains the paper FFN, each leaf cut into its matrices
+    (``_matrices``); then ``COMPRESS_PLAIN_STEPS`` steps from the same
+    start whose gradients are averaged over dp exactly.  Each rank's
+    losses, step times and, for the compressed steps, every collective
+    ``compressed_dp_psum`` issued."""
+    import torch
+    from repro_torch.core.ffn import ffn_apply, init_ffn, local_batch
+    from repro_torch.data.synthetic import TeacherDataset
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.train_ffn import BATCH, train_config
+    from repro_torch.optim import SGD
+    from repro_torch.optim.compress import (compressed_dp_psum,
+                                            init_compress_state)
+    from repro_torch.parallel.axes import record_collectives
+    from repro_torch.parallel.params import tree_leaves, tree_unflatten
+
+    axes = make_local_mesh(COMPRESS_DP, COMPRESS_TP)
+    cfg = train_config(TRAIN_ARCH, smoke=smoke, impl="phantom",
+                       kernel_backend="pallas")
+    start, _ = init_ffn(cfg, axes, SGD(COMPRESS_LR), SEED, device)
+    ds = TeacherDataset(cfg.ffn_width, BATCH, SEED, device)
+
+    def run(steps, compressed):
+        params = {k: t.clone() for k, t in tree_leaves(start)}
+        q, err = init_compress_state(
+            _matrices(tree_unflatten(start, params)), COMPRESS_RANK,
+            torch.Generator().manual_seed(SEED))
+        losses, step_ms, events = [], [], []
+        for s in range(steps):
+            x, y = (local_batch(a, axes) for a in ds(s))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            leaves = {k: t.detach().requires_grad_(True)
+                      for k, t in params.items()}
+            out = ffn_apply(cfg, axes, tree_unflatten(start, leaves), x)
+            loss = torch.sum(torch.square(out - y)) / (BATCH * cfg.ffn_width)
+            loss.backward()
+            grads = tree_unflatten(start, {k: t.grad for k, t in
+                                           leaves.items()})
+            if compressed:
+                mats = _matrices(grads)
+                with record_collectives() as log:
+                    red, q, err = compressed_dp_psum(mats, q, err, axes,
+                                                     rank=COMPRESS_RANK)
+                events.append([ev.m_floats for ev in log.events])
+                with torch.no_grad():
+                    for k, m in mats.items():
+                        m.copy_(red[k])
+            else:
+                grads = {k: axes.dp_comm.all_reduce(g) / axes.dp
+                         for k, g in tree_leaves(grads)}
+                grads = tree_unflatten(start, grads)
+            with torch.no_grad():
+                for k, g in tree_leaves(grads):
+                    params[k] = params[k] - COMPRESS_LR * g
+            losses.append(float(axes.world_comm.all_reduce(loss.detach())))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        return {"losses": losses, "step_ms": step_ms, "events": events}
+
+    out = {"rank": axes.rank, "compressed": run(COMPRESS_STEPS, True),
+           "plain": run(COMPRESS_PLAIN_STEPS, False)}
+    out["compressed"]["want_events"] = _compress_wire(_matrices(start),
+                                                      COMPRESS_RANK)
+    return out
+
+
+def _compress_held(ranks):
+    """Hold every rank's PowerSGD run: losses finite and falling, each
+    step's collectives those of ``_compress_wire``; returns the wire a
+    step and the step times."""
+    import math
+    for r in ranks:
+        rk, c = r["compress"]["rank"], r["compress"]["compressed"]
+        for name in ("compressed", "plain"):
+            losses = r["compress"][name]["losses"]
+            check(all(math.isfinite(v) for v in losses),
+                  f"compress rank {rk}: non-finite {name} loss {losses}")
+        check(c["losses"][-1] < c["losses"][0],
+              f"compress rank {rk}: the compressed run's loss did not "
+              f"fall: {c['losses']}")
+        for s, ev in enumerate(c["events"]):
+            check(ev == c["want_events"],
+                  f"compress rank {rk}: step {s} issued {ev}, want "
+                  f"{c['want_events']} floats")
+    c0 = ranks[0]["compress"]
+    want = c0["compressed"]["want_events"]
+    med = {name: statistics.median(c0[name]["step_ms"][1:])
+           for name in ("compressed", "plain")}
+    print(f"compress: {TRAIN_ARCH} phantom through the kernels at dp "
+          f"{COMPRESS_DP} x tp {COMPRESS_TP}, SGD lr {COMPRESS_LR}, PowerSGD "
+          f"rank {COMPRESS_RANK} with error feedback: losses "
+          f"{c0['compressed']['losses'][0]:.6f} -> "
+          f"{c0['compressed']['losses'][-1]:.6f} in {COMPRESS_STEPS} steps "
+          f"(exact dp mean: {c0['plain']['losses'][0]:.6f} -> "
+          f"{c0['plain']['losses'][-1]:.6f} in {COMPRESS_PLAIN_STEPS}); "
+          f"dp all-reduces a step a rank {len(want)}, "
+          f"{sum(want):.0f} floats, as counted on every rank; rank 0's "
+          f"step median {med['compressed']:.1f} ms compressed, "
+          f"{med['plain']:.1f} ms exact", flush=True)
+    return {"floats_per_step": sum(want), "all_reduces_per_step": len(want),
+            "median_step_ms": med, "losses": {
+                name: c0[name]["losses"] for name in ("compressed", "plain")}}
+
+
 def phase_train(device="cuda", smoke=False,
                 table1_steps=TABLE1["max_steps"]):
     import gc
@@ -1521,9 +1729,10 @@ def phase_train(device="cuda", smoke=False,
               f"{len(losses) if hit else 'not reached in ' + str(len(losses))}"
               f" iterations to loss <= {TABLE1['target']} (reference: "
               f"{TABLE1_REFERENCE[key]}; other data and initial weights)")
+    compress = _compress_held(ranks)
     print(f"train: phase wall {wall:.1f} s")
     return {"ranks": ranks, "table1_iterations": table1, "wall_s": wall,
-            "backend": backend}
+            "backend": backend, "compress": compress}
 
 
 RATIO_KEYS = ("flops_per_device", "collective_wire_bytes_per_device",
@@ -2173,7 +2382,8 @@ def _lm_tp_rank(axes, device):
     the card: (a) step 1 kernels against plain at tp = 4, phantom, fp32,
     ``LM_PARITY_LAYERS`` layers; (b) dense (``sp``) at tp = 4 against
     tp = 1 from the same seed, each rank holding its shard of the tp = 1
-    run; (c) phantom at all layers, bf16, ``LM_STEPS`` steps, the main
+    run; (c) phantom at ``LM_TP_LAYERS`` layers, bf16, ``LM_STEPS`` steps,
+    the main
     path; (d) phantom and dense at ``LM_TP_COMPARE[0]`` layers,
     ``LM_TP_COMPARE[1]`` steps each."""
     from repro_torch.configs.base import (dense_projection_map,
@@ -2187,7 +2397,7 @@ def _lm_tp_rank(axes, device):
 
     out = {"rank": axes.rank, "backend": axes.world_comm.backend}
     args = _lm_args(["--steps", str(LM_STEPS)])
-    base = train_config(args)
+    base = train_config(args).replace(num_layers=LM_TP_LAYERS)
     cut = base.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
     batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
                       device=device)(0)
@@ -2234,7 +2444,7 @@ def _lm_tp_rank(axes, device):
     del res
     _free()
 
-    # (c) the slice: phantom phi3-mini at every layer, bf16 -------------
+    # (c) the slice: phantom phi3-mini at LM_TP_LAYERS layers, bf16 -----
     out["main"] = _lm_tp_train(axes, device, base, args, LM_STEPS,
                                profile=True)
 
@@ -2329,7 +2539,7 @@ def phase_lm_train_tp():
     t0 = time.perf_counter()
     ranks = spawn(_lm_tp_rank, 1, LM_TP, "cuda", timeout_s=900)
     wall = time.perf_counter() - t0
-    cfg = train_config(_lm_args([]))
+    cfg = train_config(_lm_args([])).replace(num_layers=LM_TP_LAYERS)
     worst = _lm_tp_held(ranks, LM_PARITY_LAYERS)
     for key, what in (("kernel_vs_plain", "kernels vs plain, phantom"),
                       ("tp4_vs_tp1", "dense sp at tp=4 vs tp=1")):
@@ -2713,8 +2923,11 @@ def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=()):
             return lambda: flash_attention(q, k, v, causal=True)
 
         def lib():
-            q, k, v = (t.transpose(1, 2) for t in _flash_inputs(
-                S, gen, B, H, KV, hd))
+            # the library's kv heads repeated outside the timing, as in
+            # ``_case``
+            q, k, v = _flash_inputs(S, gen, B, H, KV, hd)
+            q, k, v = (t.repeat_interleave(H // t.shape[2], dim=2)
+                       .transpose(1, 2) for t in (q, k, v))
             return lambda: F.scaled_dot_product_attention(q, k, v,
                                                           is_causal=True)
         nbytes = sum(t.numel() * 2
@@ -2908,7 +3121,7 @@ def _lm_pp_rank(axes, device):
     the same with Adafactor; (b) (a)'s kernel run against pp 1 x tp
     ``LM_PP_TP`` from the same seed: each stage's model ranks run the
     whole 2-layer model over their own group, and each rank holds its
-    stage's cut of it; (c) the main path, bf16, every layer,
+    stage's cut of it; (c) the main path, bf16, ``LM_PP_LAYERS`` layers,
     ``LM_PP_STEPS`` steps and one more profiled (``_lm_tp_train``)."""
     from repro_torch.configs.base import with_kernel_backend
     from repro_torch.data.synthetic import LMDataset
@@ -2920,7 +3133,7 @@ def _lm_pp_rank(axes, device):
 
     out = {"rank": axes.rank, "stage": axes.pp_rank}
     args = _lm_pp_args()
-    base = train_config(args)
+    base = train_config(args).replace(num_layers=LM_PP_LAYERS)
     cut = base.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
     batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
                       device=device)(0)
@@ -3058,7 +3271,7 @@ def phase_lm_train_pp():
     t0 = time.perf_counter()
     ranks = spawn(_lm_pp_rank, 1, LM_PP_TP, "cuda", pp=LM_PP, timeout_s=900)
     wall = time.perf_counter() - t0
-    cfg = train_config(_lm_pp_args())
+    cfg = train_config(_lm_pp_args()).replace(num_layers=LM_PP_LAYERS)
     worst = _lm_pp_held(ranks, cfg)
     for key, what in (("kernel_vs_plain", "(a) kernels vs plain, AdamW"),
                       ("adafactor", "(a') kernels vs plain, Adafactor"),
@@ -3608,18 +3821,20 @@ def _mamba_serve():
             "recurrence_end_to_end": end_to_end}
 
 
-def _recurrence_check(cfg, params, requests):
-    """The chunked scan against the recurrence, in float32 on the
-    requests' prompts (one group): layer by layer from the same input,
-    the prefill's final ``{"conv", "ssm"}`` state and every position's
-    output against decoding the prompt token by token from a zero state,
-    and the last logits of both from the last layer's outputs, each
-    within ``RECURRENCE_TOL`` of its largest magnitude.  Held per layer
-    because 48 random layers amplify one-ulp differences; the end-to-end
-    gap (``forward_prefill`` against ``forward_decode``) is printed."""
+def _recurrence_check(cfg, params, requests, tag="mamba serve"):
+    """Prefill against token-by-token decode, in float32 on the requests'
+    prompts (one group): layer by layer from the same input, every
+    position's output and the prefill's cache (an SSD block's final
+    ``{"conv", "ssm"}`` state: the chunked scan against the recurrence;
+    an attention block's K/V rows) against decoding the prompt token by
+    token from a zero cache, and the last logits of both from the last
+    layer's outputs, each within ``RECURRENCE_TOL`` of its largest
+    magnitude.  Held per layer because 48 random layers amplify one-ulp
+    differences; the end-to-end gap (``forward_prefill`` against
+    ``forward_decode``) is printed."""
     import numpy as np
     import torch
-    from repro_torch.models.blocks import block_apply
+    from repro_torch.models.blocks import block_apply, layer_plan, plan_period
     from repro_torch.models.layers import (embed_apply, head_logits,
                                            norm_apply, residual_layout)
     from repro_torch.models.model import (cache_decls, forward_decode,
@@ -3632,47 +3847,60 @@ def _recurrence_check(cfg, params, requests):
                             ).long().cuda()
     B, S = toks.shape
     lay = residual_layout(cfg, "prefill")
+    plan = layer_plan(cfg)[:plan_period(cfg)]
     worst = {}
 
     def held(name, got, want, layer):
         scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
         w = worst.setdefault(name, {"max_abs_err": 0.0, "max_scaled_err": 0.0})
         w["max_abs_err"] = max(w["max_abs_err"], err)
         w["max_scaled_err"] = max(w["max_scaled_err"], err / scale)
         check(bool(torch.isfinite(got).all()) and err <= RECURRENCE_TOL
-              * scale, f"mamba serve: recurrence check, layer {layer} "
+              * scale, f"{tag}: recurrence check, layer {layer} "
                        f"{name}: prefill and token-by-token decode differ "
                        f"by {err:.3e} (largest {scale:.3e})")
+
+    def zero_cache(mixer):
+        if mixer == "mamba":
+            return {k: torch.zeros(shape, device="cuda") for k, (shape, _)
+                    in ssm_cache_shape(cfg, one, B).items()}
+        shape = (B, S, cfg.num_kv_heads, cfg.resolved_head_dim())
+        return {k: torch.zeros(shape, device="cuda") for k in ("k", "v")}
 
     V = cfg.vocab_size      # the padded columns are masked to -1e30
 
     def logits(h):
         return head_logits(cfg, lay, params["head"], norm_apply(
             cfg, lay, params["final_norm"], h, one)[:, -1:], one)[..., :V]
+    positions = torch.arange(S, device="cuda").expand(B, S)
     with torch.no_grad():
         h = embed_apply(cfg, lay, params["embed"], toks, one)
         for i in range(cfg.num_layers):
-            lp = tree_map(lambda t: t[i], params["layers"])
-            h_pre, state, _ = block_apply(cfg, lay, lp, h, None, one,
-                                          kind="prefill", ffn=None,
-                                          mixer="mamba")
-            cache = {k: torch.zeros(shape, device="cuda") for k, (shape, _)
-                     in ssm_cache_shape(cfg, one, B).items()}
+            mixer, ffn = plan[i % len(plan)]
+            lp = tree_map(lambda t: t[i // len(plan)], params["layers"])
+            if len(plan) > 1:
+                lp = lp[f"sub{i % len(plan)}"]
+            h_pre, state, _ = block_apply(cfg, lay, lp, h, positions, one,
+                                          kind="prefill", ffn=ffn,
+                                          mixer=mixer, return_kv=True)
+            cache = zero_cache(mixer)
             outs = []
             for t in range(S):
                 o, cache, _ = block_apply(cfg, lay, lp, h[:, t:t + 1], None,
-                                          one, kind="decode", ffn=None,
-                                          mixer="mamba", cache=cache)
+                                          one, kind="decode", ffn=ffn,
+                                          mixer=mixer, cache=cache,
+                                          pos=torch.full((B,), t,
+                                                         device="cuda"))
                 outs.append(o)
             held("outputs", torch.cat(outs, 1), h_pre, i)
-            held("conv", cache["conv"], state["conv"], i)
-            held("ssm", cache["ssm"], state["ssm"], i)
+            for name in cache:
+                held(name, cache[name], state[name], i)
             h = h_pre
         held("logits", logits(outs[-1]), logits(h_pre), cfg.num_layers)
         lg_pre, _ = forward_prefill(cfg, one, params, {"tokens": toks})
-        cache = {k: torch.zeros(sp.shape, device="cuda")
-                 for k, sp in cache_decls(cfg, one, B, S).items()}
+        cache = tree_map(lambda sp: torch.zeros(sp.shape, device="cuda"),
+                         cache_decls(cfg, one, B, S))
         for t in range(S):
             lg_dec, cache = forward_decode(cfg, one, params, cache,
                                            toks[:, t:t + 1],
@@ -3682,9 +3910,9 @@ def _recurrence_check(cfg, params, requests):
                   / lg_pre.abs().max()).item()
     shown = ", ".join(f"{k} {v['max_scaled_err']:.3e}"
                       for k, v in worst.items())
-    print(f"mamba serve: recurrence check (float32, {B} x {S} tokens, "
+    print(f"{tag}: recurrence check (float32, {B} x {S} tokens, "
           f"{cfg.num_layers} layers, each from the prefill's input to it): "
-          f"prefill against token-by-token decode from a zero state, worst "
+          f"prefill against token-by-token decode from a zero cache, worst "
           f"over the layers as a share of the largest: {shown} (held to "
           f"{RECURRENCE_TOL}); end to end (printed, not held: random layers "
           f"amplify rounding) the last logits differ by {end_to_end:.3e} of "
@@ -4020,6 +4248,360 @@ def phase_ssm_fsdp():
             "wall_s": wall}
 
 
+def hybrid_wire_bytes(cfg, batch, seq, p):
+    """The logical wire bytes one rank issues in one training step of a
+    hybrid model (jamba) with phantom MLP sites, tensor-parallel
+    attention and SSD in/out projections and expert-partitioned MoE in
+    the ``fp`` layout at tp = ``p``, dp = 1 (``_outer_wire_bytes``'
+    pricing; at dp 1 FSDP's gathers and reduce-scatters are the
+    identity and issue nothing).  Per block and pass, summed over the
+    layer plan: an attention mixer's norm psum, its feature gather and
+    the reduce-scatter of ``wo``'s partial sums; an SSD mixer's norm
+    psum, its feature gather, the gated RMSNorm's psum and the
+    reduce-scatter of ``out``'s partial sums; an MLP's norm psum and its
+    three ghost gathers; an MoE's norm psum, the router's partial logits
+    [T, E] in fp32 and the two all-to-alls of the capacity slots [E, C,
+    d / p] (``moe_wire_bytes``); three passes under ``remat="full"``."""
+    from repro_torch.models.blocks import layer_plan
+    from repro_torch.models.moe import moe_capacity
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    d, T = cfg.d_model, batch * seq
+    norm, stream = _all_reduced(p, T * 4), _gathered(p, T * d // p * act)
+    mixer = {"attn": norm + 2 * stream, "mamba": 2 * norm + 2 * stream}
+    ffn = {None: 0.0}
+    if cfg.d_ff:
+        k = cfg.projection_spec("ffn_gate").k
+        ffn["mlp"] = norm + 3 * _gathered(p, T * k * act)
+    if cfg.moe is not None:
+        m = cfg.moe
+        C = moe_capacity(T, m.num_experts, m.top_k, m.capacity_factor)
+        ffn["moe"] = (norm + _all_reduced(p, T * m.num_experts * 4)
+                      + 2 * m.num_experts * C * d // p * act * (p - 1) / p)
+    blocks = sum(mixer[mx] + ffn[ff] for mx, ff in layer_plan(cfg))
+    return 3 * blocks + _outer_wire_bytes(cfg, batch, seq, p)
+
+
+def _jamba_serve():
+    """(a): jamba-1.5-large at full width and ``JAMBA_SERVE_LAYERS``
+    layers (attention + MLP, SSD + MoE, SSD + MLP: its three block kinds),
+    bf16 parameters, tp = 1, ``kernel_backend="pallas"``, through
+    ``ServeEngine`` with phase 4's traffic, every prompt its own
+    exact-length group (page size 1, as mamba2's); every request's 16
+    tokens, the flash kernel once per prefill group (one attention
+    layer); TTFT, TPOT, a profiled decode window, the weights' and the
+    cache's bytes; then, on the closed batch's first group, the
+    recurrence check in float32 activations (``_recurrence_check``:
+    attention K/V and SSD state, layer by layer), the MoE's capacity
+    factor raised to 16 there so that no token is dropped in either."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config, with_kernel_backend
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import closed_batch, slo_report
+    from repro_torch.models.blocks import layer_plan
+    from repro_torch.models.model import count_params, model_decls
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize, tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = with_kernel_backend(get_config(JAMBA_ARCH), "pallas").replace(
+        num_layers=JAMBA_SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = materialize(model_decls(cfg, MeshAxes()), torch.Generator(
+        device="cuda").manual_seed(SEED), "cuda")
+    eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                      page_size=MAMBA_PAGE, device="cuda")
+    torch.cuda.synchronize()
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in _leaves(eng.params)) / 1e9
+    cache_bytes = sum(c.numel() * c.element_size()
+                      for _, c in tree_leaves(eng.cache))
+    n_params = count_params(cfg)
+    print(f"jamba serve: {cfg.name} at full width, {cfg.num_layers} of its "
+          f"72 layers (plan {layer_plan(cfg)}), d={cfg.d_model}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, params="
+          f"{n_params:,} (active {count_params(cfg, active_only=True):,}); "
+          f"weights on card {weights_gb:.2f} GB ({cfg.param_dtype}); cache "
+          f"{cache_bytes / 1e6:.2f} MB for {SLOTS} slots x {MAX_LEN}; "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    closed = closed_batch(cfg.vocab_size, 8, 16, NEW_TOKENS, SEED)
+    rng = np.random.RandomState(SEED + 1)
+    mixed = [Request(prompt=rng.randint(0, cfg.vocab_size, n)
+                     .astype(np.int32), max_new_tokens=NEW_TOKENS,
+                     req_id=100 + i) for i, n in enumerate(MIXED_LENS)]
+    eng.warmup(sorted(set(MIXED_LENS + (16,))))
+
+    # --- the main path: counts from zero, read right after ---------------
+    torch.cuda.reset_peak_memory_stats()
+    groups0 = eng.prefill_meter.calls
+    flash_attention.launches = 0
+    eng.run(closed)
+    rep_closed = slo_report(closed)
+    for r in mixed:
+        r.arrival_s = eng.now_s
+    eng.run(mixed)
+    launches = flash_attention.launches
+    groups = eng.prefill_meter.calls - groups0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rep_mixed = slo_report(mixed)
+    for r in closed + mixed:
+        check(r.done and r.error is None and len(r.out_tokens) == NEW_TOKENS,
+              f"jamba serve: request {r.req_id} ended with "
+              f"{len(r.out_tokens)} tokens ({r.error})")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"jamba serve: request {r.req_id} sampled out-of-vocab tokens")
+    check(groups == 8 // SLOTS + len(MIXED_LENS),
+          f"jamba serve: {groups} prefill groups")
+    n_attn = sum(mx == "attn" for mx, _ in layer_plan(cfg))
+    check(launches == groups * n_attn,
+          f"jamba serve: flash kernel launched {launches} times for "
+          f"{groups} prefill groups x {n_attn} attention layer(s)")
+    for name, rep in (("closed", rep_closed), ("mixed", rep_mixed)):
+        print(f"jamba serve {name}: requests={rep['requests']} "
+              f"tokens={rep['generated_tokens']} "
+              f"TTFT p50={rep['ttft_ms']['p50']:.3f} ms "
+              f"TPOT p50={rep['tpot_ms']['p50']:.3f} ms "
+              f"tokens/s={rep['tokens_per_s']:.1f}", flush=True)
+    print(f"jamba serve: prefill groups={groups} (exact-length) flash "
+          f"launches={launches}; peak memory {peak_gb:.2f} GB; prefill step "
+          f"median {eng.prefill_meter.median_us() / 1e3:.3f} ms, decode "
+          f"{eng.decode_meter.median_us() / 1e3:.3f} ms", flush=True)
+    profile = _profile_decode(eng, cfg)
+    del eng
+    _free()
+
+    # --- the recurrence check, float32, outside the main path -----------
+    ample = cfg.replace(dtype="float32", moe=dataclasses.replace(
+        cfg.moe, capacity_factor=16.0))
+    recurrence, end_to_end = _recurrence_check(ample, params, closed[:SLOTS],
+                                               tag="jamba serve")
+    del params
+    _free()
+    return {"params": n_params, "weights_gb": weights_gb,
+            "cache_bytes": cache_bytes, "launches": launches,
+            "prefill_groups": groups, "peak_memory_gb": peak_gb,
+            "closed": rep_closed, "mixed": rep_mixed,
+            "decode_profile": profile, "recurrence": recurrence,
+            "recurrence_end_to_end": end_to_end}
+
+
+def _host_copy(res):
+    """A step-1 result moved to the host: ranks that share the card then
+    hold one run's gradients and parameters on it at a time."""
+    from repro_torch.parallel.params import tree_map
+    return {k: tree_map(lambda t: t.cpu(), v) if isinstance(v, dict)
+            else v for k, v in res.items()}
+
+
+def jamba_reckoned_bytes(cfg, p):
+    """What one rank of the tp = ``p`` main path holds at least: its
+    parameters and their gradients (``param_dtype``) and Adafactor's
+    factored moments (fp32), from the decls; the card holds ``p`` such
+    ranks."""
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import tree_leaves
+    decls = model_decls(cfg, MeshAxes(tp=p))
+    opt = make_optimizer("adafactor", 0.0).state_decls(decls)
+    weights = sum(_local_bytes(d, p, 1) for _, d in tree_leaves(decls))
+    state = sum(_local_bytes(d, p, 1) for _, d in tree_leaves(opt))
+    return {"weights": weights, "grads": weights, "adafactor": state}
+
+
+def _hybrid_rank(axes, device):
+    """``phase_hybrid`` inside one of the ``LM_TP`` ranks sharing the
+    card: (b) jamba's step 1 at full width and ``JAMBA_LAYERS`` layers,
+    float32 parameters and activations and ``JAMBA_PARITY_EXPERTS``
+    experts (one a rank, top-2 kept: 16 experts' weights do not fit
+    twice in float32), Adafactor, through the kernels against plain
+    torch from one draw cloned, the kernel run's result held on the host
+    while the plain one runs; (c) the main path: ``launch/train.py``'s
+    trainer at full width, ``JAMBA_LAYERS`` layers, bf16 parameters,
+    Adafactor, ``fsdp=True`` at dp 1, ``JAMBA_STEPS`` steps and one more
+    profiled (``_lm_tp_train``)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.base import with_kernel_backend
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.parallel.params import materialize_shards
+
+    out = {"rank": axes.rank}
+    args = _lm_args(["--steps", str(JAMBA_STEPS)], arch=JAMBA_ARCH)
+    base = train_config(args).replace(num_layers=JAMBA_LAYERS)
+    cut = base.replace(dtype="float32", param_dtype="float32",
+                       moe=dataclasses.replace(
+                           base.moe, num_experts=JAMBA_PARITY_EXPERTS))
+    batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
+                      device=device)(0)
+    sched = warmup_cosine(3e-4, 20, JAMBA_STEPS)
+
+    # (b) kernels against plain, float32 -------------------------------
+    params = None
+    for turn in range(axes.tp):           # one rank's global draw at a time
+        if turn == axes.rank:
+            params = materialize_shards(model_decls(cut, axes), axes, SEED,
+                                        device, draw_on=device)
+            _free()
+        axes.world_comm.all_reduce(torch.zeros(1))
+    res, launches = {}, {}
+    for name, backend in (("kernel", "auto"), ("plain", "xla")):
+        r, launches[name], eps = _tp_step1(
+            with_kernel_backend(cut, backend), axes, device, params, batch,
+            sched)
+        res[name] = _host_copy(r) if name == "kernel" else r
+        del r
+        _free()
+    del params
+    out["kernel_vs_plain"] = {
+        part: _step1_diff(res, part, sched(0), eps)
+        for part in ("loss", "grads", "params")}
+    out["kernel_vs_plain"].update(
+        launches=launches,
+        loss_values={n: float(r["loss"]) for n, r in res.items()})
+    del res
+    _free()
+
+    # (c) the slice ------------------------------------------------------
+    out["main"] = _lm_tp_train(axes, device, base, args, JAMBA_STEPS,
+                               profile=True)
+    return out
+
+
+def _hybrid_held(ranks, cfg):
+    """Hold every rank's (b) and the main path: step 1's parts with 0
+    elements outside, the launches its layers imply; the main path's
+    losses finite, its launches a step and its wire bytes a step against
+    ``hybrid_wire_bytes``.  Returns the worst of (b) over the ranks and
+    the counted wire."""
+    import math
+    from repro_torch.models.blocks import layer_plan
+    none = _path_launches(0, 0)
+    mlp_layers = sum(ff == "mlp" for _, ff in layer_plan(cfg))
+    attn_layers = sum(mx == "attn" for mx, _ in layer_plan(cfg))
+    want = _path_launches(mlp_layers, 3)
+    want["flash_attention"] = 2 * attn_layers
+    wire = hybrid_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP)
+    worst = {}
+    for r in ranks:
+        rk, res = r["rank"], r["kernel_vs_plain"]
+        for part in ("loss", "grads", "params"):
+            diff = res[part]
+            check(diff["outside"] == 0,
+                  f"hybrid rank {rk}: step 1 {part} differ in "
+                  f"{diff['outside']} of {diff['elements']} elements: {diff}")
+            w = worst.setdefault(part, {})
+            for k, v in diff.items():
+                w[k] = max(w.get(k, 0), v)
+        check(res["grads"]["max_scaled_err"] <= STEP1_TOL["rtol"],
+              f"hybrid rank {rk}: step-1 gradients differ by more than 1e-4 "
+              f"of the largest: {res['grads']}")
+        check(res["launches"] == {"kernel": want, "plain": none},
+              f"hybrid rank {rk}: step-1 launches {res['launches']}, want "
+              f"{want} through the kernels and none plain")
+        m = r["main"]
+        check(all(math.isfinite(v) for v in m["losses"] + m["grad_norms"]),
+              f"hybrid rank {rk}: non-finite loss or gradient norm: "
+              f"{m['losses']} {m['grad_norms']}")
+        check(m["launches_per_step"] == want,
+              f"hybrid rank {rk}: launches per step "
+              f"{m['launches_per_step']}, want {want}")
+        check(m["wire_bytes_per_step"] == wire,
+              f"hybrid rank {rk}: {m['wire_bytes_per_step']:.0f} wire bytes "
+              f"a step, counted {wire:.0f}")
+    return worst, wire, want
+
+
+def phase_hybrid():
+    """The hybrid family: the kernels at jamba's shapes, its serving at
+    full width (``_jamba_serve``), then ``LM_TP`` ranks sharing the card
+    (gloo, card tensors through the host) running ``_hybrid_rank``."""
+    import statistics as st
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.train import train_config
+    from repro_torch.models.blocks import layer_plan
+    _free()
+    t0 = time.perf_counter()
+    kernels = _timed_kernels(
+        "hybrid", torch.Generator(device="cuda").manual_seed(SEED),
+        (JAMBA_SERVE_FLASH_SHAPE, JAMBA_TP_FLASH_SHAPE), JAMBA_PHANTOM_SHAPES)
+    serve = _jamba_serve()
+    cfg = train_config(_lm_args([], arch=JAMBA_ARCH)).replace(
+        num_layers=JAMBA_LAYERS)
+    reckoned = jamba_reckoned_bytes(cfg, LM_TP)
+    print(f"hybrid: (c) reckoned a rank at tp={LM_TP}, {cfg.num_layers} "
+          f"layers: weights {reckoned['weights'] / 1e9:.2f} GB + gradients "
+          f"{reckoned['grads'] / 1e9:.2f} GB ({cfg.param_dtype}) + "
+          f"Adafactor {reckoned['adafactor'] / 1e9:.3f} GB; {LM_TP} ranks "
+          f"{LM_TP * sum(reckoned.values()) / 1e9:.2f} GB on the card "
+          f"before activations and temporaries", flush=True)
+    t1 = time.perf_counter()
+    ranks = spawn(_hybrid_rank, 1, LM_TP, "cuda", timeout_s=900)
+    wall = time.perf_counter() - t1
+    worst, wire, want = _hybrid_held(ranks, cfg)
+    print(f"hybrid: (b) {cfg.name} at {JAMBA_LAYERS} layers, step 1, "
+          f"float32 parameters, {JAMBA_PARITY_EXPERTS} experts (one a rank; "
+          f"16 do not fit twice in float32), Adafactor, kernels vs plain, "
+          f"worst over ranks (rtol 1e-4 / atol 1e-5): loss "
+          f"{worst['loss']['max_abs_err']:.3e} (values "
+          f"{ranks[0]['kernel_vs_plain']['loss_values']}), grads "
+          f"{worst['grads']['max_abs_err']:.3e} "
+          f"({worst['grads']['max_scaled_err']:.3e} of the largest), params "
+          f"{worst['params']['max_abs_err']:.3e}; elements outside 0 of "
+          f"{worst['params']['elements']} per rank at most; launches "
+          f"{ranks[0]['kernel_vs_plain']['launches']}", flush=True)
+    tokens = LM_BATCH * LM_SEQ
+    main = [r["main"] for r in ranks]
+    med = [st.median(m["step_ms"][1:]) for m in main]
+    print(f"hybrid: (c) {cfg.name} full width, layers={cfg.num_layers} "
+          f"{layer_plan(cfg)}, tp={LM_TP}, batch {LM_BATCH} x seq {LM_SEQ}, "
+          f"bf16 parameters, {cfg.optimizer}, fsdp={cfg.fsdp} at dp 1, "
+          f"microbatches 1 (the config's 8 do not divide a batch of "
+          f"{LM_BATCH}), remat={cfg.remat}: losses "
+          f"{[round(v, 4) for v in main[0]['losses']]}; per-rank step ms "
+          f"{[[round(v, 1) for v in m['step_ms']] for m in main]}, median "
+          f"of steps 2-{JAMBA_STEPS} {[round(v, 1) for v in med]}; "
+          f"{tokens / max(med) * 1e3:.1f} tokens/s (slowest rank); launches "
+          f"per step per rank {main[0]['launches_per_step']} (want {want}); "
+          f"local parameters per rank {main[0]['params_local']:,}",
+          flush=True)
+    print(f"hybrid: (c) wire bytes per step per rank "
+          f"{[round(m['wire_bytes_per_step']) for m in main]}, counted "
+          f"{wire:.0f} (hybrid_wire_bytes); by collective (rank 0): "
+          f"{main[0]['collectives_per_step']}", flush=True)
+    print(f"hybrid: (c) parameters + optimizer state per rank (GB) "
+          f"{[round(m['state_bytes'] / 1e9, 3) for m in main]}; peak memory "
+          f"per rank (GB) {[round(m['peak_memory_gb'], 2) for m in main]}; "
+          f"card used (GB, as each rank read it after its run) "
+          f"{[round(m['card_used_gb'], 2) for m in main]}", flush=True)
+    prof = [m["profile"] for m in main]
+    print(f"hybrid: (c) one more step, collectives timed on every rank "
+          f"(rank 0 also profiled): wall ms "
+          f"{[round(p['wall_ms'], 1) for p in prof]}, in collectives "
+          f"{[round(p['collective_ms'], 1) for p in prof]} over "
+          f"{prof[0]['calls']} calls (share "
+          f"{[round(p['collective_ms'] / p['wall_ms'], 3) for p in prof]}); "
+          f"rank 0's device {prof[0]['device_ms']} ms (busy "
+          f"{prof[0]['device_busy_share']}), by kind "
+          f"{prof[0]['device_ms_by_kind']}, {prof[0]['device_ops']} device "
+          f"ops; top: "
+          f"{ {k: round(v, 3) for k, v in prof[0]['top_device_ms'].items()} }",
+          flush=True)
+    print(f"hybrid: the ranks took {wall:.1f} s; the phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"kernels": kernels, "serve": serve, "ranks": ranks,
+            "worst": worst, "median_step_ms": med,
+            "tokens_per_s": tokens / max(med) * 1e3,
+            "launches_per_step": main[0]["launches_per_step"],
+            "wire_bytes_counted": wire, "reckoned_bytes_per_rank": reckoned,
+            "wall_s": wall}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4057,6 +4639,7 @@ def main() -> int:
     lm_pp = timed("lm_train_pp", phase_lm_train_pp)
     moe = timed("moe", phase_moe)
     ssm = timed("ssm_fsdp", phase_ssm_fsdp)
+    hybrid = timed("hybrid", phase_hybrid)
     print(f"phases: {time.perf_counter() - t_start:.1f} s wall in all",
           flush=True)
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
@@ -4109,7 +4692,16 @@ def main() -> int:
                          "launches_per_step_per_rank":
                              ssm["fsdp_launches_per_step"]["flash_attention"],
                          **{key: ssm["kernels"]["flash"][0][key]
-                            for key in TIMED + ("cold_ms",)}}}]
+                            for key in TIMED + ("cold_ms",)}},
+        "jamba_serve": {"shape": list(JAMBA_SERVE_FLASH_SHAPE),
+                        "launches": hybrid["serve"]["launches"],
+                        **{key: hybrid["kernels"]["flash"][0][key]
+                           for key in TIMED + ("cold_ms",)}},
+        "jamba_tp4": {"shape": list(JAMBA_TP_FLASH_SHAPE),
+                      "launches_per_step_per_rank":
+                          hybrid["launches_per_step"]["flash_attention"],
+                      **{key: hybrid["kernels"]["flash"][1][key]
+                         for key in TIMED + ("cold_ms",)}}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -4183,7 +4775,17 @@ def main() -> int:
                for tag, lkey, shapes in (
                    ("ssm_tp4", "launches_per_step", MAMBA_PHANTOM_SHAPES),
                    ("fsdp_dp2_tp2", "fsdp_launches_per_step",
-                    FSDP_PHANTOM_SHAPES))}})
+                    FSDP_PHANTOM_SHAPES))},
+            "jamba_tp4": {
+                "launches_per_step_per_rank":
+                    hybrid["launches_per_step"][name],
+                "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
+                            **{key: r[key] for key in TIMED},
+                            "cold_ms": hybrid["kernels"]["cold"][str(
+                                [r["M"], r["K"], r["N"], r["PK"]])][name][
+                                "cold_ms"]}
+                           for r in hybrid["kernels"]["cases"]
+                           if r["kernel"] == name]}})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -4191,6 +4793,7 @@ def main() -> int:
          "serve": serve, "train": train, "pipeline": pipeline,
          "lm_train": lm, "lm_train_tp": lm_tp, "qwen_train_tp": qwen,
          "lm_train_pp": lm_pp, "moe": moe, "ssm_fsdp": ssm,
+         "hybrid": hybrid,
          "phase_wall_s": walls, "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -319,6 +319,7 @@ class ShapeConfig:
 _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "granite-moe-3b-a800m": "granite_moe_3b",
+    "jamba-1.5-large-398b": "jamba_1_5_large",
     "mamba2-370m": "mamba2_370m",
     "olmoe-1b-7b": "olmoe_1b_7b",
     "phi3-mini-3.8b": "phi3_mini",

@@ -8,6 +8,8 @@
       --requests 8                        # MoE, on the card, full size
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \
       --requests 8                        # SSM, exact-length groups
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch jamba-1.5-large-398b --smoke --device cpu   # hybrid
 
 Weights are random, drawn from ``--seed``.  ``--dp``/``--tp`` above 1
 raise until the collectives slice; the reference's ``--route auto``,

@@ -1,6 +1,6 @@
 """Shapes and dtypes of the model's inputs and of its decode cache for
 one (arch x shape) cell, without allocating (the reference's
-``input_specs`` / ``cache_specs``, for the dense, MoE and SSM
+``input_specs`` / ``cache_specs``, for the dense, MoE, SSM and hybrid
 families)."""
 from __future__ import annotations
 
@@ -26,6 +26,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, axes: MeshAxes):
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, axes: MeshAxes):
-    """The decode cache of this cell: {k, v} [L, B, S, kv, hd], or the SSM
-    family's state {conv, ssm} (``models/model.py: cache_decls``)."""
+    """The decode cache of this cell: {k, v} [L, B, S, kv, hd], the SSM
+    family's state {conv, ssm}, or a hybrid's tree of both, one per sub
+    of its superblock (``models/model.py: cache_decls``)."""
     return cache_decls(cfg, axes, shape.global_batch, shape.seq_len)

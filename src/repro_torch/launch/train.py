@@ -1,6 +1,6 @@
-"""Train an LM of the dense, MoE or SSM family: the port's counterpart of
-the reference's ``python -m repro.launch.train`` (its non-elastic path
-without a plan).
+"""Train an LM of the dense, MoE, SSM or hybrid family: the port's
+counterpart of the reference's ``python -m repro.launch.train`` (its
+non-elastic path without a plan).
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
         --device cpu --steps 2
@@ -17,6 +17,8 @@ without a plan).
         --arch olmoe-1b-7b --device cpu --tp 2 --steps 2   # MoE
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch mamba2-370m --device cpu --tp 2 --steps 2   # SSM
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch jamba-1.5-large-398b --smoke --device cpu --tp 2   # hybrid
 
 builds ``Trainer(cfg, axes, make_optimizer(cfg.optimizer,
 warmup_cosine(3e-4, 20, steps), weight_decay=0.1), LMDataset(...))``
@@ -33,8 +35,11 @@ that does not divide the heads, runs ring attention.  The MoE configs
 (olmoe-1b-7b: experts over all-to-all; granite-moe-3b-a800m: each
 expert's d_ff sharded) add their balance loss to the objective;
 mamba2-370m runs its SSD blocks, their in and out projections phantom
-(``fp``) or dense (``sp``).  FSDP has no flag, as in the reference: a
-config that sets ``fsdp=True`` brings it.
+(``fp``) or dense (``sp``); jamba-1.5-large-398b its superblocks of
+attention, SSD, MLP and MoE blocks, with Adafactor, FSDP and bf16
+parameters as its config sets them.  FSDP has no flag, as in the
+reference: a config that sets ``fsdp=True`` brings it.  ``--microbatches``
+is the launcher's (default 1), not the config's ``microbatches``.
 ``--pp`` above 1 cuts the layers into that many stages and runs the
 1F1B pipeline over ``--microbatches`` microbatches.  The run is on the
 card unless ``--device cpu`` is given; ``--smoke`` (the default) takes

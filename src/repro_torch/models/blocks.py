@@ -3,9 +3,11 @@ stream's layout (``models/layers.py``).
 
 mixer: ``"attn"`` (GQA in head or ring mode) or ``"mamba"`` (SSD,
 ``models/ssm.py``); FFN: the MLP (dense or phantom per site), the MoE
-(``models/moe.py``) or None (mamba2 has none).  The reference's hybrid
-superblocks (``attn_period`` > 0) and cross-attention blocks arrive with
-their families.
+(``models/moe.py``) or None (mamba2 has none).  A hybrid plan
+(``attn_period`` > 0: jamba's 1 attention layer in 8, the MoE on every
+other layer) repeats a superblock of ``plan_period`` layers, which
+``superblock_train`` runs as one recompute unit; cross-attention blocks
+arrive with their family.
 
 Under FSDP each module gathers its dp-sharded weights where it uses
 them, from the block's decls (``block_decls``)."""
@@ -47,6 +49,16 @@ def layer_plan(cfg):
             ffn = None
         plan.append((mixer, ffn))
     return plan
+
+
+def plan_period(cfg) -> int:
+    """The smallest repeating period of the layer plan: the superblock
+    that the stack repeats (jamba: 8)."""
+    plan = layer_plan(cfg)
+    for per in range(1, len(plan) + 1):
+        if len(plan) % per == 0 and plan == plan[:per] * (len(plan) // per):
+            return per
+    return len(plan)
 
 
 def block_decls(cfg, axes: MeshAxes, layout: str, ffn, mixer: str = "attn"):
@@ -120,3 +132,31 @@ def block_train(cfg, layout: str, params, x, positions, axes: MeshAxes,
                                   f"'full' and 'none'")
     return checkpoint(_train_block, cfg, layout, params, x, positions, axes,
                       ffn, mixer, use_reentrant=False)
+
+
+def _train_superblock(cfg, layout, params, x, positions, axes, plan):
+    aux = None
+    for i, (mixer, ffn) in enumerate(plan):
+        x, a = _train_block(cfg, layout, params[f"sub{i}"], x, positions,
+                            axes, ffn, mixer)
+        if a is not None:
+            aux = a if aux is None else aux + a
+    return x, aux
+
+
+def superblock_train(cfg, layout: str, params, x, positions,
+                     axes: MeshAxes, plan):
+    """One superblock of the training forward -> (x, aux or None), its
+    subs ``{"sub0": ..., f"sub{len(plan) - 1}": ...}`` in the order of
+    ``plan`` ([(mixer, ffn)]), the MoE subs' balance losses summed.
+    ``cfg.remat == "full"`` keeps only the superblock's input and
+    recomputes all of it in the backward pass, as the reference's
+    ``jax.checkpoint`` of its superblock-scan body."""
+    if cfg.remat == "none":
+        return _train_superblock(cfg, layout, params, x, positions, axes,
+                                 plan)
+    if cfg.remat != "full":
+        raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
+                                  f"'full' and 'none'")
+    return checkpoint(_train_superblock, cfg, layout, params, x, positions,
+                      axes, plan, use_reentrant=False)

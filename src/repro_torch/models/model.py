@@ -1,18 +1,23 @@
-"""Model assembly for the dense, MoE and SSM families: decls, and the
-training, prefill and decode forwards.
+"""Model assembly for the dense, MoE, SSM and hybrid families: decls, and
+the training, prefill and decode forwards.
 
 Parameters are the reference's tree (layers stacked on axis 0; on a
 pipe axis ``[pp, G/pp, ...]``, each stage's slice of the stack); the
 forward passes loop over the stack in Python where the reference scans.
+A plan that repeats one block (period 1) stacks its layers under
+``layers``; a hybrid plan (jamba) stacks superblocks, ``{"sub0": ...,
+f"sub{per - 1}": ...}`` over ``num_layers // per`` groups, each sub one
+block of the period (``models/blocks.py: plan_period``).
 The training forwards also take ``params["layers"]`` as a list of
-per-layer trees (``train/trainer.py`` makes each layer's slice a leaf
+per-group trees (``train/trainer.py`` makes each group's slice a leaf
 of its own).  The residual stream keeps the reference's layout
 (``models/layers.py: residual_layout``): feature-sharded where a site is
 phantom, sequence-sharded otherwise.  Training runs at any pp x dp x tp
 (``forward_train_pipeline`` at pp > 1); prefill and decode (serving) at
 tp = 1.  An MoE block adds its balance loss to the training forward's
-``aux`` (the reference's scan carry).  The SSM family's decode cache is
-the SSD state, ``{"conv", "ssm"}`` per layer, with no sequence dim.
+``aux`` (the reference's scan carry).  The decode cache holds, per
+layer, the attention's K/V or the SSD state ``{"conv", "ssm"}`` (no
+sequence dim); a hybrid's, the same per sub.
 Under FSDP (``cfg.fsdp``) the embedding and the head gather their
 dp-sharded dims where they are used, and each block its own
 (``models/blocks.py``).
@@ -25,7 +30,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import (block_apply, block_decls,
-                                       block_train, layer_plan)
+                                       block_train, layer_plan, plan_period,
+                                       superblock_train)
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_decls,
                                        head_decls, head_logits, norm_apply,
                                        norm_decls, residual_layout,
@@ -39,35 +45,48 @@ from repro_torch.train.pipeline import (pipeline_run,
                                         split_batch_microbatches)
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
-def _layer_kind(cfg: ModelConfig):
-    """The (mixer, ffn) of every layer: ("attn", "mlp" or "moe") or
-    ("mamba", None).  The port's families repeat one block, which the
-    reference scans as a period of 1; the superblocks of its hybrid
-    stacks arrive with the hybrid family."""
+def _plan(cfg: ModelConfig):
+    """The (mixer, ffn) of each block of the repeating period: one block
+    ("attn" with "mlp" or "moe", or "mamba" with None) for the families
+    that repeat one, the superblock's subs for a hybrid plan."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported; only {PORTED_FAMILIES} "
-            f"(ROADMAP.md queue 1 lists the families still to port)")
-    kinds = set(layer_plan(cfg))
-    if len(kinds) != 1 or not kinds <= {("attn", "mlp"), ("attn", "moe"),
-                                        ("mamba", None)}:
-        raise NotImplementedError(
-            f"layer plan with blocks {sorted(map(str, kinds))}: the port "
-            f"repeats one block (ROADMAP.md queue 1, item 6)")
-    return kinds.pop()
+            f"(ROADMAP.md queue 1, item 6 lists the families still to port)")
+    return layer_plan(cfg)[:plan_period(cfg)]
+
+
+def n_groups(cfg: ModelConfig) -> int:
+    """Entries of the layer stack: layers, or a hybrid's superblocks."""
+    return cfg.num_layers // plan_period(cfg)
+
+
+def _subs(plan, group):
+    """(params or cache of each block, mixer, ffn) of one entry of the
+    stack: the entry itself at period 1, else its subs in plan order."""
+    if len(plan) == 1:
+        return [(group, *plan[0])]
+    return [(group[f"sub{i}"], mx, ff) for i, (mx, ff) in enumerate(plan)]
+
+
+def _group_decls(cfg: ModelConfig, axes: MeshAxes, layout: str, plan):
+    if len(plan) == 1:
+        return block_decls(cfg, axes, layout, plan[0][1], plan[0][0])
+    return {f"sub{i}": block_decls(cfg, axes, layout, ff, mx)
+            for i, (mx, ff) in enumerate(plan)}
 
 
 def model_decls(cfg: ModelConfig, axes: MeshAxes):
-    mixer, ffn = _layer_kind(cfg)
+    plan = _plan(cfg)
     layout = residual_layout(cfg, "train")
     d = {"embed": embed_decls(cfg),
          "final_norm": norm_decls(cfg, layout, cfg.d_model),
          "head": head_decls(cfg),
-         "layers": stack(block_decls(cfg, axes, layout, ffn, mixer),
-                         cfg.num_layers)}
+         "layers": stack(_group_decls(cfg, axes, layout, plan),
+                         n_groups(cfg))}
     if axes.pp > 1:
         d["layers"] = _pp_shard_layer_decls(d["layers"], axes.pp)
     pdt = dtype_of(cfg.param_dtype)
@@ -77,15 +96,15 @@ def model_decls(cfg: ModelConfig, axes: MeshAxes):
 
 
 def _pp_shard_layer_decls(layers, pp: int):
-    """[G, ...] stacked layer decls -> [pp, G/pp, ...], the stage axis
-    sharded over the pipe axis: each stage holds its contiguous slice of
-    the layers.  The reshape keeps the layer order and ``materialize``
-    draws the same values for either shape, so a seed gives the same
-    model at any pp."""
+    """[G, ...] stacked layer (or superblock) decls -> [pp, G/pp, ...],
+    the stage axis sharded over the pipe axis: each stage holds its
+    contiguous slice of the groups.  The reshape keeps the layer order
+    and ``materialize`` draws the same values for either shape, so a seed
+    gives the same model at any pp."""
     def reshape(d):
         G = d.shape[0]
         if G % pp:
-            raise ValueError(f"{G} layers do not divide into {pp} "
+            raise ValueError(f"{G} layer groups do not divide into {pp} "
                              f"pipeline stages")
         return dataclasses.replace(d, shape=(pp, G // pp) + d.shape[1:],
                                    spec=("pp",) + tuple(d.spec))
@@ -102,7 +121,7 @@ def count_params(cfg: ModelConfig, tp: int = 1,
                  active_only: bool = False) -> int:
     """Parameters of the decls at ``tp``; ``active_only`` leaves out the
     experts a token does not reach (all but top_k of E, on every MoE
-    layer), as the reference counts them."""
+    layer of the plan), as the reference counts them."""
     total = param_count(model_decls(cfg, MeshAxes(tp=tp)))
     if active_only and cfg.moe is not None:
         m = cfg.moe
@@ -138,9 +157,10 @@ def serving_params(cfg: ModelConfig, params, device=None):
 
 
 def _layer(params, i: int, pp: int = 1):
-    """Layer ``i`` of this rank's stack: an entry of the trainer's list of
-    per-layer trees, or a slice of the stacked tensors, ``[G, ...]`` or,
-    pipe-sharded at ``pp`` > 1, the stage's local ``[1, G/pp, ...]``."""
+    """Entry ``i`` (a layer, or a hybrid's superblock) of this rank's
+    stack: an entry of the trainer's list of per-group trees, or a slice
+    of the stacked tensors, ``[G, ...]`` or, pipe-sharded at ``pp`` > 1,
+    the stage's local ``[1, G/pp, ...]``."""
     layers = params["layers"]
     if isinstance(layers, list):
         return layers[i]
@@ -149,22 +169,32 @@ def _layer(params, i: int, pp: int = 1):
     return tree_map(lambda t: t[i], layers)
 
 
+def _group_train(cfg, layout, group, h, positions, axes, plan):
+    """One entry of the stack in the training forward -> (h, aux or
+    None): a block, or a superblock as one recompute unit."""
+    if len(plan) == 1:
+        return block_train(cfg, layout, group, h, positions, axes,
+                           plan[0][1], plan[0][0])
+    return superblock_train(cfg, layout, group, h, positions, axes, plan)
+
+
 def forward_train(cfg: ModelConfig, axes: MeshAxes, params, batch):
     """batch {"tokens", "labels"}: [B, S] -> (sum_loss, n_valid, aux),
     this rank's contributions before the sums over dp (the model axis is
     reduced inside the loss); aux is the MoE layers' summed balance loss
-    (0 for the dense and SSM families).  Each block runs under
-    ``block_train``'s recompute policy (``cfg.remat``)."""
-    mixer, ffn = _layer_kind(cfg)
+    (0 for the dense and SSM families).  Each block, or a hybrid's
+    superblock, runs under the recompute policy of ``cfg.remat``
+    (``block_train``, ``superblock_train``)."""
+    plan = _plan(cfg)
     layout = residual_layout(cfg, "train")
     tokens = batch["tokens"]
     B, S = tokens.shape
     h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     aux = torch.zeros((), device=h.device)
-    for i in range(cfg.num_layers):
-        h, a = block_train(cfg, layout, _layer(params, i), h, positions,
-                           axes, ffn, mixer)
+    for i in range(n_groups(cfg)):
+        h, a = _group_train(cfg, layout, _layer(params, i), h, positions,
+                            axes, plan)
         if a is not None:
             aux = aux + a
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
@@ -198,7 +228,7 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
     dense family).  The caller counts the valid tokens from the labels
     before the schedule starts: the objective divides by the global
     count before the first backward."""
-    mixer, ffn = _layer_kind(cfg)
+    plan = _plan(cfg)
     if cfg.rope == "mrope":
         raise NotImplementedError(
             "mrope positions vary per microbatch; the pipeline carries "
@@ -215,9 +245,9 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
 
     def stage_fn(h):
         aux = None
-        for i in range(cfg.num_layers // axes.pp):
-            h, a = block_train(cfg, layout, _layer(params, i, axes.pp), h,
-                               positions, axes, ffn, mixer)
+        for i in range(n_groups(cfg) // axes.pp):
+            h, a = _group_train(cfg, layout, _layer(params, i, axes.pp), h,
+                                positions, axes, plan)
             if a is not None:
                 aux = a if aux is None else aux + a
         if aux is None:
@@ -256,11 +286,21 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
     return sum_loss, aux
 
 
+def _stack_caches(caches):
+    """Per-group caches (a block's ``{name: [B, ...]}``, or a superblock's
+    ``{sub: {name: ...}}``) -> one tree of ``[G, B, ...]`` stacks."""
+    first = caches[0]
+    return {k: (_stack_caches([c[k] for c in caches])
+                if isinstance(first[k], dict)
+                else torch.stack([c[k] for c in caches])) for k in first}
+
+
 def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
     """batch {"tokens": [B, S]} -> (last-token logits [B, 1, V_pad] fp32,
     cache: {"k", "v"} [L, B, S, kv, hd], or for the SSM family {"conv"
-    [L, B, cw - 1, d_inner], "ssm" [L, B, H, hd, N]})."""
-    mixer, ffn = _layer_kind(cfg)
+    [L, B, cw - 1, d_inner], "ssm" [L, B, H, hd, N]}; a hybrid's, one
+    such tree per sub, ``[G, ...]`` over its superblocks)."""
+    plan = _plan(cfg)
     _require_one_rank(axes, "prefill")
     layout = residual_layout(cfg, "prefill")
     tokens = batch["tokens"]
@@ -268,50 +308,63 @@ def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
     h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     positions = torch.arange(S, device=tokens.device).expand(B, S)
     caches = []
-    for i in range(cfg.num_layers):
-        h, c, _ = block_apply(cfg, layout, _layer(params, i), h, positions,
-                              axes, kind="prefill", ffn=ffn, mixer=mixer,
-                              return_kv=True)
-        caches.append(c)
+    for i in range(n_groups(cfg)):
+        group = []
+        for lp, mixer, ffn in _subs(plan, _layer(params, i)):
+            h, c, _ = block_apply(cfg, layout, lp, h, positions, axes,
+                                  kind="prefill", ffn=ffn, mixer=mixer,
+                                  return_kv=True)
+            group.append(c)
+        caches.append(group[0] if len(plan) == 1 else
+                      {f"sub{j}": c for j, c in enumerate(group)})
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
     logits = head_logits(cfg, layout, params["head"], h[:, -1:, :], axes)
-    return logits, {name: torch.stack([c[name] for c in caches])
-                    for name in caches[0]}
+    return logits, _stack_caches(caches)
 
 
 def forward_decode(cfg: ModelConfig, axes: MeshAxes, params, cache,
                    tokens, pos):
-    """tokens [B, 1]; pos [B] per-row positions (the SSM family reads
+    """tokens [B, 1]; pos [B] per-row positions (the SSD blocks read
     none).  Writes the new K/V rows, or the new SSD state, into
     ``cache`` in place; returns (logits [B, 1, V_pad], cache)."""
-    mixer, ffn = _layer_kind(cfg)
+    plan = _plan(cfg)
     _require_one_rank(axes, "decode")
     layout = residual_layout(cfg, "decode")
     h = embed_apply(cfg, layout, params["embed"], tokens, axes)
-    for i in range(cfg.num_layers):
-        layer_cache = {name: c[i] for name, c in cache.items()}
-        h, new, _ = block_apply(cfg, layout, _layer(params, i), h, None,
-                                axes, kind="decode", ffn=ffn, mixer=mixer,
-                                cache=layer_cache, pos=pos)
-        if mixer == "mamba":
-            for name, c in cache.items():
-                c[i] = new[name]
+    for i in range(n_groups(cfg)):
+        for (lp, mixer, ffn), (c, _, _) in zip(
+                _subs(plan, _layer(params, i)), _subs(plan, cache)):
+            layer_cache = {name: t[i] for name, t in c.items()}
+            h, new, _ = block_apply(cfg, layout, lp, h, None, axes,
+                                    kind="decode", ffn=ffn, mixer=mixer,
+                                    cache=layer_cache, pos=pos)
+            if mixer == "mamba":
+                for name, t in c.items():
+                    t[i] = new[name]
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
     return head_logits(cfg, layout, params["head"], h, axes), cache
 
 
 def cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
                 max_len: int):
-    """Global shapes of the decode cache, layer-stacked like the params:
-    the attention's bf16 K/V, or the SSD's state (the conv rows in bf16,
-    the state in fp32, bf16 under ``kv_cache_quant``)."""
-    mixer, _ = _layer_kind(cfg)
-    L = cfg.num_layers
-    if mixer == "mamba":
-        shapes = ssm_cache_shape(cfg, axes, batch)
-        sdt = torch.bfloat16 if cfg.kv_cache_quant else torch.float32
-        return {"conv": TensorSpec((L,) + shapes["conv"][0], torch.bfloat16),
-                "ssm": TensorSpec((L,) + shapes["ssm"][0], sdt)}
-    shape = (L, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim())
-    return {"k": TensorSpec(shape, torch.bfloat16),
-            "v": TensorSpec(shape, torch.bfloat16)}
+    """Global shapes of the decode cache, stacked like the params: per
+    attention block its bf16 K/V ``[G, batch, max_len, kv, hd]``, per SSD
+    block its state (the conv rows in bf16, the state in fp32, bf16 under
+    ``kv_cache_quant``); a hybrid's, one such tree per sub."""
+    plan = _plan(cfg)
+    G = n_groups(cfg)
+
+    def one(mixer):
+        if mixer == "mamba":
+            shapes = ssm_cache_shape(cfg, axes, batch)
+            sdt = torch.bfloat16 if cfg.kv_cache_quant else torch.float32
+            return {"conv": TensorSpec((G,) + shapes["conv"][0],
+                                       torch.bfloat16),
+                    "ssm": TensorSpec((G,) + shapes["ssm"][0], sdt)}
+        shape = (G, batch, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim())
+        return {"k": TensorSpec(shape, torch.bfloat16),
+                "v": TensorSpec(shape, torch.bfloat16)}
+    if len(plan) == 1:
+        return one(plan[0][0])
+    return {f"sub{i}": one(mx) for i, (mx, _) in enumerate(plan)}

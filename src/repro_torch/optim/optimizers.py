@@ -6,14 +6,17 @@ trees, as the reference's does, but updates their tensors in place, leaf
 by leaf and, for SGD and AdamW, in chunks of ``CHUNK`` elements: the
 reference donates both to XLA, which updates them in place too.
 Adafactor's row and column means and its RMS clip need the whole leaf,
-so it updates a leaf at a time.  At phi3-mini's 3.83 B
-parameters new trees of the parameters and both moments would add 46 GB
-beside the 61 GB of parameters, gradients and moments, more than the
-card holds; the chunks keep the temporaries at a few hundred MB.  The
-arithmetic is the out-of-place formula's, operation for operation, so
-the numbers are the same bits.  The gradients are read, never written.
-States are float32 whatever the parameter dtype; ``state_decls`` gives
-their declarations (the parameters' specs, zero-initialised).
+so it updates a leaf at a time, and a leaf of more than ``SLICE``
+elements in slices along its leading dims, in two passes
+(``_sliced_update``).  At phi3-mini's 3.83 B parameters new trees of
+the parameters and both moments would add 46 GB beside the 61 GB of
+parameters, gradients and moments, more than the card holds; the chunks
+keep the temporaries at a few hundred MB.  The arithmetic is the
+out-of-place formula's, operation for operation, so the numbers are the
+same bits (but for the sum of squares under a sliced leaf's RMS).  The
+gradients are read, never written.  States are float32 whatever the
+parameter dtype; ``state_decls`` gives their declarations (the
+parameters' specs, zero-initialised).
 """
 from __future__ import annotations
 
@@ -26,6 +29,7 @@ from repro_torch.parallel.params import ParamDecl, tree_leaves, tree_map
 
 LR = Union[Callable[[int], float], float]
 CHUNK = 1 << 25        # elements of a leaf updated at once
+SLICE = 1 << 28        # Adafactor: larger factored leaves go in slices
 
 
 def _chunks(*trees):
@@ -161,7 +165,13 @@ class Adafactor(Optimizer):
     ``vc`` (the mean over the second-to-last); any other leaf keeps a
     full ``vr`` and a ``(1,)`` ``vc``.  Every mean, and the RMS of the
     update that the clip reads, is over the rank's local leaf, as the
-    reference's ``shard_map`` computes them: no collective."""
+    reference's ``shard_map`` computes them: no collective.
+
+    A factored leaf of more than ``SLICE`` elements whose leading dims
+    (all but the last two) hold more than one matrix (jamba's experts,
+    ``[1, E/tp, d, d_ff]`` a rank) is updated a few matrices at a time,
+    so that its float32 temporaries stay a fraction of the leaf's
+    (``_sliced_update``)."""
 
     def __init__(self, lr: LR, decay: float = 0.8, eps: float = 1e-30,
                  clip_rms: float = 1.0, weight_decay: float = 0.0):
@@ -207,6 +217,11 @@ class Adafactor(Optimizer):
         vrs, vcs = dict(tree_leaves(state["vr"])), dict(tree_leaves(
             state["vc"]))
         for path, p in tree_leaves(params):
+            if (self._factored(p.shape) and p.numel() > SLICE
+                    and p.numel() > p.shape[-2] * p.shape[-1]):
+                self._sliced_update(p, gflat[path], vrs[path], vcs[path],
+                                    beta2, lr)
+                continue
             g = gflat[path].float()
             g2 = g.square().add_(self.eps)
             vr = vrs[path]
@@ -227,6 +242,40 @@ class Adafactor(Optimizer):
             u.div_(torch.clamp(rms / self.clip_rms, min=1.0))
             _decay_step(p, u, lr, self.weight_decay)
         return params, state
+
+    def _sliced_update(self, p, g, vr, vc, beta2, lr):
+        """The factored update of one leaf, its leading dims flattened to
+        ``[n_mat, n, m]`` and taken ``SLICE // (n m)`` matrices at a
+        time.  Pass 1 updates each slice's moments and sums the squares
+        of its update; pass 2 recomputes each slice's update from the new
+        moments, clips it by the RMS over the whole leaf and applies it.
+        Every element's moments and update are the unsliced formula's;
+        only the sum of squares under the RMS adds the slices' partial
+        sums in turn where the unsliced ``mean`` reduces in one go."""
+        n, m = p.shape[-2:]
+        P, G = p.view(-1, n, m), g.reshape(-1, n, m)
+        VR, VC = vr.view(-1, n), vc.view(-1, m)
+        per = max(1, SLICE // (n * m))
+        cuts = [slice(i, i + per) for i in range(0, P.shape[0], per)]
+
+        def update_of(sl):
+            r = VR[sl] / VR[sl].mean(-1, keepdim=True)
+            denom = r[..., None] * VC[sl][..., None, :]
+            del r
+            return denom.add_(self.eps).rsqrt_().mul_(G[sl].float())
+
+        sq = torch.zeros((), dtype=torch.float32, device=p.device)
+        for sl in cuts:
+            g2 = G[sl].float().square().add_(self.eps)
+            VR[sl].mul_(beta2).add_(g2.mean(-1).mul_(1 - beta2))
+            VC[sl].mul_(beta2).add_(g2.mean(-2).mul_(1 - beta2))
+            del g2
+            sq += update_of(sl).square_().sum()
+        rms = torch.sqrt(sq / p.numel() + 1e-12)
+        scale = torch.clamp(rms / self.clip_rms, min=1.0)
+        for sl in cuts:
+            _decay_step(P[sl], update_of(sl).div_(scale), lr,
+                        self.weight_decay)
 
 
 def make_optimizer(name: str, lr: LR, weight_decay: float = 0.0,

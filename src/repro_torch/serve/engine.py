@@ -19,11 +19,12 @@ Every later write lands at the current ``pos``, overwriting each pad
 row before it ever becomes attendable.
 
 Families whose prefill folds the tokens into a recurrent state
-(``RECURRENT_FAMILIES``; the SSM family is ported) cannot be
-right-padded: their refill groups are exact-length (the scheduler's
+(``RECURRENT_FAMILIES``; the SSM and hybrid families are ported) cannot
+be right-padded: their refill groups are exact-length (the scheduler's
 ``mixed_lengths=False``, so a prompt's length must be a multiple of the
 page size), every first output token is the prefill's own sample, and
 the state rows (``{"conv", "ssm"}``, no sequence dim) are spliced whole.
+A hybrid's cache holds both kinds, one tree per sub of its superblock.
 
 Where the reference donates the decode cache to a jitted step that
 returns a new one, the port's decode step writes the new K/V rows (or
@@ -45,6 +46,8 @@ from repro_torch.models.model import (forward_decode, forward_prefill,
                                       serving_params)
 from repro_torch.parallel.axes import (SERVE_TP_TODO, MeshAxes,
                                       resolve_device)
+from repro_torch.parallel.params import (tree_leaves, tree_map,
+                                         tree_unflatten)
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.sampling import Sampler, SamplingParams
 from repro_torch.serve.scheduler import Scheduler
@@ -114,9 +117,9 @@ class ServeEngine:
         self.last_tok = np.zeros((slots, 1), np.int32)
 
     def _zero_cache(self):
-        return {name: torch.zeros(s.shape, dtype=s.dtype, device=self.device)
-                for name, s in cache_specs(self.cfg, self._cache_shape,
-                                           self.axes).items()}
+        return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
+                                              device=self.device),
+                        cache_specs(self.cfg, self._cache_shape, self.axes))
 
     # --- step functions --------------------------------------------------
 
@@ -199,16 +202,24 @@ class ServeEngine:
             toks[i, :len(req.prompt)] = req.prompt
         logits, fresh = self._timed(self.prefill_meter, self.prefill_fn,
                                     self._tensor(toks))
-        # splice the group's rows into the max_len cache (bf16 whatever
-        # the compute dtype, as the reference's), zero past S; a
-        # recurrent state has no sequence dim and is spliced whole
+        # splice the group's rows into the max_len cache, zero past S; an
+        # SSD state has no sequence dim and is spliced whole.  A leaf
+        # takes the wider of its dtype and the rows', as the reference's
+        # ``jnp.where`` merge promotes it: bf16 as declared under bf16
+        # activations, float32 once float32 rows arrive
         idx = torch.tensor(slot_ids, device=self.device)
-        for name, c in self.cache.items():
-            if self.recurrent:
-                c[:, idx] = fresh[name][:, idx].to(c.dtype)
-                continue
-            c[:, idx, :S] = fresh[name][:, idx].to(c.dtype)
-            c[:, idx, S:] = 0
+        rows = dict(tree_leaves(fresh))
+        merged = {}
+        for path, c in tree_leaves(self.cache):
+            f = rows[path][:, idx]
+            c = c.to(torch.promote_types(c.dtype, f.dtype))
+            if path.split("/")[-1] in ("conv", "ssm"):
+                c[:, idx] = f.to(c.dtype)
+            else:
+                c[:, idx, :S] = f.to(c.dtype)
+                c[:, idx, S:] = 0
+            merged[path] = c
+        self.cache = tree_unflatten(self.cache, merged)
         logits = logits.float().cpu().numpy()
         for i, req in zip(slot_ids, group):
             self.active[i] = req

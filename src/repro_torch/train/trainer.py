@@ -1,6 +1,6 @@
 """Training step builder and training loop for the LM families: the
-port's counterpart of the reference's ``train/trainer.py``, for the
-dense and MoE families on any pp x dp x tp mesh of ranks.
+port's counterpart of the reference's ``train/trainer.py``, on any
+pp x dp x tp mesh of ranks.
 
 ``make_train_step`` builds one rank's step: forward and backward
 (``models/model.py: forward_train``, gradient accumulation over
@@ -45,12 +45,14 @@ from repro_torch.train.pipeline import split_batch_microbatches
 
 AUX_LOSS_WEIGHT = 0.01
 OPERATIONS_TODO = "ROADMAP.md queue 1, item 8"
+NORM_CHUNK = 1 << 28   # a larger leaf's sum of squares goes in chunks
 
 
 def _global_norm(grads, decls, axes: MeshAxes):
     """The global gradient norm: each leaf's sum of squares weighted so
     that every element counts once over the ranks that hold it, summed
-    over all ranks."""
+    over all ranks.  A leaf of more than ``NORM_CHUNK`` elements is
+    summed in chunks, so that its float32 copy stays a chunk."""
     dflat = dict(tree_leaves(decls))
     total = None
     for path, g in tree_leaves(grads):
@@ -60,8 +62,12 @@ def _global_norm(grads, decls, axes: MeshAxes):
                            ("pp", axes.pp)):
             if name not in ax:
                 repl *= size
-        gf = g.reshape(-1).float()
-        sq = torch.dot(gf, gf) / repl
+        sq = None
+        for part in g.reshape(-1).split(NORM_CHUNK):
+            gf = part.float()
+            d = torch.dot(gf, gf)
+            sq = d if sq is None else sq + d
+        sq = sq / repl
         total = sq if total is None else total + sq
     return torch.sqrt(axes.world_comm.all_reduce(total))
 
@@ -228,10 +234,23 @@ class Trainer:
         every rank (a host draw of phi3-mini's 15 GB would add minutes to
         every run): the same global weights at any pp x tp on one card
         type (a pipe-sharded stack draws the values of the unsharded
-        one), one global leaf at a time beside the shards.  The
-        optimizer's zero state."""
-        params = materialize_shards(self.decls, self.axes, seed,
-                                    self.device, draw_on=self.device)
+        one), one global leaf at a time beside the shards.  Ranks that
+        share a card (gloo through the host) draw in turn, each returning
+        the global leaf's memory to the card before the next starts:
+        otherwise each would hold a global leaf at once (jamba's expert
+        leaf is 6.4 GB in bf16).  The optimizer's zero state."""
+        world = self.axes.world_comm
+        shared = (self.device.type == "cuda" and world.size > 1
+                  and world.via_host)
+        params = None
+        for turn in range(world.size if shared else 1):
+            if not shared or turn == self.axes.rank:
+                params = materialize_shards(self.decls, self.axes, seed,
+                                            self.device,
+                                            draw_on=self.device)
+            if shared:
+                torch.cuda.empty_cache()
+                world.all_reduce(torch.zeros(1))       # the turn ends
         return TrainState(params, self.optimizer.init(params), 0)
 
     def run(self, state: TrainState, num_steps: int) -> TrainState:

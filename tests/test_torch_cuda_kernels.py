@@ -487,16 +487,35 @@ def test_fsdp_trainer_step_at_dp2_tp2_kernel_path_matches_plain(
                           overrides={"fsdp": True})
 
 
+@pytest.mark.cuda
+def test_hybrid_trainer_step_at_tp2_kernel_path_matches_plain(cuda_device):
+    """One float32 AdamW step of jamba-smoke cut to 3 layers (attention +
+    MLP, SSD + MoE, SSD + MLP: one superblock of its three block kinds)
+    on 2 gloo ranks sharing the card, the kernel path against the plain
+    path from one draw: flash at the attention layer and the phantom
+    kernels at the two MLP layers' three sites, the forward twice
+    (forward and the superblock's recompute), the dgrad and wgrad once.
+    The full 8-layer smoke stack's float32 gradients are ill-conditioned
+    (its gradient norm agrees to 1e-4 between two float32 runs;
+    ``tests/test_torch_hybrid.py``), so the cut holds the step at this
+    helper's tolerances."""
+    _hold_card_step_ranks(
+        cuda_device, pp=1, microbatches=1, arch="jamba-1.5-large-398b",
+        overrides={"num_layers": 3},
+        launches={"flash_attention": 2, "phantom_fused_matmul": 12,
+                  "matmul_nt": 6, "matmul_tn": 6})
+
+
 def _hold_card_step_ranks(cuda_device, pp, microbatches,
                           arch="phi3-mini-3.8b", sites=3, flash=True, dp=1,
-                          overrides=None):
+                          overrides=None, launches=None):
     """``torch_ranks.card_tp_step_body`` on pp x dp x 2 ranks, held on
     every rank: the kernel path's launches (forward and recompute of the
     stage's 2 / pp layers, once a microbatch, ``sites`` phantom sites a
-    layer, and flash unless the model has no attention), none on the
-    plain path, loss and gradient norm rtol 1e-5, and the local
-    parameters rtol 1e-4 / atol 1e-5 plus what AdamW's first step
-    implies near zero gradients."""
+    layer, and flash unless the model has no attention; or ``launches``
+    where given), none on the plain path, loss and gradient norm rtol
+    1e-5, and the local parameters rtol 1e-4 / atol 1e-5 plus what
+    AdamW's first step implies near zero gradients."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.parallel.params import tree_leaves
     import torch_ranks
@@ -507,10 +526,10 @@ def _hold_card_step_ranks(cuda_device, pp, microbatches,
     lr = 1e-3
     for r in ranks:
         k, p = r["kernel"], r["plain"]
-        assert k["launches"] == {"flash_attention": 2 * n * flash,
-                                 "phantom_fused_matmul": 2 * sites * n,
-                                 "matmul_nt": sites * n,
-                                 "matmul_tn": sites * n}
+        assert k["launches"] == (launches or {
+            "flash_attention": 2 * n * flash,
+            "phantom_fused_matmul": 2 * sites * n, "matmul_nt": sites * n,
+            "matmul_tn": sites * n})
         assert set(p["launches"].values()) == {0}
         for key in ("loss", "grad_norm"):
             np.testing.assert_allclose(k[key], p[key], rtol=1e-5)

@@ -402,9 +402,10 @@ def test_engine_greedy_streams_match_reference(serve_ref, arch, backend):
 
 
 def test_engine_serves_float32_activations():
-    """With float32 activations the engine splices prefill's K/V into
-    its bf16 cache (the reference's cache dtype), and both backends give
-    the same greedy streams."""
+    """With float32 activations the engine starts from its declared bf16
+    cache (the reference's cache dtype), splices prefill's float32 K/V
+    into it (promoting it, as the reference's merge does), and both
+    backends give the same greedy streams."""
     from repro_torch.parallel.params import materialize
     cfg = get_config(ARCHS["olmoe"], smoke=True, dtype="float32")
     params = materialize(model_decls(cfg, MeshAxes()),

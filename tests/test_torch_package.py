@@ -128,7 +128,8 @@ def test_trained_dense_config_equals_reference(arch, smoke):
 
 PORTED_ARCHS = ["chatglm3-6b", "phi3-mini-3.8b", "stablelm-3b",
                 "qwen2.5-14b", "olmoe-1b-7b", "granite-moe-3b-a800m",
-                "mamba2-370m", "paper-ffn-4k", "paper-ffn-16k", "paper-ffn-64k",
+                "mamba2-370m", "jamba-1.5-large-398b", "paper-ffn-4k",
+                "paper-ffn-16k", "paper-ffn-64k",
                 "paper-ffn-131k", "paper-ffn-262k"]
 
 
@@ -365,22 +366,28 @@ def test_library_functions_target_the_card_by_default(entry):
 
 
 def test_unported_arch_and_family_raise():
-    """An unported arch, an unported family (the MoE and SSM families,
-    which raised here until they were ported, build), and a layer plan
-    that mixes MoE and MLP layers (the reference's superblock scan)
-    raise."""
+    """An unported arch and the unported families (vlm, encdec) raise,
+    the families naming ROADMAP queue 1; the MoE, SSM and hybrid
+    families, which raised here until they were ported, build, and so
+    does a layer plan that mixes MoE and MLP layers (the reference's
+    superblock scan: a superblock of period 2)."""
     from repro_torch.configs.base import MoEConfig
     with pytest.raises(KeyError, match="not ported"):
-        get_config("jamba-1.5-large-398b")
-    cfg = get_config("chatglm3-6b", smoke=True).replace(family="hybrid")
-    with pytest.raises(NotImplementedError, match="family 'hybrid'"):
-        model_decls(cfg, MeshAxes())
+        get_config("qwen2-vl-72b")
+    for family in ("vlm", "encdec"):
+        cfg = get_config("chatglm3-6b", smoke=True).replace(family=family)
+        with pytest.raises(NotImplementedError,
+                           match=f"family '{family}'.*ROADMAP.md queue 1"):
+            model_decls(cfg, MeshAxes())
     model_decls(get_config("olmoe-1b-7b", smoke=True), MeshAxes())
     model_decls(get_config("mamba2-370m", smoke=True), MeshAxes())
+    model_decls(get_config("jamba-1.5-large-398b", smoke=True), MeshAxes())
     mixed = get_config("olmoe-1b-7b", smoke=True).replace(
         moe=MoEConfig(num_experts=8, top_k=2, d_ff_expert=32, every_n=2))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        model_decls(mixed, MeshAxes())
+    decls = model_decls(mixed, MeshAxes())
+    assert sorted(decls["layers"]) == ["sub0", "sub1"]
+    assert "router" in decls["layers"]["sub0"]["ffn"]
+    assert "router" not in decls["layers"]["sub1"]["ffn"]
 
 
 @pytest.mark.parametrize("what", ["model_tp", "train_pp", "norm",

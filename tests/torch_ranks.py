@@ -635,3 +635,76 @@ def fsdp_body(axes, device, inputs):
                 axes, device, {"train": inputs["adafactor"],
                                "draw_cfg": None})["train"],
             "wire": wire_bytes_body(axes, device, inputs["wire"])}
+
+
+def compress_body(axes, device, inputs):
+    """One mesh of ``tests/test_torch_compress.py`` (dp 2 x tp 4):
+    ``compress_grad`` and ``compressed_dp_psum`` on the given gradients
+    (the same on every rank, or this dp rank's block of a global one),
+    their collectives logged, and three compressed SGD steps of the paper
+    FFN from the reference's parameters and compression state."""
+    from repro_torch.core.ffn import ffn_apply, ffn_decls, local_batch
+    from repro_torch.optim.compress import compress_grad, compressed_dp_psum
+    from repro_torch.parallel.params import (from_jax_params, tree_leaves,
+                                             tree_unflatten)
+    out = {}
+    group = axes.dp_comm
+
+    c = inputs["lowrank"]
+    g = torch.from_numpy(c["g"])
+    q = torch.from_numpy(c["q0"])
+    for _ in range(c["rounds"]):
+        q = compress_grad(g, q, group)[1]
+    approx, q_last = compress_grad(g, q, group)
+    out["lowrank"] = {"approx": _np(approx), "q": _np(q_last)}
+
+    for name in ("feedback", "per_rank"):
+        c = inputs[name]
+        grads = {k: torch.from_numpy(_rows(a, axes) if c["per_rank"]
+                                     else a) for k, a in c["g"].items()}
+        q, err = from_jax_params(c["q0"]), from_jax_params(c["err0"])
+        steps = []
+        with record_collectives() as log:
+            for _ in range(c["steps"]):
+                red, q, err = compressed_dp_psum(grads, q, err, axes,
+                                                 rank=c["rank"])
+                steps.append(tree_map(_np, red))
+        out[name] = {"reduced": steps, "q": tree_map(_np, q),
+                     "err": tree_map(_np, err),
+                     "m_floats": [(ev.collective, ev.m_floats, ev.group)
+                                  for ev in log.events]}
+
+    c = inputs["ffn"]
+    cfg = c["cfg"]
+    decls = ffn_decls(cfg, axes)
+    params = shard_params(from_jax_params(c["params"]), decls, axes)
+    q, err = from_jax_params(c["q0"]), from_jax_params(c["err0"])
+    losses, trail = [], []
+    for x, y in c["batches"]:
+        x, y = (local_batch(torch.from_numpy(a), axes) for a in (x, y))
+        flat = tree_leaves(params)
+        leaves = [t.detach().requires_grad_(True) for _, t in flat]
+        p = tree_unflatten(params, {k: t for (k, _), t in zip(flat, leaves)})
+        out_ = ffn_apply(cfg, axes, p, x)
+        loss = torch.sum(torch.square(out_ - y)) / (y.shape[0] * axes.dp
+                                                    * cfg.ffn_width)
+        loss.backward()
+        grads = tree_unflatten(params, {k: t.grad for (k, _), t in
+                                        zip(flat, leaves)})
+        grads, q, err = compressed_dp_psum(grads, q, err, axes, rank=2)
+        params = tree_unflatten(params, {
+            k: (t - c["lr"] * g).detach() for (k, t), (_, g) in
+            zip(tree_leaves(params), tree_leaves(grads))})
+        losses.append(float(axes.world_comm.all_reduce(loss.detach())))
+        trail.append(tree_map(_np, params))
+    out["ffn"] = {"losses": losses, "params": trail}
+    return out
+
+
+def hybrid_body(axes, device, inputs):
+    """One mesh of ``tests/test_torch_hybrid.py``: the trainer cases
+    (``lm_pipeline_body``: each step from the reference's state before
+    it) and the wire-byte cases (``wire_bytes_body``)."""
+    return {"train": lm_pipeline_body(axes, device, {
+                "train": inputs["train"], "draw_cfg": None})["train"],
+            "wire": wire_bytes_body(axes, device, inputs["wire"])}
