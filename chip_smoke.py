@@ -291,6 +291,56 @@ Phases (any failure exits non-zero):
    (``jamba_reckoned_bytes``); one more step with its collectives timed,
    rank 0's under ``torch.profiler``.
 
+15. the vision-language family (``phase_vlm``).  First, in the parent,
+   the flash kernel at qwen2-vl-72b's serving shape (B=4, S=48, H=64,
+   KV=8, hd=128) and a rank's at tp = 4 (B=4, S=512, H=16, KV=2), and the
+   three phantom kernels at its gate/up and down sites a rank at tp = 4
+   (M=2048; K=2048, N=7392 and K=7392, N=2048; PK=128: the first N and
+   contraction that the 64-wide tiles do not divide), bf16, held and
+   timed as in phases 2 and 3, and with a cold L2.  (a) ``_vlm_serve``:
+   qwen2-vl at full width and ``QWEN2VL_SERVE_LAYERS`` layers, bf16
+   parameters, through ``ServeEngine`` with phase 4's traffic in
+   mixed-length buckets (the vision stub's zero embeddings spliced over
+   each group's first positions, M-RoPE positions on three equal rows):
+   every request's 16 tokens, flash once per layer of every prefill
+   group, TTFT, TPOT, a profiled decode window, the weights' and the
+   cache's bytes; then the recurrence check of phase 13 at
+   ``QWEN2VL_PARITY_LAYERS`` of the layers cast to float32.  Then 4 ranks
+   on the card, each running ``_family_rank`` on ``StubbedLM`` batches
+   (random vision embeddings, M-RoPE positions): (b) step 1 at
+   ``QWEN2VL_PARITY_LAYERS`` layers in float32, Adafactor, kernels against
+   plain torch, held as in phase 9; (c) the main path:
+   ``launch/train.py``'s trainer (``make_trainer`` with the stubbed
+   dataset: the launcher itself raises for this family) at full width,
+   ``QWEN2VL_LAYERS`` layers, bf16 parameters, Adafactor, ``fsdp=True`` at
+   dp 1, ``LM_STEPS`` steps: losses finite, launches per step and rank 2,
+   6, 3 and 3 a layer, wire bytes per step equal to ``fsdp_wire_bytes``;
+   step times, tokens/s, peak memory; one more step with its collectives
+   timed, rank 0's under ``torch.profiler``.
+
+16. the encoder-decoder family (``phase_encdec``).  First, in the parent,
+   the flash kernel at seamless-m4t-large-v2's serving shape (B=4, S=48,
+   H=KV=16, hd=64) and a rank's at tp = 4 (B=4, S=512, H=KV=4), each in
+   full mode (its encoder, against SDPA with ``is_causal=False``) and
+   causal (its decoder), and the three phantom kernels at its up and
+   down sites a rank at tp = 4 (M=2048; K=256, N=2048 and the transpose;
+   PK=32), bf16, held and timed as in phases 2 and 3, and with a cold L2.
+   (a) ``_encdec_serve``: seamless at full size (24 + 24 layers), bf16,
+   through ``ServeEngine`` with phase 4's traffic, every prompt its own
+   exact-length group: every request's 16 tokens, flash once per encoder
+   and decoder layer of every prefill group; TTFT, TPOT, a profiled
+   decode window, the self and cross caches' bytes; then, with random
+   frames in float32 activations, one group's prefill logits and cross
+   K/V through the kernels against the plain path, and the recurrence
+   check at ``SEAMLESS_PARITY_LAYERS`` + as many layers.  Then 4 ranks
+   on the card (``_family_rank``, random frames): (b) step 1 at
+   ``SEAMLESS_PARITY_LAYERS`` + as many layers, float32, AdamW, kernels
+   against plain; (c) the main path at ``SEAMLESS_LAYERS`` + as many
+   layers, fp32 parameters, AdamW, ``LM_STEPS`` steps: launches per step
+   and rank 2 flash a self-attention layer (encoder and decoder: the
+   cross-attention runs the plain core), 4, 2 and 2 phantom a layer,
+   wire bytes per step equal to ``encdec_wire_bytes``; as in 15.
+
 Each phase's wall seconds are printed on a line of their own.
 
 The line before the last is the kernel table as JSON (the phantom
@@ -303,7 +353,9 @@ olmoe-1b-7b's tp = 4 training under ``moe_tp4``, with flash's serving
 shape and launches under ``moe_serve``, mamba2-370m's tp = 4 training
 under ``ssm_tp4``, phi3-mini's under FSDP under ``fsdp_dp2_tp2``, and
 jamba-1.5-large's serving shape and launches under ``jamba_serve`` and
-its tp = 4 training under ``jamba_tp4``);
+its tp = 4 training under ``jamba_tp4``, qwen2-vl-72b's under
+``qwen2vl_serve`` and ``qwen2vl_tp4``, and seamless-m4t-large-v2's, full
+and causal, under ``seamless_serve`` and ``seamless_tp4``);
 the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
@@ -446,6 +498,34 @@ JAMBA_SERVE_FLASH_SHAPE = (SLOTS, 48, 64, 8, 128)
 JAMBA_TP_FLASH_SHAPE = (LM_BATCH, LM_SEQ, 16, 2, 128)
 JAMBA_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 2048, 6144, 128),
                         (LM_BATCH * LM_SEQ, 6144, 2048, 128))
+# phase 15: qwen2-vl-72b at full width: served at QWEN2VL_SERVE_LAYERS of
+# its 80 layers (19.1 GB of bf16 weights), the recurrence check at
+# QWEN2VL_PARITY_LAYERS of them in float32; trained on LM_TP ranks at
+# QWEN2VL_LAYERS, step 1 at QWEN2VL_PARITY_LAYERS.  The kernels' shapes:
+# flash's (B, S, H, KV, hd) at serving (64 heads, KV 8, hd 128) and a
+# rank's at tp 4 (16 heads, KV 2); the phantom kernels' (M, K, N, PK) at
+# gate/up and at down a rank at tp 4 (d / tp = 2048, d_ff / tp = 7392:
+# 115.5 of the 64-wide tiles, k = 32, PK = 128)
+QWEN2VL_ARCH, QWEN2VL_SERVE_LAYERS, QWEN2VL_LAYERS = "qwen2-vl-72b", 8, 4
+QWEN2VL_PARITY_LAYERS = 2
+QWEN2VL_SERVE_FLASH_SHAPE = (SLOTS, 48, 64, 8, 128)
+QWEN2VL_TP_FLASH_SHAPE = (LM_BATCH, LM_SEQ, 16, 2, 128)
+QWEN2VL_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 2048, 7392, 128),
+                          (LM_BATCH * LM_SEQ, 7392, 2048, 128))
+# phase 16: seamless-m4t-large-v2: served at full size (24 + 24 layers),
+# trained on LM_TP ranks at SEAMLESS_LAYERS encoder + SEAMLESS_LAYERS
+# decoder layers, step 1 at SEAMLESS_PARITY_LAYERS + as many.  Flash at
+# hd 64, full (the encoder) and causal (the decoder), at serving (16
+# heads) and a rank's at tp 4 (4 heads); the phantom kernels at up and
+# down a rank at tp 4 (d / tp = 256, d_ff / tp = 2048, k = 8, PK = 32)
+SEAMLESS_ARCH, SEAMLESS_LAYERS = "seamless-m4t-large-v2", 8
+SEAMLESS_PARITY_LAYERS = 2
+SEAMLESS_FLASH_SHAPES = tuple(
+    shape + (causal,) for shape in ((SLOTS, 48, 16, 16, 64),
+                                    (LM_BATCH, LM_SEQ, 4, 4, 64))
+    for causal in (False, True))
+SEAMLESS_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 256, 2048, 32),
+                           (LM_BATCH * LM_SEQ, 2048, 256, 32))
 # the recurrence check of phase 13 (a): prefill against token-by-token
 # decode in float32, each within this share of its largest magnitude
 RECURRENCE_TOL = 1e-4
@@ -2334,9 +2414,11 @@ def _lm_tp_profile(trainer, state, axes):
     return state, prof
 
 
-def _lm_tp_train(axes, device, cfg, args, steps, profile=False):
-    """``launch/train.py``'s trainer on this rank for ``steps`` steps,
-    kernel counts from 0 just before the run and read just after, the
+def _lm_tp_train(axes, device, cfg, args, steps, profile=False,
+                 dataset=None):
+    """``launch/train.py``'s trainer on this rank for ``steps`` steps (on
+    ``dataset``'s batches where given, else the launcher's), kernel
+    counts from 0 just before the run and read just after, the
     collectives logged: step times, losses, launches, wire bytes per
     step by collective, the rank's peak memory and the card's used
     memory; ``profile`` adds one step of ``_lm_tp_profile`` after the
@@ -2345,7 +2427,7 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False):
     from repro_torch.launch.train import make_trainer
     from repro_torch.parallel.axes import record_collectives
     from repro_torch.telemetry.counted import collective_costs
-    trainer = make_trainer(axes, device, cfg, args)
+    trainer = make_trainer(axes, device, cfg, args, dataset=dataset)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state(args.seed)
     _kernel_counts(reset=True)
@@ -2665,6 +2747,13 @@ def _param_wire_bytes(cfg, p, dp):
     return total
 
 
+def _norm_bytes(cfg, p, T):
+    """One ``fp`` norm's psums over ``T`` tokens in one pass: RMSNorm's
+    sum of squares, LayerNorm's sum and then its centred sum of
+    squares, each [T, 1] in fp32."""
+    return (2 if cfg.norm == "layernorm" else 1) * _all_reduced(p, T * 4)
+
+
 def _outer_wire_bytes(cfg, batch, seq, p, dp=1):
     """The logical wire bytes one rank issues in one training step outside
     the blocks of an LM whose stream is feature-sharded (``fp``) at tp =
@@ -2686,7 +2775,7 @@ def _outer_wire_bytes(cfg, batch, seq, p, dp=1):
     per_chunk = (_all_reduced(p, b * chunk * 4)
                  * (5 + 2 * (n_chunks > 1)))
     return (2 * _gathered(p, T * d // p * act)    # embedding, fwd + bwd
-            + 2 * _all_reduced(p, T * 4)          # final norm
+            + 2 * _norm_bytes(cfg, p, T)          # final norm
             + 2 * _gathered(p, T * d // p * act)  # the loss's gather
             + n_chunks * per_chunk
             + 2 * _all_reduced(dp, 4) + _all_reduced(p * dp, 4)
@@ -2907,20 +2996,22 @@ def _qwen_rank(axes, device):
 
 
 def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=()):
-    """The flash kernel at each (B, S, H, KV, hd), causal, and the three
-    phantom kernels at each (M, K, N, PK), all bf16: held to their plain
-    versions and timed as in phases 2 and 3, and with a cold L2.
-    Returns {"flash": [cases], "cases": [phantom cases], "cold":
-    {str([M, K, N, PK]): the phantom kernels' cold-L2 times}}."""
+    """The flash kernel at each (B, S, H, KV, hd), causal (or at (B, S,
+    H, KV, hd, causal)), and the three phantom kernels at each (M, K, N,
+    PK), all bf16: held to their plain versions and timed as in phases 2
+    and 3, and with a cold L2.  Returns {"flash": [cases], "cases":
+    [phantom cases], "cold": {str([M, K, N, PK]): the phantom kernels'
+    cold-L2 times}}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     out = {"flash": [], "cases": [], "cold": {}}
-    for B, S, H, KV, hd in flash_shapes:
-        flash = _case(B, S, H, KV, hd, True, "bfloat16", gen)
+    for B, S, H, KV, hd, *mode in flash_shapes:
+        causal = mode[0] if mode else True
+        flash = _case(B, S, H, KV, hd, causal, "bfloat16", gen)
 
         def kern():
             q, k, v = _flash_inputs(S, gen, B, H, KV, hd)
-            return lambda: flash_attention(q, k, v, causal=True)
+            return lambda: flash_attention(q, k, v, causal=causal)
 
         def lib():
             # the library's kv heads repeated outside the timing, as in
@@ -2929,14 +3020,15 @@ def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=()):
             q, k, v = (t.repeat_interleave(H // t.shape[2], dim=2)
                        .transpose(1, 2) for t in (q, k, v))
             return lambda: F.scaled_dot_product_attention(q, k, v,
-                                                          is_causal=True)
+                                                          is_causal=causal)
         nbytes = sum(t.numel() * 2
                      for t in _flash_inputs(S, gen, B, H, KV, hd))
         flash.update(cold_ms=cold_ms(kern, nbytes),
                      library_cold_ms=cold_ms(lib, nbytes))
         out["flash"].append(flash)
         print(f"{tag}: flash_attention B={B} S={S} H={H} KV={KV} hd={hd} "
-              f"bfloat16 causal: max_abs_err={flash['max_abs_err']:.3e} "
+              f"bfloat16 {'causal' if causal else 'full'}: "
+              f"max_abs_err={flash['max_abs_err']:.3e} "
               f"(of sum p|v|: {flash['max_rel_err']:.3e}) ok={flash['ok']} "
               f"ms={flash['ms']:.4f} cold_ms={flash['cold_ms']:.4f} "
               f"bound_ms={flash['bound_ms']:.5f} ({flash['bound_by']}) "
@@ -3821,31 +3913,43 @@ def _mamba_serve():
             "recurrence_end_to_end": end_to_end}
 
 
-def _recurrence_check(cfg, params, requests, tag="mamba serve"):
+def _recurrence_check(cfg, params, requests, tag="mamba serve",
+                      stubs=None):
     """Prefill against token-by-token decode, in float32 on the requests'
     prompts (one group): layer by layer from the same input, every
     position's output and the prefill's cache (an SSD block's final
     ``{"conv", "ssm"}`` state: the chunked scan against the recurrence;
-    an attention block's K/V rows) against decoding the prompt token by
-    token from a zero cache, and the last logits of both from the last
-    layer's outputs, each within ``RECURRENCE_TOL`` of its largest
-    magnitude.  Held per layer because 48 random layers amplify one-ulp
-    differences; the end-to-end gap (``forward_prefill`` against
-    ``forward_decode``) is printed."""
+    an attention block's K/V rows; a decoder block's self K/V, its
+    cross K/V given to the decode as the prefill made them) against
+    decoding the prompt token by token from a zero cache, and the last
+    logits of both from the last layer's outputs, each within
+    ``RECURRENCE_TOL`` of its largest magnitude.  The prefill's batch
+    carries the serving engine's stubs (``serve/engine.py:
+    _add_modality_stubs``), or ``stubs`` in their place (seamless's
+    random frames: on zero frames its memory is zero).  Held per layer
+    because 48 random layers amplify one-ulp differences; the end-to-end
+    gap (``forward_prefill`` against ``forward_decode``) is printed (for
+    qwen2-vl it includes the vision rows, which prefill splices in and
+    decode, fed the tokens, does not)."""
     import numpy as np
     import torch
     from repro_torch.models.blocks import block_apply, layer_plan, plan_period
-    from repro_torch.models.layers import (embed_apply, head_logits,
-                                           norm_apply, residual_layout)
-    from repro_torch.models.model import (cache_decls, forward_decode,
+    from repro_torch.models.layers import head_logits, norm_apply
+    from repro_torch.models.layers import residual_layout
+    from repro_torch.models.model import (_embed, _enc_stack, _positions,
+                                          cache_decls, forward_decode,
                                           forward_prefill)
     from repro_torch.models.ssm import ssm_cache_shape
     from repro_torch.parallel.axes import MeshAxes
-    from repro_torch.parallel.params import tree_map
+    from repro_torch.parallel.params import tree_leaves, tree_map
+    from repro_torch.serve.engine import _add_modality_stubs
     one = MeshAxes()
     toks = torch.from_numpy(np.stack([r.prompt for r in requests])
                             ).long().cuda()
     B, S = toks.shape
+    batch = _add_modality_stubs(cfg, {"tokens": toks}, B, S)
+    batch.update(stubs or {})
+    encdec = cfg.family == "encdec"
     lay = residual_layout(cfg, "prefill")
     plan = layer_plan(cfg)[:plan_period(cfg)]
     worst = {}
@@ -3861,30 +3965,35 @@ def _recurrence_check(cfg, params, requests, tag="mamba serve"):
                        f"{name}: prefill and token-by-token decode differ "
                        f"by {err:.3e} (largest {scale:.3e})")
 
-    def zero_cache(mixer):
+    def zero_cache(mixer, state):
         if mixer == "mamba":
             return {k: torch.zeros(shape, device="cuda") for k, (shape, _)
                     in ssm_cache_shape(cfg, one, B).items()}
         shape = (B, S, cfg.num_kv_heads, cfg.resolved_head_dim())
-        return {k: torch.zeros(shape, device="cuda") for k in ("k", "v")}
+        kv = {k: torch.zeros(shape, device="cuda") for k in ("k", "v")}
+        return {"self": kv, "cross": state["cross"]} if encdec else kv
 
     V = cfg.vocab_size      # the padded columns are masked to -1e30
 
     def logits(h):
         return head_logits(cfg, lay, params["head"], norm_apply(
             cfg, lay, params["final_norm"], h, one)[:, -1:], one)[..., :V]
-    positions = torch.arange(S, device="cuda").expand(B, S)
+    positions = _positions(cfg, batch, B, S, toks.device)
+    key = "dec_layers" if encdec else "layers"
     with torch.no_grad():
-        h = embed_apply(cfg, lay, params["embed"], toks, one)
+        memory = (_enc_stack(cfg, lay, params, one, batch["frames"],
+                             kind="prefill") if encdec else None)
+        h = _embed(cfg, lay, params, batch, one)
         for i in range(cfg.num_layers):
             mixer, ffn = plan[i % len(plan)]
-            lp = tree_map(lambda t: t[i // len(plan)], params["layers"])
+            lp = tree_map(lambda t: t[i // len(plan)], params[key])
             if len(plan) > 1:
                 lp = lp[f"sub{i % len(plan)}"]
             h_pre, state, _ = block_apply(cfg, lay, lp, h, positions, one,
                                           kind="prefill", ffn=ffn,
-                                          mixer=mixer, return_kv=True)
-            cache = zero_cache(mixer)
+                                          mixer=mixer, return_kv=True,
+                                          memory=memory)
+            cache = zero_cache(mixer, state)
             outs = []
             for t in range(S):
                 o, cache, _ = block_apply(cfg, lay, lp, h[:, t:t + 1], None,
@@ -3894,13 +4003,17 @@ def _recurrence_check(cfg, params, requests, tag="mamba serve"):
                                                          device="cuda"))
                 outs.append(o)
             held("outputs", torch.cat(outs, 1), h_pre, i)
-            for name in cache:
-                held(name, cache[name], state[name], i)
+            want = dict(tree_leaves(state))
+            for name, c in tree_leaves(cache):
+                held(name, c, want[name], i)
             h = h_pre
         held("logits", logits(outs[-1]), logits(h_pre), cfg.num_layers)
-        lg_pre, _ = forward_prefill(cfg, one, params, {"tokens": toks})
+        lg_pre, pre = forward_prefill(cfg, one, params, batch)
         cache = tree_map(lambda sp: torch.zeros(sp.shape, device="cuda"),
                          cache_decls(cfg, one, B, S))
+        if encdec:
+            for name in ("k", "v"):
+                cache["cross"][name].copy_(pre["cross"][name])
         for t in range(S):
             lg_dec, cache = forward_decode(cfg, one, params, cache,
                                            toks[:, t:t + 1],
@@ -4281,109 +4394,104 @@ def hybrid_wire_bytes(cfg, batch, seq, p):
     return 3 * blocks + _outer_wire_bytes(cfg, batch, seq, p)
 
 
+def encdec_wire_bytes(cfg, batch, seq, p):
+    """The logical wire bytes one rank issues in one training step of an
+    encoder-decoder model (seamless) with phantom MLP sites (up, down)
+    and tensor-parallel head-mode attention in the ``fp`` layout at tp =
+    ``p``, dp = 1, the frames as long as the tokens
+    (``_outer_wire_bytes``' pricing).  Per pass: an encoder block's two
+    norms (``_norm_bytes``), its attention's feature gather and the
+    reduce-scatter of ``wo``'s partial sums, and the MLP's two ghost
+    gathers; a decoder block's three norms, its self-attention's gather
+    and reduce-scatter, its cross-attention's (the q site's feature
+    gather and ``wo``'s reduce-scatter: K and V project the memory,
+    which every rank holds whole) and the two ghost gathers; three
+    passes under ``remat="full"`` (forward, recompute, backward), but for
+    the first encoder block's first norm, whose psums have no backward:
+    its moments are of the frames, which carry no gradient.  Once each
+    forward and backward: the encoder's final norm, and the gather of its
+    output to full features (the memory; the recompute of a decoder block
+    reads it as it is).  Around the blocks: ``_outer_wire_bytes``."""
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    d, T = cfg.d_model, batch * seq
+    k = cfg.projection_spec("ffn_up").k
+    norm, stream = _norm_bytes(cfg, p, T), _gathered(p, T * d // p * act)
+    ghosts = 2 * _gathered(p, T * k * act)
+    enc = 2 * norm + 2 * stream + ghosts
+    dec = 3 * norm + 4 * stream + ghosts
+    return (3 * (cfg.encoder_layers * enc + cfg.num_layers * dec) - norm
+            + 2 * norm + 2 * stream
+            + _outer_wire_bytes(cfg, batch, seq, p))
+
+
+class StubbedLM:
+    """``LMDataset``'s batches of ``batch`` x ``seq`` tokens (and labels)
+    on ``device``, with the stubs of the family's frontends as the
+    reference's ``tests/helpers.py: make_batch`` adds them: ``frames``
+    [B, S, d] and ``vision_embeds`` [B, n_vision_tokens, d] drawn from a
+    numpy ``RandomState(seed + step)`` (float32), ``positions``
+    [3, B, S] ``arange(S)`` on each row."""
+
+    def __init__(self, cfg, batch, seq, device, seed=0):
+        from repro_torch.data.synthetic import LMDataset
+        self.cfg, self.batch, self.seq = cfg, batch, seq
+        self.device, self.seed = device, seed
+        self.lm = LMDataset(cfg.vocab_size, batch, seq + 1, seed=seed,
+                            device=device)
+
+    def __call__(self, step):
+        import numpy as np
+        import torch
+        from repro_torch.models.model import n_vision_tokens
+        cfg, B, S = self.cfg, self.batch, self.seq
+        out = dict(self.lm(step))
+        rng = np.random.RandomState(self.seed + step)
+
+        def draw(*shape):
+            return torch.from_numpy(rng.randn(*shape).astype(np.float32)
+                                    ).to(self.device)
+        if cfg.family == "encdec":
+            out["frames"] = draw(B, S, cfg.d_model)
+        if cfg.frontend == "vision":
+            out["vision_embeds"] = draw(B, n_vision_tokens(cfg, S),
+                                        cfg.d_model)
+        if cfg.rope == "mrope":
+            out["positions"] = torch.arange(S, device=self.device).expand(
+                3, B, S)
+        return out
+
+
 def _jamba_serve():
     """(a): jamba-1.5-large at full width and ``JAMBA_SERVE_LAYERS``
     layers (attention + MLP, SSD + MoE, SSD + MLP: its three block kinds),
-    bf16 parameters, tp = 1, ``kernel_backend="pallas"``, through
-    ``ServeEngine`` with phase 4's traffic, every prompt its own
-    exact-length group (page size 1, as mamba2's); every request's 16
-    tokens, the flash kernel once per prefill group (one attention
-    layer); TTFT, TPOT, a profiled decode window, the weights' and the
-    cache's bytes; then, on the closed batch's first group, the
-    recurrence check in float32 activations (``_recurrence_check``:
+    bf16 parameters, through ``_family_serve`` with every prompt its own
+    exact-length group (page size 1, as mamba2's; flash once per prefill
+    group: one attention layer); then, on the closed batch's first group,
+    the recurrence check in float32 activations (``_recurrence_check``:
     attention K/V and SSD state, layer by layer), the MoE's capacity
     factor raised to 16 there so that no token is dropped in either."""
     import dataclasses
-    import numpy as np
-    import torch
     from repro_torch.configs.base import get_config, with_kernel_backend
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import closed_batch, slo_report
     from repro_torch.models.blocks import layer_plan
-    from repro_torch.models.model import count_params, model_decls
-    from repro_torch.parallel.axes import MeshAxes
-    from repro_torch.parallel.params import materialize, tree_leaves
-    from repro_torch.serve.engine import Request, ServeEngine
-
+    from repro_torch.models.model import count_params
     cfg = with_kernel_backend(get_config(JAMBA_ARCH), "pallas").replace(
         num_layers=JAMBA_SERVE_LAYERS)
-    t0 = time.perf_counter()
-    params = materialize(model_decls(cfg, MeshAxes()), torch.Generator(
-        device="cuda").manual_seed(SEED), "cuda")
-    eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
-                      page_size=MAMBA_PAGE, device="cuda")
-    torch.cuda.synchronize()
-    weights_gb = sum(t.numel() * t.element_size()
-                     for t in _leaves(eng.params)) / 1e9
-    cache_bytes = sum(c.numel() * c.element_size()
-                      for _, c in tree_leaves(eng.cache))
-    n_params = count_params(cfg)
-    print(f"jamba serve: {cfg.name} at full width, {cfg.num_layers} of its "
-          f"72 layers (plan {layer_plan(cfg)}), d={cfg.d_model}, "
-          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k}, params="
-          f"{n_params:,} (active {count_params(cfg, active_only=True):,}); "
-          f"weights on card {weights_gb:.2f} GB ({cfg.param_dtype}); cache "
-          f"{cache_bytes / 1e6:.2f} MB for {SLOTS} slots x {MAX_LEN}; "
-          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
-    closed = closed_batch(cfg.vocab_size, 8, 16, NEW_TOKENS, SEED)
-    rng = np.random.RandomState(SEED + 1)
-    mixed = [Request(prompt=rng.randint(0, cfg.vocab_size, n)
-                     .astype(np.int32), max_new_tokens=NEW_TOKENS,
-                     req_id=100 + i) for i, n in enumerate(MIXED_LENS)]
-    eng.warmup(sorted(set(MIXED_LENS + (16,))))
-
-    # --- the main path: counts from zero, read right after ---------------
-    torch.cuda.reset_peak_memory_stats()
-    groups0 = eng.prefill_meter.calls
-    flash_attention.launches = 0
-    eng.run(closed)
-    rep_closed = slo_report(closed)
-    for r in mixed:
-        r.arrival_s = eng.now_s
-    eng.run(mixed)
-    launches = flash_attention.launches
-    groups = eng.prefill_meter.calls - groups0
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rep_mixed = slo_report(mixed)
-    for r in closed + mixed:
-        check(r.done and r.error is None and len(r.out_tokens) == NEW_TOKENS,
-              f"jamba serve: request {r.req_id} ended with "
-              f"{len(r.out_tokens)} tokens ({r.error})")
-        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
-              f"jamba serve: request {r.req_id} sampled out-of-vocab tokens")
-    check(groups == 8 // SLOTS + len(MIXED_LENS),
-          f"jamba serve: {groups} prefill groups")
-    n_attn = sum(mx == "attn" for mx, _ in layer_plan(cfg))
-    check(launches == groups * n_attn,
-          f"jamba serve: flash kernel launched {launches} times for "
-          f"{groups} prefill groups x {n_attn} attention layer(s)")
-    for name, rep in (("closed", rep_closed), ("mixed", rep_mixed)):
-        print(f"jamba serve {name}: requests={rep['requests']} "
-              f"tokens={rep['generated_tokens']} "
-              f"TTFT p50={rep['ttft_ms']['p50']:.3f} ms "
-              f"TPOT p50={rep['tpot_ms']['p50']:.3f} ms "
-              f"tokens/s={rep['tokens_per_s']:.1f}", flush=True)
-    print(f"jamba serve: prefill groups={groups} (exact-length) flash "
-          f"launches={launches}; peak memory {peak_gb:.2f} GB; prefill step "
-          f"median {eng.prefill_meter.median_us() / 1e3:.3f} ms, decode "
-          f"{eng.decode_meter.median_us() / 1e3:.3f} ms", flush=True)
-    profile = _profile_decode(eng, cfg)
+    print(f"jamba serve: plan {layer_plan(cfg)}, {cfg.moe.num_experts} "
+          f"experts top-{cfg.moe.top_k}, active parameters "
+          f"{count_params(cfg, active_only=True):,}", flush=True)
+    out, eng, closed = _family_serve(cfg, MAMBA_PAGE, "jamba serve")
+    check(out["prefill_groups"] == 8 // SLOTS + len(MIXED_LENS),
+          f"jamba serve: {out['prefill_groups']} prefill groups")
+    params = eng.params
     del eng
     _free()
-
-    # --- the recurrence check, float32, outside the main path -----------
     ample = cfg.replace(dtype="float32", moe=dataclasses.replace(
         cfg.moe, capacity_factor=16.0))
-    recurrence, end_to_end = _recurrence_check(ample, params, closed[:SLOTS],
-                                               tag="jamba serve")
+    out["recurrence"], out["recurrence_end_to_end"] = _recurrence_check(
+        ample, params, closed[:SLOTS], tag="jamba serve")
     del params
     _free()
-    return {"params": n_params, "weights_gb": weights_gb,
-            "cache_bytes": cache_bytes, "launches": launches,
-            "prefill_groups": groups, "peak_memory_gb": peak_gb,
-            "closed": rep_closed, "mixed": rep_mixed,
-            "decode_profile": profile, "recurrence": recurrence,
-            "recurrence_end_to_end": end_to_end}
+    return out
 
 
 def _host_copy(res):
@@ -4422,13 +4530,9 @@ def _hybrid_rank(axes, device):
     Adafactor, ``fsdp=True`` at dp 1, ``JAMBA_STEPS`` steps and one more
     profiled (``_lm_tp_train``)."""
     import dataclasses
-    import torch
-    from repro_torch.configs.base import with_kernel_backend
     from repro_torch.data.synthetic import LMDataset
     from repro_torch.launch.train import train_config
-    from repro_torch.models.model import model_decls
     from repro_torch.optim.schedules import warmup_cosine
-    from repro_torch.parallel.params import materialize_shards
 
     out = {"rank": axes.rank}
     args = _lm_args(["--steps", str(JAMBA_STEPS)], arch=JAMBA_ARCH)
@@ -4438,9 +4542,23 @@ def _hybrid_rank(axes, device):
                            base.moe, num_experts=JAMBA_PARITY_EXPERTS))
     batch = LMDataset(cut.vocab_size, args.batch, args.seq + 1,
                       device=device)(0)
-    sched = warmup_cosine(3e-4, 20, JAMBA_STEPS)
+    out["kernel_vs_plain"] = _step1_kernel_vs_plain(
+        axes, device, cut, batch, warmup_cosine(3e-4, 20, JAMBA_STEPS))
+    out["main"] = _lm_tp_train(axes, device, base, args, JAMBA_STEPS,
+                               profile=True)
+    return out
 
-    # (b) kernels against plain, float32 -------------------------------
+
+def _step1_kernel_vs_plain(axes, device, cut, batch, sched):
+    """Step 1 of ``cut`` on this rank, through the kernels (``"auto"``)
+    against plain torch (``"xla"``) from one draw cloned, the draw one
+    rank at a time (a global leaf at a time beside the shards), the
+    kernel run's result held on the host while the plain one runs: the
+    parts' differences (``_step1_diff``), the launches and the losses."""
+    import torch
+    from repro_torch.configs.base import with_kernel_backend
+    from repro_torch.models.model import model_decls
+    from repro_torch.parallel.params import materialize_shards
     params = None
     for turn in range(axes.tp):           # one rank's global draw at a time
         if turn == axes.rank:
@@ -4457,74 +4575,73 @@ def _hybrid_rank(axes, device):
         del r
         _free()
     del params
-    out["kernel_vs_plain"] = {
-        part: _step1_diff(res, part, sched(0), eps)
-        for part in ("loss", "grads", "params")}
-    out["kernel_vs_plain"].update(
-        launches=launches,
-        loss_values={n: float(r["loss"]) for n, r in res.items()})
+    out = {part: _step1_diff(res, part, sched(0), eps)
+           for part in ("loss", "grads", "params")}
+    out.update(launches=launches,
+               loss_values={n: float(r["loss"]) for n, r in res.items()})
     del res
     _free()
-
-    # (c) the slice ------------------------------------------------------
-    out["main"] = _lm_tp_train(axes, device, base, args, JAMBA_STEPS,
-                               profile=True)
     return out
 
 
 def _hybrid_held(ranks, cfg):
-    """Hold every rank's (b) and the main path: step 1's parts with 0
-    elements outside, the launches its layers imply; the main path's
-    losses finite, its launches a step and its wire bytes a step against
-    ``hybrid_wire_bytes``.  Returns the worst of (b) over the ranks and
-    the counted wire."""
-    import math
+    """Hold every rank's (b) and the main path (``_ranks_held``) against
+    the launches jamba's layers imply and ``hybrid_wire_bytes``.  Returns
+    the worst of (b) over the ranks, the counted wire and the launches."""
     from repro_torch.models.blocks import layer_plan
-    none = _path_launches(0, 0)
     mlp_layers = sum(ff == "mlp" for _, ff in layer_plan(cfg))
     attn_layers = sum(mx == "attn" for mx, _ in layer_plan(cfg))
     want = _path_launches(mlp_layers, 3)
     want["flash_attention"] = 2 * attn_layers
     wire = hybrid_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP)
+    return _ranks_held(ranks, "hybrid", want, want, wire), wire, want
+
+
+def _ranks_held(ranks, tag, want_b, want, wire):
+    """Hold every rank's step 1 ((b): its parts with 0 elements outside,
+    its gradients within 1e-4 of the largest, the kernel run's launches
+    ``want_b`` and none on the plain run) and its main path (losses
+    finite, launches a step ``want``, wire bytes a step ``wire``).
+    Returns the worst of (b) over the ranks."""
+    import math
+    none = _path_launches(0, 0)
     worst = {}
     for r in ranks:
         rk, res = r["rank"], r["kernel_vs_plain"]
         for part in ("loss", "grads", "params"):
             diff = res[part]
             check(diff["outside"] == 0,
-                  f"hybrid rank {rk}: step 1 {part} differ in "
+                  f"{tag} rank {rk}: step 1 {part} differ in "
                   f"{diff['outside']} of {diff['elements']} elements: {diff}")
             w = worst.setdefault(part, {})
             for k, v in diff.items():
                 w[k] = max(w.get(k, 0), v)
         check(res["grads"]["max_scaled_err"] <= STEP1_TOL["rtol"],
-              f"hybrid rank {rk}: step-1 gradients differ by more than 1e-4 "
+              f"{tag} rank {rk}: step-1 gradients differ by more than 1e-4 "
               f"of the largest: {res['grads']}")
-        check(res["launches"] == {"kernel": want, "plain": none},
-              f"hybrid rank {rk}: step-1 launches {res['launches']}, want "
-              f"{want} through the kernels and none plain")
+        check(res["launches"] == {"kernel": want_b, "plain": none},
+              f"{tag} rank {rk}: step-1 launches {res['launches']}, want "
+              f"{want_b} through the kernels and none plain")
         m = r["main"]
         check(all(math.isfinite(v) for v in m["losses"] + m["grad_norms"]),
-              f"hybrid rank {rk}: non-finite loss or gradient norm: "
+              f"{tag} rank {rk}: non-finite loss or gradient norm: "
               f"{m['losses']} {m['grad_norms']}")
         check(m["launches_per_step"] == want,
-              f"hybrid rank {rk}: launches per step "
+              f"{tag} rank {rk}: launches per step "
               f"{m['launches_per_step']}, want {want}")
         check(m["wire_bytes_per_step"] == wire,
-              f"hybrid rank {rk}: {m['wire_bytes_per_step']:.0f} wire bytes "
+              f"{tag} rank {rk}: {m['wire_bytes_per_step']:.0f} wire bytes "
               f"a step, counted {wire:.0f}")
-    return worst, wire, want
+    return worst
 
 
 def phase_hybrid():
     """The hybrid family: the kernels at jamba's shapes, its serving at
     full width (``_jamba_serve``), then ``LM_TP`` ranks sharing the card
     (gloo, card tensors through the host) running ``_hybrid_rank``."""
-    import statistics as st
     import torch
     from repro_torch.launch.mesh import spawn
     from repro_torch.launch.train import train_config
-    from repro_torch.models.blocks import layer_plan
     _free()
     t0 = time.perf_counter()
     kernels = _timed_kernels(
@@ -4555,32 +4672,289 @@ def phase_hybrid():
           f"{worst['params']['max_abs_err']:.3e}; elements outside 0 of "
           f"{worst['params']['elements']} per rank at most; launches "
           f"{ranks[0]['kernel_vs_plain']['launches']}", flush=True)
+    med = _main_report("hybrid", ranks, cfg, want, wire,
+                       "hybrid_wire_bytes")
+    tokens = LM_BATCH * LM_SEQ
+    main = [r["main"] for r in ranks]
+    print(f"hybrid: the ranks took {wall:.1f} s; the phase "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return {"kernels": kernels, "serve": serve, "ranks": ranks,
+            "worst": worst, "median_step_ms": med,
+            "tokens_per_s": tokens / max(med) * 1e3,
+            "launches_per_step": main[0]["launches_per_step"],
+            "wire_bytes_counted": wire, "reckoned_bytes_per_rank": reckoned,
+            "wall_s": wall}
+
+
+def _family_serve(cfg, page, tag):
+    """``cfg`` (random weights from the seed, ``kernel_backend="pallas"``)
+    through ``ServeEngine`` with phase 4's traffic at page size ``page``
+    (16: mixed-length buckets; 1: every prompt its own exact-length
+    group, as a recurrent family needs): every request's 16 tokens, the
+    flash kernel once per self-attention layer (an encoder's too; none at
+    an SSD layer) of every prefill group; TTFT, TPOT, a profiled decode
+    window, the weights' and the cache's bytes.  Returns (results, the
+    engine, the closed batch)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import closed_batch, slo_report
+    from repro_torch.models.blocks import layer_plan
+    from repro_torch.models.model import count_params, model_decls
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize, tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.scheduler import bucket_of
+    t0 = time.perf_counter()
+    params = materialize(model_decls(cfg, MeshAxes()), torch.Generator(
+        device="cuda").manual_seed(SEED), "cuda")
+    eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                      page_size=page, device="cuda")
+    del params
+    _free()
+    weights_gb = sum(t.numel() * t.element_size()
+                     for t in _leaves(eng.params)) / 1e9
+    cache = {path: c.numel() * c.element_size()
+             for path, c in tree_leaves(eng.cache)}
+    n_params = count_params(cfg)
+    cache_mb = {k: round(v / 1e6, 3) for k, v in cache.items()}
+    print(f"{tag}: {cfg.name} at full width, {cfg.num_layers} decoder "
+          f"layers, {cfg.encoder_layers} encoder layers, d={cfg.d_model}, "
+          f"params={n_params:,}; weights on card {weights_gb:.2f} GB "
+          f"({cfg.param_dtype} parameters, served in {cfg.dtype}); cache "
+          f"{sum(cache.values()) / 1e6:.2f} MB for {SLOTS} slots x "
+          f"{MAX_LEN} ({cache_mb} MB); set-up "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    closed = closed_batch(cfg.vocab_size, 8, 16, NEW_TOKENS, SEED)
+    rng = np.random.RandomState(SEED + 1)
+    mixed = [Request(prompt=rng.randint(0, cfg.vocab_size, n)
+                     .astype(np.int32), max_new_tokens=NEW_TOKENS,
+                     req_id=100 + i) for i, n in enumerate(MIXED_LENS)]
+    eng.warmup(sorted({bucket_of(n, page) for n in MIXED_LENS + (16,)}))
+
+    # --- the main path: counts from zero, read right after ---------------
+    torch.cuda.reset_peak_memory_stats()
+    groups0 = eng.prefill_meter.calls
+    flash_attention.launches = 0
+    eng.run(closed)
+    rep_closed = slo_report(closed)
+    for r in mixed:
+        r.arrival_s = eng.now_s
+    eng.run(mixed)
+    launches = flash_attention.launches
+    groups = eng.prefill_meter.calls - groups0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rep_mixed = slo_report(mixed)
+    for r in closed + mixed:
+        check(r.done and r.error is None and len(r.out_tokens) == NEW_TOKENS,
+              f"{tag}: request {r.req_id} ended with "
+              f"{len(r.out_tokens)} tokens ({r.error})")
+        check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
+              f"{tag}: request {r.req_id} sampled out-of-vocab tokens")
+    per_group = (sum(mx == "attn" for mx, _ in layer_plan(cfg))
+                 + cfg.encoder_layers)
+    check(launches == groups * per_group,
+          f"{tag}: flash kernel launched {launches} times for {groups} "
+          f"prefill groups x {per_group} self-attention layers")
+    for name, rep in (("closed", rep_closed), ("mixed", rep_mixed)):
+        print(f"{tag} {name}: requests={rep['requests']} "
+              f"tokens={rep['generated_tokens']} "
+              f"TTFT p50={rep['ttft_ms']['p50']:.3f} ms "
+              f"TPOT p50={rep['tpot_ms']['p50']:.3f} ms "
+              f"tokens/s={rep['tokens_per_s']:.1f}", flush=True)
+    print(f"{tag}: prefill groups={groups} flash launches={launches} "
+          f"({per_group} a group); peak memory {peak_gb:.2f} GB; prefill "
+          f"step median {eng.prefill_meter.median_us() / 1e3:.3f} ms, "
+          f"decode {eng.decode_meter.median_us() / 1e3:.3f} ms", flush=True)
+    profile = _profile_decode(eng, cfg)
+    return ({"params": n_params, "weights_gb": weights_gb,
+             "cache_bytes": cache, "launches": launches,
+             "prefill_groups": groups, "peak_memory_gb": peak_gb,
+             "closed": rep_closed, "mixed": rep_mixed,
+             "decode_profile": profile,
+             "prefill_meter": eng.prefill_meter.summary(),
+             "decode_meter": eng.decode_meter.summary()}, eng, closed)
+
+
+def _cut_layers(params, n, keys=("layers",)):
+    """The first ``n`` entries of each stack ``keys`` of ``params``, the
+    other leaves as they are, every leaf in float32 on the card."""
+    from repro_torch.parallel.params import tree_map
+    out = {}
+    for k, v in params.items():
+        cut = (lambda t: t[:n].float()) if k in keys else (
+            lambda t: t.float())
+        out[k] = tree_map(cut, v)
+    return out
+
+
+def _vlm_serve():
+    """(a): qwen2-vl-72b at full width and ``QWEN2VL_SERVE_LAYERS``
+    layers, bf16 parameters, through ``_family_serve`` (mixed-length
+    buckets: the vision stub's zero embeddings over each group's first
+    ``n_vision_tokens`` positions, M-RoPE positions ``arange`` on each
+    row); then, at ``QWEN2VL_PARITY_LAYERS`` of those layers cast to
+    float32 (a float32 model does not fit at full width), the recurrence
+    check (``_recurrence_check``) on the closed batch's first group."""
+    from repro_torch.configs.base import get_config, with_kernel_backend
+    cfg = with_kernel_backend(get_config(QWEN2VL_ARCH), "pallas").replace(
+        num_layers=QWEN2VL_SERVE_LAYERS)
+    out, eng, closed = _family_serve(cfg, PAGE, "vlm serve")
+    params = _cut_layers(eng.params, QWEN2VL_PARITY_LAYERS)
+    del eng
+    _free()
+    out["recurrence"], out["recurrence_end_to_end"] = _recurrence_check(
+        cfg.replace(dtype="float32", num_layers=QWEN2VL_PARITY_LAYERS),
+        params, closed[:SLOTS], tag="vlm serve")
+    del params
+    _free()
+    return out
+
+
+def _encdec_serve():
+    """(a): seamless-m4t-large-v2 at full size (24 + 24 layers), bf16,
+    through ``_family_serve``, every prompt its own exact-length group
+    (page size 1: the family is recurrent, its encoder reads the whole
+    prompt's frames).  Served frames are zero, so there the encoder's
+    memory is zero; then, with random frames in float32 activations on
+    the served weights, the closed batch's first group's prefill logits
+    and cross K/V through the kernels against the plain path
+    (``LOGIT_TOL`` of the largest: the cross-attention runs the plain
+    core in both, the encoder's flash is full and the decoder's causal);
+    and the recurrence check at ``SEAMLESS_PARITY_LAYERS`` + the same
+    encoder layers, float32, with the random frames."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import get_config, with_kernel_backend
+    from repro_torch.models.model import forward_prefill
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import tree_leaves
+    cfg = with_kernel_backend(get_config(SEAMLESS_ARCH), "pallas")
+    out, eng, closed = _family_serve(cfg, MAMBA_PAGE, "encdec serve")
+    params = _cut_layers(eng.params, cfg.num_layers,
+                         ("enc_layers", "dec_layers"))
+    del eng
+    _free()
+    toks = torch.from_numpy(np.stack([r.prompt for r in closed[:SLOTS]])
+                            ).long().cuda()
+    B, S = toks.shape
+    frames = torch.randn((B, S, cfg.d_model), device="cuda",
+                         generator=torch.Generator(device="cuda").manual_seed(
+                             SEED + 3))
+    res = {}
+    with torch.no_grad():
+        for backend in ("pallas", "xla"):
+            c = with_kernel_backend(cfg, backend).replace(dtype="float32")
+            lg, cache = forward_prefill(c, MeshAxes(), params,
+                                        {"tokens": toks, "frames": frames})
+            res[backend] = {"logits": lg[..., :cfg.vocab_size],
+                            **{f"cross/{k}": cache["cross"][k]
+                               for k in ("k", "v")}}
+    errs = {}
+    for name, want in res["xla"].items():
+        got = res["pallas"][name]
+        scale = want.abs().max().item()
+        errs[name] = (got - want).abs().max().item() / scale
+        check(errs[name] <= LOGIT_TOL and scale > 0,
+              f"encdec serve: prefill {name} through the kernels differs "
+              f"from the plain path by {errs[name]:.3e} of the largest "
+              f"({scale:.3e})")
+    shown = {k: f"{v:.3e}" for k, v in errs.items()}
+    print(f"encdec serve: one group's prefill with random frames, float32, "
+          f"kernels against plain, as a share of the largest: {shown} (held "
+          f"to {LOGIT_TOL}); cross K/V of the encoder's {S} rows "
+          f"{list(res['xla']['cross/k'].shape)}", flush=True)
+    out["prefill_kernel_vs_plain"] = errs
+    del res
+    n = SEAMLESS_PARITY_LAYERS
+    small = _cut_layers(params, n, ("enc_layers", "dec_layers"))
+    del params
+    _free()
+    out["recurrence"], out["recurrence_end_to_end"] = _recurrence_check(
+        cfg.replace(dtype="float32", num_layers=n, encoder_layers=n), small,
+        closed[:SLOTS], tag="encdec serve", stubs={"frames": frames})
+    del small
+    _free()
+    return out
+
+
+def _family_cfgs(arch, layers, parity):
+    """``launch/train.py``'s config of ``arch`` at ``LM_TP`` (the main
+    path's, cut to ``layers``, and step 1's, cut to ``parity`` in float32;
+    an encoder-decoder's encoder cut alike) and its flags."""
+    from repro_torch.launch.train import train_config
+    args = _lm_args(["--steps", str(LM_STEPS)], arch=arch)
+    base = train_config(args)
+
+    def cut(n):
+        return base.replace(num_layers=n, **(
+            {"encoder_layers": n} if base.family == "encdec" else {}))
+    return (cut(layers), cut(parity).replace(dtype="float32",
+                                             param_dtype="float32"), args)
+
+
+def _family_rank(axes, device, arch, layers, parity):
+    """``phase_vlm`` and ``phase_encdec`` inside one of the ``LM_TP`` ranks
+    sharing the card, on ``StubbedLM`` batches (random vision embeddings
+    or frames; M-RoPE positions): (b) step 1 at full width and ``parity``
+    layers, float32, the config's optimizer, through the kernels against
+    plain torch from one draw cloned, the kernel run's result held on the
+    host while the plain one runs; (c) the main path:
+    ``launch/train.py``'s trainer (``make_trainer``: its optimizer and
+    schedule) at full width and ``layers`` layers, ``LM_STEPS`` steps
+    and one more profiled (``_lm_tp_train``)."""
+    from repro_torch.optim.schedules import warmup_cosine
+    main_cfg, cut, args = _family_cfgs(arch, layers, parity)
+    out = {"rank": axes.rank}
+    out["kernel_vs_plain"] = _step1_kernel_vs_plain(
+        axes, device, cut, StubbedLM(cut, LM_BATCH, LM_SEQ, device,
+                                     seed=SEED)(0),
+        warmup_cosine(3e-4, 20, LM_STEPS))
+    out["main"] = _lm_tp_train(
+        axes, device, main_cfg, args, LM_STEPS, profile=True,
+        dataset=StubbedLM(main_cfg, LM_BATCH, LM_SEQ, device, seed=SEED))
+    return out
+
+
+def _family_launches(cfg):
+    """Launches a step a rank of ``cfg``'s training under ``remat="full"``:
+    flash at every self-attention layer (the encoder's too), the phantom
+    kernels at every MLP site (gate, up, down; a gelu MLP's up, down)."""
+    sites = 3 if cfg.mlp == "swiglu" else 2
+    return _path_launches(cfg.num_layers + cfg.encoder_layers, sites)
+
+
+def _main_report(tag, ranks, cfg, want, wire, wire_name):
+    """Print the main path of every rank (``_lm_tp_train``'s results):
+    losses, step times, launches, wire bytes, memory, the profiled step;
+    returns the median step ms of each rank."""
+    import statistics as st
     tokens = LM_BATCH * LM_SEQ
     main = [r["main"] for r in ranks]
     med = [st.median(m["step_ms"][1:]) for m in main]
-    print(f"hybrid: (c) {cfg.name} full width, layers={cfg.num_layers} "
-          f"{layer_plan(cfg)}, tp={LM_TP}, batch {LM_BATCH} x seq {LM_SEQ}, "
-          f"bf16 parameters, {cfg.optimizer}, fsdp={cfg.fsdp} at dp 1, "
-          f"microbatches 1 (the config's 8 do not divide a batch of "
-          f"{LM_BATCH}), remat={cfg.remat}: losses "
+    print(f"{tag}: (c) {cfg.name} full width, {cfg.num_layers} decoder and "
+          f"{cfg.encoder_layers} encoder layers, tp={LM_TP}, batch "
+          f"{LM_BATCH} x seq {LM_SEQ}, {cfg.param_dtype} parameters, "
+          f"{cfg.optimizer}, fsdp={cfg.fsdp} at dp 1, microbatches 1, "
+          f"remat={cfg.remat}: losses "
           f"{[round(v, 4) for v in main[0]['losses']]}; per-rank step ms "
           f"{[[round(v, 1) for v in m['step_ms']] for m in main]}, median "
-          f"of steps 2-{JAMBA_STEPS} {[round(v, 1) for v in med]}; "
+          f"of steps 2-{LM_STEPS} {[round(v, 1) for v in med]}; "
           f"{tokens / max(med) * 1e3:.1f} tokens/s (slowest rank); launches "
           f"per step per rank {main[0]['launches_per_step']} (want {want}); "
           f"local parameters per rank {main[0]['params_local']:,}",
           flush=True)
-    print(f"hybrid: (c) wire bytes per step per rank "
+    print(f"{tag}: (c) wire bytes per step per rank "
           f"{[round(m['wire_bytes_per_step']) for m in main]}, counted "
-          f"{wire:.0f} (hybrid_wire_bytes); by collective (rank 0): "
+          f"{wire:.0f} ({wire_name}); by collective (rank 0): "
           f"{main[0]['collectives_per_step']}", flush=True)
-    print(f"hybrid: (c) parameters + optimizer state per rank (GB) "
+    print(f"{tag}: (c) parameters + optimizer state per rank (GB) "
           f"{[round(m['state_bytes'] / 1e9, 3) for m in main]}; peak memory "
           f"per rank (GB) {[round(m['peak_memory_gb'], 2) for m in main]}; "
           f"card used (GB, as each rank read it after its run) "
           f"{[round(m['card_used_gb'], 2) for m in main]}", flush=True)
     prof = [m["profile"] for m in main]
-    print(f"hybrid: (c) one more step, collectives timed on every rank "
+    print(f"{tag}: (c) one more step, collectives timed on every rank "
           f"(rank 0 also profiled): wall ms "
           f"{[round(p['wall_ms'], 1) for p in prof]}, in collectives "
           f"{[round(p['collective_ms'], 1) for p in prof]} over "
@@ -4592,14 +4966,78 @@ def phase_hybrid():
           f"ops; top: "
           f"{ {k: round(v, 3) for k, v in prof[0]['top_device_ms'].items()} }",
           flush=True)
-    print(f"hybrid: the ranks took {wall:.1f} s; the phase "
+    return med
+
+
+def _phase_family(tag, arch, layers, parity, flash_shapes, phantom_shapes,
+                  serve, wire_fn, wire_name):
+    """One family's phase: its kernels timed, ``serve()``, then ``LM_TP``
+    ranks sharing the card (gloo, card tensors through the host) running
+    ``_family_rank``, held by ``_ranks_held``."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+    _free()
+    t0 = time.perf_counter()
+    kernels = _timed_kernels(
+        tag, torch.Generator(device="cuda").manual_seed(SEED), flash_shapes,
+        phantom_shapes)
+    served = serve()
+    cfg, cut, _ = _family_cfgs(arch, layers, parity)
+    wire = wire_fn(cfg)
+    t1 = time.perf_counter()
+    ranks = spawn(_family_rank, 1, LM_TP, "cuda", timeout_s=900,
+                  args=(arch, layers, parity))
+    wall = time.perf_counter() - t1
+    want = _family_launches(cfg)
+    worst = _ranks_held(ranks, tag, _family_launches(cut), want, wire)
+    print(f"{tag}: (b) step 1 at full width, float32, {cut.num_layers} "
+          f"decoder and {cut.encoder_layers} encoder layers, "
+          f"{cut.optimizer}, kernels vs plain, worst over ranks (rtol 1e-4 / "
+          f"atol 1e-5): loss {worst['loss']['max_abs_err']:.3e} (values "
+          f"{ranks[0]['kernel_vs_plain']['loss_values']}), grads "
+          f"{worst['grads']['max_abs_err']:.3e} "
+          f"({worst['grads']['max_scaled_err']:.3e} of the largest), params "
+          f"{worst['params']['max_abs_err']:.3e}; elements outside 0 of "
+          f"{worst['params']['elements']} per rank at most; launches "
+          f"{ranks[0]['kernel_vs_plain']['launches']}", flush=True)
+    med = _main_report(tag, ranks, cfg, want, wire, wire_name)
+    print(f"{tag}: the ranks took {wall:.1f} s; the phase "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    return {"kernels": kernels, "serve": serve, "ranks": ranks,
+    main = ranks[0]["main"]
+    return {"kernels": kernels, "serve": served, "ranks": ranks,
             "worst": worst, "median_step_ms": med,
-            "tokens_per_s": tokens / max(med) * 1e3,
-            "launches_per_step": main[0]["launches_per_step"],
-            "wire_bytes_counted": wire, "reckoned_bytes_per_rank": reckoned,
-            "wall_s": wall}
+            "tokens_per_s": LM_BATCH * LM_SEQ / max(med) * 1e3,
+            "launches_per_step": main["launches_per_step"],
+            "wire_bytes_counted": wire, "wall_s": wall}
+
+
+def phase_vlm():
+    """The vision-language family (qwen2-vl-72b): the kernels at its
+    shapes, ``_vlm_serve``, then step 1 at ``QWEN2VL_PARITY_LAYERS``
+    layers (Adafactor) and the main path at ``QWEN2VL_LAYERS`` layers,
+    bf16 parameters, ``fsdp=True`` at dp 1, its wire bytes held to the
+    dense head-mode count (``fsdp_wire_bytes``: the splice is local in
+    ``fp``)."""
+    return _phase_family(
+        "vlm", QWEN2VL_ARCH, QWEN2VL_LAYERS, QWEN2VL_PARITY_LAYERS,
+        (QWEN2VL_SERVE_FLASH_SHAPE, QWEN2VL_TP_FLASH_SHAPE),
+        QWEN2VL_PHANTOM_SHAPES, _vlm_serve,
+        lambda cfg: fsdp_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP, 1),
+        "fsdp_wire_bytes at dp 1")
+
+
+def phase_encdec():
+    """The encoder-decoder family (seamless-m4t-large-v2): the kernels at
+    its shapes (flash full, as its encoder runs it, and causal),
+    ``_encdec_serve``, then step 1 at ``SEAMLESS_PARITY_LAYERS`` +
+    ``SEAMLESS_PARITY_LAYERS`` layers (AdamW) and the main path at
+    ``SEAMLESS_LAYERS`` + ``SEAMLESS_LAYERS`` layers, fp32 parameters,
+    its wire bytes held to ``encdec_wire_bytes``."""
+    return _phase_family(
+        "encdec", SEAMLESS_ARCH, SEAMLESS_LAYERS, SEAMLESS_PARITY_LAYERS,
+        SEAMLESS_FLASH_SHAPES, SEAMLESS_PHANTOM_SHAPES, _encdec_serve,
+        lambda cfg: encdec_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP),
+        "encdec_wire_bytes")
 
 
 def _leaves(tree):
@@ -4640,6 +5078,8 @@ def main() -> int:
     moe = timed("moe", phase_moe)
     ssm = timed("ssm_fsdp", phase_ssm_fsdp)
     hybrid = timed("hybrid", phase_hybrid)
+    vlm = timed("vlm", phase_vlm)
+    encdec = timed("encdec", phase_encdec)
     print(f"phases: {time.perf_counter() - t_start:.1f} s wall in all",
           flush=True)
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
@@ -4701,7 +5141,33 @@ def main() -> int:
                       "launches_per_step_per_rank":
                           hybrid["launches_per_step"]["flash_attention"],
                       **{key: hybrid["kernels"]["flash"][1][key]
-                         for key in TIMED + ("cold_ms",)}}}]
+                         for key in TIMED + ("cold_ms",)}},
+        "qwen2vl_serve": {"shape": list(QWEN2VL_SERVE_FLASH_SHAPE),
+                          "launches": vlm["serve"]["launches"],
+                          **{key: vlm["kernels"]["flash"][0][key]
+                             for key in TIMED + ("cold_ms",)}},
+        "qwen2vl_tp4": {"shape": list(QWEN2VL_TP_FLASH_SHAPE),
+                        "launches_per_step_per_rank":
+                            vlm["launches_per_step"]["flash_attention"],
+                        **{key: vlm["kernels"]["flash"][1][key]
+                           for key in TIMED + ("cold_ms",)}},
+        "seamless_serve": {"launches": encdec["serve"]["launches"],
+                           "shapes": [
+                               {"shape": list(shape), **{
+                                   key: r[key] for key in TIMED
+                                   + ("cold_ms",)}}
+                               for shape, r in zip(
+                                   SEAMLESS_FLASH_SHAPES[:2],
+                                   encdec["kernels"]["flash"][:2])]},
+        "seamless_tp4": {"launches_per_step_per_rank":
+                         encdec["launches_per_step"]["flash_attention"],
+                         "shapes": [
+                             {"shape": list(shape), **{
+                                 key: r[key] for key in TIMED
+                                 + ("cold_ms",)}}
+                             for shape, r in zip(
+                                 SEAMLESS_FLASH_SHAPES[2:],
+                                 encdec["kernels"]["flash"][2:])]}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -4776,16 +5242,18 @@ def main() -> int:
                    ("ssm_tp4", "launches_per_step", MAMBA_PHANTOM_SHAPES),
                    ("fsdp_dp2_tp2", "fsdp_launches_per_step",
                     FSDP_PHANTOM_SHAPES))},
-            "jamba_tp4": {
+            **{tag: {
                 "launches_per_step_per_rank":
-                    hybrid["launches_per_step"][name],
+                    res["launches_per_step"][name],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
                             **{key: r[key] for key in TIMED},
-                            "cold_ms": hybrid["kernels"]["cold"][str(
+                            "cold_ms": res["kernels"]["cold"][str(
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
-                           for r in hybrid["kernels"]["cases"]
-                           if r["kernel"] == name]}})
+                           for r in res["kernels"]["cases"]
+                           if r["kernel"] == name]}
+               for tag, res in (("jamba_tp4", hybrid), ("qwen2vl_tp4", vlm),
+                                ("seamless_tp4", encdec))}})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -4793,7 +5261,7 @@ def main() -> int:
          "serve": serve, "train": train, "pipeline": pipeline,
          "lm_train": lm, "lm_train_tp": lm_tp, "qwen_train_tp": qwen,
          "lm_train_pp": lm_pp, "moe": moe, "ssm_fsdp": ssm,
-         "hybrid": hybrid,
+         "hybrid": hybrid, "vlm": vlm, "encdec": encdec,
          "phase_wall_s": walls, "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -1,15 +1,13 @@
 """Config system of the PyTorch port: its own copy of the JAX package's
-``configs/base.py``, cut down to what the dense, MoE, SSM and paper-FFN
-families read.
+``configs/base.py``, cut down to what the port's families read.
 
 Plain dataclasses, no framework imports.  Field names, defaults and the
 projection-site resolution are the reference's, so a config built here
 compares field by field with its counterpart there (the tests check
-that for every ported config).  Fields that only unported features read
-(the encoder-decoder and vision families, tied embeddings, the
-reference's python-loop layer stack) are left out until the slice that
-ports them; the tests hold every ported config to the reference's
-default for each.
+that for every ported config).  Two fields that no ported feature reads
+are left out (tied embeddings, which no config sets, and the
+reference's python-loop layer stack, a dry-run device); the tests hold
+every ported config to the reference's default for each.
 """
 from __future__ import annotations
 
@@ -191,8 +189,9 @@ def with_kernel_backend(cfg: "ModelConfig",
 @dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                     # dense | moe | ssm | ffn (ported)
-    num_layers: int
+    family: str                     # dense | moe | ssm | hybrid | encdec
+                                    # | vlm | ffn
+    num_layers: int                 # the decoder's, for encdec
     d_model: int
     num_heads: int = 0
     num_kv_heads: int = 0
@@ -200,18 +199,23 @@ class ModelConfig:
     vocab_size: int = 0
     head_dim: int = 0               # 0 -> d_model // num_heads
 
+    encoder_layers: int = 0         # encdec: the encoder's depth
+
     norm: str = "rmsnorm"           # rmsnorm | layernorm
     mlp: str = "swiglu"             # swiglu | gelu | relu
     qkv_bias: bool = False
     norm_eps: float = 1e-5
 
-    rope: str = "full"              # full | partial | none (mrope: later)
+    rope: str = "full"              # full | partial | mrope | none
     rope_fraction: float = 1.0      # chatglm3 "2d rope" == 0.5
     rope_theta: float = 10000.0
 
     # one attention layer per ``attn_period`` layers (0: every layer is
     # attention, -1: attention-free)
     attn_period: int = 0
+
+    # the stubbed frontends: a batch carries their embeddings
+    frontend: str = "none"          # none | audio | vision
 
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
@@ -314,8 +318,7 @@ class ShapeConfig:
     kind: str                        # train | prefill | decode
 
 
-# architectures ported so far (``--arch``); the rest arrive with the
-# slices that port their families
+# the architectures of the port (``--arch``): every one of the reference's
 _MODULES = {
     "chatglm3-6b": "chatglm3_6b",
     "granite-moe-3b-a800m": "granite_moe_3b",
@@ -324,6 +327,8 @@ _MODULES = {
     "olmoe-1b-7b": "olmoe_1b_7b",
     "phi3-mini-3.8b": "phi3_mini",
     "qwen2.5-14b": "qwen2_5_14b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "seamless-m4t-large-v2": "seamless_m4t_large",
     "stablelm-3b": "stablelm_3b",
     # the paper's own FFN models
     "paper-ffn-4k": "paper_ffn",
@@ -337,8 +342,7 @@ _MODULES = {
 def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
     """Load an architecture config by id (``--arch`` flag)."""
     if arch not in _MODULES:
-        raise KeyError(f"arch {arch!r} is not ported; "
-                       f"ported: {sorted(_MODULES)}")
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     if arch.startswith("paper-ffn"):
         cfg = (mod.smoke_config if smoke else mod.config)(arch)

@@ -10,6 +10,14 @@
       --requests 8                        # SSM, exact-length groups
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch jamba-1.5-large-398b --smoke --device cpu   # hybrid
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen2-vl-72b --smoke --device cpu           # vision-language
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-large-v2 --smoke --device cpu  # encoder-decoder
+
+The engine adds the stubbed frontends' inputs to every prefill (zero
+vision embeddings and M-RoPE positions, or zero frames), as the
+reference's does.
 
 Weights are random, drawn from ``--seed``.  ``--dp``/``--tp`` above 1
 raise until the collectives slice; the reference's ``--route auto``,

@@ -1,7 +1,7 @@
 """Shapes and dtypes of the model's inputs and of its decode cache for
 one (arch x shape) cell, without allocating (the reference's
-``input_specs`` / ``cache_specs``, for the dense, MoE, SSM and hybrid
-families)."""
+``input_specs`` / ``cache_specs``; the serving engine adds the stubbed
+frontends' inputs itself: ``serve/engine.py: _add_modality_stubs``)."""
 from __future__ import annotations
 
 import torch
@@ -27,6 +27,7 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig, axes: MeshAxes):
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, axes: MeshAxes):
     """The decode cache of this cell: {k, v} [L, B, S, kv, hd], the SSM
-    family's state {conv, ssm}, or a hybrid's tree of both, one per sub
-    of its superblock (``models/model.py: cache_decls``)."""
+    family's state {conv, ssm}, a hybrid's tree of both, one per sub of
+    its superblock, or an encoder-decoder's {self, cross}, the cross K/V
+    ``S`` rows long too (``models/model.py: cache_decls``)."""
     return cache_decls(cfg, axes, shape.global_batch, shape.seq_len)

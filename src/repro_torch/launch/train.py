@@ -1,6 +1,11 @@
 """Train an LM of the dense, MoE, SSM or hybrid family: the port's
 counterpart of the reference's ``python -m repro.launch.train`` (its
-non-elastic path without a plan).
+non-elastic path without a plan).  Like the reference's, it feeds
+``LMDataset`` batches of tokens and labels only, so it cannot train the
+vision-language and encoder-decoder families (qwen2-vl-72b needs M-RoPE
+``positions``, seamless-m4t-large-v2 the encoder's ``frames``): for
+those it raises (ROADMAP.md queue 3); ``make_trainer`` takes a dataset
+that carries them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
         --device cpu --steps 2
@@ -65,6 +70,19 @@ from repro_torch.parallel.axes import MeshAxes, resolve_device
 from repro_torch.train.trainer import Trainer
 
 TIMEOUT_S = 3600.0     # a multi-rank run, before its ranks are killed
+# the families whose batches need more than LMDataset's tokens and labels
+STUBBED_FAMILIES = ("vlm", "encdec")
+
+
+def require_lm_batches(cfg):
+    """Raise for a config whose batches ``LMDataset`` cannot make."""
+    if cfg.family in STUBBED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family trains on batches with "
+            f"its frontend's stubs (positions, vision_embeds or frames), "
+            f"which LMDataset does not make; the reference's launcher has "
+            f"the same gap (ROADMAP.md queue 3).  Train it through "
+            f"make_trainer(..., dataset=...) with such batches")
 
 
 def build_parser():
@@ -103,13 +121,17 @@ def train_config(args):
     return cfg
 
 
-def make_trainer(axes, device, cfg, args) -> Trainer:
+def make_trainer(axes, device, cfg, args, dataset=None) -> Trainer:
     """One rank's ``Trainer``: the reference's optimizer and schedule,
-    ``LMDataset`` batches of ``--seq`` tokens, the log on rank 0."""
+    ``dataset`` or ``LMDataset`` batches of ``--seq`` tokens, the log on
+    rank 0."""
     opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 20, args.steps),
                          weight_decay=0.1)
-    ds = LMDataset(cfg.vocab_size, args.batch, args.seq + 1, device=device)
-    return Trainer(cfg, axes, opt, ds, microbatches=args.microbatches,
+    if dataset is None:
+        require_lm_batches(cfg)
+        dataset = LMDataset(cfg.vocab_size, args.batch, args.seq + 1,
+                            device=device)
+    return Trainer(cfg, axes, opt, dataset, microbatches=args.microbatches,
                    log_every=min(10, args.steps),
                    log_fn=print if axes.rank == 0 else (lambda _m: None),
                    device=device)
@@ -124,8 +146,9 @@ def train_rank(axes, device, cfg, args):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
     cfg = train_config(args)
+    require_lm_batches(cfg)
+    device = resolve_device(args.device)
     print(f"# {cfg.name} impl={args.impl} dp={args.dp} on {device} "
           f"(tp={args.tp}, kernel_backend={args.kernel_backend or 'config'}): "
           f"{count_params(cfg, args.tp):,} params, batch {args.batch} x "

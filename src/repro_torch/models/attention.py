@@ -27,6 +27,18 @@ returns a new, donated cache instead).  The reference's sequence-sharded
 cache merges per-rank partials with a log-sum-exp psum; with one rank
 that merge is the identity.  Prefill and decode at tp > 1 are serving's
 (``SERVE_TP_TODO``).
+
+Cross-attention (the encoder-decoder's ``cross`` sub-layer, ``cross=True``
+with the encoder's output ``memory``, full ``[B, S_enc, d]`` on every
+rank): q comes from the stream through its site, K and V from ``memory``
+through the ``wk``/``wv`` weights, which are never phantom (the memory
+is not feature-sharded); no rotary positions; the plain core, never the
+flash kernel (as the reference's ``use_flash`` requires ``memory is
+None``).  Prefill emits the memory's K/V as the cross cache; decode reads
+that cache whole, with no causal mask and no ``kv_limit``, and writes
+nothing.  M-RoPE (``cfg.rope == "mrope"``) reads ``positions`` as
+``[3, B, S]`` (ring mode slices the chunk's on axis 2; decode broadcasts
+``pos`` to ``[3, B, 1]``).
 """
 from __future__ import annotations
 
@@ -68,11 +80,12 @@ def resolve_attn_mode(cfg, axes: MeshAxes) -> str:
     return "head" if cfg.num_heads % axes.tp == 0 else "ring"
 
 
-def attn_site_strategies(cfg, axes: MeshAxes):
+def attn_site_strategies(cfg, axes: MeshAxes, cross: bool = False):
     """Per-site ProjectionStrategy for the four attention projections.
     A phantom-family spec takes effect only where the factorisation's
     layout allows it (head mode, heads, KV heads and features divisible
-    by tp); a site failing the guard takes its dense strategy."""
+    by tp); a site failing the guard takes its dense strategy, and so do
+    cross-attention's K/V, which read the replicated encoder memory."""
     d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
     hd = cfg.resolved_head_dim()
     p = axes.tp
@@ -83,7 +96,9 @@ def attn_site_strategies(cfg, axes: MeshAxes):
     return {name: site_strategy(cfg, _ATTN_SITES[name], ni, no, p,
                                 dp=axes.dp,
                                 bias=cfg.qkv_bias and name != "wo",
-                                fsdp=cfg.fsdp, allow_phantom=ok)
+                                fsdp=cfg.fsdp,
+                                allow_phantom=ok and not (
+                                    cross and name in ("wk", "wv")))
             for name, (ni, no) in dims.items()}
 
 
@@ -99,7 +114,7 @@ def _attn_kernel_backend(sts) -> str:
     return "pallas" if backends == {"pallas"} else "xla"
 
 
-def attn_decls(cfg, axes: MeshAxes):
+def attn_decls(cfg, axes: MeshAxes, cross: bool = False):
     """Ring mode: every weight sharded on its input dim (gathered on
     use), the biases replicated, none sharded over dp under FSDP (as in
     the reference).  Head mode: the sites' decls (FSDP shards their
@@ -116,7 +131,7 @@ def attn_decls(cfg, axes: MeshAxes):
                             ("wv", kv * hd)):
                 dec[name]["b"] = ParamDecl((n,), (), init="zeros")
         return dec
-    sts = attn_site_strategies(cfg, axes)
+    sts = attn_site_strategies(cfg, axes, cross=cross)
     dec = {name: st.decls() for name, st in sts.items()}
     if cfg.num_kv_heads % axes.tp:
         n = cfg.num_kv_heads * cfg.resolved_head_dim()
@@ -202,11 +217,14 @@ def _gqa_q(q, KV):
 
 def attention(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
               kind: str = "prefill", causal: bool = True, cache=None,
-              pos=None, return_kv: bool = False, decls=None):
+              pos=None, return_kv: bool = False, decls=None, memory=None,
+              cross: bool = False):
     """Returns (out, new_kv or None): ``out`` the residual shard in
     ``layout``.  kind: train | prefill | decode (prefill and decode at
     tp = 1 only).  Decode writes into ``cache`` ({k, v}
-    [B, Smax, kv, hd]) in place.  ``decls`` (FSDP): the projections'
+    [B, Smax, kv, hd]) in place; a cross decode (``cross``) only reads
+    it.  ``memory`` ([B, S_enc, d], with ``cross``): the encoder output
+    that K and V project.  ``decls`` (FSDP): the projections'
     dp-sharded weights are gathered first, as the reference's ``_g``
     gathers them (int8 only for the decode's ``wq`` under
     ``fsdp_gather_quant``)."""
@@ -218,12 +236,14 @@ def attention(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
                         and name == "wq")
               for name in params}
     if kind == "decode":
-        return _attention_decode(cfg, params, x, axes, cache=cache, pos=pos)
-    if resolve_attn_mode(cfg, axes) == "ring":
-        return _attention_ring(cfg, layout, params, x, axes, causal=causal,
-                               return_kv=return_kv)
+        return _attention_decode(cfg, params, x, axes, cache=cache, pos=pos,
+                                 cross=cross)
+    if resolve_attn_mode(cfg, axes) == "ring" and not cross:
+        return _attention_ring(cfg, layout, params, x, positions, axes,
+                               causal=causal, return_kv=return_kv)
     return _attention_head(cfg, layout, params, x, positions, axes,
-                           causal=causal, return_kv=return_kv)
+                           causal=causal, return_kv=return_kv,
+                           memory=memory if cross else None)
 
 
 def _project(st, params, x, nheads, hd, dtype):
@@ -243,7 +263,9 @@ def _site_proj(st, params, x_full, x_shard, nheads, hd, axes, dtype):
 
 
 def _replicated_proj(params, x, nheads, hd, dtype):
-    """The replicated KV projection (no strategy governs it)."""
+    """A projection no strategy governs: the replicated KV projection,
+    and cross-attention's K/V of the memory (with the rank's shard of a
+    column-parallel weight)."""
     y = x.to(dtype) @ params["w"].to(dtype)
     if "b" in params:
         y = y + params["b"].to(dtype)
@@ -251,27 +273,34 @@ def _replicated_proj(params, x, nheads, hd, dtype):
 
 
 def _attention_head(cfg, layout, params, x, positions, axes, *, causal,
-                    return_kv=False):
+                    return_kv=False, memory=None):
     H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
     p = axes.tp
     dtype = dtype_of(cfg.dtype)
-    sts = attn_site_strategies(cfg, axes)
+    sts = attn_site_strategies(cfg, axes, cross=memory is not None)
     kv_sharded = kv % p == 0
     # phantom sites read the fp feature shard as it is; the gathered
-    # features are made only when a site needs them
+    # features are made only when a site that reads the stream needs them
+    users = ("wq",) if memory is not None else ("wq", "wk", "wv")
     need_full = (not kv_sharded
-                 or any(not _is_phantom(sts[n]) for n in ("wq", "wk", "wv")))
+                 or any(not _is_phantom(sts[n]) for n in users))
     x_shard = x if layout == "fp" else None
     x_full = to_full(x, layout, axes) if need_full else None
     q = _site_proj(sts["wq"], params["wq"], x_full, x_shard, H // p, hd,
                    axes, dtype)
-    if kv_sharded:
+    if memory is not None:
+        # cross-attention: K/V of the encoder's memory, no positions
+        k, v = (_replicated_proj(params[n], memory,
+                                 kv // p if kv_sharded else kv, hd, dtype)
+                for n in ("wk", "wv"))
+        causal = False
+    elif kv_sharded:
         k, v = (_site_proj(sts[n], params[n], x_full, x_shard, kv // p, hd,
                            axes, dtype) for n in ("wk", "wv"))
     else:
         k, v = (_replicated_proj(params[n], x_full, kv, hd, dtype)
                 for n in ("wk", "wv"))
-    if cfg.rope != "none":
+    if cfg.rope != "none" and memory is None:
         q = ropemod.rope_for(cfg, q, positions)
         k = ropemod.rope_for(cfg, k, positions)
 
@@ -284,7 +313,8 @@ def _attention_head(cfg, layout, params, x, positions, axes, *, causal,
         k_use, v_use = (t[:, :, grp:grp + 1].contiguous() for t in (k, v))
         kv_loc = 1
     h_loc = H // p
-    use_flash = (_attn_kernel_backend(sts) == "pallas"
+    use_flash = (memory is None
+                 and _attn_kernel_backend(sts) == "pallas"
                  and flash_attention_supported(S, k_use.shape[1], h_loc,
                                                kv_loc))
     if use_flash:
@@ -317,7 +347,7 @@ def _emit_cache_head_mode(k, v):
     return {"k": k, "v": v}
 
 
-def _attention_ring(cfg, layout, params, x, axes, *, causal,
+def _attention_ring(cfg, layout, params, x, positions, axes, *, causal,
                     return_kv=False):
     """Sequence-sharded attention: rank j attends its chunk of C = S/p
     queries, with every head, against the K/V of every chunk."""
@@ -346,8 +376,10 @@ def _attention_ring(cfg, layout, params, x, axes, *, causal,
     v = proj(wv, params["wv"].get("b"), kv)
     chunk_pos = (j * C + torch.arange(C, device=x.device)).expand(B, C)
     if cfg.rope != "none":
-        q = ropemod.rope_for(cfg, q, chunk_pos)
-        k = ropemod.rope_for(cfg, k, chunk_pos)
+        pos_c = (positions[:, :, j * C:(j + 1) * C] if cfg.rope == "mrope"
+                 else chunk_pos)
+        q = ropemod.rope_for(cfg, q, pos_c)
+        k = ropemod.rope_for(cfg, k, pos_c)
 
     qg = _gqa_q(q, kv)
     acc = init_acc(B, C, kv, H // kv, hd, device=x.device)
@@ -378,36 +410,45 @@ def _attention_ring(cfg, layout, params, x, axes, *, causal,
     return res, ({"k": k, "v": v} if return_kv else None)
 
 
-def _attention_decode(cfg, params, x, axes, *, cache, pos):
+def _attention_decode(cfg, params, x, axes, *, cache, pos, cross=False):
     H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
     dtype = dtype_of(cfg.dtype)
-    sts = attn_site_strategies(cfg, axes)
+    sts = attn_site_strategies(cfg, axes, cross=cross)
     B = x.shape[0]
     q = _project(sts["wq"], params["wq"], x, H, hd, dtype)     # [B,1,H,hd]
-    kn = _project(sts["wk"], params["wk"], x, kv, hd, dtype)
-    vn = _project(sts["wv"], params["wv"], x, kv, hd, dtype)
+    if not cross:
+        kn = _project(sts["wk"], params["wk"], x, kv, hd, dtype)
+        vn = _project(sts["wv"], params["wv"], x, kv, hd, dtype)
 
     pos = pos.reshape(B).to(torch.long)
     if cfg.rope != "none":
-        q = ropemod.rope_for(cfg, q, pos[:, None])
-        kn = ropemod.rope_for(cfg, kn, pos[:, None])
+        # as in the reference, a cross decode rotates its q too
+        at = (pos[None, :, None].expand(3, B, 1) if cfg.rope == "mrope"
+              else pos[:, None])
+        q = ropemod.rope_for(cfg, q, at)
+        if not cross:
+            kn = ropemod.rope_for(cfg, kn, at)
 
     # --- cache update, in place: each row writes its new kv at pos ------
     ck, cv = cache["k"], cache["v"]
     chunk = ck.shape[1]
-    in_range = ((pos >= 0) & (pos < chunk))[:, None, None]
-    widx = pos.clamp(0, chunk - 1)
-    rows = torch.arange(B, device=x.device)
-    ck[rows, widx] = torch.where(in_range, kn[:, 0].to(ck.dtype),
-                                 ck[rows, widx])
-    cv[rows, widx] = torch.where(in_range, vn[:, 0].to(cv.dtype),
-                                 cv[rows, widx])
+    if not cross:
+        in_range = ((pos >= 0) & (pos < chunk))[:, None, None]
+        widx = pos.clamp(0, chunk - 1)
+        rows = torch.arange(B, device=x.device)
+        ck[rows, widx] = torch.where(in_range, kn[:, 0].to(ck.dtype),
+                                     ck[rows, widx])
+        cv[rows, widx] = torch.where(in_range, vn[:, 0].to(cv.dtype),
+                                     cv[rows, widx])
 
-    # --- attention over the cache (one rank: the LSE merge is identity)
+    # --- attention over the cache (one rank: the LSE merge is identity);
+    # a cross read weighs every row, the zero rows past the encoder's
+    # length among them, as the reference's does
     acc = init_acc(B, 1, kv, H // kv, hd, device=x.device)
     acc = attn_block_update(
-        acc, _gqa_q(q, kv), ck, cv, pos[:, None], 0, causal=True,
-        kv_limit=pos + 1, kv_chunk=_kv_chunk(cfg, chunk, min(1024, chunk)),
+        acc, _gqa_q(q, kv), ck, cv, pos[:, None], 0, causal=not cross,
+        kv_limit=None if cross else pos + 1,
+        kv_chunk=_kv_chunk(cfg, chunk, min(1024, chunk)),
         scores_dtype=(torch.bfloat16 if cfg.attn_bf16_scores
                       else torch.float32))
     out = (acc.num / acc.l.clamp_min(1e-30)[..., None])

@@ -6,8 +6,11 @@ mixer: ``"attn"`` (GQA in head or ring mode) or ``"mamba"`` (SSD,
 (``models/moe.py``) or None (mamba2 has none).  A hybrid plan
 (``attn_period`` > 0: jamba's 1 attention layer in 8, the MoE on every
 other layer) repeats a superblock of ``plan_period`` layers, which
-``superblock_train`` runs as one recompute unit; cross-attention blocks
-arrive with their family.
+``superblock_train`` runs as one recompute unit.  A decoder block of
+the encoder-decoder family (``cross=True``) adds a cross-attention
+sub-layer (``norm_x``, ``cross``) between the mixer and the FFN, which
+reads the encoder's output (``memory``); its cache is ``{"self": ...,
+"cross": ...}``.  The encoder's blocks run with ``causal=False``.
 
 Under FSDP each module gathers its dp-sharded weights where it uses
 them, from the block's decls (``block_decls``)."""
@@ -61,10 +64,14 @@ def plan_period(cfg) -> int:
     return len(plan)
 
 
-def block_decls(cfg, axes: MeshAxes, layout: str, ffn, mixer: str = "attn"):
+def block_decls(cfg, axes: MeshAxes, layout: str, ffn, mixer: str = "attn",
+                cross: bool = False):
     d = {"norm1": norm_decls(cfg, layout, cfg.d_model),
          "mixer": (ssmmod.ssm_decls(cfg, axes) if mixer == "mamba"
                    else attn.attn_decls(cfg, axes))}
+    if cross:
+        d["norm_x"] = norm_decls(cfg, layout, cfg.d_model)
+        d["cross"] = attn.attn_decls(cfg, axes, cross=True)
     if ffn is not None:
         d["norm2"] = norm_decls(cfg, layout, cfg.d_model)
         d["ffn"] = (moemod.moe_decls(cfg, axes) if ffn == "moe"
@@ -73,29 +80,48 @@ def block_decls(cfg, axes: MeshAxes, layout: str, ffn, mixer: str = "attn"):
 
 
 @lru_cache(maxsize=64)
-def _fsdp_decls(cfg, tp: int, dp: int, layout: str, ffn, mixer: str):
-    return block_decls(cfg, MeshAxes(tp=tp, dp=dp), layout, ffn, mixer)
+def _fsdp_decls(cfg, tp: int, dp: int, layout: str, ffn, mixer: str,
+                cross: bool):
+    return block_decls(cfg, MeshAxes(tp=tp, dp=dp), layout, ffn, mixer,
+                       cross)
 
 
 def block_apply(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
                 kind: str, ffn, mixer: str = "attn", cache=None, pos=None,
-                return_kv: bool = False):
+                return_kv: bool = False, causal: bool = True, memory=None):
     """Returns (x, new_cache, aux): ``aux`` the MoE's balance loss, None
     for any other block.  kind: train | prefill | decode; the cache is
-    the attention's {k, v} or the SSD's {conv, ssm}."""
-    decls = (_fsdp_decls(cfg, axes.tp, axes.dp, layout, ffn, mixer)
-             if cfg.fsdp else {})
+    the attention's {k, v}, the SSD's {conv, ssm}, or a decoder block's
+    ``{"self": {k, v}, "cross": {k, v}}`` (the cross sub-layer reads the
+    encoder's ``memory`` in train and prefill, its cache in decode)."""
+    has_cross = "cross" in params
+    decls = (_fsdp_decls(cfg, axes.tp, axes.dp, layout, ffn, mixer,
+                         has_cross) if cfg.fsdp else {})
+    self_cache = (cache["self"] if has_cross and cache is not None
+                  else cache)
     h = norm_apply(cfg, layout, params["norm1"], x, axes)
     if mixer == "mamba":
         out, new_kv = ssmmod.ssm_apply(cfg, layout, params["mixer"], h,
                                        axes, decls.get("mixer"), kind=kind,
-                                       cache=cache)
+                                       cache=self_cache)
     else:
         out, new_kv = attn.attention(cfg, layout, params["mixer"], h,
-                                     positions, axes, kind=kind, cache=cache,
+                                     positions, axes, kind=kind,
+                                     causal=causal, cache=self_cache,
                                      pos=pos, return_kv=return_kv,
                                      decls=decls.get("mixer"))
     x = x + out.to(x.dtype)
+    if has_cross:
+        hx = norm_apply(cfg, layout, params["norm_x"], x, axes)
+        cout, cross_kv = attn.attention(
+            cfg, layout, params["cross"], hx, positions, axes, kind=kind,
+            causal=False, memory=memory, cross=True,
+            cache=cache["cross"] if kind == "decode" else None, pos=pos,
+            return_kv=return_kv and kind == "prefill",
+            decls=decls.get("cross"))
+        x = x + cout.to(x.dtype)
+        if kind == "decode" or (kind == "prefill" and return_kv):
+            new_kv = {"self": new_kv, "cross": cross_kv}
     if ffn is None:
         return x, new_kv, None
     h2 = norm_apply(cfg, layout, params["norm2"], x, axes)
@@ -108,15 +134,19 @@ def block_apply(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
     return x + f.to(x.dtype), new_kv, aux
 
 
-def _train_block(cfg, layout, params, x, positions, axes, ffn, mixer):
+def _train_block(cfg, layout, params, x, positions, axes, ffn, mixer,
+                 causal=True, memory=None):
     x, _, aux = block_apply(cfg, layout, params, x, positions, axes,
-                            kind="train", ffn=ffn, mixer=mixer)
+                            kind="train", ffn=ffn, mixer=mixer,
+                            causal=causal, memory=memory)
     return x, aux
 
 
 def block_train(cfg, layout: str, params, x, positions, axes: MeshAxes,
-                ffn, mixer: str = "attn"):
-    """One block of the training forward -> (x, aux or None).
+                ffn, mixer: str = "attn", causal: bool = True, memory=None):
+    """One block of the training forward -> (x, aux or None); an
+    encoder's block with ``causal=False``, a decoder's with its
+    ``memory``.
     ``cfg.remat == "full"`` keeps only the block's input and recomputes
     the rest in the backward pass (the reference's ``jax.checkpoint`` of
     its layer-scan body), so the flash kernel, the phantom forward
@@ -126,12 +156,12 @@ def block_train(cfg, layout: str, params, x, positions, axes: MeshAxes,
     activation."""
     if cfg.remat == "none":
         return _train_block(cfg, layout, params, x, positions, axes, ffn,
-                            mixer)
+                            mixer, causal, memory)
     if cfg.remat != "full":
         raise NotImplementedError(f"remat={cfg.remat!r}: the port has "
                                   f"'full' and 'none'")
     return checkpoint(_train_block, cfg, layout, params, x, positions, axes,
-                      ffn, mixer, use_reentrant=False)
+                      ffn, mixer, causal, memory, use_reentrant=False)
 
 
 def _train_superblock(cfg, layout, params, x, positions, axes, plan):

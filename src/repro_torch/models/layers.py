@@ -100,14 +100,14 @@ def gather_on_use(w, axes: MeshAxes, dim: int = 0):
 # ---------------------------------------------------------------------------
 
 def _require(cfg):
-    """The norm and MLP kinds of the ported dense and MoE configs (the
-    MoE experts are SwiGLU too); the reference's gelu and relu MLPs
-    arrive with the configs that use them."""
-    if cfg.norm not in ("rmsnorm", "layernorm") or cfg.mlp != "swiglu":
+    """The norm and MLP kinds of the ported configs: SwiGLU MLPs and
+    experts, and seamless's gelu MLP; the reference's relu MLP, which no
+    LM config sets, is not ported."""
+    if cfg.norm not in ("rmsnorm", "layernorm") or cfg.mlp not in (
+            "swiglu", "gelu"):
         raise NotImplementedError(
             f"norm={cfg.norm!r} mlp={cfg.mlp!r}: only rmsnorm or layernorm "
-            f"with swiglu MLPs and experts are ported (ROADMAP.md queue 1, "
-            f"item 6)")
+            f"with swiglu or gelu MLPs are ported")
 
 
 def norm_decls(cfg, layout: str, d: int):
@@ -250,14 +250,16 @@ def _fs(params, decls, key, axes: MeshAxes, quant: bool = False):
 # ---------------------------------------------------------------------------
 
 def mlp_strategies(cfg, axes: MeshAxes, d: int, ff: int):
-    """One ProjectionStrategy per SwiGLU site (gate/up/down), none with
-    a bias."""
+    """One ProjectionStrategy per MLP site: gate/up/down for SwiGLU, none
+    with a bias; up/down for gelu, a bias on ``up`` only."""
     _require(cfg)
+    names = ("gate", "up", "down") if cfg.mlp == "swiglu" else ("up", "down")
     return {name: site_strategy(cfg, f"ffn_{name}",
                                 *((ff, d) if name == "down" else (d, ff)),
-                                axes.tp, dp=axes.dp, bias=False,
+                                axes.tp, dp=axes.dp,
+                                bias=name == "up" and cfg.mlp != "swiglu",
                                 fsdp=cfg.fsdp)
-            for name in ("gate", "up", "down")}
+            for name in names}
 
 
 def mlp_decls(cfg, axes: MeshAxes, d: int, ff: int):
@@ -266,7 +268,8 @@ def mlp_decls(cfg, axes: MeshAxes, d: int, ff: int):
 
 
 def mlp_apply(cfg, layout: str, params, x, axes: MeshAxes, decls=None):
-    """SwiGLU, residual shard -> residual shard (same layout).
+    """SwiGLU (``silu(gate) * up``) or gelu (``gelu(up)``, jax's default
+    tanh form), residual shard -> residual shard (same layout).
 
     all-phantom: stays feature-sharded; only the k-wide ghosts cross
                  ranks.
@@ -279,25 +282,32 @@ def mlp_apply(cfg, layout: str, params, x, axes: MeshAxes, decls=None):
     d = x.shape[-1] * (axes.tp if layout == "fp" else 1)
     sts = mlp_strategies(cfg, axes, d, cfg.d_ff)
     kinds = {st.kind for st in sts.values()}
+
+    def hidden(site):
+        """The activated hidden units; ``site(name)`` is one site's
+        projection of the input."""
+        if cfg.mlp == "swiglu":
+            return F.silu(site("gate")) * site("up")
+        return F.gelu(site("up"), approximate="tanh")
+
     if kinds <= set(PHANTOM_KINDS):
-        g = sts["gate"].apply(params["gate"], x, axes=axes, compute_dtype=dt)
-        u = sts["up"].apply(params["up"], x, axes=axes, compute_dtype=dt)
-        return sts["down"].apply(params["down"], F.silu(g) * u, axes=axes,
+        h = hidden(lambda n: sts[n].apply(params[n], x, axes=axes,
+                                          compute_dtype=dt))
+        return sts["down"].apply(params["down"], h, axes=axes,
                                  compute_dtype=dt)
     if kinds <= {"tensor_col", "tensor_row"}:
         x_full = to_full(x, layout, axes)
-        g = sts["gate"].apply(params["gate"], x_full, compute_dtype=dt)
-        u = sts["up"].apply(params["up"], x_full, compute_dtype=dt)
-        z = sts["down"].apply(params["down"], F.silu(g) * u,
-                              compute_dtype=dt)
-        return from_partial(z, layout, axes)     # no site has a bias
+        h = hidden(lambda n: sts[n].apply(params[n], x_full,
+                                          compute_dtype=dt))
+        z = sts["down"].apply(params["down"], h, compute_dtype=dt)
+        return from_partial(z, layout, axes)     # down has no bias
     # mixed strategies: residual_layout is fp whenever a site is phantom
     if layout != "fp":
         raise ValueError(f"mixed MLP strategies {kinds} in layout "
                          f"{layout!r}")
-    g = sts["gate"].apply_shard(params["gate"], x, axes, compute_dtype=dt)
-    u = sts["up"].apply_shard(params["up"], x, axes, compute_dtype=dt)
-    return sts["down"].apply_shard(params["down"], F.silu(g) * u, axes,
+    h = hidden(lambda n: sts[n].apply_shard(params[n], x, axes,
+                                            compute_dtype=dt))
+    return sts["down"].apply_shard(params["down"], h, axes,
                                    compute_dtype=dt)
 
 

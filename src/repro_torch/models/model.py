@@ -1,5 +1,6 @@
-"""Model assembly for the dense, MoE, SSM and hybrid families: decls, and
-the training, prefill and decode forwards.
+"""Model assembly for every LM family of the reference (dense, MoE, SSM,
+hybrid, vision-language and encoder-decoder): decls, and the training,
+prefill and decode forwards.
 
 Parameters are the reference's tree (layers stacked on axis 0; on a
 pipe axis ``[pp, G/pp, ...]``, each stage's slice of the stack); the
@@ -21,6 +22,18 @@ sequence dim); a hybrid's, the same per sub.
 Under FSDP (``cfg.fsdp``) the embedding and the head gather their
 dp-sharded dims where they are used, and each block its own
 (``models/blocks.py``).
+
+The vision-language family (qwen2-vl) is a dense stack whose batch also
+carries the stubbed vision frontend's patch embeddings
+(``vision_embeds`` ``[B, n_img, d]``, spliced over the first ``n_img``
+positions of the embedded stream: ``_embed``) and M-RoPE's position ids
+(``positions`` ``[3, B, S]``: ``_positions``).  The encoder-decoder
+family (seamless) holds two stacks, ``enc_layers`` and ``dec_layers``,
+and ``enc_final_norm``: the encoder runs non-causal blocks over the
+batch's ``frames`` ``[B, S_enc, d]``, its output is gathered to full
+features on every rank (the ``memory``), and each decoder block
+cross-attends to it; its decode cache is ``{"self": ..., "cross":
+...}``, each ``{k, v}`` over the decoder's layers.
 """
 from __future__ import annotations
 
@@ -34,7 +47,7 @@ from repro_torch.models.blocks import (block_apply, block_decls,
                                        superblock_train)
 from repro_torch.models.layers import (dtype_of, embed_apply, embed_decls,
                                        head_decls, head_logits, norm_apply,
-                                       norm_decls, residual_layout,
+                                       norm_decls, residual_layout, to_full,
                                        xent_loss)
 from repro_torch.models.ssm import ssm_cache_shape
 from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
@@ -45,7 +58,15 @@ from repro_torch.train.pipeline import (pipeline_run,
                                         split_batch_microbatches)
 
 
-PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
+PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec")
+VISION_TOKENS = 256
+# the parameter trees' stacks of layers (or superblocks)
+STACKS = ("layers", "enc_layers", "dec_layers")
+
+
+def n_vision_tokens(cfg, seq_len: int) -> int:
+    """Positions of a sequence that the vision stub's embeddings take."""
+    return min(VISION_TOKENS, seq_len // 4)
 
 
 def _plan(cfg: ModelConfig):
@@ -54,8 +75,8 @@ def _plan(cfg: ModelConfig):
     that repeat one, the superblock's subs for a hybrid plan."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported; only {PORTED_FAMILIES} "
-            f"(ROADMAP.md queue 1, item 6 lists the families still to port)")
+            f"family {cfg.family!r} has no LM stack; the LM families are "
+            f"{PORTED_FAMILIES}")
     return layer_plan(cfg)[:plan_period(cfg)]
 
 
@@ -84,11 +105,22 @@ def model_decls(cfg: ModelConfig, axes: MeshAxes):
     layout = residual_layout(cfg, "train")
     d = {"embed": embed_decls(cfg),
          "final_norm": norm_decls(cfg, layout, cfg.d_model),
-         "head": head_decls(cfg),
-         "layers": stack(_group_decls(cfg, axes, layout, plan),
-                         n_groups(cfg))}
-    if axes.pp > 1:
-        d["layers"] = _pp_shard_layer_decls(d["layers"], axes.pp)
+         "head": head_decls(cfg)}
+    if cfg.family == "encdec":
+        if axes.pp > 1:
+            raise NotImplementedError(
+                "pipeline parallelism does not cover encoder-decoder "
+                "stacks (two heterogeneous stacks), as in the reference")
+        d["enc_layers"] = stack(block_decls(cfg, axes, layout, "mlp"),
+                                cfg.encoder_layers)
+        d["dec_layers"] = stack(block_decls(cfg, axes, layout, "mlp",
+                                            cross=True), cfg.num_layers)
+        d["enc_final_norm"] = norm_decls(cfg, layout, cfg.d_model)
+    else:
+        d["layers"] = stack(_group_decls(cfg, axes, layout, plan),
+                            n_groups(cfg))
+        if axes.pp > 1:
+            d["layers"] = _pp_shard_layer_decls(d["layers"], axes.pp)
     pdt = dtype_of(cfg.param_dtype)
     if pdt != torch.float32:
         d = tree_map(lambda x: dataclasses.replace(x, dtype=pdt), d)
@@ -156,12 +188,12 @@ def serving_params(cfg: ModelConfig, params, device=None):
     return tree_unflatten(params, flat)
 
 
-def _layer(params, i: int, pp: int = 1):
+def _layer(params, i: int, pp: int = 1, key: str = "layers"):
     """Entry ``i`` (a layer, or a hybrid's superblock) of this rank's
-    stack: an entry of the trainer's list of per-group trees, or a slice
-    of the stacked tensors, ``[G, ...]`` or, pipe-sharded at ``pp`` > 1,
-    the stage's local ``[1, G/pp, ...]``."""
-    layers = params["layers"]
+    stack ``key`` (one of ``STACKS``): an entry of the trainer's list of
+    per-group trees, or a slice of the stacked tensors, ``[G, ...]`` or,
+    pipe-sharded at ``pp`` > 1, the stage's local ``[1, G/pp, ...]``."""
+    layers = params[key]
     if isinstance(layers, list):
         return layers[i]
     if pp > 1:
@@ -178,19 +210,54 @@ def _group_train(cfg, layout, group, h, positions, axes, plan):
     return superblock_train(cfg, layout, group, h, positions, axes, plan)
 
 
+def _embed(cfg, layout, params, batch, axes: MeshAxes):
+    """The embedded tokens in ``layout``, with the vision stub's
+    ``vision_embeds`` [B, n_img, d] spliced over the first ``n_img``
+    positions where the config has the vision frontend and the batch
+    carries them: in ``fp`` each rank takes its feature slice of them, in
+    ``sp`` each rank's chunk selects them by global position, in ``rep``
+    (and at tp = 1) they are concatenated with the rest."""
+    h = embed_apply(cfg, layout, params["embed"], batch["tokens"], axes)
+    if cfg.frontend != "vision" or "vision_embeds" not in batch:
+        return h
+    v = batch["vision_embeds"].to(h.dtype)
+    n_img = v.shape[1]
+    j = axes.tp_rank
+    if layout == "sp":
+        C = h.shape[1]
+        at = j * C + torch.arange(C, device=h.device)
+        rows = v[:, at.clamp(max=n_img - 1)]
+        return torch.where((at < n_img)[None, :, None], rows, h)
+    if layout == "fp":
+        fsh = h.shape[-1]
+        v = v[..., j * fsh:(j + 1) * fsh]
+    return torch.cat([v, h[:, n_img:]], 1)
+
+
+def _positions(cfg, batch, B: int, S: int, device):
+    """M-RoPE's ``[3, B, S]`` position ids from the batch, else
+    ``arange(S)`` over the rows."""
+    if cfg.rope == "mrope":
+        return batch["positions"]
+    return torch.arange(S, device=device).expand(B, S)
+
+
 def forward_train(cfg: ModelConfig, axes: MeshAxes, params, batch):
-    """batch {"tokens", "labels"}: [B, S] -> (sum_loss, n_valid, aux),
-    this rank's contributions before the sums over dp (the model axis is
-    reduced inside the loss); aux is the MoE layers' summed balance loss
-    (0 for the dense and SSM families).  Each block, or a hybrid's
+    """batch {"tokens", "labels"}: [B, S] (and the family's stubs:
+    ``vision_embeds`` and ``positions``, or ``frames``) -> (sum_loss,
+    n_valid, aux), this rank's contributions before the sums over dp (the
+    model axis is reduced inside the loss); aux is the MoE layers' summed
+    balance loss (0 for the other families).  Each block, or a hybrid's
     superblock, runs under the recompute policy of ``cfg.remat``
     (``block_train``, ``superblock_train``)."""
+    if cfg.family == "encdec":
+        return _encdec_forward_train(cfg, axes, params, batch)
     plan = _plan(cfg)
     layout = residual_layout(cfg, "train")
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = embed_apply(cfg, layout, params["embed"], tokens, axes)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    h = _embed(cfg, layout, params, batch, axes)
+    positions = _positions(cfg, batch, B, S, tokens.device)
     aux = torch.zeros((), device=h.device)
     for i in range(n_groups(cfg)):
         h, a = _group_train(cfg, layout, _layer(params, i), h, positions,
@@ -229,6 +296,9 @@ def forward_train_pipeline(cfg: ModelConfig, axes: MeshAxes, params, batch,
     before the schedule starts: the objective divides by the global
     count before the first backward."""
     plan = _plan(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError("no pipeline path for encdec stacks, as "
+                                  "in the reference")
     if cfg.rope == "mrope":
         raise NotImplementedError(
             "mrope positions vary per microbatch; the pipeline carries "
@@ -296,17 +366,21 @@ def _stack_caches(caches):
 
 
 def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
-    """batch {"tokens": [B, S]} -> (last-token logits [B, 1, V_pad] fp32,
-    cache: {"k", "v"} [L, B, S, kv, hd], or for the SSM family {"conv"
-    [L, B, cw - 1, d_inner], "ssm" [L, B, H, hd, N]}; a hybrid's, one
-    such tree per sub, ``[G, ...]`` over its superblocks)."""
+    """batch {"tokens": [B, S]} (and the family's stubs) -> (last-token
+    logits [B, 1, V_pad] fp32, cache: {"k", "v"} [L, B, S, kv, hd], or
+    for the SSM family {"conv" [L, B, cw - 1, d_inner], "ssm"
+    [L, B, H, hd, N]}; a hybrid's, one such tree per sub, ``[G, ...]``
+    over its superblocks; an encoder-decoder's ``{"self": {k, v},
+    "cross": {k, v}}``, the cross K/V over the encoder's length)."""
+    if cfg.family == "encdec":
+        return _encdec_forward_prefill(cfg, axes, params, batch)
     plan = _plan(cfg)
     _require_one_rank(axes, "prefill")
     layout = residual_layout(cfg, "prefill")
     tokens = batch["tokens"]
     B, S = tokens.shape
-    h = embed_apply(cfg, layout, params["embed"], tokens, axes)
-    positions = torch.arange(S, device=tokens.device).expand(B, S)
+    h = _embed(cfg, layout, params, batch, axes)
+    positions = _positions(cfg, batch, B, S, tokens.device)
     caches = []
     for i in range(n_groups(cfg)):
         group = []
@@ -327,6 +401,8 @@ def forward_decode(cfg: ModelConfig, axes: MeshAxes, params, cache,
     """tokens [B, 1]; pos [B] per-row positions (the SSD blocks read
     none).  Writes the new K/V rows, or the new SSD state, into
     ``cache`` in place; returns (logits [B, 1, V_pad], cache)."""
+    if cfg.family == "encdec":
+        return _encdec_forward_decode(cfg, axes, params, cache, tokens, pos)
     plan = _plan(cfg)
     _require_one_rank(axes, "decode")
     layout = residual_layout(cfg, "decode")
@@ -350,9 +426,17 @@ def cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
     """Global shapes of the decode cache, stacked like the params: per
     attention block its bf16 K/V ``[G, batch, max_len, kv, hd]``, per SSD
     block its state (the conv rows in bf16, the state in fp32, bf16 under
-    ``kv_cache_quant``); a hybrid's, one such tree per sub."""
+    ``kv_cache_quant``); a hybrid's, one such tree per sub; an
+    encoder-decoder's ``{"self": ..., "cross": ...}`` over its decoder
+    layers, the cross K/V ``max_len`` rows long too, as the reference's
+    engine sizes them."""
     plan = _plan(cfg)
     G = n_groups(cfg)
+    if cfg.family == "encdec":
+        shape = (G, batch, max_len, cfg.num_kv_heads,
+                 cfg.resolved_head_dim())
+        return {name: {t: TensorSpec(shape, torch.bfloat16)
+                       for t in ("k", "v")} for name in ("self", "cross")}
 
     def one(mixer):
         if mixer == "mamba":
@@ -368,3 +452,90 @@ def cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
     if len(plan) == 1:
         return one(plan[0][0])
     return {f"sub{i}": one(mx) for i, (mx, _) in enumerate(plan)}
+
+
+# ---------------------------------------------------------------------------
+# the encoder-decoder family
+# ---------------------------------------------------------------------------
+
+def _enc_stack(cfg, layout, params, axes: MeshAxes, frames, kind="train"):
+    """frames [B, S_enc, d] (the same on every rank) -> the memory: the
+    encoder's output gathered to full features [B, S_enc, d] on every
+    rank.  The frames are cut into ``layout`` (each rank's
+    features in ``fp``, its sequence chunk otherwise) and run through the
+    non-causal encoder blocks, each a recompute unit in training under
+    ``remat="full"`` (the reference runs them as training blocks in
+    prefill too, without the recompute)."""
+    p, j = axes.tp, axes.tp_rank
+    if layout == "fp":
+        fsh = frames.shape[-1] // p
+        h = frames[..., j * fsh:(j + 1) * fsh]
+    else:
+        C = frames.shape[1] // p
+        h = frames[:, j * C:(j + 1) * C]
+    h = h.to(dtype_of(cfg.dtype))
+    B, S = frames.shape[0], frames.shape[1]
+    positions = _positions(cfg, {}, B, S, frames.device)
+    for i in range(cfg.encoder_layers):
+        lp = _layer(params, i, key="enc_layers")
+        if kind == "train":
+            h, _ = block_train(cfg, layout, lp, h, positions, axes, "mlp",
+                               causal=False)
+        else:
+            h, _, _ = block_apply(cfg, layout, lp, h, positions, axes,
+                                  kind="train", ffn="mlp", causal=False)
+    h = norm_apply(cfg, layout, params["enc_final_norm"], h, axes)
+    return to_full(h, layout, axes)
+
+
+def _encdec_forward_train(cfg, axes: MeshAxes, params, batch):
+    layout = residual_layout(cfg, "train")
+    memory = _enc_stack(cfg, layout, params, axes, batch["frames"])
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = embed_apply(cfg, layout, params["embed"], tokens, axes)
+    positions = _positions(cfg, batch, B, S, tokens.device)
+    for i in range(cfg.num_layers):
+        h, _ = block_train(cfg, layout, _layer(params, i, key="dec_layers"),
+                           h, positions, axes, "mlp", memory=memory)
+    h = norm_apply(cfg, layout, params["final_norm"], h, axes)
+    sum_loss, n_valid = xent_loss(cfg, layout, params["head"], h,
+                                  batch["labels"], axes)
+    return sum_loss, n_valid, torch.zeros((), device=h.device)
+
+
+def _encdec_forward_prefill(cfg, axes: MeshAxes, params, batch):
+    _require_one_rank(axes, "prefill")
+    layout = residual_layout(cfg, "prefill")
+    memory = _enc_stack(cfg, layout, params, axes, batch["frames"],
+                        kind="prefill")
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    h = embed_apply(cfg, layout, params["embed"], tokens, axes)
+    positions = _positions(cfg, batch, B, S, tokens.device)
+    caches = []
+    for i in range(cfg.num_layers):
+        h, c, _ = block_apply(cfg, layout,
+                              _layer(params, i, key="dec_layers"), h,
+                              positions, axes, kind="prefill", ffn="mlp",
+                              memory=memory, return_kv=True)
+        caches.append(c)
+    h = norm_apply(cfg, layout, params["final_norm"], h, axes)
+    logits = head_logits(cfg, layout, params["head"], h[:, -1:, :], axes)
+    return logits, _stack_caches(caches)
+
+
+def _encdec_forward_decode(cfg, axes: MeshAxes, params, cache, tokens, pos):
+    """The decoder's step: each layer writes its self K/V row into
+    ``cache["self"]`` in place and reads ``cache["cross"]`` whole."""
+    _require_one_rank(axes, "decode")
+    layout = residual_layout(cfg, "decode")
+    h = embed_apply(cfg, layout, params["embed"], tokens, axes)
+    for i in range(cfg.num_layers):
+        layer_cache = tree_map(lambda t: t[i], cache)
+        h, _, _ = block_apply(cfg, layout,
+                              _layer(params, i, key="dec_layers"), h, None,
+                              axes, kind="decode", ffn="mlp",
+                              cache=layer_cache, pos=pos)
+    h = norm_apply(cfg, layout, params["final_norm"], h, axes)
+    return head_logits(cfg, layout, params["head"], h, axes), cache

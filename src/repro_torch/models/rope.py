@@ -1,10 +1,19 @@
-"""Rotary position embeddings: full and partial (chatglm3 "2d" rope).
+"""Rotary position embeddings: full, partial (chatglm3 "2d" rope) and
+M-RoPE (qwen2-vl's three position axes).
 
 Convention, as in the reference: the first ``rot = fraction * hd`` dims
 (rounded down to even) rotate, split into two halves paired as
 ``(x[i], x[i + rot/2])`` (``rotate_half``); the remaining dims pass
 through.  Angles are computed in float32 and cast to ``x.dtype`` before
 the rotation, which runs in ``x.dtype``.
+
+M-RoPE, as the reference computes it: the head dim is cut into three
+contiguous sections (``mrope_sections``: a quarter, three eighths and
+three eighths of its pairs), and section ``i`` is rotated by
+``apply_rope`` over its own width at position row ``i`` (t, h, w), so
+each section has its own frequency ladder starting at 1.  Qwen2-VL's
+published rotary instead takes the three sections' frequencies from one
+ladder over the whole head dim (ROADMAP.md queue 3).
 """
 from __future__ import annotations
 
@@ -44,13 +53,36 @@ def apply_rope(x, positions, *, fraction: float = 1.0,
     return torch.cat([xr, xp], dim=-1)
 
 
+def mrope_sections(hd: int):
+    """The widths of M-RoPE's (t, h, w) sections of a head dim ``hd``:
+    a quarter of its pairs, then half of the rest each (the remainder
+    to w)."""
+    half = hd // 2
+    s0 = half // 4
+    s1 = (half - s0) // 2
+    s2 = half - s0 - s1
+    return (2 * s0, 2 * s1, 2 * s2)
+
+
+def apply_mrope(x, positions3, *, theta: float = 10000.0):
+    """x: [B, S, H, hd]; positions3: [3, B, S] (the t, h and w position
+    ids).  Each section rotates at its own row, over its own width."""
+    outs, off = [], 0
+    for i, sec in enumerate(mrope_sections(x.shape[-1])):
+        outs.append(apply_rope(x[..., off:off + sec], positions3[i],
+                               theta=theta))
+        off += sec
+    if off < x.shape[-1]:
+        outs.append(x[..., off:])
+    return torch.cat(outs, dim=-1)
+
+
 def rope_for(cfg, x, positions):
-    """Dispatch on cfg.rope; positions [B, S]."""
+    """Dispatch on cfg.rope; positions [B, S], or [3, B, S] for
+    M-RoPE."""
     if cfg.rope == "none":
         return x
     if cfg.rope == "mrope":
-        raise NotImplementedError(
-            "M-RoPE arrives with the vision-language slice "
-            "(ROADMAP.md queue 1)")
+        return apply_mrope(x, positions, theta=cfg.rope_theta)
     frac = cfg.rope_fraction if cfg.rope == "partial" else 1.0
     return apply_rope(x, positions, fraction=frac, theta=cfg.rope_theta)

@@ -26,6 +26,16 @@ page size), every first output token is the prefill's own sample, and
 the state rows (``{"conv", "ssm"}``, no sequence dim) are spliced whole.
 A hybrid's cache holds both kinds, one tree per sub of its superblock.
 
+Every prefill gets the stubs of the family's frontends
+(``_add_modality_stubs``, as the reference's engine adds them): zero
+``frames`` for the encoder-decoder, zero ``vision_embeds`` over the
+first ``n_vision_tokens`` positions for the vision frontend, and M-RoPE
+``positions`` equal on all three rows.  The encoder-decoder's cache is
+``{"self", "cross"}``: the cross K/V of a prompt of length ``S`` are
+spliced into the first ``S`` of the ``max_len`` rows and the rest are
+zero, and decode reads all ``max_len`` rows unmasked, zeros included, as
+the reference's does (ROADMAP.md queue 3).
+
 Where the reference donates the decode cache to a jitted step that
 returns a new one, the port's decode step writes the new K/V rows (or
 the new state) into the cache in place, and refills splice prefill rows
@@ -43,7 +53,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.launch.specs import cache_specs, input_specs
 from repro_torch.models.model import (forward_decode, forward_prefill,
-                                      serving_params)
+                                      n_vision_tokens, serving_params)
 from repro_torch.parallel.axes import (SERVE_TP_TODO, MeshAxes,
                                       resolve_device)
 from repro_torch.parallel.params import (tree_leaves, tree_map,
@@ -125,9 +135,12 @@ class ServeEngine:
 
     @torch.no_grad()
     def prefill_fn(self, tokens):
-        """tokens [slots, S] -> (logits [slots, 1, V], cache rows)."""
+        """tokens [slots, S] (with the family's stubs added) -> (logits
+        [slots, 1, V], cache rows)."""
+        B, S = tokens.shape
         return forward_prefill(self.cfg, self.axes, self.params,
-                               {"tokens": tokens})
+                               _add_modality_stubs(self.cfg,
+                                                   {"tokens": tokens}, B, S))
 
     @torch.no_grad()
     def decode_fn(self, cache, tokens, pos):
@@ -293,3 +306,21 @@ class ServeEngine:
         return {"prefill": self.prefill_meter.summary(),
                 "decode": self.decode_meter.summary(),
                 "pages": self.pages.stats()}
+
+
+def _add_modality_stubs(cfg: ModelConfig, batch, B: int, S: int):
+    """``batch`` with the stubbed frontends' inputs of a prefill of ``B``
+    rows of ``S`` tokens, on the tokens' device (the reference's
+    ``_add_modality_stubs``): zero float32 ``frames`` [B, S, d] for the
+    encoder-decoder, zero float32 ``vision_embeds`` [B, n_img, d] for the
+    vision frontend, and M-RoPE's ``positions`` [3, B, S], ``arange(S)``
+    on each row."""
+    dev = batch["tokens"].device
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((B, S, cfg.d_model), device=dev)
+    if cfg.frontend == "vision":
+        batch["vision_embeds"] = torch.zeros(
+            (B, n_vision_tokens(cfg, S), cfg.d_model), device=dev)
+    if cfg.rope == "mrope":
+        batch["positions"] = torch.arange(S, device=dev).expand(3, B, S)
+    return batch

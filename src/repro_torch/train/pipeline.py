@@ -196,14 +196,19 @@ def pipeline_run(stage_fn: Callable[[torch.Tensor], torch.Tensor],
     return loss, x_grad
 
 
+def batch_axis(key) -> int:
+    """The batch axis of a batch leaf: 1 for M-RoPE's ``positions``
+    ``[3, B, S]``, 0 for every other leaf."""
+    return 1 if key == "positions" else 0
+
+
 def split_batch_microbatches(batch, M: int):
     """Split every leaf of a batch (a nested dict of tensors) into M
-    microbatches along its batch axis (axis 0, except mrope ``positions``
-    whose batch axis is 1)."""
+    microbatches along its batch axis (``batch_axis``)."""
     def split(key, x):
         if isinstance(x, dict):
             return {k: split(k, v) for k, v in x.items()}
-        return split_microbatches(x, M, axis=1 if key == "positions" else 0)
+        return split_microbatches(x, M, axis=batch_axis(key))
     return split(None, batch)
 
 

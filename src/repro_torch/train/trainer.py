@@ -34,14 +34,14 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import (forward_train, forward_train_pipeline,
-                                      model_decls)
+from repro_torch.models.model import (STACKS, forward_train,
+                                      forward_train_pipeline, model_decls)
 from repro_torch.parallel.axes import MeshAxes, resolve_device
 from repro_torch.parallel.grads import _spec_axes, reduce_grads
 from repro_torch.parallel.params import (materialize_shards, tree_leaves,
                                          tree_map)
 from repro_torch.telemetry import LedgerEntry, StepMeter
-from repro_torch.train.pipeline import split_batch_microbatches
+from repro_torch.train.pipeline import batch_axis, split_batch_microbatches
 
 AUX_LOSS_WEIGHT = 0.01
 OPERATIONS_TODO = "ROADMAP.md queue 1, item 8"
@@ -73,20 +73,24 @@ def _global_norm(grads, decls, axes: MeshAxes):
 
 
 def local_rows(batch, axes: MeshAxes):
-    """This rank's rows of a global batch (the reference's
-    ``P("dp", None)`` batch spec)."""
-    def cut(x):
-        b = x.shape[0] // axes.dp
-        return x[axes.dp_rank * b:(axes.dp_rank + 1) * b]
-    return tree_map(cut, batch)
+    """This rank's rows of a global batch, each leaf cut on its batch
+    axis (``train/pipeline.py: batch_axis``; the reference's input specs
+    shard ``positions`` as ``P(None, "dp", None)``, every other leaf on
+    its first dim)."""
+    def cut(key, x):
+        if isinstance(x, dict):
+            return {k: cut(k, v) for k, v in x.items()}
+        b = x.shape[batch_axis(key)] // axes.dp
+        return x.narrow(batch_axis(key), axes.dp_rank * b, b)
+    return cut(None, batch)
 
 
 def _grad_leaves(params, grads, pp: int = 1):
     """A tree like ``params`` whose leaves are fresh autograd leaves over
     the same storage, each with ``.grad`` preset to its part of
-    ``grads``; ``params["layers"]`` becomes a list of per-layer trees
-    (at ``pp`` > 1 the layers of the stage's local ``[1, G/pp, ...]``
-    stack)."""
+    ``grads``; each stack of layers (``models/model.py: STACKS``)
+    becomes a list of per-layer trees (at ``pp`` > 1 the layers of the
+    stage's local ``[1, G/pp, ...]`` stack)."""
     def leaf(t, g):
         x = t.detach().requires_grad_(True)
         x.grad = g
@@ -98,15 +102,18 @@ def _grad_leaves(params, grads, pp: int = 1):
         return fn(a, b)
 
     out = {k: zip_map(leaf, params[k], grads[k]) for k in params
-           if k != "layers"}
-    layers_p, layers_g = params["layers"], grads["layers"]
-    if pp > 1:
-        layers_p, layers_g = (tree_map(lambda t: t[0], x)
-                              for x in (layers_p, layers_g))
-    n = tree_leaves(layers_p)[0][1].shape[0]
-    out["layers"] = [zip_map(lambda t, g, i=i: leaf(t[i], g[i]),
-                             layers_p, layers_g)
-                     for i in range(n)]
+           if k not in STACKS}
+    for key in STACKS:
+        if key not in params:
+            continue
+        layers_p, layers_g = params[key], grads[key]
+        if pp > 1:
+            layers_p, layers_g = (tree_map(lambda t: t[0], x)
+                                  for x in (layers_p, layers_g))
+        n = tree_leaves(layers_p)[0][1].shape[0]
+        out[key] = [zip_map(lambda t, g, i=i: leaf(t[i], g[i]),
+                            layers_p, layers_g)
+                    for i in range(n)]
     return out
 
 

@@ -70,7 +70,13 @@ FLASH_SHAPES = [
     (1, 128, 16, 1, 128),
     (1, 100, 8, 2, 64),
     (2, 70, 4, 1, 32),
+    # seamless-m4t-large-v2 (hd 64): serving's prompts, a rank's at tp 4
+    (4, 48, 16, 16, 64),
+    (4, 512, 4, 4, 64),
 ]
+# qwen2-vl-72b's MLP a rank at tp 4 (d_ff / tp = 7392, k 32 x 4): the
+# first N (and down's contraction) that the 64-wide tiles do not divide
+PHANTOM_RAGGED = [(256, 512, 7392, 128), (256, 7392, 512, 128)]
 
 
 @pytest.fixture
@@ -107,7 +113,9 @@ def _phantom_cases():
                          + [(PHANTOM_MAIN, "float32", 0),
                             (PHANTOM_PIPE, "float32", 0),
                             ((64, 256, 192, 32), "float32", 1),
-                            ((8, 256, 192, 32), "float32", 1)])
+                            ((8, 256, 192, 32), "float32", 1)]
+                         + [(s, dt, 0) for s in PHANTOM_RAGGED
+                            for dt in ("float32", "bfloat16")])
 def test_cuda_kernels_match_plain(cuda_device, shape, dtype, offset):
     """Each phantom kernel launches once, agrees with its plain version
     and gives the same bits on a second launch.  ``offset`` 1: every
@@ -504,6 +512,31 @@ def test_hybrid_trainer_step_at_tp2_kernel_path_matches_plain(cuda_device):
         overrides={"num_layers": 3},
         launches={"flash_attention": 2, "phantom_fused_matmul": 12,
                   "matmul_nt": 6, "matmul_tn": 6})
+
+
+@pytest.mark.cuda
+def test_vlm_trainer_step_at_tp2_kernel_path_matches_plain(cuda_device):
+    """One float32 AdamW step of qwen2-vl-smoke (M-RoPE ``positions`` and
+    random vision embeddings from ``chip_smoke.py: StubbedLM``) on 2 gloo
+    ranks sharing the card, the kernel path against the plain path from
+    one draw: flash and the phantom kernels at its 2 layers' three MLP
+    sites."""
+    _hold_card_step_ranks(cuda_device, pp=1, microbatches=1,
+                          arch="qwen2-vl-72b")
+
+
+@pytest.mark.cuda
+def test_encdec_trainer_step_at_tp2_kernel_path_matches_plain(cuda_device):
+    """One float32 AdamW step of seamless-smoke (random frames) on 2 gloo
+    ranks sharing the card, the kernel path against the plain path: flash
+    at its 2 encoder layers (full) and 2 decoder layers (causal; the
+    cross-attention runs the plain core), the phantom kernels at the
+    gelu MLP's two sites of all four, the forward twice (forward and
+    recompute), the dgrad and wgrad once."""
+    _hold_card_step_ranks(
+        cuda_device, pp=1, microbatches=1, arch="seamless-m4t-large-v2",
+        launches={"flash_attention": 8, "phantom_fused_matmul": 16,
+                  "matmul_nt": 8, "matmul_tn": 8})
 
 
 def _hold_card_step_ranks(cuda_device, pp, microbatches,

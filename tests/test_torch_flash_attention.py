@@ -225,13 +225,13 @@ def test_head_dims_cover_the_dense_configs():
     """Every LM config's head dim, full and smoke, is one the kernel
     takes where its attention can reach the kernel (head mode; ring
     attention, granite-moe-3b's hd 64 among it, never runs it; an
-    attention-free config, mamba2-370m, has none): the gate checks none,
-    so a missing one would raise on the card where the reference runs
-    its kernel."""
+    attention-free config, mamba2-370m, has none; seamless-m4t-large-v2
+    brings hd 64 in head mode): the gate checks none, so a missing one
+    would raise on the card where the reference runs its kernel."""
     from repro_torch.configs.base import _MODULES, get_config
     from repro_torch.kernels.flash_attention import HEAD_DIMS
     cfgs = [get_config(a, smoke=s) for a in _MODULES
             if not a.startswith("paper-ffn") for s in (False, True)]
     dims = {c.resolved_head_dim() for c in cfgs
             if c.attn_shard != "ring" and c.attn_period != -1}
-    assert dims == {16, 80, 96, 128} and dims <= set(HEAD_DIMS)
+    assert dims == {16, 64, 80, 96, 128} and dims <= set(HEAD_DIMS)

@@ -128,7 +128,8 @@ def test_trained_dense_config_equals_reference(arch, smoke):
 
 PORTED_ARCHS = ["chatglm3-6b", "phi3-mini-3.8b", "stablelm-3b",
                 "qwen2.5-14b", "olmoe-1b-7b", "granite-moe-3b-a800m",
-                "mamba2-370m", "jamba-1.5-large-398b", "paper-ffn-4k",
+                "mamba2-370m", "jamba-1.5-large-398b", "qwen2-vl-72b",
+                "seamless-m4t-large-v2", "paper-ffn-4k",
                 "paper-ffn-16k", "paper-ffn-64k",
                 "paper-ffn-131k", "paper-ffn-262k"]
 
@@ -145,15 +146,14 @@ def test_every_arch_of_the_port_is_held_to_the_reference():
 
 def test_reference_fields_the_port_lacks():
     """The port carries every field of the reference's ``ModelConfig``
-    but those of the families and features still to port: the
-    encoder-decoder's depth, the vision and audio frontends, the
-    python-loop layer stack, tied embeddings."""
+    but two that no ported feature reads: the python-loop layer stack
+    (a dry-run device of the reference) and tied embeddings (which no
+    config sets)."""
     from repro.configs.base import ModelConfig as JModelConfig
     ours = {f.name for f in dataclasses.fields(ModelConfig)}
     theirs = {f.name for f in dataclasses.fields(JModelConfig)}
     assert ours <= theirs
-    assert theirs - ours == {"encoder_layers", "frontend", "scan_layers",
-                             "tie_embeddings"}
+    assert theirs - ours == {"scan_layers", "tie_embeddings"}
 
 
 @pytest.mark.parametrize("smoke", [False, True])
@@ -366,19 +366,21 @@ def test_library_functions_target_the_card_by_default(entry):
 
 
 def test_unported_arch_and_family_raise():
-    """An unported arch and the unported families (vlm, encdec) raise,
-    the families naming ROADMAP queue 1; the MoE, SSM and hybrid
-    families, which raised here until they were ported, build, and so
-    does a layer plan that mixes MoE and MLP layers (the reference's
-    superblock scan: a superblock of period 2)."""
+    """An arch the reference lacks raises, and so does a family that is
+    not an LM family of the reference's (the paper FFN's runs through
+    ``core/ffn.py``); every LM family builds, the MoE, SSM, hybrid,
+    vision-language and encoder-decoder families among them (each raised
+    here until it was ported), and so does a layer plan that mixes MoE
+    and MLP layers (the reference's superblock scan: a superblock of
+    period 2)."""
     from repro_torch.configs.base import MoEConfig
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("qwen2-vl-72b")
-    for family in ("vlm", "encdec"):
-        cfg = get_config("chatglm3-6b", smoke=True).replace(family=family)
-        with pytest.raises(NotImplementedError,
-                           match=f"family '{family}'.*ROADMAP.md queue 1"):
-            model_decls(cfg, MeshAxes())
+    with pytest.raises(KeyError, match="unknown arch"):
+        get_config("gpt-4")
+    cfg = get_config("chatglm3-6b", smoke=True).replace(family="ffn")
+    with pytest.raises(NotImplementedError, match="family 'ffn'"):
+        model_decls(cfg, MeshAxes())
+    for arch in ("qwen2-vl-72b", "seamless-m4t-large-v2"):
+        model_decls(get_config(arch, smoke=True), MeshAxes())
     model_decls(get_config("olmoe-1b-7b", smoke=True), MeshAxes())
     model_decls(get_config("mamba2-370m", smoke=True), MeshAxes())
     model_decls(get_config("jamba-1.5-large-398b", smoke=True), MeshAxes())
@@ -420,8 +422,8 @@ def test_unported_training_paths_raise(what):
             assert d.shape[:2] == (2, cfg.num_layers // 2)
             assert d.spec[0] == "pp"
     elif what == "norm":
-        with pytest.raises(NotImplementedError, match="item 6"):
-            norm_decls(cfg.replace(mlp="gelu"), "fp", 64)
+        with pytest.raises(NotImplementedError, match="mlp='relu'"):
+            norm_decls(cfg.replace(mlp="relu"), "fp", 64)
     elif what == "remat":
         with pytest.raises(NotImplementedError, match="remat"):
             block_train(cfg.replace(remat="dots"), "fp", {}, None, None,

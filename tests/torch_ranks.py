@@ -292,9 +292,11 @@ def layers_tp_body(axes, device, cases):
     """The layers at this rank's tp on the reference's global inputs,
     each cut to the rank's shard: ``xent_loss`` (sequence-sharded h,
     vocab-sharded head; the objective divided by tp as the trainer's),
-    ``norm_apply``, ``embed_apply``, ``mlp_apply`` and head-mode
-    ``attention`` (the objective sum(out * r)).  Returns local outputs and gradients,
-    parameter gradients summed over tp where replicated."""
+    ``norm_apply``, ``embed_apply``, ``mlp_apply``, head-mode
+    ``attention`` and cross-attention (kind ``"cross"``: K/V of the full
+    ``memory``, whose gradient is returned too) (the objective
+    sum(out * r)).  Returns local outputs and gradients, parameter
+    gradients summed over tp where replicated."""
     from repro_torch.models import attention, layers
     from repro_torch.parallel.params import from_jax_params
 
@@ -333,18 +335,23 @@ def layers_tp_body(axes, device, cases):
                                    torch.from_numpy(case["tokens"]), axes)
             decls = layers.embed_decls(cfg)
         else:
+            cross = kind == "cross"
             x = _leaf(_in_layout(case["x"], lay, axes))
-            decls = attention.attn_decls(cfg, axes)
+            decls = attention.attn_decls(cfg, axes, cross=cross)
             params = tree_map(lambda t: t.requires_grad_(True), shard_params(
                 from_jax_params(case["params"]), decls, axes))
             B, S = case["x"].shape[:2]
             pos = torch.arange(S).expand(B, S)
+            memory = _leaf(case["memory"]) if cross else None
             y, _ = attention.attention(cfg, lay, params, x, pos, axes,
-                                       kind="train")
+                                       kind="train", memory=memory,
+                                       cross=cross)
         (y * r).sum().backward()
         grads = _tp_summed(tree_map(lambda t: t.grad, params), decls, axes)
         out[name] = {"y": _np(y), "params": tree_map(_np, grads),
                      "x": None if x is None else _np(x.grad)}
+        if kind == "cross":
+            out[name]["memory"] = _np(memory.grad)
     return out
 
 
@@ -413,7 +420,8 @@ def card_tp_step_body(axes, device, microbatches=1, arch="phi3-mini-3.8b",
                       overrides=None):
     """One float32 AdamW step of ``arch``'s smoke config (phi3-smoke:
     phantom MLP sites; olmoe-smoke: phantom attention sites and the
-    experts' all-to-alls; mamba2-smoke: phantom in and out sites), with
+    experts' all-to-alls; mamba2-smoke: phantom in and out sites;
+    qwen2-vl-smoke and seamless-smoke on batches with their stubs), with
     the config ``overrides`` (``{"fsdp": True}``), on this rank of a
     pp x dp x tp mesh, on its rows of the batch, over ``microbatches``
     microbatches, through the kernels (``"auto"``) and through plain
@@ -432,8 +440,10 @@ def card_tp_step_body(axes, device, microbatches=1, arch="phi3-mini-3.8b",
     base = get_config(arch, smoke=True, dtype="float32",
                       **(overrides or {}))
     params = materialize_shards(model_decls(base, axes), axes, 0, device)
-    batch = local_rows(LMDataset(base.vocab_size, 4, 129, device=device)(0),
-                       axes)
+    data = (load_chip_smoke().StubbedLM(base, 4, 128, device)
+            if base.family in ("vlm", "encdec") else
+            LMDataset(base.vocab_size, 4, 129, device=device))
+    batch = local_rows(data(0), axes)
     kernels = (flash_attention, pf.phantom_fused_matmul, pf.matmul_nt,
                pf.matmul_tn)
     out = {}
@@ -565,9 +575,11 @@ def ssm_layers_body(axes, device, cases):
 
 def wire_bytes_body(axes, device, cases):
     """One training step of each case's config on this rank (the weights
-    from one seed, one ``LMDataset`` batch) with its collectives logged:
-    the rank's wire bytes, priced as ``telemetry/counted.py:
-    collective_costs`` prices them, and their split by collective."""
+    from one seed, one ``LMDataset`` batch, with the family's stubs
+    from ``chip_smoke.py: StubbedLM`` where it needs them) with its
+    collectives logged: the rank's wire bytes, priced as
+    ``telemetry/counted.py: collective_costs`` prices them, and their
+    split by collective."""
     from repro_torch.data.synthetic import LMDataset
     from repro_torch.models.model import model_decls
     from repro_torch.optim import AdamW
@@ -578,9 +590,12 @@ def wire_bytes_body(axes, device, cases):
     for name, case in cases.items():
         cfg = case["cfg"]
         params = materialize_shards(model_decls(cfg, axes), axes, 0, device)
-        batch = local_rows(LMDataset(cfg.vocab_size, case["batch"],
-                                     case["seq"] + 1, device=device)(0),
-                           axes)
+        data = (load_chip_smoke().StubbedLM(cfg, case["batch"], case["seq"],
+                                            device)
+                if cfg.family in ("vlm", "encdec") else
+                LMDataset(cfg.vocab_size, case["batch"], case["seq"] + 1,
+                          device=device))
+        batch = local_rows(data(0), axes)
         opt = AdamW(1e-3)
         step_fn, _, _ = make_train_step(cfg, axes, opt, device=device)
         with record_collectives() as log:
@@ -708,3 +723,32 @@ def hybrid_body(axes, device, inputs):
     return {"train": lm_pipeline_body(axes, device, {
                 "train": inputs["train"], "draw_cfg": None})["train"],
             "wire": wire_bytes_body(axes, device, inputs["wire"])}
+
+
+def splice_body(axes, device, cases):
+    """``models/model.py: _embed`` (the vision splice) on this rank's
+    shard of each case's embedding table, in the case's layout: the
+    rank's local stream."""
+    from repro_torch.models.model import _embed
+    out = {}
+    for name, case in cases.items():
+        params = {"embed": {"table": torch.from_numpy(
+            _shard(case["table"], axes, 0).copy())}}
+        batch = {"tokens": torch.from_numpy(case["tokens"]),
+                 "vision_embeds": torch.from_numpy(case["vision"])}
+        out[name] = _np(_embed(case["cfg"], case["layout"], params, batch,
+                               axes))
+    return out
+
+
+def family_body(axes, device, inputs):
+    """One mesh of ``tests/test_torch_vlm.py`` or
+    ``tests/test_torch_encdec.py``: the trainer cases
+    (``lm_pipeline_body``: each step from the reference's state before
+    it), the layer cases (``layers_tp_body``), the splice cases
+    (``splice_body``) and the wire-byte cases (``wire_bytes_body``)."""
+    return {"train": lm_pipeline_body(axes, device, {
+                "train": inputs["train"], "draw_cfg": None})["train"],
+            "layers": layers_tp_body(axes, device, inputs.get("layers", {})),
+            "splice": splice_body(axes, device, inputs.get("splice", {})),
+            "wire": wire_bytes_body(axes, device, inputs.get("wire", {}))}
