@@ -146,7 +146,7 @@ Phases (any failure exits non-zero):
    same with dense sites (the ``sp`` layout) at tp = 4 against tp = 1
    from the same seed (each rank holds its shards against the same cut
    of the tp = 1 run); (c) the main path: ``launch/train.py``'s trainer
-   on phi3-mini at ``LM_TP_LAYERS`` (8) of its 32 layers, phantom, bf16,
+   on phi3-mini at ``LM_TP_LAYERS`` (4) of its 32 layers, phantom, bf16,
    batch 4 x seq 512,
    ``LM_STEPS`` steps with the collectives logged -- every loss finite,
    each rank's launches per step exactly the flash kernel 2 and the
@@ -155,7 +155,7 @@ Phases (any failure exits non-zero):
    used memory printed; then one more step with its collectives timed
    (``record_collectives(timed=True)``), rank 0's under
    ``torch.profiler``; (d) phantom (``fp``) and dense (``sp``) at
-   ``LM_TP_COMPARE`` (8 layers, 3 steps each): step times and wire
+   ``LM_TP_COMPARE`` (4 layers, 3 steps each): step times and wire
    bytes per rank side by side.
 
 10. qwen2.5-14b at tp = 4 (``phase_qwen_train_tp``): ring attention
@@ -191,7 +191,7 @@ Phases (any failure exits non-zero):
    2 from the same seed (each stage's two ranks run the whole model on
    their own group, and each rank holds its stage's cut); all held as
    in phase 9, with every kernel's launches.  (c) The main path:
-   ``launch/train.py``'s trainer at ``LM_PP_LAYERS`` (8) of the 32 layers,
+   ``launch/train.py``'s trainer at ``LM_PP_LAYERS`` (4) of the 32 layers,
    bf16, batch 4 x seq
    512 in ``LM_PP_M`` microbatches, ``LM_PP_STEPS`` steps: losses
    finite, launches per step and rank exactly 2, 6, 3 and 3 per layer
@@ -341,6 +341,32 @@ Phases (any failure exits non-zero):
    cross-attention runs the plain core), 4, 2 and 2 phantom a layer,
    wire bytes per step equal to ``encdec_wire_bytes``; as in 15.
 
+17. serving on a mesh (``phase_serve_mesh``).  First, in the parent,
+   the flash kernel at a rank's prefill at tp 4 (B = 2 and 4, S = 48, 8
+   query heads on one KV head, hd 128) and the phantom forward at
+   chatglm3-6b's gate/up and down a rank at tp 4 (M = 4 decode rows and
+   M = 192 prefill rows; K = 1024, N = 3424 and the transpose; PK = 64),
+   bf16, held and timed as in phases 2 and 3, and with a cold L2; then
+   ``serve/router.py: route`` over ``SERVE_MESH_BUDGET`` devices at
+   ``SERVE_MESH_SLO_MS``, its priced table printed.  Then, for (a)
+   tensor sites on dp 2 x tp 4 (8 ranks) and (b) phantom gate/up/down
+   (k = 16) on dp 1 x tp 4, ranks sharing the card each running
+   ``_serve_mesh_rank``: the parity (the trace's first
+   ``SERVE_MESH_PARITY_REQUESTS`` requests at ``SERVE_MESH_PARITY_LAYERS``
+   layers: float32 greedy streams equal to the tp = 1 engine's on the
+   same global weights, a phantom model's as its dense twin; bf16
+   streams printed with where they part); the main path,
+   ``run_config`` on chatglm3-6b at full width and ``SERVE_MESH_LAYERS``
+   layers, bf16, replaying ``SERVE_MESH_TRACE``: every request's tokens,
+   launches exactly the layers per prefill (flash) and 3 x the layers
+   per prefill and decode step (the phantom forward), each rank's wire
+   bytes of the probe prefill and decode step equal to
+   ``serve_wire_bytes``; TTFT/TPOT p50/p95, tokens/s, memory per rank,
+   J/token and measured/predicted energy and wire per phase, the ranks'
+   agreement; the per-layer bf16 check of the kernel path against the
+   plain path (``_mesh_layer_check``); one decode step with its
+   collectives timed, rank 0's under ``torch.profiler``.
+
 Each phase's wall seconds are printed on a line of their own.
 
 The line before the last is the kernel table as JSON (the phantom
@@ -355,7 +381,9 @@ under ``ssm_tp4``, phi3-mini's under FSDP under ``fsdp_dp2_tp2``, and
 jamba-1.5-large's serving shape and launches under ``jamba_serve`` and
 its tp = 4 training under ``jamba_tp4``, qwen2-vl-72b's under
 ``qwen2vl_serve`` and ``qwen2vl_tp4``, and seamless-m4t-large-v2's, full
-and causal, under ``seamless_serve`` and ``seamless_tp4``);
+and causal, under ``seamless_serve`` and ``seamless_tp4``; flash's and
+the phantom forward's shapes and launches on the serving mesh under
+``serve_mesh``);
 the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
@@ -428,10 +456,10 @@ LM_BF16_LOSS_RTOL = 5e-3
 LM_FLASH_SHAPES = ((4, 512, 32, 32, 96), (4, 512, 32, 32, 80))
 # phase 9: phi3-mini on LM_TP ranks; (d) runs LM_TP_COMPARE = (layers,
 # steps) of phantom and of dense
-LM_TP, LM_TP_COMPARE = 4, (8, 3)
-# (c)'s depth: 8 of phi3-mini's 32 layers, so that phase 14 fits the
-# script's time
-LM_TP_LAYERS = 8
+LM_TP, LM_TP_COMPARE = 4, (4, 3)
+# (c)'s depth: 4 of phi3-mini's 32 layers, and (d)'s, so that phase 17
+# fits the script's time
+LM_TP_LAYERS = 4
 # the per-rank shapes of phi3-mini at tp = 4, batch 4 x seq 512: the
 # phantom kernels' (M, K, N, PK) at gate/up and at down (k = 12, PK = 48),
 # and flash's (B, S, H, KV, hd) at H / tp local heads
@@ -439,10 +467,10 @@ LM_TP_PHANTOM_SHAPES = ((2048, 768, 2048, 48), (2048, 2048, 768, 48))
 LM_TP_FLASH_SHAPE = (4, 512, 8, 8, 96)
 # phase 10: qwen2.5-14b on LM_TP ranks at full width and QWEN_LAYERS of its
 # 48 layers (4 ranks' fp32 AdamW state at 48 layers, 116 GB, exceed the
-# card; 4 rather than 8 leaves the later phases the script's time),
-# QWEN_STEPS steps; the phantom kernels' (M, K, N, PK) a rank at gate/up
-# and at down (k = 16, PK = 64)
-QWEN_ARCH, QWEN_LAYERS, QWEN_STEPS = "qwen2.5-14b", 4, 3
+# card; 2 rather than 4 or 8 leaves the later phases the script's
+# time), QWEN_STEPS steps; the phantom kernels' (M, K, N, PK) a rank at
+# gate/up and at down (k = 16, PK = 64)
+QWEN_ARCH, QWEN_LAYERS, QWEN_STEPS = "qwen2.5-14b", 2, 3
 QWEN_PHANTOM_SHAPES = ((2048, 1280, 3456, 64), (2048, 3456, 1280, 64))
 # phase 11: phi3-mini on LM_PP stages x LM_PP_TP model ranks, the batch in
 # LM_PP_M microbatches of one row, LM_PP_STEPS steps; (a) and (b) at
@@ -451,7 +479,7 @@ QWEN_PHANTOM_SHAPES = ((2048, 1280, 3456, 64), (2048, 3456, 1280, 64))
 # kernels' (M, K, N, PK) at gate/up and at down (k = 12, PK = 24), and
 # flash's (B, S, H, KV, hd) at H / tp local heads
 LM_PP, LM_PP_TP, LM_PP_M, LM_PP_STEPS, LM_PP_PARITY_M = 2, 2, 4, 3, 2
-LM_PP_LAYERS = 8     # (c)'s depth, 4 a stage, for phase 14's time
+LM_PP_LAYERS = 4     # (c)'s depth, 2 a stage, for phase 17's time
 LM_PP_PHANTOM_SHAPES = ((512, 1536, 4096, 24), (512, 4096, 1536, 24))
 LM_PP_FLASH_SHAPE = (1, 512, 16, 16, 96)
 # phase 12: the MoE family.  olmoe-1b-7b served at full size (tp 1), and
@@ -462,7 +490,8 @@ LM_PP_FLASH_SHAPE = (1, 512, 16, 16, 96)
 # (SLOTS x the longest mixed prompt, 16 heads of 128) and a rank's at tp 4
 # (16 / 4 heads); the phantom kernels' (M, K, N, PK) at the q/k/v/o sites
 # a rank at tp 4 (d / tp = 512, k = 8, PK = 32)
-MOE_ARCH, MOE_LAYERS, MOE_STEPS = "olmoe-1b-7b", 4, 3
+# (2 layers, cut for phase 17's time)
+MOE_ARCH, MOE_LAYERS, MOE_STEPS = "olmoe-1b-7b", 2, 3
 GRANITE_ARCH = "granite-moe-3b-a800m"
 MOE_SERVE_FLASH_SHAPE = (SLOTS, 48, 16, 16, 128)
 MOE_TP_FLASH_SHAPE = (LM_BATCH, LM_SEQ, 4, 4, 128)
@@ -476,11 +505,12 @@ MOE_PHANTOM_SHAPE = (LM_BATCH * LM_SEQ, 512, 512, 32)
 # d_inner / tp = 512, k = 8, PK = 32); phi3-mini's gate/up and down at
 # dp 2 x tp 2 (B / dp x S = 1024 rows, k = 12, PK = 24) and its flash
 # (B / dp = 2, 32 / tp = 16 heads of 96)
-# (16 of the 48 layers, for phase 14's time)
-MAMBA_ARCH, MAMBA_LAYERS, MAMBA_STEPS, MAMBA_PAGE = "mamba2-370m", 16, 3, 1
+# (8 of the 48 layers, for phase 17's time)
+MAMBA_ARCH, MAMBA_LAYERS, MAMBA_STEPS, MAMBA_PAGE = "mamba2-370m", 8, 3, 1
 MAMBA_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 256, 512, 32),
                         (LM_BATCH * LM_SEQ, 512, 256, 32))
-FSDP_DP, FSDP_TP, FSDP_LAYERS, FSDP_STEPS = 2, 2, 4, 3
+# (FSDP_LAYERS 2, cut for phase 17's time)
+FSDP_DP, FSDP_TP, FSDP_LAYERS, FSDP_STEPS = 2, 2, 2, 3
 FSDP_PHANTOM_SHAPES = ((1024, 1536, 4096, 24), (1024, 4096, 1536, 24))
 FSDP_FLASH_SHAPE = (LM_BATCH // FSDP_DP, LM_SEQ, 16, 16, 96)
 # phase 14: jamba-1.5-large at full width: served at JAMBA_SERVE_LAYERS of
@@ -501,12 +531,13 @@ JAMBA_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 2048, 6144, 128),
 # phase 15: qwen2-vl-72b at full width: served at QWEN2VL_SERVE_LAYERS of
 # its 80 layers (19.1 GB of bf16 weights), the recurrence check at
 # QWEN2VL_PARITY_LAYERS of them in float32; trained on LM_TP ranks at
-# QWEN2VL_LAYERS, step 1 at QWEN2VL_PARITY_LAYERS.  The kernels' shapes:
+# QWEN2VL_LAYERS (2, cut for phase 17's time), step 1 at
+# QWEN2VL_PARITY_LAYERS.  The kernels' shapes:
 # flash's (B, S, H, KV, hd) at serving (64 heads, KV 8, hd 128) and a
 # rank's at tp 4 (16 heads, KV 2); the phantom kernels' (M, K, N, PK) at
 # gate/up and at down a rank at tp 4 (d / tp = 2048, d_ff / tp = 7392:
 # 115.5 of the 64-wide tiles, k = 32, PK = 128)
-QWEN2VL_ARCH, QWEN2VL_SERVE_LAYERS, QWEN2VL_LAYERS = "qwen2-vl-72b", 8, 4
+QWEN2VL_ARCH, QWEN2VL_SERVE_LAYERS, QWEN2VL_LAYERS = "qwen2-vl-72b", 8, 2
 QWEN2VL_PARITY_LAYERS = 2
 QWEN2VL_SERVE_FLASH_SHAPE = (SLOTS, 48, 64, 8, 128)
 QWEN2VL_TP_FLASH_SHAPE = (LM_BATCH, LM_SEQ, 16, 2, 128)
@@ -514,11 +545,12 @@ QWEN2VL_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 2048, 7392, 128),
                           (LM_BATCH * LM_SEQ, 7392, 2048, 128))
 # phase 16: seamless-m4t-large-v2: served at full size (24 + 24 layers),
 # trained on LM_TP ranks at SEAMLESS_LAYERS encoder + SEAMLESS_LAYERS
-# decoder layers, step 1 at SEAMLESS_PARITY_LAYERS + as many.  Flash at
+# decoder layers (4 + 4, cut for phase 17's time), step 1
+# at SEAMLESS_PARITY_LAYERS + as many.  Flash at
 # hd 64, full (the encoder) and causal (the decoder), at serving (16
 # heads) and a rank's at tp 4 (4 heads); the phantom kernels at up and
 # down a rank at tp 4 (d / tp = 256, d_ff / tp = 2048, k = 8, PK = 32)
-SEAMLESS_ARCH, SEAMLESS_LAYERS = "seamless-m4t-large-v2", 8
+SEAMLESS_ARCH, SEAMLESS_LAYERS = "seamless-m4t-large-v2", 4
 SEAMLESS_PARITY_LAYERS = 2
 SEAMLESS_FLASH_SHAPES = tuple(
     shape + (causal,) for shape in ((SLOTS, 48, 16, 16, 64),
@@ -529,6 +561,35 @@ SEAMLESS_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 256, 2048, 32),
 # the recurrence check of phase 13 (a): prefill against token-by-token
 # decode in float32, each within this share of its largest magnitude
 RECURRENCE_TOL = 1e-4
+# phase 17: chatglm3-6b served over a mesh of ranks sharing the card
+# through ``serve/router.py: run_config``: tensor sites on dp 2 x tp 4 and
+# the router's phantom candidate (gate/up/down, k = 16) on dp 1 x tp 4,
+# at full width and SERVE_MESH_LAYERS of its 28 layers (a decode step
+# at 28 layers takes ≈ 2.1 s a rank on the H100: 170 collectives
+# through the host at ≈ 11 ms each; PERF.md §4), on a poisson
+# trace (the reference launcher's defaults: 16 requests of 4-48 prompt
+# and 4-16 new tokens at 4 requests/s); the streams' parity at
+# SERVE_MESH_PARITY_LAYERS; the router over SERVE_MESH_BUDGET devices at
+# SERVE_MESH_SLO_MS.  The kernels' shapes a rank: flash's (B, S, H, KV, hd)
+# at a 48-token prefill of the rank's slots (32 / tp = 8 query heads
+# sharing the replicated K/V's one GQA head), the phantom forward's (M,
+# K, N, PK) at gate/up and down at a decode step's 4 rows and a 48-token
+# prefill group's 192 (d / tp = 1024, d_ff / tp = 3424: 53.5 of the
+# 64-wide tiles, k = 16, PK = 64)
+SERVE_MESH_ARCH, SERVE_MESH_LAYERS, SERVE_MESH_PARITY_LAYERS = \
+    "chatglm3-6b", 4, 2
+# the parity's streams: the trace's first requests (a prefix of its draw)
+SERVE_MESH_PARITY_REQUESTS = 8
+SERVE_MESH = {"tensor": (2, 4), "phantom": (1, 4)}     # impl: (dp, tp)
+SERVE_MESH_TRACE = dict(kind="poisson", n=16, rate_rps=4.0,
+                        prompt_len_range=(4, 48), new_tokens_range=(4, 16),
+                        seed=SEED)
+SERVE_MESH_SLO_MS, SERVE_MESH_BUDGET = 200.0, 8
+SERVE_MESH_FLASH_SHAPES = ((SLOTS // 2, 48, 8, 1, 128),
+                           (SLOTS, 48, 8, 1, 128))
+SERVE_MESH_PHANTOM_SHAPES = ((SLOTS, 1024, 3424, 64), (SLOTS, 3424, 1024, 64),
+                             (SLOTS * 48, 1024, 3424, 64),
+                             (SLOTS * 48, 3424, 1024, 64))
 
 
 # a kernel's measured keys in the kernels line
@@ -765,12 +826,34 @@ def _flash_cold(gen):
     return out
 
 
+def closed_batch(vocab_size, n, prompt_len, new_tokens, seed):
+    """``n`` requests of ``prompt_len`` random tokens, all arriving at 0:
+    the serving launcher's closed batch (``launch/serve.py:
+    make_workload``), prompts drawn by ``serve/traffic.py:
+    trace_requests``."""
+    from repro_torch.serve.traffic import TraceItem, trace_requests
+    return trace_requests([TraceItem(0.0, prompt_len, new_tokens)] * n,
+                          vocab_size, seed=seed)
+
+
+def slo_report(requests):
+    """``serve/traffic.py: SLOTracker``'s report of the requests, its
+    tokens/s over the span from their first arrival (the mixed batch
+    arrives after the closed one has run)."""
+    from repro_torch.serve.traffic import SLOTracker
+    tracker = SLOTracker()
+    tracker.observe_all(requests)
+    rep = tracker.report()
+    span = rep.get("duration_s", 0.0) - min(r.arrival_s for r in requests)
+    rep["tokens_per_s"] = rep["generated_tokens"] / span if span > 0 else 0.0
+    return rep
+
+
 def phase_serve():
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config, with_kernel_backend
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import closed_batch, slo_report
     from repro_torch.models.model import model_decls
     from repro_torch.parallel.axes import MeshAxes
     from repro_torch.parallel.params import materialize
@@ -856,7 +939,6 @@ def _profile_decode(eng, cfg, steps=4):
     copies took, and how many of them ran per step."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.launch.serve import closed_batch
     eng.submit(closed_batch(cfg.vocab_size, SLOTS, 16, steps + 2, SEED + 2))
     eng.step()
     torch.cuda.synchronize()
@@ -1053,9 +1135,10 @@ def _held(got, want, tol):
             bool((diff <= tol + tol * want.float().abs()).all()))
 
 
-def _phantom_case(M, K, N, PK, dtype, gen):
-    """The three phantom kernels on one (M, K, N, PK): the forward
-    z = x.L + g.D, the dgrad dz.[L;D]^T and the wgrad [x|g]^T.dz, each
+def _phantom_case(M, K, N, PK, dtype, gen, names=None):
+    """The three phantom kernels (``names``: those of them) on one (M, K,
+    N, PK): the forward z = x.L + g.D, the dgrad dz.[L;D]^T and the wgrad
+    [x|g]^T.dz, each
     with its launch plan (forward and dgrad: splits per output tile;
     wgrad: persistent grid and rounds of tiles; 16-byte or masked
     copies) and whether a second launch on the same inputs gives the
@@ -1098,6 +1181,8 @@ def _phantom_case(M, K, N, PK, dtype, gen):
              "matmul_tn": tn_plan(x, dz, g)}
     out = []
     for name, (kern, plain, lib, nbytes) in calls.items():
+        if names and name not in names:
+            continue
         got = kern()
         torch.cuda.synchronize()
         err, ok = _held(got, plain(), PHANTOM_TOL[dtype])
@@ -1122,10 +1207,10 @@ def _phantom_case(M, K, N, PK, dtype, gen):
     return out
 
 
-def _phantom_cold(M, K, N, PK, gen, dtype="float32"):
-    """The three kernels and their library calls at one shape with a cold
-    L2 (``cold_ms``: enough operand sets in turn that each call finds its
-    inputs evicted)."""
+def _phantom_cold(M, K, N, PK, gen, dtype="float32", names=None):
+    """The three kernels (``names``: those of them) and their library
+    calls at one shape with a cold L2 (``cold_ms``: enough operand sets in
+    turn that each call finds its inputs evicted)."""
     import torch
     from repro_torch.kernels.phantom_fused import (matmul_nt, matmul_tn,
                                                    phantom_fused_matmul)
@@ -1157,6 +1242,8 @@ def _phantom_cold(M, K, N, PK, gen, dtype="float32"):
     }
     out = {}
     for name, (kern, lib, nbytes) in calls.items():
+        if names and name not in names:
+            continue
         out[name] = {
             "cold_ms": cold_ms(lambda: kern(*ops()), nbytes),
             "library_cold_ms": cold_ms(lambda: lib(*ops()), nbytes)}
@@ -2782,6 +2869,63 @@ def _outer_wire_bytes(cfg, batch, seq, p, dp=1):
             + _param_wire_bytes(cfg, p, dp))
 
 
+def serve_wire_bytes(cfg, rows, seq, p, phase):
+    """The logical wire bytes one rank issues in one serving step of a
+    dense model in head mode at tp = ``p`` over ``rows`` rows (its dp
+    shard of the slots): a prefill of ``seq`` tokens or one decode step
+    (``phase``), priced as ``record_collectives`` prices them
+    (``_outer_wire_bytes``).  The stream is ``sp`` at prefill and ``rep``
+    at decode with tensor sites, ``fp`` with a phantom one.
+    Prefill: the embedding's reduce-scatter; per block, the features
+    gathered for the tensor sites (and in ``fp`` the two norms' psums),
+    the K/V all-to-all onto sequence shards where tp divides the KV
+    heads, ``wo``'s reduce-scatter, and the MLP's gather and
+    reduce-scatter (tensor) or its three ghost gathers of [T, k]
+    (phantom); the final norm (``fp``), the last position's psum
+    (``sp``), the head's feature gather (``fp``) and the fp32 logits'
+    gather.  Decode: the same with one token a row, the q (and K/V)
+    head gathers, the log-sum-exp merge's three all-reduces in fp32 (the
+    max, the numerators, the denominators) and, in ``rep``, all-reduces
+    where ``sp`` reduce-scatters."""
+    from repro_torch.models.layers import padded_vocab, residual_layout
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd, L = cfg.resolved_head_dim(), cfg.num_layers
+    layout = residual_layout(cfg, phase)
+    phantom = layout == "fp"
+    T = rows * (seq if phase == "prefill" else 1)
+    stream = T * d // p * act           # a rank's shard of the stream
+    full = T * d * act
+    k = cfg.projection_spec("ffn_up").k
+    if phase == "prefill":
+        reduce = _gathered(p, stream)   # a reduce-scatter of the stream
+    else:
+        reduce = (_gathered(p, stream) if phantom
+                  else _all_reduced(p, full))
+    block = 0.0
+    if phantom:
+        block += 2 * _norm_bytes(cfg, p, T) + _gathered(p, stream)
+        block += 3 * _gathered(p, T * k * act)            # the ghosts
+    elif phase == "prefill":
+        block += 2 * _gathered(p, stream)   # attention's and the MLP's
+    block += reduce if phantom else 2 * reduce   # wo's (and down's)
+    if kv % p == 0:
+        if phase == "prefill":
+            block += 2 * (T * kv // p * hd * act) * (p - 1) / p
+        else:
+            block += 2 * _gathered(p, T * kv // p * hd * act)
+    if phase == "decode":
+        block += _gathered(p, T * H // p * hd * act)        # q's heads
+        block += (2 * _all_reduced(p, T * H * 4)
+                  + _all_reduced(p, T * H * hd * 4))
+    out = L * block + reduce                # the embedding
+    if phantom:
+        out += _norm_bytes(cfg, p, T) + _gathered(p, rows * d // p * act)
+    elif phase == "prefill":
+        out += _all_reduced(p, rows * d * act)   # the last position
+    return out + _gathered(p, rows * padded_vocab(cfg) // p * 4)
+
+
 def ring_wire_bytes(cfg, batch, seq, p):
     """The logical wire bytes one rank issues in one training step of a
     ring-attention model with phantom MLP sites in the ``fp`` layout at
@@ -2995,13 +3139,14 @@ def _qwen_rank(axes, device):
     return out
 
 
-def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=()):
+def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=(),
+                   phantom_names=None):
     """The flash kernel at each (B, S, H, KV, hd), causal (or at (B, S,
-    H, KV, hd, causal)), and the three phantom kernels at each (M, K, N,
-    PK), all bf16: held to their plain versions and timed as in phases 2
-    and 3, and with a cold L2.  Returns {"flash": [cases], "cases":
-    [phantom cases], "cold": {str([M, K, N, PK]): the phantom kernels'
-    cold-L2 times}}."""
+    H, KV, hd, causal)), and the three phantom kernels (``phantom_names``:
+    those of them) at each (M, K, N, PK), all bf16: held to their plain
+    versions and timed as in phases 2 and 3, and with a cold L2.  Returns
+    {"flash": [cases], "cases": [phantom cases], "cold": {str([M, K, N,
+    PK]): the phantom kernels' cold-L2 times}}."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import flash_attention
     out = {"flash": [], "cases": [], "cold": {}}
@@ -3036,7 +3181,7 @@ def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=()):
               f"{flash['library_ms']:.4f} (cold "
               f"{flash['library_cold_ms']:.4f})", flush=True)
     for shape in phantom_shapes:
-        for r in _phantom_case(*shape, "bfloat16", gen):
+        for r in _phantom_case(*shape, "bfloat16", gen, phantom_names):
             out["cases"].append(r)
             print(f"{tag}: {r['kernel']} M={r['M']} K={r['K']} "
                   f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
@@ -3044,8 +3189,8 @@ def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=()):
                   f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                   f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f}", flush=True)
-        out["cold"][str(list(shape))] = _phantom_cold(*shape, gen,
-                                                      dtype="bfloat16")
+        out["cold"][str(list(shape))] = _phantom_cold(
+            *shape, gen, dtype="bfloat16", names=phantom_names)
     bad = [r for r in out["flash"] + out["cases"] if not r["ok"]]
     check(not bad, f"{tag}: kernels disagree with their plain versions: "
                    f"{bad}")
@@ -3469,7 +3614,6 @@ def _moe_serve():
     import torch
     from repro_torch.configs.base import get_config, with_kernel_backend
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import closed_batch, slo_report
     from repro_torch.models.model import count_params, model_decls
     from repro_torch.parallel.axes import MeshAxes
     from repro_torch.parallel.params import materialize
@@ -3839,7 +3983,6 @@ def _mamba_serve():
     import numpy as np
     import torch
     from repro_torch.configs.base import get_config, with_kernel_backend
-    from repro_torch.launch.serve import closed_batch, slo_report
     from repro_torch.models.model import count_params, model_decls
     from repro_torch.parallel.axes import MeshAxes
     from repro_torch.parallel.params import materialize
@@ -4698,7 +4841,6 @@ def _family_serve(cfg, page, tag):
     import numpy as np
     import torch
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.launch.serve import closed_batch, slo_report
     from repro_torch.models.blocks import layer_plan
     from repro_torch.models.model import count_params, model_decls
     from repro_torch.parallel.axes import MeshAxes
@@ -5040,6 +5182,382 @@ def phase_encdec():
         "encdec_wire_bytes")
 
 
+def _dense_twin(params):
+    """A phantom model's tree as the tensor config's: each phantom site's
+    stacked factors replaced by the dense matrices it computes, layer by
+    layer (``core/phantom.py: phantom_dense_equivalent``)."""
+    import torch
+    from repro_torch.core.phantom import phantom_dense_equivalent
+    ffn = params["layers"]["ffn"]
+    for name, site in ffn.items():
+        if "L" in site:
+            ffn[name] = {"w": torch.stack([phantom_dense_equivalent(
+                {f: site[f][i] for f in ("L", "C", "D")})
+                for i in range(site["L"].shape[0])])}
+    return params
+
+
+def _replayed(cfg, params, axes, device, trace):
+    """Greedy streams of ``trace`` through a ``replay`` of this rank's
+    engine (``SLOTS`` slots, ``MAX_LEN``, page ``PAGE``)."""
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.traffic import replay, trace_requests
+    eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                      page_size=PAGE, axes=axes, device=device)
+    reqs = trace_requests(trace, cfg.vocab_size, seed=SEED)
+    replay(eng, reqs)
+    check(all(r.done for r in reqs), f"{cfg.name}: a request did not end")
+    return [list(r.out_tokens) for r in reqs]
+
+
+def _serve_parity(sc, axes, device, trace, dtype):
+    """The mesh engine's greedy streams of ``trace`` at
+    ``SERVE_MESH_PARITY_LAYERS`` layers in ``dtype`` activations, and on
+    the world's rank 0 alone those of the tp = 1 engine on the same global
+    weights (a phantom model's as its dense twin, the tensor config's
+    tree): {"mesh": streams, "tp1": streams or None}."""
+    import torch
+    from repro_torch.models.model import model_decls
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import materialize
+    from repro_torch.serve.router import ServeConfig, serve_params
+    cfg = sc.model_config().replace(num_layers=SERVE_MESH_PARITY_LAYERS,
+                                    dtype=dtype)
+    out = {"mesh": _replayed(cfg, serve_params(cfg, axes, SEED, device),
+                             axes, device, trace), "tp1": None}
+    _free()
+    if axes.rank == 0:
+        glob = materialize(model_decls(cfg, axes), torch.Generator(
+            device=device).manual_seed(SEED), device)
+        dense = ServeConfig(sc.arch, "tensor", 1, 1, sc.slots,
+                            sc.max_len, sc.page_size, smoke=False)
+        twin = dense.model_config().replace(
+            num_layers=SERVE_MESH_PARITY_LAYERS, dtype=dtype)
+        out["tp1"] = _replayed(twin, _dense_twin(glob), MeshAxes(), device,
+                               trace)
+        del glob
+        _free()
+    axes.world_comm.all_reduce(torch.zeros(1))     # rank 0 is done
+    return out
+
+
+def _mesh_layer_check(cfg, axes, params, toks):
+    """One 48-token prefill of this rank's rows, layer by layer in bf16 as
+    served: the kernel path's block and the plain path's
+    (``kernel_backend="xla"``) from the same input, each output and the
+    last position's logits within ``LOGIT_TOL`` of the layer's (the
+    logits') largest magnitude.  Phase 4 holds each element to rtol/atol
+    ``LOGIT_TOL`` at tp = 1, where only flash differs between the paths;
+    at tp > 1 the plain path rounds a phantom site's local and ghost
+    products to bf16 apart before it adds them, which moves elements
+    near zero by a bf16 step of the products' size, beyond that
+    elementwise tolerance at full width.  Returns the worst differences
+    and their share of the largest."""
+    import torch
+    from repro_torch.configs.base import with_kernel_backend
+    from repro_torch.models.blocks import block_apply
+    from repro_torch.models.layers import (embed_apply, head_logits,
+                                           norm_apply, residual_layout)
+    from repro_torch.models.model import _last_position
+    from repro_torch.parallel.params import tree_map
+    plain = with_kernel_backend(cfg, "xla")
+    lay = residual_layout(cfg, "prefill")
+    B, S = toks.shape
+    pos = torch.arange(S, device=toks.device).expand(B, S)
+    worst = worst_share = 0.0
+    with torch.no_grad():
+        h = embed_apply(cfg, lay, params["embed"], toks, axes)
+        for i in range(cfg.num_layers):
+            lp = tree_map(lambda t: t[i], params["layers"])
+            h_k, _, _ = block_apply(cfg, lay, lp, h, pos, axes,
+                                    kind="prefill", ffn="mlp")
+            h_x, _, _ = block_apply(plain, lay, lp, h, pos, axes,
+                                    kind="prefill", ffn="mlp")
+            err, share = _err_of_largest(h_k, h_x)
+            worst, worst_share = max(worst, err), max(worst_share, share)
+            check(share <= LOGIT_TOL, f"serve mesh: rank {axes.rank} layer "
+                                      f"{i}: kernel and plain paths differ "
+                                      f"by {share:.3e} of the largest")
+            h = h_k
+
+        def logits(x):
+            x = norm_apply(cfg, lay, params["final_norm"], x, axes)
+            return head_logits(cfg, lay, params["head"],
+                               _last_position(x, lay, axes),
+                               axes)[..., :cfg.vocab_size]
+        lg_k, lg_x = logits(h_k), logits(h_x)
+    check(bool(torch.isfinite(lg_k).all()), "serve mesh: non-finite logits")
+    lg_err, lg_share = _err_of_largest(lg_k, lg_x)
+    check(lg_share <= LOGIT_TOL, f"serve mesh: rank {axes.rank}: logits of "
+                                 f"the two paths differ by {lg_share:.3e} "
+                                 f"of the largest")
+    return {"per_layer_hidden": worst, "per_layer_share": worst_share,
+            "logits": lg_err, "logits_share": lg_share}
+
+
+def _err_of_largest(got, want):
+    """The largest elementwise difference and its share of ``want``'s
+    largest magnitude."""
+    d = (got.float() - want.float()).abs().max().item()
+    return d, d / max(want.float().abs().max().item(), 1e-30)
+
+
+def _profile_mesh_decode(cfg, params, axes, device):
+    """One decode step of a full batch on a fresh engine, every rank's
+    collectives timed (``record_collectives(timed=True)``), rank 0's
+    under ``torch.profiler``: wall ms, host ms in the collectives and
+    their count, and rank 0's device ms and device ops."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.parallel.axes import record_collectives
+    from repro_torch.serve.engine import Request, ServeEngine
+    eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                      page_size=PAGE, axes=axes, device=device)
+    rng = np.random.RandomState(SEED + 2)
+    eng.submit([Request(prompt=rng.randint(0, cfg.vocab_size, 16)
+                        .astype(np.int32), max_new_tokens=8)
+                for _ in range(SLOTS)])
+    eng.step()
+    torch.cuda.synchronize()
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if axes.rank == 0 else contextlib.nullcontext())
+    with record_collectives(timed=True) as clock, ctx as prof:
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    out = {"wall_ms": wall, "collective_ms": clock.collective_ms,
+           "device_wait_ms": clock.device_wait_ms, "calls": clock.calls}
+    if axes.rank == 0:
+        events = [e for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")]
+        device_ms = sum(e.self_device_time_total for e in events) / 1e3
+        out.update(device_ms=device_ms or None,
+                   device_ops=sum(e.count for e in events),
+                   top_device_ms={e.key[:60]: e.self_device_time_total / 1e3
+                                  for e in sorted(
+                                      events,
+                                      key=lambda e: -e.self_device_time_total
+                                  )[:5]})
+    while eng.has_active():
+        eng.step()
+    return out
+
+
+def _serve_mesh_rank(axes, device, impl, layers):
+    """``phase_serve_mesh`` inside one rank of the ``impl`` config's mesh:
+    (1) the parity streams at ``SERVE_MESH_PARITY_LAYERS`` layers, float32
+    and bf16 (``_serve_parity``); (2) the main path, ``run_config`` at
+    ``layers`` layers in bf16, kernel counts from 0 just before and read
+    just after; (3) the per-layer kernel-vs-plain check on its weights;
+    (4) one profiled decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.planner import paper_default_calibration
+    from repro_torch.serve.router import ServeConfig, run_config, serve_params
+    from repro_torch.serve.traffic import make_trace
+    sc = ServeConfig(SERVE_MESH_ARCH, impl, axes.dp, axes.tp, SLOTS,
+                     max_len=MAX_LEN, page_size=PAGE, smoke=False)
+    trace = make_trace(**SERVE_MESH_TRACE)
+    prefix = make_trace(**SERVE_MESH_TRACE,
+                        max_requests=SERVE_MESH_PARITY_REQUESTS)
+    out = {"parity": {dt: _serve_parity(sc, axes, device, prefix, dt)
+                      for dt in ("float32", "bfloat16")}}
+
+    cfg = sc.model_config().replace(num_layers=layers)
+    t0 = time.perf_counter()
+    params = serve_params(cfg, axes, SEED, device)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    res = run_config(sc, trace, axes, device=device, cfg=cfg, params=params,
+                     calib=paper_default_calibration(), seed=SEED,
+                     slo_ms=SERVE_MESH_SLO_MS)
+    torch.cuda.synchronize()
+    res.update(launches=_kernel_counts(), wall_s=time.perf_counter() - t0,
+               draw_s=draw_s,
+               weights_gb=sum(t.numel() * t.element_size()
+                              for t in _leaves(params)) / 1e9,
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    free, total = torch.cuda.mem_get_info()
+    res["card_used_gb"] = (total - free) / 1e9
+    out["main"] = res
+    rows = SLOTS // axes.dp
+    toks = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
+        0, cfg.vocab_size, (SLOTS, 48))[axes.dp_rank * rows:
+                                        (axes.dp_rank + 1) * rows]
+    ).long().to(device)
+    out["layers"] = _mesh_layer_check(cfg, axes, params, toks)
+    out["profile"] = _profile_mesh_decode(cfg, params, axes, device)
+    del params
+    _free()
+    return out
+
+
+def _first_parting(a, b):
+    """Per request, the index of the first token where two streams part
+    (None where they agree)."""
+    return [next((i for i, (x, y) in enumerate(zip(s, t)) if x != y),
+                 None if len(s) == len(t) else min(len(s), len(t)))
+            for s, t in zip(a, b)]
+
+
+def _serve_mesh_held(impl, ranks, cfg, layers):
+    """Hold one config's ranks: parity, launches, wire bytes, every
+    request's tokens; print what the phase measured.  Returns the
+    summary kept in the JSON."""
+    from repro_torch.serve.router import ServeConfig
+    from repro_torch.serve.traffic import make_trace
+    dp, tp = SERVE_MESH[impl]
+    trace = make_trace(**SERVE_MESH_TRACE)
+    tag = f"serve mesh {impl} dp {dp} x tp {tp}"
+    par = {dt: ranks[0]["parity"][dt] for dt in ("float32", "bfloat16")}
+    for dt in par:
+        check(all(r["parity"][dt]["mesh"] == par[dt]["mesh"] for r in ranks),
+              f"{tag}: ranks disagree on the {dt} streams")
+    f32 = par["float32"]
+    check(f32["mesh"] == f32["tp1"],
+          f"{tag}: float32 streams at {SERVE_MESH_PARITY_LAYERS} layers "
+          f"part from tp = 1's at {_first_parting(f32['mesh'], f32['tp1'])}")
+    parts = _first_parting(par["bfloat16"]["mesh"], par["bfloat16"]["tp1"])
+    print(f"{tag}: parity at {SERVE_MESH_PARITY_LAYERS} layers: float32 "
+          f"streams of the trace's first {SERVE_MESH_PARITY_REQUESTS} "
+          f"requests equal tp = 1's (held); bf16 "
+          f"streams part from tp = 1's at token {parts} (None: equal; "
+          f"printed, not held)", flush=True)
+    main = [r["main"] for r in ranks]
+    m0 = main[0]
+    for r in ranks:
+        check(r["main"]["streams"] == m0["streams"],
+              f"{tag}: ranks disagree on the served streams")
+    for s, t in zip(m0["streams"], trace):
+        check(len(s) == t.max_new_tokens and all(
+            0 <= x < cfg.vocab_size for x in s),
+            f"{tag}: a request ended with {len(s)} of {t.max_new_tokens} "
+            f"tokens")
+    # launches: the replay's steps plus the warm-up's (one prefill a
+    # bucket, one decode) and the measured account's probes (one each)
+    pre = m0["prefill_steps"] + m0["warmup_prefills"] + 1
+    dec = m0["decode_steps"] + 2
+    want = {"flash_attention": layers * pre,
+            "phantom_fused_matmul": (3 * layers * (pre + dec)
+                                     if impl == "phantom" else 0),
+            "matmul_nt": 0, "matmul_tn": 0}
+    for r in main:
+        check(r["launches"] == want, f"{tag}: launches {r['launches']}, "
+                                     f"want {want}")
+    S_probe = m0["probe_bucket"]
+    wire = {ph: serve_wire_bytes(cfg, SLOTS // dp, S_probe, tp, ph)
+            for ph in ("prefill", "decode")}
+    for r in main:
+        for ph in wire:
+            got = sum(c["wire_bytes"] for c in r["collectives"][ph].values())
+            check(got == wire[ph], f"{tag}: {ph} wire bytes {got}, counted "
+                                   f"{wire[ph]}")
+    ratio = {ph: m0["measured"][ph]["collective_wire_bytes_per_device"]
+             / m0["predicted"][ph]["collective_wire_bytes_per_device"]
+             for ph in wire}
+    slo = m0["slo"]
+    print(f"{tag}: {cfg.name} full width, {layers} layers, bf16, {SLOTS} "
+          f"slots, max_len {MAX_LEN}: weights per rank "
+          f"{[round(m['weights_gb'], 3) for m in main]} GB, peak "
+          f"{[round(m['peak_memory_gb'], 2) for m in main]} GB, card used "
+          f"{max(m['card_used_gb'] for m in main):.1f} GB; draw "
+          f"{max(m['draw_s'] for m in main):.1f} s, run_config "
+          f"{max(m['wall_s'] for m in main):.1f} s", flush=True)
+    print(f"{tag}: requests={slo['requests']} tokens="
+          f"{slo['generated_tokens']} TTFT p50={slo['ttft_ms']['p50']:.3f} "
+          f"p95={slo['ttft_ms']['p95']:.3f} ms TPOT p50="
+          f"{slo['tpot_ms']['p50']:.3f} p95={slo['tpot_ms']['p95']:.3f} ms "
+          f"tokens/s={slo['tokens_per_s']:.2f} slo_met="
+          f"{slo['slo_met_fraction']:.2f}; prefill groups "
+          f"{m0['prefill_steps']}, decode steps {m0['decode_steps']}",
+          flush=True)
+    print(f"{tag}: launches per rank {m0['launches']} (held: flash "
+          f"{layers} a prefill, phantom forward 3 x {layers} a prefill and "
+          f"a decode step); wire bytes a rank, probe bucket {S_probe}: "
+          f"prefill {wire['prefill']:.0f}, decode {wire['decode']:.0f} "
+          f"(serve_wire_bytes, held on every rank); measured/predicted "
+          f"wire {ratio}", flush=True)
+    print(f"{tag}: J/token measured {m0['j_per_token_measured']:.4e}; "
+          f"energy measured/predicted {m0['energy_ratio']} (the paper's "
+          f"model at the H100's fp32 peak, not power read from the card)",
+          flush=True)
+    agree = m0["telemetry"]["agreement"]
+    prof = [r["profile"] for r in ranks]
+    print(f"{tag}: one decode step: wall ms "
+          f"{[round(p['wall_ms'], 2) for p in prof]}, host ms in "
+          f"{prof[0]['calls']} collectives "
+          f"{[round(p['collective_ms'], 2) for p in prof]}; rank 0's device "
+          f"{prof[0]['device_ms']} ms, {prof[0]['device_ops']} device ops; "
+          f"top {prof[0]['top_device_ms']}", flush=True)
+    print(f"{tag}: the ranks' agreement (rank 0, host, unrecorded groups): "
+          f"{agree}; per-layer kernel vs plain (bf16, each within "
+          f"{LOGIT_TOL} of the largest): {[r['layers'] for r in ranks]}",
+          flush=True)
+    return {"parity": par, "bf16_parting": parts, "want_launches": want,
+            "wire_counted": wire, "wire_ratio_to_prediction": ratio,
+            "main": [{k: v for k, v in m.items() if k != "streams"}
+                     for m in main],
+            "streams": m0["streams"], "profile": prof,
+            "layer_check": [r["layers"] for r in ranks]}
+
+
+def phase_serve_mesh():
+    """Phase 17: chatglm3-6b served over meshes of ranks sharing the card
+    (gloo, card tensors through the host), through the router's
+    ``run_config``: (a) tensor sites at dp 2 x tp 4, (b) the phantom
+    candidate at dp 1 x tp 4; (c) the router's priced table over
+    ``SERVE_MESH_BUDGET`` devices at ``SERVE_MESH_SLO_MS``."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.planner import paper_default_calibration
+    from repro_torch.serve.router import (ServeConfig, candidate_configs,
+                                          route)
+    from repro_torch.serve.traffic import make_trace
+    _free()
+    kernels = _timed_kernels(
+        "serve mesh", torch.Generator(device="cuda").manual_seed(SEED),
+        SERVE_MESH_FLASH_SHAPES, SERVE_MESH_PHANTOM_SHAPES,
+        phantom_names=("phantom_fused_matmul",))
+    trace = make_trace(**SERVE_MESH_TRACE)
+    calib = paper_default_calibration()
+    winner, priced = route(candidate_configs(
+        SERVE_MESH_ARCH, SERVE_MESH_BUDGET, slots_options=(SLOTS,),
+        max_len=MAX_LEN, page_size=PAGE, smoke=False), calib, trace,
+        slo_ms=SERVE_MESH_SLO_MS)
+    print(f"serve mesh (c): route auto, slo {SERVE_MESH_SLO_MS:.0f} ms, "
+          f"{SERVE_MESH_BUDGET} devices, {calib.source}:", flush=True)
+    for pc in priced:
+        print(f"serve mesh (c): {'*' if pc is winner else ' '} "
+              f"{pc.config.name:<44s} J/tok={pc.j_per_token:.4e} "
+              f"ttft={pc.ttft_s * 1e3:.3f}ms tpot={pc.tpot_s * 1e3:.3f}ms "
+              f"slo_ok={pc.meets_slo}", flush=True)
+    out = {"kernels": kernels, "route": {
+        "winner": winner.config.name, "priced": [pc.as_dict()
+                                                 for pc in priced]}}
+    for impl, (dp, tp) in SERVE_MESH.items():
+        cfg = ServeConfig(SERVE_MESH_ARCH, impl, dp, tp, SLOTS,
+                          max_len=MAX_LEN, page_size=PAGE, smoke=False
+                          ).model_config().replace(
+                              num_layers=SERVE_MESH_LAYERS)
+        t0 = time.perf_counter()
+        ranks = spawn(_serve_mesh_rank, dp, tp, "cuda", timeout_s=600,
+                      args=(impl, SERVE_MESH_LAYERS))
+        out[impl] = _serve_mesh_held(impl, ranks, cfg, SERVE_MESH_LAYERS)
+        out[impl]["ranks_wall_s"] = time.perf_counter() - t0
+        print(f"serve mesh {impl}: ranks' wall {out[impl]['ranks_wall_s']:.1f}"
+              f" s", flush=True)
+        _free()
+    out["launches"] = {
+        k: sum(out[impl]["main"][0]["launches"][k] for impl in SERVE_MESH)
+        for k in ("flash_attention", "phantom_fused_matmul")}
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5080,6 +5598,7 @@ def main() -> int:
     hybrid = timed("hybrid", phase_hybrid)
     vlm = timed("vlm", phase_vlm)
     encdec = timed("encdec", phase_encdec)
+    serve_mesh = timed("serve_mesh", phase_serve_mesh)
     print(f"phases: {time.perf_counter() - t_start:.1f} s wall in all",
           flush=True)
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
@@ -5167,7 +5686,14 @@ def main() -> int:
                                  + ("cold_ms",)}}
                              for shape, r in zip(
                                  SEAMLESS_FLASH_SHAPES[2:],
-                                 encdec["kernels"]["flash"][2:])]}}]
+                                 encdec["kernels"]["flash"][2:])]},
+        "serve_mesh": {"launches": serve_mesh["launches"]["flash_attention"],
+                       "shapes": [
+                           {"shape": list(shape), **{
+                               key: r[key] for key in TIMED + ("cold_ms",)}}
+                           for shape, r in zip(
+                               SERVE_MESH_FLASH_SHAPES,
+                               serve_mesh["kernels"]["flash"])]}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -5253,7 +5779,17 @@ def main() -> int:
                            for r in res["kernels"]["cases"]
                            if r["kernel"] == name]}
                for tag, res in (("jamba_tp4", hybrid), ("qwen2vl_tp4", vlm),
-                                ("seamless_tp4", encdec))}})
+                                ("seamless_tp4", encdec))},
+            **({"serve_mesh": {
+                "launches": serve_mesh["launches"][name],
+                "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
+                            **{key: r[key] for key in TIMED},
+                            "cold_ms": serve_mesh["kernels"]["cold"][str(
+                                [r["M"], r["K"], r["N"], r["PK"]])][name][
+                                "cold_ms"]}
+                           for r in serve_mesh["kernels"]["cases"]
+                           if r["kernel"] == name]}}
+               if name == "phantom_fused_matmul" else {})})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(
@@ -5262,7 +5798,7 @@ def main() -> int:
          "lm_train": lm, "lm_train_tp": lm_tp, "qwen_train_tp": qwen,
          "lm_train_pp": lm_pp, "moe": moe, "ssm_fsdp": ssm,
          "hybrid": hybrid, "vlm": vlm, "encdec": encdec,
-         "phase_wall_s": walls, "ledger": ledger,
+         "serve_mesh": serve_mesh, "phase_wall_s": walls, "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

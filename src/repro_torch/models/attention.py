@@ -21,12 +21,22 @@
   all-gather, ``attn_ring_gather_kv``) into the plain blockwise core.
   As in the reference, ring mode never runs the flash kernel.
 
-Decode attends the new token against the KV cache with the plain core
-and writes the token's K/V into the cache in place (the reference
-returns a new, donated cache instead).  The reference's sequence-sharded
-cache merges per-rank partials with a log-sum-exp psum; with one rank
-that merge is the identity.  Prefill and decode at tp > 1 are serving's
-(``SERVE_TP_TODO``).
+Serving (prefill and decode) runs in head mode at any tp; ring mode and
+cross-attention serve at tp = 1 only (``SERVE_TP_TODO``).  Prefill
+emits its K/V in the decode cache's layout, sequence-sharded
+``[B, S/p, kv, hd]``: an all-to-all from head shards onto sequence
+shards when the model axis divides the KV heads, else the rank's
+sequence chunk of the replicated K/V (``_emit_cache_head_mode``).
+Decode gathers the new token's query heads (and its K/V heads when
+they are sharded), writes each row's K/V into the rank whose chunk of
+``max_len / p`` positions holds ``pos`` (in place; the reference
+returns a new, donated cache instead), attends the plain core over the
+rank's chunk and merges the ranks' partials with the flash-decoding
+log-sum-exp merge: the max over ranks, then the sums of the rescaled
+numerators and denominators.  ``wo`` is then a row projection whose
+partial sums are reduced into the layout, or, phantom, reads the
+rank's feature slice of the merged heads.  With one rank the gathers
+and the merge are the identity and are skipped.
 
 Cross-attention (the encoder-decoder's ``cross`` sub-layer, ``cross=True``
 with the encoder's output ``memory``, full ``[B, S_enc, d]`` on every
@@ -47,7 +57,8 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import PHANTOM_KINDS
-from repro_torch.core.autograd import all_gather_tiled, ppermute
+from repro_torch.core.autograd import (all_gather_tiled, all_to_all, pmax,
+                                       ppermute, psum)
 from repro_torch.kernels.ops import (flash_attention_supported,
                                      flash_attention_vjp,
                                      resolve_kernel_backend)
@@ -220,35 +231,32 @@ def attention(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
               pos=None, return_kv: bool = False, decls=None, memory=None,
               cross: bool = False):
     """Returns (out, new_kv or None): ``out`` the residual shard in
-    ``layout``.  kind: train | prefill | decode (prefill and decode at
-    tp = 1 only).  Decode writes into ``cache`` ({k, v}
-    [B, Smax, kv, hd]) in place; a cross decode (``cross``) only reads
-    it.  ``memory`` ([B, S_enc, d], with ``cross``): the encoder output
-    that K and V project.  ``decls`` (FSDP): the projections'
-    dp-sharded weights are gathered first, as the reference's ``_g``
-    gathers them (int8 only for the decode's ``wq`` under
-    ``fsdp_gather_quant``)."""
-    if kind != "train" and axes.tp > 1:
+    ``layout``.  kind: train | prefill | decode (serving in ring mode or
+    cross-attention at tp = 1 only).  Decode writes into ``cache``
+    ({k, v}, this rank's chunk [B, Smax/p, kv, hd]) in place; a cross
+    decode (``cross``) only reads it.  ``memory`` ([B, S_enc, d], with
+    ``cross``): the encoder output that K and V project.  ``decls``
+    (FSDP): the projections' dp-sharded weights are gathered first, as
+    the reference's ``_g`` gathers them (int8 only for the decode's
+    ``wq`` under ``fsdp_gather_quant``)."""
+    if kind != "train" and axes.tp > 1 and (
+            cross or resolve_attn_mode(cfg, axes) == "ring"):
         raise NotImplementedError(
-            f"{kind} attention at tp={axes.tp}: see {SERVE_TP_TODO}")
+            f"{kind} of {'cross' if cross else 'ring'} attention at "
+            f"tp={axes.tp}: see {SERVE_TP_TODO}")
     params = {name: _fs(params, decls, name, axes,
                         cfg.fsdp_gather_quant and kind == "decode"
                         and name == "wq")
               for name in params}
     if kind == "decode":
-        return _attention_decode(cfg, params, x, axes, cache=cache, pos=pos,
-                                 cross=cross)
+        return _attention_decode(cfg, layout, params, x, axes, cache=cache,
+                                 pos=pos, cross=cross)
     if resolve_attn_mode(cfg, axes) == "ring" and not cross:
         return _attention_ring(cfg, layout, params, x, positions, axes,
                                causal=causal, return_kv=return_kv)
     return _attention_head(cfg, layout, params, x, positions, axes,
                            causal=causal, return_kv=return_kv,
                            memory=memory if cross else None)
-
-
-def _project(st, params, x, nheads, hd, dtype):
-    y = st.apply(params, x, compute_dtype=dtype)
-    return y.reshape(*y.shape[:-1], nheads, hd)
 
 
 def _site_proj(st, params, x_full, x_shard, nheads, hd, axes, dtype):
@@ -336,15 +344,26 @@ def _attention_head(cfg, layout, params, x, positions, axes, *, causal,
         res = from_partial(sts["wo"].apply(params["wo"], out,
                                            compute_dtype=dtype),
                            layout, axes)
-    new_kv = _emit_cache_head_mode(k, v) if return_kv else None
+    new_kv = (_emit_cache_head_mode(k, v, kv_sharded, axes) if return_kv
+              else None)
     return res, new_kv
 
 
-def _emit_cache_head_mode(k, v):
-    """Prefill-layout KV -> the decode cache layout [B, S, kv, hd]; the
-    reference's all-to-all onto sequence shards is the identity at
-    p = 1."""
-    return {"k": k, "v": v}
+def _emit_cache_head_mode(k, v, kv_sharded: bool, axes: MeshAxes):
+    """Prefill-layout K/V -> the decode cache's layout, sequence-sharded
+    [B, S/p, kv, hd]: head shards [B, S, kv/p, hd] cross one all-to-all
+    onto sequence shards; replicated K/V [B, S, kv, hd] (kv % p != 0)
+    are the same on every rank, which keeps its sequence chunk.  The
+    identity at p = 1."""
+    p = axes.tp
+    if p == 1:
+        return {"k": k, "v": v}
+    if kv_sharded:
+        return {"k": all_to_all(k, axes, 1, 2),
+                "v": all_to_all(v, axes, 1, 2)}
+    C, j = k.shape[1] // p, axes.tp_rank
+    return {"k": k[:, j * C:(j + 1) * C].contiguous(),
+            "v": v[:, j * C:(j + 1) * C].contiguous()}
 
 
 def _attention_ring(cfg, layout, params, x, positions, axes, *, causal,
@@ -410,15 +429,32 @@ def _attention_ring(cfg, layout, params, x, positions, axes, *, causal,
     return res, ({"k": k, "v": v} if return_kv else None)
 
 
-def _attention_decode(cfg, params, x, axes, *, cache, pos, cross=False):
+def _attention_decode(cfg, layout, params, x, axes, *, cache, pos,
+                      cross=False):
     H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    p, j = axes.tp, axes.tp_rank
     dtype = dtype_of(cfg.dtype)
     sts = attn_site_strategies(cfg, axes, cross=cross)
+    # the new token's features: full for the tensor sites, the rank's
+    # shard for the phantom ones (every rank needs every head: the
+    # projections' head shards are gathered, a few rows each)
+    x_full = to_full(x, layout, axes)
+    x_shard = x if layout == "fp" else x_full
     B = x.shape[0]
-    q = _project(sts["wq"], params["wq"], x, H, hd, dtype)     # [B,1,H,hd]
+    q = _site_proj(sts["wq"], params["wq"], x_full, x_shard, H // p, hd,
+                   axes, dtype)                               # [B,1,H/p,hd]
+    if p > 1:
+        q = all_gather_tiled(q, axes, 2)
     if not cross:
-        kn = _project(sts["wk"], params["wk"], x, kv, hd, dtype)
-        vn = _project(sts["wv"], params["wv"], x, kv, hd, dtype)
+        if kv % p == 0:
+            kn, vn = (_site_proj(sts[n], params[n], x_full, x_shard,
+                                 kv // p, hd, axes, dtype)
+                      for n in ("wk", "wv"))
+            if p > 1:
+                kn, vn = (all_gather_tiled(t, axes, 2) for t in (kn, vn))
+        else:
+            kn, vn = (_replicated_proj(params[n], x_full, kv, hd, dtype)
+                      for n in ("wk", "wv"))
 
     pos = pos.reshape(B).to(torch.long)
     if cfg.rope != "none":
@@ -429,29 +465,44 @@ def _attention_decode(cfg, params, x, axes, *, cache, pos, cross=False):
         if not cross:
             kn = ropemod.rope_for(cfg, kn, at)
 
-    # --- cache update, in place: each row writes its new kv at pos ------
+    # --- cache update, in place: the rank whose chunk of ``chunk``
+    # positions holds a row's ``pos`` writes that row's new K/V ---------
     ck, cv = cache["k"], cache["v"]
     chunk = ck.shape[1]
     if not cross:
-        in_range = ((pos >= 0) & (pos < chunk))[:, None, None]
-        widx = pos.clamp(0, chunk - 1)
+        local = pos - j * chunk
+        in_range = ((local >= 0) & (local < chunk))[:, None, None]
+        widx = local.clamp(0, chunk - 1)
         rows = torch.arange(B, device=x.device)
         ck[rows, widx] = torch.where(in_range, kn[:, 0].to(ck.dtype),
                                      ck[rows, widx])
         cv[rows, widx] = torch.where(in_range, vn[:, 0].to(cv.dtype),
                                      cv[rows, widx])
 
-    # --- attention over the cache (one rank: the LSE merge is identity);
-    # a cross read weighs every row, the zero rows past the encoder's
-    # length among them, as the reference's does
+    # --- partial attention over the rank's chunk; a cross read weighs
+    # every row, the zero rows past the encoder's length among them, as
+    # the reference's does
     acc = init_acc(B, 1, kv, H // kv, hd, device=x.device)
     acc = attn_block_update(
-        acc, _gqa_q(q, kv), ck, cv, pos[:, None], 0, causal=not cross,
-        kv_limit=None if cross else pos + 1,
+        acc, _gqa_q(q, kv), ck, cv, pos[:, None], j * chunk,
+        causal=not cross, kv_limit=None if cross else pos + 1,
         kv_chunk=_kv_chunk(cfg, chunk, min(1024, chunk)),
         scores_dtype=(torch.bfloat16 if cfg.attn_bf16_scores
                       else torch.float32))
-    out = (acc.num / acc.l.clamp_min(1e-30)[..., None])
+    num, den = acc.num, acc.l
+    if p > 1:
+        # the flash-decoding merge of the ranks' partials
+        w = torch.exp(acc.m - pmax(acc.m, axes))
+        num = psum(num * w[..., None], axes)
+        den = psum(den * w, axes)
+    out = (num / den.clamp_min(1e-30)[..., None])
     out = out.reshape(B, 1, H * hd).to(dtype)
-    res = sts["wo"].apply(params["wo"], out, compute_dtype=dtype)
-    return res, cache
+
+    # --- output projection: each rank's slice of the merged heads
+    nshard = (H * hd) // p
+    mine = out[..., j * nshard:(j + 1) * nshard]
+    if _is_phantom(sts["wo"]):
+        return sts["wo"].apply(params["wo"], mine, axes=axes,
+                               compute_dtype=dtype), cache
+    z = sts["wo"].apply(params["wo"], mine, compute_dtype=dtype)
+    return from_partial(z, layout, axes), cache

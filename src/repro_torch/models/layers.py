@@ -28,7 +28,7 @@ from repro_torch.core import tp as tpmod
 from repro_torch.core.autograd import (all_gather_dp, all_gather_tiled,
                                        all_to_all, pmax, psum,
                                        psum_scatter_tiled)
-from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
+from repro_torch.parallel.axes import MeshAxes
 from repro_torch.parallel.params import ParamDecl
 from repro_torch.parallel.strategies import site_strategy
 
@@ -329,16 +329,21 @@ def _head_w(cfg, params, axes):
 
 
 def head_logits(cfg, layout: str, params, h_last, axes: MeshAxes):
-    """h_last [B, 1, d] -> float32 logits [B, 1, V_pad], padded columns
-    masked to -1e30.  Serving only: at tp > 1 it raises."""
-    if axes.tp > 1:
-        raise NotImplementedError(
-            f"logits of the vocab-sharded head at tp={axes.tp}: see "
-            f"{SERVE_TP_TODO}")
+    """h_last [B, 1, d] (in ``fp``: the feature shard [B, 1, d/p]) ->
+    float32 logits [B, 1, V_pad], padded columns masked to -1e30.  At
+    tp > 1 each rank multiplies by its vocab shard of the head and the
+    shards' logits are all-gathered over the model axis, as the
+    reference's are."""
     w = _head_w(cfg, params, axes)
-    logits = h_last.to(torch.float32) @ w.to(torch.float32)
-    col_ok = torch.arange(w.shape[1], device=w.device) < cfg.vocab_size
-    return logits.masked_fill(~col_ok, NEG_INF)
+    h = to_full(h_last, layout, axes) if layout == "fp" else h_last
+    logits = h.to(torch.float32) @ w.to(torch.float32)
+    vshard = w.shape[1]
+    col_ok = (axes.tp_rank * vshard
+              + torch.arange(vshard, device=w.device)) < cfg.vocab_size
+    logits = logits.masked_fill(~col_ok, NEG_INF)
+    if axes.tp == 1:
+        return logits
+    return all_gather_tiled(logits, axes, -1)
 
 
 def _xent_chunk(cfg, w, h, labels, axes):

@@ -15,8 +15,12 @@ of its own).  The residual stream keeps the reference's layout
 (``models/layers.py: residual_layout``): feature-sharded where a site is
 phantom, sequence-sharded otherwise.  Training runs at any pp x dp x tp
 (``forward_train_pipeline`` at pp > 1); prefill and decode (serving) at
-tp = 1.  An MoE block adds its balance loss to the training forward's
-``aux`` (the reference's scan carry).  The decode cache holds, per
+any dp x tp for the dense family in head mode, at tp = 1 for the others
+(``require_serving_mesh``).  At tp > 1 the decode cache is
+sequence-sharded, each rank holding ``max_len / tp`` positions of every
+row of its dp shard (``rank_cache_decls``).  An MoE block adds its
+balance loss to the training forward's ``aux`` (the reference's scan
+carry).  The decode cache holds, per
 layer, the attention's K/V or the SSD state ``{"conv", "ssm"}`` (no
 sequence dim); a hybrid's, the same per sub.
 Under FSDP (``cfg.fsdp``) the embedding and the head gather their
@@ -42,6 +46,8 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.autograd import psum
+from repro_torch.models.attention import resolve_attn_mode
 from repro_torch.models.blocks import (block_apply, block_decls,
                                        block_train, layer_plan, plan_period,
                                        superblock_train)
@@ -143,10 +149,15 @@ def _pp_shard_layer_decls(layers, pp: int):
     return tree_map(reshape, layers)
 
 
-def _require_one_rank(axes: MeshAxes, what: str):
-    if axes.tp > 1:
-        raise NotImplementedError(f"{what} at tp={axes.tp}: see "
-                                  f"{SERVE_TP_TODO}")
+def require_serving_mesh(cfg: ModelConfig, axes: MeshAxes, what: str):
+    """Serving at tp > 1 covers the dense family in head mode; the other
+    families and ring attention serve at tp = 1."""
+    if axes.tp > 1 and (cfg.family != "dense"
+                        or resolve_attn_mode(cfg, axes) != "head"):
+        raise NotImplementedError(
+            f"{what} of {cfg.name} (family {cfg.family!r}, attention "
+            f"{resolve_attn_mode(cfg, axes)!r}) at tp={axes.tp}: see "
+            f"{SERVE_TP_TODO}")
 
 
 def count_params(cfg: ModelConfig, tp: int = 1,
@@ -375,7 +386,7 @@ def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
     if cfg.family == "encdec":
         return _encdec_forward_prefill(cfg, axes, params, batch)
     plan = _plan(cfg)
-    _require_one_rank(axes, "prefill")
+    require_serving_mesh(cfg, axes, "prefill")
     layout = residual_layout(cfg, "prefill")
     tokens = batch["tokens"]
     B, S = tokens.shape
@@ -392,8 +403,19 @@ def forward_prefill(cfg: ModelConfig, axes: MeshAxes, params, batch):
         caches.append(group[0] if len(plan) == 1 else
                       {f"sub{j}": c for j, c in enumerate(group)})
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
-    logits = head_logits(cfg, layout, params["head"], h[:, -1:, :], axes)
+    logits = head_logits(cfg, layout, params["head"],
+                         _last_position(h, layout, axes), axes)
     return logits, _stack_caches(caches)
+
+
+def _last_position(h, layout: str, axes: MeshAxes):
+    """The stream's last position [B, 1, d-shard]; in ``sp`` only the
+    last rank's chunk holds it, and one psum of the ranks' last rows,
+    the others zeroed, gives it to every rank (the reference's)."""
+    if layout != "sp" or axes.tp == 1:
+        return h[:, -1:, :]
+    mine = 1.0 if axes.tp_rank == axes.tp - 1 else 0.0
+    return psum(h[:, -1:, :] * mine, axes)
 
 
 def forward_decode(cfg: ModelConfig, axes: MeshAxes, params, cache,
@@ -404,7 +426,7 @@ def forward_decode(cfg: ModelConfig, axes: MeshAxes, params, cache,
     if cfg.family == "encdec":
         return _encdec_forward_decode(cfg, axes, params, cache, tokens, pos)
     plan = _plan(cfg)
-    _require_one_rank(axes, "decode")
+    require_serving_mesh(cfg, axes, "decode")
     layout = residual_layout(cfg, "decode")
     h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     for i in range(n_groups(cfg)):
@@ -452,6 +474,30 @@ def cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
     if len(plan) == 1:
         return one(plan[0][0])
     return {f"sub{i}": one(mx) for i, (mx, _) in enumerate(plan)}
+
+
+def rank_cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
+                     max_len: int):
+    """This rank's shard of ``cache_decls``: every leaf's batch dim cut
+    over dp (``batch / dp`` rows), and at tp > 1 the attention K/V's
+    sequence dim cut over the model axis (``max_len / tp`` positions,
+    rank j holding ``[j max_len / tp, (j + 1) max_len / tp)``), as the
+    reference's ``P(dp, "tp", None, None)`` cache specs cut them."""
+    if batch % axes.dp or max_len % axes.tp:
+        raise ValueError(f"a cache of {batch} rows x {max_len} positions "
+                         f"does not shard over dp={axes.dp} x "
+                         f"tp={axes.tp}")
+    require_serving_mesh(cfg, axes, "the decode cache")
+
+    def cut(path, spec):
+        shape = list(spec.shape)
+        shape[1] //= axes.dp
+        if path.split("/")[-1] in ("k", "v"):
+            shape[2] //= axes.tp
+        return TensorSpec(tuple(shape), spec.dtype)
+    glob = cache_decls(cfg, axes, batch, max_len)
+    return tree_unflatten(glob, {path: cut(path, spec) for path, spec
+                                 in tree_leaves(glob)})
 
 
 # ---------------------------------------------------------------------------
@@ -505,7 +551,7 @@ def _encdec_forward_train(cfg, axes: MeshAxes, params, batch):
 
 
 def _encdec_forward_prefill(cfg, axes: MeshAxes, params, batch):
-    _require_one_rank(axes, "prefill")
+    require_serving_mesh(cfg, axes, "prefill")
     layout = residual_layout(cfg, "prefill")
     memory = _enc_stack(cfg, layout, params, axes, batch["frames"],
                         kind="prefill")
@@ -528,7 +574,7 @@ def _encdec_forward_prefill(cfg, axes: MeshAxes, params, batch):
 def _encdec_forward_decode(cfg, axes: MeshAxes, params, cache, tokens, pos):
     """The decoder's step: each layer writes its self K/V row into
     ``cache["self"]`` in place and reads ``cache["cross"]`` whole."""
-    _require_one_rank(axes, "decode")
+    require_serving_mesh(cfg, axes, "decode")
     layout = residual_layout(cfg, "decode")
     h = embed_apply(cfg, layout, params["embed"], tokens, axes)
     for i in range(cfg.num_layers):

@@ -20,21 +20,25 @@ it is open: the measured half of the energy ledger's wire bytes
 A pipeline stage's send to its neighbour and a ``ppermute`` hop are
 logged as the reference's ``collective_permute``, on the sending rank.
 ``record_collectives(timed=True)`` also sums the host time of each
-all-gather, reduce-scatter, all-reduce, all-to-all and ppermute.
+all-gather, reduce-scatter, all-reduce, all-to-all and ppermute.  A
+group made with ``recorded=False`` (``Group.unrecorded``) is left out
+of both: the serving engine's agreement of its ranks (the clock, the
+sampled tokens, the cache's relayout) is host bookkeeping, not the
+model's collectives.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Iterator, List, Optional
 
 import torch
 
-SERVE_TP_TODO = ("ROADMAP.md queue 1, item 1 (serving at tp > 1: the "
-                 "sequence-sharded decode cache, ring attention and the "
-                 "residual layouts)")
+SERVE_TP_TODO = ("ROADMAP.md queue 1, item 1 (serving at tp > 1 of the "
+                 "MoE, SSM, hybrid, vision-language and encoder-decoder "
+                 "families and of ring attention)")
 
 
 @dataclass(frozen=True)
@@ -126,9 +130,19 @@ class Group:
     backend: str = "none"
     via_host: bool = False
     ranks: tuple = ()
+    recorded: bool = True
+
+    def unrecorded(self) -> "Group":
+        """The same ranks and process group, left out of every
+        ``record_collectives()`` log."""
+        return replace(self, recorded=False)
+
+    def _issue(self, collective: str, t: torch.Tensor, issued_as: str):
+        if self.recorded:
+            _issued(collective, t, self.size, issued_as)
 
     def _run(self, t: torch.Tensor, op):
-        clocks = _clocks()
+        clocks = _clocks() if self.recorded else []
         if not clocks:
             return self._exchange(t, op)
         card = t.device.type == "cuda"
@@ -159,8 +173,8 @@ class Group:
             return t.detach().unsqueeze(0).clone()
         import torch.distributed as dist
         nccl = self.backend == "nccl"
-        _issued("all_gather", t, self.size,
-                "all_gather_into_tensor" if nccl else "all_gather")
+        self._issue("all_gather", t,
+                    "all_gather_into_tensor" if nccl else "all_gather")
 
         def op(x):
             if nccl:
@@ -184,8 +198,8 @@ class Group:
             return t.detach()[0].clone()
         import torch.distributed as dist
         nccl = self.backend == "nccl"
-        _issued("reduce_scatter", t[0], self.size,
-                "reduce_scatter_tensor" if nccl else "all_reduce")
+        self._issue("reduce_scatter", t[0],
+                    "reduce_scatter_tensor" if nccl else "all_reduce")
 
         def op(x):
             if nccl:
@@ -203,7 +217,7 @@ class Group:
         if self.size == 1:
             return t.detach().clone()
         import torch.distributed as dist
-        _issued("all_reduce", t, self.size, "all_reduce")
+        self._issue("all_reduce", t, "all_reduce")
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
 
         def run(x):
@@ -227,7 +241,7 @@ class Group:
                     else torch.zeros_like(t.detach()))
         import torch.distributed as dist
         if dst:
-            _issued("collective_permute", t, self.size, "isend")
+            self._issue("collective_permute", t, "isend")
 
         def op(x):
             out = torch.zeros_like(x)
@@ -255,7 +269,7 @@ class Group:
         if self.size == 1:
             return t.detach().clone()
         import torch.distributed as dist
-        _issued("all_to_all", t, self.size, "all_to_all_single")
+        self._issue("all_to_all", t, "all_to_all_single")
 
         def op(x):
             parts = torch.stack(x.chunk(self.size, dim=split_dim))
@@ -270,7 +284,7 @@ class Group:
         so two neighbours that both send first cannot deadlock.  Logged
         as ``collective_permute`` (one hop) on this, the sending, rank."""
         import torch.distributed as dist
-        _issued("collective_permute", t, self.size, "isend")
+        self._issue("collective_permute", t, "isend")
         buf = t.detach().contiguous()
         if self.via_host:
             buf = buf.cpu()

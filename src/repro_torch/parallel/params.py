@@ -14,7 +14,8 @@ package's decl tree, layers stacked on axis 0.  From one decl tree:
     the device, since torch's CUDA generator draws others than its CPU
     one for the same seed.  ``draw_on=device`` draws on the rank's
     device instead: the same numbers on every rank of one card type,
-    for a model too large to draw on the host;
+    for a model too large to draw on the host
+    (``materialize_shards_in_turn``: ranks sharing a card take turns);
   * ``param_count(decls)``;
   * ``stack(decls, n)`` -> per-layer decls with a leading layer axis;
   * ``shard_params(tree, decls, axes)`` -> one rank's local views, cut as
@@ -113,6 +114,28 @@ def materialize_shards(decls, axes, seed: int, device, draw_on="cpu"):
         flat[path] = shard_params(leaf, d, axes).to(device)
         del leaf
     return tree_unflatten(decls, flat)
+
+
+def materialize_shards_in_turn(decls, axes, seed: int, device, cast=None):
+    """``materialize_shards`` drawn on ``device`` (``cast``, if given,
+    applied to the rank's tree at once).  Ranks that share a card (gloo
+    through the host) draw in turn, each returning the global leaf's
+    memory to the card before the next starts: otherwise each would hold
+    a global leaf at once.  Every rank calls it (a turn ends with an
+    all-reduce over the world)."""
+    world = axes.world_comm
+    shared = (device.type == "cuda" and world.size > 1 and world.via_host)
+    params = None
+    for turn in range(world.size if shared else 1):
+        if not shared or turn == axes.rank:
+            params = materialize_shards(decls, axes, seed, device,
+                                        draw_on=device)
+            if cast is not None:
+                params = cast(params)
+        if shared:
+            torch.cuda.empty_cache()
+            world.all_reduce(torch.zeros(1))       # the turn ends
+    return params
 
 
 def tree_unflatten(tree, flat, prefix: str = ""):

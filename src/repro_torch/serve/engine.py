@@ -1,6 +1,29 @@
-"""Batched serving engine on one device: prefill + decode steps with
-continuous batching (slots with per-slot positions; finished slots are
-refilled without stalling the running batch).
+"""Batched serving engine: prefill + decode steps with continuous
+batching (slots with per-slot positions; finished slots are refilled
+without stalling the running batch), on one device or over a dp x tp
+mesh.
+
+Over a mesh the engine is SPMD, one engine per rank (the reference runs
+one program over the mesh instead):
+
+  * every rank holds the same scheduler, page table and slot state and
+    takes the same decisions; dp shards the slots (rank d runs the rows
+    ``[d slots/dp, (d + 1) slots/dp)`` of every step), tp the model;
+  * each rank samples the slots it runs and the sampled tokens are
+    all-gathered over dp, so every rank sees every slot's token;
+  * one virtual clock: each step's wall time is the maximum over the
+    ranks, so ``replay`` admits the same arrivals everywhere;
+  * a prefill leaves rank j of the model axis holding positions
+    ``[j S/tp, (j + 1) S/tp)`` of its rows; the decode cache wants
+    ``[j max_len/tp, (j + 1) max_len/tp)``.  After the metered prefill
+    the group's rows are all-gathered over tp and each rank keeps its
+    chunk (``_splice``): a prompt of ``S <= max_len/tp`` lands wholly on
+    rank 0.
+
+The agreement (clock, tokens, relayout) runs on ``Group.unrecorded``
+copies of the mesh's groups: it is host bookkeeping, kept out of the
+model's collectives that ``record_collectives`` counts, and its host
+time, calls and bytes are summed in ``agreement`` by kind.
 
 Around the physical KV cache sit the same runtime layers as in the
 reference: ``kv_cache.PagedKVCache`` (page admission and occupancy),
@@ -50,17 +73,17 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.launch.specs import cache_specs, input_specs
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (forward_decode, forward_prefill,
-                                      n_vision_tokens, serving_params)
-from repro_torch.parallel.axes import (SERVE_TP_TODO, MeshAxes,
-                                      resolve_device)
+                                      n_vision_tokens, rank_cache_decls,
+                                      require_serving_mesh, serving_params)
+from repro_torch.parallel.axes import MeshAxes, resolve_device
 from repro_torch.parallel.params import (tree_leaves, tree_map,
                                          tree_unflatten)
 from repro_torch.serve.kv_cache import PagedKVCache
 from repro_torch.serve.sampling import Sampler, SamplingParams
 from repro_torch.serve.scheduler import Scheduler
+from repro_torch.telemetry.ledger import LedgerEntry
 from repro_torch.telemetry.meter import StepMeter
 
 # model families whose prefill folds the tokens into a recurrent state:
@@ -89,26 +112,44 @@ class Request:
 
 
 class ServeEngine:
-    """Slot-based continuous batching on one device.
+    """Slot-based continuous batching on this rank of a dp x tp mesh
+    (one device: ``axes=None``).
 
-    ``params`` is the model's parameter tree (any device and dtype); the
-    engine moves it to ``device`` and casts it for serving once
+    ``params`` is this rank's parameter tree (any device and dtype): the
+    global tree on one device, the rank's shards on a mesh
+    (``parallel/params.py: shard_params`` or ``materialize_shards``);
+    the engine moves it to ``device`` and casts it for serving once
     (``models.model.serving_params``).  ``device`` defaults to the card.
-    """
+    ``ledger``: ``run`` and ``close`` record the meters' window to it
+    (``record_to``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 8,
                  max_len: int = 256, page_size: int = 16,
-                 axes: Optional[MeshAxes] = None, device=None):
+                 axes: Optional[MeshAxes] = None, device=None, ledger=None,
+                 order: str = "fcfs"):
         self.cfg = cfg
-        self.axes = axes or MeshAxes()
-        if self.axes.tp * self.axes.dp > 1:
-            raise NotImplementedError(
-                f"ServeEngine on dp={self.axes.dp} tp={self.axes.tp}: it "
-                f"serves on one device; see {SERVE_TP_TODO}")
+        self.axes = axes = axes or MeshAxes()
+        require_serving_mesh(cfg, axes, "ServeEngine")
+        # every bucket-padded prefill length must split over the model
+        # axis, and the slots over dp (the reference's checks)
+        if page_size % axes.tp:
+            raise ValueError(
+                f"page_size {page_size} must be a multiple of the "
+                f"model-axis size {axes.tp} (sequence-shard divisibility of "
+                f"bucket-padded prefills)")
+        if slots % axes.dp or max_len % axes.tp:
+            raise ValueError(f"{slots} slots x max_len {max_len} do not "
+                             f"shard over dp={axes.dp} x tp={axes.tp}")
         self.device = resolve_device(device)
         self.params = serving_params(cfg, params, self.device)
         self.slots = slots
         self.max_len = max_len
+        self.ledger = ledger
+        self._ledger_window = 0
+        self._closed = False
+        # this rank's rows of every step
+        n = slots // axes.dp
+        self.rows = range(axes.dp_rank * n, (axes.dp_rank + 1) * n)
         self.prefill_meter = StepMeter(f"prefill_{cfg.name}", warmup=1,
                                        device=self.device)
         self.decode_meter = StepMeter(f"decode_{cfg.name}", warmup=1,
@@ -116,11 +157,17 @@ class ServeEngine:
         self.pages = PagedKVCache(slots, max_len, page_size)
         # dense prompts can be right-padded: mixed-length bucketed groups
         self.recurrent = cfg.family in RECURRENT_FAMILIES
-        self.scheduler = Scheduler(bucket=page_size, pages=self.pages,
+        self.scheduler = Scheduler(bucket=page_size, order=order,
+                                   pages=self.pages,
                                    mixed_lengths=not self.recurrent)
-        # virtual clock: wall seconds of executed steps
+        # virtual clock: wall seconds of executed steps x clock_scale
         self.now_s = 0.0
-        self._cache_shape = ShapeConfig("serve", max_len, slots, "decode")
+        self.clock_scale = 1.0
+        self._agree = {name: g.unrecorded() for name, g in (
+            ("world", axes.world_comm), ("dp", axes.dp_comm),
+            ("tp", axes.tp_comm)) if g.size > 1}
+        self.agreement = {kind: {"calls": 0, "ms": 0.0, "bytes": 0}
+                          for kind in ("clock", "tokens", "relayout")}
         self.cache = self._zero_cache()
         self.pos = np.zeros((slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * slots
@@ -129,14 +176,15 @@ class ServeEngine:
     def _zero_cache(self):
         return tree_map(lambda s: torch.zeros(s.shape, dtype=s.dtype,
                                               device=self.device),
-                        cache_specs(self.cfg, self._cache_shape, self.axes))
+                        rank_cache_decls(self.cfg, self.axes, self.slots,
+                                         self.max_len))
 
     # --- step functions --------------------------------------------------
 
     @torch.no_grad()
     def prefill_fn(self, tokens):
-        """tokens [slots, S] (with the family's stubs added) -> (logits
-        [slots, 1, V], cache rows)."""
+        """tokens [rows, S] (with the family's stubs added) -> (logits
+        [rows, 1, V], this rank's cache rows)."""
         B, S = tokens.shape
         return forward_prefill(self.cfg, self.axes, self.params,
                                _add_modality_stubs(self.cfg,
@@ -149,15 +197,64 @@ class ServeEngine:
                               tokens, pos)
 
     def _tensor(self, a):
-        return torch.from_numpy(np.asarray(a)).to(self.device,
-                                                  dtype=torch.long)
+        """This rank's rows of a per-slot host array, on the device."""
+        a = np.asarray(a)[self.rows.start:self.rows.stop]
+        return torch.from_numpy(a).to(self.device, dtype=torch.long)
+
+    # --- agreement of the ranks -------------------------------------------
+
+    def _agreed(self, kind: str, group: str, fn, t: torch.Tensor):
+        """``fn(g, t)`` on the unrecorded group ``group``, its host time,
+        call and bytes summed under ``agreement[kind]``; ``t`` unchanged
+        when the group has one rank."""
+        g = self._agree.get(group)
+        if g is None:
+            return t
+        t0 = time.perf_counter()
+        out = fn(g, t)
+        rec = self.agreement[kind]
+        rec["ms"] += (time.perf_counter() - t0) * 1e3
+        rec["calls"] += 1
+        rec["bytes"] += t.numel() * t.element_size()
+        return out
+
+    def _advance(self, dt_s: float):
+        """Advance the clock by a step's wall time: the longest over the
+        ranks, so every rank's clock agrees."""
+        dt = self._agreed("clock", "world",
+                          lambda g, t: g.all_reduce(t, op="max"),
+                          torch.tensor([dt_s], dtype=torch.float64,
+                                       device=self.device))
+        self.now_s += float(dt.reshape(-1)[0]) * self.clock_scale
+
+    def _sample(self, logits, slots) -> dict:
+        """{slot: token} for ``slots``, the same on every rank: each rank
+        samples the slots of its rows from ``logits`` (its rows'
+        [rows, 1, V] numpy logits) and the tokens are all-gathered over
+        dp."""
+        if not slots:
+            return {}
+        mine = np.full((len(self.rows),), -1, np.int64)
+        for i in slots:
+            if i in self.rows:
+                mine[i - self.rows.start] = self.active[i]._sampler(
+                    logits[i - self.rows.start, 0])
+        toks = self._agreed("tokens", "dp",
+                            lambda g, t: g.all_gather(t).reshape(-1),
+                            torch.from_numpy(mine).to(self.device))
+        toks = toks.cpu().numpy()
+        return {i: int(toks[i]) for i in slots}
 
     # --- clock -----------------------------------------------------------
+
+    def advance_clock(self, dt_s: float):
+        """Jump the virtual clock forward (idle gaps in a trace replay)."""
+        self.now_s += max(0.0, dt_s)
 
     def _timed(self, meter, fn, *args):
         t0 = time.perf_counter()
         out = meter.call(fn, *args)
-        self.now_s += time.perf_counter() - t0
+        self._advance(time.perf_counter() - t0)
         return out
 
     def has_active(self) -> bool:
@@ -167,21 +264,25 @@ class ServeEngine:
         """Run one prefill per bucket length and one decode step outside
         the meters and the virtual clock (on a scratch cache), so the
         first measured steps do not pay one-time set-up."""
+        n = len(self.rows)
         for S in sorted(set(bucket_lens)):
-            tok = input_specs(self.cfg, ShapeConfig("warmup", S, self.slots,
-                                                    "prefill"),
-                              self.axes)["tokens"]
-            self.prefill_fn(torch.zeros(tok.shape, dtype=tok.dtype,
+            self.prefill_fn(torch.zeros((n, S), dtype=torch.long,
                                         device=self.device))
         self.decode_fn(self._zero_cache(), self._tensor(self.last_tok),
                        self._tensor(self.pos))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    @property
+    def queue(self):
+        return self.scheduler.queue
+
     # --- scheduling ------------------------------------------------------
 
     def submit(self, requests: List[Request]):
-        """Enqueue requests (admission-checked) and refill free slots."""
+        """Enqueue requests (admission-checked) and refill free slots.
+        Submitting is cumulative: a trace replay feeds arrivals in as the
+        clock passes them."""
         for req in requests:
             if len(req.prompt) == 0:
                 req.done, req.error = True, "rejected: empty prompt"
@@ -215,33 +316,20 @@ class ServeEngine:
             toks[i, :len(req.prompt)] = req.prompt
         logits, fresh = self._timed(self.prefill_meter, self.prefill_fn,
                                     self._tensor(toks))
-        # splice the group's rows into the max_len cache, zero past S; an
-        # SSD state has no sequence dim and is spliced whole.  A leaf
-        # takes the wider of its dtype and the rows', as the reference's
-        # ``jnp.where`` merge promotes it: bf16 as declared under bf16
-        # activations, float32 once float32 rows arrive
-        idx = torch.tensor(slot_ids, device=self.device)
-        rows = dict(tree_leaves(fresh))
-        merged = {}
-        for path, c in tree_leaves(self.cache):
-            f = rows[path][:, idx]
-            c = c.to(torch.promote_types(c.dtype, f.dtype))
-            if path.split("/")[-1] in ("conv", "ssm"):
-                c[:, idx] = f.to(c.dtype)
-            else:
-                c[:, idx, :S] = f.to(c.dtype)
-                c[:, idx, S:] = 0
-            merged[path] = c
-        self.cache = tree_unflatten(self.cache, merged)
+        self._splice(fresh, slot_ids, S)
         logits = logits.float().cpu().numpy()
         for i, req in zip(slot_ids, group):
             self.active[i] = req
             self.pages.alloc(i, S)
+        exact = [i for i, req in zip(slot_ids, group)
+                 if len(req.prompt) == S]
+        first = self._sample(logits, exact)
+        for i, req in zip(slot_ids, group):
             s = len(req.prompt)
             if s == S:
                 # exact-length: prefill's last-position logits ARE the
                 # first output token
-                nxt = req._sampler(logits[i, 0])
+                nxt = first[i]
                 req.out_tokens.append(nxt)
                 req.t_first_s = self.now_s
                 self.last_tok[i, 0] = nxt
@@ -254,6 +342,42 @@ class ServeEngine:
                 # the first decode input (see module docstring)
                 self.last_tok[i, 0] = req.prompt[s - 1]
                 self.pos[i] = s - 1
+
+    def _splice(self, fresh, slot_ids, S: int):
+        """Write the group's prefill rows into the cache, in place: zero
+        past ``S``; an SSD state has no sequence dim and is spliced whole.
+        At tp > 1 rank j's prefill rows hold positions
+        ``[j S/tp, (j + 1) S/tp)``: the group's rows are all-gathered
+        over tp and the rank keeps its chunk of ``max_len / tp``.  A leaf
+        takes the wider of its dtype and the rows', as the reference's
+        ``jnp.where`` merge promotes it: bf16 as declared under bf16
+        activations, float32 once float32 rows arrive."""
+        mine = [i for i in slot_ids if i in self.rows]
+        if not mine:
+            return
+        idx = torch.tensor([i - self.rows.start for i in mine],
+                           device=self.device)
+        rows = dict(tree_leaves(fresh))
+        p, j = self.axes.tp, self.axes.tp_rank
+        merged = {}
+        for path, c in tree_leaves(self.cache):
+            f = rows[path][:, idx]
+            c = c.to(torch.promote_types(c.dtype, f.dtype))
+            if path.split("/")[-1] in ("conv", "ssm"):
+                c[:, idx] = f.to(c.dtype)
+                merged[path] = c
+                continue
+            if p > 1:
+                f = self._agreed(
+                    "relayout", "tp",
+                    lambda g, t: torch.cat(g.all_gather(t).unbind(0), 2), f)
+            chunk = c.shape[2]
+            lo, hi = j * chunk, min(S, (j + 1) * chunk)
+            n = max(hi - lo, 0)
+            c[:, idx, :n] = f[:, :, lo:lo + n].to(c.dtype)
+            c[:, idx, n:] = 0
+            merged[path] = c
+        self.cache = tree_unflatten(self.cache, merged)
 
     def _finish(self, slot: int, req: Request):
         req.done = True
@@ -271,20 +395,19 @@ class ServeEngine:
         logits, self.cache = self._timed(
             self.decode_meter, self.decode_fn, self.cache,
             self._tensor(self.last_tok), self._tensor(self.pos))
-        logits = logits.float().cpu().numpy()
-        for i, req in enumerate(self.active):
-            if req is None:
-                continue
+        live = [i for i, r in enumerate(self.active) if r is not None]
+        nxt = self._sample(logits.float().cpu().numpy(), live)
+        for i in live:
+            req = self.active[i]
             wrote = int(self.pos[i])          # decode wrote this row
             self.pos[i] += 1
             self.pages.advance(i, wrote)
-            nxt = req._sampler(logits[i, 0])
             if req.t_first_s is None:         # replayed-prompt first token
                 req.t_first_s = self.now_s
-            req.out_tokens.append(nxt)
-            self.last_tok[i, 0] = nxt
+            req.out_tokens.append(nxt[i])
+            self.last_tok[i, 0] = nxt[i]
             if (len(req.out_tokens) >= req.max_new_tokens
-                    or nxt == req.eos_id
+                    or nxt[i] == req.eos_id
                     or self.pos[i] >= self.max_len - 1):
                 self._finish(i, req)
         self._fill_slots()
@@ -296,16 +419,72 @@ class ServeEngine:
                 and steps < max_steps:
             self.step()
             steps += 1
+        if self.ledger is not None:
+            self.record_to(self.ledger)
         return requests
+
+    # --- shutdown --------------------------------------------------------
+
+    def close(self):
+        """Flush the telemetry window and mark the engine closed: a short
+        session (a few ``step()`` calls, no ``run()``) records its tail
+        to the ledger here.  Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        if self.ledger is not None:
+            if self.prefill_meter.calls or self.decode_meter.calls:
+                self.record_to(self.ledger)
+            self.ledger.flush()
+
+    def __enter__(self) -> "ServeEngine":
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close()
+        return False
 
     # --- telemetry -------------------------------------------------------
 
     def telemetry(self) -> dict:
-        """Step-time summaries of the prefill and decode meters, plus the
-        page-table occupancy stats."""
+        """Step-time summaries of the prefill and decode meters, the
+        page-table occupancy stats and the ranks' agreement traffic."""
         return {"prefill": self.prefill_meter.summary(),
                 "decode": self.decode_meter.summary(),
-                "pages": self.pages.stats()}
+                "pages": self.pages.stats(),
+                "agreement": {k: dict(v) for k, v in self.agreement.items()}}
+
+    def record_to(self, ledger, predicted=None, extra=None,
+                  measured_extra=None):
+        """Record one serving entry per metered step kind to a Ledger,
+        then reset the meters, so repeated ``run()`` calls record
+        disjoint windows (``extra["window"]`` orders them).
+        ``predicted`` / ``measured_extra`` are optional per-kind dicts
+        (``{"prefill": {...}, "decode": {...}}``): the router passes the
+        analytic serve prediction and the counted account so the entries
+        join into energy ratios."""
+        impl = "phantom" if self.cfg.uses_phantom_sites() else "dense"
+        out = []
+        for kind, meter in (("prefill", self.prefill_meter),
+                            ("decode", self.decode_meter)):
+            if not meter.calls:
+                continue
+            ex = {"slots": self.slots, "max_len": self.max_len,
+                  "window": self._ledger_window,
+                  "pages": self.pages.stats()}
+            ex.update(extra or {})
+            measured = meter.summary()
+            if measured_extra and measured_extra.get(kind):
+                measured.update(measured_extra[kind])
+            out.append(ledger.record(LedgerEntry(
+                name=f"serve_{kind}_{self.cfg.name}", suite="serve",
+                kind=kind, arch=self.cfg.name, impl=impl, p=self.axes.tp,
+                measured=measured,
+                predicted=predicted.get(kind) if predicted else None,
+                extra=ex)))
+            meter.reset(warm=True)
+        self._ledger_window += 1
+        return out
 
 
 def _add_modality_stubs(cfg: ModelConfig, batch, B: int, S: int):

@@ -13,8 +13,10 @@ Three pieces, one join:
 
 ``Ledger`` records entries joining the views and writes the report to
 the path its caller gives.  The pipelined step has its probe and
-prediction too; serving, KV-transfer and recovery predictions are not
-ported yet (ROADMAP.md queue 1, item 4).
+prediction too, and one serving step its prediction
+(``serve_step_prediction``, which the router prices with); the
+KV-transfer and recovery predictions are not ported yet (ROADMAP.md
+queue 1).
 """
 from repro_torch.telemetry.counted import MeasuredCosts, count_step
 from repro_torch.telemetry.ledger import (SCHEMA, Ledger, LedgerEntry,
@@ -27,6 +29,10 @@ from repro_torch.telemetry.predict import (event_wire_bytes, events_for,
                                            measured_energy_fields,
                                            pipeline_ffn_step_events,
                                            pipeline_ffn_step_prediction,
+                                           serve_overhead_events,
+                                           serve_site_strategies,
+                                           serve_step_events,
+                                           serve_step_prediction,
                                            strategy_prediction)
 from repro_torch.telemetry.probe import (make_ffn_pipeline_probe_step,
                                          make_ffn_probe_step,
@@ -39,7 +45,9 @@ __all__ = [
     "event_wire_bytes", "events_for", "ffn_step_prediction",
     "fused_ffn_step_prediction", "fused_kernel_step_events",
     "measured_energy_fields", "pipeline_ffn_step_events",
-    "pipeline_ffn_step_prediction", "strategy_prediction",
+    "pipeline_ffn_step_prediction", "serve_overhead_events",
+    "serve_site_strategies", "serve_step_events", "serve_step_prediction",
+    "strategy_prediction",
     "make_ffn_pipeline_probe_step", "make_ffn_probe_step",
     "measure_ffn_pipeline_step", "measure_ffn_step",
 ]

@@ -17,9 +17,11 @@ collectives the ranks issued (``telemetry/counted.py``):
 with ``m`` the per-rank message in floats (the ``CommEvent`` unit).
 
 The pipelined step's account (``pipeline_ffn_step_events`` /
-``pipeline_ffn_step_prediction``) is the reference's, both accounts.
-Serving, KV-transfer and recovery predictions are not ported: they come
-with the slices that port those paths (ROADMAP.md queue 1).
+``pipeline_ffn_step_prediction``) is the reference's, both accounts, and
+so is one serving step's (``serve_site_strategies`` ..
+``serve_step_prediction``), the account the router prices candidates
+with.  The KV-transfer and recovery predictions are not ported
+(ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -99,6 +101,145 @@ def strategy_prediction(strategies: Sequence, p: int, L: int, batch: int,
         "model": "E = nu*p*(A*alpha + B*beta)",
         "A_w": A, "B_w": B,
         "peak_flops": peak_flops,
+    }
+
+
+def serve_site_strategies(cfg, p: int, dp: int = 1) -> List:
+    """The per-layer ProjectionStrategy objects a transformer serving
+    config executes: the four attention projections plus the MLP sites
+    (the same objects ``models/attention.py`` / ``models/layers.py``
+    instantiate at run time, so the predicted account prices exactly
+    what executes).  Dense/attention families only — recurrent families
+    would need their own site list."""
+    from repro_torch.models.attention import attn_site_strategies
+    from repro_torch.models.layers import mlp_strategies
+    from repro_torch.parallel.axes import MeshAxes
+    axes = MeshAxes(tp=p, dp=dp)
+    sts = list(attn_site_strategies(cfg, axes).values())
+    if cfg.d_ff:
+        sts += list(mlp_strategies(cfg, axes, cfg.d_model,
+                                   cfg.d_ff).values())
+    return sts
+
+
+def serve_overhead_events(cfg, p: int, rows: int, phase: str,
+                          sequences: int = 0):
+    """Serving-path collectives beyond the projection strategies' own
+    events, per the decode/prefill code paths of the reference's
+    ``models/attention.py`` and ``models/model.py``.  Latency (the Eqn. 26
+    c1 term) dominates these at serving message sizes, so the COUNT
+    structure matters more than the exact byte sizes.  Returns
+    ``(per_layer, per_step)`` event lists:
+
+      * decode, head mode — q (and, when kv divides p, k/v) head
+        gathers plus the flash-decoding LSE merge (pmax + psum);
+      * decode, phantom MLP sites — the gather-on-use ghost decompress
+        per site;
+      * prefill in the fp residual layout (phantom configs) — attention
+        reads the full residual: gather + scatter per layer;
+      * both phases — the vocab-sharded head's logits all-gather and
+        the last-position/embed psum, once per step.
+    """
+    from repro_torch.configs.base import PHANTOM_KINDS
+    if p <= 1:
+        return [], []
+    H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
+    d, V = cfg.d_model, cfg.vocab_size
+    head_rows = sequences or rows
+    per_layer, per_step = [], []
+    phantom_mlp = [s for s in ("ffn_gate", "ffn_up", "ffn_down")
+                   if cfg.projection_spec(s).kind in PHANTOM_KINDS]
+    if phase == "decode":
+        per_layer.append(CommEvent("all_gather", rows * H * hd / p))
+        if kv and kv % p == 0:
+            per_layer += [CommEvent("all_gather", rows * kv * hd / p)] * 2
+        per_layer += [CommEvent("all_reduce", rows * H * hd)] * 2
+        for site in phantom_mlp:
+            k = cfg.projection_spec(site).k
+            per_layer.append(CommEvent("all_gather", d * k / p))
+    elif cfg.uses_phantom_sites():
+        per_layer += [CommEvent("all_gather", rows * d / p),
+                      CommEvent("reduce_scatter", rows * d / p)]
+    per_step += [CommEvent("all_gather", head_rows * V / p),
+                 CommEvent("all_reduce", head_rows * d)]
+    return per_layer, per_step
+
+
+def serve_step_events(cfg, p: int, rows: int, phase: str,
+                      sequences: int = 0, dp: int = 1):
+    """The full per-step serving collective account: the projection
+    strategies' own events plus the ``serve_overhead_events`` terms,
+    as ``(CommEvent, repeats)`` pairs (all on the model axis — the
+    serving path issues no data-axis collectives).  Shared by
+    ``serve_step_prediction`` and the static audit's collective-
+    accounting rule, so the audit checks exactly the account the
+    ledger prices."""
+    sts = serve_site_strategies(cfg, p, dp)
+    ov_layer, ov_step = serve_overhead_events(cfg, p, rows, phase,
+                                              sequences)
+    events = [(ev, cfg.num_layers)
+              for ev in events_for(sts, rows, training=False)]
+    events += [(ev, cfg.num_layers) for ev in ov_layer]
+    events += [(ev, 1) for ev in ov_step]
+    return events
+
+
+def serve_step_prediction(cfg, p: int, rows: int, *, phase: str = "decode",
+                          ctx_tokens: float = 0.0, sequences: int = 0,
+                          dp: int = 1,
+                          fits=None, alpha_scale: float = 1.0,
+                          beta_scale: float = 1.0,
+                          peak_flops: float = H100_PEAK_FLOPS_FP32,
+                          A: float = FRONTIER_A_W, B: float = FRONTIER_B_W,
+                          itemsize: float = FLOAT_BYTES) -> dict:
+    """The ledger's ``predicted`` block for ONE serving step.
+
+    ``rows`` is the token rows through the per-layer projections
+    (prefill: ``slots * padded_len``; decode: ``slots``);
+    ``ctx_tokens`` the EXECUTED attention window per query token —
+    blockwise attention computes the full masked window, so prefill
+    passes the padded length S and decode the cache ``max_len``.  On
+    top of the projection strategies' account this adds the serving
+    terms the strategy objects don't own: the attention score/value
+    GEMMs (``4·H·hd·ctx`` flops per query token, sharded over the
+    model axis in both head and sequence sharding), the vocab-sharded
+    LM head (last position per sequence at prefill, every row at
+    decode), and the ``serve_overhead_events`` collectives.
+    ``alpha_scale``/``beta_scale`` are the planner's calibrated
+    measured/predicted correction scales for the executing strategy
+    kind (docs/planner.md)."""
+    sts = serve_site_strategies(cfg, p, dp)
+    alpha_s, _ = costs_from_strategies(
+        sts, p, cfg.num_layers, rows, peak_flops, fits, training=False)
+    H, hd = cfg.num_heads, cfg.resolved_head_dim()
+    attn_flops = 4.0 * H * hd * max(ctx_tokens, 0.0) * rows \
+        * cfg.num_layers / max(p, 1)
+    # LM head runs on one row per sequence at prefill (last position
+    # only), on every row at decode
+    head_rows = sequences or rows
+    head_flops = 2.0 * cfg.d_model * cfg.vocab_size * head_rows / max(p, 1)
+    alpha_s += (attn_flops + head_flops) / peak_flops
+    alpha_s *= alpha_scale
+    events = serve_step_events(cfg, p, rows, phase, sequences, dp)
+    wire = sum(event_wire_bytes(ev, p, itemsize) * n for ev, n in events)
+    m_floats = sum(ev.m_floats * n for ev, n in events)
+    comm_us = sum(comm_time_us(ev.collective, ev.m_floats, p, fits) * n
+                  for ev, n in events)
+    beta_s = comm_us * 1e-6 * beta_scale
+    return {
+        "flops_per_device": alpha_s * peak_flops,
+        "collective_wire_bytes_per_device": wire * beta_scale,
+        "collective_m_floats": m_floats,
+        "comm_us": comm_us,
+        "alpha_s": alpha_s,
+        "beta_s": beta_s,
+        "energy_j_per_iter": energy_per_iteration(alpha_s, beta_s, p,
+                                                  A, B),
+        "phase": phase, "rows": rows, "ctx_tokens": ctx_tokens,
+        "training": False,
+        "model": "E = p*(A*alpha + B*beta), serving (fwd-only)",
+        "A_w": A, "B_w": B, "peak_flops": peak_flops,
+        "alpha_scale": alpha_scale, "beta_scale": beta_scale,
     }
 
 

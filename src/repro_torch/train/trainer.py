@@ -38,8 +38,8 @@ from repro_torch.models.model import (STACKS, forward_train,
                                       forward_train_pipeline, model_decls)
 from repro_torch.parallel.axes import MeshAxes, resolve_device
 from repro_torch.parallel.grads import _spec_axes, reduce_grads
-from repro_torch.parallel.params import (materialize_shards, tree_leaves,
-                                         tree_map)
+from repro_torch.parallel.params import (materialize_shards_in_turn,
+                                         tree_leaves, tree_map)
 from repro_torch.telemetry import LedgerEntry, StepMeter
 from repro_torch.train.pipeline import batch_axis, split_batch_microbatches
 
@@ -246,18 +246,8 @@ class Trainer:
         the global leaf's memory to the card before the next starts:
         otherwise each would hold a global leaf at once (jamba's expert
         leaf is 6.4 GB in bf16).  The optimizer's zero state."""
-        world = self.axes.world_comm
-        shared = (self.device.type == "cuda" and world.size > 1
-                  and world.via_host)
-        params = None
-        for turn in range(world.size if shared else 1):
-            if not shared or turn == self.axes.rank:
-                params = materialize_shards(self.decls, self.axes, seed,
-                                            self.device,
-                                            draw_on=self.device)
-            if shared:
-                torch.cuda.empty_cache()
-                world.all_reduce(torch.zeros(1))       # the turn ends
+        params = materialize_shards_in_turn(self.decls, self.axes, seed,
+                                            self.device)
         return TrainState(params, self.optimizer.init(params), 0)
 
     def run(self, state: TrainState, num_steps: int) -> TrainState:

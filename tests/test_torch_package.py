@@ -282,7 +282,8 @@ def test_multi_device_mesh_names_the_roadmap_item(case):
     """Model, data and pipe axes above 1 are meshes of the port (rank
     ``(s * dp + d) * tp + t``, the reference's (pipe, data, model)
     order), and the model declares itself at tp > 1; serving at tp > 1
-    (the engine, prefill, decode) is not ported and names its ROADMAP
+    of the families other than the dense one (the engine, prefill,
+    decode; the MoE family here) is not ported and names its ROADMAP
     item.  Ring attention, which named item 6 here until it was ported,
     now declares its weights sharded on their input dim and its biases
     replicated, asked for or where tp does not divide the heads."""
@@ -297,8 +298,10 @@ def test_multi_device_mesh_names_the_roadmap_item(case):
         with pytest.raises(RuntimeError, match="make_local_mesh"):
             axes.pp_comm
     elif case == "serving_tp":
+        # the dense family serves at any tp since it was ported; the MoE
+        # family does not yet
         from repro_torch.models.model import forward_decode, forward_prefill
-        cfg = get_config("chatglm3-6b", smoke=True)
+        cfg = get_config("olmoe-1b-7b", smoke=True)
         axes = MeshAxes(tp=2)
         params = materialize(model_decls(cfg, axes),
                              torch.Generator().manual_seed(0), "cpu")
@@ -396,7 +399,8 @@ def test_unported_arch_and_family_raise():
                                   "remat", "trainer_ops"])
 def test_unported_training_paths_raise(what):
     """What the trainer does not run yet raises and names its ROADMAP
-    item: the dense model's serving forwards at tp > 1 (it trains there),
+    item: the serving forwards at tp > 1 of the families that train there
+    but serve at tp = 1 only (MoE, SSM),
     an MLP kind no ported config uses, remat policies other than full
     and none, checkpoints and fault tolerance.  The full-model pipeline,
     which raised until it was ported, builds: its layer stacks are
@@ -407,14 +411,17 @@ def test_unported_training_paths_raise(what):
     from repro_torch.train.trainer import Trainer, make_train_step
     cfg = get_config("phi3-mini-3.8b", smoke=True)
     if what == "model_tp":
-        from repro_torch.models.layers import head_logits
-        from repro_torch.models.model import forward_prefill
+        from repro_torch.models.model import forward_decode, forward_prefill
         axes = MeshAxes(tp=2)
         make_train_step(cfg, axes, AdamW(1e-3), device="cpu")
+        # the dense family serves at tp > 1 since it was ported; the MoE
+        # and SSM families do not yet
         with pytest.raises(NotImplementedError, match="tp=2.*item 1"):
-            forward_prefill(cfg, axes, {}, {"tokens": None})
+            forward_prefill(get_config("olmoe-1b-7b", smoke=True), axes, {},
+                            {"tokens": None})
         with pytest.raises(NotImplementedError, match="tp=2.*item 1"):
-            head_logits(cfg, "fp", {}, None, axes)
+            forward_decode(get_config("mamba2-370m", smoke=True), axes, {},
+                           None, None, None)
     elif what == "train_pp":
         _, decls, _ = make_train_step(cfg, MeshAxes(pp=2), AdamW(1e-3),
                                       device="cpu")

@@ -752,3 +752,64 @@ def family_body(axes, device, inputs):
             "layers": layers_tp_body(axes, device, inputs.get("layers", {})),
             "splice": splice_body(axes, device, inputs.get("splice", {})),
             "wire": wire_bytes_body(axes, device, inputs.get("wire", {}))}
+
+
+def serve_mesh_body(axes, device, cases):
+    """``tests/test_torch_serve_mesh.py`` on this rank, for each case
+    (``{"cfg", "params"`` (the reference's global numpy tree), ``"toks"``
+    [slots, S + 1], ``"S"``, ``"group"`` (prompts), ``"stream"``
+    (prompts, arrivals, new tokens), ``"slots"``, ``"max_len"``}):
+
+      * one prefill of ``toks[:, :S]`` and, after the engine's splice,
+        one decode step of ``toks[:, S]`` at position S: this rank's
+        rows of both logits, and each step's counted wire bytes;
+      * the engine's cache after submitting ``group`` (its prefill
+        groups spliced in);
+      * the greedy streams of ``stream`` (where given) through a
+        ``replay``."""
+    from repro_torch.models.model import model_decls
+    from repro_torch.parallel.params import from_jax_params, tree_leaves
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.traffic import replay
+    from repro_torch.telemetry.counted import count_step
+    out = {}
+    for name, case in cases.items():
+        cfg, S = case["cfg"], case["S"]
+        params = shard_params(from_jax_params(case["params"]),
+                              model_decls(cfg, axes), axes)
+
+        def engine():
+            return ServeEngine(cfg, params, slots=case["slots"],
+                               max_len=case["max_len"], axes=axes,
+                               device=device)
+        eng = engine()
+        toks = torch.from_numpy(_rows(case["toks"], axes)).long()
+        pre, (logits, fresh) = count_step(eng.prefill_fn, toks[:, :S],
+                                          device=device)
+        eng._splice(fresh, list(range(case["slots"])), S)
+        pos = torch.full((toks.shape[0],), S, dtype=torch.long)
+        dec, (dlogits, _) = count_step(eng.decode_fn, eng.cache,
+                                       toks[:, S:S + 1], pos, device=device)
+        res = {"prefill_logits": _np(logits), "decode_logits": _np(dlogits),
+               "wire": {"prefill": pre.collective_wire_bytes,
+                        "decode": dec.collective_wire_bytes}}
+
+        eng = engine()
+        eng.submit([Request(prompt=p.copy(), max_new_tokens=5)
+                    for p in case["group"]])
+        res["cache"] = {path: _np(t) for path, t in tree_leaves(eng.cache)}
+
+        st = case["stream"]
+        if st is None:
+            out[name] = res
+            continue
+        eng = engine()
+        reqs = [Request(prompt=p.copy(), max_new_tokens=st["new"],
+                        arrival_s=a)
+                for p, a in zip(st["prompts"], st["arrivals"])]
+        replay(eng, reqs)
+        res["streams"] = [list(r.out_tokens) for r in reqs]
+        res["done"] = all(r.done for r in reqs)
+        res["agreement"] = eng.telemetry()["agreement"]
+        out[name] = res
+    return out
