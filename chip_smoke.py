@@ -48,12 +48,12 @@ Phases (any failure exits non-zero):
    timed with a cold L2 (``_phantom_cold``).  Then the gradients of
    ``phantom_fused_linear`` against autograd through the plain version,
    at 2e-3 (fp32) and 6e-2 (bf16).
-4. serve: chatglm3-6b at full width and depth (28 layers), random
+4. serve: chatglm3-6b at full width, ``SERVE_DEPTH`` of 28 layers, random
    weights from a seeded generator, ``kernel_backend="pallas"``,
    through ``ServeEngine`` (4 slots, max_len 128, page 16): 8
    closed-batch 16-token prompts, then 8 mixed-length prompts (5 to 48
-   tokens: buckets 16, 32, 48), 16 greedy tokens each.  Checks that
-   every request finishes with 16 tokens and that the flash kernel was
+   tokens: buckets 16, 32, 48), ``NEW_TOKENS`` greedy tokens each.
+   Checks that every request finishes with them and that the flash kernel was
    launched once per layer of every prefill group.  Then a profiled
    window of decode steps (``_profile_decode``), and, on the same
    weights and the first group, the kernel path against the plain
@@ -72,7 +72,8 @@ Phases (any failure exits non-zero):
    (losses finite and
    falling, each kernel launched 2 x 20 times on every rank); the same
    20 steps with ``tensor_col``; then the Table I mini-run (n=1024, L=2,
-   target 0.175, at most 500 steps) for TP and phantom k in {4, 8, 16},
+   target 0.175, at most 500 steps) for TP and phantom k = 4
+   (``TABLE1_RUNS``),
    whose iteration counts are printed beside the reference's, not held.
    At the phase's end, in the same ranks on new groups, PowerSGD
    (``_compress_rank``): paper-ffn-16k phantom through the kernels at
@@ -87,8 +88,8 @@ Phases (any failure exits non-zero):
    grads kept): ``tensor_col`` and phantom through the kernels, each
    counted once (flops by ``FlopCounterMode``, the phantom kernels by
    their operators' formulas; wire bytes from the collective log) and
-   run 5 metered steps, and the phantom step through plain torch,
-   counted once.  Held on every rank: wire-byte and message-float
+   run ``ENERGY_STEPS`` metered steps, and the phantom step through plain
+   torch, counted once.  Held on every rank: wire-byte and message-float
    ratios within 2% of 1.00, flops within the reference's pins (5%
    tensor_col, 25% phantom, measured >= 0.99 predicted), the kernel
    path's flops equal to the plain path's, each kernel launched twice
@@ -206,11 +207,11 @@ Phases (any failure exits non-zero):
    and a rank's at tp = 4 training (B=4, S=512, H=KV=4), and the three
    phantom kernels at its q/k/v/o sites a rank at tp = 4 (M=2048,
    K=N=512, PK=32), bf16, held and timed as in phases 2 and 3, and with
-   a cold L2.  (a) ``_moe_serve``: olmoe-1b-7b at full size (16 layers,
-   64 experts top-8, 6.92 B parameters, random weights from the seed)
-   through ``ServeEngine`` with phase 4's traffic; every request's 16
-   tokens, the flash kernel launched once per layer of every prefill
-   group, the routers kept in fp32; a profiled decode window; the first
+   a cold L2.  (a) ``_moe_serve``: olmoe-1b-7b at full width (``SERVE_DEPTH``
+   of 16 layers, 64 experts top-8, 6.92 B parameters, random weights from the
+   seed) through ``ServeEngine`` with phase 4's traffic; every request's
+   ``NEW_TOKENS`` tokens, the flash kernel launched once per layer of every
+   prefill group, the routers kept in fp32; a profiled decode window; the first
    group through the kernel path against the plain core, as in phase 4
    (``_compare_cores``: per layer in bf16, each layer's router logits
    held and the tokens whose kept experts differ between the cores
@@ -240,11 +241,11 @@ Phases (any failure exits non-zero):
    phi3-mini's gate/up and down a rank at dp 2 x tp 2 (M=1024; K=1536,
    N=4096 and the transpose; PK=24), and flash at the latter's shape
    (B=2, S=512, H=KV=16, hd=96), bf16, held and timed as in phases 2 and
-   3, and with a cold L2.  (a) ``_mamba_serve``: mamba2-370m at full size
-   (48 layers, d 1024) through ``ServeEngine`` with phase 4's traffic,
-   every prompt its own exact-length group (page size 1); every
-   request's 16 tokens; TTFT, TPOT, a profiled decode window and the
-   state cache's bytes; then, in float32 on the closed batch's first
+   3, and with a cold L2.  (a) ``_mamba_serve``: mamba2-370m at full width
+   (``SERVE_DEPTH`` of 48 layers, d 1024) through ``ServeEngine`` with phase
+   4's traffic, every prompt its own exact-length group (page size 1); every
+   request's ``NEW_TOKENS`` tokens; TTFT, TPOT, a profiled decode window and
+   the state cache's bytes; then, in float32 on the closed batch's first
    group, layer by layer from the same input, the prefill's final
    ``{"conv", "ssm"}`` state, its outputs and the last logits held to
    token-by-token decode from a zero state within ``RECURRENCE_TOL`` of
@@ -276,11 +277,11 @@ Phases (any failure exits non-zero):
    timed as in phases 2 and 3, and with a cold L2.  (a) ``_jamba_serve``:
    jamba at full width and ``JAMBA_SERVE_LAYERS`` layers (its three
    block kinds), bf16 parameters, through ``ServeEngine`` with phase 4's
-   traffic, every prompt its own exact-length group; every request's 16
-   tokens, flash once per prefill group; then the recurrence check of
-   phase 13 over the attention and SSD layers.  Then 4 ranks on the card,
-   each running ``_hybrid_rank``: (b) step 1 at ``JAMBA_LAYERS`` layers in
-   float32 with ``JAMBA_PARITY_EXPERTS`` experts, Adafactor, kernels
+   traffic, every prompt its own exact-length group; every request's
+   ``NEW_TOKENS`` tokens, flash once per prefill group; then the recurrence
+   check of phase 13 over the attention and SSD layers.  Then 4 ranks on the
+   card, each running ``_hybrid_rank``: (b) step 1 at ``JAMBA_LAYERS`` layers
+   in float32 with ``JAMBA_PARITY_EXPERTS`` experts, Adafactor, kernels
    against plain torch, held as in phase 9; (c) the main path:
    ``launch/train.py``'s trainer at full width, ``JAMBA_LAYERS`` layers,
    bf16 parameters, Adafactor, ``fsdp=True`` at dp 1, ``JAMBA_STEPS``
@@ -302,7 +303,7 @@ Phases (any failure exits non-zero):
    parameters, through ``ServeEngine`` with phase 4's traffic in
    mixed-length buckets (the vision stub's zero embeddings spliced over
    each group's first positions, M-RoPE positions on three equal rows):
-   every request's 16 tokens, flash once per layer of every prefill
+   every request's ``NEW_TOKENS`` tokens, flash once per layer of every prefill
    group, TTFT, TPOT, a profiled decode window, the weights' and the
    cache's bytes; then the recurrence check of phase 13 at
    ``QWEN2VL_PARITY_LAYERS`` of the layers cast to float32.  Then 4 ranks
@@ -325,11 +326,11 @@ Phases (any failure exits non-zero):
    causal (its decoder), and the three phantom kernels at its up and
    down sites a rank at tp = 4 (M=2048; K=256, N=2048 and the transpose;
    PK=32), bf16, held and timed as in phases 2 and 3, and with a cold L2.
-   (a) ``_encdec_serve``: seamless at full size (24 + 24 layers), bf16,
-   through ``ServeEngine`` with phase 4's traffic, every prompt its own
-   exact-length group: every request's 16 tokens, flash once per encoder
-   and decoder layer of every prefill group; TTFT, TPOT, a profiled
-   decode window, the self and cross caches' bytes; then, with random
+   (a) ``_encdec_serve``: seamless at full width (``SERVE_DEPTH`` of 24 + 24
+   layers), bf16, through ``ServeEngine`` with phase 4's traffic, every prompt
+   its own exact-length group: every request's ``NEW_TOKENS`` tokens, flash
+   once per encoder and decoder layer of every prefill group; TTFT, TPOT, a
+   profiled decode window, the self and cross caches' bytes; then, with random
    frames in float32 activations, one group's prefill logits and cross
    K/V through the kernels against the plain path, and the recurrence
    check at ``SEAMLESS_PARITY_LAYERS`` + as many layers.  Then 4 ranks
@@ -352,10 +353,10 @@ Phases (any failure exits non-zero):
    tensor sites on dp 2 x tp 4 (8 ranks) and (b) phantom gate/up/down
    (k = 16) on dp 1 x tp 4, ranks sharing the card each running
    ``_serve_mesh_rank``: the parity (the trace's first
-   ``SERVE_MESH_PARITY_REQUESTS`` requests at ``SERVE_MESH_PARITY_LAYERS``
-   layers: float32 greedy streams equal to the tp = 1 engine's on the
-   same global weights, a phantom model's as its dense twin; bf16
-   streams printed with where they part); the main path,
+   ``SERVE_MESH_PARITY_REQUESTS`` requests, ``PARITY_TOKENS`` tokens at
+   most, at ``SERVE_MESH_PARITY_LAYERS`` layers: float32 greedy streams
+   equal to the tp = 1 engine's on the same global weights, a phantom
+   model's as its dense twin); the main path,
    ``run_config`` on chatglm3-6b at full width and ``SERVE_MESH_LAYERS``
    layers, bf16, replaying ``SERVE_MESH_TRACE``: every request's tokens,
    launches exactly the layers per prefill (flash) and 3 x the layers
@@ -366,6 +367,30 @@ Phases (any failure exits non-zero):
    agreement; the per-layer bf16 check of the kernel path against the
    plain path (``_mesh_layer_check``); one decode step with its
    collectives timed, rank 0's under ``torch.profiler``.
+18. every other family served on a mesh (``phase_family_mesh``).
+   First, in the parent, flash at a rank's prefill heads of each family
+   at tp 4 and the phantom forward at each family's phantom sites a rank
+   (a decode step's 4 rows and a 48-token group's 192), bf16, held and
+   timed as in phases 2 and 3, and with a cold L2.  Then one spawn of 4
+   ranks sharing the card (dp 1 x tp 4) serves, in turn, olmoe-1b-7b,
+   mamba2-370m, jamba-1.5-large-398b (3 layers: its three block kinds),
+   qwen2.5-14b (ring attention), qwen2-vl-72b and seamless-m4t-large-v2
+   (2 + 2 layers), each at full width and 2 layers with its own
+   projection map (``_family_mesh_rank``): the parity (float32 greedy
+   streams of the trace's first ``FAMILY_MESH_PARITY_REQUESTS`` requests,
+   ``PARITY_TOKENS`` tokens at most,
+   arriving together, equal to the tp = 1 engine's on the same global
+   weights, a phantom model's as its dense twin; jamba, whose float32
+   experts would not fit beside a twin, per layer in bf16 against the
+   plain path, within ``LOGIT_TOL`` of the layer's largest); the main
+   path, ``run_config`` in bf16 on ``FAMILY_MESH_TRACE`` (8 requests,
+   page 4, the recurrent families' prompts rounded up to a multiple of
+   it) with frontend stubs drawn from each prompt: every request's
+   tokens, launches exactly as the layers imply (``_family_mesh_launches``),
+   each rank's wire bytes of the probe prefill and decode step equal to
+   ``serve_wire_bytes``; TTFT/TPOT p50/p95, tokens/s, memory per rank;
+   one decode step with its collectives timed, rank 0's under
+   ``torch.profiler``.
 
 Each phase's wall seconds are printed on a line of their own.
 
@@ -383,7 +408,7 @@ its tp = 4 training under ``jamba_tp4``, qwen2-vl-72b's under
 ``qwen2vl_serve`` and ``qwen2vl_tp4``, and seamless-m4t-large-v2's, full
 and causal, under ``seamless_serve`` and ``seamless_tp4``; flash's and
 the phantom forward's shapes and launches on the serving mesh under
-``serve_mesh``);
+``serve_mesh``, and on the other families' under ``family_mesh``);
 the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
@@ -399,7 +424,15 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12
-SLOTS, MAX_LEN, PAGE, NEW_TOKENS = 4, 128, 16, 16
+# NEW_TOKENS: the greedy tokens a request of the tp = 1 serve paths (16
+# until phase 18 needed the script's time)
+SLOTS, MAX_LEN, PAGE, NEW_TOKENS = 4, 128, 16, 8
+# the tp = 1 serve paths' depth, each at full width (until phase 18
+# needed the script's time: chatglm3-6b 28, olmoe 16, mamba2 48 and
+# seamless 24 + 24 layers, their full depth; qwen2-vl's is
+# QWEN2VL_SERVE_LAYERS, 8 until then)
+SERVE_DEPTH = {"chatglm3-6b": 8, "olmoe-1b-7b": 4, "mamba2-370m": 8,
+               "seamless-m4t-large-v2": 4}
 MIXED_LENS = (5, 12, 16, 17, 29, 32, 40, 48)
 SWEEP_B, SWEEP_S = (1, 4), (16, 32, 48, 128, 512)
 MAIN_SHAPE = dict(B=SLOTS, S=48, H=32, KV=2, hd=128, causal=True,
@@ -429,23 +462,31 @@ STEP1_TOL = dict(rtol=1e-4, atol=1e-5)
 ADAM_NEAR_ZERO = 1e-7     # 10 x AdamW eps: see _step1_diff
 STEP1_CHUNK = 1 << 23     # elements of a leaf compared at once
 TABLE1 = dict(n=1024, L=2, target=0.175, max_steps=500)
+# the mini-run's configs: TP and phantom k = 4, which Table I's pricing
+# needs (k = 8 and 16 too until phase 18 needed the script's time)
+TABLE1_RUNS = (("tensor", 4), ("phantom", 4))
 TABLE1_REFERENCE = {"tensor": 168, 4: 154, 8: 154, 16: 180}
-ENERGY_STEPS = 5
+# metered probe steps of phases 6 and 7 (5 until phase 18 needed the
+# script's time)
+ENERGY_STEPS = 3
 # phase 5's PowerSGD run (``_compress_rank``): the paper FFN on dp x tp of
 # the same 8 ranks, its gradients over dp at this rank, SGD.  The
 # reference's test trains n = 64 at lr 0.3; at n = 16384 that step
 # diverges within 10 steps (the update of a unit's output grows with the
 # width), and 0.03 falls steadily
 COMPRESS_DP, COMPRESS_TP, COMPRESS_RANK = 2, 4, 2
-COMPRESS_STEPS, COMPRESS_PLAIN_STEPS, COMPRESS_LR = 20, 5, 0.03
+# (10 and 3 steps: 20 and 5 until phase 18 needed the script's time)
+COMPRESS_STEPS, COMPRESS_PLAIN_STEPS, COMPRESS_LR = 10, 3, 0.03
 PIPE_PP, PIPE_DP, PIPE_TP, PIPE_M = 2, 2, 2, 4
 # the reference's pipeline oracle (tests/helpers.py:77-104)
 EQUIV_LOSS_RTOL, EQUIV_TOL = 2e-4, dict(rtol=5e-4, atol=1e-6)
 # measured/predicted flops pins of the reference (tests/test_telemetry.py)
 FLOPS_PIN = {"tensor_col": 0.05, "phantom": 0.25}
 PEAK = {"float32": 67e12, "bfloat16": 989e12}
-# 4 steps: the script's later phases need its time (the limit is 1200 s)
-LM_ARCH, LM_BATCH, LM_SEQ, LM_STEPS = "phi3-mini-3.8b", 4, 512, 4
+# 2 steps (6, then 4, then 2 as phases were added; step 1 of every path
+# is held to the plain path apart): the script's later phases need its
+# time (the limit is 1200 s)
+LM_ARCH, LM_BATCH, LM_SEQ, LM_STEPS = "phi3-mini-3.8b", 4, 512, 2
 LM_PARITY_LAYERS = 2
 # the bf16 step-1 loss of the kernel path against the plain path: both
 # run bf16 projections; the kernel rounds P and its output to bf16 where
@@ -468,9 +509,10 @@ LM_TP_FLASH_SHAPE = (4, 512, 8, 8, 96)
 # phase 10: qwen2.5-14b on LM_TP ranks at full width and QWEN_LAYERS of its
 # 48 layers (4 ranks' fp32 AdamW state at 48 layers, 116 GB, exceed the
 # card; 2 rather than 4 or 8 leaves the later phases the script's
-# time), QWEN_STEPS steps; the phantom kernels' (M, K, N, PK) a rank at
-# gate/up and at down (k = 16, PK = 64)
-QWEN_ARCH, QWEN_LAYERS, QWEN_STEPS = "qwen2.5-14b", 2, 3
+# time), QWEN_STEPS steps (2; 3 until phase 18 needed the time); the
+# phantom kernels' (M, K, N, PK) a rank at gate/up and at down (k = 16,
+# PK = 64)
+QWEN_ARCH, QWEN_LAYERS, QWEN_STEPS = "qwen2.5-14b", 2, 2
 QWEN_PHANTOM_SHAPES = ((2048, 1280, 3456, 64), (2048, 3456, 1280, 64))
 # phase 11: phi3-mini on LM_PP stages x LM_PP_TP model ranks, the batch in
 # LM_PP_M microbatches of one row, LM_PP_STEPS steps; (a) and (b) at
@@ -478,11 +520,12 @@ QWEN_PHANTOM_SHAPES = ((2048, 1280, 3456, 64), (2048, 3456, 1280, 64))
 # The per-rank shapes of a microbatch (1 x 512 tokens): the phantom
 # kernels' (M, K, N, PK) at gate/up and at down (k = 12, PK = 24), and
 # flash's (B, S, H, KV, hd) at H / tp local heads
-LM_PP, LM_PP_TP, LM_PP_M, LM_PP_STEPS, LM_PP_PARITY_M = 2, 2, 4, 3, 2
+LM_PP, LM_PP_TP, LM_PP_M, LM_PP_STEPS, LM_PP_PARITY_M = 2, 2, 4, 2, 2
 LM_PP_LAYERS = 4     # (c)'s depth, 2 a stage, for phase 17's time
+# (LM_PP_STEPS 2: 3 until phase 18 needed the time)
 LM_PP_PHANTOM_SHAPES = ((512, 1536, 4096, 24), (512, 4096, 1536, 24))
 LM_PP_FLASH_SHAPE = (1, 512, 16, 16, 96)
-# phase 12: the MoE family.  olmoe-1b-7b served at full size (tp 1), and
+# phase 12: the MoE family.  olmoe-1b-7b served at full width (tp 1), and
 # trained at full width and MOE_LAYERS of its 16 layers on LM_TP ranks
 # (16 layers' fp32 AdamW state, 111 GB, exceed the card), MOE_STEPS
 # steps; granite-moe-3b-a800m's tensor partition at LM_PARITY_LAYERS
@@ -490,13 +533,13 @@ LM_PP_FLASH_SHAPE = (1, 512, 16, 16, 96)
 # (SLOTS x the longest mixed prompt, 16 heads of 128) and a rank's at tp 4
 # (16 / 4 heads); the phantom kernels' (M, K, N, PK) at the q/k/v/o sites
 # a rank at tp 4 (d / tp = 512, k = 8, PK = 32)
-# (2 layers, cut for phase 17's time)
-MOE_ARCH, MOE_LAYERS, MOE_STEPS = "olmoe-1b-7b", 2, 3
+# (2 layers, cut for phase 17's time; 2 steps, 3 until phase 18's)
+MOE_ARCH, MOE_LAYERS, MOE_STEPS = "olmoe-1b-7b", 2, 2
 GRANITE_ARCH = "granite-moe-3b-a800m"
 MOE_SERVE_FLASH_SHAPE = (SLOTS, 48, 16, 16, 128)
 MOE_TP_FLASH_SHAPE = (LM_BATCH, LM_SEQ, 4, 4, 128)
 MOE_PHANTOM_SHAPE = (LM_BATCH * LM_SEQ, 512, 512, 32)
-# phase 13: mamba2-370m served at full size (tp 1, every prompt its own
+# phase 13: mamba2-370m served at full width (tp 1, every prompt its own
 # exact-length group: page size 1) and trained at full width and
 # MAMBA_LAYERS of its 48 layers on LM_TP ranks, MAMBA_STEPS steps; then
 # FSDP on a dp FSDP_DP x tp FSDP_TP mesh of the same ranks: phi3-mini at
@@ -505,12 +548,14 @@ MOE_PHANTOM_SHAPE = (LM_BATCH * LM_SEQ, 512, 512, 32)
 # d_inner / tp = 512, k = 8, PK = 32); phi3-mini's gate/up and down at
 # dp 2 x tp 2 (B / dp x S = 1024 rows, k = 12, PK = 24) and its flash
 # (B / dp = 2, 32 / tp = 16 heads of 96)
-# (8 of the 48 layers, for phase 17's time)
-MAMBA_ARCH, MAMBA_LAYERS, MAMBA_STEPS, MAMBA_PAGE = "mamba2-370m", 8, 3, 1
+# (4 of the 48 layers and 2 steps: 8 and 3 until phase 18 needed the
+# script's time)
+MAMBA_ARCH, MAMBA_LAYERS, MAMBA_STEPS, MAMBA_PAGE = "mamba2-370m", 4, 2, 1
 MAMBA_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 256, 512, 32),
                         (LM_BATCH * LM_SEQ, 512, 256, 32))
-# (FSDP_LAYERS 2, cut for phase 17's time)
-FSDP_DP, FSDP_TP, FSDP_LAYERS, FSDP_STEPS = 2, 2, 2, 3
+# (FSDP_LAYERS 2, cut for phase 17's time; FSDP_STEPS 2, 3 until phase
+# 18's)
+FSDP_DP, FSDP_TP, FSDP_LAYERS, FSDP_STEPS = 2, 2, 2, 2
 FSDP_PHANTOM_SHAPES = ((1024, 1536, 4096, 24), (1024, 4096, 1536, 24))
 FSDP_FLASH_SHAPE = (LM_BATCH // FSDP_DP, LM_SEQ, 16, 16, 96)
 # phase 14: jamba-1.5-large at full width: served at JAMBA_SERVE_LAYERS of
@@ -537,13 +582,13 @@ JAMBA_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 2048, 6144, 128),
 # rank's at tp 4 (16 heads, KV 2); the phantom kernels' (M, K, N, PK) at
 # gate/up and at down a rank at tp 4 (d / tp = 2048, d_ff / tp = 7392:
 # 115.5 of the 64-wide tiles, k = 32, PK = 128)
-QWEN2VL_ARCH, QWEN2VL_SERVE_LAYERS, QWEN2VL_LAYERS = "qwen2-vl-72b", 8, 2
+QWEN2VL_ARCH, QWEN2VL_SERVE_LAYERS, QWEN2VL_LAYERS = "qwen2-vl-72b", 2, 2
 QWEN2VL_PARITY_LAYERS = 2
 QWEN2VL_SERVE_FLASH_SHAPE = (SLOTS, 48, 64, 8, 128)
 QWEN2VL_TP_FLASH_SHAPE = (LM_BATCH, LM_SEQ, 16, 2, 128)
 QWEN2VL_PHANTOM_SHAPES = ((LM_BATCH * LM_SEQ, 2048, 7392, 128),
                           (LM_BATCH * LM_SEQ, 7392, 2048, 128))
-# phase 16: seamless-m4t-large-v2: served at full size (24 + 24 layers),
+# phase 16: seamless-m4t-large-v2: served at full width (SERVE_DEPTH),
 # trained on LM_TP ranks at SEAMLESS_LAYERS encoder + SEAMLESS_LAYERS
 # decoder layers (4 + 4, cut for phase 17's time), step 1
 # at SEAMLESS_PARITY_LAYERS + as many.  Flash at
@@ -564,12 +609,15 @@ RECURRENCE_TOL = 1e-4
 # phase 17: chatglm3-6b served over a mesh of ranks sharing the card
 # through ``serve/router.py: run_config``: tensor sites on dp 2 x tp 4 and
 # the router's phantom candidate (gate/up/down, k = 16) on dp 1 x tp 4,
-# at full width and SERVE_MESH_LAYERS of its 28 layers (a decode step
+# at full width and SERVE_MESH_LAYERS of its 28 layers (2; 4 until phase
+# 18 needed the script's time; a decode step
 # at 28 layers takes ≈ 2.1 s a rank on the H100: 170 collectives
 # through the host at ≈ 11 ms each; PERF.md §4), on a poisson
-# trace (the reference launcher's defaults: 16 requests of 4-48 prompt
-# and 4-16 new tokens at 4 requests/s); the streams' parity at
-# SERVE_MESH_PARITY_LAYERS; the router over SERVE_MESH_BUDGET devices at
+# trace (the reference launcher's defaults, 4-48 prompt and 4-16 new
+# tokens at 4 requests/s, but 8 requests of its 16, cut for phase 18's
+# time); the streams' parity at SERVE_MESH_PARITY_LAYERS over the
+# trace's first SERVE_MESH_PARITY_REQUESTS (2; 8 until phase 18); the
+# router over SERVE_MESH_BUDGET devices at
 # SERVE_MESH_SLO_MS.  The kernels' shapes a rank: flash's (B, S, H, KV, hd)
 # at a 48-token prefill of the rank's slots (32 / tp = 8 query heads
 # sharing the replicated K/V's one GQA head), the phantom forward's (M,
@@ -577,11 +625,14 @@ RECURRENCE_TOL = 1e-4
 # prefill group's 192 (d / tp = 1024, d_ff / tp = 3424: 53.5 of the
 # 64-wide tiles, k = 16, PK = 64)
 SERVE_MESH_ARCH, SERVE_MESH_LAYERS, SERVE_MESH_PARITY_LAYERS = \
-    "chatglm3-6b", 4, 2
+    "chatglm3-6b", 2, 2
 # the parity's streams: the trace's first requests (a prefix of its draw)
-SERVE_MESH_PARITY_REQUESTS = 8
+SERVE_MESH_PARITY_REQUESTS = 2
+# the parity streams of phases 17 and 18: each request's new tokens at
+# most (the trace's up to 16 until phase 18 needed the script's time)
+PARITY_TOKENS = 4
 SERVE_MESH = {"tensor": (2, 4), "phantom": (1, 4)}     # impl: (dp, tp)
-SERVE_MESH_TRACE = dict(kind="poisson", n=16, rate_rps=4.0,
+SERVE_MESH_TRACE = dict(kind="poisson", n=8, rate_rps=4.0,
                         prompt_len_range=(4, 48), new_tokens_range=(4, 16),
                         seed=SEED)
 SERVE_MESH_SLO_MS, SERVE_MESH_BUDGET = 200.0, 8
@@ -590,6 +641,45 @@ SERVE_MESH_FLASH_SHAPES = ((SLOTS // 2, 48, 8, 1, 128),
 SERVE_MESH_PHANTOM_SHAPES = ((SLOTS, 1024, 3424, 64), (SLOTS, 3424, 1024, 64),
                              (SLOTS * 48, 1024, 3424, 64),
                              (SLOTS * 48, 3424, 1024, 64))
+
+
+# phase 18: the families other than the dense one served over dp 1 x tp
+# 4 (ranks sharing the card), each at full width with its own projection
+# map, bf16, FAMILY_MESH_LAYERS layers (jamba 3: its three block kinds;
+# seamless as many encoder layers), page FAMILY_MESH_PAGE, on a short
+# poisson trace (8 requests of 4-48 prompt and 4-8 new tokens, the
+# recurrent families' prompts rounded up to a multiple of the page);
+# the float32 streams of its first FAMILY_MESH_PARITY_REQUESTS requests
+# against tp = 1, but jamba's (one layer's experts are 38.6 GB in
+# float32), held per layer in bf16 against the plain path instead.  The
+# kernels' shapes a rank: flash's (B, S, H, KV, hd[, causal]) at a
+# 48-token prefill (olmoe 4 of 16 heads; jamba's and qwen2-vl's 16 on 2
+# KV heads; seamless's 4 at hd 64, its encoder full, its decoder
+# causal); the phantom forward's (M, K, N, PK) at a decode step's 4 rows
+# and a 48-token group's 192, at olmoe's q/k/v/o (d / tp = 512, k = 8),
+# mamba2's in and out (256 -> 512, 512 -> 256, k = 8), the MLP sites of
+# jamba (2048, 6144, k = 32), qwen2.5 (1280, 3456, k = 16), qwen2-vl
+# (2048, 7392, k = 32) and seamless (256, 2048, k = 8)
+FAMILY_MESH = ("olmoe-1b-7b", "mamba2-370m", "jamba-1.5-large-398b",
+               "qwen2.5-14b", "qwen2-vl-72b", "seamless-m4t-large-v2")
+FAMILY_MESH_TP, FAMILY_MESH_LAYERS, FAMILY_MESH_PAGE = 4, 2, 4
+FAMILY_MESH_DEPTH = {"jamba-1.5-large-398b": 3}
+FAMILY_MESH_LAYER_CHECK = ("jamba-1.5-large-398b",)
+FAMILY_MESH_TRACE = dict(kind="poisson", n=8, rate_rps=4.0,
+                         prompt_len_range=(4, 48), new_tokens_range=(4, 8),
+                         seed=SEED)
+FAMILY_MESH_PARITY_REQUESTS = 2
+FAMILY_MESH_FLASH_SHAPES = ((SLOTS, 48, 4, 4, 128), (SLOTS, 48, 16, 2, 128),
+                            (SLOTS, 48, 4, 4, 64, False),
+                            (SLOTS, 48, 4, 4, 64, True))
+FAMILY_MESH_PHANTOM_SHAPES = tuple(
+    (M, K, N, PK) for K, N, PK in ((512, 512, 32), (256, 512, 32),
+                                   (512, 256, 32), (2048, 6144, 128),
+                                   (6144, 2048, 128), (1280, 3456, 64),
+                                   (3456, 1280, 64), (2048, 7392, 128),
+                                   (7392, 2048, 128), (256, 2048, 32),
+                                   (2048, 256, 32))
+    for M in (SLOTS, SLOTS * 48))
 
 
 # a kernel's measured keys in the kernels line
@@ -860,7 +950,8 @@ def phase_serve():
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import bucket_of
 
-    cfg = with_kernel_backend(get_config("chatglm3-6b"), "pallas")
+    cfg = with_kernel_backend(get_config("chatglm3-6b"), "pallas").replace(
+        num_layers=SERVE_DEPTH["chatglm3-6b"])
     axes = MeshAxes()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     t0 = time.perf_counter()
@@ -1511,8 +1602,7 @@ def _train_rank(axes, device, smoke=False, table1_steps=TABLE1["max_steps"]):
     out["peak_rss_gib"]["tensor"] = _peak_rss_gib()
 
     out["table1"] = {}
-    for impl, k in (("tensor", 4), ("phantom", 4), ("phantom", 8),
-                    ("phantom", 16)):
+    for impl, k in TABLE1_RUNS:
         run = train_rank(axes, device, table1_config(impl, k),
                          table1_steps, TABLE1["target"])
         out["table1"]["tensor" if impl == "tensor" else k] = run["losses"]
@@ -2870,60 +2960,164 @@ def _outer_wire_bytes(cfg, batch, seq, p, dp=1):
 
 
 def serve_wire_bytes(cfg, rows, seq, p, phase):
-    """The logical wire bytes one rank issues in one serving step of a
-    dense model in head mode at tp = ``p`` over ``rows`` rows (its dp
-    shard of the slots): a prefill of ``seq`` tokens or one decode step
-    (``phase``), priced as ``record_collectives`` prices them
-    (``_outer_wire_bytes``).  The stream is ``sp`` at prefill and ``rep``
-    at decode with tensor sites, ``fp`` with a phantom one.
-    Prefill: the embedding's reduce-scatter; per block, the features
-    gathered for the tensor sites (and in ``fp`` the two norms' psums),
-    the K/V all-to-all onto sequence shards where tp divides the KV
-    heads, ``wo``'s reduce-scatter, and the MLP's gather and
-    reduce-scatter (tensor) or its three ghost gathers of [T, k]
-    (phantom); the final norm (``fp``), the last position's psum
-    (``sp``), the head's feature gather (``fp``) and the fp32 logits'
-    gather.  Decode: the same with one token a row, the q (and K/V)
-    head gathers, the log-sum-exp merge's three all-reduces in fp32 (the
-    max, the numerators, the denominators) and, in ``rep``, all-reduces
-    where ``sp`` reduce-scatters."""
+    """The logical wire bytes one rank issues in one serving step at tp =
+    ``p`` over ``rows`` rows (its dp shard of the slots): a prefill of
+    ``seq`` tokens or one decode step (``phase``), of any LM family,
+    priced as ``record_collectives`` prices them (``_outer_wire_bytes``).
+    The stream is ``sp`` at prefill and ``rep`` at decode with tensor
+    sites, ``fp`` with a phantom one.  Around the blocks: the
+    embedding's reduce-scatter (an all-reduce in ``rep``), the final
+    norm's psums (``fp``), the last position's psum (``sp``), the head's
+    feature gather (``fp``) and the fp32 logits' gather.  Each block,
+    summed over the layer plan (``_serve_block_bytes``); an
+    encoder-decoder's prefill also runs the encoder over ``seq`` frames
+    and gathers its output to full features (the memory).  FSDP's dp
+    gathers (jamba's and qwen2-vl's configs set it) are not counted: at
+    dp 1, where phase 18 serves them, they issue nothing."""
+    from repro_torch.models.blocks import layer_plan
     from repro_torch.models.layers import padded_vocab, residual_layout
     act = 2 if cfg.dtype == "bfloat16" else 4
-    d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    hd, L = cfg.resolved_head_dim(), cfg.num_layers
-    layout = residual_layout(cfg, phase)
-    phantom = layout == "fp"
+    d = cfg.d_model
+    lay = residual_layout(cfg, phase)
     T = rows * (seq if phase == "prefill" else 1)
-    stream = T * d // p * act           # a rank's shard of the stream
-    full = T * d * act
-    k = cfg.projection_spec("ffn_up").k
-    if phase == "prefill":
-        reduce = _gathered(p, stream)   # a reduce-scatter of the stream
-    else:
-        reduce = (_gathered(p, stream) if phantom
-                  else _all_reduced(p, full))
-    block = 0.0
-    if phantom:
-        block += 2 * _norm_bytes(cfg, p, T) + _gathered(p, stream)
-        block += 3 * _gathered(p, T * k * act)            # the ghosts
-    elif phase == "prefill":
-        block += 2 * _gathered(p, stream)   # attention's and the MLP's
-    block += reduce if phantom else 2 * reduce   # wo's (and down's)
-    if kv % p == 0:
-        if phase == "prefill":
-            block += 2 * (T * kv // p * hd * act) * (p - 1) / p
-        else:
-            block += 2 * _gathered(p, T * kv // p * hd * act)
-    if phase == "decode":
-        block += _gathered(p, T * H // p * hd * act)        # q's heads
-        block += (2 * _all_reduced(p, T * H * 4)
-                  + _all_reduced(p, T * H * hd * 4))
-    out = L * block + reduce                # the embedding
-    if phantom:
-        out += _norm_bytes(cfg, p, T) + _gathered(p, rows * d // p * act)
-    elif phase == "prefill":
-        out += _all_reduced(p, rows * d * act)   # the last position
+    w = _serve_wires(cfg, lay, p, T, act)
+    out = w["reduce"]                                   # the embedding
+    for mixer, ffn in layer_plan(cfg):
+        out += _serve_block_bytes(cfg, lay, p, rows, seq, phase, mixer, ffn,
+                                  cross=cfg.family == "encdec")
+    if cfg.family == "encdec" and phase == "prefill":
+        out += cfg.encoder_layers * _serve_block_bytes(
+            cfg, lay, p, rows, seq, "encode", "attn", "mlp")
+        out += w["norm"] + w["gather"]            # final norm, the memory
+    if lay == "fp":
+        out += w["norm"] + _gathered(p, rows * d // p * act)
+    elif lay == "sp":
+        out += _all_reduced(p, rows * d * act)        # the last position
     return out + _gathered(p, rows * padded_vocab(cfg) // p * 4)
+
+
+def _serve_wires(cfg, lay, p, T, act):
+    """The bytes of the stream's collectives over ``T`` tokens in layout
+    ``lay``: ``gather`` (to full features), ``reduce`` (partial sums into
+    the layout) and one norm's psums (``fp`` only)."""
+    stream, full = T * cfg.d_model // p * act, T * cfg.d_model * act
+    return {"gather": 0.0 if lay == "rep" else _gathered(p, stream),
+            "reduce": (_all_reduced(p, full) if lay == "rep"
+                       else _gathered(p, stream)),
+            "norm": _norm_bytes(cfg, p, T) if lay == "fp" else 0.0}
+
+
+def _ghost(cfg, site, p, T, act):
+    """A phantom site's ghost gather of [T, k]."""
+    return _gathered(p, T * cfg.projection_spec(site).k * act)
+
+
+def _serve_block_bytes(cfg, lay, p, rows, seq, phase, mixer, ffn,
+                       cross=False):
+    """One block of ``serve_wire_bytes``; ``phase`` "encode" is an
+    encoder block in prefill (non-causal, no cache).
+
+    Head-mode attention: the features gathered where a q/k/v site is
+    tensor or tp does not divide the KV heads (always at decode), a
+    ghost gather per phantom site, ``wo``'s reduce (tensor); at prefill
+    the K/V all-to-all onto sequence shards where tp divides the KV
+    heads; at decode the q (and K/V) head gathers and the log-sum-exp
+    merge's three all-reduces in fp32 (the max, the numerators, the
+    denominators).  Ring attention: the chunk's features gathered
+    (``fp``), the four weights gathered on use in the compute dtype, p -
+    1 hops of K and of V and, in ``fp``, the all-to-all back; at decode
+    the gathers of the four weights and the merge.  Cross-attention (a
+    decoder block): its q site's gather and ``wo``'s reduce, at prefill
+    the memory's K/V all-to-all, at decode the q head gather and the
+    merge.  SSD: the gathered features, the in site's two ghosts
+    (phantom), the gated RMSNorm's psum [T, 1] in fp32, ``out``'s
+    ghost or reduce.  MLP: gather and reduce (tensor) or a ghost per
+    projection (phantom: three for SwiGLU, two for gelu).  Expert-
+    partitioned MoE: in ``fp`` the router's partial logits [T, E] in
+    fp32 and two all-to-alls of the capacity slots [E, C, d / p]; in
+    ``sp`` two all-to-alls of [E, C, d] over the rank's tokens; in
+    ``rep`` the psum of the experts' outputs [E, C, d].  Every norm in
+    ``fp`` adds its psums."""
+    from repro_torch.models.attention import (attn_site_strategies,
+                                              resolve_attn_mode)
+    from repro_torch.models.layers import mlp_strategies
+    from repro_torch.models.moe import moe_capacity
+    from repro_torch.models.ssm import ssm_dims, ssm_site_strategies
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.configs.base import PHANTOM_KINDS
+    act = 2 if cfg.dtype == "bfloat16" else 4
+    d, H, kv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    hd = cfg.resolved_head_dim() if H else 0
+    decode = phase == "decode"
+    T = rows * (1 if decode else seq)
+    w = _serve_wires(cfg, lay, p, T, act)
+    axes = MeshAxes(tp=p)
+    out = w["norm"]                                           # norm1
+    merge = (2 * _all_reduced(p, T * H * 4)
+             + _all_reduced(p, T * H * hd * 4))
+
+    def attn(is_cross):
+        sts = attn_site_strategies(cfg, axes, cross=is_cross)
+        ph = {n: sts[n].kind in PHANTOM_KINDS for n in sts}
+        o = sum(_ghost(cfg, _SITE[n], p, T, act)
+                for n in ("wq", "wk", "wv", "wo") if ph[n])
+        o += 0.0 if ph["wo"] else w["reduce"]
+        if resolve_attn_mode(cfg, axes) == "ring" and not is_cross:
+            wts = sum(_gathered(p, n_in * n_out // p * act)
+                      for n_in, n_out in ((d, H * hd), (d, kv * hd),
+                                          (d, kv * hd), (H * hd, d)))
+            if decode:
+                return w["gather"] + wts + merge
+            C = seq // p
+            return ((w["gather"] if lay == "fp" else 0.0) + wts
+                    + 2 * (p - 1) * rows * C * kv * hd * act
+                    + (rows * C * d * act * (p - 1) / p
+                       if lay == "fp" else 0.0))
+        users = ("wq",) if is_cross else ("wq", "wk", "wv")
+        if decode or kv % p or not all(ph[n] for n in users):
+            o += w["gather"]
+        if decode:
+            o += _gathered(p, T * H // p * hd * act) + merge
+            if kv % p == 0 and not is_cross:
+                o += 2 * _gathered(p, T * kv // p * hd * act)
+        elif phase == "prefill" and kv % p == 0:
+            o += 2 * (rows * seq * kv // p * hd * act) * (p - 1) / p
+        return o
+
+    if mixer == "attn":
+        out += attn(False)
+    else:
+        sts = ssm_site_strategies(cfg, axes)
+        out += w["gather"] + _all_reduced(p, T * 4)
+        out += (2 * _ghost(cfg, "ssm_in", p, T, act)
+                if sts["in"].kind in PHANTOM_KINDS else 0.0)
+        out += (_ghost(cfg, "ssm_out", p, T, act)
+                if sts["out"].kind in PHANTOM_KINDS else w["reduce"])
+    if cross:
+        out += w["norm"] + attn(True)
+    if ffn is None:
+        return out
+    out += w["norm"]                                          # norm2
+    if ffn == "mlp":
+        sts = mlp_strategies(cfg, axes, d, cfg.d_ff)
+        if all(st.kind in PHANTOM_KINDS for st in sts.values()):
+            out += sum(_ghost(cfg, f"ffn_{n}", p, T, act) for n in sts)
+        else:
+            out += w["gather"] + w["reduce"]
+        return out
+    m = cfg.moe
+    E = m.num_experts
+    tok = T // p if lay == "sp" else T
+    C = moe_capacity(tok, E, m.top_k, m.capacity_factor)
+    if lay == "fp":
+        return (out + _all_reduced(p, T * E * 4)
+                + 2 * E * C * d // p * act * (p - 1) / p)
+    if lay == "sp":
+        return out + 2 * E * C * d * act * (p - 1) / p
+    return out + _all_reduced(p, E * C * d * act)
+
+
+_SITE = {"wq": "attn_q", "wk": "attn_k", "wv": "attn_v", "wo": "attn_o"}
 
 
 def ring_wire_bytes(cfg, batch, seq, p):
@@ -3604,7 +3798,8 @@ def _agreement(a, b):
 
 
 def _moe_serve():
-    """(a): olmoe-1b-7b at full size and tp = 1 through ``ServeEngine``,
+    """(a): olmoe-1b-7b at full width (``SERVE_DEPTH``) and tp = 1 through
+    ``ServeEngine``,
     phase 4's traffic, ``kernel_backend="pallas"``; the flash launches
     held to the prefill groups x layers; a profiled decode window; the
     first group's prefill on both cores (``_compare_cores``); the first 8
@@ -3620,7 +3815,8 @@ def _moe_serve():
     from repro_torch.serve.engine import Request, ServeEngine
     from repro_torch.serve.scheduler import bucket_of
 
-    cfg = with_kernel_backend(get_config(MOE_ARCH), "pallas")
+    cfg = with_kernel_backend(get_config(MOE_ARCH), "pallas").replace(
+        num_layers=SERVE_DEPTH[MOE_ARCH])
     t0 = time.perf_counter()
     # float32 draw, kept for the float32 streams; the engine casts a copy
     params = materialize(model_decls(cfg, MeshAxes()), torch.Generator(
@@ -3889,7 +4085,7 @@ def _moe_held(ranks, cfg):
 
 def phase_moe():
     """The MoE family: the kernels at olmoe-1b-7b's shapes, its serving at
-    full size (``_moe_serve``), then ``LM_TP`` ranks sharing the card
+    full width (``_moe_serve``), then ``LM_TP`` ranks sharing the card
     (gloo, card tensors through the host) running ``_moe_rank``."""
     import statistics as st
     import torch
@@ -3972,11 +4168,12 @@ def phase_moe():
 
 
 def _mamba_serve():
-    """(a): mamba2-370m at full size and tp = 1 through ``ServeEngine``,
+    """(a): mamba2-370m at full width (``SERVE_DEPTH``) and tp = 1 through
+    ``ServeEngine``,
     phase 4's traffic, every prompt its own exact-length group (the
     recurrent families cannot be right-padded; page size 1 admits every
-    length).  Every request's 16 tokens, TTFT and TPOT, a profiled decode
-    window, the state cache's bytes; then the recurrence check on the
+    length).  Every request's ``NEW_TOKENS`` tokens, TTFT and TPOT, a profiled
+    decode window, the state cache's bytes; then the recurrence check on the
     closed batch's first group (``_recurrence_check``).  No kernel runs
     here: the SSD scan is plain torch, as the reference's is XLA, and
     phantom needs tp > 1."""
@@ -3988,7 +4185,8 @@ def _mamba_serve():
     from repro_torch.parallel.params import materialize
     from repro_torch.serve.engine import Request, ServeEngine
 
-    cfg = with_kernel_backend(get_config(MAMBA_ARCH), "pallas")
+    cfg = with_kernel_backend(get_config(MAMBA_ARCH), "pallas").replace(
+        num_layers=SERVE_DEPTH[MAMBA_ARCH])
     t0 = time.perf_counter()
     # float32 draw, kept for the recurrence check; the engine casts a copy
     params = materialize(model_decls(cfg, MeshAxes()), torch.Generator(
@@ -4833,9 +5031,9 @@ def _family_serve(cfg, page, tag):
     """``cfg`` (random weights from the seed, ``kernel_backend="pallas"``)
     through ``ServeEngine`` with phase 4's traffic at page size ``page``
     (16: mixed-length buckets; 1: every prompt its own exact-length
-    group, as a recurrent family needs): every request's 16 tokens, the
-    flash kernel once per self-attention layer (an encoder's too; none at
-    an SSD layer) of every prefill group; TTFT, TPOT, a profiled decode
+    group, as a recurrent family needs): every request's ``NEW_TOKENS``
+    tokens, the flash kernel once per self-attention layer (an encoder's too;
+    none at an SSD layer) of every prefill group; TTFT, TPOT, a profiled decode
     window, the weights' and the cache's bytes.  Returns (results, the
     engine, the closed batch)."""
     import numpy as np
@@ -4954,7 +5152,7 @@ def _vlm_serve():
 
 
 def _encdec_serve():
-    """(a): seamless-m4t-large-v2 at full size (24 + 24 layers), bf16,
+    """(a): seamless-m4t-large-v2 at full width (``SERVE_DEPTH``), bf16,
     through ``_family_serve``, every prompt its own exact-length group
     (page size 1: the family is recurrent, its encoder reads the whole
     prompt's frames).  Served frames are zero, so there the encoder's
@@ -4971,7 +5169,9 @@ def _encdec_serve():
     from repro_torch.models.model import forward_prefill
     from repro_torch.parallel.axes import MeshAxes
     from repro_torch.parallel.params import tree_leaves
-    cfg = with_kernel_backend(get_config(SEAMLESS_ARCH), "pallas")
+    n = SERVE_DEPTH[SEAMLESS_ARCH]
+    cfg = with_kernel_backend(get_config(SEAMLESS_ARCH), "pallas").replace(
+        num_layers=n, encoder_layers=n)
     out, eng, closed = _family_serve(cfg, MAMBA_PAGE, "encdec serve")
     params = _cut_layers(eng.params, cfg.num_layers,
                          ("enc_layers", "dec_layers"))
@@ -5182,117 +5382,62 @@ def phase_encdec():
         "encdec_wire_bytes")
 
 
-def _dense_twin(params):
+def _dense_twin(tree):
     """A phantom model's tree as the tensor config's: each phantom site's
-    stacked factors replaced by the dense matrices it computes, layer by
-    layer (``core/phantom.py: phantom_dense_equivalent``)."""
+    factors ``{L, C, D}`` replaced by the dense matrix it computes, layer
+    by layer, its bias kept (``core/phantom.py:
+    phantom_dense_equivalent``)."""
     import torch
     from repro_torch.core.phantom import phantom_dense_equivalent
-    ffn = params["layers"]["ffn"]
-    for name, site in ffn.items():
-        if "L" in site:
-            ffn[name] = {"w": torch.stack([phantom_dense_equivalent(
-                {f: site[f][i] for f in ("L", "C", "D")})
-                for i in range(site["L"].shape[0])])}
-    return params
+    if not isinstance(tree, dict):
+        return tree
+    if "L" not in tree:
+        return {k: _dense_twin(v) for k, v in tree.items()}
+    rest = {k: v for k, v in tree.items() if k not in ("L", "C", "D")}
+    return {**rest, "w": torch.stack([phantom_dense_equivalent(
+        {f: tree[f][i] for f in ("L", "C", "D")})
+        for i in range(tree["L"].shape[0])])}
 
 
-def _replayed(cfg, params, axes, device, trace):
+def _replayed(cfg, params, axes, device, trace, page=PAGE, stubs=None):
     """Greedy streams of ``trace`` through a ``replay`` of this rank's
-    engine (``SLOTS`` slots, ``MAX_LEN``, page ``PAGE``)."""
+    engine (``SLOTS`` slots, ``MAX_LEN``, page ``page``, the frontends'
+    ``stubs``)."""
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.traffic import replay, trace_requests
     eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
-                      page_size=PAGE, axes=axes, device=device)
+                      page_size=page, axes=axes, device=device, stubs=stubs)
     reqs = trace_requests(trace, cfg.vocab_size, seed=SEED)
     replay(eng, reqs)
-    check(all(r.done for r in reqs), f"{cfg.name}: a request did not end")
+    check(all(r.done and r.error is None for r in reqs),
+          f"{cfg.name}: a request did not end")
     return [list(r.out_tokens) for r in reqs]
 
 
-def _serve_parity(sc, axes, device, trace, dtype):
-    """The mesh engine's greedy streams of ``trace`` at
-    ``SERVE_MESH_PARITY_LAYERS`` layers in ``dtype`` activations, and on
-    the world's rank 0 alone those of the tp = 1 engine on the same global
-    weights (a phantom model's as its dense twin, the tensor config's
-    tree): {"mesh": streams, "tp1": streams or None}."""
+def _serve_parity(cfg, twin, axes, device, trace, page=PAGE, stubs=None):
+    """The mesh engine's greedy streams of ``trace`` on ``cfg`` (at page
+    ``page``, the frontends' ``stubs``), and on the world's rank 0 alone
+    those of the tp = 1 engine on the same global weights, as the config
+    ``twin`` (the tensor sites') holds them (a phantom model's as its
+    dense twin): {"mesh": streams, "tp1": streams or None}."""
     import torch
     from repro_torch.models.model import model_decls
     from repro_torch.parallel.axes import MeshAxes
     from repro_torch.parallel.params import materialize
-    from repro_torch.serve.router import ServeConfig, serve_params
-    cfg = sc.model_config().replace(num_layers=SERVE_MESH_PARITY_LAYERS,
-                                    dtype=dtype)
+    from repro_torch.serve.router import serve_params
     out = {"mesh": _replayed(cfg, serve_params(cfg, axes, SEED, device),
-                             axes, device, trace), "tp1": None}
+                             axes, device, trace, page, stubs),
+           "tp1": None}
     _free()
     if axes.rank == 0:
         glob = materialize(model_decls(cfg, axes), torch.Generator(
             device=device).manual_seed(SEED), device)
-        dense = ServeConfig(sc.arch, "tensor", 1, 1, sc.slots,
-                            sc.max_len, sc.page_size, smoke=False)
-        twin = dense.model_config().replace(
-            num_layers=SERVE_MESH_PARITY_LAYERS, dtype=dtype)
         out["tp1"] = _replayed(twin, _dense_twin(glob), MeshAxes(), device,
-                               trace)
+                               trace, page, stubs)
         del glob
         _free()
     axes.world_comm.all_reduce(torch.zeros(1))     # rank 0 is done
     return out
-
-
-def _mesh_layer_check(cfg, axes, params, toks):
-    """One 48-token prefill of this rank's rows, layer by layer in bf16 as
-    served: the kernel path's block and the plain path's
-    (``kernel_backend="xla"``) from the same input, each output and the
-    last position's logits within ``LOGIT_TOL`` of the layer's (the
-    logits') largest magnitude.  Phase 4 holds each element to rtol/atol
-    ``LOGIT_TOL`` at tp = 1, where only flash differs between the paths;
-    at tp > 1 the plain path rounds a phantom site's local and ghost
-    products to bf16 apart before it adds them, which moves elements
-    near zero by a bf16 step of the products' size, beyond that
-    elementwise tolerance at full width.  Returns the worst differences
-    and their share of the largest."""
-    import torch
-    from repro_torch.configs.base import with_kernel_backend
-    from repro_torch.models.blocks import block_apply
-    from repro_torch.models.layers import (embed_apply, head_logits,
-                                           norm_apply, residual_layout)
-    from repro_torch.models.model import _last_position
-    from repro_torch.parallel.params import tree_map
-    plain = with_kernel_backend(cfg, "xla")
-    lay = residual_layout(cfg, "prefill")
-    B, S = toks.shape
-    pos = torch.arange(S, device=toks.device).expand(B, S)
-    worst = worst_share = 0.0
-    with torch.no_grad():
-        h = embed_apply(cfg, lay, params["embed"], toks, axes)
-        for i in range(cfg.num_layers):
-            lp = tree_map(lambda t: t[i], params["layers"])
-            h_k, _, _ = block_apply(cfg, lay, lp, h, pos, axes,
-                                    kind="prefill", ffn="mlp")
-            h_x, _, _ = block_apply(plain, lay, lp, h, pos, axes,
-                                    kind="prefill", ffn="mlp")
-            err, share = _err_of_largest(h_k, h_x)
-            worst, worst_share = max(worst, err), max(worst_share, share)
-            check(share <= LOGIT_TOL, f"serve mesh: rank {axes.rank} layer "
-                                      f"{i}: kernel and plain paths differ "
-                                      f"by {share:.3e} of the largest")
-            h = h_k
-
-        def logits(x):
-            x = norm_apply(cfg, lay, params["final_norm"], x, axes)
-            return head_logits(cfg, lay, params["head"],
-                               _last_position(x, lay, axes),
-                               axes)[..., :cfg.vocab_size]
-        lg_k, lg_x = logits(h_k), logits(h_x)
-    check(bool(torch.isfinite(lg_k).all()), "serve mesh: non-finite logits")
-    lg_err, lg_share = _err_of_largest(lg_k, lg_x)
-    check(lg_share <= LOGIT_TOL, f"serve mesh: rank {axes.rank}: logits of "
-                                 f"the two paths differ by {lg_share:.3e} "
-                                 f"of the largest")
-    return {"per_layer_hidden": worst, "per_layer_share": worst_share,
-            "logits": lg_err, "logits_share": lg_share}
 
 
 def _err_of_largest(got, want):
@@ -5302,8 +5447,9 @@ def _err_of_largest(got, want):
     return d, d / max(want.float().abs().max().item(), 1e-30)
 
 
-def _profile_mesh_decode(cfg, params, axes, device):
-    """One decode step of a full batch on a fresh engine, every rank's
+def _profile_mesh_decode(cfg, params, axes, device, page=PAGE, stubs=None):
+    """One decode step of a full batch of 16-token prompts on a fresh
+    engine (page ``page``, the frontends' ``stubs``), every rank's
     collectives timed (``record_collectives(timed=True)``), rank 0's
     under ``torch.profiler``: wall ms, host ms in the collectives and
     their count, and rank 0's device ms and device ops."""
@@ -5313,10 +5459,10 @@ def _profile_mesh_decode(cfg, params, axes, device):
     from repro_torch.parallel.axes import record_collectives
     from repro_torch.serve.engine import Request, ServeEngine
     eng = ServeEngine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
-                      page_size=PAGE, axes=axes, device=device)
+                      page_size=page, axes=axes, device=device, stubs=stubs)
     rng = np.random.RandomState(SEED + 2)
     eng.submit([Request(prompt=rng.randint(0, cfg.vocab_size, 16)
-                        .astype(np.int32), max_new_tokens=8)
+                        .astype(np.int32), max_new_tokens=3)
                 for _ in range(SLOTS)])
     eng.step()
     torch.cuda.synchronize()
@@ -5347,11 +5493,12 @@ def _profile_mesh_decode(cfg, params, axes, device):
 
 def _serve_mesh_rank(axes, device, impl, layers):
     """``phase_serve_mesh`` inside one rank of the ``impl`` config's mesh:
-    (1) the parity streams at ``SERVE_MESH_PARITY_LAYERS`` layers, float32
-    and bf16 (``_serve_parity``); (2) the main path, ``run_config`` at
+    (1) the float32 parity streams at ``SERVE_MESH_PARITY_LAYERS`` layers
+    (``_serve_parity``); (2) the main path, ``run_config`` at
     ``layers`` layers in bf16, kernel counts from 0 just before and read
     just after; (3) the per-layer kernel-vs-plain check on its weights;
     (4) one profiled decode step."""
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.planner import paper_default_calibration
@@ -5360,10 +5507,14 @@ def _serve_mesh_rank(axes, device, impl, layers):
     sc = ServeConfig(SERVE_MESH_ARCH, impl, axes.dp, axes.tp, SLOTS,
                      max_len=MAX_LEN, page_size=PAGE, smoke=False)
     trace = make_trace(**SERVE_MESH_TRACE)
-    prefix = make_trace(**SERVE_MESH_TRACE,
-                        max_requests=SERVE_MESH_PARITY_REQUESTS)
-    out = {"parity": {dt: _serve_parity(sc, axes, device, prefix, dt)
-                      for dt in ("float32", "bfloat16")}}
+    prefix = [dataclasses.replace(t, max_new_tokens=min(
+        t.max_new_tokens, PARITY_TOKENS)) for t in make_trace(
+            **SERVE_MESH_TRACE, max_requests=SERVE_MESH_PARITY_REQUESTS)]
+    twin = ServeConfig(sc.arch, "tensor", 1, 1, sc.slots, sc.max_len,
+                       sc.page_size, smoke=False).model_config()
+    out = {"parity": _serve_parity(*(
+        c.replace(num_layers=SERVE_MESH_PARITY_LAYERS, dtype="float32")
+        for c in (sc.model_config(), twin)), axes, device, prefix)}
 
     cfg = sc.model_config().replace(num_layers=layers)
     t0 = time.perf_counter()
@@ -5414,20 +5565,16 @@ def _serve_mesh_held(impl, ranks, cfg, layers):
     dp, tp = SERVE_MESH[impl]
     trace = make_trace(**SERVE_MESH_TRACE)
     tag = f"serve mesh {impl} dp {dp} x tp {tp}"
-    par = {dt: ranks[0]["parity"][dt] for dt in ("float32", "bfloat16")}
-    for dt in par:
-        check(all(r["parity"][dt]["mesh"] == par[dt]["mesh"] for r in ranks),
-              f"{tag}: ranks disagree on the {dt} streams")
-    f32 = par["float32"]
-    check(f32["mesh"] == f32["tp1"],
+    par = ranks[0]["parity"]
+    check(all(r["parity"]["mesh"] == par["mesh"] for r in ranks),
+          f"{tag}: ranks disagree on the float32 streams")
+    check(par["mesh"] == par["tp1"],
           f"{tag}: float32 streams at {SERVE_MESH_PARITY_LAYERS} layers "
-          f"part from tp = 1's at {_first_parting(f32['mesh'], f32['tp1'])}")
-    parts = _first_parting(par["bfloat16"]["mesh"], par["bfloat16"]["tp1"])
+          f"part from tp = 1's at {_first_parting(par['mesh'], par['tp1'])}")
     print(f"{tag}: parity at {SERVE_MESH_PARITY_LAYERS} layers: float32 "
           f"streams of the trace's first {SERVE_MESH_PARITY_REQUESTS} "
-          f"requests equal tp = 1's (held); bf16 "
-          f"streams part from tp = 1's at token {parts} (None: equal; "
-          f"printed, not held)", flush=True)
+          f"requests ({PARITY_TOKENS} tokens at most) equal tp = 1's "
+          f"(held)", flush=True)
     main = [r["main"] for r in ranks]
     m0 = main[0]
     for r in ranks:
@@ -5498,7 +5645,7 @@ def _serve_mesh_held(impl, ranks, cfg, layers):
           f"{agree}; per-layer kernel vs plain (bf16, each within "
           f"{LOGIT_TOL} of the largest): {[r['layers'] for r in ranks]}",
           flush=True)
-    return {"parity": par, "bf16_parting": parts, "want_launches": want,
+    return {"parity": par, "want_launches": want,
             "wire_counted": wire, "wire_ratio_to_prediction": ratio,
             "main": [{k: v for k, v in m.items() if k != "streams"}
                      for m in main],
@@ -5558,6 +5705,341 @@ def phase_serve_mesh():
     return out
 
 
+def _family_mesh_cfg(arch, layers=None, dtype="bfloat16", impl=None):
+    """``arch`` at full width with its own projection map (``impl``
+    "tensor": the router's tensor candidate, every site tensor), every
+    site on the kernel backend, cut to ``layers`` (default its
+    ``FAMILY_MESH_DEPTH``; an encoder-decoder's encoder as deep as its
+    decoder), in ``dtype`` activations."""
+    from repro_torch.configs.base import get_config, with_kernel_backend
+    from repro_torch.serve.router import ServeConfig
+    n = layers or FAMILY_MESH_DEPTH.get(arch, FAMILY_MESH_LAYERS)
+    cfg = (ServeConfig(arch, "tensor", 1, FAMILY_MESH_TP, SLOTS, MAX_LEN,
+                       FAMILY_MESH_PAGE, smoke=False).model_config()
+           if impl == "tensor" else get_config(arch))
+    cfg = cfg.replace(num_layers=n, dtype=dtype)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(encoder_layers=n)
+    return with_kernel_backend(cfg, "auto")
+
+
+def _family_mesh_trace(arch, n=None):
+    """``FAMILY_MESH_TRACE`` (its first ``n`` requests); for a recurrent
+    family each prompt's length rounded up to a multiple of the page,
+    which its exact-length refill groups need (``serve/scheduler.py``
+    rejects the others, as the reference's does)."""
+    import dataclasses
+    from repro_torch.configs.base import get_config
+    from repro_torch.serve.engine import RECURRENT_FAMILIES
+    from repro_torch.serve.traffic import make_trace
+    trace = make_trace(**FAMILY_MESH_TRACE, max_requests=n or 0)
+    if get_config(arch).family not in RECURRENT_FAMILIES:
+        return trace
+    page = FAMILY_MESH_PAGE
+    return [dataclasses.replace(t, prompt_len=-(-t.prompt_len // page) * page)
+            for t in trace]
+
+
+def _family_mesh_launches(cfg, prefills, decodes):
+    """Each kernel's launches on a rank for ``prefills`` prefill steps and
+    ``decodes`` decode steps of ``cfg`` at tp 4: flash once a head-mode
+    self-attention layer of a prefill (the encoder's too; ring attention
+    and cross-attention run the plain core), the phantom forward once a
+    phantom site of a layer of every step (the encoder's only at
+    prefill)."""
+    from repro_torch.configs.base import PHANTOM_KINDS
+    from repro_torch.models.attention import (attn_site_strategies,
+                                              resolve_attn_mode)
+    from repro_torch.models.blocks import layer_plan
+    from repro_torch.models.layers import mlp_strategies
+    from repro_torch.models.ssm import ssm_site_strategies
+    from repro_torch.parallel.axes import MeshAxes
+    axes = MeshAxes(tp=FAMILY_MESH_TP)
+
+    def phantom(sts):
+        return sum(st.kind in PHANTOM_KINDS for st in sts.values())
+    flash = sites = 0
+    for mixer, ffn in layer_plan(cfg):
+        if mixer == "attn":
+            flash += resolve_attn_mode(cfg, axes) == "head"
+            sites += phantom(attn_site_strategies(cfg, axes))
+        else:
+            sts = ssm_site_strategies(cfg, axes)
+            sites += 2 * (sts["in"].kind in PHANTOM_KINDS) + (
+                sts["out"].kind in PHANTOM_KINDS)
+        if ffn == "mlp":
+            sites += phantom(mlp_strategies(cfg, axes, cfg.d_model, cfg.d_ff))
+    enc_flash = enc_sites = 0
+    if cfg.family == "encdec":
+        enc_flash = cfg.encoder_layers
+        enc_sites = cfg.encoder_layers * phantom(
+            mlp_strategies(cfg, axes, cfg.d_model, cfg.d_ff))
+    return {"flash_attention": (flash + enc_flash) * prefills,
+            "phantom_fused_matmul": ((sites + enc_sites) * prefills
+                                     + sites * decodes),
+            "matmul_nt": 0, "matmul_tn": 0}
+
+
+def _mesh_layer_check(cfg, axes, params, toks):
+    """One 48-token prefill of this rank's rows of any stack but an
+    encoder-decoder's, block by block (a hybrid's every sub) in bf16 as
+    served: the kernel path's block and the plain path's
+    (``kernel_backend="xla"``) from the same input, each output and the
+    last position's logits within ``LOGIT_TOL`` of the block's (the
+    logits') largest magnitude.  Phase 4 holds each element to rtol/atol
+    ``LOGIT_TOL`` at tp = 1, where only flash differs between the paths;
+    at tp > 1 the plain path rounds a phantom site's local and ghost
+    products to bf16 apart before it adds them, which moves elements
+    near zero by a bf16 step of the products' size, beyond that
+    elementwise tolerance at full width.  Returns the worst differences
+    and their share of the largest."""
+    import torch
+    from repro_torch.configs.base import with_kernel_backend
+    from repro_torch.models.blocks import block_apply
+    from repro_torch.models.layers import (embed_apply, head_logits,
+                                           norm_apply, residual_layout)
+    from repro_torch.models.model import (_last_position, _layer, _plan,
+                                          _subs, n_groups)
+    plain = with_kernel_backend(cfg, "xla")
+    lay = residual_layout(cfg, "prefill")
+    plan = _plan(cfg)
+    B, S = toks.shape
+    pos = torch.arange(S, device=toks.device).expand(B, S)
+    worst = worst_share = 0.0
+    with torch.no_grad():
+        h = embed_apply(cfg, lay, params["embed"], toks, axes)
+        for i in range(n_groups(cfg)):
+            for lp, mixer, ffn in _subs(plan, _layer(params, i)):
+                h_k, _, _ = block_apply(cfg, lay, lp, h, pos, axes,
+                                        kind="prefill", ffn=ffn, mixer=mixer)
+                h_x, _, _ = block_apply(plain, lay, lp, h, pos, axes,
+                                        kind="prefill", ffn=ffn, mixer=mixer)
+                err, share = _err_of_largest(h_k, h_x)
+                worst, worst_share = max(worst, err), max(worst_share, share)
+                check(share <= LOGIT_TOL,
+                      f"{cfg.name} mesh: rank {axes.rank} group {i} "
+                      f"{mixer}/{ffn}: kernel and plain paths differ by "
+                      f"{share:.3e} of the largest")
+                h = h_k
+
+        def logits(x):
+            x = norm_apply(cfg, lay, params["final_norm"], x, axes)
+            return head_logits(cfg, lay, params["head"],
+                               _last_position(x, lay, axes),
+                               axes)[..., :cfg.vocab_size]
+        lg_k, lg_x = logits(h_k), logits(h_x)
+    check(bool(torch.isfinite(lg_k).all()),
+          f"{cfg.name} mesh: non-finite logits")
+    lg_err, lg_share = _err_of_largest(lg_k, lg_x)
+    check(lg_share <= LOGIT_TOL,
+          f"{cfg.name} mesh: rank {axes.rank}: logits of the two paths "
+          f"differ by {lg_share:.3e} of the largest")
+    return {"per_layer_hidden": worst, "per_layer_share": worst_share,
+            "logits": lg_err, "logits_share": lg_share}
+
+
+def _family_parity(arch, axes, device):
+    """``_serve_parity`` of phase 18: the trace's first
+    ``FAMILY_MESH_PARITY_REQUESTS`` requests (``PARITY_TOKENS`` tokens at
+    most) at ``FAMILY_MESH_LAYERS`` layers in float32, the twin the
+    tensor candidate, frontends' stubs drawn from each prompt
+    (``serve/engine.py: drawn_stubs``).  The requests arrive together: on
+    the engines' wall clocks a poisson trace groups them differently at
+    tp 4 and at tp 1, and an MoE's capacity drops a token or keeps it by
+    which requests share its step."""
+    import dataclasses
+    from repro_torch.serve.engine import drawn_stubs
+    trace = [dataclasses.replace(t, arrival_s=0.0, max_new_tokens=min(
+        t.max_new_tokens, PARITY_TOKENS)) for t in
+             _family_mesh_trace(arch, FAMILY_MESH_PARITY_REQUESTS)]
+    return _serve_parity(
+        _family_mesh_cfg(arch, FAMILY_MESH_LAYERS, "float32"),
+        _family_mesh_cfg(arch, FAMILY_MESH_LAYERS, "float32", impl="tensor"),
+        axes, device, trace, FAMILY_MESH_PAGE, drawn_stubs)
+
+
+def _family_mesh_rank(axes, device):
+    """``phase_family_mesh`` inside one of the ``FAMILY_MESH_TP`` ranks
+    sharing the card, for each arch of ``FAMILY_MESH`` in turn: (1) the
+    parity, float32 streams against tp = 1 (``_family_parity``) or, for
+    the archs of ``FAMILY_MESH_LAYER_CHECK``, the per-layer bf16 check
+    of the main path's weights (``_mesh_layer_check``); (2) the main
+    path, ``run_config`` at the arch's depth in bf16 with drawn stubs,
+    kernel counts from 0 just before and read just after; (3) one
+    profiled decode step."""
+    import numpy as np
+    import torch
+    from repro_torch.planner import paper_default_calibration
+    from repro_torch.serve.engine import drawn_stubs
+    from repro_torch.serve.router import ServeConfig, run_config, serve_params
+    out = {}
+    for arch in FAMILY_MESH:
+        t_arch = time.perf_counter()
+        res = {}
+        if arch not in FAMILY_MESH_LAYER_CHECK:
+            res["parity"] = _family_parity(arch, axes, device)
+        cfg = _family_mesh_cfg(arch)
+        sc = ServeConfig(arch, "tensor", axes.dp, axes.tp, SLOTS,
+                         max_len=MAX_LEN, page_size=FAMILY_MESH_PAGE,
+                         smoke=False)
+        t0 = time.perf_counter()
+        params = serve_params(cfg, axes, SEED, device)
+        torch.cuda.synchronize()
+        res["draw_s"] = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        _kernel_counts(reset=True)
+        t0 = time.perf_counter()
+        main = run_config(sc, _family_mesh_trace(arch), axes, device=device,
+                          cfg=cfg, params=params,
+                          calib=paper_default_calibration(), seed=SEED,
+                          stubs=drawn_stubs)
+        torch.cuda.synchronize()
+        main.update(launches=_kernel_counts(),
+                    wall_s=time.perf_counter() - t0,
+                    weights_gb=sum(t.numel() * t.element_size()
+                                   for t in _leaves(params)) / 1e9,
+                    peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+        free, total = torch.cuda.mem_get_info()
+        main["card_used_gb"] = (total - free) / 1e9
+        res["main"] = main
+        if arch in FAMILY_MESH_LAYER_CHECK:
+            toks = torch.from_numpy(np.random.RandomState(SEED + 3).randint(
+                0, cfg.vocab_size, (SLOTS, 48))).long().to(device)
+            res["layers"] = _mesh_layer_check(cfg, axes, params, toks)
+        res["profile"] = _profile_mesh_decode(
+            cfg, params, axes, device, FAMILY_MESH_PAGE, drawn_stubs)
+        del params
+        _free()
+        res["wall_s"] = time.perf_counter() - t_arch
+        out[arch] = res
+    return out
+
+
+def _family_mesh_held(arch, ranks):
+    """Hold one arch's ranks: parity, every request's tokens, launches,
+    wire bytes to the byte; print what the phase measured.  Returns the
+    summary kept in the JSON."""
+    cfg = _family_mesh_cfg(arch)
+    tp = FAMILY_MESH_TP
+    tag = f"family mesh {arch} tp {tp}"
+    res = [r[arch] for r in ranks]
+    r0 = res[0]
+    summary = {}
+    if "parity" in r0:
+        par = r0["parity"]
+        check(all(r["parity"]["mesh"] == par["mesh"] for r in res),
+              f"{tag}: ranks disagree on the float32 streams")
+        check(par["mesh"] == par["tp1"],
+              f"{tag}: float32 streams at {FAMILY_MESH_LAYERS} layers part "
+              f"from tp = 1's at {_first_parting(par['mesh'], par['tp1'])}")
+        summary["parity"] = par
+        print(f"{tag}: parity at {FAMILY_MESH_LAYERS} layers: float32 "
+              f"streams of the trace's first {FAMILY_MESH_PARITY_REQUESTS} "
+              f"requests equal tp = 1's (held): {par['mesh']}", flush=True)
+    else:
+        summary["layer_check"] = [r["layers"] for r in res]
+        print(f"{tag}: per-layer kernel vs plain, bf16, each within "
+              f"{LOGIT_TOL} of the layer's largest (held; float32 weights "
+              f"of the tp 4 ranks and the tp 1 twin would not fit the "
+              f"card): {summary['layer_check']}", flush=True)
+    main = [r["main"] for r in res]
+    m0 = main[0]
+    trace = _family_mesh_trace(arch)
+    for m in main:
+        check(m["streams"] == m0["streams"],
+              f"{tag}: ranks disagree on the served streams")
+    for s, t in zip(m0["streams"], trace):
+        check(len(s) == t.max_new_tokens and all(
+            0 <= x < cfg.vocab_size for x in s),
+            f"{tag}: a request ended with {len(s)} of {t.max_new_tokens} "
+            f"tokens")
+    # the replay's steps, the warm-up's (one prefill a bucket, one
+    # decode) and the measured account's probes (one each)
+    want = _family_mesh_launches(
+        cfg, m0["prefill_steps"] + m0["warmup_prefills"] + 1,
+        m0["decode_steps"] + 2)
+    for m in main:
+        check(m["launches"] == want,
+              f"{tag}: launches {m['launches']}, want {want}")
+    S_probe = m0["probe_bucket"]
+    wire = {ph: serve_wire_bytes(cfg, SLOTS, S_probe, tp, ph)
+            for ph in ("prefill", "decode")}
+    for m in main:
+        for ph in wire:
+            got = sum(c["wire_bytes"] for c in m["collectives"][ph].values())
+            check(got == wire[ph], f"{tag}: {ph} wire bytes {got}, counted "
+                                   f"{wire[ph]}")
+    slo = m0["slo"]
+    prof = [r["profile"] for r in res]
+    print(f"{tag}: {cfg.num_layers} layers"
+          f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+          f", bf16, page {FAMILY_MESH_PAGE}: weights a rank "
+          f"{[round(m['weights_gb'], 3) for m in main]} GB, peak "
+          f"{[round(m['peak_memory_gb'], 2) for m in main]} GB, card used "
+          f"{max(m['card_used_gb'] for m in main):.1f} GB; draw "
+          f"{max(r['draw_s'] for r in res):.1f} s, run_config "
+          f"{max(m['wall_s'] for m in main):.1f} s, arch "
+          f"{max(r['wall_s'] for r in res):.1f} s", flush=True)
+    print(f"{tag}: requests={slo['requests']} tokens="
+          f"{slo['generated_tokens']} TTFT p50={slo['ttft_ms']['p50']:.3f} "
+          f"p95={slo['ttft_ms']['p95']:.3f} ms TPOT p50="
+          f"{slo['tpot_ms']['p50']:.3f} p95={slo['tpot_ms']['p95']:.3f} ms "
+          f"tokens/s={slo['tokens_per_s']:.2f}; prefill groups "
+          f"{m0['prefill_steps']}, decode steps {m0['decode_steps']}",
+          flush=True)
+    print(f"{tag}: launches a rank {m0['launches']} (held); wire bytes a "
+          f"rank, probe bucket {S_probe}: prefill {wire['prefill']:.0f}, "
+          f"decode {wire['decode']:.0f} (serve_wire_bytes, held on every "
+          f"rank)", flush=True)
+    print(f"{tag}: one decode step: wall ms "
+          f"{[round(p['wall_ms'], 2) for p in prof]}, host ms in "
+          f"{prof[0]['calls']} collectives "
+          f"{[round(p['collective_ms'], 2) for p in prof]}; rank 0's device "
+          f"{prof[0]['device_ms']} ms, {prof[0]['device_ops']} device ops; "
+          f"top {prof[0]['top_device_ms']}", flush=True)
+    summary.update(
+        want_launches=want, wire_counted=wire, probe_bucket=S_probe,
+        slo={k: slo[k] for k in ("ttft_ms", "tpot_ms", "tokens_per_s",
+                                 "requests", "generated_tokens")},
+        main=[{k: v for k, v in m.items()
+               if k not in ("streams", "telemetry", "collectives")}
+              for m in main],
+        agreement=m0["telemetry"]["agreement"], profile=prof,
+        streams=m0["streams"], wall_s=[r["wall_s"] for r in res])
+    return summary
+
+
+def phase_family_mesh():
+    """Phase 18: the families other than the dense one served over dp 1 x
+    tp 4, ranks sharing the card (gloo, card tensors through the host).
+    First, in the parent, flash at a rank's prefill heads and the phantom
+    forward at a rank's sites of each family (a decode step's 4 rows and
+    a 48-token group's 192), bf16, held and timed as in phases 2 and 3,
+    and with a cold L2.  Then one spawn of ``FAMILY_MESH_TP`` ranks serves
+    each arch of ``FAMILY_MESH`` in turn (``_family_mesh_rank``), held by
+    ``_family_mesh_held``."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+    _free()
+    kernels = _timed_kernels(
+        "family mesh", torch.Generator(device="cuda").manual_seed(SEED),
+        FAMILY_MESH_FLASH_SHAPES, FAMILY_MESH_PHANTOM_SHAPES,
+        phantom_names=("phantom_fused_matmul",))
+    t0 = time.perf_counter()
+    ranks = spawn(_family_mesh_rank, 1, FAMILY_MESH_TP, "cuda",
+                  timeout_s=900)
+    out = {"kernels": kernels, "ranks_wall_s": time.perf_counter() - t0}
+    for arch in FAMILY_MESH:
+        out[arch] = _family_mesh_held(arch, ranks)
+    out["launches"] = {
+        k: sum(out[arch]["main"][0]["launches"][k] for arch in FAMILY_MESH)
+        for k in ("flash_attention", "phantom_fused_matmul")}
+    print(f"family mesh: ranks' wall {out['ranks_wall_s']:.1f} s; "
+          f"launches a rank over the six main paths {out['launches']}",
+          flush=True)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -5599,6 +6081,7 @@ def main() -> int:
     vlm = timed("vlm", phase_vlm)
     encdec = timed("encdec", phase_encdec)
     serve_mesh = timed("serve_mesh", phase_serve_mesh)
+    family_mesh = timed("family_mesh", phase_family_mesh)
     print(f"phases: {time.perf_counter() - t_start:.1f} s wall in all",
           flush=True)
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
@@ -5693,7 +6176,13 @@ def main() -> int:
                                key: r[key] for key in TIMED + ("cold_ms",)}}
                            for shape, r in zip(
                                SERVE_MESH_FLASH_SHAPES,
-                               serve_mesh["kernels"]["flash"])]}}]
+                               serve_mesh["kernels"]["flash"])]},
+        "family_mesh": {
+            "launches": family_mesh["launches"]["flash_attention"],
+            "shapes": [{"shape": list(shape), **{
+                key: r[key] for key in TIMED + ("cold_ms",)}}
+                for shape, r in zip(FAMILY_MESH_FLASH_SHAPES,
+                                    family_mesh["kernels"]["flash"])]}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -5788,6 +6277,15 @@ def main() -> int:
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
                            for r in serve_mesh["kernels"]["cases"]
+                           if r["kernel"] == name]},
+                "family_mesh": {
+                "launches": family_mesh["launches"][name],
+                "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
+                            **{key: r[key] for key in TIMED},
+                            "cold_ms": family_mesh["kernels"]["cold"][str(
+                                [r["M"], r["K"], r["N"], r["PK"]])][name][
+                                "cold_ms"]}
+                           for r in family_mesh["kernels"]["cases"]
                            if r["kernel"] == name]}}
                if name == "phantom_fused_matmul" else {})})
     out = ROOT / "build"
@@ -5798,7 +6296,8 @@ def main() -> int:
          "lm_train": lm, "lm_train_tp": lm_tp, "qwen_train_tp": qwen,
          "lm_train_pp": lm_pp, "moe": moe, "ssm_fsdp": ssm,
          "hybrid": hybrid, "vlm": vlm, "encdec": encdec,
-         "serve_mesh": serve_mesh, "phase_wall_s": walls, "ledger": ledger,
+         "serve_mesh": serve_mesh, "family_mesh": family_mesh,
+         "phase_wall_s": walls, "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

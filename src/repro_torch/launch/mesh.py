@@ -17,6 +17,7 @@ so collective times on a shared card measure the host, not NVLink.
 from __future__ import annotations
 
 import datetime
+import pickle
 import queue
 import shutil
 import tempfile
@@ -84,10 +85,12 @@ def make_local_mesh(dp: int, tp: int, pp: int = 1) -> MeshAxes:
 
 
 def _rank_main(rank: int, pp: int, dp: int, tp: int, device_type: str,
-               init_file: str, fn: Callable, args: tuple,
-               timeout_s: float, results) -> None:
+               init_file: str, payload: str, timeout_s: float,
+               results) -> None:
     import torch.distributed as dist
     try:
+        with open(payload, "rb") as f:
+            fn, args = pickle.load(f)
         world = pp * dp * tp
         backend = backend_for(device_type, world)
         if device_type == "cuda":
@@ -122,16 +125,21 @@ def spawn(fn: Callable, dp: int, tp: int, device=None, args: tuple = (),
     state).  ``init_process_group`` and the wait for results share one
     timeout: past it, or on the first rank that fails, every rank is
     killed and the call raises, so a mismatched collective fails within
-    the timeout instead of hanging."""
+    the timeout instead of hanging.  ``fn`` and ``args`` reach the ranks
+    through a file in the mesh's temporary directory: through a rank's
+    start-up pipe, arguments past the pipe's 64 KB would hold each
+    start until the rank before it had imported torch and read them."""
     import torch.multiprocessing as mp
     dev = resolve_device(device)
     world = pp * dp * tp
     ctx = mp.get_context("spawn")
     tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    with open(f"{tmp}/payload", "wb") as f:
+        pickle.dump((fn, args), f)
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, pp, dp, tp, dev.type, f"{tmp}/init", fn,
-                               args, timeout_s, results))
+                         args=(r, pp, dp, tp, dev.type, f"{tmp}/init",
+                               f"{tmp}/payload", timeout_s, results))
              for r in range(world)]
     out = {}
     deadline = time.monotonic() + timeout_s

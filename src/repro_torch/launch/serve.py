@@ -17,10 +17,18 @@ the measured/predicted energy per phase:
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
       --device cpu --dp 2 --tp 4 --trace poisson --route auto --slo 200ms
 
-The other families serve at tp = 1 (``--arch olmoe-1b-7b``,
-``mamba2-370m``, ``jamba-1.5-large-398b``, ``qwen2-vl-72b``,
-``seamless-m4t-large-v2``); the engine adds the stubbed frontends'
-inputs to every prefill, as the reference's does.
+Every family serves on any ``--dp`` x ``--tp`` mesh whose model axis
+divides the heads its layers shard (``--arch olmoe-1b-7b``,
+``mamba2-370m``, ``jamba-1.5-large-398b``, ``qwen2.5-14b`` (ring
+attention), ``qwen2-vl-72b``, ``seamless-m4t-large-v2``):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --device cpu --arch mamba2-370m --tp 4      # 4 gloo ranks
+
+The engine adds the stubbed frontends' inputs to every prefill, as the
+reference's does.  The SSM, hybrid and encoder-decoder families prefill
+exact-length groups: a prompt's length must be a multiple of
+``--page-size`` (the default closed batch's 16 tokens are).
 
 Weights are random, drawn from ``--seed`` (which also seeds the trace
 and the prompts).  ``--route fixed`` serves ``tensor`` sites on the
@@ -98,7 +106,11 @@ def build_parser():
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--dp", type=int, default=1)
-    ap.add_argument("--tp", type=int, default=1)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="model-axis ranks: every arch, where tp divides "
+                         "the heads its layers shard (query heads in head "
+                         "mode, SSD heads; qwen2.5's ring attention keeps "
+                         "every head) and --page-size")
     ap.add_argument("--seed", type=int, default=0,
                     help="weight, trace and prompt seed")
     ap.add_argument("--ledger", default="",

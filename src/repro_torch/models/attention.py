@@ -21,34 +21,38 @@
   all-gather, ``attn_ring_gather_kv``) into the plain blockwise core.
   As in the reference, ring mode never runs the flash kernel.
 
-Serving (prefill and decode) runs in head mode at any tp; ring mode and
-cross-attention serve at tp = 1 only (``SERVE_TP_TODO``).  Prefill
-emits its K/V in the decode cache's layout, sequence-sharded
-``[B, S/p, kv, hd]``: an all-to-all from head shards onto sequence
-shards when the model axis divides the KV heads, else the rank's
-sequence chunk of the replicated K/V (``_emit_cache_head_mode``).
-Decode gathers the new token's query heads (and its K/V heads when
-they are sharded), writes each row's K/V into the rank whose chunk of
-``max_len / p`` positions holds ``pos`` (in place; the reference
-returns a new, donated cache instead), attends the plain core over the
-rank's chunk and merges the ranks' partials with the flash-decoding
-log-sum-exp merge: the max over ranks, then the sums of the rescaled
-numerators and denominators.  ``wo`` is then a row projection whose
-partial sums are reduced into the layout, or, phantom, reads the
-rank's feature slice of the merged heads.  With one rank the gathers
-and the merge are the identity and are skipped.
+Serving (prefill and decode) runs in both modes at any tp, and so does
+cross-attention.  Prefill emits its K/V in the decode cache's layout,
+sequence-sharded ``[B, S/p, kv, hd]``: in head mode an all-to-all from
+head shards onto sequence shards when the model axis divides the KV
+heads, else the rank's sequence chunk of the replicated K/V
+(``_emit_cache_head_mode``); ring mode's K/V are the rank's chunk
+already.  Decode gathers the new token's query heads (and its K/V heads
+when they are sharded; ring mode gathers its four weights on use and
+projects every head, as the reference does), writes each row's K/V into
+the rank whose chunk of ``max_len / p`` positions holds ``pos`` (in
+place; the reference returns a new, donated cache instead), attends the
+plain core over the rank's chunk and merges the ranks' partials with the
+flash-decoding log-sum-exp merge: the max over ranks, then the sums of
+the rescaled numerators and denominators.  ``wo`` is then a row
+projection whose partial sums are reduced into the layout, or, phantom,
+reads the rank's feature slice of the merged heads; in ring mode the
+gathered ``wo`` gives the whole output, of which an ``fp`` stream keeps
+its feature slice.  With one rank the gathers and the merge are the
+identity and are skipped.
 
-Cross-attention (the encoder-decoder's ``cross`` sub-layer, ``cross=True``
-with the encoder's output ``memory``, full ``[B, S_enc, d]`` on every
-rank): q comes from the stream through its site, K and V from ``memory``
-through the ``wk``/``wv`` weights, which are never phantom (the memory
-is not feature-sharded); no rotary positions; the plain core, never the
-flash kernel (as the reference's ``use_flash`` requires ``memory is
-None``).  Prefill emits the memory's K/V as the cross cache; decode reads
-that cache whole, with no causal mask and no ``kv_limit``, and writes
-nothing.  M-RoPE (``cfg.rope == "mrope"``) reads ``positions`` as
-``[3, B, S]`` (ring mode slices the chunk's on axis 2; decode broadcasts
-``pos`` to ``[3, B, 1]``).
+Cross-attention (the encoder-decoder's ``cross`` sub-layer,
+``cross=True`` with the encoder's output ``memory``, full ``[B, S_enc,
+d]`` on every rank): q comes from the stream through its site, K and V
+from ``memory`` through the ``wk``/``wv`` weights, which are never
+phantom (the memory is not feature-sharded); no rotary positions; the
+plain core, never the flash kernel (as the reference's ``use_flash``
+requires ``memory is None``).  Prefill emits the memory's K/V as the
+cross cache, sequence-sharded like the self K/V; decode reads the rank's
+chunk of it, with no causal mask and no ``kv_limit``, merges as above
+and writes nothing.  M-RoPE (``cfg.rope == "mrope"``) reads
+``positions`` as ``[3, B, S]`` (ring mode slices the chunk's on axis 2;
+decode broadcasts ``pos`` to ``[3, B, 1]``).
 """
 from __future__ import annotations
 
@@ -66,7 +70,7 @@ from repro_torch.models import rope as ropemod
 from repro_torch.models.layers import (_fs, dtype_of, from_partial,
                                        gather_on_use, seq_to_feature,
                                        to_full)
-from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
+from repro_torch.parallel.axes import MeshAxes
 from repro_torch.parallel.params import ParamDecl
 from repro_torch.parallel.strategies import site_strategy
 
@@ -231,19 +235,13 @@ def attention(cfg, layout: str, params, x, positions, axes: MeshAxes, *,
               pos=None, return_kv: bool = False, decls=None, memory=None,
               cross: bool = False):
     """Returns (out, new_kv or None): ``out`` the residual shard in
-    ``layout``.  kind: train | prefill | decode (serving in ring mode or
-    cross-attention at tp = 1 only).  Decode writes into ``cache``
-    ({k, v}, this rank's chunk [B, Smax/p, kv, hd]) in place; a cross
-    decode (``cross``) only reads it.  ``memory`` ([B, S_enc, d], with
-    ``cross``): the encoder output that K and V project.  ``decls``
-    (FSDP): the projections' dp-sharded weights are gathered first, as
-    the reference's ``_g`` gathers them (int8 only for the decode's
-    ``wq`` under ``fsdp_gather_quant``)."""
-    if kind != "train" and axes.tp > 1 and (
-            cross or resolve_attn_mode(cfg, axes) == "ring"):
-        raise NotImplementedError(
-            f"{kind} of {'cross' if cross else 'ring'} attention at "
-            f"tp={axes.tp}: see {SERVE_TP_TODO}")
+    ``layout``.  kind: train | prefill | decode.  Decode writes into
+    ``cache`` ({k, v}, this rank's chunk [B, Smax/p, kv, hd]) in place; a
+    cross decode (``cross``) only reads it.  ``memory`` ([B, S_enc, d],
+    with ``cross``): the encoder output that K and V project.  ``decls``
+    (FSDP): the projections' dp-sharded weights are gathered first, as the
+    reference's ``_g`` gathers them (int8 only for the decode's ``wq``
+    under ``fsdp_gather_quant``)."""
     params = {name: _fs(params, decls, name, axes,
                         cfg.fsdp_gather_quant and kind == "decode"
                         and name == "wq")
@@ -434,6 +432,7 @@ def _attention_decode(cfg, layout, params, x, axes, *, cache, pos,
     H, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim()
     p, j = axes.tp, axes.tp_rank
     dtype = dtype_of(cfg.dtype)
+    ring = resolve_attn_mode(cfg, axes) == "ring"
     sts = attn_site_strategies(cfg, axes, cross=cross)
     # the new token's features: full for the tensor sites, the rank's
     # shard for the phantom ones (every rank needs every head: the
@@ -441,18 +440,28 @@ def _attention_decode(cfg, layout, params, x, axes, *, cache, pos,
     x_full = to_full(x, layout, axes)
     x_shard = x if layout == "fp" else x_full
     B = x.shape[0]
-    q = _site_proj(sts["wq"], params["wq"], x_full, x_shard, H // p, hd,
-                   axes, dtype)                               # [B,1,H/p,hd]
-    if p > 1:
-        q = all_gather_tiled(q, axes, 2)
-    if not cross:
-        if kv % p == 0:
+    if ring:
+        # the ring-sharded weights gathered on use: every rank projects
+        # the new token's heads whole
+        def proj(name, nheads):
+            w = gather_on_use(params[name]["w"], axes)
+            return _replicated_proj({**params[name], "w": w}, x_full,
+                                    nheads, hd, dtype)
+        q = proj("wq", H)
+        if not cross:
+            kn, vn = proj("wk", kv), proj("wv", kv)
+    else:
+        q = _site_proj(sts["wq"], params["wq"], x_full, x_shard, H // p,
+                       hd, axes, dtype)                       # [B,1,H/p,hd]
+        if p > 1:
+            q = all_gather_tiled(q, axes, 2)
+        if not cross and kv % p == 0:
             kn, vn = (_site_proj(sts[n], params[n], x_full, x_shard,
                                  kv // p, hd, axes, dtype)
                       for n in ("wk", "wv"))
             if p > 1:
                 kn, vn = (all_gather_tiled(t, axes, 2) for t in (kn, vn))
-        else:
+        elif not cross:
             kn, vn = (_replicated_proj(params[n], x_full, kv, hd, dtype)
                       for n in ("wk", "wv"))
 
@@ -498,6 +507,14 @@ def _attention_decode(cfg, layout, params, x, axes, *, cache, pos,
     out = (num / den.clamp_min(1e-30)[..., None])
     out = out.reshape(B, 1, H * hd).to(dtype)
 
+    if ring:
+        # wo gathered too: every rank's product is the whole output, of
+        # which the stream keeps its layout's part
+        z = out @ gather_on_use(params["wo"]["w"], axes).to(dtype)
+        if layout == "fp" and p > 1:
+            fsh = z.shape[-1] // p
+            z = z[..., j * fsh:(j + 1) * fsh]
+        return z, cache
     # --- output projection: each rank's slice of the merged heads
     nshard = (H * hd) // p
     mine = out[..., j * nshard:(j + 1) * nshard]

@@ -14,11 +14,12 @@ per-group trees (``train/trainer.py`` makes each group's slice a leaf
 of its own).  The residual stream keeps the reference's layout
 (``models/layers.py: residual_layout``): feature-sharded where a site is
 phantom, sequence-sharded otherwise.  Training runs at any pp x dp x tp
-(``forward_train_pipeline`` at pp > 1); prefill and decode (serving) at
-any dp x tp for the dense family in head mode, at tp = 1 for the others
-(``require_serving_mesh``).  At tp > 1 the decode cache is
-sequence-sharded, each rank holding ``max_len / tp`` positions of every
-row of its dp shard (``rank_cache_decls``).  An MoE block adds its
+(``forward_train_pipeline`` at pp > 1); prefill and decode (serving) of
+every family at any dp x tp whose model axis divides the heads the
+layers shard (``require_serving_mesh``).  At tp > 1 the attention's
+decode cache is sequence-sharded, each rank holding ``max_len / tp``
+positions of every row of its dp shard, and the SSD state is cut over
+its channels and heads (``rank_cache_decls``).  An MoE block adds its
 balance loss to the training forward's ``aux`` (the reference's scan
 carry).  The decode cache holds, per
 layer, the attention's K/V or the SSD state ``{"conv", "ssm"}`` (no
@@ -55,8 +56,8 @@ from repro_torch.models.layers import (dtype_of, embed_apply, embed_decls,
                                        head_decls, head_logits, norm_apply,
                                        norm_decls, residual_layout, to_full,
                                        xent_loss)
-from repro_torch.models.ssm import ssm_cache_shape
-from repro_torch.parallel.axes import SERVE_TP_TODO, MeshAxes
+from repro_torch.models.ssm import ssm_cache_shape, ssm_dims
+from repro_torch.parallel.axes import MeshAxes
 from repro_torch.parallel.params import (TensorSpec, param_count, stack,
                                          tree_leaves, tree_map,
                                          tree_unflatten)
@@ -150,14 +151,25 @@ def _pp_shard_layer_decls(layers, pp: int):
 
 
 def require_serving_mesh(cfg: ModelConfig, axes: MeshAxes, what: str):
-    """Serving at tp > 1 covers the dense family in head mode; the other
-    families and ring attention serve at tp = 1."""
-    if axes.tp > 1 and (cfg.family != "dense"
-                        or resolve_attn_mode(cfg, axes) != "head"):
-        raise NotImplementedError(
-            f"{what} of {cfg.name} (family {cfg.family!r}, attention "
-            f"{resolve_attn_mode(cfg, axes)!r}) at tp={axes.tp}: see "
-            f"{SERVE_TP_TODO}")
+    """Serving at tp > 1 cuts what training cuts, and the decode cache
+    over the model axis: every family serves on any dp x tp mesh whose
+    model axis divides the heads that the layers shard, the attention's
+    query heads in head mode (ring mode keeps every head on every rank)
+    and the SSD heads.  Raises ValueError, before any rank computes,
+    where it does not."""
+    if axes.tp == 1:
+        return
+    mixers = {mx for mx, _ in _plan(cfg)}
+    bad = []
+    if ("attn" in mixers and resolve_attn_mode(cfg, axes) == "head"
+            and cfg.num_heads % axes.tp):
+        bad.append(f"{cfg.num_heads} attention heads (head mode)")
+    if "mamba" in mixers and ssm_dims(cfg)[1] % axes.tp:
+        bad.append(f"{ssm_dims(cfg)[1]} SSD heads")
+    if bad:
+        raise ValueError(f"{what} of {cfg.name} at tp={axes.tp}: "
+                         f"{' and '.join(bad)} do not divide over the "
+                         f"model axis")
 
 
 def count_params(cfg: ModelConfig, tp: int = 1,
@@ -478,25 +490,33 @@ def cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
 
 def rank_cache_decls(cfg: ModelConfig, axes: MeshAxes, batch: int,
                      max_len: int):
-    """This rank's shard of ``cache_decls``: every leaf's batch dim cut
-    over dp (``batch / dp`` rows), and at tp > 1 the attention K/V's
-    sequence dim cut over the model axis (``max_len / tp`` positions,
-    rank j holding ``[j max_len / tp, (j + 1) max_len / tp)``), as the
-    reference's ``P(dp, "tp", None, None)`` cache specs cut them."""
+    """This rank's shard of ``cache_decls``, each leaf cut along the dims
+    its global spec names, as the reference's cache specs cut them: the
+    batch dim over dp (``batch / dp`` rows) and, at tp > 1, over the
+    model axis the attention K/V's sequence dim (``max_len / tp``
+    positions, rank j holding ``[j max_len / tp, (j + 1) max_len /
+    tp)``, ``P(dp, "tp", None, None)``), the SSD conv rows' channels and
+    the SSD state's heads (``ssm_cache_shape``: ``("dp", None, "tp")``
+    and ``("dp", "tp", None, None)``), the rank's own channels and heads
+    of the block."""
     if batch % axes.dp or max_len % axes.tp:
         raise ValueError(f"a cache of {batch} rows x {max_len} positions "
                          f"does not shard over dp={axes.dp} x "
                          f"tp={axes.tp}")
     require_serving_mesh(cfg, axes, "the decode cache")
+    specs = {"k": ("dp", "tp", None, None), "v": ("dp", "tp", None, None)}
+    if "mamba" in {mx for mx, _ in _plan(cfg)}:
+        specs.update({name: spec for name, (_, spec)
+                      in ssm_cache_shape(cfg, axes, batch).items()})
+    size = {"dp": axes.dp, "tp": axes.tp, None: 1}
 
-    def cut(path, spec):
-        shape = list(spec.shape)
-        shape[1] //= axes.dp
-        if path.split("/")[-1] in ("k", "v"):
-            shape[2] //= axes.tp
-        return TensorSpec(tuple(shape), spec.dtype)
+    def cut(path, t):
+        # dim 0 stacks the layers; the spec names the dims after it
+        spec = (None,) + specs[path.split("/")[-1]]
+        return TensorSpec(tuple(n // size[a] for n, a in zip(t.shape, spec)),
+                          t.dtype)
     glob = cache_decls(cfg, axes, batch, max_len)
-    return tree_unflatten(glob, {path: cut(path, spec) for path, spec
+    return tree_unflatten(glob, {path: cut(path, t) for path, t
                                  in tree_leaves(glob)})
 
 
@@ -567,7 +587,8 @@ def _encdec_forward_prefill(cfg, axes: MeshAxes, params, batch):
                               memory=memory, return_kv=True)
         caches.append(c)
     h = norm_apply(cfg, layout, params["final_norm"], h, axes)
-    logits = head_logits(cfg, layout, params["head"], h[:, -1:, :], axes)
+    logits = head_logits(cfg, layout, params["head"],
+                         _last_position(h, layout, axes), axes)
     return logits, _stack_caches(caches)
 
 

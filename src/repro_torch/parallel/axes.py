@@ -36,11 +36,6 @@ from typing import Any, Iterator, List, Optional
 
 import torch
 
-SERVE_TP_TODO = ("ROADMAP.md queue 1, item 1 (serving at tp > 1 of the "
-                 "MoE, SSM, hybrid, vision-language and encoder-decoder "
-                 "families and of ring attention)")
-
-
 @dataclass(frozen=True)
 class IssuedCollective:
     """One collective a ``Group`` sent to torch.distributed."""

@@ -42,22 +42,24 @@ Every later write lands at the current ``pos``, overwriting each pad
 row before it ever becomes attendable.
 
 Families whose prefill folds the tokens into a recurrent state
-(``RECURRENT_FAMILIES``; the SSM and hybrid families are ported) cannot
-be right-padded: their refill groups are exact-length (the scheduler's
-``mixed_lengths=False``, so a prompt's length must be a multiple of the
-page size), every first output token is the prefill's own sample, and
-the state rows (``{"conv", "ssm"}``, no sequence dim) are spliced whole.
-A hybrid's cache holds both kinds, one tree per sub of its superblock.
+(``RECURRENT_FAMILIES``: the SSM, hybrid and encoder-decoder families)
+cannot be right-padded: their refill groups are exact-length (the
+scheduler's ``mixed_lengths=False``, so a prompt's length must be a
+multiple of the page size), every first output token is the prefill's
+own sample, and the state rows (``{"conv", "ssm"}``, no sequence dim)
+are spliced whole.  A hybrid's cache holds both kinds, one tree per sub
+of its superblock.
 
-Every prefill gets the stubs of the family's frontends
-(``_add_modality_stubs``, as the reference's engine adds them): zero
+Every prefill gets the stubs of the family's frontends (by default
+``_add_modality_stubs``, as the reference's engine adds them): zero
 ``frames`` for the encoder-decoder, zero ``vision_embeds`` over the
 first ``n_vision_tokens`` positions for the vision frontend, and M-RoPE
 ``positions`` equal on all three rows.  The encoder-decoder's cache is
 ``{"self", "cross"}``: the cross K/V of a prompt of length ``S`` are
 spliced into the first ``S`` of the ``max_len`` rows and the rest are
-zero, and decode reads all ``max_len`` rows unmasked, zeros included, as
-the reference's does (ROADMAP.md queue 3).
+zero (relaid over tp like the self rows), and decode reads all
+``max_len`` rows unmasked, zeros included, as the reference's does
+(ROADMAP.md queue 3).
 
 Where the reference donates the decode cache to a jitted step that
 returns a new one, the port's decode step writes the new K/V rows (or
@@ -121,12 +123,15 @@ class ServeEngine:
     the engine moves it to ``device`` and casts it for serving once
     (``models.model.serving_params``).  ``device`` defaults to the card.
     ``ledger``: ``run`` and ``close`` record the meters' window to it
-    (``record_to``)."""
+    (``record_to``).  ``stubs(cfg, batch, B, S) -> batch`` adds the
+    stubbed frontends' inputs to a prefill of this rank's ``B`` rows of
+    ``S`` tokens (default ``_add_modality_stubs``: zero frames and
+    vision embeddings, as the reference's engine adds them)."""
 
     def __init__(self, cfg: ModelConfig, params, *, slots: int = 8,
                  max_len: int = 256, page_size: int = 16,
                  axes: Optional[MeshAxes] = None, device=None, ledger=None,
-                 order: str = "fcfs"):
+                 order: str = "fcfs", stubs=None):
         self.cfg = cfg
         self.axes = axes = axes or MeshAxes()
         require_serving_mesh(cfg, axes, "ServeEngine")
@@ -144,6 +149,7 @@ class ServeEngine:
         self.params = serving_params(cfg, params, self.device)
         self.slots = slots
         self.max_len = max_len
+        self.stubs = stubs or _add_modality_stubs
         self.ledger = ledger
         self._ledger_window = 0
         self._closed = False
@@ -187,8 +193,8 @@ class ServeEngine:
         [rows, 1, V], this rank's cache rows)."""
         B, S = tokens.shape
         return forward_prefill(self.cfg, self.axes, self.params,
-                               _add_modality_stubs(self.cfg,
-                                                   {"tokens": tokens}, B, S))
+                               self.stubs(self.cfg, {"tokens": tokens},
+                                          B, S))
 
     @torch.no_grad()
     def decode_fn(self, cache, tokens, pos):
@@ -345,7 +351,8 @@ class ServeEngine:
 
     def _splice(self, fresh, slot_ids, S: int):
         """Write the group's prefill rows into the cache, in place: zero
-        past ``S``; an SSD state has no sequence dim and is spliced whole.
+        past ``S``; an SSD state has no sequence dim and is spliced whole
+        (each rank's prefill rows are its own channels and heads of it).
         At tp > 1 rank j's prefill rows hold positions
         ``[j S/tp, (j + 1) S/tp)``: the group's rows are all-gathered
         over tp and the rank keeps its chunk of ``max_len / tp``.  A leaf
@@ -503,3 +510,29 @@ def _add_modality_stubs(cfg: ModelConfig, batch, B: int, S: int):
     if cfg.rope == "mrope":
         batch["positions"] = torch.arange(S, device=dev).expand(3, B, S)
     return batch
+
+
+def drawn_stubs(cfg: ModelConfig, batch, B: int, S: int):
+    """``_add_modality_stubs`` with non-zero ``frames`` and
+    ``vision_embeds``: each row's drawn by ``stub_rows`` from its own
+    tokens, so a request meets the same frontend inputs in any slot,
+    refill group or rank.  Zero frames make the encoder's memory exactly
+    zero, and zero vision embeddings leave the splice untested: a check
+    of those paths serves through this (``ServeEngine(stubs=...)``)."""
+    batch = _add_modality_stubs(cfg, batch, B, S)
+    toks = batch["tokens"].cpu().numpy()
+    for key in ("frames", "vision_embeds"):
+        if key in batch:
+            rows = np.stack([stub_rows(t, batch[key].shape[1], cfg.d_model)
+                             for t in toks])
+            batch[key] = torch.from_numpy(rows).to(batch[key].device)
+    return batch
+
+
+def stub_rows(tokens, n: int, d: int) -> np.ndarray:
+    """[n, d] standard normal float32 rows from a numpy ``RandomState``
+    seeded by the token ids ``tokens`` (one prompt, padded as served)."""
+    t = np.asarray(tokens, np.int64) % 65521
+    seed = int(np.dot(t, np.arange(1, len(t) + 1)) % (2 ** 31 - 1))
+    return np.random.RandomState(seed).standard_normal((n, d)).astype(
+        np.float32)

@@ -276,14 +276,16 @@ def run_config(sc: ServeConfig, trace: Sequence[TraceItem], axes, *,
                ledger=None, calib: Optional[Calibration] = None,
                seed: int = 0, slo_ms: float = 0.0, sampling=None,
                order: str = "fcfs", max_steps: int = 100_000,
-               peak_flops: float = H100_PEAK_FLOPS_FP32) -> dict:
+               peak_flops: float = H100_PEAK_FLOPS_FP32,
+               stubs=None) -> dict:
     """Stand up this rank's engine for ``sc`` (on ``axes``, a
     ``sc.dp x sc.tp`` mesh), replay ``trace`` through it, read the
     measured account of one prefill at the probe bucket and one decode
     step, and record joined measured-vs-predicted serve rows to
     ``ledger``.  ``cfg`` overrides ``sc.model_config()`` (a depth cut);
     ``params`` the rank's weights (default: ``serve_params`` from
-    ``seed``).
+    ``seed``); ``stubs`` the engine's frontend stubs (``ServeEngine``'s
+    default: zeros).
 
     Returns ``{"slo": <SLO report>, "measured": ..., "predicted": ...,
     "energy_ratio": ..., "j_per_token_measured": ...}``, the steps run
@@ -312,7 +314,7 @@ def run_config(sc: ServeConfig, trace: Sequence[TraceItem], axes, *,
 
     eng = ServeEngine(cfg, params, slots=sc.slots, max_len=sc.max_len,
                       page_size=sc.page_size, axes=axes, device=device,
-                      order=order)
+                      order=order, stubs=stubs)
     buckets = {bucket_of(t.prompt_len, sc.page_size) for t in trace}
     eng.warmup(buckets)
     tracker = replay(eng, reqs, tracker=SLOTracker(slo_ttft_ms=slo_ms),

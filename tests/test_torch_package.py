@@ -281,12 +281,14 @@ def test_paper_ffn_config_equals_reference(arch, smoke):
 def test_multi_device_mesh_names_the_roadmap_item(case):
     """Model, data and pipe axes above 1 are meshes of the port (rank
     ``(s * dp + d) * tp + t``, the reference's (pipe, data, model)
-    order), and the model declares itself at tp > 1; serving at tp > 1
-    of the families other than the dense one (the engine, prefill,
-    decode; the MoE family here) is not ported and names its ROADMAP
-    item.  Ring attention, which named item 6 here until it was ported,
-    now declares its weights sharded on their input dim and its biases
-    replicated, asked for or where tp does not divide the heads."""
+    order), and the model declares itself at tp > 1.  Serving at tp > 1
+    covers every family (it named ROADMAP.md queue 1 item 1 here until
+    each was ported); what it refuses is a model axis that does not
+    divide the heads the layers shard, before any rank computes (the
+    engine, prefill, decode, the cache).  Ring attention, which named
+    item 6 here until it was ported, declares its weights sharded on
+    their input dim and its biases replicated, asked for or where tp
+    does not divide the heads."""
     if case == "tp_dp_accepted":
         axes = MeshAxes(tp=2, dp=4, tp_rank=1, dp_rank=3)
         assert (axes.tp, axes.dp, axes.rank) == (2, 4, 7)
@@ -298,21 +300,30 @@ def test_multi_device_mesh_names_the_roadmap_item(case):
         with pytest.raises(RuntimeError, match="make_local_mesh"):
             axes.pp_comm
     elif case == "serving_tp":
-        # the dense family serves at any tp since it was ported; the MoE
-        # family does not yet
-        from repro_torch.models.model import forward_decode, forward_prefill
+        from repro_torch.models.model import (forward_decode,
+                                              forward_prefill,
+                                              rank_cache_decls,
+                                              require_serving_mesh)
+        for arch in ("olmoe-1b-7b", "mamba2-370m", "jamba-1.5-large-398b",
+                     "qwen2.5-14b", "qwen2-vl-72b",
+                     "seamless-m4t-large-v2"):
+            require_serving_mesh(get_config(arch, smoke=True),
+                                 MeshAxes(tp=4, dp=2), "serving")
+        # olmoe-smoke's 4 query heads (head mode) over 8 ranks
         cfg = get_config("olmoe-1b-7b", smoke=True)
-        axes = MeshAxes(tp=2)
-        params = materialize(model_decls(cfg, axes),
-                             torch.Generator().manual_seed(0), "cpu")
+        axes = MeshAxes(tp=8)
         toks = torch.zeros((1, 16), dtype=torch.long)
-        with pytest.raises(NotImplementedError, match="serving at tp > 1"):
-            ServeEngine(cfg, params, axes=axes, device="cpu")
-        with pytest.raises(NotImplementedError, match="serving at tp > 1"):
-            forward_prefill(cfg, axes, params, {"tokens": toks})
-        with pytest.raises(NotImplementedError, match="serving at tp > 1"):
-            forward_decode(cfg, axes, params, None, toks[:, :1],
+        with pytest.raises(ValueError, match="4 attention heads"):
+            ServeEngine(cfg, {}, axes=axes, device="cpu")
+        with pytest.raises(ValueError, match="4 attention heads"):
+            forward_prefill(cfg, axes, {}, {"tokens": toks})
+        with pytest.raises(ValueError, match="4 attention heads"):
+            forward_decode(cfg, axes, {}, None, toks[:, :1],
                            torch.zeros(1, dtype=torch.long))
+        # mamba2-smoke's 8 SSD heads over 3 ranks
+        with pytest.raises(ValueError, match="8 SSD heads"):
+            rank_cache_decls(get_config("mamba2-370m", smoke=True),
+                             MeshAxes(tp=3), 4, 48)
     else:
         cfg = get_config("chatglm3-6b", smoke=True)
         for c, tp in ((cfg.replace(attn_shard="ring"), 2),
@@ -399,8 +410,10 @@ def test_unported_arch_and_family_raise():
                                   "remat", "trainer_ops"])
 def test_unported_training_paths_raise(what):
     """What the trainer does not run yet raises and names its ROADMAP
-    item: the serving forwards at tp > 1 of the families that train there
-    but serve at tp = 1 only (MoE, SSM),
+    item, and what no mesh can shard raises before it computes: the
+    serving forwards of a family on a model axis that does not divide its
+    heads (they named ROADMAP.md queue 1 item 1 at any tp > 1 until the
+    family was ported to serve there),
     an MLP kind no ported config uses, remat policies other than full
     and none, checkpoints and fault tolerance.  The full-model pipeline,
     which raised until it was ported, builds: its layer stacks are
@@ -414,14 +427,14 @@ def test_unported_training_paths_raise(what):
         from repro_torch.models.model import forward_decode, forward_prefill
         axes = MeshAxes(tp=2)
         make_train_step(cfg, axes, AdamW(1e-3), device="cpu")
-        # the dense family serves at tp > 1 since it was ported; the MoE
-        # and SSM families do not yet
-        with pytest.raises(NotImplementedError, match="tp=2.*item 1"):
-            forward_prefill(get_config("olmoe-1b-7b", smoke=True), axes, {},
-                            {"tokens": None})
-        with pytest.raises(NotImplementedError, match="tp=2.*item 1"):
-            forward_decode(get_config("mamba2-370m", smoke=True), axes, {},
-                           None, None, None)
+        # every family serves at tp > 1 since it was ported; a model axis
+        # that does not divide the heads refuses
+        with pytest.raises(ValueError, match="tp=8: 4 attention heads"):
+            forward_prefill(get_config("olmoe-1b-7b", smoke=True),
+                            MeshAxes(tp=8), {}, {"tokens": None})
+        with pytest.raises(ValueError, match="tp=3: 8 SSD heads"):
+            forward_decode(get_config("mamba2-370m", smoke=True),
+                           MeshAxes(tp=3), {}, None, None, None)
     elif what == "train_pp":
         _, decls, _ = make_train_step(cfg, MeshAxes(pp=2), AdamW(1e-3),
                                       device="cpu")

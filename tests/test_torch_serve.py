@@ -180,17 +180,24 @@ def test_launcher_smoke_on_cpu(capsys):
     assert "ttft_ms" in out and "tpot_ms" in out
 
 
-def test_launcher_refuses_multi_device_mesh():
-    """What the launcher does not serve yet names its ROADMAP item before
-    any rank starts: a family that serves at tp = 1 only, at tp = 2, and
-    the fleet (chatglm3 serves on any dp x tp mesh since it was ported:
-    tests/test_torch_serve_mesh.py)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+def test_launcher_refuses_multi_device_mesh(capsys):
+    """What the launcher does not serve refuses before any rank starts:
+    a model axis that does not divide the heads the layers shard
+    (olmoe-smoke's 4 query heads at tp = 8) and the fleet (ROADMAP.md
+    queue 1 item 7).  Every family serves on a dp x tp mesh since each
+    was ported (a family that served at tp = 1 only refused here until
+    then): mamba2-smoke serves through the launcher at tp = 2."""
+    with pytest.raises(ValueError, match="4 attention heads"):
         launch_serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--device",
-                           "cpu", "--tp", "2"])
+                           "cpu", "--tp", "8"])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         launch_serve.main(["--smoke", "--device", "cpu", "--dp", "2",
                            "--fleet"])
+    assert launch_serve.main(["--arch", "mamba2-370m", "--smoke", "--device",
+                              "cpu", "--tp", "2", "--requests", "2",
+                              "--new-tokens", "2"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh 1x2" in out and "requests=2 tokens=4" in out
 
 
 def test_strategy_resolution_matches_reference():

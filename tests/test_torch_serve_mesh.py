@@ -36,7 +36,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
 from jax.sharding import PartitionSpec as P
 
 from helpers import smap
@@ -53,7 +52,6 @@ from repro.serve.engine import make_serve_fns
 from repro.serve.router import ServeConfig as JServeConfig
 from repro.serve.traffic import make_trace as jax_make_trace
 from repro.serve.traffic import replay as jax_replay
-from repro_torch.core.phantom import phantom_dense_equivalent
 from repro_torch.launch.mesh import spawn
 from repro_torch.models.model import model_decls
 from repro_torch.parallel.axes import MeshAxes
@@ -64,6 +62,7 @@ from repro_torch.serve.router import ServeConfig
 from repro_torch.serve.traffic import replay
 
 import torch_ranks
+from serve_families import dense_twin
 
 DP, TP, SLOTS, MAX_LEN, S, NEW = 2, 4, 4, 64, 16, 5
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -193,7 +192,7 @@ def runs(mesh24):
     # the dense matrices its sites compute)
     for impl in STREAM_CASES:
         eng = ServeEngine(_cfgs("tensor")[1],
-                          _dense_twin(from_jax_params(np_params[impl])),
+                          dense_twin(from_jax_params(np_params[impl])),
                           slots=SLOTS, max_len=MAX_LEN, device="cpu")
         reqs = [Request(prompt=p.copy(), max_new_tokens=NEW, arrival_s=a)
                 for p, a in zip(stream["prompts"], stream["arrivals"])]
@@ -203,20 +202,6 @@ def runs(mesh24):
     if errors:
         raise errors[0]
     return {"ref": ref, "ranks": port["ranks"]}
-
-
-def _dense_twin(params):
-    """The tensor config's tree computing what ``params`` computes: each
-    phantom site's stacked factors replaced by its dense matrix, layer by
-    layer (``core/phantom.py: phantom_dense_equivalent``)."""
-    ffn = params["layers"]["ffn"]
-    for name, site in ffn.items():
-        if "L" in site:
-            n = site["L"].shape[0]
-            ffn[name] = {"w": torch.stack([phantom_dense_equivalent(
-                {f: site[f][i] for f in ("L", "C", "D")})
-                for i in range(n)])}
-    return params
 
 
 def _vocab(x):

@@ -755,10 +755,13 @@ def family_body(axes, device, inputs):
 
 
 def serve_mesh_body(axes, device, cases):
-    """``tests/test_torch_serve_mesh.py`` on this rank, for each case
+    """``tests/test_torch_serve_mesh.py`` (and the family files that
+    ``tests/serve_families.py`` drives) on this rank, for each case
     (``{"cfg", "params"`` (the reference's global numpy tree), ``"toks"``
     [slots, S + 1], ``"S"``, ``"group"`` (prompts), ``"stream"``
-    (prompts, arrivals, new tokens), ``"slots"``, ``"max_len"``}):
+    (prompts, arrivals, new tokens), ``"slots"``, ``"max_len"``}), the
+    frontends' stubs drawn from each row's tokens
+    (``serve/engine.py: drawn_stubs``):
 
       * one prefill of ``toks[:, :S]`` and, after the engine's splice,
         one decode step of ``toks[:, S]`` at position S: this rank's
@@ -769,7 +772,7 @@ def serve_mesh_body(axes, device, cases):
         ``replay``."""
     from repro_torch.models.model import model_decls
     from repro_torch.parallel.params import from_jax_params, tree_leaves
-    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.engine import Request, ServeEngine, drawn_stubs
     from repro_torch.serve.traffic import replay
     from repro_torch.telemetry.counted import count_step
     out = {}
@@ -781,7 +784,7 @@ def serve_mesh_body(axes, device, cases):
         def engine():
             return ServeEngine(cfg, params, slots=case["slots"],
                                max_len=case["max_len"], axes=axes,
-                               device=device)
+                               device=device, stubs=drawn_stubs)
         eng = engine()
         toks = torch.from_numpy(_rows(case["toks"], axes)).long()
         pre, (logits, fresh) = count_step(eng.prefill_fn, toks[:, :S],
@@ -795,7 +798,8 @@ def serve_mesh_body(axes, device, cases):
                         "decode": dec.collective_wire_bytes}}
 
         eng = engine()
-        eng.submit([Request(prompt=p.copy(), max_new_tokens=5)
+        eng.submit([Request(prompt=p.copy(),
+                            max_new_tokens=case.get("new", 5))
                     for p in case["group"]])
         res["cache"] = {path: _np(t) for path, t in tree_leaves(eng.cache)}
 
