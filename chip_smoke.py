@@ -106,7 +106,8 @@ Phases (any failure exits non-zero):
    rtol 2e-4; parameter and input gradients rtol 5e-4 / atol 1e-6: the
    reference's oracle, ``tests/helpers.py``); 20 pipelined AdamW steps of
    phantom (each kernel launched M x L_loc = 4 times per step on every
-   rank) and of ``tensor_col`` (losses finite and falling; each rank's
+   rank) and ``PIPE_TENSOR_STEPS`` of ``tensor_col`` (losses finite and
+   falling; each rank's
    step median printed beside phase 5's, with the host draw's time and
    the ranks' peak host memory); the pipelined probe's ledger
    (``measure_ffn_pipeline_step``) against ``executed=False``: flops
@@ -156,7 +157,7 @@ Phases (any failure exits non-zero):
    used memory printed; then one more step with its collectives timed
    (``record_collectives(timed=True)``), rank 0's under
    ``torch.profiler``; (d) phantom (``fp``) and dense (``sp``) at
-   ``LM_TP_COMPARE`` (4 layers, 3 steps each): step times and wire
+   ``LM_TP_COMPARE`` (4 layers, 2 steps each): step times and wire
    bytes per rank side by side.
 
 10. qwen2.5-14b at tp = 4 (``phase_qwen_train_tp``): ring attention
@@ -383,7 +384,7 @@ Phases (any failure exits non-zero):
    weights, a phantom model's as its dense twin; jamba, whose float32
    experts would not fit beside a twin, per layer in bf16 against the
    plain path, within ``LOGIT_TOL`` of the layer's largest); the main
-   path, ``run_config`` in bf16 on ``FAMILY_MESH_TRACE`` (8 requests,
+   path, ``run_config`` in bf16 on ``FAMILY_MESH_TRACE`` (4 requests,
    page 4, the recurrent families' prompts rounded up to a multiple of
    it) with frontend stubs drawn from each prompt: every request's
    tokens, launches exactly as the layers imply (``_family_mesh_launches``),
@@ -391,6 +392,28 @@ Phases (any failure exits non-zero):
    ``serve_wire_bytes``; TTFT/TPOT p50/p95, tokens/s, memory per rank;
    one decode step with its collectives timed, rank 0's under
    ``torch.profiler``.
+19. the disaggregated fleet (``phase_fleet``, ``serve/fleet``), executed:
+   prefill and decode pools of one replica each, every request's KV
+   pages migrated from the prefill pool's group into a decode engine
+   (``ServeEngine.adopt``), the modeled clock driving the schedule.
+   (a) one process on the card: chatglm3-6b at full width,
+   ``SERVE_DEPTH`` layers, bf16, tensor sites at tp 1 on
+   ``FLEET_TRACE`` (8 poisson requests, prompts 4-48, 4-8 new tokens):
+   every request's tokens, flash exactly once a layer of every prefill
+   group and never in a decode step, the migrated bytes equal to the
+   count from the decls (``cache_decls`` at each request's padded
+   length) to the byte and measured/predicted wire in
+   ``FLEET_WIRE_BAND``; the engines' measured prefill and decode step
+   times (``StepMeter``) printed beside the modeled alpha + beta.  (b)
+   ``FLEET_TP`` ranks sharing the card, full width, ``FLEET_MESH_LAYERS``
+   layers, both pools the router's phantom candidate (gate/up/down,
+   k = 16) at dp 1 x tp 4 on the same trace: as (a) on every rank, and
+   the phantom forward once a phantom site of every prefill group and
+   decode step.  Before each, the parity in float32 at
+   ``FLEET_PARITY_LAYERS`` layers on the trace's first
+   ``FLEET_PARITY_REQUESTS`` requests: the fleet's greedy streams equal a
+   plain engine replay's on the same weights, and for (b) the tp = 1
+   engine's on the dense twin.
 
 Each phase's wall seconds are printed on a line of their own.
 
@@ -408,13 +431,15 @@ its tp = 4 training under ``jamba_tp4``, qwen2-vl-72b's under
 ``qwen2vl_serve`` and ``qwen2vl_tp4``, and seamless-m4t-large-v2's, full
 and causal, under ``seamless_serve`` and ``seamless_tp4``; flash's and
 the phantom forward's shapes and launches on the serving mesh under
-``serve_mesh``, and on the other families' under ``family_mesh``);
+``serve_mesh``, and on the other families' under ``family_mesh``; the
+fleet's launches under ``fleet``, its shapes being rows 1, 1k and 2k's);
 the last line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -467,8 +492,8 @@ TABLE1 = dict(n=1024, L=2, target=0.175, max_steps=500)
 TABLE1_RUNS = (("tensor", 4), ("phantom", 4))
 TABLE1_REFERENCE = {"tensor": 168, 4: 154, 8: 154, 16: 180}
 # metered probe steps of phases 6 and 7 (5 until phase 18 needed the
-# script's time)
-ENERGY_STEPS = 3
+# script's time, 3 until phase 19 did)
+ENERGY_STEPS = 2
 # phase 5's PowerSGD run (``_compress_rank``): the paper FFN on dp x tp of
 # the same 8 ranks, its gradients over dp at this rank, SGD.  The
 # reference's test trains n = 64 at lr 0.3; at n = 16384 that step
@@ -478,6 +503,11 @@ COMPRESS_DP, COMPRESS_TP, COMPRESS_RANK = 2, 4, 2
 # (10 and 3 steps: 20 and 5 until phase 18 needed the script's time)
 COMPRESS_STEPS, COMPRESS_PLAIN_STEPS, COMPRESS_LR = 10, 3, 0.03
 PIPE_PP, PIPE_DP, PIPE_TP, PIPE_M = 2, 2, 2, 4
+# the pipelined tensor_col baseline's steps (TRAIN_STEPS until phase 19
+# needed the script's time; its loss falls below step 1's by step 4, where
+# the pipelined phantom path's 20 steps cannot be cut: at 8 its
+# loss-falls check broke)
+PIPE_TENSOR_STEPS = 8
 # the reference's pipeline oracle (tests/helpers.py:77-104)
 EQUIV_LOSS_RTOL, EQUIV_TOL = 2e-4, dict(rtol=5e-4, atol=1e-6)
 # measured/predicted flops pins of the reference (tests/test_telemetry.py)
@@ -496,8 +526,9 @@ LM_BF16_LOSS_RTOL = 5e-3
 # stablelm-3b (hd 80), causal
 LM_FLASH_SHAPES = ((4, 512, 32, 32, 96), (4, 512, 32, 32, 80))
 # phase 9: phi3-mini on LM_TP ranks; (d) runs LM_TP_COMPARE = (layers,
-# steps) of phantom and of dense
-LM_TP, LM_TP_COMPARE = 4, (4, 3)
+# steps) of phantom and of dense (3 steps until phase 19 needed the
+# script's time)
+LM_TP, LM_TP_COMPARE = 4, (4, 2)
 # (c)'s depth: 4 of phi3-mini's 32 layers, and (d)'s, so that phase 17
 # fits the script's time
 LM_TP_LAYERS = 4
@@ -614,8 +645,8 @@ RECURRENCE_TOL = 1e-4
 # at 28 layers takes ≈ 2.1 s a rank on the H100: 170 collectives
 # through the host at ≈ 11 ms each; PERF.md §4), on a poisson
 # trace (the reference launcher's defaults, 4-48 prompt and 4-16 new
-# tokens at 4 requests/s, but 8 requests of its 16, cut for phase 18's
-# time); the streams' parity at SERVE_MESH_PARITY_LAYERS over the
+# tokens at 4 requests/s, but 4 requests of its 16: 8 until phase 19
+# needed the script's time, 16 until phase 18 did); the streams' parity at SERVE_MESH_PARITY_LAYERS over the
 # trace's first SERVE_MESH_PARITY_REQUESTS (2; 8 until phase 18); the
 # router over SERVE_MESH_BUDGET devices at
 # SERVE_MESH_SLO_MS.  The kernels' shapes a rank: flash's (B, S, H, KV, hd)
@@ -632,7 +663,7 @@ SERVE_MESH_PARITY_REQUESTS = 2
 # most (the trace's up to 16 until phase 18 needed the script's time)
 PARITY_TOKENS = 4
 SERVE_MESH = {"tensor": (2, 4), "phantom": (1, 4)}     # impl: (dp, tp)
-SERVE_MESH_TRACE = dict(kind="poisson", n=8, rate_rps=4.0,
+SERVE_MESH_TRACE = dict(kind="poisson", n=4, rate_rps=4.0,
                         prompt_len_range=(4, 48), new_tokens_range=(4, 16),
                         seed=SEED)
 SERVE_MESH_SLO_MS, SERVE_MESH_BUDGET = 200.0, 8
@@ -647,8 +678,9 @@ SERVE_MESH_PHANTOM_SHAPES = ((SLOTS, 1024, 3424, 64), (SLOTS, 3424, 1024, 64),
 # 4 (ranks sharing the card), each at full width with its own projection
 # map, bf16, FAMILY_MESH_LAYERS layers (jamba 3: its three block kinds;
 # seamless as many encoder layers), page FAMILY_MESH_PAGE, on a short
-# poisson trace (8 requests of 4-48 prompt and 4-8 new tokens, the
-# recurrent families' prompts rounded up to a multiple of the page);
+# poisson trace (4 requests of 4-48 prompt and 4-8 new tokens, 8 until
+# phase 19 needed the script's time, the recurrent families' prompts
+# rounded up to a multiple of the page);
 # the float32 streams of its first FAMILY_MESH_PARITY_REQUESTS requests
 # against tp = 1, but jamba's (one layer's experts are 38.6 GB in
 # float32), held per layer in bf16 against the plain path instead.  The
@@ -665,7 +697,7 @@ FAMILY_MESH = ("olmoe-1b-7b", "mamba2-370m", "jamba-1.5-large-398b",
 FAMILY_MESH_TP, FAMILY_MESH_LAYERS, FAMILY_MESH_PAGE = 4, 2, 4
 FAMILY_MESH_DEPTH = {"jamba-1.5-large-398b": 3}
 FAMILY_MESH_LAYER_CHECK = ("jamba-1.5-large-398b",)
-FAMILY_MESH_TRACE = dict(kind="poisson", n=8, rate_rps=4.0,
+FAMILY_MESH_TRACE = dict(kind="poisson", n=4, rate_rps=4.0,
                          prompt_len_range=(4, 48), new_tokens_range=(4, 8),
                          seed=SEED)
 FAMILY_MESH_PARITY_REQUESTS = 2
@@ -680,6 +712,24 @@ FAMILY_MESH_PHANTOM_SHAPES = tuple(
                                    (7392, 2048, 128), (256, 2048, 32),
                                    (2048, 256, 32))
     for M in (SLOTS, SLOTS * 48))
+
+# phase 19: the disaggregated fleet (``serve/fleet``), executed.  (a) one
+# process on the card: chatglm3-6b at full width and SERVE_DEPTH layers,
+# both pools tensor sites at dp 1 x tp 1; (b) FLEET_TP ranks sharing the
+# card: full width, FLEET_MESH_LAYERS layers, both pools the router's
+# phantom candidate (gate/up/down, k = 16) at dp 1 x tp FLEET_TP.  bf16,
+# SLOTS slots, MAX_LEN, page PAGE, one replica a pool, on FLEET_TRACE (8
+# poisson requests, prompts 4-48, 4-8 new tokens); the float32 parity at
+# FLEET_PARITY_LAYERS layers on the trace's first FLEET_PARITY_REQUESTS
+# requests, PARITY_TOKENS tokens at most.  The migrated bytes are held
+# to the count from the decls in bf16, the cache's declared dtype (the
+# float32 runs promote the cache and migrate twice the bytes).
+FLEET_ARCH, FLEET_TP, FLEET_MESH_LAYERS = "chatglm3-6b", 4, 2
+FLEET_PARITY_LAYERS, FLEET_PARITY_REQUESTS = 2, 2
+FLEET_TRACE = dict(kind="poisson", n=8, rate_rps=4.0,
+                   prompt_len_range=(4, 48), new_tokens_range=(4, 8),
+                   seed=SEED)
+FLEET_WIRE_BAND = (0.9, 1.1)
 
 
 # a kernel's measured keys in the kernels line
@@ -1675,8 +1725,9 @@ def _pipeline_rank(device, smoke=False):
     groups), and the same config on pipe 1 x dp 4 x tp 2 as the
     sequential reference.  Step 1 (``_step1``) and the equivalence
     (``_pipe_equivalence``) first, then the main path: 20 pipelined
-    AdamW steps each of phantom through the kernels (counts from zero,
-    read right after) and of ``tensor_col``; then the pipelined probe's
+    AdamW steps of phantom through the kernels (counts from zero, read
+    right after) and ``PIPE_TENSOR_STEPS`` of ``tensor_col``; then the
+    pipelined probe's
     ledger of both, its launches counted from zero."""
     import gc
     import torch
@@ -1707,7 +1758,7 @@ def _pipeline_rank(device, smoke=False):
     gc.collect()
     torch.cuda.empty_cache()
     rss["pipe_phantom"] = _peak_rss_gib()
-    out["tensor"] = train_rank(pipe, device, tcfg, TRAIN_STEPS)
+    out["tensor"] = train_rank(pipe, device, tcfg, PIPE_TENSOR_STEPS)
     gc.collect()
     torch.cuda.empty_cache()
     rss["pipe_tensor"] = _peak_rss_gib()
@@ -2190,7 +2241,7 @@ def phase_pipeline(train, ledger, smoke=False):
         med = [statistics.median(r[name]["step_s"]) * 1e3 for r in ranks]
         flat = [statistics.median(r[name]["step_s"]) * 1e3 for r in pp1]
         losses = ranks[0][name]["losses"]
-        print(f"pipeline: {name} {TRAIN_STEPS} pipelined steps, loss "
+        print(f"pipeline: {name} {len(losses)} pipelined steps, loss "
               f"{losses[0]:.6f} -> {losses[-1]:.6f}; per-rank step median "
               f"{', '.join(f'{m:.2f}' for m in med)} ms (pp = 1, dp 1 x tp "
               f"8: {', '.join(f'{m:.2f}' for m in flat)} ms); initial draw "
@@ -6040,6 +6091,221 @@ def phase_family_mesh():
     return out
 
 
+def _fleet_sc(impl, tp):
+    """A pool of phase 19: chatglm3-6b at full width, ``impl`` sites
+    (phantom: the router's candidate, gate/up/down at k = 16) on dp 1 x
+    ``tp``, every site on the kernel backend."""
+    from repro_torch.serve.router import ServeConfig
+    return ServeConfig(FLEET_ARCH, impl, 1, tp, SLOTS, max_len=MAX_LEN,
+                       page_size=PAGE, smoke=False, kernel_backend="pallas")
+
+
+def _fleet_prefix():
+    """The parity's trace: the first requests of ``FLEET_TRACE``,
+    ``PARITY_TOKENS`` new tokens at most."""
+    import dataclasses
+    from repro_torch.serve.traffic import make_trace
+    return [dataclasses.replace(t, max_new_tokens=min(t.max_new_tokens,
+                                                      PARITY_TOKENS))
+            for t in make_trace(**FLEET_TRACE,
+                                max_requests=FLEET_PARITY_REQUESTS)]
+
+
+def _fleet_run(sc, cfg, params, axes, device, trace):
+    """One executed fleet replay of ``trace`` on this rank, both pools
+    ``sc`` serving ``cfg`` on ``params``, one replica each, kernel counts
+    from 0 just before and read just after: the report, the greedy
+    streams (in trace order), the launches, the bytes the migrations
+    carry counted from the decls (``cache_decls`` of one request at its
+    padded prompt length, at the declared dtypes), the engines' step
+    meters and the modeled step ms that drove the clock."""
+    import torch
+    from repro_torch.models.model import cache_decls
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.planner import paper_default_calibration
+    from repro_torch.serve.fleet import (AutoscalePolicy, FleetConfig,
+                                         FleetRouter)
+    from repro_torch.serve.scheduler import bucket_of
+    pol = AutoscalePolicy(min_replicas=1, max_replicas=1)
+    fc = FleetConfig(prefill=sc, decode=sc, slo_ms=SERVE_MESH_SLO_MS,
+                     executed=True, prefill_policy=pol, decode_policy=pol)
+    router = FleetRouter(fc, calib=paper_default_calibration(), seed=SEED,
+                         axes=axes, device=device, cfg=cfg, params=params)
+    torch.cuda.synchronize()
+    _kernel_counts(reset=True)
+    t0 = time.perf_counter()
+    rep = router.run(trace)
+    torch.cuda.synchronize()
+    launches = _kernel_counts()
+    wall_s = time.perf_counter() - t0
+    # every request migrates (4 new tokens at least)
+    counted = sum(
+        math.prod(t.shape) * t.dtype.itemsize
+        for it in trace for t in _leaves(cache_decls(
+            cfg, MeshAxes(), 1, bucket_of(it.prompt_len, sc.page_size))))
+    pre = router.pre.account
+    streams = {r.req_id: list(r.out_tokens) for r in router.finished}
+    return {"report": rep, "launches": launches, "wall_s": wall_s,
+            "streams": [streams.get(i) for i in range(len(trace))],
+            "counted_bytes": counted,
+            "meters": {"prefill": router.pre.engine.prefill_meter.summary(),
+                       "decode": router.dec.replicas[0].engine
+                       .decode_meter.summary()},
+            "modeled_ms": {
+                "prefill": {S: pre.prefill_step(S)[0] * 1e3 for S in
+                            rep["pools"]["prefill"]["steps_by_bucket"]},
+                "decode": router.dec.account.decode_step()[0] * 1e3}}
+
+
+def _fleet_rank(axes, device):
+    """Phase 19 (b) inside one of the ``FLEET_TP`` ranks: the float32
+    parity at ``FLEET_PARITY_LAYERS`` layers (the fleet's streams, a
+    plain replay on the mesh and the tp = 1 engine's on the dense twin:
+    ``_serve_parity``), then the main path, the fleet in bf16 at
+    ``FLEET_MESH_LAYERS`` layers."""
+    from repro_torch.serve.router import serve_params
+    from repro_torch.serve.traffic import make_trace
+    sc = _fleet_sc("phantom", axes.tp)
+    cfg32, twin = (c.replace(num_layers=FLEET_PARITY_LAYERS, dtype="float32")
+                   for c in (sc.model_config(),
+                             _fleet_sc("tensor", 1).model_config()))
+    prefix = _fleet_prefix()
+    par = _serve_parity(cfg32, twin, axes, device, prefix)
+    par["fleet"] = _fleet_run(sc, cfg32, serve_params(cfg32, axes, SEED,
+                                                       device),
+                              axes, device, prefix)["streams"]
+    _free()
+    cfg = sc.model_config().replace(num_layers=FLEET_MESH_LAYERS)
+    main = _fleet_run(sc, cfg, serve_params(cfg, axes, SEED, device), axes,
+                      device, make_trace(**FLEET_TRACE))
+    _free()
+    return {"parity": par, "main": main}
+
+
+def _fleet_held(tag, runs, cfg, phantom):
+    """Hold one fleet's main path on every rank's run: every request's
+    tokens, the same streams, the launches the layers imply (flash once
+    a layer of every prefill group and never in a decode step; the
+    phantom forward once a phantom site of every prefill group and
+    decode step), the migrated bytes equal to the count from the decls
+    and measured/predicted wire in ``FLEET_WIRE_BAND``; print the
+    engines' measured step ms beside the modeled ones."""
+    from repro_torch.serve.traffic import make_trace
+    trace = make_trace(**FLEET_TRACE)
+    r0 = runs[0]
+    rep = r0["report"]
+    for r in runs:
+        check(r["streams"] == r0["streams"],
+              f"{tag}: ranks disagree on the streams")
+    check(rep["requests"]["finished"] == len(trace),
+          f"{tag}: {rep['requests']} of {len(trace)} requests finished")
+    for s, t in zip(r0["streams"], trace):
+        check(s is not None and len(s) == t.max_new_tokens
+              and all(0 <= x < cfg.vocab_size for x in s),
+              f"{tag}: a request ended with {s} of {t.max_new_tokens} "
+              f"tokens")
+    L = cfg.num_layers
+    pre, dec = rep["pools"]["prefill"]["steps"], rep["pools"]["decode"]["steps"]
+    want = {"flash_attention": L * pre,
+            "phantom_fused_matmul": 3 * L * (pre + dec) if phantom else 0,
+            "matmul_nt": 0, "matmul_tn": 0}
+    for r in runs:
+        check(r["launches"] == want,
+              f"{tag}: launches {r['launches']}, want {want}")
+        got = r["report"]["transfer"]["measured"]["transfer_wire_bytes"]
+        check(got == r["counted_bytes"],
+              f"{tag}: migrated {got} B, counted {r['counted_bytes']} B")
+        ratio = r["report"]["transfer"]["ratio_wire_bytes"]
+        check(FLEET_WIRE_BAND[0] <= ratio <= FLEET_WIRE_BAND[1],
+              f"{tag}: measured/predicted wire {ratio}")
+    x = rep["transfer"]["measured"]
+    slo = rep["slo"]
+    print(f"{tag}: {cfg.name} {L} layers bf16: requests "
+          f"{rep['requests']['finished']}/{len(trace)}, prefill groups "
+          f"{pre} {rep['pools']['prefill']['steps_by_bucket']}, decode "
+          f"steps {dec}; launches a rank {r0['launches']} (held); "
+          f"migrations {x['migrations']}, {x['transfer_wire_bytes']:.0f} B "
+          f"({x['bytes_per_migration']:.1f} B each) = the decls' count on "
+          f"every rank, measured/predicted wire "
+          f"{rep['transfer']['ratio_wire_bytes']:.6f}; fleet clock TTFT "
+          f"p50 {slo['ttft_ms']['p50']:.3f} ms, TPOT p50 "
+          f"{slo['tpot_ms']['p50']:.3f} ms (modeled); J/token "
+          f"{rep['j_per_token']}; replay wall "
+          f"{max(r['wall_s'] for r in runs):.1f} s", flush=True)
+    for ph in ("prefill", "decode"):
+        m = r0["meters"][ph]
+        print(f"{tag}: {ph} step measured (StepMeter, rank 0): median "
+              f"{m.get('wall_us_median', 0.0) / 1e3:.3f} ms, range "
+              f"{m.get('wall_us_min', 0.0) / 1e3:.3f}-"
+              f"{m.get('wall_us_max', 0.0) / 1e3:.3f} ms over {m['calls']} "
+              f"calls ({m['warmup']} warm-up); modeled alpha+beta "
+              f"{r0['modeled_ms'][ph]} ms", flush=True)
+    return {"want_launches": want, "report": rep,
+            "runs": [{k: v for k, v in r.items() if k != "report"}
+                     for r in runs]}
+
+
+def phase_fleet(device="cuda", rank=None):
+    """Phase 19: the disaggregated fleet executed on the card through
+    the flash and phantom kernels: (a) one process, tensor pools at
+    tp 1; (b) ``FLEET_TP`` ranks sharing the card, each running ``rank``
+    (default ``_fleet_rank``), phantom pools at tp ``FLEET_TP``; each
+    preceded by its float32 parity against a plain engine's replay."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.serve.router import serve_params
+    from repro_torch.serve.traffic import make_trace
+    _free()
+    device, axes = torch.device(device), MeshAxes()
+    sc = _fleet_sc("tensor", 1)
+    prefix = _fleet_prefix()
+    cfg32 = sc.model_config().replace(num_layers=FLEET_PARITY_LAYERS,
+                                      dtype="float32")
+    params = serve_params(cfg32, axes, SEED, device)
+    par = {"fleet": _fleet_run(sc, cfg32, params, axes, device,
+                               prefix)["streams"],
+           "plain": _replayed(cfg32, params, axes, device, prefix)}
+    check(par["fleet"] == par["plain"],
+          f"fleet (a): float32 streams part from the plain replay's at "
+          f"{_first_parting(par['fleet'], par['plain'])}")
+    print(f"fleet (a): parity at {FLEET_PARITY_LAYERS} layers: float32 "
+          f"streams of the trace's first {FLEET_PARITY_REQUESTS} requests "
+          f"equal a plain engine replay's (held)", flush=True)
+    del params
+    _free()
+    cfg = sc.model_config().replace(num_layers=SERVE_DEPTH[FLEET_ARCH])
+    params = serve_params(cfg, axes, SEED, device)
+    out = {"one_card": _fleet_held(
+        "fleet (a) tensor tp 1", [_fleet_run(sc, cfg, params, axes, device,
+                                             make_trace(**FLEET_TRACE))],
+        cfg, False)}
+    out["one_card"]["parity"] = par
+    del params
+    _free()
+    t0 = time.perf_counter()
+    ranks = spawn(rank or _fleet_rank, 1, FLEET_TP, device, timeout_s=600)
+    par = ranks[0]["parity"]
+    tag = f"fleet (b) phantom tp {FLEET_TP}"
+    for r in ranks:
+        check(r["parity"]["fleet"] == par["fleet"] == r["parity"]["mesh"],
+              f"{tag}: float32 fleet streams part from the mesh replay's "
+              f"at {_first_parting(r['parity']['fleet'], r['parity']['mesh'])}")
+    check(par["fleet"] == par["tp1"],
+          f"{tag}: float32 fleet streams part from tp = 1's at "
+          f"{_first_parting(par['fleet'], par['tp1'])}")
+    print(f"{tag}: parity at {FLEET_PARITY_LAYERS} layers: float32 streams "
+          f"equal the mesh engine's replay and tp = 1's (held)", flush=True)
+    cfg = _fleet_sc("phantom", FLEET_TP).model_config().replace(
+        num_layers=FLEET_MESH_LAYERS)
+    out["mesh"] = _fleet_held(tag, [r["main"] for r in ranks], cfg, True)
+    out["mesh"]["parity"] = par
+    out["mesh"]["ranks_wall_s"] = time.perf_counter() - t0
+    print(f"{tag}: ranks' wall {out['mesh']['ranks_wall_s']:.1f} s",
+          flush=True)
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6082,6 +6348,7 @@ def main() -> int:
     encdec = timed("encdec", phase_encdec)
     serve_mesh = timed("serve_mesh", phase_serve_mesh)
     family_mesh = timed("family_mesh", phase_family_mesh)
+    fleet = timed("fleet", phase_fleet)
     print(f"phases: {time.perf_counter() - t_start:.1f} s wall in all",
           flush=True)
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
@@ -6182,7 +6449,11 @@ def main() -> int:
             "shapes": [{"shape": list(shape), **{
                 key: r[key] for key in TIMED + ("cold_ms",)}}
                 for shape, r in zip(FAMILY_MESH_FLASH_SHAPES,
-                                    family_mesh["kernels"]["flash"])]}}]
+                                    family_mesh["kernels"]["flash"])]},
+        "fleet": {"one_card_launches": fleet["one_card"]["runs"][0][
+                      "launches"]["flash_attention"],
+                  "tp4_launches_per_rank": fleet["mesh"]["runs"][0][
+                      "launches"]["flash_attention"]}}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -6286,7 +6557,9 @@ def main() -> int:
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
                            for r in family_mesh["kernels"]["cases"]
-                           if r["kernel"] == name]}}
+                           if r["kernel"] == name]},
+                "fleet": {"tp4_launches_per_rank": fleet["mesh"]["runs"][0][
+                    "launches"][name]}}
                if name == "phantom_fused_matmul" else {})})
     out = ROOT / "build"
     out.mkdir(exist_ok=True)
@@ -6297,7 +6570,7 @@ def main() -> int:
          "lm_train_pp": lm_pp, "moe": moe, "ssm_fsdp": ssm,
          "hybrid": hybrid, "vlm": vlm, "encdec": encdec,
          "serve_mesh": serve_mesh, "family_mesh": family_mesh,
-         "phase_wall_s": walls, "ledger": ledger,
+         "fleet": fleet, "phase_wall_s": walls, "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -39,21 +39,44 @@ prices with ``--calibration`` (a ``PLAN_report.json`` with fitted
 constants) or, without one, the paper's defaults: never the
 repo-root records, which are the reference's.  ``--ledger PATH``
 writes rank 0's serve rows as JSONL; ``--sample "t=0.8,k=40,p=0.95"``
-switches the trace from greedy to seeded sampling.  ``--fleet`` and
-``--route-out`` (whose only reader is the fleet planner) are ROADMAP.md
-queue 1, item 7.
+switches the trace from greedy to seeded sampling.  ``--route auto``
+writes the priced candidate table (``serve-route/v1``) to
+``--route-out``.
+
+The disaggregated fleet (``serve/fleet``): prefill and decode pools,
+each planned by predicted joules per unit of its phase (from
+``--route-table`` when it holds the arch, else priced fresh; one device
+plans both pools as the tensor config at tp 1, since the router's
+candidates are model-parallel), the KV pages migrated through a priced
+transfer channel, the pools autoscaled.  Modeled (no card needed,
+100,000 bursty requests by default) or executed on real engines (64 by
+default; ``--dp`` x ``--tp`` above 1 spawns the pools' ranks):
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --fleet
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --device cpu --fleet --executed --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --device cpu --tp 2 --route auto --route-out build/route.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+      --tp 2 --fleet --route-table build/route.json
+
+The route table and the fleet's ledger report go under ``build/`` by
+default; the repo root holds the JAX package's records
+(``SERVE_route.json``, ``BENCH_report.json``), and a path there raises.
 """
 from __future__ import annotations
 
 import argparse
 import re
 import sys
+from pathlib import Path
 
 from repro_torch.kernels.ops import KERNEL_BACKENDS
+from repro_torch.telemetry.ledger import REPORT_DIR
 
-FLEET_TODO = ("ROADMAP.md queue 1, item 7 (the disaggregated fleet and "
-              "its route table)")
 TIMEOUT_S = 1800.0
+DEFAULT_ROUTE_OUT = str(REPORT_DIR / "serve_route.json")
+DEFAULT_REPORT = str(REPORT_DIR / "fleet_report.json")
 
 
 def parse_slo_ms(text):
@@ -99,18 +122,25 @@ def build_parser():
     ap.add_argument("--arch", default="chatglm3-6b")
     ap.add_argument("--smoke", action="store_true",
                     help="the arch's reduced smoke config")
-    ap.add_argument("--requests", type=int, default=8,
-                    help="trace length")
+    ap.add_argument("--requests", type=int, default=None,
+                    help="trace length (default 8; the fleet's 100000 "
+                         "modeled, 64 executed)")
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--page-size", type=int, default=16)
-    ap.add_argument("--dp", type=int, default=1)
+    ap.add_argument("--dp", type=int, default=1,
+                    help="data-axis ranks (the reference defaults to --dp "
+                         "2 --tp 4; the port keeps 1 x 1: its ranks share "
+                         "one card through gloo, and 8 of them took 2.1 s "
+                         "a decode step of chatglm3-6b at 28 layers, "
+                         "PERF.md section 4)")
     ap.add_argument("--tp", type=int, default=1,
                     help="model-axis ranks: every arch, where tp divides "
                          "the heads its layers shard (query heads in head "
                          "mode, SSD heads; qwen2.5's ring attention keeps "
-                         "every head) and --page-size")
+                         "every head) and --page-size (default 1: see "
+                         "--dp)")
     ap.add_argument("--seed", type=int, default=0,
                     help="weight, trace and prompt seed")
     ap.add_argument("--ledger", default="",
@@ -119,8 +149,10 @@ def build_parser():
                     choices=["", "poisson", "bursty", "closed"],
                     help="synthetic workload; empty = a closed batch of "
                          "--requests 16-token prompts")
-    ap.add_argument("--rate", type=float, default=4.0,
-                    help="trace arrival rate in requests/s")
+    ap.add_argument("--rate", type=float, default=None,
+                    help="trace arrival rate in requests/s (default 4.0; "
+                         "the fleet sizes it to the decode pool's "
+                         "modeled capacity)")
     ap.add_argument("--slo", type=parse_slo_ms, default=0.0,
                     help="TTFT/TPOT SLO, e.g. 200ms")
     ap.add_argument("--deadline-ms", type=float, default=0.0,
@@ -135,31 +167,80 @@ def build_parser():
     ap.add_argument("--calibration", default="",
                     help="PLAN_report.json with fitted constants "
                          "(default: the paper's constants)")
-    ap.add_argument("--route-out", default="",
-                    help=f"the route table's path: {FLEET_TODO}")
-    ap.add_argument("--fleet", action="store_true",
-                    help=f"disaggregated fleet replay: {FLEET_TODO}")
+    ap.add_argument("--route-out", default=DEFAULT_ROUTE_OUT,
+                    help="write the --route auto candidate J/token table "
+                         "here as serve-route/v1 JSON ('' disables)")
     ap.add_argument("--kernel-backend", default="auto",
                     choices=KERNEL_BACKENDS)
     ap.add_argument("--device", default=None,
                     help="default: the card ('cuda'); 'cpu' runs the "
                          "plain torch path")
+    fleet = ap.add_argument_group("fleet (disaggregated serving)")
+    fleet.add_argument("--fleet", action="store_true",
+                       help="disaggregated prefill/decode fleet replay "
+                            "with J/token autoscaling (modeled "
+                            "discrete-event run by default)")
+    fleet.add_argument("--executed", action="store_true",
+                       help="fleet on real engines (small traces; the "
+                            "kernels on the card)")
+    fleet.add_argument("--colocated", action="store_true",
+                       help="run the single-engine baseline through the "
+                            "fleet simulator instead")
+    fleet.add_argument("--prefill-replicas", type=int, default=1,
+                       help="initial prefill pool size")
+    fleet.add_argument("--decode-replicas", type=int, default=1,
+                       help="initial decode pool size")
+    fleet.add_argument("--route-table", default=DEFAULT_ROUTE_OUT,
+                       help="serve-route/v1 JSON the fleet planner reads "
+                            "when present (else it prices candidates "
+                            "fresh)")
+    fleet.add_argument("--report-out", default=DEFAULT_REPORT,
+                       help="the fleet's ledger report ('' disables)")
     return ap
+
+
+def refuse_repo_root(path: str, flag: str):
+    """Raise for a ``path`` in the repo root, whose records
+    (``SERVE_route.json``, ``BENCH_report.json``) are the JAX
+    package's: the port's go under ``build/``."""
+    if path and Path(path).resolve().parent == REPORT_DIR.parent:
+        raise ValueError(f"{flag} {path}: the repo root holds the JAX "
+                         f"package's records; the port's go under "
+                         f"{REPORT_DIR}")
 
 
 def make_workload(args):
     """The trace the launcher replays: a synthetic ``--trace``, or the
     closed batch of ``--requests`` equal 16-token prompts."""
     from repro_torch.serve.traffic import TraceItem, make_trace
+    n = args.requests if args.requests is not None else 8
     if args.trace:
-        return make_trace(args.trace, n=args.requests, rate_rps=args.rate,
-                          prompt_len_range=(4, min(48, args.max_len - 1)),
-                          new_tokens_range=(4, args.new_tokens),
-                          deadline_ms=args.deadline_ms, seed=args.seed)
+        return make_trace(args.trace, n=n,
+                          rate_rps=args.rate if args.rate is not None
+                          else 4.0, **_lengths(args))
     return [TraceItem(arrival_s=0.0, prompt_len=16,
                       max_new_tokens=args.new_tokens,
                       deadline_ms=args.deadline_ms, seed=args.seed)
-            for _ in range(args.requests)]
+            for _ in range(n)]
+
+
+def _lengths(args) -> dict:
+    """A synthetic trace's length ranges, deadline and seed."""
+    return dict(prompt_len_range=(4, min(48, args.max_len - 1)),
+                new_tokens_range=(4, args.new_tokens),
+                deadline_ms=args.deadline_ms, seed=args.seed)
+
+
+def build_kernels(device, cfgs):
+    """Build every kernel library once, before any rank loads them,
+    when a site of ``cfgs`` resolves to the kernels on the card."""
+    from repro_torch.configs.base import PROJECTION_SITES
+    from repro_torch.kernels import build
+    from repro_torch.kernels.ops import resolve_kernel_backend
+    if device.type == "cuda" and any(
+            resolve_kernel_backend(cfg.projection_spec(s).kernel_backend)
+            == "pallas" for cfg in cfgs for s in PROJECTION_SITES):
+        build.build(build.KERNELS)
 
 
 def serve_rank(axes, device, sc, trace, calib, args):
@@ -193,13 +274,9 @@ def print_slo(report):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.fleet or args.route_out:
-        raise NotImplementedError(
-            f"{'--fleet' if args.fleet else '--route-out'}: see "
-            f"{FLEET_TODO}")
-    from repro_torch.configs.base import PROJECTION_SITES, get_config
-    from repro_torch.kernels import build
-    from repro_torch.kernels.ops import resolve_kernel_backend
+    for flag in ("route_out", "route_table", "report_out"):
+        refuse_repo_root(getattr(args, flag), "--" + flag.replace("_", "-"))
+    from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import spawn
     from repro_torch.models.model import require_serving_mesh
     from repro_torch.parallel.axes import MeshAxes, resolve_device
@@ -207,8 +284,10 @@ def main(argv=None) -> int:
     from repro_torch.serve.router import (ServeConfig, candidate_configs,
                                           route)
 
-    device = resolve_device(args.device)
     calib = load_calibration(plan_report_path=args.calibration or None)
+    if args.fleet:
+        return fleet_main(args, calib)
+    device = resolve_device(args.device)
     trace = make_workload(args)
     if args.route == "auto":
         cands = candidate_configs(args.arch, args.dp * args.tp,
@@ -229,6 +308,16 @@ def main(argv=None) -> int:
         sc = winner.config
         print(f"# routed -> {sc.name} "
               f"(predicted {winner.j_per_token:.3e} J/token)")
+        if args.route_out:
+            from repro_torch.serve.fleet import write_route_table
+            from repro_torch.serve.router import trace_stats
+            Path(args.route_out).parent.mkdir(parents=True, exist_ok=True)
+            write_route_table(args.route_out, args.arch, winner, priced,
+                              calibration=calib.source,
+                              stats=trace_stats(trace, args.page_size),
+                              slo_ms=args.slo)
+            print(f"# route table ({len(priced)} candidates) -> "
+                  f"{args.route_out}")
     else:
         sc = ServeConfig(args.arch, "tensor", args.dp, args.tp, args.slots,
                          max_len=args.max_len, page_size=args.page_size,
@@ -236,10 +325,7 @@ def main(argv=None) -> int:
                          kernel_backend=args.kernel_backend)
     cfg = sc.model_config()
     require_serving_mesh(cfg, MeshAxes(tp=sc.tp, dp=sc.dp), "serving")
-    if device.type == "cuda" and any(
-            resolve_kernel_backend(cfg.projection_spec(s).kernel_backend)
-            == "pallas" for s in PROJECTION_SITES):
-        build.build(build.KERNELS)   # once, before any rank loads them
+    build_kernels(device, [cfg])
     if sc.devices == 1:
         result = serve_rank(MeshAxes(), device, sc, trace, calib, args)
     else:
@@ -269,6 +355,126 @@ def main(argv=None) -> int:
     if args.ledger:
         print(f"# wrote {result['ledger_rows']} ledger rows to "
               f"{args.ledger}")
+    return 0
+
+
+def fleet_rank(axes, device, fc, trace, calib, args):
+    """One rank's executed fleet replay (every rank runs the same
+    discrete-event loop); rank 0 keeps the ledger.  Returns the report,
+    with the greedy streams."""
+    from repro_torch.serve.fleet import FleetRouter
+    from repro_torch.telemetry import Ledger
+    ledger = None
+    if axes.rank == 0:
+        ledger = Ledger(run="launch.serve.fleet",
+                        jsonl_path=args.ledger or None,
+                        meta={"arch": args.arch, "trace": args.trace
+                              or "bursty", "requests": len(trace)},
+                        report_path=args.report_out or None)
+    router = FleetRouter(fc, calib=calib, ledger=ledger, seed=args.seed,
+                         axes=axes, device=device)
+    report = router.run(trace, sampling=parse_sampling(args.sample))
+    if ledger is not None:
+        report["ledger_rows"] = len(ledger)
+        ledger.close()
+    return report
+
+
+def fleet_main(args, calib) -> int:
+    """Disaggregated fleet replay: plan the pools, size the trace, run
+    it modeled here or executed on the pools' mesh (spawned ranks above
+    one device), print the report."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel.axes import MeshAxes, resolve_device
+    from repro_torch.serve.fleet import (FleetConfig, auto_rate_rps,
+                                         baseline_config, load_route_table,
+                                         plan_pools)
+    from repro_torch.serve.fleet.router import executed_mesh
+    from repro_torch.serve.router import ServeConfig
+    from repro_torch.serve.traffic import make_trace
+
+    n = args.requests if args.requests is not None else \
+        (64 if args.executed else 100_000)
+    kind = args.trace or "bursty"
+    devices = args.dp * args.tp
+    kw = dict(slots=args.slots, max_len=args.max_len,
+              page_size=args.page_size)
+    cands = dict(smoke=args.smoke, kernel_backend=args.kernel_backend)
+    if args.colocated:
+        pre_sc = dec_sc = baseline_config(args.arch, devices, **kw,
+                                          **cands)
+        print(f"# baseline (colocated single engine): {dec_sc.name}")
+    elif devices == 1:
+        pre_sc = dec_sc = ServeConfig(args.arch, "tensor", 1, 1, **kw,
+                                      **cands)
+        print(f"# one device: both pools serve {dec_sc.name} (the "
+              f"router's candidates are model-parallel, tp >= 2)")
+    else:
+        # probe trace: the pool planner needs length statistics only
+        probe = make_trace(kind, n=min(n, 2000), rate_rps=10.0,
+                           **_lengths(args))
+        table = None
+        if args.route_table:
+            try:
+                table = load_route_table(args.route_table)
+            except ValueError as exc:
+                print(f"# ignoring route table: {exc}")
+        pre_sc, dec_sc, notes = plan_pools(
+            args.arch, devices, calib, probe, slo_ms=args.slo,
+            route_table=table, **kw, **cands)
+        print(f"# pool plan ({notes['source']}, "
+              f"calibration: {calib.source}):")
+        print(f"#   prefill -> {pre_sc.name} "
+              f"({notes['prefill']['j_per_prompt']:.3e} J/prompt)")
+        print(f"#   decode  -> {dec_sc.name} "
+              f"({notes['decode']['j_per_token']:.3e} J/token)")
+
+    rate = args.rate if args.rate is not None else \
+        auto_rate_rps(dec_sc, calib, (4 + args.new_tokens) / 2,
+                      replicas=args.decode_replicas)
+    trace = make_trace(kind, n=n, rate_rps=rate, **_lengths(args))
+    print(f"# trace: {kind} n={n} rate={rate:.2f} rps "
+          f"slo={args.slo:.0f}ms "
+          f"mode={'executed' if args.executed else 'modeled'}")
+    fc = FleetConfig(prefill=pre_sc, decode=dec_sc, slo_ms=args.slo,
+                     executed=args.executed, colocated=args.colocated,
+                     prefill_replicas=args.prefill_replicas,
+                     decode_replicas=args.decode_replicas)
+    if not args.executed:
+        report = fleet_rank(MeshAxes(), None, fc, trace, calib, args)
+    else:
+        dp, tp = executed_mesh(fc)
+        device = resolve_device(args.device)
+        build_kernels(device, [pre_sc.model_config(),
+                               dec_sc.model_config()])
+        if dp * tp == 1:
+            report = fleet_rank(MeshAxes(), device, fc, trace, calib, args)
+        else:
+            report = spawn(fleet_rank, dp, tp, device,
+                           args=(fc, trace, calib, args),
+                           timeout_s=TIMEOUT_S)[0]
+
+    print_slo(report["slo"])
+    pools = report["pools"]
+    print(f"scale events: {report['scale_ups']} up / "
+          f"{report['scale_downs']} down "
+          f"(decode peak {pools['decode']['replicas_peak']} replicas)")
+    for ev in report["scale_events"]:
+        print(f"  t={ev['t_s']:8.2f}s {ev['pool']:7s} {ev['action']:4s} "
+              f"-> {ev['replicas']} ({ev['reason']})")
+    jt = report["j_per_token"]
+    print(f"joules/token: prefill={jt['prefill']:.3e} "
+          f"decode={jt['decode']:.3e} transfer={jt['transfer']:.3e}")
+    print(f"joules/token [fleet]: {jt['fleet']:.3e}")
+    xfer = report["transfer"]
+    print(f"kv transfer: {xfer['measured']['migrations']:.0f} "
+          f"migrations, "
+          f"{xfer['measured']['transfer_wire_bytes']:.3e} bytes, "
+          f"measured/predicted wire ratio = "
+          f"{xfer['ratio_wire_bytes']:.4f}")
+    if args.report_out:
+        print(f"# wrote {report['ledger_rows']} ledger rows -> "
+              f"{args.report_out}")
     return 0
 
 

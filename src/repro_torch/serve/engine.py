@@ -61,6 +61,13 @@ zero (relaid over tp like the self rows), and decode reads all
 ``max_len`` rows unmasked, zeros included, as the reference's does
 (ROADMAP.md queue 3).
 
+A request prefilled elsewhere (the fleet's prefill pool,
+``serve/fleet``) joins a slot through ``adopt``: the same write as a
+refill's splice (``_write_rows``: the tp relayout, the zeroed tail, the
+SSD state whole, the dtype promotion) and the same decode state.  The
+fleet sets its engines' clock itself (``clock_scale = 0``), and they
+skip the clock's agreement.
+
 Where the reference donates the decode cache to a jitted step that
 returns a new one, the port's decode step writes the new K/V rows (or
 the new state) into the cache in place, and refills splice prefill rows
@@ -226,7 +233,11 @@ class ServeEngine:
 
     def _advance(self, dt_s: float):
         """Advance the clock by a step's wall time: the longest over the
-        ranks, so every rank's clock agrees."""
+        ranks, so every rank's clock agrees.  At ``clock_scale = 0`` (the
+        fleet's engines, whose clock the fleet sets) the time would be
+        thrown away, and so is its agreement."""
+        if self.clock_scale == 0:
+            return
         dt = self._agreed("clock", "world",
                           lambda g, t: g.all_reduce(t, op="max"),
                           torch.tensor([dt_s], dtype=torch.float64,
@@ -350,25 +361,33 @@ class ServeEngine:
                 self.pos[i] = s - 1
 
     def _splice(self, fresh, slot_ids, S: int):
-        """Write the group's prefill rows into the cache, in place: zero
-        past ``S``; an SSD state has no sequence dim and is spliced whole
-        (each rank's prefill rows are its own channels and heads of it).
-        At tp > 1 rank j's prefill rows hold positions
-        ``[j S/tp, (j + 1) S/tp)``: the group's rows are all-gathered
-        over tp and the rank keeps its chunk of ``max_len / tp``.  A leaf
-        takes the wider of its dtype and the rows', as the reference's
-        ``jnp.where`` merge promotes it: bf16 as declared under bf16
-        activations, float32 once float32 rows arrive."""
+        """Write the group's prefill rows (``fresh``: this rank's rows of
+        every slot) into the slots ``slot_ids`` of the cache
+        (``_write_rows``)."""
         mine = [i for i in slot_ids if i in self.rows]
         if not mine:
             return
         idx = torch.tensor([i - self.rows.start for i in mine],
                            device=self.device)
-        rows = dict(tree_leaves(fresh))
+        self._write_rows({path: t[:, idx] for path, t in tree_leaves(fresh)},
+                         idx, S)
+
+    def _write_rows(self, rows: dict, idx, S: int):
+        """Write prefill rows into this rank's cache rows ``idx``, in
+        place; ``rows`` maps each cache leaf's path to the rank's rows,
+        ``[G, len(idx), ...]``, ``S`` positions long.  Zero past ``S``;
+        an SSD state has no sequence dim and is written whole (each
+        rank's prefill rows are its own channels and heads of it).  At
+        tp > 1 rank j's prefill rows hold positions
+        ``[j S/tp, (j + 1) S/tp)``: they are all-gathered over tp and the
+        rank keeps its chunk of ``max_len / tp``.  A leaf takes the wider
+        of its dtype and the rows', as the reference's ``jnp.where``
+        merge promotes it: bf16 as declared under bf16 activations,
+        float32 once float32 rows arrive."""
         p, j = self.axes.tp, self.axes.tp_rank
         merged = {}
         for path, c in tree_leaves(self.cache):
-            f = rows[path][:, idx]
+            f = rows[path]
             c = c.to(torch.promote_types(c.dtype, f.dtype))
             if path.split("/")[-1] in ("conv", "ssm"):
                 c[:, idx] = f.to(c.dtype)
@@ -385,6 +404,37 @@ class ServeEngine:
             c[:, idx, n:] = 0
             merged[path] = c
         self.cache = tree_unflatten(self.cache, merged)
+
+    def adopt(self, req: Request, cache_rows, *, prefill_len: int,
+              pos: int, last_tok: int) -> int:
+        """Install a request whose KV cache was computed ELSEWHERE (a
+        fleet prefill pool) into the first free slot: page admission,
+        the slot's cache rows (``_write_rows``, the write ``_splice``
+        makes) and the decode state (``pos`` / ``last_tok``, the
+        request's sampler) exactly as ``_prefill_group`` would have left
+        them, so the replay-last-token contract survives the migration.
+        ``cache_rows`` is this rank's rows of the request: a tree
+        matching the cache's leaves with batch axis 1, ``prefill_len``
+        positions long, sequence-sharded over tp as this rank's prefill
+        left them.  Returns the slot; raises ``RuntimeError`` when no
+        slot is free or the request is done, and ``CacheOverflow`` when
+        it cannot fit a slot's frames."""
+        free = [i for i in range(self.slots) if self.active[i] is None]
+        if not free:
+            raise RuntimeError("adopt: no free slot")
+        if req.done:
+            raise RuntimeError(f"adopt: request {req.req_id} already done")
+        slot = free[0]
+        self.pages.alloc(slot, prefill_len)
+        if req._sampler is None:
+            req._sampler = Sampler(req.sampling, self.cfg.vocab_size)
+        if slot in self.rows:
+            idx = torch.tensor([slot - self.rows.start], device=self.device)
+            self._write_rows(dict(tree_leaves(cache_rows)), idx, prefill_len)
+        self.active[slot] = req
+        self.pos[slot] = pos
+        self.last_tok[slot, 0] = last_tok
+        return slot
 
     def _finish(self, slot: int, req: Request):
         req.done = True

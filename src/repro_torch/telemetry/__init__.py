@@ -14,9 +14,9 @@ Three pieces, one join:
 ``Ledger`` records entries joining the views and writes the report to
 the path its caller gives.  The pipelined step has its probe and
 prediction too, and one serving step its prediction
-(``serve_step_prediction``, which the router prices with); the
-KV-transfer and recovery predictions are not ported yet (ROADMAP.md
-queue 1).
+(``serve_step_prediction``, which the router prices with) and the
+fleet's KV-page transfer (``kv_transfer_prediction``); the recovery
+prediction is not ported yet (ROADMAP.md queue 1, item 8).
 """
 from repro_torch.telemetry.counted import MeasuredCosts, count_step
 from repro_torch.telemetry.ledger import (SCHEMA, Ledger, LedgerEntry,
@@ -26,6 +26,8 @@ from repro_torch.telemetry.predict import (event_wire_bytes, events_for,
                                            ffn_step_prediction,
                                            fused_ffn_step_prediction,
                                            fused_kernel_step_events,
+                                           kv_cache_token_bytes,
+                                           kv_transfer_prediction,
                                            measured_energy_fields,
                                            pipeline_ffn_step_events,
                                            pipeline_ffn_step_prediction,
@@ -44,6 +46,7 @@ __all__ = [
     "LedgerEntry", "load_report", "StepMeter", "measure",
     "event_wire_bytes", "events_for", "ffn_step_prediction",
     "fused_ffn_step_prediction", "fused_kernel_step_events",
+    "kv_cache_token_bytes", "kv_transfer_prediction",
     "measured_energy_fields", "pipeline_ffn_step_events",
     "pipeline_ffn_step_prediction", "serve_overhead_events",
     "serve_site_strategies", "serve_step_events", "serve_step_prediction",

@@ -20,11 +20,13 @@ The pipelined step's account (``pipeline_ffn_step_events`` /
 ``pipeline_ffn_step_prediction``) is the reference's, both accounts, and
 so is one serving step's (``serve_site_strategies`` ..
 ``serve_step_prediction``), the account the router prices candidates
-with.  The KV-transfer and recovery predictions are not ported
-(ROADMAP.md queue 1).
+with, and the fleet's KV-page transfer (``kv_cache_token_bytes``,
+``kv_transfer_prediction``).  The recovery prediction is not ported
+(ROADMAP.md queue 1, item 8).
 """
 from __future__ import annotations
 
+import math
 from typing import List, Sequence
 
 from repro_torch.core.energy import (FRONTIER_A_W, FRONTIER_B_W,
@@ -438,4 +440,68 @@ def pipeline_ffn_step_prediction(cfg, pp: int, tp: int, dp: int,
         "bubble_fraction": sched.bubble_fraction,
         "executed": executed,
         "strategy": st.kind,
+    }
+
+
+def kv_cache_token_bytes(cfg) -> tuple:
+    """``(per_token_bytes, per_sequence_bytes)`` of ONE request's decode
+    cache rows at the model's true cache dtypes (bf16 k/v, fp32 SSD
+    state unless quantized): the unit the fleet's KV-page transfer
+    channel is priced in.
+
+    Computed by differencing ``models/model.py: cache_decls`` at two
+    lengths, so length-proportional leaves (attention k/v, encdec cross
+    k/v) land in the per-token term and fixed-size recurrent state
+    (Mamba conv/SSD) in the per-sequence term, with no per-family
+    arithmetic to drift out of sync with the real cache layout."""
+    from repro_torch.models.model import PORTED_FAMILIES, cache_decls
+    from repro_torch.parallel.axes import MeshAxes
+    from repro_torch.parallel.params import tree_leaves
+    if cfg.family not in PORTED_FAMILIES:
+        return 0.0, 0.0       # the paper FFN: no LM stack, no decode cache
+
+    def total_bytes(n_tokens: int) -> float:
+        sds = cache_decls(cfg, MeshAxes(), 1, n_tokens)
+        return float(sum(math.prod(t.shape) * t.dtype.itemsize
+                         for _, t in tree_leaves(sds)))
+
+    step = 16
+    b1, b2 = total_bytes(step), total_bytes(2 * step)
+    per_token = (b2 - b1) / step
+    per_seq = b1 - per_token * step
+    return per_token, max(per_seq, 0.0)
+
+
+def kv_transfer_prediction(cfg, migrations: int, mean_tokens: float, *,
+                           tp_src: int = 1, tp_dst: int = 1,
+                           fits=None, B: float = FRONTIER_B_W) -> dict:
+    """The ``predicted`` block for the fleet's prefill->decode KV-page
+    migrations: ``migrations`` requests, each carrying ``mean_tokens``
+    padded prompt rows of cache across the pool boundary.
+
+    The wire term is a point-to-point hop (Eqn. 26 ``c1 + c2·m``, the
+    same single-hop pricing as the pipeline's stage boundaries); the
+    energy term bills the transfer seconds at static power ``B`` across
+    the endpoint devices of both pools (the devices sit idle from the
+    compute account's view while pages move).  The measured side is the
+    ``TransferChannel``'s actual byte count."""
+    per_tok, per_seq = kv_cache_token_bytes(cfg)
+    bytes_each = per_seq + mean_tokens * per_tok
+    wire = migrations * bytes_each
+    hop_us = comm_time_us("collective_permute", bytes_each / FLOAT_BYTES,
+                          2, fits)
+    comm_us = migrations * hop_us
+    beta_s = comm_us * 1e-6
+    devices = max(tp_src, 1) + max(tp_dst, 1)
+    return {
+        "transfer_wire_bytes": wire,
+        "migrations": migrations,
+        "bytes_per_migration": bytes_each,
+        "cache_bytes_per_token": per_tok,
+        "cache_bytes_per_sequence": per_seq,
+        "comm_us": comm_us,
+        "beta_s": beta_s,
+        "energy_j": beta_s * B * devices,
+        "model": "E = B*(tp_src+tp_dst)*beta, p2p hop c1 + c2*m",
+        "B_w": B, "tp_src": tp_src, "tp_dst": tp_dst,
     }

@@ -180,19 +180,34 @@ def test_launcher_smoke_on_cpu(capsys):
     assert "ttft_ms" in out and "tpot_ms" in out
 
 
-def test_launcher_refuses_multi_device_mesh(capsys):
+def test_launcher_refuses_multi_device_mesh(capsys, tmp_path):
     """What the launcher does not serve refuses before any rank starts:
     a model axis that does not divide the heads the layers shard
-    (olmoe-smoke's 4 query heads at tp = 8) and the fleet (ROADMAP.md
-    queue 1 item 7).  Every family serves on a dp x tp mesh since each
-    was ported (a family that served at tp = 1 only refused here until
+    (olmoe-smoke's 4 query heads at tp = 8), and a route table or report
+    in the repo root, whose records are the JAX package's.  The fleet
+    refused here (ROADMAP.md queue 1 item 7) until it was ported: a
+    modeled ``--fleet`` and an executed ``--fleet --executed`` now run
+    on the CPU.  Every family serves on a dp x tp mesh since each was
+    ported (a family that served at tp = 1 only refused here until
     then): mamba2-smoke serves through the launcher at tp = 2."""
     with pytest.raises(ValueError, match="4 attention heads"):
         launch_serve.main(["--arch", "olmoe-1b-7b", "--smoke", "--device",
                            "cpu", "--tp", "8"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        launch_serve.main(["--smoke", "--device", "cpu", "--dp", "2",
-                           "--fleet"])
+    for flag in ("--route-out", "--report-out"):
+        with pytest.raises(ValueError, match="repo root"):
+            launch_serve.main(["--smoke", "--device", "cpu", "--fleet",
+                               flag, "SERVE_route.json"])
+    report = str(tmp_path / "fleet.json")
+    assert launch_serve.main(["--smoke", "--fleet", "--requests", "300",
+                              "--report-out", report]) == 0
+    out = capsys.readouterr().out
+    assert "mode=modeled" in out and "requests=300" in out
+    assert launch_serve.main(["--smoke", "--device", "cpu", "--fleet",
+                              "--executed", "--requests", "4",
+                              "--report-out", report]) == 0
+    out = capsys.readouterr().out
+    assert "mode=executed" in out and "requests=4" in out
+    assert "measured/predicted wire ratio = 1.0000" in out
     assert launch_serve.main(["--arch", "mamba2-370m", "--smoke", "--device",
                               "cpu", "--tp", "2", "--requests", "2",
                               "--new-tokens", "2"]) == 0

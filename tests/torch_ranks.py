@@ -817,3 +817,95 @@ def serve_mesh_body(axes, device, cases):
         res["agreement"] = eng.telemetry()["agreement"]
         out[name] = res
     return out
+
+
+def adopt_states(cfg, params, axes, device, prompts, S, slots, max_len,
+                 new=4):
+    """This rank's engine state after ``submit`` prefilled ``prompts``
+    (one group, padded to ``S``) and after the fleet's prefill pool
+    made their bundles (``PrefillPool._execute_group``) and a second
+    engine adopted them in turn: ``{"group": state, "adopt": state,
+    "wire": [each bundle's wire bytes]}``, a state being the cache
+    leaves, ``pos``, ``last_tok``, the page table's stats, the active
+    slots' request ids and every request's tokens so far."""
+    from repro_torch.parallel.params import tree_leaves
+    from repro_torch.planner.calibration import Calibration
+    from repro_torch.serve.engine import Request, ServeEngine
+    from repro_torch.serve.fleet import PoolAccount, PrefillPool
+    from repro_torch.serve.router import ServeConfig
+
+    def requests():
+        return [Request(prompt=p.copy(), max_new_tokens=new, req_id=i)
+                for i, p in enumerate(prompts)]
+
+    def engine():
+        return ServeEngine(cfg, params, slots=slots, max_len=max_len,
+                           axes=axes, device=device)
+
+    def state(eng, reqs):
+        return {"cache": {p: _np(t) for p, t in tree_leaves(eng.cache)},
+                "dtypes": {p: str(t.dtype) for p, t in tree_leaves(eng.cache)},
+                "pos": eng.pos.tolist(), "last_tok": eng.last_tok.tolist(),
+                "pages": eng.pages.stats(),
+                "active": [r.req_id if r is not None else None
+                           for r in eng.active],
+                "tokens": [list(r.out_tokens) for r in reqs]}
+    a, ra = engine(), requests()
+    a.submit(ra)
+    sc = ServeConfig("chatglm3-6b", "tensor", axes.dp, axes.tp, slots,
+                     max_len=max_len)
+    pool = PrefillPool(sc, PoolAccount(sc, Calibration(), cfg=cfg),
+                       executed=True, params=params, axes=axes,
+                       device=device)
+    b, rb = engine(), requests()
+    wire = []
+    for req, bundle, _ in pool._execute_group(S, rb):
+        wire.append(bundle.wire_bytes)
+        b.adopt(req, bundle.cache_rows, prefill_len=bundle.prefill_len,
+                pos=bundle.pos, last_tok=bundle.last_tok)
+    return {"group": state(a, ra), "adopt": state(b, rb), "wire": wire}
+
+
+def fleet_body(axes, device, cases):
+    """``tests/test_torch_fleet_executed.py`` on this rank, for each case
+    (``{"cfg", "params"`` (the global numpy tree), ``"sc"`` (the pools'
+    ``ServeConfig``), ``"trace"``, ``"adopt"`` (prompts and their
+    bucket) or None``}``): ``adopt_states`` on the rank's shards; the
+    executed fleet's greedy streams, measured wire bytes and the decode
+    engine's agreement; a plain ``replay`` of the same trace through one
+    engine on the mesh."""
+    from repro_torch.models.model import model_decls
+    from repro_torch.parallel.params import from_jax_params
+    from repro_torch.planner.calibration import Calibration
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.fleet import (AutoscalePolicy, FleetConfig,
+                                         FleetRouter)
+    from repro_torch.serve.traffic import replay, trace_requests
+    out = {}
+    for name, case in cases.items():
+        cfg, sc = case["cfg"], case["sc"]
+        params = shard_params(from_jax_params(case["params"]),
+                              model_decls(cfg, axes), axes)
+        res = {}
+        if case["adopt"]:
+            prompts, S = case["adopt"]
+            res["adopt"] = adopt_states(cfg, params, axes, device, prompts,
+                                        S, sc.slots, sc.max_len)
+        pol = AutoscalePolicy(min_replicas=1, max_replicas=1)
+        fc = FleetConfig(prefill=sc, decode=sc, slo_ms=200.0, executed=True,
+                         prefill_policy=pol, decode_policy=pol)
+        router = FleetRouter(fc, calib=Calibration(), seed=0, axes=axes,
+                             device=device, cfg=cfg, params=params)
+        rep = router.run(case["trace"])
+        res["fleet"] = {r.req_id: list(r.out_tokens) for r in router.finished}
+        res["finished"] = rep["requests"]["finished"]
+        res["wire"] = rep["transfer"]["measured"]["transfer_wire_bytes"]
+        res["wire_ratio"] = rep["transfer"]["ratio_wire_bytes"]
+        res["agreement"] = router.dec.replicas[0].engine.agreement
+        eng = ServeEngine(cfg, params, slots=sc.slots, max_len=sc.max_len,
+                          page_size=sc.page_size, axes=axes, device=device)
+        reqs = trace_requests(case["trace"], cfg.vocab_size, seed=0)
+        replay(eng, reqs)
+        res["replay"] = {r.req_id: list(r.out_tokens) for r in reqs}
+        out[name] = res
+    return out
