@@ -154,7 +154,15 @@ Phases (any failure exits non-zero):
    each rank's launches per step exactly the flash kernel 2 and the
    phantom forward, dgrad and wgrad 6, 3 and 3 a layer; each
    rank's step time, wire bytes per step, peak memory and the card's
-   used memory printed; then one more step with its collectives timed
+   used memory printed; the trainer checkpoints step 1 into
+   ``LM_CKPT_DIR`` (each rank its blocks of the global arrays), and after
+   the run a fresh trainer restores it (``restore_or_init``) and reruns
+   step 2 (``_lm_ckpt_resume``): the bytes over the ranks equal to the
+   decls' global parameters and AdamW moments, the resumed loss and
+   parameter shards equal to the uninterrupted step 2's (bit for bit,
+   else within ``LM_CKPT_REL_TOL``), its launches a main-path step's, the
+   write and read seconds printed, the checkpoint removed after; then
+   one more step with its collectives timed
    (``record_collectives(timed=True)``), rank 0's under
    ``torch.profiler``; (d) phantom (``fp``) and dense (``sp``) at
    ``LM_TP_COMPARE`` (4 layers, 2 steps each): step times and wire
@@ -414,8 +422,25 @@ Phases (any failure exits non-zero):
    ``FLEET_PARITY_REQUESTS`` requests: the fleet's greedy streams equal a
    plain engine replay's on the same weights, and for (b) the tp = 1
    engine's on the dense twin.
+20. elastic (``phase_elastic``): ``train/elastic.py: run_elastic`` at
+   paper-ffn-4k's width (``ELASTIC``: n 4096, L 2, batch 64, 8 devices
+   on 4 hosts, tensor_col first, ks (4, 8, 16), checkpoints every 10
+   steps, 24 steps, AdamW 5e-4, the audit gate off), host3 lost at step
+   12: each phase a world of gloo ranks sharing the card, the plain
+   torch core (the plans' ``kernel_backend="xla"``).  Held: the plans
+   and the recovery's detect, restored and replayed steps,
+   ``distilled`` and ``from_scratch`` against the CPU planner's
+   prediction (``ELASTIC_PLANS``, ``ELASTIC_RECOVERY``), each phase's
+   checkpoint bytes against its saves times the plan's global
+   parameters and AdamW moments, the account's identity (total = useful
+   + replay + IO + restart, to ``ACCOUNT_TOL``), each phase's losses
+   finite and falling; ``compile_s``, ``restore_s`` and ``replan_s``
+   printed.
 
-Each phase's wall seconds are printed on a line of their own.
+Phases 9-16, 18 and 19, and 17's mesh of 4, run in one pool of 4 ranks
+(``launch/mesh.py: RankPool``), started once, each phase's card memory
+freed before the next.  Each phase's wall seconds are printed on a line
+of their own.
 
 The line before the last is the kernel table as JSON (the phantom
 kernels' 8-row shape and its launches under ``pipe_rows8``; the flash
@@ -432,8 +457,9 @@ its tp = 4 training under ``jamba_tp4``, qwen2-vl-72b's under
 and causal, under ``seamless_serve`` and ``seamless_tp4``; flash's and
 the phantom forward's shapes and launches on the serving mesh under
 ``serve_mesh``, and on the other families' under ``family_mesh``; the
-fleet's launches under ``fleet``, its shapes being rows 1, 1k and 2k's);
-the last line is
+fleet's launches under ``fleet``, its shapes being rows 1, 1k and 2k's;
+the resumed step 2's launches of phase 9 under ``lm_tp4``); the last
+line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
 """
@@ -535,6 +561,8 @@ LM_TP_LAYERS = 4
 # the per-rank shapes of phi3-mini at tp = 4, batch 4 x seq 512: the
 # phantom kernels' (M, K, N, PK) at gate/up and at down (k = 12, PK = 48),
 # and flash's (B, S, H, KV, hd) at H / tp local heads
+LM_CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"   # phase 9's checkpoint
+LM_CKPT_REL_TOL = 1e-6       # the resumed step 2, where not bit for bit
 LM_TP_PHANTOM_SHAPES = ((2048, 768, 2048, 48), (2048, 2048, 768, 48))
 LM_TP_FLASH_SHAPE = (4, 512, 8, 8, 96)
 # phase 10: qwen2.5-14b on LM_TP ranks at full width and QWEN_LAYERS of its
@@ -2614,6 +2642,17 @@ def _tp_step1(cfg, axes, device, params, batch, sched, microbatches=1):
             _kernel_counts(), opt.eps)
 
 
+def _run_ranks(pool, fn, dp, tp, device="cuda", pp=1, args=(),
+               timeout_s=900):
+    """``fn(axes, device, *args)`` on ``pool``'s ranks when it has
+    ``pp * dp * tp`` of them (``launch/mesh.py: RankPool``), else on new
+    ranks (``spawn``: a phase run alone, or a mesh of another size)."""
+    from repro_torch.launch.mesh import spawn
+    if pool is not None and pool.world == pp * dp * tp:
+        return pool.run(fn, dp, tp, args, pp=pp, timeout_s=timeout_s)
+    return spawn(fn, dp, tp, device, args=args, timeout_s=timeout_s, pp=pp)
+
+
 def _free():
     import gc
     import torch
@@ -2650,7 +2689,9 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False,
     collectives logged: step times, losses, launches, wire bytes per
     step by collective, the rank's peak memory and the card's used
     memory; ``profile`` adds one step of ``_lm_tp_profile`` after the
-    run."""
+    run.  With ``--ckpt-dir`` in ``args`` the trainer also saves step 1
+    (``_lm_ckpt_save``) and, after the run, a fresh trainer restores it
+    and reruns step 2 (``_lm_ckpt_resume``)."""
     import torch
     from repro_torch.launch.train import make_trainer
     from repro_torch.parallel.axes import record_collectives
@@ -2658,8 +2699,12 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False,
     trainer = make_trainer(axes, device, cfg, args, dataset=dataset)
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state(args.seed)
+    ckpt = None
     _kernel_counts(reset=True)
     with record_collectives() as log:
+        if trainer.checkpoints is not None:
+            state = trainer.run(state, 1)
+            ckpt = _lm_ckpt_save(trainer, state)
         state = trainer.run(state, steps)
     launches = _kernel_counts()
     per_op = collective_costs(log.events)
@@ -2680,10 +2725,76 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False,
     free, total = torch.cuda.mem_get_info()
     out.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                card_used_gb=(total - free) / 1e9)
+    if ckpt is not None:
+        out["checkpoint"] = _lm_ckpt_resume(axes, device, cfg, args,
+                                            trainer, state, ckpt)
     if profile:
         state, out["profile"] = _lm_tp_profile(trainer, state, axes)
     del trainer, state
     _free()
+    return out
+
+
+def _lm_ckpt_save(trainer, state):
+    """The trainer's checkpoint of ``state`` (step 1): each rank's blocks
+    of the global parameters and AdamW moments, queued (copied to the
+    host) and flushed to its commit; this rank's seconds and bytes."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.save_async(state)
+    trainer.checkpoints.flush()
+    return {"write_s": time.perf_counter() - t0,
+            "io": trainer.checkpoints.io_stats()}
+
+
+def _decl_bytes(tree):
+    import torch
+    from repro_torch.parallel.params import tree_leaves
+    return sum(math.prod(d.shape) * torch.empty((), dtype=d.dtype)
+               .element_size() for _, d in tree_leaves(tree))
+
+
+def _lm_ckpt_resume(axes, device, cfg, args, trainer, state, ckpt):
+    """(a) of the elastic phase: a fresh trainer restores the step-1
+    checkpoint (``restore_or_init``) and reruns step 2; its loss and
+    parameter shards against the uninterrupted step 2's (``trainer``'s,
+    ``state``), its launches, the checkpoint's bytes against the decls'
+    global bytes (parameters and both AdamW moments), the write and read
+    seconds; the checkpoint is removed after."""
+    import shutil
+    import torch
+    from repro_torch.launch.train import make_trainer
+    from repro_torch.parallel.params import tree_leaves
+    fresh = make_trainer(axes, device, cfg, args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = fresh.restore_or_init(args.seed)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    _kernel_counts(reset=True)
+    resumed = fresh.run(restored, 2)
+    launches = _kernel_counts()
+    bitwise, rel = True, 0.0
+    for (_, a), (_, b) in zip(tree_leaves(resumed.params),
+                              tree_leaves(state.params)):
+        bitwise = bitwise and torch.equal(a, b)
+        scale = b.abs().max().clamp_min(1e-30)
+        rel = max(rel, float((a.float() - b.float()).abs().max() / scale))
+    want, got = trainer.history[1]["loss"], fresh.history[0]["loss"]
+    out = {"restored_step": restored.step, "read_s": read_s,
+           "write_s": ckpt["write_s"], "io": ckpt["io"],
+           "decl_bytes": (_decl_bytes(trainer.decls)
+                          + _decl_bytes(trainer.opt_decls)),
+           "loss": got, "loss_uninterrupted": want,
+           "loss_rel_err": abs(got - want) / abs(want),
+           "params_bitwise": bitwise, "params_max_rel_err": rel,
+           "launches": launches}
+    del fresh, restored, resumed
+    _free()
+    axes.world_comm.unrecorded().all_reduce(torch.zeros(1, device=device))
+    if axes.rank == 0:
+        shutil.rmtree(args.ckpt_dir, ignore_errors=True)
     return out
 
 
@@ -2754,9 +2865,12 @@ def _lm_tp_rank(axes, device):
     del res
     _free()
 
-    # (c) the slice: phantom phi3-mini at LM_TP_LAYERS layers, bf16 -----
-    out["main"] = _lm_tp_train(axes, device, base, args, LM_STEPS,
-                               profile=True)
+    # (c) the slice: phantom phi3-mini at LM_TP_LAYERS layers, bf16,
+    # checkpointed after step 1 and resumed by a fresh trainer -----------
+    out["main"] = _lm_tp_train(
+        axes, device, base,
+        _lm_args(["--steps", str(LM_STEPS), "--ckpt-dir", str(LM_CKPT_DIR)]),
+        LM_STEPS, profile=True)
 
     # (d) phantom against tensor in the transformer ---------------------
     layers, steps = LM_TP_COMPARE
@@ -2834,20 +2948,22 @@ def _lm_tp_held(ranks, layers):
     return worst
 
 
-def phase_lm_train_tp():
+def phase_lm_train_tp(pool=None):
     """phi3-mini with phantom MLP sites on ``LM_TP`` ranks sharing the
     card (gloo, card tensors through the host)."""
     import statistics as st
     import torch
-    from repro_torch.launch.mesh import backend_for, spawn
+    import shutil
+    from repro_torch.launch.mesh import backend_for
     from repro_torch.launch.train import train_config
     _free()
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
     kernels = _lm_tp_kernels(torch.Generator(device="cuda").manual_seed(
         SEED))
     print(f"lm_train_tp: {LM_TP} ranks on {torch.cuda.device_count()} "
           f"card(s); backend {backend_for('cuda', LM_TP)}", flush=True)
     t0 = time.perf_counter()
-    ranks = spawn(_lm_tp_rank, 1, LM_TP, "cuda", timeout_s=900)
+    ranks = _run_ranks(pool, _lm_tp_rank, 1, LM_TP)
     wall = time.perf_counter() - t0
     cfg = train_config(_lm_args([])).replace(num_layers=LM_TP_LAYERS)
     worst = _lm_tp_held(ranks, LM_PARITY_LAYERS)
@@ -2880,6 +2996,7 @@ def phase_lm_train_tp():
               f"lm_train_tp rank {r['rank']}: launches per step "
               f"{r['main']['launches_per_step']}, want {want} (forward and "
               f"recompute of {L} layers; the phantom forward at 3 sites)")
+    ckpt = _lm_ckpt_held(ranks, launches)
     print(f"lm_train_tp: (c) {cfg.name} phantom, tp={LM_TP}, layers={L}, "
           f"batch {LM_BATCH} x seq {LM_SEQ}, bf16, "
           f"remat={cfg.remat}: losses {[round(v, 4) for v in main[0]['losses']]}"
@@ -2928,7 +3045,60 @@ def phase_lm_train_tp():
     return {"kernels": kernels, "ranks": ranks, "worst": worst,
             "median_step_ms": med, "tokens_per_s": tokens / max(med) * 1e3,
             "launches_per_step": launches, "compare": compare,
-            "wall_s": wall}
+            "checkpoint": ckpt, "wall_s": wall}
+
+
+def _lm_ckpt_held(ranks, launches):
+    """Hold (a) of the elastic phase on every rank: the checkpoint's
+    bytes over the ranks equal to the decls' global bytes, step 1
+    restored, the resumed step 2's loss and parameter shards equal to
+    the uninterrupted step 2's (bit for bit, else within
+    ``LM_CKPT_REL_TOL``), its launches equal to a step of the main
+    path's."""
+    ck = [r["main"]["checkpoint"] for r in ranks]
+    written = sum(c["io"]["io_bytes"] for c in ck)
+    check(written == ck[0]["decl_bytes"],
+          f"elastic (a): the ranks wrote {written} B, the decls' global "
+          f"parameters and AdamW moments are {ck[0]['decl_bytes']} B")
+    for r, c in zip(ranks, ck):
+        tag = f"elastic (a) rank {r['rank']}"
+        check(c["restored_step"] == 1, f"{tag}: restored step "
+                                       f"{c['restored_step']}, want 1")
+        check(c["launches"] == launches,
+              f"{tag}: the resumed step launched {c['launches']}, a step "
+              f"of the main path {launches}")
+        check(c["loss"] == c["loss_uninterrupted"]
+              or c["loss_rel_err"] <= LM_CKPT_REL_TOL,
+              f"{tag}: resumed step 2's loss {c['loss']!r}, uninterrupted "
+              f"{c['loss_uninterrupted']!r}")
+        check(c["params_bitwise"]
+              or c["params_max_rel_err"] <= LM_CKPT_REL_TOL,
+              f"{tag}: resumed step 2's parameters differ by "
+              f"{c['params_max_rel_err']:.3e} of their leaf's largest")
+    out = {"bytes_written": written, "decl_bytes": ck[0]["decl_bytes"],
+           "write_s": [c["write_s"] for c in ck],
+           "read_s": [c["read_s"] for c in ck],
+           "loss_bitwise": all(c["loss"] == c["loss_uninterrupted"]
+                               for c in ck),
+           "params_bitwise": all(c["params_bitwise"] for c in ck),
+           "max_loss_rel_err": max(c["loss_rel_err"] for c in ck),
+           "max_params_rel_err": max(c["params_max_rel_err"] for c in ck),
+           "resumed_launches": ck[0]["launches"]}
+    print(f"elastic (a): phi3-mini at {LM_TP_LAYERS} layers, tp {LM_TP}: "
+          f"checkpoint of step 1 {written:,} B written over the ranks "
+          f"(the decls' parameters and AdamW moments: "
+          f"{out['decl_bytes']:,} B, held), write s per rank "
+          f"{[round(v, 2) for v in out['write_s']]}, read s per rank "
+          f"{[round(v, 2) for v in out['read_s']]}; step 2 resumed by a "
+          f"fresh trainer: loss {ck[0]['loss']!r} against "
+          f"{ck[0]['loss_uninterrupted']!r} (bitwise on every rank: "
+          f"{out['loss_bitwise']}, worst rel {out['max_loss_rel_err']:.3e}),"
+          f" parameter shards bitwise on every rank: "
+          f"{out['params_bitwise']} (worst rel "
+          f"{out['max_params_rel_err']:.3e}; held to "
+          f"{LM_CKPT_REL_TOL:g}); launches {out['resumed_launches']} "
+          f"(held to a main-path step's)", flush=True)
+    return out
 
 
 def _gathered(p, m):
@@ -3497,19 +3667,18 @@ def _qwen_held(ranks, cfg):
     return worst
 
 
-def phase_qwen_train_tp():
+def phase_qwen_train_tp(pool=None):
     """qwen2.5-14b, ring attention and phantom MLP sites, on ``LM_TP``
     ranks sharing the card (gloo, card tensors through the host)."""
     import statistics as st
     import torch
-    from repro_torch.launch.mesh import spawn
     from repro_torch.launch.train import train_config
     _free()
     kernels = _timed_kernels(
         "qwen_train_tp", torch.Generator(device="cuda").manual_seed(SEED),
         phantom_shapes=QWEN_PHANTOM_SHAPES)
     t0 = time.perf_counter()
-    ranks = spawn(_qwen_rank, 1, LM_TP, "cuda", timeout_s=900)
+    ranks = _run_ranks(pool, _qwen_rank, 1, LM_TP)
     wall = time.perf_counter() - t0
     cfg = train_config(_lm_args([], arch=QWEN_ARCH)).replace(
         num_layers=QWEN_LAYERS)
@@ -3738,20 +3907,19 @@ def _lm_pp_held(ranks, cfg):
     return worst
 
 
-def phase_lm_train_pp():
+def phase_lm_train_pp(pool=None):
     """phi3-mini with phantom MLP sites on pp ``LM_PP`` x tp ``LM_PP_TP``
     ranks sharing the card (gloo, card tensors through the host), the
     1F1B pipeline over ``LM_PP_M`` microbatches."""
     import statistics as st
     import torch
-    from repro_torch.launch.mesh import spawn
     from repro_torch.launch.train import train_config
     _free()
     kernels = _timed_kernels(
         "lm_train_pp", torch.Generator(device="cuda").manual_seed(SEED),
         (LM_PP_FLASH_SHAPE,), LM_PP_PHANTOM_SHAPES)
     t0 = time.perf_counter()
-    ranks = spawn(_lm_pp_rank, 1, LM_PP_TP, "cuda", pp=LM_PP, timeout_s=900)
+    ranks = _run_ranks(pool, _lm_pp_rank, 1, LM_PP_TP, pp=LM_PP)
     wall = time.perf_counter() - t0
     cfg = train_config(_lm_pp_args()).replace(num_layers=LM_PP_LAYERS)
     worst = _lm_pp_held(ranks, cfg)
@@ -4134,13 +4302,12 @@ def _moe_held(ranks, cfg):
     return worst
 
 
-def phase_moe():
+def phase_moe(pool=None):
     """The MoE family: the kernels at olmoe-1b-7b's shapes, its serving at
     full width (``_moe_serve``), then ``LM_TP`` ranks sharing the card
     (gloo, card tensors through the host) running ``_moe_rank``."""
     import statistics as st
     import torch
-    from repro_torch.launch.mesh import spawn
     from repro_torch.launch.train import train_config
     _free()
     kernels = _timed_kernels(
@@ -4148,7 +4315,7 @@ def phase_moe():
         (MOE_SERVE_FLASH_SHAPE, MOE_TP_FLASH_SHAPE), (MOE_PHANTOM_SHAPE,))
     serve = _moe_serve()
     t0 = time.perf_counter()
-    ranks = spawn(_moe_rank, 1, LM_TP, "cuda", timeout_s=900)
+    ranks = _run_ranks(pool, _moe_rank, 1, LM_TP)
     wall = time.perf_counter() - t0
     cfg = train_config(_lm_args([], arch=MOE_ARCH)).replace(
         num_layers=MOE_LAYERS)
@@ -4659,14 +4826,13 @@ def _ssm_fsdp_held(ranks, mcfg, fcfg):
     return worst, mwire, fwire
 
 
-def phase_ssm_fsdp():
+def phase_ssm_fsdp(pool=None):
     """The SSM family and FSDP: the kernels at mamba2-370m's tp = 4
     shapes and phi3-mini's dp 2 x tp 2 ones, mamba2's serving at full
     size (``_mamba_serve``), then ``LM_TP`` ranks sharing the card (gloo,
     card tensors through the host) running ``_ssm_fsdp_rank``."""
     import statistics as st
     import torch
-    from repro_torch.launch.mesh import spawn
     from repro_torch.launch.train import train_config
     _free()
     t0 = time.perf_counter()
@@ -4675,7 +4841,7 @@ def phase_ssm_fsdp():
         (FSDP_FLASH_SHAPE,), MAMBA_PHANTOM_SHAPES + FSDP_PHANTOM_SHAPES)
     serve = _mamba_serve()
     t1 = time.perf_counter()
-    ranks = spawn(_ssm_fsdp_rank, 1, LM_TP, "cuda", timeout_s=900)
+    ranks = _run_ranks(pool, _ssm_fsdp_rank, 1, LM_TP)
     wall = time.perf_counter() - t1
     mcfg = train_config(_lm_args([], arch=MAMBA_ARCH)).replace(
         num_layers=MAMBA_LAYERS)
@@ -5027,12 +5193,11 @@ def _ranks_held(ranks, tag, want_b, want, wire):
     return worst
 
 
-def phase_hybrid():
+def phase_hybrid(pool=None):
     """The hybrid family: the kernels at jamba's shapes, its serving at
     full width (``_jamba_serve``), then ``LM_TP`` ranks sharing the card
     (gloo, card tensors through the host) running ``_hybrid_rank``."""
     import torch
-    from repro_torch.launch.mesh import spawn
     from repro_torch.launch.train import train_config
     _free()
     t0 = time.perf_counter()
@@ -5050,7 +5215,7 @@ def phase_hybrid():
           f"{LM_TP * sum(reckoned.values()) / 1e9:.2f} GB on the card "
           f"before activations and temporaries", flush=True)
     t1 = time.perf_counter()
-    ranks = spawn(_hybrid_rank, 1, LM_TP, "cuda", timeout_s=900)
+    ranks = _run_ranks(pool, _hybrid_rank, 1, LM_TP)
     wall = time.perf_counter() - t1
     worst, wire, want = _hybrid_held(ranks, cfg)
     print(f"hybrid: (b) {cfg.name} at {JAMBA_LAYERS} layers, step 1, "
@@ -5363,12 +5528,11 @@ def _main_report(tag, ranks, cfg, want, wire, wire_name):
 
 
 def _phase_family(tag, arch, layers, parity, flash_shapes, phantom_shapes,
-                  serve, wire_fn, wire_name):
+                  serve, wire_fn, wire_name, pool=None):
     """One family's phase: its kernels timed, ``serve()``, then ``LM_TP``
     ranks sharing the card (gloo, card tensors through the host) running
     ``_family_rank``, held by ``_ranks_held``."""
     import torch
-    from repro_torch.launch.mesh import spawn
     _free()
     t0 = time.perf_counter()
     kernels = _timed_kernels(
@@ -5378,8 +5542,8 @@ def _phase_family(tag, arch, layers, parity, flash_shapes, phantom_shapes,
     cfg, cut, _ = _family_cfgs(arch, layers, parity)
     wire = wire_fn(cfg)
     t1 = time.perf_counter()
-    ranks = spawn(_family_rank, 1, LM_TP, "cuda", timeout_s=900,
-                  args=(arch, layers, parity))
+    ranks = _run_ranks(pool, _family_rank, 1, LM_TP,
+                       args=(arch, layers, parity))
     wall = time.perf_counter() - t1
     want = _family_launches(cfg)
     worst = _ranks_held(ranks, tag, _family_launches(cut), want, wire)
@@ -5404,7 +5568,7 @@ def _phase_family(tag, arch, layers, parity, flash_shapes, phantom_shapes,
             "wire_bytes_counted": wire, "wall_s": wall}
 
 
-def phase_vlm():
+def phase_vlm(pool=None):
     """The vision-language family (qwen2-vl-72b): the kernels at its
     shapes, ``_vlm_serve``, then step 1 at ``QWEN2VL_PARITY_LAYERS``
     layers (Adafactor) and the main path at ``QWEN2VL_LAYERS`` layers,
@@ -5416,10 +5580,10 @@ def phase_vlm():
         (QWEN2VL_SERVE_FLASH_SHAPE, QWEN2VL_TP_FLASH_SHAPE),
         QWEN2VL_PHANTOM_SHAPES, _vlm_serve,
         lambda cfg: fsdp_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP, 1),
-        "fsdp_wire_bytes at dp 1")
+        "fsdp_wire_bytes at dp 1", pool)
 
 
-def phase_encdec():
+def phase_encdec(pool=None):
     """The encoder-decoder family (seamless-m4t-large-v2): the kernels at
     its shapes (flash full, as its encoder runs it, and causal),
     ``_encdec_serve``, then step 1 at ``SEAMLESS_PARITY_LAYERS`` +
@@ -5430,7 +5594,7 @@ def phase_encdec():
         "encdec", SEAMLESS_ARCH, SEAMLESS_LAYERS, SEAMLESS_PARITY_LAYERS,
         SEAMLESS_FLASH_SHAPES, SEAMLESS_PHANTOM_SHAPES, _encdec_serve,
         lambda cfg: encdec_wire_bytes(cfg, LM_BATCH, LM_SEQ, LM_TP),
-        "encdec_wire_bytes")
+        "encdec_wire_bytes", pool)
 
 
 def _dense_twin(tree):
@@ -5704,14 +5868,13 @@ def _serve_mesh_held(impl, ranks, cfg, layers):
             "layer_check": [r["layers"] for r in ranks]}
 
 
-def phase_serve_mesh():
+def phase_serve_mesh(pool=None):
     """Phase 17: chatglm3-6b served over meshes of ranks sharing the card
     (gloo, card tensors through the host), through the router's
     ``run_config``: (a) tensor sites at dp 2 x tp 4, (b) the phantom
     candidate at dp 1 x tp 4; (c) the router's priced table over
     ``SERVE_MESH_BUDGET`` devices at ``SERVE_MESH_SLO_MS``."""
     import torch
-    from repro_torch.launch.mesh import spawn
     from repro_torch.planner import paper_default_calibration
     from repro_torch.serve.router import (ServeConfig, candidate_configs,
                                           route)
@@ -5743,8 +5906,8 @@ def phase_serve_mesh():
                           ).model_config().replace(
                               num_layers=SERVE_MESH_LAYERS)
         t0 = time.perf_counter()
-        ranks = spawn(_serve_mesh_rank, dp, tp, "cuda", timeout_s=600,
-                      args=(impl, SERVE_MESH_LAYERS))
+        ranks = _run_ranks(pool, _serve_mesh_rank, dp, tp, timeout_s=600,
+                           args=(impl, SERVE_MESH_LAYERS))
         out[impl] = _serve_mesh_held(impl, ranks, cfg, SERVE_MESH_LAYERS)
         out[impl]["ranks_wall_s"] = time.perf_counter() - t0
         print(f"serve mesh {impl}: ranks' wall {out[impl]['ranks_wall_s']:.1f}"
@@ -6060,7 +6223,7 @@ def _family_mesh_held(arch, ranks):
     return summary
 
 
-def phase_family_mesh():
+def phase_family_mesh(pool=None):
     """Phase 18: the families other than the dense one served over dp 1 x
     tp 4, ranks sharing the card (gloo, card tensors through the host).
     First, in the parent, flash at a rank's prefill heads and the phantom
@@ -6070,15 +6233,13 @@ def phase_family_mesh():
     each arch of ``FAMILY_MESH`` in turn (``_family_mesh_rank``), held by
     ``_family_mesh_held``."""
     import torch
-    from repro_torch.launch.mesh import spawn
     _free()
     kernels = _timed_kernels(
         "family mesh", torch.Generator(device="cuda").manual_seed(SEED),
         FAMILY_MESH_FLASH_SHAPES, FAMILY_MESH_PHANTOM_SHAPES,
         phantom_names=("phantom_fused_matmul",))
     t0 = time.perf_counter()
-    ranks = spawn(_family_mesh_rank, 1, FAMILY_MESH_TP, "cuda",
-                  timeout_s=900)
+    ranks = _run_ranks(pool, _family_mesh_rank, 1, FAMILY_MESH_TP)
     out = {"kernels": kernels, "ranks_wall_s": time.perf_counter() - t0}
     for arch in FAMILY_MESH:
         out[arch] = _family_mesh_held(arch, ranks)
@@ -6245,14 +6406,13 @@ def _fleet_held(tag, runs, cfg, phantom):
                      for r in runs]}
 
 
-def phase_fleet(device="cuda", rank=None):
+def phase_fleet(device="cuda", rank=None, pool=None):
     """Phase 19: the disaggregated fleet executed on the card through
     the flash and phantom kernels: (a) one process, tensor pools at
     tp 1; (b) ``FLEET_TP`` ranks sharing the card, each running ``rank``
     (default ``_fleet_rank``), phantom pools at tp ``FLEET_TP``; each
     preceded by its float32 parity against a plain engine's replay."""
     import torch
-    from repro_torch.launch.mesh import spawn
     from repro_torch.parallel.axes import MeshAxes
     from repro_torch.serve.router import serve_params
     from repro_torch.serve.traffic import make_trace
@@ -6284,7 +6444,8 @@ def phase_fleet(device="cuda", rank=None):
     del params
     _free()
     t0 = time.perf_counter()
-    ranks = spawn(rank or _fleet_rank, 1, FLEET_TP, device, timeout_s=600)
+    ranks = _run_ranks(pool, rank or _fleet_rank, 1, FLEET_TP, device=device,
+                       timeout_s=600)
     par = ranks[0]["parity"]
     tag = f"fleet (b) phantom tp {FLEET_TP}"
     for r in ranks:
@@ -6304,6 +6465,109 @@ def phase_fleet(device="cuda", rank=None):
     print(f"{tag}: ranks' wall {out['mesh']['ranks_wall_s']:.1f} s",
           flush=True)
     return out
+
+
+# phase 20: paper-ffn-4k's width on 8 gloo ranks sharing the card, host3
+# lost at step 12; the straggler detector off (a threshold of 1e6): the
+# shared host's step times would trip it at random, and its out-of-cadence
+# save would move the restored step away from the prediction.  AdamW at
+# 5e-4: at the default 3e-3 its per-element steps stall the loss from
+# width 2048 on (PERF.md §6)
+ELASTIC = dict(devices=8, hosts=4, width=4096, depth=2, batch=64,
+               initial_strategy="tensor_col", ks=(4, 8, 16),
+               checkpoint_every=10, max_steps=24, target_loss=1e-9,
+               audit_replan=False, straggler_threshold=1e6, lr=5e-4)
+ELASTIC_KILLS = ((12, "host3"),)
+# the CPU planner's and cluster's prediction (PERF.md §6)
+ELASTIC_PLANS = ["tensor_col_n4096_mesh1x8", "phantom_n4096_mesh1x2_k4"]
+ELASTIC_RECOVERY = {"detect_step": 14, "restored_step": 10,
+                    "replayed_steps": 4, "distilled": True,
+                    "from_scratch": False}
+ACCOUNT_TOL = 1e-9
+POOL_TIMEOUT_S = 1800.0      # the 4-rank pool's collective timeout
+
+
+def phase_elastic():
+    """Phase 20: ``train/elastic.py: run_elastic`` on the card
+    (``ELASTIC``): tensor_col on 8 ranks, host3 lost at step 12,
+    re-planned over the 6 survivors onto the phantom plan the CPU
+    planner predicts, the step-10 checkpoint distilled into it, 24
+    steps.  Held: the plans and the recovery's fields against the
+    prediction, the checkpoint bytes against the saves times each plan's
+    global parameters and AdamW moments, the account's identity, each
+    phase's losses finite and falling."""
+    import shutil
+    from repro_torch.core.ffn import ffn_model_params
+    from repro_torch.planner import PlanCandidate
+    from repro_torch.train.elastic import ElasticConfig, run_elastic
+    from repro_torch.train.fault import FaultScript
+    workdir = ROOT / "build" / "chip_smoke_elastic"
+    shutil.rmtree(workdir, ignore_errors=True)
+    cfg = ElasticConfig(workdir=str(workdir), **ELASTIC)
+    t0 = time.perf_counter()
+    res = run_elastic(cfg, fault_script=FaultScript(kills=ELASTIC_KILLS),
+                      device="cuda",
+                      log_fn=lambda m: print(f"elastic (b): {m}", flush=True))
+    wall = time.perf_counter() - t0
+    shutil.rmtree(workdir, ignore_errors=True)
+    check(not res.aborted and res.final_step == cfg.max_steps,
+          f"elastic (b): aborted {res.aborted}, final step {res.final_step}")
+    check(res.plan_names == ELASTIC_PLANS,
+          f"elastic (b): plans {res.plan_names}, predicted {ELASTIC_PLANS}")
+    check(len(res.recoveries) == 1, f"elastic (b): {len(res.recoveries)} "
+                                    f"recoveries, want 1")
+    rec = {k: res.recoveries[0][k] for k in ELASTIC_RECOVERY}
+    check(rec == ELASTIC_RECOVERY,
+          f"elastic (b): recovery {rec}, predicted {ELASTIC_RECOVERY}")
+    want_bytes, at, phase_losses = 0, 0, []
+    for ph in res.phases:
+        (dp, tp, pp), k = ph["mesh"], ph["k"]
+        plan = PlanCandidate(dp=dp, tp=tp, pp=pp, k=k,
+                             strategy=ph["strategy"], width=cfg.width,
+                             depth=cfg.depth, batch=cfg.batch)
+        saves = sum(1 for s in range(ph["start_step"] + 1,
+                                     ph["start_step"] + ph["steps"] + 1)
+                    if s % cfg.checkpoint_every == 0)
+        per = 3 * 4 * ffn_model_params(plan.model_config(), plan.tp)
+        check(ph["ckpt_io_bytes"] == saves * per,
+              f"elastic (b): {ph['plan']} wrote {ph['ckpt_io_bytes']} B, "
+              f"{saves} saves of {per} B")
+        want_bytes += saves * per
+        losses = res.losses[at:at + ph["steps"]]
+        phase_losses.append(losses)
+        at += ph["steps"]
+        check(all(math.isfinite(v) for v in losses)
+              and losses[-1] < losses[0],
+              f"elastic (b): {ph['plan']}'s losses not finite and falling: "
+              f"{losses}")
+    a = res.account
+    parts = (a["energy_j_useful"] + a["energy_j_replay"]
+             + a["energy_j_ckpt_io"] + a["energy_j_restart"])
+    check(abs(a["energy_j_total"] - parts) <= ACCOUNT_TOL * a["energy_j_total"],
+          f"elastic (b): account total {a['energy_j_total']!r} against the "
+          f"sum of its parts {parts!r}")
+    check(a["ckpt_io_bytes"] == want_bytes,
+          f"elastic (b): account bytes {a['ckpt_io_bytes']}, want "
+          f"{want_bytes}")
+    r = res.recoveries[0]
+    print(f"elastic (b): plans {res.plan_names} (as predicted); recovery "
+          f"{rec} (as predicted); checkpoint bytes {int(a['ckpt_io_bytes']):,}"
+          f" (held); account total {a['energy_j_total']!r} J = useful "
+          f"{a['energy_j_useful']!r} + replay {a['energy_j_replay']!r} + IO "
+          f"{a['energy_j_ckpt_io']!r} + restart {a['energy_j_restart']!r} "
+          f"(held to {ACCOUNT_TOL:g}), replay overhead "
+          f"{a['replay_overhead_ratio']:.4f}", flush=True)
+    for ph, losses in zip(res.phases, phase_losses):
+        print(f"elastic (b): {ph['plan']}: steps {ph['start_step']}.."
+              f"{ph['start_step'] + ph['steps'] - 1}, compile_s "
+              f"{ph['compile_s']:.2f} (spawn, build, warm-up), wall_s "
+              f"{ph['wall_s']:.2f}, checkpoint write s {ph['ckpt_io_s']:.3f}"
+              f"; losses (finite, falling: held) "
+              f"{[round(v, 5) for v in losses]}", flush=True)
+    print(f"elastic (b): restore_s {r['restore_s']:.2f} (load, distil), "
+          f"replan_s {r['replan_s']:.4f}; the run took {wall:.1f} s",
+          flush=True)
+    return {"result": res.as_dict(), "losses": phase_losses, "wall_s": wall}
 
 
 def _leaves(tree):
@@ -6338,17 +6602,22 @@ def main() -> int:
     ledger = timed("energy", phase_energy, train, device["nvidia_smi"])
     pipeline = timed("pipeline", phase_pipeline, train, ledger)
     lm = timed("lm_train", phase_lm_train)
-    lm_tp = timed("lm_train_tp", phase_lm_train_tp)
-    qwen = timed("qwen_train_tp", phase_qwen_train_tp)
-    lm_pp = timed("lm_train_pp", phase_lm_train_pp)
-    moe = timed("moe", phase_moe)
-    ssm = timed("ssm_fsdp", phase_ssm_fsdp)
-    hybrid = timed("hybrid", phase_hybrid)
-    vlm = timed("vlm", phase_vlm)
-    encdec = timed("encdec", phase_encdec)
-    serve_mesh = timed("serve_mesh", phase_serve_mesh)
-    family_mesh = timed("family_mesh", phase_family_mesh)
-    fleet = timed("fleet", phase_fleet)
+    # one world of 4 ranks runs every 4-rank phase in turn, each freeing
+    # its card memory before the next: a rank starts in about 10 s
+    from repro_torch.launch.mesh import RankPool
+    with RankPool(1, LM_TP, "cuda", timeout_s=POOL_TIMEOUT_S) as pool:
+        lm_tp = timed("lm_train_tp", phase_lm_train_tp, pool)
+        qwen = timed("qwen_train_tp", phase_qwen_train_tp, pool)
+        lm_pp = timed("lm_train_pp", phase_lm_train_pp, pool)
+        moe = timed("moe", phase_moe, pool)
+        ssm = timed("ssm_fsdp", phase_ssm_fsdp, pool)
+        hybrid = timed("hybrid", phase_hybrid, pool)
+        vlm = timed("vlm", phase_vlm, pool)
+        encdec = timed("encdec", phase_encdec, pool)
+        serve_mesh = timed("serve_mesh", phase_serve_mesh, pool)
+        family_mesh = timed("family_mesh", phase_family_mesh, pool)
+        fleet = timed("fleet", phase_fleet, "cuda", None, pool)
+    elastic = timed("elastic", phase_elastic)
     print(f"phases: {time.perf_counter() - t_start:.1f} s wall in all",
           flush=True)
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
@@ -6378,6 +6647,8 @@ def main() -> int:
         "lm_tp4": {"shape": list(LM_TP_FLASH_SHAPE),
                    "launches_per_step_per_rank":
                        lm_tp["launches_per_step"]["flash_attention"],
+                   "resumed_step_launches_per_rank": lm_tp["checkpoint"][
+                       "resumed_launches"]["flash_attention"],
                    **{key: lm_tp["kernels"]["flash"][key] for key in TIMED}},
         "qwen_tp4": {"launches_per_step_per_rank":
                      qwen["launches_per_step"]["flash_attention"]},
@@ -6480,6 +6751,8 @@ def main() -> int:
             "lm_tp4": {
                 "launches_per_step_per_rank":
                     lm_tp["launches_per_step"][name],
+                "resumed_step_launches_per_rank":
+                    lm_tp["checkpoint"]["resumed_launches"][name],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
                             **{key: r[key] for key in TIMED}}
                            for r in lm_tp["kernels"]["phantom"]
@@ -6570,7 +6843,8 @@ def main() -> int:
          "lm_train_pp": lm_pp, "moe": moe, "ssm_fsdp": ssm,
          "hybrid": hybrid, "vlm": vlm, "encdec": encdec,
          "serve_mesh": serve_mesh, "family_mesh": family_mesh,
-         "fleet": fleet, "phase_wall_s": walls, "ledger": ledger,
+         "fleet": fleet, "elastic": elastic, "phase_wall_s": walls,
+         "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

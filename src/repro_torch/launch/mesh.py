@@ -17,6 +17,7 @@ so collective times on a shared card measure the host, not NVLink.
 from __future__ import annotations
 
 import datetime
+import os
 import pickle
 import queue
 import shutil
@@ -85,12 +86,15 @@ def make_local_mesh(dp: int, tp: int, pp: int = 1) -> MeshAxes:
 
 
 def _rank_main(rank: int, pp: int, dp: int, tp: int, device_type: str,
-               init_file: str, payload: str, timeout_s: float,
-               results) -> None:
+               init_file: str, timeout_s: float, jobs, results) -> None:
+    """One rank of a ``RankPool``: join the world once, then run each
+    job the pool sends (a payload file holding ``fn``, its ``args`` and
+    the job's mesh shape) until it sends None, freeing the job's card
+    memory after each.  A failed job ends the rank: its world may be
+    stuck in a collective."""
+    import gc
     import torch.distributed as dist
     try:
-        with open(payload, "rb") as f:
-            fn, args = pickle.load(f)
         world = pp * dp * tp
         backend = backend_for(device_type, world)
         if device_type == "cuda":
@@ -104,8 +108,18 @@ def _rank_main(rank: int, pp: int, dp: int, tp: int, device_type: str,
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", rank=rank,
             world_size=world, timeout=datetime.timedelta(seconds=timeout_s))
-        out = fn(make_local_mesh(dp, tp, pp), device, *args)
-        results.put((rank, True, out))
+        while True:
+            job = jobs.get()
+            if job is None:
+                break
+            with open(job, "rb") as f:
+                fn, args, shape = pickle.load(f)
+            out = fn(make_local_mesh(*shape), device, *args)
+            results.put((rank, True, out))
+            del out
+            gc.collect()
+            if device_type == "cuda":
+                torch.cuda.empty_cache()
     except Exception:
         results.put((rank, False, traceback.format_exc()))
     finally:
@@ -113,63 +127,115 @@ def _rank_main(rank: int, pp: int, dp: int, tp: int, device_type: str,
             dist.destroy_process_group()
 
 
-def spawn(fn: Callable, dp: int, tp: int, device=None, args: tuple = (),
-          timeout_s: float = 600.0, pp: int = 1) -> List[Any]:
-    """Run ``fn(axes, device, *args)`` on ``pp * dp * tp`` ranks and
-    return their results, ordered by rank.
-
-    ``fn`` must be importable (a module-level function) and return
-    picklable values (numpy arrays, not tensors).  ``device`` is the
-    card unless the caller asks for the CPU.  The ranks start with the
-    ``spawn`` method, never fork (the caller may hold CUDA or JAX
-    state).  ``init_process_group`` and the wait for results share one
-    timeout: past it, or on the first rank that fails, every rank is
+class RankPool:
+    """``pp * dp * tp`` ranks started once (the ``spawn`` method, never
+    fork: the caller may hold CUDA or JAX state) that run jobs in turn:
+    ``run(fn, dp, tp, pp)`` calls ``fn(axes, device, *args)`` on every
+    rank, ``axes`` a mesh of ``pp' * dp' * tp'`` = the pool's size built
+    on the world for that job, and returns the results by rank.  A rank
+    starts in seconds (it imports torch), so a caller that runs several
+    meshes of one size pays it once; each job's card memory goes back to
+    the card before the next.  ``fn`` must be importable (a module-level
+    function) and return picklable values (numpy arrays, not tensors).
+    On a job's first failed rank or past its timeout every rank is
     killed and the call raises, so a mismatched collective fails within
     the timeout instead of hanging.  ``fn`` and ``args`` reach the ranks
-    through a file in the mesh's temporary directory: through a rank's
-    start-up pipe, arguments past the pipe's 64 KB would hold each
-    start until the rank before it had imported torch and read them."""
-    import torch.multiprocessing as mp
-    dev = resolve_device(device)
-    world = pp * dp * tp
-    ctx = mp.get_context("spawn")
-    tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
-    with open(f"{tmp}/payload", "wb") as f:
-        pickle.dump((fn, args), f)
-    results = ctx.Queue()
-    procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, pp, dp, tp, dev.type, f"{tmp}/init",
-                               f"{tmp}/payload", timeout_s, results))
-             for r in range(world)]
-    out = {}
-    deadline = time.monotonic() + timeout_s
-    try:
-        for p in procs:
-            p.start()
-        while len(out) < world:
-            left = deadline - time.monotonic()
-            if left <= 0:
-                raise TimeoutError(
-                    f"{world - len(out)} of {world} ranks gave no result "
-                    f"within {timeout_s:.0f} s")
-            try:
-                rank, ok, payload = results.get(timeout=min(left, 1.0))
-            except queue.Empty:
-                dead = [r for r, p in enumerate(procs)
-                        if p.exitcode not in (None, 0) and r not in out]
-                if dead:
-                    raise RuntimeError(f"rank {dead[0]} exited with code "
-                                       f"{procs[dead[0]].exitcode}")
-                continue
-            if not ok:
-                raise RuntimeError(f"rank {rank} failed:\n{payload}")
-            out[rank] = payload
-        for p in procs:
-            p.join(timeout=max(deadline - time.monotonic(), 1.0))
-    finally:
-        for p in procs:
+    through a file in the pool's temporary directory: through a rank's
+    start-up pipe, arguments past the pipe's 64 KB would hold each start
+    until the rank before it had imported torch and read them."""
+
+    def __init__(self, dp: int, tp: int, device=None, pp: int = 1,
+                 timeout_s: float = 3600.0):
+        import torch.multiprocessing as mp
+        dev = resolve_device(device)
+        self.world = pp * dp * tp
+        ctx = mp.get_context("spawn")
+        self._tmp = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+        self._results = ctx.Queue()
+        self._jobs = [ctx.Queue() for _ in range(self.world)]
+        self._procs = [ctx.Process(target=_rank_main, daemon=True,
+                                   args=(r, pp, dp, tp, dev.type,
+                                         f"{self._tmp}/init", timeout_s,
+                                         self._jobs[r], self._results))
+                       for r in range(self.world)]
+        self._count = 0
+        try:
+            for p in self._procs:
+                p.start()
+        except BaseException:
+            self.close()
+            raise
+
+    def run(self, fn: Callable, dp: int, tp: int, args: tuple = (),
+            pp: int = 1, timeout_s: float = 600.0) -> List[Any]:
+        if pp * dp * tp != self.world:
+            raise ValueError(f"a job of pp {pp} x dp {dp} x tp {tp} on a "
+                             f"pool of {self.world} ranks")
+        self._count += 1
+        payload = f"{self._tmp}/job{self._count}"
+        with open(payload, "wb") as f:
+            pickle.dump((fn, args, (dp, tp, pp)), f)
+        for q in self._jobs:
+            q.put(payload)
+        out = {}
+        deadline = time.monotonic() + timeout_s
+        try:
+            while len(out) < self.world:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise TimeoutError(
+                        f"{self.world - len(out)} of {self.world} ranks "
+                        f"gave no result within {timeout_s:.0f} s")
+                try:
+                    rank, ok, result = self._results.get(
+                        timeout=min(left, 1.0))
+                except queue.Empty:
+                    dead = [r for r, p in enumerate(self._procs)
+                            if p.exitcode is not None and r not in out]
+                    if dead:
+                        raise RuntimeError(
+                            f"rank {dead[0]} exited with code "
+                            f"{self._procs[dead[0]].exitcode}")
+                    continue
+                if not ok:
+                    raise RuntimeError(f"rank {rank} failed:\n{result}")
+                out[rank] = result
+        except BaseException:
+            self.close(kill=True)
+            raise
+        os.remove(payload)
+        return [out[r] for r in range(self.world)]
+
+    def close(self, kill: bool = False, timeout_s: float = 60.0):
+        """Stop the ranks (``kill``: at once) and remove the pool's
+        files."""
+        if not kill:
+            for q in self._jobs:
+                q.put(None)
+        deadline = time.monotonic() + timeout_s
+        for p in self._procs:
+            if not kill and p.is_alive():
+                p.join(timeout=max(deadline - time.monotonic(), 0.1))
             if p.is_alive():
                 p.kill()
-            p.join()
-        shutil.rmtree(tmp, ignore_errors=True)
-    return [out[r] for r in range(world)]
+            if p.pid is not None:
+                p.join()
+        shutil.rmtree(self._tmp, ignore_errors=True)
+
+    def __enter__(self) -> "RankPool":
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self.close(kill=exc_type is not None)
+        return False
+
+
+def spawn(fn: Callable, dp: int, tp: int, device=None, args: tuple = (),
+          timeout_s: float = 600.0, pp: int = 1) -> List[Any]:
+    """Run ``fn(axes, device, *args)`` on ``pp * dp * tp`` new ranks and
+    return their results, ordered by rank: one job of a ``RankPool``,
+    whose ranks stop once it returns (a rank must flush what it writes
+    before it returns).  ``device`` is the card unless the caller asks
+    for the CPU; ``timeout_s`` bounds the ranks' start and the job."""
+    with RankPool(dp, tp, device, pp=pp, timeout_s=timeout_s) as pool:
+        return pool.run(fn, dp, tp, args, pp=pp, timeout_s=timeout_s)

@@ -1,6 +1,7 @@
-"""Train an LM of the dense, MoE, SSM or hybrid family: the port's
-counterpart of the reference's ``python -m repro.launch.train`` (its
-non-elastic path without a plan).  Like the reference's, it feeds
+"""Train an LM of the dense, MoE, SSM or hybrid family, or run the
+elastic paper-FFN runtime (``--elastic``): the port's counterpart of the
+reference's ``python -m repro.launch.train`` (all but ``--plan``).  Like
+the reference's, the LM path feeds
 ``LMDataset`` batches of tokens and labels only, so it cannot train the
 vision-language and encoder-decoder families (qwen2-vl-72b needs M-RoPE
 ``positions``, seamless-m4t-large-v2 the encoder's ``frames``): for
@@ -49,13 +50,36 @@ is the launcher's (default 1), not the config's ``microbatches``.
 1F1B pipeline over ``--microbatches`` microbatches.  The run is on the
 card unless ``--device cpu`` is given; ``--smoke`` (the default) takes
 the config's reduced geometry, ``--full`` the published one.
-``--plan``, ``--elastic`` and ``--ckpt-dir`` are ROADMAP.md queue 1,
-item 8.
+``--ckpt-dir DIR`` gives the trainer a checkpoint directory at its
+default cadence of 100 steps: the run resumes from the latest
+checkpoint there (``[trainer] restored step N``) and saves on the way
+(each rank its own blocks of the global arrays).
+
+``--elastic`` runs the elastic fault-tolerant paper-FFN runtime instead
+(``train/elastic.py: run_elastic``): a simulated cluster of ``--hosts``
+hosts over ``--devices`` devices, asynchronous checkpoints every
+``--ckpt-every`` steps, heartbeat failure detection and energy-aware
+re-planning of dp x tp x k over the survivors, each phase's ranks on
+the card unless ``--device cpu`` is given; ``--kill-at-step N
+[--kill-host hostK]`` injects a host loss:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --elastic \
+        --device cpu --kill-at-step 25
+
+It must survive the loss, restore and reach ``--target-loss``; the exit
+code says whether it did.  The re-plan's static audit gate is off (its
+torch counterpart is ROADMAP.md queue 1, item 8 part 4), and the run
+says so.  The report and its ledger go under ``build/`` (a repo-root
+path raises: the reference's ``BENCH_report.json`` is there).
+``--plan`` (item 8 part 2), ``--slow-step`` and ``--profile-dir``
+(part 3) and ``--overlap`` (part 4) raise.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import sys
+import tempfile
 
 from repro_torch.configs.base import (PROJECTION_SITES, dense_projection_map,
                                       get_config, with_kernel_backend)
@@ -70,6 +94,8 @@ from repro_torch.parallel.axes import MeshAxes, resolve_device
 from repro_torch.train.trainer import Trainer
 
 TIMEOUT_S = 3600.0     # a multi-rank run, before its ranks are killed
+OPERATIONS_TODO = "ROADMAP.md queue 1, item 8"
+DEFAULT_ELASTIC_REPORT = "elastic_report.json"     # under build/
 # the families whose batches need more than LMDataset's tokens and labels
 STUBBED_FAMILIES = ("vlm", "encdec")
 
@@ -85,14 +111,29 @@ def require_lm_batches(cfg):
             f"make_trainer(..., dataset=...) with such batches")
 
 
+class _Parser(argparse.ArgumentParser):
+    """``--steps`` and ``--batch`` default by path, as the reference's
+    launcher's do: 100 and 8 for the LM, 300 and 32 with ``--elastic``."""
+
+    def parse_args(self, args=None, namespace=None):
+        out = super().parse_args(args, namespace)
+        if out.steps is None:
+            out.steps = 300 if out.elastic else 100
+        if out.batch is None:
+            out.batch = 32 if out.elastic else 8
+        return out
+
+
 def build_parser():
-    ap = argparse.ArgumentParser(prog="repro_torch.launch.train",
-                                 description=__doc__.split("\n")[0])
+    ap = _Parser(prog="repro_torch.launch.train",
+                 description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="phi3-mini-3.8b")
     ap.add_argument("--impl", default="phantom",
                     choices=["dense", "phantom"])
-    ap.add_argument("--steps", type=int, default=100)
-    ap.add_argument("--batch", type=int, default=8, help="global batch")
+    ap.add_argument("--steps", type=int, default=None,
+                    help="train steps (default 100; 300 with --elastic)")
+    ap.add_argument("--batch", type=int, default=None,
+                    help="global batch (default 8; 32 with --elastic)")
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false")
@@ -108,7 +149,58 @@ def build_parser():
     ap.add_argument("--seed", type=int, default=0, help="weight seed")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="resume from and save checkpoints here")
+    el = ap.add_argument_group("elastic fault-tolerant paper-FFN runtime")
+    el.add_argument("--elastic", action="store_true")
+    el.add_argument("--devices", type=int, default=8,
+                    help="total device budget")
+    el.add_argument("--hosts", type=int, default=4,
+                    help="simulated hosts (devices %% hosts == 0)")
+    el.add_argument("--kill-at-step", type=int, action="append",
+                    default=None, metavar="N",
+                    help="inject a host loss at step N (repeatable)")
+    el.add_argument("--kill-host", action="append", default=None,
+                    metavar="HOST",
+                    help="which host dies at the matching --kill-at-step "
+                         "(default hostH, the last first)")
+    el.add_argument("--target-loss", type=float, default=0.12,
+                    help="stop when the teacher loss reaches this")
+    el.add_argument("--width", type=int, default=64,
+                    help="paper-FFN width")
+    el.add_argument("--depth", type=int, default=2,
+                    help="paper-FFN depth")
+    el.add_argument("--ckpt-every", type=int, default=10,
+                    help="checkpoint cadence (steps)")
+    el.add_argument("--workdir", default=None,
+                    help="checkpoint and heartbeat directory (default: a "
+                         "temporary directory)")
+    el.add_argument("--report-out", default=None,
+                    help="the ledger report (default build/"
+                         f"{DEFAULT_ELASTIC_REPORT}; the repo root "
+                         "raises)")
+    todo = ap.add_argument_group(f"not ported ({OPERATIONS_TODO}): "
+                                 "these raise")
+    todo.add_argument("--plan", default=None)
+    todo.add_argument("--slow-step", type=int, action="append",
+                      default=None)
+    todo.add_argument("--profile-dir", default=None)
+    todo.add_argument("--overlap", default=None)
     return ap
+
+
+def refuse_unported(args):
+    """Raise for a flag of the reference's launcher whose part of
+    ROADMAP.md queue 1 item 8 is not ported."""
+    for flag, part in (("plan", "part 2: the planner's report"),
+                       ("slow_step", "part 3: obs/ and the watchdog"),
+                       ("profile_dir", "part 3: obs/ and the watchdog"),
+                       ("overlap", "part 4: the overlap of queue 2 "
+                                   "item 8")):
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported yet "
+                f"({OPERATIONS_TODO} {part})")
 
 
 def train_config(args):
@@ -132,20 +224,75 @@ def make_trainer(axes, device, cfg, args, dataset=None) -> Trainer:
         dataset = LMDataset(cfg.vocab_size, args.batch, args.seq + 1,
                             device=device)
     return Trainer(cfg, axes, opt, dataset, microbatches=args.microbatches,
+                   checkpoint_dir=args.ckpt_dir,
                    log_every=min(10, args.steps),
                    log_fn=print if axes.rank == 0 else (lambda _m: None),
                    device=device)
 
 
 def train_rank(axes, device, cfg, args):
-    """One rank's run; returns the per-step metrics and step times."""
+    """One rank's run, from the latest checkpoint in ``--ckpt-dir`` if
+    there is one; returns the per-step metrics and step times."""
     trainer = make_trainer(axes, device, cfg, args)
-    trainer.run(trainer.init_state(args.seed), args.steps)
+    trainer.run(trainer.restore_or_init(args.seed), args.steps)
     return {"history": trainer.history, "step_us": trainer.meter.times_us}
+
+
+def run_elastic_cli(args) -> int:
+    """The ``--elastic`` entry point: the paper-FFN elastic run with
+    scripted host losses; returns the exit code (0 iff the run survived
+    its faults and reached ``--target-loss``)."""
+    from repro_torch.launch.serve import refuse_repo_root
+    from repro_torch.telemetry import Ledger
+    from repro_torch.telemetry.ledger import REPORT_DIR
+    from repro_torch.train.elastic import ElasticConfig, run_elastic
+    from repro_torch.train.fault import FaultScript
+
+    report_out = args.report_out or str(REPORT_DIR / DEFAULT_ELASTIC_REPORT)
+    refuse_repo_root(report_out, "--report-out")
+    jsonl = os.path.join(os.path.dirname(os.path.abspath(report_out)),
+                         "elastic_ledger.jsonl")
+    kills = []
+    names = args.kill_host or []
+    for i, s in enumerate(args.kill_at_step or []):
+        # unnamed kills take the highest-numbered hosts first
+        kills.append((s, names[i] if i < len(names)
+                      else f"host{args.hosts - 1 - i}"))
+    cfg = ElasticConfig(
+        workdir=args.workdir or tempfile.mkdtemp(prefix="elastic_"),
+        devices=args.devices, hosts=args.hosts, width=args.width,
+        depth=args.depth, batch=args.batch, target_loss=args.target_loss,
+        max_steps=args.steps, checkpoint_every=args.ckpt_every,
+        seed=args.seed)
+    print(f"[elastic] static audit gate off: the re-plan audit is not "
+          f"ported ({OPERATIONS_TODO} part 4)", flush=True)
+    ledger = Ledger(run="launch.train.elastic", jsonl_path=jsonl)
+    res = run_elastic(cfg, ledger=ledger, device=args.device,
+                      fault_script=FaultScript(kills=tuple(kills)))
+    ledger.write_report(report_out)
+    acct = res.account
+    print(f"[elastic] report -> {report_out}")
+    print(f"[elastic] energy_j_total {acct['energy_j_total']:.3e} "
+          f"(useful {acct['energy_j_useful']:.3e}, "
+          f"replay {acct['energy_j_replay']:.3e}, "
+          f"ckpt_io {acct['energy_j_ckpt_io']:.3e}, "
+          f"restart {acct['energy_j_restart']:.3e}); "
+          f"replay_overhead {acct['replay_overhead_ratio']:.3f}")
+    if res.aborted:
+        print("[elastic] FAILED: run aborted")
+        return 2
+    if not res.reached_target:
+        print(f"[elastic] FAILED: final loss {res.final_loss:.4f} > "
+              f"target {cfg.target_loss}")
+        return 1
+    return 0
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    if args.elastic:
+        return run_elastic_cli(args)
     cfg = train_config(args)
     require_lm_batches(cfg)
     device = resolve_device(args.device)

@@ -65,6 +65,10 @@ def _zeros_f32(p: torch.Tensor) -> torch.Tensor:
 
 
 class Optimizer:
+    # state trees whose leaves a checkpoint saves whole on every rank
+    # (``train/checkpoint.py``): their layout depends on the mesh
+    per_rank_state: tuple = ()
+
     def __init__(self, lr: LR):
         self.lr = lr if callable(lr) else (lambda _s, v=lr: v)
 
@@ -171,7 +175,14 @@ class Adafactor(Optimizer):
     (all but the last two) hold more than one matrix (jamba's experts,
     ``[1, E/tp, d, d_ff]`` a rank) is updated a few matrices at a time,
     so that its float32 temporaries stay a fraction of the leaf's
-    (``_sliced_update``)."""
+    (``_sliced_update``).
+
+    ``vr`` of a column-sharded leaf and ``vc`` of a row-sharded one are
+    means over the rank's local columns or rows, though their decls
+    (``_drop_axis``) call them replicated: a checkpoint saves both
+    moments per rank (``per_rank_state``)."""
+
+    per_rank_state = ("vr", "vc")
 
     def __init__(self, lr: LR, decay: float = 0.8, eps: float = 1e-30,
                  clip_rms: float = 1.0, weight_decay: float = 0.0):

@@ -15,14 +15,15 @@ Three pieces, one join:
 the path its caller gives.  The pipelined step has its probe and
 prediction too, and one serving step its prediction
 (``serve_step_prediction``, which the router prices with) and the
-fleet's KV-page transfer (``kv_transfer_prediction``); the recovery
-prediction is not ported yet (ROADMAP.md queue 1, item 8).
+fleet's KV-page transfer (``kv_transfer_prediction``), and the elastic
+runtime's recovery account (``recovery_account``).
 """
 from repro_torch.telemetry.counted import MeasuredCosts, count_step
 from repro_torch.telemetry.ledger import (SCHEMA, Ledger, LedgerEntry,
                                           load_report)
 from repro_torch.telemetry.meter import StepMeter, measure
-from repro_torch.telemetry.predict import (event_wire_bytes, events_for,
+from repro_torch.telemetry.predict import (CKPT_DISK_BW_BPS,
+                                           event_wire_bytes, events_for,
                                            ffn_step_prediction,
                                            fused_ffn_step_prediction,
                                            fused_kernel_step_events,
@@ -31,6 +32,7 @@ from repro_torch.telemetry.predict import (event_wire_bytes, events_for,
                                            measured_energy_fields,
                                            pipeline_ffn_step_events,
                                            pipeline_ffn_step_prediction,
+                                           recovery_account,
                                            serve_overhead_events,
                                            serve_site_strategies,
                                            serve_step_events,
@@ -48,7 +50,8 @@ __all__ = [
     "fused_ffn_step_prediction", "fused_kernel_step_events",
     "kv_cache_token_bytes", "kv_transfer_prediction",
     "measured_energy_fields", "pipeline_ffn_step_events",
-    "pipeline_ffn_step_prediction", "serve_overhead_events",
+    "pipeline_ffn_step_prediction", "recovery_account",
+    "CKPT_DISK_BW_BPS", "serve_overhead_events",
     "serve_site_strategies", "serve_step_events", "serve_step_prediction",
     "strategy_prediction",
     "make_ffn_pipeline_probe_step", "make_ffn_probe_step",

@@ -21,8 +21,8 @@ The pipelined step's account (``pipeline_ffn_step_events`` /
 so is one serving step's (``serve_site_strategies`` ..
 ``serve_step_prediction``), the account the router prices candidates
 with, and the fleet's KV-page transfer (``kv_cache_token_bytes``,
-``kv_transfer_prediction``).  The recovery prediction is not ported
-(ROADMAP.md queue 1, item 8).
+``kv_transfer_prediction``), and the elastic runtime's recovery
+account (``recovery_account``).
 """
 from __future__ import annotations
 
@@ -504,4 +504,85 @@ def kv_transfer_prediction(cfg, migrations: int, mean_tokens: float, *,
         "energy_j": beta_s * B * devices,
         "model": "E = B*(tp_src+tp_dst)*beta, p2p hop c1 + c2*m",
         "B_w": B, "tp_src": tp_src, "tp_dst": tp_dst,
+    }
+
+
+# An ASSUMED checkpoint-store bandwidth, not a measurement: it prices a
+# phase's checkpoint IO seconds only where no write time was measured
+CKPT_DISK_BW_BPS = 1.0e9
+
+
+def recovery_account(phases: Sequence[dict],
+                     recoveries: Sequence[dict] = (), *,
+                     A: float = FRONTIER_A_W, B: float = FRONTIER_B_W,
+                     disk_bw_bps: float = CKPT_DISK_BW_BPS) -> dict:
+    """Joules to the target loss INCLUDING the recovery overhead: the
+    elastic runtime's energy account, the reference's formula.
+
+    ``phases``: one dict per plan the run executed on, with ``steps``,
+    ``replayed_steps`` (of those, re-runs of lost progress), ``devices``,
+    ``energy_j_per_iter`` (the planner's price), ``ckpt_io_bytes``,
+    ``ckpt_io_s`` (measured write seconds; 0 derives them from the bytes
+    at ``disk_bw_bps``), ``compile_s`` and ``wall_s``.  ``recoveries``:
+    one dict per fault handled, with measured ``restore_s``,
+    ``replan_s`` and ``devices_after``.
+
+    Useful and replayed steps are priced at the phase's per-iteration
+    energy, so ``replay_overhead_ratio`` (replayed over all STEP energy)
+    is a pure schedule quantity.  Checkpoint IO and restart time
+    (restore + re-plan + compile) are host seconds during which the
+    devices wait, priced at static power ``B`` across them;
+    ``recovery_overhead_ratio`` folds those in."""
+    useful_j = replay_j = ckpt_j = restart_j = 0.0
+    steps = replayed = 0
+    io_bytes = io_s = compile_s = wall_s = 0.0
+    for ph in phases:
+        e = float(ph.get("energy_j_per_iter", 0.0))
+        n = int(ph.get("steps", 0))
+        r = min(int(ph.get("replayed_steps", 0)), n)
+        dev = int(ph.get("devices", 1))
+        useful_j += e * (n - r)
+        replay_j += e * r
+        steps += n
+        replayed += r
+        b = float(ph.get("ckpt_io_bytes", 0.0))
+        s = float(ph.get("ckpt_io_s", 0.0)) or b / disk_bw_bps
+        ckpt_j += s * B * dev
+        io_bytes += b
+        io_s += s
+        c = float(ph.get("compile_s", 0.0))
+        compile_s += c
+        restart_j += c * B * dev
+        wall_s += float(ph.get("wall_s", 0.0))
+    restore_s = replan_s = 0.0
+    for rec in recoveries:
+        dev = int(rec.get("devices_after", 1))
+        rs = float(rec.get("restore_s", 0.0))
+        ps = float(rec.get("replan_s", 0.0))
+        restore_s += rs
+        replan_s += ps
+        restart_j += (rs + ps) * B * dev
+    step_j = useful_j + replay_j
+    total_j = step_j + ckpt_j + restart_j
+    return {
+        "schema": "recovery-account/v1",
+        "energy_j_useful": useful_j,
+        "energy_j_replay": replay_j,
+        "energy_j_ckpt_io": ckpt_j,
+        "energy_j_restart": restart_j,
+        "energy_j_total": total_j,
+        "replay_overhead_ratio": (replay_j / step_j) if step_j else 0.0,
+        "recovery_overhead_ratio": ((total_j - useful_j) / total_j)
+        if total_j else 0.0,
+        "steps_total": steps,
+        "replayed_steps": replayed,
+        "restarts": len(list(recoveries)),
+        "ckpt_io_bytes": io_bytes,
+        "ckpt_io_s": io_s,
+        "compile_s": compile_s,
+        "restore_s": restore_s,
+        "replan_s": replan_s,
+        "wall_s": wall_s,
+        "disk_bw_bps": disk_bw_bps,
+        "A_w": A, "B_w": B,
     }

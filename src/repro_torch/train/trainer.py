@@ -20,11 +20,14 @@ Differentiating the stacked tensor instead would scatter every layer's
 gradient into a zero tensor of the whole stack.
 
 ``Trainer`` is the loop around the step: data, a ``StepMeter`` on every
-step, the ``[trainer]`` log line, and ``record_to(ledger)``, which
-records the metered steps as a ledger entry.
-Checkpoints, the straggler detector, restart policies and the
-energy-drift watchdog are ROADMAP.md queue 1, item 8; the tracer and
-metric calls wait for ``obs/`` (the same item).
+step, the ``[trainer]`` log line, ``record_to(ledger)``, which records
+the metered steps as a ledger entry, asynchronous checkpoints every
+``checkpoint_every`` steps (``train/checkpoint.py``: each rank writes
+its own blocks of the global arrays) and ``restore_or_init``, and the
+straggler hook (``train/fault.py: note_step_time``) whose checkpoint-now
+decision rank 0 takes for every rank.  The energy-drift watchdog and the
+tracer and metric calls wait for ``obs/`` (ROADMAP.md queue 1, item 8
+part 3).
 """
 from __future__ import annotations
 
@@ -41,10 +44,12 @@ from repro_torch.parallel.grads import _spec_axes, reduce_grads
 from repro_torch.parallel.params import (materialize_shards_in_turn,
                                          tree_leaves, tree_map)
 from repro_torch.telemetry import LedgerEntry, StepMeter
+from repro_torch.train.checkpoint import CheckpointManager
+from repro_torch.train.fault import note_step_time
 from repro_torch.train.pipeline import batch_axis, split_batch_microbatches
 
 AUX_LOSS_WEIGHT = 0.01
-OPERATIONS_TODO = "ROADMAP.md queue 1, item 8"
+OBS_TODO = "ROADMAP.md queue 1, item 8 part 3"
 NORM_CHUNK = 1 << 28   # a larger leaf's sum of squares goes in chunks
 
 
@@ -200,6 +205,22 @@ def make_train_step(cfg: ModelConfig, axes: MeshAxes, optimizer, *,
 # the training loop
 # ---------------------------------------------------------------------------
 
+def rank0_decision(decision: Optional[str], axes: MeshAxes,
+                   device) -> Optional[str]:
+    """Rank 0's straggler decision on every rank: ``"checkpoint"`` if
+    rank 0 decided so, else None.  Each rank times its own steps, and a
+    save must be taken by all of them or none; the flag crosses the
+    world on an unrecorded group, so the step's wire count does not
+    move."""
+    world = axes.world_comm
+    if world.size == 1:
+        return decision
+    flag = torch.tensor([float(axes.rank == 0 and decision == "checkpoint")],
+                        device=device)
+    return ("checkpoint" if world.unrecorded().all_reduce(flag).item() > 0
+            else None)
+
+
 @dataclass
 class TrainState:
     params: object
@@ -208,32 +229,40 @@ class TrainState:
 
 
 class Trainer:
-    """The training loop of one rank: data, step, meter, log, ledger."""
+    """The training loop of one rank: data, step, meter, log, ledger,
+    checkpoints and the straggler hook."""
 
     def __init__(self, cfg: ModelConfig, axes: MeshAxes, optimizer,
                  dataset, *, microbatches: int = 1, grad_clip: float = 1.0,
-                 checkpoint_dir: Optional[str] = None, log_every: int = 10,
-                 log_fn: Callable = print, straggler=None,
-                 restart_policy=None, watchdog=None, device=None):
-        for name, value in (("checkpoint_dir", checkpoint_dir),
-                            ("straggler", straggler),
-                            ("restart_policy", restart_policy),
-                            ("watchdog", watchdog)):
-            if value is not None:
-                raise NotImplementedError(
-                    f"Trainer({name}=...): checkpoints and fault tolerance "
-                    f"are not ported yet ({OPERATIONS_TODO})")
+                 checkpoint_dir: Optional[str] = None,
+                 checkpoint_every: int = 100, keep_checkpoints: int = 3,
+                 log_every: int = 10, log_fn: Callable = print,
+                 meter: Optional[StepMeter] = None, ledger=None,
+                 straggler=None, restart_policy=None, watchdog=None,
+                 device=None):
+        if watchdog is not None:
+            raise NotImplementedError(
+                f"Trainer(watchdog=...): the energy-drift watchdog is not "
+                f"ported yet ({OBS_TODO})")
         self.cfg, self.axes, self.optimizer = cfg, axes, optimizer
         self.dataset = dataset
         self.log_every, self.log_fn = log_every, log_fn
         self.device = resolve_device(device)
-        self.meter = StepMeter(f"train_{cfg.name}", warmup=1,
-                               device=self.device)
+        self.meter = meter or StepMeter(f"train_{cfg.name}", warmup=1,
+                                        device=self.device)
+        self.ledger = ledger
+        self.straggler = straggler            # StragglerDetector | None
+        self.restart_policy = restart_policy  # RestartPolicy | None
+        self.checkpoint_every = checkpoint_every
         self.history: list = []      # {"loss", "grad_norm"} of every step
         self._ledger_window = 0
         self.step_fn, self.decls, self.opt_decls = make_train_step(
             cfg, axes, optimizer, microbatches=microbatches,
             grad_clip=grad_clip, device=self.device)
+        self.checkpoints = (CheckpointManager(checkpoint_dir,
+                                              keep=keep_checkpoints,
+                                              axes=axes)
+                            if checkpoint_dir else None)
 
     def init_state(self, seed: int = 0) -> TrainState:
         """This rank's shards of random global parameters, drawn leaf by
@@ -250,26 +279,73 @@ class Trainer:
                                             self.device)
         return TrainState(params, self.optimizer.init(params), 0)
 
+    def restore_or_init(self, seed: int = 0) -> TrainState:
+        """This rank's state from the latest readable checkpoint in
+        ``checkpoint_dir``, cut for its mesh; else ``init_state``."""
+        if self.checkpoints is not None:
+            restored = self.checkpoints.restore_latest(
+                self.decls, self.opt_decls, self.axes, self.device)
+            if restored is not None:
+                self.log_fn(f"[trainer] restored step {restored.step}")
+                return restored
+        return self.init_state(seed)
+
+    def save_async(self, state: TrainState):
+        """Queue a checkpoint of ``state`` (copied to the host now)."""
+        self.checkpoints.save_async(
+            state.step, state.params, state.opt_state, decls=self.decls,
+            opt_decls=self.opt_decls,
+            per_rank=self.optimizer.per_rank_state)
+
     def run(self, state: TrainState, num_steps: int) -> TrainState:
-        """Steps from ``state.step`` up to ``num_steps``."""
+        """Steps from ``state.step`` up to ``num_steps``; a checkpoint
+        every ``checkpoint_every`` steps or on the restart policy's
+        ``"checkpoint"`` decision, every queued save flushed on the way
+        out, a failed step's too."""
         params, opt_state, step = state.params, state.opt_state, state.step
+        impl = "phantom" if self.cfg.uses_phantom_sites() else "dense"
         window = []
-        while step < num_steps:
-            batch = local_rows(self.dataset(step), self.axes)
-            params, opt_state, metrics = self.meter.call(
-                self.step_fn, params, opt_state, step, batch)
-            step += 1
-            m = {k: float(v) for k, v in metrics.items()}
-            self.history.append(m)
-            window.append(m)
-            if step % self.log_every == 0:
-                recent = self.meter.times_us[-self.log_every:]
-                dt_ms = sum(recent) / len(recent) / 1e3
-                loss = sum(w["loss"] for w in window) / len(window)
-                gnorm = sum(w["grad_norm"] for w in window) / len(window)
-                self.log_fn(f"[trainer] step {step} loss {loss:.4f} "
-                            f"gnorm {gnorm:.3f} {dt_ms:.0f} ms/it")
-                window = []
+        try:
+            while step < num_steps:
+                batch = local_rows(self.dataset(step), self.axes)
+                params, opt_state, metrics = self.meter.call(
+                    self.step_fn, params, opt_state, step, batch)
+                step += 1
+                m = {k: float(v) for k, v in metrics.items()}
+                self.history.append(m)
+                window.append(m)
+                decision = note_step_time(
+                    self.straggler, self.restart_policy, step,
+                    self.meter.times_us[-1] * 1e-6, self.ledger,
+                    name=f"straggler_{self.cfg.name}", arch=self.cfg.name,
+                    impl=impl, p=self.axes.tp)
+                if self.straggler is not None:
+                    decision = rank0_decision(decision, self.axes,
+                                              self.device)
+                if step % self.log_every == 0:
+                    recent = self.meter.times_us[-self.log_every:]
+                    dt_ms = sum(recent) / len(recent) / 1e3
+                    loss = sum(w["loss"] for w in window) / len(window)
+                    gnorm = sum(w["grad_norm"] for w in window) / len(
+                        window)
+                    self.log_fn(f"[trainer] step {step} loss {loss:.4f} "
+                                f"gnorm {gnorm:.3f} {dt_ms:.0f} ms/it")
+                    window = []
+                if self.checkpoints is not None and (
+                        step % self.checkpoint_every == 0
+                        or decision == "checkpoint"):
+                    self.save_async(TrainState(params, opt_state, step))
+        finally:
+            # a failed step must not abandon a queued save; the error in
+            # flight takes precedence over the writer's
+            if self.checkpoints is not None:
+                self.checkpoints.flush(raise_errors=False)
+            if self.ledger is not None:
+                self.ledger.flush()
+        if self.checkpoints is not None:
+            self.checkpoints.flush()
+        if self.ledger is not None:
+            self.record_to(self.ledger)
         return TrainState(params, opt_state, step)
 
     def record_to(self, ledger, predicted=None, name=None,

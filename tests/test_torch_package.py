@@ -415,7 +415,9 @@ def test_unported_training_paths_raise(what):
     heads (they named ROADMAP.md queue 1 item 1 at any tp > 1 until the
     family was ported to serve there),
     an MLP kind no ported config uses, remat policies other than full
-    and none, checkpoints and fault tolerance.  The full-model pipeline,
+    and none, and the energy-drift watchdog (item 8 part 3; checkpoints,
+    the straggler hook and restart policies raised here until they were
+    ported).  The full-model pipeline,
     which raised until it was ported, builds: its layer stacks are
     pipe-sharded ``[pp, G/pp, ...]``."""
     from repro_torch.models.layers import norm_decls
@@ -449,6 +451,6 @@ def test_unported_training_paths_raise(what):
             block_train(cfg.replace(remat="dots"), "fp", {}, None, None,
                         MeshAxes(), "mlp")
     else:
-        with pytest.raises(NotImplementedError, match="item 8"):
+        with pytest.raises(NotImplementedError, match="item 8 part 3"):
             Trainer(cfg, MeshAxes(), AdamW(1e-3), None,
-                    checkpoint_dir="ckpt", device="cpu")
+                    watchdog=object(), device="cpu")

@@ -16,7 +16,7 @@ from repro_torch.core.autograd import all_gather_ghosts
 from repro_torch.core.phantom import phantom_apply, phantom_decls
 from repro_torch.core.tp import gather_features, scatter_features
 from repro_torch.parallel.axes import record_collectives
-from repro_torch.parallel.params import shard_params, tree_map
+from repro_torch.parallel.params import shard_params, tree_leaves, tree_map
 
 
 def load_chip_smoke():
@@ -909,3 +909,250 @@ def fleet_body(axes, device, cases):
         res["replay"] = {r.req_id: list(r.out_tokens) for r in reqs}
         out[name] = res
     return out
+
+
+# ---------------------------------------------------------------------------
+# checkpoints, fault tolerance and elastic recovery
+# ---------------------------------------------------------------------------
+
+CKPT_ARCH = "stablelm-3b"
+CKPT_BATCH, CKPT_SEQ = 8, 64
+
+
+def _ckpt_trainer(axes, device, arch=CKPT_ARCH, opt_name="adamw"):
+    """The smoke config of ``arch``, its optimizer, the port's train step
+    on ``axes`` and this rank's shards of the seed-0 parameters."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel.params import materialize_shards
+    from repro_torch.train.trainer import make_train_step
+    cfg = get_config(arch, smoke=True)
+    opt = make_optimizer(opt_name, 1e-3)
+    step_fn, decls, opt_decls = make_train_step(cfg, axes, opt,
+                                                device=device)
+    params = materialize_shards(decls, axes, 0, device)
+    return cfg, opt, step_fn, decls, opt_decls, params
+
+
+def _ckpt_run(cfg, axes, step_fn, params, state, start, stop):
+    """Steps ``[start, stop)`` on the rank's rows of the seeded token
+    batches; returns the state and the losses."""
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.train.trainer import local_rows
+    ds = LMDataset(cfg.vocab_size, CKPT_BATCH, CKPT_SEQ + 1, device="cpu")
+    losses = []
+    for s in range(start, stop):
+        params, state, m = step_fn(params, state, s,
+                                   local_rows(ds(s), axes))
+        losses.append(float(m["loss"]))
+    return params, state, losses
+
+
+def _barrier(axes):
+    axes.world_comm.unrecorded().all_reduce(torch.zeros(1))
+
+
+def checkpoint_body(axes, device, root):
+    """``tests/test_torch_checkpoint.py`` on a dp 2 x tp 4 mesh: the
+    reference's roundtrip, resume and corrupt-fallback cases, the saves
+    that the dp 1 x tp 4 ranks restore (``checkpoint_other_mesh_body``)
+    and Adafactor's per-rank moments restored on this mesh."""
+    from repro_torch.train.checkpoint import CheckpointManager
+    out = {}
+    cfg, opt, step_fn, decls, opt_decls, params = _ckpt_trainer(axes,
+                                                                device)
+    layout = dict(decls=decls, opt_decls=opt_decls)
+
+    # roundtrip of a state one step in (moments not zero), bitwise
+    p, o, _ = _ckpt_run(cfg, axes, step_fn, params, opt.init(params), 0, 1)
+    mgr = CheckpointManager(f"{root}/roundtrip", keep=2, axes=axes)
+    mgr.save(7, p, o, **layout)
+    st = mgr.restore(7, decls, opt_decls, axes, device)
+    out["roundtrip"] = {
+        "step": st.step, "io": mgr.io_stats(),
+        "equal": all(torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves({"p": p, "o": o}),
+            tree_leaves({"p": st.params, "o": st.opt_state}))),
+        "local": {"params": tree_map(_np, p), "opt": tree_map(_np, o)}}
+
+    # 4 steps straight == 2, checkpoint, restore, 2
+    params = _ckpt_trainer(axes, device)[5]
+    _, _, straight = _ckpt_run(cfg, axes, step_fn, params,
+                               opt.init(params), 0, 4)
+    params = _ckpt_trainer(axes, device)[5]
+    p, o, first = _ckpt_run(cfg, axes, step_fn, params, opt.init(params),
+                            0, 2)
+    mgr = CheckpointManager(f"{root}/resume", axes=axes)
+    mgr.save(2, p, o, **layout)
+    st = mgr.restore(2, decls, opt_decls, axes, device)
+    _, _, rest = _ckpt_run(cfg, axes, step_fn, st.params, st.opt_state, 2,
+                           4)
+    out["resume"] = {"straight": straight, "resumed": first + rest}
+
+    # corrupt the newer of two checkpoints: restore_latest falls back
+    mgr = CheckpointManager(f"{root}/corrupt", keep=5, axes=axes)
+    mgr.save(1, params, opt.init(params), **layout)
+    mgr.save(2, params, opt.init(params), **layout)
+    _barrier(axes)
+    if axes.rank == 0:
+        with open(f"{root}/corrupt/step_0000000002/leaf_00000.npy",
+                  "wb") as f:
+            f.write(b"garbage")
+    _barrier(axes)
+    st = mgr.restore_latest(decls, opt_decls, axes, device)
+    out["corrupt_fallback_step"] = None if st is None else st.step
+
+    # three steps, saved at 3 for the dp 1 x tp 4 ranks, then step 3 here
+    params = _ckpt_trainer(axes, device)[5]
+    p, o, _ = _ckpt_run(cfg, axes, step_fn, params, opt.init(params), 0, 3)
+    CheckpointManager(f"{root}/other", axes=axes).save(3, p, o, **layout)
+    out["other_mesh_step3"] = _ckpt_run(cfg, axes, step_fn, p, o, 3, 4)[2]
+
+    # Adafactor's moments saved per rank: this mesh restores them exactly
+    acfg, aopt, astep, adecls, aodecls, ap = _ckpt_trainer(
+        axes, device, opt_name="adafactor")
+    p, o, _ = _ckpt_run(acfg, axes, astep, ap, aopt.init(ap), 0, 1)
+    mgr = CheckpointManager(f"{root}/adafactor", axes=axes)
+    mgr.save(1, p, o, decls=adecls, opt_decls=aodecls,
+             per_rank=aopt.per_rank_state)
+    st = mgr.restore(1, adecls, aodecls, axes, device)
+    out["adafactor_same_mesh"] = all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(
+            tree_leaves(o), tree_leaves(st.opt_state)))
+    return out
+
+
+def checkpoint_other_mesh_body(axes, device, root):
+    """The dp 1 x tp 4 side: restore dp 2 x tp 4's step-3 checkpoint and
+    run step 3; restoring Adafactor's per-rank moments raises."""
+    from repro_torch.train.checkpoint import CheckpointManager
+    cfg, opt, step_fn, decls, opt_decls, _ = _ckpt_trainer(axes, device)
+    st = CheckpointManager(f"{root}/other", axes=axes).restore(
+        3, decls, opt_decls, axes, device)
+    out = {"step3": _ckpt_run(cfg, axes, step_fn, st.params, st.opt_state,
+                              3, 4)[2]}
+    _, _, _, adecls, aodecls, _ = _ckpt_trainer(axes, device,
+                                                opt_name="adafactor")
+    try:
+        CheckpointManager(f"{root}/adafactor", axes=axes).restore(
+            1, adecls, aodecls, axes, device)
+        out["adafactor_error"] = None
+    except ValueError as e:
+        out["adafactor_error"] = str(e)
+    return out
+
+
+def kill_restore_body(axes, device, job):
+    """``tests/test_torch_fault.py``'s end-to-end case on phi3-mini-smoke:
+    ``job["part"] == 1`` runs 4 steps straight and, from the same draw,
+    2 steps saved at step 2; part 2 (a new world, after the fault)
+    restores the latest checkpoint and runs steps 2 and 3."""
+    from repro_torch.train.checkpoint import CheckpointManager
+    cfg, opt, step_fn, decls, opt_decls, params = _ckpt_trainer(
+        axes, device, arch="phi3-mini-3.8b")
+    mgr = CheckpointManager(job["dir"], axes=axes)
+    if job["part"] == 1:
+        _, _, straight = _ckpt_run(cfg, axes, step_fn, params,
+                                   opt.init(params), 0, 4)
+        params = _ckpt_trainer(axes, device, arch="phi3-mini-3.8b")[5]
+        p, o, _ = _ckpt_run(cfg, axes, step_fn, params, opt.init(params),
+                            0, 2)
+        mgr.save(2, p, o, decls=decls, opt_decls=opt_decls)
+        return {"straight": straight}
+    st = mgr.restore_latest(decls, opt_decls, axes, device)
+    return {"step": st.step,
+            "resumed": _ckpt_run(cfg, axes, step_fn, st.params,
+                                 st.opt_state, st.step, 4)[2]}
+
+
+def _ffn_plan_step(case, axes):
+    from repro_torch.core.ffn import make_ffn_train_step
+    from repro_torch.optim import AdamW
+    from repro_torch.planner.space import PlanCandidate
+    plan = PlanCandidate(**case["plan"])
+    opt = AdamW(3e-3, weight_decay=0.0)
+    return (plan, opt) + make_ffn_train_step(plan.model_config(), axes, opt,
+                                             plan.batch)
+
+
+def _ffn_run(step_fn, params, state, ds, axes, start, stop):
+    from repro_torch.core.ffn import local_batch
+    losses = []
+    for s in range(start, stop):
+        x, y = ds(s)
+        params, state, loss = step_fn(params, state, s, local_batch(x, axes),
+                                      local_batch(y, axes))
+        losses.append(float(loss))
+    return params, state, losses
+
+
+def recovery_body(axes, device, cases):
+    """The recovery-equivalence oracle of
+    ``tests/test_elastic_hypothesis.py`` on this world: each case's mesh
+    built on it (``launch/mesh.py: make_local_mesh``).  Side ``"A"``:
+    the run straight to ``total`` and, from the same draw, to ``kill``,
+    saved there; side ``"B"``: the converted host tree placed on the
+    case's mesh and run from ``kill`` to ``total``.  ``"mixed"``: mixed
+    per-stage strategies killed and restored on the same mesh."""
+    from repro_torch.core.ffn import init_ffn
+    from repro_torch.data.synthetic import TeacherDataset
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.elastic import place_host_tree
+    out = {}
+    for name, case in cases.items():
+        mesh = make_local_mesh(case["dp"], case["tp"], case["pp"])
+        ds = TeacherDataset(case["width"], case["batch"], seed=case["seed"])
+        if case["side"] == "mixed":
+            from repro_torch.optim import AdamW
+            from repro_torch.core.ffn import make_ffn_train_step
+            cfg = port_pipeline_cfg("mixed", k=2, M=2, stages=2,
+                                    n=case["width"])
+            opt = AdamW(3e-3, weight_decay=0.0)
+            step_fn, decls, odecls = make_ffn_train_step(cfg, mesh, opt,
+                                                         case["batch"])
+            p, o = init_ffn(cfg, mesh, opt, seed=3, device=device)
+            _, _, ref = _ffn_run(step_fn, p, o, ds, mesh, 0, 6)
+            p, o = init_ffn(cfg, mesh, opt, seed=3, device=device)
+            p, o, _ = _ffn_run(step_fn, p, o, ds, mesh, 0, 3)
+            mgr = CheckpointManager(case["dir"], axes=mesh)
+            mgr.save(3, p, o, decls=decls, opt_decls=odecls)
+            st = mgr.restore(3, decls, odecls, mesh, device)
+            _, _, post = _ffn_run(step_fn, st.params, st.opt_state, ds,
+                                  mesh, 3, 6)
+            out[name] = {"ref": ref, "post": post}
+            continue
+        plan, opt, step_fn, decls, odecls = _ffn_plan_step(case, mesh)
+        if case["side"] == "A":
+            p, o = init_ffn(plan.model_config(), mesh, opt,
+                            seed=case["seed"], device=device)
+            _, _, ref = _ffn_run(step_fn, p, o, ds, mesh, 0, case["total"])
+            p, o = init_ffn(plan.model_config(), mesh, opt,
+                            seed=case["seed"], device=device)
+            p, o, pre = _ffn_run(step_fn, p, o, ds, mesh, 0, case["kill"])
+            CheckpointManager(case["dir"], axes=mesh).save(
+                case["kill"], p, o, meta={"plan": plan.as_dict()},
+                decls=decls, opt_decls=odecls)
+            out[name] = {"ref": ref, "pre": pre}
+        else:
+            p = place_host_tree(case["params"], decls, mesh, device)
+            o = place_host_tree(case["opt"], odecls, mesh, device)
+            out[name] = {"post": _ffn_run(step_fn, p, o, ds, mesh,
+                                          case["kill"], case["total"])[2]}
+    return out
+
+
+def slow_write_elastic_rank(axes, device, job):
+    """``train/elastic.py: _elastic_rank`` with every checkpoint write
+    slowed by 0.25 s: a save is still in flight when the phase ends."""
+    import time as _time
+    from repro_torch.train import elastic
+    from repro_torch.train.checkpoint import CheckpointManager
+    orig = CheckpointManager._write
+
+    def slow_write(self, step, host, meta):
+        _time.sleep(0.25)
+        orig(self, step, host, meta)
+
+    CheckpointManager._write = slow_write
+    return elastic._elastic_rank(axes, device, job)
