@@ -436,10 +436,32 @@ Phases (any failure exits non-zero):
    + replay + IO + restart, to ``ACCOUNT_TOL``), each phase's losses
    finite and falling; ``compile_s``, ``restore_s`` and ``replan_s``
    printed.
+21. plan (``phase_plan``): ``launch/plan.py: plan`` on the card at the
+   CLI's defaults (devices 8, width 1024, depth 2, batch 64, ks 4,8,16,
+   tensor_col and phantom, pilot tp 4, the paper's calibration) but
+   ``PLAN_PILOT_STEPS`` pilot steps and ``PLAN_TARGET``, the report under
+   ``build/``; the pilots (the plain torch core) run on the pool's 4
+   ranks.  Held: the schema, every pilot its budget with finite, falling
+   losses, a phantom curve, matched plans, a frontier and a winner;
+   printed: each pilot's nu, final loss and median step ms, the curve,
+   the comparison, the winner.  Then the winner's measured peak
+   (``hbm_readings``, of which ``measured_hbm_bytes`` is the largest
+   rank's peak: one train step on its ranks), held above 0 and below
+   80 GB, printed beside its estimate with each rank's breakdown.  Then
+   the winner applied to phi3-mini through ``launch/train.py:
+   train_config`` (``--plan``, then ``--kernel-backend auto``) at phase
+   9's cut on the winner's mesh: held, the applied mesh and projection
+   map, the four kernels at that path's per-rank shapes in bf16 against
+   their plain versions (timed, cold L2 too), step 1 kernels against
+   plain at ``LM_PARITY_LAYERS`` layers in float32 (phase 9's
+   tolerances), each kernel's launches as the layers imply (flash twice
+   a layer, each phantom site's forward twice, its dgrad and wgrad once:
+   the phantom default covers q/k/v/o and the MLP), the losses finite.
 
-Phases 9-16, 18 and 19, and 17's mesh of 4, run in one pool of 4 ranks
+Phases 9-16 and 18-21, and 17's mesh of 4, run in one pool of 4 ranks
 (``launch/mesh.py: RankPool``), started once, each phase's card memory
-freed before the next.  Each phase's wall seconds are printed on a line
+freed before the next (phase 20's worlds and phase 21's winner's mesh
+are ranks of their own beside it).  Each phase's wall seconds are printed on a line
 of their own.
 
 The line before the last is the kernel table as JSON (the phantom
@@ -458,7 +480,8 @@ and causal, under ``seamless_serve`` and ``seamless_tp4``; flash's and
 the phantom forward's shapes and launches on the serving mesh under
 ``serve_mesh``, and on the other families' under ``family_mesh``; the
 fleet's launches under ``fleet``, its shapes being rows 1, 1k and 2k's;
-the resumed step 2's launches of phase 9 under ``lm_tp4``); the last
+the resumed step 2's launches of phase 9 under ``lm_tp4``; the applied
+plan's launches under ``plan``); the last
 line is
 ``{"ok": true, "device": {...}}``.  Everything measured is also written
 to ``build/chip_smoke.json``.
@@ -6570,6 +6593,307 @@ def phase_elastic():
     return {"result": res.as_dict(), "losses": phase_losses, "wall_s": wall}
 
 
+# phase 21: the planner on the card.  The pilots at the plan CLI's
+# defaults (devices 8, width 1024, depth 2, batch 64, ks 4,8,16, pilot tp
+# 4, the paper's calibration) but PLAN_PILOT_STEPS steps, not 300, for the
+# script's time; PLAN_TARGET from a CPU run of the same pilots, which
+# crossed it at steps 22 (tensor_col) and 95 (phantom k 4, 8, 16).  The
+# winner is applied to phi3-mini at phase 9's cut (LM_TP_LAYERS layers,
+# batch LM_BATCH x seq LM_SEQ, bf16), LM_STEPS steps; step 1 at
+# LM_PARITY_LAYERS layers in float32, kernels against plain
+PLAN_PILOT_STEPS, PLAN_TARGET = 150, 0.21
+PLAN_REPORT = ROOT / "build" / "chip_smoke_plan.json"
+HBM_LIMIT = 80e9
+# the sites of a phi3-mini layer whose projections the applied map sets
+PLAN_SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
+              "ffn_down")
+
+
+def _plan_launches(cfg, layers):
+    """Each kernel's launches in one train step of ``layers`` layers of
+    ``cfg`` under full remat: flash and each phantom site's forward twice
+    (the forward and its recompute), each phantom site's dgrad and wgrad
+    once (rows 1b-4b's rule, at every site the map makes phantom)."""
+    from repro_torch.configs.base import PHANTOM_KINDS
+    n = sum(cfg.projection_spec(s).kind in PHANTOM_KINDS for s in PLAN_SITES)
+    return {"flash_attention": 2 * layers,
+            "phantom_fused_matmul": 2 * n * layers,
+            "matmul_nt": n * layers, "matmul_tn": n * layers}
+
+
+def _plan_shapes(cfg, plan):
+    """The kernels' per-rank shapes on phase 21's main path: flash's (B,
+    S, H, KV, hd) at the winner's dp and tp, and the phantom kernels'
+    distinct (M, K, N, PK) over the sites the applied map makes phantom
+    (PK = k * tp, the ghosts of the tp ranks side by side)."""
+    from repro_torch.configs.base import PHANTOM_KINDS
+    tp, B = plan.tp, LM_BATCH // plan.dp
+    hd = cfg.head_dim or cfg.d_model // cfg.num_heads
+    flash = (B, LM_SEQ, cfg.num_heads // tp, cfg.num_kv_heads // tp, hd)
+    d, q, kv, f = (n // tp for n in (cfg.d_model, cfg.num_heads * hd,
+                                     cfg.num_kv_heads * hd, cfg.d_ff))
+    sites = {"attn_q": (d, q), "attn_k": (d, kv), "attn_v": (d, kv),
+             "attn_o": (q, d), "ffn_gate": (d, f), "ffn_up": (d, f),
+             "ffn_down": (f, d)}
+    phantom = []
+    for site, (K, N) in sites.items():
+        spec = cfg.projection_spec(site)
+        shape = (B * LM_SEQ, K, N, spec.k * tp)
+        if spec.kind in PHANTOM_KINDS and shape not in phantom:
+            phantom.append(shape)
+    return flash, phantom
+
+
+def _plan_rank(axes, device, cfg, args):
+    """``phase_plan`` (c) inside one of the winner's ranks: step 1
+    kernels against plain at ``LM_PARITY_LAYERS`` layers in float32, then
+    the main path, ``launch/train.py``'s trainer at ``LM_TP_LAYERS``
+    layers in bf16 for ``LM_STEPS`` steps."""
+    from repro_torch.configs.base import with_kernel_backend
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim.schedules import warmup_cosine
+    from repro_torch.parallel.params import materialize_shards
+    from repro_torch.train.trainer import local_rows
+    out = {"rank": axes.rank}
+    cut = cfg.replace(num_layers=LM_PARITY_LAYERS, dtype="float32")
+    batch = local_rows(LMDataset(cut.vocab_size, args.batch, args.seq + 1,
+                                 device=device)(0), axes)
+    sched = warmup_cosine(3e-4, 20, LM_STEPS)
+    params = materialize_shards(model_decls(cut, axes), axes, SEED, device,
+                                draw_on=device)
+    res, launches = {}, {}
+    for name, backend in (("kernel", "auto"), ("plain", "xla")):
+        res[name], launches[name], eps = _tp_step1(
+            with_kernel_backend(cut, backend), axes, device, params, batch,
+            sched)
+    out["kernel_vs_plain"] = {part: _step1_diff(res, part, sched(0), eps)
+                              for part in ("loss", "grads", "params")}
+    out["kernel_vs_plain"]["launches"] = launches
+    out["kernel_vs_plain"]["loss_values"] = {
+        n: float(r["loss"]) for n, r in res.items()}
+    del params, res
+    _free()
+    out["main"] = _lm_tp_train(axes, device,
+                               cfg.replace(num_layers=LM_TP_LAYERS), args,
+                               LM_STEPS)
+    return out
+
+
+def _plan_pilots(pool, device):
+    """``launch/plan.py: plan`` at the CLI's defaults but
+    ``PLAN_PILOT_STEPS`` and ``PLAN_TARGET``, its pilots on ``device``
+    (``pool``'s ranks); returns the report and the pilots'
+    ``IsoLossResult``."""
+    from repro_torch.launch import plan as plan_cli
+    args = plan_cli.build_parser().parse_args(
+        ["--pilot-steps", str(PLAN_PILOT_STEPS), "--target-loss",
+         str(PLAN_TARGET), "--device", device, "--out", str(PLAN_REPORT)])
+    iso = plan_cli.pilots(args, pool=pool)
+    return plan_cli.plan(args, iso=iso), iso
+
+
+def phase_plan(pool=None, device="cuda"):
+    """Phase 21: the planner (``launch/plan.py``) on the card, then its
+    winner applied through ``launch/train.py: _apply_plan`` to
+    phi3-mini.  (a) The plan: the pilots on ``pool`` (4 ranks sharing
+    the card); held: the report's schema, every pilot its budget with
+    finite, falling losses, a phantom curve, matched plans, a frontier
+    and a winner.  (b) The winner's measured peak, the largest rank's
+    (``measured_hbm_bytes``, here from ``hbm_readings`` for each rank's
+    breakdown), held above 0 and below 80 GB, printed beside its
+    estimate.  (c) The winner applied with ``--kernel-backend auto`` on
+    its own mesh: held, the applied mesh and projection map are the
+    winner's, the four kernels at that path's per-rank shapes in bf16
+    match their plain versions (timed), step 1 through the kernels
+    matches plain torch (phase 9's tolerances), every kernel launched as
+    the layers imply, the losses finite."""
+    import statistics as st
+    import torch
+    from repro_torch.configs.base import (PHANTOM_KINDS, ProjectionMap,
+                                          ProjectionSpec)
+    from repro_torch.launch.mesh import RankPool
+    from repro_torch.launch.train import build_parser, train_config
+    from repro_torch.planner import (PLAN_SCHEMA, PlanCandidate,
+                                     hbm_readings, load_plan_report)
+    _free()
+    PLAN_REPORT.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    report, iso = _plan_pilots(pool, device)
+    plan_s = time.perf_counter() - t0
+    check(load_plan_report(str(PLAN_REPORT))["schema"] == PLAN_SCHEMA
+          == report["schema"], f"plan (a): schema {report['schema']}")
+    for p in iso.pilots:
+        check(p.steps_run == PLAN_PILOT_STEPS
+              and all(math.isfinite(v) for v in p.losses)
+              and p.losses[-1] < p.losses[0],
+              f"plan (a): pilot {p.name} ran {p.steps_run} of "
+              f"{PLAN_PILOT_STEPS} steps, losses not finite and falling: "
+              f"{p.losses[0]} -> {p.losses[-1]}")
+        print(f"plan (a): pilot {p.name}: nu {p.iters_to_target}, final "
+              f"loss {p.final_loss!r}, first {p.losses[0]!r}, median step "
+              f"{p.wall_us_median / 1e3:.3f} ms (rank 0, CUDA events)",
+              flush=True)
+    curve = report["iso_loss"]["curves"].get("phantom")
+    check(curve is not None, "plan (a): no phantom curve was fitted")
+    comp = report["comparison"]
+    check(comp["matched_plans"] > 0, f"plan (a): no matched plan: {comp}")
+    check(report["frontier"] and report["winner"],
+          f"plan (a): frontier {len(report['frontier'])}, winner "
+          f"{report['winner']}")
+    w = report["winner"]
+    wp = w["plan"]
+    print(f"plan (a): curve loss(k) = exp({curve['a']!r}) * "
+          f"k^{curve['b']!r} over k {curve['ks']}; comparison {comp}",
+          flush=True)
+    print(f"plan (a): frontier {[s['plan']['name'] for s in report['frontier']]}"
+          f"; winner {wp['name']} ({wp['devices']} devices, "
+          f"{w['energy_j_total']!r} J to target, step "
+          f"{w['step_time_s']!r} s); the plan took {plan_s:.1f} s",
+          flush=True)
+
+    spec = wp["projection_spec"]
+    plan = PlanCandidate(dp=wp["dp"], tp=wp["tp"], pp=wp["pp"],
+                         strategy=wp["strategy"], width=wp["width"],
+                         depth=wp["depth"], batch=wp["batch"], k=wp["k"],
+                         site=wp["site"], microbatches=wp["microbatches"],
+                         variant=spec["variant"])
+    world = plan.devices
+    own = (None if pool is not None and pool.world == world
+           else RankPool(plan.dp, plan.tp, device, pp=plan.pp,
+                         timeout_s=POOL_TIMEOUT_S))
+    ranks_pool = own or pool
+    try:
+        t1 = time.perf_counter()
+        readings = hbm_readings(plan, device, pool=ranks_pool)
+        hbm_s = time.perf_counter() - t1
+        hbm = None if readings is None else max(r["peak"] for r in readings)
+        check(hbm is not None and 0 < hbm < HBM_LIMIT,
+              f"plan (b): measured HBM {hbm} B of {wp['name']}")
+        print(f"plan (b): {wp['name']}: measured peak {hbm:,} B (the "
+              f"largest rank's max_memory_allocated over one train step, "
+              f"from what the rank held on entry), estimate "
+              f"{w['hbm_bytes_per_device']!r} B, ratio "
+              f"{hbm / w['hbm_bytes_per_device']:.3f}; each rank's bytes "
+              f"after one small matmul (library), after the draw of "
+              f"parameters and AdamW state (state), the step's peak and "
+              f"after it (retained): {readings}; {hbm_s:.1f} s", flush=True)
+
+        args = build_parser().parse_args(
+            ["--arch", LM_ARCH, "--full", "--kernel-backend", "auto",
+             "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--seed",
+             str(SEED), "--steps", str(LM_STEPS), "--dp", "2", "--tp", "4",
+             "--plan", str(PLAN_REPORT)])
+        cfg = train_config(args)
+        mesh = (args.dp, args.tp, args.pp)
+        check(mesh == (plan.dp, plan.tp, plan.pp),
+              f"plan (c): applied mesh {mesh}, winner's "
+              f"{(plan.dp, plan.tp, plan.pp)}")
+        want_spec = (ProjectionSpec(kind=spec["kind"], k=spec["k"],
+                                    variant=spec["variant"],
+                                    kernel_backend="auto")
+                     if spec["kind"] in PHANTOM_KINDS
+                     else ProjectionSpec(kind="tensor",
+                                         kernel_backend="auto"))
+        check(cfg.projections == ProjectionMap(default=want_spec),
+              f"plan (c): applied map {cfg.projections}, want "
+              f"{want_spec} as its default and nothing else")
+        flash_shape, phantom_shapes = _plan_shapes(cfg, plan)
+        kernels = _timed_kernels(
+            "plan (c)", torch.Generator(device="cuda").manual_seed(SEED),
+            (flash_shape,), phantom_shapes)
+        t1 = time.perf_counter()
+        ranks = ranks_pool.run(_plan_rank, plan.dp, plan.tp, (cfg, args),
+                               pp=plan.pp, timeout_s=900)
+        ranks_s = time.perf_counter() - t1
+    finally:
+        if own is not None:
+            own.close()
+    want_a = {"kernel": _plan_launches(cfg, LM_PARITY_LAYERS),
+              "plain": {k: 0 for k in _plan_launches(cfg, 0)}}
+    want = _plan_launches(cfg, LM_TP_LAYERS)
+    worst = {}
+    for r in ranks:
+        rk = r["rank"]
+        for part in ("loss", "grads", "params"):
+            diff = r["kernel_vs_plain"][part]
+            check(diff["outside"] == 0,
+                  f"plan (c) rank {rk}: step 1 {part} differ in "
+                  f"{diff['outside']} of {diff['elements']} elements: {diff}")
+            for k, v in diff.items():
+                worst.setdefault(part, {})[k] = max(
+                    worst.get(part, {}).get(k, 0), v)
+        check(r["kernel_vs_plain"]["grads"]["max_scaled_err"]
+              <= STEP1_TOL["rtol"],
+              f"plan (c) rank {rk}: gradients differ by more than 1e-4 of "
+              f"the largest: {r['kernel_vs_plain']['grads']}")
+        check(r["kernel_vs_plain"]["launches"] == want_a,
+              f"plan (c) rank {rk}: step-1 launches "
+              f"{r['kernel_vs_plain']['launches']}, want {want_a}")
+        check(r["main"]["launches_per_step"] == want,
+              f"plan (c) rank {rk}: launches per step "
+              f"{r['main']['launches_per_step']}, want {want}")
+        check(all(math.isfinite(v) for v in r["main"]["losses"]
+                  + r["main"]["grad_norms"]),
+              f"plan (c) rank {rk}: non-finite loss or gradient norm: "
+              f"{r['main']['losses']} {r['main']['grad_norms']}")
+    main = [r["main"] for r in ranks]
+    med = [st.median(m["step_ms"][1:]) for m in main]
+    print(f"plan (c): {cfg.name} under {wp['name']}'s map "
+          f"({want_spec.kind}, k {want_spec.k}) at dp {plan.dp} x tp "
+          f"{plan.tp} x pp {plan.pp}: step 1 at {LM_PARITY_LAYERS} layers, "
+          f"float32, kernels vs plain, worst over ranks (held to rtol 1e-4 "
+          f"/ atol 1e-5): loss {worst['loss']['max_abs_err']:.3e} (values "
+          f"{ranks[0]['kernel_vs_plain']['loss_values']}), grads "
+          f"{worst['grads']['max_abs_err']:.3e} "
+          f"({worst['grads']['max_scaled_err']:.3e} of the largest), "
+          f"params {worst['params']['max_abs_err']:.3e}", flush=True)
+    print(f"plan (c): main path, {LM_TP_LAYERS} layers, batch {LM_BATCH} x "
+          f"seq {LM_SEQ}, bf16, {LM_STEPS} steps: losses "
+          f"{[round(v, 4) for v in main[0]['losses']]}; per-rank step ms "
+          f"{[round(m, 2) for m in med]} (median of steps 2-{LM_STEPS}); "
+          f"launches per step per rank {main[0]['launches_per_step']} (held "
+          f"to {want}); wire bytes per step per rank "
+          f"{[round(m['wire_bytes_per_step']) for m in main]}; peak memory "
+          f"per rank (GB) {[round(m['peak_memory_gb'], 2) for m in main]}; "
+          f"the ranks took {ranks_s:.1f} s", flush=True)
+    return {"report": {k: report[k] for k in ("iso_loss", "comparison",
+                                               "winner", "counts")},
+            "frontier": [s["plan"]["name"] for s in report["frontier"]],
+            "pilots": [dict(p.as_dict(), losses=p.losses)
+                       for p in iso.pilots],
+            "plan_s": plan_s, "hbm": {"measured": hbm, "ranks": readings,
+                                      "estimate": w["hbm_bytes_per_device"]},
+            "mesh": list(mesh), "launches_per_step": main[0][
+                "launches_per_step"],
+            "step1_launches": {k: max(r["kernel_vs_plain"]["launches"][
+                "kernel"][k] for r in ranks) for k in want},
+            "flash_shape": flash_shape, "kernels": kernels,
+            "worst": worst, "median_step_ms": med,
+            "losses": main[0]["losses"], "ranks_s": ranks_s}
+
+
+def _plan_entry(plan, name):
+    """A kernel on phase 21's main path (the applied winner): its
+    launches per step and per rank, the most on a rank in its step-1
+    check, and its timed cases at that path's shapes."""
+    k = plan["kernels"]
+    if name == "flash_attention":
+        shapes = [{"shape": list(plan["flash_shape"]),
+                   **{key: r[key] for key in TIMED + ("cold_ms",)}}
+                  for r in k["flash"]]
+    else:
+        shapes = [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
+                   **{key: r[key] for key in TIMED},
+                   "cold_ms": k["cold"][str([r["M"], r["K"], r["N"],
+                                             r["PK"]])][name]["cold_ms"]}
+                  for r in k["cases"] if r["kernel"] == name]
+    return {"mesh": plan["mesh"],
+            "launches_per_step_per_rank": plan["launches_per_step"][name],
+            "step1_launches_per_rank": plan["step1_launches"][name],
+            "shapes": shapes}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -6617,7 +6941,8 @@ def main() -> int:
         serve_mesh = timed("serve_mesh", phase_serve_mesh, pool)
         family_mesh = timed("family_mesh", phase_family_mesh, pool)
         fleet = timed("fleet", phase_fleet, "cuda", None, pool)
-    elastic = timed("elastic", phase_elastic)
+        elastic = timed("elastic", phase_elastic)
+        plan = timed("plan", phase_plan, pool)
     print(f"phases: {time.perf_counter() - t_start:.1f} s wall in all",
           flush=True)
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
@@ -6724,7 +7049,8 @@ def main() -> int:
         "fleet": {"one_card_launches": fleet["one_card"]["runs"][0][
                       "launches"]["flash_attention"],
                   "tp4_launches_per_rank": fleet["mesh"]["runs"][0][
-                      "launches"]["flash_attention"]}}]
+                      "launches"]["flash_attention"]},
+        "plan": _plan_entry(plan, "flash_attention")}]
     lines = {"phantom_fused_matmul": 118, "matmul_nt": 206, "matmul_tn": 239}
     for name, line in lines.items():
         cases = [r for r in phantom["sweep"] if r["kernel"] == name]
@@ -6748,6 +7074,7 @@ def main() -> int:
                 **{key: pipe_r[key] for key in (
                     "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")}},
+            "plan": _plan_entry(plan, name),
             "lm_tp4": {
                 "launches_per_step_per_rank":
                     lm_tp["launches_per_step"][name],
@@ -6843,7 +7170,8 @@ def main() -> int:
          "lm_train_pp": lm_pp, "moe": moe, "ssm_fsdp": ssm,
          "hybrid": hybrid, "vlm": vlm, "encdec": encdec,
          "serve_mesh": serve_mesh, "family_mesh": family_mesh,
-         "fleet": fleet, "elastic": elastic, "phase_wall_s": walls,
+         "fleet": fleet, "elastic": elastic, "plan": plan,
+         "phase_wall_s": walls,
          "ledger": ledger,
          "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -318,6 +318,37 @@ class ShapeConfig:
     kind: str                        # train | prefill | decode
 
 
+SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,   32, "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode"),
+    "long_500k":   ShapeConfig("long_500k",  524_288,    1, "decode"),
+}
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    shape: ShapeConfig
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    grad_clip: float = 1.0
+    microbatches: int = 1            # gradient accumulation
+    seed: int = 0
+
+
+def applicable_shapes(cfg: ModelConfig) -> list:
+    """Which of the 4 assigned shapes apply to this architecture:
+    ``long_500k`` needs sub-quadratic attention, so only the SSM and
+    hybrid families run it."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if cfg.family in ("ssm", "hybrid"):
+        names.append("long_500k")
+    return names
+
+
 # the architectures of the port (``--arch``): every one of the reference's
 _MODULES = {
     "chatglm3-6b": "chatglm3_6b",

@@ -1,7 +1,7 @@
 """Train an LM of the dense, MoE, SSM or hybrid family, or run the
 elastic paper-FFN runtime (``--elastic``): the port's counterpart of the
-reference's ``python -m repro.launch.train`` (all but ``--plan``).  Like
-the reference's, the LM path feeds
+reference's ``python -m repro.launch.train``.  Like the reference's, the
+LM path feeds
 ``LMDataset`` batches of tokens and labels only, so it cannot train the
 vision-language and encoder-decoder families (qwen2-vl-72b needs M-RoPE
 ``positions``, seamless-m4t-large-v2 the encoder's ``frames``): for
@@ -71,8 +71,23 @@ code says whether it did.  The re-plan's static audit gate is off (its
 torch counterpart is ROADMAP.md queue 1, item 8 part 4), and the run
 says so.  The report and its ledger go under ``build/`` (a repo-root
 path raises: the reference's ``BENCH_report.json`` is there).
-``--plan`` (item 8 part 2), ``--slow-step`` and ``--profile-dir``
-(part 3) and ``--overlap`` (part 4) raise.
+
+``--plan PATH`` applies the winning plan of a plan report
+(``launch/plan.py``; ``--plan auto`` reads ``build/PLAN_report.json``,
+running a quick calibrated no-pilot planning pass over the ``--dp`` x
+``--tp`` device budget into it when there is none): the winner's
+projection spec becomes the config's default projection for every site,
+and the mesh becomes the winner's (dp, tp, pp), which ``--dp`` x
+``--tp`` x ``--pp`` must cover; ``--kernel-backend`` then applies on
+top:
+
+    PYTHONPATH=src python -m repro_torch.launch.plan --device cpu \\
+        --width 512 --ks 4,8 --pilot-steps 80 --target-loss 0.25
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
+        --device cpu --plan build/PLAN_report.json --tp 2 --steps 2
+
+``--slow-step`` and ``--profile-dir`` (item 8 part 3) and ``--overlap``
+(part 4) raise.
 """
 from __future__ import annotations
 
@@ -179,9 +194,12 @@ def build_parser():
                     help="the ledger report (default build/"
                          f"{DEFAULT_ELASTIC_REPORT}; the repo root "
                          "raises)")
+    ap.add_argument("--plan", default=None, metavar="auto|PATH",
+                    help="apply the winning plan of a plan report "
+                         "(auto: build/PLAN_report.json, planned without "
+                         "pilots when absent)")
     todo = ap.add_argument_group(f"not ported ({OPERATIONS_TODO}): "
                                  "these raise")
-    todo.add_argument("--plan", default=None)
     todo.add_argument("--slow-step", type=int, action="append",
                       default=None)
     todo.add_argument("--profile-dir", default=None)
@@ -192,8 +210,7 @@ def build_parser():
 def refuse_unported(args):
     """Raise for a flag of the reference's launcher whose part of
     ROADMAP.md queue 1 item 8 is not ported."""
-    for flag, part in (("plan", "part 2: the planner's report"),
-                       ("slow_step", "part 3: obs/ and the watchdog"),
+    for flag, part in (("slow_step", "part 3: obs/ and the watchdog"),
                        ("profile_dir", "part 3: obs/ and the watchdog"),
                        ("overlap", "part 4: the overlap of queue 2 "
                                    "item 8")):
@@ -203,10 +220,67 @@ def refuse_unported(args):
                 f"({OPERATIONS_TODO} {part})")
 
 
+def _apply_plan(args, cfg):
+    """Resolve ``--plan`` (auto | path) to a winner and apply it: returns
+    the config with the winner's projections and its (dp, tp, pp)."""
+    import repro_torch.launch.plan as plan_cli
+    from repro_torch.configs.base import (PHANTOM_KINDS, ProjectionMap,
+                                          ProjectionSpec)
+    from repro_torch.planner import load_plan_report
+
+    path = plan_cli.DEFAULT_OUT if args.plan == "auto" else args.plan
+    if os.path.exists(path):
+        report = load_plan_report(path)
+        print(f"[plan] loaded {path}")
+    elif args.plan == "auto":
+        pargs = plan_cli.build_parser().parse_args(
+            ["--devices", str(args.dp * args.tp), "--no-pilots",
+             "--out", path])
+        report = plan_cli.plan(pargs)
+        print("[plan] no report found: ran a no-pilot planning pass")
+    else:
+        raise FileNotFoundError(f"--plan {args.plan}: no such report")
+    winner = report.get("winner")
+    if not winner:
+        raise ValueError(f"{path}: empty frontier, no winning plan")
+    p = winner["plan"]
+    budget = args.dp * args.tp * max(args.pp, 1)
+    if p["devices"] > budget:
+        # training a smaller mesh than the winner's would train another
+        # configuration than the one just announced
+        raise ValueError(
+            f"winning plan {p['name']} needs {p['devices']} devices but "
+            f"--dp {args.dp} x --tp {args.tp} x --pp {args.pp} only "
+            f"provisioned {budget}; re-run with --dp/--tp/--pp covering "
+            f"the plan's mesh ({p['dp']}x{p['tp']}x{p.get('pp', 1)}pp)")
+    spec = p.get("projection_spec", {})
+    kind = spec.get("kind", p.get("strategy", "tensor"))
+    if kind in PHANTOM_KINDS:
+        default = ProjectionSpec(kind=kind, k=int(spec.get("k", 64)),
+                                 variant=spec.get("variant", "fused"))
+        applied = f"{kind} k={default.k}"
+    else:
+        # any tensor-family winner means "dense TP": the planner scored
+        # one square FFN site, while an architecture mixes input-side
+        # (column) and output-side (row) projections; the ``tensor``
+        # pseudo-kind resolves each site to its natural dense sharding
+        default = ProjectionSpec(kind="tensor")
+        applied = f"{kind} -> site-natural dense sharding"
+    cfg = cfg.replace(projections=ProjectionMap(default=default))
+    pp = int(p.get("pp", 1))
+    print(f"[plan] applying winner {p['name']}: projections default="
+          f"{applied}, mesh {p['dp']}x{p['tp']}"
+          + (f"x{pp}pp" if pp > 1 else ""))
+    return cfg, p["dp"], p["tp"], pp
+
+
 def train_config(args):
-    """The arch's config as the flags select it."""
+    """The arch's config as the flags select it; ``--plan`` also sets
+    ``args.dp``, ``args.tp`` and ``args.pp`` to the winner's mesh."""
     cfg = get_config(args.arch, smoke=args.smoke)
-    if args.impl == "dense":
+    if args.plan:
+        cfg, args.dp, args.tp, args.pp = _apply_plan(args, cfg)
+    elif args.impl == "dense":
         cfg = cfg.replace(projections=dense_projection_map())
     if args.kernel_backend:
         cfg = with_kernel_backend(cfg, args.kernel_backend)

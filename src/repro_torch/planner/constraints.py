@@ -4,14 +4,16 @@ reference's ``planner/constraints.py``.
 ``hbm_bytes_estimate`` is the analytic tier (parameters + AdamW moments
 + gradients + saved activations), cheap enough to filter the whole
 enumeration.  ``DEFAULT_HBM_BYTES`` is the H100's 80 GB (the
-reference's 16 GiB is a TPU v5e's).  The reference's second tier,
-``compiled_hbm_bytes``, reads the memory analysis of a lowered XLA
-program and has no counterpart here (ROADMAP.md, "nothing to port").
+reference's 16 GiB is a TPU v5e's).  The second tier,
+``measured_hbm_bytes``, takes the place of the reference's
+``compiled_hbm_bytes`` (the memory analysis of a lowered XLA program):
+the peak card memory of one real train step of the plan on its ranks;
+``hbm_readings`` breaks it down by rank.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 from repro_torch.planner.space import PlanCandidate
 
@@ -55,6 +57,74 @@ def hbm_bytes_estimate(plan: PlanCandidate) -> float:
     acts = (rows_local * feat_local * (plan.depth / pp + 2)
             * in_flight * FLOAT_BYTES)
     return state + acts
+
+
+def _hbm_rank(axes, device, plan: PlanCandidate) -> dict:
+    """A rank of ``hbm_readings``: one AdamW step of the plan's FFN from
+    its initial draw.  Card bytes allocated through PyTorch's allocator,
+    each counted from what the rank held on entry (a pool's rank may
+    still hold an earlier job's tensors): ``library`` after one small
+    matmul (cuBLAS's workspace, which the allocator holds), ``state``
+    after the parameters' and optimizer state's draw, ``peak`` the
+    step's largest, ``retained`` after it.  The batch (its values do not
+    matter here) is drawn on the host."""
+    import torch
+    from repro_torch.core.ffn import (init_ffn, local_batch,
+                                      make_ffn_train_step)
+    from repro_torch.optim import AdamW
+    torch.cuda.synchronize(device)
+    base = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
+
+    def held():
+        torch.cuda.synchronize(device)
+        return int(torch.cuda.memory_allocated(device)) - base
+    a = torch.ones(64, 64, device=device)
+    float((a @ a)[0, 0])
+    del a
+    out = {"library": held()}
+    cfg = plan.model_config()
+    opt = AdamW(3e-3, weight_decay=0.0)
+    step_fn, _, _ = make_ffn_train_step(cfg, axes, opt, plan.batch)
+    params, state = init_ffn(cfg, axes, opt, 0, device)
+    out["state"] = held()
+    x = torch.randn(plan.batch, plan.width,
+                    generator=torch.Generator().manual_seed(0))
+    x, y = (local_batch(t, axes).to(device) for t in (x, torch.relu(x)))
+    params, state, loss = step_fn(params, state, 0, x, y)
+    float(loss)
+    out["retained"] = held()
+    out["peak"] = int(torch.cuda.max_memory_allocated(device)) - base
+    return out
+
+
+def hbm_readings(plan: PlanCandidate, device=None,
+                 pool=None) -> Optional[List[dict]]:
+    """Each of ``plan``'s ``pp x dp x tp`` ranks' card bytes over one
+    train step of its FFN (``_hbm_rank``'s readings), on new ranks, or
+    on ``pool`` when it has that many, on ``device`` (the card unless the
+    caller asks for the CPU).  None on the CPU, which has no card memory
+    to measure."""
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.parallel.axes import resolve_device
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return None
+    pp = max(plan.pp, 1)
+    if pool is not None and pool.world == plan.devices:
+        return pool.run(_hbm_rank, plan.dp, plan.tp, (plan,), pp=pp)
+    return spawn(_hbm_rank, plan.dp, plan.tp, dev, args=(plan,), pp=pp)
+
+
+def measured_hbm_bytes(plan: PlanCandidate, device=None,
+                       pool=None) -> Optional[float]:
+    """The largest rank's peak card bytes over one train step of
+    ``plan``'s FFN (``hbm_readings``).  None on the CPU: the reference's
+    answer where XLA reports no memory analysis, and a None keeps the
+    plan."""
+    readings = hbm_readings(plan, device, pool)
+    return (None if readings is None
+            else float(max(r["peak"] for r in readings)))
 
 
 @dataclass

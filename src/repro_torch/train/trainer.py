@@ -28,11 +28,16 @@ straggler hook (``train/fault.py: note_step_time``) whose checkpoint-now
 decision rank 0 takes for every rank.  The energy-drift watchdog and the
 tracer and metric calls wait for ``obs/`` (ROADMAP.md queue 1, item 8
 part 3).
+
+``pilot_ffn_run`` is the planner's quality measurement
+(``planner/isoloss.py``): one rank's share of a small paper-FFN run on
+the Gaussian-teacher data, its loss trajectory and the first step at the
+target loss.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 import torch
 
@@ -365,3 +370,81 @@ class Trainer:
         self.meter.reset(warm=True)
         self._ledger_window += 1
         return entry
+
+
+# ---------------------------------------------------------------------------
+# pilot runs (the planner's iso-loss measurements)
+# ---------------------------------------------------------------------------
+
+@dataclass
+class PilotResult:
+    """One small training run the planner fits loss curves from."""
+    name: str
+    strategy: str                  # projection kind at the planned site
+    width: int
+    tp: int
+    k: int
+    steps_run: int
+    final_loss: float
+    losses: List[float]            # per-step loss trajectory
+    target_loss: Optional[float] = None
+    iters_to_target: Optional[int] = None   # None = censored (never hit)
+    wall_us_median: float = 0.0
+
+    def as_dict(self) -> dict:
+        return {"name": self.name, "strategy": self.strategy,
+                "width": self.width, "tp": self.tp, "k": self.k,
+                "steps_run": self.steps_run, "final_loss": self.final_loss,
+                "target_loss": self.target_loss,
+                "iters_to_target": self.iters_to_target,
+                "wall_us_median": self.wall_us_median}
+
+
+def pilot_ffn_run(cfg: ModelConfig, axes: MeshAxes, device, *, steps: int,
+                  batch: int, target_loss: Optional[float] = None,
+                  lr: float = 3e-3, seed: int = 0,
+                  stop_at_target: bool = False):
+    """One rank's pilot: train the paper FFN ``cfg`` on the
+    Gaussian-teacher data (AdamW at ``lr``, weight decay 0, weights and
+    teacher from ``seed``) and record the loss trajectory.
+
+    Runs ``steps`` iterations, recording the FIRST step whose global loss
+    is at or below ``target_loss`` (the measured ν the iso-loss frontier
+    prices plans with) while continuing to the full budget, so the final
+    loss is comparable across pilots (``stop_at_target=True`` stops
+    there, when only ν is wanted).  Every step is metered (``StepMeter``,
+    warm-up 1).  Returns ``(PilotResult, meter summary)``, the same on
+    every rank but the times; the caller records the ledger row."""
+    from repro_torch.core.ffn import (ffn_strategy, init_ffn, local_batch,
+                                      make_ffn_train_step)
+    from repro_torch.data.synthetic import TeacherDataset
+    from repro_torch.optim import AdamW
+
+    device = resolve_device(device)
+    st = ffn_strategy(cfg, axes.tp)
+    opt = AdamW(lr, weight_decay=0.0)
+    step_fn, _, _ = make_ffn_train_step(cfg, axes, opt, batch)
+    params, opt_state = init_ffn(cfg, axes, opt, seed, device)
+    ds = TeacherDataset(cfg.ffn_width, batch, seed, device)
+    meter = StepMeter(f"pilot_{cfg.name}", warmup=1, device=device)
+
+    losses: List[float] = []
+    iters_to_target = None
+    for s in range(steps):
+        x, y = ds(s)
+        params, opt_state, loss = meter.call(
+            step_fn, params, opt_state, s, local_batch(x, axes),
+            local_batch(y, axes))
+        losses.append(float(loss))
+        if target_loss is not None and iters_to_target is None \
+                and losses[-1] <= target_loss:
+            iters_to_target = s + 1
+            if stop_at_target:
+                break
+    res = PilotResult(
+        name=f"pilot_{cfg.name}", strategy=st.kind, width=cfg.ffn_width,
+        tp=axes.tp, k=getattr(st, "k", 0), steps_run=len(losses),
+        final_loss=losses[-1] if losses else float("nan"), losses=losses,
+        target_loss=target_loss, iters_to_target=iters_to_target,
+        wall_us_median=meter.median_us())
+    return res, meter.summary()

@@ -277,6 +277,8 @@ def test_cli_survives_a_loss_and_reaches_the_target(tmp_path):
     with pytest.raises(ValueError, match="repo root"):
         main(["--elastic", "--device", "cpu", "--report-out",
               str(root / "BENCH_report.json")])
-    for flag in ("--plan", "--slow-step", "--profile-dir", "--overlap"):
+    # --plan applies a plan report since it was ported
+    # (tests/test_torch_plan_cli.py)
+    for flag in ("--slow-step", "--profile-dir", "--overlap"):
         with pytest.raises(NotImplementedError, match="item 8"):
             main(["--elastic", flag, "1"])

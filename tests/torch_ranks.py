@@ -1156,3 +1156,33 @@ def slow_write_elastic_rank(axes, device, job):
 
     CheckpointManager._write = slow_write
     return elastic._elastic_rank(axes, device, job)
+
+
+def install_pilot_draws(axes, device, draws):
+    """Make this rank's later pilots (``train/trainer.py:
+    pilot_ffn_run``, jobs of the same ``RankPool``) start from the
+    reference's draws: ``core/ffn.py: init_ffn`` places
+    ``draws["params"][cfg.name]`` (global numpy trees) cut for the
+    rank's mesh, and ``data/synthetic.py: TeacherDataset`` serves
+    ``draws["batches"][step]`` (global numpy ``(x, y)``).  The patch
+    lasts as long as the rank's process."""
+    from repro_torch.core import ffn
+    from repro_torch.data import synthetic
+    from repro_torch.train.elastic import place_host_tree
+
+    def init_ffn(cfg, axes, optimizer, seed=0, device=None):
+        params = place_host_tree(draws["params"][cfg.name],
+                                 ffn.ffn_decls(cfg, axes), axes, device)
+        return params, optimizer.init(params)
+
+    class TeacherDataset:
+        def __init__(self, n, batch, seed=0, device=None):
+            self.device = device
+
+        def __call__(self, step):
+            return tuple(torch.from_numpy(a).to(self.device)
+                         for a in draws["batches"][step])
+
+    ffn.init_ffn = init_ffn
+    synthetic.TeacherDataset = TeacherDataset
+    return axes.rank
