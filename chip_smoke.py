@@ -59,7 +59,14 @@ Phases (any failure exits non-zero):
    weights and the first group, the kernel path against the plain
    blockwise core (rtol/atol 5e-2): layer by layer in bf16 from the same
    inputs, and end to end in float32 activations (``_compare_cores``
-   says why the bf16 end-to-end difference is printed, not held).
+   says why the bf16 end-to-end difference is printed, not held).  The
+   main path runs under the port's tracer and a fresh metrics registry
+   (``obs/``): held, a ``serve/prefill`` span a prefill group and a
+   ``serve/decode`` span a decode step, ``serve_prefill_tokens_total``
+   the prompts' tokens, ``serve_decode_tokens_total`` the served tokens
+   less the exact-length prompts' first tokens, a ``serve_ttft_ms``
+   observation a request the SLO reports count and a ``serve_tpot_ms``
+   one a request of more than one token (``_serve_obs_held``).
 5. train: 8 ranks spawned once on the one card (gloo, card tensors
    through the host: collective times are not NCCL's), each running
    ``_train_rank``: paper-ffn-16k phantom on dp=1, tp=8, batch 64, AdamW
@@ -164,9 +171,19 @@ Phases (any failure exits non-zero):
    write and read seconds printed, the checkpoint removed after; then
    one more step with its collectives timed
    (``record_collectives(timed=True)``), rank 0's under
-   ``torch.profiler``; (d) phantom (``fp``) and dense (``sp``) at
-   ``LM_TP_COMPARE`` (4 layers, 2 steps each): step times and wire
-   bytes per rank side by side.
+   ``torch.profiler``.  (c) is a pool job of its own under the port's
+   tracer (``_lm_tp_main``): each rank traces on the parent's origin and
+   the spans merge under pid = rank (``LM_TRACE``); ``--profile-dir``'s
+   energy-drift watchdog predicts ``LM_WATCHDOG_S`` a step, so rank 0's
+   first step trips it by construction and every rank captures step 2
+   with ``torch.profiler``.  Held (``_lm_tp_obs_held``): each pid's
+   ``train/run``, ``train/step``, ``ckpt/save`` and ``ckpt/restore``
+   spans, the one trip on rank 0, rank 0's capture listing
+   ``flash_mma_kernel`` 8, ``splitk_kernel`` 36 and ``tn_kernel`` 12
+   (a step's launches), ``train_steps_total`` rank 0's and
+   ``ckpt_bytes_total`` over the ranks the checkpoint's bytes; (d)
+   phantom (``fp``) and dense (``sp``) at ``LM_TP_COMPARE`` (4 layers,
+   2 steps each): step times and wire bytes per rank side by side.
 
 10. qwen2.5-14b at tp = 4 (``phase_qwen_train_tp``): ring attention
    (``attn_shard="ring"``) and phantom MLP sites (k = 16).  First, in the
@@ -435,7 +452,12 @@ Phases (any failure exits non-zero):
    parameters and AdamW moments, the account's identity (total = useful
    + replay + IO + restart, to ``ACCOUNT_TOL``), each phase's losses
    finite and falling; ``compile_s``, ``restore_s`` and ``replan_s``
-   printed.
+   printed.  Traced, with the energy-drift watchdog (spike at 8x) and
+   one slow step before the loss (``ELASTIC_SLOW_STEP``, 24x the
+   self-baseline): held, exactly one trip, a spike at that step, its
+   anomaly row and rank 0's capture of the next step, and ``python -m
+   repro_torch.launch.obs verify-recovery`` on the run's trace and
+   report (``_elastic_obs_held``).
 21. plan (``phase_plan``): ``launch/plan.py: plan`` on the card at the
    CLI's defaults (devices 8, width 1024, depth 2, batch 64, ks 4,8,16,
    tensor_col and phantom, pilot tp 4, the paper's calibration) but
@@ -457,6 +479,11 @@ Phases (any failure exits non-zero):
    tolerances), each kernel's launches as the layers imply (flash twice
    a layer, each phantom site's forward twice, its dgrad and wgrad once:
    the phantom default covers q/k/v/o and the MLP), the losses finite.
+   The plan runs under ``launch/obs.py: obs_session`` with
+   ``--trace-out`` / ``--metrics-out``: held, pid 0's ``plan/calibrate``,
+   ``plan/enumerate`` and ``plan/pilots`` spans and a ``plan/pilot`` span
+   a pilot on every rank's pid, ``plan_pilot_steps_total`` the pilots'
+   steps (``_plan_obs_held``).
 
 Phases 9-16 and 18-21, and 17's mesh of 4, run in one pool of 4 ranks
 (``launch/mesh.py: RankPool``), started once, each phase's card memory
@@ -586,6 +613,12 @@ LM_TP_LAYERS = 4
 # and flash's (B, S, H, KV, hd) at H / tp local heads
 LM_CKPT_DIR = ROOT / "build" / "chip_smoke_ckpt"   # phase 9's checkpoint
 LM_CKPT_REL_TOL = 1e-6       # the resumed step 2, where not bit for bit
+# phase 9's watchdog: a prediction of 1 ms a step, far below any step of
+# the main path (seconds), trips it at step 1 by construction; every rank
+# captures step 2 under LM_PROFILE_DIR, and the trace goes to LM_TRACE
+LM_WATCHDOG_S = 1e-3
+LM_PROFILE_DIR = ROOT / "build" / "chip_smoke_profile"
+LM_TRACE = ROOT / "build" / "chip_smoke_lm_tp_trace.json"
 LM_TP_PHANTOM_SHAPES = ((2048, 768, 2048, 48), (2048, 2048, 768, 48))
 LM_TP_FLASH_SHAPE = (4, 512, 8, 8, 96)
 # phase 10: qwen2.5-14b on LM_TP ranks at full width and QWEN_LAYERS of its
@@ -795,6 +828,43 @@ class SmokeFailure(RuntimeError):
 def check(ok, msg):
     if not ok:
         raise SmokeFailure(msg)
+
+
+@contextlib.contextmanager
+def observed(meta=None):
+    """The port's tracer and a fresh metrics registry for the block
+    (``obs/``; what ``launch/obs.py: obs_session`` installs, kept in
+    memory): the ranks that a pool job starts inside it trace on its
+    origin, and their spans merge into it (``obs/ranks.py``)."""
+    from repro_torch.obs import (MetricsRegistry, Tracer, set_metrics,
+                                 use_tracer)
+    tracer, reg = Tracer(meta=meta), MetricsRegistry()
+    prev = set_metrics(reg)
+    try:
+        with use_tracer(tracer):
+            yield tracer, reg
+    finally:
+        set_metrics(prev)
+
+
+def span_counts(doc, pid=None, ph="X"):
+    """How many spans (``ph="i"``: instants) of each name a trace
+    document holds, on ``pid`` or on every pid."""
+    from collections import Counter
+    return Counter(e["name"] for e in doc["traceEvents"] if e["ph"] == ph
+                   and (pid is None or e["pid"] == pid))
+
+
+def span_cost_us(n=20000):
+    """Host microseconds of one ``Tracer.span`` enter and exit (an
+    enabled tracer; the disabled one hands out a shared no-op span)."""
+    from repro_torch.obs import Tracer
+    tracer = Tracer()
+    t0 = time.perf_counter()
+    for i in range(n):
+        with tracer.span("x", cat="y", step=i):
+            pass
+    return (time.perf_counter() - t0) / n * 1e6
 
 
 def time_ms(fn, reps=20, trials=5):
@@ -1077,16 +1147,21 @@ def phase_serve():
     torch.cuda.reset_peak_memory_stats()
     start_gb = torch.cuda.memory_allocated() / 1e9
     groups0 = eng.prefill_meter.calls
-    flash_attention.launches = 0
-    eng.run(closed)
-    rep_closed = slo_report(closed)
-    for r in mixed:
-        r.arrival_s = eng.now_s
-    eng.run(mixed)
-    launches = flash_attention.launches
+    decodes0 = eng.decode_meter.calls
+    with observed({"run": "chip_smoke.serve"}) as (tracer, reg):
+        flash_attention.launches = 0
+        eng.run(closed)
+        rep_closed = slo_report(closed)
+        for r in mixed:
+            r.arrival_s = eng.now_s
+        eng.run(mixed)
+        launches = flash_attention.launches
+        rep_mixed = slo_report(mixed)
     groups = eng.prefill_meter.calls - groups0
+    decodes = eng.decode_meter.calls - decodes0
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rep_mixed = slo_report(mixed)
+    obs = _serve_obs_held(tracer, reg, closed + mixed, groups, decodes,
+                          rep_closed["requests"] + rep_mixed["requests"])
 
     for r in closed + mixed:
         check(r.done and len(r.out_tokens) == NEW_TOKENS,
@@ -1117,11 +1192,47 @@ def phase_serve():
     logit_errs = _compare_cores(cfg, axes, eng.params, toks)
     return {"launches": launches, "prefill_groups": groups,
             "weights_gb": weights_gb, "start_memory_gb": start_gb,
-            "peak_memory_gb": peak_gb,
+            "peak_memory_gb": peak_gb, "obs": obs,
             "closed": rep_closed, "mixed": rep_mixed,
             "logits_max_abs_err": logit_errs, "decode_profile": profile,
             "prefill_meter": eng.prefill_meter.summary(),
             "decode_meter": eng.decode_meter.summary()}
+
+
+def _serve_obs_held(tracer, reg, requests, groups, decodes, reported):
+    """Hold the serving main path's trace and metrics (``obs/``): a
+    ``serve/prefill`` span a prefill group and a ``serve/decode`` span a
+    decode step; the prefilled tokens the prompts', the decode tokens
+    those served less the first tokens of exact-length prompts (their
+    prefill samples them); a TTFT observation a request the SLO reports
+    counted, a TPOT one a request of more than one token.  Prints and
+    returns the counts, the spans a decode step and a span's host
+    cost."""
+    from repro_torch.serve.scheduler import bucket_of
+    doc = tracer.to_chrome()
+    spans = span_counts(doc)
+    exact = sum(len(r.prompt) == bucket_of(len(r.prompt), PAGE)
+                for r in requests)
+    want = {"serve/prefill": groups, "serve/decode": decodes,
+            "serve_prefill_tokens_total": sum(len(r.prompt)
+                                              for r in requests),
+            "serve_decode_tokens_total": sum(len(r.out_tokens)
+                                             for r in requests) - exact,
+            "serve_ttft_ms": reported,
+            "serve_tpot_ms": sum(len(r.out_tokens) > 1 for r in requests)}
+    got = {"serve/prefill": spans["serve/prefill"],
+           "serve/decode": spans["serve/decode"],
+           **{k: int(reg.counter(k).value()) for k in (
+               "serve_prefill_tokens_total", "serve_decode_tokens_total")},
+           **{k: reg.histogram(k).count() for k in ("serve_ttft_ms",
+                                                    "serve_tpot_ms")}}
+    check(got == want, f"serve: spans and metrics {got}, want {want}")
+    out = {"counts": got, "spans": sum(spans.values()),
+           "span_cost_us": span_cost_us()}
+    print(f"serve: obs spans and metrics {got} (held); "
+          f"{out['spans']} spans over the main path, a span's host cost "
+          f"{out['span_cost_us']:.2f} us", flush=True)
+    return out
 
 
 def _profile_decode(eng, cfg, steps=4):
@@ -2705,7 +2816,7 @@ def _lm_tp_profile(trainer, state, axes):
 
 
 def _lm_tp_train(axes, device, cfg, args, steps, profile=False,
-                 dataset=None):
+                 dataset=None, watchdog_s=None):
     """``launch/train.py``'s trainer on this rank for ``steps`` steps (on
     ``dataset``'s batches where given, else the launcher's), kernel
     counts from 0 just before the run and read just after, the
@@ -2714,12 +2825,18 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False,
     memory; ``profile`` adds one step of ``_lm_tp_profile`` after the
     run.  With ``--ckpt-dir`` in ``args`` the trainer also saves step 1
     (``_lm_ckpt_save``) and, after the run, a fresh trainer restores it
-    and reruns step 2 (``_lm_ckpt_resume``)."""
+    and reruns step 2 (``_lm_ckpt_resume``).  With ``--profile-dir`` the
+    trainer's watchdog (``launch/train.py: make_trainer``) predicts
+    ``watchdog_s`` a step; its summary and its capture's kernels
+    (``_capture_kernels``) come back."""
     import torch
     from repro_torch.launch.train import make_trainer
     from repro_torch.parallel.axes import record_collectives
     from repro_torch.telemetry.counted import collective_costs
     trainer = make_trainer(axes, device, cfg, args, dataset=dataset)
+    wd = trainer.watchdog
+    if wd is not None:
+        wd.predicted_s = watchdog_s
     torch.cuda.reset_peak_memory_stats()
     state = trainer.init_state(args.seed)
     ckpt = None
@@ -2748,6 +2865,11 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False,
     free, total = torch.cuda.mem_get_info()
     out.update(peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
                card_used_gb=(total - free) / 1e9)
+    if wd is not None:
+        out["watchdog"] = wd.summary()
+        if wd.captures:
+            out["capture"] = _capture_kernels(
+                Path(wd.captures[-1]) / f"rank{axes.rank}.json")
     if ckpt is not None:
         out["checkpoint"] = _lm_ckpt_resume(axes, device, cfg, args,
                                             trainer, state, ckpt)
@@ -2756,6 +2878,24 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False,
     del trainer, state
     _free()
     return out
+
+
+CAPTURED_KERNELS = {"flash_attention": "flash_mma_kernel",
+                    "splitk": "splitk_kernel", "matmul_tn": "tn_kernel"}
+
+
+def _capture_kernels(path):
+    """A watchdog capture's CUDA kernels (``torch.profiler``'s Chrome
+    trace, ``cat`` "kernel"), counted by their CUDA names; the file's
+    bytes and events."""
+    doc = json.loads(Path(path).read_text())
+    names = [e.get("name", "") for e in doc.get("traceEvents", [])
+             if e.get("cat") == "kernel"]
+    return {"kernels": {k: sum(cuda in n for n in names)
+                        for k, cuda in CAPTURED_KERNELS.items()},
+            "kernel_events": len(names),
+            "events": len(doc.get("traceEvents", [])),
+            "bytes": Path(path).stat().st_size}
 
 
 def _lm_ckpt_save(trainer, state):
@@ -2826,10 +2966,8 @@ def _lm_tp_rank(axes, device):
     the card: (a) step 1 kernels against plain at tp = 4, phantom, fp32,
     ``LM_PARITY_LAYERS`` layers; (b) dense (``sp``) at tp = 4 against
     tp = 1 from the same seed, each rank holding its shard of the tp = 1
-    run; (c) phantom at ``LM_TP_LAYERS`` layers, bf16, ``LM_STEPS`` steps,
-    the main
-    path; (d) phantom and dense at ``LM_TP_COMPARE[0]`` layers,
-    ``LM_TP_COMPARE[1]`` steps each."""
+    run.  (c), the main path, is the job ``_lm_tp_main``, traced; (d) the
+    job ``_lm_tp_compare``."""
     from repro_torch.configs.base import (dense_projection_map,
                                           with_kernel_backend)
     from repro_torch.data.synthetic import LMDataset
@@ -2887,23 +3025,38 @@ def _lm_tp_rank(axes, device):
         n: float(r["loss"]) for n, r in res.items()}
     del res
     _free()
+    return out
 
-    # (c) the slice: phantom phi3-mini at LM_TP_LAYERS layers, bf16,
-    # checkpointed after step 1 and resumed by a fresh trainer -----------
-    out["main"] = _lm_tp_train(
-        axes, device, base,
-        _lm_args(["--steps", str(LM_STEPS), "--ckpt-dir", str(LM_CKPT_DIR)]),
-        LM_STEPS, profile=True)
 
-    # (d) phantom against tensor in the transformer ---------------------
+def _lm_tp_main(axes, device):
+    """(c) of ``phase_lm_train_tp``, the slice: phantom phi3-mini at
+    ``LM_TP_LAYERS`` layers, bf16, ``LM_STEPS`` steps, checkpointed after
+    step 1 and resumed by a fresh trainer, with ``--profile-dir``'s
+    watchdog predicting ``LM_WATCHDOG_S`` a step: far below any step, so
+    rank 0's first step trips it by construction and every rank captures
+    step 2 with ``torch.profiler``."""
+    from repro_torch.launch.train import train_config
+    args = _lm_args(["--steps", str(LM_STEPS), "--ckpt-dir",
+                     str(LM_CKPT_DIR), "--profile-dir",
+                     str(LM_PROFILE_DIR)])
+    base = train_config(args).replace(num_layers=LM_TP_LAYERS)
+    return {"rank": axes.rank,
+            "main": _lm_tp_train(axes, device, base, args, LM_STEPS,
+                                 profile=True, watchdog_s=LM_WATCHDOG_S)}
+
+
+def _lm_tp_compare(axes, device):
+    """(d) of ``phase_lm_train_tp``: phantom against tensor in the
+    transformer, ``LM_TP_COMPARE``'s layers and steps each."""
+    from repro_torch.launch.train import train_config
     layers, steps = LM_TP_COMPARE
-    out["compare"] = {}
+    out = {}
     for impl in ("phantom", "dense"):
         a = _lm_args(["--steps", str(steps), "--impl", impl])
-        out["compare"][impl] = _lm_tp_train(
+        out[impl] = _lm_tp_train(
             axes, device, train_config(a).replace(num_layers=layers), a,
             steps)
-    return out
+    return {"rank": axes.rank, "compare": out}
 
 
 def _lm_tp_kernels(gen):
@@ -2977,7 +3130,7 @@ def phase_lm_train_tp(pool=None):
     import statistics as st
     import torch
     import shutil
-    from repro_torch.launch.mesh import backend_for
+    from repro_torch.launch.mesh import RankPool, backend_for
     from repro_torch.launch.train import train_config
     _free()
     shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
@@ -2985,8 +3138,26 @@ def phase_lm_train_tp(pool=None):
         SEED))
     print(f"lm_train_tp: {LM_TP} ranks on {torch.cuda.device_count()} "
           f"card(s); backend {backend_for('cuda', LM_TP)}", flush=True)
+    shutil.rmtree(LM_PROFILE_DIR, ignore_errors=True)
+    own = None if pool is not None else RankPool(
+        1, LM_TP, "cuda", timeout_s=POOL_TIMEOUT_S)
+    pool = pool or own
     t0 = time.perf_counter()
-    ranks = _run_ranks(pool, _lm_tp_rank, 1, LM_TP)
+    try:
+        ranks = pool.run(_lm_tp_rank, 1, LM_TP, timeout_s=900)
+        with observed({"run": "chip_smoke.lm_train_tp"}) as (tracer, reg):
+            t1 = time.perf_counter()
+            for r, m in zip(ranks, pool.run(_lm_tp_main, 1, LM_TP,
+                                            timeout_s=900)):
+                r.update(main=m["main"])
+            main_s = time.perf_counter() - t1
+        rank_metrics = pool.rank_metrics
+        for r, c in zip(ranks, pool.run(_lm_tp_compare, 1, LM_TP,
+                                        timeout_s=900)):
+            r.update(compare=c["compare"])
+    finally:
+        if own is not None:
+            own.close()
     wall = time.perf_counter() - t0
     cfg = train_config(_lm_args([])).replace(num_layers=LM_TP_LAYERS)
     worst = _lm_tp_held(ranks, LM_PARITY_LAYERS)
@@ -3020,6 +3191,8 @@ def phase_lm_train_tp(pool=None):
               f"{r['main']['launches_per_step']}, want {want} (forward and "
               f"recompute of {L} layers; the phantom forward at 3 sites)")
     ckpt = _lm_ckpt_held(ranks, launches)
+    obs = _lm_tp_obs_held(tracer, reg, rank_metrics, ranks, want, ckpt,
+                          main_s)
     print(f"lm_train_tp: (c) {cfg.name} phantom, tp={LM_TP}, layers={L}, "
           f"batch {LM_BATCH} x seq {LM_SEQ}, bf16, "
           f"remat={cfg.remat}: losses {[round(v, 4) for v in main[0]['losses']]}"
@@ -3068,7 +3241,84 @@ def phase_lm_train_tp(pool=None):
     return {"kernels": kernels, "ranks": ranks, "worst": worst,
             "median_step_ms": med, "tokens_per_s": tokens / max(med) * 1e3,
             "launches_per_step": launches, "compare": compare,
-            "checkpoint": ckpt, "wall_s": wall}
+            "checkpoint": ckpt, "obs": obs, "wall_s": wall}
+
+
+def _lm_tp_obs_held(tracer, reg, rank_metrics, ranks, launches, ckpt,
+                    main_s):
+    """Hold (c)'s merged trace and metrics (``obs/``): the ranks' spans
+    under pids 0 to ``LM_TP`` - 1, each with the main path's
+    ``train/run`` spans (the first step, the rest, the resumed step, the
+    profiled step) and a ``train/step`` span a step, one ``ckpt/save``
+    and one ``ckpt/restore``; rank 0's one watchdog trip at step 1 (a
+    ``watchdog/spike`` instant on pid 0 alone) and every rank's capture
+    of step 2, whose kernels, counted by their CUDA names in rank 0's
+    ``torch.profiler`` trace, are a main-path step's launches (flash 2,
+    ``splitk_kernel`` 9 and ``tn_kernel`` 3 a layer); the exported
+    metrics rank 0's (``train_steps_total`` a step, not ``LM_TP``), and
+    ``ckpt_bytes_total`` summed over the ranks the checkpoint's bytes.
+    Writes the trace to ``LM_TRACE``; returns the counts, the spans a
+    step, a span's host cost and the capture's size and cost."""
+    from repro_torch.obs import MetricsRegistry
+    tracer.write(str(LM_TRACE))
+    doc = tracer.to_chrome()
+    runs, steps = 4, LM_STEPS + 2
+    want = {"train/run": runs, "train/step": steps, "ckpt/save": 1,
+            "ckpt/restore": 1}
+    for pid in range(LM_TP):
+        got = {k: span_counts(doc, pid)[k] for k in want}
+        check(got == want, f"lm_train_tp: rank {pid}'s spans {got}, "
+                           f"want {want}")
+    spikes = [e["pid"] for e in doc["traceEvents"]
+              if e["name"] == "watchdog/spike"]
+    check(spikes == [0], f"lm_train_tp: watchdog spikes on pids {spikes}, "
+                         f"want one on rank 0")
+    wd = [r["main"]["watchdog"] for r in ranks]
+    check([[t["step"] for t in w["trips"]] for w in wd]
+          == [[0]] + [[]] * (LM_TP - 1),
+          f"lm_train_tp: watchdog trips {[w['trips'] for w in wd]}, want "
+          f"rank 0's at step 1 (index 0) alone")
+    caps = [r["main"].get("capture") for r in ranks]
+    check(caps[0] is not None, "lm_train_tp: rank 0 captured no step")
+    want_k = {"flash_attention": launches["flash_attention"],
+              "splitk": launches["phantom_fused_matmul"]
+              + launches["matmul_nt"],
+              "matmul_tn": launches["matmul_tn"]}
+    check(caps[0]["kernels"] == want_k,
+          f"lm_train_tp: rank 0's capture holds kernels "
+          f"{caps[0]['kernels']}, a step launches {want_k}")
+    n_steps = reg.counter("train_steps_total").value(suite="trainer")
+    check(n_steps == steps, f"lm_train_tp: train_steps_total {n_steps}, "
+                            f"want rank 0's {steps} steps")
+    summed = sum(MetricsRegistry().absorb(d).counter(
+        "ckpt_bytes_total").value() for d in rank_metrics)
+    check(summed == ckpt["bytes_written"],
+          f"lm_train_tp: ckpt_bytes_total over the ranks {summed}, the "
+          f"checkpoint {ckpt['bytes_written']}")
+    step_us = [e["dur"] for e in doc["traceEvents"]
+               if e["ph"] == "X" and e["name"] == "train/step"
+               and e["pid"] == 0]
+    out = {"spans_per_pid": {pid: sum(span_counts(doc, pid).values())
+                             for pid in range(LM_TP)},
+           "spans_per_step_per_rank": sum(
+               span_counts(doc, 0).values()) / steps,
+           "span_cost_us": span_cost_us(),
+           "trace_bytes": LM_TRACE.stat().st_size,
+           "train_step_us_rank0": step_us, "captures": caps, "main_s": main_s,
+           "ckpt_bytes_total": summed}
+    print(f"lm_train_tp: (c) traced: spans per rank "
+          f"{out['spans_per_pid']} over {steps} steps (held: train/run "
+          f"{runs}, train/step {steps}, ckpt/save 1, ckpt/restore 1 a "
+          f"rank), a span's host cost {out['span_cost_us']:.2f} us; rank "
+          f"0's watchdog trip at step 1 (held); rank 0's capture of step "
+          f"2: kernels {caps[0]['kernels']} (held to a step's launches), "
+          f"{caps[0]['kernel_events']} kernel events, "
+          f"{caps[0]['bytes']:,} B; captures on the ranks "
+          f"{[c is not None for c in caps]}; rank 0's train/step us "
+          f"{[round(v) for v in step_us]} (step 2 captured); "
+          f"ckpt_bytes_total over the ranks {int(summed):,} (held); trace "
+          f"{out['trace_bytes']:,} B -> {LM_TRACE}", flush=True)
+    return out
 
 
 def _lm_ckpt_held(ranks, launches):
@@ -6506,6 +6756,16 @@ ELASTIC_PLANS = ["tensor_col_n4096_mesh1x8", "phantom_n4096_mesh1x2_k4"]
 ELASTIC_RECOVERY = {"detect_step": 14, "restored_step": 10,
                     "replayed_steps": 4, "distilled": True,
                     "from_scratch": False}
+# the watchdog's slow step: step 11 (index; before the loss, replayed
+# after it) sleeps ELASTIC_SLOW_FACTOR - 1 times the self-baseline (the
+# median of steps 1-5) inside its metered window; a spike at 8x (not the
+# default 3x: the shared host's step times vary by more than 3x, as the
+# straggler detector's 4x showed) trips on it alone, and the 20
+# observations' cooldown after it cover the rest of the run, the
+# replayed slow step and the re-planned plan's other step time included
+ELASTIC_SLOW_STEP, ELASTIC_SLOW_FACTOR, ELASTIC_SPIKE = 11, 24.0, 8.0
+ELASTIC_TRACE = ROOT / "build" / "chip_smoke_elastic_trace.json"
+ELASTIC_REPORT = ROOT / "build" / "chip_smoke_elastic_report.json"
 ACCOUNT_TOL = 1e-9
 POOL_TIMEOUT_S = 1800.0      # the 4-rank pool's collective timeout
 
@@ -6515,23 +6775,40 @@ def phase_elastic():
     (``ELASTIC``): tensor_col on 8 ranks, host3 lost at step 12,
     re-planned over the 6 survivors onto the phantom plan the CPU
     planner predicts, the step-10 checkpoint distilled into it, 24
-    steps.  Held: the plans and the recovery's fields against the
-    prediction, the checkpoint bytes against the saves times each plan's
-    global parameters and AdamW moments, the account's identity, each
-    phase's losses finite and falling."""
+    steps; traced, with the energy-drift watchdog and one slow step
+    before the loss (``ELASTIC_SLOW_STEP``).  Held: the plans and the
+    recovery's fields against the prediction, the checkpoint bytes
+    against the saves times each plan's global parameters and AdamW
+    moments, the account's identity, each phase's losses finite and
+    falling; the watchdog's one spike at the slow step, its anomaly row
+    and rank 0's capture of the next step; ``python -m
+    repro_torch.launch.obs verify-recovery`` on the run's trace and
+    report (the reference's tolerance, rel 0.35)."""
     import shutil
     from repro_torch.core.ffn import ffn_model_params
+    from repro_torch.obs import EnergyDriftWatchdog
     from repro_torch.planner import PlanCandidate
+    from repro_torch.telemetry import Ledger
     from repro_torch.train.elastic import ElasticConfig, run_elastic
     from repro_torch.train.fault import FaultScript
     workdir = ROOT / "build" / "chip_smoke_elastic"
     shutil.rmtree(workdir, ignore_errors=True)
-    cfg = ElasticConfig(workdir=str(workdir), **ELASTIC)
+    cfg = ElasticConfig(workdir=str(workdir),
+                        slow_steps=(ELASTIC_SLOW_STEP,),
+                        slow_factor=ELASTIC_SLOW_FACTOR, **ELASTIC)
+    ledger = Ledger(run="chip_smoke.elastic")
+    wd = EnergyDriftWatchdog(ledger=ledger, spike_factor=ELASTIC_SPIKE,
+                             profile_dir=str(workdir / "profile"),
+                             name=f"elastic_ffn{cfg.width}",
+                             arch=f"ffn{cfg.width}")
     t0 = time.perf_counter()
-    res = run_elastic(cfg, fault_script=FaultScript(kills=ELASTIC_KILLS),
-                      device="cuda",
-                      log_fn=lambda m: print(f"elastic (b): {m}", flush=True))
+    with observed({"run": "chip_smoke.elastic"}) as (tracer, reg):
+        res = run_elastic(cfg, fault_script=FaultScript(kills=ELASTIC_KILLS),
+                          device="cuda", ledger=ledger, watchdog=wd,
+                          log_fn=lambda m: print(f"elastic (b): {m}",
+                                                 flush=True))
     wall = time.perf_counter() - t0
+    obs = _elastic_obs_held(tracer, reg, ledger, wd, res)
     shutil.rmtree(workdir, ignore_errors=True)
     check(not res.aborted and res.final_step == cfg.max_steps,
           f"elastic (b): aborted {res.aborted}, final step {res.final_step}")
@@ -6590,7 +6867,56 @@ def phase_elastic():
     print(f"elastic (b): restore_s {r['restore_s']:.2f} (load, distil), "
           f"replan_s {r['replan_s']:.4f}; the run took {wall:.1f} s",
           flush=True)
-    return {"result": res.as_dict(), "losses": phase_losses, "wall_s": wall}
+    return {"result": res.as_dict(), "losses": phase_losses, "obs": obs,
+            "wall_s": wall}
+
+
+def _elastic_obs_held(tracer, reg, ledger, wd, res):
+    """Hold phase 20's observability: exactly one watchdog trip, a spike
+    at ``ELASTIC_SLOW_STEP``, with its anomaly ledger row, its
+    ``watchdog/spike`` instant and rank 0's capture of the next step
+    (``rank0.json``); the recovery spans against the account through
+    ``python -m repro_torch.launch.obs verify-recovery`` on the written
+    trace and report.  Returns the trip, the capture and the spans."""
+    import os
+    tracer.write(str(ELASTIC_TRACE))
+    ledger.write_report(str(ELASTIC_REPORT))
+    trips = [(t.kind, t.step) for t in wd.trips]
+    check(trips == [("spike", ELASTIC_SLOW_STEP)],
+          f"elastic (c): watchdog trips {trips}, want one spike at step "
+          f"{ELASTIC_SLOW_STEP}")
+    rows = [e for e in ledger.entries if e.kind == "anomaly"]
+    check([e.measured["step"] for e in rows] == [ELASTIC_SLOW_STEP],
+          f"elastic (c): anomaly rows {[e.as_dict() for e in rows]}")
+    capture = os.path.join(wd.profile_dir, "rank0.json")
+    check(wd.captures and os.path.exists(capture),
+          f"elastic (c): captures {wd.captures}, no {capture}")
+    doc = tracer.to_chrome()
+    instants = span_counts(doc, ph="i")
+    check(instants["watchdog/spike"] == 1 and instants["elastic/detect"]
+          == 1, f"elastic (c): instants {dict(instants)}")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    verify = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.obs", "verify-recovery",
+         "--trace", str(ELASTIC_TRACE), "--report", str(ELASTIC_REPORT)],
+        capture_output=True, text=True, env=env, timeout=300)
+    check(verify.returncode == 0,
+          f"elastic (c): verify-recovery exit {verify.returncode}: "
+          f"{verify.stdout} {verify.stderr}")
+    t = wd.trips[0]
+    out = {"trip": t.as_dict(), "capture_bytes": os.path.getsize(capture),
+           "capture_kernels": _capture_kernels(capture),
+           "spans": dict(span_counts(doc, 0)),
+           "pids": sorted({e["pid"] for e in doc["traceEvents"]}),
+           "verify_recovery": verify.stdout.strip().splitlines(),
+           "span_cost_us": span_cost_us()}
+    print(f"elastic (c): watchdog spike at step {t.step} (held), ratio "
+          f"{t.ratio:.2f} ({t.measured_s * 1e3:.1f} ms against "
+          f"{t.predicted_s * 1e3:.2f} ms), anomaly row and rank 0's "
+          f"capture ({out['capture_bytes']:,} B) held; pid 0's spans "
+          f"{out['spans']}; pids {out['pids']}; verify-recovery: "
+          f"{' | '.join(out['verify_recovery'])}", flush=True)
+    return out
 
 
 # phase 21: the planner on the card.  The pilots at the plan CLI's
@@ -6603,6 +6929,8 @@ def phase_elastic():
 # LM_PARITY_LAYERS layers in float32, kernels against plain
 PLAN_PILOT_STEPS, PLAN_TARGET = 150, 0.21
 PLAN_REPORT = ROOT / "build" / "chip_smoke_plan.json"
+PLAN_TRACE = ROOT / "build" / "chip_smoke_plan_trace.json"
+PLAN_METRICS = ROOT / "build" / "chip_smoke_plan_metrics.prom"
 HBM_LIMIT = 80e9
 # the sites of a phi3-mini layer whose projections the applied map sets
 PLAN_SITES = ("attn_q", "attn_k", "attn_v", "attn_o", "ffn_gate", "ffn_up",
@@ -6683,14 +7011,57 @@ def _plan_rank(axes, device, cfg, args):
 def _plan_pilots(pool, device):
     """``launch/plan.py: plan`` at the CLI's defaults but
     ``PLAN_PILOT_STEPS`` and ``PLAN_TARGET``, its pilots on ``device``
-    (``pool``'s ranks); returns the report and the pilots'
-    ``IsoLossResult``."""
+    (``pool``'s ranks), under the launcher's ``obs_session`` with
+    ``--trace-out PLAN_TRACE --metrics-out PLAN_METRICS``; returns the
+    report and the pilots' ``IsoLossResult``."""
     from repro_torch.launch import plan as plan_cli
+    from repro_torch.launch.obs import obs_session
     args = plan_cli.build_parser().parse_args(
         ["--pilot-steps", str(PLAN_PILOT_STEPS), "--target-loss",
-         str(PLAN_TARGET), "--device", device, "--out", str(PLAN_REPORT)])
-    iso = plan_cli.pilots(args, pool=pool)
-    return plan_cli.plan(args, iso=iso), iso
+         str(PLAN_TARGET), "--device", device, "--out", str(PLAN_REPORT),
+         "--trace-out", str(PLAN_TRACE), "--metrics-out",
+         str(PLAN_METRICS)])
+    with obs_session(args.trace_out, args.metrics_out,
+                     meta={"run": "chip_smoke.plan"}):
+        iso = plan_cli.pilots(args, pool=pool)
+        report = plan_cli.plan(args, iso=iso)
+    return report, iso
+
+
+def _plan_obs_held(iso, world):
+    """Hold phase 21's ``--trace-out`` and ``--metrics-out``: pid 0 has
+    the pass's ``plan/calibrate``, ``plan/enumerate`` and
+    ``plan/pilots`` spans once (``plan/score`` is the ``--no-pilots``
+    pass's, in the reference too) and a ``plan/pilot`` span a pilot, as
+    has each of the ``world`` ranks' pids; ``plan_pilot_steps_total``
+    sums the pilots' ``steps_run``."""
+    from repro_torch.obs import load_trace
+    doc = load_trace(str(PLAN_TRACE))
+    want = {"plan/calibrate": 1, "plan/enumerate": 1, "plan/pilots": 1,
+            "plan/pilot": len(iso.pilots)}
+    got = dict(span_counts(doc, 0))
+    check(got == want, f"plan (a): pid 0's spans {got}, want {want}")
+    for pid in range(1, world):
+        n = span_counts(doc, pid)["plan/pilot"]
+        check(n == len(iso.pilots), f"plan (a): rank {pid}'s plan/pilot "
+                                    f"spans {n}, want {len(iso.pilots)}")
+    steps = 0.0
+    for line in PLAN_METRICS.read_text().splitlines():
+        if line.startswith("plan_pilot_steps_total{"):
+            steps += float(line.rsplit(" ", 1)[1])
+    want_steps = sum(p.steps_run for p in iso.pilots)
+    check(steps == want_steps, f"plan (a): plan_pilot_steps_total "
+                               f"{steps}, the pilots ran {want_steps}")
+    out = {"spans": got, "pilot_steps_total": steps,
+           "pilot_span_s": [e["dur"] * 1e-6 for e in doc["traceEvents"]
+                            if e["ph"] == "X" and e["pid"] == 0
+                            and e["name"] == "plan/pilot"],
+           "trace_bytes": PLAN_TRACE.stat().st_size}
+    print(f"plan (a): trace {PLAN_TRACE} ({out['trace_bytes']:,} B): pid "
+          f"0's spans {got}, plan/pilot on each of {world} pids (held); "
+          f"plan_pilot_steps_total {steps:.0f} (held); each pilot's span "
+          f"s {[round(v, 2) for v in out['pilot_span_s']]}", flush=True)
+    return out
 
 
 def phase_plan(pool=None, device="cuda"):
@@ -6721,6 +7092,7 @@ def phase_plan(pool=None, device="cuda"):
     t0 = time.perf_counter()
     report, iso = _plan_pilots(pool, device)
     plan_s = time.perf_counter() - t0
+    obs = _plan_obs_held(iso, report["iso_loss"]["pilot_tp"])
     check(load_plan_report(str(PLAN_REPORT))["schema"] == PLAN_SCHEMA
           == report["schema"], f"plan (a): schema {report['schema']}")
     for p in iso.pilots:
@@ -6862,7 +7234,8 @@ def phase_plan(pool=None, device="cuda"):
             "frontier": [s["plan"]["name"] for s in report["frontier"]],
             "pilots": [dict(p.as_dict(), losses=p.losses)
                        for p in iso.pilots],
-            "plan_s": plan_s, "hbm": {"measured": hbm, "ranks": readings,
+            "plan_s": plan_s, "obs": obs,
+            "hbm": {"measured": hbm, "ranks": readings,
                                       "estimate": w["hbm_bytes_per_device"]},
             "mesh": list(mesh), "launches_per_step": main[0][
                 "launches_per_step"],
@@ -6974,6 +7347,8 @@ def main() -> int:
                        lm_tp["launches_per_step"]["flash_attention"],
                    "resumed_step_launches_per_rank": lm_tp["checkpoint"][
                        "resumed_launches"]["flash_attention"],
+                   "captured_step_launches_rank0": lm_tp["obs"][
+                       "captures"][0]["kernels"]["flash_attention"],
                    **{key: lm_tp["kernels"]["flash"][key] for key in TIMED}},
         "qwen_tp4": {"launches_per_step_per_rank":
                      qwen["launches_per_step"]["flash_attention"]},
@@ -7080,6 +7455,11 @@ def main() -> int:
                     lm_tp["launches_per_step"][name],
                 "resumed_step_launches_per_rank":
                     lm_tp["checkpoint"]["resumed_launches"][name],
+                # the watchdog's torch.profiler capture of a step, by the
+                # CUDA name (the forward and dgrad share splitk_kernel)
+                "captured_step_launches_rank0": lm_tp["obs"]["captures"][0][
+                    "kernels"]["matmul_tn" if name == "matmul_tn"
+                               else "splitk"],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
                             **{key: r[key] for key in TIMED}}
                            for r in lm_tp["kernels"]["phantom"]

@@ -13,6 +13,11 @@ Backend: NCCL when every rank has a card of its own
 ranks share a card (NCCL refuses two ranks on one device).  Gloo's
 groups copy card tensors through the host (``parallel/axes.py: Group``),
 so collective times on a shared card measure the host, not NVLink.
+
+Every job of a ``RankPool`` runs observed (``obs/ranks.py``): each rank
+traces on the parent's clock origin when the parent traces, and records
+its metrics into a registry of its own; the parent merges every rank's
+spans under ``pid = rank`` and adds rank 0's metrics to its own.
 """
 from __future__ import annotations
 
@@ -28,6 +33,7 @@ from typing import Any, Callable, List, Sequence
 
 import torch
 
+from repro_torch.obs import ranks as obs_ranks
 from repro_torch.parallel.axes import Group, MeshAxes, resolve_device
 
 
@@ -88,10 +94,10 @@ def make_local_mesh(dp: int, tp: int, pp: int = 1) -> MeshAxes:
 def _rank_main(rank: int, pp: int, dp: int, tp: int, device_type: str,
                init_file: str, timeout_s: float, jobs, results) -> None:
     """One rank of a ``RankPool``: join the world once, then run each
-    job the pool sends (a payload file holding ``fn``, its ``args`` and
-    the job's mesh shape) until it sends None, freeing the job's card
-    memory after each.  A failed job ends the rank: its world may be
-    stuck in a collective."""
+    job the pool sends (a payload file holding ``fn``, its ``args``, the
+    job's mesh shape and what its observation needs) until it sends
+    None, freeing the job's card memory after each.  A failed job ends
+    the rank: its world may be stuck in a collective."""
     import gc
     import torch.distributed as dist
     try:
@@ -113,8 +119,9 @@ def _rank_main(rank: int, pp: int, dp: int, tp: int, device_type: str,
             if job is None:
                 break
             with open(job, "rb") as f:
-                fn, args, shape = pickle.load(f)
-            out = fn(make_local_mesh(*shape), device, *args)
+                fn, args, shape, obs = pickle.load(f)
+            out = obs_ranks.observed(fn, obs, make_local_mesh(*shape),
+                                     device, *args)
             results.put((rank, True, out))
             del out
             gc.collect()
@@ -139,10 +146,13 @@ class RankPool:
     function) and return picklable values (numpy arrays, not tensors).
     On a job's first failed rank or past its timeout every rank is
     killed and the call raises, so a mismatched collective fails within
-    the timeout instead of hanging.  ``fn`` and ``args`` reach the ranks
-    through a file in the pool's temporary directory: through a rank's
-    start-up pipe, arguments past the pipe's 64 KB would hold each start
-    until the rank before it had imported torch and read them."""
+    the timeout instead of hanging.  ``fn`` and ``args`` reach the
+    ranks through a file in the pool's temporary directory: through a
+    rank's start-up pipe, arguments past the pipe's 64 KB would hold
+    each start until the rank before it had imported torch and read
+    them.  Each job's spans and rank 0's metrics join the caller's
+    (``obs/ranks.py: merge``); every rank's metrics of the last job are
+    ``rank_metrics``."""
 
     def __init__(self, dp: int, tp: int, device=None, pp: int = 1,
                  timeout_s: float = 3600.0):
@@ -159,6 +169,7 @@ class RankPool:
                                          self._jobs[r], self._results))
                        for r in range(self.world)]
         self._count = 0
+        self.rank_metrics: List[list] = []
         try:
             for p in self._procs:
                 p.start()
@@ -174,7 +185,7 @@ class RankPool:
         self._count += 1
         payload = f"{self._tmp}/job{self._count}"
         with open(payload, "wb") as f:
-            pickle.dump((fn, args, (dp, tp, pp)), f)
+            pickle.dump((fn, args, (dp, tp, pp), obs_ranks.rank_spec()), f)
         for q in self._jobs:
             q.put(payload)
         out = {}
@@ -204,7 +215,10 @@ class RankPool:
             self.close(kill=True)
             raise
         os.remove(payload)
-        return [out[r] for r in range(self.world)]
+        seen = [out[r][1] for r in range(self.world)]
+        self.rank_metrics = [s["metrics"] for s in seen]
+        obs_ranks.merge(seen)
+        return [out[r][0] for r in range(self.world)]
 
     def close(self, kill: bool = False, timeout_s: float = 60.0):
         """Stop the ranks (``kill``: at once) and remove the pool's

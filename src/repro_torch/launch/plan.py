@@ -25,12 +25,18 @@ not ported (ROADMAP.md queue 1, item 8 part 4); ``--no-audit`` is
 accepted.  ``python -m repro_torch.launch.train --plan PATH`` applies
 the winner, and ``python -m repro_torch.launch.serve --calibration
 PATH`` prices its routes with the report's calibration.
+``--trace-out`` / ``--metrics-out`` write the pass's trace (the
+``plan/calibrate``, ``plan/enumerate``, ``plan/score`` or ``plan/pilots``
+spans, each pilot's ``plan/pilot`` span from every rank) and metrics
+(``plan_pilot_steps_total``).
 """
 from __future__ import annotations
 
 import argparse
 import sys
 
+from repro_torch.launch.obs import add_obs_args, obs_session
+from repro_torch.obs import get_tracer
 from repro_torch.planner.constraints import DEFAULT_HBM_BYTES
 from repro_torch.planner.report import DEFAULT_REPORT
 
@@ -86,6 +92,7 @@ def build_parser():
                          "(default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=DEFAULT_OUT)
+    add_obs_args(ap)
     return ap
 
 
@@ -95,16 +102,19 @@ def _csv_ints(s):
 
 def pilots(args, ledger=None, pool=None):
     """The pilot phase at ``args``' settings (``planner/isoloss.py:
-    run_pilots``); ``ledger`` optionally receives the pilot rows;
-    ``pool``, a ``RankPool`` of ``--pilot-tp`` ranks, runs them (else
-    they start their own)."""
+    run_pilots``), in a ``plan/pilots`` span; ``ledger`` optionally
+    receives the pilot rows; ``pool``, a ``RankPool`` of ``--pilot-tp``
+    ranks, runs them (else they start their own)."""
     from repro_torch.planner import run_pilots
-    return run_pilots(tuple(s for s in args.strategies.split(",") if s),
-                      min(args.pilot_tp, args.devices), width=args.width,
-                      depth=args.depth, batch=args.batch,
-                      steps=args.pilot_steps, target_loss=args.target_loss,
-                      ks=_csv_ints(args.ks), seed=args.seed, ledger=ledger,
-                      device=args.device, pool=pool)
+    strategies = tuple(s for s in args.strategies.split(",") if s)
+    with get_tracer().span("plan/pilots", cat="plan",
+                           strategies=list(strategies)):
+        return run_pilots(strategies, min(args.pilot_tp, args.devices),
+                          width=args.width, depth=args.depth,
+                          batch=args.batch, steps=args.pilot_steps,
+                          target_loss=args.target_loss,
+                          ks=_csv_ints(args.ks), seed=args.seed,
+                          ledger=ledger, device=args.device, pool=pool)
 
 
 def plan(args, ledger=None, calib_rows=None, iso=None) -> dict:
@@ -128,39 +138,48 @@ def plan(args, ledger=None, calib_rows=None, iso=None) -> dict:
                                      score_plans, write_plan_report)
 
     refuse_repo_root(args.out, "--out")
+    tracer = get_tracer()
     strategies = tuple(s for s in args.strategies.split(",") if s)
     ks = _csv_ints(args.ks)
     mbs = _csv_ints(args.microbatches)
 
     # 1. calibrate
-    if calib_rows is not None:
-        calib = calibrate_from_rows(calib_rows)
-        print(f"# calibration: {calib.source} (in-process ledger rows)")
-    else:
-        if args.ledger and not os.path.exists(args.ledger):
-            raise FileNotFoundError(f"--ledger {args.ledger}: no such file")
-        calib = calibrate_from_ledger(jsonl_path=args.ledger)
-        print(f"# calibration: {calib.source}"
-              + (f" ({args.ledger})" if args.ledger else ""))
+    with tracer.span("plan/calibrate", cat="plan") as sp:
+        if calib_rows is not None:
+            calib = calibrate_from_rows(calib_rows)
+            print(f"# calibration: {calib.source} (in-process ledger "
+                  f"rows)")
+        else:
+            if args.ledger and not os.path.exists(args.ledger):
+                raise FileNotFoundError(
+                    f"--ledger {args.ledger}: no such file")
+            calib = calibrate_from_ledger(jsonl_path=args.ledger)
+            print(f"# calibration: {calib.source}"
+                  + (f" ({args.ledger})" if args.ledger else ""))
+        sp.annotate(source=calib.source)
 
     # 2. enumerate + resource-filter
     constraints = Constraints(
         max_devices=args.devices,
         hbm_bytes_per_device=args.hbm_gb * 1e9,
         min_throughput_rows_s=args.min_throughput)
-    candidates = enumerate_plans(
-        args.devices, width=args.width, depth=args.depth,
-        batch=args.batch, strategies=strategies, ks=ks,
-        microbatch_options=mbs, pps=_csv_ints(args.pps) or (1,))
-    feasible, rejected = filter_feasible(candidates, constraints)
+    with tracer.span("plan/enumerate", cat="plan",
+                     devices=args.devices) as sp:
+        candidates = enumerate_plans(
+            args.devices, width=args.width, depth=args.depth,
+            batch=args.batch, strategies=strategies, ks=ks,
+            microbatch_options=mbs, pps=_csv_ints(args.pps) or (1,))
+        feasible, rejected = filter_feasible(candidates, constraints)
+        sp.annotate(candidates=len(candidates), feasible=len(feasible))
     print(f"# {len(candidates)} candidates, {len(feasible)} feasible, "
           f"{len(rejected)} rejected")
 
     # 3. pilots -> iso-loss normalization
     if args.no_pilots:
         iso = None
-        scored = score_plans(feasible, calib,
-                             iterations=float(args.pilot_steps))
+        with tracer.span("plan/score", cat="plan"):
+            scored = score_plans(feasible, calib,
+                                 iterations=float(args.pilot_steps))
         for s in scored:
             s.predicted_loss = args.target_loss
             s.notes["iso_loss"] = False
@@ -243,7 +262,10 @@ def plan(args, ledger=None, calib_rows=None, iso=None) -> dict:
 
 
 def main(argv=None) -> int:
-    report = plan(build_parser().parse_args(argv))
+    args = build_parser().parse_args(argv)
+    with obs_session(args.trace_out, args.metrics_out,
+                     meta={"run": "launch.plan"}):
+        report = plan(args)
     return 0 if report["frontier"] else 1
 
 

@@ -63,6 +63,13 @@ default; ``--dp`` x ``--tp`` above 1 spawns the pools' ranks):
 The route table and the fleet's ledger report go under ``build/`` by
 default; the repo root holds the JAX package's records
 (``SERVE_route.json``, ``BENCH_report.json``), and a path there raises.
+
+``--trace-out PATH`` writes the run's Chrome trace (``serve/route``,
+``serve/replay``, a ``serve/prefill`` span a prefill group and a
+``serve/decode`` span a decode step, each rank's under its pid; the
+fleet's ``fleet/*`` spans) and ``--metrics-out PATH`` its metrics
+(the serving histograms and token counters, rank 0's); ``--trace``
+keeps its meaning, the synthetic workload to replay.
 """
 from __future__ import annotations
 
@@ -72,6 +79,7 @@ import sys
 from pathlib import Path
 
 from repro_torch.kernels.ops import KERNEL_BACKENDS
+from repro_torch.launch.obs import add_obs_args, obs_session
 from repro_torch.telemetry.ledger import REPORT_DIR
 
 TIMEOUT_S = 1800.0
@@ -196,6 +204,7 @@ def build_parser():
                             "fresh)")
     fleet.add_argument("--report-out", default=DEFAULT_REPORT,
                        help="the fleet's ledger report ('' disables)")
+    add_obs_args(ap)
     return ap
 
 
@@ -276,6 +285,12 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     for flag in ("route_out", "route_table", "report_out"):
         refuse_repo_root(getattr(args, flag), "--" + flag.replace("_", "-"))
+    with obs_session(args.trace_out, args.metrics_out,
+                     meta={"run": "launch.serve", "arch": args.arch}):
+        return _main(args)
+
+
+def _main(args) -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.launch.mesh import spawn
     from repro_torch.models.model import require_serving_mesh

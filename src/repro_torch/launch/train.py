@@ -70,7 +70,26 @@ It must survive the loss, restore and reach ``--target-loss``; the exit
 code says whether it did.  The re-plan's static audit gate is off (its
 torch counterpart is ROADMAP.md queue 1, item 8 part 4), and the run
 says so.  The report and its ledger go under ``build/`` (a repo-root
-path raises: the reference's ``BENCH_report.json`` is there).
+path raises: the reference's ``BENCH_report.json`` is there).  The run
+is watched by the energy-drift watchdog (``obs/watchdog.py``), which
+prints its ``[obs] watchdog:`` line; ``--slow-step N`` (repeatable)
+injects a step ``--slow-factor`` times slower for it to trip on, and
+its profiler capture goes to ``--profile-dir`` (default
+``<workdir>/profile`` when a slow step is given).
+
+Observability on either path: ``--trace-out PATH`` writes the run's
+Chrome trace (every rank's spans under its own pid, one clock origin:
+open it in https://ui.perfetto.dev), ``--metrics-out PATH`` its metrics
+(Prometheus text, or one JSONL snapshot appended for a ``.jsonl``
+path; rank 0's counts), and on the LM path ``--profile-dir DIR`` gives
+every rank's trainer a watchdog whose trip captures the next step with
+``torch.profiler`` (``DIR/rank{r}.json``):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke \
+        --device cpu --tp 2 --steps 4 --trace-out build/trace.json \
+        --metrics-out build/metrics.prom
+    PYTHONPATH=src python -m repro_torch.launch.obs summary \
+        --trace build/trace.json
 
 ``--plan PATH`` applies the winning plan of a plan report
 (``launch/plan.py``; ``--plan auto`` reads ``build/PLAN_report.json``,
@@ -86,8 +105,7 @@ top:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
         --device cpu --plan build/PLAN_report.json --tp 2 --steps 2
 
-``--slow-step`` and ``--profile-dir`` (item 8 part 3) and ``--overlap``
-(part 4) raise.
+``--overlap`` (ROADMAP.md queue 1, item 8 part 4) raises.
 """
 from __future__ import annotations
 
@@ -102,7 +120,9 @@ from repro_torch.data.synthetic import LMDataset
 from repro_torch.kernels import build
 from repro_torch.kernels.ops import KERNEL_BACKENDS, resolve_kernel_backend
 from repro_torch.launch.mesh import spawn
+from repro_torch.launch.obs import add_obs_args, obs_session
 from repro_torch.models.model import count_params
+from repro_torch.obs import EnergyDriftWatchdog
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.schedules import warmup_cosine
 from repro_torch.parallel.axes import MeshAxes, resolve_device
@@ -198,11 +218,18 @@ def build_parser():
                     help="apply the winning plan of a plan report "
                          "(auto: build/PLAN_report.json, planned without "
                          "pilots when absent)")
+    add_obs_args(ap)
+    ap.add_argument("--slow-step", type=int, action="append",
+                    default=None, metavar="N",
+                    help="[elastic] inject a watchdog-visible slow step "
+                         "at step N (repeatable)")
+    ap.add_argument("--slow-factor", type=float, default=6.0,
+                    help="[elastic] slowdown factor for --slow-step")
+    ap.add_argument("--profile-dir", default=None,
+                    help="watchdog torch.profiler capture dir (default: "
+                         "<workdir>/profile when --slow-step is given)")
     todo = ap.add_argument_group(f"not ported ({OPERATIONS_TODO}): "
                                  "these raise")
-    todo.add_argument("--slow-step", type=int, action="append",
-                      default=None)
-    todo.add_argument("--profile-dir", default=None)
     todo.add_argument("--overlap", default=None)
     return ap
 
@@ -210,14 +237,10 @@ def build_parser():
 def refuse_unported(args):
     """Raise for a flag of the reference's launcher whose part of
     ROADMAP.md queue 1 item 8 is not ported."""
-    for flag, part in (("slow_step", "part 3: obs/ and the watchdog"),
-                       ("profile_dir", "part 3: obs/ and the watchdog"),
-                       ("overlap", "part 4: the overlap of queue 2 "
-                                   "item 8")):
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported yet "
-                f"({OPERATIONS_TODO} {part})")
+    if args.overlap is not None:
+        raise NotImplementedError(
+            f"--overlap is not ported yet ({OPERATIONS_TODO} part 4: the "
+            f"overlap of queue 2 item 8)")
 
 
 def _apply_plan(args, cfg):
@@ -290,18 +313,22 @@ def train_config(args):
 def make_trainer(axes, device, cfg, args, dataset=None) -> Trainer:
     """One rank's ``Trainer``: the reference's optimizer and schedule,
     ``dataset`` or ``LMDataset`` batches of ``--seq`` tokens, the log on
-    rank 0."""
+    rank 0, and with ``--profile-dir`` the energy-drift watchdog."""
     opt = make_optimizer(cfg.optimizer, warmup_cosine(3e-4, 20, args.steps),
                          weight_decay=0.1)
     if dataset is None:
         require_lm_batches(cfg)
         dataset = LMDataset(cfg.vocab_size, args.batch, args.seq + 1,
                             device=device)
+    watchdog = (EnergyDriftWatchdog(profile_dir=args.profile_dir,
+                                    name=f"train_{cfg.name}",
+                                    arch=cfg.name)
+                if args.profile_dir else None)
     return Trainer(cfg, axes, opt, dataset, microbatches=args.microbatches,
                    checkpoint_dir=args.ckpt_dir,
                    log_every=min(10, args.steps),
                    log_fn=print if axes.rank == 0 else (lambda _m: None),
-                   device=device)
+                   watchdog=watchdog, device=device)
 
 
 def train_rank(axes, device, cfg, args):
@@ -337,11 +364,19 @@ def run_elastic_cli(args) -> int:
         devices=args.devices, hosts=args.hosts, width=args.width,
         depth=args.depth, batch=args.batch, target_loss=args.target_loss,
         max_steps=args.steps, checkpoint_every=args.ckpt_every,
-        seed=args.seed)
+        seed=args.seed, slow_steps=tuple(args.slow_step or ()),
+        slow_factor=args.slow_factor)
     print(f"[elastic] static audit gate off: the re-plan audit is not "
           f"ported ({OPERATIONS_TODO} part 4)", flush=True)
     ledger = Ledger(run="launch.train.elastic", jsonl_path=jsonl)
-    res = run_elastic(cfg, ledger=ledger, device=args.device,
+    profile_dir = args.profile_dir
+    if profile_dir is None and cfg.slow_steps:
+        profile_dir = os.path.join(cfg.workdir, "profile")
+    watchdog = EnergyDriftWatchdog(
+        ledger=ledger, profile_dir=profile_dir,
+        name=f"elastic_ffn{cfg.width}", arch=f"ffn{cfg.width}")
+    res = run_elastic(cfg, ledger=ledger, watchdog=watchdog,
+                      device=args.device,
                       fault_script=FaultScript(kills=tuple(kills)))
     ledger.write_report(report_out)
     acct = res.account
@@ -352,6 +387,11 @@ def run_elastic_cli(args) -> int:
           f"ckpt_io {acct['energy_j_ckpt_io']:.3e}, "
           f"restart {acct['energy_j_restart']:.3e}); "
           f"replay_overhead {acct['replay_overhead_ratio']:.3f}")
+    wd = watchdog.summary()
+    print(f"[obs] watchdog: {len(wd['trips'])} trip(s) over "
+          f"{wd['observations']} observation(s)"
+          + (f", profiler capture -> {wd['captures'][-1]}"
+             if wd["captures"] else ""))
     if res.aborted:
         print("[elastic] FAILED: run aborted")
         return 2
@@ -366,7 +406,9 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     refuse_unported(args)
     if args.elastic:
-        return run_elastic_cli(args)
+        with obs_session(args.trace_out, args.metrics_out,
+                         meta={"run": "launch.train.elastic"}):
+            return run_elastic_cli(args)
     cfg = train_config(args)
     require_lm_batches(cfg)
     device = resolve_device(args.device)
@@ -382,11 +424,13 @@ def main(argv=None) -> int:
             resolve_kernel_backend(cfg.projection_spec(s).kernel_backend)
             == "pallas" for s in PROJECTION_SITES):
         build.build(build.KERNELS)   # once, before any rank loads them
-    if args.pp * args.dp * args.tp == 1:
-        train_rank(MeshAxes(), device, cfg, args)
-    else:
-        spawn(train_rank, args.dp, args.tp, device, args=(cfg, args),
-              timeout_s=TIMEOUT_S, pp=args.pp)
+    with obs_session(args.trace_out, args.metrics_out,
+                     meta={"run": "launch.train", "arch": args.arch}):
+        if args.pp * args.dp * args.tp == 1:
+            train_rank(MeshAxes(), device, cfg, args)
+        else:
+            spawn(train_rank, args.dp, args.tp, device, args=(cfg, args),
+                  timeout_s=TIMEOUT_S, pp=args.pp)
     return 0
 
 

@@ -72,6 +72,11 @@ Where the reference donates the decode cache to a jitted step that
 returns a new one, the port's decode step writes the new K/V rows (or
 the new state) into the cache in place, and refills splice prefill rows
 into it in place.
+
+Each refill group's prefill runs in a ``serve/prefill`` span and each
+decode step in a ``serve/decode`` span; ``serve_prefill_tokens_total``
+counts the groups' real prompt tokens, ``serve_decode_tokens_total``
+the decode steps' tokens (on a mesh, each rank's own).
 """
 from __future__ import annotations
 
@@ -86,6 +91,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (forward_decode, forward_prefill,
                                       n_vision_tokens, rank_cache_decls,
                                       require_serving_mesh, serving_params)
+from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.parallel.axes import MeshAxes, resolve_device
 from repro_torch.parallel.params import (tree_leaves, tree_map,
                                          tree_unflatten)
@@ -331,8 +337,14 @@ class ServeEngine:
         toks = np.zeros((self.slots, S), np.int32)
         for i, req in zip(slot_ids, group):
             toks[i, :len(req.prompt)] = req.prompt
-        logits, fresh = self._timed(self.prefill_meter, self.prefill_fn,
-                                    self._tensor(toks))
+        with get_tracer().span("serve/prefill", cat="serve", bucket=S,
+                               group=len(group)):
+            logits, fresh = self._timed(self.prefill_meter,
+                                        self.prefill_fn, self._tensor(toks))
+        get_metrics().counter(
+            "serve_prefill_tokens_total",
+            "real (unpadded) prompt tokens prefilled").inc(
+                sum(len(r.prompt) for r in group))
         self._splice(fresh, slot_ids, S)
         logits = logits.float().cpu().numpy()
         for i, req in zip(slot_ids, group):
@@ -449,10 +461,15 @@ class ServeEngine:
             self._fill_slots()
             if not self.has_active():
                 return
-        logits, self.cache = self._timed(
-            self.decode_meter, self.decode_fn, self.cache,
-            self._tensor(self.last_tok), self._tensor(self.pos))
         live = [i for i, r in enumerate(self.active) if r is not None]
+        with get_tracer().span("serve/decode", cat="serve",
+                               active=len(live)):
+            logits, self.cache = self._timed(
+                self.decode_meter, self.decode_fn, self.cache,
+                self._tensor(self.last_tok), self._tensor(self.pos))
+        get_metrics().counter(
+            "serve_decode_tokens_total",
+            "tokens produced by decode steps").inc(len(live))
         nxt = self._sample(logits.float().cpu().numpy(), live)
         for i in live:
             req = self.active[i]

@@ -47,6 +47,7 @@ from dataclasses import dataclass, field, replace
 from typing import List, Optional, Sequence
 
 from repro_torch.core.energy import FRONTIER_B_W, H100_PEAK_FLOPS_FP32
+from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.planner.calibration import Calibration
 from repro_torch.serve.fleet.autoscaler import (AutoscalePolicy, Autoscaler,
                                                 PoolStats)
@@ -460,20 +461,23 @@ class FleetRouter:
         self._mean_new = stats["mean_new_tokens"]
         self._push(fc.decode_policy.tick_s, "tick", None)
         events = 0
-        while True:
-            self._ingest()
-            self._dispatch()
-            if not self._heap:
-                if self._arrivals:
-                    self._now = self._arrivals[0].arrival_s
-                    continue
-                break
-            t, _, kind, payload = heapq.heappop(self._heap)
-            self._now = max(self._now, t)
-            self._handle(kind, payload)
-            events += 1
-            if max_events and events >= max_events:
-                break
+        with get_tracer().span("fleet/run", cat="fleet",
+                               requests=len(reqs), executed=fc.executed,
+                               colocated=fc.colocated):
+            while True:
+                self._ingest()
+                self._dispatch()
+                if not self._heap:
+                    if self._arrivals:
+                        self._now = self._arrivals[0].arrival_s
+                        continue
+                    break
+                t, _, kind, payload = heapq.heappop(self._heap)
+                self._now = max(self._now, t)
+                self._handle(kind, payload)
+                events += 1
+                if max_events and events >= max_events:
+                    break
         return self._report(trace, stats)
 
     def _push(self, t: float, kind: str, payload):
@@ -537,8 +541,11 @@ class FleetRouter:
                                       self.mixed)
                 if not group:
                     break
-                done_t, results = self.pre.start_group(
-                    prep, S, group, self._now)
+                with get_tracer().span("fleet/prefill", cat="fleet",
+                                       bucket=S, group=len(group),
+                                       replica=prep.id):
+                    done_t, results = self.pre.start_group(
+                        prep, S, group, self._now)
                 self._inflight_prefills += 1
                 self._push(done_t, "prefill_done",
                            (prep, None, S, results))
@@ -548,7 +555,9 @@ class FleetRouter:
         self.dec.energy_j += e_j
         self.dec.steps += 1
         self.dec.busy_s += step_s
-        rep.start_step(self._now, step_s)
+        with get_tracer().span("fleet/decode", cat="fleet",
+                               replica=rep.id, active=rep.n_active()):
+            rep.start_step(self._now, step_s)
         self._push(rep.busy_until, "decode_done", rep)
 
     def _adopt_ready(self):
@@ -618,6 +627,9 @@ class FleetRouter:
         done = rep.finish_step(self._now)
         self.dec.tokens += cohort
         self.finished.extend(done)
+        get_metrics().counter(
+            "fleet_decode_tokens_total",
+            "tokens produced by fleet decode steps").inc(cohort)
         if rep.state == "draining" and not rep.active:
             self.dec.retire(rep, self._now)
 
@@ -650,6 +662,17 @@ class FleetRouter:
                 service_s_per_item=item_s, busy_fraction=util))
             if act:
                 self._execute_scale(pool, scaler, policy, act)
+        mx = get_metrics()
+        mx.gauge("fleet_prefill_replicas",
+                 "active prefill replicas").set(self.pre.n_active())
+        mx.gauge("fleet_decode_replicas",
+                 "active decode replicas").set(self.dec.n_active())
+        mx.gauge("fleet_prefill_queue_depth",
+                 "requests waiting for a prefill slot").set(
+                     len(self.pre.queue))
+        mx.gauge("fleet_decode_queue_depth",
+                 "KV bundles waiting for a decode slot").set(
+                     len(self._ready) + len(self._xfer))
         if self._has_work() or self._arrivals or self._over_min():
             self._push(self._now + self.fc.decode_policy.tick_s,
                        "tick", None)
@@ -657,25 +680,29 @@ class FleetRouter:
     def _execute_scale(self, pool, scaler, policy: AutoscalePolicy,
                        action: str):
         ev = scaler.events[-1]
-        if action == "up":
-            rep = pool.add_replica(self._now, policy.spinup_s)
-            self._push(rep.ready_s, "replica_ready", (ev.pool, rep))
-        elif pool is self.dec:
-            victim = self.dec.drain_victim()
-            if victim is not None:
-                victim.state = "draining"
-                if not victim.active and not victim.busy:
-                    self.dec.retire(victim, self._now)
-        else:
-            idle = [r for r in pool.replicas
-                    if r.state == "active" and not r.busy]
-            if idle:
-                pool.retire(idle[-1], self._now)
+        with get_tracer().span("fleet/scale", cat="fleet",
+                               pool=ev.pool, action=action,
+                               replicas=ev.replicas,
+                               reason=ev.reason):
+            if action == "up":
+                rep = pool.add_replica(self._now, policy.spinup_s)
+                self._push(rep.ready_s, "replica_ready", (ev.pool, rep))
+            elif pool is self.dec:
+                victim = self.dec.drain_victim()
+                if victim is not None:
+                    victim.state = "draining"
+                    if not victim.active and not victim.busy:
+                        self.dec.retire(victim, self._now)
             else:
-                busy = [r for r in pool.replicas
-                        if r.state == "active"]
-                if busy:
-                    busy[-1].state = "draining"
+                idle = [r for r in pool.replicas
+                        if r.state == "active" and not r.busy]
+                if idle:
+                    pool.retire(idle[-1], self._now)
+                else:
+                    busy = [r for r in pool.replicas
+                            if r.state == "active"]
+                    if busy:
+                        busy[-1].state = "draining"
 
     # --- reporting -------------------------------------------------------
 

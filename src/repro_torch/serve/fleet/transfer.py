@@ -28,6 +28,7 @@ from dataclasses import dataclass
 from typing import Any, Optional
 
 from repro_torch.core.energy import FRONTIER_B_W, comm_time_us
+from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.telemetry.predict import (FLOAT_BYTES, kv_cache_token_bytes,
                                            kv_transfer_prediction)
 
@@ -102,6 +103,17 @@ class TransferChannel:
         self.migrations += 1
         self.wire_bytes += nbytes
         self.comm_s += lat
+        if not self.colocated:
+            rid = getattr(bundle.req, "req_id", -1)
+            get_tracer().instant("fleet/transfer", cat="fleet",
+                                 req=rid, bytes=nbytes,
+                                 latency_us=lat * 1e6)
+            get_metrics().counter(
+                "fleet_transfer_bytes_total",
+                "KV-cache bytes migrated prefill->decode").inc(nbytes)
+            get_metrics().counter(
+                "fleet_migrations_total",
+                "requests migrated prefill->decode").inc()
         return bundle
 
     # --- the measured account --------------------------------------------

@@ -244,14 +244,19 @@ def route(candidates: Sequence[ServeConfig], calib: Calibration,
     lowest-latency one, so serving still comes up."""
     if not candidates:
         raise ValueError("no serve candidates to route over")
-    stats = trace_stats(trace, candidates[0].page_size)
-    priced = [price_config(sc, calib, stats, slo_ms=slo_ms,
-                           peak_flops=peak_flops) for sc in candidates]
-    # ties in j/token (dp-invariant pricing) go to the SMALLER mesh
-    priced.sort(key=lambda pc: (pc.j_per_token, pc.config.devices))
-    feasible = [pc for pc in priced if pc.meets_slo]
-    winner = feasible[0] if feasible else \
-        min(priced, key=lambda pc: pc.ttft_s)
+    from repro_torch.obs import get_tracer
+    with get_tracer().span("serve/route", cat="serve",
+                           candidates=len(candidates)) as sp:
+        stats = trace_stats(trace, candidates[0].page_size)
+        priced = [price_config(sc, calib, stats, slo_ms=slo_ms,
+                               peak_flops=peak_flops) for sc in candidates]
+        # ties in j/token (dp-invariant pricing) go to the SMALLER mesh
+        priced.sort(key=lambda pc: (pc.j_per_token, pc.config.devices))
+        feasible = [pc for pc in priced if pc.meets_slo]
+        winner = feasible[0] if feasible else \
+            min(priced, key=lambda pc: pc.ttft_s)
+        sp.annotate(winner=winner.config.name, feasible=len(feasible),
+                    j_per_token=winner.j_per_token)
     return winner, priced
 
 
@@ -317,8 +322,12 @@ def run_config(sc: ServeConfig, trace: Sequence[TraceItem], axes, *,
                       order=order, stubs=stubs)
     buckets = {bucket_of(t.prompt_len, sc.page_size) for t in trace}
     eng.warmup(buckets)
-    tracker = replay(eng, reqs, tracker=SLOTracker(slo_ttft_ms=slo_ms),
-                     max_steps=max_steps)
+    from repro_torch.obs import get_tracer
+    with get_tracer().span("serve/replay", cat="serve", config=sc.name,
+                           requests=len(reqs)):
+        tracker = replay(eng, reqs,
+                         tracker=SLOTracker(slo_ttft_ms=slo_ms),
+                         max_steps=max_steps)
     slo_report = tracker.report()
 
     # the measured account of the engine's own step functions: one

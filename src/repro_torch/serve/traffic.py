@@ -150,6 +150,18 @@ class SLOTracker:
             self.observe(r)
 
     def report(self) -> dict:
+        from repro_torch.obs import get_metrics
+        mx = get_metrics()
+        # serving latencies are milliseconds; default buckets top out
+        # at 10 so spread explicit ms buckets instead
+        ms_buckets = (1, 2.5, 5, 10, 25, 50, 100, 250, 500, 1000,
+                      2500, 5000, 10000)
+        ttft_h = mx.histogram("serve_ttft_ms",
+                              "time to first token (ms)",
+                              buckets=ms_buckets)
+        tpot_h = mx.histogram("serve_tpot_ms",
+                              "time per output token (ms)",
+                              buckets=ms_buckets)
         ttft, tpot, e2e = [], [], []
         good_tokens = total_tokens = 0
         met = 0
@@ -160,10 +172,12 @@ class SLOTracker:
             t_ttft = (r.t_first_s - r.arrival_s) * 1e3
             t_e2e = (r.t_done_s - r.arrival_s) * 1e3
             ttft.append(t_ttft)
+            ttft_h.observe(t_ttft)
             e2e.append(t_e2e)
             if n > 1:
                 t_tpot = (r.t_done_s - r.t_first_s) * 1e3 / (n - 1)
                 tpot.append(t_tpot)
+                tpot_h.observe(t_tpot)
             last_done = max(last_done, r.t_done_s)
             ok = (not self.slo_ttft_ms or t_ttft <= self.slo_ttft_ms) and \
                  (not r.deadline_ms or t_e2e <= r.deadline_ms)
@@ -185,6 +199,12 @@ class SLOTracker:
             out["duration_s"] = last_done
             out["tokens_per_s"] = total_tokens / last_done
             out["goodput_tokens_per_s"] = good_tokens / last_done
+            mx.gauge("serve_goodput_tokens_per_s",
+                     "deadline+TTFT-qualified tokens per second").set(
+                         out["goodput_tokens_per_s"])
+        mx.gauge("serve_slo_met_fraction",
+                 "fraction of requests meeting their SLOs").set(
+                     out["slo_met_fraction"])
         return out
 
 

@@ -44,8 +44,10 @@ reference's ``train/checkpoint.py``, with ranks as processes.
 * **IO accounting.**  ``io_stats()``: this rank's write seconds (rank 0's
   run to the commit), the bytes of the blocks it wrote (summed over the
   ranks: the checkpoints' global bytes) and the saves it took part in.
-  The reference's tracer spans and metrics wait for ``obs/`` (ROADMAP.md
-  queue 1, item 8 part 3).
+  The reference's observability: a ``ckpt/save`` span on the writer
+  thread (its own trace row), ``ckpt_saves_total``, ``ckpt_bytes_total``
+  (this rank's blocks) and ``ckpt_write_seconds`` per save, and a
+  ``ckpt/restore`` span around ``restore``.
 """
 from __future__ import annotations
 
@@ -63,6 +65,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.parallel.params import (_block, _coords, tree_leaves,
                                          tree_unflatten)
 
@@ -283,6 +286,9 @@ class CheckpointManager:
 
     def _write(self, step: int, leaves: List[_Leaf], meta: dict):
         t0 = time.perf_counter()
+        # emitted from the writer thread: the span lands on its own
+        # trace row, showing save IO overlapping the training steps
+        span = get_tracer().begin("ckpt/save", cat="ckpt", step=step)
         tmp, final = _step_dir(self.dir, step, True), _step_dir(self.dir,
                                                                step)
         created = os.path.join(tmp, _CREATED)
@@ -347,9 +353,19 @@ class CheckpointManager:
         else:
             _wait(lambda: os.path.exists(os.path.join(final, "COMMITTED")),
                   f"rank 0 to commit step {step}", WAIT_S)
-        self.io_seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.io_seconds += dt
         self.io_bytes += nbytes
         self.saves += 1
+        get_tracer().end(span.annotate(bytes=nbytes))
+        get_metrics().counter("ckpt_saves_total",
+                              "committed checkpoint saves").inc()
+        get_metrics().counter("ckpt_bytes_total",
+                              "bytes written by checkpoint saves").inc(
+                                  nbytes)
+        get_metrics().histogram("ckpt_write_seconds",
+                                "checkpoint write wall seconds").observe(
+                                    dt)
 
     def flush(self, raise_errors: bool = True):
         """Join every queued write (and its commit).  Errors the writer
@@ -483,38 +499,42 @@ class CheckpointManager:
         rank only on the mesh it was saved on."""
         from repro_torch.parallel.axes import resolve_device
         from repro_torch.train.trainer import TrainState
-        dev = resolve_device(device)
-        index = self._index(step)
-        path = _step_dir(self.dir, step)
-        coords, mesh, rank = {}, [1, 1, 1], 0
-        if axes is not None:
-            coords = _coords(axes.pp_rank, axes.dp_rank, axes.tp_rank,
-                             axes.pp, axes.dp, axes.tp)
-            mesh, rank = [axes.pp, axes.dp, axes.tp], axes.rank
-        skeleton = {"params": decls, "opt": opt_decls}
-        flat = {}
-        for key, decl in tree_leaves(skeleton):
-            rec = index["leaves"].get(key)
-            if rec is None:
-                raise KeyError(f"step {step} holds no {key}")
-            arr = np.load(os.path.join(path, rec["file"]), mmap_mode="r")
-            if "per_rank" in rec:
-                if rec["per_rank"] != mesh:
-                    raise ValueError(
-                        f"{key} was saved per rank on pp x dp x tp = "
-                        f"{rec['per_rank']}, and this mesh is {mesh}: the "
-                        f"optimizer's factored moments are means over a "
-                        f"rank's local leaf (ROADMAP.md queue 3), so they "
-                        f"do not carry over to another mesh")
-                block = arr[rank]
-            else:
-                if tuple(arr.shape) != tuple(decl.shape):
-                    raise ValueError(f"{key}: saved {tuple(arr.shape)}, "
-                                     f"declared {tuple(decl.shape)}")
-                block = arr[_block(decl.spec, coords, arr.shape)] \
-                    if coords else arr
-            flat[key] = _tensor(block, rec["dtype"], dev)
-        tree = tree_unflatten(skeleton, flat)
+        with get_tracer().span("ckpt/restore", cat="ckpt", step=step):
+            dev = resolve_device(device)
+            index = self._index(step)
+            path = _step_dir(self.dir, step)
+            coords, mesh, rank = {}, [1, 1, 1], 0
+            if axes is not None:
+                coords = _coords(axes.pp_rank, axes.dp_rank, axes.tp_rank,
+                                 axes.pp, axes.dp, axes.tp)
+                mesh, rank = [axes.pp, axes.dp, axes.tp], axes.rank
+            skeleton = {"params": decls, "opt": opt_decls}
+            flat = {}
+            for key, decl in tree_leaves(skeleton):
+                rec = index["leaves"].get(key)
+                if rec is None:
+                    raise KeyError(f"step {step} holds no {key}")
+                arr = np.load(os.path.join(path, rec["file"]),
+                              mmap_mode="r")
+                if "per_rank" in rec:
+                    if rec["per_rank"] != mesh:
+                        raise ValueError(
+                            f"{key} was saved per rank on pp x dp x tp = "
+                            f"{rec['per_rank']}, and this mesh is {mesh}: "
+                            f"the optimizer's factored moments are means "
+                            f"over a rank's local leaf (ROADMAP.md queue "
+                            f"3), so they do not carry over to another "
+                            f"mesh")
+                    block = arr[rank]
+                else:
+                    if tuple(arr.shape) != tuple(decl.shape):
+                        raise ValueError(
+                            f"{key}: saved {tuple(arr.shape)}, declared "
+                            f"{tuple(decl.shape)}")
+                    block = arr[_block(decl.spec, coords, arr.shape)] \
+                        if coords else arr
+                flat[key] = _tensor(block, rec["dtype"], dev)
+            tree = tree_unflatten(skeleton, flat)
         return TrainState(tree["params"], tree["opt"], step)
 
     def restore_latest(self, decls, opt_decls, axes=None, device=None):

@@ -34,15 +34,33 @@ ledger (kind ``elastic``).
 step on a throwaway copy of the state, so it stays out of the first
 resumed step's time.  The reference's static audit of a re-plan lowers
 HLO and is not ported: ``solve_plan(audit=True)`` raises (ROADMAP.md
-queue 1, item 8 part 4); so do the watchdog and its slow-step fixtures
-(item 8 part 3).  The elastic plans run ``kernel_backend="xla"``, the
-plain torch core, as the reference's run XLA's.
+queue 1, item 8 part 4).  The elastic plans run ``kernel_backend="xla"``,
+the plain torch core, as the reference's run XLA's.
+
+Observability, as the reference's: the parent's ``elastic/run``,
+``elastic/plan``, ``elastic/replan`` and ``elastic/restore`` spans, the
+``elastic/detect`` instant, ``elastic_host_failures_total`` and
+``elastic_recoveries_total``; in the ranks (merged under their pids,
+``obs/ranks.py``) an ``elastic/step`` span a step and the train
+metrics, and rank 0's ``elastic/compile`` span a phase, which opens at
+the parent's spawn so that it times what ``compile_s`` counts.  The
+energy-drift ``watchdog`` lives in the parent across phases: each
+phase's rank 0 gets its state, observes its steps and hands the state
+back, so ``watchdog.trips`` is the run's; its anomaly rows reach the
+ledger with the phase's straggler events.  A step in
+``cfg.slow_steps`` sleeps ``base x (slow_factor - 1)`` inside the
+metered window on every rank (after a ``torch.cuda.synchronize`` on the
+card, so the meter's CUDA events bracket it), ``base`` being rank 0's
+``watchdog.reference_s()``.  A step's seconds come from ``step_clock``
+(``train/trainer.py: metered_seconds`` unless a test injects one).
 
 ``python -m repro_torch.launch.train --elastic --kill-at-step N`` drives
 this loop from the command line.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 import time
 from dataclasses import dataclass, field
@@ -52,6 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import PHANTOM_KINDS
+from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.planner import (DEFAULT_HBM_BYTES, Constraints,
                                  PlanCandidate, enumerate_plans,
                                  filter_feasible, score_plans)
@@ -60,7 +79,8 @@ from repro_torch.train.checkpoint import CheckpointManager
 from repro_torch.train.fault import (FaultScript, RestartPolicy,
                                      SimulatedCluster, StragglerDetector,
                                      note_step_time)
-from repro_torch.train.trainer import OBS_TODO, rank0_decision
+from repro_torch.train.trainer import (metered_seconds, rank0_decision,
+                                      rank0_value)
 
 AUDIT_TODO = "ROADMAP.md queue 1, item 8 part 4"
 PHASE_TIMEOUT_S = 1800.0     # a phase's ranks, before they are killed
@@ -98,7 +118,9 @@ class ElasticConfig:
     audit_replan: bool = False         # the static audit gate
     straggler_window: int = 50
     straggler_threshold: float = 4.0
-    # the watchdog's slow-step fixtures (not ported: they raise)
+    # watchdog fixtures: sleep inside the metered call at these steps so
+    # the step runs ~slow_factor x its healthy wall time (the injected
+    # anomaly the energy-drift watchdog must trip on)
     slow_steps: Tuple[int, ...] = ()
     slow_factor: float = 6.0
 
@@ -352,42 +374,99 @@ def _build_runtime(plan: PlanCandidate, cfg: ElasticConfig, axes, device,
             "dataset": ds}
 
 
+def _slowed(step_fn, delay_s: float, device, *args):
+    """``step_fn(*args)``, then ``delay_s`` of sleep once its device work
+    is done: the injected anomaly, inside the caller's metered window."""
+    out = step_fn(*args)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    time.sleep(delay_s)
+    return out
+
+
 def _elastic_rank(axes, device, job: dict) -> dict:
     """One rank of a phase: build and warm the plan's step, then train
     the steps ``[job["start"], job["stop"])``, stopping at the target
     loss; checkpoint on the cadence or on rank 0's straggler decision,
     and flush before returning.  Returns the losses, step times, saved
-    steps, checkpoint IO and, from rank 0, the straggler detector and
-    its ledger events."""
+    steps, checkpoint IO and, from rank 0, the straggler detector, the
+    watchdog's state and their ledger events."""
     from repro_torch.core.ffn import local_batch
     from repro_torch.telemetry import Ledger
 
     cfg, plan = job["cfg"], job["plan"]
+    tracer, mx = get_tracer(), get_metrics()
+    lead = axes.rank == 0
+    # the phase's compile runs from the parent's spawn to the warm step
+    compile_span = (tracer.begin("elastic/compile", cat="elastic",
+                                 plan=plan.name)
+                    if lead and tracer.enabled else None)
+    if compile_span is not None:
+        compile_span.ts_us = (job["t_spawn"] - tracer.origin) * 1e6
     rt = _build_runtime(plan, cfg, axes, device, job["params_host"],
                         job["opt_host"])
-    ready = time.monotonic()
+    if compile_span is not None:
+        tracer.end(compile_span)
+    ready = time.perf_counter()
     mgr = CheckpointManager(job["ckpt_dir"], keep=cfg.keep_checkpoints,
                             axes=axes)
     meter = StepMeter(f"elastic_ffn{cfg.width}", warmup=0, device=device)
     detector, policy = job["detector"], job["policy"]
     ledger = Ledger(run="elastic_rank0")
+    wd, step_clock = job["watchdog"], job["step_clock"]
+    if wd is not None:
+        wd.rank = axes.rank
+        wd.ledger = ledger if lead else None
     params, opt_state = rt["params"], rt["opt_state"]
     losses, saved = [], []
     step, reached = job["start"], False
     try:
         while step < job["stop"]:
             x, y = rt["dataset"](step)
-            params, opt_state, loss = meter.call(
-                rt["step_fn"], params, opt_state, step,
+            step_fn, injected = rt["step_fn"], 0.0
+            if step in cfg.slow_steps:
+                base = wd.reference_s() if lead and wd is not None \
+                    else None
+                if lead and not base:
+                    base = meter.median_us() * 1e-6 or 0.02
+                injected = rank0_value(base or 0.0, axes, device) * max(
+                    cfg.slow_factor - 1.0, 0.0)
+                step_fn = functools.partial(_slowed, step_fn, injected,
+                                            device)
+            run_metered = functools.partial(
+                meter.call, step_fn, params, opt_state, step,
                 local_batch(x, axes), local_batch(y, axes))
+            with tracer.span("elastic/step", cat="train", step=step,
+                             plan=plan.name,
+                             replay=step < job["replay_until"]):
+                if wd is not None and wd.capture_pending():
+                    params, opt_state, loss = wd.capture(run_metered)
+                else:
+                    params, opt_state, loss = run_metered()
             losses.append(float(loss))
             step += 1
+            dt_s = step_clock(step - 1, meter.times_us[-1] / 1e6, injected)
+            mx.counter("train_steps_total",
+                       "executed training steps").inc(suite="elastic")
+            mx.histogram("train_step_seconds",
+                         "metered train step wall seconds").observe(
+                             dt_s, suite="elastic")
+            mx.gauge("train_loss", "last observed training loss").set(
+                losses[-1], suite="elastic")
+            if wd is not None:
+                if lead:
+                    # step already advanced: the anomaly row must name
+                    # the step that actually ran
+                    wd.observe(step - 1, dt_s)
+                if wd.profile_dir:
+                    wd.set_capture_pending(rank0_value(
+                        wd.capture_pending(), axes, device))
             decision = None
-            if axes.rank == 0:
+            if lead:
                 decision = note_step_time(
-                    detector, policy, step, meter.times_us[-1] / 1e6,
-                    ledger, name="elastic_straggler",
-                    arch=f"ffn{cfg.width}", impl=plan.strategy, p=plan.tp)
+                    detector, policy, step, dt_s, ledger,
+                    name="elastic_straggler", arch=f"ffn{cfg.width}",
+                    impl=plan.strategy, p=plan.tp)
             if rank0_decision(decision, axes, device) == "checkpoint" \
                     or step % cfg.checkpoint_every == 0:
                 mgr.save_async(step, params, opt_state,
@@ -402,10 +481,12 @@ def _elastic_rank(axes, device, job: dict) -> dict:
     mgr.flush()
     out = {"rank": axes.rank, "losses": losses, "final_step": step,
            "reached": reached, "saved": saved, "io": mgr.io_stats(),
-           "ready": ready, "wall_s": time.monotonic() - ready,
+           "ready": ready, "wall_s": time.perf_counter() - ready,
            "step_us": meter.times_us}
-    if axes.rank == 0:
-        out.update(detector=detector, events=ledger.entries)
+    if lead:
+        if wd is not None:
+            wd.ledger = None
+        out.update(detector=detector, events=ledger.entries, watchdog=wd)
     return out
 
 
@@ -439,22 +520,21 @@ def _play_ahead(cluster, fault_script, fired: set, handled: set, step: int,
 def run_elastic(cfg: ElasticConfig, *, ledger=None,
                 fault_script: Optional[FaultScript] = None,
                 calibration=None, watchdog=None, log_fn=print,
-                device=None, rank_fn=_elastic_rank) -> ElasticResult:
+                device=None, rank_fn=_elastic_rank,
+                step_clock=metered_seconds) -> ElasticResult:
     """Train to ``cfg.target_loss`` through scripted host losses, each
     phase's ranks on ``device`` (the card unless the caller asks for the
     CPU).  Detection -> policy -> re-plan -> restore / convert ->
     resume; ``ElasticResult.account`` is the priced recovery account
-    (also recorded in ``ledger``, kind ``elastic``).  ``rank_fn`` is the
-    phase's rank body (a test substitutes a wrapper of
-    ``_elastic_rank``)."""
+    (also recorded in ``ledger``, kind ``elastic``).  ``watchdog`` (an
+    ``EnergyDriftWatchdog``) watches every phase's steps;
+    ``step_clock(step, metered_s, injected_s)`` gives a step's seconds
+    (picklable: it reaches the ranks).  ``rank_fn`` is the phase's rank
+    body (a test substitutes a wrapper of ``_elastic_rank``)."""
     from repro_torch.launch.mesh import spawn
     from repro_torch.parallel.axes import resolve_device
     from repro_torch.planner.calibration import calibrate_from_ledger
 
-    if watchdog is not None or cfg.slow_steps:
-        raise NotImplementedError(
-            f"run_elastic: the energy-drift watchdog and its slow-step "
-            f"fixtures are not ported yet ({OBS_TODO})")
     os.makedirs(cfg.workdir, exist_ok=True)
     if cfg.devices % cfg.hosts:
         raise ValueError(f"{cfg.devices} devices do not divide over "
@@ -473,11 +553,18 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
                                  threshold=cfg.straggler_threshold)
     meter = StepMeter(f"elastic_ffn{cfg.width}", warmup=1, device="cpu")
     fault_script = fault_script or FaultScript()
+    tracer = get_tracer()
+    metrics = get_metrics()
 
-    scored, _ = solve_plan(
-        cfg.devices, cfg, calib,
-        strategies=((cfg.initial_strategy,) if cfg.initial_strategy
-                    else None))
+    run_span = tracer.begin("elastic/run", cat="elastic",
+                            devices=cfg.devices, width=cfg.width)
+    with tracer.span("elastic/plan", cat="elastic",
+                     devices=cfg.devices) as sp:
+        scored, _ = solve_plan(
+            cfg.devices, cfg, calib,
+            strategies=((cfg.initial_strategy,) if cfg.initial_strategy
+                        else None))
+        sp.annotate(plan=scored.plan.name)
     log_fn(f"[elastic] initial plan {scored.plan.name} "
            f"({scored.plan.devices} devices)")
     phases: List[_Phase] = []
@@ -488,6 +575,7 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
     loss = float("nan")
     losses: List[float] = []
     reached = aborted = False
+    replay_until = 0               # steps below this re-run lost work
     nxt = dict(scored=scored, replayed=0, restart=False, params_host=None,
                opt_host=None)
     while True:
@@ -495,19 +583,29 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
         stop, new_dead, kills = _play_ahead(cluster, fault_script, fired,
                                             handled_dead, step, cfg)
         plan = nxt["scored"].plan
-        t_spawn = time.monotonic()
+        t_spawn = time.perf_counter()
         ranks = spawn(rank_fn, plan.dp, plan.tp, dev, pp=plan.pp,
                       timeout_s=PHASE_TIMEOUT_S, args=(dict(
                           cfg=cfg, plan=plan, start=start, stop=stop,
                           params_host=nxt["params_host"],
                           opt_host=nxt["opt_host"], ckpt_dir=ckpt_dir,
-                          detector=detector, policy=policy),))
+                          detector=detector, policy=policy,
+                          t_spawn=t_spawn, replay_until=replay_until,
+                          watchdog=(None if watchdog is None else
+                                    dataclasses.replace(watchdog,
+                                                        ledger=None)),
+                          step_clock=step_clock),))
         r0 = ranks[0]
         phase = _Phase(nxt["scored"], start, nxt["replayed"],
                        r0["ready"] - t_spawn, nxt["restart"])
         phase.close(ranks)
         phases.append(phase)
         detector = r0["detector"]
+        if watchdog is not None:
+            for f in dataclasses.fields(watchdog):
+                if f.name != "ledger":
+                    setattr(watchdog, f.name, getattr(r0["watchdog"],
+                                                      f.name))
         for event in r0["events"]:
             if ledger is not None:
                 ledger.record(event)
@@ -525,6 +623,12 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
         if not new_dead:
             break                       # max_steps
         handled_dead.update(new_dead)
+        tracer.instant("elastic/detect", cat="elastic", step=step,
+                       dead_hosts=sorted(new_dead))
+        metrics.counter(
+            "elastic_host_failures_total",
+            "hosts declared dead by the heartbeat monitor").inc(
+                len(new_dead))
         decision = policy.on_host_failure(new_dead, None)
         survivors = cfg.hosts - len(handled_dead)
         alive = devices_per_host * survivors
@@ -534,26 +638,31 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
                    f" ({len(handled_dead)}/{cfg.hosts} hosts dead)")
             aborted = True
             break
-        t_replan = time.perf_counter()
-        new_scored, _ = solve_plan(alive, cfg, calib)
-        replan_s = time.perf_counter() - t_replan
-        t_restore = time.perf_counter()
-        latest = mgr.latest_step()
-        params_host = opt_host = None
-        distilled = False
-        restored_step = 0
-        if latest is not None:
-            index, flat = mgr.load_host(latest)
-            restored_step = int(index["step"])
-            nested = _nest(flat)
-            meta_plan = index.get("meta", {}).get("plan")
-            plan_old = (plan_from_dict(meta_plan) if meta_plan
-                        else phases[-1].plan)
-            params_host, opt_host, distilled = convert_ffn_params(
-                plan_old, new_scored.plan, nested.get("params", {}),
-                nested.get("opt") or None)
-            mgr.invalidate_after(restored_step)
-        restore_s = time.perf_counter() - t_restore
+        with tracer.span("elastic/replan", cat="elastic",
+                         alive_devices=alive) as sp:
+            t_replan = time.perf_counter()
+            new_scored, _ = solve_plan(alive, cfg, calib)
+            replan_s = time.perf_counter() - t_replan
+            sp.annotate(plan=new_scored.plan.name)
+        with tracer.span("elastic/restore", cat="elastic") as sp:
+            t_restore = time.perf_counter()
+            latest = mgr.latest_step()
+            params_host = opt_host = None
+            distilled = False
+            restored_step = 0
+            if latest is not None:
+                index, flat = mgr.load_host(latest)
+                restored_step = int(index["step"])
+                nested = _nest(flat)
+                meta_plan = index.get("meta", {}).get("plan")
+                plan_old = (plan_from_dict(meta_plan) if meta_plan
+                            else phases[-1].plan)
+                params_host, opt_host, distilled = convert_ffn_params(
+                    plan_old, new_scored.plan, nested.get("params", {}),
+                    nested.get("opt") or None)
+                mgr.invalidate_after(restored_step)
+            restore_s = time.perf_counter() - t_restore
+            sp.annotate(distilled=distilled, restored_step=restored_step)
         replayed = max(step - restored_step, 0)
         recoveries.append({
             "detect_step": step, "restored_step": restored_step,
@@ -575,8 +684,13 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
                f"step {restored_step}"
                + (" [distilled]" if distilled else "")
                + f", replaying {replayed} step(s)")
+        metrics.counter(
+            "elastic_recoveries_total",
+            "elastic re-plan/restore/resume cycles").inc(
+                distilled=str(distilled).lower())
         nxt = dict(scored=new_scored, replayed=replayed, restart=True,
                    params_host=params_host, opt_host=opt_host)
+        replay_until = step
         step = restored_step
 
     phase_dicts = [p.as_dict() for p in phases]
@@ -588,9 +702,10 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
         final_step=step, phases=phase_dicts, recoveries=recoveries,
         account=account, plan_names=[p.plan.name for p in phases],
         losses=losses)
+    entry = None
     if ledger is not None:
         last = phases[-1].plan
-        ledger.record(LedgerEntry(
+        entry = ledger.record(LedgerEntry(
             name=f"elastic_ffn{cfg.width}", suite="elastic",
             kind="elastic", arch=f"ffn{cfg.width}x{cfg.depth}",
             impl=last.strategy, p=last.tp,
@@ -606,6 +721,11 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
                    "target_loss": cfg.target_loss,
                    "straggler_flags": len(detector.flagged)}))
         ledger.flush()
+    if entry is not None:
+        run_span.link_ledger(entry)
+    run_span.annotate(final_step=step, reached_target=reached,
+                      recoveries=len(recoveries))
+    tracer.end(run_span)
     log_fn(f"[elastic] done: step {step} loss {loss:.4f} "
            f"target {'REACHED' if reached else 'missed'}, "
            f"{len(recoveries)} recovery(ies), replay ratio "

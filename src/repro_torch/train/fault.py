@@ -14,9 +14,9 @@
    than ``threshold`` x the trailing median; ``note_step_time`` is the
    hook every metered loop calls (``Trainer``, the elastic runner): a
    flagged step becomes a ledger event (kind ``fault``) and the
-   ``RestartPolicy``'s decision, checkpoint-now by default.  The
-   reference's tracer and metric calls here wait for ``obs/`` (ROADMAP.md
-   queue 1, item 8 part 3).
+   ``RestartPolicy``'s decision, checkpoint-now by default, counted in
+   ``straggler_events_total`` and marked by a ``fault/straggler``
+   instant.
 4. **Elastic rescale**: ``FaultScript`` injects scripted host losses;
    ``train/elastic.py`` re-plans dp x tp x k over the survivors.
 """
@@ -137,6 +137,14 @@ def note_step_time(detector: Optional[StragglerDetector],
     _, _, median = detector.flagged[-1]
     decision = (policy.on_straggler(step, dt_s, median)
                 if policy is not None else "log")
+    from repro_torch.obs import get_metrics, get_tracer
+    get_metrics().counter(
+        "straggler_events_total",
+        "steps flagged slower than threshold x trailing median").inc(
+            decision=decision)
+    get_tracer().instant(
+        "fault/straggler", cat="fault", step=step, dt_s=dt_s,
+        median_s=median, decision=decision)
     if ledger is not None:
         from repro_torch.telemetry import LedgerEntry
         ledger.record(LedgerEntry(

@@ -8,9 +8,8 @@ Two halves, one object each:
     non-interleaved 1F1B order (warmup/steady/drain), the bubble
     fraction, the 1F1B in-flight activation bound, and the per-device
     stage-boundary ``CommEvent`` account that ``core/energy.py`` and
-    ``telemetry/predict.py`` price.  The reference also sets an ``obs``
-    gauge of the bubble fraction here; the port has no ``obs/`` yet
-    (ROADMAP.md queue 1, item 8), so it is left out.
+    ``telemetry/predict.py`` price, and the ``pipeline_bubble_fraction``
+    gauge.
 
   * ``pipeline_run``: the EXECUTED side.  The reference runs a wavefront
     of ``M + S - 1`` ticks in one SPMD program whose bubbles compute on
@@ -41,6 +40,21 @@ from repro_torch.parallel.strategies.base import CommEvent
 # the schedule (analytic)
 # ---------------------------------------------------------------------------
 
+def one_f_one_b(stages: int, microbatches: int,
+                stage: int) -> List[Tuple[str, int]]:
+    """``PipelineSchedule(stages, microbatches).table(stage)``, without
+    the schedule's gauge: what ``pipeline_run`` walks every step."""
+    M, w = microbatches, min(stages - 1 - stage, microbatches)
+    ops: List[Tuple[str, int]] = [("F", i) for i in range(w)]
+    b = 0
+    for f in range(w, M):
+        ops.append(("F", f))
+        ops.append(("B", b))
+        b += 1
+    ops.extend(("B", i) for i in range(b, M))
+    return ops
+
+
 @dataclass(frozen=True)
 class PipelineSchedule:
     """Non-interleaved 1F1B over ``microbatches`` microbatches and
@@ -53,6 +67,12 @@ class PipelineSchedule:
         if self.stages < 1 or self.microbatches < 1:
             raise ValueError(f"need stages >= 1 and microbatches >= 1, "
                              f"got {self.stages}/{self.microbatches}")
+        from repro_torch.obs import get_metrics
+        get_metrics().gauge(
+            "pipeline_bubble_fraction",
+            "idle fraction of the 1F1B timeline, (S-1)/(M+S-1)").set(
+                self.bubble_fraction, stages=str(self.stages),
+                microbatches=str(self.microbatches))
 
     # --- wavefront geometry ------------------------------------------------
 
@@ -84,15 +104,7 @@ class PipelineSchedule:
     def table(self, stage: int) -> List[Tuple[str, int]]:
         """The canonical per-stage 1F1B op order: [("F", mb) | ("B", mb)].
         Warmup forwards, then strict 1F1B alternation, then the drain."""
-        M, w = self.microbatches, self.warmup(stage)
-        ops: List[Tuple[str, int]] = [("F", i) for i in range(w)]
-        b = 0
-        for f in range(w, M):
-            ops.append(("F", f))
-            ops.append(("B", b))
-            b += 1
-        ops.extend(("B", i) for i in range(b, M))
-        return ops
+        return one_f_one_b(self.stages, self.microbatches, stage)
 
     # --- stage-boundary communication account ------------------------------
 
@@ -168,7 +180,7 @@ def pipeline_run(stage_fn: Callable[[torch.Tensor], torch.Tensor],
     sends = []
     loss = torch.zeros((), dtype=x_mb.dtype, device=x_mb.device)
     x_grad = torch.zeros_like(x_mb) if first and input_grad else None
-    for op, i in PipelineSchedule(S, M).table(s):
+    for op, i in one_f_one_b(S, M, s):
         if op == "F":
             x = x_mb[i] if first else pipe.recv(x_mb[i], s - 1)
             x = x.detach().requires_grad_(not first or input_grad)

@@ -25,9 +25,15 @@ the metered steps as a ledger entry, asynchronous checkpoints every
 ``checkpoint_every`` steps (``train/checkpoint.py``: each rank writes
 its own blocks of the global arrays) and ``restore_or_init``, and the
 straggler hook (``train/fault.py: note_step_time``) whose checkpoint-now
-decision rank 0 takes for every rank.  The energy-drift watchdog and the
-tracer and metric calls wait for ``obs/`` (ROADMAP.md queue 1, item 8
-part 3).
+decision rank 0 takes for every rank.  The reference's observability:
+the ``train/run`` span and a ``train/step`` span a step, the
+``train_steps_total``, ``train_step_seconds`` and ``train_loss``
+metrics, and the energy-drift watchdog (``obs/watchdog.py``), which
+rank 0 feeds and whose armed profiler capture every rank takes on the
+next step (``rank0_value``).  A step's seconds, for the metrics, the
+watchdog and the straggler hook, come from ``step_clock`` (default
+``metered_seconds``: the ``StepMeter``'s time); a test injects a
+virtual one.
 
 ``pilot_ffn_run`` is the planner's quality measurement
 (``planner/isoloss.py``): one rank's share of a small paper-FFN run on
@@ -44,6 +50,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import (STACKS, forward_train,
                                       forward_train_pipeline, model_decls)
+from repro_torch.obs import get_metrics, get_tracer
 from repro_torch.parallel.axes import MeshAxes, resolve_device
 from repro_torch.parallel.grads import _spec_axes, reduce_grads
 from repro_torch.parallel.params import (materialize_shards_in_turn,
@@ -54,7 +61,6 @@ from repro_torch.train.fault import note_step_time
 from repro_torch.train.pipeline import batch_axis, split_batch_microbatches
 
 AUX_LOSS_WEIGHT = 0.01
-OBS_TODO = "ROADMAP.md queue 1, item 8 part 3"
 NORM_CHUNK = 1 << 28   # a larger leaf's sum of squares goes in chunks
 
 
@@ -210,20 +216,33 @@ def make_train_step(cfg: ModelConfig, axes: MeshAxes, optimizer, *,
 # the training loop
 # ---------------------------------------------------------------------------
 
+def rank0_value(value: float, axes: MeshAxes, device) -> float:
+    """Rank 0's ``value`` on every rank, over an unrecorded group (host
+    bookkeeping: the step's wire count does not move).  Each rank times
+    its own steps, so what rank 0 decides from its times (a straggler's
+    checkpoint, the watchdog's armed capture, the slow step's delay)
+    crosses the world this way."""
+    world = axes.world_comm
+    if world.size == 1:
+        return float(value)
+    t = torch.tensor([float(value) if axes.rank == 0 else 0.0],
+                     dtype=torch.float64, device=device)
+    return float(world.unrecorded().all_reduce(t).item())
+
+
 def rank0_decision(decision: Optional[str], axes: MeshAxes,
                    device) -> Optional[str]:
     """Rank 0's straggler decision on every rank: ``"checkpoint"`` if
-    rank 0 decided so, else None.  Each rank times its own steps, and a
-    save must be taken by all of them or none; the flag crosses the
-    world on an unrecorded group, so the step's wire count does not
-    move."""
-    world = axes.world_comm
-    if world.size == 1:
-        return decision
-    flag = torch.tensor([float(axes.rank == 0 and decision == "checkpoint")],
-                        device=device)
-    return ("checkpoint" if world.unrecorded().all_reduce(flag).item() > 0
-            else None)
+    rank 0 decided so, else None; a save must be taken by all ranks or
+    none."""
+    flag = rank0_value(decision == "checkpoint", axes, device)
+    return "checkpoint" if flag > 0 else None
+
+
+def metered_seconds(step: int, metered_s: float, injected_s: float) -> float:
+    """The default step clock: a step's seconds are the ``StepMeter``'s,
+    which hold any delay injected into the step (``injected_s``)."""
+    return metered_s
 
 
 @dataclass
@@ -235,7 +254,10 @@ class TrainState:
 
 class Trainer:
     """The training loop of one rank: data, step, meter, log, ledger,
-    checkpoints and the straggler hook."""
+    checkpoints, the straggler hook and the energy-drift watchdog
+    (``watchdog``: each rank its own, named for its rank's capture;
+    rank 0's observes).  ``step_clock(step, metered_s, injected_s)``
+    gives a step's seconds (default ``metered_seconds``)."""
 
     def __init__(self, cfg: ModelConfig, axes: MeshAxes, optimizer,
                  dataset, *, microbatches: int = 1, grad_clip: float = 1.0,
@@ -244,11 +266,7 @@ class Trainer:
                  log_every: int = 10, log_fn: Callable = print,
                  meter: Optional[StepMeter] = None, ledger=None,
                  straggler=None, restart_policy=None, watchdog=None,
-                 device=None):
-        if watchdog is not None:
-            raise NotImplementedError(
-                f"Trainer(watchdog=...): the energy-drift watchdog is not "
-                f"ported yet ({OBS_TODO})")
+                 step_clock: Callable = metered_seconds, device=None):
         self.cfg, self.axes, self.optimizer = cfg, axes, optimizer
         self.dataset = dataset
         self.log_every, self.log_fn = log_every, log_fn
@@ -258,6 +276,10 @@ class Trainer:
         self.ledger = ledger
         self.straggler = straggler            # StragglerDetector | None
         self.restart_policy = restart_policy  # RestartPolicy | None
+        self.watchdog = watchdog              # EnergyDriftWatchdog | None
+        if watchdog is not None:
+            watchdog.rank = axes.rank
+        self.step_clock = step_clock
         self.checkpoint_every = checkpoint_every
         self.history: list = []      # {"loss", "grad_norm"} of every step
         self._ledger_window = 0
@@ -309,21 +331,50 @@ class Trainer:
         out, a failed step's too."""
         params, opt_state, step = state.params, state.opt_state, state.step
         impl = "phantom" if self.cfg.uses_phantom_sites() else "dense"
+        wd = self.watchdog
+        tracer = get_tracer()
+        mx = get_metrics()
+        steps_c = mx.counter("train_steps_total",
+                             "executed training steps")
+        step_h = mx.histogram("train_step_seconds",
+                              "metered train step wall seconds")
+        loss_g = mx.gauge("train_loss", "last observed training loss")
+        run_span = tracer.begin("train/run", cat="train",
+                                arch=self.cfg.name, impl=impl,
+                                start_step=step, num_steps=num_steps)
         window = []
         try:
             while step < num_steps:
                 batch = local_rows(self.dataset(step), self.axes)
-                params, opt_state, metrics = self.meter.call(
-                    self.step_fn, params, opt_state, step, batch)
+                with tracer.span("train/step", cat="train", step=step,
+                                 arch=self.cfg.name):
+                    if wd is not None and wd.capture_pending():
+                        params, opt_state, metrics = wd.capture(
+                            self.meter.call, self.step_fn, params,
+                            opt_state, step, batch)
+                    else:
+                        params, opt_state, metrics = self.meter.call(
+                            self.step_fn, params, opt_state, step, batch)
                 step += 1
                 m = {k: float(v) for k, v in metrics.items()}
                 self.history.append(m)
                 window.append(m)
+                dt_s = self.step_clock(
+                    step - 1, self.meter.times_us[-1] * 1e-6, 0.0)
+                steps_c.inc(suite="trainer")
+                step_h.observe(dt_s, suite="trainer")
+                loss_g.set(m["loss"], suite="trainer")
+                if wd is not None:
+                    if self.axes.rank == 0:
+                        # step already advanced: name the step that ran
+                        wd.observe(step - 1, dt_s)
+                    if wd.profile_dir:
+                        wd.set_capture_pending(rank0_value(
+                            wd.capture_pending(), self.axes, self.device))
                 decision = note_step_time(
-                    self.straggler, self.restart_policy, step,
-                    self.meter.times_us[-1] * 1e-6, self.ledger,
-                    name=f"straggler_{self.cfg.name}", arch=self.cfg.name,
-                    impl=impl, p=self.axes.tp)
+                    self.straggler, self.restart_policy, step, dt_s,
+                    self.ledger, name=f"straggler_{self.cfg.name}",
+                    arch=self.cfg.name, impl=impl, p=self.axes.tp)
                 if self.straggler is not None:
                     decision = rank0_decision(decision, self.axes,
                                               self.device)
@@ -350,7 +401,9 @@ class Trainer:
         if self.checkpoints is not None:
             self.checkpoints.flush()
         if self.ledger is not None:
-            self.record_to(self.ledger)
+            # link BEFORE end(): the event dict is copied at end time
+            run_span.link_ledger(self.record_to(self.ledger))
+        tracer.end(run_span.annotate(final_step=step))
         return TrainState(params, opt_state, step)
 
     def record_to(self, ledger, predicted=None, name=None,
@@ -430,6 +483,9 @@ def pilot_ffn_run(cfg: ModelConfig, axes: MeshAxes, device, *, steps: int,
 
     losses: List[float] = []
     iters_to_target = None
+    pilot_span = get_tracer().begin(
+        "plan/pilot", cat="plan", arch=cfg.name, strategy=st.kind,
+        width=cfg.ffn_width, tp=axes.tp, k=getattr(st, "k", 0))
     for s in range(steps):
         x, y = ds(s)
         params, opt_state, loss = meter.call(
@@ -441,10 +497,16 @@ def pilot_ffn_run(cfg: ModelConfig, axes: MeshAxes, device, *, steps: int,
             iters_to_target = s + 1
             if stop_at_target:
                 break
+    get_metrics().counter("plan_pilot_steps_total",
+                          "training steps spent in planner pilots").inc(
+                              len(losses), arch=cfg.name)
     res = PilotResult(
         name=f"pilot_{cfg.name}", strategy=st.kind, width=cfg.ffn_width,
         tp=axes.tp, k=getattr(st, "k", 0), steps_run=len(losses),
         final_loss=losses[-1] if losses else float("nan"), losses=losses,
         target_loss=target_loss, iters_to_target=iters_to_target,
         wall_us_median=meter.median_us())
+    get_tracer().end(pilot_span.annotate(
+        steps_run=res.steps_run, final_loss=res.final_loss,
+        iters_to_target=iters_to_target))
     return res, meter.summary()

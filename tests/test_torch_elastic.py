@@ -11,8 +11,10 @@ and batches are not the reference's (its batches come from numpy, its
 draws from torch), so losses are not compared; the plans, the recovery
 fields and the account's step counts are, with the reference's peak
 given to the port's scoring.  Also: the CLI run of the acceptance
-command, and what raises: a device budget that does not divide over the
-hosts, the audit gate, the watchdog, a repo-root ``--report-out``."""
+command (with a slow step, a trace and metrics), the energy-drift
+watchdog over a run on an injected step clock, and what raises: a device
+budget that does not divide over the hosts, the audit gate, a repo-root
+``--report-out``."""
 import contextlib
 import functools
 import io
@@ -232,40 +234,60 @@ def test_devices_must_divide_hosts(tmp_path):
 
 
 def test_unported_gates_raise(tmp_path):
-    """The re-plan audit (item 8 part 4) and the watchdog with its
-    slow-step fixtures (part 3) raise, naming their ROADMAP items."""
+    """The re-plan audit (item 8 part 4) raises, naming its ROADMAP
+    item; the watchdog with its slow-step fixtures (part 3, raising
+    until it was ported) watches a run: on an injected step clock the
+    slow step is the one trip, and the watchdog's state crossed the
+    phase's ranks back to the caller."""
+    from repro_torch.obs import EnergyDriftWatchdog
+    from torch_ranks import VirtualStepClock
     cfg = _cfg(tmp_path)
     with pytest.raises(NotImplementedError, match="item 8 part 4"):
         solve_plan(8, cfg, paper_default_calibration(), audit=True)
     with pytest.raises(NotImplementedError, match="item 8 part 4"):
         run_elastic(_cfg(tmp_path, audit_replan=True), log_fn=_quiet,
                     device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8 part 3"):
-        run_elastic(cfg, watchdog=object(), log_fn=_quiet, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8 part 3"):
-        run_elastic(_cfg(tmp_path, slow_steps=(3,)), log_fn=_quiet,
-                    device="cpu")
+    ledger = Ledger(run="t")
+    wd = EnergyDriftWatchdog(min_samples=3, ledger=ledger)
+    res = run_elastic(_cfg(tmp_path / "slow", devices=2, hosts=2,
+                           max_steps=6, slow_steps=(5,)),
+                      watchdog=wd, ledger=ledger, log_fn=_quiet,
+                      device="cpu", step_clock=VirtualStepClock(0.01))
+    assert res.final_step == 6
+    assert [(t.kind, t.step) for t in wd.trips] == [("spike", 5)]
+    assert wd.summary()["observations"] == 6
+    assert [e.kind for e in ledger.entries].count("anomaly") == 1
 
 
 def test_cli_survives_a_loss_and_reaches_the_target(tmp_path):
     """``python -m repro_torch.launch.train --elastic --device cpu
     --kill-at-step 25`` at the reference CLI's defaults (width 64, 300
-    steps, target 0.12): it survives the loss, reaches the target and
-    exits 0; its report defaults to ``build/``, and a repo-root report
-    path raises before anything runs."""
+    steps, target 0.12), with ``--slow-step 20``, ``--trace-out`` and
+    ``--metrics-out``: it survives the loss, reaches the target and
+    exits 0, prints the watchdog's line, and its trace passes
+    ``verify-recovery`` against its report; the report defaults to
+    ``build/``, and a repo-root report path raises before anything
+    runs."""
+    from repro_torch.launch.obs import main as obs_main
     from repro_torch.launch.train import (DEFAULT_ELASTIC_REPORT,
                                           build_parser, main)
     from repro_torch.telemetry.ledger import REPORT_DIR, load_report
     out = tmp_path / "build" / "elastic.json"
+    trace, prom = str(tmp_path / "t.json"), str(tmp_path / "m.prom")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = main(["--elastic", "--device", "cpu", "--kill-at-step", "25",
                    "--workdir", str(tmp_path / "w"), "--report-out",
-                   str(out)])
+                   str(out), "--slow-step", "20", "--trace-out", trace,
+                   "--metrics-out", prom])
+        assert obs_main(["verify-recovery", "--trace", trace,
+                         "--report", str(out)]) == 0
     log = buf.getvalue()
     assert rc == 0, log
     assert "static audit gate off" in log
     assert "step 25: host host3 lost" in log and "REACHED" in log
+    assert "[obs] watchdog:" in log and "[obs] trace ->" in log
+    assert "elastic_recoveries_total" in open(prom).read()
     rows = [e for e in load_report(str(out))["entries"]
             if e["kind"] == "elastic"]
     assert rows[0]["extra"]["reached_target"]
@@ -278,7 +300,12 @@ def test_cli_survives_a_loss_and_reaches_the_target(tmp_path):
         main(["--elastic", "--device", "cpu", "--report-out",
               str(root / "BENCH_report.json")])
     # --plan applies a plan report since it was ported
-    # (tests/test_torch_plan_cli.py)
-    for flag in ("--slow-step", "--profile-dir", "--overlap"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            main(["--elastic", flag, "1"])
+    # (tests/test_torch_plan_cli.py), and --slow-step and --profile-dir
+    # (item 8 part 3) parse as the reference's do
+    args = build_parser().parse_args(["--elastic", "--slow-step", "3",
+                                      "--slow-step", "7", "--profile-dir",
+                                      "p"])
+    assert (args.slow_step, args.slow_factor, args.profile_dir) == \
+        ([3, 7], 6.0, "p")
+    with pytest.raises(NotImplementedError, match="item 8 part 4"):
+        main(["--elastic", "--overlap", "1"])

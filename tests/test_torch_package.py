@@ -33,7 +33,9 @@ def test_every_module_imports_without_jax_or_repro():
     """With ``jax`` made unimportable, every module of the port imports
     (the SSM family's ``models/ssm.py`` among them), and no module of the
     JAX package is loaded afterwards."""
-    assert "repro_torch.models.ssm" in _modules()
+    assert {"repro_torch.models.ssm", "repro_torch.obs",
+            "repro_torch.obs.watchdog",
+            "repro_torch.launch.obs"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -408,16 +410,18 @@ def test_unported_arch_and_family_raise():
 
 @pytest.mark.parametrize("what", ["model_tp", "train_pp", "norm",
                                   "remat", "trainer_ops"])
-def test_unported_training_paths_raise(what):
+def test_unported_training_paths_raise(what, tmp_path):
     """What the trainer does not run yet raises and names its ROADMAP
     item, and what no mesh can shard raises before it computes: the
     serving forwards of a family on a model axis that does not divide its
     heads (they named ROADMAP.md queue 1 item 1 at any tp > 1 until the
     family was ported to serve there),
-    an MLP kind no ported config uses, remat policies other than full
-    and none, and the energy-drift watchdog (item 8 part 3; checkpoints,
-    the straggler hook and restart policies raised here until they were
-    ported).  The full-model pipeline,
+    an MLP kind no ported config uses, and remat policies other than
+    full and none.  The energy-drift watchdog (item 8 part 3; like
+    checkpoints, the straggler hook and restart policies it raised here
+    until it was ported) now watches the trainer: a prediction every
+    step exceeds trips it at the first step and the next is captured
+    with ``torch.profiler``.  The full-model pipeline,
     which raised until it was ported, builds: its layer stacks are
     pipe-sharded ``[pp, G/pp, ...]``."""
     from repro_torch.models.layers import norm_decls
@@ -451,6 +455,14 @@ def test_unported_training_paths_raise(what):
             block_train(cfg.replace(remat="dots"), "fp", {}, None, None,
                         MeshAxes(), "mlp")
     else:
-        with pytest.raises(NotImplementedError, match="item 8 part 3"):
-            Trainer(cfg, MeshAxes(), AdamW(1e-3), None,
-                    watchdog=object(), device="cpu")
+        from repro_torch.data.synthetic import LMDataset
+        from repro_torch.obs import EnergyDriftWatchdog
+        wd = EnergyDriftWatchdog(predicted_s=1e-6,
+                                 profile_dir=str(tmp_path))
+        trainer = Trainer(cfg, MeshAxes(), AdamW(1e-3), LMDataset(
+            cfg.vocab_size, 2, 17, device="cpu"), log_fn=lambda _m: None,
+            watchdog=wd, device="cpu")
+        trainer.run(trainer.init_state(0), 2)
+        assert [(t.kind, t.step) for t in wd.trips] == [("spike", 0)]
+        assert wd.captures == [str(tmp_path)]
+        assert (tmp_path / "rank0.json").exists()

@@ -1186,3 +1186,42 @@ def install_pilot_draws(axes, device, draws):
     ffn.init_ffn = init_ffn
     synthetic.TeacherDataset = TeacherDataset
     return axes.rank
+
+
+class VirtualStepClock:
+    """A step clock (``train/trainer.py: metered_seconds``'s signature)
+    under which every step takes ``dt`` virtual seconds plus the delay
+    injected into it: a slow step of ``slow_factor`` then takes
+    ``slow_factor`` times the others, whatever the host's load."""
+
+    def __init__(self, dt: float = 0.01):
+        self.dt = dt
+
+    def __call__(self, step: int, metered_s: float,
+                 injected_s: float) -> float:
+        return self.dt + injected_s
+
+
+def obs_trainer_body(axes, device, root, steps):
+    """``launch/train.py``'s trainer of phi3-smoke (float32, batch 4 x
+    seq 32) for ``steps`` steps on this rank, a checkpoint after each
+    step under ``root``, and a watchdog whose prediction (1 us) every
+    step exceeds: rank 0's first step trips it and every rank captures
+    the next step under ``root/prof``.  Returns the rank, its watchdog's
+    trips and captures."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.obs import EnergyDriftWatchdog
+    from repro_torch.optim import AdamW
+    from repro_torch.train.trainer import Trainer
+
+    cfg = get_config("phi3-mini-3.8b", smoke=True, dtype="float32")
+    wd = EnergyDriftWatchdog(predicted_s=1e-6, profile_dir=f"{root}/prof",
+                             name="train_phi3-smoke")
+    trainer = Trainer(cfg, axes, AdamW(1e-3), LMDataset(
+        cfg.vocab_size, 4, 33, device=device), checkpoint_dir=f"{root}/ck",
+        checkpoint_every=1, log_fn=lambda _m: None, watchdog=wd,
+        step_clock=VirtualStepClock(), device=device)
+    trainer.run(trainer.init_state(0), steps)
+    return {"rank": axes.rank, "trips": [t.as_dict() for t in wd.trips],
+            "captures": list(wd.captures)}
