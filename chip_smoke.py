@@ -11,8 +11,10 @@ Phases (any failure exits non-zero):
    port from ``src/repro_torch/kernels/csrc`` (one nvcc each, in
    parallel) and report the build time and the compiler's register
    report; check with ``cuobjdump -sass`` that every instantiation of
-   the bf16 flash kernel multiplies on the tensor cores (HMMA); TF32 off
-   for matmuls and convolutions.
+   the bf16 flash kernel multiplies on the tensor cores (HMMA) and that
+   each of the phantom products' bf16 kernels (``wgmma_fwd_kernel``,
+   ``wgmma_dgrad_kernel``, ``wgmma_wgrad_kernel``) does (HGMMA, the
+   wgmma); TF32 off for matmuls and convolutions.
 2. kernels against their plain versions at chatglm3-6b's prefill
    geometry (H=32, KV=2, hd=128; B in {1, 4}; S in {16, 32, 48, 128,
    512}; causal and full; bf16 and fp32) plus one smoke-geometry case
@@ -41,9 +43,13 @@ Phases (any failure exits non-zero):
    3.35 TB/s or operations over 67 TFLOP/s fp32 / 989 TFLOP/s bf16),
    the plain version's time and ``torch.mm`` on operands concatenated
    and transposed outside the timing (the port never calls it).  For
-   each kernel also the launch plan (forward and dgrad: splits; wgrad:
-   persistent grid and rounds of tiles; all: 16-byte or masked copies,
-   and the sweep must run both variants) and a second launch held
+   each kernel also the launch plan and its route (the kernel's CUDA
+   name): aligned bf16 takes the tensor cores (``wgmma_*_kernel``:
+   splits, grid), float32 and unaligned bf16 the CUDA-core kernels
+   (``splitk_kernel``: splits; ``tn_kernel``: persistent grid and rounds
+   of tiles; 16-byte or masked copies); the sweep must run every product
+   through both CUDA-core variants in float32 and through the wgmma
+   kernel and the masked variant in bf16.  A second launch is held
    bitwise equal to the first.  At the main shape all three are also
    timed with a cold L2 (``_phantom_cold``).  Then the gradients of
    ``phantom_fused_linear`` against autograd through the plain version,
@@ -179,8 +185,10 @@ Phases (any failure exits non-zero):
    with ``torch.profiler``.  Held (``_lm_tp_obs_held``): each pid's
    ``train/run``, ``train/step``, ``ckpt/save`` and ``ckpt/restore``
    spans, the one trip on rank 0, rank 0's capture listing
-   ``flash_mma_kernel`` 8, ``splitk_kernel`` 36 and ``tn_kernel`` 12
-   (a step's launches), ``train_steps_total`` rank 0's and
+   ``flash_mma_kernel`` 8, ``wgmma_fwd_kernel`` 24,
+   ``wgmma_dgrad_kernel`` 12 and ``wgmma_wgrad_kernel`` 12 and no
+   ``splitk_kernel`` or ``tn_kernel`` (a step's launches: every bf16
+   phantom product on the tensor cores), ``train_steps_total`` rank 0's and
    ``ckpt_bytes_total`` over the ranks the checkpoint's bytes; (d)
    phantom (``fp``) and dense (``sp``) at ``LM_TP_COMPARE`` (4 layers,
    2 steps each): step times and wire bytes per rank side by side.
@@ -819,6 +827,13 @@ FLEET_WIRE_BAND = (0.9, 1.1)
 # a kernel's measured keys in the kernels line
 TIMED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
          "library_ms")
+# ... and a phantom case's, with the CUDA name of the kernel that ran it
+PHANTOM_TIMED = TIMED + ("route",)
+# the phantom products' bf16 kernels (the tensor-core route), by product
+WGMMA_KERNELS = ("wgmma_fwd_kernel", "wgmma_dgrad_kernel",
+                 "wgmma_wgrad_kernel")
+WGMMA_OF = dict(zip(("phantom_fused_matmul", "matmul_nt", "matmul_tn"),
+                    WGMMA_KERNELS))
 
 
 class SmokeFailure(RuntimeError):
@@ -954,7 +969,16 @@ def phase_device():
     check(len(hmma) == len(HEAD_DIMS) and all(hmma.values()),
           f"the bf16 flash kernel is not on the tensor cores at every head "
           f"dim of {HEAD_DIMS}: {hmma}")
-    return {"nvidia_smi": smi, "build_s": build_s, "flash_hmma": hmma}
+    sass = _sass_count("phantom_fused", "wgmma_", "HGMMA")
+    hgmma = {k: sum(n for name, n in sass.items() if k in name)
+             for k in WGMMA_KERNELS}
+    print(f"phantom wgmma kernels' HGMMA instructions (cuobjdump -sass): "
+          f"{hgmma}", flush=True)
+    check(len(sass) == len(WGMMA_KERNELS) and all(hgmma.values()),
+          f"a bf16 phantom kernel is not on the tensor cores (no HGMMA): "
+          f"{hgmma}")
+    return {"nvidia_smi": smi, "build_s": build_s, "flash_hmma": hmma,
+            "phantom_hgmma": hgmma}
 
 
 def _sass_count(kernel, function, opcode):
@@ -1442,15 +1466,18 @@ def _phantom_case(M, K, N, PK, dtype, gen, names=None):
     """The three phantom kernels (``names``: those of them) on one (M, K,
     N, PK): the forward z = x.L + g.D, the dgrad dz.[L;D]^T and the wgrad
     [x|g]^T.dz, each
-    with its launch plan (forward and dgrad: splits per output tile;
-    wgrad: persistent grid and rounds of tiles; 16-byte or masked
-    copies) and whether a second launch on the same inputs gives the
-    same bits."""
+    with its launch plan (the route: the kernel's CUDA name; splits per
+    output tile and the clusters the card holds at once; the wgrad's
+    grid and rounds of tiles; the variant: ``wgmma``, or 16-byte or
+    masked copies) and whether a second launch on the same inputs gives
+    the same bits."""
     import torch
-    from repro_torch.kernels.phantom_fused import (dgrad_plan, forward_plan,
-                                                   matmul_nt, matmul_tn,
+    from repro_torch.kernels.phantom_fused import (WG_PRODUCTS, dgrad_plan,
+                                                   forward_plan, matmul_nt,
+                                                   matmul_tn,
                                                    phantom_fused_matmul,
-                                                   resident_table, tn_plan)
+                                                   resident_table, tn_plan,
+                                                   wg_resident_table)
     from repro_torch.kernels.ref import (matmul_nt_ref, matmul_tn_ref,
                                          phantom_fused_ref)
     dt = getattr(torch, dtype)
@@ -1498,13 +1525,17 @@ def _phantom_case(M, K, N, PK, dtype, gen, names=None):
         plan = plans[name]
         if name == "matmul_tn":
             r.update(tiles=plan.tiles, grid=plan.grid, rounds=plan.rounds,
-                     resident_blocks=plan.resident)
+                     resident_blocks=plan.resident, splits=plan.splits)
         else:
-            r.update(splits=plan.splits,
+            table = (wg_resident_table(
+                0, WG_PRODUCTS["dgrad" if plan.dgrad else "forward"])
+                if plan.variant == "wgmma" else
+                resident_table(0, plan.dgrad, plan.esize))
+            r.update(splits=plan.splits, tiles=plan.tiles,
                      clusters=plan.grid[0] * plan.grid[1] // plan.splits,
-                     resident_clusters=resident_table(
-                         0, plan.dgrad, plan.esize)[plan.splits])
-        r.update(variant=plan.variant, bitwise=bool(torch.equal(got, kern())))
+                     resident_clusters=table[plan.splits])
+        r.update(variant=plan.variant, route=plan.kernel,
+                 bitwise=bool(torch.equal(got, kern())))
         r["ok"] = ok and r["bitwise"]
         out.append(r)
     return out
@@ -1593,6 +1624,7 @@ def _phantom_grads(gen):
 def phase_phantom_kernels():
     import torch
     from repro_torch.kernels.phantom_fused import (resident_table,
+                                                   wg_resident_table,
                                                    wgrad_resident)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = []
@@ -1602,11 +1634,12 @@ def phase_phantom_kernels():
                 results.append(r)
                 plan = (f" splits={r['splits']} clusters={r['clusters']} "
                         f"(resident at once: {r['resident_clusters']})"
-                        if "splits" in r else
-                        f" tiles={r['tiles']} grid={r['grid']} rounds="
-                        f"{r['rounds']} (resident at once: "
-                        f"{r['resident_blocks']})")
-                plan += f" {r['variant']} bitwise={r['bitwise']}"
+                        if r["kernel"] != "matmul_tn" else
+                        f" splits={r['splits']} tiles={r['tiles']} grid="
+                        f"{r['grid']} rounds={r['rounds']} (resident at "
+                        f"once: {r['resident_blocks']})")
+                plan += (f" route={r['route']} {r['variant']} "
+                         f"bitwise={r['bitwise']}")
                 print(f"{r['kernel']} M={r['M']} K={r['K']} N={r['N']} "
                       f"PK={r['PK']} {dtype}: max_abs_err="
                       f"{r['max_abs_err']:.3e} ok={r['ok']}{plan} "
@@ -1617,22 +1650,36 @@ def phase_phantom_kernels():
     bad = [r for r in results + grads if not r["ok"]]
     check(not bad, f"phantom kernels disagree with their plain versions or "
                    f"with themselves in {len(bad)} case(s): {bad}")
+    # float32 runs both CUDA-core variants; bf16 the tensor cores where
+    # aligned and the masked variant where not: every product both ways
     for name in ("phantom_fused_matmul", "matmul_nt", "matmul_tn"):
-        seen = {r["variant"] for r in results if r["kernel"] == name}
-        check(seen == {"vec16", "masked"},
-              f"{name}: the sweep ran variants {seen}, not both")
+        for dtype, want in (("float32", {"vec16", "masked"}),
+                            ("bfloat16", {"wgmma", "masked"})):
+            seen = {r["variant"] for r in results
+                    if r["kernel"] == name and r["dtype"] == dtype}
+            check(seen == want, f"{name} {dtype}: the sweep ran variants "
+                                f"{seen}, not {want}")
+        routes = {r["route"] for r in results if r["kernel"] == name
+                  and r["dtype"] == "bfloat16" and r["variant"] == "wgmma"}
+        check(routes == {WGMMA_OF[name]},
+              f"{name}: aligned bf16 ran {routes}, not {WGMMA_OF[name]}")
     cold = _phantom_cold(*PHANTOM_MAIN, gen)
     resident = {f"{k}_{es}": resident_table(0, k == "dgrad", es)
                 for k in ("forward", "dgrad") for es in (4, 2)}
     print(f"split-contraction kernel, clusters of S blocks resident at "
-          f"once, by S (forward/dgrad, float32 = 4, bfloat16 = 2): "
+          f"once, by S (forward/dgrad, float32 = 4, bfloat16 masked = 2): "
           f"{resident}", flush=True)
     wgrad = {f"{es}_{v}": wgrad_resident(0, es, v)
-             for es in (4, 2) for v in ("vec16", "masked")}
+             for es, v in ((4, "vec16"), (4, "masked"), (2, "masked"))}
     print(f"wgrad kernel, blocks resident at once (element size_variant): "
           f"{wgrad}", flush=True)
+    wg_resident = {k: wg_resident_table(0, p) for p, k in
+                   enumerate(WGMMA_KERNELS)}
+    print(f"wgmma kernels, clusters of S blocks resident at once, by S: "
+          f"{wg_resident}", flush=True)
     return {"sweep": results, "grads": grads, "cold": cold,
-            "resident_clusters": resident, "wgrad_resident_blocks": wgrad}
+            "resident_clusters": resident, "wgrad_resident_blocks": wgrad,
+            "wgmma_resident_clusters": wg_resident}
 
 
 def _adamw_step1(params, grads, lr, eps):
@@ -2585,7 +2632,7 @@ def _profile_train_step(trainer, state):
         k = key.lower()
         if "flash_mma_kernel" in k:
             return "flash"
-        if "splitk_kernel" in k or "tn_kernel" in k:
+        if any(n in k for n in ("splitk_kernel", "tn_kernel", "wgmma_")):
             return "phantom"
         if "memcpy" in k:
             return "copies"
@@ -2881,7 +2928,9 @@ def _lm_tp_train(axes, device, cfg, args, steps, profile=False,
 
 
 CAPTURED_KERNELS = {"flash_attention": "flash_mma_kernel",
-                    "splitk": "splitk_kernel", "matmul_tn": "tn_kernel"}
+                    "splitk": "splitk_kernel", "matmul_tn": "tn_kernel",
+                    **dict(zip(("wgmma_fwd", "wgmma_dgrad", "wgmma_wgrad"),
+                               WGMMA_KERNELS))}
 
 
 def _capture_kernels(path):
@@ -3077,8 +3126,8 @@ def _lm_tp_kernels(gen):
             phantom.append(r)
             print(f"lm_train_tp: {r['kernel']} M={r['M']} K={r['K']} "
                   f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
-                  f"{r['max_abs_err']:.3e} ok={r['ok']} {r['variant']} "
-                  f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                  f"{r['max_abs_err']:.3e} ok={r['ok']} route={r['route']} "
+                  f"{r['variant']} splits={r['splits']} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                   f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f}", flush=True)
     bad = [r for r in [flash] + phantom if not r["ok"]]
@@ -3280,10 +3329,13 @@ def _lm_tp_obs_held(tracer, reg, rank_metrics, ranks, launches, ckpt,
           f"rank 0's at step 1 (index 0) alone")
     caps = [r["main"].get("capture") for r in ranks]
     check(caps[0] is not None, "lm_train_tp: rank 0 captured no step")
+    # the main path is bf16 with aligned operands: every phantom product
+    # on the tensor cores, none on the CUDA-core kernels
     want_k = {"flash_attention": launches["flash_attention"],
-              "splitk": launches["phantom_fused_matmul"]
-              + launches["matmul_nt"],
-              "matmul_tn": launches["matmul_tn"]}
+              "splitk": 0, "matmul_tn": 0,
+              "wgmma_fwd": launches["phantom_fused_matmul"],
+              "wgmma_dgrad": launches["matmul_nt"],
+              "wgmma_wgrad": launches["matmul_tn"]}
     check(caps[0]["kernels"] == want_k,
           f"lm_train_tp: rank 0's capture holds kernels "
           f"{caps[0]['kernels']}, a step launches {want_k}")
@@ -3873,8 +3925,8 @@ def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=(),
             out["cases"].append(r)
             print(f"{tag}: {r['kernel']} M={r['M']} K={r['K']} "
                   f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
-                  f"{r['max_abs_err']:.3e} ok={r['ok']} {r['variant']} "
-                  f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                  f"{r['max_abs_err']:.3e} ok={r['ok']} route={r['route']} "
+                  f"{r['variant']} splits={r['splits']} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                   f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f}", flush=True)
         out["cold"][str(list(shape))] = _phantom_cold(
@@ -7257,7 +7309,7 @@ def _plan_entry(plan, name):
                   for r in k["flash"]]
     else:
         shapes = [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
-                   **{key: r[key] for key in TIMED},
+                   **{key: r[key] for key in PHANTOM_TIMED},
                    "cold_ms": k["cold"][str([r["M"], r["K"], r["N"],
                                              r["PK"]])][name]["cold_ms"]}
                   for r in k["cases"] if r["kernel"] == name]
@@ -7450,25 +7502,30 @@ def main() -> int:
                     "max_abs_err", "ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms")}},
             "plan": _plan_entry(plan, name),
+            # the bf16 route: the tensor-core kernel and its HGMMA count
+            "bf16_kernel": {"cuda_name": WGMMA_OF[name],
+                            "hgmma_sass": device["phantom_hgmma"][
+                                WGMMA_OF[name]]},
             "lm_tp4": {
                 "launches_per_step_per_rank":
                     lm_tp["launches_per_step"][name],
                 "resumed_step_launches_per_rank":
                     lm_tp["checkpoint"]["resumed_launches"][name],
                 # the watchdog's torch.profiler capture of a step, by the
-                # CUDA name (the forward and dgrad share splitk_kernel)
+                # bf16 route's CUDA name
                 "captured_step_launches_rank0": lm_tp["obs"]["captures"][0][
-                    "kernels"]["matmul_tn" if name == "matmul_tn"
-                               else "splitk"],
+                    "kernels"][{"phantom_fused_matmul": "wgmma_fwd",
+                                "matmul_nt": "wgmma_dgrad",
+                                "matmul_tn": "wgmma_wgrad"}[name]],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
-                            **{key: r[key] for key in TIMED}}
+                            **{key: r[key] for key in PHANTOM_TIMED}}
                            for r in lm_tp["kernels"]["phantom"]
                            if r["kernel"] == name]},
             "qwen_tp4": {
                 "launches_per_step_per_rank":
                     qwen["launches_per_step"][name],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
-                            **{key: r[key] for key in TIMED},
+                            **{key: r[key] for key in PHANTOM_TIMED},
                             "cold_ms": qwen["kernels"]["cold"][str(
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
@@ -7478,7 +7535,7 @@ def main() -> int:
                 "launches_per_step_per_rank":
                     lm_pp["launches_per_step"][name],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
-                            **{key: r[key] for key in TIMED},
+                            **{key: r[key] for key in PHANTOM_TIMED},
                             "cold_ms": lm_pp["kernels"]["cold"][str(
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
@@ -7488,7 +7545,7 @@ def main() -> int:
                 "launches_per_step_per_rank":
                     moe["launches_per_step"][name],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
-                            **{key: r[key] for key in TIMED},
+                            **{key: r[key] for key in PHANTOM_TIMED},
                             "cold_ms": moe["kernels"]["cold"][str(
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
@@ -7497,7 +7554,7 @@ def main() -> int:
             **{tag: {
                 "launches_per_step_per_rank": ssm[lkey][name],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
-                            **{key: r[key] for key in TIMED},
+                            **{key: r[key] for key in PHANTOM_TIMED},
                             "cold_ms": ssm["kernels"]["cold"][str(
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
@@ -7512,7 +7569,7 @@ def main() -> int:
                 "launches_per_step_per_rank":
                     res["launches_per_step"][name],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
-                            **{key: r[key] for key in TIMED},
+                            **{key: r[key] for key in PHANTOM_TIMED},
                             "cold_ms": res["kernels"]["cold"][str(
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
@@ -7523,7 +7580,7 @@ def main() -> int:
             **({"serve_mesh": {
                 "launches": serve_mesh["launches"][name],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
-                            **{key: r[key] for key in TIMED},
+                            **{key: r[key] for key in PHANTOM_TIMED},
                             "cold_ms": serve_mesh["kernels"]["cold"][str(
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}
@@ -7532,7 +7589,7 @@ def main() -> int:
                 "family_mesh": {
                 "launches": family_mesh["launches"][name],
                 "shapes": [{"shape": [r["M"], r["K"], r["N"], r["PK"]],
-                            **{key: r[key] for key in TIMED},
+                            **{key: r[key] for key in PHANTOM_TIMED},
                             "cold_ms": family_mesh["kernels"]["cold"][str(
                                 [r["M"], r["K"], r["N"], r["PK"]])][name][
                                 "cold_ms"]}

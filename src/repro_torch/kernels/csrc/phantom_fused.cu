@@ -7,9 +7,17 @@
 //   matmul_nt            (:206, pl.pallas_call :221)  c = a.b^T  (dgrad)
 //   matmul_tn            (:239, pl.pallas_call :254)  c = a^T.b  (wgrad)
 // and match their oracles: float32 accumulation, the output in the input
-// dtype (float32 or bfloat16).  The products are IEEE fp32 FMAs on the CUDA
-// cores, no TF32 tensor cores, so float32 results hold the reference's
-// rtol 2e-4.
+// dtype (float32 or bfloat16).
+//
+// Routes (the wrapper's plan picks one per call, phantom_fused.py):
+//   bfloat16, every base and row pitch a multiple of 16 bytes: the tensor
+//     cores, wgmma_fwd_kernel / wgmma_dgrad_kernel / wgmma_wgrad_kernel
+//     (namespace wg, at the end of this header);
+//   float32: splitk_kernel (forward, dgrad) and tn_kernel (wgrad), IEEE
+//     fp32 FMAs on the CUDA cores.  TF32 would break the reference's rtol
+//     2e-4, and these run within 1.03-1.26x torch.mm at the paper-FFN shape;
+//   bfloat16, unaligned: the same CUDA-core kernels, masked variant
+//     (VEC = false), converting on each shared-memory read.
 //
 // Bound.  At the paper-ffn-16k shapes per rank (p = 8, batch 64: x [64,2048],
 // L [2048,2048], g [64,128], D [128,2048]) each of the three products is
@@ -92,10 +100,67 @@
 // [x | g] is read through two pointers; the contraction is never split, so
 // every launch gives the same bits.  Unaligned operands take the masked
 // variant (element-wise loads and stores), as for splitk_kernel.
+//
+// The bf16 route (namespace wg).  At an LM site a product is bound by
+// operations: qwen2-vl-72b's MLP a rank at tp 4 (x [2048, 2048], L
+// [2048, 7392], PK 128) is 66 GFLOP over 40 MB, 0.0666 ms at 989 TFLOP/s
+// bf16 and 0.012 ms at 3.35 TB/s.  The CUDA-core kernels ran such sites at
+// 12-29 TFLOP/s (15-31x torch.mm).  Only wgmma reaches the card's bf16
+// rate, and TMA feeds it without spending registers.  One mainloop serves
+// the three products:
+//   * wgmma.mma_async m64nNk16, bf16 in, fp32 accumulators, both operands
+//     in shared memory.  A block owns a 128 x 256 output tile: two
+//     consumer warpgroups of 64 rows, m64n256k16 each (128 accumulators a
+//     thread, setmaxnreg 232; the producer warpgroup gives its registers
+//     back, 40).  128 x 128 tiles were slower at M = 2048 with K, N >=
+//     2048, bound by the L2's bandwidth at 64 FLOP a byte against 85.
+//   * Tiles arrive by cp.async.bulk.tensor (TMA, 128-byte swizzle: a slab
+//     is 64 k = 128 bytes) into a ring of 4 stages of 48 KB with full and
+//     empty mbarriers; one producer thread issues the copies and runs
+//     ahead into the next tile while the consumers finish this one.
+//   * The operands' layouts differ by product and the smem descriptor's
+//     transpose bits take them (bf16 allows both): the forward's A (x, g)
+//     is K-major and its B (L, D) MN-major; the dgrad's both K-major; the
+//     wgrad's both MN-major (slab_desc says where each layout's leading
+//     and stride byte offsets come from).
+//   * No tile straddles a join, so [L;D] and [x|g] are never built: the
+//     forward runs two contraction segments (x.L, then g.D) into one
+//     accumulator, each with its own descriptors; the dgrad's output
+//     columns are tiled over L's rows and then over D's, the wgrad's
+//     output rows over x's columns and then g's.  A tile narrower than
+//     256 (D's PK columns, a ragged edge) multiplies at its own width
+//     (mma_n: N = 8 .. 256), a warpgroup with no rows of C multiplies
+//     nothing, and D's tiles come last, so they fill the last round.
+//     Ragged edges read TMA's zero fill and store masked.
+//   * The grid (wrapper's wg_split): where the output has fewer tiles than
+//     the card holds clusters, the contraction is split over a cluster of
+//     S blocks, one cluster per tile, and the partial tiles are summed in
+//     rank order through distributed shared memory (no atomics: the same
+//     bits every run) -- the 8-row pipelined stage, a 4-row decode step,
+//     olmoe's narrow sites.  Otherwise a persistent grid of one block per
+//     tile and per SM.  Clusters that took more than one round of split
+//     tiles were slower where tried, and so were clusters of 2 sharing B
+//     by TMA multicast (with 4 stages, each block's copies wait on both
+//     blocks' consumers).
+//   * The epilogue shuffles the accumulators within each 4-lane quad so
+//     that every lane stores 16 contiguous bytes, not 4.
+//   * The TMA descriptors are encoded on the host for each call
+//     (cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint: the
+//     library links the runtime alone) and passed by value as
+//     __grid_constant__ parameters, so a CUDA graph captures them.  A
+//     refused descriptor is an error (100000 + its CUresult), never a
+//     switch to another kernel.
+// Reached on the H100: 1.4-2.4x the operations bound at the LM sites of
+// qwen2-vl, jamba and phi3-mini (M = 2048); 9-13x the byte bound at the
+// narrow sites (K or N <= 512) and 2-7x at short inputs (4 and 192 rows),
+// under a launch's fixed ~9 us (PERF.md).
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -436,10 +501,13 @@ cudaError_t launch_splitk(const Plan<T>& plan, void* c, long long ldc, int M,
       splits > MAX_SPLITS || smem != Layout<T, B_KFAST>::SMEM_BYTES)
     return cudaErrorInvalidValue;
   T* out = static_cast<T*>(c);
-  return vec16 ? launch_splitk_as<T, B_KFAST, true>(plan, out, ldc, M, N,
-                                                    splits, smem, stream)
-               : launch_splitk_as<T, B_KFAST, false>(plan, out, ldc, M, N,
-                                                     splits, smem, stream);
+  if (!vec16)
+    return launch_splitk_as<T, B_KFAST, false>(plan, out, ldc, M, N, splits,
+                                               smem, stream);
+  if constexpr (sizeof(T) == 4)
+    return launch_splitk_as<T, B_KFAST, true>(plan, out, ldc, M, N, splits,
+                                              smem, stream);
+  return cudaErrorInvalidValue;   // aligned bf16 takes the wgmma route
 }
 
 }  // namespace sk
@@ -563,15 +631,21 @@ cudaError_t launch_tn(const Segment<T>& sg, void* c, long long ldc, int M,
       smem != Layout<T>::SMEM_BYTES)
     return cudaErrorInvalidValue;
   T* out = static_cast<T*>(c);
-  cudaError_t err = vec16 ? prepare<T, true>() : prepare<T, false>();
-  if (err != cudaSuccess) return err;
-  if (vec16)
-    tn_kernel<T, true><<<grid, THREADS, smem, stream>>>(sg, out, ldc, M, N,
-                                                        (int)tiles, tiles_n);
-  else
+  if (!vec16) {
+    const cudaError_t err = prepare<T, false>();
+    if (err != cudaSuccess) return err;
     tn_kernel<T, false><<<grid, THREADS, smem, stream>>>(sg, out, ldc, M, N,
                                                          (int)tiles, tiles_n);
-  return cudaGetLastError();
+    return cudaGetLastError();
+  }
+  if constexpr (sizeof(T) == 4) {
+    const cudaError_t err = prepare<T, true>();
+    if (err != cudaSuccess) return err;
+    tn_kernel<T, true><<<grid, THREADS, smem, stream>>>(sg, out, ldc, M, N,
+                                                        (int)tiles, tiles_n);
+    return cudaGetLastError();
+  }
+  return cudaErrorInvalidValue;   // aligned bf16 takes the wgmma route
 }
 
 // Blocks of the kernel one SM holds at once.
@@ -584,6 +658,791 @@ cudaError_t blocks_per_sm(int* out) {
 }
 
 }  // namespace tn
+
+// ---- the bf16 route: wgmma on the tensor cores, fed by TMA ----------------
+
+namespace wg {
+
+constexpr int BM = 128;         // output rows of a tile: two consumer warpgroups
+constexpr int BN = 256;         // output columns of a tile (the wgmma's N)
+constexpr int BK = 64;          // contraction slab: 128 bytes of bf16
+constexpr int STAGES = 4;       // slabs in the TMA ring
+constexpr int MAX_SPLITS = 8;   // blocks in a cluster (the portable limit)
+constexpr int THREADS = 384;    // a producer warpgroup, two consumer warpgroups
+constexpr int SLACK = 2048;     // the ring's 1024-byte alignment, its barriers
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+
+constexpr int ALIGN = 1024;     // a 128-byte swizzle repeats every 8 rows
+constexpr int A_BYTES = BM * BK * 2;
+constexpr int B_BYTES = BN * BK * 2;
+constexpr int HALF = 64 * BK * 2;          // 64 rows (or columns) of a slab
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + SLACK;
+constexpr int ACC = BN / 2;                // accumulators of a consumer thread
+static_assert(BM * BN * 4 <= STAGES * STAGE_BYTES,
+              "the split's fp32 partial tile reuses the ring");
+static_assert(ALIGN + 2 * STAGES * 8 <= SLACK, "barriers past the ring");
+static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <= 65536,
+              "the warpgroups' registers fit one SM");
+
+// The operands of one launch as TMA descriptors: A's (rows of C) and B's
+// (columns of C).  The forward reads segment s through a[s] and b[s]; the
+// dgrad's columns of C come from b[0] (L) and then b[1] (D); the wgrad's
+// rows from a[0] (x) and then a[1] (g).
+struct Maps {
+  CUtensorMap a[2];
+  CUtensorMap b[2];
+};
+
+struct Job {
+  int nseg;          // contraction segments (the forward: x.L, then g.D)
+  int kn[2];         // their lengths
+  int m0, m;         // C's rows [0, m0) from a[0], [m0, m) from a[1]
+  int n0, n;         // C's columns [0, n0) from b[0], [n0, n) from b[1]
+  int tm0, tm;       // row tiles of the first part, row tiles in all
+  int tn0, tn;       // column tiles likewise
+  long long ldc;
+};
+
+// One output tile: which part of each operand it reads from which row,
+// where it lands in C and how many of its rows and columns are C's.
+struct Tile {
+  int a_part, a_row, b_part, b_col;
+  int out_row, out_col, rows, cols;
+};
+
+// Tile t of the job: row-major over the first column part's tiles, then
+// over the second's, so that the narrow tiles of D's columns come last.
+__device__ __forceinline__ Tile tile_of(const Job& j, int t) {
+  const int first = j.tm * j.tn0, tn1 = j.tn - j.tn0;
+  const int rt = t < first ? t / j.tn0 : (t - first) / tn1;
+  const int ct = t < first ? t % j.tn0 : j.tn0 + (t - first) % tn1;
+  Tile o;
+  o.b_part = ct < j.tn0 ? 0 : 1;
+  o.b_col = (o.b_part ? ct - j.tn0 : ct) * BN;
+  o.out_col = (o.b_part ? j.n0 : 0) + o.b_col;
+  o.cols = min(BN, (o.b_part ? j.n : j.n0) - o.out_col);
+  o.a_part = rt < j.tm0 ? 0 : 1;
+  o.a_row = (o.a_part ? rt - j.tm0 : rt) * BM;
+  o.out_row = (o.a_part ? j.m0 : 0) + o.a_row;
+  o.rows = min(BM, (o.a_part ? j.m : j.m0) - o.out_row);
+  return o;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the phase of `parity` to complete.  A wait of over ~10 s at
+// the card's clock is a fault of the kernel: it traps (the launch fails)
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  if (mbar_try(addr, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try(addr, parity))
+    if (clock64() - t0 > (1LL << 34)) __trap();
+}
+
+// One box of a 2-D tensor map (coordinates innermost first) into shared
+// memory; its bytes complete on `bar`.  Reads past the tensor's edges
+// land as zeros.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// A wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (in 16-byte units).
+__device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// The two layouts a slab takes in shared memory, as TMA's 128-byte swizzle
+// writes them:
+//   K-major (the contraction contiguous: x, g, dz as A; L, D as the
+//     dgrad's B): per row of the tile side one row of 64 k (128 bytes),
+//     rows 128 bytes apart, 8-row groups 1024 bytes apart (SBO); a step of
+//     16 k is 32 bytes along the rows (LBO unused).
+//   MN-major (the tile side contiguous: L, D as the forward's B; x, g and
+//     dz in the wgrad): per 64 of the tile side, 64 k-rows of 128 bytes,
+//     8-k groups 1024 bytes apart (SBO), the next 64 of the side HALF =
+//     8192 bytes on (LBO); a step of 16 k is 2048 bytes.
+template <bool MN>
+__device__ __forceinline__ uint64_t slab_desc(const unsigned char* s,
+                                              int kk) {
+  return MN ? smem_desc(s + kk * 2048, HALF, 1024)
+            : smem_desc(s + kk * 32, 16, 1024);
+}
+
+// d[64 x N] += A[64 x 16] . B[16 x N] with fp32 accumulators, N = 8 ..
+// 256; TA, TB: the operand is MN-major (the wgmma's transpose bit).
+// Accumulator d[4 j + 2 h + e] is row 16 (warp) + lane / 4 + 8 h, column
+// 8 j + 2 (lane % 4) + e, for every N: a narrower product fills a prefix
+// of d.
+template <int N, int TA, int TB>
+struct Wgmma;
+
+template <int TA, int TB>
+struct Wgmma<256, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<128, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<64, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<32, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<16, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+template <int TA, int TB>
+struct Wgmma<8, TA, TB> {
+  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+                                             uint64_t db) {
+    asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3"
+      "}, %4, %5, p, 1, 1, %7, %8;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+  }
+};
+
+// Keeps the compiler from moving accumulator reads or writes across a
+// wgmma fence, commit or wait.
+__device__ __forceinline__ void hold(float (&d)[ACC]) {
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// One slab (BK deep) of a warpgroup's products at N columns.
+template <int N, bool A_MN, bool B_MN>
+__device__ __forceinline__ void slab_mma(float (&acc)[ACC],
+                                         const unsigned char* sa,
+                                         const unsigned char* sb) {
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    Wgmma<N, A_MN, B_MN>::run(acc, slab_desc<A_MN>(sa, kk),
+                              slab_desc<B_MN>(sb, kk));
+}
+
+// The narrowest wgmma N that covers a tile's `cols` columns: 8 .. 256 for
+// a K-major B (its rows are the columns, in groups of 8), 64 .. 256 for
+// an MN-major B, whose swizzle atom is 64 columns wide.  A tile of D's
+// few columns (the dgrad's PK) costs its width, not a full tile's.
+template <bool B_MN>
+__device__ __forceinline__ int mma_n(int cols) {
+  if (cols > 128) return 256;
+  if (cols > 64) return 128;
+  if (B_MN || cols > 32) return 64;
+  if (cols > 16) return 32;
+  return cols > 8 ? 16 : 8;
+}
+
+__device__ __forceinline__ void cluster_sync_all() {
+  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;\n" ::
+                   : "memory");
+}
+
+// Two neighbouring outputs of a tile (row; col and col + 1) into C: one
+// 4-byte store where both are C's and the pair is 4-byte aligned.
+__device__ __forceinline__ void store2(__nv_bfloat16* c, long long ldc,
+                                       const Tile& tl, int row, int col,
+                                       float v0, float v1) {
+  if (row >= tl.rows || col >= tl.cols) return;
+  const long long gc = tl.out_col + col;
+  __nv_bfloat16* p = c + (long long)(tl.out_row + row) * ldc + gc;
+  if (col + 1 < tl.cols && ((gc | ldc) & 1) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v0, v1);
+  } else {
+    p[0] = __float2bfloat16(v0);
+    if (col + 1 < tl.cols) p[1] = __float2bfloat16(v1);
+  }
+}
+
+// Eight neighbouring outputs of a tile (row; col .. col + 7, bf16 pairs in
+// v) into C: one 16-byte store where all are C's and the address is
+// 16-byte aligned.
+__device__ __forceinline__ void store8(__nv_bfloat16* c, long long ldc,
+                                       const Tile& tl, int row, int col,
+                                       const uint32_t (&v)[4]) {
+  if (row >= tl.rows || col >= tl.cols) return;
+  const long long gc = tl.out_col + col;
+  __nv_bfloat16* p = c + (long long)(tl.out_row + row) * ldc + gc;
+  if (col + 8 <= tl.cols && ((gc | ldc) & 7) == 0) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(v[0], v[1], v[2], v[3]);
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    if (col + e < tl.cols)
+      p[e] = reinterpret_cast<const __nv_bfloat16*>(&v[e / 2])[e % 2];
+}
+
+__device__ __forceinline__ uint32_t pick(const uint32_t (&v)[4], int i) {
+  return i == 0 ? v[0] : i == 1 ? v[1] : i == 2 ? v[2] : v[3];
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// A consumer's part of a finished tile into C.  In the accumulator layout
+// the four lanes of a quad hold a row's 8 neighbouring columns 2 each, so
+// a store would write 16 bytes of a row per quad; three shuffles within
+// the quad give each lane 8 neighbouring columns instead (lane q the
+// 8 j-th with j = 4 m + q), and each row's 32 columns go out as 64
+// contiguous bytes.
+__device__ __forceinline__ void store_tile(__nv_bfloat16* c, long long ldc,
+                                           const Tile& tl,
+                                           const float (&acc)[ACC],
+                                           int row_lo, int lane) {
+  const int q = lane % 4, quad = (lane % 32) & ~3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int m = 0; m < BN / 32; ++m) {
+      uint32_t p[4], out[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj)
+        p[jj] = bf16x2(acc[4 * (4 * m + jj) + 2 * h],
+                       acc[4 * (4 * m + jj) + 2 * h + 1]);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {   // from quad lane (q + k) % 4
+        const int src = (q + k) & 3;
+        const uint32_t got =
+            __shfl_sync(0xffffffffu, pick(p, (q - k + 4) & 3), quad | src);
+        out[0] = src == 0 ? got : out[0];
+        out[1] = src == 1 ? got : out[1];
+        out[2] = src == 2 ? got : out[2];
+        out[3] = src == 3 ? got : out[3];
+      }
+      store8(c, ldc, tl, row_lo + 8 * h, 32 * m + 8 * q, out);
+    }
+  }
+}
+
+// C = A . B in bf16 with fp32 accumulators, over the job's BM x BN tiles.
+// Blocks come in clusters of S (the split): cluster g takes tiles g,
+// g + gridDim.x / S, ... (S > 1: one tile a cluster); block rank r of a
+// cluster walks the r-th of S near-equal ranges of the contraction's
+// slabs (segment 0's, then segment 1's).  Warpgroup 0 is the producer:
+// one thread keeps the TMA ring of STAGES slabs full, running ahead into
+// the next tile.  Warpgroups 1 and 2 each multiply 64 rows of the tile
+// with wgmma at the tile's width (mma_n), one slab's products in flight
+// while the next is issued.  With S > 1 the partial tiles meet through
+// distributed shared memory, in the ring.
+template <bool A_MN, bool B_MN>
+__device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
+                                     __nv_bfloat16* __restrict__ c) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t pad = (ALIGN - smem_u32(smem_raw) % ALIGN) % ALIGN;
+  unsigned char* ring = smem_raw + pad;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int S = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int ns0 = (job.kn[0] + BK - 1) / BK;
+  const int ns1 = job.nseg > 1 ? (job.kn[1] + BK - 1) / BK : 0;
+  const int total = ns0 + ns1, base = total / S, rem = total % S;
+  const int first = rank * base + min(rank, rem);
+  const int count = base + (rank < rem ? 1 : 0);
+  const int tiles = job.tm * job.tn, step = gridDim.x / S;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);     // the producer's arrival, then the bytes
+      mbar_init(&empty[s], 2);    // one arrival per consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {   // ---- the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+        PRODUCER_REGS));
+    if (threadIdx.x == 0) {   // the descriptors into the TMA unit's cache
+      const CUtensorMap* all[4] = {&maps.a[0], &maps.a[1], &maps.b[0],
+                                   &maps.b[1]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        asm volatile("prefetch.tensormap [%0];\n" ::"l"(
+                         reinterpret_cast<uint64_t>(all[i]))
+                     : "memory");
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int t = blockIdx.x / S; t < tiles; t += step) {
+      if (threadIdx.x == 0) {
+        const Tile tl = tile_of(job, t);
+        for (int i = 0; i < count; ++i) {
+          const int s = first + i, seg = s < ns0 ? 0 : 1;
+          const int k0 = (seg ? s - ns0 : s) * BK;
+          const CUtensorMap* ma = &maps.a[seg + tl.a_part];
+          const CUtensorMap* mb = &maps.b[seg + tl.b_part];
+          mbar_wait(&empty[stage], phase ^ 1);
+          unsigned char* sa = ring + stage * STAGE_BYTES;
+          unsigned char* sb = sa + A_BYTES;
+          uint64_t* bar = &full[stage];
+          mbar_expect_tx(bar, STAGE_BYTES);
+          if (A_MN) {
+            tma_load(sa, ma, bar, tl.a_row, k0);
+            tma_load(sa + HALF, ma, bar, tl.a_row + 64, k0);
+          } else {
+            tma_load(sa, ma, bar, k0, tl.a_row);
+          }
+          if (B_MN) {   // boxes of 64 columns
+#pragma unroll
+            for (int q = 0; q < BN / 64; ++q)
+              tma_load(sb + q * HALF, mb, bar, tl.b_col + 64 * q, k0);
+          } else {
+            tma_load(sb, mb, bar, k0, tl.b_col);
+          }
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      if (S > 1) {   // the ring holds the partial tile until the cluster
+        cluster_sync_all();   // has summed it: the consumers' barriers
+        cluster_sync_all();
+      }
+    }
+    return;
+  }
+
+  // ---- the consumers: warpgroup w multiplies the tile's rows 64 w ..
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int w = threadIdx.x / 128 - 1, lane = threadIdx.x % 128;
+  const int row_lo = 64 * w + 16 * (lane / 32) + (lane % 32) / 4;
+  const int col_lo = 2 * (lane % 4);
+  int stage = 0;
+  uint32_t phase = 0;
+  auto release = [&](int s) {   // the stage goes back to the producer
+    if (lane == 0) mbar_arrive(&empty[s]);
+  };
+  for (int t = blockIdx.x / S; t < tiles; t += step) {
+    const Tile tl = tile_of(job, t);
+    // a warpgroup none of whose rows are C's only hands the stages back
+    const bool active = 64 * w < tl.rows;
+    const int n = mma_n<B_MN>(tl.cols);
+    float acc[ACC];
+#pragma unroll
+    for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+    int held = -1;   // the stage the last committed wgmmas still read
+    for (int i = 0; i < count; ++i) {
+      mbar_wait(&full[stage], phase);
+      if (active) {
+        const unsigned char* sa = ring + stage * STAGE_BYTES + w * HALF;
+        const unsigned char* sb = ring + stage * STAGE_BYTES + A_BYTES;
+        hold(acc);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        switch (n) {
+          case 256: slab_mma<256, A_MN, B_MN>(acc, sa, sb); break;
+          case 128: slab_mma<128, A_MN, B_MN>(acc, sa, sb); break;
+          case 64: slab_mma<64, A_MN, B_MN>(acc, sa, sb); break;
+          case 32: slab_mma<32, A_MN, B_MN>(acc, sa, sb); break;
+          case 16: slab_mma<16, A_MN, B_MN>(acc, sa, sb); break;
+          default: slab_mma<8, A_MN, B_MN>(acc, sa, sb); break;
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the previous slab's products are done: its stage goes back
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        hold(acc);
+        if (held >= 0) release(held);
+        held = stage;
+      } else {
+        release(stage);
+      }
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+    hold(acc);
+    if (held >= 0) release(held);
+
+    if (S == 1) {
+      store_tile(c, job.ldc, tl, acc, row_lo, lane);
+      continue;
+    }
+    // The split: both warpgroups are past their last wgmma and every copy
+    // has landed, so the ring takes this block's fp32 partial tile.
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    float* part = reinterpret_cast<float*>(ring);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = 8 * j + col_lo;
+      *reinterpret_cast<float2*>(part + row_lo * BN + col) =
+          make_float2(acc[4 * j], acc[4 * j + 1]);
+      *reinterpret_cast<float2*>(part + (row_lo + 8) * BN + col) =
+          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+    cluster_sync_all();   // every partial tile of the cluster is in place
+    const int row0 = rank * BM / S, rows = (rank + 1) * BM / S - row0;
+    for (int e = threadIdx.x - 128; e < rows * (BN / 4); e += 256) {
+      const int row = row0 + e / (BN / 4), col = 4 * (e % (BN / 4));
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int q = 0; q < S; ++q) {   // rank order: the same bits every run
+        const float4 v = *reinterpret_cast<const float4*>(
+            cluster.map_shared_rank(part, q) + row * BN + col);
+        sum.x += v.x;
+        sum.y += v.y;
+        sum.z += v.z;
+        sum.w += v.w;
+      }
+      store2(c, job.ldc, tl, row, col, sum.x, sum.y);
+      store2(c, job.ldc, tl, row, col + 2, sum.z, sum.w);
+    }
+    cluster_sync_all();   // no block leaves while another reads its tile
+  }
+}
+
+}  // namespace wg
+
+// The three products' kernels: one mainloop, the operands' layouts set by
+// the wgmma's transpose bits.
+//   forward  z = x.L + g.D:   A (x, g) K-major, B (L, D) MN-major
+//   dgrad    dz.[L;D]^T:      A (dz) K-major, B (L, D rows) K-major
+//   wgrad    [x|g]^T.dz:      A (x, g columns) MN-major, B (dz) MN-major
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    wgmma_fwd_kernel(const __grid_constant__ wg::Maps maps, const wg::Job job,
+                     __nv_bfloat16* __restrict__ c) {
+  wg::gemm<false, true>(maps, job, c);
+}
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    wgmma_dgrad_kernel(const __grid_constant__ wg::Maps maps,
+                       const wg::Job job, __nv_bfloat16* __restrict__ c) {
+  wg::gemm<false, false>(maps, job, c);
+}
+
+__global__ void __launch_bounds__(wg::THREADS, 1)
+    wgmma_wgrad_kernel(const __grid_constant__ wg::Maps maps,
+                       const wg::Job job, __nv_bfloat16* __restrict__ c) {
+  wg::gemm<true, true>(maps, job, c);
+}
+
+namespace wg {
+
+using Kernel = void (*)(const Maps, const Job, __nv_bfloat16*);
+
+Kernel kernel_of(int product) {
+  return product == 0   ? wgmma_fwd_kernel
+         : product == 1 ? wgmma_dgrad_kernel
+                        : wgmma_wgrad_kernel;
+}
+
+// cuTensorMapEncodeTiled belongs to the CUDA driver API and the library
+// links the runtime alone (no -lcuda): it is looked up once through the
+// runtime's cudaGetDriverEntryPoint.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// What the C functions return when a descriptor cannot be made: this
+// plus the driver's CUresult (no cudaError_t comes near it).
+constexpr int ENCODE_FAILED = 100000;
+
+// A bf16 matrix [outer, inner] with a row pitch of `ld` elements, copied
+// in boxes of box_outer x box_inner, 128-byte swizzled; reads past its
+// edges give zeros.
+int encode(CUtensorMap* m, const void* p, int inner, int outer, long long ld,
+           int box_inner, int box_outer) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return ENCODE_FAILED + CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(p), dims, strides, box, unit,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_FAILED + (int)r;
+}
+
+// A K-major operand [rows, k]: boxes of `rows_box` rows by BK.
+int encode_k(CUtensorMap* m, const void* p, int rows, int k, long long ld,
+             int rows_box) {
+  return encode(m, p, k, rows, ld, BK, rows_box);
+}
+
+// An MN-major operand [k, cols]: boxes of BK k-rows by 64 columns.
+int encode_mn(CUtensorMap* m, const void* p, int k, int cols, long long ld) {
+  return encode(m, p, cols, k, ld, 64, BK);
+}
+
+void set_tiles(Job& job) {
+  job.tm0 = (job.m0 + BM - 1) / BM;
+  job.tm = job.tm0 + (job.m - job.m0 + BM - 1) / BM;
+  job.tn0 = (job.n0 + BN - 1) / BN;
+  job.tn = job.tn0 + (job.n - job.n0 + BN - 1) / BN;
+}
+
+// The wrapper's plan (phantom_fused.py: wg_split) chose `splits` and
+// `grid`: with a split, one cluster per tile, all resident at once;
+// without, a persistent grid of at most one block per tile.
+int launch(int product, const Maps& maps, const Job& job, void* c,
+           int splits, int grid, cudaStream_t stream) {
+  const long long tiles = (long long)job.tm * job.tn;
+  if (job.m <= 0 || job.n <= 0 || tiles > 0x7fffffff || splits < 1 ||
+      splits > MAX_SPLITS || grid < 1 ||
+      (splits > 1 ? grid != tiles * splits : grid > tiles))
+    return cudaErrorInvalidValue;
+  const Kernel kernel = kernel_of(product);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, maps, job,
+                           static_cast<__nv_bfloat16*>(c));
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// Clusters of `splits` blocks of product `product`'s kernel (0 forward,
+// 1 dgrad, 2 wgrad) the card holds at once.
+int max_clusters(int product, int splits, int* out) {
+  const Kernel kernel = kernel_of(product);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits * 64);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}
+
+}  // namespace wg
 
 template <typename T>
 Operand<T> one(const void* p, long long ld, int rows) {
@@ -676,12 +1535,10 @@ extern "C" int repro_splitk_max_clusters(int dtype, int b_kfast, int vec16,
                             : sk::max_clusters_as<float, true, false>(splits, out))
                    : (vec16 ? sk::max_clusters_as<float, false, true>(splits, out)
                             : sk::max_clusters_as<float, false, false>(splits, out));
-  if (dtype == 1)
+  if (dtype == 1 && !vec16)   // aligned bf16 takes the wgmma route
     return b_kfast
-        ? (vec16 ? sk::max_clusters_as<__nv_bfloat16, true, true>(splits, out)
-                 : sk::max_clusters_as<__nv_bfloat16, true, false>(splits, out))
-        : (vec16 ? sk::max_clusters_as<__nv_bfloat16, false, true>(splits, out)
-                 : sk::max_clusters_as<__nv_bfloat16, false, false>(splits, out));
+               ? sk::max_clusters_as<__nv_bfloat16, true, false>(splits, out)
+               : sk::max_clusters_as<__nv_bfloat16, false, false>(splits, out);
   return cudaErrorInvalidValue;
 }
 
@@ -725,8 +1582,99 @@ extern "C" int repro_matmul_tn_blocks_per_sm(int dtype, int vec16,
   if (dtype == 0)
     return vec16 ? tn::blocks_per_sm<float, true>(out)
                  : tn::blocks_per_sm<float, false>(out);
-  if (dtype == 1)
-    return vec16 ? tn::blocks_per_sm<__nv_bfloat16, true>(out)
-                 : tn::blocks_per_sm<__nv_bfloat16, false>(out);
+  if (dtype == 1 && !vec16)   // aligned bf16 takes the wgmma route
+    return tn::blocks_per_sm<__nv_bfloat16, false>(out);
   return cudaErrorInvalidValue;
+}
+
+// The bf16 tensor-core route (wgmma_*_kernel) on the wrapper's plan:
+// `splits` blocks per cluster and `grid` blocks.  Operands as for the functions above, bfloat16 only, every base
+// and row pitch a multiple of 16 bytes (TMA's rule).  Each returns the
+// launch's cudaError_t, or 100000 + the CUresult of a descriptor that
+// cuTensorMapEncodeTiled refused.
+
+extern "C" int repro_wgmma_fwd(const void* x, const void* L, const void* g,
+                               const void* D, void* z, int M, int K, int N,
+                               int PK, long long ldx, long long ldl,
+                               long long ldg, long long ldd, long long ldz,
+                               int splits, int grid, void* stream) {
+  wg::Maps maps;
+  int err;
+  if ((err = wg::encode_k(&maps.a[0], x, M, K, ldx, wg::BM)) ||
+      (err = wg::encode_mn(&maps.b[0], L, K, N, ldl)) ||
+      (err = wg::encode_k(&maps.a[1], g, M, PK, ldg, wg::BM)) ||
+      (err = wg::encode_mn(&maps.b[1], D, PK, N, ldd)))
+    return err;
+  wg::Job job = {};
+  job.nseg = 2;
+  job.kn[0] = K;
+  job.kn[1] = PK;
+  job.m0 = job.m = M;
+  job.n0 = job.n = N;
+  job.ldc = ldz;
+  wg::set_tiles(job);
+  return wg::launch(0, maps, job, z, splits, grid,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// c[M, J0 + J1] = a[M, N] . [b0 ; b1]^T: C's columns tiled over b0's rows,
+// then over b1's.
+extern "C" int repro_wgmma_nt(const void* a, const void* b0, const void* b1,
+                              void* c, int M, int N, int J0, int J1,
+                              long long lda, long long ldb0, long long ldb1,
+                              long long ldc, int splits, int grid,
+                              void* stream) {
+  wg::Maps maps;
+  int err;
+  if ((err = wg::encode_k(&maps.a[0], a, M, N, lda, wg::BM)) ||
+      (err = wg::encode_k(&maps.b[0], b0, J0, N, ldb0, wg::BN)) ||
+      (J1 > 0 && (err = wg::encode_k(&maps.b[1], b1, J1, N, ldb1, wg::BN))))
+    return err;
+  maps.a[1] = maps.a[0];
+  if (J1 == 0) maps.b[1] = maps.b[0];
+  wg::Job job = {};
+  job.nseg = 1;
+  job.kn[0] = N;
+  job.m0 = job.m = M;
+  job.n0 = J0;
+  job.n = J0 + J1;
+  job.ldc = ldc;
+  wg::set_tiles(job);
+  return wg::launch(1, maps, job, c, splits, grid,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// c[I0 + I1, N] = [a0 | a1]^T . b[M, N]: C's rows tiled over a0's columns,
+// then over a1's.
+extern "C" int repro_wgmma_tn(const void* a0, const void* a1, const void* b,
+                              void* c, int M, int I0, int I1, int N,
+                              long long lda0, long long lda1, long long ldb,
+                              long long ldc, int splits, int grid,
+                              void* stream) {
+  wg::Maps maps;
+  int err;
+  if ((err = wg::encode_mn(&maps.a[0], a0, M, I0, lda0)) ||
+      (I1 > 0 && (err = wg::encode_mn(&maps.a[1], a1, M, I1, lda1))) ||
+      (err = wg::encode_mn(&maps.b[0], b, M, N, ldb)))
+    return err;
+  if (I1 == 0) maps.a[1] = maps.a[0];
+  maps.b[1] = maps.b[0];
+  wg::Job job = {};
+  job.nseg = 1;
+  job.kn[0] = M;
+  job.m0 = I0;
+  job.m = I0 + I1;
+  job.n0 = job.n = N;
+  job.ldc = ldc;
+  wg::set_tiles(job);
+  return wg::launch(2, maps, job, c, splits, grid,
+                    static_cast<cudaStream_t>(stream));
+}
+
+// Clusters of `splits` blocks of product `product`'s wgmma kernel
+// (0 forward, 1 dgrad, 2 wgrad) resident at once on the current card.
+extern "C" int repro_wgmma_max_clusters(int product, int splits, int* out) {
+  if (product < 0 || product > 2 || splits < 1 || splits > wg::MAX_SPLITS)
+    return cudaErrorInvalidValue;
+  return wg::max_clusters(product, splits, out);
 }

@@ -9,10 +9,27 @@ Replaces the JAX package's Pallas TPU kernels of the same names in
 ``src/repro/kernels/phantom_fused.py``.  The source's header says how the
 design maps them onto Hopper and what bounds them on the card.
 
-The forward and the dgrad run through one split-contraction kernel whose
-launch ``gemm_plan`` sets (splits per output tile, 16-byte or masked
-copies); the wgrad through a persistent GEMM of 64 x 64 tiles whose grid
-``wgrad_plan`` sets (one block per block the card holds at once).
+Each product has two routes, and its plan picks one from the operands'
+dtype and alignment (``takes_16b``):
+
+  ========================= ============================================
+  operands                  kernel (CUDA name)
+  ========================= ============================================
+  bfloat16, 16-byte aligned ``wgmma_fwd_kernel``, ``wgmma_dgrad_kernel``,
+                            ``wgmma_wgrad_kernel``: the tensor cores
+                            (wgmma fed by TMA), plan ``wg_plan``
+  float32                   ``splitk_kernel`` (forward, dgrad; 16-byte or
+                            masked copies, ``gemm_plan``) and ``tn_kernel``
+                            (wgrad, ``wgrad_plan``): fp32 FMAs on the
+                            CUDA cores
+  bfloat16, unaligned       the same CUDA-core kernels, masked variant
+  ========================= ============================================
+
+The wgmma route splits the contraction over a cluster where the output
+has fewer tiles than the card holds blocks, and otherwise runs a
+persistent grid; the CUDA-core forward and dgrad split the contraction
+per output tile (``gemm_plan``), their wgrad runs a persistent GEMM of
+64 x 64 tiles.
 
 Each wrapper checks shapes first (``KernelConfigError``, the reference's
 messages), then takes the plain version (``kernels/ref.py``) only for
@@ -64,8 +81,26 @@ WGRAD_STAGES = 4             # slabs in the cp.async ring
 # it): the CPU's stand-in for wgrad_resident().
 H100_SMS = 132
 H100_WGRAD_BLOCKS_PER_SM = {(4, "vec16"): 4, (4, "masked"): 2,
-                            (2, "vec16"): 4, (2, "masked"): 4}
+                            (2, "masked"): 4}
+# the bf16 route's kernels (wgmma_{fwd,dgrad,wgrad}_kernel); the values
+# must equal the constants of csrc/phantom_fused.cu's namespace wg
+WG_BM, WG_BN, WG_BK = 128, 256, 64   # output tile, contraction slab
+WG_STAGES = 4                # slabs in the TMA ring
+WG_MAX_SPLITS = 8            # blocks in a cluster
+WG_THREADS = 384             # a producer and two consumer warpgroups
+WG_SLACK = 2048              # the ring's alignment and its barriers
+# a split's reduction (the fp32 partial tiles through distributed shared
+# memory, two cluster barriers) in slabs' time (wg_split)
+WG_SPLIT_SLABS = 8
+# Clusters of S blocks of a wgmma kernel an H100 SXM (132 SMs, 700 W)
+# holds at once (cudaOccupancyMaxActiveClusters, as chip_smoke.py prints
+# it): the CPU's stand-in for wg_resident_table().
+H100_WG_RESIDENT_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17,
+                             7: 15, 8: 15}
+WG_PRODUCTS = {"forward": 0, "dgrad": 1, "wgrad": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the C functions' code for a descriptor cuTensorMapEncodeTiled refused
+_ENCODE_FAILED = 100_000
 
 
 class KernelConfigError(ValueError):
@@ -103,6 +138,29 @@ SMEM_BYTES = {(kf, es): check_kernel_fits(kf, es)
               for kf in (False, True) for es in (4, 2)}
 
 
+def wg_smem_bytes(bm: int = WG_BM, bn: int = WG_BN, bk: int = WG_BK,
+                  stages: int = WG_STAGES) -> int:
+    """Dynamic shared memory of one wgmma block: a ring of ``stages``
+    bf16 slabs, A as ``bm`` x ``bk`` and B as ``bk`` x ``bn`` (TMA boxes,
+    128-byte swizzled), and ``WG_SLACK`` for its 1024-byte alignment and
+    its barriers; a split's fp32 ``bm x bn`` partial tile reuses the
+    ring."""
+    ring = stages * (bm + bn) * bk * 2
+    if 4 * bm * bn > ring:
+        raise KernelConfigError(f"the fp32 partial tile {bm}x{bn} outgrows "
+                                f"the ring of {ring} B")
+    need = ring + WG_SLACK
+    if need > SMEM_BUDGET_BYTES:
+        raise KernelConfigError(
+            f"wgmma tiles bm={bm} bn={bn} bk={bk} x {stages} stages need "
+            f"{need} B of shared memory per block, over the "
+            f"{SMEM_BUDGET_BYTES} B an H100 block may use; shrink the tiles")
+    return need
+
+
+WG_SMEM_BYTES = wg_smem_bytes()
+
+
 @dataclass(frozen=True)
 class GemmPlan:
     """How ``splitk_kernel`` runs one product: ``splits`` blocks (one
@@ -115,11 +173,19 @@ class GemmPlan:
     splits: int
     grid: Tuple[int, int]      # (column tiles x splits, row tiles)
     cluster: Tuple[int, int, int]
-    variant: str               # "vec16" (16-byte cp.async) or "masked"
+    variant: str               # "wgmma", or "vec16" / "masked" copies
     smem_bytes: int
     slabs: int
     dgrad: bool                # B k-contiguous ([L;D] rows) or k-major (L)
     esize: int                 # bytes per input element
+    tiles: int = 0             # output tiles
+
+    @property
+    def kernel(self) -> str:
+        """The CUDA name of the kernel the plan launches."""
+        if self.variant == "wgmma":
+            return "wgmma_dgrad_kernel" if self.dgrad else "wgmma_fwd_kernel"
+        return "splitk_kernel"
 
     def ranges(self) -> List[Tuple[int, int]]:
         """[first, end) slabs of each block rank, as the kernel splits
@@ -153,7 +219,53 @@ def gemm_plan(M: int, N: int, seg_lens: Sequence[int], b_kfast: bool,
             break
     return GemmPlan(BM, BN, BK, STAGES, splits, (tiles_n * splits, tiles_m),
                     (splits, 1, 1), "vec16" if vec16 else "masked",
-                    SMEM_BYTES[(b_kfast, esize)], slabs, b_kfast, esize)
+                    SMEM_BYTES[(b_kfast, esize)], slabs, b_kfast, esize,
+                    tiles_m * tiles_n)
+
+
+def _tiles(parts: Sequence[int], side: int) -> int:
+    """Tiles of ``side`` over a tile side joined from ``parts``: no tile
+    straddles a join."""
+    return sum(-(-p // side) for p in parts)
+
+
+def wg_split(tiles: int, slabs: int,
+             resident: Mapping[int, int]) -> Tuple[int, int]:
+    """(splits S, blocks) of the wgmma route for ``tiles`` output tiles of
+    ``slabs`` slabs each.  A split takes one cluster of S blocks per tile,
+    every cluster resident at once (``resident``: clusters of S the card
+    holds), every block two slabs or more; its blocks walk ``ceil(slabs
+    / S)`` slabs each and then sum their fp32 partial tiles through
+    distributed shared memory, which costs about ``WG_SPLIT_SLABS`` slabs.
+    S (1..``WG_MAX_SPLITS``) minimises that, the more splits on a tie: a
+    short output spreads its contraction (and its weight's bytes) over
+    the card, a short contraction is not split.  Without a split, a
+    persistent grid of at most one block per tile and per block the card
+    holds."""
+    best = (slabs, 1)
+    for s in range(2, WG_MAX_SPLITS + 1):
+        if slabs >= 2 * s and tiles <= resident[s]:
+            cost = -(-slabs // s) + WG_SPLIT_SLABS
+            if cost <= best[0]:
+                best = (cost, s)
+    s = best[1]
+    return s, tiles * s if s > 1 else min(tiles, resident[1])
+
+
+def wg_plan(row_parts: Sequence[int], col_parts: Sequence[int],
+            seg_lens: Sequence[int], dgrad: bool,
+            resident: Mapping[int, int] = H100_WG_RESIDENT_CLUSTERS
+            ) -> GemmPlan:
+    """The wgmma route's plan of C = sum of A.B over contraction segments
+    of ``seg_lens`` (the forward or the dgrad), C's rows joined from
+    ``row_parts`` and its columns from ``col_parts``, each part tiled on
+    its own: splits and grid from ``wg_split``."""
+    tiles = _tiles(row_parts, WG_BM) * _tiles(col_parts, WG_BN)
+    slabs = sum(-(-k // WG_BK) for k in seg_lens)
+    splits, blocks = wg_split(tiles, slabs, resident)
+    return GemmPlan(WG_BM, WG_BN, WG_BK, WG_STAGES, splits, (blocks, 1),
+                    (splits, 1, 1), "wgmma", WG_SMEM_BYTES, slabs, dgrad, 2,
+                    tiles)
 
 
 def wgrad_smem_bytes(esize: int) -> int:
@@ -171,12 +283,19 @@ class WgradPlan:
     tiles_n: int
     resident: int              # blocks the card holds at once
     grid: int
-    variant: str               # "vec16" (16-byte copies) or "masked"
+    variant: str               # "wgmma", or "vec16" / "masked" copies
     smem_bytes: int
+    splits: int = 1            # blocks of a cluster (the wgmma route)
 
     @property
     def tiles(self) -> int:
         return self.tiles_m * self.tiles_n
+
+    @property
+    def kernel(self) -> str:
+        """The CUDA name of the kernel the plan launches."""
+        return "wgmma_wgrad_kernel" if self.variant == "wgmma" else \
+            "tn_kernel"
 
     @property
     def rounds(self) -> int:
@@ -193,6 +312,18 @@ def wgrad_plan(I: int, N: int, esize: int, vec16: bool,
     return WgradPlan(tiles_m, tiles_n, resident,
                      min(tiles_m * tiles_n, resident),
                      "vec16" if vec16 else "masked", wgrad_smem_bytes(esize))
+
+
+def wg_wgrad_plan(row_parts: Sequence[int], N: int, M: int,
+                  resident: Mapping[int, int] = H100_WG_RESIDENT_CLUSTERS
+                  ) -> WgradPlan:
+    """The wgmma route's wgrad c[I, N] = [a | a2]^T . b over ``M`` rows,
+    C's rows joined from ``row_parts`` (each tiled on its own): a
+    persistent grid of clusters, splits and grid from ``wg_split``."""
+    tiles_m, tiles_n = _tiles(row_parts, WG_BM), -(-N // WG_BN)
+    splits, blocks = wg_split(tiles_m * tiles_n, -(-M // WG_BK), resident)
+    return WgradPlan(tiles_m, tiles_n, resident[splits] * splits, blocks,
+                     "wgmma", WG_SMEM_BYTES, splits)
 
 
 def takes_16b(*ts) -> bool:
@@ -225,13 +356,36 @@ def _wgrad_resident(t, variant: str) -> int:
                           t.element_size(), variant)
 
 
+def _wg_resident(product: str, t) -> Mapping[int, int]:
+    """Clusters of S blocks of ``product``'s wgmma kernel resident at
+    once, by S: queried on ``t``'s card, the H100 table on the CPU."""
+    if t.device.type != "cuda":
+        return H100_WG_RESIDENT_CLUSTERS
+    return wg_resident_table(t.device.index if t.device.index is not None
+                             else torch.cuda.current_device(),
+                             WG_PRODUCTS[product])
+
+
+def tensor_cores(*ts) -> bool:
+    """Whether a product of these operands takes the wgmma route:
+    bfloat16, every operand in 16-byte pieces (TMA's alignment)."""
+    return ts[0].dtype == torch.bfloat16 and takes_16b(*ts)
+
+
 def forward_plan(x, L, g, D) -> GemmPlan:
+    if tensor_cores(x, L, g, D):
+        return wg_plan((x.shape[0],), (L.shape[1],),
+                       (x.shape[1], g.shape[1]), False,
+                       _wg_resident("forward", x))
     vec16 = takes_16b(x, L, g, D)
     return gemm_plan(x.shape[0], L.shape[1], (x.shape[1], g.shape[1]),
                      False, x.element_size(), vec16, _resident(False, x))
 
 
 def dgrad_plan(a, *bs) -> GemmPlan:
+    if tensor_cores(a, *bs):
+        return wg_plan((a.shape[0],), tuple(b.shape[0] for b in bs),
+                       (a.shape[1],), True, _wg_resident("dgrad", a))
     return gemm_plan(a.shape[0], sum(b.shape[0] for b in bs), (a.shape[1],),
                      True, a.element_size(), takes_16b(a, *bs),
                      _resident(True, a))
@@ -240,6 +394,9 @@ def dgrad_plan(a, *bs) -> GemmPlan:
 def tn_plan(a, b, a2=None) -> WgradPlan:
     """The wgrad's plan for ``matmul_tn(a, b, a2)``."""
     parts = [a] if a2 is None else [a, a2]
+    if tensor_cores(b, *parts):
+        return wg_wgrad_plan(tuple(t.shape[1] for t in parts), b.shape[1],
+                             b.shape[0], _wg_resident("wgrad", a))
     variant = "vec16" if takes_16b(b, *parts) else "masked"
     return wgrad_plan(sum(t.shape[1] for t in parts), b.shape[1],
                       a.element_size(), variant == "vec16",
@@ -258,9 +415,18 @@ def _library() -> ctypes.CDLL:
             [p] * 4 + [i] * 4 + [ll] * 4 + [i] * 4 + [p])
         lib.repro_splitk_max_clusters.argtypes = [i] * 4 + [p]
         lib.repro_matmul_tn_blocks_per_sm.argtypes = [i] * 2 + [p]
+        lib.repro_wgmma_fwd.argtypes = (
+            [p] * 5 + [i] * 4 + [ll] * 5 + [i] * 2 + [p])
+        lib.repro_wgmma_nt.argtypes = (
+            [p] * 4 + [i] * 4 + [ll] * 4 + [i] * 2 + [p])
+        lib.repro_wgmma_tn.argtypes = (
+            [p] * 4 + [i] * 4 + [ll] * 4 + [i] * 2 + [p])
+        lib.repro_wgmma_max_clusters.argtypes = [i] * 2 + [p]
         for fn in (lib.repro_phantom_fused_fwd, lib.repro_matmul_nt,
                    lib.repro_matmul_tn, lib.repro_splitk_max_clusters,
-                   lib.repro_matmul_tn_blocks_per_sm):
+                   lib.repro_matmul_tn_blocks_per_sm, lib.repro_wgmma_fwd,
+                   lib.repro_wgmma_nt, lib.repro_wgmma_tn,
+                   lib.repro_wgmma_max_clusters):
             fn.restype = ctypes.c_int
     return lib
 
@@ -269,18 +435,39 @@ def _library() -> ctypes.CDLL:
 def resident_table(index: int, dgrad: bool, esize: int) -> Dict[int, int]:
     """Clusters of S blocks (S = 1..``MAX_SPLITS``) that card ``index``
     holds at once (``cudaOccupancyMaxActiveClusters``) for the forward's
-    or the dgrad's kernel at ``esize``-byte inputs; a grid of more
-    clusters runs in more than one wave.  Both variants use the same
-    shared memory and two blocks per SM."""
+    or the dgrad's CUDA-core kernel at ``esize``-byte inputs (float32:
+    the 16-byte variant; bfloat16: the masked one, the only one built);
+    a grid of more clusters runs in more than one wave.  Both variants
+    use the same shared memory and two blocks per SM."""
     lib, out = _library(), {}
     with torch.cuda.device(index):
         for s in range(1, MAX_SPLITS + 1):
             n = ctypes.c_int(0)
             err = lib.repro_splitk_max_clusters(
-                {4: 0, 2: 1}[esize], int(dgrad), 1, s, ctypes.byref(n))
+                {4: 0, 2: 1}[esize], int(dgrad), int(esize == 4), s,
+                ctypes.byref(n))
             if err != 0:
                 raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: "
                                    f"cudaError {err} for {s} blocks")
+            out[s] = n.value
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def wg_resident_table(index: int, product: int) -> Dict[int, int]:
+    """Clusters of S blocks (S = 1..``WG_MAX_SPLITS``) of wgmma kernel
+    ``product`` (0 forward, 1 dgrad, 2 wgrad) that card ``index`` holds
+    at once (``cudaOccupancyMaxActiveClusters``)."""
+    lib, out = _library(), {}
+    with torch.cuda.device(index):
+        for s in range(1, WG_MAX_SPLITS + 1):
+            n = ctypes.c_int(0)
+            err = lib.repro_wgmma_max_clusters(product, s, ctypes.byref(n))
+            if err != 0 or (s == 1 and n.value < 1):
+                raise RuntimeError(
+                    f"cudaOccupancyMaxActiveClusters failed for wgmma "
+                    f"kernel {product}: cudaError {err}, {n.value} clusters "
+                    f"of {s}")
             out[s] = n.value
     return out
 
@@ -335,6 +522,11 @@ def _plan_args(plan: GemmPlan):
 
 
 def _raised(err: int, what: str, *ts):
+    if err >= _ENCODE_FAILED:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled refused a TMA "
+                           f"descriptor: CUresult {err - _ENCODE_FAILED} "
+                           f"for {[tuple(t.shape) for t in ts]} "
+                           f"{ts[0].dtype}")
     if err != 0:
         raise RuntimeError(f"{what} launch failed: cudaError {err} for "
                            f"{[tuple(t.shape) for t in ts]} {ts[0].dtype}")
@@ -369,11 +561,16 @@ def phantom_fused_matmul(x, L, g, D):
     _check_cuda(x, L, g, D)
     plan = forward_plan(x, L, g, D)
     z = torch.empty((M, N), dtype=x.dtype, device=x.device)
-    err = _library().repro_phantom_fused_fwd(
-        x.data_ptr(), L.data_ptr(), g.data_ptr(), D.data_ptr(), z.data_ptr(),
-        M, K, N, PK, x.stride(0), L.stride(0), g.stride(0), D.stride(0),
-        z.stride(0), _DTYPE_CODES[x.dtype], *_plan_args(plan),
-        _stream(x.device))
+    args = (x.data_ptr(), L.data_ptr(), g.data_ptr(), D.data_ptr(),
+            z.data_ptr(), M, K, N, PK, x.stride(0), L.stride(0), g.stride(0),
+            D.stride(0), z.stride(0))
+    if plan.variant == "wgmma":
+        err = _library().repro_wgmma_fwd(*args, plan.splits, plan.grid[0],
+                                         _stream(x.device))
+    else:
+        err = _library().repro_phantom_fused_fwd(
+            *args, _DTYPE_CODES[x.dtype], *_plan_args(plan),
+            _stream(x.device))
     _raised(err, "phantom_fused_matmul", x, L, g, D)
     phantom_fused_matmul.launches += 1
     return z
@@ -394,11 +591,15 @@ def matmul_nt(a, b, b2=None):
     plan = dgrad_plan(a, *parts)
     J0, J1 = b.shape[0], 0 if b2 is None else b2.shape[0]
     c = torch.empty((M, J0 + J1), dtype=a.dtype, device=a.device)
-    err = _library().repro_matmul_nt(
-        a.data_ptr(), b.data_ptr(), 0 if b2 is None else b2.data_ptr(),
-        c.data_ptr(), M, N, J0, J1, a.stride(0), b.stride(0),
-        b.stride(0) if b2 is None else b2.stride(0), c.stride(0),
-        _DTYPE_CODES[a.dtype], *_plan_args(plan), _stream(a.device))
+    args = (a.data_ptr(), b.data_ptr(), 0 if b2 is None else b2.data_ptr(),
+            c.data_ptr(), M, N, J0, J1, a.stride(0), b.stride(0),
+            b.stride(0) if b2 is None else b2.stride(0), c.stride(0))
+    if plan.variant == "wgmma":
+        err = _library().repro_wgmma_nt(*args, plan.splits, plan.grid[0],
+                                        _stream(a.device))
+    else:
+        err = _library().repro_matmul_nt(*args, _DTYPE_CODES[a.dtype],
+                                         *_plan_args(plan), _stream(a.device))
     _raised(err, "matmul_nt", a, *parts)
     matmul_nt.launches += 1
     return c
@@ -419,12 +620,17 @@ def matmul_tn(a, b, a2=None):
     plan = tn_plan(a, b, a2)
     I0, I1 = a.shape[1], 0 if a2 is None else a2.shape[1]
     c = torch.empty((I0 + I1, N), dtype=a.dtype, device=a.device)
-    err = _library().repro_matmul_tn(
-        a.data_ptr(), 0 if a2 is None else a2.data_ptr(), b.data_ptr(),
-        c.data_ptr(), M, I0, I1, N, a.stride(0),
-        a.stride(0) if a2 is None else a2.stride(0), b.stride(0),
-        c.stride(0), _DTYPE_CODES[a.dtype], plan.grid,
-        int(plan.variant == "vec16"), plan.smem_bytes, _stream(a.device))
+    args = (a.data_ptr(), 0 if a2 is None else a2.data_ptr(), b.data_ptr(),
+            c.data_ptr(), M, I0, I1, N, a.stride(0),
+            a.stride(0) if a2 is None else a2.stride(0), b.stride(0),
+            c.stride(0))
+    if plan.variant == "wgmma":
+        err = _library().repro_wgmma_tn(*args, plan.splits, plan.grid,
+                                        _stream(a.device))
+    else:
+        err = _library().repro_matmul_tn(
+            *args, _DTYPE_CODES[a.dtype], plan.grid,
+            int(plan.variant == "vec16"), plan.smem_bytes, _stream(a.device))
     _raised(err, "matmul_tn", b, *parts)
     matmul_tn.launches += 1
     return c

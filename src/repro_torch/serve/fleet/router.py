@@ -34,8 +34,9 @@ mesh's dp x tp (their impl and k may differ), every rank runs this same
 discrete-event loop, and since durations are modeled and tokens agreed
 by the engines, the ranks stay in step.  Executed pools on different
 meshes are ROADMAP.md queue 1, item 7; the modeled fleet prices any
-pair.  The reference's trace spans and metric gauges are left out
-(``obs/`` is item 8).
+pair.  The run is traced and metered as the reference's (``obs/``): the
+``fleet/run``, ``fleet/prefill``, ``fleet/decode`` and ``fleet/scale``
+spans, the pools' replica and queue-depth gauges.
 """
 from __future__ import annotations
 

@@ -18,9 +18,9 @@ length statistics, joins it in the ledger.
 
 In executed mode a bundle's ``cache_rows`` stay on the device they were
 prefilled on: the request's rows are a device-to-device copy out of the
-prefill cache, never a host round trip.  The reference's trace spans
-and metric counters are left out, as the port's engine leaves out its
-spans (``obs/`` is ROADMAP.md queue 1, item 8).
+prefill cache, never a host round trip.  Each transfer is traced and
+counted as the reference's is (``obs/``): a ``fleet/transfer`` instant
+and the transfer counters.
 """
 from __future__ import annotations
 

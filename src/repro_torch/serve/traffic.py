@@ -22,8 +22,9 @@ same trace through its engine; the engines agree their clocks, so every
 rank admits the same arrivals at the same step.
 
 The port of the reference's ``serve/traffic.py``: the same draws from
-the same seeds, the same report (the reference's process-wide metrics
-registry, which the report also feeds, is not ported).
+the same seeds, the same report, which also feeds the process-wide
+metrics registry (``obs/``: the TTFT and TPOT histograms, the goodput
+gauge).
 """
 from __future__ import annotations
 

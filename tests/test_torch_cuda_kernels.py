@@ -16,7 +16,10 @@ sum_j p_j |v_j|, the size of its weighted sum (``_flash_close``): P
 rounded to bf16 and the rounded output each err by at most 2^-8 of it.
 Its scores are peaked (std 2), so an output is not a near-uniform mean
 of V, and a planted fault in the kernel (a kv tile skipped, or loaded
-into the buffer being read) must fail the check.
+into the buffer being read) must fail the check.  The phantom products'
+bf16 tensor-core kernels (``wgmma_*_kernel``) are held likewise at every
+LM site's shape and at ragged ones, and a fault planted in them (a wrong
+swizzle in the wgmma descriptors, a dropped k-step) must fail theirs.
 """
 import ctypes
 import subprocess
@@ -182,6 +185,176 @@ def test_cuda_kernels_counted_by_formula(cuda_device, shape, offset):
         _close(a, b, PHANTOM_TOL["float32"], name)
 
 
+# (M, K, N, PK) of the bf16 LM sites a rank runs (PERF.md rows b-n):
+# phi3-mini at tp 4, qwen2.5-14b at tp 4, phi3-mini's microbatch at pp 2
+# x tp 2, olmoe, mamba2, phi3-mini under FSDP, jamba, qwen2-vl, seamless,
+# chatglm3-6b's served rows (4 and 192), the narrow served sites, and
+# phi3-mini under the planner's winner; gate/up then down
+LM_SITES = [
+    (2048, 768, 2048, 48), (2048, 2048, 768, 48),
+    (2048, 1280, 3456, 64), (2048, 3456, 1280, 64),
+    (512, 1536, 4096, 24), (512, 4096, 1536, 24),
+    (2048, 512, 512, 32),
+    (2048, 256, 512, 32), (2048, 512, 256, 32),
+    (1024, 1536, 4096, 24), (1024, 4096, 1536, 24),
+    (2048, 2048, 6144, 128), (2048, 6144, 2048, 128),
+    (2048, 2048, 7392, 128), (2048, 7392, 2048, 128),
+    (2048, 256, 2048, 32), (2048, 2048, 256, 32),
+    (4, 1024, 3424, 64), (4, 3424, 1024, 64),
+    (192, 1024, 3424, 64), (192, 3424, 1024, 64),
+    (4, 512, 512, 32), (192, 256, 2048, 32), (4, 2048, 6144, 128),
+    (192, 2048, 7392, 128),
+    (2048, 1536, 1536, 8), (2048, 1536, 4096, 8), (2048, 4096, 1536, 8),
+]
+# ragged: no side a multiple of a tile, one-slab and sub-slab contractions,
+# PK below a wgmma's narrowest N, a part of C of fewer rows than a
+# warpgroup
+WG_RAGGED = [(300, 200, 264, 8), (300, 264, 200, 16), (130, 136, 72, 24),
+             (70, 136, 520, 48), (384, 200, 600, 24), (640, 640, 520, 48),
+             (64, 64, 64, 8), (1, 8, 8, 8), (2176, 1024, 6216, 8)]
+
+
+def _wgmma_products(shape, device, seed=0):
+    """The three products on aligned bf16 operands of ``shape``, each
+    with its plan and plain version."""
+    M, K, N, PK = shape
+    x, L, g, D, dz = _on(_arrays(seed, (M, K), (K, N), (M, PK), (PK, N),
+                                 (M, N)), "bfloat16", device)
+    return {
+        "forward": (lambda: pf.phantom_fused_matmul(x, L, g, D),
+                    lambda: phantom_fused_ref(x, L, g, D),
+                    pf.forward_plan(x, L, g, D)),
+        "dgrad": (lambda: pf.matmul_nt(dz, L, D),
+                  lambda: matmul_nt_ref(dz, torch.cat([L, D])),
+                  pf.dgrad_plan(dz, L, D)),
+        "wgrad": (lambda: pf.matmul_tn(x, dz, g),
+                  lambda: matmul_tn_ref(torch.cat([x, g], 1), dz),
+                  pf.tn_plan(x, dz, g)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", LM_SITES + WG_RAGGED)
+def test_wgmma_kernels_match_plain(cuda_device, shape):
+    """Each product's bf16 tensor-core kernel at an LM site's shape or a
+    ragged one: the plan takes the wgmma route, the kernel launches once,
+    agrees with the plain version within 2e-2 and gives the same bits on
+    a second launch."""
+    counters = {"forward": pf.phantom_fused_matmul, "dgrad": pf.matmul_nt,
+                "wgrad": pf.matmul_tn}
+    for kind, (kern, plain, plan) in _wgmma_products(
+            shape, cuda_device, seed=sum(shape)).items():
+        assert plan.variant == "wgmma" and plan.kernel.startswith("wgmma_")
+        before = counters[kind].launches
+        got = kern()
+        torch.cuda.synchronize()
+        assert counters[kind].launches == before + 1, kind
+        _close(got, plain(), PHANTOM_TOL["bfloat16"], f"{kind} {shape}")
+        assert torch.equal(got, kern()), f"{kind} {shape}: launches differ"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N,k,p", [
+    (512, 768, 2048, 12, 4),    # phi3-mini at tp 4's gate/up, a microbatch
+    (2048, 2048, 768, 12, 4),   # its down projection
+    (256, 1024, 3424, 16, 4),   # chatglm3-6b's gate/up at tp 4
+    (200, 136, 520, 8, 3),      # ragged
+])
+def test_fused_linear_grads_through_the_wgmma_route(cuda_device, M, K, N,
+                                                    k, p):
+    """``phantom_fused_linear`` on aligned bf16 card tensors: its forward,
+    dgrad and wgrad each launch their wgmma kernel once, and the loss and
+    gradients hold autograd through the plain version within 6e-2 (the
+    reference's bf16 gradient tolerance) of each value, relative to the
+    tensor's largest."""
+    from repro_torch.kernels.ops import phantom_fused_linear
+    base = _on(_arrays(M + K, (M, K), (K, N), (M, p * k), (p * k, N)),
+               "bfloat16", cuda_device)
+    assert pf.forward_plan(*base).variant == "wgmma"
+    kernels = (pf.phantom_fused_matmul, pf.matmul_nt, pf.matmul_tn)
+    res = {}
+    for name, fn in (("kernel", phantom_fused_linear),
+                     ("plain", phantom_fused_ref)):
+        ins = [t.clone().requires_grad_(True) for t in base]
+        before = [kk.launches for kk in kernels]
+        loss = fn(*ins).float().square().sum()
+        grads = torch.autograd.grad(loss, ins)
+        torch.cuda.synchronize()
+        assert [kk.launches - b for kk, b in zip(kernels, before)] == (
+            [1, 1, 1] if name == "kernel" else [0, 0, 0])
+        res[name] = (loss, grads)
+    (lk, gk), (lp, gp) = res["kernel"], res["plain"]
+    torch.testing.assert_close(lk, lp, rtol=6e-2, atol=0)
+    for name, a, b in zip(("dx", "dL", "dg", "dD"), gk, gp):
+        assert a.dtype == torch.bfloat16, name
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= 6e-2 * scale, (name, err, scale)
+
+
+# A fault planted in a copy of the wgmma kernels: the source text and
+# what replaces it
+WG_FAULTS = {
+    # TMA copies the slabs unswizzled where the wgmma descriptors read
+    # them 128-byte swizzled (every read stays inside the ring: a fault of
+    # the numbers, not of the addresses)
+    "wrong_swizzle": (
+        "CU_TENSOR_MAP_SWIZZLE_128B,", "CU_TENSOR_MAP_SWIZZLE_NONE,"),
+    # one of a slab's four 16-deep k-steps dropped
+    "dropped_k_step": (
+        "for (int kk = 0; kk < BK / 16; ++kk)\n    Wgmma<N, A_MN, B_MN>",
+        "for (int kk = 0; kk < BK / 16 - 1; ++kk)\n    Wgmma<N, A_MN, B_MN>"),
+}
+
+
+@pytest.fixture(scope="module")
+def faulty_phantom_libraries(tmp_path_factory):
+    """The phantom source with each of ``WG_FAULTS`` planted, built in
+    parallel outside the checkout."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (sm_90) to run the CUDA kernels")
+    src = (build.CSRC / "phantom_fused.cu").read_text()
+    out = tmp_path_factory.mktemp("faulty_phantom")
+    procs = {}
+    for name, (old, new) in WG_FAULTS.items():
+        assert src.count(old) == 1, f"{name}: {old!r} not in the source"
+        cu, so = out / f"{name}.cu", out / f"{name}.so"
+        cu.write_text(src.replace(old, new))
+        procs[name] = (so, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        assert proc.returncode == 0, log
+        libs[name] = ctypes.CDLL(str(so))
+    return libs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 512, 1024, 64),
+                                   (2048, 2048, 768, 48)])
+@pytest.mark.parametrize("fault", sorted(WG_FAULTS))
+def test_wgmma_check_sees_a_planted_fault(cuda_device,
+                                          faulty_phantom_libraries,
+                                          monkeypatch, fault, shape):
+    """The 2e-2 check against the plain version fails each product of a
+    kernel whose descriptors name the wrong swizzle or that drops one
+    k-step in four, at a persistent grid and at a split one."""
+    monkeypatch.setattr(build, "load",
+                        lambda name: faulty_phantom_libraries[fault])
+    for kind, (kern, plain, plan) in _wgmma_products(
+            shape, cuda_device, seed=7).items():
+        assert plan.variant == "wgmma"
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        diff = (got.float() - want.float()).abs()
+        tol = 2e-2 + 2e-2 * want.float().abs()
+        assert bool((diff > tol).any()), \
+            f"{fault} {kind}: the check passed (max error {diff.max()})"
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("variant", ["vec16", "masked"])
@@ -197,17 +370,22 @@ def test_wgrad_grid_and_variants(cuda_device, monkeypatch, M, I0, I1, N,
                                  resident, variant, dtype):
     """``matmul_tn`` at the main shape, on small outputs, at tile edges,
     and on small grids (``resident``: the card made to hold that many
-    blocks, so that tiles go round several times) in both variants:
-    within tolerance of the plain version and the same bits on a second
-    launch."""
+    blocks, so that tiles go round several times; a third of that for
+    the wgmma kernel's larger tiles) in both variants (aligned bf16: the
+    wgmma route): within tolerance of the plain version and the same
+    bits on a second launch."""
     if resident is not None:
         monkeypatch.setattr(pf, "_wgrad_resident", lambda t, v: resident)
+        monkeypatch.setattr(pf, "_wg_resident", lambda product, t: {
+            s: max(1, resident // 3) for s in range(1, 9)})
     off = 0 if variant == "vec16" else 1
     x, g, dz = [t[:, off:] for t in _on(_arrays(
         M + I0 + N, (M, I0 + off), (M, I1 + off), (M, N + off)), dtype,
         cuda_device)]
     plan = pf.tn_plan(x, dz, g)
-    assert plan.variant == variant
+    assert plan.variant == ("wgmma" if (dtype, variant) == ("bfloat16",
+                                                            "vec16")
+                            else variant)
     if resident is not None or (M, I0) == (64, 2048):
         assert plan.rounds > 1
     before = pf.matmul_tn.launches

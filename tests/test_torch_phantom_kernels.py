@@ -11,7 +11,10 @@ the concatenation it builds itself.
 Tolerances are the reference's: float32 rtol/atol 2e-4, bf16 2e-2 for
 the kernels, 2e-3 / 6e-2 for the gradients of ``phantom_fused_linear``.
 The CUDA kernels themselves are tested on the card by
-``tests/test_torch_cuda_kernels.py``, which imports no JAX.
+``tests/test_torch_cuda_kernels.py``, which imports no JAX; here, besides
+the numbers, each wrapper's plan: which kernel every call takes (the
+wgmma route for aligned bf16, the CUDA-core kernels otherwise, never the
+plain version for a CUDA tensor), its tiles, splits and grid.
 """
 import functools
 import re
@@ -163,7 +166,16 @@ def test_typed_errors_match_the_reference(case):
 def test_shared_memory_check():
     """The shared-memory counterpart of the reference's VMEM check: the
     split-contraction kernel's ring (forward and dgrad layouts, float32
-    and bfloat16) fits one H100 block; tiles past 227 KB raise."""
+    and bfloat16) and the wgmma route's TMA ring (with the split's fp32
+    partial tile in it) fit one H100 block; tiles past 227 KB raise."""
+    assert pf.WG_SMEM_BYTES == pf.wg_smem_bytes() == (
+        pf.WG_STAGES * (pf.WG_BM + pf.WG_BN) * pf.WG_BK * 2 + pf.WG_SLACK)
+    assert 48 * 1024 < pf.WG_SMEM_BYTES <= pf.SMEM_BUDGET_BYTES
+    assert 4 * pf.WG_BM * pf.WG_BN <= pf.WG_SMEM_BYTES - pf.WG_SLACK
+    with pytest.raises(KernelConfigError, match="shared memory"):
+        pf.wg_smem_bytes(stages=pf.WG_STAGES + 1)
+    with pytest.raises(KernelConfigError, match="partial tile"):
+        pf.wg_smem_bytes(bn=512, stages=1)
     for (b_kfast, esize), need in pf.SMEM_BYTES.items():
         assert need == pf.check_kernel_fits(b_kfast, esize) == \
             pf.kernel_smem_bytes(b_kfast, esize) < pf.SMEM_BUDGET_BYTES
@@ -185,15 +197,23 @@ def _constants(src, namespace):
 
 def test_kernel_constants_match_the_source():
     """The plans price tiles, rings and grids from Python constants; they
-    must be the CUDA source's: ``namespace sk`` (forward and dgrad) and
-    ``namespace tn`` (wgrad) of ``phantom_fused.cu``."""
+    must be the CUDA source's: ``namespace sk`` (forward and dgrad),
+    ``namespace tn`` (wgrad) and ``namespace wg`` (the bf16 wgmma route)
+    of ``phantom_fused.cu``."""
     csrc = Path(pf.__file__).parent / "csrc"
     src = (csrc / "phantom_fused.cu").read_text()
     sk, tn = _constants(src, "sk"), _constants(src, "tn")
+    wg = _constants(src, "wg")
     for name in ("BM", "BN", "BK", "STAGES", "MAX_SPLITS"):
         assert sk[name] == getattr(pf, name), name
     for name in ("BM", "BN", "BK", "STAGES"):
         assert tn[name] == getattr(pf, "WGRAD_" + name), name
+    for name in ("BM", "BN", "BK", "STAGES", "MAX_SPLITS", "THREADS",
+                 "SLACK"):
+        assert wg[name] == getattr(pf, "WG_" + name), name
+    # the wgmma tile: two consumer warpgroups of 64 rows, one wgmma wide
+    assert pf.WG_BM == 2 * 64 and pf.WG_BN <= 256 and pf.WG_BK * 2 == 128
+    assert pf.WG_THREADS == 3 * 128
 
 
 def _ceil(a, b):
@@ -226,6 +246,10 @@ def test_gemm_plan(shape, kind):
     resident = pf.H100_RESIDENT_CLUSTERS
     for dtype in (torch.float32, torch.bfloat16):
         plan, ops, rows, cols, slabs = _plan_operands(shape, kind, dtype)
+        if dtype == torch.bfloat16 and pf.takes_16b(*ops):
+            _check_wg_plan(plan, shape, kind)
+            continue
+        assert plan.kernel == "splitk_kernel"
         assert plan.slabs == slabs
         S = plan.splits
         assert 1 <= S <= pf.MAX_SPLITS
@@ -255,6 +279,42 @@ def test_gemm_plan(shape, kind):
         if shape in QWEN_TP4_SHAPES:
             assert plan.variant == "vec16" and S == 1
             assert tiles > resident[2]
+
+
+def _check_wg_plan(plan, shape, kind):
+    """A wgmma plan of the forward or the dgrad at (M, K, N, PK): tiles of
+    128 x 256 over each part of C's columns on its own, slabs of 64, and
+    ``wg_split``'s splits: every block two slabs or more, one cluster per
+    tile in one wave, and no S of lower cost."""
+    M, K, N, PK = shape
+    resident = pf.H100_WG_RESIDENT_CLUSTERS
+    assert plan.variant == "wgmma" and plan.esize == 2
+    assert plan.kernel == {"forward": "wgmma_fwd_kernel",
+                           "dgrad": "wgmma_dgrad_kernel"}[kind]
+    if kind == "forward":
+        tiles = _ceil(M, 128) * _ceil(N, 256)
+        slabs = _ceil(K, 64) + _ceil(PK, 64)
+    else:
+        tiles = _ceil(M, 128) * (_ceil(K, 256) + _ceil(PK, 256))
+        slabs = _ceil(N, 64)
+    assert (plan.tiles, plan.slabs) == (tiles, slabs)
+    assert plan.smem_bytes == pf.WG_SMEM_BYTES
+    S = plan.splits
+    assert plan.cluster == (S, 1, 1)
+    ranges = plan.ranges()
+    assert ranges[0][0] == 0 and ranges[-1][1] == slabs and len(ranges) == S
+
+    def cost(s):
+        return slabs if s == 1 else _ceil(slabs, s) + pf.WG_SPLIT_SLABS
+    fits = [s for s in range(2, pf.WG_MAX_SPLITS + 1)
+            if slabs >= 2 * s and tiles <= resident[s]]
+    assert all(cost(S) <= cost(s) for s in fits)
+    if S > 1:
+        assert S in fits and plan.grid == (tiles * S, 1)
+        assert min(b - a for a, b in ranges) >= 2
+        assert all(cost(s) > cost(S) for s in fits if s > S)
+    else:
+        assert plan.grid == (min(tiles, resident[1]), 1)
 
 
 _H100 = pf.H100_RESIDENT_CLUSTERS
@@ -294,6 +354,10 @@ def test_wgrad_plan(shape):
                     torch.empty(M, N, dtype=dtype))
         es = x.element_size()
         plan = pf.tn_plan(x, dz, g)
+        if dtype == torch.bfloat16 and pf.takes_16b(x, g, dz):
+            _check_wg_wgrad_plan(plan, M, K, N, PK)
+            continue
+        assert plan.kernel == "tn_kernel" and plan.splits == 1
         per_sm = pf.H100_WGRAD_BLOCKS_PER_SM[(es, plan.variant)]
         tiles = _ceil(K + PK, pf.WGRAD_BM) * _ceil(N, pf.WGRAD_BN)
         assert plan.tiles == tiles
@@ -315,6 +379,28 @@ def test_wgrad_plan(shape):
             assert plan.variant == "vec16"
         else:    # the sweep's and the mini-run's outputs are small
             assert plan.rounds == 1
+
+
+def _check_wg_wgrad_plan(plan, M, K, N, PK):
+    """A wgmma wgrad plan: rows tiled over x's columns and then g's, 256
+    columns a tile, the contraction M in slabs of 64, split as
+    ``wg_split`` says or a persistent grid of one block per tile at
+    most."""
+    resident = pf.H100_WG_RESIDENT_CLUSTERS
+    assert plan.variant == "wgmma" and plan.kernel == "wgmma_wgrad_kernel"
+    assert (plan.tiles_m, plan.tiles_n) == (_ceil(K, 128) + _ceil(PK, 128),
+                                            _ceil(N, 256))
+    assert plan.smem_bytes == pf.WG_SMEM_BYTES
+    S, tiles = plan.splits, plan.tiles
+    assert (S, plan.grid) == pf.wg_split(tiles, _ceil(M, 64), resident)
+    assert plan.resident == resident[S] * S
+    if S > 1:
+        assert plan.grid == tiles * S and tiles <= resident[S]
+        assert _ceil(M, 64) >= 2 * S
+    else:
+        assert plan.grid == min(tiles, resident[1])
+        assert (plan.rounds - 1) * plan.grid < tiles <= \
+            plan.rounds * plan.grid
 
 
 @pytest.mark.parametrize("resident,grid,rounds", [
@@ -357,6 +443,200 @@ def test_non_cpu_tensors_never_take_the_plain_version():
         pf.phantom_fused_matmul(*(t.to("meta") for t in (x, L, g, D)))
     with pytest.raises(ValueError, match="no phantom kernel"):
         pf.matmul_nt(x.to("meta"), L.to("meta"))
+
+
+class _FakeLibrary:
+    """Stands in for the built library: records each C call with its
+    arguments and returns ``err``."""
+
+    def __init__(self, calls, err=0):
+        self.calls, self.err = calls, err
+
+    def __getattr__(self, name):
+        def call(*args):
+            self.calls.append((name, args))
+            return self.err
+        return call
+
+
+def _never(*args, **kw):
+    raise AssertionError("a CUDA tensor reached the plain version")
+
+
+def _as_if_on_the_card(monkeypatch, calls, err=0):
+    """The wrappers as they run on a CUDA tensor, on CPU tensors: the
+    device checks pass, the library is ``_FakeLibrary`` and the plain
+    versions raise if called."""
+    monkeypatch.setattr(pf, "_library", lambda: _FakeLibrary(calls, err))
+    monkeypatch.setattr(pf, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(pf, "_check_cuda", lambda *ts: None)
+    monkeypatch.setattr(pf, "_stream", lambda dev: 0)
+    for name in ("phantom_fused_ref", "matmul_nt_ref", "matmul_tn_ref"):
+        monkeypatch.setattr(pf, name, _never)
+
+
+# (M, K, N, PK): a decode step's 4 rows and a prefill group's 192
+# (chatglm3-6b at tp 4), a pipeline stage's 8, the paper-ffn-16k rank's
+# 64, LM sites at 2,048 (qwen2-vl-72b gate/up and down, phi3-mini under
+# the planner's winner) and a ragged sweep shape
+ROUTE_SHAPES = [(4, 1024, 3424, 64), (192, 1024, 3424, 64),
+                (8, 8192, 8192, 32), (64, 2048, 2048, 128),
+                (2048, 2048, 7392, 128), (2048, 7392, 2048, 128),
+                (2048, 1536, 4096, 8), (100, 72, 56, 24)]
+C_CALLS = {True: ("repro_wgmma_fwd", "repro_wgmma_nt", "repro_wgmma_tn"),
+           False: ("repro_phantom_fused_fwd", "repro_matmul_nt",
+                   "repro_matmul_tn")}
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ROUTE_SHAPES)
+def test_route_of_every_call(monkeypatch, shape, dtype, aligned):
+    """Which kernel each product takes on a CUDA tensor: aligned bf16 the
+    wgmma kernels (``repro_wgmma_*``, with the plan's splits and grid),
+    float32 and unaligned bf16 the CUDA-core kernels (the 16-byte or the
+    masked variant); each call launches once, counted, and never reaches
+    the plain version.  Unaligned: every operand a column view one
+    element into a wider tensor."""
+    M, K, N, PK = shape
+    dt, off = getattr(torch, dtype), 0 if aligned else 1
+
+    def e(rows, cols):
+        return torch.empty(rows, cols + off, dtype=dt)[:, off:]
+    x, L, g, D, dz = e(M, K), e(K, N), e(M, PK), e(PK, N), e(M, N)
+    calls = []
+    _as_if_on_the_card(monkeypatch, calls)
+    plans = (pf.forward_plan(x, L, g, D), pf.dgrad_plan(dz, L, D),
+             pf.tn_plan(x, dz, g))
+    tc = dtype == "bfloat16" and aligned
+    assert [p.variant for p in plans] == (
+        ["wgmma"] * 3 if tc else ["vec16" if aligned else "masked"] * 3)
+    assert [p.kernel for p in plans] == (
+        ["wgmma_fwd_kernel", "wgmma_dgrad_kernel", "wgmma_wgrad_kernel"]
+        if tc else ["splitk_kernel", "splitk_kernel", "tn_kernel"])
+    kernels = (pf.phantom_fused_matmul, pf.matmul_nt, pf.matmul_tn)
+    before = [k.launches for k in kernels]
+    outs = (pf.phantom_fused_matmul(x, L, g, D), pf.matmul_nt(dz, L, D),
+            pf.matmul_tn(x, dz, g))
+    assert [k.launches for k in kernels] == [b + 1 for b in before]
+    assert [o.shape for o in outs] == [(M, N), (M, K + PK), (K + PK, N)]
+    assert tuple(name for name, _ in calls) == C_CALLS[tc]
+    if tc:   # the plan's splits and grid, then the stream
+        (_, fwd), (_, nt), (_, tn) = calls
+        assert fwd[-3:] == (plans[0].splits, plans[0].grid[0], 0)
+        assert nt[-3:] == (plans[1].splits, plans[1].grid[0], 0)
+        assert tn[-3:] == (plans[2].splits, plans[2].grid, 0)
+
+
+@pytest.mark.parametrize("err,match", [
+    (1, "launch failed: cudaError 1"),
+    (700, "launch failed: cudaError 700"),
+    (100_001, "cuTensorMapEncodeTiled refused a TMA descriptor: CUresult 1"),
+])
+def test_a_failed_wgmma_launch_raises(monkeypatch, err, match):
+    """A refused descriptor or launch on the wgmma route raises; it never
+    takes the CUDA-core kernel or the plain version, and is not
+    counted."""
+    x, L, g, D, dz = (torch.empty(*s, dtype=torch.bfloat16) for s in
+                      ((256, 512), (512, 768), (256, 64), (64, 768),
+                       (256, 768)))
+    calls = []
+    _as_if_on_the_card(monkeypatch, calls, err)
+    kernels = (pf.phantom_fused_matmul, pf.matmul_nt, pf.matmul_tn)
+    before = [k.launches for k in kernels]
+    for fn, args in ((pf.phantom_fused_matmul, (x, L, g, D)),
+                     (pf.matmul_nt, (dz, L, D)), (pf.matmul_tn, (x, dz, g))):
+        with pytest.raises(RuntimeError, match=match):
+            fn(*args)
+    assert [k.launches for k in kernels] == before
+    assert tuple(name for name, _ in calls) == C_CALLS[True]
+
+
+def _bf16(*shape):
+    return torch.empty(*shape, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,K,N,PK,want", [
+    # qwen2-vl-72b at tp 4: K = 7,392 (the down projection's contraction,
+    # the gate/up dgrad's L rows) is no multiple of 128 or 256
+    (2048, 2048, 7392, 128, {"forward": 16 * 29, "dgrad": 16 * (8 + 1),
+                             "wgrad": (16 + 1) * 29}),
+    (2048, 7392, 2048, 128, {"forward": 16 * 8, "dgrad": 16 * (29 + 1),
+                             "wgrad": (58 + 1) * 8}),
+    # chatglm3-6b at tp 4: N = 3,424
+    (4, 1024, 3424, 64, {"forward": 1 * 14, "dgrad": 1 * (4 + 1),
+                         "wgrad": (8 + 1) * 14}),
+    (4, 3424, 1024, 64, {"forward": 1 * 4, "dgrad": 1 * (14 + 1),
+                         "wgrad": (27 + 1) * 4}),
+])
+def test_tiles_across_the_joins(M, K, N, PK, want):
+    """No wgmma tile straddles a join: the dgrad's output columns are
+    tiled over L's K rows and then D's PK, the wgrad's output rows over
+    x's K columns and then g's PK, each on its own, so [L ; D] and
+    [x | g] are never built; at K = 7,392 and N = 3,424 that is one tile
+    more than tiling the joined width (7,520 = 29.4 tiles of 256; 3,488
+    = 27.25 of 128)."""
+    x, L, g, D, dz = _bf16(M, K), _bf16(K, N), _bf16(M, PK), _bf16(PK, N), \
+        _bf16(M, N)
+    got = {"forward": pf.forward_plan(x, L, g, D).tiles,
+           "dgrad": pf.dgrad_plan(dz, L, D).tiles,
+           "wgrad": pf.tn_plan(x, dz, g).tiles}
+    assert got == want
+    joined = {"dgrad": _ceil(M, 128) * _ceil(K + PK, 256),
+              "wgrad": _ceil(K + PK, 128) * _ceil(N, 256)}
+    assert got["dgrad"] >= joined["dgrad"]
+    assert got["wgrad"] >= joined["wgrad"]
+    assert got["dgrad"] - joined["dgrad"] <= _ceil(M, 128)
+    assert got["wgrad"] - joined["wgrad"] <= _ceil(N, 256)
+
+
+@pytest.mark.parametrize("M,K,N,PK,want", [
+    # a decode step's 4 rows: 17 and 55 slabs over a few tiles, split 8
+    # ways (every block the largest share of L's bytes the card holds)
+    (4, 1024, 3424, 64, {"forward": 8, "dgrad": 8, "wgrad": 1}),
+    (4, 3424, 1024, 64, {"forward": 8, "dgrad": 8, "wgrad": 1}),
+    # a pipeline stage's 8 rows: 32 and 33 tiles fit clusters of 3
+    (8, 8192, 8192, 32, {"forward": 3, "dgrad": 3, "wgrad": 1}),
+    # 2,048 rows: hundreds of tiles, a persistent grid
+    (2048, 2048, 7392, 128, {"forward": 1, "dgrad": 1, "wgrad": 1}),
+    (2048, 1536, 4096, 8, {"forward": 1, "dgrad": 1, "wgrad": 1}),
+    # 2,048 rows of narrow sites: few tiles; only the long contractions
+    # are split (olmoe q/k/v/o, phi3-mini's down at tp 4)
+    (2048, 512, 512, 32, {"forward": 1, "dgrad": 1, "wgrad": 8}),
+    (2048, 2048, 768, 48, {"forward": 2, "dgrad": 1, "wgrad": 2}),
+])
+def test_split_plan_at_short_and_long_inputs(M, K, N, PK, want):
+    """The wgmma route's splits at 4, 8 and 2,048 rows on the H100's
+    residency: a split where the tiles fit one wave of clusters and its
+    reduction (``WG_SPLIT_SLABS``) costs less than the slabs it saves;
+    the grid is then one cluster per tile, else one block per tile up to
+    the 132 the card holds."""
+    x, L, g, D, dz = _bf16(M, K), _bf16(K, N), _bf16(M, PK), _bf16(PK, N), \
+        _bf16(M, N)
+    plans = {"forward": pf.forward_plan(x, L, g, D),
+             "dgrad": pf.dgrad_plan(dz, L, D), "wgrad": pf.tn_plan(x, dz, g)}
+    assert {k: p.splits for k, p in plans.items()} == want
+    for kind, p in plans.items():
+        grid = p.grid if kind == "wgrad" else p.grid[0]
+        if p.splits > 1:
+            assert grid == p.tiles * p.splits
+            assert p.tiles <= pf.H100_WG_RESIDENT_CLUSTERS[p.splits]
+        else:
+            assert grid == min(p.tiles, 132)
+    if M <= 8:   # a short input spreads over at least a third of the SMs
+        assert plans["forward"].grid[0] >= 32
+        assert plans["dgrad"].grid[0] >= 40
+
+
+def test_wg_split_follows_the_residency():
+    """``wg_split`` on cards that hold other numbers of clusters: the
+    split needs its clusters in one wave."""
+    assert pf.wg_split(14, 17, pf.H100_WG_RESIDENT_CLUSTERS) == (8, 112)
+    assert pf.wg_split(14, 17, {**pf.H100_WG_RESIDENT_CLUSTERS,
+                                8: 13, 7: 13}) == (6, 84)
+    assert pf.wg_split(14, 17, {s: 8 for s in range(1, 9)}) == (1, 8)
+    assert pf.wg_split(500, 34, pf.H100_WG_RESIDENT_CLUSTERS) == (1, 132)
+    assert pf.wg_split(3, 3, pf.H100_WG_RESIDENT_CLUSTERS) == (1, 3)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
