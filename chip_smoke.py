@@ -12,9 +12,10 @@ Phases (any failure exits non-zero):
    parallel) and report the build time and the compiler's register
    report; check with ``cuobjdump -sass`` that every instantiation of
    the bf16 flash kernel multiplies on the tensor cores (HMMA) and that
-   each of the phantom products' bf16 kernels (``wgmma_fwd_kernel``,
-   ``wgmma_dgrad_kernel``, ``wgmma_wgrad_kernel``) does (HGMMA, the
-   wgmma); TF32 off for matmuls and convolutions.
+   every instance of the phantom products' bf16 kernels
+   (``wgmma_fwd_kernel`` and ``wgmma_dgrad_kernel`` at each tile shape
+   of ``phantom_fused.py: WG_SHAPES``, ``wgmma_wgrad_kernel``) does
+   (HGMMA, the wgmma); TF32 off for matmuls and convolutions.
 2. kernels against their plain versions at chatglm3-6b's prefill
    geometry (H=32, KV=2, hd=128; B in {1, 4}; S in {16, 32, 48, 128,
    512}; causal and full; bf16 and fp32) plus one smoke-geometry case
@@ -44,8 +45,11 @@ Phases (any failure exits non-zero):
    the plain version's time and ``torch.mm`` on operands concatenated
    and transposed outside the timing (the port never calls it).  For
    each kernel also the launch plan and its route (the kernel's CUDA
-   name): aligned bf16 takes the tensor cores (``wgmma_*_kernel``:
-   splits, grid), float32 and unaligned bf16 the CUDA-core kernels
+   name): aligned bf16 takes the tensor cores (``wgmma_*_kernel``: tile
+   shape, splits, grid, and beside the forward's and the dgrad's time
+   the one-shape plan's on the same operands: every call at 128 x 256
+   tiles, its split priced as a whole tile), float32 and unaligned bf16
+   the CUDA-core kernels
    (``splitk_kernel``: splits; ``tn_kernel``: persistent grid and rounds
    of tiles; 16-byte or masked copies); the sweep must run every product
    through both CUDA-core variants in float32 and through the wgmma
@@ -827,8 +831,12 @@ FLEET_WIRE_BAND = (0.9, 1.1)
 # a kernel's measured keys in the kernels line
 TIMED = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
          "library_ms")
-# ... and a phantom case's, with the CUDA name of the kernel that ran it
-PHANTOM_TIMED = TIMED + ("route",)
+# ... and a phantom case's, with the CUDA name of the kernel that ran it,
+# its tile shape, and (the forward's and the dgrad's wgmma route) the time
+# of the one-shape plan on the same operands: every call at 128 x 256
+# tiles, split as a whole tile (``benchmarks/wgmma_plan.py:
+# one_shape_plan``)
+PHANTOM_TIMED = TIMED + ("route", "tile", "one_shape_ms")
 # the phantom products' bf16 kernels (the tensor-core route), by product
 WGMMA_KERNELS = ("wgmma_fwd_kernel", "wgmma_dgrad_kernel",
                  "wgmma_wgrad_kernel")
@@ -970,15 +978,30 @@ def phase_device():
           f"the bf16 flash kernel is not on the tensor cores at every head "
           f"dim of {HEAD_DIMS}: {hmma}")
     sass = _sass_count("phantom_fused", "wgmma_", "HGMMA")
-    hgmma = {k: sum(n for name, n in sass.items() if k in name)
+    instances = {_wgmma_instance(name): n for name, n in sass.items()}
+    hgmma = {k: sum(n for name, n in instances.items() if k in name)
              for k in WGMMA_KERNELS}
-    print(f"phantom wgmma kernels' HGMMA instructions (cuobjdump -sass): "
-          f"{hgmma}", flush=True)
-    check(len(sass) == len(WGMMA_KERNELS) and all(hgmma.values()),
-          f"a bf16 phantom kernel is not on the tensor cores (no HGMMA): "
-          f"{hgmma}")
+    print(f"phantom wgmma kernels' HGMMA instructions (cuobjdump -sass), "
+          f"by instance: {instances}", flush=True)
+    # every instance: the forward and the dgrad at each tile shape, the
+    # wgrad at one
+    from repro_torch.kernels.phantom_fused import WG_SHAPES
+    want = sorted([f"{k}<{bm}, {bn}>" for k in WGMMA_KERNELS[:2]
+                   for bm, bn in WG_SHAPES] + [WGMMA_KERNELS[2]])
+    check(sorted(instances) == want and all(instances.values()),
+          f"a bf16 phantom kernel instance is missing or not on the tensor "
+          f"cores (no HGMMA): {instances}, want every one of {want}")
     return {"nvidia_smi": smi, "build_s": build_s, "flash_hmma": hmma,
-            "phantom_hgmma": hgmma}
+            "phantom_hgmma": hgmma, "phantom_hgmma_instances": instances}
+
+
+def _wgmma_instance(mangled):
+    """``wgmma_fwd_kernel<64, 64>`` (or ``wgmma_wgrad_kernel``) from a
+    wgmma kernel's mangled name."""
+    import re
+    base = next(k for k in WGMMA_KERNELS if k in mangled)
+    shape = re.search(r"ILi(\d+)ELi(\d+)E", mangled)
+    return base if shape is None else f"{base}<{shape[1]}, {shape[2]}>"
 
 
 def _sass_count(kernel, function, opcode):
@@ -1466,12 +1489,15 @@ def _phantom_case(M, K, N, PK, dtype, gen, names=None):
     """The three phantom kernels (``names``: those of them) on one (M, K,
     N, PK): the forward z = x.L + g.D, the dgrad dz.[L;D]^T and the wgrad
     [x|g]^T.dz, each
-    with its launch plan (the route: the kernel's CUDA name; splits per
-    output tile and the clusters the card holds at once; the wgrad's
-    grid and rounds of tiles; the variant: ``wgmma``, or 16-byte or
-    masked copies) and whether a second launch on the same inputs gives
-    the same bits."""
+    with its launch plan (the route: the kernel's CUDA name; the tile
+    shape; splits per output tile and the clusters the card holds at
+    once; the wgrad's grid and rounds of tiles; the variant: ``wgmma``,
+    or 16-byte or masked copies), whether a second launch on the same
+    inputs gives the same bits, and on the forward's and the dgrad's
+    wgmma route the one-shape plan's time on the same operands."""
     import torch
+    from repro_torch.benchmarks.wgmma_plan import one_shape_plan
+    from repro_torch.kernels import phantom_fused as pf
     from repro_torch.kernels.phantom_fused import (WG_PRODUCTS, dgrad_plan,
                                                    forward_plan, matmul_nt,
                                                    matmul_tn,
@@ -1509,6 +1535,15 @@ def _phantom_case(M, K, N, PK, dtype, gen, names=None):
     plans = {"phantom_fused_matmul": forward_plan(x, L, g, D),
              "matmul_nt": dgrad_plan(dz, L, D),
              "matmul_tn": tn_plan(x, dz, g)}
+    # the forward's and the dgrad's parts of C and contraction segments,
+    # and their launch on any plan through the wrappers' private launch
+    # helpers: the one-shape plan's time beside the plan's
+    by_plan = {
+        "phantom_fused_matmul": (
+            ((M,), (N,), (K, PK)),
+            lambda p: lambda: pf._launch_forward(x, L, g, D, p)),
+        "matmul_nt": (((M,), (K, PK), (N,)),
+                      lambda p: lambda: pf._launch_nt(dz, L, D, p))}
     out = []
     for name, (kern, plain, lib, nbytes) in calls.items():
         if names and name not in names:
@@ -1523,22 +1558,43 @@ def _phantom_case(M, K, N, PK, dtype, gen, names=None):
              "library_ms": time_ms(lib), "bound_ms": bound,
              "bound_by": bound_by}
         plan = plans[name]
+        r["one_shape_ms"] = None
         if name == "matmul_tn":
             r.update(tiles=plan.tiles, grid=plan.grid, rounds=plan.rounds,
-                     resident_blocks=plan.resident, splits=plan.splits)
+                     resident_blocks=plan.resident, splits=plan.splits,
+                     tile=list(pf.WG_WGRAD_SHAPE if plan.variant == "wgmma"
+                               else (pf.WGRAD_BM, pf.WGRAD_BN)))
         else:
-            table = (wg_resident_table(
-                0, WG_PRODUCTS["dgrad" if plan.dgrad else "forward"])
-                if plan.variant == "wgmma" else
-                resident_table(0, plan.dgrad, plan.esize))
+            product = "dgrad" if plan.dgrad else "forward"
+            table = (wg_resident_table(0, WG_PRODUCTS[product],
+                                       (plan.bm, plan.bn))
+                     if plan.variant == "wgmma" else
+                     resident_table(0, plan.dgrad, plan.esize))
             r.update(splits=plan.splits, tiles=plan.tiles,
+                     tile=[plan.bm, plan.bn],
                      clusters=plan.grid[0] * plan.grid[1] // plan.splits,
                      resident_clusters=table[plan.splits])
+            if plan.variant == "wgmma":
+                parts, on = by_plan[name]
+                one = one_shape_plan(*parts, plan.dgrad,
+                                     pf._wg_resident(product, x))
+                r.update(est_us=plan.est_us, one_shape_splits=one.splits,
+                         one_shape_ms=time_ms(on(one)))
         r.update(variant=plan.variant, route=plan.kernel,
                  bitwise=bool(torch.equal(got, kern())))
         r["ok"] = ok and r["bitwise"]
         out.append(r)
     return out
+
+
+def _tile_text(r):
+    """A phantom case's tile shape and, on the forward's and the dgrad's
+    wgmma route, the one-shape plan's time beside the plan's."""
+    text = f" tile={r['tile'][0]}x{r['tile'][1]}"
+    if r["one_shape_ms"] is not None:
+        text += (f" one_shape_ms={r['one_shape_ms']:.4f} (splits "
+                 f"{r['one_shape_splits']})")
+    return text
 
 
 def _phantom_cold(M, K, N, PK, gen, dtype="float32", names=None):
@@ -1623,7 +1679,8 @@ def _phantom_grads(gen):
 
 def phase_phantom_kernels():
     import torch
-    from repro_torch.kernels.phantom_fused import (resident_table,
+    from repro_torch.kernels.phantom_fused import (WG_SHAPES, WG_WGRAD_SHAPE,
+                                                   resident_table,
                                                    wg_resident_table,
                                                    wgrad_resident)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1638,8 +1695,8 @@ def phase_phantom_kernels():
                         f" splits={r['splits']} tiles={r['tiles']} grid="
                         f"{r['grid']} rounds={r['rounds']} (resident at "
                         f"once: {r['resident_blocks']})")
-                plan += (f" route={r['route']} {r['variant']} "
-                         f"bitwise={r['bitwise']}")
+                plan += (f" route={r['route']} {r['variant']}"
+                         f"{_tile_text(r)} bitwise={r['bitwise']}")
                 print(f"{r['kernel']} M={r['M']} K={r['K']} N={r['N']} "
                       f"PK={r['PK']} {dtype}: max_abs_err="
                       f"{r['max_abs_err']:.3e} ok={r['ok']}{plan} "
@@ -1673,8 +1730,9 @@ def phase_phantom_kernels():
              for es, v in ((4, "vec16"), (4, "masked"), (2, "masked"))}
     print(f"wgrad kernel, blocks resident at once (element size_variant): "
           f"{wgrad}", flush=True)
-    wg_resident = {k: wg_resident_table(0, p) for p, k in
-                   enumerate(WGMMA_KERNELS)}
+    wg_resident = {f"{k}<{bm}, {bn}>": wg_resident_table(0, p, (bm, bn))
+                   for p, k in enumerate(WGMMA_KERNELS)
+                   for bm, bn in (WG_SHAPES if p < 2 else (WG_WGRAD_SHAPE,))}
     print(f"wgmma kernels, clusters of S blocks resident at once, by S: "
           f"{wg_resident}", flush=True)
     return {"sweep": results, "grads": grads, "cold": cold,
@@ -3127,7 +3185,8 @@ def _lm_tp_kernels(gen):
             print(f"lm_train_tp: {r['kernel']} M={r['M']} K={r['K']} "
                   f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
                   f"{r['max_abs_err']:.3e} ok={r['ok']} route={r['route']} "
-                  f"{r['variant']} splits={r['splits']} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                  f"{r['variant']} splits={r['splits']}{_tile_text(r)} "
+                  f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                   f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f}", flush=True)
     bad = [r for r in [flash] + phantom if not r["ok"]]
@@ -3926,7 +3985,8 @@ def _timed_kernels(tag, gen, flash_shapes=(), phantom_shapes=(),
             print(f"{tag}: {r['kernel']} M={r['M']} K={r['K']} "
                   f"N={r['N']} PK={r['PK']} bfloat16: max_abs_err="
                   f"{r['max_abs_err']:.3e} ok={r['ok']} route={r['route']} "
-                  f"{r['variant']} splits={r['splits']} ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
+                  f"{r['variant']} splits={r['splits']}{_tile_text(r)} "
+                  f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.5f} "
                   f"({r['bound_by']}) plain_ms={r['plain_ms']:.4f} "
                   f"library_ms={r['library_ms']:.4f}", flush=True)
         out["cold"][str(list(shape))] = _phantom_cold(

@@ -109,15 +109,24 @@
 // rate, and TMA feeds it without spending registers.  One mainloop serves
 // the three products:
 //   * wgmma.mma_async m64nNk16, bf16 in, fp32 accumulators, both operands
-//     in shared memory.  A block owns a 128 x 256 output tile: two
-//     consumer warpgroups of 64 rows, m64n256k16 each (128 accumulators a
+//     in shared memory.  The forward and the dgrad run one instance per
+//     tile shape (WG_SHAPES: BM x BN of 128 x 256, 128 x 128, 64 x 128,
+//     64 x 64), the wrapper's plan (phantom_fused.py: wg_plan) picking
+//     shape and split per call; the wgrad runs 128 x 256.  BM = 128: two
+//     consumer warpgroups of 64 rows (m64n256k16: 128 accumulators a
 //     thread, setmaxnreg 232; the producer warpgroup gives its registers
-//     back, 40).  128 x 128 tiles were slower at M = 2048 with K, N >=
-//     2048, bound by the L2's bandwidth at 64 FLOP a byte against 85.
+//     back, 40), one block an SM.  BM = 64: one consumer warpgroup, 256
+//     threads, two blocks an SM, no setmaxnreg (its 32 or 64 accumulators
+//     fit the 128 registers that leaves a thread).  128 x 256 has the most
+//     FLOP per L2 byte (85 against 64 for 128 x 128) and keeps the wide
+//     sites (K, N >= 768 at M = 2048); the small tiles spread a narrow or
+//     short output over the card, where one 128 x 256 tile per block left
+//     85-131 of the 132 SMs idle.
 //   * Tiles arrive by cp.async.bulk.tensor (TMA, 128-byte swizzle: a slab
-//     is 64 k = 128 bytes) into a ring of 4 stages of 48 KB with full and
-//     empty mbarriers; one producer thread issues the copies and runs
-//     ahead into the next tile while the consumers finish this one.
+//     is 64 k = 128 bytes) into a ring of 4 slabs (6 for 64 x 64; 48 KB to
+//     16 KB a slab) with full and empty mbarriers; one producer thread
+//     issues the copies and runs ahead into the next tile while the
+//     consumers finish this one.
 //   * The operands' layouts differ by product and the smem descriptor's
 //     transpose bits take them (bf16 allows both): the forward's A (x, g)
 //     is K-major and its B (L, D) MN-major; the dgrad's both K-major; the
@@ -127,33 +136,36 @@
 //     forward runs two contraction segments (x.L, then g.D) into one
 //     accumulator, each with its own descriptors; the dgrad's output
 //     columns are tiled over L's rows and then over D's, the wgrad's
-//     output rows over x's columns and then g's.  A tile narrower than
-//     256 (D's PK columns, a ragged edge) multiplies at its own width
-//     (mma_n: N = 8 .. 256), a warpgroup with no rows of C multiplies
-//     nothing, and D's tiles come last, so they fill the last round.
-//     Ragged edges read TMA's zero fill and store masked.
-//   * The grid (wrapper's wg_split): where the output has fewer tiles than
-//     the card holds clusters, the contraction is split over a cluster of
-//     S blocks, one cluster per tile, and the partial tiles are summed in
-//     rank order through distributed shared memory (no atomics: the same
-//     bits every run) -- the 8-row pipelined stage, a 4-row decode step,
-//     olmoe's narrow sites.  Otherwise a persistent grid of one block per
-//     tile and per SM.  Clusters that took more than one round of split
-//     tiles were slower where tried, and so were clusters of 2 sharing B
-//     by TMA multicast (with 4 stages, each block's copies wait on both
-//     blocks' consumers).
+//     output rows over x's columns and then g's.  A tile narrower than BN
+//     (D's PK columns, a ragged edge) multiplies at its own width (mma_n:
+//     N = 8 .. BN), a warpgroup with no rows of C multiplies nothing, and
+//     D's tiles come last, so they fill the last round.  Ragged edges read
+//     TMA's zero fill and store masked.
+//   * The grid: with a split, the contraction of each tile goes to a
+//     cluster of S blocks, all clusters resident at once, and the partial
+//     tiles' real rows and columns (a 4-row tile's 4) are summed in rank
+//     order through distributed shared memory (no atomics: the same bits
+//     every run).  Without, a
+//     persistent grid of one block per tile and per resident block,
+//     launched with no cluster.  The plan prices each shape and split on
+//     the card's measured slab time, ring refills and a split's reduction
+//     on the tile's real bytes.  Clusters that took more than one round of
+//     split tiles were slower where tried, and so were clusters of 2
+//     sharing B by TMA multicast.
 //   * The epilogue shuffles the accumulators within each 4-lane quad so
-//     that every lane stores 16 contiguous bytes, not 4.
+//     that every lane stores 16 contiguous bytes, not 4.  It is straight-
+//     line code run once a tile, about half of a 4-row 128 x 256 tile's
+//     time and a fifth of a 64 x 64 one's (benchmarks/wgmma_plan.py).
 //   * The TMA descriptors are encoded on the host for each call
 //     (cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint: the
 //     library links the runtime alone) and passed by value as
 //     __grid_constant__ parameters, so a CUDA graph captures them.  A
 //     refused descriptor is an error (100000 + its CUresult), never a
 //     switch to another kernel.
-// Reached on the H100: 1.4-2.4x the operations bound at the LM sites of
-// qwen2-vl, jamba and phi3-mini (M = 2048); 9-13x the byte bound at the
-// narrow sites (K or N <= 512) and 2-7x at short inputs (4 and 192 rows),
-// under a launch's fixed ~9 us (PERF.md).
+// Reached on the H100: the wide sites (M = 2048, K and N >= 768) as with
+// 128 x 256 tiles alone, 1.3-2.4x their operations bound; the narrow and
+// short ones (K or N <= 512; 4 and 192 rows) at 0.005-0.009 ms, 1.1-2.3x
+// torch.mm, where 128 x 256 tiles took 0.008-0.015 (PERF.md).
 
 #include <cooperative_groups.h>
 #include <cuda.h>
@@ -663,28 +675,57 @@ cudaError_t blocks_per_sm(int* out) {
 
 namespace wg {
 
-constexpr int BM = 128;         // output rows of a tile: two consumer warpgroups
-constexpr int BN = 256;         // output columns of a tile (the wgmma's N)
 constexpr int BK = 64;          // contraction slab: 128 bytes of bf16
-constexpr int STAGES = 4;       // slabs in the TMA ring
 constexpr int MAX_SPLITS = 8;   // blocks in a cluster (the portable limit)
-constexpr int THREADS = 384;    // a producer warpgroup, two consumer warpgroups
 constexpr int SLACK = 2048;     // the ring's 1024-byte alignment, its barriers
-constexpr int PRODUCER_REGS = 40;
+constexpr int PRODUCER_REGS = 40;    // setmaxnreg at two consumer warpgroups
 constexpr int CONSUMER_REGS = 232;
+constexpr int SM_SMEM = 233472;      // shared memory of an H100 SM (228 KB)
+constexpr int BLOCK_RESERVED = 1024; // ... of which each resident block's
 
 constexpr int ALIGN = 1024;     // a 128-byte swizzle repeats every 8 rows
-constexpr int A_BYTES = BM * BK * 2;
-constexpr int B_BYTES = BN * BK * 2;
 constexpr int HALF = 64 * BK * 2;          // 64 rows (or columns) of a slab
-constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + SLACK;
-constexpr int ACC = BN / 2;                // accumulators of a consumer thread
-static_assert(BM * BN * 4 <= STAGES * STAGE_BYTES,
-              "the split's fp32 partial tile reuses the ring");
-static_assert(ALIGN + 2 * STAGES * 8 <= SLACK, "barriers past the ring");
 static_assert(PRODUCER_REGS * 128 + CONSUMER_REGS * 256 <= 65536,
               "the warpgroups' registers fit one SM");
+
+// The forward's and the dgrad's tile shapes (BM, BN) and their rings'
+// slabs, largest first: one instance of each kernel per shape, the
+// wrapper's plan picks one per call (phantom_fused.py: WG_SHAPES,
+// WG_RING).  The wgrad runs the first alone.  A block walking more slabs
+// than its ring holds waits a TMA round trip again for each refill; the
+// 64 x 64 ring holds 6 slabs, the shared memory that two blocks an SM
+// leave it.
+#define WG_SHAPES(X) X(128, 256, 4) X(128, 128, 4) X(64, 128, 4) X(64, 64, 6)
+
+// A tile shape: BM output rows, 64 to a consumer warpgroup, by BN columns
+// (the widest wgmma N of the tile), in a ring of STAGES slabs.
+template <int BM_, int BN_, int STAGES_>
+struct Shape {
+  static constexpr int BM = BM_, BN = BN_, STAGES = STAGES_;
+  static constexpr int CONSUMERS = BM / 64;
+  static constexpr int THREADS = 128 * (CONSUMERS + 1);
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + SLACK;
+  static constexpr int ACC = BN / 2;   // accumulators of a consumer thread
+  // blocks an SM holds at once: as many as its shared memory takes rings
+  static constexpr int PER_SM = SM_SMEM / (SMEM_BYTES + BLOCK_RESERVED);
+  // Two consumer warpgroups of up to 128 accumulators take the producer's
+  // registers (setmaxnreg).  One warpgroup of 64 or 32 fits in the 128 or
+  // 80 registers a thread that two or three blocks an SM leave it, so it
+  // moves none: setmaxnreg.inc would wait on registers the block never
+  // had, past what launch bounds of 2 or 3 blocks pin.
+  static constexpr bool SETMAXNREG = CONSUMERS == 2;
+  static_assert(BM == 64 || BM == 128, "one or two consumer warpgroups");
+  static_assert(BN == 64 || BN == 128 || BN == 256, "a wgmma N");
+  static_assert(BM * BN * 4 <= STAGES * STAGE_BYTES,
+                "the split's fp32 partial tile reuses the ring");
+  static_assert(ALIGN + 2 * STAGES * 8 <= SLACK, "barriers past the ring");
+  static_assert(PER_SM >= 1 && PER_SM * THREADS <= 2048, "fits an SM");
+  static_assert(!SETMAXNREG || PER_SM == 1,
+                "setmaxnreg's registers: one block an SM");
+};
 
 // The operands of one launch as TMA descriptors: A's (rows of C) and B's
 // (columns of C).  The forward reads segment s through a[s] and b[s]; the
@@ -712,8 +753,10 @@ struct Tile {
   int out_row, out_col, rows, cols;
 };
 
-// Tile t of the job: row-major over the first column part's tiles, then
-// over the second's, so that the narrow tiles of D's columns come last.
+// Tile t of the job's BM x BN tiles: row-major over the first column
+// part's tiles, then over the second's, so that the narrow tiles of D's
+// columns come last.
+template <int BM, int BN>
 __device__ __forceinline__ Tile tile_of(const Job& j, int t) {
   const int first = j.tm * j.tn0, tn1 = j.tn - j.tn0;
   const int rt = t < first ? t / j.tn0 : (t - first) / tn1;
@@ -825,7 +868,8 @@ struct Wgmma;
 
 template <int TA, int TB>
 struct Wgmma<256, TA, TB> {
-  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+  template <int A>
+  static __device__ __forceinline__ void run(float (&d)[A], uint64_t da,
                                              uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
@@ -885,7 +929,8 @@ struct Wgmma<256, TA, TB> {
 
 template <int TA, int TB>
 struct Wgmma<128, TA, TB> {
-  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+  template <int A>
+  static __device__ __forceinline__ void run(float (&d)[A], uint64_t da,
                                              uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -921,7 +966,8 @@ struct Wgmma<128, TA, TB> {
 
 template <int TA, int TB>
 struct Wgmma<64, TA, TB> {
-  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+  template <int A>
+  static __device__ __forceinline__ void run(float (&d)[A], uint64_t da,
                                              uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -945,7 +991,8 @@ struct Wgmma<64, TA, TB> {
 
 template <int TA, int TB>
 struct Wgmma<32, TA, TB> {
-  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+  template <int A>
+  static __device__ __forceinline__ void run(float (&d)[A], uint64_t da,
                                              uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
@@ -963,7 +1010,8 @@ struct Wgmma<32, TA, TB> {
 
 template <int TA, int TB>
 struct Wgmma<16, TA, TB> {
-  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+  template <int A>
+  static __device__ __forceinline__ void run(float (&d)[A], uint64_t da,
                                              uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
@@ -978,7 +1026,8 @@ struct Wgmma<16, TA, TB> {
 
 template <int TA, int TB>
 struct Wgmma<8, TA, TB> {
-  static __device__ __forceinline__ void run(float (&d)[ACC], uint64_t da,
+  template <int A>
+  static __device__ __forceinline__ void run(float (&d)[A], uint64_t da,
                                              uint64_t db) {
     asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
@@ -992,20 +1041,42 @@ struct Wgmma<8, TA, TB> {
 
 // Keeps the compiler from moving accumulator reads or writes across a
 // wgmma fence, commit or wait.
-__device__ __forceinline__ void hold(float (&d)[ACC]) {
+template <int A>
+__device__ __forceinline__ void hold(float (&d)[A]) {
 #pragma unroll
-  for (int i = 0; i < ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < A; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // One slab (BK deep) of a warpgroup's products at N columns.
-template <int N, bool A_MN, bool B_MN>
-__device__ __forceinline__ void slab_mma(float (&acc)[ACC],
+template <int N, bool A_MN, bool B_MN, int A>
+__device__ __forceinline__ void slab_mma(float (&acc)[A],
                                          const unsigned char* sa,
                                          const unsigned char* sb) {
+  static_assert(2 * A >= N, "the accumulators hold N columns");
 #pragma unroll
   for (int kk = 0; kk < BK / 16; ++kk)
     Wgmma<N, A_MN, B_MN>::run(acc, slab_desc<A_MN>(sa, kk),
                               slab_desc<B_MN>(sb, kk));
+}
+
+// One slab at the tile's width n (mma_n), among those a tile of 2 A
+// columns has.
+template <bool A_MN, bool B_MN, int A>
+__device__ __forceinline__ void slab_at(int n, float (&acc)[A],
+                                        const unsigned char* sa,
+                                        const unsigned char* sb) {
+  if constexpr (A >= 128) {
+    if (n == 256) return slab_mma<256, A_MN, B_MN>(acc, sa, sb);
+  }
+  if constexpr (A >= 64) {
+    if (n == 128) return slab_mma<128, A_MN, B_MN>(acc, sa, sb);
+  }
+  switch (n) {
+    case 64: slab_mma<64, A_MN, B_MN>(acc, sa, sb); break;
+    case 32: slab_mma<32, A_MN, B_MN>(acc, sa, sb); break;
+    case 16: slab_mma<16, A_MN, B_MN>(acc, sa, sb); break;
+    default: slab_mma<8, A_MN, B_MN>(acc, sa, sb); break;
+  }
 }
 
 // The narrowest wgmma N that covers a tile's `cols` columns: 8 .. 256 for
@@ -1070,21 +1141,25 @@ __device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-// A consumer's part of a finished tile into C.  In the accumulator layout
-// the four lanes of a quad hold a row's 8 neighbouring columns 2 each, so
-// a store would write 16 bytes of a row per quad; three shuffles within
-// the quad give each lane 8 neighbouring columns instead (lane q the
-// 8 j-th with j = 4 m + q), and each row's 32 columns go out as 64
-// contiguous bytes.
+// A consumer's part of a finished tile (2 A columns) into C.  In the
+// accumulator layout the four lanes of a quad hold a row's 8 neighbouring
+// columns 2 each, so a store would write 16 bytes of a row per quad;
+// three shuffles within the quad give each lane 8 neighbouring columns
+// instead (lane q the 8 j-th with j = 4 m + q), and each row's 32 columns
+// go out as 64 contiguous bytes.  It runs whole, with no branch on the
+// tile's real rows or columns: the stores mask them, and a branch that
+// skipped a short tile's empty warps slowed every full tile's mainloop
+// (PERF.md); short outputs take 64-row tiles instead.
+template <int A>
 __device__ __forceinline__ void store_tile(__nv_bfloat16* c, long long ldc,
                                            const Tile& tl,
-                                           const float (&acc)[ACC],
+                                           const float (&acc)[A],
                                            int row_lo, int lane) {
   const int q = lane % 4, quad = (lane % 32) & ~3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
 #pragma unroll
-    for (int m = 0; m < BN / 32; ++m) {
+    for (int m = 0; m < A / 16; ++m) {
       uint32_t p[4], out[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj)
@@ -1105,19 +1180,23 @@ __device__ __forceinline__ void store_tile(__nv_bfloat16* c, long long ldc,
   }
 }
 
-// C = A . B in bf16 with fp32 accumulators, over the job's BM x BN tiles.
-// Blocks come in clusters of S (the split): cluster g takes tiles g,
-// g + gridDim.x / S, ... (S > 1: one tile a cluster); block rank r of a
-// cluster walks the r-th of S near-equal ranges of the contraction's
-// slabs (segment 0's, then segment 1's).  Warpgroup 0 is the producer:
-// one thread keeps the TMA ring of STAGES slabs full, running ahead into
-// the next tile.  Warpgroups 1 and 2 each multiply 64 rows of the tile
-// with wgmma at the tile's width (mma_n), one slab's products in flight
-// while the next is issued.  With S > 1 the partial tiles meet through
-// distributed shared memory, in the ring.
-template <bool A_MN, bool B_MN>
+// C = A . B in bf16 with fp32 accumulators, over the job's tiles of Sh
+// (BM x BN).  Blocks come in clusters of S (the split): cluster g takes
+// tiles g, g + gridDim.x / S, ... (S > 1: one tile a cluster); block rank
+// r of a cluster walks the r-th of S near-equal ranges of the
+// contraction's slabs (segment 0's, then segment 1's).  Warpgroup 0 is the
+// producer: one thread keeps the TMA ring of STAGES slabs full, running
+// ahead into the next tile.  Each of the BM / 64 consumer warpgroups
+// multiplies 64 rows of the tile with wgmma at the tile's width (mma_n),
+// one slab's products in flight while the next is issued.  With S > 1 the
+// partial tiles' real rows and columns meet through distributed shared
+// memory, in the ring.
+template <bool A_MN, bool B_MN, class Sh>
 __device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
                                      __nv_bfloat16* __restrict__ c) {
+  constexpr int BM = Sh::BM, BN = Sh::BN, NC = Sh::CONSUMERS;
+  constexpr int A_BYTES = Sh::A_BYTES, STAGE_BYTES = Sh::STAGE_BYTES;
+  constexpr int STAGES = Sh::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t pad = (ALIGN - smem_u32(smem_raw) % ALIGN) % ALIGN;
   unsigned char* ring = smem_raw + pad;
@@ -1137,15 +1216,16 @@ __device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
       mbar_init(&full[s], 1);     // the producer's arrival, then the bytes
-      mbar_init(&empty[s], 2);    // one arrival per consumer warpgroup
+      mbar_init(&empty[s], NC);   // one arrival per consumer warpgroup
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {   // ---- the producer warpgroup
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
-        PRODUCER_REGS));
+    if constexpr (Sh::SETMAXNREG)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(
+          PRODUCER_REGS));
     if (threadIdx.x == 0) {   // the descriptors into the TMA unit's cache
       const CUtensorMap* all[4] = {&maps.a[0], &maps.a[1], &maps.b[0],
                                    &maps.b[1]};
@@ -1159,7 +1239,7 @@ __device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
     uint32_t phase = 0;
     for (int t = blockIdx.x / S; t < tiles; t += step) {
       if (threadIdx.x == 0) {
-        const Tile tl = tile_of(job, t);
+        const Tile tl = tile_of<BM, BN>(job, t);
         for (int i = 0; i < count; ++i) {
           const int s = first + i, seg = s < ns0 ? 0 : 1;
           const int k0 = (seg ? s - ns0 : s) * BK;
@@ -1170,9 +1250,10 @@ __device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
           unsigned char* sb = sa + A_BYTES;
           uint64_t* bar = &full[stage];
           mbar_expect_tx(bar, STAGE_BYTES);
-          if (A_MN) {
-            tma_load(sa, ma, bar, tl.a_row, k0);
-            tma_load(sa + HALF, ma, bar, tl.a_row + 64, k0);
+          if (A_MN) {   // boxes of 64 rows of C
+#pragma unroll
+            for (int q = 0; q < BM / 64; ++q)
+              tma_load(sa + q * HALF, ma, bar, tl.a_row + 64 * q, k0);
           } else {
             tma_load(sa, ma, bar, k0, tl.a_row);
           }
@@ -1198,7 +1279,9 @@ __device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
   }
 
   // ---- the consumers: warpgroup w multiplies the tile's rows 64 w ..
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  if constexpr (Sh::SETMAXNREG)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(
+        CONSUMER_REGS));
   const int w = threadIdx.x / 128 - 1, lane = threadIdx.x % 128;
   const int row_lo = 64 * w + 16 * (lane / 32) + (lane % 32) / 4;
   const int col_lo = 2 * (lane % 4);
@@ -1208,13 +1291,13 @@ __device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
     if (lane == 0) mbar_arrive(&empty[s]);
   };
   for (int t = blockIdx.x / S; t < tiles; t += step) {
-    const Tile tl = tile_of(job, t);
+    const Tile tl = tile_of<BM, BN>(job, t);
     // a warpgroup none of whose rows are C's only hands the stages back
     const bool active = 64 * w < tl.rows;
     const int n = mma_n<B_MN>(tl.cols);
-    float acc[ACC];
+    float acc[Sh::ACC];
 #pragma unroll
-    for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+    for (int i = 0; i < Sh::ACC; ++i) acc[i] = 0.f;
     int held = -1;   // the stage the last committed wgmmas still read
     for (int i = 0; i < count; ++i) {
       mbar_wait(&full[stage], phase);
@@ -1223,14 +1306,7 @@ __device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
         const unsigned char* sb = ring + stage * STAGE_BYTES + A_BYTES;
         hold(acc);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-        switch (n) {
-          case 256: slab_mma<256, A_MN, B_MN>(acc, sa, sb); break;
-          case 128: slab_mma<128, A_MN, B_MN>(acc, sa, sb); break;
-          case 64: slab_mma<64, A_MN, B_MN>(acc, sa, sb); break;
-          case 32: slab_mma<32, A_MN, B_MN>(acc, sa, sb); break;
-          case 16: slab_mma<16, A_MN, B_MN>(acc, sa, sb); break;
-          default: slab_mma<8, A_MN, B_MN>(acc, sa, sb); break;
-        }
+        slab_at<A_MN, B_MN>(n, acc, sa, sb);
         asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
         // the previous slab's products are done: its stage goes back
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
@@ -1253,22 +1329,28 @@ __device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
       store_tile(c, job.ldc, tl, acc, row_lo, lane);
       continue;
     }
-    // The split: both warpgroups are past their last wgmma and every copy
-    // has landed, so the ring takes this block's fp32 partial tile.
-    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    // The split: every consumer is past its last wgmma and every copy has
+    // landed, so the ring takes this block's fp32 partial tile: its real
+    // rows, at the width the wgmmas ran (n >= the real columns).
+    asm volatile("bar.sync 1, %0;\n" ::"n"(NC * 128) : "memory");
     float* part = reinterpret_cast<float*>(ring);
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = 8 * j + col_lo;
-      *reinterpret_cast<float2*>(part + row_lo * BN + col) =
-          make_float2(acc[4 * j], acc[4 * j + 1]);
-      *reinterpret_cast<float2*>(part + (row_lo + 8) * BN + col) =
-          make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      if (8 * j < n && row_lo < tl.rows)
+        *reinterpret_cast<float2*>(part + row_lo * BN + col) =
+            make_float2(acc[4 * j], acc[4 * j + 1]);
+      if (8 * j < n && row_lo + 8 < tl.rows)
+        *reinterpret_cast<float2*>(part + (row_lo + 8) * BN + col) =
+            make_float2(acc[4 * j + 2], acc[4 * j + 3]);
     }
     cluster_sync_all();   // every partial tile of the cluster is in place
-    const int row0 = rank * BM / S, rows = (rank + 1) * BM / S - row0;
-    for (int e = threadIdx.x - 128; e < rows * (BN / 4); e += 256) {
-      const int row = row0 + e / (BN / 4), col = 4 * (e % (BN / 4));
+    // Block r sums the r-th of S near-equal ranges of the tile's real
+    // 4-column groups (row-major) over ranks 0..S-1.
+    const int groups = (tl.cols + 3) / 4, all = tl.rows * groups;
+    const int end = (rank + 1) * all / S;
+    for (int e = rank * all / S + threadIdx.x - 128; e < end; e += NC * 128) {
+      const int row = e / groups, col = 4 * (e % groups);
       float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
       for (int q = 0; q < S; ++q) {   // rank order: the same bits every run
         const float4 v = *reinterpret_cast<const float4*>(
@@ -1288,36 +1370,66 @@ __device__ __forceinline__ void gemm(const Maps& maps, const Job& job,
 }  // namespace wg
 
 // The three products' kernels: one mainloop, the operands' layouts set by
-// the wgmma's transpose bits.
+// the wgmma's transpose bits; the forward and the dgrad in one instance
+// per tile shape of WG_SHAPES, the wgrad at 128 x 256.
 //   forward  z = x.L + g.D:   A (x, g) K-major, B (L, D) MN-major
 //   dgrad    dz.[L;D]^T:      A (dz) K-major, B (L, D rows) K-major
 //   wgrad    [x|g]^T.dz:      A (x, g columns) MN-major, B (dz) MN-major
-__global__ void __launch_bounds__(wg::THREADS, 1)
+template <int BM, int BN, int ST>
+__global__ void __launch_bounds__(wg::Shape<BM, BN, ST>::THREADS,
+                                  wg::Shape<BM, BN, ST>::PER_SM)
     wgmma_fwd_kernel(const __grid_constant__ wg::Maps maps, const wg::Job job,
                      __nv_bfloat16* __restrict__ c) {
-  wg::gemm<false, true>(maps, job, c);
+  wg::gemm<false, true, wg::Shape<BM, BN, ST>>(maps, job, c);
 }
 
-__global__ void __launch_bounds__(wg::THREADS, 1)
+template <int BM, int BN, int ST>
+__global__ void __launch_bounds__(wg::Shape<BM, BN, ST>::THREADS,
+                                  wg::Shape<BM, BN, ST>::PER_SM)
     wgmma_dgrad_kernel(const __grid_constant__ wg::Maps maps,
                        const wg::Job job, __nv_bfloat16* __restrict__ c) {
-  wg::gemm<false, false>(maps, job, c);
+  wg::gemm<false, false, wg::Shape<BM, BN, ST>>(maps, job, c);
 }
 
-__global__ void __launch_bounds__(wg::THREADS, 1)
+__global__ void __launch_bounds__(wg::Shape<128, 256, 4>::THREADS, 1)
     wgmma_wgrad_kernel(const __grid_constant__ wg::Maps maps,
                        const wg::Job job, __nv_bfloat16* __restrict__ c) {
-  wg::gemm<true, true>(maps, job, c);
+  wg::gemm<true, true, wg::Shape<128, 256, 4>>(maps, job, c);
 }
 
 namespace wg {
 
 using Kernel = void (*)(const Maps, const Job, __nv_bfloat16*);
 
-Kernel kernel_of(int product) {
-  return product == 0   ? wgmma_fwd_kernel
-         : product == 1 ? wgmma_dgrad_kernel
-                        : wgmma_wgrad_kernel;
+// One kernel instance and what its launch needs.
+struct Instance {
+  Kernel kernel;
+  int bm, bn, threads, smem;
+};
+
+template <int BM, int BN, int ST>
+Instance instance_as(Kernel kernel) {
+  return Instance{kernel, BM, BN, Shape<BM, BN, ST>::THREADS,
+                  Shape<BM, BN, ST>::SMEM_BYTES};
+}
+
+// Product `product`'s (0 forward, 1 dgrad, 2 wgrad) instance at tiles of
+// bm x bn; a null kernel where it has none.
+Instance instance_of(int product, int bm, int bn) {
+  if (product == 2)
+    return bm == 128 && bn == 256
+               ? instance_as<128, 256, 4>(wgmma_wgrad_kernel)
+               : Instance{};
+  if (product != 0 && product != 1) return Instance{};
+#define WG_INSTANCE(M, N, ST)                                     \
+  if (bm == M && bn == N) {                                       \
+    Kernel kernel = wgmma_dgrad_kernel<M, N, ST>;                 \
+    if (product == 0) kernel = wgmma_fwd_kernel<M, N, ST>;        \
+    return instance_as<M, N, ST>(kernel);                         \
+  }
+  WG_SHAPES(WG_INSTANCE)
+#undef WG_INSTANCE
+  return Instance{};
 }
 
 // cuTensorMapEncodeTiled belongs to the CUDA driver API and the library
@@ -1383,31 +1495,54 @@ int encode_mn(CUtensorMap* m, const void* p, int k, int cols, long long ld) {
   return encode(m, p, cols, k, ld, 64, BK);
 }
 
-void set_tiles(Job& job) {
-  job.tm0 = (job.m0 + BM - 1) / BM;
-  job.tm = job.tm0 + (job.m - job.m0 + BM - 1) / BM;
-  job.tn0 = (job.n0 + BN - 1) / BN;
-  job.tn = job.tn0 + (job.n - job.n0 + BN - 1) / BN;
+void set_tiles(Job& job, int bm, int bn) {
+  job.tm0 = (job.m0 + bm - 1) / bm;
+  job.tm = job.tm0 + (job.m - job.m0 + bm - 1) / bm;
+  job.tn0 = (job.n0 + bn - 1) / bn;
+  job.tn = job.tn0 + (job.n - job.n0 + bn - 1) / bn;
 }
 
-// The wrapper's plan (phantom_fused.py: wg_split) chose `splits` and
-// `grid`: with a split, one cluster per tile, all resident at once;
-// without, a persistent grid of at most one block per tile.
-int launch(int product, const Maps& maps, const Job& job, void* c,
+// The forward's operands as the instance's descriptors and job (C's
+// tiles not yet set).
+int forward_job(Maps& maps, Job& job, const Instance& in, const void* x,
+                const void* L, const void* g, const void* D, int M, int K,
+                int N, int PK, long long ldx, long long ldl, long long ldg,
+                long long ldd, long long ldz) {
+  int err;
+  if ((err = encode_k(&maps.a[0], x, M, K, ldx, in.bm)) ||
+      (err = encode_mn(&maps.b[0], L, K, N, ldl)) ||
+      (err = encode_k(&maps.a[1], g, M, PK, ldg, in.bm)) ||
+      (err = encode_mn(&maps.b[1], D, PK, N, ldd)))
+    return err;
+  job = Job{};
+  job.nseg = 2;
+  job.kn[0] = K;
+  job.kn[1] = PK;
+  job.m0 = job.m = M;
+  job.n0 = job.n = N;
+  job.ldc = ldz;
+  return 0;
+}
+
+// The instance on the wrapper's plan (phantom_fused.py: wg_plan, or
+// wg_split for the wgrad): with a split, one cluster of `splits` blocks
+// per tile, all resident at once; without, a persistent grid of at most
+// one block per tile, launched with no cluster.
+int launch(const Instance& in, const Maps& maps, Job job, void* c,
            int splits, int grid, cudaStream_t stream) {
+  set_tiles(job, in.bm, in.bn);
   const long long tiles = (long long)job.tm * job.tn;
-  if (job.m <= 0 || job.n <= 0 || tiles > 0x7fffffff || splits < 1 ||
-      splits > MAX_SPLITS || grid < 1 ||
+  if (in.kernel == nullptr || job.m <= 0 || job.n <= 0 ||
+      tiles > 0x7fffffff || splits < 1 || splits > MAX_SPLITS || grid < 1 ||
       (splits > 1 ? grid != tiles * splits : grid > tiles))
     return cudaErrorInvalidValue;
-  const Kernel kernel = kernel_of(product);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      in.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.blockDim = dim3(in.threads);
+  cfg.dynamicSmemBytes = in.smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -1415,23 +1550,21 @@ int launch(int product, const Maps& maps, const Job& job, void* c,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, kernel, maps, job,
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, in.kernel, maps, job,
                            static_cast<__nv_bfloat16*>(c));
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Clusters of `splits` blocks of product `product`'s kernel (0 forward,
-// 1 dgrad, 2 wgrad) the card holds at once.
-int max_clusters(int product, int splits, int* out) {
-  const Kernel kernel = kernel_of(product);
+// Clusters of `splits` blocks of an instance the card holds at once.
+int max_clusters(const Instance& in, int splits, int* out) {
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+      in.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, in.smem);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits * 64);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = SMEM_BYTES;
+  cfg.blockDim = dim3(in.threads);
+  cfg.dynamicSmemBytes = in.smem;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = splits;
@@ -1439,7 +1572,7 @@ int max_clusters(int product, int splits, int* out) {
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+  return cudaOccupancyMaxActiveClusters(out, in.kernel, &cfg);
 }
 
 }  // namespace wg
@@ -1587,33 +1720,28 @@ extern "C" int repro_matmul_tn_blocks_per_sm(int dtype, int vec16,
   return cudaErrorInvalidValue;
 }
 
-// The bf16 tensor-core route (wgmma_*_kernel) on the wrapper's plan:
-// `splits` blocks per cluster and `grid` blocks.  Operands as for the functions above, bfloat16 only, every base
-// and row pitch a multiple of 16 bytes (TMA's rule).  Each returns the
-// launch's cudaError_t, or 100000 + the CUresult of a descriptor that
+// The bf16 tensor-core route (wgmma_*_kernel) on the wrapper's plan: the
+// instance of `bm` x `bn` tiles (the forward and the dgrad; the wgrad
+// runs at 128 x 256), `splits` blocks per cluster and `grid` blocks.
+// Operands as for the functions above, bfloat16 only, every base and row
+// pitch a multiple of 16 bytes (TMA's rule).  Each returns the launch's
+// cudaError_t, or 100000 + the CUresult of a descriptor that
 // cuTensorMapEncodeTiled refused.
 
 extern "C" int repro_wgmma_fwd(const void* x, const void* L, const void* g,
                                const void* D, void* z, int M, int K, int N,
                                int PK, long long ldx, long long ldl,
                                long long ldg, long long ldd, long long ldz,
-                               int splits, int grid, void* stream) {
+                               int bm, int bn, int splits, int grid,
+                               void* stream) {
+  const wg::Instance in = wg::instance_of(0, bm, bn);
+  if (in.kernel == nullptr) return cudaErrorInvalidValue;
   wg::Maps maps;
-  int err;
-  if ((err = wg::encode_k(&maps.a[0], x, M, K, ldx, wg::BM)) ||
-      (err = wg::encode_mn(&maps.b[0], L, K, N, ldl)) ||
-      (err = wg::encode_k(&maps.a[1], g, M, PK, ldg, wg::BM)) ||
-      (err = wg::encode_mn(&maps.b[1], D, PK, N, ldd)))
-    return err;
-  wg::Job job = {};
-  job.nseg = 2;
-  job.kn[0] = K;
-  job.kn[1] = PK;
-  job.m0 = job.m = M;
-  job.n0 = job.n = N;
-  job.ldc = ldz;
-  wg::set_tiles(job);
-  return wg::launch(0, maps, job, z, splits, grid,
+  wg::Job job;
+  const int err = wg::forward_job(maps, job, in, x, L, g, D, M, K, N, PK,
+                                  ldx, ldl, ldg, ldd, ldz);
+  if (err) return err;
+  return wg::launch(in, maps, job, z, splits, grid,
                     static_cast<cudaStream_t>(stream));
 }
 
@@ -1622,13 +1750,15 @@ extern "C" int repro_wgmma_fwd(const void* x, const void* L, const void* g,
 extern "C" int repro_wgmma_nt(const void* a, const void* b0, const void* b1,
                               void* c, int M, int N, int J0, int J1,
                               long long lda, long long ldb0, long long ldb1,
-                              long long ldc, int splits, int grid,
-                              void* stream) {
+                              long long ldc, int bm, int bn, int splits,
+                              int grid, void* stream) {
+  const wg::Instance in = wg::instance_of(1, bm, bn);
+  if (in.kernel == nullptr) return cudaErrorInvalidValue;
   wg::Maps maps;
   int err;
-  if ((err = wg::encode_k(&maps.a[0], a, M, N, lda, wg::BM)) ||
-      (err = wg::encode_k(&maps.b[0], b0, J0, N, ldb0, wg::BN)) ||
-      (J1 > 0 && (err = wg::encode_k(&maps.b[1], b1, J1, N, ldb1, wg::BN))))
+  if ((err = wg::encode_k(&maps.a[0], a, M, N, lda, bm)) ||
+      (err = wg::encode_k(&maps.b[0], b0, J0, N, ldb0, bn)) ||
+      (J1 > 0 && (err = wg::encode_k(&maps.b[1], b1, J1, N, ldb1, bn))))
     return err;
   maps.a[1] = maps.a[0];
   if (J1 == 0) maps.b[1] = maps.b[0];
@@ -1639,8 +1769,7 @@ extern "C" int repro_wgmma_nt(const void* a, const void* b0, const void* b1,
   job.n0 = J0;
   job.n = J0 + J1;
   job.ldc = ldc;
-  wg::set_tiles(job);
-  return wg::launch(1, maps, job, c, splits, grid,
+  return wg::launch(in, maps, job, c, splits, grid,
                     static_cast<cudaStream_t>(stream));
 }
 
@@ -1666,15 +1795,17 @@ extern "C" int repro_wgmma_tn(const void* a0, const void* a1, const void* b,
   job.m = I0 + I1;
   job.n0 = job.n = N;
   job.ldc = ldc;
-  wg::set_tiles(job);
-  return wg::launch(2, maps, job, c, splits, grid,
+  return wg::launch(wg::instance_of(2, 128, 256), maps, job, c, splits, grid,
                     static_cast<cudaStream_t>(stream));
 }
 
-// Clusters of `splits` blocks of product `product`'s wgmma kernel
-// (0 forward, 1 dgrad, 2 wgrad) resident at once on the current card.
-extern "C" int repro_wgmma_max_clusters(int product, int splits, int* out) {
-  if (product < 0 || product > 2 || splits < 1 || splits > wg::MAX_SPLITS)
+// Clusters of `splits` blocks of product `product`'s (0 forward, 1 dgrad,
+// 2 wgrad) wgmma instance at `bm` x `bn` tiles resident at once on the
+// current card.
+extern "C" int repro_wgmma_max_clusters(int product, int bm, int bn,
+                                        int splits, int* out) {
+  const wg::Instance in = wg::instance_of(product, bm, bn);
+  if (in.kernel == nullptr || splits < 1 || splits > wg::MAX_SPLITS)
     return cudaErrorInvalidValue;
-  return wg::max_clusters(product, splits, out);
+  return wg::max_clusters(in, splits, out);
 }

@@ -15,9 +15,12 @@ dtype and alignment (``takes_16b``):
   ========================= ============================================
   operands                  kernel (CUDA name)
   ========================= ============================================
-  bfloat16, 16-byte aligned ``wgmma_fwd_kernel``, ``wgmma_dgrad_kernel``,
-                            ``wgmma_wgrad_kernel``: the tensor cores
-                            (wgmma fed by TMA), plan ``wg_plan``
+  bfloat16, 16-byte aligned ``wgmma_fwd_kernel``, ``wgmma_dgrad_kernel``
+                            (one instance per tile shape of
+                            ``WG_SHAPES``, plan ``wg_plan``),
+                            ``wgmma_wgrad_kernel`` (128 x 256, plan
+                            ``wg_wgrad_plan``): the tensor cores (wgmma
+                            fed by TMA)
   float32                   ``splitk_kernel`` (forward, dgrad; 16-byte or
                             masked copies, ``gemm_plan``) and ``tn_kernel``
                             (wgrad, ``wgrad_plan``): fp32 FMAs on the
@@ -25,9 +28,15 @@ dtype and alignment (``takes_16b``):
   bfloat16, unaligned       the same CUDA-core kernels, masked variant
   ========================= ============================================
 
-The wgmma route splits the contraction over a cluster where the output
-has fewer tiles than the card holds blocks, and otherwise runs a
-persistent grid; the CUDA-core forward and dgrad split the contraction
+The wgmma forward and dgrad pick a tile shape (128 x 256 down to 64 x
+64) and a split per call: ``wg_candidates`` lists every launch the card
+can hold in one wave of clusters (or a persistent grid without a split)
+and ``wg_plan`` takes the one of least estimate (``wg_estimate_us``:
+waves, a block's slabs at its shape's measured slab time, ring refills,
+a split's reduction priced on the tile's real rows and columns), so a
+narrow or short output spreads over the card and a wide one keeps 128 x
+256.  The wgrad splits where ``wg_split`` says and otherwise runs a
+persistent grid.  The CUDA-core forward and dgrad split the contraction
 per output tile (``gemm_plan``), their wgrad runs a persistent GEMM of
 64 x 64 tiles.
 
@@ -84,19 +93,46 @@ H100_WGRAD_BLOCKS_PER_SM = {(4, "vec16"): 4, (4, "masked"): 2,
                             (2, "masked"): 4}
 # the bf16 route's kernels (wgmma_{fwd,dgrad,wgrad}_kernel); the values
 # must equal the constants of csrc/phantom_fused.cu's namespace wg
-WG_BM, WG_BN, WG_BK = 128, 256, 64   # output tile, contraction slab
-WG_STAGES = 4                # slabs in the TMA ring
+WG_BK = 64                   # contraction slab
 WG_MAX_SPLITS = 8            # blocks in a cluster
-WG_THREADS = 384             # a producer and two consumer warpgroups
 WG_SLACK = 2048              # the ring's alignment and its barriers
-# a split's reduction (the fp32 partial tiles through distributed shared
-# memory, two cluster barriers) in slabs' time (wg_split)
+WG_SM_SMEM = 233_472         # shared memory of an H100 SM (228 KB) ...
+WG_BLOCK_RESERVED = 1024     # ... of which each resident block's
+# The forward's and the dgrad's tile shapes (BM, BN), largest first: one
+# instance of each kernel per shape (the source's WG_SHAPES), the plan
+# picks one per call (wg_plan); and the slabs of each one's TMA ring.
+# The wgrad runs the first alone.
+WG_SHAPES = ((128, 256), (128, 128), (64, 128), (64, 64))
+WG_RING = {(128, 256): 4, (128, 128): 4, (64, 128): 4, (64, 64): 6}
+WG_WGRAD_SHAPE = WG_SHAPES[0]
+# the wgrad's split (wg_split): a split's reduction in slabs' time
 WG_SPLIT_SLABS = 8
+# The forward's and the dgrad's plan (wg_plan) estimates a launch's time
+# (wg_estimate_us) from constants fitted on an H100 SXM at 700 W
+# (benchmarks/wgmma_plan.py, PERF.md): the microseconds a block takes for
+# one slab while its SM holds as many blocks of its shape as it can, by
+# product and shape ...
+WG_SLAB_US = {("forward", (128, 256)): 0.7006, ("forward", (128, 128)): 0.4504,
+              ("forward", (64, 128)): 0.5704, ("forward", (64, 64)): 0.4322,
+              ("dgrad", (128, 256)): 0.7126, ("dgrad", (128, 128)): 0.4542,
+              ("dgrad", (64, 128)): 0.5740, ("dgrad", (64, 64)): 0.4653}
+# ... a TMA round trip, which a block waits once for each fill of its ring
+WG_REFILL_US = 1.0
+# ... and a split's reduction: a fixed part (the cluster's barriers) and
+# one per KB of the tile's real fp32 partial (its rows by its columns,
+# 4 bytes each), which every block of a cluster writes once and reads
+# once through distributed shared memory, whatever the split
+WG_SPLIT_US = 0.25
+WG_SPLIT_US_PER_KB = 0.11
 # Clusters of S blocks of a wgmma kernel an H100 SXM (132 SMs, 700 W)
-# holds at once (cudaOccupancyMaxActiveClusters, as chip_smoke.py prints
-# it): the CPU's stand-in for wg_resident_table().
-H100_WG_RESIDENT_CLUSTERS = {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17,
-                             7: 15, 8: 15}
+# holds at once, by tile shape (cudaOccupancyMaxActiveClusters, as
+# chip_smoke.py prints it): the CPU's stand-in for wg_resident_table().
+H100_WG_RESIDENT_CLUSTERS = {
+    (128, 256): {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15},
+    (128, 128): {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15},
+    (64, 128): {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30},
+    (64, 64): {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30},
+}
 WG_PRODUCTS = {"forward": 0, "dgrad": 1, "wgrad": 2}
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the C functions' code for a descriptor cuTensorMapEncodeTiled refused
@@ -138,8 +174,8 @@ SMEM_BYTES = {(kf, es): check_kernel_fits(kf, es)
               for kf in (False, True) for es in (4, 2)}
 
 
-def wg_smem_bytes(bm: int = WG_BM, bn: int = WG_BN, bk: int = WG_BK,
-                  stages: int = WG_STAGES) -> int:
+def wg_smem_bytes(bm: int = 128, bn: int = 256, bk: int = WG_BK,
+                  stages: int = 4) -> int:
     """Dynamic shared memory of one wgmma block: a ring of ``stages``
     bf16 slabs, A as ``bm`` x ``bk`` and B as ``bk`` x ``bn`` (TMA boxes,
     128-byte swizzled), and ``WG_SLACK`` for its 1024-byte alignment and
@@ -158,7 +194,21 @@ def wg_smem_bytes(bm: int = WG_BM, bn: int = WG_BN, bk: int = WG_BK,
     return need
 
 
-WG_SMEM_BYTES = wg_smem_bytes()
+def wg_threads(bm: int) -> int:
+    """Threads of a wgmma block: a producer warpgroup and one consumer
+    warpgroup per 64 rows of its tiles."""
+    return 128 * (1 + bm // 64)
+
+
+def wg_blocks_per_sm(shape: Tuple[int, int]) -> int:
+    """Blocks of a tile shape an H100 SM holds at once: as many as its
+    shared memory takes rings (the kernels' launch bounds ask for as
+    many, and registers follow)."""
+    return WG_SM_SMEM // (WG_SMEM_BYTES[shape] + WG_BLOCK_RESERVED)
+
+
+WG_SMEM_BYTES = {shape: wg_smem_bytes(*shape, stages=WG_RING[shape])
+                 for shape in WG_SHAPES}
 
 
 @dataclass(frozen=True)
@@ -179,6 +229,7 @@ class GemmPlan:
     dgrad: bool                # B k-contiguous ([L;D] rows) or k-major (L)
     esize: int                 # bytes per input element
     tiles: int = 0             # output tiles
+    est_us: float = 0.0        # the wgmma plan's estimate (wg_plan)
 
     @property
     def kernel(self) -> str:
@@ -231,17 +282,15 @@ def _tiles(parts: Sequence[int], side: int) -> int:
 
 def wg_split(tiles: int, slabs: int,
              resident: Mapping[int, int]) -> Tuple[int, int]:
-    """(splits S, blocks) of the wgmma route for ``tiles`` output tiles of
-    ``slabs`` slabs each.  A split takes one cluster of S blocks per tile,
-    every cluster resident at once (``resident``: clusters of S the card
-    holds), every block two slabs or more; its blocks walk ``ceil(slabs
-    / S)`` slabs each and then sum their fp32 partial tiles through
-    distributed shared memory, which costs about ``WG_SPLIT_SLABS`` slabs.
-    S (1..``WG_MAX_SPLITS``) minimises that, the more splits on a tie: a
-    short output spreads its contraction (and its weight's bytes) over
-    the card, a short contraction is not split.  Without a split, a
-    persistent grid of at most one block per tile and per block the card
-    holds."""
+    """(splits S, blocks) of the wgrad's wgmma launch for ``tiles`` output
+    tiles of ``slabs`` slabs each.  A split takes one cluster of S blocks
+    per tile, every cluster resident at once (``resident``: clusters of S
+    the card holds), every block two slabs or more; its blocks walk
+    ``ceil(slabs / S)`` slabs each and then sum their fp32 partial tiles
+    through distributed shared memory, which costs about
+    ``WG_SPLIT_SLABS`` slabs.  S (1..``WG_MAX_SPLITS``) minimises that,
+    the more splits on a tie.  Without a split, a persistent grid of at
+    most one block per tile and per block the card holds."""
     best = (slabs, 1)
     for s in range(2, WG_MAX_SPLITS + 1):
         if slabs >= 2 * s and tiles <= resident[s]:
@@ -252,20 +301,84 @@ def wg_split(tiles: int, slabs: int,
     return s, tiles * s if s > 1 else min(tiles, resident[1])
 
 
+def wg_split_us(rows: int, cols: int,
+                split_us: float = WG_SPLIT_US,
+                split_us_per_kb: float = WG_SPLIT_US_PER_KB) -> float:
+    """The estimated microseconds of a split's reduction on a tile whose
+    real part is ``rows`` x ``cols``."""
+    return split_us + split_us_per_kb * rows * cols * 4 / 1024
+
+
+def wg_estimate_us(product: str, shape: Tuple[int, int], tiles: int,
+                   slabs: int, splits: int, blocks: int, rows: int,
+                   cols: int, table: Mapping[int, int],
+                   slab_us: Mapping = WG_SLAB_US,
+                   refill_us: float = WG_REFILL_US, **split) -> float:
+    """The estimated microseconds of a wgmma launch of ``tiles`` tiles of
+    ``shape`` over ``slabs`` slabs on ``blocks`` blocks, ``splits`` to a
+    cluster (``table``: clusters of S the card holds, by S), the widest
+    tile's real part ``rows`` x ``cols``: the waves of blocks, each as
+    long as a block's walk -- its slabs at the shape's slab time
+    (``WG_SLAB_US``), scaled by the share of its SM's blocks that it
+    has, plus a TMA round trip (``WG_REFILL_US``) for each fill of its
+    ring -- and a split's reduction (``wg_split_us``)."""
+    per_sm = wg_blocks_per_sm(shape)
+    sms = max(1, table[1] // per_sm)
+    walk = slabs if splits == 1 else -(-slabs // splits)
+    waves = -(-tiles // table[1]) if splits == 1 else 1
+    share = min(per_sm, -(-blocks // sms)) / per_sm
+    est = waves * (walk * slab_us[(product, shape)] * share
+                   + refill_us * -(-walk // WG_RING[shape]))
+    return est + (wg_split_us(rows, cols, **split) if splits > 1 else 0.0)
+
+
+def wg_candidates(row_parts: Sequence[int], col_parts: Sequence[int],
+                  seg_lens: Sequence[int], dgrad: bool,
+                  resident: Mapping[Tuple[int, int], Mapping[int, int]]
+                  = H100_WG_RESIDENT_CLUSTERS) -> List[GemmPlan]:
+    """Every launch the wgmma route can make of C = sum of A.B over
+    contraction segments of ``seg_lens`` (the forward or the dgrad), C's
+    rows joined from ``row_parts`` and its columns from ``col_parts``,
+    each part tiled on its own: each tile shape of ``WG_SHAPES`` with
+    each split S whose clusters, one per tile, the card holds at once
+    (``resident[shape][S]``), every block one slab or more; or without a
+    split, a persistent grid of at most one block per tile and per block
+    the card holds.  Each carries its estimate (``est_us``,
+    ``wg_estimate_us``), a split's reduction priced on the widest tile's
+    real rows and columns."""
+    product = "dgrad" if dgrad else "forward"
+    slabs = sum(-(-k // WG_BK) for k in seg_lens)
+    out = []
+    for shape in WG_SHAPES:
+        bm, bn = shape
+        tiles = _tiles(row_parts, bm) * _tiles(col_parts, bn)
+        table = resident[shape]
+        rows, cols = min(bm, max(row_parts)), min(bn, max(col_parts))
+        for s in range(1, min(WG_MAX_SPLITS, slabs) + 1):
+            if s == 1:
+                blocks = min(tiles, table[1])
+            elif tiles <= table[s]:
+                blocks = tiles * s
+            else:
+                continue
+            est = wg_estimate_us(product, shape, tiles, slabs, s, blocks,
+                                 rows, cols, table)
+            out.append(GemmPlan(bm, bn, WG_BK, WG_RING[shape], s,
+                                (blocks, 1), (s, 1, 1), "wgmma",
+                                WG_SMEM_BYTES[shape], slabs, dgrad, 2, tiles,
+                                est))
+    return out
+
+
 def wg_plan(row_parts: Sequence[int], col_parts: Sequence[int],
             seg_lens: Sequence[int], dgrad: bool,
-            resident: Mapping[int, int] = H100_WG_RESIDENT_CLUSTERS
-            ) -> GemmPlan:
-    """The wgmma route's plan of C = sum of A.B over contraction segments
-    of ``seg_lens`` (the forward or the dgrad), C's rows joined from
-    ``row_parts`` and its columns from ``col_parts``, each part tiled on
-    its own: splits and grid from ``wg_split``."""
-    tiles = _tiles(row_parts, WG_BM) * _tiles(col_parts, WG_BN)
-    slabs = sum(-(-k // WG_BK) for k in seg_lens)
-    splits, blocks = wg_split(tiles, slabs, resident)
-    return GemmPlan(WG_BM, WG_BN, WG_BK, WG_STAGES, splits, (blocks, 1),
-                    (splits, 1, 1), "wgmma", WG_SMEM_BYTES, slabs, dgrad, 2,
-                    tiles)
+            resident: Mapping[Tuple[int, int], Mapping[int, int]]
+            = H100_WG_RESIDENT_CLUSTERS) -> GemmPlan:
+    """The wgmma route's plan of the forward or the dgrad: the candidate
+    (``wg_candidates``) of the least estimate, on a tie the larger tile
+    and then the fewer splits."""
+    return min(wg_candidates(row_parts, col_parts, seg_lens, dgrad,
+                             resident), key=lambda p: p.est_us)
 
 
 def wgrad_smem_bytes(esize: int) -> int:
@@ -315,15 +428,18 @@ def wgrad_plan(I: int, N: int, esize: int, vec16: bool,
 
 
 def wg_wgrad_plan(row_parts: Sequence[int], N: int, M: int,
-                  resident: Mapping[int, int] = H100_WG_RESIDENT_CLUSTERS
-                  ) -> WgradPlan:
+                  resident: Mapping[Tuple[int, int], Mapping[int, int]]
+                  = H100_WG_RESIDENT_CLUSTERS) -> WgradPlan:
     """The wgmma route's wgrad c[I, N] = [a | a2]^T . b over ``M`` rows,
-    C's rows joined from ``row_parts`` (each tiled on its own): a
-    persistent grid of clusters, splits and grid from ``wg_split``."""
-    tiles_m, tiles_n = _tiles(row_parts, WG_BM), -(-N // WG_BN)
-    splits, blocks = wg_split(tiles_m * tiles_n, -(-M // WG_BK), resident)
-    return WgradPlan(tiles_m, tiles_n, resident[splits] * splits, blocks,
-                     "wgmma", WG_SMEM_BYTES, splits)
+    C's rows joined from ``row_parts`` (each tiled on its own), at
+    ``WG_WGRAD_SHAPE``: a persistent grid of clusters, splits and grid
+    from ``wg_split``."""
+    bm, bn = WG_WGRAD_SHAPE
+    table = resident[WG_WGRAD_SHAPE]
+    tiles_m, tiles_n = _tiles(row_parts, bm), -(-N // bn)
+    splits, blocks = wg_split(tiles_m * tiles_n, -(-M // WG_BK), table)
+    return WgradPlan(tiles_m, tiles_n, table[splits] * splits, blocks,
+                     "wgmma", WG_SMEM_BYTES[WG_WGRAD_SHAPE], splits)
 
 
 def takes_16b(*ts) -> bool:
@@ -356,14 +472,18 @@ def _wgrad_resident(t, variant: str) -> int:
                           t.element_size(), variant)
 
 
-def _wg_resident(product: str, t) -> Mapping[int, int]:
-    """Clusters of S blocks of ``product``'s wgmma kernel resident at
-    once, by S: queried on ``t``'s card, the H100 table on the CPU."""
+def _wg_resident(product: str, t) -> Mapping[Tuple[int, int],
+                                             Mapping[int, int]]:
+    """Clusters of S blocks of ``product``'s wgmma instances resident at
+    once, by tile shape and S: queried on ``t``'s card, the H100 tables
+    on the CPU."""
     if t.device.type != "cuda":
         return H100_WG_RESIDENT_CLUSTERS
-    return wg_resident_table(t.device.index if t.device.index is not None
-                             else torch.cuda.current_device(),
-                             WG_PRODUCTS[product])
+    index = (t.device.index if t.device.index is not None
+             else torch.cuda.current_device())
+    shapes = (WG_WGRAD_SHAPE,) if product == "wgrad" else WG_SHAPES
+    return {shape: wg_resident_table(index, WG_PRODUCTS[product], shape)
+            for shape in shapes}
 
 
 def tensor_cores(*ts) -> bool:
@@ -416,12 +536,12 @@ def _library() -> ctypes.CDLL:
         lib.repro_splitk_max_clusters.argtypes = [i] * 4 + [p]
         lib.repro_matmul_tn_blocks_per_sm.argtypes = [i] * 2 + [p]
         lib.repro_wgmma_fwd.argtypes = (
-            [p] * 5 + [i] * 4 + [ll] * 5 + [i] * 2 + [p])
+            [p] * 5 + [i] * 4 + [ll] * 5 + [i] * 4 + [p])
         lib.repro_wgmma_nt.argtypes = (
-            [p] * 4 + [i] * 4 + [ll] * 4 + [i] * 2 + [p])
+            [p] * 4 + [i] * 4 + [ll] * 4 + [i] * 4 + [p])
         lib.repro_wgmma_tn.argtypes = (
             [p] * 4 + [i] * 4 + [ll] * 4 + [i] * 2 + [p])
-        lib.repro_wgmma_max_clusters.argtypes = [i] * 2 + [p]
+        lib.repro_wgmma_max_clusters.argtypes = [i] * 4 + [p]
         for fn in (lib.repro_phantom_fused_fwd, lib.repro_matmul_nt,
                    lib.repro_matmul_tn, lib.repro_splitk_max_clusters,
                    lib.repro_matmul_tn_blocks_per_sm, lib.repro_wgmma_fwd,
@@ -454,20 +574,23 @@ def resident_table(index: int, dgrad: bool, esize: int) -> Dict[int, int]:
 
 
 @functools.lru_cache(maxsize=None)
-def wg_resident_table(index: int, product: int) -> Dict[int, int]:
+def wg_resident_table(index: int, product: int,
+                      shape: Tuple[int, int]) -> Dict[int, int]:
     """Clusters of S blocks (S = 1..``WG_MAX_SPLITS``) of wgmma kernel
-    ``product`` (0 forward, 1 dgrad, 2 wgrad) that card ``index`` holds
-    at once (``cudaOccupancyMaxActiveClusters``)."""
+    ``product``'s (0 forward, 1 dgrad, 2 wgrad) instance at ``shape``
+    (BM, BN) that card ``index`` holds at once
+    (``cudaOccupancyMaxActiveClusters``)."""
     lib, out = _library(), {}
     with torch.cuda.device(index):
         for s in range(1, WG_MAX_SPLITS + 1):
             n = ctypes.c_int(0)
-            err = lib.repro_wgmma_max_clusters(product, s, ctypes.byref(n))
+            err = lib.repro_wgmma_max_clusters(product, *shape, s,
+                                               ctypes.byref(n))
             if err != 0 or (s == 1 and n.value < 1):
                 raise RuntimeError(
                     f"cudaOccupancyMaxActiveClusters failed for wgmma "
-                    f"kernel {product}: cudaError {err}, {n.value} clusters "
-                    f"of {s}")
+                    f"kernel {product} at {shape}: cudaError {err}, "
+                    f"{n.value} clusters of {s}")
             out[s] = n.value
     return out
 
@@ -559,13 +682,22 @@ def phantom_fused_matmul(x, L, g, D):
     if _on_cpu(x, L, g, D):
         return phantom_fused_ref(x, L, g, D)
     _check_cuda(x, L, g, D)
-    plan = forward_plan(x, L, g, D)
+    return _launch_forward(x, L, g, D, forward_plan(x, L, g, D))
+
+
+def _launch_forward(x, L, g, D, plan: GemmPlan):
+    """The forward's kernel on checked CUDA operands, as ``plan`` says
+    (``forward_plan``'s, or another of the same route that a measurement
+    holds against it)."""
+    M, K = x.shape
+    N = L.shape[1]
     z = torch.empty((M, N), dtype=x.dtype, device=x.device)
     args = (x.data_ptr(), L.data_ptr(), g.data_ptr(), D.data_ptr(),
-            z.data_ptr(), M, K, N, PK, x.stride(0), L.stride(0), g.stride(0),
-            D.stride(0), z.stride(0))
+            z.data_ptr(), M, K, N, g.shape[1], x.stride(0), L.stride(0),
+            g.stride(0), D.stride(0), z.stride(0))
     if plan.variant == "wgmma":
-        err = _library().repro_wgmma_fwd(*args, plan.splits, plan.grid[0],
+        err = _library().repro_wgmma_fwd(*args, plan.bm, plan.bn,
+                                         plan.splits, plan.grid[0],
                                          _stream(x.device))
     else:
         err = _library().repro_phantom_fused_fwd(
@@ -588,19 +720,27 @@ def matmul_nt(a, b, b2=None):
     if _on_cpu(a, *parts):
         return matmul_nt_ref(a, b if b2 is None else torch.cat(parts))
     _check_cuda(a, *parts)
-    plan = dgrad_plan(a, *parts)
+    return _launch_nt(a, b, b2, dgrad_plan(a, *parts))
+
+
+def _launch_nt(a, b, b2, plan: GemmPlan):
+    """The dgrad's kernel on checked CUDA operands, as ``plan`` says
+    (``dgrad_plan``'s, or another of the same route that a measurement
+    holds against it)."""
+    M, N = a.shape
     J0, J1 = b.shape[0], 0 if b2 is None else b2.shape[0]
     c = torch.empty((M, J0 + J1), dtype=a.dtype, device=a.device)
     args = (a.data_ptr(), b.data_ptr(), 0 if b2 is None else b2.data_ptr(),
             c.data_ptr(), M, N, J0, J1, a.stride(0), b.stride(0),
             b.stride(0) if b2 is None else b2.stride(0), c.stride(0))
     if plan.variant == "wgmma":
-        err = _library().repro_wgmma_nt(*args, plan.splits, plan.grid[0],
+        err = _library().repro_wgmma_nt(*args, plan.bm, plan.bn,
+                                        plan.splits, plan.grid[0],
                                         _stream(a.device))
     else:
         err = _library().repro_matmul_nt(*args, _DTYPE_CODES[a.dtype],
                                          *_plan_args(plan), _stream(a.device))
-    _raised(err, "matmul_nt", a, *parts)
+    _raised(err, "matmul_nt", a, *([b] if b2 is None else [b, b2]))
     matmul_nt.launches += 1
     return c
 

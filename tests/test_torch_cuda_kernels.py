@@ -18,8 +18,10 @@ Its scores are peaked (std 2), so an output is not a near-uniform mean
 of V, and a planted fault in the kernel (a kv tile skipped, or loaded
 into the buffer being read) must fail the check.  The phantom products'
 bf16 tensor-core kernels (``wgmma_*_kernel``) are held likewise at every
-LM site's shape and at ragged ones, and a fault planted in them (a wrong
-swizzle in the wgmma descriptors, a dropped k-step) must fail theirs.
+LM site's shape and at ragged ones, every tile shape's instance at every
+split it can run, and a fault planted in them (a wrong swizzle in the
+wgmma descriptors, a dropped k-step, a split rank dropped from the sum)
+must fail theirs.
 """
 import ctypes
 import subprocess
@@ -292,6 +294,48 @@ def test_fused_linear_grads_through_the_wgmma_route(cuda_device, M, K, N,
         assert err <= 6e-2 * scale, (name, err, scale)
 
 
+# M of the instances' sweep: one row, a decode step's 4, a stage's 8,
+# either side of a consumer warpgroup's 64, a prefill group's 192 and an
+# LM batch's 2,048
+INSTANCE_ROWS = [1, 4, 8, 63, 64, 65, 192, 2048]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", INSTANCE_ROWS)
+@pytest.mark.parametrize("shape", pf.WG_SHAPES)
+def test_every_wgmma_instance_matches_plain(cuda_device, shape, M):
+    """Each tile shape's forward and dgrad instance at every split it can
+    run (``wg_candidates``), forced through the wrappers' launch helpers,
+    at narrow K and N (384, 448: ragged 64- and 128-wide tiles), PK 24
+    (D's narrow tiles, the forward's second segment): within 2e-2 of the
+    plain version and the same bits on a second launch.  At M below the
+    tile's BM every split sums a tile of fewer real rows than BM."""
+    K, N, PK = 384, 448, 24
+    x, L, g, D, dz = _on(_arrays(M + shape[1], (M, K), (K, N), (M, PK),
+                                 (PK, N), (M, N)), "bfloat16", cuda_device)
+    runs = {"forward": (((M,), (N,), (K, PK)),
+                        lambda p: pf._launch_forward(x, L, g, D, p),
+                        phantom_fused_ref(x, L, g, D)),
+            "dgrad": (((M,), (K, PK), (N,)),
+                      lambda p: pf._launch_nt(dz, L, D, p),
+                      matmul_nt_ref(dz, torch.cat([L, D])))}
+    for kind, (parts, launch, want) in runs.items():
+        resident = pf._wg_resident(kind, x)
+        plans = [p for p in pf.wg_candidates(*parts, kind == "dgrad",
+                                             resident)
+                 if (p.bm, p.bn) == shape]
+        assert plans and plans[0].splits == 1, kind
+        if M < shape[0]:
+            assert any(p.splits > 1 for p in plans), kind
+        for plan in plans:
+            got = launch(plan)
+            torch.cuda.synchronize()
+            _close(got, want, PHANTOM_TOL["bfloat16"],
+                   f"{kind} {shape} S={plan.splits} M={M}")
+            assert torch.equal(got, launch(plan)), \
+                f"{kind} {shape} S={plan.splits} M={M}: launches differ"
+
+
 # A fault planted in a copy of the wgmma kernels: the source text and
 # what replaces it
 WG_FAULTS = {
@@ -307,16 +351,26 @@ WG_FAULTS = {
 }
 
 
+# ... and one in the split's reduction alone: the rank-order sum of the
+# partial tiles skips rank 0's
+WG_SPLIT_FAULTS = {
+    "dropped_split_rank": (
+        "for (int q = 0; q < S; ++q) {   // rank order",
+        "for (int q = 1; q < S; ++q) {   // rank order"),
+}
+
+
 @pytest.fixture(scope="module")
 def faulty_phantom_libraries(tmp_path_factory):
-    """The phantom source with each of ``WG_FAULTS`` planted, built in
-    parallel outside the checkout."""
+    """The phantom source with each of ``WG_FAULTS`` and
+    ``WG_SPLIT_FAULTS`` planted, built in parallel outside the
+    checkout."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (sm_90) to run the CUDA kernels")
     src = (build.CSRC / "phantom_fused.cu").read_text()
     out = tmp_path_factory.mktemp("faulty_phantom")
     procs = {}
-    for name, (old, new) in WG_FAULTS.items():
+    for name, (old, new) in {**WG_FAULTS, **WG_SPLIT_FAULTS}.items():
         assert src.count(old) == 1, f"{name}: {old!r} not in the source"
         cu, so = out / f"{name}.cu", out / f"{name}.so"
         cu.write_text(src.replace(old, new))
@@ -356,6 +410,31 @@ def test_wgmma_check_sees_a_planted_fault(cuda_device,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 512, 512, 32), (4, 256, 512, 32),
+                                   (192, 512, 512, 32)])
+@pytest.mark.parametrize("fault", sorted(WG_SPLIT_FAULTS))
+def test_wgmma_split_check_sees_a_dropped_rank(cuda_device,
+                                               faulty_phantom_libraries,
+                                               monkeypatch, fault, shape):
+    """The 2e-2 check fails the forward and the dgrad of a kernel whose
+    split reduction drops a rank's partial tile, where the plan splits a
+    small tile (64 rows) at served sites of 4 and 192 rows."""
+    monkeypatch.setattr(build, "load",
+                        lambda name: faulty_phantom_libraries[fault])
+    products = _wgmma_products(shape, cuda_device, seed=11)
+    for kind in ("forward", "dgrad"):
+        kern, plain, plan = products[kind]
+        assert plan.splits > 1 and plan.bm == 64, (kind, plan)
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        diff = (got.float() - want.float()).abs()
+        tol = 2e-2 + 2e-2 * want.float().abs()
+        assert bool((diff > tol).any()), \
+            f"{fault} {kind}: the check passed (max error {diff.max()})"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("variant", ["vec16", "masked"])
 @pytest.mark.parametrize("M,I0,I1,N,resident", [
@@ -377,7 +456,8 @@ def test_wgrad_grid_and_variants(cuda_device, monkeypatch, M, I0, I1, N,
     if resident is not None:
         monkeypatch.setattr(pf, "_wgrad_resident", lambda t, v: resident)
         monkeypatch.setattr(pf, "_wg_resident", lambda product, t: {
-            s: max(1, resident // 3) for s in range(1, 9)})
+            shape: {s: max(1, resident // 3) for s in range(1, 9)}
+            for shape in pf.WG_SHAPES})
     off = 0 if variant == "vec16" else 1
     x, g, dz = [t[:, off:] for t in _on(_arrays(
         M + I0 + N, (M, I0 + off), (M, I1 + off), (M, N + off)), dtype,

@@ -167,13 +167,17 @@ def test_shared_memory_check():
     """The shared-memory counterpart of the reference's VMEM check: the
     split-contraction kernel's ring (forward and dgrad layouts, float32
     and bfloat16) and the wgmma route's TMA ring (with the split's fp32
-    partial tile in it) fit one H100 block; tiles past 227 KB raise."""
-    assert pf.WG_SMEM_BYTES == pf.wg_smem_bytes() == (
-        pf.WG_STAGES * (pf.WG_BM + pf.WG_BN) * pf.WG_BK * 2 + pf.WG_SLACK)
-    assert 48 * 1024 < pf.WG_SMEM_BYTES <= pf.SMEM_BUDGET_BYTES
-    assert 4 * pf.WG_BM * pf.WG_BN <= pf.WG_SMEM_BYTES - pf.WG_SLACK
+    partial tile in it) fit one H100 block at every tile shape; tiles
+    past 227 KB raise."""
+    assert pf.WG_SMEM_BYTES[pf.WG_SHAPES[0]] == pf.wg_smem_bytes()
+    for (bm, bn), need in pf.WG_SMEM_BYTES.items():
+        stages = pf.WG_RING[(bm, bn)]
+        assert need == pf.wg_smem_bytes(bm, bn, stages=stages) == (
+            stages * (bm + bn) * pf.WG_BK * 2 + pf.WG_SLACK)
+        assert 48 * 1024 < need <= pf.SMEM_BUDGET_BYTES
+        assert 4 * bm * bn <= need - pf.WG_SLACK
     with pytest.raises(KernelConfigError, match="shared memory"):
-        pf.wg_smem_bytes(stages=pf.WG_STAGES + 1)
+        pf.wg_smem_bytes(stages=pf.WG_RING[pf.WG_SHAPES[0]] + 1)
     with pytest.raises(KernelConfigError, match="partial tile"):
         pf.wg_smem_bytes(bn=512, stages=1)
     for (b_kfast, esize), need in pf.SMEM_BYTES.items():
@@ -208,12 +212,24 @@ def test_kernel_constants_match_the_source():
         assert sk[name] == getattr(pf, name), name
     for name in ("BM", "BN", "BK", "STAGES"):
         assert tn[name] == getattr(pf, "WGRAD_" + name), name
-    for name in ("BM", "BN", "BK", "STAGES", "MAX_SPLITS", "THREADS",
-                 "SLACK"):
+    for name in ("BK", "MAX_SPLITS", "SLACK", "SM_SMEM", "BLOCK_RESERVED"):
         assert wg[name] == getattr(pf, "WG_" + name), name
-    # the wgmma tile: two consumer warpgroups of 64 rows, one wgmma wide
-    assert pf.WG_BM == 2 * 64 and pf.WG_BN <= 256 and pf.WG_BK * 2 == 128
-    assert pf.WG_THREADS == 3 * 128
+    # the forward's and the dgrad's instances and their rings, in the
+    # plan's order; the wgrad's one instance at the first
+    line = next(ln for ln in src.splitlines()
+                if ln.startswith("#define WG_SHAPES(X)"))
+    shapes = [tuple(int(v) for v in x) for x in re.findall(
+        r"X\((\d+), (\d+), (\d+)\)", line)]
+    assert tuple((m, n) for m, n, _ in shapes) == pf.WG_SHAPES
+    assert {(m, n): st for m, n, st in shapes} == pf.WG_RING
+    assert "wg::gemm<true, true, wg::Shape<%d, %d, %d>>" % (
+        *pf.WG_WGRAD_SHAPE, pf.WG_RING[pf.WG_WGRAD_SHAPE]) in src
+    # a wgmma tile: one or two consumer warpgroups of 64 rows, one wgmma
+    # wide, slabs of 128 bytes
+    for bm, bn in pf.WG_SHAPES:
+        assert bm in (64, 128) and bn in (64, 128, 256), (bm, bn)
+        assert pf.wg_threads(bm) == 128 * (1 + bm // 64)
+    assert pf.WG_BK * 2 == 128
 
 
 def _ceil(a, b):
@@ -282,39 +298,47 @@ def test_gemm_plan(shape, kind):
 
 
 def _check_wg_plan(plan, shape, kind):
-    """A wgmma plan of the forward or the dgrad at (M, K, N, PK): tiles of
-    128 x 256 over each part of C's columns on its own, slabs of 64, and
-    ``wg_split``'s splits: every block two slabs or more, one cluster per
-    tile in one wave, and no S of lower cost."""
+    """A wgmma plan of the forward or the dgrad at (M, K, N, PK): one of
+    ``wg_candidates`` -- tiles of one of ``WG_SHAPES`` over each part of
+    C's columns on its own, slabs of 64, every block one slab or more,
+    with a split one cluster per tile in one wave, else a persistent grid
+    -- the one of least estimate, the larger tile and then the fewer
+    splits on a tie, and its estimate as ``wg_estimate_us`` prices it."""
     M, K, N, PK = shape
-    resident = pf.H100_WG_RESIDENT_CLUSTERS
     assert plan.variant == "wgmma" and plan.esize == 2
     assert plan.kernel == {"forward": "wgmma_fwd_kernel",
                            "dgrad": "wgmma_dgrad_kernel"}[kind]
+    bm, bn = plan.bm, plan.bn
+    assert (bm, bn) in pf.WG_SHAPES
+    resident = pf.H100_WG_RESIDENT_CLUSTERS[(bm, bn)]
     if kind == "forward":
-        tiles = _ceil(M, 128) * _ceil(N, 256)
+        tiles = _ceil(M, bm) * _ceil(N, bn)
         slabs = _ceil(K, 64) + _ceil(PK, 64)
+        parts = ((M,), (N,), (K, PK))
     else:
-        tiles = _ceil(M, 128) * (_ceil(K, 256) + _ceil(PK, 256))
+        tiles = _ceil(M, bm) * (_ceil(K, bn) + _ceil(PK, bn))
         slabs = _ceil(N, 64)
+        parts = ((M,), (K, PK), (N,))
     assert (plan.tiles, plan.slabs) == (tiles, slabs)
-    assert plan.smem_bytes == pf.WG_SMEM_BYTES
+    assert plan.smem_bytes == pf.WG_SMEM_BYTES[(bm, bn)]
+    assert plan.stages == pf.WG_RING[(bm, bn)]
     S = plan.splits
     assert plan.cluster == (S, 1, 1)
     ranges = plan.ranges()
     assert ranges[0][0] == 0 and ranges[-1][1] == slabs and len(ranges) == S
-
-    def cost(s):
-        return slabs if s == 1 else _ceil(slabs, s) + pf.WG_SPLIT_SLABS
-    fits = [s for s in range(2, pf.WG_MAX_SPLITS + 1)
-            if slabs >= 2 * s and tiles <= resident[s]]
-    assert all(cost(S) <= cost(s) for s in fits)
+    assert min(b - a for a, b in ranges) >= 1
     if S > 1:
-        assert S in fits and plan.grid == (tiles * S, 1)
-        assert min(b - a for a, b in ranges) >= 2
-        assert all(cost(s) > cost(S) for s in fits if s > S)
+        assert plan.grid == (tiles * S, 1) and tiles <= resident[S]
     else:
         assert plan.grid == (min(tiles, resident[1]), 1)
+    assert plan.est_us == pytest.approx(pf.wg_estimate_us(
+        kind, (bm, bn), tiles, slabs, S, plan.grid[0], min(bm, M),
+        min(bn, max(parts[1])), resident))
+    cands = pf.wg_candidates(*parts, kind == "dgrad")
+    first = min(cands, key=lambda c: c.est_us)
+    assert (plan.bm, plan.bn, plan.splits) == (first.bm, first.bn,
+                                               first.splits)
+    assert all(plan.est_us <= c.est_us for c in cands)
 
 
 _H100 = pf.H100_RESIDENT_CLUSTERS
@@ -386,11 +410,12 @@ def _check_wg_wgrad_plan(plan, M, K, N, PK):
     columns a tile, the contraction M in slabs of 64, split as
     ``wg_split`` says or a persistent grid of one block per tile at
     most."""
-    resident = pf.H100_WG_RESIDENT_CLUSTERS
+    resident = pf.H100_WG_RESIDENT_CLUSTERS[pf.WG_WGRAD_SHAPE]
+    assert pf.WG_WGRAD_SHAPE == (128, 256)
     assert plan.variant == "wgmma" and plan.kernel == "wgmma_wgrad_kernel"
     assert (plan.tiles_m, plan.tiles_n) == (_ceil(K, 128) + _ceil(PK, 128),
                                             _ceil(N, 256))
-    assert plan.smem_bytes == pf.WG_SMEM_BYTES
+    assert plan.smem_bytes == pf.WG_SMEM_BYTES[pf.WG_WGRAD_SHAPE]
     S, tiles = plan.splits, plan.tiles
     assert (S, plan.grid) == pf.wg_split(tiles, _ceil(M, 64), resident)
     assert plan.resident == resident[S] * S
@@ -493,7 +518,8 @@ C_CALLS = {True: ("repro_wgmma_fwd", "repro_wgmma_nt", "repro_wgmma_tn"),
 @pytest.mark.parametrize("shape", ROUTE_SHAPES)
 def test_route_of_every_call(monkeypatch, shape, dtype, aligned):
     """Which kernel each product takes on a CUDA tensor: aligned bf16 the
-    wgmma kernels (``repro_wgmma_*``, with the plan's splits and grid),
+    wgmma kernels (``repro_wgmma_*``, with the plan's tile shape, splits
+    and grid),
     float32 and unaligned bf16 the CUDA-core kernels (the 16-byte or the
     masked variant); each call launches once, counted, and never reaches
     the plain version.  Unaligned: every operand a column view one
@@ -521,10 +547,12 @@ def test_route_of_every_call(monkeypatch, shape, dtype, aligned):
     assert [k.launches for k in kernels] == [b + 1 for b in before]
     assert [o.shape for o in outs] == [(M, N), (M, K + PK), (K + PK, N)]
     assert tuple(name for name, _ in calls) == C_CALLS[tc]
-    if tc:   # the plan's splits and grid, then the stream
+    if tc:   # the plan's tile shape, splits and grid, then the stream
         (_, fwd), (_, nt), (_, tn) = calls
-        assert fwd[-3:] == (plans[0].splits, plans[0].grid[0], 0)
-        assert nt[-3:] == (plans[1].splits, plans[1].grid[0], 0)
+        assert fwd[-5:] == (plans[0].bm, plans[0].bn, plans[0].splits,
+                            plans[0].grid[0], 0)
+        assert nt[-5:] == (plans[1].bm, plans[1].bn, plans[1].splits,
+                           plans[1].grid[0], 0)
         assert tn[-3:] == (plans[2].splits, plans[2].grid, 0)
 
 
@@ -558,59 +586,73 @@ def _bf16(*shape):
 
 @pytest.mark.parametrize("M,K,N,PK,want", [
     # qwen2-vl-72b at tp 4: K = 7,392 (the down projection's contraction,
-    # the gate/up dgrad's L rows) is no multiple of 128 or 256
-    (2048, 2048, 7392, 128, {"forward": 16 * 29, "dgrad": 16 * (8 + 1),
-                             "wgrad": (16 + 1) * 29}),
-    (2048, 7392, 2048, 128, {"forward": 16 * 8, "dgrad": 16 * (29 + 1),
-                             "wgrad": (58 + 1) * 8}),
-    # chatglm3-6b at tp 4: N = 3,424
-    (4, 1024, 3424, 64, {"forward": 1 * 14, "dgrad": 1 * (4 + 1),
-                         "wgrad": (8 + 1) * 14}),
-    (4, 3424, 1024, 64, {"forward": 1 * 4, "dgrad": 1 * (14 + 1),
-                         "wgrad": (27 + 1) * 4}),
+    # the gate/up dgrad's L rows) is no multiple of 128 or 256; 128 x 256
+    # tiles everywhere
+    (2048, 2048, 7392, 128, {"forward": ((128, 256), 16 * 29),
+                             "dgrad": ((128, 256), 16 * (8 + 1)),
+                             "wgrad": ((128, 256), (16 + 1) * 29)}),
+    (2048, 7392, 2048, 128, {"forward": ((128, 256), 16 * 8),
+                             "dgrad": ((128, 256), 16 * (29 + 1)),
+                             "wgrad": ((128, 256), (58 + 1) * 8)}),
+    # chatglm3-6b at tp 4, a decode step: N = 3,424, 64-row tiles
+    (4, 1024, 3424, 64, {"forward": ((64, 128), 1 * 27),
+                         "dgrad": ((64, 64), 1 * (16 + 1)),
+                         "wgrad": ((128, 256), (8 + 1) * 14)}),
+    (4, 3424, 1024, 64, {"forward": ((64, 64), 1 * 16),
+                         "dgrad": ((64, 128), 1 * (27 + 1)),
+                         "wgrad": ((128, 256), (27 + 1) * 4)}),
 ])
 def test_tiles_across_the_joins(M, K, N, PK, want):
     """No wgmma tile straddles a join: the dgrad's output columns are
     tiled over L's K rows and then D's PK, the wgrad's output rows over
-    x's K columns and then g's PK, each on its own, so [L ; D] and
-    [x | g] are never built; at K = 7,392 and N = 3,424 that is one tile
-    more than tiling the joined width (7,520 = 29.4 tiles of 256; 3,488
-    = 27.25 of 128)."""
+    x's K columns and then g's PK, each on its own, at the tile shape the
+    plan chose, so [L ; D] and [x | g] are never built; at K = 7,392 and
+    N = 3,424 that can be one tile more than tiling the joined width
+    (7,520 = 29.4 tiles of 256; 3,488 = 27.25 of 128)."""
     x, L, g, D, dz = _bf16(M, K), _bf16(K, N), _bf16(M, PK), _bf16(PK, N), \
         _bf16(M, N)
-    got = {"forward": pf.forward_plan(x, L, g, D).tiles,
-           "dgrad": pf.dgrad_plan(dz, L, D).tiles,
-           "wgrad": pf.tn_plan(x, dz, g).tiles}
+    plans = {"forward": pf.forward_plan(x, L, g, D),
+             "dgrad": pf.dgrad_plan(dz, L, D), "wgrad": pf.tn_plan(x, dz, g)}
+    got = {"forward": ((plans["forward"].bm, plans["forward"].bn),
+                       plans["forward"].tiles),
+           "dgrad": ((plans["dgrad"].bm, plans["dgrad"].bn),
+                     plans["dgrad"].tiles),
+           "wgrad": (pf.WG_WGRAD_SHAPE, plans["wgrad"].tiles)}
     assert got == want
-    joined = {"dgrad": _ceil(M, 128) * _ceil(K + PK, 256),
-              "wgrad": _ceil(K + PK, 128) * _ceil(N, 256)}
-    assert got["dgrad"] >= joined["dgrad"]
-    assert got["wgrad"] >= joined["wgrad"]
-    assert got["dgrad"] - joined["dgrad"] <= _ceil(M, 128)
-    assert got["wgrad"] - joined["wgrad"] <= _ceil(N, 256)
+    (dm, dn), (wm, wn) = want["dgrad"][0], want["wgrad"][0]
+    joined = {"dgrad": _ceil(M, dm) * _ceil(K + PK, dn),
+              "wgrad": _ceil(K + PK, wm) * _ceil(N, wn)}
+    assert got["dgrad"][1] >= joined["dgrad"]
+    assert got["wgrad"][1] >= joined["wgrad"]
+    assert got["dgrad"][1] - joined["dgrad"] <= _ceil(M, dm)
+    assert got["wgrad"][1] - joined["wgrad"] <= _ceil(N, wn)
 
 
 @pytest.mark.parametrize("M,K,N,PK,want", [
-    # a decode step's 4 rows: 17 and 55 slabs over a few tiles, split 8
-    # ways (every block the largest share of L's bytes the card holds)
-    (4, 1024, 3424, 64, {"forward": 8, "dgrad": 8, "wgrad": 1}),
-    (4, 3424, 1024, 64, {"forward": 8, "dgrad": 8, "wgrad": 1}),
-    # a pipeline stage's 8 rows: 32 and 33 tiles fit clusters of 3
-    (8, 8192, 8192, 32, {"forward": 3, "dgrad": 3, "wgrad": 1}),
+    # a decode step's 4 rows: 17 and 55 slabs over a few 64-row tiles,
+    # split 4 to 8 ways
+    (4, 1024, 3424, 64, {"forward": 6, "dgrad": 7, "wgrad": 1}),
+    (4, 3424, 1024, 64, {"forward": 8, "dgrad": 4, "wgrad": 1}),
+    # a pipeline stage's 8 rows: 64 and 65 tiles of 64 x 128 fit clusters
+    # of 3 (and 2)
+    (8, 8192, 8192, 32, {"forward": 3, "dgrad": 2, "wgrad": 1}),
     # 2,048 rows: hundreds of tiles, a persistent grid
     (2048, 2048, 7392, 128, {"forward": 1, "dgrad": 1, "wgrad": 1}),
     (2048, 1536, 4096, 8, {"forward": 1, "dgrad": 1, "wgrad": 1}),
-    # 2,048 rows of narrow sites: few tiles; only the long contractions
-    # are split (olmoe q/k/v/o, phi3-mini's down at tp 4)
+    # 2,048 rows of narrow sites: a wave of small tiles, no split (the
+    # wgrad's long contractions are split: olmoe q/k/v/o, phi3-mini's
+    # down at tp 4)
     (2048, 512, 512, 32, {"forward": 1, "dgrad": 1, "wgrad": 8}),
-    (2048, 2048, 768, 48, {"forward": 2, "dgrad": 1, "wgrad": 2}),
+    (2048, 2048, 768, 48, {"forward": 1, "dgrad": 1, "wgrad": 2}),
 ])
 def test_split_plan_at_short_and_long_inputs(M, K, N, PK, want):
     """The wgmma route's splits at 4, 8 and 2,048 rows on the H100's
-    residency: a split where the tiles fit one wave of clusters and its
-    reduction (``WG_SPLIT_SLABS``) costs less than the slabs it saves;
-    the grid is then one cluster per tile, else one block per tile up to
-    the 132 the card holds."""
+    residency: the forward's and the dgrad's as ``wg_plan``'s estimate
+    picks them, a split where its clusters fit one wave; the wgrad's
+    where its reduction (``WG_SPLIT_SLABS``) costs less than the slabs
+    it saves.  The grid is one cluster per tile with a split, else one
+    block per tile up to the blocks the card holds; a short input
+    spreads over at least 40 blocks."""
     x, L, g, D, dz = _bf16(M, K), _bf16(K, N), _bf16(M, PK), _bf16(PK, N), \
         _bf16(M, N)
     plans = {"forward": pf.forward_plan(x, L, g, D),
@@ -618,25 +660,175 @@ def test_split_plan_at_short_and_long_inputs(M, K, N, PK, want):
     assert {k: p.splits for k, p in plans.items()} == want
     for kind, p in plans.items():
         grid = p.grid if kind == "wgrad" else p.grid[0]
+        table = pf.H100_WG_RESIDENT_CLUSTERS[
+            pf.WG_WGRAD_SHAPE if kind == "wgrad" else (p.bm, p.bn)]
         if p.splits > 1:
             assert grid == p.tiles * p.splits
-            assert p.tiles <= pf.H100_WG_RESIDENT_CLUSTERS[p.splits]
+            assert p.tiles <= table[p.splits]
         else:
-            assert grid == min(p.tiles, 132)
-    if M <= 8:   # a short input spreads over at least a third of the SMs
-        assert plans["forward"].grid[0] >= 32
+            assert grid == min(p.tiles, table[1])
+    if M <= 8:
+        assert plans["forward"].grid[0] >= 40
         assert plans["dgrad"].grid[0] >= 40
 
 
 def test_wg_split_follows_the_residency():
-    """``wg_split`` on cards that hold other numbers of clusters: the
-    split needs its clusters in one wave."""
-    assert pf.wg_split(14, 17, pf.H100_WG_RESIDENT_CLUSTERS) == (8, 112)
-    assert pf.wg_split(14, 17, {**pf.H100_WG_RESIDENT_CLUSTERS,
+    """The wgrad's ``wg_split`` and the forward's and dgrad's ``wg_plan``
+    on cards that hold other numbers of clusters: a split needs its
+    clusters in one wave, and a card that holds fewer takes larger tiles
+    or fewer splits."""
+    assert pf.wg_split(14, 17, pf.H100_WG_RESIDENT_CLUSTERS[(128, 256)]) \
+        == (8, 112)
+    assert pf.wg_split(14, 17, {**pf.H100_WG_RESIDENT_CLUSTERS[(128, 256)],
                                 8: 13, 7: 13}) == (6, 84)
     assert pf.wg_split(14, 17, {s: 8 for s in range(1, 9)}) == (1, 8)
-    assert pf.wg_split(500, 34, pf.H100_WG_RESIDENT_CLUSTERS) == (1, 132)
-    assert pf.wg_split(3, 3, pf.H100_WG_RESIDENT_CLUSTERS) == (1, 3)
+    assert pf.wg_split(500, 34, pf.H100_WG_RESIDENT_CLUSTERS[(128, 256)]) \
+        == (1, 132)
+    assert pf.wg_split(3, 3, pf.H100_WG_RESIDENT_CLUSTERS[(128, 256)]) == \
+        (1, 3)
+    half = {shape: {s: max(1, n // 2) for s, n in table.items()}
+            for shape, table in pf.H100_WG_RESIDENT_CLUSTERS.items()}
+    one = {shape: {s: 1 for s in table}
+           for shape, table in pf.H100_WG_RESIDENT_CLUSTERS.items()}
+    olmoe4_fwd, olmoe4_dgrad = ((4,), (512,), (512, 32)), \
+        ((4,), (512, 32), (512,))
+    olmoe_fwd = ((2048,), (512,), (512, 32))
+
+    def got(parts, dgrad, resident):
+        p = pf.wg_plan(*parts, dgrad, resident)
+        return (p.bm, p.bn), p.splits, p.grid[0]
+    assert got(olmoe4_fwd, False, pf.H100_WG_RESIDENT_CLUSTERS) == \
+        ((64, 64), 5, 40)
+    assert got(olmoe4_dgrad, True, pf.H100_WG_RESIDENT_CLUSTERS) == \
+        ((64, 64), 8, 72)
+    assert got(olmoe_fwd, False, pf.H100_WG_RESIDENT_CLUSTERS) == \
+        ((64, 128), 1, 128)
+    assert got(olmoe4_fwd, False, half) == ((64, 64), 5, 40)
+    assert got(olmoe4_dgrad, True, half) == ((64, 128), 8, 40)
+    assert got(olmoe_fwd, False, half) == ((128, 128), 1, 64)
+    assert got(olmoe4_fwd, False, one) == ((128, 256), 1, 1)
+    assert got(olmoe4_dgrad, True, one) == ((64, 128), 1, 1)
+
+
+# (M, K, N, PK) of PERF.md's rows e-n a rank (benchmarks/wgmma_plan.py:
+# SITES), each with the forward's and the dgrad's plan: (tile shape,
+# splits, blocks)
+SITE_PLANS = {
+    "e": {(2048, 512, 512, 32): ((64, 128, 1, 128), (128, 128, 1, 80))},
+    "f": {(2048, 256, 512, 32): ((64, 64, 1, 256), (64, 128, 1, 96)),
+          (2048, 512, 256, 32): ((64, 64, 1, 128), (128, 128, 1, 80))},
+    "g": {(1024, 1536, 4096, 24): ((128, 256, 1, 128), (128, 128, 1, 104)),
+          (1024, 4096, 1536, 24): ((128, 128, 1, 96), (128, 128, 1, 132))},
+    "h": {(2048, 2048, 6144, 128): ((128, 256, 1, 132), (128, 256, 1, 132)),
+          (2048, 6144, 2048, 128): ((128, 256, 1, 128), (128, 256, 1, 132))},
+    "i": {(2048, 2048, 7392, 128): ((128, 256, 1, 132), (128, 256, 1, 132)),
+          (2048, 7392, 2048, 128): ((128, 256, 1, 128), (128, 256, 1, 132))},
+    "j": {(2048, 256, 2048, 32): ((128, 256, 1, 128), (64, 128, 2, 192)),
+          (2048, 2048, 256, 32): ((64, 64, 2, 256), (128, 256, 1, 132))},
+    "k": {(4, 1024, 3424, 64): ((64, 128, 6, 162), (64, 64, 7, 119)),
+          (4, 3424, 1024, 64): ((64, 64, 8, 128), (64, 128, 4, 112)),
+          (192, 1024, 3424, 64): ((64, 128, 1, 81), (64, 128, 8, 216)),
+          (192, 3424, 1024, 64): ((64, 128, 8, 192), (64, 128, 1, 84))},
+    "l": {(4, 512, 512, 32): ((64, 64, 5, 40), (64, 64, 8, 72)),
+          (4, 256, 512, 32): ((64, 64, 5, 40), (64, 64, 8, 40)),
+          (4, 512, 256, 32): ((64, 64, 5, 20), (64, 64, 4, 36)),
+          (4, 256, 2048, 32): ((64, 128, 5, 80), (64, 64, 8, 40)),
+          (4, 2048, 256, 32): ((64, 64, 7, 28), (64, 64, 4, 132)),
+          (192, 512, 512, 32): ((64, 64, 5, 120), (64, 64, 4, 108)),
+          (192, 256, 512, 32): ((64, 64, 1, 24), (64, 64, 8, 120)),
+          (192, 512, 256, 32): ((64, 64, 5, 60), (64, 64, 1, 27)),
+          (192, 256, 2048, 32): ((64, 64, 1, 96), (64, 64, 8, 120)),
+          (192, 2048, 256, 32): ((64, 64, 7, 84), (64, 64, 1, 99))},
+    "m": {(4, 2048, 6144, 128): ((64, 128, 4, 192), (64, 128, 7, 119)),
+          (4, 6144, 2048, 128): ((64, 128, 8, 128), (64, 128, 4, 196)),
+          (4, 1280, 3456, 64): ((64, 128, 7, 189), (64, 64, 6, 126)),
+          (4, 3456, 1280, 64): ((64, 128, 8, 80), (64, 128, 7, 196)),
+          (4, 2048, 7392, 128): ((64, 128, 4, 232), (64, 128, 7, 119)),
+          (4, 7392, 2048, 128): ((64, 128, 8, 128), (64, 128, 4, 236)),
+          (192, 2048, 6144, 128): ((128, 128, 1, 96), (64, 128, 4, 204)),
+          (192, 6144, 2048, 128): ((64, 128, 4, 192), (128, 128, 1, 98)),
+          (192, 1280, 3456, 64): ((64, 128, 1, 81), (64, 128, 4, 132)),
+          (192, 3456, 1280, 64): ((64, 128, 8, 240), (64, 128, 1, 84)),
+          (192, 2048, 7392, 128): ((128, 128, 1, 116), (64, 128, 4, 204)),
+          (192, 7392, 2048, 128): ((64, 128, 4, 192), (128, 128, 1, 118))},
+    "n": {(2048, 1536, 1536, 8): ((128, 256, 1, 96), (128, 256, 1, 112)),
+          (2048, 1536, 4096, 8): ((128, 256, 1, 132), (128, 256, 1, 112)),
+          (2048, 4096, 1536, 8): ((128, 256, 1, 96), (128, 128, 1, 132))},
+}
+
+
+@pytest.mark.parametrize("row,shape", [(row, shape) for row, sites in
+                                       SITE_PLANS.items() for shape in sites])
+def test_wg_plan_at_every_site(row, shape):
+    """The forward's and the dgrad's plan at each site of rows e-n on the
+    H100's residency (CPU operands): the tile shape, splits and blocks
+    ``wg_plan``'s estimate picks (measured against every other launch on
+    the card by benchmarks/wgmma_plan.py, PERF.md).  The 2,048-row narrow
+    sites (e, f) run 80 to 256 blocks of smaller tiles in one wave, where
+    128 x 256 ran 16-48; a 4-row one spreads over 20 blocks or more,
+    where it ran 1-8; the wide sites (h, i) keep 128 x 256 with no
+    split."""
+    M, K, N, PK = shape
+    x, L, g, D, dz = _bf16(M, K), _bf16(K, N), _bf16(M, PK), _bf16(PK, N), \
+        _bf16(M, N)
+    plans = (pf.forward_plan(x, L, g, D), pf.dgrad_plan(dz, L, D))
+    assert tuple((p.bm, p.bn, p.splits, p.grid[0]) for p in plans) == \
+        SITE_PLANS[row][shape]
+    for kind, plan in zip(("forward", "dgrad"), plans):
+        _check_wg_plan(plan, shape, kind)
+        one_wave = pf.H100_WG_RESIDENT_CLUSTERS[(plan.bm, plan.bn)][1]
+        if row in "ef":
+            assert 80 <= plan.grid[0] <= one_wave
+        if M == 4:
+            assert plan.grid[0] >= 20
+        if row in "hi":
+            assert (plan.bm, plan.bn, plan.splits) == (128, 256, 1)
+
+
+def test_split_priced_on_real_rows():
+    """A split's reduction is priced on the tile's real rows and columns:
+    a 4-row tile's costs a sixteenth of a full 64-row one's bytes, so at
+    4 rows the plan splits a 64 x 64 tile where at 64 rows of the same
+    site it does not; the estimate of each candidate is its walk plus
+    that price."""
+    assert pf.wg_split_us(4, 64) < pf.wg_split_us(64, 64) < \
+        pf.wg_split_us(128, 256)
+    assert pf.wg_split_us(64, 64) - pf.wg_split_us(4, 64) == pytest.approx(
+        pf.WG_SPLIT_US_PER_KB * 60 * 64 * 4 / 1024)
+    for M, want in ((4, 5), (64, 1)):
+        cands = pf.wg_candidates((M,), (512,), (256, 32), False)
+        plan = pf.wg_plan((M,), (512,), (256, 32), False)
+        assert (plan.bm, plan.bn, plan.splits) == (64, 64, want)
+        for c in cands:
+            if c.splits > 1:
+                walk = pf.wg_estimate_us(
+                    "forward", (c.bm, c.bn), c.tiles, c.slabs, c.splits,
+                    c.grid[0], 0, 0, pf.H100_WG_RESIDENT_CLUSTERS[
+                        (c.bm, c.bn)], split_us=0.0, split_us_per_kb=0.0)
+                assert c.est_us == pytest.approx(
+                    walk + pf.wg_split_us(min(M, c.bm), min(512, c.bn)))
+
+
+@pytest.mark.parametrize("shape", pf.WG_SHAPES)
+def test_wg_shape_fits_an_sm(shape):
+    """Each tile shape's block: its ring (with the split's fp32 partial
+    tile in it) within the 227 KB a block may use, as many blocks as its
+    shared memory allows resident on an SM together with their threads,
+    and the H100 residency table of that many blocks an SM: 132 of them
+    for S = 1, and non-increasing in S, S blocks to a cluster."""
+    bm, bn = shape
+    smem, per_sm = pf.WG_SMEM_BYTES[shape], pf.wg_blocks_per_sm(shape)
+    assert smem <= pf.SMEM_BUDGET_BYTES
+    assert 4 * bm * bn <= smem - pf.WG_SLACK
+    assert per_sm * (smem + pf.WG_BLOCK_RESERVED) <= pf.WG_SM_SMEM
+    assert per_sm * pf.wg_threads(bm) <= 2048
+    assert per_sm == {(128, 256): 1, (128, 128): 1, (64, 128): 2,
+                      (64, 64): 2}[shape]
+    table = pf.H100_WG_RESIDENT_CLUSTERS[shape]
+    assert sorted(table) == list(range(1, pf.WG_MAX_SPLITS + 1))
+    assert table[1] == pf.H100_SMS * per_sm
+    assert all(table[s + 1] <= table[s] for s in range(1, pf.WG_MAX_SPLITS))
+    assert all(s * table[s] <= table[1] for s in table)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
