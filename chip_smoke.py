@@ -454,9 +454,11 @@ Phases (any failure exits non-zero):
 20. elastic (``phase_elastic``): ``train/elastic.py: run_elastic`` at
    paper-ffn-4k's width (``ELASTIC``: n 4096, L 2, batch 64, 8 devices
    on 4 hosts, tensor_col first, ks (4, 8, 16), checkpoints every 10
-   steps, 24 steps, AdamW 5e-4, the audit gate off), host3 lost at step
+   steps, 24 steps, AdamW 5e-4, the audit gate on: each plan's probe
+   step audited on the ranks its phase then runs on), host3 lost at step
    12: each phase a world of gloo ranks sharing the card, the plain
    torch core (the plans' ``kernel_backend="xla"``).  Held: the plans
+   (each audited, with 0 errors)
    and the recovery's detect, restored and replayed steps,
    ``distilled`` and ``from_scratch`` against the CPU planner's
    prediction (``ELASTIC_PLANS``, ``ELASTIC_RECOVERY``), each phase's
@@ -475,7 +477,10 @@ Phases (any failure exits non-zero):
    tensor_col and phantom, pilot tp 4, the paper's calibration) but
    ``PLAN_PILOT_STEPS`` pilot steps and ``PLAN_TARGET``, the report under
    ``build/``; the pilots (the plain torch core) run on the pool's 4
-   ranks.  Held: the schema, every pilot its budget with finite, falling
+   ranks, and each frontier plan's probe step is audited on ranks of its
+   mesh (the pool's, or a world of its size: ``analysis/engine.py:
+   audit_plans``).  Held: the report's ``audit`` block, every plan
+   audited and passing, the schema, every pilot its budget with finite, falling
    losses, a phantom curve, matched plans, a frontier and a winner;
    printed: each pilot's nu, final loss and median step ms, the curve,
    the comparison, the winner.  Then the winner's measured peak
@@ -496,12 +501,28 @@ Phases (any failure exits non-zero):
    ``plan/enumerate`` and ``plan/pilots`` spans and a ``plan/pilot`` span
    a pilot on every rank's pid, ``plan_pilot_steps_total`` the pilots'
    steps (``_plan_obs_held``).
+22. audit (``phase_audit``): (a) the audit of the reference's nine
+   entry points (``analysis/units.py: build_default_units``) on the card:
+   the FFN, kernel and pipeline probes on 8 ranks sharing it, the
+   serving prefill and decode on the pool's 4, with the source lint and
+   the port's baseline; held, the reference's unit names, 0 errors, the
+   kernel unit's phantom-kernel launches; printed, every finding.  (b)
+   the dry run (``launch/dryrun.py: dry_step``, rank 0 on meta) of phase
+   9's cut of phi3-mini against one executed train step on the pool's
+   ranks after a warm-up step: held, flops within ``DRY_FLOPS_RTOL``,
+   wire bytes equal to the byte, the dry peak of live bytes within
+   ``DRY_PEAK_RTOL`` of the step's growth of ``max_memory_allocated``;
+   the three ratios printed.  (c) the reference's default production
+   cell (qwen2.5-14b, train_4k, phantom, 16 x 16, full depth) on meta,
+   host work in a process of its own started with the phase, so that it
+   runs beside (a) and (b): its record and wall time printed.
 
-Phases 9-16 and 18-21, and 17's mesh of 4, run in one pool of 4 ranks
+Phases 9-16 and 18-22, and 17's mesh of 4, run in one pool of 4 ranks
 (``launch/mesh.py: RankPool``), started once, each phase's card memory
-freed before the next (phase 20's worlds and phase 21's winner's mesh
-are ranks of their own beside it).  Each phase's wall seconds are printed on a line
-of their own.
+freed before the next.  A world of each other size starts once
+(``analysis/units.py: RankPools``): phase 17's 8 ranks serve phases 20,
+21 and 22 too, phase 20's 2 ranks serve phase 21.  Each phase's wall
+seconds are printed on a line of their own.
 
 The line before the last is the kernel table as JSON (the phantom
 kernels' 8-row shape and its launches under ``pipe_rows8``; the flash
@@ -528,6 +549,7 @@ to ``build/chip_smoke.json``.
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -592,10 +614,10 @@ COMPRESS_DP, COMPRESS_TP, COMPRESS_RANK = 2, 4, 2
 COMPRESS_STEPS, COMPRESS_PLAIN_STEPS, COMPRESS_LR = 10, 3, 0.03
 PIPE_PP, PIPE_DP, PIPE_TP, PIPE_M = 2, 2, 2, 4
 # the pipelined tensor_col baseline's steps (TRAIN_STEPS until phase 19
-# needed the script's time; its loss falls below step 1's by step 4, where
-# the pipelined phantom path's 20 steps cannot be cut: at 8 its
-# loss-falls check broke)
-PIPE_TENSOR_STEPS = 8
+# needed the script's time, 8 until phase 22 did; its loss falls below
+# step 1's by step 4, where the pipelined phantom path's 20 steps cannot
+# be cut: at 8 its loss-falls check broke)
+PIPE_TENSOR_STEPS = 4
 # the reference's pipeline oracle (tests/helpers.py:77-104)
 EQUIV_LOSS_RTOL, EQUIV_TOL = 2e-4, dict(rtol=5e-4, atol=1e-6)
 # measured/predicted flops pins of the reference (tests/test_telemetry.py)
@@ -6253,12 +6275,15 @@ def _serve_mesh_held(impl, ranks, cfg, layers):
             "layer_check": [r["layers"] for r in ranks]}
 
 
-def phase_serve_mesh(pool=None):
+def phase_serve_mesh(pool=None, pools=None):
     """Phase 17: chatglm3-6b served over meshes of ranks sharing the card
     (gloo, card tensors through the host), through the router's
     ``run_config``: (a) tensor sites at dp 2 x tp 4, (b) the phantom
     candidate at dp 1 x tp 4; (c) the router's priced table over
-    ``SERVE_MESH_BUDGET`` devices at ``SERVE_MESH_SLO_MS``."""
+    ``SERVE_MESH_BUDGET`` devices at ``SERVE_MESH_SLO_MS``.  Each mesh
+    runs on ``pools``' world of its size when given (``main``'s: the 8
+    ranks it starts serve phases 20-22 too), else on ``pool`` or new
+    ranks."""
     import torch
     from repro_torch.planner import paper_default_calibration
     from repro_torch.serve.router import (ServeConfig, candidate_configs,
@@ -6291,7 +6316,8 @@ def phase_serve_mesh(pool=None):
                           ).model_config().replace(
                               num_layers=SERVE_MESH_LAYERS)
         t0 = time.perf_counter()
-        ranks = _run_ranks(pool, _serve_mesh_rank, dp, tp, timeout_s=600,
+        ranks = _run_ranks(pool if pools is None else pools.get(dp * tp),
+                           _serve_mesh_rank, dp, tp, timeout_s=600,
                            args=(impl, SERVE_MESH_LAYERS))
         out[impl] = _serve_mesh_held(impl, ranks, cfg, SERVE_MESH_LAYERS)
         out[impl]["ranks_wall_s"] = time.perf_counter() - t0
@@ -6861,7 +6887,7 @@ def phase_fleet(device="cuda", rank=None, pool=None):
 ELASTIC = dict(devices=8, hosts=4, width=4096, depth=2, batch=64,
                initial_strategy="tensor_col", ks=(4, 8, 16),
                checkpoint_every=10, max_steps=24, target_loss=1e-9,
-               audit_replan=False, straggler_threshold=1e6, lr=5e-4)
+               straggler_threshold=1e6, lr=5e-4)
 ELASTIC_KILLS = ((12, "host3"),)
 # the CPU planner's and cluster's prediction (PERF.md §6)
 ELASTIC_PLANS = ["tensor_col_n4096_mesh1x8", "phantom_n4096_mesh1x2_k4"]
@@ -6882,7 +6908,7 @@ ACCOUNT_TOL = 1e-9
 POOL_TIMEOUT_S = 1800.0      # the 4-rank pool's collective timeout
 
 
-def phase_elastic():
+def phase_elastic(pools=None):
     """Phase 20: ``train/elastic.py: run_elastic`` on the card
     (``ELASTIC``): tensor_col on 8 ranks, host3 lost at step 12,
     re-planned over the 6 survivors onto the phantom plan the CPU
@@ -6917,6 +6943,7 @@ def phase_elastic():
     with observed({"run": "chip_smoke.elastic"}) as (tracer, reg):
         res = run_elastic(cfg, fault_script=FaultScript(kills=ELASTIC_KILLS),
                           device="cuda", ledger=ledger, watchdog=wd,
+                          pools=pools,
                           log_fn=lambda m: print(f"elastic (b): {m}",
                                                  flush=True))
     wall = time.perf_counter() - t0
@@ -6931,6 +6958,8 @@ def phase_elastic():
     rec = {k: res.recoveries[0][k] for k in ELASTIC_RECOVERY}
     check(rec == ELASTIC_RECOVERY,
           f"elastic (b): recovery {rec}, predicted {ELASTIC_RECOVERY}")
+    check(res.recoveries[0]["audit_ok"] is True,
+          f"elastic (b): the re-plan's audit: {res.recoveries[0]}")
     want_bytes, at, phase_losses = 0, 0, []
     for ph in res.phases:
         (dp, tp, pp), k = ph["mesh"], ph["k"]
@@ -6972,12 +7001,16 @@ def phase_elastic():
     for ph, losses in zip(res.phases, phase_losses):
         print(f"elastic (b): {ph['plan']}: steps {ph['start_step']}.."
               f"{ph['start_step'] + ph['steps'] - 1}, compile_s "
-              f"{ph['compile_s']:.2f} (spawn, build, warm-up), wall_s "
+              f"{ph['compile_s']:.2f} ("
+              + ("the initial plan and its audit, "
+                 if not ph["restart"] else "")
+              + "build, warm-up), wall_s "
               f"{ph['wall_s']:.2f}, checkpoint write s {ph['ckpt_io_s']:.3f}"
               f"; losses (finite, falling: held) "
               f"{[round(v, 5) for v in losses]}", flush=True)
     print(f"elastic (b): restore_s {r['restore_s']:.2f} (load, distil), "
-          f"replan_s {r['replan_s']:.4f}; the run took {wall:.1f} s",
+          f"replan_s {r['replan_s']:.4f} (the re-plan and its audit, a "
+          f"new world's start); the run took {wall:.1f} s",
           flush=True)
     return {"result": res.as_dict(), "losses": phase_losses, "obs": obs,
             "wall_s": wall}
@@ -7120,7 +7153,7 @@ def _plan_rank(axes, device, cfg, args):
     return out
 
 
-def _plan_pilots(pool, device):
+def _plan_pilots(pool, device, pools):
     """``launch/plan.py: plan`` at the CLI's defaults but
     ``PLAN_PILOT_STEPS`` and ``PLAN_TARGET``, its pilots on ``device``
     (``pool``'s ranks), under the launcher's ``obs_session`` with
@@ -7136,7 +7169,7 @@ def _plan_pilots(pool, device):
     with obs_session(args.trace_out, args.metrics_out,
                      meta={"run": "chip_smoke.plan"}):
         iso = plan_cli.pilots(args, pool=pool)
-        report = plan_cli.plan(args, iso=iso)
+        report = plan_cli.plan(args, iso=iso, pools=pools)
     return report, iso
 
 
@@ -7176,17 +7209,19 @@ def _plan_obs_held(iso, world):
     return out
 
 
-def phase_plan(pool=None, device="cuda"):
+def phase_plan(pool, device, pools):
     """Phase 21: the planner (``launch/plan.py``) on the card, then its
     winner applied through ``launch/train.py: _apply_plan`` to
     phi3-mini.  (a) The plan: the pilots on ``pool`` (4 ranks sharing
-    the card); held: the report's schema, every pilot its budget with
+    the card), each frontier plan audited on ``pools``' world of its
+    size (``analysis/units.py: RankPools``); held: every frontier plan
+    audited, 0 rejected, the report's schema, every pilot its budget with
     finite, falling losses, a phantom curve, matched plans, a frontier
     and a winner.  (b) The winner's measured peak, the largest rank's
     (``measured_hbm_bytes``, here from ``hbm_readings`` for each rank's
     breakdown), held above 0 and below 80 GB, printed beside its
     estimate.  (c) The winner applied with ``--kernel-backend auto`` on
-    its own mesh: held, the applied mesh and projection map are the
+    its own mesh (the world its audit ran on): held, the applied mesh and projection map are the
     winner's, the four kernels at that path's per-rank shapes in bf16
     match their plain versions (timed), step 1 through the kernels
     matches plain torch (phase 9's tolerances), every kernel launched as
@@ -7195,14 +7230,13 @@ def phase_plan(pool=None, device="cuda"):
     import torch
     from repro_torch.configs.base import (PHANTOM_KINDS, ProjectionMap,
                                           ProjectionSpec)
-    from repro_torch.launch.mesh import RankPool
     from repro_torch.launch.train import build_parser, train_config
     from repro_torch.planner import (PLAN_SCHEMA, PlanCandidate,
                                      hbm_readings, load_plan_report)
     _free()
     PLAN_REPORT.unlink(missing_ok=True)
     t0 = time.perf_counter()
-    report, iso = _plan_pilots(pool, device)
+    report, iso = _plan_pilots(pool, device, pools)
     plan_s = time.perf_counter() - t0
     obs = _plan_obs_held(iso, report["iso_loss"]["pilot_tp"])
     check(load_plan_report(str(PLAN_REPORT))["schema"] == PLAN_SCHEMA
@@ -7220,6 +7254,15 @@ def phase_plan(pool=None, device="cuda"):
               flush=True)
     curve = report["iso_loss"]["curves"].get("phantom")
     check(curve is not None, "plan (a): no phantom curve was fitted")
+    audit = report.get("audit") or {}
+    frontier = {s["plan"]["name"] for s in report["frontier"]}
+    check(frontier and frontier <= set(audit)
+          and all(r["ok"] for r in audit.values()),
+          f"plan (a): the frontier's audit (every plan audited, 0 "
+          f"rejected) {audit}")
+    print(f"plan (a): audit of {len(audit)} frontier plans on the card, 0 "
+          f"rejected (held): { {n: r['counts'] for n, r in audit.items()} }",
+          flush=True)
     comp = report["comparison"]
     check(comp["matched_plans"] > 0, f"plan (a): no matched plan: {comp}")
     check(report["frontier"] and report["winner"],
@@ -7242,57 +7285,49 @@ def phase_plan(pool=None, device="cuda"):
                          depth=wp["depth"], batch=wp["batch"], k=wp["k"],
                          site=wp["site"], microbatches=wp["microbatches"],
                          variant=spec["variant"])
-    world = plan.devices
-    own = (None if pool is not None and pool.world == world
-           else RankPool(plan.dp, plan.tp, device, pp=plan.pp,
-                         timeout_s=POOL_TIMEOUT_S))
-    ranks_pool = own or pool
-    try:
-        t1 = time.perf_counter()
-        readings = hbm_readings(plan, device, pool=ranks_pool)
-        hbm_s = time.perf_counter() - t1
-        hbm = None if readings is None else max(r["peak"] for r in readings)
-        check(hbm is not None and 0 < hbm < HBM_LIMIT,
-              f"plan (b): measured HBM {hbm} B of {wp['name']}")
-        print(f"plan (b): {wp['name']}: measured peak {hbm:,} B (the "
-              f"largest rank's max_memory_allocated over one train step, "
-              f"from what the rank held on entry), estimate "
-              f"{w['hbm_bytes_per_device']!r} B, ratio "
-              f"{hbm / w['hbm_bytes_per_device']:.3f}; each rank's bytes "
-              f"after one small matmul (library), after the draw of "
-              f"parameters and AdamW state (state), the step's peak and "
-              f"after it (retained): {readings}; {hbm_s:.1f} s", flush=True)
+    ranks_pool = pools.get(plan.devices)     # the world its audit ran on
+    t1 = time.perf_counter()
+    readings = hbm_readings(plan, device, pool=ranks_pool)
+    hbm_s = time.perf_counter() - t1
+    hbm = None if readings is None else max(r["peak"] for r in readings)
+    check(hbm is not None and 0 < hbm < HBM_LIMIT,
+          f"plan (b): measured HBM {hbm} B of {wp['name']}")
+    print(f"plan (b): {wp['name']}: measured peak {hbm:,} B (the "
+          f"largest rank's max_memory_allocated over one train step, "
+          f"from what the rank held on entry), estimate "
+          f"{w['hbm_bytes_per_device']!r} B, ratio "
+          f"{hbm / w['hbm_bytes_per_device']:.3f}; each rank's bytes "
+          f"after one small matmul (library), after the draw of "
+          f"parameters and AdamW state (state), the step's peak and "
+          f"after it (retained): {readings}; {hbm_s:.1f} s", flush=True)
 
-        args = build_parser().parse_args(
-            ["--arch", LM_ARCH, "--full", "--kernel-backend", "auto",
-             "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--seed",
-             str(SEED), "--steps", str(LM_STEPS), "--dp", "2", "--tp", "4",
-             "--plan", str(PLAN_REPORT)])
-        cfg = train_config(args)
-        mesh = (args.dp, args.tp, args.pp)
-        check(mesh == (plan.dp, plan.tp, plan.pp),
-              f"plan (c): applied mesh {mesh}, winner's "
-              f"{(plan.dp, plan.tp, plan.pp)}")
-        want_spec = (ProjectionSpec(kind=spec["kind"], k=spec["k"],
-                                    variant=spec["variant"],
-                                    kernel_backend="auto")
-                     if spec["kind"] in PHANTOM_KINDS
-                     else ProjectionSpec(kind="tensor",
-                                         kernel_backend="auto"))
-        check(cfg.projections == ProjectionMap(default=want_spec),
-              f"plan (c): applied map {cfg.projections}, want "
-              f"{want_spec} as its default and nothing else")
-        flash_shape, phantom_shapes = _plan_shapes(cfg, plan)
-        kernels = _timed_kernels(
-            "plan (c)", torch.Generator(device="cuda").manual_seed(SEED),
-            (flash_shape,), phantom_shapes)
-        t1 = time.perf_counter()
-        ranks = ranks_pool.run(_plan_rank, plan.dp, plan.tp, (cfg, args),
-                               pp=plan.pp, timeout_s=900)
-        ranks_s = time.perf_counter() - t1
-    finally:
-        if own is not None:
-            own.close()
+    args = build_parser().parse_args(
+        ["--arch", LM_ARCH, "--full", "--kernel-backend", "auto",
+         "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--seed",
+         str(SEED), "--steps", str(LM_STEPS), "--dp", "2", "--tp", "4",
+         "--plan", str(PLAN_REPORT)])
+    cfg = train_config(args)
+    mesh = (args.dp, args.tp, args.pp)
+    check(mesh == (plan.dp, plan.tp, plan.pp),
+          f"plan (c): applied mesh {mesh}, winner's "
+          f"{(plan.dp, plan.tp, plan.pp)}")
+    want_spec = (ProjectionSpec(kind=spec["kind"], k=spec["k"],
+                                variant=spec["variant"],
+                                kernel_backend="auto")
+                 if spec["kind"] in PHANTOM_KINDS
+                 else ProjectionSpec(kind="tensor",
+                                     kernel_backend="auto"))
+    check(cfg.projections == ProjectionMap(default=want_spec),
+          f"plan (c): applied map {cfg.projections}, want "
+          f"{want_spec} as its default and nothing else")
+    flash_shape, phantom_shapes = _plan_shapes(cfg, plan)
+    kernels = _timed_kernels(
+        "plan (c)", torch.Generator(device="cuda").manual_seed(SEED),
+        (flash_shape,), phantom_shapes)
+    t1 = time.perf_counter()
+    ranks = ranks_pool.run(_plan_rank, plan.dp, plan.tp, (cfg, args),
+                           pp=plan.pp, timeout_s=900)
+    ranks_s = time.perf_counter() - t1
     want_a = {"kernel": _plan_launches(cfg, LM_PARITY_LAYERS),
               "plain": {k: 0 for k in _plan_launches(cfg, 0)}}
     want = _plan_launches(cfg, LM_TP_LAYERS)
@@ -7357,6 +7392,217 @@ def phase_plan(pool=None, device="cuda"):
             "worst": worst, "median_step_ms": med,
             "losses": main[0]["losses"], "ranks_s": ranks_s}
 
+# phase 22: the audit (analysis/) and the dry run (launch/dryrun.py).  (a)
+# the reference's 9 audit units, their names; (b) phase 9's cut of
+# phi3-mini (full width, LM_TP_LAYERS layers, dp 1 x tp 4, batch LM_BATCH
+# x seq LM_SEQ, bf16, the kernels) dry against executed, with these
+# tolerances; (c) the reference's default production cell
+AUDIT_UNITS = ["ffn_train/audit-ffn-tensor/dp1tp8",
+               "ffn_train/audit-ffn-phantom/dp1tp8",
+               "ffn_train/audit-ffn-phantom/dp2tp4",
+               "kernel/audit-ffn-pallas/dp1tp8",
+               "pipeline/audit-ffn-pipe/pp2dp2tp2",
+               "serve_prefill/qwen2.5-14b-tensor-mesh1x4-slots4",
+               "serve_decode/qwen2.5-14b-tensor-mesh1x4-slots4",
+               "serve_prefill/qwen2.5-14b-phantom-mesh1x4-slots4",
+               "serve_decode/qwen2.5-14b-phantom-mesh1x4-slots4"]
+DRY_FLOPS_RTOL, DRY_PEAK_RTOL = 0.01, 0.25
+DRY_CELL = ("qwen2.5-14b", "train_4k", "phantom")
+DRY_CELL_TIMEOUT_S = 900
+AUDIT_REPORT = ROOT / "build" / "chip_smoke_audit.json"
+DRY_RECORD = ROOT / "build" / "chip_smoke_dryrun.json"
+
+
+def _audit_step_rank(axes, device, cfg):
+    """``phase_audit`` (b) in one rank: one train step of ``cfg`` (the
+    launcher's trainer step: ``make_train_step`` with AdamW) on this
+    rank's rows of ``LMDataset``'s batch after a warm-up step, counted
+    (``count_step``): the flops, the wire bytes and collectives, the
+    kernels' launches, and the growth of ``max_memory_allocated`` over
+    the step from what the rank held before it."""
+    import torch
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.models.model import model_decls
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel.params import materialize_shards
+    from repro_torch.telemetry.counted import count_step
+    from repro_torch.train.trainer import local_rows, make_train_step
+    opt = make_optimizer(cfg.optimizer, 3e-4, weight_decay=0.1)
+    step_fn, _, _ = make_train_step(cfg, axes, opt, device=device)
+    params = materialize_shards(model_decls(cfg, axes), axes, SEED, device,
+                                draw_on=device)
+    state = opt.init(params)
+    batch = local_rows(LMDataset(cfg.vocab_size, LM_BATCH, LM_SEQ + 1,
+                                 device=device)(0), axes)
+    params, state, _ = step_fn(params, state, 0, batch)      # warm-up
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    _kernel_counts(reset=True)
+    costs, _ = count_step(step_fn, params, state, 1, batch, device=device)
+    launches = _kernel_counts()
+    out = {"flops": costs.flops, "wire": costs.collective_wire_bytes,
+           "collectives": {k: (r["count"], r["m_floats"])
+                           for k, r in costs.collectives.items()},
+           "growth": torch.cuda.max_memory_allocated() - before,
+           "held": before, "launches": launches}
+    del params, state, batch
+    _free()
+    return out
+
+
+def dry_cell():
+    """Start (c)'s production cell, ``python -m repro_torch.launch.dryrun``
+    at ``DRY_CELL``, in a process of its own (host work on the meta
+    device, one thread), so that it runs beside (a) and (b), which time
+    nothing that the script reports as a measurement."""
+    arch, shape, impl = DRY_CELL
+    DRY_RECORD.unlink(missing_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(
+                   [str(ROOT / "src")]
+                   + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--impl", impl, "--out", str(DRY_RECORD)],
+        cwd=str(ROOT), env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def _stopped(proc):
+    """``proc`` killed if it still runs (a check failed, or a timeout)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
+def phase_audit(pool, device, pools):
+    """Phase 22: the audit and the dry run on the card.  (a)
+    ``analysis: run_audit`` over ``build_default_units`` (the FFN, kernel
+    and pipeline units on ``pools``' 8 ranks sharing the card, the
+    serving units on its 4, ``pool``) with the source lint and the
+    port's baseline: held, the reference's 9 unit names, 0 errors, the
+    kernel unit's phantom-kernel launches above 0; printed, every finding
+    and the report (``AUDIT_REPORT``).  (b) ``launch/dryrun.py:
+    dry_step`` of phase 9's cut (phi3-mini, full width, ``LM_TP_LAYERS``
+    layers, dp 1 x tp 4, batch ``LM_BATCH`` x seq ``LM_SEQ``, bf16, the
+    kernels) on meta against one executed train step on ``pool``'s ranks
+    after a warm-up step: held, rank 0's flops within
+    ``DRY_FLOPS_RTOL`` (the kernels counted by their operators' formulas
+    on both sides), its wire bytes and collectives equal to the byte,
+    the dry peak of live bytes within ``DRY_PEAK_RTOL`` of the step's
+    growth of ``max_memory_allocated``; the three ratios printed.  (c)
+    the reference's default production cell (``DRY_CELL``, 16 x 16, full
+    depth, on meta) in a process of its own (``dry_cell``), started
+    first, so that it runs beside (a) and (b): its record and wall time
+    printed (``DRY_RECORD``).  ``pools`` (``analysis/units.py:
+    RankPools``) are ``main``'s worlds, which phases 17, 20 and 21
+    started."""
+    from repro_torch.analysis import load_baseline, run_audit
+    from repro_torch.analysis.units import build_default_units
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.audit import DEFAULT_BASELINE
+    from repro_torch.launch.train import train_config
+    _free()
+    cell = dry_cell()
+    try:
+        t0 = time.perf_counter()
+        units = build_default_units(pools, device=device)
+        units_s = time.perf_counter() - t0
+        res = run_audit(units, baseline=load_baseline(DEFAULT_BASELINE),
+                        source_root=str(ROOT))
+        res.write(str(AUDIT_REPORT))
+        for line in res.summary_lines():
+            print(f"audit (a): {line}", flush=True)
+        names = [u.name for u in units]
+        check(names == AUDIT_UNITS, f"audit (a): units {names}")
+        check(res.ok and res.counts["error"] == 0,
+              f"audit (a): {res.counts['error']} errors")
+        kunit = units[3]
+        launches = {k: kunit.meta[f"launches_{k}"] for k in
+                    ("phantom_fused_matmul", "matmul_nt", "matmul_tn")}
+        check(all(n > 0 for n in launches.values()),
+              f"audit (a): the kernel unit's launches {launches}")
+        plans = [(p["product"], p["kernel"], p["smem_bytes"])
+                 for p in kunit.meta["kernel_plans"]]
+        print(f"audit (a): {len(units)} units on the card in {units_s:.1f} s "
+              f"(held: the reference's names, 0 errors); counts {res.counts}; "
+              f"the kernel unit's phantom-kernel launches on rank 0 "
+              f"{launches} (held > 0), its plans "
+              f"{plans}"
+              f"; the report {AUDIT_REPORT}", flush=True)
+
+        cfg = train_config(_lm_args([])).replace(num_layers=LM_TP_LAYERS)
+        t1 = time.perf_counter()
+        ranks = _run_ranks(pool, _audit_step_rank, 1, LM_TP, device,
+                           args=(cfg,), timeout_s=600)
+        exec_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        dry = dryrun.dry_step(cfg, "train", LM_BATCH, LM_SEQ, 1, LM_TP)
+        dry_s = time.perf_counter() - t1
+        r0 = ranks[0]
+        ratios = {"flops": dry["flops_per_device"] / r0["flops"],
+                  "wire": dry["collective_wire_bytes_per_device"] / r0["wire"],
+                  "peak": dry["memory"]["temp_bytes"] / r0["growth"]}
+        check(abs(ratios["flops"] - 1) <= DRY_FLOPS_RTOL,
+              f"audit (b): dry flops {dry['flops_per_device']!r} against "
+              f"the executed {r0['flops']!r}")
+        check(dry["collective_wire_bytes_per_device"] == r0["wire"]
+              and {k: (r["count"], r["m_floats"])
+                   for k, r in dry["collectives"].items()}
+              == r0["collectives"],
+              f"audit (b): dry wire {dry['collectives']} against the "
+              f"executed {r0['collectives']}")
+        check(abs(ratios["peak"] - 1) <= DRY_PEAK_RTOL,
+              f"audit (b): dry peak {dry['memory']['temp_bytes']} B against "
+              f"the step's growth {r0['growth']} B")
+        print(f"audit (b): {cfg.name} at {LM_TP_LAYERS} layers, dp 1 x tp "
+              f"{LM_TP}, batch {LM_BATCH} x seq {LM_SEQ}, bf16, kernels: dry "
+              f"over executed (rank 0): flops {ratios['flops']!r} (held to "
+              f"{DRY_FLOPS_RTOL}; {dry['flops_per_device']!r} against "
+              f"{r0['flops']!r}, the kernels by their operators' formulas "
+              f"on both sides), wire {ratios['wire']!r} (held "
+              f"exact: {int(r0['wire']):,} B), peak {ratios['peak']!r} (held "
+              f"to {DRY_PEAK_RTOL}; {dry['memory']['temp_bytes']:,} B live "
+              f"against the step's growth {r0['growth']:,} B, "
+              f"{r0['held']:,} B held before it); the executed step's "
+              f"launches {r0['launches']}; ranks {exec_s:.1f} s, dry "
+              f"{dry_s:.1f} s (walls beside (c))",
+              flush=True)
+
+        log, _ = cell.communicate(timeout=DRY_CELL_TIMEOUT_S)
+    finally:
+        _stopped(cell)
+    arch, shape, impl = DRY_CELL
+    check(cell.returncode == 0, f"audit (c): the dry run of {DRY_CELL} "
+                                f"exited {cell.returncode}: {log[-3000:]}")
+    rec = json.loads(DRY_RECORD.read_text())
+    cell_s = rec["timings"]["wall_s"]
+    check(rec["flops_per_device"] > 0
+          and rec["collective_wire_bytes_per_device"] > 0,
+          f"audit (c): {arch} {shape}: {rec}")
+    print(f"audit (c): {arch} --shape {shape} --impl {impl} on "
+          f"{rec['mesh']} ({rec['devices']} devices), rank 0 on meta in "
+          f"{cell_s:.1f} s of its own process (beside (a) and (b); its "
+          f"timings {rec['timings']}): flops "
+          f"{rec['flops_per_device']:.6e}, HBM bytes (eager, unfused) "
+          f"{rec['hbm_bytes_per_device']:.6e}, wire "
+          f"{rec['collective_wire_bytes_per_device']:.6e} B, memory "
+          f"{rec['memory']}, roofline {rec['roofline']}, useful flops "
+          f"{rec['useful_flops_ratio']:.4f}; the record {DRY_RECORD}",
+          flush=True)
+    return {"counts": res.counts, "units": names, "units_s": units_s,
+            "findings": [f.as_dict() for f in res.findings],
+            "kernel_unit": {"launches": launches,
+                            "plans": kunit.meta["kernel_plans"]},
+            "dry_vs_executed": {"ratios": ratios,
+                                "dry": {k: dry[k] for k in (
+                                    "flops_per_device",
+                                    "collective_wire_bytes_per_device",
+                                    "memory", "timings")},
+                                "executed": ranks, "exec_s": exec_s,
+                                "dry_s": dry_s},
+            "cell": rec}
+
 
 def _plan_entry(plan, name):
     """A kernel on phase 21's main path (the applied winner): its
@@ -7413,8 +7659,11 @@ def main() -> int:
     lm = timed("lm_train", phase_lm_train)
     # one world of 4 ranks runs every 4-rank phase in turn, each freeing
     # its card memory before the next: a rank starts in about 10 s
+    from repro_torch.analysis.units import RankPools
     from repro_torch.launch.mesh import RankPool
-    with RankPool(1, LM_TP, "cuda", timeout_s=POOL_TIMEOUT_S) as pool:
+    with RankPool(1, LM_TP, "cuda", timeout_s=POOL_TIMEOUT_S) as pool, \
+            RankPools("cuda", given=(pool,),
+                      timeout_s=POOL_TIMEOUT_S) as pools:
         lm_tp = timed("lm_train_tp", phase_lm_train_tp, pool)
         qwen = timed("qwen_train_tp", phase_qwen_train_tp, pool)
         lm_pp = timed("lm_train_pp", phase_lm_train_pp, pool)
@@ -7423,11 +7672,12 @@ def main() -> int:
         hybrid = timed("hybrid", phase_hybrid, pool)
         vlm = timed("vlm", phase_vlm, pool)
         encdec = timed("encdec", phase_encdec, pool)
-        serve_mesh = timed("serve_mesh", phase_serve_mesh, pool)
+        serve_mesh = timed("serve_mesh", phase_serve_mesh, pool, pools)
         family_mesh = timed("family_mesh", phase_family_mesh, pool)
         fleet = timed("fleet", phase_fleet, "cuda", None, pool)
-        elastic = timed("elastic", phase_elastic)
-        plan = timed("plan", phase_plan, pool)
+        elastic = timed("elastic", phase_elastic, pools)
+        plan = timed("plan", phase_plan, pool, "cuda", pools)
+        audit = timed("audit", phase_audit, pool, "cuda", pools)
     print(f"phases: {time.perf_counter() - t_start:.1f} s wall in all",
           flush=True)
     path = ledger.write_report(ROOT / "build" / "chip_smoke_ledger.json")
@@ -7668,6 +7918,7 @@ def main() -> int:
          "hybrid": hybrid, "vlm": vlm, "encdec": encdec,
          "serve_mesh": serve_mesh, "family_mesh": family_mesh,
          "fleet": fleet, "elastic": elastic, "plan": plan,
+         "audit": audit,
          "phase_wall_s": walls,
          "ledger": ledger,
          "kernels": kernels}, indent=1))

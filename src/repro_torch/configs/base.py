@@ -170,6 +170,25 @@ def phantom_projection_map(k: int, *, variant: str = "fused",
     return ProjectionMap(**entries)
 
 
+def with_phantom_overrides(cfg: "ModelConfig", **kw) -> "ModelConfig":
+    """Apply ``PhantomConfig``-style overrides (``k``, ``variant``,
+    ``include_self_term``, ``kernel_backend``) to the legacy phantom
+    sub-config AND to every phantom-family entry of the explicit
+    ``ProjectionMap``: the dry run's ``--variant`` / ``--set phantom.k=``
+    path (``launch/dryrun.py: make_cfg``)."""
+    spec_kw = {key: v for key, v in kw.items()
+               if key in ("k", "variant", "include_self_term",
+                          "kernel_backend")}
+    entries = {}
+    for f in dataclasses.fields(ProjectionMap):
+        spec = getattr(cfg.projections, f.name)
+        if spec is not None and spec.kind in PHANTOM_KINDS and spec_kw:
+            spec = dataclasses.replace(spec, **spec_kw)
+        entries[f.name] = spec
+    return cfg.replace(phantom=dataclasses.replace(cfg.phantom, **kw),
+                       projections=ProjectionMap(**entries))
+
+
 def with_kernel_backend(cfg: "ModelConfig",
                         backend: str) -> "ModelConfig":
     """Config with ``kernel_backend`` set on every explicit projection
@@ -348,6 +367,20 @@ def applicable_shapes(cfg: ModelConfig) -> list:
         names.append("long_500k")
     return names
 
+
+# the LM architectures, in the reference's order: the dry run's ``--all``
+ARCH_IDS = [
+    "granite-moe-3b-a800m",
+    "olmoe-1b-7b",
+    "seamless-m4t-large-v2",
+    "chatglm3-6b",
+    "qwen2.5-14b",
+    "stablelm-3b",
+    "phi3-mini-3.8b",
+    "mamba2-370m",
+    "qwen2-vl-72b",
+    "jamba-1.5-large-398b",
+]
 
 # the architectures of the port (``--arch``): every one of the reference's
 _MODULES = {

@@ -143,6 +143,19 @@ def phantom_costs(n: int, p: int, L: int, k: int, batch: int,
     return costs_from_strategies([st], p, L, batch, peak_flops, fits)
 
 
+def pp_costs(n: int, p: int, L: int, k: int, batch: int,
+             peak_flops: float = H100_PEAK_FLOPS_FP32, fits=None):
+    """DEPRECATED alias of ``phantom_costs``.  "pp" once meant
+    *phantom*-parallel; since the pipeline-parallel (pp) mesh axis the
+    name collides, so the phantom cost model is ``phantom_costs`` and
+    this shim warns (``analysis/lint.py`` flags its callers)."""
+    import warnings
+    warnings.warn("pp_costs is deprecated (pp now means PIPELINE "
+                  "parallelism); use phantom_costs", DeprecationWarning,
+                  stacklevel=2)
+    return phantom_costs(n, p, L, k, batch, peak_flops, fits)
+
+
 def pipeline_p2p_time_us(schedule, m_floats: float, fits=None, *,
                          executed: bool = False) -> float:
     """Per-device microseconds of stage-boundary p2p traffic for one

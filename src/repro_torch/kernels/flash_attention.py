@@ -18,6 +18,7 @@ import ctypes
 import functools
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import flash_attention_ref
@@ -120,3 +121,31 @@ def flash_attention(q, k, v, *, causal: bool = True):
 
 
 flash_attention.launches = 0
+
+
+# --- the kernel as a dispatcher operator ------------------------------------
+# ``kernels/ops.py: flash_attention_vjp`` calls it: its CUDA implementation
+# is the kernel, its CPU one the plain version (both through the wrapper),
+# its fake one gives a meta tensor its shape (the dry run,
+# ``launch/dryrun.py``), and ``FlopCounterMode`` counts it on every device.
+
+@torch.library.custom_op(
+    "repro_torch::flash_attention", mutates_args=(),
+    device_types=("cpu", "cuda"),
+    schema="(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor")
+def _flash_attention_op(q, k, v, causal):
+    return flash_attention(q, k, v, causal=causal)
+
+
+@_flash_attention_op.register_fake
+def _(q, k, v, causal):
+    return q.new_empty(q.shape)
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q, k, v, causal, *args, out_shape=None, **kw):
+    """4·B·H·S·S_kv·hd: the scores and the weighted values, causal or
+    not, as torch counts ``scaled_dot_product_attention`` (and as the
+    plain version's two products come to)."""
+    B, S, H, hd = q
+    return 4 * B * H * S * k[1] * hd

@@ -18,7 +18,8 @@ tensor.
 
 ``flash_attention_vjp`` is the attention core the model calls, the
 counterpart of the reference's ``custom_vjp``: its forward is the flash
-kernel (the plain version on a CPU tensor), its backward autograd
+kernel (the plain version on a CPU tensor) through its dispatcher
+operator, so ``FlopCounterMode`` counts it, its backward autograd
 through the plain version ``kernels/ref.py: flash_attention_ref``, as the
 reference's backward is ``jax.vjp`` of its dense oracle.  A fused
 backward kernel would go beyond the reference.
@@ -58,7 +59,7 @@ class _FlashAttention(torch.autograd.Function):
     def forward(ctx, q, k, v, causal):
         ctx.causal = causal
         ctx.save_for_backward(q, k, v)
-        return flash_attention(q, k, v, causal=causal)
+        return torch.ops.repro_torch.flash_attention(q, k, v, causal)
 
     @staticmethod
     def backward(ctx, do):
@@ -75,7 +76,10 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_vjp(q, k, v, *, causal: bool = True):
     """``flash_attention`` forward with a differentiable backward (autograd
     through the plain version): what the attention core calls, so that a
-    gradient never reaches the kernel's wrapper, which has none."""
+    gradient never reaches the kernel's wrapper, which has none.  The
+    forward goes through the kernel's dispatcher operator
+    (``torch.ops.repro_torch.flash_attention``), so ``FlopCounterMode``
+    counts it and a meta tensor gets its shape."""
     return _FlashAttention.apply(q, k, v, bool(causal))
 
 

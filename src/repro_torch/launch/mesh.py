@@ -169,6 +169,7 @@ class RankPool:
                                          self._jobs[r], self._results))
                        for r in range(self.world)]
         self._count = 0
+        self._closed = False
         self.rank_metrics: List[list] = []
         try:
             for p in self._procs:
@@ -220,9 +221,16 @@ class RankPool:
         obs_ranks.merge(seen)
         return [out[r][0] for r in range(self.world)]
 
+    @property
+    def alive(self) -> bool:
+        """Whether the pool can take a job: not closed, no rank gone (a
+        failed job kills every rank)."""
+        return not self._closed and all(p.is_alive() for p in self._procs)
+
     def close(self, kill: bool = False, timeout_s: float = 60.0):
         """Stop the ranks (``kill``: at once) and remove the pool's
         files."""
+        self._closed = True
         if not kill:
             for q in self._jobs:
                 q.put(None)

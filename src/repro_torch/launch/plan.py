@@ -20,9 +20,12 @@ raises: the repo root holds the JAX package's report).
 ``--compiled-hbm-check`` runs one train step of each frontier plan on
 its ranks and drops a plan whose measured peak card memory exceeds the
 budget (``planner/constraints.py: measured_hbm_bytes``; on the CPU it
-measures nothing and keeps every plan).  The frontier's static audit is
-not ported (ROADMAP.md queue 1, item 8 part 4); ``--no-audit`` is
-accepted.  ``python -m repro_torch.launch.train --plan PATH`` applies
+measures nothing and keeps every plan).  The frontier is audited
+(``analysis/engine.py: audit_plans``: one probe step of each plan on
+ranks of its mesh, on ``--device``, its collectives held to its priced
+account): a plan with an active error is dropped and the frontier
+recomputed, the report carries an ``audit`` block, and ``--no-audit``
+skips it.  ``python -m repro_torch.launch.train --plan PATH`` applies
 the winner, and ``python -m repro_torch.launch.serve --calibration
 PATH`` prices its routes with the report's calibration.
 ``--trace-out`` / ``--metrics-out`` write the pass's trace (the
@@ -41,7 +44,6 @@ from repro_torch.planner.constraints import DEFAULT_HBM_BYTES
 from repro_torch.planner.report import DEFAULT_REPORT
 
 DEFAULT_OUT = str(DEFAULT_REPORT)
-AUDIT_TODO = "ROADMAP.md queue 1, item 8 part 4"
 
 
 def build_parser():
@@ -85,11 +87,10 @@ def build_parser():
                     help="verify the frontier's HBM fit against the peak "
                          "card memory of one train step of each plan")
     ap.add_argument("--no-audit", dest="audit", action="store_false",
-                    help=f"accepted; the static audit of the frontier is "
-                         f"not ported ({AUDIT_TODO})")
+                    help="skip the audit of the frontier plans")
     ap.add_argument("--device", default=None,
-                    help="where the pilots and the HBM check run: cuda "
-                         "(default) or cpu")
+                    help="where the pilots, the HBM check and the audit "
+                         "run: cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=DEFAULT_OUT)
     add_obs_args(ap)
@@ -117,13 +118,16 @@ def pilots(args, ledger=None, pool=None):
                           ledger=ledger, device=args.device, pool=pool)
 
 
-def plan(args, ledger=None, calib_rows=None, iso=None) -> dict:
+def plan(args, ledger=None, calib_rows=None, iso=None, pools=None) -> dict:
     """Run the full planning pass; returns the report dict (also
     written to ``args.out``).  ``ledger`` optionally receives the pilot
     and frontier rows; ``calib_rows`` calibrates from already-loaded
     ledger rows instead of the ``--ledger`` file; ``iso``, the
     ``IsoLossResult`` of ``pilots(args)`` when the caller ran them,
-    takes the place of the pilot phase."""
+    takes the place of the pilot phase; ``pools``, the caller's
+    ``analysis/units.py: RankPools`` (left open), runs the audit of the
+    frontier plans (else the pass's own, one world per size, closed when
+    the audit ends)."""
     import os
 
     from repro_torch.launch.serve import refuse_repo_root
@@ -235,8 +239,36 @@ def plan(args, ledger=None, calib_rows=None, iso=None) -> dict:
                 scored_kept.remove(s)
             frontier = make_frontier(scored_kept)
 
+    # the audit of the frontier: one probe step of each plan, its
+    # collectives held to its priced account; a rejected plan is dropped
+    # and the frontier recomputed, so that newly exposed plans are
+    # audited too
+    audit_results = {}
     if args.audit:
-        print(f"# audit: not ported ({AUDIT_TODO})")
+        from repro_torch.analysis import audit_plans
+        from repro_torch.analysis.units import caller_or_own
+        with caller_or_own(pools, args.device) as pools:
+            while True:
+                todo = [s for s in frontier
+                        if s.plan.name not in audit_results]
+                if todo:
+                    audit_results.update(audit_plans(
+                        [s.plan for s in todo], pools=pools,
+                        device=args.device))
+                bad = [s for s in frontier
+                       if not audit_results[s.plan.name]["ok"]]
+                if not bad:
+                    break
+                for s in bad:
+                    errs = audit_results[s.plan.name]["errors"]
+                    thr_rejected.append(
+                        (s, f"static audit: {len(errs)} error(s), first: "
+                            f"{errs[0] if errs else 'did not run'}"))
+                    scored_kept.remove(s)
+                frontier = make_frontier(scored_kept)
+        n_bad = sum(1 for r in audit_results.values() if not r["ok"])
+        print(f"# audit: {len(audit_results)} frontier plans checked, "
+              f"{n_bad} rejected")
 
     comparison = matched_loss_comparison(scored_kept, args.devices)
     if iso is not None and not comparison.get("matched_plans"):
@@ -253,6 +285,8 @@ def plan(args, ledger=None, calib_rows=None, iso=None) -> dict:
         throughput_rejected=thr_rejected, iso=iso, comparison=comparison,
         meta={"argv": vars(args), "target_loss": args.target_loss,
               "devices": args.devices})
+    if audit_results:
+        report["audit"] = audit_results
     if ledger is not None:
         record_frontier(ledger, frontier, calib)
     write_plan_report(report, args.out)

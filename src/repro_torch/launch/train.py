@@ -66,10 +66,9 @@ the card unless ``--device cpu`` is given; ``--kill-at-step N
     PYTHONPATH=src python -m repro_torch.launch.train --elastic \
         --device cpu --kill-at-step 25
 
-It must survive the loss, restore and reach ``--target-loss``; the exit
-code says whether it did.  The re-plan's static audit gate is off (its
-torch counterpart is ROADMAP.md queue 1, item 8 part 4), and the run
-says so.  The report and its ledger go under ``build/`` (a repo-root
+It must survive the loss, re-plan onto an audited surviving plan
+(``train/elastic.py: solve_plan``), restore and reach
+``--target-loss``; the exit code says whether it did.  The report and its ledger go under ``build/`` (a repo-root
 path raises: the reference's ``BENCH_report.json`` is there).  The run
 is watched by the energy-drift watchdog (``obs/watchdog.py``), which
 prints its ``[obs] watchdog:`` line; ``--slow-step N`` (repeatable)
@@ -105,7 +104,7 @@ top:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke \\
         --device cpu --plan build/PLAN_report.json --tp 2 --steps 2
 
-``--overlap`` (ROADMAP.md queue 1, item 8 part 4) raises.
+``--overlap`` (ROADMAP.md queue 2, item 8) raises.
 """
 from __future__ import annotations
 
@@ -129,7 +128,7 @@ from repro_torch.parallel.axes import MeshAxes, resolve_device
 from repro_torch.train.trainer import Trainer
 
 TIMEOUT_S = 3600.0     # a multi-rank run, before its ranks are killed
-OPERATIONS_TODO = "ROADMAP.md queue 1, item 8"
+OPERATIONS_TODO = "ROADMAP.md queue 2, item 8"
 DEFAULT_ELASTIC_REPORT = "elastic_report.json"     # under build/
 # the families whose batches need more than LMDataset's tokens and labels
 STUBBED_FAMILIES = ("vlm", "encdec")
@@ -235,12 +234,14 @@ def build_parser():
 
 
 def refuse_unported(args):
-    """Raise for a flag of the reference's launcher whose part of
-    ROADMAP.md queue 1 item 8 is not ported."""
+    """Raise for a flag of the reference's launcher that the port does
+    not run yet: ``--overlap``, the reference's XLA overlap flags, whose
+    counterpart is the ghost all-gather's ``async_op`` overlap
+    (ROADMAP.md queue 2, item 8)."""
     if args.overlap is not None:
         raise NotImplementedError(
-            f"--overlap is not ported yet ({OPERATIONS_TODO} part 4: the "
-            f"overlap of queue 2 item 8)")
+            f"--overlap is not ported yet ({OPERATIONS_TODO}: the "
+            f"async_op overlap of the ghost all-gather with x.L)")
 
 
 def _apply_plan(args, cfg):
@@ -258,7 +259,8 @@ def _apply_plan(args, cfg):
     elif args.plan == "auto":
         pargs = plan_cli.build_parser().parse_args(
             ["--devices", str(args.dp * args.tp), "--no-pilots",
-             "--out", path])
+             "--out", path] + (["--device", args.device] if args.device
+                               else []))
         report = plan_cli.plan(pargs)
         print("[plan] no report found: ran a no-pilot planning pass")
     else:
@@ -366,8 +368,6 @@ def run_elastic_cli(args) -> int:
         max_steps=args.steps, checkpoint_every=args.ckpt_every,
         seed=args.seed, slow_steps=tuple(args.slow_step or ()),
         slow_factor=args.slow_factor)
-    print(f"[elastic] static audit gate off: the re-plan audit is not "
-          f"ported ({OPERATIONS_TODO} part 4)", flush=True)
     ledger = Ledger(run="launch.train.elastic", jsonl_path=jsonl)
     profile_dir = args.profile_dir
     if profile_dir is None and cfg.slow_steps:

@@ -295,6 +295,59 @@ class Group:
         return buf.to(like.device)
 
 
+@dataclass(frozen=True)
+class DryGroup(Group):
+    """A group of ``size`` ranks that exchanges nothing: each collective
+    is logged as ``Group`` logs it (the logical collective, this rank's
+    message) and returns an uninitialised tensor of the result's shape
+    on the input's device.  The dry run's (``launch/dryrun.py``): one
+    rank's step on ``torch.device("meta")`` issues the collectives of
+    the production mesh without the mesh."""
+    backend: str = "dry"
+
+    def all_gather(self, t):
+        if self.size > 1:
+            self._issue("all_gather", t, "all_gather")
+        return t.new_empty((self.size,) + tuple(t.shape))
+
+    def reduce_scatter(self, t):
+        if t.shape[0] != self.size:
+            raise ValueError(f"reduce_scatter wants a leading dim of "
+                             f"{self.size}, got {tuple(t.shape)}")
+        if self.size > 1:
+            self._issue("reduce_scatter", t[0], "reduce_scatter")
+        return t.new_empty(tuple(t.shape[1:]))
+
+    def all_reduce(self, t, op: str = "sum"):
+        if self.size > 1:
+            self._issue("all_reduce", t, "all_reduce")
+        return t.new_empty(t.shape)
+
+    def ppermute(self, t, perm):
+        if self.size > 1 and any(s == self.rank for s, _ in perm):
+            self._issue("collective_permute", t, "isend")
+        return t.new_empty(t.shape)
+
+    def all_to_all(self, t, split_dim: int, concat_dim: int):
+        split_dim, concat_dim = split_dim % t.dim(), concat_dim % t.dim()
+        if t.shape[split_dim] % self.size:
+            raise ValueError(f"dim {split_dim} of {tuple(t.shape)} does "
+                             f"not split over {self.size} ranks")
+        if self.size > 1:
+            self._issue("all_to_all", t, "all_to_all")
+        shape = list(t.shape)
+        shape[split_dim] //= self.size
+        shape[concat_dim] *= self.size
+        return t.new_empty(shape)
+
+    def send(self, t, dst: int) -> "Sent":
+        self._issue("collective_permute", t, "isend")
+        return Sent(None, t)
+
+    def recv(self, like, src: int):
+        return like.new_empty(like.shape)
+
+
 @dataclass
 class Sent:
     """A send under way: ``wait()`` ends it.  Holds the buffer being sent
@@ -303,7 +356,8 @@ class Sent:
     buf: torch.Tensor
 
     def wait(self) -> None:
-        self.work.wait()
+        if self.work is not None:
+            self.work.wait()
 
 
 @dataclass(frozen=True)

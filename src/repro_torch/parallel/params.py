@@ -138,6 +138,24 @@ def materialize_shards_in_turn(decls, axes, seed: int, device, cast=None):
     return params
 
 
+def meta_shards(decls, axes):
+    """This rank's shards of a decl tree (``ParamDecl`` leaves, cut as
+    ``shard_params`` cuts them; ``TensorSpec`` leaves, already a rank's,
+    as they are) as tensors on ``torch.device("meta")``: shapes and
+    dtypes, no memory.  Raises where a dim does not split over its
+    axis."""
+    coords = _coords(axes.pp_rank, axes.dp_rank, axes.tp_rank, axes.pp,
+                     axes.dp, axes.tp)
+
+    def one(d):
+        shape = tuple(d.shape)
+        if isinstance(d, ParamDecl):
+            shape = tuple(s.stop - s.start
+                          for s in _block(d.spec, coords, shape))
+        return torch.empty(shape, dtype=d.dtype, device="meta")
+    return tree_map(one, decls)
+
+
 def tree_unflatten(tree, flat, prefix: str = ""):
     """Nested dict shaped like ``tree`` with leaves taken from ``flat``
     (path -> leaf, paths as ``tree_leaves`` names them)."""

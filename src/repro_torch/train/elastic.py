@@ -19,8 +19,10 @@ before they return, and return their losses, step times and saves.
 
 On a detected loss the parent asks the policy, RE-SOLVES dp x tp x k for
 the surviving devices (``solve_plan``: ``enumerate_plans`` -> HBM filter
--> ``score_plans`` -> sorted by total energy; tensor plans pin to the
-whole surviving budget, phantom plans may downsize) and restores the
+-> ``score_plans`` -> sorted by total energy -> the first plan that
+passes the audit, ``analysis/engine.py: audit_plans``; tensor plans pin
+to the whole surviving budget, phantom plans may downsize) and restores
+the
 latest complete checkpoint: a same-class re-plan restores exactly
 (global arrays, cut for the new mesh by the ranks); a class change, the
 paper's downsize from tensor onto a phantom plan on fewer devices,
@@ -30,12 +32,19 @@ optimizer's moments restart at zero.  Every recovery is priced
 (``telemetry/predict.py: recovery_account``) and the run lands in the
 ledger (kind ``elastic``).
 
-``compile_s`` of a phase is the spawn, the step's build and a warm-up
-step on a throwaway copy of the state, so it stays out of the first
-resumed step's time.  The reference's static audit of a re-plan lowers
-HLO and is not ported: ``solve_plan(audit=True)`` raises (ROADMAP.md
-queue 1, item 8 part 4).  The elastic plans run ``kernel_backend="xla"``,
-the plain torch core, as the reference's run XLA's.
+Each phase runs on a ``RankPool`` of its plan's size (``analysis/
+units.py: RankPools``, the run's or the caller's: one world per size).
+With ``audit_replan`` (the default, as in the reference) ``solve_plan``
+audits a candidate with one probe step on the ranks the new phase will
+use, so that recovery starts no extra world.  Where a world starts, its
+seconds are priced: the first phase's ``compile_s`` holds the initial
+plan and its audit (the first world's start) besides the step's build
+and a warm-up step on a throwaway copy of the state; a recovery's
+re-plan, its audit and a new world's start land in its ``replan_s``;
+without the audit a phase's ``compile_s`` holds its world's start.
+Either way it stays out of the first resumed step's time.  The elastic
+plans run ``kernel_backend="xla"``, the plain torch core, as the
+reference's run XLA's.
 
 Observability, as the reference's: the parent's ``elastic/run``,
 ``elastic/plan``, ``elastic/replan`` and ``elastic/restore`` spans, the
@@ -82,7 +91,6 @@ from repro_torch.train.fault import (FaultScript, RestartPolicy,
 from repro_torch.train.trainer import (metered_seconds, rank0_decision,
                                       rank0_value)
 
-AUDIT_TODO = "ROADMAP.md queue 1, item 8 part 4"
 PHASE_TIMEOUT_S = 1800.0     # a phase's ranks, before they are killed
 
 
@@ -94,7 +102,7 @@ PHASE_TIMEOUT_S = 1800.0     # a phase's ranks, before they are killed
 class ElasticConfig:
     """One elastic training run (paper-FFN teacher-matching subject).
     ``hbm_gb`` defaults to the H100's 80 GB (the reference's 16 is a TPU
-    v5e's) and ``audit_replan`` to off: the gate is not ported."""
+    v5e's)."""
     workdir: str                    # checkpoint + heartbeat directories
     devices: int = 8                # full-fleet device budget
     hosts: int = 4                  # simulated hosts (devices % hosts == 0)
@@ -115,7 +123,7 @@ class ElasticConfig:
     max_restarts: int = 4
     heartbeat_timeout_s: float = 2.5   # virtual seconds
     virtual_dt: float = 1.0            # virtual seconds per step
-    audit_replan: bool = False         # the static audit gate
+    audit_replan: bool = True          # the re-plan's audit gate
     straggler_window: int = 50
     straggler_threshold: float = 4.0
     # watchdog fixtures: sleep inside the metered call at these steps so
@@ -162,20 +170,18 @@ def plan_from_dict(d: dict) -> PlanCandidate:
 
 def solve_plan(device_budget: int, cfg: ElasticConfig, calib, *,
                strategies: Optional[Sequence[str]] = None,
-               audit: Optional[bool] = None):
+               audit: Optional[bool] = None, pools=None, device=None):
     """Re-solve dp x tp x pp x k for ``device_budget`` devices: tensor
     plans pin to the FULL budget, phantom plans may downsize; candidates
     are filtered for HBM fit and priced with the calibrated model, and
-    the cheapest in total energy (then by name) wins.  Returns
+    the energy-sorted list (then by name) is walked until one passes the
+    audit (``audit`` or ``cfg.audit_replan``; off: the cheapest wins),
+    each audited with one probe step on ``pools``' ranks of its size
+    (``analysis/units.py: RankPools``, the caller's: the new phase then
+    runs on them) on ``device``.  Returns
     ``(ScoredPlan, audit_results)``; raises RuntimeError when no plan
-    fits.  The static audit (``audit`` or ``cfg.audit_replan``) is not
-    ported and raises."""
+    fits or the audit rejects every one."""
     audit = cfg.audit_replan if audit is None else audit
-    if audit:
-        raise NotImplementedError(
-            f"solve_plan(audit=True): the static audit of a re-plan lowers "
-            f"the step to HLO in the reference; its torch counterpart is "
-            f"not ported ({AUDIT_TODO})")
     candidates = enumerate_plans(
         device_budget, width=cfg.width, depth=cfg.depth, batch=cfg.batch,
         strategies=tuple(strategies or cfg.strategies), ks=cfg.ks,
@@ -189,7 +195,22 @@ def solve_plan(device_budget: int, cfg: ElasticConfig, calib, *,
             f"(width={cfg.width}, strategies={cfg.strategies})")
     scored = score_plans(feasible, calib, iterations=float(cfg.max_steps))
     scored.sort(key=lambda s: (s.energy_j_total, s.plan.name))
-    return scored[0], {}
+    audit_results: Dict[str, dict] = {}
+    if not audit:
+        return scored[0], audit_results
+    if pools is None:
+        raise ValueError("solve_plan(audit=True) audits on the caller's "
+                         "worlds: pass pools (analysis/units.py: RankPools)")
+    from repro_torch.analysis import audit_plans
+    for s in scored:
+        res = audit_plans([s.plan], pools=pools, device=device)
+        audit_results.update(res)
+        if res[s.plan.name]["ok"]:
+            s.notes["audit_ok"] = True
+            return s, audit_results
+    raise RuntimeError(
+        f"the audit rejected every plan for {device_budget} device(s): "
+        f"{ {k: v['errors'][:1] for k, v in audit_results.items()} }")
 
 
 # ---------------------------------------------------------------------------
@@ -397,7 +418,8 @@ def _elastic_rank(axes, device, job: dict) -> dict:
     cfg, plan = job["cfg"], job["plan"]
     tracer, mx = get_tracer(), get_metrics()
     lead = axes.rank == 0
-    # the phase's compile runs from the parent's spawn to the warm step
+    # the phase's compile runs from the parent's t_spawn (its spawn; the
+    # first phase's initial plan) to the warm step
     compile_span = (tracer.begin("elastic/compile", cat="elastic",
                                  plan=plan.name)
                     if lead and tracer.enabled else None)
@@ -521,7 +543,7 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
                 fault_script: Optional[FaultScript] = None,
                 calibration=None, watchdog=None, log_fn=print,
                 device=None, rank_fn=_elastic_rank,
-                step_clock=metered_seconds) -> ElasticResult:
+                step_clock=metered_seconds, pools=None) -> ElasticResult:
     """Train to ``cfg.target_loss`` through scripted host losses, each
     phase's ranks on ``device`` (the card unless the caller asks for the
     CPU).  Detection -> policy -> re-plan -> restore / convert ->
@@ -530,8 +552,11 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
     ``EnergyDriftWatchdog``) watches every phase's steps;
     ``step_clock(step, metered_s, injected_s)`` gives a step's seconds
     (picklable: it reaches the ranks).  ``rank_fn`` is the phase's rank
-    body (a test substitutes a wrapper of ``_elastic_rank``)."""
-    from repro_torch.launch.mesh import spawn
+    body (a test substitutes a wrapper of ``_elastic_rank``).  ``pools``,
+    the caller's ``analysis/units.py: RankPools`` (left open), holds
+    every phase's ranks; else the run's own do, one world per size,
+    closed when the run ends."""
+    from repro_torch.analysis.units import caller_or_own
     from repro_torch.parallel.axes import resolve_device
     from repro_torch.planner.calibration import calibrate_from_ledger
 
@@ -558,140 +583,149 @@ def run_elastic(cfg: ElasticConfig, *, ledger=None,
 
     run_span = tracer.begin("elastic/run", cat="elastic",
                             devices=cfg.devices, width=cfg.width)
-    with tracer.span("elastic/plan", cat="elastic",
-                     devices=cfg.devices) as sp:
-        scored, _ = solve_plan(
-            cfg.devices, cfg, calib,
-            strategies=((cfg.initial_strategy,) if cfg.initial_strategy
-                        else None))
-        sp.annotate(plan=scored.plan.name)
-    log_fn(f"[elastic] initial plan {scored.plan.name} "
-           f"({scored.plan.devices} devices)")
-    phases: List[_Phase] = []
-    recoveries: List[dict] = []
-    handled_dead: set = set()
-    fired: set = set()
-    step = 0
-    loss = float("nan")
-    losses: List[float] = []
-    reached = aborted = False
-    replay_until = 0               # steps below this re-run lost work
-    nxt = dict(scored=scored, replayed=0, restart=False, params_host=None,
-               opt_host=None)
-    while True:
-        start = step
-        stop, new_dead, kills = _play_ahead(cluster, fault_script, fired,
-                                            handled_dead, step, cfg)
-        plan = nxt["scored"].plan
-        t_spawn = time.perf_counter()
-        ranks = spawn(rank_fn, plan.dp, plan.tp, dev, pp=plan.pp,
-                      timeout_s=PHASE_TIMEOUT_S, args=(dict(
-                          cfg=cfg, plan=plan, start=start, stop=stop,
-                          params_host=nxt["params_host"],
-                          opt_host=nxt["opt_host"], ckpt_dir=ckpt_dir,
-                          detector=detector, policy=policy,
-                          t_spawn=t_spawn, replay_until=replay_until,
-                          watchdog=(None if watchdog is None else
-                                    dataclasses.replace(watchdog,
-                                                        ledger=None)),
-                          step_clock=step_clock),))
-        r0 = ranks[0]
-        phase = _Phase(nxt["scored"], start, nxt["replayed"],
-                       r0["ready"] - t_spawn, nxt["restart"])
-        phase.close(ranks)
-        phases.append(phase)
-        detector = r0["detector"]
-        if watchdog is not None:
-            for f in dataclasses.fields(watchdog):
-                if f.name != "ledger":
-                    setattr(watchdog, f.name, getattr(r0["watchdog"],
-                                                      f.name))
-        for event in r0["events"]:
-            if ledger is not None:
-                ledger.record(event)
-        losses += r0["losses"]
-        meter.times_us += r0["step_us"]
-        step = r0["final_step"]
-        if r0["losses"]:
-            loss = r0["losses"][-1]
-        for s, host in kills:
-            if s < step or (s == stop and not r0["reached"]):
-                log_fn(f"[elastic] step {s}: host {host} lost")
-        if r0["reached"]:
-            reached = True
-            break
-        if not new_dead:
-            break                       # max_steps
-        handled_dead.update(new_dead)
-        tracer.instant("elastic/detect", cat="elastic", step=step,
-                       dead_hosts=sorted(new_dead))
-        metrics.counter(
-            "elastic_host_failures_total",
-            "hosts declared dead by the heartbeat monitor").inc(
-                len(new_dead))
-        decision = policy.on_host_failure(new_dead, None)
-        survivors = cfg.hosts - len(handled_dead)
-        alive = devices_per_host * survivors
-        if decision == "abort" or alive < 1:
-            log_fn(f"[elastic] step {step}: "
-                   f"{decision if alive else 'no survivors'}"
-                   f" ({len(handled_dead)}/{cfg.hosts} hosts dead)")
-            aborted = True
-            break
-        with tracer.span("elastic/replan", cat="elastic",
-                         alive_devices=alive) as sp:
-            t_replan = time.perf_counter()
-            new_scored, _ = solve_plan(alive, cfg, calib)
-            replan_s = time.perf_counter() - t_replan
-            sp.annotate(plan=new_scored.plan.name)
-        with tracer.span("elastic/restore", cat="elastic") as sp:
-            t_restore = time.perf_counter()
-            latest = mgr.latest_step()
-            params_host = opt_host = None
-            distilled = False
-            restored_step = 0
-            if latest is not None:
-                index, flat = mgr.load_host(latest)
-                restored_step = int(index["step"])
-                nested = _nest(flat)
-                meta_plan = index.get("meta", {}).get("plan")
-                plan_old = (plan_from_dict(meta_plan) if meta_plan
-                            else phases[-1].plan)
-                params_host, opt_host, distilled = convert_ffn_params(
-                    plan_old, new_scored.plan, nested.get("params", {}),
-                    nested.get("opt") or None)
-                mgr.invalidate_after(restored_step)
-            restore_s = time.perf_counter() - t_restore
-            sp.annotate(distilled=distilled, restored_step=restored_step)
-        replayed = max(step - restored_step, 0)
-        recoveries.append({
-            "detect_step": step, "restored_step": restored_step,
-            "dead_hosts": sorted(handled_dead),
-            "devices_before": plan.devices,
-            "devices_after": new_scored.plan.devices,
-            "plan_before": plan.name,
-            "plan_after": new_scored.plan.name,
-            "replayed_steps": replayed, "distilled": distilled,
-            "from_scratch": latest is None,
-            "restore_s": restore_s, "replan_s": replan_s,
-            "decision": decision,
-            "audit_ok": bool(new_scored.notes.get("audit_ok",
-                                                  not cfg.audit_replan)),
-        })
-        log_fn(f"[elastic] step {step}: re-planned onto "
-               f"{new_scored.plan.name} ({new_scored.plan.devices} of "
-               f"{alive} surviving devices), restored "
-               f"step {restored_step}"
-               + (" [distilled]" if distilled else "")
-               + f", replaying {replayed} step(s)")
-        metrics.counter(
-            "elastic_recoveries_total",
-            "elastic re-plan/restore/resume cycles").inc(
-                distilled=str(distilled).lower())
-        nxt = dict(scored=new_scored, replayed=replayed, restart=True,
-                   params_host=params_host, opt_host=opt_host)
-        replay_until = step
-        step = restored_step
+    with caller_or_own(pools, dev, PHASE_TIMEOUT_S) as pools:
+        t_plan = time.perf_counter()
+        with tracer.span("elastic/plan", cat="elastic",
+                         devices=cfg.devices) as sp:
+            scored, _ = solve_plan(
+                cfg.devices, cfg, calib,
+                strategies=((cfg.initial_strategy,) if cfg.initial_strategy
+                            else None), pools=pools, device=dev)
+            sp.annotate(plan=scored.plan.name)
+        log_fn(f"[elastic] initial plan {scored.plan.name} "
+               f"({scored.plan.devices} devices)")
+        phases: List[_Phase] = []
+        recoveries: List[dict] = []
+        handled_dead: set = set()
+        fired: set = set()
+        step = 0
+        loss = float("nan")
+        losses: List[float] = []
+        reached = aborted = False
+        replay_until = 0               # steps below this re-run lost work
+        nxt = dict(scored=scored, replayed=0, restart=False, params_host=None,
+                   opt_host=None, t_start=t_plan)
+        while True:
+            start = step
+            stop, new_dead, kills = _play_ahead(cluster, fault_script, fired,
+                                                handled_dead, step, cfg)
+            plan = nxt["scored"].plan
+            # the first phase's compile_s (and its elastic/compile span)
+            # starts with the initial plan and its audit, which start the
+            # first world; a recovery's re-plan is its replan_s
+            t_spawn = nxt["t_start"] or time.perf_counter()
+            job = dict(cfg=cfg, plan=plan, start=start, stop=stop,
+                       params_host=nxt["params_host"],
+                       opt_host=nxt["opt_host"],
+                       ckpt_dir=ckpt_dir, detector=detector, policy=policy,
+                       t_spawn=t_spawn, replay_until=replay_until,
+                       watchdog=(None if watchdog is None else
+                                 dataclasses.replace(watchdog, ledger=None)),
+                       step_clock=step_clock)
+            ranks = pools.get(plan.devices).run(
+                rank_fn, plan.dp, plan.tp, (job,), pp=plan.pp,
+                timeout_s=PHASE_TIMEOUT_S)
+            r0 = ranks[0]
+            phase = _Phase(nxt["scored"], start, nxt["replayed"],
+                           r0["ready"] - t_spawn, nxt["restart"])
+            phase.close(ranks)
+            phases.append(phase)
+            detector = r0["detector"]
+            if watchdog is not None:
+                for f in dataclasses.fields(watchdog):
+                    if f.name != "ledger":
+                        setattr(watchdog, f.name, getattr(r0["watchdog"],
+                                                          f.name))
+            for event in r0["events"]:
+                if ledger is not None:
+                    ledger.record(event)
+            losses += r0["losses"]
+            meter.times_us += r0["step_us"]
+            step = r0["final_step"]
+            if r0["losses"]:
+                loss = r0["losses"][-1]
+            for s, host in kills:
+                if s < step or (s == stop and not r0["reached"]):
+                    log_fn(f"[elastic] step {s}: host {host} lost")
+            if r0["reached"]:
+                reached = True
+                break
+            if not new_dead:
+                break                       # max_steps
+            handled_dead.update(new_dead)
+            tracer.instant("elastic/detect", cat="elastic", step=step,
+                           dead_hosts=sorted(new_dead))
+            metrics.counter(
+                "elastic_host_failures_total",
+                "hosts declared dead by the heartbeat monitor").inc(
+                    len(new_dead))
+            decision = policy.on_host_failure(new_dead, None)
+            survivors = cfg.hosts - len(handled_dead)
+            alive = devices_per_host * survivors
+            if decision == "abort" or alive < 1:
+                log_fn(f"[elastic] step {step}: "
+                       f"{decision if alive else 'no survivors'}"
+                       f" ({len(handled_dead)}/{cfg.hosts} hosts dead)")
+                aborted = True
+                break
+            with tracer.span("elastic/replan", cat="elastic",
+                             alive_devices=alive) as sp:
+                t_replan = time.perf_counter()
+                new_scored, _ = solve_plan(alive, cfg, calib, pools=pools,
+                                           device=dev)
+                replan_s = time.perf_counter() - t_replan
+                sp.annotate(plan=new_scored.plan.name)
+            with tracer.span("elastic/restore", cat="elastic") as sp:
+                t_restore = time.perf_counter()
+                latest = mgr.latest_step()
+                params_host = opt_host = None
+                distilled = False
+                restored_step = 0
+                if latest is not None:
+                    index, flat = mgr.load_host(latest)
+                    restored_step = int(index["step"])
+                    nested = _nest(flat)
+                    meta_plan = index.get("meta", {}).get("plan")
+                    plan_old = (plan_from_dict(meta_plan) if meta_plan
+                                else phases[-1].plan)
+                    params_host, opt_host, distilled = convert_ffn_params(
+                        plan_old, new_scored.plan, nested.get("params", {}),
+                        nested.get("opt") or None)
+                    mgr.invalidate_after(restored_step)
+                restore_s = time.perf_counter() - t_restore
+                sp.annotate(distilled=distilled, restored_step=restored_step)
+            replayed = max(step - restored_step, 0)
+            recoveries.append({
+                "detect_step": step, "restored_step": restored_step,
+                "dead_hosts": sorted(handled_dead),
+                "devices_before": plan.devices,
+                "devices_after": new_scored.plan.devices,
+                "plan_before": plan.name,
+                "plan_after": new_scored.plan.name,
+                "replayed_steps": replayed, "distilled": distilled,
+                "from_scratch": latest is None,
+                "restore_s": restore_s, "replan_s": replan_s,
+                "decision": decision,
+                "audit_ok": bool(new_scored.notes.get("audit_ok",
+                                                      not cfg.audit_replan)),
+            })
+            log_fn(f"[elastic] step {step}: re-planned onto "
+                   f"{new_scored.plan.name} ({new_scored.plan.devices} of "
+                   f"{alive} surviving devices"
+                   + (", audit ok" if new_scored.notes.get("audit_ok") else "")
+                   + "), restored "
+                   f"step {restored_step}"
+                   + (" [distilled]" if distilled else "")
+                   + f", replaying {replayed} step(s)")
+            metrics.counter(
+                "elastic_recoveries_total",
+                "elastic re-plan/restore/resume cycles").inc(
+                    distilled=str(distilled).lower())
+            nxt = dict(scored=new_scored, replayed=replayed, restart=True,
+                       params_host=params_host, opt_host=opt_host,
+                       t_start=None)
+            replay_until = step
+            step = restored_step
 
     phase_dicts = [p.as_dict() for p in phases]
     account = recovery_account(phase_dicts, recoveries)

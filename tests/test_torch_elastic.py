@@ -5,15 +5,18 @@ CPU ranks), and against the reference's run on the same config and
 script.
 
 Width 32, depth 2, batch 16, 8 devices on 4 hosts, tensor_col first,
-ks (4,), checkpoints every 5 steps, the audit gate off, target 1e-9
+ks (4,), checkpoints every 5 steps, the audit gate off (as in the
+reference's tests; ``test_unported_gates_raise`` and the CLI run hold it
+on), target 1e-9
 (never reached: every run goes to ``max_steps``).  The port's weights
 and batches are not the reference's (its batches come from numpy, its
 draws from torch), so losses are not compared; the plans, the recovery
 fields and the account's step counts are, with the reference's peak
 given to the port's scoring.  Also: the CLI run of the acceptance
 command (with a slow step, a trace and metrics), the energy-drift
-watchdog over a run on an injected step clock, and what raises: a device
-budget that does not divide over the hosts, the audit gate, a repo-root
+watchdog over a run on an injected step clock, the re-plan's audit gate
+against the reference's (``solve_plan(audit=True)``), and what raises: a
+device budget that does not divide over the hosts, a repo-root
 ``--report-out``."""
 import contextlib
 import functools
@@ -234,19 +237,41 @@ def test_devices_must_divide_hosts(tmp_path):
 
 
 def test_unported_gates_raise(tmp_path):
-    """The re-plan audit (item 8 part 4) raises, naming its ROADMAP
-    item; the watchdog with its slow-step fixtures (part 3, raising
-    until it was ported) watches a run: on an injected step clock the
-    slow step is the one trip, and the watchdog's state crossed the
+    """The gates that raised until they were ported now run.  The
+    re-plan audit (item 8 part 4): ``ElasticConfig.audit_replan``
+    defaults to on, as the reference's, and ``solve_plan(audit=True)``
+    walks the energy-sorted candidates, on the caller's worlds (without
+    them it raises), until one passes the audit, here
+    the first, which is the reference's audited plan on the same
+    budget, config and calibration (scored at the reference's peak);
+    its audit record passed with 0 errors.  The watchdog with its
+    slow-step fixtures (part 3) watches a run: on an injected step clock
+    the slow step is the one trip, and the watchdog's state crossed the
     phase's ranks back to the caller."""
+    from repro.train.elastic import solve_plan as jax_solve_plan
+    from repro_torch.analysis.units import RankPools
     from repro_torch.obs import EnergyDriftWatchdog
     from torch_ranks import VirtualStepClock
-    cfg = _cfg(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8 part 4"):
-        solve_plan(8, cfg, paper_default_calibration(), audit=True)
-    with pytest.raises(NotImplementedError, match="item 8 part 4"):
-        run_elastic(_cfg(tmp_path, audit_replan=True), log_fn=_quiet,
-                    device="cpu")
+    assert ElasticConfig(workdir=str(tmp_path)).audit_replan is True
+    assert JElasticConfig(workdir=str(tmp_path)).audit_replan is True
+    cfg = _cfg(tmp_path, devices=6, hosts=3)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(elastic, "score_plans", functools.partial(
+            score_plans, peak_flops=TPU_PEAK_FLOPS))
+        with pytest.raises(ValueError, match="pass pools"):
+            solve_plan(6, cfg, paper_default_calibration(), audit=True,
+                       device="cpu")
+        with RankPools("cpu") as pools:
+            got, audit = solve_plan(6, cfg, paper_default_calibration(),
+                                    audit=True, device="cpu", pools=pools)
+    jcfg = JElasticConfig(**dict(BASE, devices=6, hosts=3,
+                                 workdir=str(tmp_path / "jax")))
+    want, jaudit = jax_solve_plan(6, jcfg, jpaper(), audit=True)
+    assert got.plan.name == want.plan.name
+    assert got.notes["audit_ok"] and want.notes["audit_ok"]
+    assert list(audit) == list(jaudit) == [got.plan.name]
+    assert audit[got.plan.name]["ok"] and \
+        audit[got.plan.name]["counts"]["error"] == 0
     ledger = Ledger(run="t")
     wd = EnergyDriftWatchdog(min_samples=3, ledger=ledger)
     res = run_elastic(_cfg(tmp_path / "slow", devices=2, hosts=2,
@@ -284,7 +309,8 @@ def test_cli_survives_a_loss_and_reaches_the_target(tmp_path):
                          "--report", str(out)]) == 0
     log = buf.getvalue()
     assert rc == 0, log
-    assert "static audit gate off" in log
+    # the re-plan passed its audit (the gate is on, as the reference's)
+    assert "surviving devices, audit ok), restored" in log
     assert "step 25: host host3 lost" in log and "REACHED" in log
     assert "[obs] watchdog:" in log and "[obs] trace ->" in log
     assert "elastic_recoveries_total" in open(prom).read()
@@ -307,5 +333,5 @@ def test_cli_survives_a_loss_and_reaches_the_target(tmp_path):
                                       "p"])
     assert (args.slow_step, args.slow_factor, args.profile_dir) == \
         ([3, 7], 6.0, "p")
-    with pytest.raises(NotImplementedError, match="item 8 part 4"):
+    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
         main(["--elastic", "--overlap", "1"])

@@ -338,7 +338,8 @@ def plans(tmp_path_factory, pool):
         pool.run(torch_ranks.install_pilot_draws, 1, 4,
                  (_reference_draws(),))
         args = plan_cli.build_parser().parse_args(REF_ARGV + [
-            "--device", "cpu", "--out", str(root / "build" / "plan.json"),
+            "--device", "cpu", "--no-audit",
+            "--out", str(root / "build" / "plan.json"),
             "--trace-out", str(root / "trace.json"), "--metrics-out",
             str(root / "m.jsonl")])
         with obs_cli.obs_session(args.trace_out, args.metrics_out,
@@ -559,6 +560,7 @@ def test_launcher_writes_trace_and_metrics(tmp_path, launcher, capsys):
         metric = "serve_decode_tokens_total"
     else:
         rc = plan_cli.main(REF_ARGV + ["--no-pilots", "--device", "cpu",
+                                       "--no-audit",
                                        "--out", str(tmp_path / "p.json")]
                            + obs)
         want = {"plan/calibrate", "plan/enumerate", "plan/score"}

@@ -34,8 +34,12 @@ def test_every_module_imports_without_jax_or_repro():
     (the SSM family's ``models/ssm.py`` among them), and no module of the
     JAX package is loaded afterwards."""
     assert {"repro_torch.models.ssm", "repro_torch.obs",
-            "repro_torch.obs.watchdog",
-            "repro_torch.launch.obs"} <= set(_modules())
+            "repro_torch.obs.watchdog", "repro_torch.launch.obs",
+            "repro_torch.analysis", "repro_torch.analysis.units",
+            "repro_torch.analysis.rules", "repro_torch.analysis.lint",
+            "repro_torch.analysis.engine", "repro_torch.analysis.findings",
+            "repro_torch.launch.audit",
+            "repro_torch.launch.dryrun"} <= set(_modules())
     code = (
         "import importlib, sys\n"
         "sys.modules['jax'] = None\n"
@@ -144,6 +148,37 @@ def _default(f):
 def test_every_arch_of_the_port_is_held_to_the_reference():
     from repro_torch.configs.base import _MODULES
     assert sorted(_MODULES) == sorted(PORTED_ARCHS)
+
+
+def test_arch_ids_equal_the_references():
+    """The dry run's ``--all`` walks the reference's architectures, in
+    its order."""
+    from repro.configs.base import ARCH_IDS as JAX_ARCH_IDS
+    from repro_torch.configs.base import ARCH_IDS
+    assert ARCH_IDS == JAX_ARCH_IDS
+    assert set(ARCH_IDS) <= set(PORTED_ARCHS)
+
+
+@pytest.mark.parametrize("kw", [{"k": 4}, {"variant": "ring"},
+                                {"k": 16, "include_self_term": True},
+                                {"kernel_backend": "pallas"}])
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "qwen2.5-14b",
+                                  "olmoe-1b-7b", "jamba-1.5-large-398b"])
+def test_with_phantom_overrides_equals_reference(arch, kw):
+    """``with_phantom_overrides`` (the dry run's ``--variant`` and
+    ``--set phantom.*``) sets the legacy phantom sub-config and every
+    phantom-family entry of the projection map as the reference's does:
+    every field and every site's resolved spec."""
+    from repro.configs.base import with_phantom_overrides as jax_over
+    from repro_torch.configs.base import (PROJECTION_SITES,
+                                          with_phantom_overrides)
+    names = [f.name for f in dataclasses.fields(ModelConfig)]
+    ours = with_phantom_overrides(get_config(arch), **kw)
+    theirs = jax_over(jax_get_config(arch), **kw)
+    assert _fields(ours, names) == _fields(theirs, names)
+    for site in PROJECTION_SITES:
+        assert dataclasses.asdict(ours.projection_spec(site)) == \
+            dataclasses.asdict(theirs.projection_spec(site))
 
 
 def test_reference_fields_the_port_lacks():

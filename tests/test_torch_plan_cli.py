@@ -88,9 +88,17 @@ def test_plan_cli_writes_schema_valid_report(cli):
     assert report["comparison"]["phantom_dominates"] is True
     # the winner is applied-ready: it carries a projection spec
     assert report["winner"]["plan"]["projection_spec"]["kind"]
-    # the port's differences: no audit, the H100's budget
-    assert "audit" not in report
-    assert "# audit: not ported (ROADMAP.md queue 1, item 8 part 4)" in log
+    # the frontier's audit, as the reference's: every frontier plan was
+    # audited on CPU ranks of its mesh and passed (a failed one would
+    # have left the frontier), and the log says so
+    assert sorted(report["audit"]) and all(
+        r["ok"] and r["counts"]["error"] == 0
+        for r in report["audit"].values())
+    assert {s["plan"]["name"] for s in report["frontier"]} <= \
+        set(report["audit"])
+    assert (f"# audit: {len(report['audit'])} frontier plans checked, "
+            f"0 rejected") in log
+    # the port's difference: the H100's budget
     assert report["constraints"]["hbm_bytes_per_device"] == 80e9
     assert report["meta"]["argv"]["device"] == "cpu"
 
@@ -122,9 +130,9 @@ def test_parser_defaults():
 
 
 def test_compiled_hbm_check_on_the_cpu_keeps_the_frontier(tmp_path):
-    base = REF_ARGV + ["--no-pilots", "--device", "cpu"]
+    base = REF_ARGV + ["--no-pilots", "--device", "cpu", "--no-audit"]
     rc, _ = _plan(base + ["--out", str(tmp_path / "a.json")])
-    rc2, log = _plan(base + ["--compiled-hbm-check", "--no-audit",
+    rc2, log = _plan(base + ["--compiled-hbm-check",
                              "--out", str(tmp_path / "b.json")])
     assert rc == rc2 == 0
     assert "# audit" not in log
@@ -150,7 +158,7 @@ def test_ledger_calibration_and_repo_root_out(tmp_path):
     ledger = tmp_path / "ledger.jsonl"
     ledger.write_text("".join(json.dumps(r) + "\n" for r in rows))
     rc, log = _plan(REF_ARGV + ["--no-pilots", "--device", "cpu",
-                                "--ledger", str(ledger),
+                                "--no-audit", "--ledger", str(ledger),
                                 "--out", str(tmp_path / "r.json")])
     assert rc == 0 and f"ledger-fit ({ledger})" in log
     calib = load_plan_report(str(tmp_path / "r.json"))["calibration"]
@@ -178,9 +186,12 @@ def test_hbm_readings_on_the_cpu_are_none():
 
 def test_plan_takes_the_callers_pilots(cli, tmp_path):
     """``plan(args, iso=pilots(args))``, as ``chip_smoke.py`` runs it,
-    gives the report that ``plan(args)`` gives (the pilots are seeded)."""
+    gives the report that ``plan(args)`` gives (the pilots are seeded;
+    the audit, which rejected no plan of ``plan(args)``'s frontier, is
+    left out here)."""
     args = plan_cli.build_parser().parse_args(
-        REF_ARGV + ["--device", "cpu", "--out", str(tmp_path / "r.json")])
+        REF_ARGV + ["--device", "cpu", "--no-audit", "--out",
+                    str(tmp_path / "r.json")])
     iso = plan_cli.pilots(args)
     with contextlib.redirect_stdout(io.StringIO()):
         got = plan_cli.plan(args, iso=iso)
@@ -270,7 +281,7 @@ def test_train_main_applies_the_plan(cli, capfd, tmp_path):
     the winner's 2 ranks' steps under its pid, ``--metrics-out`` rank
     0's step count, and ``--profile-dir`` gives each rank a watchdog
     (``--slow-step`` is the elastic path's and parses here too, as in
-    the reference); ``--overlap`` (item 8 part 4) raises."""
+    the reference); ``--overlap`` (queue 2 item 8) raises."""
     from repro_torch.obs import load_trace, span_events
     trace, prom = str(tmp_path / "t.json"), str(tmp_path / "m.jsonl")
     rc = torch_train.main(["--plan", str(cli[2]), "--device", "cpu",
@@ -292,5 +303,5 @@ def test_train_main_applies_the_plan(cli, capfd, tmp_path):
     losses = [float(v) for v in re.findall(
         r"\[trainer\] step \d+ loss (\S+) gnorm", out)]
     assert losses and all(math.isfinite(v) for v in losses), out
-    with pytest.raises(NotImplementedError, match="item 8 part 4"):
+    with pytest.raises(NotImplementedError, match="queue 2, item 8"):
         torch_train.main(["--overlap", "1", "--device", "cpu"])

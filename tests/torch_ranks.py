@@ -1225,3 +1225,31 @@ def obs_trainer_body(axes, device, root, steps):
     trainer.run(trainer.init_state(0), steps)
     return {"rank": axes.rank, "trips": [t.as_dict() for t in wd.trips],
             "captures": list(wd.captures)}
+
+
+def dry_run_parity_body(axes, device, cases):
+    """For each ``(cfg, batch, seq)``: one train step of ``cfg`` on this
+    rank's rows of ``LMDataset``'s batch, from drawn parameters and fresh
+    optimizer state, counted (``telemetry/counted.py: count_step``): the
+    flops, the wire bytes and the logged collectives the dry run's step
+    must equal (``tests/test_torch_dryrun.py``)."""
+    from repro_torch.data.synthetic import LMDataset
+    from repro_torch.optim import make_optimizer
+    from repro_torch.parallel.params import materialize_shards
+    from repro_torch.telemetry.counted import count_step
+    from repro_torch.train.trainer import local_rows, make_train_step
+    out = []
+    for cfg, batch, seq in cases:
+        opt = make_optimizer(cfg.optimizer, 3e-4, weight_decay=0.1)
+        step_fn, decls, _ = make_train_step(cfg, axes, opt, device=device,
+                                            microbatches=cfg.microbatches)
+        params = materialize_shards(decls, axes, 0, device)
+        rows = local_rows(LMDataset(cfg.vocab_size, batch, seq + 1,
+                                    device=device)(0), axes)
+        costs, _ = count_step(step_fn, params, opt.init(params), 0, rows,
+                              device=device)
+        out.append({"flops": costs.flops,
+                    "wire": costs.collective_wire_bytes,
+                    "collectives": {k: (r["count"], r["m_floats"])
+                                    for k, r in costs.collectives.items()}})
+    return out
